@@ -1,0 +1,147 @@
+"""Carry weights across from the JAX package, without JAX.
+
+- `tnet_state_dict_from_jax(params, cfg)`: the JAX `init_tnet` pytree (as
+  numpy arrays) -> this package's T_net state_dict, the exact inverse of
+  rcot_tpu/compat/torch_port.py port_tnet_state_dict (HWIO -> OIHW).
+- `load_jax_npz(path)`: read a JAX-package checkpoint (.npz of '/'-joined
+  tree paths plus a JSON blob under '__rcot_meta__'): a raw T-params npz
+  (metadata carries "backbone") or a trainer checkpoint, whose T_net lives
+  under the 't_params/' prefix of the saved TrainState.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+
+from ..utils.config import ModelConfig, model_config_from_dict
+
+META_KEY = "__rcot_meta__"
+SEP = "/"
+TRAIN_STATE_PREFIX = "t_params"
+
+
+def _conv(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = np.transpose(np.asarray(p["w"]), (3, 2, 0, 1))
+    if "b" in p:
+        sd[prefix + ".bias"] = np.asarray(p["b"])
+
+
+def _ln(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".body.weight"] = np.asarray(p["w"])
+    if "b" in p:
+        sd[prefix + ".body.bias"] = np.asarray(p["b"])
+
+
+def _block(sd: Dict, prefix: str, p: Mapping) -> None:
+    _ln(sd, prefix + ".norm1", p["norm1"])
+    at = p["attn"]
+    sd[prefix + ".attn.temperature"] = np.asarray(at["temperature"])
+    _conv(sd, prefix + ".attn.qkv", at["qkv"])
+    _conv(sd, prefix + ".attn.qkv_dwconv", at["qkv_dw"])
+    _conv(sd, prefix + ".attn.project_out", at["proj"])
+    _ln(sd, prefix + ".norm2", p["norm2"])
+    f = p["ffn"]
+    _conv(sd, prefix + ".ffn.project_in", f["proj_in"])
+    _conv(sd, prefix + ".ffn.dwconv", f["dw"])
+    _conv(sd, prefix + ".ffn.project_out", f["proj_out"])
+
+
+def _stack(sd: Dict, prefix: str, ps) -> None:
+    for i, p in enumerate(ps):
+        _block(sd, f"{prefix}.{i}", p)
+
+
+def _resample(sd: Dict, prefix: str, p: Mapping) -> None:
+    _conv(sd, prefix + ".body.0", p["conv"])
+
+
+_STACKS = ("encoder_level1", "resencoder_level1", "encoder_level2",
+           "resencoder_level2", "encoder_level3", "resencoder_level3",
+           "latent", "reslatent", "decoder_level3", "decoder_level2",
+           "decoder_level1", "refinement")
+_RESAMPLES = ("down1_2", "resdown1_2", "down2_3", "resdown2_3", "down3_4",
+              "up4_3", "up3_2", "up2_1")
+_CONVS = ("reduce_chan_level3", "reduce_noise_level3", "reduce_chan_level2",
+          "reduce_noise_level2", "reduce_noise_level1", "output")
+_BLOCKS = ("noise_level3", "noise_level2", "noise_level1")
+_UNUSED_CONVS = ("chnl_reduce1", "chnl_reduce2", "chnl_reduce3",
+                 "reduce_noise_channel_1", "reduce_noise_channel_2",
+                 "reduce_noise_channel_3", "resreduce_noise_level3")
+
+
+def tnet_state_dict_from_jax(params: Mapping, cfg: ModelConfig
+                             ) -> Dict[str, np.ndarray]:
+    """JAX init_tnet pytree -> reference-named state_dict of numpy arrays
+    (torch.from_numpy-able; load with TNet.load_state_dict(strict=True))."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv(sd, "patch_embed.proj", params["patch_embed"])
+    for name in _STACKS:
+        _stack(sd, name, params[name])
+    for name in _RESAMPLES:
+        _resample(sd, name, params[name])
+    for name in _CONVS:
+        _conv(sd, name, params[name])
+    for name in _BLOCKS:
+        _block(sd, name, params[name])
+    if cfg.parity_params:
+        u = params["unused"]
+        _conv(sd, "res_patch_embed.proj", u["res_patch_embed"])
+        for name in _UNUSED_CONVS:
+            _conv(sd, name, u[name])
+        _resample(sd, "resdown3_4", u["resdown3_4"])
+        _block(sd, "resnoise_level3", u["resnoise_level3"])
+    return sd
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]):
+    """'/'-joined paths -> nested dicts; a dict whose keys are 0..n-1
+    becomes a list (the JAX pytree's block stacks)."""
+    root: Dict = {}
+    for key, val in flat.items():
+        node = root
+        parts = key.split(SEP)
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = val
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: fix(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return fix(root)
+
+
+def load_jax_npz(path: str, cfg: ModelConfig = ModelConfig()
+                 ) -> Tuple[Dict[str, np.ndarray], ModelConfig]:
+    """JAX-package .npz checkpoint -> (T_net state_dict, ModelConfig).
+
+    A trainer checkpoint's own `config.model` metadata wins over `cfg`."""
+    if os.path.islink(path):
+        path = os.path.join(os.path.dirname(path), os.readlink(path))
+    with np.load(path) as z:
+        meta = (json.loads(bytes(z[META_KEY].tobytes()).decode())
+                if META_KEY in z else {})
+        flat = {k: z[k] for k in z.files if k != META_KEY}
+    backbone = meta.get("backbone")
+    if backbone is None:
+        model_meta = meta.get("config", {}).get("model")
+        if model_meta:
+            cfg = model_config_from_dict(model_meta)
+        backbone = cfg.backbone
+        lead = TRAIN_STATE_PREFIX + SEP
+        flat = {k[len(lead):]: v for k, v in flat.items() if k.startswith(lead)}
+        if not flat:
+            raise ValueError(f"{path}: no '{TRAIN_STATE_PREFIX}/' entries; "
+                             "not a T_net checkpoint")
+    if backbone != "restormer":
+        raise ValueError(f"{path}: backbone {backbone!r} is not ported yet")
+    return tnet_state_dict_from_jax(_unflatten(flat), cfg), cfg
+

@@ -1,0 +1,152 @@
+"""Build and load the port's CUDA kernels.
+
+Every `rcot_torch/csrc/*.cu` file is compiled with nvcc for sm_90a, each
+source by its own nvcc process and all of them at once, then linked into
+one shared library with a plain C interface that ctypes loads. Nothing is
+built when a module is imported: the first kernel launch builds, into
+`build/kernels/` at the root of the checkout, under a name that hashes the
+sources and flags, so a changed source is rebuilt and an unchanged one is
+loaded as it is.
+
+Each C entry point returns cudaGetLastError() (or the error of a failed
+set-up call); `call` raises when it is not 0. Launch counts live in
+`LAUNCHES`, one per kernel wrapper, raised by the wrappers exactly where
+they launch.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
+
+# name -> launches, raised by the wrapper of that kernel
+LAUNCHES: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+SIGNATURES = {
+    "rcot_block_head": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rcot_block_tail": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
+    "rcot_mdta_gram": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
+    "rcot_attn_apply": [_P, _P, _P, _I, _L, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if not home:
+        from torch.utils.cpp_extension import CUDA_HOME
+        home = CUDA_HOME
+    cand = Path(home) / "bin" / "nvcc" if home else None
+    if cand is not None and cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the sources (in parallel) and link the library; returns its
+    path. The compiler's output, register and shared-memory use included,
+    is kept beside it in build.log."""
+    srcs = sources()
+    lib = build_dir / f"librcot_kernels_{_digest(srcs)}.so"
+    if lib.exists():
+        return lib
+    build_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        objs, procs = [], []
+        for s in srcs:
+            obj = Path(tmp) / (s.stem + ".o")
+            objs.append(obj)
+            procs.append((s, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for s, p in procs:
+            out, _ = p.communicate()
+            log.append(f"== {s.name} (rc {p.returncode})\n{out}")
+            if p.returncode != 0:
+                failed.append(s.name)
+        if not failed:
+            tmp_lib = Path(tmp) / lib.name
+            link = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o",
+                 str(tmp_lib)], capture_output=True, text=True)
+            log.append(f"== link (rc {link.returncode})\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        (build_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"kernel build failed ({', '.join(failed)}):\n"
+                               + "\n".join(log))
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def call(name: str, *args) -> None:
+    """Run one C entry point; raise on a CUDA error."""
+    rc = getattr(library(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with cudaError {rc}")
+
+
+def ptr(t) -> int:
+    """Device pointer of a tensor, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def check_arg(name: str, t, shape, device) -> None:
+    """Raise unless t is None or a contiguous float32 tensor of this shape
+    on this device: what the kernels take."""
+    if t is None:
+        return
+    if (t.dtype != torch.float32 or t.device != device
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+        raise ValueError(f"{name}: need contiguous float32 {tuple(shape)} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device} (contiguous={t.is_contiguous()})")
