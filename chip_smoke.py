@@ -5,8 +5,11 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from rcot_torch/csrc with nvcc (sm_90a);
-  3. hold each kernel against its plain PyTorch twin on the card at every
-     block shape of a 256x256 forward, B = 1 and 2, both LayerNorm types;
+  3. hold each forward kernel against its plain PyTorch twin on the card at
+     every block shape of a 256x256 forward, B = 1 and 2, both LayerNorm
+     types;
+  3b. hold each backward kernel against its plain twin at every block
+     shape of the training path (128x128, B = 3), both LayerNorm types;
   4. serve the full-width T_net (ModelConfig(), 46,853,150 parameters,
      seeded random weights) through make_restorer: restore_batch on 256^2
      images plus a 250x321 one, and a tiled 600x600 restore; check shapes,
@@ -17,7 +20,16 @@ Phases (any failure exits non-zero; nothing is caught):
      level-1 and latent shapes beside its bound, its plain twin and, where
      one exists, a single PyTorch call computing the same product; split
      one 256 px forward into the four kernels (each timed at every block
-     shape, times the blocks at that shape) and the rest.
+     shape, times the blocks at that shape) and the rest;
+  6. train at full width: create_train_state(Config()) (T_net 46,853,150
+     and F_net 30,588,609 parameters, seeded), three minimax iterations
+     (make_train_iteration) at 128^2, B = 3, de_id 0/3/4, paired then
+     unpaired twice; check finite metrics, that every used parameter moved
+     and that each of the eight kernels ran 94 times per iteration; compare
+     the T_net and F_net gradients and one iteration's metrics with the
+     same state on the CPU at 64^2, B = 1; time iterations/s, every kernel
+     at the training shapes, and split one iteration into forward kernels,
+     backward kernels, the critic and the rest.
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
 plain twins and the CPU reference run in full fp32. Kernel agreement is
@@ -27,7 +39,20 @@ every pixel with cancelling terms, and in fp32 on the card the twin's own
 rounding comes near the tolerance (printed as
 gram_plain_fp32_vs_float64_rel_err), while the kernel, which adds its
 partial sums with atomics in no fixed order, stays an order of magnitude
-inside it.
+inside it. The backward kernels are held the same way: their per-pixel
+outputs (dx, da, d[q|k], dv) against the fp32 twin, their pixel sums
+(weight, LayerNorm and dattn grads, summed over up to 3 * 128^2 pixels,
+added with atomics) against the float64 twin, all at the same bound. Card
+against CPU in training: each parameter's gradient within GRAD_RTOL of its
+largest entry (fp32 through the whole T_net and F_net, forward and
+backward, in another order of sums; the worst seen was 4.1e-5), each
+metric m within METRIC_RTOL * max(|m|, 1) (f_wgan is a difference of mean
+critic scores that nearly cancels at initialisation, |f_wgan| ~ 1e-5, so
+an error relative to the metric alone says nothing there). f_gp, t_loss
+and t_adv are read at the critic after one or two RMSprop steps, which
+move every entry with a near-zero gradient by about +-10 lr with a sign
+that the order of sums decides; they are held to STEPPED_RTOL (the worst
+seen was 2.9e-4, t_adv).
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 """
@@ -49,13 +74,22 @@ from rcot_torch.models.inference import make_restorer
 from rcot_torch.models.restormer import TNet, count_params
 from rcot_torch.ops import block as kblock
 from rcot_torch.ops import gram as kgram
-from rcot_torch.utils.config import ModelConfig
+from rcot_torch.train import losses
+from rcot_torch.train.optim import step_decay_lr
+from rcot_torch.train.steps import Batch, create_train_state, make_train_iteration
+from rcot_torch.utils.config import Config, CriticConfig, ModelConfig, TrainConfig
 
 PEAK_FLOPS = 67e12   # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_RTOL = 1e-5
 MODEL_ATOL, MODEL_RTOL = 2e-4, 1e-3
 FORWARD_LAUNCHES = 94  # blocks per two-pass forward at ModelConfig()
+GRAD_RTOL = 2e-4      # card vs CPU gradients, of each parameter's largest
+METRIC_RTOL = 1e-4    # card vs CPU metrics read before any step, of max(|m|, 1)
+STEPPED_RTOL = 1e-3   # ... and those read at the critic after its steps
+STEPPED_METRICS = ("f_gp", "t_loss", "t_adv")
+# the training recipe's crop and batch (CriticConfig(), TrainConfig())
+TRAIN_RES, TRAIN_B = CriticConfig().patch_size, TrainConfig().batch_size
 
 # (name, resolution, C, heads) of every block group of a 256x256 forward
 MAIN_SHAPES = [
@@ -70,13 +104,24 @@ MAIN_SHAPES = [
 BLOCKS_PER_FORWARD = {"L1": 8, "L2": 24, "L3": 24, "latent": 16, "noise_level3": 2,
                       "noise_level2": 2, "noise_level1": 2, "decoder_level1": 16}
 assert sum(BLOCKS_PER_FORWARD.values()) == FORWARD_LAUNCHES
+# the same block groups in training, at 128 px: one forward and one
+# backward of each block per iteration
+TRAIN_SHAPES = [(label, res * TRAIN_RES // 256, c, heads)
+                for label, res, c, heads in MAIN_SHAPES]
 
-KERNELS = {
+FORWARD_KERNELS = {
     "block_head": ("rcot_torch/csrc/block_fwd.cu", "rcot_tpu/ops/pallas_block.py:586"),
     "block_tail": ("rcot_torch/csrc/block_fwd.cu", "rcot_tpu/ops/pallas_block.py:597"),
-    "mdta_gram_fwd": ("rcot_torch/csrc/gram_fwd.cu", "rcot_tpu/ops/pallas_gram.py:99"),
-    "attn_apply_fwd": ("rcot_torch/csrc/gram_fwd.cu", "rcot_tpu/ops/pallas_gram.py:178"),
+    "mdta_gram_fwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:99"),
+    "attn_apply_fwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:178"),
 }
+BACKWARD_KERNELS = {
+    "block_head_bwd": ("rcot_torch/csrc/block_bwd.cu", "rcot_tpu/ops/pallas_block.py:401"),
+    "block_tail_bwd": ("rcot_torch/csrc/block_bwd.cu", "rcot_tpu/ops/pallas_block.py:401"),
+    "mdta_gram_bwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:141"),
+    "attn_apply_bwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:219"),
+}
+KERNELS = {**FORWARD_KERNELS, **BACKWARD_KERNELS}
 
 
 def log(msg: str) -> None:
@@ -166,6 +211,64 @@ def phase_kernels(gen) -> dict:
     return errs
 
 
+PIXEL_OUTPUTS = {"block_head_bwd": 1, "block_tail_bwd": 2}  # leading per-pixel outputs
+
+
+def _double(ts):
+    return [None if t is None else t.double() for t in ts]
+
+
+def check_bwd(name, got, plain32, plain64, errs) -> None:
+    """Per-pixel outputs against the fp32 twin, pixel sums against the
+    float64 twin; None (dln_b of a BiasFree LN) on both sides or neither."""
+    kernel = name.split()[0]
+    n_pix = PIXEL_OUTPUTS.get(kernel, 1)
+    for i, (g, w32, w64) in enumerate(zip(got, plain32, plain64)):
+        if (g is None) != (w64 is None):
+            raise AssertionError(f"{name}: output {i} is None on one side only")
+        if g is not None:
+            check(f"{name} out{i}", g, w32 if i < n_pix else w64, errs)
+
+
+def phase_backward(gen) -> dict:
+    """Every backward kernel against its plain twins at the training shapes."""
+    errs: dict = {}
+    b = TRAIN_B
+    for label, res, c, heads in TRAIN_SHAPES:
+        for ln_bias in (True, False):
+            p = block_inputs(gen, b, res, c, ln_bias)
+            tag = f"{label} B={b} {'WithBias' if ln_bias else 'BiasFree'}"
+            g = torch.randn(b, res, res, 3 * c, device="cuda", generator=gen)
+            args = head_args(p) + (g,)
+            got = kblock.block_head_bwd(*args)
+            torch.cuda.synchronize()
+            check_bwd(f"block_head_bwd {tag}", got, kblock.block_head_bwd_plain(*args),
+                      kblock.block_head_bwd_plain(*_double(args)), errs)
+            g = torch.randn(b, res, res, c, device="cuda", generator=gen)
+            args = tail_args(p) + (g,)
+            got = kblock.block_tail_bwd(*args)
+            torch.cuda.synchronize()
+            check_bwd(f"block_tail_bwd {tag}", got, kblock.block_tail_bwd_plain(*args),
+                      kblock.block_tail_bwd_plain(*_double(args)), errs)
+        ch = c // heads
+        qkv = torch.randn(b, res, res, 3 * c, device="cuda", generator=gen)
+        cot = [torch.randn(b, heads, ch, ch, device="cuda", generator=gen),
+               torch.randn(b, heads, ch, device="cuda", generator=gen),
+               torch.randn(b, heads, ch, device="cuda", generator=gen)]
+        got = kgram.mdta_gram_bwd(qkv, *cot, heads)
+        torch.cuda.synchronize()
+        check(f"mdta_gram_bwd {label} B={b}", got,
+              kgram.mdta_gram_bwd_plain(qkv, *cot, heads), errs)
+        attn = torch.softmax(torch.randn(b, heads, ch, ch, device="cuda", generator=gen), -1)
+        g = torch.randn(b, res, res, c, device="cuda", generator=gen)
+        got = kgram.attn_apply_bwd(qkv, attn, g)
+        torch.cuda.synchronize()
+        check_bwd(f"attn_apply_bwd {label} B={b}", got, kgram.attn_apply_bwd_plain(qkv, attn, g),
+                  kgram.attn_apply_bwd_plain(*_double([qkv, attn, g])), errs)
+        log(f"backward kernels ok at {label} {res}^2 C={c} heads={heads} B={b}")
+    return errs
+
+
 def phase_model(gen_np) -> dict:
     cfg = ModelConfig()
     t0 = time.perf_counter()
@@ -200,7 +303,7 @@ def phase_model(gen_np) -> dict:
     for im, o in zip(imgs + [big], outs + [out_big]):
         if o.shape != im.shape or not np.isfinite(o).all():
             raise AssertionError(f"bad output {o.shape} for input {im.shape}")
-    for name in KERNELS:
+    for name in FORWARD_KERNELS:
         if launches.get(name, 0) != FORWARD_LAUNCHES * n_fwd or n_fwd == 0:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches over "
                                  f"{n_fwd} forwards, want {FORWARD_LAUNCHES} each")
@@ -265,46 +368,81 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_timings(gen, label, res, c, heads) -> dict:
-    b, n = 1, res * res
+def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
+    """Each kernel of `names` at one block shape: its time, its plain twin's,
+    its bound and, where one PyTorch call (or one per output) computes the
+    same products, that call's time on pre-transposed tensors."""
+    n = res * res
     p = block_inputs(gen, b, res, c, True)
-    m, hid, ch = 3 * c, int(c * 2.66), c // heads
-    qkv = kblock.block_head(*head_args(p))
+    m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
+    qkv = kblock.block_head_fwd(*head_args(p))
     attn = torch.softmax(torch.randn(b, heads, ch, ch, device="cuda", generator=gen), -1)
-    # the same products as single PyTorch calls, on pre-transposed tensors
-    qt = qkv[..., :c].reshape(b, n, heads, ch).permute(0, 2, 3, 1).reshape(b * heads, ch, n).contiguous()
-    kt = qkv[..., c:2 * c].reshape(b, n, heads, ch).permute(0, 2, 1, 3).reshape(b * heads, n, ch).contiguous()
-    vt = qkv[..., 2 * c:].reshape(b, n, heads, ch).permute(0, 2, 3, 1).reshape(b * heads, ch, n).contiguous()
-    at = attn.reshape(b * heads, ch, ch)
+    r = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    g_head, g_c = r(b, res, res, m), r(b, res, res, c)
+    dgram, dnq, dnk = r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)
+
+    def heads_t(t, transpose):  # (B,H,W,C) slice -> (bh, ch, n) or (bh, n, ch)
+        t = t.reshape(b, n, heads, ch)
+        return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
+                ).reshape(bh, *((ch, n) if transpose else (n, ch))).contiguous()
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    qt, kn, vt = heads_t(q, True), heads_t(k, False), heads_t(v, True)
+    qn, vn, gn, gt = heads_t(q, False), heads_t(v, False), heads_t(g_c, False), heads_t(g_c, True)
+    at, dg = attn.reshape(bh, ch, ch), dgram.reshape(bh, ch, ch)
+    qd = 2 * qn * dnq.reshape(bh, 1, ch)
+    kd = 2 * kn * dnk.reshape(bh, 1, ch)
+    dgt = dg.transpose(1, 2).contiguous()
     f4 = 4.0
+    w_head = m * c + 9 * m + 2 * c
+    w_tail = c * c + 2 * c + 3 * hid * c + 18 * hid
     rows = {
-        "block_head": (lambda: kblock.block_head(*head_args(p)),
+        "block_head": (lambda: kblock.block_head_fwd(*head_args(p)),
                        lambda: kblock.block_head_plain(*head_args(p)), None,
                        b * n * (2 * c * m + 18 * m + 8 * c),
-                       f4 * (b * n * (c + m) + 2 * c + m * c + 9 * m)),
-        "block_tail": (lambda: kblock.block_tail(*tail_args(p)),
+                       f4 * (b * n * (c + m) + w_head)),
+        "block_tail": (lambda: kblock.block_tail_fwd(*tail_args(p)),
                        lambda: kblock.block_tail_plain(*tail_args(p)), None,
                        b * n * (2 * c * c + 4 * c * hid + 2 * hid * c + 36 * hid
                                 + 10 * hid + 10 * c),
-                       f4 * (3 * b * n * c + c * c + 2 * c + 2 * hid * c + 18 * hid
-                             + c * hid)),
+                       f4 * (3 * b * n * c + w_tail)),
         "mdta_gram_fwd": (lambda: kgram.mdta_gram_fwd(qkv, heads),
                           lambda: kgram.mdta_gram_plain(qkv, heads),
-                          lambda: torch.bmm(qt, kt),
+                          lambda: torch.bmm(qt, kn),
                           b * n * (2 * c * ch + 4 * c),
-                          f4 * (b * n * 2 * c + b * heads * (ch * ch + 2 * ch))),
+                          f4 * (b * n * 2 * c + bh * (ch * ch + 2 * ch))),
         "attn_apply_fwd": (lambda: kgram.attn_apply_fwd(qkv, attn),
                            lambda: kgram.attn_apply_plain(qkv, attn),
                            lambda: torch.bmm(at, vt),
                            b * n * 2 * c * ch,
-                           f4 * (2 * b * n * c + b * heads * ch * ch)),
+                           f4 * (2 * b * n * c + bh * ch * ch)),
+        # recompute of the forward included; stencils 18 flops per tap set
+        "block_head_bwd": (lambda: kblock.block_head_bwd(*head_args(p), g_head),
+                           lambda: kblock.block_head_bwd_plain(*head_args(p), g_head), None,
+                           b * n * (6 * c * m + 36 * m + 18 * c),
+                           f4 * (b * n * (2 * c + m) + 2 * w_head)),
+        "block_tail_bwd": (lambda: kblock.block_tail_bwd(*tail_args(p), g_c),
+                           lambda: kblock.block_tail_bwd_plain(*tail_args(p), g_c), None,
+                           b * n * (6 * c * c + 16 * c * hid + 128 * hid + 18 * c),
+                           f4 * (5 * b * n * c + 2 * w_tail)),
+        "mdta_gram_bwd": (lambda: kgram.mdta_gram_bwd(qkv, dgram, dnq, dnk, heads),
+                          lambda: kgram.mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, heads),
+                          lambda: (torch.baddbmm(qd, kn, dgt), torch.baddbmm(kd, qn, dg)),
+                          b * n * (4 * c * ch + 4 * c),
+                          f4 * (4 * b * n * c + bh * (ch * ch + 2 * ch))),
+        "attn_apply_bwd": (lambda: kgram.attn_apply_bwd(qkv, attn, g_c),
+                           lambda: kgram.attn_apply_bwd_plain(qkv, attn, g_c),
+                           lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)),
+                           b * n * 4 * c * ch,
+                           f4 * (3 * b * n * c + 2 * bh * ch * ch)),
     }
     out = {}
-    for name, (kern, plain, lib, flops, nbytes) in rows.items():
+    for name in names:
+        kern, plain, lib, flops, nbytes = rows[name]
         bms, by = bound(flops, nbytes)
         out[name] = dict(shape=f"{label} {res}^2 C={c} heads={heads} B={b}",
-                         ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=bms,
-                         bound_by=by, library_ms=cuda_ms(lib) if lib else None)
+                         ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
+                         bound_ms=bms, bound_by=by,
+                         library_ms=cuda_ms(lib) if lib else None)
     return out
 
 
@@ -328,9 +466,196 @@ def forward_breakdown(gen, net, timings) -> dict:
     with torch.inference_mode():
         fwd = cuda_ms(lambda: net(x), iters=10, warmup=2)
     per_kernel = {name: sum(BLOCKS_PER_FORWARD[label] * timings[label][name]["ms"]
-                            for label in BLOCKS_PER_FORWARD) for name in KERNELS}
+                            for label in BLOCKS_PER_FORWARD) for name in FORWARD_KERNELS}
     return dict(forward_ms=fwd, kernels_ms=per_kernel,
                 outside_kernels_ms=fwd - sum(per_kernel.values()))
+
+
+# ------------------------------------------------------------ training
+
+# modules defined by the reference but never called: their grads are zero
+PARITY_MODULES = ("res_patch_embed.", "chnl_reduce", "reduce_noise_channel_",
+                  "resdown3_4.", "resnoise_level3.", "resreduce_noise_level3.")
+
+
+def seeded_batch(gen, b, res, de_id) -> Batch:
+    def img():
+        return torch.rand(b, res, res, 3, device="cuda", generator=gen)
+    return Batch(img(), img(), torch.tensor(de_id, device="cuda"))
+
+
+def phase_train(gen) -> dict:
+    """Three full-width minimax iterations on the card (the training path,
+    counted), then their timing and split."""
+    cfg = Config()
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, seed=0, device="cuda")
+    n_t, n_f = count_params(state.t_net), count_params(state.f_net)
+    if (n_t, n_f) != (46_853_150, 30_588_609):
+        raise AssertionError(f"T_net {n_t} and F_net {n_f} parameters, not "
+                             "46,853,150 and 30,588,609")
+    log(f"train state built: T_net {n_t}, F_net {n_f} parameters "
+        f"({time.perf_counter() - t0:.1f} s)")
+    iteration = make_train_iteration(cfg)
+    lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
+    b, res = cfg.train.batch_size, cfg.critic.patch_size
+    batches = [seeded_batch(gen, b, res, [0, 3, 4]) for _ in range(3)]
+    alphas = [torch.rand(b, 1, 1, 1, device="cuda", generator=gen) for _ in range(3)]
+    nets = {"T": state.t_net, "F": state.f_net}
+    before = {(k, n): p.detach().clone() for k, net in nets.items()
+              for n, p in net.named_parameters()}
+
+    # ---- the main path, counted
+    build.reset_launches()
+    metrics = []
+    for batch, alpha, paired in zip(batches, alphas, (True, False, False)):
+        state, m = iteration(state, batch, alpha, paired, lr)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for i, m in enumerate(metrics):
+        log(f"iteration {i}: {json.dumps(m)}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"iteration {i}: metrics not finite: {m}")
+    for name in KERNELS:
+        if launches.get(name, 0) != FORWARD_LAUNCHES * len(metrics):
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches over "
+                                 f"{len(metrics)} iterations, want {FORWARD_LAUNCHES} each")
+    log(f"training path: {len(metrics)} iterations, launches {launches}")
+    check_moved(state, before)
+    del before
+
+    # ---- iterations/s and the split of one iteration
+    n_timed = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_timed):
+        state, _ = iteration(state, batches[i % 3], alphas[i % 3], False, lr)
+    torch.cuda.synchronize()
+    it_s = n_timed / (time.perf_counter() - t0)
+    critic_ms = cuda_ms(lambda: critic_work(state, batches[0], alphas[0], cfg), iters=5)
+    return dict(launches=launches, metrics=metrics, it_per_s=it_s, critic_ms=critic_ms)
+
+
+def check_moved(state, before) -> None:
+    """Every used parameter got a gradient (its RMSprop square_avg is not
+    all zero) and, where that gradient is above 1e-7 (a step of at least
+    0.9 lr, far above fp32's resolution at 1.0), moved. Unused: the parity
+    modules of T, and F's linear-head biases (fc2.bias cancels in the WGAN
+    difference and does not reach the input gradient; fc.bias and fc1.bias
+    get a gradient only once real and fake images differ in the head's
+    LeakyReLU pattern)."""
+    unused_f = ("fc.bias", "fc1.bias", "fc2.bias")
+    no_grad, still, small = [], [], 0
+    for tag, net, opt in (("T", state.t_net, state.t_opt), ("F", state.f_net, state.f_opt)):
+        for n, p in net.named_parameters():
+            if (tag == "T" and n.startswith(PARITY_MODULES)) or (tag == "F" and n in unused_f):
+                continue
+            rms = float(opt.state[p]["square_avg"].max().sqrt())
+            if rms == 0.0:
+                no_grad.append(f"{tag} {n}")
+            elif rms <= 1e-7:
+                small += 1
+            elif torch.equal(p.detach(), before[(tag, n)]):
+                still.append(f"{tag} {n}")
+    if no_grad or still:
+        raise AssertionError(f"no gradient: {no_grad}; gradient but did not move: {still}")
+    log(f"every used parameter got a gradient and moved ({small} with gradients "
+        f"<= 1e-7 not held to moving)")
+
+
+def critic_work(state, batch, alpha, cfg) -> None:
+    """The critic's share of an iteration without the optimizer steps: the
+    WGAN loss and its grads, the GP and its grads, and the score of a fake
+    batch differentiated into its input (the T step's path through F)."""
+    f = state.f_net
+    params = list(f.parameters())
+    fake = batch.degraded
+    b = fake.shape[0]
+    scores = f(torch.cat([batch.target, fake]))
+    torch.autograd.grad(losses.wgan_critic_loss(scores[:b], scores[b:]), params)
+    gp = losses.gradient_penalty(f, batch.target, fake, alpha, cfg.train.gp_weight)
+    torch.autograd.grad(gp, params, allow_unused=True)
+    out = fake.clone().requires_grad_()
+    torch.autograd.grad(f(out).mean(), out)
+
+
+def train_grads(state, batch, alpha, cfg) -> dict:
+    """T's gradient of the T loss and F's of the WGAN loss and of the GP,
+    all at the given state (no step in between)."""
+    tc = cfg.train
+    t_named = list(state.t_net.named_parameters())
+    f_named = list(state.f_net.named_parameters())
+    out2 = state.t_net(batch.degraded)[0]
+    loss, _ = losses.t_loss(out2, batch.degraded, batch.target, batch.de_id,
+                            state.f_net(out2), sigma=tc.sigma, Sigma=tc.Sigma,
+                            paired=True, loss_math=tc.loss_math)
+    grads = {}
+
+    def put(tag, named, value):
+        gs = torch.autograd.grad(value, [p for _, p in named], allow_unused=True)
+        grads.update({f"{tag} {n}": g for (n, _), g in zip(named, gs) if g is not None})
+    put("T", t_named, loss)
+    fake = out2.detach()
+    b = fake.shape[0]
+    scores = state.f_net(torch.cat([batch.target, fake]))
+    put("F-wgan", f_named, losses.wgan_critic_loss(scores[:b], scores[b:]))
+    put("F-gp", f_named, losses.gradient_penalty(state.f_net, batch.target, fake, alpha,
+                                                 tc.gp_weight))
+    return grads
+
+
+def phase_train_vs_cpu(gen_np) -> dict:
+    """The full-width nets from one seed on the card and on the CPU, at 64^2,
+    B = 1, critic patch 64: every gradient, then one iteration's metrics."""
+    cfg = Config(critic=CriticConfig(patch_size=64), train=TrainConfig(batch_size=1))
+    b, res = cfg.train.batch_size, cfg.critic.patch_size
+    deg, tgt = (gen_np.uniform(0, 1, (b, res, res, 3)).astype(np.float32) for _ in range(2))
+    alpha = np.full((b, 1, 1, 1), 0.37, np.float32)
+    lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(cfg, seed=1, device=dev)
+        batch = Batch(torch.from_numpy(deg).to(dev), torch.from_numpy(tgt).to(dev),
+                      torch.tensor([0] * b, device=dev))
+        a = torch.from_numpy(alpha).to(dev)
+        grads = {k: v.cpu() for k, v in train_grads(state, batch, a, cfg).items()}
+        _, m = make_train_iteration(cfg)(state, batch, a, True, lr)
+        sides[dev] = (grads, {k: float(v) for k, v in m.items()})
+        del state
+    (g_card, m_card), (g_cpu, m_cpu) = sides["cuda"], sides["cpu"]
+    if set(g_card) != set(g_cpu):
+        raise AssertionError("card and CPU differ in which parameters get a gradient")
+    rel = {k: float((g_card[k] - g_cpu[k]).abs().max()
+                    / g_cpu[k].abs().max().clamp_min(1e-30)) for k in g_cpu}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    log(f"card vs CPU 64^2 gradients ({len(rel)} tensors): worst max|err|/max|grad| {worst}")
+    m_rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1.0) for k in m_cpu}
+    log(f"card vs CPU 64^2 metrics: CPU {json.dumps(m_cpu)}, "
+        f"|card - CPU| / max(|CPU|, 1) {json.dumps(m_rel)}")
+    bad = [k for k, v in rel.items() if not v <= GRAD_RTOL]
+    if bad:
+        raise AssertionError(f"gradients off by more than {GRAD_RTOL} of their largest: {bad}")
+    bad = [k for k, v in m_rel.items()
+           if not v <= (STEPPED_RTOL if k in STEPPED_METRICS else METRIC_RTOL)]
+    if bad:
+        raise AssertionError(f"metrics off by more than their tolerance: {bad} {m_rel}")
+    return dict(grad_worst_rel=worst[0][1], metric_worst_rel=max(m_rel.values()))
+
+
+def iteration_breakdown(train, timings) -> dict:
+    """One iteration at 128^2, B = 3 (host clock over five, synchronised)
+    beside each kernel's time at every block shape times the blocks at that
+    shape, and the critic's share timed alone; the rest is T's convolutions,
+    resamplers, glue, the losses, the optimizer steps and launch gaps."""
+    it_ms = 1e3 / train["it_per_s"]
+    per_kernel = {name: sum(BLOCKS_PER_FORWARD[label] * timings[label][name]["ms"]
+                            for label in BLOCKS_PER_FORWARD) for name in KERNELS}
+    fwd = sum(per_kernel[k] for k in FORWARD_KERNELS)
+    bwd = sum(per_kernel[k] for k in BACKWARD_KERNELS)
+    return dict(iteration_ms=it_ms, forward_kernels_ms=fwd, backward_kernels_ms=bwd,
+                critic_ms=train["critic_ms"],
+                rest_ms=it_ms - fwd - bwd - train["critic_ms"], kernels_ms=per_kernel)
 
 
 # ------------------------------------------------------------ main
@@ -356,6 +681,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     gen_np = np.random.default_rng(0)
     errs = phase_kernels(gen)
+    errs.update(phase_backward(gen))
     model = phase_model(gen_np)
 
     ips1 = images_per_sec(model["restorer"], gen_np, 1, 10)
@@ -363,27 +689,47 @@ def main() -> int:
     log(f"256px restore_batch: {ips1:.3f} img/s at batch 1, {ips8:.3f} img/s "
         f"at batch 8 ({card})")
 
-    timings = {label: kernel_timings(gen, label, res, c, heads)
+    timings = {label: kernel_timings(gen, label, res, c, heads, 1, FORWARD_KERNELS)
                for label, res, c, heads in MAIN_SHAPES}
     breakdown = forward_breakdown(gen, model["net"], timings)
+    del model["restorer"], model["net"]
+
+    train = phase_train(gen)
+    log(f"training {TRAIN_RES}px B={TRAIN_B}: {train['it_per_s']:.4f} iterations/s ({card})")
+    vs_cpu = phase_train_vs_cpu(gen_np)
+    train_timings = {label: kernel_timings(gen, label, res, c, heads, TRAIN_B, KERNELS)
+                     for label, res, c, heads in TRAIN_SHAPES}
+    split = iteration_breakdown(train, train_timings)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        l1, lat = timings["L1"][name], timings["latent"][name]
+        fwd = name in FORWARD_KERNELS
+        # a forward kernel's main path is serving (256 px, B = 1), a
+        # backward kernel's training (128 px, B = 3)
+        t = timings if fwd else train_timings
+        l1, lat = t["L1"][name], t["latent"][name]
+        launches = model["launches"][name] if fwd else train["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=model["launches"][name],
-            launches_per_forward=model["launches"][name] // model["n_fwd"],
+            launches=launches,
+            launches_per_forward=(launches // model["n_fwd"] if fwd else None),
+            launches_per_iteration=train["launches"][name] // len(train["metrics"]),
             max_abs_err=errs[name][0], max_rel_err=errs[name][1],
             ms=l1["ms"], plain_ms=l1["plain_ms"],
             bound_ms=l1["bound_ms"], bound_by=l1["bound_by"],
-            library_ms=l1["library_ms"], at=l1["shape"], latent=lat))
-    for label in BLOCKS_PER_FORWARD:
-        log(json.dumps({"shape": label, **{
-            name: {k: v for k, v in t.items() if k != "shape"}
-            for name, t in timings[label].items()}}))
+            library_ms=l1["library_ms"], at=l1["shape"], latent=lat,
+            train_L1=train_timings["L1"][name]))
+    for tag, tt in (("serve", timings), ("train", train_timings)):
+        for label in BLOCKS_PER_FORWARD:
+            log(json.dumps({"shape": f"{tag} {label}", **{
+                name: {k: v for k, v in t.items() if k != "shape"}
+                for name, t in tt[label].items()}}))
     log(json.dumps({"e2e_256px": {"batch1_img_per_s": ips1, "batch8_img_per_s": ips8,
                                   "card": card},
                     "forward_256px_b1": breakdown,
+                    "train_128px_b3": {"iterations_per_s": train["it_per_s"], "card": card,
+                                       "split": split, "metrics": train["metrics"]},
+                    "train_card_vs_cpu_64px": vs_cpu,
                     "gram_plain_fp32_vs_float64_rel_err": errs["gram_plain_fp32_rel"],
                     "golden_max_abs_err": model["golden_err"],
                     "seconds": time.perf_counter() - t_start}))

@@ -3,6 +3,11 @@
 - `tnet_state_dict_from_jax(params, cfg)`: the JAX `init_tnet` pytree (as
   numpy arrays) -> this package's T_net state_dict, the exact inverse of
   rcot_tpu/compat/torch_port.py port_tnet_state_dict (HWIO -> OIHW).
+- `fnet_state_dict_from_jax(params, critic_cfg)`: the JAX `init_fnet`
+  pytree -> the F_net state_dict, the exact inverse of
+  port_fnet_state_dict (HWIO -> OIHW convs, (in, out) -> (out, in)
+  linears, and the flatten head's fc rows from (H, W, C) back to torch's
+  (C, H, W) order).
 - `load_jax_npz(path)`: read a JAX-package checkpoint (.npz of '/'-joined
   tree paths plus a JSON blob under '__rcot_meta__'): a raw T-params npz
   (metadata carries "backbone") or a trainer checkpoint, whose T_net lives
@@ -17,7 +22,7 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 
-from ..utils.config import ModelConfig, model_config_from_dict
+from ..utils.config import CriticConfig, ModelConfig, model_config_from_dict
 
 META_KEY = "__rcot_meta__"
 SEP = "/"
@@ -94,6 +99,28 @@ def tnet_state_dict_from_jax(params: Mapping, cfg: ModelConfig
             _conv(sd, name, u[name])
         _resample(sd, "resdown3_4", u["resdown3_4"])
         _block(sd, "resnoise_level3", u["resnoise_level3"])
+    return sd
+
+
+def fnet_state_dict_from_jax(params: Mapping, cfg: CriticConfig
+                             ) -> Dict[str, np.ndarray]:
+    """JAX init_fnet pytree -> reference-named state_dict of numpy arrays
+    (load with FNet.load_state_dict(strict=True))."""
+    sd: Dict[str, np.ndarray] = {}
+    # conv i sits at index 2i of the reference's nn.Sequential 'features'
+    # (LeakyReLUs at the odd indices)
+    for i, p in enumerate(params["convs"]):
+        _conv(sd, f"features.{2 * i}", p)
+    w = np.asarray(params["fc"]["w"])  # (in, out); in in (H, W, C) order
+    if cfg.head == "flatten":
+        side = cfg.patch_size // 32
+        n_in, n_out = w.shape
+        w = np.transpose(w.reshape(side, side, 512, n_out), (2, 0, 1, 3))
+        w = w.reshape(n_in, n_out)
+    for name, weight in (("fc", w), ("fc1", params["fc1"]["w"]),
+                         ("fc2", params["fc2"]["w"])):
+        sd[name + ".weight"] = np.ascontiguousarray(np.asarray(weight).T)
+        sd[name + ".bias"] = np.asarray(params[name]["b"])
     return sd
 
 

@@ -45,6 +45,12 @@ SIGNATURES = {
     "rcot_block_tail": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     "rcot_mdta_gram": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
     "rcot_attn_apply": [_P, _P, _P, _I, _L, _I, _I, _P],
+    # inputs 6, outputs 5, workspace 5; B, H, W, C, M; stream
+    "rcot_block_head_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    # inputs 9, outputs 8, workspace 9; B, H, W, C, hid; stream
+    "rcot_block_tail_bwd": [_P] * 26 + [_I] * 5 + [_P],
+    "rcot_mdta_gram_bwd": [_P] * 5 + [_I, _L, _I, _I, _P],
+    "rcot_attn_apply_bwd": [_P] * 5 + [_I, _L, _I, _I, _P],
 }
 
 
@@ -133,6 +139,11 @@ def call(name: str, *args) -> None:
     rc = getattr(library(), name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} failed with cudaError {rc}")
+
+
+def stream() -> int:
+    """The current CUDA stream, where every kernel launches."""
+    return torch.cuda.current_stream().cuda_stream
 
 
 def ptr(t) -> int:

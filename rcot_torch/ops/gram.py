@@ -1,6 +1,6 @@
 """Transpose-free MDTA attention core: Gram and apply kernels.
 
-Counterpart of rcot_tpu/ops/pallas_gram.py (forward only). MDTA's
+Counterpart of rcot_tpu/ops/pallas_gram.py. MDTA's
 attention matrix is channel by channel and both the Gram matrix and the L2
 norms are plain sums over pixels, so they are computed on the packed NHWC
 qkv = [q | k | v] without any head transpose:
@@ -10,8 +10,15 @@ qkv = [q | k | v] without any head transpose:
                   on (B, heads, ch, ch), plain PyTorch ops
   attn_apply_fwd: out[..., head h] = v_h @ attn[h]^T
 
-Each kernel wrapper launches its CUDA kernel (csrc/gram_fwd.cu) for a
-CUDA tensor and runs its plain twin for a CPU tensor; nothing else.
+One autograd Function, MdtaCore, spans the whole core, as the JAX custom
+VJP `_mdta_core` does. Its backward rebuilds the glue, runs the apply
+backward (dv and dattn), differentiates the glue by autograd (dG, dnq,
+dnk, dtemperature), runs the Gram backward (d[q|k]) and concatenates
+dqkv = [dq | dk | dv].
+
+Each kernel wrapper launches its CUDA kernel (csrc/gram.cu) for a CUDA
+tensor and runs its plain twin for a CPU tensor; nothing else. The backward
+twins differentiate the forward twins by autograd.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..kernels import build
 
@@ -46,7 +54,30 @@ def attn_apply_plain(qkv: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bxyhd,bhcd->bxyhc", v, attn).reshape(b, h, w, c)
 
 
+def mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads):
+    """-> d[q|k] (B,H,W,2C), by autograd through mdta_gram_plain."""
+    with torch.enable_grad():
+        leaf = qkv.detach().requires_grad_()
+        outs = mdta_gram_plain(leaf, num_heads)
+        (dqkv,) = torch.autograd.grad(outs, leaf, (dgram, dnq, dnk))
+    return dqkv[..., :2 * (qkv.shape[-1] // 3)]
+
+
+def attn_apply_bwd_plain(qkv, attn, g):
+    """-> (dv (B,H,W,C), dattn (B,heads,ch,ch)), by autograd through
+    attn_apply_plain."""
+    with torch.enable_grad():
+        leaves = [qkv.detach().requires_grad_(), attn.detach().requires_grad_()]
+        dqkv, dattn = torch.autograd.grad(attn_apply_plain(*leaves), leaves, g)
+    return dqkv[..., 2 * (qkv.shape[-1] // 3):], dattn
+
+
 # ---------------------------------------------------------------- kernels
+
+def _check_head_width(ch: int) -> None:
+    if ch > 128:
+        raise ValueError(f"head width {ch} > 128 is not supported")
+
 
 def mdta_gram_fwd(qkv: torch.Tensor, num_heads: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -57,15 +88,14 @@ def mdta_gram_fwd(qkv: torch.Tensor, num_heads: int
     c = c3 // 3
     ch = c // num_heads
     build.check_arg("qkv", qkv, (b, h, w, 3 * num_heads * ch), qkv.device)
-    if ch > 128:
-        raise ValueError(f"head width {ch} > 128 is not supported")
+    _check_head_width(ch)
     gram = torch.empty(b, num_heads, ch, ch, device=qkv.device)
     nq = torch.empty(b, num_heads, ch, device=qkv.device)
     nk = torch.empty(b, num_heads, ch, device=qkv.device)
     with torch.cuda.device(qkv.device):
         build.call("rcot_mdta_gram", qkv.data_ptr(), gram.data_ptr(),
                    nq.data_ptr(), nk.data_ptr(), b, h * w, num_heads, ch,
-                   torch.cuda.current_stream().cuda_stream)
+                   build.stream())
     build.LAUNCHES["mdta_gram_fwd"] += 1
     return gram, nq, nk
 
@@ -78,15 +108,61 @@ def attn_apply_fwd(qkv: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     heads, ch = attn.shape[1], attn.shape[2]
     build.check_arg("qkv", qkv, (b, h, w, 3 * heads * ch), qkv.device)
     build.check_arg("attn", attn, (b, heads, ch, ch), qkv.device)
-    if ch > 128:
-        raise ValueError(f"head width {ch} > 128 is not supported")
+    _check_head_width(ch)
     out = torch.empty(b, h, w, heads * ch, device=qkv.device)
     with torch.cuda.device(qkv.device):
         build.call("rcot_attn_apply", qkv.data_ptr(), attn.data_ptr(),
                    out.data_ptr(), b, h * w, heads, ch,
-                   torch.cuda.current_stream().cuda_stream)
+                   build.stream())
     build.LAUNCHES["attn_apply_fwd"] += 1
     return out
+
+
+def mdta_gram_bwd(qkv: torch.Tensor, dgram: torch.Tensor, dnq: torch.Tensor,
+                  dnk: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Backward of mdta_gram_fwd: qkv (B,H,W,3C) and the cotangents of G,
+    nq, nk -> d[q|k] (B,H,W,2C); the v third is structurally zero and not
+    written."""
+    if not qkv.is_cuda:
+        return mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads)
+    b, h, w, c3 = qkv.shape
+    ch = c3 // 3 // num_heads
+    dev = qkv.device
+    build.check_arg("qkv", qkv, (b, h, w, 3 * num_heads * ch), dev)
+    build.check_arg("dgram", dgram, (b, num_heads, ch, ch), dev)
+    build.check_arg("dnq", dnq, (b, num_heads, ch), dev)
+    build.check_arg("dnk", dnk, (b, num_heads, ch), dev)
+    _check_head_width(ch)
+    dqdk = torch.empty(b, h, w, 2 * num_heads * ch, device=dev)
+    with torch.cuda.device(dev):
+        build.call("rcot_mdta_gram_bwd", qkv.data_ptr(), dgram.data_ptr(),
+                   dnq.data_ptr(), dnk.data_ptr(), dqdk.data_ptr(), b, h * w,
+                   num_heads, ch, build.stream())
+    build.LAUNCHES["mdta_gram_bwd"] += 1
+    return dqdk
+
+
+def attn_apply_bwd(qkv: torch.Tensor, attn: torch.Tensor, g: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of attn_apply_fwd for the cotangent g (B,H,W,C) ->
+    (dv (B,H,W,C), dattn (B,heads,ch,ch))."""
+    if not qkv.is_cuda:
+        return attn_apply_bwd_plain(qkv, attn, g)
+    b, h, w, _ = qkv.shape
+    heads, ch = attn.shape[1], attn.shape[2]
+    dev = qkv.device
+    build.check_arg("qkv", qkv, (b, h, w, 3 * heads * ch), dev)
+    build.check_arg("attn", attn, (b, heads, ch, ch), dev)
+    build.check_arg("g", g, (b, h, w, heads * ch), dev)
+    _check_head_width(ch)
+    dv = torch.empty(b, h, w, heads * ch, device=dev)
+    dattn = torch.empty(b, heads, ch, ch, device=dev)
+    with torch.cuda.device(dev):
+        build.call("rcot_attn_apply_bwd", qkv.data_ptr(), attn.data_ptr(),
+                   g.data_ptr(), dv.data_ptr(), dattn.data_ptr(), b, h * w,
+                   heads, ch, build.stream())
+    build.LAUNCHES["attn_apply_bwd"] += 1
+    return dv, dattn
 
 
 # ------------------------------------------------------------ module-level
@@ -100,8 +176,33 @@ def _glue(gram: torch.Tensor, nq: torch.Tensor, nk: torch.Tensor,
     return (ghat * temperature.float()[None]).softmax(dim=-1)
 
 
+class MdtaCore(torch.autograd.Function):
+    """The MDTA core with its backward kernels; saves qkv, G, nq, nk and
+    the temperature (attn is rebuilt in the backward)."""
+
+    @staticmethod
+    def forward(ctx, temperature, qkv, num_heads):
+        gram, nq, nk = mdta_gram_fwd(qkv, num_heads)
+        ctx.save_for_backward(qkv, gram, nq, nk, temperature)
+        ctx.num_heads = num_heads
+        return attn_apply_fwd(qkv, _glue(gram, nq, nk, temperature))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        qkv, gram, nq, nk, temperature = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (gram, nq, nk, temperature)]
+            attn = _glue(*leaves)
+        dv, dattn = attn_apply_bwd(qkv, attn.detach(), g.contiguous())
+        dgram, dnq, dnk, dtemp = torch.autograd.grad(attn, leaves, dattn)
+        dqdk = mdta_gram_bwd(qkv, dgram.contiguous(), dnq.contiguous(),
+                             dnk.contiguous(), ctx.num_heads)
+        return dtemp, torch.cat([dqdk, dv], dim=-1), None
+
+
 def mdta_core_gram(temperature: torch.Tensor, qkv: torch.Tensor,
                    num_heads: int) -> torch.Tensor:
-    """The whole MDTA core on NHWC qkv (B,H,W,3C) -> (B,H,W,C)."""
-    gram, nq, nk = mdta_gram_fwd(qkv, num_heads)
-    return attn_apply_fwd(qkv, _glue(gram, nq, nk, temperature))
+    """The whole MDTA core on NHWC qkv (B,H,W,3C) -> (B,H,W,C),
+    differentiable in qkv and the temperature (heads, 1, 1)."""
+    return MdtaCore.apply(temperature, qkv, num_heads)

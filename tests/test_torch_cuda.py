@@ -10,15 +10,24 @@ TF32 is off for the plain twins. Tolerance: max|kernel - plain| <= 1e-5 *
 max|plain| (fp32 sums in another order). The Gram, whose sums run over
 every pixel with cancelling terms and whose kernel adds partial sums with
 atomics in no fixed order, is held against its plain twin run in float64:
-in fp32 on the card the twin's own rounding comes near the tolerance.
+in fp32 on the card the twin's own rounding comes near the tolerance. The
+backward kernels, whose weight grads are such sums too, are held against
+their plain twins run in float64, every output at the same 1e-5.
+
+The autograd case holds a small T_net on the card against the same model
+on the CPU: every parameter's gradient agrees within 1e-4 of that
+parameter's largest gradient (fp32 through some eighty ops, forward and
+backward, in another order of sums; cuDNN in fp32 with TF32 off).
 """
 
 import pytest
 import torch
 
 from rcot_torch.kernels import build
+from rcot_torch.models.restormer import TNet
 from rcot_torch.ops import block as tblock
 from rcot_torch.ops import gram as tgram
+from rcot_torch.utils.config import ModelConfig
 
 RTOL = 1e-5
 
@@ -98,3 +107,96 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tblock.block_head(p["x"], p["ln_w"].cpu(), p["ln_b"], p["w_qkv"], p["dw_qkv"])
     with pytest.raises(ValueError, match="128"):
         tgram.mdta_gram_fwd(torch.zeros(1, 2, 2, 3 * 130, device="cuda"), 1)
+
+
+def _double(ts):
+    return [None if t is None else t.double() for t in ts]
+
+
+def _assert_grads_match(got, want64, names):
+    for name, a, b in zip(names, got, want64):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert _rel_err(a.double(), b) < RTOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 20, 19, 6), (2, 32, 32, 48), (1, 16, 16, 192),
+                                   (1, 9, 33, 384)])
+@pytest.mark.parametrize("ln_bias", [True, False], ids=["WithBias", "BiasFree"])
+def test_block_bwd_kernels_match_float64_plain(cuda_device, shape, ln_bias):
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    p = _block_inputs(gen, *shape, ln_bias)
+    b, h, w, c = shape
+    head = [p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"]]
+    g = torch.randn(b, h, w, 3 * c, device="cuda", generator=gen)
+    n0 = build.LAUNCHES["block_head_bwd"]
+    got = tblock.block_head_bwd(*head, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["block_head_bwd"] == n0 + 1
+    _assert_grads_match(got, tblock.block_head_bwd_plain(*_double(head + [g])),
+                        ["dx", "dln_w", "dln_b", "dw_qkv", "ddw"])
+    tail = [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")]
+    g = torch.randn(b, h, w, c, device="cuda", generator=gen)
+    n0 = build.LAUNCHES["block_tail_bwd"]
+    got = tblock.block_tail_bwd(*tail, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["block_tail_bwd"] == n0 + 1
+    _assert_grads_match(got, tblock.block_tail_bwd_plain(*_double(tail + [g])),
+                        ["dx", "da", "dw_proj", "dln_w", "dln_b", "dw_in", "ddw",
+                         "dw_out"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,ch,hw", [(1, 48, (64, 64)), (4, 96, (16, 16)),
+                                         (4, 24, (33, 7)), (2, 5, (3, 3)),
+                                         (1, 128, (8, 9))])
+def test_gram_bwd_kernels_match_float64_plain(cuda_device, heads, ch, hw):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    qkv = r(2, *hw, 3 * heads * ch)
+    cot = [r(2, heads, ch, ch), r(2, heads, ch), r(2, heads, ch)]
+    got = tgram.mdta_gram_bwd(qkv, *cot, heads)
+    torch.cuda.synchronize()
+    want = tgram.mdta_gram_bwd_plain(*_double([qkv] + cot), heads)
+    assert _rel_err(got.double(), want) < RTOL
+    attn = torch.softmax(r(2, heads, ch, ch), -1)
+    g = r(2, *hw, heads * ch)
+    got = tgram.attn_apply_bwd(qkv, attn, g)
+    torch.cuda.synchronize()
+    _assert_grads_match(got, tgram.attn_apply_bwd_plain(*_double([qkv, attn, g])),
+                        ["dv", "dattn"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln", ["WithBias", "BiasFree"])
+def test_tnet_grads_on_the_card_match_the_cpu(cuda_device, ln):
+    """The forward kernels are autograd Functions: a T_net on the card
+    gives every parameter the gradient the CPU model (plain twins) gives."""
+    cfg = ModelConfig(dim=8, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
+                      parity_params=False, layernorm_type=ln)
+    cpu = TNet(cfg, device="cpu", seed=3)
+    card = TNet(cfg, device="cuda", seed=3)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand(2, 16, 24, 3, generator=gen)
+    wts = torch.randn(3, 2, 16, 24, 3, generator=gen)
+
+    def grads(net, dev):
+        net.zero_grad()
+        outs = net(x.to(dev))
+        sum((o * w.to(dev)).sum() for o, w in zip(outs, wts)).backward()
+        return {n: p.grad for n, p in net.named_parameters()}
+
+    before = dict(build.LAUNCHES)
+    got = grads(card, "cuda")
+    torch.cuda.synchronize()
+    for k in ("block_head_bwd", "block_tail_bwd", "mdta_gram_bwd", "attn_apply_bwd"):
+        assert build.LAUNCHES[k] - before.get(k, 0) == 22, k
+    want = grads(cpu, "cpu")
+    for name, gw in want.items():
+        gc = got[name]
+        assert gc is not None, f"{name} has no gradient on the card"
+        err = float((gc.cpu() - gw).abs().max())
+        assert err <= 1e-4 * float(gw.abs().max()), (name, err)
