@@ -10,26 +10,46 @@ Phases (any failure exits non-zero; nothing is caught):
      types;
   3b. hold each backward kernel against its plain twin at every block
      shape of the training path (128x128, B = 3), both LayerNorm types;
+  3c. hold the fused dwconv tier's kernels (conv1x1_dw and gdfn_fused,
+     forward and backward) against their plain twins at every training
+     block shape;
   4. serve the full-width T_net (ModelConfig(), 46,853,150 parameters,
      seeded random weights) through make_restorer: restore_batch on 256^2
      images plus a 250x321 one, and a tiled 600x600 restore; check shapes,
-     finiteness and that every kernel ran 94 times per two-pass forward;
+     finiteness and that each kernel of serving's composition, "full"
+     (block head, block tail, Gram, apply), ran 94 times per two-pass
+     forward and no other kernel ran;
      compare a 128^2 forward with the same model on the CPU, and the
      reference golden (tests/goldens/tnet_full.npz) on the card;
   5. time images/s at 256 px, batch 1 and 8, and each kernel at the
      level-1 and latent shapes beside its bound, its plain twin and, where
      one exists, a single PyTorch call computing the same product; split
-     one 256 px forward into the four kernels (each timed at every block
+     one 256 px forward into its four kernels (each timed at every block
      shape, times the blocks at that shape) and the rest;
   6. train at full width: create_train_state(Config()) (T_net 46,853,150
-     and F_net 30,588,609 parameters, seeded), three minimax iterations
-     (make_train_iteration) at 128^2, B = 3, de_id 0/3/4, paired then
-     unpaired twice; check finite metrics, that every used parameter moved
-     and that each of the eight kernels ran 94 times per iteration; compare
-     the T_net and F_net gradients and one iteration's metrics with the
-     same state on the CPU at 64^2, B = 1; time iterations/s, every kernel
-     at the training shapes, and split one iteration into forward kernels,
-     backward kernels, the critic and the rest.
+     and F_net 30,588,609 parameters, seeded) in the JAX trainer's default
+     composition, "tail"; three minimax iterations (make_train_iteration)
+     at 128^2, B = 3, de_id 0/3/4, paired then unpaired twice; check finite
+     metrics, that every used parameter moved and that each kernel of the
+     composition (conv1x1_dw, block_tail, the Gram and the apply, forward
+     and backward) ran 94 times per iteration and no other kernel ran;
+     compare the T_net and F_net gradients and one iteration's metrics with
+     the same state on the CPU at 64^2, B = 1; time iterations/s in "tail"
+     and in "full" in turns, every kernel at the training shapes, and split
+     one iteration of each into forward kernels, backward kernels, the
+     critic and the rest;
+  6b. from one full-width state at 64^2, B = 1, each of the compositions
+     full, head, tail and off: its kernels launched 94 times in one
+     forward and backward (head and off run gdfn_fused), and every T_net
+     and F_net gradient within GRAD_RTOL of full's (the critic's sign
+     pattern pinned to full's);
+  7. the train CLI (rcot_torch.cli.train.main) at full width on a seeded
+     synthetic tree: a run stopped by --fail-at-step 5, resumed from
+     latest.npz at the epoch step its metadata holds, both epochs with
+     finite metrics and two validations with a finite PSNR, each kernel of
+     "tail" launched 94 times per iteration and the validation's forwards
+     in "full", and the final checkpoint loaded into a fresh Trainer equal
+     to the state in memory.
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
 plain twins and the CPU reference run in full fp32. Kernel agreement is
@@ -45,8 +65,9 @@ outputs (dx, da, d[q|k], dv) against the fp32 twin, their pixel sums
 added with atomics) against the float64 twin, all at the same bound. Card
 against CPU in training: each parameter's gradient within GRAD_RTOL of its
 largest entry (fp32 through the whole T_net and F_net, forward and
-backward, in another order of sums; the worst seen was 4.1e-5), each
-metric m within METRIC_RTOL * max(|m|, 1) (f_wgan is a difference of mean
+backward, in another order of sums; the worst seen was 4.1e-5), with
+the critic's LeakyReLU sign pattern pinned to the CPU's (LeakyPattern says
+why), each metric m within METRIC_RTOL * max(|m|, 1) (f_wgan is a difference of mean
 critic scores that nearly cancels at initialisation, |f_wgan| ~ 1e-5, so
 an error relative to the metric alone says nothing there). f_gp, t_loss
 and t_adv are read at the critic after one or two RMSprop steps, which
@@ -59,9 +80,12 @@ Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -69,14 +93,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from rcot_torch.cli import train as train_cli
+from rcot_torch.data.synthetic import write_synthetic_tree
 from rcot_torch.kernels import build
+from rcot_torch.models import critic
 from rcot_torch.models.inference import make_restorer
 from rcot_torch.models.restormer import TNet, count_params
 from rcot_torch.ops import block as kblock
+from rcot_torch.ops import fused as kfused
 from rcot_torch.ops import gram as kgram
+from rcot_torch.ops.dispatch import COMPOSITIONS
 from rcot_torch.train import losses
 from rcot_torch.train.optim import step_decay_lr
 from rcot_torch.train.steps import Batch, create_train_state, make_train_iteration
+from rcot_torch.train.trainer import InjectedFailure, Trainer
+from rcot_torch.utils.checkpoint import read_metadata
 from rcot_torch.utils.config import Config, CriticConfig, ModelConfig, TrainConfig
 
 PEAK_FLOPS = 67e12   # H100 SXM fp32 outside the tensor cores
@@ -114,14 +145,38 @@ FORWARD_KERNELS = {
     "block_tail": ("rcot_torch/csrc/block_fwd.cu", "rcot_tpu/ops/pallas_block.py:597"),
     "mdta_gram_fwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:99"),
     "attn_apply_fwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:178"),
+    "conv1x1_dw": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:238"),
+    "gdfn_fused": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:238"),
 }
 BACKWARD_KERNELS = {
     "block_head_bwd": ("rcot_torch/csrc/block_bwd.cu", "rcot_tpu/ops/pallas_block.py:401"),
     "block_tail_bwd": ("rcot_torch/csrc/block_bwd.cu", "rcot_tpu/ops/pallas_block.py:401"),
     "mdta_gram_bwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:141"),
     "attn_apply_bwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:219"),
+    "conv1x1_dw_bwd": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:415"),
+    "gdfn_fused_bwd": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:415"),
 }
 KERNELS = {**FORWARD_KERNELS, **BACKWARD_KERNELS}
+BWD_OF = dict(zip(FORWARD_KERNELS, BACKWARD_KERNELS))
+# the attention-side and the FFN-side kernel of each block composition
+# (ops/dispatch.py); every composition also runs the Gram and the apply
+COMPOSITION_KERNELS = {"full": ("block_head", "block_tail"),
+                       "head": ("block_head", "gdfn_fused"),
+                       "tail": ("conv1x1_dw", "block_tail"),
+                       "off": ("conv1x1_dw", "gdfn_fused")}
+
+
+def composition_kernels(mode: str, backward: bool = True) -> list:
+    fwd = [*COMPOSITION_KERNELS[mode], "mdta_gram_fwd", "attn_apply_fwd"]
+    return fwd + ([BWD_OF[k] for k in fwd] if backward else [])
+
+
+# where each kernel's launches in the kernels line are counted, and the
+# shapes of its ms: serving's forward (phase 4, serve L1), the training
+# iteration in "tail" (phase 6, train L1), or one composition of phase 6b
+LAUNCHES_FROM = {"block_head": "serve", "block_tail": "serve", "mdta_gram_fwd": "serve",
+                 "attn_apply_fwd": "serve", "block_head_bwd": "6b full",
+                 "gdfn_fused": "6b head", "gdfn_fused_bwd": "6b head"}
 
 
 def log(msg: str) -> None:
@@ -211,7 +266,9 @@ def phase_kernels(gen) -> dict:
     return errs
 
 
-PIXEL_OUTPUTS = {"block_head_bwd": 1, "block_tail_bwd": 2}  # leading per-pixel outputs
+# leading per-pixel outputs of each backward kernel (the rest are pixel sums)
+PIXEL_OUTPUTS = {"block_head_bwd": 1, "block_tail_bwd": 2, "conv1x1_dw_bwd": 1,
+                 "gdfn_fused_bwd": 1}
 
 
 def _double(ts):
@@ -269,6 +326,35 @@ def phase_backward(gen) -> dict:
     return errs
 
 
+def fused_args(p, gdfn):
+    """(x, w_in, dwk, w_out) of the qkv configuration or of the GDFN's."""
+    if gdfn:
+        return (p["x"], p["w_in"], p["dw_in"], p["w_out"])
+    return (p["x"], p["w_qkv"], p["dw_qkv"], None)
+
+
+def phase_fused(gen) -> dict:
+    """The fused dwconv tier's kernels, both configurations, forward and
+    backward, against their plain twins at every training block shape."""
+    errs: dict = {}
+    b = TRAIN_B
+    for label, res, c, heads in TRAIN_SHAPES:
+        p = block_inputs(gen, b, res, c, False)
+        for gdfn, name in ((False, "conv1x1_dw"), (True, "gdfn_fused")):
+            args = fused_args(p, gdfn)
+            tag = f"{label} B={b}"
+            got = kfused.fused_dwconv_fwd(*args)
+            torch.cuda.synchronize()
+            check(f"{name} {tag}", got, kfused.fused_dwconv_plain(*args), errs)
+            g = torch.randn(*got.shape, device="cuda", generator=gen)
+            got = kfused.fused_dwconv_bwd(*args, g)
+            torch.cuda.synchronize()
+            check_bwd(f"{name}_bwd {tag}", got, kfused.fused_dwconv_bwd_plain(*args, g),
+                      kfused.fused_dwconv_bwd_plain(*_double(args + (g,))), errs)
+        log(f"fused kernels ok at {label} {res}^2 C={c} B={b}")
+    return errs
+
+
 def phase_model(gen_np) -> dict:
     cfg = ModelConfig()
     t0 = time.perf_counter()
@@ -303,10 +389,10 @@ def phase_model(gen_np) -> dict:
     for im, o in zip(imgs + [big], outs + [out_big]):
         if o.shape != im.shape or not np.isfinite(o).all():
             raise AssertionError(f"bad output {o.shape} for input {im.shape}")
-    for name in FORWARD_KERNELS:
-        if launches.get(name, 0) != FORWARD_LAUNCHES * n_fwd or n_fwd == 0:
-            raise AssertionError(f"{name}: {launches.get(name, 0)} launches over "
-                                 f"{n_fwd} forwards, want {FORWARD_LAUNCHES} each")
+    if n_fwd == 0:
+        raise AssertionError("the restorer ran no forward")
+    check_launches("serving", launches, composition_kernels("full", backward=False),
+                   FORWARD_LAUNCHES * n_fwd)
     log(f"main path: {n_fwd} two-pass forwards, launches {launches}")
 
     # ---- agreement with the same model on the CPU
@@ -327,6 +413,15 @@ def phase_model(gen_np) -> dict:
     golden_err = golden_check()
     return dict(net=net, restorer=restorer, launches=launches, n_fwd=n_fwd,
                 golden_err=golden_err)
+
+
+def check_launches(tag: str, launches: dict, expected, per: int) -> None:
+    """Each kernel of `expected` launched `per` times, every other none."""
+    bad = {name: launches.get(name, 0) for name in KERNELS
+           if launches.get(name, 0) != (per if name in expected else 0)}
+    if bad:
+        raise AssertionError(f"{tag}: launches {bad}, want {per} of each of "
+                             f"{list(expected)} and none of the others")
 
 
 def golden_check() -> float:
@@ -434,6 +529,26 @@ def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
                            lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)),
                            b * n * 4 * c * ch,
                            f4 * (3 * b * n * c + 2 * bh * ch * ch)),
+        # the fused dwconv tier: the qkv configuration (M = 3C) and the
+        # GDFN's (2h, gelu ~10 flops per gate); backwards with the recompute
+        "conv1x1_dw": (lambda: kfused.fused_dwconv_fwd(*fused_args(p, False)),
+                       lambda: kfused.fused_dwconv_plain(*fused_args(p, False)), None,
+                       b * n * (2 * c * m + 18 * m),
+                       f4 * (b * n * (c + m) + m * c + 9 * m)),
+        "gdfn_fused": (lambda: kfused.fused_dwconv_fwd(*fused_args(p, True)),
+                       lambda: kfused.fused_dwconv_plain(*fused_args(p, True)), None,
+                       b * n * (4 * c * hid + 36 * hid + 10 * hid + 2 * hid * c),
+                       f4 * (2 * b * n * c + 3 * hid * c + 18 * hid)),
+        "conv1x1_dw_bwd": (lambda: kfused.fused_dwconv_bwd(*fused_args(p, False), g_head),
+                           lambda: kfused.fused_dwconv_bwd_plain(*fused_args(p, False),
+                                                                 g_head), None,
+                           b * n * (6 * c * m + 36 * m),
+                           f4 * (b * n * (2 * c + m) + 2 * (m * c + 9 * m))),
+        "gdfn_fused_bwd": (lambda: kfused.fused_dwconv_bwd(*fused_args(p, True), g_c),
+                           lambda: kfused.fused_dwconv_bwd_plain(*fused_args(p, True), g_c),
+                           None,
+                           b * n * (16 * c * hid + 128 * hid),
+                           f4 * (3 * b * n * c + 2 * (3 * hid * c + 18 * hid))),
     }
     out = {}
     for name in names:
@@ -466,12 +581,59 @@ def forward_breakdown(gen, net, timings) -> dict:
     with torch.inference_mode():
         fwd = cuda_ms(lambda: net(x), iters=10, warmup=2)
     per_kernel = {name: sum(BLOCKS_PER_FORWARD[label] * timings[label][name]["ms"]
-                            for label in BLOCKS_PER_FORWARD) for name in FORWARD_KERNELS}
+                            for label in BLOCKS_PER_FORWARD)
+                  for name in composition_kernels("full", backward=False)}
     return dict(forward_ms=fwd, kernels_ms=per_kernel,
                 outside_kernels_ms=fwd - sum(per_kernel.values()))
 
 
 # ------------------------------------------------------------ training
+
+class LeakyPattern:
+    """Pins the critic's LeakyReLU(0.2) sign pattern across two runs of one
+    computation. A fp32 gradient of the critic jumps where a pre-activation
+    crosses 0: a change of 1e-7 in its input (the card against the CPU, or
+    one block composition against another) moved F's WGAN gradients by up
+    to 6.9e-2 of their largest entry on the card, at one input in six.
+    `recording()` runs the reference side and keeps each call's x >= 0 in
+    call order; `replaying()` runs the other side, each call taking the next
+    recorded pattern. Both sides then differentiate one smooth branch, and
+    a difference beyond rounding is a difference in what was computed."""
+
+    def __init__(self):
+        self.masks: list = []
+
+    @contextlib.contextmanager
+    def _patched(self, leaky):
+        real = critic._leaky
+        critic._leaky = leaky
+        try:
+            yield
+        finally:
+            critic._leaky = real
+
+    def recording(self):
+        self.masks = []
+
+        def leaky(x):
+            self.masks.append((x >= 0).detach().cpu())
+            return torch.where(self.masks[-1].to(x.device), x, 0.2 * x)
+        return self._patched(leaky)
+
+    @contextlib.contextmanager
+    def replaying(self):
+        left = list(self.masks)
+
+        def leaky(x):
+            if not left or left[0].shape != x.shape:
+                raise AssertionError(f"replay: critic call of shape {tuple(x.shape)} "
+                                     "has no recorded pattern in this place")
+            return torch.where(left.pop(0).to(x.device), x, 0.2 * x)
+        with self._patched(leaky):
+            yield
+        if left:
+            raise AssertionError(f"replay: {len(left)} recorded critic calls not made")
+
 
 # modules defined by the reference but never called: their grads are zero
 PARITY_MODULES = ("res_patch_embed.", "chnl_reduce", "reduce_noise_channel_",
@@ -485,8 +647,9 @@ def seeded_batch(gen, b, res, de_id) -> Batch:
 
 
 def phase_train(gen) -> dict:
-    """Three full-width minimax iterations on the card (the training path,
-    counted), then their timing and split."""
+    """Three full-width minimax iterations on the card in the training
+    composition, "tail" (the training path, counted), then iterations/s in
+    "tail" and in "full" in turns (tail, full, full, tail)."""
     cfg = Config()
     t0 = time.perf_counter()
     state = create_train_state(cfg, seed=0, device="cuda")
@@ -494,8 +657,10 @@ def phase_train(gen) -> dict:
     if (n_t, n_f) != (46_853_150, 30_588_609):
         raise AssertionError(f"T_net {n_t} and F_net {n_f} parameters, not "
                              "46,853,150 and 30,588,609")
-    log(f"train state built: T_net {n_t}, F_net {n_f} parameters "
-        f"({time.perf_counter() - t0:.1f} s)")
+    if state.t_net.composition != "tail":
+        raise AssertionError(f"training composition {state.t_net.composition!r}, not tail")
+    log(f"train state built: T_net {n_t}, F_net {n_f} parameters, composition "
+        f"{state.t_net.composition} ({time.perf_counter() - t0:.1f} s)")
     iteration = make_train_iteration(cfg)
     lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
     b, res = cfg.train.batch_size, cfg.critic.patch_size
@@ -517,24 +682,173 @@ def phase_train(gen) -> dict:
         log(f"iteration {i}: {json.dumps(m)}")
         if not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"iteration {i}: metrics not finite: {m}")
-    for name in KERNELS:
-        if launches.get(name, 0) != FORWARD_LAUNCHES * len(metrics):
-            raise AssertionError(f"{name}: {launches.get(name, 0)} launches over "
-                                 f"{len(metrics)} iterations, want {FORWARD_LAUNCHES} each")
+    check_launches("training", launches, composition_kernels("tail"),
+                   FORWARD_LAUNCHES * len(metrics))
     log(f"training path: {len(metrics)} iterations, launches {launches}")
     check_moved(state, before)
     del before
 
-    # ---- iterations/s and the split of one iteration
-    n_timed = 5
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n_timed):
-        state, _ = iteration(state, batches[i % 3], alphas[i % 3], False, lr)
-    torch.cuda.synchronize()
-    it_s = n_timed / (time.perf_counter() - t0)
+    # ---- iterations/s in both compositions, in turns
+    rates = {"tail": [], "full": []}
+    for mode in ("tail", "full", "full", "tail"):
+        state.t_net.composition = mode
+        n_timed = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_timed):
+            state, _ = iteration(state, batches[i % 3], alphas[i % 3], False, lr)
+        torch.cuda.synchronize()
+        rates[mode].append(n_timed / (time.perf_counter() - t0))
+    state.t_net.composition = "tail"
     critic_ms = cuda_ms(lambda: critic_work(state, batches[0], alphas[0], cfg), iters=5)
-    return dict(launches=launches, metrics=metrics, it_per_s=it_s, critic_ms=critic_ms)
+    return dict(launches=launches, metrics=metrics,
+                it_per_s={mode: sum(v) / len(v) for mode, v in rates.items()},
+                it_per_s_runs=rates, critic_ms=critic_ms)
+
+
+def phase_compositions(gen_np) -> dict:
+    """The four block compositions from one full-width state at 64^2, B = 1:
+    each composition's T and F gradients of one iteration (train_grads)
+    against "full"'s, the critic's sign pattern pinned to full's
+    (LeakyPattern), and each composition's kernels launched 94 times in its
+    forward and backward (the counts reset just before each)."""
+    cfg = Config(critic=CriticConfig(patch_size=64), train=TrainConfig(batch_size=1))
+    b, res = cfg.train.batch_size, cfg.critic.patch_size
+    state = create_train_state(cfg, seed=2, device="cuda")
+    deg, tgt = (torch.from_numpy(gen_np.uniform(0, 1, (b, res, res, 3)).astype(np.float32))
+                .cuda() for _ in range(2))
+    batch = Batch(deg, tgt, torch.tensor([3] * b, device="cuda"))
+    alpha = torch.full((b, 1, 1, 1), 0.37, device="cuda")
+    grads, launches = {}, {}
+    pattern = LeakyPattern()
+    for mode in COMPOSITIONS:  # full first: it records the critic's pattern
+        state.t_net.composition = mode
+        build.reset_launches()
+        with pattern.recording() if mode == "full" else pattern.replaying():
+            grads[mode] = train_grads(state, batch, alpha, cfg)
+        torch.cuda.synchronize()
+        launches[mode] = dict(build.LAUNCHES)
+        check_launches(f"composition {mode}", launches[mode], composition_kernels(mode),
+                       FORWARD_LAUNCHES)
+    worst = {}
+    for mode in COMPOSITIONS[1:]:
+        if set(grads[mode]) != set(grads["full"]):
+            raise AssertionError(f"{mode}: other parameters get a gradient than in full")
+        rel = {k: float((g - grads["full"][k]).abs().max()
+                        / grads["full"][k].abs().max().clamp_min(1e-30))
+               for k, g in grads[mode].items()}
+        bad = [k for k, v in rel.items() if not v <= GRAD_RTOL]
+        if bad:
+            raise AssertionError(f"{mode} vs full: gradients off by more than "
+                                 f"{GRAD_RTOL} of their largest: {bad}")
+        worst[mode] = max(rel.items(), key=lambda kv: kv[1])
+        log(f"composition {mode} vs full 64^2: {len(rel)} gradients, worst "
+            f"max|err|/max|grad| {worst[mode]}")
+    return dict(launches=launches, worst=worst)
+
+
+def train_cli_argv(root: str, run: str) -> list:
+    return ["--preset", "dehaze", "--de-type", "denoise_15", "dehaze",
+            "--patch-size", str(TRAIN_RES), "--batch-size", str(TRAIN_B), "--pairnum", "6",
+            "--n-epochs", "2", "--ckpt-every-steps", "2",
+            "--denoise-dir", f"{root}/Train/Denoise/", "--dehaze-dir", f"{root}/Train/Dehaze/",
+            "--data-file-dir", f"{root}/manifests/", "--degset", f"{root}/val/input/",
+            "--tarset", f"{root}/val/target/", "--ckpt-dir", f"{run}/ckpt",
+            "--log-file", f"{run}/log.jsonl"]
+
+
+def phase_train_cli(card: str) -> dict:
+    """rcot_torch.cli.train at full width on a seeded synthetic tree (3
+    denoise images x5 and 6 hazy pairs, 192^2: 21 samples, 7 steps an
+    epoch, 2 of them paired; validation on a 192^2 and a 250x321 image):
+    a run stopped by --fail-at-step 5, then resumed from latest.npz through
+    both epochs and their validations; the final checkpoint loads back
+    into a fresh Trainer equal to the state in memory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root, run = f"{tmp}/tree", f"{tmp}/run"
+        write_synthetic_tree(root, seed=0, n_denoise=3, n_rain=0, n_haze=6, size=192,
+                             val_sizes=((192, 192), (250, 321)))
+        argv = train_cli_argv(root, run)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            train_cli.main(argv + ["--fail-at-step", "5"])
+        except InjectedFailure as e:
+            log(f"train CLI stopped as asked: {e}")
+        else:
+            raise AssertionError("--fail-at-step 5 did not stop the run")
+        with open(f"{run}/log.jsonl") as f:
+            n_first = len(f.readlines())
+        latest = f"{run}/ckpt/latest.npz"
+        meta = read_metadata(latest)
+        trainer = train_cli.main(argv + ["--resume", latest])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        with open(f"{run}/log.jsonl") as f:
+            events = [json.loads(line) for line in f]
+        first, second = events[:n_first], events[n_first:]
+
+        skipped = [e["epoch_step"] for e in first if e["event"] == "ckpt_skipped_inflight"]
+        want_step = 2 if 4 in skipped else 4
+        resumed = [e for e in second if e["event"] == "resumed"]
+        if [(e["epoch"], e["epoch_step"]) for e in resumed] != [(1, meta["epoch_step"])] \
+                or meta["epoch_step"] != want_step:
+            raise AssertionError(f"resumed {resumed}, latest.npz {meta.get('epoch')}/"
+                                 f"{meta.get('epoch_step')}, skipped saves at {skipped}")
+        steps = [e for e in events if e["event"] == "train_step"]
+        names = ("f_wgan", "f_gp", "t_loss", "t_adv", "rmse", "fourier", "paired_l1")
+        if not steps or not all(np.isfinite(e[k]) for e in steps for k in names):
+            raise AssertionError(f"train_step metrics missing or not finite: {steps}")
+        ends = [e["epoch"] for e in second if e["event"] == "epoch_end"]
+        vals = [e for e in second if e["event"] == "validation"]
+        if ends != [1, 2] or [v["epoch"] for v in vals] != [1, 2] \
+                or not all(v["psnr"] is not None and np.isfinite(v["psnr"]) for v in vals):
+            raise AssertionError(f"epoch ends {ends}, validations {vals}")
+        if trainer.host_step != 14 or not os.path.exists(latest) or \
+                read_metadata(latest)["epoch"] != 3:
+            raise AssertionError(f"the run ended at step {trainer.host_step}, latest "
+                                 f"{read_metadata(latest)}")
+        # steps 0-4 before the failure, then from the resume point to 14;
+        # each validation image is one forward in "full"
+        n_iter = 5 + 14 - meta["epoch_step"]
+        n_val = 2 * len(vals)
+        want = {k: FORWARD_LAUNCHES * n_iter for k in composition_kernels("tail")}
+        want["block_head"] = FORWARD_LAUNCHES * n_val
+        for k in ("block_tail", "mdta_gram_fwd", "attn_apply_fwd"):
+            want[k] += FORWARD_LAUNCHES * n_val
+        if {k: launches.get(k, 0) for k in KERNELS} != \
+                {k: want.get(k, 0) for k in KERNELS}:
+            raise AssertionError(f"train CLI launches {launches}, want {want} "
+                                 f"({n_iter} iterations in tail, {n_val} forwards in full)")
+        fresh = Trainer(trainer.cfg)
+        fresh.resume(latest)
+        check_same_state(fresh.state, trainer.state)
+        ips = [e["imgs_per_sec"] for e in steps]
+        pps = [e["patches_per_sec"] for e in second if e["event"] == "epoch_end"]
+        log(f"train CLI at full width: resumed at epoch 1 step {meta['epoch_step']} "
+            f"(periodic saves skipped in flight at epoch steps {skipped}), 14 steps, "
+            f"PSNR {[round(v['psnr'], 4) for v in vals]}, imgs_per_sec at logged steps {ips}, "
+            f"patches_per_sec by epoch {pps} ({card})")
+        return dict(resumed_at=meta["epoch_step"], skipped_inflight=skipped,
+                    imgs_per_sec=ips, patches_per_sec=pps,
+                    psnr=[v["psnr"] for v in vals], launches=launches,
+                    seconds=seconds, card=card)
+
+
+def check_same_state(a, b) -> None:
+    """Parameters, optimizer slots and step of two TrainStates are equal."""
+    for tag, na, nb, oa, ob in (("T", a.t_net, b.t_net, a.t_opt, b.t_opt),
+                                ("F", a.f_net, b.f_net, a.f_opt, b.f_opt)):
+        for (n, p), q in zip(na.named_parameters(), nb.parameters()):
+            if not torch.equal(p, q):
+                raise AssertionError(f"{tag} {n}: loaded parameter differs")
+            sa, sb = oa.state[p], ob.state[q]
+            if sa.keys() != sb.keys() or not all(torch.equal(sa[k].cpu(), sb[k].cpu())
+                                                 for k in sa):
+                raise AssertionError(f"{tag} {n}: loaded optimizer state differs")
+    if a.step != b.step:
+        raise AssertionError(f"step {a.step} != {b.step}")
 
 
 def check_moved(state, before) -> None:
@@ -607,20 +921,23 @@ def train_grads(state, batch, alpha, cfg) -> dict:
 
 def phase_train_vs_cpu(gen_np) -> dict:
     """The full-width nets from one seed on the card and on the CPU, at 64^2,
-    B = 1, critic patch 64: every gradient, then one iteration's metrics."""
+    B = 1, critic patch 64: every gradient, then one iteration's metrics,
+    the critic's sign pattern pinned to the CPU's (LeakyPattern)."""
     cfg = Config(critic=CriticConfig(patch_size=64), train=TrainConfig(batch_size=1))
     b, res = cfg.train.batch_size, cfg.critic.patch_size
     deg, tgt = (gen_np.uniform(0, 1, (b, res, res, 3)).astype(np.float32) for _ in range(2))
     alpha = np.full((b, 1, 1, 1), 0.37, np.float32)
     lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
     sides = {}
-    for dev in ("cuda", "cpu"):
+    pattern = LeakyPattern()
+    for dev in ("cpu", "cuda"):  # the CPU records the critic's pattern
         state = create_train_state(cfg, seed=1, device=dev)
         batch = Batch(torch.from_numpy(deg).to(dev), torch.from_numpy(tgt).to(dev),
                       torch.tensor([0] * b, device=dev))
         a = torch.from_numpy(alpha).to(dev)
-        grads = {k: v.cpu() for k, v in train_grads(state, batch, a, cfg).items()}
-        _, m = make_train_iteration(cfg)(state, batch, a, True, lr)
+        with pattern.recording() if dev == "cpu" else pattern.replaying():
+            grads = {k: v.cpu() for k, v in train_grads(state, batch, a, cfg).items()}
+            _, m = make_train_iteration(cfg)(state, batch, a, True, lr)
         sides[dev] = (grads, {k: float(v) for k, v in m.items()})
         del state
     (g_card, m_card), (g_cpu, m_cpu) = sides["cuda"], sides["cpu"]
@@ -643,19 +960,21 @@ def phase_train_vs_cpu(gen_np) -> dict:
     return dict(grad_worst_rel=worst[0][1], metric_worst_rel=max(m_rel.values()))
 
 
-def iteration_breakdown(train, timings) -> dict:
-    """One iteration at 128^2, B = 3 (host clock over five, synchronised)
-    beside each kernel's time at every block shape times the blocks at that
-    shape, and the critic's share timed alone; the rest is T's convolutions,
-    resamplers, glue, the losses, the optimizer steps and launch gaps."""
-    it_ms = 1e3 / train["it_per_s"]
+def iteration_breakdown(it_per_s, critic_ms, timings, mode) -> dict:
+    """One iteration at 128^2, B = 3 in `mode` (host clock, synchronised)
+    beside each of its kernels' time at every block shape times the blocks
+    at that shape, and the critic's share timed alone; the rest is T's
+    convolutions, resamplers, glue (and, in "tail", LN1 and its backward),
+    the losses, the optimizer steps and launch gaps."""
+    it_ms = 1e3 / it_per_s
+    names = composition_kernels(mode)
     per_kernel = {name: sum(BLOCKS_PER_FORWARD[label] * timings[label][name]["ms"]
-                            for label in BLOCKS_PER_FORWARD) for name in KERNELS}
-    fwd = sum(per_kernel[k] for k in FORWARD_KERNELS)
-    bwd = sum(per_kernel[k] for k in BACKWARD_KERNELS)
-    return dict(iteration_ms=it_ms, forward_kernels_ms=fwd, backward_kernels_ms=bwd,
-                critic_ms=train["critic_ms"],
-                rest_ms=it_ms - fwd - bwd - train["critic_ms"], kernels_ms=per_kernel)
+                            for label in BLOCKS_PER_FORWARD) for name in names}
+    fwd = sum(per_kernel[k] for k in names if k in FORWARD_KERNELS)
+    bwd = sum(per_kernel[k] for k in names if k in BACKWARD_KERNELS)
+    return dict(composition=mode, iteration_ms=it_ms, forward_kernels_ms=fwd,
+                backward_kernels_ms=bwd, critic_ms=critic_ms,
+                rest_ms=it_ms - fwd - bwd - critic_ms, kernels_ms=per_kernel)
 
 
 # ------------------------------------------------------------ main
@@ -682,6 +1001,7 @@ def main() -> int:
     gen_np = np.random.default_rng(0)
     errs = phase_kernels(gen)
     errs.update(phase_backward(gen))
+    errs.update(phase_fused(gen))
     model = phase_model(gen_np)
 
     ips1 = images_per_sec(model["restorer"], gen_np, 1, 10)
@@ -689,31 +1009,37 @@ def main() -> int:
     log(f"256px restore_batch: {ips1:.3f} img/s at batch 1, {ips8:.3f} img/s "
         f"at batch 8 ({card})")
 
-    timings = {label: kernel_timings(gen, label, res, c, heads, 1, FORWARD_KERNELS)
+    serve_kernels = composition_kernels("full", backward=False)
+    timings = {label: kernel_timings(gen, label, res, c, heads, 1, serve_kernels)
                for label, res, c, heads in MAIN_SHAPES}
     breakdown = forward_breakdown(gen, model["net"], timings)
     del model["restorer"], model["net"]
 
     train = phase_train(gen)
-    log(f"training {TRAIN_RES}px B={TRAIN_B}: {train['it_per_s']:.4f} iterations/s ({card})")
+    log(f"training {TRAIN_RES}px B={TRAIN_B}: {train['it_per_s']['tail']:.4f} "
+        f"iterations/s in tail, {train['it_per_s']['full']:.4f} in full ({card})")
     vs_cpu = phase_train_vs_cpu(gen_np)
+    compositions = phase_compositions(gen_np)
+    cli = phase_train_cli(card)
     train_timings = {label: kernel_timings(gen, label, res, c, heads, TRAIN_B, KERNELS)
                      for label, res, c, heads in TRAIN_SHAPES}
-    split = iteration_breakdown(train, train_timings)
+    splits = {mode: iteration_breakdown(train["it_per_s"][mode], train["critic_ms"],
+                                        train_timings, mode) for mode in ("tail", "full")}
 
+    launch_runs = {"serve": model["launches"], "train": train["launches"],
+                   **{f"6b {m}": compositions["launches"][m] for m in COMPOSITIONS}}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        fwd = name in FORWARD_KERNELS
-        # a forward kernel's main path is serving (256 px, B = 1), a
-        # backward kernel's training (128 px, B = 3)
-        t = timings if fwd else train_timings
+        path = LAUNCHES_FROM.get(name, "train")
+        # a kernel's ms are at its main path's shapes: serving's forward at
+        # 256 px, B = 1; every other at the training shapes, 128 px, B = 3
+        t = timings if path == "serve" else train_timings
         l1, lat = t["L1"][name], t["latent"][name]
-        launches = model["launches"][name] if fwd else train["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches,
-            launches_per_forward=(launches // model["n_fwd"] if fwd else None),
-            launches_per_iteration=train["launches"][name] // len(train["metrics"]),
+            launches=launch_runs[path][name], launches_counted_in=path,
+            launches_per_train_iteration_tail=train["launches"].get(name, 0) // len(
+                train["metrics"]),
             max_abs_err=errs[name][0], max_rel_err=errs[name][1],
             ms=l1["ms"], plain_ms=l1["plain_ms"],
             bound_ms=l1["bound_ms"], bound_by=l1["bound_by"],
@@ -727,9 +1053,14 @@ def main() -> int:
     log(json.dumps({"e2e_256px": {"batch1_img_per_s": ips1, "batch8_img_per_s": ips8,
                                   "card": card},
                     "forward_256px_b1": breakdown,
-                    "train_128px_b3": {"iterations_per_s": train["it_per_s"], "card": card,
-                                       "split": split, "metrics": train["metrics"]},
+                    "train_128px_b3": {"iterations_per_s": train["it_per_s"],
+                                       "iterations_per_s_runs": train["it_per_s_runs"],
+                                       "card": card, "split": splits,
+                                       "metrics": train["metrics"]},
                     "train_card_vs_cpu_64px": vs_cpu,
+                    "compositions_vs_full_64px": compositions["worst"],
+                    "train_cli": {k: v for k, v in cli.items() if k != "launches"},
+                    "train_cli_launches": cli["launches"],
                     "gram_plain_fp32_vs_float64_rel_err": errs["gram_plain_fp32_rel"],
                     "golden_max_abs_err": model["golden_err"],
                     "seconds": time.perf_counter() - t_start}))

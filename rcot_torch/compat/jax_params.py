@@ -8,6 +8,11 @@
   port_fnet_state_dict (HWIO -> OIHW convs, (in, out) -> (out, in)
   linears, and the flatten head's fc rows from (H, W, C) back to torch's
   (C, H, W) order).
+- `tnet_jax_from_state_dict(sd, cfg)` / `fnet_jax_from_state_dict(sd,
+  critic_cfg)`: the inverses, from any dict keyed by the port's parameter
+  names (the parameters, or an optimizer's per-parameter state) to the JAX
+  pytree's '/'-joined paths, as torch tensors in the JAX layouts (views
+  where the layout is the same).
 - `load_jax_npz(path)`: read a JAX-package checkpoint (.npz of '/'-joined
   tree paths plus a JSON blob under '__rcot_meta__'): a raw T-params npz
   (metadata carries "backbone") or a trainer checkpoint, whose T_net lives
@@ -124,7 +129,76 @@ def fnet_state_dict_from_jax(params: Mapping, cfg: CriticConfig
     return sd
 
 
-def _unflatten(flat: Mapping[str, np.ndarray]):
+def _conv_to_jax(flat: Dict, path: str, sd: Mapping, prefix: str) -> None:
+    flat[path + "/w"] = sd[prefix + ".weight"].permute(2, 3, 1, 0)
+    if prefix + ".bias" in sd:
+        flat[path + "/b"] = sd[prefix + ".bias"]
+
+
+def _ln_to_jax(flat: Dict, path: str, sd: Mapping, prefix: str) -> None:
+    flat[path + "/w"] = sd[prefix + ".body.weight"]
+    if prefix + ".body.bias" in sd:
+        flat[path + "/b"] = sd[prefix + ".body.bias"]
+
+
+def _block_to_jax(flat: Dict, path: str, sd: Mapping, prefix: str) -> None:
+    _ln_to_jax(flat, path + "/norm1", sd, prefix + ".norm1")
+    flat[path + "/attn/temperature"] = sd[prefix + ".attn.temperature"]
+    for jname, name in (("qkv", "qkv"), ("qkv_dw", "qkv_dwconv"), ("proj", "project_out")):
+        _conv_to_jax(flat, f"{path}/attn/{jname}", sd, f"{prefix}.attn.{name}")
+    _ln_to_jax(flat, path + "/norm2", sd, prefix + ".norm2")
+    for jname, name in (("proj_in", "project_in"), ("dw", "dwconv"),
+                        ("proj_out", "project_out")):
+        _conv_to_jax(flat, f"{path}/ffn/{jname}", sd, f"{prefix}.ffn.{name}")
+
+
+def tnet_jax_from_state_dict(sd: Mapping, cfg: ModelConfig) -> Dict:
+    """Inverse of tnet_state_dict_from_jax: port names -> '/'-joined JAX
+    paths of init_tnet's pytree, torch tensors in JAX layouts."""
+    flat: Dict = {}
+    _conv_to_jax(flat, "patch_embed", sd, "patch_embed.proj")
+    for name in _STACKS:
+        i = 0
+        while f"{name}.{i}.norm1.body.weight" in sd:
+            _block_to_jax(flat, f"{name}/{i}", sd, f"{name}.{i}")
+            i += 1
+    for name in _RESAMPLES:
+        _conv_to_jax(flat, name + "/conv", sd, name + ".body.0")
+    for name in _CONVS:
+        _conv_to_jax(flat, name, sd, name)
+    for name in _BLOCKS:
+        _block_to_jax(flat, name, sd, name)
+    if cfg.parity_params:
+        _conv_to_jax(flat, "unused/res_patch_embed", sd, "res_patch_embed.proj")
+        for name in _UNUSED_CONVS:
+            _conv_to_jax(flat, "unused/" + name, sd, name)
+        _conv_to_jax(flat, "unused/resdown3_4/conv", sd, "resdown3_4.body.0")
+        _block_to_jax(flat, "unused/resnoise_level3", sd, "resnoise_level3")
+    return flat
+
+
+def fnet_jax_from_state_dict(sd: Mapping, cfg: CriticConfig) -> Dict:
+    """Inverse of fnet_state_dict_from_jax: port names -> '/'-joined JAX
+    paths of init_fnet's pytree, torch tensors in JAX layouts."""
+    flat: Dict = {}
+    i = 0
+    while f"features.{2 * i}.weight" in sd:
+        _conv_to_jax(flat, f"convs/{i}", sd, f"features.{2 * i}")
+        i += 1
+    w = sd["fc.weight"].t()  # (in, out); in in torch's (C, H, W) order
+    if cfg.head == "flatten":
+        side = cfg.patch_size // 32
+        n_in, n_out = w.shape
+        w = w.reshape(512, side, side, n_out).permute(1, 2, 0, 3).reshape(n_in, n_out)
+    flat["fc/w"] = w
+    flat["fc1/w"] = sd["fc1.weight"].t()
+    flat["fc2/w"] = sd["fc2.weight"].t()
+    for name in ("fc", "fc1", "fc2"):
+        flat[name + "/b"] = sd[name + ".bias"]
+    return flat
+
+
+def unflatten(flat: Mapping[str, np.ndarray]):
     """'/'-joined paths -> nested dicts; a dict whose keys are 0..n-1
     becomes a list (the JAX pytree's block stacks)."""
     root: Dict = {}
@@ -170,5 +244,5 @@ def load_jax_npz(path: str, cfg: ModelConfig = ModelConfig()
                              "not a T_net checkpoint")
     if backbone != "restormer":
         raise ValueError(f"{path}: backbone {backbone!r} is not ported yet")
-    return tnet_state_dict_from_jax(_unflatten(flat), cfg), cfg
+    return tnet_state_dict_from_jax(unflatten(flat), cfg), cfg
 

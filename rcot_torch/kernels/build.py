@@ -51,6 +51,13 @@ SIGNATURES = {
     "rcot_block_tail_bwd": [_P] * 26 + [_I] * 5 + [_P],
     "rcot_mdta_gram_bwd": [_P] * 5 + [_I, _L, _I, _I, _P],
     "rcot_attn_apply_bwd": [_P] * 5 + [_I, _L, _I, _I, _P],
+    # inputs 3 (+ w_out), output 1; B, H, W, C, M or hid; stream
+    "rcot_conv1x1_dw": [_P] * 4 + [_I] * 5 + [_P],
+    "rcot_gdfn_fused": [_P] * 5 + [_I] * 5 + [_P],
+    # inputs 4, outputs 3, workspace 2; B, H, W, C, M; stream
+    "rcot_conv1x1_dw_bwd": [_P] * 9 + [_I] * 5 + [_P],
+    # inputs 5, outputs 4, workspace 5; B, H, W, C, hid; stream
+    "rcot_gdfn_fused_bwd": [_P] * 14 + [_I] * 5 + [_P],
 }
 
 

@@ -164,7 +164,10 @@ def make_restorer(model: Union[torch.nn.Module, Mapping[str, object]],
                   model_cfg: ModelConfig = ModelConfig(), *, tile: int = 0,
                   tile_overlap: int = 32, device="cuda") -> Restorer:
     """Restorer around the two-pass T_net's out2. `model` is a TNet or a
-    state_dict (numpy arrays or tensors) to load into a new one."""
+    state_dict (numpy arrays or tensors) to load into a new one. Its
+    forwards run in serving's composition, "full", and leave a shared
+    TNet's own composition as they found it, so a trainer can validate its
+    training net."""
     dev = resolve_device(device)
     if model_cfg.backbone != "restormer":
         raise ValueError(f"backbone {model_cfg.backbone!r} is not ported yet")
@@ -177,6 +180,11 @@ def make_restorer(model: Union[torch.nn.Module, Mapping[str, object]],
     tnet.eval()
 
     def fn(x: torch.Tensor) -> torch.Tensor:
-        return tnet(x.float())[0]
+        before = tnet.composition
+        tnet.composition = "full"
+        try:
+            return tnet(x.float())[0]
+        finally:
+            tnet.composition = before
 
     return Restorer(fn, device=dev, tile=tile, tile_overlap=tile_overlap)

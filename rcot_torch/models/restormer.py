@@ -16,9 +16,19 @@ Forward, as in the JAX package:
 - pass 2 re-runs the same decoder on latent2;
 - returns (out2, out1, res) and writes no files.
 
-A bias-free block (the default config) runs the fused kernels:
-block_head -> mdta_core_gram -> block_tail (ops/block.py, ops/gram.py).
-With bias=True it composes the plain ops, as the JAX package does.
+A bias-free block (the default config) runs the fused kernels in one of
+the four compositions of ops/dispatch.py, the `composition` attribute of
+the TNet (settable after construction; not a ModelConfig field, so that
+Config.hash() stays the JAX package's):
+
+  full: block_head -> mdta_core_gram -> block_tail (serving's default)
+  head: block_head -> mdta_core_gram -> x + proj(a) -> x + gdfn_fused(LN2(x))
+  tail: LN1 -> conv1x1_dw_fused -> mdta_core_gram -> block_tail (training's)
+  off:  LN1 -> conv1x1_dw_fused -> mdta_core_gram -> x + proj(a)
+        -> x + gdfn_fused(LN2(x))
+
+(ops/block.py, ops/fused.py, ops/gram.py). With bias=True every
+composition takes the plain ops, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,9 +40,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.attention import mdta
+from ..ops.attention import mdta, mdta_qkv
 from ..ops.block import block_head, block_tail
-from ..ops.conv import conv2d
+from ..ops.conv import conv1x1, conv2d
+from ..ops.dispatch import COMPOSITIONS
 from ..ops.gdfn import gdfn, hidden_features
 from ..ops.gram import mdta_core_gram
 from ..ops.layernorm import layernorm
@@ -123,18 +134,25 @@ class TransformerBlock(nn.Module):
         self.attn = Attention(dim, num_heads, bias)
         self.norm2 = LayerNorm(dim, ln_bias)
         self.ffn = FeedForward(dim, ffn_factor, bias, ffn_multiple)
+        self.composition = "full"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         at, f = self.attn, self.ffn
         if at.qkv.bias is not None:
             x = x + at(self.norm1(x))
             return x + f(self.norm2(x))
-        qkv = block_head(x, self.norm1.body.weight, self.norm1.body.bias,
-                         _mat(at.qkv), _taps(at.qkv_dwconv))
+        if self.composition in ("tail", "off"):
+            qkv = mdta_qkv(self.norm1(x), at.qkv.weight, at.qkv_dwconv.weight)
+        else:
+            qkv = block_head(x, self.norm1.body.weight, self.norm1.body.bias,
+                             _mat(at.qkv), _taps(at.qkv_dwconv))
         a = mdta_core_gram(at.temperature, qkv, at.num_heads)
-        return block_tail(x, a, _mat(at.project_out), self.norm2.body.weight,
-                          self.norm2.body.bias, _mat(f.project_in),
-                          _taps(f.dwconv), _mat(f.project_out))
+        if self.composition in ("full", "tail"):
+            return block_tail(x, a, _mat(at.project_out), self.norm2.body.weight,
+                              self.norm2.body.bias, _mat(f.project_in),
+                              _taps(f.dwconv), _mat(f.project_out))
+        x = x + conv1x1(a, _mat(at.project_out))
+        return x + f(self.norm2(x))
 
 
 class _Resample(nn.Module):
@@ -164,10 +182,12 @@ class _PatchEmbed(nn.Module):
 class TNet(nn.Module):
     """The RCOT T_net. `seed` fills every parameter from a numpy generator
     keyed by its name (init_weights_); load a checkpoint over it to serve
-    trained weights."""
+    trained weights. `composition` picks the bias-free blocks' kernels
+    (module docstring)."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), *,
-                 device="cuda", seed: Optional[int] = 0):
+                 device="cuda", seed: Optional[int] = 0,
+                 composition: str = "full"):
         super().__init__()
         self.cfg = cfg
         d1, d2, d3, d4 = cfg.dims
@@ -231,9 +251,23 @@ class TNet(nn.Module):
             self.resdown3_4 = _Resample(d3, True)
             self.resnoise_level3 = block(d4, h[2])
             self.resreduce_noise_level3 = conv1(d4, d3)
+        self.composition = composition
         self.to(resolve_device(device))
         if seed is not None:
             self.init_weights_(seed)
+
+    @property
+    def composition(self) -> str:
+        return self._composition
+
+    @composition.setter
+    def composition(self, mode: str) -> None:
+        if mode not in COMPOSITIONS:
+            raise ValueError(f"unknown composition {mode!r}; one of {COMPOSITIONS}")
+        self._composition = mode
+        for m in self.modules():
+            if isinstance(m, TransformerBlock):
+                m.composition = mode
 
     @torch.no_grad()
     def init_weights_(self, seed: int = 0, std: float = 0.02) -> "TNet":

@@ -3,8 +3,9 @@
 Reference Net_Restormer.py:19-50. q, k and v come from a 1x1 conv and a
 3x3 depthwise conv; per head, q and k are L2-normalised along the spatial
 axis (eps 1e-12, as F.normalize) and attention is the (c, c) matrix
-softmax(q k^T * temperature). This is the composition the bias=True model
-takes; the bias-free model runs the Gram kernels of ops/gram.py instead.
+softmax(q k^T * temperature). `mdta` is the composition the bias=True model
+takes; the bias-free model runs the Gram kernels of ops/gram.py instead,
+and its qkv half through `mdta_qkv`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 
 from .conv import conv1x1, depthwise3x3
+from .fused import conv1x1_dw_fused
 
 L2_EPS = 1e-12
 
@@ -47,7 +49,12 @@ def mdta_core(temperature: torch.Tensor, qkv: torch.Tensor,
 def mdta_qkv(x: torch.Tensor, w_qkv: torch.Tensor, w_dw: torch.Tensor,
              b_qkv: Optional[torch.Tensor] = None,
              b_dw: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """1x1 qkv projection then its 3x3 depthwise conv: (B,H,W,C) -> 3C."""
+    """1x1 qkv projection then its 3x3 depthwise conv: (B,H,W,C) -> 3C.
+    Bias-free, the two run as one fused kernel (conv1x1_dw_fused, as
+    rcot_tpu/ops/attention.py:89-117 routes); with biases, as plain convs."""
+    if b_qkv is None and b_dw is None:
+        m = w_qkv.shape[0]
+        return conv1x1_dw_fused(x, w_qkv.reshape(m, -1), w_dw.reshape(m, 3, 3))
     return depthwise3x3(conv1x1(x, w_qkv, b_qkv), w_dw, b_dw)
 
 

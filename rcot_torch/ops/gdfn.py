@@ -31,6 +31,14 @@ def gdfn(x: torch.Tensor, w_in: torch.Tensor, w_dw: torch.Tensor,
          w_out: torch.Tensor, b_in: Optional[torch.Tensor] = None,
          b_dw: Optional[torch.Tensor] = None,
          b_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, H, W, C) -> (B, H, W, C)."""
+    """(B, H, W, C) -> (B, H, W, C). Bias-free, the whole GDFN is one fused
+    kernel (gdfn_fused, as rcot_tpu/ops/gdfn.py:44-58 routes); with biases,
+    plain ops."""
+    if b_in is None and b_dw is None and b_out is None:
+        # imported here: ops/fused.py takes `gated` from this module
+        from .fused import gdfn_fused
+        m = w_in.shape[0]
+        return gdfn_fused(x, w_in.reshape(m, -1), w_dw.reshape(m, 3, 3),
+                          w_out.reshape(w_out.shape[0], -1))
     h = depthwise3x3(conv1x1(x, w_in, b_in), w_dw, b_dw)
     return conv1x1(gated(h), w_out, b_out)

@@ -13,17 +13,26 @@ single-T-forward form; reference trainer.py:247-346):
 The state (modules and optimizers) is updated in place. The GP's
 interpolation weights `alpha` (B,1,1,1) are an argument, drawn by the
 caller from its own generator, so a test can hand in JAX's draw.
+
+`step_inputs` makes one step's batch and alpha from the loader's uint8
+patches, every random draw (augment modes, noise, alpha) from
+`step_generator(seed, step)`, so a resumed run repeats the uninterrupted
+one on the same device (the JAX trainer folds the step into its key the
+same way, trainer.py:152-158).
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..data.degradations import augment_and_degrade
 from ..models.critic import FNet
 from ..models.restormer import TNet
+from ..ops.dispatch import resolve_composition
 from ..utils.config import Config
 from ..utils.device import resolve_device
 from .losses import gradient_penalty, t_loss, wgan_critic_loss
@@ -45,18 +54,39 @@ class Batch(NamedTuple):
     de_id: torch.Tensor     # (B,) int
 
 
-def create_train_state(cfg: Config, *, seed: int = 0, device="cuda") -> TrainState:
-    """T and F from `seed` (each module's own seeded init), T's optimizer at
-    lr / 2 and F's at lr."""
+def create_train_state(cfg: Config, *, seed: Optional[int] = 0, device="cuda",
+                       composition: str = "auto") -> TrainState:
+    """T and F from `seed` (each module's own seeded init; None leaves them
+    uninitialised, for a checkpoint to fill), T's optimizer at lr / 2 and
+    F's at lr. T's blocks run in `composition`; "auto" is the JAX trainer's
+    default, "tail" (ops/dispatch.py)."""
     if cfg.model.backbone != "restormer":
         raise ValueError(f"backbone {cfg.model.backbone!r} is not ported yet")
     dev = resolve_device(device)
-    t_net = TNet(cfg.model, device=dev, seed=seed)
+    t_net = TNet(cfg.model, device=dev, seed=seed,
+                 composition=resolve_composition(composition, training=True))
     f_net = FNet(cfg.critic, device=dev, seed=seed)
     return TrainState(
         t_net=t_net, f_net=f_net,
         t_opt=make_optimizer(cfg.train.optimizer, t_net.parameters(), cfg.train.lr / 2),
         f_opt=make_optimizer(cfg.train.optimizer, f_net.parameters(), cfg.train.lr))
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one training step, keyed by (seed, step)."""
+    key = hashlib.sha256(f"{seed}:{step}".encode()).digest()[:8]
+    return torch.Generator(device=device).manual_seed(int.from_bytes(key, "little") >> 1)
+
+
+def step_inputs(seed: int, step: int, clean: torch.Tensor, degraded: torch.Tensor,
+                de_id: torch.Tensor) -> Tuple[Batch, torch.Tensor]:
+    """uint8 patches (B, P, P, C) and de_id (B,) of one step, on the device
+    -> (its Batch, the GP's alpha (B, 1, 1, 1)): augment modes, noise, then
+    alpha, drawn in that order from step_generator(seed, step)."""
+    gen = step_generator(seed, step, clean.device)
+    deg, target = augment_and_degrade(clean, degraded, de_id, generator=gen)
+    alpha = torch.rand(clean.shape[0], 1, 1, 1, generator=gen, device=clean.device)
+    return Batch(deg, target, de_id), alpha
 
 
 def _step(opt: torch.optim.Optimizer, params: List[torch.nn.Parameter],

@@ -17,7 +17,8 @@ their plain twins run in float64, every output at the same 1e-5.
 The autograd case holds a small T_net on the card against the same model
 on the CPU: every parameter's gradient agrees within 1e-4 of that
 parameter's largest gradient (fp32 through some eighty ops, forward and
-backward, in another order of sums; cuDNN in fp32 with TF32 off).
+backward, in another order of sums; cuDNN in fp32 with TF32 off), in each
+of the four block compositions.
 """
 
 import pytest
@@ -26,6 +27,7 @@ import torch
 from rcot_torch.kernels import build
 from rcot_torch.models.restormer import TNet
 from rcot_torch.ops import block as tblock
+from rcot_torch.ops import fused as tfused
 from rcot_torch.ops import gram as tgram
 from rcot_torch.utils.config import ModelConfig
 
@@ -170,15 +172,55 @@ def test_gram_bwd_kernels_match_float64_plain(cuda_device, heads, ch, hw):
                         ["dv", "dattn"])
 
 
+FUSED_SHAPES = pytest.mark.parametrize("shape", [(1, 20, 19, 6), (2, 32, 32, 48),
+                                                  (1, 16, 16, 192), (1, 9, 33, 384)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ln", ["WithBias", "BiasFree"])
-def test_tnet_grads_on_the_card_match_the_cpu(cuda_device, ln):
-    """The forward kernels are autograd Functions: a T_net on the card
-    gives every parameter the gradient the CPU model (plain twins) gives."""
+@FUSED_SHAPES
+@pytest.mark.parametrize("gdfn", [False, True], ids=["conv1x1_dw", "gdfn_fused"])
+def test_fused_kernels_match_plain(cuda_device, shape, gdfn):
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    p = _block_inputs(gen, *shape, False)
+    args = ((p["x"], p["w_in"], p["dw_in"], p["w_out"]) if gdfn
+            else (p["x"], p["w_qkv"], p["dw_qkv"], None))
+    name = "gdfn_fused" if gdfn else "conv1x1_dw"
+    n0 = build.LAUNCHES[name]
+    got = tfused.fused_dwconv_fwd(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 1
+    assert _rel_err(got, tfused.fused_dwconv_plain(*args)) < RTOL
+    g = torch.randn(*got.shape, device="cuda", generator=gen)
+    n0 = build.LAUNCHES[name + "_bwd"]
+    got = tfused.fused_dwconv_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name + "_bwd"] == n0 + 1
+    _assert_grads_match(got, tfused.fused_dwconv_bwd_plain(*_double(list(args) + [g])),
+                        ["dx", "dw_in", "ddw", "dw_out"])
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    p = _block_inputs(torch.Generator(device="cuda").manual_seed(11), 1, 8, 8, 8, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfused.conv1x1_dw_fused(p["x"].transpose(1, 2), p["w_qkv"], p["dw_qkv"])
+    with pytest.raises(ValueError, match="even"):
+        tfused.gdfn_fused(p["x"], p["w_qkv"][:-1], p["dw_qkv"][:-1], p["w_out"])
+    with pytest.raises(ValueError, match="w_out"):
+        tfused.gdfn_fused(p["x"], p["w_in"], p["dw_in"], p["w_out"][:, :-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln,composition", [("WithBias", "full"), ("BiasFree", "full"),
+                                            ("WithBias", "head"), ("WithBias", "tail"),
+                                            ("BiasFree", "tail"), ("WithBias", "off")])
+def test_tnet_grads_on_the_card_match_the_cpu(cuda_device, ln, composition):
+    """The kernels are autograd Functions: a T_net on the card gives every
+    parameter the gradient the CPU model (plain twins) gives."""
     cfg = ModelConfig(dim=8, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
                       parity_params=False, layernorm_type=ln)
-    cpu = TNet(cfg, device="cpu", seed=3)
-    card = TNet(cfg, device="cuda", seed=3)
+    cpu = TNet(cfg, device="cpu", seed=3, composition=composition)
+    card = TNet(cfg, device="cuda", seed=3, composition=composition)
     gen = torch.Generator().manual_seed(4)
     x = torch.rand(2, 16, 24, 3, generator=gen)
     wts = torch.randn(3, 2, 16, 24, 3, generator=gen)
@@ -192,7 +234,9 @@ def test_tnet_grads_on_the_card_match_the_cpu(cuda_device, ln):
     before = dict(build.LAUNCHES)
     got = grads(card, "cuda")
     torch.cuda.synchronize()
-    for k in ("block_head_bwd", "block_tail_bwd", "mdta_gram_bwd", "attn_apply_bwd"):
+    head = "block_head_bwd" if composition in ("full", "head") else "conv1x1_dw_bwd"
+    tail = "block_tail_bwd" if composition in ("full", "tail") else "gdfn_fused_bwd"
+    for k in (head, tail, "mdta_gram_bwd", "attn_apply_bwd"):
         assert build.LAUNCHES[k] - before.get(k, 0) == 22, k
     want = grads(cpu, "cpu")
     for name, gw in want.items():

@@ -31,6 +31,9 @@ def test_port_imports_no_jax_and_no_rcot_tpu(path):
 def test_the_check_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"rcot_torch/train/steps.py", "rcot_torch/models/critic.py",
-            "rcot_torch/ops/block.py", "chip_smoke.py"} <= names
+            "rcot_torch/ops/block.py", "rcot_torch/ops/fused.py",
+            "rcot_torch/train/trainer.py", "rcot_torch/cli/train.py",
+            "rcot_torch/utils/checkpoint.py", "rcot_torch/data/pipeline.py",
+            "chip_smoke.py"} <= names
     assert list(_imported_roots(ast.parse("def f():\n    from jax import numpy\n"))) == [
         ("jax", 2)]
