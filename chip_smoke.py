@@ -13,6 +13,11 @@ Phases (any failure exits non-zero; nothing is caught):
   3c. hold the fused dwconv tier's kernels (conv1x1_dw and gdfn_fused,
      forward and backward) against their plain twins at every training
      block shape;
+  3d. hold the opt-in tiers' kernels against their plain twins: the fused
+     MDTA attend (mdta_attend, against its float64 twin) and the depthwise
+     kernel (dwconv3x3 at the qkv and the GDFN widths, and its backward's
+     dwconv3x3_dx launch and dtaps) at every serving block shape, B = 1
+     and 2, and every training one, B = 3;
   4. serve the full-width T_net (ModelConfig(), 46,853,150 parameters,
      seeded random weights) through make_restorer: restore_batch on 256^2
      images plus a 250x321 one, and a tiled 600x600 restore; check shapes,
@@ -21,6 +26,12 @@ Phases (any failure exits non-zero; nothing is caught):
      forward and no other kernel ran;
      compare a 128^2 forward with the same model on the CPU, and the
      reference golden (tests/goldens/tnet_full.npz) on the card;
+  4b. serve the same T_net in composition "off" with the fused MDTA attend
+     and the standalone depthwise kernel (make_restorer(...,
+     composition="off", attention_core="mdta", depthwise="dwconv")): 94
+     launches of mdta_attend and 188 of dwconv3x3 per two-pass forward and
+     no other kernel, the outputs against the default's, img/s at 256 px,
+     batch 1 and 8;
   5. time images/s at 256 px, batch 1 and 8, and each kernel at the
      level-1 and latent shapes beside its bound, its plain twin and, where
      one exists, a single PyTorch call computing the same product; split
@@ -39,17 +50,27 @@ Phases (any failure exits non-zero; nothing is caught):
      one iteration of each into forward kernels, backward kernels, the
      critic and the rest;
   6b. from one full-width state at 64^2, B = 1, each of the compositions
-     full, head, tail and off: its kernels launched 94 times in one
-     forward and backward (head and off run gdfn_fused), and every T_net
-     and F_net gradient within GRAD_RTOL of full's (the critic's sign
-     pattern pinned to full's);
+     full, head, tail and off, in the default tiers and then with the
+     fused MDTA attend and the depthwise kernel: its kernels launched 94
+     times a block kind in one forward and backward (head and off run
+     gdfn_fused), and every T_net and F_net gradient within GRAD_RTOL of
+     full's (the critic's sign pattern pinned to full's);
+  6c. train at full width in "tail" with the fused MDTA attend and the
+     depthwise kernel: three iterations at 128^2, B = 3, counted (94
+     launches each of dwconv3x3, dwconv3x3_dx, block_tail, block_tail_bwd
+     and mdta_attend per iteration, no other kernel), finite metrics,
+     every used parameter moved; iterations/s in turns with "tail";
   7. the train CLI (rcot_torch.cli.train.main) at full width on a seeded
      synthetic tree: a run stopped by --fail-at-step 5, resumed from
      latest.npz at the epoch step its metadata holds, both epochs with
      finite metrics and two validations with a finite PSNR, each kernel of
      "tail" launched 94 times per iteration and the validation's forwards
      in "full", and the final checkpoint loaded into a fresh Trainer equal
-     to the state in memory.
+     to the state in memory;
+  7b. the train CLI for one epoch with --attention-core mdta --depthwise
+     dwconv, then rcot_torch.cli.test on its validation folder from its
+     latest.npz with --composition off --attention-core mdta --depthwise
+     dwconv: finite metrics and PSNRs, each run's launches its tiers'.
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
 plain twins and the CPU reference run in full fp32. Kernel agreement is
@@ -75,14 +96,21 @@ move every entry with a near-zero gradient by about +-10 lr with a sign
 that the order of sums decides; they are held to STEPPED_RTOL (the worst
 seen was 2.9e-4, t_adv).
 
-Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+The fused MDTA attend's output, whose Gram and norms are pixel sums added
+with atomics, is held against its float64 twin like the Gram; the
+depthwise backward's dtaps, a pixel sum in PyTorch ops, likewise.
+
+Prints the kernels' JSON line (all fifteen kernels) and, last,
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -92,7 +120,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from rcot_torch.cli import test as test_cli
 from rcot_torch.cli import train as train_cli
 from rcot_torch.data.synthetic import write_synthetic_tree
 from rcot_torch.kernels import build
@@ -100,8 +130,10 @@ from rcot_torch.models import critic
 from rcot_torch.models.inference import make_restorer
 from rcot_torch.models.restormer import TNet, count_params
 from rcot_torch.ops import block as kblock
+from rcot_torch.ops import dwconv as kdw
 from rcot_torch.ops import fused as kfused
 from rcot_torch.ops import gram as kgram
+from rcot_torch.ops import mdta as kmdta
 from rcot_torch.ops.dispatch import COMPOSITIONS
 from rcot_torch.train import losses
 from rcot_torch.train.optim import step_decay_lr
@@ -147,6 +179,8 @@ FORWARD_KERNELS = {
     "attn_apply_fwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:178"),
     "conv1x1_dw": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:238"),
     "gdfn_fused": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:238"),
+    "mdta_attend": ("rcot_torch/csrc/mdta.cu", "rcot_tpu/ops/pallas_mdta.py:88"),
+    "dwconv3x3": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:73"),
 }
 BACKWARD_KERNELS = {
     "block_head_bwd": ("rcot_torch/csrc/block_bwd.cu", "rcot_tpu/ops/pallas_block.py:401"),
@@ -155,28 +189,56 @@ BACKWARD_KERNELS = {
     "attn_apply_bwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:219"),
     "conv1x1_dw_bwd": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:415"),
     "gdfn_fused_bwd": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:415"),
+    # the dwconv backward's dx: the forward kernel on the cotangent with the
+    # taps rotated (pallas_dwconv.py:120 calls dwconv3x3_fwd)
+    "dwconv3x3_dx": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:73"),
 }
 KERNELS = {**FORWARD_KERNELS, **BACKWARD_KERNELS}
-BWD_OF = dict(zip(FORWARD_KERNELS, BACKWARD_KERNELS))
-# the attention-side and the FFN-side kernel of each block composition
-# (ops/dispatch.py); every composition also runs the Gram and the apply
+# mdta_attend has no backward kernel: its backward recomputes through the
+# plain formula, as the JAX package's does (ops/mdta.py)
+BWD_OF = {**dict(zip(list(FORWARD_KERNELS)[:6], list(BACKWARD_KERNELS)[:6])),
+          "dwconv3x3": "dwconv3x3_dx"}
+# the attention-side and the FFN-side kernel of each block composition in
+# the default depthwise tier (ops/dispatch.py); "dwconv" replaces the fused
+# tier's two by the depthwise kernel, and the attention core "gram" runs
+# the Gram and the apply, "mdta" the fused attend
 COMPOSITION_KERNELS = {"full": ("block_head", "block_tail"),
                        "head": ("block_head", "gdfn_fused"),
                        "tail": ("conv1x1_dw", "block_tail"),
                        "off": ("conv1x1_dw", "gdfn_fused")}
+CORE_KERNELS = {"gram": ("mdta_gram_fwd", "attn_apply_fwd"), "mdta": ("mdta_attend",)}
+DWCONV_TIER = {"conv1x1_dw": "dwconv3x3", "gdfn_fused": "dwconv3x3"}
 
 
-def composition_kernels(mode: str, backward: bool = True) -> list:
-    fwd = [*COMPOSITION_KERNELS[mode], "mdta_gram_fwd", "attn_apply_fwd"]
-    return fwd + ([BWD_OF[k] for k in fwd] if backward else [])
+def composition_kernels(mode: str, backward: bool = True, core: str = "gram",
+                        depthwise: str = "fused") -> list:
+    """The kernel launches of one block, a name once per launch."""
+    sides = [DWCONV_TIER.get(k, k) if depthwise == "dwconv" else k
+             for k in COMPOSITION_KERNELS[mode]]
+    fwd = [*sides, *CORE_KERNELS[core]]
+    return fwd + ([BWD_OF[k] for k in fwd if k in BWD_OF] if backward else [])
+
+
+def expected_launches(per: int, mode: str, backward: bool = True, core: str = "gram",
+                      depthwise: str = "fused") -> dict:
+    """{kernel: launches} of `per` blocks in this composition and tier."""
+    want: dict = {}
+    for k in composition_kernels(mode, backward, core, depthwise):
+        want[k] = want.get(k, 0) + per
+    return want
 
 
 # where each kernel's launches in the kernels line are counted, and the
 # shapes of its ms: serving's forward (phase 4, serve L1), the training
-# iteration in "tail" (phase 6, train L1), or one composition of phase 6b
+# iteration in "tail" (phase 6, train L1), one composition of phase 6b, or
+# the opt-in tiers' serving (phase 4b, off/mdta/dwconv, serve L1) and
+# training (phase 6c, tail/mdta/dwconv, train L1)
 LAUNCHES_FROM = {"block_head": "serve", "block_tail": "serve", "mdta_gram_fwd": "serve",
                  "attn_apply_fwd": "serve", "block_head_bwd": "6b full",
-                 "gdfn_fused": "6b head", "gdfn_fused_bwd": "6b head"}
+                 "gdfn_fused": "6b head", "gdfn_fused_bwd": "6b head",
+                 "mdta_attend": "serve opt-in", "dwconv3x3": "serve opt-in",
+                 "dwconv3x3_dx": "train opt-in"}
+OPT_IN = dict(core="mdta", depthwise="dwconv")
 
 
 def log(msg: str) -> None:
@@ -355,6 +417,46 @@ def phase_fused(gen) -> dict:
     return errs
 
 
+def phase_opt_in_kernels(gen) -> dict:
+    """The opt-in tiers' kernels against their plain twins: mdta_attend
+    (against its float64 twin: its Gram and norms are pixel sums added with
+    atomics) at every serving block shape, B = 1 and 2, and every training
+    one, B = 3; dwconv3x3 at the qkv width (3C) and the GDFN's (2h) at the
+    same shapes, and its backward there: dx (the dwconv3x3_dx launch)
+    against the fp32 twin, dtaps (a pixel sum) against the float64 twin."""
+    errs: dict = {}
+    cases = [(label, res, c, heads, b) for label, res, c, heads in MAIN_SHAPES
+             for b in (1, 2)]
+    cases += [(f"train {label}", res, c, heads, TRAIN_B)
+              for label, res, c, heads in TRAIN_SHAPES]
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+    for label, res, c, heads, b in cases:
+        tag = f"{label} {res}^2 C={c} heads={heads} B={b}"
+        q, k, v = (r(b, heads, c // heads, res * res) for _ in range(3))
+        temp = torch.rand(heads, 1, 1, device="cuda", generator=gen) * 1.5 + 0.5
+        got = kmdta.mdta_attend_fwd(q, k, v, temp)
+        torch.cuda.synchronize()
+        check(f"mdta_attend {tag}", got, kmdta.mdta_attend_plain(*_double([q, k, v, temp])),
+              errs)
+        for width in (3 * c, 2 * int(c * 2.66)):
+            x, g = r(b, res, res, width), r(b, res, res, width)
+            taps = r(width, 3, 3, scale=0.3)
+            got = kdw.dwconv3x3_fwd(x, taps)
+            torch.cuda.synchronize()
+            check(f"dwconv3x3 {tag} width {width}", got, kdw.dwconv3x3_plain(x, taps), errs)
+            dx, dtaps = kdw.dwconv3x3_bwd(x, taps, g)
+            torch.cuda.synchronize()
+            check(f"dwconv3x3_dx {tag} width {width}", dx,
+                  kblock._vjp_plain(kdw.dwconv3x3_plain, (x, taps), g)[0], errs)
+            check(f"dwconv3x3_dtaps {tag} width {width}", dtaps,
+                  kblock._vjp_plain(kdw.dwconv3x3_plain, _double([x, taps]), g.double())[1],
+                  errs)
+        log(f"opt-in kernels ok at {tag}")
+    return errs
+
+
 def phase_model(gen_np) -> dict:
     cfg = ModelConfig()
     t0 = time.perf_counter()
@@ -391,8 +493,8 @@ def phase_model(gen_np) -> dict:
             raise AssertionError(f"bad output {o.shape} for input {im.shape}")
     if n_fwd == 0:
         raise AssertionError("the restorer ran no forward")
-    check_launches("serving", launches, composition_kernels("full", backward=False),
-                   FORWARD_LAUNCHES * n_fwd)
+    check_launches("serving", launches,
+                   expected_launches(FORWARD_LAUNCHES * n_fwd, "full", backward=False))
     log(f"main path: {n_fwd} two-pass forwards, launches {launches}")
 
     # ---- agreement with the same model on the CPU
@@ -415,13 +517,72 @@ def phase_model(gen_np) -> dict:
                 golden_err=golden_err)
 
 
-def check_launches(tag: str, launches: dict, expected, per: int) -> None:
-    """Each kernel of `expected` launched `per` times, every other none."""
+def counting(restorer):
+    """Wrap the restorer's model_fn; returns the list holding its count."""
+    forwards = [0]
+    fn = restorer.model_fn
+
+    def counted(x):
+        forwards[0] += 1
+        return fn(x)
+    restorer.model_fn = counted
+    return forwards
+
+
+def phase_serve_opt_in(gen_np, net, card) -> dict:
+    """The same full-width T_net served through make_restorer in
+    composition "off" with the fused MDTA attend and the standalone
+    depthwise kernel (the JAX package's RCOT_INFER_BLOCK=off
+    RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1 RCOT_PALLAS_MDTA=1): 94
+    launches of mdta_attend and 188 of dwconv3x3 per two-pass forward and
+    no other kernel; the outputs against serving's default on the same
+    weights; img/s at 256 px, batch 1 and 8."""
+    cfg = ModelConfig()
+    opt = make_restorer(net, cfg, device="cuda", composition="off",
+                        attention_core="mdta", depthwise="dwconv")
+    default = make_restorer(net, cfg, device="cuda")
+    forwards = counting(opt)
+    imgs = [gen_np.uniform(0, 1, (256, 256, 3)).astype(np.float32) for _ in range(2)]
+    imgs.append(gen_np.uniform(0, 1, (250, 321, 3)).astype(np.float32))
+
+    # ---- the main path of this tier, counted
+    build.reset_launches()
+    outs = opt.restore_batch(imgs)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check_launches("serving off/mdta/dwconv", launches,
+                   expected_launches(FORWARD_LAUNCHES * forwards[0], "off", False, **OPT_IN))
+    log(f"serving off/mdta/dwconv: {forwards[0]} two-pass forwards, launches {launches}")
+    worst = 0.0
+    for im, o, w in zip(imgs, outs, default.restore_batch(imgs)):
+        if o.shape != im.shape or not np.isfinite(o).all():
+            raise AssertionError(f"bad output {o.shape} for input {im.shape}")
+        worst = max(worst, float(np.abs(o - w).max()))
+        torch.testing.assert_close(torch.from_numpy(o), torch.from_numpy(w),
+                                   atol=MODEL_ATOL, rtol=MODEL_RTOL)
+    log(f"serving off/mdta/dwconv vs full/gram/fused: max|err| {worst:.3e}")
+    ips1 = images_per_sec(opt, gen_np, 1, 10)
+    ips8 = images_per_sec(opt, gen_np, 8, 3)
+    log(f"256px restore_batch in off/mdta/dwconv: {ips1:.3f} img/s at batch 1, "
+        f"{ips8:.3f} img/s at batch 8 ({card})")
+    return dict(launches=launches, n_fwd=forwards[0], max_abs_err_vs_default=worst,
+                batch1_img_per_s=ips1, batch8_img_per_s=ips8)
+
+
+def check_launches(tag: str, launches: dict, want: dict) -> None:
+    """Each kernel launched as often as `want` says, every other none."""
     bad = {name: launches.get(name, 0) for name in KERNELS
-           if launches.get(name, 0) != (per if name in expected else 0)}
+           if launches.get(name, 0) != want.get(name, 0)}
     if bad:
-        raise AssertionError(f"{tag}: launches {bad}, want {per} of each of "
-                             f"{list(expected)} and none of the others")
+        raise AssertionError(f"{tag}: launches {bad}, want {want} and none of the others")
+
+
+def sum_launches(*wants: dict) -> dict:
+    out: dict = {}
+    for want in wants:
+        for k, n in want.items():
+            out[k] = out.get(k, 0) + n
+    return out
 
 
 def golden_check() -> float:
@@ -550,6 +711,36 @@ def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
                            b * n * (16 * c * hid + 128 * hid),
                            f4 * (3 * b * n * c + 2 * (3 * hid * c + 18 * hid))),
     }
+    # the opt-in tiers: the fused attend on the transposed heads, and the
+    # depthwise kernel at the GDFN width (2h) and the qkv width (3C); their
+    # inputs come from a generator of their own, so that `gen` reaches the
+    # later phases in the state it did before these rows were added
+    q4, k4, v4 = (t.reshape(b, heads, ch, n) for t in (qt, heads_t(k, True), vt))
+    own = torch.Generator(device="cuda").manual_seed(res * 1000 + c + b)
+    temp = torch.rand(heads, 1, 1, device="cuda", generator=own) + 0.5
+    qh = qt / qt.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    kh = kn / kn.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    x_g, g_g, taps_g = (torch.randn(*shape, device="cuda", generator=own) for shape in
+                        ((b, res, res, 2 * hid), (b, res, res, 2 * hid), (2 * hid, 3, 3)))
+    x_m, taps_m = qkv, p["dw_qkv"]
+
+    def dw_row(x, taps, kern):
+        w = x.shape[-1]
+        return (lambda: kern(x, taps), lambda: kdw.dwconv3x3_plain(x, taps),
+                lambda: F.conv2d(x.permute(0, 3, 1, 2), taps.reshape(w, 1, 3, 3),
+                                 padding=1, groups=w),
+                b * n * 18 * w, f4 * (2 * b * n * w + 9 * w))
+    rows.update({
+        # no one call computes the attend: two_bmm_ms below times q_hat k_hat^T
+        # and attn v on pre-normalised, pre-transposed heads, as rows 3-4 do
+        "mdta_attend": (lambda: kmdta.mdta_attend_fwd(q4, k4, v4, temp),
+                        lambda: kmdta.mdta_attend_plain(q4, k4, v4, temp), None,
+                        b * n * (4 * c * ch + 4 * c), f4 * (4 * b * n * c + heads)),
+        "dwconv3x3": dw_row(x_g, taps_g, kdw.dwconv3x3_fwd),
+        "dwconv3x3_qkv": dw_row(x_m, taps_m, kdw.dwconv3x3_fwd),
+        # the wrapper, with the rotation of the taps (a 9 x 2h copy)
+        "dwconv3x3_dx": dw_row(g_g, taps_g, kdw.dwconv3x3_dx),
+    })
     out = {}
     for name in names:
         kern, plain, lib, flops, nbytes = rows[name]
@@ -558,6 +749,9 @@ def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
                          ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
                          bound_ms=bms, bound_by=by,
                          library_ms=cuda_ms(lib) if lib else None)
+    if "mdta_attend" in names:
+        out["mdta_attend"]["two_bmm_ms"] = cuda_ms(lambda: (torch.bmm(qh, kh),
+                                                            torch.bmm(at, vt)))
     return out
 
 
@@ -661,16 +855,39 @@ def phase_train(gen) -> dict:
         raise AssertionError(f"training composition {state.t_net.composition!r}, not tail")
     log(f"train state built: T_net {n_t}, F_net {n_f} parameters, composition "
         f"{state.t_net.composition} ({time.perf_counter() - t0:.1f} s)")
-    iteration = make_train_iteration(cfg)
-    lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
+    batches, alphas = train_inputs(gen, cfg)
+    state, metrics, launches = counted_iterations(
+        state, cfg, batches, alphas, "training",
+        expected_launches(FORWARD_LAUNCHES, "tail"))
+
+    # ---- iterations/s in both compositions, in turns
+    rates = timed_in_turns(state, cfg, batches, alphas, {
+        "tail": dict(composition="tail"), "full": dict(composition="full")})
+    state.t_net.composition = "tail"
+    critic_ms = cuda_ms(lambda: critic_work(state, batches[0], alphas[0], cfg), iters=5)
+    return dict(launches=launches, metrics=metrics,
+                it_per_s={mode: sum(v) / len(v) for mode, v in rates.items()},
+                it_per_s_runs=rates, critic_ms=critic_ms)
+
+
+def train_inputs(gen, cfg):
+    """Three seeded batches (de_id 0/3/4) and GP alphas at the recipe's size."""
     b, res = cfg.train.batch_size, cfg.critic.patch_size
     batches = [seeded_batch(gen, b, res, [0, 3, 4]) for _ in range(3)]
     alphas = [torch.rand(b, 1, 1, 1, device="cuda", generator=gen) for _ in range(3)]
+    return batches, alphas
+
+
+def counted_iterations(state, cfg, batches, alphas, tag, want_per_iteration):
+    """The training path, counted: three minimax iterations (paired, then
+    unpaired twice) with the counts set to 0 just before; finite metrics,
+    each kernel launched as `want_per_iteration` says per iteration and no
+    other, every used parameter moved."""
+    iteration = make_train_iteration(cfg)
+    lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
     nets = {"T": state.t_net, "F": state.f_net}
     before = {(k, n): p.detach().clone() for k, net in nets.items()
               for n, p in net.named_parameters()}
-
-    # ---- the main path, counted
     build.reset_launches()
     metrics = []
     for batch, alpha, paired in zip(batches, alphas, (True, False, False)):
@@ -679,39 +896,69 @@ def phase_train(gen) -> dict:
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     for i, m in enumerate(metrics):
-        log(f"iteration {i}: {json.dumps(m)}")
+        log(f"{tag} iteration {i}: {json.dumps(m)}")
         if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"iteration {i}: metrics not finite: {m}")
-    check_launches("training", launches, composition_kernels("tail"),
-                   FORWARD_LAUNCHES * len(metrics))
-    log(f"training path: {len(metrics)} iterations, launches {launches}")
+            raise AssertionError(f"{tag} iteration {i}: metrics not finite: {m}")
+    check_launches(tag, launches, {k: n * len(metrics) for k, n in want_per_iteration.items()})
+    log(f"{tag} path: {len(metrics)} iterations, launches {launches}")
     check_moved(state, before)
-    del before
+    return state, metrics, launches
 
-    # ---- iterations/s in both compositions, in turns
-    rates = {"tail": [], "full": []}
-    for mode in ("tail", "full", "full", "tail"):
-        state.t_net.composition = mode
-        n_timed = 5
+
+def timed_in_turns(state, cfg, batches, alphas, settings: dict, n_timed: int = 5) -> dict:
+    """Iterations/s of each named setting of the T_net's kernel choices,
+    five iterations each, in turns A B B A; -> {name: [rate, rate]}."""
+    iteration = make_train_iteration(cfg)
+    lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
+    a, b = settings
+    rates = {a: [], b: []}
+    for name in (a, b, b, a):
+        for attr, value in settings[name].items():
+            setattr(state.t_net, attr, value)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(n_timed):
             state, _ = iteration(state, batches[i % 3], alphas[i % 3], False, lr)
         torch.cuda.synchronize()
-        rates[mode].append(n_timed / (time.perf_counter() - t0))
-    state.t_net.composition = "tail"
-    critic_ms = cuda_ms(lambda: critic_work(state, batches[0], alphas[0], cfg), iters=5)
-    return dict(launches=launches, metrics=metrics,
-                it_per_s={mode: sum(v) / len(v) for mode, v in rates.items()},
-                it_per_s_runs=rates, critic_ms=critic_ms)
+        rates[name].append(n_timed / (time.perf_counter() - t0))
+    return rates
+
+
+def phase_train_opt_in(gen, card) -> dict:
+    """Training at full width with the fused MDTA attend and the standalone
+    depthwise kernel in the JAX trainer's default composition, "tail" (the
+    JAX package's RCOT_PALLAS_MDTA=1 RCOT_PALLAS_FUSED=0
+    RCOT_PALLAS_DWCONV=1): three iterations at 128^2, B = 3, counted (94
+    launches each of dwconv3x3, dwconv3x3_dx, block_tail, block_tail_bwd
+    and mdta_attend per iteration, no other kernel); iterations/s in turns
+    with today's "tail" (Gram core, fused tier)."""
+    cfg = Config()
+    state = create_train_state(cfg, seed=0, device="cuda", attention_core="mdta",
+                               depthwise="dwconv")
+    if (state.t_net.composition, state.t_net.attention_core, state.t_net.depthwise) != \
+            ("tail", "mdta", "dwconv"):
+        raise AssertionError("the opt-in training state is not in tail/mdta/dwconv")
+    batches, alphas = train_inputs(gen, cfg)
+    state, metrics, launches = counted_iterations(
+        state, cfg, batches, alphas, "training tail/mdta/dwconv",
+        expected_launches(FORWARD_LAUNCHES, "tail", **OPT_IN))
+    rates = timed_in_turns(state, cfg, batches, alphas, {
+        "tail/mdta/dwconv": dict(attention_core="mdta", depthwise="dwconv"),
+        "tail": dict(attention_core="gram", depthwise="fused")})
+    it_per_s = {k: sum(v) / len(v) for k, v in rates.items()}
+    log(f"training {TRAIN_RES}px B={TRAIN_B}: {it_per_s['tail/mdta/dwconv']:.4f} "
+        f"iterations/s in tail/mdta/dwconv, {it_per_s['tail']:.4f} in tail ({card})")
+    return dict(launches=launches, metrics=metrics, it_per_s=it_per_s, it_per_s_runs=rates)
 
 
 def phase_compositions(gen_np) -> dict:
-    """The four block compositions from one full-width state at 64^2, B = 1:
-    each composition's T and F gradients of one iteration (train_grads)
-    against "full"'s, the critic's sign pattern pinned to full's
-    (LeakyPattern), and each composition's kernels launched 94 times in its
-    forward and backward (the counts reset just before each)."""
+    """The four block compositions from one full-width state at 64^2, B = 1,
+    in the default tiers and then with the fused MDTA attend and the
+    standalone depthwise kernel (mdta/dwconv): each run's T and F gradients
+    of one iteration (train_grads) against "full"'s, the critic's sign
+    pattern pinned to full's (LeakyPattern), and each run's kernels
+    launched 94 times a block kind in its forward and backward (the counts
+    reset just before each)."""
     cfg = Config(critic=CriticConfig(patch_size=64), train=TrainConfig(batch_size=1))
     b, res = cfg.train.batch_size, cfg.critic.patch_size
     state = create_train_state(cfg, seed=2, device="cuda")
@@ -721,26 +968,32 @@ def phase_compositions(gen_np) -> dict:
     alpha = torch.full((b, 1, 1, 1), 0.37, device="cuda")
     grads, launches = {}, {}
     pattern = LeakyPattern()
-    for mode in COMPOSITIONS:  # full first: it records the critic's pattern
+    runs = [(mode, "gram", "fused") for mode in COMPOSITIONS]
+    runs += [(mode, "mdta", "dwconv") for mode in COMPOSITIONS]
+    for mode, core, tier in runs:  # full first: it records the critic's pattern
+        key = mode if core == "gram" else f"{mode}/{core}/{tier}"
         state.t_net.composition = mode
+        state.t_net.attention_core, state.t_net.depthwise = core, tier
         build.reset_launches()
-        with pattern.recording() if mode == "full" else pattern.replaying():
-            grads[mode] = train_grads(state, batch, alpha, cfg)
+        with pattern.recording() if key == "full" else pattern.replaying():
+            grads[key] = train_grads(state, batch, alpha, cfg)
         torch.cuda.synchronize()
-        launches[mode] = dict(build.LAUNCHES)
-        check_launches(f"composition {mode}", launches[mode], composition_kernels(mode),
-                       FORWARD_LAUNCHES)
+        launches[key] = dict(build.LAUNCHES)
+        check_launches(f"composition {key}", launches[key],
+                       expected_launches(FORWARD_LAUNCHES, mode, core=core, depthwise=tier))
     worst = {}
-    for mode in COMPOSITIONS[1:]:
+    for mode in list(grads)[1:]:
         if set(grads[mode]) != set(grads["full"]):
             raise AssertionError(f"{mode}: other parameters get a gradient than in full")
         rel = {k: float((g - grads["full"][k]).abs().max()
                         / grads["full"][k].abs().max().clamp_min(1e-30))
                for k, g in grads[mode].items()}
-        bad = [k for k, v in rel.items() if not v <= GRAD_RTOL]
+        bad = {k: (v, float(grads["full"][k].abs().max()))
+               for k, v in rel.items() if not v <= GRAD_RTOL}
         if bad:
             raise AssertionError(f"{mode} vs full: gradients off by more than "
-                                 f"{GRAD_RTOL} of their largest: {bad}")
+                                 f"{GRAD_RTOL} of their largest: {{name: (error "
+                                 f"relative to the largest, largest)}} {bad}")
         worst[mode] = max(rel.items(), key=lambda kv: kv[1])
         log(f"composition {mode} vs full 64^2: {len(rel)} gradients, worst "
             f"max|err|/max|grad| {worst[mode]}")
@@ -813,14 +1066,10 @@ def phase_train_cli(card: str) -> dict:
         # each validation image is one forward in "full"
         n_iter = 5 + 14 - meta["epoch_step"]
         n_val = 2 * len(vals)
-        want = {k: FORWARD_LAUNCHES * n_iter for k in composition_kernels("tail")}
-        want["block_head"] = FORWARD_LAUNCHES * n_val
-        for k in ("block_tail", "mdta_gram_fwd", "attn_apply_fwd"):
-            want[k] += FORWARD_LAUNCHES * n_val
-        if {k: launches.get(k, 0) for k in KERNELS} != \
-                {k: want.get(k, 0) for k in KERNELS}:
-            raise AssertionError(f"train CLI launches {launches}, want {want} "
-                                 f"({n_iter} iterations in tail, {n_val} forwards in full)")
+        want = sum_launches(expected_launches(FORWARD_LAUNCHES * n_iter, "tail"),
+                            expected_launches(FORWARD_LAUNCHES * n_val, "full", False))
+        check_launches(f"train CLI ({n_iter} iterations in tail, {n_val} forwards in full)",
+                       launches, want)
         fresh = Trainer(trainer.cfg)
         fresh.resume(latest)
         check_same_state(fresh.state, trainer.state)
@@ -834,6 +1083,62 @@ def phase_train_cli(card: str) -> dict:
                     imgs_per_sec=ips, patches_per_sec=pps,
                     psnr=[v["psnr"] for v in vals], launches=launches,
                     seconds=seconds, card=card)
+
+
+def phase_cli_opt_in(card) -> dict:
+    """rcot_torch.cli.train for one epoch on a seeded synthetic tree with
+    --attention-core mdta --depthwise dwconv (its iterations in
+    tail/mdta/dwconv, its validation forwards in full/mdta), then
+    rcot_torch.cli.test on the validation folder from the run's
+    latest.npz with --composition off --attention-core mdta --depthwise
+    dwconv: finite metrics and PSNRs, and each run's launches those of its
+    tiers."""
+    flags = ["--attention-core", "mdta", "--depthwise", "dwconv"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root, run = f"{tmp}/tree", f"{tmp}/run"
+        write_synthetic_tree(root, seed=1, n_denoise=3, n_rain=0, n_haze=6, size=192,
+                             val_sizes=((192, 192), (250, 321)))
+        argv = train_cli_argv(root, run)
+        argv[argv.index("--n-epochs") + 1] = "1"
+        build.reset_launches()
+        trainer = train_cli.main(argv + flags)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        with open(f"{run}/log.jsonl") as f:
+            events = [json.loads(line) for line in f]
+        steps = [e for e in events if e["event"] == "train_step"]
+        names = ("f_wgan", "f_gp", "t_loss", "t_adv", "rmse", "fourier", "paired_l1")
+        if not steps or not all(np.isfinite(e[k]) for e in steps for k in names):
+            raise AssertionError(f"train_step metrics missing or not finite: {steps}")
+        vals = [e for e in events if e["event"] == "validation"]
+        if [v["epoch"] for v in vals] != [1] or not np.isfinite(vals[0]["psnr"]):
+            raise AssertionError(f"validations {vals}")
+        n_iter, n_val = trainer.host_step, 2
+        check_launches(f"train CLI mdta/dwconv ({n_iter} iterations, {n_val} validation "
+                       "forwards)", launches,
+                       sum_launches(expected_launches(FORWARD_LAUNCHES * n_iter, "tail",
+                                                      **OPT_IN),
+                                    expected_launches(FORWARD_LAUNCHES * n_val, "full", False,
+                                                      **OPT_IN)))
+        build.reset_launches()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            test_cli.main(["--ckpt", f"{run}/ckpt/latest.npz", "--degset", f"{root}/val/input/",
+                           "--tarset", f"{root}/val/target/", "--save", f"{tmp}/out/",
+                           "--savetar", f"{tmp}/tar/", "--saveres", f"{tmp}/res/",
+                           "--composition", "off"] + flags)
+        torch.cuda.synchronize()
+        test_launches = dict(build.LAUNCHES)
+        psnrs = [float(v) for v in re.findall(r": psnr (\S+) ssim", printed.getvalue())]
+        if len(psnrs) != 2 or not all(np.isfinite(psnrs)):
+            raise AssertionError(f"cli.test printed {printed.getvalue()!r}")
+        check_launches("test CLI off/mdta/dwconv (2 forwards)", test_launches,
+                       expected_launches(FORWARD_LAUNCHES * 2, "off", False, **OPT_IN))
+        log(f"train CLI mdta/dwconv at full width: {n_iter} steps, PSNR {vals[0]['psnr']:.4f}; "
+            f"test CLI off/mdta/dwconv: PSNR {psnrs} ({card})")
+        return dict(steps=n_iter, val_psnr=vals[0]["psnr"], test_psnr=psnrs,
+                    imgs_per_sec=[e["imgs_per_sec"] for e in steps],
+                    launches=launches, test_launches=test_launches)
 
 
 def check_same_state(a, b) -> None:
@@ -999,17 +1304,24 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     gen_np = np.random.default_rng(0)
+    # the opt-in phases (3d, 4b, 6c) draw from generators of their own: the
+    # earlier phases see the inputs they saw before those phases existed
+    gen_opt = torch.Generator(device="cuda").manual_seed(1)
+    gen_np_opt = np.random.default_rng(1)
     errs = phase_kernels(gen)
     errs.update(phase_backward(gen))
     errs.update(phase_fused(gen))
+    errs.update(phase_opt_in_kernels(gen_opt))
     model = phase_model(gen_np)
+    serve_opt = phase_serve_opt_in(gen_np_opt, model["net"], card)
 
     ips1 = images_per_sec(model["restorer"], gen_np, 1, 10)
     ips8 = images_per_sec(model["restorer"], gen_np, 8, 3)
     log(f"256px restore_batch: {ips1:.3f} img/s at batch 1, {ips8:.3f} img/s "
         f"at batch 8 ({card})")
 
-    serve_kernels = composition_kernels("full", backward=False)
+    serve_kernels = composition_kernels("full", backward=False) + [
+        "mdta_attend", "dwconv3x3", "dwconv3x3_qkv"]
     timings = {label: kernel_timings(gen, label, res, c, heads, 1, serve_kernels)
                for label, res, c, heads in MAIN_SHAPES}
     breakdown = forward_breakdown(gen, model["net"], timings)
@@ -1020,31 +1332,41 @@ def main() -> int:
         f"iterations/s in tail, {train['it_per_s']['full']:.4f} in full ({card})")
     vs_cpu = phase_train_vs_cpu(gen_np)
     compositions = phase_compositions(gen_np)
+    train_opt = phase_train_opt_in(gen_opt, card)
     cli = phase_train_cli(card)
-    train_timings = {label: kernel_timings(gen, label, res, c, heads, TRAIN_B, KERNELS)
+    cli_opt = phase_cli_opt_in(card)
+    train_timings = {label: kernel_timings(gen, label, res, c, heads, TRAIN_B,
+                                           [*KERNELS, "dwconv3x3_qkv"])
                      for label, res, c, heads in TRAIN_SHAPES}
     splits = {mode: iteration_breakdown(train["it_per_s"][mode], train["critic_ms"],
                                         train_timings, mode) for mode in ("tail", "full")}
 
     launch_runs = {"serve": model["launches"], "train": train["launches"],
-                   **{f"6b {m}": compositions["launches"][m] for m in COMPOSITIONS}}
+                   **{f"6b {m}": compositions["launches"][m] for m in COMPOSITIONS},
+                   "serve opt-in": serve_opt["launches"], "train opt-in": train_opt["launches"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         path = LAUNCHES_FROM.get(name, "train")
         # a kernel's ms are at its main path's shapes: serving's forward at
         # 256 px, B = 1; every other at the training shapes, 128 px, B = 3
-        t = timings if path == "serve" else train_timings
+        t = timings if path.startswith("serve") else train_timings
         l1, lat = t["L1"][name], t["latent"][name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launch_runs[path][name], launches_counted_in=path,
             launches_per_train_iteration_tail=train["launches"].get(name, 0) // len(
                 train["metrics"]),
+            launches_per_train_iteration_tail_mdta_dwconv=train_opt["launches"].get(
+                name, 0) // len(train_opt["metrics"]),
             max_abs_err=errs[name][0], max_rel_err=errs[name][1],
             ms=l1["ms"], plain_ms=l1["plain_ms"],
             bound_ms=l1["bound_ms"], bound_by=l1["bound_by"],
             library_ms=l1["library_ms"], at=l1["shape"], latent=lat,
-            train_L1=train_timings["L1"][name]))
+            train_L1=train_timings["L1"][name])
+        if name == "dwconv3x3":
+            entry.update(width="GDFN (2h)", qkv_width=t["L1"]["dwconv3x3_qkv"],
+                         train_L1_qkv_width=train_timings["L1"]["dwconv3x3_qkv"])
+        kernels.append(entry)
     for tag, tt in (("serve", timings), ("train", train_timings)):
         for label in BLOCKS_PER_FORWARD:
             log(json.dumps({"shape": f"{tag} {label}", **{
@@ -1061,6 +1383,16 @@ def main() -> int:
                     "compositions_vs_full_64px": compositions["worst"],
                     "train_cli": {k: v for k, v in cli.items() if k != "launches"},
                     "train_cli_launches": cli["launches"],
+                    "opt_in": {"serve_off_mdta_dwconv_256px": serve_opt,
+                               "train_tail_mdta_dwconv_128px_b3": {
+                                   "iterations_per_s": train_opt["it_per_s"],
+                                   "iterations_per_s_runs": train_opt["it_per_s_runs"],
+                                   "metrics": train_opt["metrics"],
+                                   "launches": train_opt["launches"], "card": card},
+                               "compositions_vs_full_64px": {
+                                   k: v for k, v in compositions["worst"].items()
+                                   if "/" in k},
+                               "clis": cli_opt},
                     "gram_plain_fp32_vs_float64_rel_err": errs["gram_plain_fp32_rel"],
                     "golden_max_abs_err": model["golden_err"],
                     "seconds": time.perf_counter() - t_start}))

@@ -1,12 +1,18 @@
 """Folder restoration and PSNR/SSIM report (counterpart of rcot_tpu/cli/test.py).
 
     python -m rcot_torch.cli.test --ckpt CKPT --degset DEG/ --tarset TAR/ \
-        [--batch N] [--tile T --tile-overlap O] [--noise-sigma S] [--device cuda]
+        [--batch N] [--tile T --tile-overlap O] [--noise-sigma S] [--device cuda] \
+        [--composition full|head|tail|off] [--attention-core gram|mdta] \
+        [--depthwise fused|dwconv]
 
 --ckpt is a JAX-package .npz (a raw T-params npz or a trainer checkpoint)
 or a .pt state_dict of this package's TNet. Images are reflect-padded to
 mod 8 and cropped back; residual, output and target PNGs are written to
---saveres/--save/--savetar. float32 only.
+--saveres/--save/--savetar. float32 only. `--composition`,
+`--attention-core` and `--depthwise` pick the T_net blocks' kernels
+(ops/dispatch.py), as RCOT_INFER_BLOCK, RCOT_PALLAS_MDTA=1 and
+RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1 do for the JAX package's tester;
+the defaults are serving's: full, gram, fused.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from ..compat.jax_params import load_jax_npz
 from ..data.datasets import eval_pairs, load_rgb
 from ..metrics.quality import AverageMeter, psnr, ssim_ref_single
 from ..models.inference import make_restorer
+from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE
 from ..utils.config import EvalConfig, ModelConfig
 
 
@@ -44,6 +51,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="synthesize gaussian noise on the GT (tester_noise mode)")
     p.add_argument("--seed", type=int, default=1850)  # tester_noise.py:12
     p.add_argument("--device", default="cuda")
+    p.add_argument("--composition", default="full", choices=COMPOSITIONS,
+                   help="kernels of the T_net blocks")
+    p.add_argument("--attention-core", default="gram", choices=ATTENTION_CORES,
+                   help="attention core (mdta = the fused MDTA attend kernel)")
+    p.add_argument("--depthwise", default="fused", choices=DEPTHWISE,
+                   help="depthwise tier of qkv and GDFN outside the block kernels "
+                        "(dwconv = the standalone depthwise kernel)")
     return p
 
 
@@ -65,7 +79,9 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     sd, model_cfg = load_state_dict(args.ckpt)
     restorer = make_restorer(sd, model_cfg, tile=args.tile,
-                             tile_overlap=args.tile_overlap, device=args.device)
+                             tile_overlap=args.tile_overlap, device=args.device,
+                             composition=args.composition,
+                             attention_core=args.attention_core, depthwise=args.depthwise)
 
     rng = np.random.default_rng(args.seed)
     p_meter, s_meter = AverageMeter(), AverageMeter()

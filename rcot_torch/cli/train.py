@@ -2,12 +2,17 @@
 
     python -m rcot_torch.cli.train --preset derain --batch-size 3 --patch-size 128 \
         --n-epochs 51 --pairnum 10000000 --Sigma 10000 --sigma 1 \
-        [--device cuda] [--composition auto|full|head|tail|off]
+        [--device cuda] [--composition auto|full|head|tail|off] \
+        [--attention-core gram|mdta] [--depthwise fused|dwconv]
 
 Flags overlay a named preset (utils/config.py PRESETS, the reference's
 README recipes). `--device cpu` runs the plain PyTorch path; the default,
-cuda, raises without a card. `--composition` picks the T_net blocks'
-kernels (ops/dispatch.py; "auto" is the JAX trainer's default, "tail").
+cuda, raises without a card. `--composition`, `--attention-core` and
+`--depthwise` pick the T_net blocks' kernels (ops/dispatch.py): "auto" is
+the JAX trainer's default composition, "tail"; `--attention-core mdta` is
+the JAX package's RCOT_PALLAS_MDTA=1, `--depthwise dwconv` its
+RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1. Validation serves in "full" with
+the same attention core and depthwise tier.
 Flags of paths not ported yet (multi-GPU, MPRNet, bf16, --pretrained)
 raise rather than being ignored.
 """
@@ -18,7 +23,7 @@ import argparse
 import dataclasses
 import os
 
-from ..ops.dispatch import COMPOSITIONS
+from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE
 from ..utils.config import Config, get_preset
 
 
@@ -71,6 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--composition", default="auto", choices=("auto",) + COMPOSITIONS,
                    help="kernels of the T_net blocks (auto = tail in training)")
+    # absent from the namespace unless given (main() supplies the default),
+    # so a parse of the JAX CLI's flags gives the JAX CLI's keys
+    p.add_argument("--attention-core", choices=ATTENTION_CORES, default=argparse.SUPPRESS,
+                   help="attention core of the T_net blocks (default gram; mdta = "
+                        "the fused MDTA attend kernel)")
+    p.add_argument("--depthwise", choices=DEPTHWISE, default=argparse.SUPPRESS,
+                   help="depthwise tier of the T_net blocks' qkv and GDFN (default "
+                        "fused; dwconv = the standalone depthwise kernel)")
     return p
 
 
@@ -125,7 +138,9 @@ def main(argv=None):
 
     log_path = args.log_file or os.path.join("logs", f"{cfg.train.run_name}.jsonl")
     trainer = Trainer(cfg, log_path=log_path, device=args.device,
-                      composition=args.composition)
+                      composition=args.composition,
+                      attention_core=getattr(args, "attention_core", "gram"),
+                      depthwise=getattr(args, "depthwise", "fused"))
     if args.resume:
         trainer.resume(args.resume)
     trainer.fit(eval_degset=args.degset, eval_tarset=args.tarset,

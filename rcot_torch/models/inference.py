@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.dispatch import (resolve_attention_core, resolve_composition,
+                            resolve_depthwise)
 from ..utils.config import ModelConfig
 from ..utils.device import resolve_device
 from .restormer import TNet
@@ -162,12 +164,18 @@ class Restorer:
 
 def make_restorer(model: Union[torch.nn.Module, Mapping[str, object]],
                   model_cfg: ModelConfig = ModelConfig(), *, tile: int = 0,
-                  tile_overlap: int = 32, device="cuda") -> Restorer:
+                  tile_overlap: int = 32, device="cuda", composition: str = "full",
+                  attention_core: str = "gram", depthwise: str = "fused") -> Restorer:
     """Restorer around the two-pass T_net's out2. `model` is a TNet or a
     state_dict (numpy arrays or tensors) to load into a new one. Its
-    forwards run in serving's composition, "full", and leave a shared
-    TNet's own composition as they found it, so a trainer can validate its
-    training net."""
+    forwards run in the composition, attention core and depthwise tier
+    given (ops/dispatch.py; by default serving's "full" with the Gram core,
+    as the JAX inference scope resolves RCOT_INFER_BLOCK and its kernel
+    switches), and leave a shared TNet's own three as they found them, so a
+    trainer can validate its training net."""
+    choice = dict(composition=resolve_composition(composition, training=False),
+                  attention_core=resolve_attention_core(attention_core),
+                  depthwise=resolve_depthwise(depthwise))
     dev = resolve_device(device)
     if model_cfg.backbone != "restormer":
         raise ValueError(f"backbone {model_cfg.backbone!r} is not ported yet")
@@ -180,11 +188,13 @@ def make_restorer(model: Union[torch.nn.Module, Mapping[str, object]],
     tnet.eval()
 
     def fn(x: torch.Tensor) -> torch.Tensor:
-        before = tnet.composition
-        tnet.composition = "full"
+        before = {k: getattr(tnet, k) for k in choice}
+        for k, v in choice.items():
+            setattr(tnet, k, v)
         try:
             return tnet(x.float())[0]
         finally:
-            tnet.composition = before
+            for k, v in before.items():
+                setattr(tnet, k, v)
 
     return Restorer(fn, device=dev, tile=tile, tile_overlap=tile_overlap)

@@ -16,19 +16,23 @@ Forward, as in the JAX package:
 - pass 2 re-runs the same decoder on latent2;
 - returns (out2, out1, res) and writes no files.
 
-A bias-free block (the default config) runs the fused kernels in one of
-the four compositions of ops/dispatch.py, the `composition` attribute of
-the TNet (settable after construction; not a ModelConfig field, so that
-Config.hash() stays the JAX package's):
+A bias-free block (the default config) runs the kernels that three
+attributes of the TNet name (ops/dispatch.py; each settable after
+construction and propagated to every block; none is a ModelConfig field,
+so that Config.hash() stays the JAX package's). `composition`:
 
-  full: block_head -> mdta_core_gram -> block_tail (serving's default)
-  head: block_head -> mdta_core_gram -> x + proj(a) -> x + gdfn_fused(LN2(x))
-  tail: LN1 -> conv1x1_dw_fused -> mdta_core_gram -> block_tail (training's)
-  off:  LN1 -> conv1x1_dw_fused -> mdta_core_gram -> x + proj(a)
-        -> x + gdfn_fused(LN2(x))
+  full: block_head -> core -> block_tail (serving's default)
+  head: block_head -> core -> x + proj(a) -> x + gdfn(LN2(x))
+  tail: LN1 -> qkv -> core -> block_tail (training's)
+  off:  LN1 -> qkv -> core -> x + proj(a) -> x + gdfn(LN2(x))
 
-(ops/block.py, ops/fused.py, ops/gram.py). With bias=True every
-composition takes the plain ops, as the JAX package does.
+`attention_core` picks the core: "gram" (mdta_core_gram, the default) or
+"mdta" (the transposes around the fused attend kernel). `depthwise` picks
+qkv and gdfn: "fused" (conv1x1_dw_fused, gdfn_fused, the default) or
+"dwconv" (1x1 products around the standalone depthwise kernel); it changes
+nothing in "full". (ops/block.py, ops/fused.py, ops/gram.py, ops/mdta.py,
+ops/dwconv.py.) With bias=True every composition takes the plain ops, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -40,12 +44,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.attention import mdta, mdta_qkv
+from ..ops.attention import mdta, mdta_core, mdta_qkv
 from ..ops.block import block_head, block_tail
 from ..ops.conv import conv1x1, conv2d
-from ..ops.dispatch import COMPOSITIONS
+from ..ops.dispatch import (COMPOSITIONS, resolve_attention_core,
+                            resolve_depthwise)
 from ..ops.gdfn import gdfn, hidden_features
-from ..ops.gram import mdta_core_gram
 from ..ops.layernorm import layernorm
 from ..ops.resample import downsample, upsample
 from ..utils.config import ModelConfig
@@ -116,6 +120,32 @@ class FeedForward(nn.Module):
                     self.dwconv.bias, self.project_out.bias)
 
 
+def _composition(mode: str) -> str:
+    if mode not in COMPOSITIONS:
+        raise ValueError(f"unknown composition {mode!r}; one of {COMPOSITIONS}")
+    return mode
+
+
+class _Choice:
+    """A kernel choice of the bias-free blocks (ops/dispatch.py), validated
+    when set; set on a TNet, it is set on every block of it too."""
+
+    def __init__(self, check):
+        self.check = check
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, obj, owner=None):
+        return self if obj is None else obj.__dict__["_" + self.name]
+
+    def __set__(self, obj, value):
+        obj.__dict__["_" + self.name] = self.check(value)
+        for m in obj.modules():
+            if m is not obj and isinstance(m, TransformerBlock):
+                setattr(m, self.name, value)
+
+
 def _mat(conv: Conv) -> torch.Tensor:
     """(O, I, 1, 1) 1x1 weight as an (O, I) view."""
     return conv.weight.view(conv.weight.shape[0], -1)
@@ -127,6 +157,10 @@ def _taps(conv: Conv) -> torch.Tensor:
 
 
 class TransformerBlock(nn.Module):
+    composition = _Choice(_composition)
+    attention_core = _Choice(resolve_attention_core)
+    depthwise = _Choice(resolve_depthwise)
+
     def __init__(self, dim: int, num_heads: int, ffn_factor: float, *,
                  bias: bool, ln_bias: bool, ffn_multiple: int = 1):
         super().__init__()
@@ -135,6 +169,8 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim, ln_bias)
         self.ffn = FeedForward(dim, ffn_factor, bias, ffn_multiple)
         self.composition = "full"
+        self.attention_core = "gram"
+        self.depthwise = "fused"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         at, f = self.attn, self.ffn
@@ -142,17 +178,19 @@ class TransformerBlock(nn.Module):
             x = x + at(self.norm1(x))
             return x + f(self.norm2(x))
         if self.composition in ("tail", "off"):
-            qkv = mdta_qkv(self.norm1(x), at.qkv.weight, at.qkv_dwconv.weight)
+            qkv = mdta_qkv(self.norm1(x), at.qkv.weight, at.qkv_dwconv.weight,
+                           depthwise=self.depthwise)
         else:
             qkv = block_head(x, self.norm1.body.weight, self.norm1.body.bias,
                              _mat(at.qkv), _taps(at.qkv_dwconv))
-        a = mdta_core_gram(at.temperature, qkv, at.num_heads)
+        a = mdta_core(at.temperature, qkv, at.num_heads, self.attention_core)
         if self.composition in ("full", "tail"):
             return block_tail(x, a, _mat(at.project_out), self.norm2.body.weight,
                               self.norm2.body.bias, _mat(f.project_in),
                               _taps(f.dwconv), _mat(f.project_out))
         x = x + conv1x1(a, _mat(at.project_out))
-        return x + f(self.norm2(x))
+        return x + gdfn(self.norm2(x), f.project_in.weight, f.dwconv.weight,
+                        f.project_out.weight, depthwise=self.depthwise)
 
 
 class _Resample(nn.Module):
@@ -182,12 +220,17 @@ class _PatchEmbed(nn.Module):
 class TNet(nn.Module):
     """The RCOT T_net. `seed` fills every parameter from a numpy generator
     keyed by its name (init_weights_); load a checkpoint over it to serve
-    trained weights. `composition` picks the bias-free blocks' kernels
-    (module docstring)."""
+    trained weights. `composition`, `attention_core` and `depthwise` pick
+    the bias-free blocks' kernels (module docstring)."""
+
+    composition = _Choice(_composition)
+    attention_core = _Choice(resolve_attention_core)
+    depthwise = _Choice(resolve_depthwise)
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), *,
                  device="cuda", seed: Optional[int] = 0,
-                 composition: str = "full"):
+                 composition: str = "full", attention_core: str = "gram",
+                 depthwise: str = "fused"):
         super().__init__()
         self.cfg = cfg
         d1, d2, d3, d4 = cfg.dims
@@ -252,22 +295,11 @@ class TNet(nn.Module):
             self.resnoise_level3 = block(d4, h[2])
             self.resreduce_noise_level3 = conv1(d4, d3)
         self.composition = composition
+        self.attention_core = attention_core
+        self.depthwise = depthwise
         self.to(resolve_device(device))
         if seed is not None:
             self.init_weights_(seed)
-
-    @property
-    def composition(self) -> str:
-        return self._composition
-
-    @composition.setter
-    def composition(self, mode: str) -> None:
-        if mode not in COMPOSITIONS:
-            raise ValueError(f"unknown composition {mode!r}; one of {COMPOSITIONS}")
-        self._composition = mode
-        for m in self.modules():
-            if isinstance(m, TransformerBlock):
-                m.composition = mode
 
     @torch.no_grad()
     def init_weights_(self, seed: int = 0, std: float = 0.02) -> "TNet":

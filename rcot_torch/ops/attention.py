@@ -1,60 +1,69 @@
-"""MDTA: multi-DConv-head transposed (channel) attention, plain PyTorch.
+"""MDTA: multi-DConv-head transposed (channel) attention.
 
 Reference Net_Restormer.py:19-50. q, k and v come from a 1x1 conv and a
 3x3 depthwise conv; per head, q and k are L2-normalised along the spatial
 axis (eps 1e-12, as F.normalize) and attention is the (c, c) matrix
 softmax(q k^T * temperature). `mdta` is the composition the bias=True model
-takes; the bias-free model runs the Gram kernels of ops/gram.py instead,
-and its qkv half through `mdta_qkv`.
+takes, in plain ops; the bias-free model runs its qkv half through
+`mdta_qkv` and its core through `mdta_core`, each in the tier the model
+names (ops/dispatch.py), as rcot_tpu/ops/attention.py:56-117 routes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from .conv import conv1x1, depthwise3x3
+from .dwconv import dwconv3x3
 from .fused import conv1x1_dw_fused
-
-L2_EPS = 1e-12
-
-
-def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
-    norm = x.square().sum(dim=-1, keepdim=True).sqrt()
-    return x / norm.clamp_min(L2_EPS)
+from .gram import mdta_core_gram
+from .mdta import mdta_attend_plain as mdta_attend
+from .mdta import mdta_attend as mdta_attend_kernel
 
 
-def mdta_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                temperature: torch.Tensor) -> torch.Tensor:
-    """Transposed attention on (B, heads, c, HW) tensors -> same shape."""
-    q = _l2_normalize(q)
-    k = _l2_normalize(k)
-    attn = torch.einsum("bhcn,bhdn->bhcd", q, k) * temperature
-    attn = attn.softmax(dim=-1)
-    return torch.einsum("bhcd,bhdn->bhcn", attn, v)
-
-
-def mdta_core(temperature: torch.Tensor, qkv: torch.Tensor,
-              num_heads: int) -> torch.Tensor:
-    """Head split, attend and merge on the post-dwconv qkv (B,H,W,3C)."""
+def _attend_heads(attend: Callable, temperature: torch.Tensor, qkv: torch.Tensor,
+                  num_heads: int) -> torch.Tensor:
+    """Head split (transpose to (3, B, heads, ch, HW)), attend and merge
+    back to NHWC, on the post-dwconv qkv (B,H,W,3C)."""
     b, h, w, c3 = qkv.shape
     c = c3 // 3
     parts = qkv.reshape(b, h * w, 3, num_heads, c // num_heads)
-    parts = parts.permute(2, 0, 3, 4, 1)  # (3, B, heads, ch, HW)
-    out = mdta_attend(parts[0], parts[1], parts[2], temperature)
-    return out.permute(0, 3, 1, 2).reshape(b, h, w, c)
+    parts = parts.permute(2, 0, 3, 4, 1).contiguous()
+    out = attend(parts[0], parts[1], parts[2], temperature)
+    # with one head the merge is a strided view; the tail kernel reads NHWC
+    return out.permute(0, 3, 1, 2).reshape(b, h, w, c).contiguous()
+
+
+def mdta_core(temperature: torch.Tensor, qkv: torch.Tensor, num_heads: int,
+              core: str = "mdta") -> torch.Tensor:
+    """The attention core of the bias-free model, (B,H,W,3C) -> (B,H,W,C).
+    "gram": the transpose-free Gram and apply kernels (ops/gram.py);
+    "mdta" (the default, the transposed formulation): the transposes and
+    the fused attend kernel (ops/mdta.py)."""
+    if core == "gram":
+        return mdta_core_gram(temperature, qkv, num_heads)
+    if core != "mdta":
+        raise ValueError(f"unknown attention core {core!r}")
+    return _attend_heads(mdta_attend_kernel, temperature, qkv, num_heads)
 
 
 def mdta_qkv(x: torch.Tensor, w_qkv: torch.Tensor, w_dw: torch.Tensor,
              b_qkv: Optional[torch.Tensor] = None,
-             b_dw: Optional[torch.Tensor] = None) -> torch.Tensor:
+             b_dw: Optional[torch.Tensor] = None,
+             depthwise: str = "fused") -> torch.Tensor:
     """1x1 qkv projection then its 3x3 depthwise conv: (B,H,W,C) -> 3C.
-    Bias-free, the two run as one fused kernel (conv1x1_dw_fused, as
-    rcot_tpu/ops/attention.py:89-117 routes); with biases, as plain convs."""
+    Bias-free, in the depthwise tier named: "fused", one kernel
+    (conv1x1_dw_fused); "dwconv", the 1x1 as a product, then the depthwise
+    kernel (dwconv3x3). With biases, plain convs."""
     if b_qkv is None and b_dw is None:
         m = w_qkv.shape[0]
-        return conv1x1_dw_fused(x, w_qkv.reshape(m, -1), w_dw.reshape(m, 3, 3))
+        if depthwise == "fused":
+            return conv1x1_dw_fused(x, w_qkv.reshape(m, -1), w_dw.reshape(m, 3, 3))
+        if depthwise != "dwconv":
+            raise ValueError(f"unknown depthwise tier {depthwise!r}")
+        return dwconv3x3(conv1x1(x, w_qkv), w_dw.reshape(m, 3, 3))
     return depthwise3x3(conv1x1(x, w_qkv, b_qkv), w_dw, b_dw)
 
 
@@ -62,6 +71,7 @@ def mdta(x: torch.Tensor, temperature: torch.Tensor, w_qkv: torch.Tensor,
          w_dw: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
          b_qkv: Optional[torch.Tensor] = None, b_dw: Optional[torch.Tensor] = None,
          b_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Whole MDTA: (B, H, W, C) -> (B, H, W, C)."""
+    """Whole MDTA, the attend in plain ops: (B, H, W, C) -> (B, H, W, C)."""
     qkv = mdta_qkv(x, w_qkv, w_dw, b_qkv, b_dw)
-    return conv1x1(mdta_core(temperature, qkv, num_heads), w_proj, b_proj)
+    a = _attend_heads(mdta_attend, temperature, qkv, num_heads)
+    return conv1x1(a, w_proj, b_proj)

@@ -21,7 +21,9 @@ main/train/evaluate):
   preempted, ckpt_skipped_inflight, ...
 
 T's bias-free blocks run in `composition` ("auto" = the JAX trainer's
-default, "tail"); validation serves in "full".
+default, "tail"), `attention_core` and `depthwise` (ops/dispatch.py);
+validation serves in "full" with the same attention core and depthwise
+tier, as the JAX package's kernel switches hold in its inference scope too.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from ..data.datasets import eval_pairs, load_rgb
 from ..data.pipeline import device_prefetch, TrainLoader
 from ..metrics.quality import psnr
 from ..models.inference import make_restorer
-from ..ops.dispatch import resolve_composition
+from ..ops.dispatch import (resolve_attention_core, resolve_composition,
+                            resolve_depthwise)
 from ..utils.checkpoint import AsyncCheckpointer, load_checkpoint, snapshot_state
 from ..utils.config import Config
 from ..utils.device import resolve_device
@@ -62,10 +65,13 @@ class Preempted(Exception):
 
 class Trainer:
     def __init__(self, cfg: Config, *, log_path: Optional[str] = None,
-                 device="cuda", composition: str = "auto"):
+                 device="cuda", composition: str = "auto",
+                 attention_core: str = "gram", depthwise: str = "fused"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.composition = resolve_composition(composition, training=True)
+        self.attention_core = resolve_attention_core(attention_core)
+        self.depthwise = resolve_depthwise(depthwise)
         self.log = MetricsLogger(log_path)
         self.loader = TrainLoader(cfg, seed=cfg.train.seed)
         self.iteration = make_train_iteration(cfg)
@@ -86,9 +92,13 @@ class Trainer:
 
     # ------------------------------------------------------------ state
 
+    def _kernels(self) -> dict:
+        return dict(composition=self.composition, attention_core=self.attention_core,
+                    depthwise=self.depthwise)
+
     def init_state(self) -> TrainState:
         self.state = create_train_state(self.cfg, seed=self.cfg.train.seed,
-                                        device=self.device, composition=self.composition)
+                                        device=self.device, **self._kernels())
         self.host_step = 0
         return self.state
 
@@ -96,7 +106,7 @@ class Trainer:
         """Load a checkpoint of either package (config hash checked, a
         mismatch logged) and continue from its epoch and epoch_step."""
         self.state = create_train_state(self.cfg, seed=None, device=self.device,
-                                        composition=self.composition)
+                                        **self._kernels())
         meta = load_checkpoint(path, self.state)
         self.host_step = self.state.step
         self.start_epoch = int(meta.get("epoch", 1))
@@ -236,7 +246,9 @@ class Trainer:
         trainer.py:179-227), padded instead of skipped."""
         if self._restorer is None:
             self._restorer = make_restorer(self.state.t_net, self.cfg.model,
-                                           device=self.device)
+                                           device=self.device,
+                                           attention_core=self.attention_core,
+                                           depthwise=self.depthwise)
         total, n, skipped = 0.0, 0, 0
         for deg_path, tar_path in eval_pairs(degset, tarset):
             deg = load_rgb(deg_path).astype(np.float32) / 255.0

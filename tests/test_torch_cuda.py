@@ -18,7 +18,11 @@ The autograd case holds a small T_net on the card against the same model
 on the CPU: every parameter's gradient agrees within 1e-4 of that
 parameter's largest gradient (fp32 through some eighty ops, forward and
 backward, in another order of sums; cuDNN in fp32 with TF32 off), in each
-of the four block compositions.
+of the four block compositions, and with the opt-in attention core and
+depthwise tier (ops/mdta.py, ops/dwconv.py). The fused MDTA attend, whose
+Gram and norms are pixel sums added with atomics, and the depthwise
+kernel's backward (dx by the same kernel, dtaps a pixel sum) are held
+against float64 twins at the same 1e-5.
 """
 
 import pytest
@@ -27,8 +31,10 @@ import torch
 from rcot_torch.kernels import build
 from rcot_torch.models.restormer import TNet
 from rcot_torch.ops import block as tblock
+from rcot_torch.ops import dwconv as tdw
 from rcot_torch.ops import fused as tfused
 from rcot_torch.ops import gram as tgram
+from rcot_torch.ops import mdta as tmdta
 from rcot_torch.utils.config import ModelConfig
 
 RTOL = 1e-5
@@ -208,6 +214,92 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tfused.gdfn_fused(p["x"], p["w_qkv"][:-1], p["dw_qkv"][:-1], p["w_out"])
     with pytest.raises(ValueError, match="w_out"):
         tfused.gdfn_fused(p["x"], p["w_in"], p["dw_in"], p["w_out"][:, :-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 48, 65536), (2, 4, 24, 231), (3, 8, 96, 256),
+                                   (1, 2, 5, 9), (1, 1, 128, 1000)])
+def test_mdta_attend_kernel_matches_float64_plain(cuda_device, shape):
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn(*shape, device="cuda", generator=gen) for _ in range(3))
+    temp = torch.rand(shape[1], 1, 1, device="cuda", generator=gen) * 1.5 + 0.5
+    n0 = build.LAUNCHES["mdta_attend"]
+    got = tmdta.mdta_attend_fwd(q, k, v, temp)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mdta_attend"] == n0 + 1
+    assert _rel_err(got.double(), tmdta.mdta_attend_plain(*_double([q, k, v, temp]))) < RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 20, 19, 6), (3, 32, 32, 254), (1, 9, 33, 1021),
+                                   (3, 16, 16, 144), (1, 1, 1, 5)])
+def test_dwconv3x3_kernel_and_backward_match_plain(cuda_device, shape):
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(*shape, device="cuda", generator=gen)
+    taps = torch.randn(shape[-1], 3, 3, device="cuda", generator=gen) * 0.3
+    g = torch.randn(*shape, device="cuda", generator=gen)
+    n0 = build.LAUNCHES["dwconv3x3"]
+    got = tdw.dwconv3x3_fwd(x, taps)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dwconv3x3"] == n0 + 1
+    assert _rel_err(got, tdw.dwconv3x3_plain(x, taps)) < RTOL
+    leaves = [x.clone().requires_grad_(), taps.clone().requires_grad_()]
+    n0 = build.LAUNCHES["dwconv3x3_dx"]
+    tdw.dwconv3x3(*leaves).backward(g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dwconv3x3_dx"] == n0 + 1
+    want = tblock._vjp_plain(tdw.dwconv3x3_plain, _double([x, taps]), g.double())
+    _assert_grads_match([t.grad for t in leaves], want, ["dx", "dtaps"])
+
+
+@pytest.mark.cuda
+def test_mdta_and_dwconv_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 1, 130, 4, device="cuda")
+    with pytest.raises(ValueError, match="128"):
+        tmdta.mdta_attend_fwd(q, q, q, torch.ones(1, 1, 1, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        tmdta.mdta_attend_fwd(q, q.transpose(2, 3), q, torch.ones(1, 1, 1, device="cuda"))
+    x = torch.zeros(1, 4, 4, 6, device="cuda")
+    with pytest.raises(ValueError, match="taps"):
+        tdw.dwconv3x3_fwd(x, torch.zeros(5, 3, 3, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("composition,core,depthwise", [
+    ("off", "mdta", "dwconv"), ("tail", "mdta", "dwconv"), ("head", "gram", "dwconv"),
+    ("full", "mdta", "fused")])
+def test_opt_in_tiers_on_the_card_match_the_cpu(cuda_device, composition, core, depthwise):
+    """A T_net on the card in the opt-in attention core and depthwise tier
+    gives the outputs and every gradient the CPU model gives, through the
+    fused attend and the depthwise kernel, each launched once per block."""
+    cfg = ModelConfig(dim=8, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
+                      parity_params=False)
+    kw = dict(seed=3, composition=composition, attention_core=core, depthwise=depthwise)
+    cpu, card = TNet(cfg, device="cpu", **kw), TNet(cfg, device="cuda", **kw)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.rand(2, 16, 24, 3, generator=gen)
+    wts = torch.randn(3, 2, 16, 24, 3, generator=gen)
+
+    def run(net, dev):
+        net.zero_grad()
+        outs = net(x.to(dev))
+        sum((o * w.to(dev)).sum() for o, w in zip(outs, wts)).backward()
+        return outs[0].detach().cpu(), {n: p.grad for n, p in net.named_parameters()}
+
+    before = dict(build.LAUNCHES)
+    got_out, got = run(card, "cuda")
+    torch.cuda.synchronize()
+    n_dw = 22 * ((composition in ("tail", "off")) + (composition in ("head", "off")))
+    want_launches = {"mdta_attend": 22 if core == "mdta" else 0,
+                     "dwconv3x3": n_dw if depthwise == "dwconv" else 0}
+    want_launches["dwconv3x3_dx"] = want_launches["dwconv3x3"]
+    for k, n in want_launches.items():
+        assert build.LAUNCHES[k] - before.get(k, 0) == n, k
+    want_out, want = run(cpu, "cpu")
+    assert float((got_out - want_out).abs().max()) <= 1e-4
+    for name, gw in want.items():
+        err = float((got[name].cpu() - gw).abs().max())
+        assert err <= 1e-4 * float(gw.abs().max()), (name, err)
 
 
 @pytest.mark.cuda

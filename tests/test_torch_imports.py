@@ -34,6 +34,7 @@ def test_the_check_sees_the_port():
             "rcot_torch/ops/block.py", "rcot_torch/ops/fused.py",
             "rcot_torch/train/trainer.py", "rcot_torch/cli/train.py",
             "rcot_torch/utils/checkpoint.py", "rcot_torch/data/pipeline.py",
+            "rcot_torch/ops/mdta.py", "rcot_torch/ops/dwconv.py",
             "chip_smoke.py"} <= names
     assert list(_imported_roots(ast.parse("def f():\n    from jax import numpy\n"))) == [
         ("jax", 2)]
