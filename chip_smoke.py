@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the CUDA kernels from rcot_torch/csrc with nvcc (sm_90a);
   3. hold each forward kernel against its plain PyTorch twin on the card at
      every block shape of a 256x256 forward, B = 1 and 2, both LayerNorm
-     types;
+     types, and the Gram's two calls on one input against each other
+     (bitwise: its sums run in a fixed order);
   3b. hold each backward kernel against its plain twin at every block
      shape of the training path (128x128, B = 3), both LayerNorm types;
   3c. hold the fused dwconv tier's kernels (conv1x1_dw and gdfn_fused,
@@ -32,11 +33,14 @@ Phases (any failure exits non-zero; nothing is caught):
      launches of mdta_attend and 188 of dwconv3x3 per two-pass forward and
      no other kernel, the outputs against the default's, img/s at 256 px,
      batch 1 and 8;
-  5. time images/s at 256 px, batch 1 and 8, and each kernel at the
-     level-1 and latent shapes beside its bound, its plain twin and, where
-     one exists, a single PyTorch call computing the same product; split
-     one 256 px forward into its four kernels (each timed at every block
-     shape, times the blocks at that shape) and the rest;
+  5. time images/s at 256 px, batch 1 and 8, and each kernel at every
+     block shape beside its bound, its plain twin and, where one exists, a
+     single PyTorch call computing the same product, each both as `ms`
+     (CUDA events around 20 back-to-back calls: host work and launch gaps
+     included) and as `device_ms` (the kernels', memsets' and copies'
+     durations per call, torch.profiler); split one 256 px forward into its
+     four kernels (each timed at every block shape, times the blocks at
+     that shape) and the rest;
   6. train at full width: create_train_state(Config()) (T_net 46,853,150
      and F_net 30,588,609 parameters, seeded) in the JAX trainer's default
      composition, "tail"; three minimax iterations (make_train_iteration)
@@ -54,7 +58,8 @@ Phases (any failure exits non-zero; nothing is caught):
      fused MDTA attend and the depthwise kernel: its kernels launched 94
      times a block kind in one forward and backward (head and off run
      gdfn_fused), and every T_net and F_net gradient within GRAD_RTOL of
-     full's (the critic's sign pattern pinned to full's);
+     full's (the critic's sign pattern pinned to full's; a temperature's
+     gradient, a cancelling sum, within the floor SUM_ULPS sets);
   6c. train at full width in "tail" with the fused MDTA attend and the
      depthwise kernel: three iterations at 128^2, B = 3, counted (94
      launches each of dwconv3x3, dwconv3x3_dx, block_tail, block_tail_bwd
@@ -78,15 +83,16 @@ checked as max|kernel - plain| <= 1e-5 * max(max|plain|, 1) (fp32 sums in
 another order). The Gram's plain twin runs in float64: its sums run over
 every pixel with cancelling terms, and in fp32 on the card the twin's own
 rounding comes near the tolerance (printed as
-gram_plain_fp32_vs_float64_rel_err), while the kernel, which adds its
-partial sums with atomics in no fixed order, stays an order of magnitude
-inside it. The backward kernels are held the same way: their per-pixel
+gram_plain_fp32_vs_float64_rel_err), while the kernel (3xTF32 products,
+fp32 sums in a fixed order) stays well inside it. The backward kernels are held the same way: their per-pixel
 outputs (dx, da, d[q|k], dv) against the fp32 twin, their pixel sums
 (weight, LayerNorm and dattn grads, summed over up to 3 * 128^2 pixels,
 added with atomics) against the float64 twin, all at the same bound. Card
 against CPU in training: each parameter's gradient within GRAD_RTOL of its
 largest entry (fp32 through the whole T_net and F_net, forward and
-backward, in another order of sums; the worst seen was 4.1e-5), with
+backward, in another order of sums; the worst seen was 4.1e-5) or, for
+an MDTA temperature, within SUM_ULPS ulps of the sum of its terms'
+magnitudes where that is larger (TemperatureTerms), with
 the critic's LeakyReLU sign pattern pinned to the CPU's (LeakyPattern says
 why), each metric m within METRIC_RTOL * max(|m|, 1) (f_wgan is a difference of mean
 critic scores that nearly cancels at initialisation, |f_wgan| ~ 1e-5, so
@@ -148,6 +154,17 @@ KERNEL_RTOL = 1e-5
 MODEL_ATOL, MODEL_RTOL = 2e-4, 1e-3
 FORWARD_LAUNCHES = 94  # blocks per two-pass forward at ModelConfig()
 GRAD_RTOL = 2e-4      # card vs CPU gradients, of each parameter's largest
+# A floor for the gradient of an MDTA temperature, a sum of cancelling terms
+# (grad_allowance). Each term dlogits * g_hat is a product of a normalised
+# Gram entry and a softmax cotangent, each a sum over up to 64^2 pixels that
+# two fp32 runs round in another order: about sqrt(4096) = 64 ulps of the
+# term apart. If every term differs by at most SUM_ULPS ulps, their sum
+# differs by at most SUM_ULPS * eps * sum|terms|, however close to 0 the sum
+# itself comes. Where the terms do not cancel (sum|terms| ~ |grad|) the floor
+# is 7.6e-6 of the gradient, far below GRAD_RTOL; every other tensor has no
+# floor.
+SUM_ULPS = 64
+FP32_EPS = float(np.finfo(np.float32).eps)
 METRIC_RTOL = 1e-4    # card vs CPU metrics read before any step, of max(|m|, 1)
 STEPPED_RTOL = 1e-3   # ... and those read at the critic after its steps
 STEPPED_METRICS = ("f_gp", "t_loss", "t_adv")
@@ -310,9 +327,12 @@ def phase_kernels(gen) -> dict:
                 torch.cuda.synchronize()
                 check(f"block_tail {tag}", y, kblock.block_tail_plain(*tail_args(p)), errs)
             gram = kgram.mdta_gram_fwd(qkv, heads)
+            again = kgram.mdta_gram_fwd(qkv, heads)
             torch.cuda.synchronize()
             exact = kgram.mdta_gram_plain(qkv.double(), heads)
             check(f"mdta_gram_fwd {label} B={b}", gram, exact, errs)
+            if not all(torch.equal(x, y) for x, y in zip(gram, again)):
+                raise AssertionError(f"mdta_gram_fwd {label} B={b}: two calls differ")
             # the fp32 twin's own rounding, for the record (docstring above)
             fp32_err = max(float((f - e).abs().max() / e.abs().max())
                            for f, e in zip(kgram.mdta_gram_plain(qkv, heads), exact))
@@ -619,15 +639,40 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=3, tries=8) -> float:
+    """Device time of one call: the durations of the CUDA kernels, memsets
+    and copies that `iters` back-to-back calls put on the card, read with
+    torch.profiler (CUDA activity), over `iters`. Launch gaps and the
+    wrapper's host work are not in it; `cuda_ms` (events around the calls)
+    keeps them. A window in which the profiler delivered no device record
+    at all (seen on the card about once in a few hundred) is taken again."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / iters / 1e3
+    raise RuntimeError(f"torch.profiler recorded no device activity in {tries} windows")
+
+
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
-    """Each kernel of `names` at one block shape: its time, its plain twin's,
-    its bound and, where one PyTorch call (or one per output) computes the
-    same products, that call's time on pre-transposed tensors."""
+    """Each kernel of `names` at one block shape: its time (`ms`, events
+    around back-to-back calls, host included, and `device_ms`, the card's
+    busy time alone), its plain twin's, its bound and, where one PyTorch
+    call (or one per output) computes the same products, that call's time
+    on pre-transposed tensors, both ways."""
     n = res * res
     p = block_inputs(gen, b, res, c, True)
     m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
@@ -746,9 +791,10 @@ def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
         kern, plain, lib, flops, nbytes = rows[name]
         bms, by = bound(flops, nbytes)
         out[name] = dict(shape=f"{label} {res}^2 C={c} heads={heads} B={b}",
-                         ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
-                         bound_ms=bms, bound_by=by,
-                         library_ms=cuda_ms(lib) if lib else None)
+                         ms=cuda_ms(kern), device_ms=device_ms(kern),
+                         plain_ms=cuda_ms(plain, iters=5), bound_ms=bms, bound_by=by,
+                         library_ms=cuda_ms(lib) if lib else None,
+                         library_device_ms=device_ms(lib) if lib else None)
     if "mdta_attend" in names:
         out["mdta_attend"]["two_bmm_ms"] = cuda_ms(lambda: (torch.bmm(qh, kh),
                                                             torch.bmm(at, vt)))
@@ -774,10 +820,11 @@ def forward_breakdown(gen, net, timings) -> dict:
     x = torch.rand(1, 256, 256, 3, device="cuda", generator=gen)
     with torch.inference_mode():
         fwd = cuda_ms(lambda: net(x), iters=10, warmup=2)
-    per_kernel = {name: sum(BLOCKS_PER_FORWARD[label] * timings[label][name]["ms"]
-                            for label in BLOCKS_PER_FORWARD)
-                  for name in composition_kernels("full", backward=False)}
-    return dict(forward_ms=fwd, kernels_ms=per_kernel,
+    per_kernel, per_kernel_device = ({
+        name: sum(BLOCKS_PER_FORWARD[label] * timings[label][name][key]
+                  for label in BLOCKS_PER_FORWARD)
+        for name in composition_kernels("full", backward=False)} for key in ("ms", "device_ms"))
+    return dict(forward_ms=fwd, kernels_ms=per_kernel, kernels_device_ms=per_kernel_device,
                 outside_kernels_ms=fwd - sum(per_kernel.values()))
 
 
@@ -827,6 +874,69 @@ class LeakyPattern:
             yield
         if left:
             raise AssertionError(f"replay: {len(left)} recorded critic calls not made")
+
+
+class TemperatureTerms:
+    """Records, for each MDTA temperature of `net` that the Gram core
+    differentiates, sum|terms| of its gradient. The temperature scales the
+    logits, logits = g_hat * t, so dt is the sum of dlogits * g_hat over
+    the (ch, ch) entries (and the batch): `recording()` hands ops/gram.py's
+    glue the temperature expanded to (heads, ch, ch), whose gradient is
+    those terms (summed over the batch), and adds up their magnitudes per
+    head. The products are the same; only the sum is taken in another place,
+    so the recorded run stays a plain fp32 run of the same function."""
+
+    def __init__(self, net, tag: str = "T"):
+        self.names = {p.data_ptr(): f"{tag} {n}" for n, p in net.named_parameters()
+                      if n.endswith("temperature")}
+        self.sums: dict = {}
+
+    def _add(self, name, g):
+        s = g.detach().abs().sum(dim=(1, 2), keepdim=True)
+        self.sums[name] = self.sums[name] + s if name in self.sums else s
+
+    @contextlib.contextmanager
+    def recording(self):
+        real = kgram._glue
+
+        def glue(gram, nq, nk, temperature):
+            name = self.names.get(temperature.data_ptr())
+            if name is None or not (torch.is_grad_enabled() and temperature.requires_grad):
+                return real(gram, nq, nk, temperature)
+            t = temperature.expand(gram.shape[1:]).clone()
+            t.register_hook(lambda g: self._add(name, g))
+            return real(gram, nq, nk, t)
+        kgram._glue = glue
+        try:
+            yield self
+        finally:
+            kgram._glue = real
+
+
+def grad_allowance(ref: torch.Tensor, terms_abs=None) -> torch.Tensor:
+    """The largest |grad - ref| allowed per entry: GRAD_RTOL of ref's
+    largest entry or, for a sum of terms whose magnitudes sum to terms_abs,
+    SUM_ULPS ulps of that, whichever is larger (SUM_ULPS says why)."""
+    allowed = torch.full_like(ref, GRAD_RTOL * float(ref.abs().max()))
+    if terms_abs is not None:
+        allowed = torch.maximum(allowed, SUM_ULPS * FP32_EPS * terms_abs.to(ref))
+    return allowed.clamp_min(1e-30)
+
+
+def grad_errors(grads: dict, ref: dict, terms: dict) -> tuple:
+    """-> ({name: max|err| / max|ref|}, {name: (that, max|ref|, the largest
+    floor)} for each gradient beyond grad_allowance)."""
+    rel, bad = {}, {}
+    for k, g in grads.items():
+        r = ref[k]
+        err = (g - r).abs()
+        largest = float(r.abs().max())
+        rel[k] = float(err.max()) / max(largest, 1e-30)
+        if not bool((err <= grad_allowance(r, terms.get(k))).all()):
+            floor = terms.get(k)
+            bad[k] = (rel[k], largest, None if floor is None
+                      else SUM_ULPS * FP32_EPS * float(floor.max()))
+    return rel, bad
 
 
 # modules defined by the reference but never called: their grads are zero
@@ -968,6 +1078,7 @@ def phase_compositions(gen_np) -> dict:
     alpha = torch.full((b, 1, 1, 1), 0.37, device="cuda")
     grads, launches = {}, {}
     pattern = LeakyPattern()
+    terms = TemperatureTerms(state.t_net)
     runs = [(mode, "gram", "fused") for mode in COMPOSITIONS]
     runs += [(mode, "mdta", "dwconv") for mode in COMPOSITIONS]
     for mode, core, tier in runs:  # full first: it records the critic's pattern
@@ -975,7 +1086,8 @@ def phase_compositions(gen_np) -> dict:
         state.t_net.composition = mode
         state.t_net.attention_core, state.t_net.depthwise = core, tier
         build.reset_launches()
-        with pattern.recording() if key == "full" else pattern.replaying():
+        with (pattern.recording() if key == "full" else pattern.replaying()), \
+                (terms.recording() if key == "full" else contextlib.nullcontext()):
             grads[key] = train_grads(state, batch, alpha, cfg)
         torch.cuda.synchronize()
         launches[key] = dict(build.LAUNCHES)
@@ -985,15 +1097,12 @@ def phase_compositions(gen_np) -> dict:
     for mode in list(grads)[1:]:
         if set(grads[mode]) != set(grads["full"]):
             raise AssertionError(f"{mode}: other parameters get a gradient than in full")
-        rel = {k: float((g - grads["full"][k]).abs().max()
-                        / grads["full"][k].abs().max().clamp_min(1e-30))
-               for k, g in grads[mode].items()}
-        bad = {k: (v, float(grads["full"][k].abs().max()))
-               for k, v in rel.items() if not v <= GRAD_RTOL}
+        rel, bad = grad_errors(grads[mode], grads["full"], terms.sums)
         if bad:
             raise AssertionError(f"{mode} vs full: gradients off by more than "
-                                 f"{GRAD_RTOL} of their largest: {{name: (error "
-                                 f"relative to the largest, largest)}} {bad}")
+                                 f"{GRAD_RTOL} of their largest (or a temperature's "
+                                 f"floor): {{name: (error relative to the largest, "
+                                 f"largest, floor)}} {bad}")
         worst[mode] = max(rel.items(), key=lambda kv: kv[1])
         log(f"composition {mode} vs full 64^2: {len(rel)} gradients, worst "
             f"max|err|/max|grad| {worst[mode]}")
@@ -1235,29 +1344,32 @@ def phase_train_vs_cpu(gen_np) -> dict:
     lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
     sides = {}
     pattern = LeakyPattern()
-    for dev in ("cpu", "cuda"):  # the CPU records the critic's pattern
+    for dev in ("cpu", "cuda"):  # the CPU records the critic's pattern and terms
         state = create_train_state(cfg, seed=1, device=dev)
         batch = Batch(torch.from_numpy(deg).to(dev), torch.from_numpy(tgt).to(dev),
                       torch.tensor([0] * b, device=dev))
         a = torch.from_numpy(alpha).to(dev)
+        if dev == "cpu":
+            terms = TemperatureTerms(state.t_net)
         with pattern.recording() if dev == "cpu" else pattern.replaying():
-            grads = {k: v.cpu() for k, v in train_grads(state, batch, a, cfg).items()}
+            with terms.recording() if dev == "cpu" else contextlib.nullcontext():
+                grads = {k: v.cpu() for k, v in train_grads(state, batch, a, cfg).items()}
             _, m = make_train_iteration(cfg)(state, batch, a, True, lr)
         sides[dev] = (grads, {k: float(v) for k, v in m.items()})
         del state
     (g_card, m_card), (g_cpu, m_cpu) = sides["cuda"], sides["cpu"]
     if set(g_card) != set(g_cpu):
         raise AssertionError("card and CPU differ in which parameters get a gradient")
-    rel = {k: float((g_card[k] - g_cpu[k]).abs().max()
-                    / g_cpu[k].abs().max().clamp_min(1e-30)) for k in g_cpu}
+    rel, bad_grads = grad_errors(g_card, g_cpu, terms.sums)
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
     log(f"card vs CPU 64^2 gradients ({len(rel)} tensors): worst max|err|/max|grad| {worst}")
     m_rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1.0) for k in m_cpu}
     log(f"card vs CPU 64^2 metrics: CPU {json.dumps(m_cpu)}, "
         f"|card - CPU| / max(|CPU|, 1) {json.dumps(m_rel)}")
-    bad = [k for k, v in rel.items() if not v <= GRAD_RTOL]
-    if bad:
-        raise AssertionError(f"gradients off by more than {GRAD_RTOL} of their largest: {bad}")
+    if bad_grads:
+        raise AssertionError(f"gradients off by more than {GRAD_RTOL} of their largest (or "
+                             f"a temperature's floor): {{name: (error relative to the "
+                             f"largest, largest, floor)}} {bad_grads}")
     bad = [k for k, v in m_rel.items()
            if not v <= (STEPPED_RTOL if k in STEPPED_METRICS else METRIC_RTOL)]
     if bad:
@@ -1359,9 +1471,10 @@ def main() -> int:
             launches_per_train_iteration_tail_mdta_dwconv=train_opt["launches"].get(
                 name, 0) // len(train_opt["metrics"]),
             max_abs_err=errs[name][0], max_rel_err=errs[name][1],
-            ms=l1["ms"], plain_ms=l1["plain_ms"],
+            ms=l1["ms"], device_ms=l1["device_ms"], plain_ms=l1["plain_ms"],
             bound_ms=l1["bound_ms"], bound_by=l1["bound_by"],
-            library_ms=l1["library_ms"], at=l1["shape"], latent=lat,
+            library_ms=l1["library_ms"], library_device_ms=l1["library_device_ms"],
+            at=l1["shape"], latent=lat,
             train_L1=train_timings["L1"][name])
         if name == "dwconv3x3":
             entry.update(width="GDFN (2h)", qkv_width=t["L1"]["dwconv3x3_qkv"],

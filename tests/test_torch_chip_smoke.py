@@ -80,3 +80,110 @@ def test_replay_holds_the_calls_to_the_recording(critic_net):
             critic_net(torch.cat([real, fake]))
     # the critic's own LeakyReLU is back after each of them
     assert torch.equal(critic_net(fake), plain)
+
+
+# ---- the floor for cancelling sums (chip_smoke.SUM_ULPS, grad_allowance)
+
+def _cancelling_terms(n=96 * 96, seed=0):
+    """fp32 terms whose float64 sum is ~1e-8 of the sum of their magnitudes."""
+    t = np.random.default_rng(seed).standard_normal(n)
+    return torch.from_numpy((t - t.mean()).astype(np.float32))
+
+
+def test_a_cancelling_fp32_sum_is_held_to_the_floor_not_to_itself():
+    t = _cancelling_terms()
+    exact = t.double().sum()
+    got = t.sum()
+    err = abs(float(got) - float(exact))
+    assert err > chip_smoke.GRAD_RTOL * abs(float(exact))  # the old gate fails it
+    allowed = chip_smoke.grad_allowance(exact.reshape(1).float(), t.abs().sum().reshape(1))
+    assert err <= float(allowed)
+
+
+def _one_head_core(dtype, qkv, cot, temp):
+    """The Gram core of one head on the CPU: output and dtemperature."""
+    from rcot_torch.ops import gram as tgram
+    t = temp.to(dtype).clone().requires_grad_()
+    out = tgram.mdta_core_gram(t, qkv.to(dtype), 1)
+    (dt,) = torch.autograd.grad(out, t, cot.to(dtype))
+    return dt
+
+
+class _Head(torch.nn.Module):
+    def __init__(self, temp):
+        super().__init__()
+        self.temperature = torch.nn.Parameter(temp.clone())
+
+
+def test_a_one_head_temperature_gradient_lies_within_the_floor():
+    """A cotangent chosen so that the float64 temperature gradient cancels:
+    fp32 then misses it by far more than 2e-4 of itself, and stays inside
+    SUM_ULPS ulps of sum|dlogits * g_hat|, which the recorder reads."""
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((1, 8, 8, 3 * 24)).astype(np.float32))
+    c1, c2 = (torch.from_numpy(rng.standard_normal((1, 8, 8, 24))) for _ in range(2))
+    temp = torch.full((1, 1, 1), 1.3)
+    d1, d2 = (_one_head_core(torch.float64, qkv, c, temp) for c in (c1, c2))
+    cot = (c1 - (d1 / d2).item() * c2).float()
+    exact = _one_head_core(torch.float64, qkv, cot, temp)
+    head = _Head(temp)
+    terms = chip_smoke.TemperatureTerms(head)
+    with terms.recording():
+        from rcot_torch.ops import gram as tgram
+        out = tgram.mdta_core_gram(head.temperature, qkv, 1)
+        (got,) = torch.autograd.grad(out, head.temperature, cot)
+    s = terms.sums["T temperature"]
+    err = float((got.double() - exact).abs().max())
+    assert err > chip_smoke.GRAD_RTOL * float(exact.abs().max())
+    assert s.shape == (1, 1, 1) and float(s) > 1e3 * float(exact.abs().max())
+    rel, bad = chip_smoke.grad_errors({"T temperature": got.double()},
+                                      {"T temperature": exact}, terms.sums)
+    assert bad == {}, bad
+    rel, bad = chip_smoke.grad_errors({"T temperature": got.double()},
+                                      {"T temperature": exact}, {})
+    assert "T temperature" in bad  # without its floor the same gradient fails
+
+
+def test_the_recorded_terms_are_those_of_the_temperature_gradient():
+    """sum|terms| from the recorder equals sum|dlogits * g_hat| computed by
+    hand, and the recorded run's gradient is the plain run's (in float64
+    here, but the glue casts the temperature and so its gradient to fp32,
+    per entry in the recorded run and after the sum in the plain one)."""
+    from rcot_torch.ops import gram as tgram
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(rng.standard_normal((2, 4, 5, 3 * 12)))
+    cot = torch.from_numpy(rng.standard_normal((2, 4, 5, 12)))
+    head = _Head(torch.tensor([[[0.7]], [[1.4]]], dtype=torch.float64))
+    terms = chip_smoke.TemperatureTerms(head)
+    with terms.recording():
+        (got,) = torch.autograd.grad(tgram.mdta_core_gram(head.temperature, qkv, 2),
+                                     head.temperature, cot)
+    (plain,) = torch.autograd.grad(tgram.mdta_core_gram(head.temperature, qkv, 2),
+                                   head.temperature, cot)
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=0)
+    gram, nq, nk = tgram.mdta_gram_plain(qkv, 2)
+    ghat = gram / (nq.sqrt()[..., :, None] * nk.sqrt()[..., None, :])
+    logits = (ghat * head.temperature.detach()[None]).requires_grad_()
+    (dlogits,) = torch.autograd.grad(tgram.attn_apply_plain(qkv, logits.softmax(-1)),
+                                     logits, cot)
+    want = (dlogits * ghat).sum(0).abs().sum(dim=(1, 2), keepdim=True)
+    torch.testing.assert_close(terms.sums["T temperature"], want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["weight", "temperature"])
+def test_a_gradient_off_by_1e_3_of_its_largest_still_fails(kind):
+    """The floor leaves the gate for everything else as it was: a weight
+    gradient (no terms), and a temperature whose terms do not cancel, each
+    moved by 1e-3 of its largest entry, fail."""
+    rng = np.random.default_rng(5)
+    if kind == "weight":
+        ref = torch.from_numpy(rng.standard_normal((48, 48)).astype(np.float32))
+        terms = {}
+    else:
+        t = torch.from_numpy(np.abs(rng.standard_normal((2, 24, 24))).astype(np.float32))
+        ref = t.sum(dim=(1, 2), keepdim=True)
+        terms = {"g": t.abs().sum(dim=(1, 2), keepdim=True)}
+    moved = ref.clone()
+    moved.view(-1)[0] += 1e-3 * float(ref.abs().max())
+    assert chip_smoke.grad_errors({"g": ref}, {"g": ref}, terms)[1] == {}
+    assert "g" in chip_smoke.grad_errors({"g": moved}, {"g": ref}, terms)[1]

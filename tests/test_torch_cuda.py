@@ -8,9 +8,9 @@ a machine without them:
 
 TF32 is off for the plain twins. Tolerance: max|kernel - plain| <= 1e-5 *
 max|plain| (fp32 sums in another order). The Gram, whose sums run over
-every pixel with cancelling terms and whose kernel adds partial sums with
-atomics in no fixed order, is held against its plain twin run in float64:
-in fp32 on the card the twin's own rounding comes near the tolerance. The
+every pixel with cancelling terms, is held against its plain twin run in
+float64: in fp32 on the card the twin's own rounding comes near the
+tolerance. Its kernel sums in a fixed order, so two calls agree bitwise. The
 backward kernels, whose weight grads are such sums too, are held against
 their plain twins run in float64, every output at the same 1e-5.
 
@@ -87,20 +87,77 @@ def test_block_kernels_match_plain(cuda_device, shape, ln_bias):
     assert _rel_err(got, tblock.block_tail_plain(*tail)) < RTOL
 
 
+# (B, heads, ch, (H, W)): the forward kernels' 16-byte (ch % 4 == 0) and
+# 4-byte (ch = 5) copies, one range per (b, head) and split ones, hw that
+# is no multiple of any tile (37 * 29, 33 * 7), train-like B = 3, ch = 128
+GRAM_CASES = [(2, 1, 48, (64, 64)), (2, 4, 96, (16, 16)), (2, 4, 24, (33, 7)),
+              (2, 2, 5, (3, 3)), (3, 1, 48, (128, 128)), (3, 1, 128, (37, 29)),
+              (3, 8, 48, (16, 16)), (3, 2, 5, (41, 43))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads,ch,hw", [(1, 48, (64, 64)), (4, 96, (16, 16)),
-                                         (4, 24, (33, 7)), (2, 5, (3, 3))])
-def test_gram_kernels_match_plain(cuda_device, heads, ch, hw):
+@pytest.mark.parametrize("b,heads,ch,hw", GRAM_CASES)
+def test_gram_kernels_match_plain(cuda_device, b, heads, ch, hw):
     g = torch.Generator(device="cuda").manual_seed(6)
-    qkv = torch.randn(2, *hw, 3 * heads * ch, device=cuda_device, generator=g)
+    qkv = torch.randn(b, *hw, 3 * heads * ch, device=cuda_device, generator=g)
+    n0 = build.LAUNCHES["mdta_gram_fwd"]
     got = tgram.mdta_gram_fwd(qkv, heads)
     torch.cuda.synchronize()
-    for a, b in zip(got, tgram.mdta_gram_plain(qkv.double(), heads)):
-        assert _rel_err(a, b) < RTOL
-    attn = torch.softmax(torch.randn(2, heads, ch, ch, device=cuda_device, generator=g), -1)
+    assert build.LAUNCHES["mdta_gram_fwd"] == n0 + 1
+    for a, want in zip(got, tgram.mdta_gram_plain(qkv.double(), heads)):
+        assert a.shape == want.shape and a.is_contiguous()
+        assert _rel_err(a, want) < RTOL
+    attn = torch.softmax(torch.randn(b, heads, ch, ch, device=cuda_device, generator=g), -1)
+    n0 = build.LAUNCHES["attn_apply_fwd"]
     out = tgram.attn_apply_fwd(qkv, attn)
     torch.cuda.synchronize()
+    assert build.LAUNCHES["attn_apply_fwd"] == n0 + 1
     assert _rel_err(out, tgram.attn_apply_plain(qkv, attn)) < RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,ch,hw", [(1, 1, 48, (256, 256)), (3, 8, 48, (16, 16)),
+                                           (2, 2, 5, (41, 43))])
+def test_the_gram_forward_is_bitwise_repeatable(cuda_device, b, heads, ch, hw):
+    """Its sums run in a fixed order (no atomics): two calls, same bits."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    qkv = torch.randn(b, *hw, 3 * heads * ch, device=cuda_device, generator=g)
+    first = tgram.mdta_gram_fwd(qkv, heads)
+    second = tgram.mdta_gram_fwd(qkv, heads)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,ch,hw", [(1, 1, 48, (64, 64)), (3, 4, 24, (33, 7)),
+                                           (3, 1, 96, (32, 32))])
+def test_the_mdta_core_on_the_card_matches_float64(cuda_device, b, heads, ch, hw):
+    """The whole Gram core, forward kernels (rows 3-4) feeding the backward
+    kernels (rows 6-7), against autograd of the plain core in float64. The
+    temperature's gradient, a sum of cancelling terms dlogits * g_hat, is
+    held to RTOL of the sum of their magnitudes; dqkv as every output."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    qkv = torch.randn(b, *hw, 3 * heads * ch, device=cuda_device, generator=gen)
+    temp = torch.rand(heads, 1, 1, device=cuda_device, generator=gen) + 0.5
+    cot = torch.randn(b, *hw, heads * ch, device=cuda_device, generator=gen)
+    before = dict(build.LAUNCHES)
+    leaves = [temp.clone().requires_grad_(), qkv.clone().requires_grad_()]
+    out = tgram.mdta_core_gram(*leaves, heads)
+    got = torch.autograd.grad(out, leaves, cot)
+    torch.cuda.synchronize()
+    for k in ("mdta_gram_fwd", "attn_apply_fwd", "mdta_gram_bwd", "attn_apply_bwd"):
+        assert build.LAUNCHES[k] - before.get(k, 0) == 1, k
+    leaves64 = [t.detach().double().requires_grad_() for t in (temp, qkv)]
+    g, nq, nk = tgram.mdta_gram_plain(leaves64[1], heads)
+    ghat = g / (nq.sqrt()[..., :, None] * nk.sqrt()[..., None, :])
+    logits = ghat * leaves64[0][None]
+    out64 = tgram.attn_apply_plain(leaves64[1], logits.softmax(-1))
+    want = torch.autograd.grad(out64, leaves64 + [logits], cot.double())
+    assert _rel_err(out.double(), out64) < RTOL
+    _assert_grads_match(got[1:], want[1:2], ["dqkv"])
+    terms = (want[2] * ghat.detach()).abs().sum(dim=(0, 2, 3)).reshape(heads, 1, 1)
+    assert bool(((got[0].double() - want[0]).abs() <= RTOL * terms).all())
 
 
 @pytest.mark.cuda
