@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught):
      types, and the Gram's two calls on one input against each other
      (bitwise: its sums run in a fixed order);
   3b. hold each backward kernel against its plain twin at every block
-     shape of the training path (128x128, B = 3), both LayerNorm types;
+     shape of the training path (128x128, B = 3), both LayerNorm types,
+     and the MDTA backward kernels' two calls on one input against each
+     other (bitwise: their sums run in a fixed order);
   3c. hold the fused dwconv tier's kernels (conv1x1_dw and gdfn_fused,
      forward and backward) against their plain twins at every training
      block shape;
@@ -34,13 +36,16 @@ Phases (any failure exits non-zero; nothing is caught):
      no other kernel, the outputs against the default's, img/s at 256 px,
      batch 1 and 8;
   5. time images/s at 256 px, batch 1 and 8, and each kernel at every
-     block shape beside its bound, its plain twin and, where one exists, a
+     block shape of serving and of training (the latter before phase 6)
+     beside its bound, its plain twin and, where one exists, a
      single PyTorch call computing the same product, each both as `ms`
      (CUDA events around 20 back-to-back calls: host work and launch gaps
      included) and as `device_ms` (the kernels', memsets' and copies'
-     durations per call, torch.profiler); split one 256 px forward into its
-     four kernels (each timed at every block shape, times the blocks at
-     that shape) and the rest;
+     durations per call, torch.profiler, with `device_records`, their
+     number per call, and `sm_mhz`, the SM clock after the window); the
+     Gram's and dattn's pixel sums against float64 (`sum_rel_err`); split
+     one 256 px forward into its four kernels (each timed at every block
+     shape, times the blocks at that shape) and the rest;
   6. train at full width: create_train_state(Config()) (T_net 46,853,150
      and F_net 30,588,609 parameters, seeded) in the JAX trainer's default
      composition, "tail"; three minimax iterations (make_train_iteration)
@@ -87,7 +92,9 @@ gram_plain_fp32_vs_float64_rel_err), while the kernel (3xTF32 products,
 fp32 sums in a fixed order) stays well inside it. The backward kernels are held the same way: their per-pixel
 outputs (dx, da, d[q|k], dv) against the fp32 twin, their pixel sums
 (weight, LayerNorm and dattn grads, summed over up to 3 * 128^2 pixels,
-added with atomics) against the float64 twin, all at the same bound. Card
+with atomics in the block kernels, in a fixed order in dattn's) against
+the float64 twin, all at the same bound; d[q|k], a 3xTF32 product, also
+against its float64 twin. Card
 against CPU in training: each parameter's gradient within GRAD_RTOL of its
 largest entry (fp32 through the whole T_net and F_net, forward and
 backward, in another order of sums; the worst seen was 4.1e-5) or, for
@@ -113,6 +120,8 @@ Prints the kernels' JSON line (all fifteen kernels) and, last,
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import io
 import json
 import os
@@ -268,6 +277,28 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=1)
+def _nvml():
+    """(NVML, handle of card 0), or None where NVML does not load."""
+    try:
+        lib = ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return None
+    handle = ctypes.c_void_p()
+    if lib.nvmlInit_v2() or lib.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(handle)):
+        return None
+    return lib, handle
+
+
+def sm_clock_mhz():
+    """The card's SM clock at this moment (NVML_CLOCK_SM), or None."""
+    nvml = _nvml()
+    mhz = ctypes.c_uint()
+    if nvml is None or nvml[0].nvmlDeviceGetClockInfo(nvml[1], 1, ctypes.byref(mhz)):
+        return None
+    return mhz.value
+
+
 # ------------------------------------------------------------ inputs
 
 def block_inputs(gen, b, res, c, ln_bias):
@@ -395,15 +426,26 @@ def phase_backward(gen) -> dict:
                torch.randn(b, heads, ch, device="cuda", generator=gen),
                torch.randn(b, heads, ch, device="cuda", generator=gen)]
         got = kgram.mdta_gram_bwd(qkv, *cot, heads)
+        again = kgram.mdta_gram_bwd(qkv, *cot, heads)
         torch.cuda.synchronize()
+        # a tensor-core product: against the fp32 twin and the float64 one
         check(f"mdta_gram_bwd {label} B={b}", got,
               kgram.mdta_gram_bwd_plain(qkv, *cot, heads), errs)
+        check(f"mdta_gram_bwd {label} B={b} float64", got,
+              kgram.mdta_gram_bwd_plain(*_double([qkv, *cot]), heads), errs)
         attn = torch.softmax(torch.randn(b, heads, ch, ch, device="cuda", generator=gen), -1)
         g = torch.randn(b, res, res, c, device="cuda", generator=gen)
-        got = kgram.attn_apply_bwd(qkv, attn, g)
+        got_a = kgram.attn_apply_bwd(qkv, attn, g)
+        again_a = kgram.attn_apply_bwd(qkv, attn, g)
         torch.cuda.synchronize()
-        check_bwd(f"attn_apply_bwd {label} B={b}", got, kgram.attn_apply_bwd_plain(qkv, attn, g),
+        check_bwd(f"attn_apply_bwd {label} B={b}", got_a,
+                  kgram.attn_apply_bwd_plain(qkv, attn, g),
                   kgram.attn_apply_bwd_plain(*_double([qkv, attn, g])), errs)
+        # fixed-order sums: two calls on one input give the same bits
+        for name, x, y in (("mdta_gram_bwd", (got,), (again,)),
+                           ("attn_apply_bwd", got_a, again_a)):
+            if not all(torch.equal(u, w) for u, w in zip(x, y)):
+                raise AssertionError(f"{name} {label} B={b}: two calls differ")
         log(f"backward kernels ok at {label} {res}^2 C={c} heads={heads} B={b}")
     return errs
 
@@ -639,16 +681,22 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3, tries=8) -> float:
-    """Device time of one call: the durations of the CUDA kernels, memsets
-    and copies that `iters` back-to-back calls put on the card, read with
-    torch.profiler (CUDA activity), over `iters`. Launch gaps and the
-    wrapper's host work are not in it; `cuda_ms` (events around the calls)
-    keeps them. A window in which the profiler delivered no device record
-    at all (seen on the card about once in a few hundred) is taken again."""
+def device_ms(fn, iters=20, warmup=3, tries=8) -> tuple:
+    """(device time of one call, device records per call): the durations
+    of the CUDA kernels, memsets and copies that `iters` back-to-back calls
+    put on the card, read with torch.profiler (CUDA activity), and their
+    number, each over `iters`. Launch gaps and the wrapper's host work are
+    not in it; `cuda_ms` (events around the calls) keeps them. Every call
+    puts the same records on the card, so a window whose records are not a
+    whole number per call lost some: the profiler did so in a few windows
+    of a run, in nearly every one after the training phases (so every
+    kernel is timed before them), and in none at all about once in a few
+    hundred (PERF.md). Such a window is taken again, up to `tries`,
+    and the fullest is kept; `device_records` shows what was kept."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    best: list = []
     for _ in range(tries):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -657,9 +705,13 @@ def device_ms(fn, iters=20, warmup=3, tries=8) -> float:
             torch.cuda.synchronize()
         spans = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if spans:
-            return sum(spans) / iters / 1e3
-    raise RuntimeError(f"torch.profiler recorded no device activity in {tries} windows")
+        if len(spans) > len(best):
+            best = spans
+        if spans and len(spans) % iters == 0:
+            break
+    if not best:
+        raise RuntimeError(f"torch.profiler recorded no device activity in {tries} windows")
+    return sum(best) / iters / 1e3, len(best) / iters
 
 
 def bound(flops: float, nbytes: float):
@@ -786,15 +838,29 @@ def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
         # the wrapper, with the rotation of the taps (a 9 x 2h copy)
         "dwconv3x3_dx": dw_row(g_g, taps_g, kdw.dwconv3x3_dx),
     })
+    # the core's two sums over a block's pixel range (G, dattn): their error
+    # against the float64 twin, max|kernel - float64| / max|float64|
+    sums = {"mdta_gram_fwd": (lambda: kgram.mdta_gram_fwd(qkv, heads)[0],
+                              lambda: kgram.mdta_gram_plain(qkv.double(), heads)[0]),
+            "attn_apply_bwd": (lambda: kgram.attn_apply_bwd(qkv, attn, g_c)[1],
+                               lambda: kgram.attn_apply_bwd_plain(
+                                   *_double([qkv, attn, g_c]))[1])}
     out = {}
     for name in names:
         kern, plain, lib, flops, nbytes = rows[name]
         bms, by = bound(flops, nbytes)
+        ms = cuda_ms(kern)
+        dev, records = device_ms(kern)
+        # sm_mhz: the SM clock read just after the device_ms window
         out[name] = dict(shape=f"{label} {res}^2 C={c} heads={heads} B={b}",
-                         ms=cuda_ms(kern), device_ms=device_ms(kern),
+                         ms=ms, device_ms=dev, device_records=records, sm_mhz=sm_clock_mhz(),
                          plain_ms=cuda_ms(plain, iters=5), bound_ms=bms, bound_by=by,
                          library_ms=cuda_ms(lib) if lib else None,
-                         library_device_ms=device_ms(lib) if lib else None)
+                         library_device_ms=device_ms(lib)[0] if lib else None)
+        if name in sums:
+            got, want = (f() for f in sums[name])
+            out[name]["sum_rel_err"] = float((got.double() - want).abs().max()
+                                             / want.abs().max())
     if "mdta_attend" in names:
         out["mdta_attend"]["two_bmm_ms"] = cuda_ms(lambda: (torch.bmm(qh, kh),
                                                             torch.bmm(at, vt)))
@@ -1438,6 +1504,12 @@ def main() -> int:
                for label, res, c, heads in MAIN_SHAPES}
     breakdown = forward_breakdown(gen, model["net"], timings)
     del model["restorer"], model["net"]
+    # the training shapes are timed before the training phases, on inputs of
+    # their own: after those phases the profiler loses device records
+    gen_timing = torch.Generator(device="cuda").manual_seed(2)
+    train_timings = {label: kernel_timings(gen_timing, label, res, c, heads, TRAIN_B,
+                                           [*KERNELS, "dwconv3x3_qkv"])
+                     for label, res, c, heads in TRAIN_SHAPES}
 
     train = phase_train(gen)
     log(f"training {TRAIN_RES}px B={TRAIN_B}: {train['it_per_s']['tail']:.4f} "
@@ -1447,9 +1519,6 @@ def main() -> int:
     train_opt = phase_train_opt_in(gen_opt, card)
     cli = phase_train_cli(card)
     cli_opt = phase_cli_opt_in(card)
-    train_timings = {label: kernel_timings(gen, label, res, c, heads, TRAIN_B,
-                                           [*KERNELS, "dwconv3x3_qkv"])
-                     for label, res, c, heads in TRAIN_SHAPES}
     splits = {mode: iteration_breakdown(train["it_per_s"][mode], train["critic_ms"],
                                         train_timings, mode) for mode in ("tail", "full")}
 

@@ -14,59 +14,59 @@
 //
 // Head h occupies channels [h*ch, (h+1)*ch) of each third of qkv and of g.
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32 without tensor cores, 3.35 TB/s):
-// the Gram reads 2C floats and does 2*C*ch + 4*C flops per pixel, so it is
-// bound by bytes (at 256^2, C = 48: ~7.5 us of bytes, ~4.6 us of flops);
-// the apply reads C floats, writes C floats and does 2*C*ch flops per
-// pixel, nearly balanced (~7.5 us of bytes, ~4.5 us of flops). The Gram
-// backward moves 4C floats and does 4*C*ch + 4*C flops per pixel, the
-// apply backward moves 3C floats and does 4*C*ch flops: near the balance
-// point at ch = 48, bound by operations at ch = 96.
+// Bounds on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 on the CUDA cores, 495
+// TF32 on the tensor cores). Per pixel, in floats moved and flops: the Gram
+// reads 2C and does 2*C*ch + 4*C; the apply moves 2C and does 2*C*ch; the
+// Gram backward reads 2C (q, k), writes 2C (dq, dk) and does 4*C*ch + 4*C;
+// the apply backward reads 2C (g, v), writes C (dv) and does 4*C*ch. On the
+// tensor cores, even as 3xTF32 (three products each), every one of them is
+// bound by its bytes at the main path's widths (ch = 24, 48, 96).
 //
-// Forward design (rows 3-4 of the kernel table). Both are bound by bytes
-// at the main path's shapes, so each streams its input once through a
-// cp.async ring (16-byte copies where ch % 4 == 0 and the rows are 16-byte
-// aligned, 4-byte copies otherwise) and does its products on the tensor
-// cores as 3xTF32 (mma.sync m16n8k8: a b ~ ah bh + ah bl + al bh with
-// x = xh + xl split into two tf32 values), accumulating in fp32 registers,
-// with ch zero-padded to 16R in shared memory. The hot loops have no
-// branch (padding adds zeros) and issue each of the three terms over all
-// of a warp's tiles before the next, so no product waits on another.
-//   - gram_fwd_kernel: the pixels of each (b, head) are split into ranges
-//     by a plan made in Python (ops/gram.py gram_plan), one block each, so
-//     that the blocks fill the card about once. A block's eight warps
-//     split the G tiles and the pixels of each stage; the sums of squares
-//     come from the same fragments. The warps' partials are added in shared
-//     memory in a fixed order and written with plain stores: into G, nq, nk
-//     when a (b, head) is one range, else into a workspace that
-//     gram_reduce_kernel sums over the ranges in a fixed order. No memset,
-//     no atomics: the sums are the same bitwise on every call.
-//   - apply_fwd_kernel: a grid of one or two blocks an SM walks contiguous
-//     runs of 128-pixel tiles; attn[b, h], whose row-major layout is the
-//     column-major B operand of out = v attn^T, is staged once per (b, h) a
-//     block meets, already split into its tf32 parts. Each warp owns 16
-//     rows of a tile and all its columns (each v value is split once), and
-//     writes its results straight from the accumulators, 32 contiguous
-//     bytes per group of four lanes. The kernels' shared-memory limits are
-//     raised once per device.
-// Every launch plan of this file (blocks, and the pixels or tiles each
-// takes) is made in Python (ops/gram.py) from the SM count it reads once.
-//
-// Backward design (rows 6-7), two kernel shapes on the CUDA cores:
-//   - pixel_gram: dattn_bh(c, d) += sum_n g[n, h*ch + c] v[n, h*ch + d].
-//     The pixels of each (b, head) are split over enough blocks to fill the
-//     card (ops/gram.py dattn_plan); each block sums in registers (a 16 x 16 thread grid, thread
-//     (ty, tx) owning rows ty + 16i and columns tx + 16j) from 32-pixel
-//     tiles staged in shared memory, and adds its partial into the output
-//     zeroed on the stream first, with atomicAdd (an order that changes
-//     from run to run: about 1e-6 relative, not bitwise).
-//   - rowmix: out[n, h*ch + c] = sum_d in[n, h*ch + d] Mat_bh(c, d), or
-//     Mat_bh(d, c), plus 2 self[n, h*ch + c] vec_bh[c] where asked. One
-//     head and a 64-pixel tile per block, the ch x ch matrix staged
-//     transposed in shared memory (36 KB at ch = 96), each thread 4 pixels
-//     x R channels: dq (in = k, Mat = dG, self q), dk (in = q, Mat = dG^T,
-//     self k) and dv (in = g, Mat = attn^T), each written only into its
-//     own third, as the TPU kernels do.
+// Design, all four kernels. Each streams its inputs once through a cp.async
+// ring (16-byte copies where ch % 4 == 0 and the rows are 16-byte aligned,
+// 4-byte copies otherwise) and does its products on the tensor cores as
+// 3xTF32 (mma.sync m16n8k8: a b ~ ah bh + ah bl + al bh with x = xh + xl
+// split into two tf32 values), accumulating in fp32 registers, with ch
+// zero-padded to 16R in shared memory. The hot loops have no branch
+// (padding adds zeros) and issue each of the three terms over all of a
+// warp's tiles before the next, so no product waits on another. Sums over
+// pixels are written with plain stores and added in a fixed order: no
+// memset, no atomics, the same bits on every call. Every launch plan
+// (blocks, and the pixels or tiles each takes) is made in Python
+// (ops/gram.py) from the SM count it reads once; each kernel's
+// shared-memory limit is raised once per device.
+//   - gram_fwd_kernel (row 3): the pixels of each (b, head) are split into
+//     ranges (ops/gram.py gram_plan), one block each, so that the blocks
+//     fill the card about once. A block's eight warps split the G tiles and
+//     the pixels of each stage; the sums of squares come from the same
+//     fragments. The warps' partials are added in shared memory in a fixed
+//     order and written into G, nq, nk when a (b, head) is one range, else
+//     into a workspace that gram_reduce_kernel sums over the ranges.
+//   - apply_fwd_kernel (row 4): a grid of one or two blocks an SM walks
+//     contiguous runs of 128-pixel tiles (apply_plan); attn[b, h], whose
+//     row-major layout is the column-major B operand of out = v attn^T, is
+//     staged once per (b, h) a block meets, already split into its tf32
+//     parts. Each warp owns 16 rows of a tile and all its columns (each v
+//     value is split once) and stores straight from its accumulators.
+//   - gram_bwd_kernel (row 6), one launch: runs of 64-pixel tiles as the
+//     apply's (gram_bwd_plan); each tile of q and of k is read once, and dq
+//     and dk are written from the accumulators with the 2 x dn terms added
+//     in fp32 from the staged tiles. Warps 0-3 own 16 rows of dq each,
+//     warps 4-7 16 rows of dk, so every q and k value is split once (as
+//     the A operand of the product it feeds). dq needs dG in one
+//     orientation and dk in the other; no pitch serves both fragment
+//     patterns without bank conflicts, so dG (and every tile of the
+//     backward kernels) is stored swizzled: element (r, c) at
+//     r * (16R + 8) + (c ^ (r & 4)), which both patterns read from 32
+//     banks. dG is staged once per (b, h), split into its tf32 parts up to
+//     ch = 112 (at 128 two split copies do not fit beside the ring).
+//   - apply_bwd_kernel (row 7), one pass: a block owns one of gram_plan's
+//     pixel ranges of a (b, head) and reads each 64-pixel tile of g and v
+//     once. dv = g attn leaves from the accumulators (four warps over the
+//     rows by two over the columns); the dattn = g^T v partial stays in
+//     registers over the whole range (the Gram's warp layout), is added
+//     over the warps in shared memory in a fixed order and written into
+//     dattn, or into a workspace that gram_reduce_kernel sums in order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,176 +74,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kGramTile = 32;  // pixels per shared-memory stage (pixel_gram)
-constexpr int kRowTile = 64;   // pixels per block (rowmix)
-constexpr int kMaxCh = 128;    // 16 * R with R <= 8
-
-struct Rows {  // a head's slice of an NHWC tensor: base[n*stride + off + h*ch]
-  const float* base;
-  long long stride;
-  int off;
-};
-
-// G_bh += X^T Y over this block's pixels (the apply backward's dattn).
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-pixel_gram_kernel(Rows X, Rows Y, float* __restrict__ gram, long long hw,
-                  int heads, int ch, long long pix_per_block) {
-  __shared__ float xs[kGramTile * kMaxCh];
-  __shared__ float ys[kGramTile * kMaxCh];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long begin = blockIdx.x * pix_per_block;
-  const long long end = begin + pix_per_block < hw ? begin + pix_per_block : hw;
-  const float* xb = X.base + (long long)b * hw * X.stride + X.off + h * ch;
-  const float* yb = Y.base + (long long)b * hw * Y.stride + Y.off + h * ch;
-
-  float acc[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
-
-  for (long long p0 = begin; p0 < end; p0 += kGramTile) {
-    __syncthreads();
-    for (int idx = tid; idx < kGramTile * ch; idx += kThreads) {
-      const int p = idx / ch, c = idx % ch;
-      const long long pix = p0 + p;
-      const bool in = pix < end;
-      xs[p * ch + c] = in ? xb[pix * X.stride + c] : 0.f;
-      ys[p * ch + c] = in ? yb[pix * Y.stride + c] : 0.f;
-    }
-    __syncthreads();
-    for (int p = 0; p < kGramTile; ++p) {
-      float a[R], bv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int c = ty + 16 * i;
-        a[i] = c < ch ? xs[p * ch + c] : 0.f;
-        const int d = tx + 16 * i;
-        bv[i] = d < ch ? ys[p * ch + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-  }
-
-  const long long bh = (long long)b * heads + h;
-  float* g = gram + bh * ch * ch;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int c = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int d = tx + 16 * j;
-      if (c < ch && d < ch) atomicAdd(g + c * ch + d, acc[i][j]);
-    }
-  }
-}
-
-// TRANS = false: out = in Mat^T (out[c] = sum_d in[d] Mat[c][d]);
-// TRANS = true:  out = in Mat   (out[c] = sum_d in[d] Mat[d][c]);
-// plus 2 self[c] vec[c] where self.base is not null.
-template <int R, bool TRANS>
-__global__ void __launch_bounds__(kThreads)
-rowmix_kernel(Rows in, const float* __restrict__ mat, Rows self,
-              const float* __restrict__ vec, float* __restrict__ out,
-              long long out_stride, int out_off, long long hw, int heads,
-              int ch) {
-  extern __shared__ float smem[];
-  float* mt = smem;                  // [ch][ch + 1]: mt[d][c] = Mat(c, d)
-  float* xs = smem + ch * (ch + 1);  // [kRowTile][ch]
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long p0 = (long long)blockIdx.x * kRowTile;
-  const long long bh = (long long)b * heads + h;
-  const float* m = mat + bh * ch * ch;
-
-  for (int idx = tid; idx < ch * ch; idx += kThreads) {
-    const int r = idx / ch, s = idx % ch;  // m[r][s]
-    if (TRANS)
-      mt[r * (ch + 1) + s] = m[idx];  // mt[d = r][c = s]
-    else
-      mt[s * (ch + 1) + r] = m[idx];  // mt[d = s][c = r]
-  }
-  for (int idx = tid; idx < kRowTile * ch; idx += kThreads) {
-    const int p = idx / ch, d = idx % ch;
-    const long long pix = p0 + p;
-    xs[idx] = pix < hw ? in.base[((long long)b * hw + pix) * in.stride +
-                                 in.off + h * ch + d]
-                       : 0.f;
-  }
-  __syncthreads();
-
-  constexpr int PI = kRowTile / 16;
-  float acc[PI][R];
-#pragma unroll
-  for (int i = 0; i < PI; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
-  for (int d = 0; d < ch; ++d) {
-    float v[PI], w[R];
-#pragma unroll
-    for (int i = 0; i < PI; ++i) v[i] = xs[(ty + 16 * i) * ch + d];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int c = tx + 16 * j;
-      w[j] = c < ch ? mt[d * (ch + 1) + c] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < PI; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(v[i], w[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < PI; ++i) {
-    const long long pix = p0 + ty + 16 * i;
-    if (pix >= hw) continue;
-    const long long row = (long long)b * hw + pix;
-    float* o = out + row * out_stride + out_off + h * ch;
-    const float* sp =
-        self.base ? self.base + row * self.stride + self.off + h * ch : nullptr;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int c = tx + 16 * j;
-      if (c >= ch) continue;
-      float r = acc[i][j];
-      if (sp) r = fmaf(2.0f * sp[c], vec[bh * ch + c], r);
-      o[c] = r;
-    }
-  }
-}
-
-// n_blocks blocks of `per` pixels per (b, h), as ops/gram.py dattn_plan
-// gives them
-template <int R>
-cudaError_t launch_pixel_gram(Rows X, Rows Y, float* gram, int B, long long hw, int heads,
-                              int ch, int n_blocks, long long per, cudaStream_t st) {
-  dim3 grid((unsigned)n_blocks, heads, B);
-  pixel_gram_kernel<R><<<grid, kThreads, 0, st>>>(X, Y, gram, hw, heads, ch,
-                                                  per);
-  return cudaGetLastError();
-}
-
-template <int R, bool TRANS>
-cudaError_t launch_rowmix(Rows in, const float* mat, Rows self,
-                          const float* vec, float* out, long long out_stride,
-                          int out_off, int B, long long hw, int heads, int ch,
-                          cudaStream_t st) {
-  const size_t smem = sizeof(float) * (ch * (ch + 1) + kRowTile * ch);
-  cudaError_t err = cudaFuncSetAttribute(
-      rowmix_kernel<R, TRANS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((hw + kRowTile - 1) / kRowTile), heads, B);
-  rowmix_kernel<R, TRANS><<<grid, kThreads, smem, st>>>(
-      in, mat, self, vec, out, out_stride, out_off, hw, heads, ch);
-  return cudaGetLastError();
-}
-
-constexpr Rows kNone{nullptr, 0, 0};
 
 // ------------------------------------------------- the forward kernels
 
@@ -274,8 +104,10 @@ __device__ __forceinline__ void cp_wait() {
 
 // Rows [p0, p0 + rows) of a head slice (row r at src + r * stride, ch
 // floats) into a tile of pitch ld; rows at or past `end` are zero-filled.
-// Thread t copies pieces t, t + kThreads, ... of the row-major tile.
-template <bool VEC>
+// Thread t copies pieces t, t + kThreads, ... of the row-major tile; with
+// SWZ, element (r, c) goes to r * ld + (c ^ (r & 4)) (swz below: a piece
+// of four floats stays whole).
+template <bool VEC, bool SWZ = false>
 __device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
                                            long long stride, long long p0,
                                            long long end, int rows, int ch) {
@@ -285,10 +117,11 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
   while (r < rows) {
     const bool in = p0 + r < end;
     const float* from = src + (in ? (p0 + r) * stride : 0) + c * w;
+    const int col = SWZ ? (c * w) ^ (r & 4) : c * w;
     if (VEC)
-      cp_async16(dst + r * ld + c * w, from, in);
+      cp_async16(dst + r * ld + col, from, in);
     else
-      cp_async4(dst + r * ld + c, from, in);
+      cp_async4(dst + r * ld + col, from, in);
     r += dr;
     c += dc;
     if (c >= per_row) {
@@ -513,18 +346,20 @@ gram_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ g_out,
 
 // out = sum over s of the workspace's partials in a fixed order (warp w
 // of W adds s = w, w + W, ...; then the W warps' sums in order), so the
-// result is the same bitwise on every call. Workspace (B*heads, splits,
-// ch*ch + 2ch) -> G | nq | nk; block (x, bh) sums 32 entries of (b, h),
-// with W = min(splits, kReduceWarps) warps.
+// result is the same bitwise on every call. Workspace (B*heads, splits, E)
+// -> G | nq | nk (the Gram, E = ch*ch + 2ch) or G alone (dattn, E = ch*ch,
+// nq and nk null); block (x, bh) sums 32 entries of (b, h), with
+// W = min(splits, kReduceWarps) warps.
 constexpr int kReduceWarps = 16;
 
 __global__ void __launch_bounds__(32 * kReduceWarps)
 gram_reduce_kernel(const float* __restrict__ ws, float* __restrict__ gram,
-                   float* __restrict__ nq, float* __restrict__ nk, int ch, int splits) {
+                   float* __restrict__ nq, float* __restrict__ nk, int ch, int E,
+                   int splits) {
   __shared__ float part[kReduceWarps][32];
   const int bh = blockIdx.y, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int W = blockDim.x >> 5;
-  const int n_g = ch * ch, E = n_g + 2 * ch;
+  const int n_g = ch * ch;
   const int e = blockIdx.x * 32 + lane;
   float v = 0.f;
   if (e < E) {
@@ -543,6 +378,17 @@ gram_reduce_kernel(const float* __restrict__ ws, float* __restrict__ gram,
     nq[(long long)bh * ch + e - n_g] = t;
   else
     nk[(long long)bh * ch + e - n_g - ch] = t;
+}
+
+// Sum a workspace of `splits` partials of E floats per (b, h) in order.
+cudaError_t launch_reduce(const float* ws, float* gram, float* nq, float* nk, int B, int heads,
+                          int ch, int E, int splits, cudaStream_t st) {
+  const cudaError_t err = cudaGetLastError();  // the launch that filled ws
+  if (err != cudaSuccess) return err;
+  const int warps = splits < kReduceWarps ? splits : kReduceWarps;
+  gram_reduce_kernel<<<dim3((unsigned)((E + 31) / 32), (unsigned)(B * heads)), 32 * warps, 0,
+                       st>>>(ws, gram, nq, nk, ch, E, splits);
+  return cudaGetLastError();
 }
 
 // The apply at head width ch <= 16R: each tile of kApplyTP pixels is out
@@ -691,6 +537,371 @@ apply_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
   }
 }
 
+// ------------------------------------------------ the backward kernels
+
+constexpr int kBwdTP = 64;  // pixels per backward tile: four warps of 16 rows
+
+// Both backward kernels at head width ch <= 16R. Every tile and matrix in
+// their shared memory has pitch LD and is swizzled (swz): the mma
+// fragments read rows gid and columns tig of one operand and rows tig and
+// columns gid of another, and this layout serves both from 32 banks. A
+// stage of the ring holds two tiles of kBwdTP rows; the ch x ch matrix
+// (dG or attn) is staged split into its tf32 parts (SPLIT) where both
+// copies fit beside the ring, else whole and split at each use.
+template <int R>
+struct BwdCfg {
+  static constexpr int CHP = 16 * R;
+  static constexpr int LD = CHP + 8;
+  static constexpr int NT = 2 * R;  // 8-wide column tiles, and 8-deep steps over a channel
+  static constexpr int STAGES = R <= 4 ? 3 : 2;
+  static constexpr bool SPLIT = R <= 7;
+  static constexpr int TILES = 2 * kBwdTP * LD;  // one stage
+  static constexpr int RING = STAGES * TILES;
+  static constexpr int MAT = CHP * LD;
+  static constexpr int MATS = (SPLIT ? 2 : 1) * MAT;
+  // gram_bwd_kernel: ring | dG | dnq, dnk
+  static constexpr int GRAM_FLOATS = RING + MATS + 2 * CHP;
+  // apply_bwd_kernel: ring (at the end the warp groups' dattn partials,
+  // ch rows of pitch CHP + 1 each) | attn
+  static constexpr int RED = GramCfg<R>::WK * CHP * (CHP + 1);
+  static constexpr int APPLY_FLOATS = (RING > RED ? RING : RED) + MATS;
+  static_assert(kBwdTP == 16 * (kThreads / 32) / 2, "four warps of 16 rows per tile");
+  static_assert(kBwdTP % (8 * GramCfg<R>::WK) == 0, "a tile feeds every warp group");
+};
+
+// Element (r, c) of a swizzled tile or matrix of pitch ld.
+__device__ __forceinline__ int swz(int r, int c, int ld) { return r * ld + (c ^ (r & 4)); }
+
+// Zero columns [ch, CHP) of `rows` swizzled rows: the copies never write
+// them, and the products run over all CHP.
+template <int R>
+__device__ __forceinline__ void zero_pad(float* tiles, int rows, int ch) {
+  constexpr int CHP = BwdCfg<R>::CHP, LD = BwdCfg<R>::LD;
+  const int pad = CHP - ch;
+  for (int i = threadIdx.x; i < rows * pad; i += kThreads) {
+    const int r = i / pad;
+    tiles[swz(r, ch + i - r * pad, LD)] = 0.f;
+  }
+}
+
+// A ch x ch matrix (row-major at m), zero-padded to CHP x CHP, into
+// shared memory swizzled: its tf32 high and low parts (SPLIT) or itself.
+template <int R>
+__device__ __forceinline__ void stage_matrix(float* mh, float* ml, const float* m, int ch) {
+  using Cfg = BwdCfg<R>;
+  for (int idx = threadIdx.x; idx < Cfg::CHP * Cfg::CHP; idx += kThreads) {
+    const int r = idx / Cfg::CHP, c = idx - r * Cfg::CHP;
+    const float x = r < ch && c < ch ? m[r * ch + c] : 0.f;
+    const int o = swz(r, c, Cfg::LD);
+    if (Cfg::SPLIT) {
+      uint32_t hi, lo;
+      split_tf32(x, hi, lo);
+      mh[o] = __uint_as_float(hi);
+      ml[o] = __uint_as_float(lo);
+    } else {
+      mh[o] = x;
+    }
+  }
+}
+
+// acc (16 rows from m0 of a tile, column tiles j0 .. j0 + NJ - 1) = A M'
+// over all CHP steps, A the swizzled tile `as` (rows are pixels), M the
+// staged matrix: M' = M^T (out[n, c] = sum_d a[n, d] M(c, d)) or, with
+// TRANS, M' = M (out[n, d] = sum_c a[n, c] M(c, d)). Lane (gid, tig)
+// reads A at rows m0 + gid (+ 8), whose swizzle bit is gid & 4.
+template <int R, int NJ, bool TRANS>
+__device__ __forceinline__ void tile_product(float (&acc)[1][NJ][4], const float* as, int m0,
+                                             int j0, const float* mh, const float* ml,
+                                             int gid, int tig) {
+  using Cfg = BwdCfg<R>;
+  constexpr int LD = Cfg::LD;
+  const bool use_m[1] = {true};
+  bool use_n[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    use_n[j] = true;  // no branch in the hot loop: padding adds zeros
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[0][j][r] = 0.f;
+  }
+  // columns k0 + tig and k0 + tig + 4 of a row with swizzle bit s
+  const int s = gid & 4, x0 = tig + s, x1 = tig + 4 - s;
+  const float* a0 = as + (m0 + gid) * LD;
+#pragma unroll
+  for (int k0 = 0; k0 < Cfg::CHP; k0 += 8) {
+    const float x[4] = {a0[k0 + x0], a0[8 * LD + k0 + x0], a0[k0 + x1], a0[8 * LD + k0 + x1]};
+    uint32_t ah[1][4], al[1][4], bh[NJ][2], bl[NJ][2];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_tf32(x[r], ah[0][r], al[0][r]);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int n = (j0 + jj) * 8 + gid;
+      // B(k, n) for k = k0 + tig and k0 + tig + 4
+      const int o0 = TRANS ? (k0 + tig) * LD + n : n * LD + k0 + x0;
+      const int o1 = TRANS ? (k0 + tig + 4) * LD + (n ^ 4) : n * LD + k0 + x1;
+      if (Cfg::SPLIT) {
+        bh[jj][0] = __float_as_uint(mh[o0]);
+        bh[jj][1] = __float_as_uint(mh[o1]);
+        bl[jj][0] = __float_as_uint(ml[o0]);
+        bl[jj][1] = __float_as_uint(ml[o1]);
+      } else {
+        split_tf32(mh[o0], bh[jj][0], bl[jj][0]);
+        split_tf32(mh[o1], bh[jj][1], bl[jj][1]);
+      }
+    }
+    mma_3xtf32(acc, ah, al, bh, bl, use_m, use_n);
+  }
+}
+
+// Rows r0 and r0 + 8 (each stored only below `end`) of a warp's 16 x 8NJ
+// result into out (row r at out + r * stride), columns below ch.
+template <int NJ, bool VEC>
+__device__ __forceinline__ void store_rows(float* out, long long stride, long long r0,
+                                           long long end, int j0, int tig, int ch,
+                                           const float (&v)[NJ][4]) {
+  const long long r1 = r0 + 8;
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj) {
+    const int c = (j0 + jj) * 8 + 2 * tig;
+    if (c >= ch) continue;
+    if (VEC) {  // ch is even: c + 1 < ch
+      if (r0 < end) *reinterpret_cast<float2*>(out + r0 * stride + c) = make_float2(v[jj][0], v[jj][1]);
+      if (r1 < end) *reinterpret_cast<float2*>(out + r1 * stride + c) = make_float2(v[jj][2], v[jj][3]);
+    } else {
+      const bool c1 = c + 1 < ch;
+      if (r0 < end) {
+        out[r0 * stride + c] = v[jj][0];
+        if (c1) out[r0 * stride + c + 1] = v[jj][1];
+      }
+      if (r1 < end) {
+        out[r1 * stride + c] = v[jj][2];
+        if (c1) out[r1 * stride + c + 1] = v[jj][3];
+      }
+    }
+  }
+}
+
+// Row 6. Tiles t = bh * tiles_per_bh + i (pixels [i TP, (i + 1) TP) of
+// (b, h)); block k walks tiles [k * per_block, (k + 1) * per_block),
+// restaging dG, dnq and dnk only where bh changes, with the q and k tiles
+// streaming through the ring. Warp w < 4 writes dq at rows 16 w of each
+// tile, warp w >= 4 dk at rows 16 (w - 4).
+template <int R, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+gram_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dgram,
+                const float* __restrict__ dnq, const float* __restrict__ dnk,
+                float* __restrict__ dqdk, long long hw, int heads, int ch,
+                long long tiles_per_bh, long long n_tiles_all, long long per_block) {
+  using Cfg = BwdCfg<R>;
+  constexpr int LD = Cfg::LD, TP = kBwdTP, CHP = Cfg::CHP, NT = Cfg::NT;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* mh = ring + Cfg::RING;  // dG(c, d) at swz(c, d): its high part, or itself
+  float* ml = mh + Cfg::MAT;     // its low part (SPLIT)
+  float* dn = mh + Cfg::MATS;    // dnq | dnk, CHP each, zero past ch
+  const long long t0 = blockIdx.x * per_block;
+  const long long t1 = t0 + per_block < n_tiles_all ? t0 + per_block : n_tiles_all;
+  if (t0 >= t1) return;
+  const int n = (int)(t1 - t0);
+  const long long C = (long long)heads * ch, stride = 3 * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool is_dq = warp < 4;
+  const int m0 = (warp & 3) * 16;
+
+  zero_pad<R>(ring, STAGES * 2 * TP, ch);
+  auto load = [&](int i) {
+    const long long t = t0 + i, bh = t / tiles_per_bh, b = bh / heads;
+    const float* q_rows = qkv + b * hw * stride + (bh - b * heads) * ch;
+    const long long p0 = (t - bh * tiles_per_bh) * TP;
+    float* dst = ring + (i % STAGES) * Cfg::TILES;
+    stage_rows<VEC, true>(dst, LD, q_rows, stride, p0, hw, TP, ch);
+    stage_rows<VEC, true>(dst + TP * LD, LD, q_rows + C, stride, p0, hw, TP, ch);
+  };
+  auto stage = [&](long long bh) {
+    stage_matrix<R>(mh, ml, dgram + bh * ch * ch, ch);
+    for (int c = tid; c < 2 * CHP; c += kThreads) {
+      const int which = c / CHP, cc = c - which * CHP;
+      dn[c] = cc < ch ? (which ? dnk : dnq)[bh * ch + cc] : 0.f;
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n) load(i);
+    cp_commit();
+  }
+  long long staged = t0 / tiles_per_bh;  // the (b, h) whose dG is in shared memory
+  stage(staged);
+  for (int i = 0; i < n; ++i) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    if (i + STAGES - 1 < n) load(i + STAGES - 1);
+    cp_commit();
+    const long long t = t0 + i, bh = t / tiles_per_bh;
+    if (bh != staged) {  // a run that crosses into the next (b, h)
+      stage(bh);
+      staged = bh;
+      __syncthreads();
+    }
+    const float* qs = ring + (i % STAGES) * Cfg::TILES;
+    const float* ks = qs + TP * LD;
+    // dq = k dG^T + 2 q dnq; dk = q dG + 2 k dnk
+    const float* self = is_dq ? qs : ks;
+    const float* dnv = dn + (is_dq ? 0 : CHP);
+    float acc[1][NT][4];
+    if (is_dq)
+      tile_product<R, NT, false>(acc, ks, m0, 0, mh, ml, gid, tig);
+    else
+      tile_product<R, NT, true>(acc, qs, m0, 0, mh, ml, gid, tig);
+    const int rl = m0 + gid, s = gid & 4;  // rows rl, rl + 8: swizzle bit s
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = j * 8 + 2 * tig, sc = c ^ s;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = self[(rl + (e >> 1) * 8) * LD + sc + (e & 1)];
+        acc[0][j][e] = fmaf(2.0f * x, dnv[c + (e & 1)], acc[0][j][e]);
+      }
+    }
+    const long long b = bh / heads;
+    float* out = dqdk + b * hw * 2 * C + (is_dq ? 0 : C) + (bh - b * heads) * ch;
+    store_rows<NT, VEC>(out, 2 * C, (t - bh * tiles_per_bh) * TP + rl, hw, 0, tig, ch, acc[0]);
+  }
+}
+
+// Row 7. Block (s, bh) owns pixels [s * per, (s + 1) * per) of (b, h)
+// and reads each 64-pixel tile of g and v once: warp w writes dv = g attn
+// at rows 16 (w % 4) of the tile and column tiles [R (w / 4), R (w / 4 + 1));
+// the warps' dattn = g^T v partials stay in registers (GramCfg's layout,
+// the pixel steps split over WK warp groups) and are written with plain
+// stores to out + (bh * splits + s) * ch * ch: dattn itself when
+// splits == 1, else the workspace that gram_reduce_kernel sums.
+template <int R, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
+                 const float* __restrict__ g, float* __restrict__ dv,
+                 float* __restrict__ dattn_out, long long hw, int heads, int ch, int splits,
+                 long long per) {
+  using Cfg = BwdCfg<R>;
+  using G = GramCfg<R>;
+  constexpr int LD = Cfg::LD, TP = kBwdTP, CHP = Cfg::CHP, STAGES = Cfg::STAGES;
+  constexpr int MW = G::MW, NW = G::NW, KS = TP / (8 * G::WK);
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* mh = ring + (Cfg::RING > Cfg::RED ? Cfg::RING : Cfg::RED);  // attn(c, d) at swz(c, d)
+  float* ml = mh + Cfg::MAT;
+  const int s = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / heads, h = bh - b * heads;
+  const long long C = (long long)heads * ch;
+  const long long begin = s * per;
+  const long long end = begin + per < hw ? begin + per : hw;
+  const float* g_rows = g + (long long)b * hw * C + (long long)h * ch;
+  const float* v_rows = qkv + (long long)b * hw * 3 * C + 2 * C + (long long)h * ch;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = (warp & 3) * 16, j0 = (warp >> 2) * R;  // this warp's dv rows and columns
+  const int wk = warp % G::WK, wt = warp / G::WK;         // and its dattn tiles
+  const int wm = wt / G::WTN, wn = wt % G::WTN;
+  bool use_m[MW], use_n[NW];
+#pragma unroll
+  for (int i = 0; i < MW; ++i) use_m[i] = G::MT % G::WTM == 0 || wm * MW + i < G::MT;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) use_n[j] = G::NT % G::WTN == 0 || wn * NW + j < G::NT;
+
+  zero_pad<R>(ring, STAGES * 2 * TP, ch);
+  const int n_tiles = (int)((end - begin + TP - 1) / TP);
+  auto load = [&](int t) {
+    float* dst = ring + (t % STAGES) * Cfg::TILES;
+    const long long p0 = begin + (long long)t * TP;
+    stage_rows<VEC, true>(dst, LD, g_rows, C, p0, end, TP, ch);
+    stage_rows<VEC, true>(dst + TP * LD, LD, v_rows, 3 * C, p0, end, TP, ch);
+  };
+  float part[MW][NW][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_tiles) load(t);
+    cp_commit();
+  }
+  stage_matrix<R>(mh, ml, attn + (long long)bh * ch * ch, ch);
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // tile t has landed (and attn, at t = 0); tile t - 1 is done with
+    if (t + STAGES - 1 < n_tiles) load(t + STAGES - 1);
+    cp_commit();
+    const float* gs = ring + (t % STAGES) * Cfg::TILES;
+    const float* vs = gs + TP * LD;
+    {  // dv = g attn: rows m0 .. m0 + 15, column tiles j0 ..
+      float acc[1][R][4];
+      tile_product<R, R, true>(acc, gs, m0, j0, mh, ml, gid, tig);
+      float* out = dv + (long long)b * hw * C + (long long)h * ch;
+      store_rows<R, VEC>(out, C, begin + (long long)t * TP + m0 + gid, end, j0, tig, ch, acc[0]);
+    }
+    // dattn += g^T v over this warp group's pixel steps: A(c, p) = g(p, c),
+    // B(p, d) = v(p, d); lane rows p = step + tig (swizzle bit 0) and p + 4 (bit 1)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int p = (wk * KS + kk) * 8 + tig;
+      const float* g0 = gs + p * LD;
+      const float* g4 = g0 + 4 * LD;
+      uint32_t ah[MW][4], al[MW][4], bh_[NW][2], bl[NW][2];
+#pragma unroll
+      for (int i = 0; i < MW; ++i) {
+        const int c = (wm * MW + i) * 16 + gid;
+        if (!use_m[i]) continue;
+        const float x[4] = {g0[c], g0[c + 8], g4[c ^ 4], g4[(c + 8) ^ 4]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) split_tf32(x[r], ah[i][r], al[i][r]);
+      }
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int d = (wn * NW + j) * 8 + gid;
+        if (!use_n[j]) continue;
+        const float y[2] = {vs[p * LD + d], vs[(p + 4) * LD + (d ^ 4)]};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) split_tf32(y[r], bh_[j][r], bl[j][r]);
+      }
+      mma_3xtf32(part, ah, al, bh_, bl, use_m, use_n);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warp groups' partials now
+
+  constexpr int RP = CHP + 1, E = CHP * RP;
+  float* red = smem + wk * E;
+#pragma unroll
+  for (int i = 0; i < MW; ++i) {
+    if (!use_m[i]) continue;
+    const int c = (wm * MW + i) * 16 + gid;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (!use_n[j]) continue;
+      const int d = (wn * NW + j) * 8 + 2 * tig;
+      red[c * RP + d] = part[i][j][0];
+      red[c * RP + d + 1] = part[i][j][1];
+      red[(c + 8) * RP + d] = part[i][j][2];
+      red[(c + 8) * RP + d + 1] = part[i][j][3];
+    }
+  }
+  __syncthreads();
+  // the WK partials in a fixed order, written once: warp w rows w, w + 8, ...
+  float* out = dattn_out + ((long long)bh * splits + s) * ch * ch;
+  for (int c = warp; c < ch; c += kThreads / 32)
+    for (int d = lane; d < ch; d += 32) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < G::WK; ++w) v += smem[w * E + c * RP + d];
+      out[c * ch + d] = v;
+    }
+}
+
 // Raise the dynamic shared-memory limit of a kernel's two variants to
 // `floats`, once per device (the attribute is the device's): `done` is the
 // caller's function-local flags. A failure is returned and tried again on
@@ -735,13 +946,7 @@ cudaError_t gram_fwd(const float* qkv, float* gram, float* nq, float* nk, float*
   const auto kernel = vec ? gram_fwd_kernel<R, true> : gram_fwd_kernel<R, false>;
   kernel<<<grid, kThreads, smem, st>>>(qkv, g_out, nq_out, nk_out, g_stride, n_stride, hw,
                                        heads, ch, splits, per);
-  if (splits > 1) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const int warps = splits < kReduceWarps ? splits : kReduceWarps;
-    gram_reduce_kernel<<<dim3((unsigned)((E + 31) / 32), (unsigned)(B * heads)), 32 * warps,
-                         0, st>>>(ws, gram, nq, nk, ch, splits);
-  }
+  if (splits > 1) return launch_reduce(ws, gram, nq, nk, B, heads, ch, (int)E, splits, st);
   return cudaGetLastError();
 }
 
@@ -763,36 +968,44 @@ cudaError_t apply_fwd(const float* qkv, const float* attn, float* out, int B, lo
   return cudaGetLastError();
 }
 
+// `blocks` blocks of `per_block` 64-pixel tiles (ops/gram.py gram_bwd_plan)
 template <int R>
-cudaError_t gram_bwd(const float* qkv, const float* dgram, const float* dnq,
-                     const float* dnk, float* dqdk, int B, long long hw,
-                     int heads, int ch, cudaStream_t st) {
-  const int C = heads * ch;
-  const Rows q{qkv, 3LL * C, 0}, k{qkv, 3LL * C, C};
-  // dq = k dG^T + 2 q dnq -> channels [0, C) of d[q|k]
-  cudaError_t err = launch_rowmix<R, false>(k, dgram, q, dnq, dqdk, 2LL * C, 0,
-                                            B, hw, heads, ch, st);
-  if (err != cudaSuccess) return err;
-  // dk = q dG + 2 k dnk -> channels [C, 2C)
-  return launch_rowmix<R, true>(q, dgram, k, dnk, dqdk, 2LL * C, C, B, hw,
-                                heads, ch, st);
+cudaError_t gram_bwd(const float* qkv, const float* dgram, const float* dnq, const float* dnk,
+                     float* dqdk, int B, long long hw, int heads, int ch, int blocks,
+                     long long per_block, cudaStream_t st) {
+  using Cfg = BwdCfg<R>;
+  static bool done[kMaxDevices];
+  const cudaError_t attr = allow_smem(done, gram_bwd_kernel<R, true>, gram_bwd_kernel<R, false>,
+                                      Cfg::GRAM_FLOATS);
+  if (attr != cudaSuccess) return attr;
+  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(dqdk);
+  const long long tiles_per_bh = (hw + kBwdTP - 1) / kBwdTP;
+  const long long n_tiles = tiles_per_bh * B * heads;
+  const auto kernel = vec ? gram_bwd_kernel<R, true> : gram_bwd_kernel<R, false>;
+  kernel<<<(unsigned)blocks, kThreads, sizeof(float) * Cfg::GRAM_FLOATS, st>>>(
+      qkv, dgram, dnq, dnk, dqdk, hw, heads, ch, tiles_per_bh, n_tiles, per_block);
+  return cudaGetLastError();
 }
 
+// `splits` ranges of `per` pixels per (b, h) (ops/gram.py gram_plan); with
+// splits > 1 the dattn partials go to ws and a second launch sums them
 template <int R>
-cudaError_t apply_bwd(const float* qkv, const float* attn, const float* g,
-                      float* dv, float* dattn, int B, long long hw, int heads,
-                      int ch, int n_blocks, long long per, cudaStream_t st) {
-  const int C = heads * ch;
-  const Rows gr{g, C, 0};
-  // dv = g attn
-  cudaError_t err = launch_rowmix<R, true>(gr, attn, kNone, nullptr, dv, C, 0,
-                                           B, hw, heads, ch, st);
-  if (err != cudaSuccess) return err;
-  // dattn = sum over pixels of g^T v
-  err = cudaMemsetAsync(dattn, 0, sizeof(float) * B * heads * ch * ch, st);
-  if (err != cudaSuccess) return err;
-  return launch_pixel_gram<R>(gr, Rows{qkv, 3LL * C, 2 * C}, dattn, B, hw, heads,
-                              ch, n_blocks, per, st);
+cudaError_t apply_bwd(const float* qkv, const float* attn, const float* g, float* dv,
+                      float* dattn, float* ws, int B, long long hw, int heads, int ch,
+                      int splits, long long per, cudaStream_t st) {
+  using Cfg = BwdCfg<R>;
+  static bool done[kMaxDevices];
+  const cudaError_t attr = allow_smem(done, apply_bwd_kernel<R, true>,
+                                      apply_bwd_kernel<R, false>, Cfg::APPLY_FLOATS);
+  if (attr != cudaSuccess) return attr;
+  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(g) && aligned16(dv);
+  const auto kernel = vec ? apply_bwd_kernel<R, true> : apply_bwd_kernel<R, false>;
+  kernel<<<dim3((unsigned)splits, (unsigned)(B * heads)), kThreads,
+           sizeof(float) * Cfg::APPLY_FLOATS, st>>>(qkv, attn, g, dv, splits > 1 ? ws : dattn,
+                                                    hw, heads, ch, splits, per);
+  if (splits > 1)
+    return launch_reduce(ws, dattn, nullptr, nullptr, B, heads, ch, ch * ch, splits, st);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -838,25 +1051,29 @@ int rcot_attn_apply(const float* qkv, const float* attn, float* out, int B,
 }
 
 // qkv (B, hw, 3*heads*ch), dgram (B,heads,ch,ch), dnq, dnk (B,heads,ch)
-// -> dqdk (B, hw, 2*heads*ch) = [dq | dk].
+// -> dqdk (B, hw, 2*heads*ch) = [dq | dk], in one launch of `blocks`
+// blocks of `per_block` 64-pixel tiles (ops/gram.py gram_bwd_plan).
 int rcot_mdta_gram_bwd(const float* qkv, const float* dgram, const float* dnq,
-                       const float* dnk, float* dqdk, int B, long long hw,
-                       int heads, int ch, void* stream) {
+                       const float* dnk, float* dqdk, int B, long long hw, int heads, int ch,
+                       int blocks, long long per_block, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define RCOT_CALL(R) gram_bwd<R>(qkv, dgram, dnq, dnk, dqdk, B, hw, heads, ch, st)
+#define RCOT_CALL(R) \
+  gram_bwd<R>(qkv, dgram, dnq, dnk, dqdk, B, hw, heads, ch, blocks, per_block, st)
   RCOT_BY_WIDTH(ch, RCOT_CALL)
 #undef RCOT_CALL
 }
 
 // qkv (B, hw, 3*heads*ch), attn (B,heads,ch,ch), g (B, hw, heads*ch)
-// -> dv (B, hw, heads*ch), dattn (B,heads,ch,ch); dattn is zeroed here and
-// summed by n_blocks blocks of `per` pixels per (b, head) (ops/gram.py
-// dattn_plan).
-int rcot_attn_apply_bwd(const float* qkv, const float* attn, const float* g,
-                        float* dv, float* dattn, int B, long long hw,
-                        int heads, int ch, int n_blocks, long long per, void* stream) {
+// -> dv (B, hw, heads*ch), dattn (B,heads,ch,ch). The pixels of each
+// (b, head) are split into `splits` ranges of `per` (ops/gram.py
+// gram_plan); with splits > 1 the partials go to ws (B*heads*splits*ch*ch
+// floats) and a second launch sums them.
+int rcot_attn_apply_bwd(const float* qkv, const float* attn, const float* g, float* dv,
+                        float* dattn, float* ws, int B, long long hw, int heads, int ch,
+                        int splits, long long per, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define RCOT_CALL(R) apply_bwd<R>(qkv, attn, g, dv, dattn, B, hw, heads, ch, n_blocks, per, st)
+#define RCOT_CALL(R) \
+  apply_bwd<R>(qkv, attn, g, dv, dattn, ws, B, hw, heads, ch, splits, per, st)
   RCOT_BY_WIDTH(ch, RCOT_CALL)
 #undef RCOT_CALL
 }

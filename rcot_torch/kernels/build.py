@@ -51,9 +51,10 @@ SIGNATURES = {
     "rcot_block_head_bwd": [_P] * 16 + [_I] * 5 + [_P],
     # inputs 9, outputs 8, workspace 9; B, H, W, C, hid; stream
     "rcot_block_tail_bwd": [_P] * 26 + [_I] * 5 + [_P],
-    "rcot_mdta_gram_bwd": [_P] * 5 + [_I, _L, _I, _I, _P],
-    # qkv, attn, g, dv, dattn; B, hw, heads, ch, blocks and pixels per (b, head); stream
-    "rcot_attn_apply_bwd": [_P] * 5 + [_I, _L, _I, _I, _I, _L, _P],
+    # qkv, dG, dnq, dnk, d[q|k]; B, hw, heads, ch, blocks, tiles per block; stream
+    "rcot_mdta_gram_bwd": [_P] * 5 + [_I, _L, _I, _I, _I, _L, _P],
+    # qkv, attn, g, dv, dattn, workspace; B, hw, heads, ch, splits, pixels per split; stream
+    "rcot_attn_apply_bwd": [_P] * 6 + [_I, _L, _I, _I, _I, _L, _P],
     # inputs 3 (+ w_out), output 1; B, H, W, C, M or hid; stream
     "rcot_conv1x1_dw": [_P] * 4 + [_I] * 5 + [_P],
     "rcot_gdfn_fused": [_P] * 5 + [_I] * 5 + [_P],

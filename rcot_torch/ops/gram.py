@@ -98,16 +98,20 @@ def _check_head_width(ch: int) -> None:
 # kernel's kApplyTP). On the card (PERF.md, PR 5) the Gram ran faster with
 # one block an SM than with two at every width; the apply with two where
 # two fit, and with one where they would run in two waves.
+# The Gram backward: the same grid over runs of GRAM_BWD_TILE-pixel tiles
+# (the kernel's kBwdTP), two blocks an SM up to GRAM_BWD_TWO_MAX_CH, one
+# above. Its own limit: at ch = 48 a block takes 107,904 bytes of shared
+# memory and 118 registers a thread (ptxas), so two fit an SM (228 KB,
+# 64K registers); at ch = 64 it takes 147,968 bytes and only one fits.
+# The apply backward sums dattn over the Gram forward's pixel ranges
+# (gram_plan), so the cap and its error bound hold for both.
 GRAM_BLOCKS_PER_SM = 1
 GRAM_PIXEL_STEP = 64
 GRAM_MAX_PIXELS = 512
 APPLY_TWO_MAX_CH = 48
 APPLY_TILE = 128
-# The apply backward's dattn = sum over pixels of g^T v: about
-# DATTN_BLOCKS_PER_SM blocks an SM over all (b, head), each at least one
-# DATTN_STAGE-pixel stage (the kernel's kGramTile).
-DATTN_BLOCKS_PER_SM = 4
-DATTN_STAGE = 32
+GRAM_BWD_TILE = 64
+GRAM_BWD_TWO_MAX_CH = 48
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -127,27 +131,28 @@ def gram_plan(b: int, hw: int, heads: int, n_sm: int) -> Tuple[int, int]:
     return _cdiv(hw, per), per
 
 
-def apply_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int, int]:
-    """-> (blocks, tiles per block) of the apply forward: tile t of the
-    b * heads * ceil(hw / APPLY_TILE) covers pixels [i * APPLY_TILE, ...)
-    of (b, head) t // ceil(hw / APPLY_TILE), i = t % that, and block k
-    takes tiles [k * per, min((k + 1) * per, tiles)). At most
-    two blocks an SM (one where ch > APPLY_TWO_MAX_CH), none of them
-    empty."""
-    tiles = b * heads * _cdiv(hw, APPLY_TILE)
-    per_sm = 2 if ch <= APPLY_TWO_MAX_CH else 1
+def _runs(tiles: int, per_sm: int, n_sm: int) -> Tuple[int, int]:
+    """-> (blocks, tiles per block): block k takes tiles
+    [k * per, min((k + 1) * per, tiles)), at most per_sm * n_sm blocks and
+    none of them empty."""
     per = _cdiv(tiles, min(tiles, per_sm * n_sm))
     return _cdiv(tiles, per), per
 
 
-def dattn_plan(b: int, hw: int, heads: int, n_sm: int) -> Tuple[int, int]:
-    """-> (blocks per (b, head), pixels per block) of the apply backward's
-    dattn sum: block s of each (b, head) covers pixels
-    [s * per, min((s + 1) * per, hw)), a multiple of DATTN_STAGE pixels."""
-    stages = _cdiv(hw, DATTN_STAGE)
-    want = min(max(1, _cdiv(DATTN_BLOCKS_PER_SM * n_sm, b * heads)), stages)
-    per = _cdiv(stages, want) * DATTN_STAGE
-    return _cdiv(hw, per), per
+def apply_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int, int]:
+    """-> (blocks, tiles per block) of the apply forward: tile t of the
+    b * heads * ceil(hw / APPLY_TILE) covers pixels [i * APPLY_TILE, ...)
+    of (b, head) t // ceil(hw / APPLY_TILE), i = t % that. At most two
+    blocks an SM (one where ch > APPLY_TWO_MAX_CH)."""
+    return _runs(b * heads * _cdiv(hw, APPLY_TILE), 2 if ch <= APPLY_TWO_MAX_CH else 1, n_sm)
+
+
+def gram_bwd_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int, int]:
+    """-> (blocks, tiles per block) of the Gram backward, as apply_plan's
+    over tiles of GRAM_BWD_TILE pixels, at most two blocks an SM (one where
+    ch > GRAM_BWD_TWO_MAX_CH)."""
+    return _runs(b * heads * _cdiv(hw, GRAM_BWD_TILE),
+                 2 if ch <= GRAM_BWD_TWO_MAX_CH else 1, n_sm)
 
 
 def gram_workspace_numel(splits: int, b: int, heads: int, ch: int) -> int:
@@ -155,6 +160,13 @@ def gram_workspace_numel(splits: int, b: int, heads: int, ch: int) -> int:
     (b, head): one partial G | nq | nk per range, none when each (b, head)
     is one range."""
     return 0 if splits == 1 else splits * b * heads * (ch * ch + 2 * ch)
+
+
+def apply_bwd_workspace_numel(splits: int, b: int, heads: int, ch: int) -> int:
+    """Floats of workspace the apply backward needs for `splits` ranges per
+    (b, head): one partial dattn per range, none when each (b, head) is one
+    range."""
+    return 0 if splits == 1 else splits * b * heads * ch * ch
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,11 +236,12 @@ def mdta_gram_bwd(qkv: torch.Tensor, dgram: torch.Tensor, dnq: torch.Tensor,
     build.check_arg("dnq", dnq, (b, num_heads, ch), dev)
     build.check_arg("dnk", dnk, (b, num_heads, ch), dev)
     _check_head_width(ch)
+    blocks, per = gram_bwd_plan(b, h * w, num_heads, ch, sm_count(dev.index))
     dqdk = torch.empty(b, h, w, 2 * num_heads * ch, device=dev)
     with torch.cuda.device(dev):
         build.call("rcot_mdta_gram_bwd", qkv.data_ptr(), dgram.data_ptr(),
                    dnq.data_ptr(), dnk.data_ptr(), dqdk.data_ptr(), b, h * w,
-                   num_heads, ch, build.stream())
+                   num_heads, ch, blocks, per, build.stream())
     build.LAUNCHES["mdta_gram_bwd"] += 1
     return dqdk
 
@@ -236,7 +249,9 @@ def mdta_gram_bwd(qkv: torch.Tensor, dgram: torch.Tensor, dnq: torch.Tensor,
 def attn_apply_bwd(qkv: torch.Tensor, attn: torch.Tensor, g: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of attn_apply_fwd for the cotangent g (B,H,W,C) ->
-    (dv (B,H,W,C), dattn (B,heads,ch,ch))."""
+    (dv (B,H,W,C), dattn (B,heads,ch,ch)). On the card dattn's pixel sums
+    run in a fixed order, so two calls on the same input give the same
+    bits."""
     if not qkv.is_cuda:
         return attn_apply_bwd_plain(qkv, attn, g)
     b, h, w, _ = qkv.shape
@@ -246,13 +261,15 @@ def attn_apply_bwd(qkv: torch.Tensor, attn: torch.Tensor, g: torch.Tensor
     build.check_arg("attn", attn, (b, heads, ch, ch), dev)
     build.check_arg("g", g, (b, h, w, heads * ch), dev)
     _check_head_width(ch)
-    blocks, per = dattn_plan(b, h * w, heads, sm_count(dev.index))
+    splits, per = gram_plan(b, h * w, heads, sm_count(dev.index))
+    n_ws = apply_bwd_workspace_numel(splits, b, heads, ch)
     dv = torch.empty(b, h, w, heads * ch, device=dev)
     dattn = torch.empty(b, heads, ch, ch, device=dev)
+    ws = torch.empty(n_ws, device=dev) if n_ws else None
     with torch.cuda.device(dev):
         build.call("rcot_attn_apply_bwd", qkv.data_ptr(), attn.data_ptr(),
-                   g.data_ptr(), dv.data_ptr(), dattn.data_ptr(), b, h * w,
-                   heads, ch, blocks, per, build.stream())
+                   g.data_ptr(), dv.data_ptr(), dattn.data_ptr(), build.ptr(ws), b,
+                   h * w, heads, ch, splits, per, build.stream())
     build.LAUNCHES["attn_apply_bwd"] += 1
     return dv, dattn
 

@@ -12,7 +12,8 @@ every pixel with cancelling terms, is held against its plain twin run in
 float64: in fp32 on the card the twin's own rounding comes near the
 tolerance. Its kernel sums in a fixed order, so two calls agree bitwise. The
 backward kernels, whose weight grads are such sums too, are held against
-their plain twins run in float64, every output at the same 1e-5.
+their plain twins run in float64, every output at the same 1e-5; the MDTA
+backward kernels sum in a fixed order too, and two calls agree bitwise.
 
 The autograd case holds a small T_net on the card against the same model
 on the CPU: every parameter's gradient agrees within 1e-4 of that
@@ -214,25 +215,40 @@ def test_block_bwd_kernels_match_float64_plain(cuda_device, shape, ln_bias):
                          "dw_out"])
 
 
+# (heads, ch, (H, W)) at B = 2: 16-byte copies and 4-byte ones (ch = 5,
+# 20 is no multiple of 16), hw that is no multiple of the 64-pixel tile,
+# one pixel range per (b, head) and many (the workspace and its reduce),
+# ch = 96 (R = 6: two ring stages, dG pre-split, one block an SM) and 128
+# (dG split at each use), the widest head the wrappers take
 @pytest.mark.cuda
 @pytest.mark.parametrize("heads,ch,hw", [(1, 48, (64, 64)), (4, 96, (16, 16)),
                                          (4, 24, (33, 7)), (2, 5, (3, 3)),
-                                         (1, 128, (8, 9))])
+                                         (1, 128, (8, 9)), (1, 5, (41, 43)),
+                                         (3, 20, (37, 29)), (2, 24, (100, 100)),
+                                         (1, 96, (64, 64)), (1, 128, (33, 31))])
 def test_gram_bwd_kernels_match_float64_plain(cuda_device, heads, ch, hw):
+    """Both kernels against their plain twins in float64, and two calls on
+    one input bitwise equal (their pixel sums run in a fixed order)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
     qkv = r(2, *hw, 3 * heads * ch)
     cot = [r(2, heads, ch, ch), r(2, heads, ch), r(2, heads, ch)]
+    n0 = build.LAUNCHES["mdta_gram_bwd"]
     got = tgram.mdta_gram_bwd(qkv, *cot, heads)
+    again = tgram.mdta_gram_bwd(qkv, *cot, heads)
     torch.cuda.synchronize()
+    assert build.LAUNCHES["mdta_gram_bwd"] == n0 + 2
     want = tgram.mdta_gram_bwd_plain(*_double([qkv] + cot), heads)
     assert _rel_err(got.double(), want) < RTOL
+    assert torch.equal(got, again)
     attn = torch.softmax(r(2, heads, ch, ch), -1)
     g = r(2, *hw, heads * ch)
     got = tgram.attn_apply_bwd(qkv, attn, g)
+    again = tgram.attn_apply_bwd(qkv, attn, g)
     torch.cuda.synchronize()
     _assert_grads_match(got, tgram.attn_apply_bwd_plain(*_double([qkv, attn, g])),
                         ["dv", "dattn"])
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 FUSED_SHAPES = pytest.mark.parametrize("shape", [(1, 20, 19, 6), (2, 32, 32, 48),

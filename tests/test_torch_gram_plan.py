@@ -1,14 +1,15 @@
 """The launch plans of csrc/gram.cu (rcot_torch/ops/gram.py), on the CPU.
 
 Each plan cuts a kernel's work into contiguous pieces by the card's SM
-count, and the kernel takes the pieces as they are: the Gram forward's
-pixel ranges of each (b, head) (gram_plan), the apply forward's runs of
-tiles (apply_plan) and the apply backward's dattn pixel ranges
-(dattn_plan). These tests hold each at every block shape of chip_smoke.py
-and at odd ones, for several SM counts: the pieces cover the work exactly
-once with none empty, in whole kernel stages, and the blocks stay within
-the waves each design states. The Gram's workspace is one partial
-G | nq | nk per range when a (b, head) is split, and none otherwise.
+count, and the kernel takes the pieces as they are: the pixel ranges of
+each (b, head) of the Gram forward and of the apply backward's dattn sum
+(gram_plan), and the runs of tiles of the apply forward (apply_plan) and
+of the Gram backward (gram_bwd_plan). These tests hold each at every
+block shape of chip_smoke.py and at odd ones, for several SM counts: the
+pieces cover the work exactly once with none empty, in whole kernel
+stages, and the blocks stay within the waves each design states. The
+workspaces are one partial per range when a (b, head) is split (G | nq | nk
+for the Gram, dattn for the apply backward), and none otherwise.
 """
 
 import pytest
@@ -59,10 +60,15 @@ def test_every_plan_covers_its_work_once_within_its_waves(b, hw, heads, ch):
         _tiles_once(tiles, blocks, per)
         assert blocks <= (2 if ch <= tgram.APPLY_TWO_MAX_CH else 1) * n_sm
 
-        blocks, per = tgram.dattn_plan(b, hw, heads, n_sm)
-        _tiles_once(hw, blocks, per)
-        assert per % tgram.DATTN_STAGE == 0
-        assert blocks * bh <= max(tgram.DATTN_BLOCKS_PER_SM * n_sm + bh - 1, bh)
+        tiles = bh * -(-hw // tgram.GRAM_BWD_TILE)
+        blocks, per = tgram.gram_bwd_plan(b, hw, heads, ch, n_sm)
+        _tiles_once(tiles, blocks, per)
+        assert blocks <= (2 if ch <= tgram.GRAM_BWD_TWO_MAX_CH else 1) * n_sm
+        # the apply backward's dattn ranges are the Gram's, in whole tiles
+        splits, per = tgram.gram_plan(b, hw, heads, n_sm)
+        assert splits == 1 or per % tgram.GRAM_BWD_TILE == 0
+        assert tgram.apply_bwd_workspace_numel(splits, b, heads, ch) == (
+            0 if splits == 1 else splits * bh * ch * ch)
 
 
 def test_the_large_shapes_fill_the_card():
@@ -81,3 +87,21 @@ def test_the_large_shapes_fill_the_card():
     assert tgram.gram_plan(8, 256 * 256, 1, H100_SMS) == (128, 512)
     assert tgram.apply_plan(1, 256 * 256, 1, 48, H100_SMS) == (256, 2)
     assert tgram.apply_plan(1, 256 * 256, 1, 96, H100_SMS) == (128, 4)
+
+
+def test_the_gram_backward_fills_the_card():
+    """At train L1 (B = 3, one head, ch = 48: 768 tiles of 64 pixels) the
+    Gram backward runs 256 blocks of three tiles, two an SM; at train
+    decoder L1 (ch = 96) 128 blocks of six, one an SM; at the training
+    latent (24 pairs of four tiles) 96 blocks of one tile. Its dattn sum
+    takes the Gram's ranges: at train L1 43 of 384 pixels a pair, one
+    partial each in the workspace; at the training latent 4 of 64; none
+    once the pairs alone fill the card."""
+    assert tgram.gram_bwd_plan(3, 128 * 128, 1, 48, H100_SMS) == (256, 3)
+    assert tgram.gram_bwd_plan(3, 128 * 128, 1, 96, H100_SMS) == (128, 6)
+    assert tgram.gram_bwd_plan(3, 16 * 16, 8, 48, H100_SMS) == (96, 1)
+    assert tgram.gram_plan(3, 128 * 128, 1, H100_SMS) == (43, 384)
+    assert tgram.apply_bwd_workspace_numel(43, 3, 1, 48) == 43 * 3 * 48 * 48
+    assert tgram.apply_bwd_workspace_numel(4, 3, 8, 48) == 4 * 24 * 48 * 48
+    assert tgram.apply_bwd_workspace_numel(1, 3, 44, 48) == 0
+
