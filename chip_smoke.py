@@ -19,8 +19,9 @@ Phases (any failure exits non-zero; nothing is caught):
   3d. hold the opt-in tiers' kernels against their plain twins: the fused
      MDTA attend (mdta_attend, against its float64 twin) and the depthwise
      kernel (dwconv3x3 at the qkv and the GDFN widths, and its backward's
-     dwconv3x3_dx launch and dtaps) at every serving block shape, B = 1
-     and 2, and every training one, B = 3;
+     dwconv3x3_dx and dwconv3x3_dtaps launches, dtaps also bitwise against
+     a second call) at every serving block shape, B = 1 and 2, and every
+     training one, B = 3;
   4. serve the full-width T_net (ModelConfig(), 46,853,150 parameters,
      seeded random weights) through make_restorer: restore_batch on 256^2
      images plus a 250x321 one, and a tiled 600x600 restore; check shapes,
@@ -67,9 +68,9 @@ Phases (any failure exits non-zero; nothing is caught):
      gradient, a cancelling sum, within the floor SUM_ULPS sets);
   6c. train at full width in "tail" with the fused MDTA attend and the
      depthwise kernel: three iterations at 128^2, B = 3, counted (94
-     launches each of dwconv3x3, dwconv3x3_dx, block_tail, block_tail_bwd
-     and mdta_attend per iteration, no other kernel), finite metrics,
-     every used parameter moved; iterations/s in turns with "tail";
+     launches each of dwconv3x3, dwconv3x3_dx, dwconv3x3_dtaps, block_tail,
+     block_tail_bwd and mdta_attend per iteration, no other kernel), finite
+     metrics, every used parameter moved; iterations/s in turns with "tail";
   7. the train CLI (rcot_torch.cli.train.main) at full width on a seeded
      synthetic tree: a run stopped by --fail-at-step 5, resumed from
      latest.npz at the epoch step its metadata holds, both epochs with
@@ -111,9 +112,9 @@ seen was 2.9e-4, t_adv).
 
 The fused MDTA attend's output, whose Gram and norms are pixel sums added
 with atomics, is held against its float64 twin like the Gram; the
-depthwise backward's dtaps, a pixel sum in PyTorch ops, likewise.
+depthwise backward's dtaps, a pixel sum in a fixed order, likewise.
 
-Prints the kernels' JSON line (all fifteen kernels) and, last,
+Prints the kernels' JSON line (all sixteen kernels) and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -218,12 +219,15 @@ BACKWARD_KERNELS = {
     # the dwconv backward's dx: the forward kernel on the cotangent with the
     # taps rotated (pallas_dwconv.py:120 calls dwconv3x3_fwd)
     "dwconv3x3_dx": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:73"),
+    # its dtaps, which the JAX backward sums in jnp (pallas_dwconv.py:121-134)
+    "dwconv3x3_dtaps": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:121"),
 }
 KERNELS = {**FORWARD_KERNELS, **BACKWARD_KERNELS}
-# mdta_attend has no backward kernel: its backward recomputes through the
-# plain formula, as the JAX package's does (ops/mdta.py)
-BWD_OF = {**dict(zip(list(FORWARD_KERNELS)[:6], list(BACKWARD_KERNELS)[:6])),
-          "dwconv3x3": "dwconv3x3_dx"}
+# the backward launches of each forward kernel; mdta_attend has none: its
+# backward recomputes through the plain formula, as the JAX package's does
+# (ops/mdta.py)
+BWD_OF = {**{k: (bwd,) for k, bwd in zip(list(FORWARD_KERNELS)[:6], list(BACKWARD_KERNELS)[:6])},
+          "dwconv3x3": ("dwconv3x3_dx", "dwconv3x3_dtaps")}
 # the attention-side and the FFN-side kernel of each block composition in
 # the default depthwise tier (ops/dispatch.py); "dwconv" replaces the fused
 # tier's two by the depthwise kernel, and the attention core "gram" runs
@@ -242,7 +246,7 @@ def composition_kernels(mode: str, backward: bool = True, core: str = "gram",
     sides = [DWCONV_TIER.get(k, k) if depthwise == "dwconv" else k
              for k in COMPOSITION_KERNELS[mode]]
     fwd = [*sides, *CORE_KERNELS[core]]
-    return fwd + ([BWD_OF[k] for k in fwd if k in BWD_OF] if backward else [])
+    return fwd + ([b for k in fwd for b in BWD_OF.get(k, ())] if backward else [])
 
 
 def expected_launches(per: int, mode: str, backward: bool = True, core: str = "gram",
@@ -263,7 +267,7 @@ LAUNCHES_FROM = {"block_head": "serve", "block_tail": "serve", "mdta_gram_fwd": 
                  "attn_apply_fwd": "serve", "block_head_bwd": "6b full",
                  "gdfn_fused": "6b head", "gdfn_fused_bwd": "6b head",
                  "mdta_attend": "serve opt-in", "dwconv3x3": "serve opt-in",
-                 "dwconv3x3_dx": "train opt-in"}
+                 "dwconv3x3_dx": "train opt-in", "dwconv3x3_dtaps": "train opt-in"}
 OPT_IN = dict(core="mdta", depthwise="dwconv")
 
 
@@ -485,7 +489,9 @@ def phase_opt_in_kernels(gen) -> dict:
     atomics) at every serving block shape, B = 1 and 2, and every training
     one, B = 3; dwconv3x3 at the qkv width (3C) and the GDFN's (2h) at the
     same shapes, and its backward there: dx (the dwconv3x3_dx launch)
-    against the fp32 twin, dtaps (a pixel sum) against the float64 twin."""
+    against the fp32 twin, dtaps (the dwconv3x3_dtaps launch, a pixel sum)
+    against the float64 twin and bitwise against a second call (its sums
+    run in a fixed order)."""
     errs: dict = {}
     cases = [(label, res, c, heads, b) for label, res, c, heads in MAIN_SHAPES
              for b in (1, 2)]
@@ -509,12 +515,14 @@ def phase_opt_in_kernels(gen) -> dict:
             torch.cuda.synchronize()
             check(f"dwconv3x3 {tag} width {width}", got, kdw.dwconv3x3_plain(x, taps), errs)
             dx, dtaps = kdw.dwconv3x3_bwd(x, taps, g)
+            again = kdw.dwconv3x3_dtaps(x, g)
             torch.cuda.synchronize()
             check(f"dwconv3x3_dx {tag} width {width}", dx,
                   kblock._vjp_plain(kdw.dwconv3x3_plain, (x, taps), g)[0], errs)
             check(f"dwconv3x3_dtaps {tag} width {width}", dtaps,
-                  kblock._vjp_plain(kdw.dwconv3x3_plain, _double([x, taps]), g.double())[1],
-                  errs)
+                  kdw.dwconv3x3_dtaps_plain(x.double(), g.double()), errs)
+            if not torch.equal(dtaps, again):
+                raise AssertionError(f"dwconv3x3_dtaps {tag} width {width}: two calls differ")
         log(f"opt-in kernels ok at {tag}")
     return errs
 
@@ -809,9 +817,11 @@ def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
                            f4 * (3 * b * n * c + 2 * (3 * hid * c + 18 * hid))),
     }
     # the opt-in tiers: the fused attend on the transposed heads, and the
-    # depthwise kernel at the GDFN width (2h) and the qkv width (3C); their
-    # inputs come from a generator of their own, so that `gen` reaches the
-    # later phases in the state it did before these rows were added
+    # depthwise kernel and its dx at the GDFN width (2h) and the qkv width
+    # (3C), and its dtaps at 3C, the width the training path runs it at;
+    # their inputs come from a generator of their own, so that `gen`
+    # reaches the later phases in the state it did before these rows were
+    # added
     q4, k4, v4 = (t.reshape(b, heads, ch, n) for t in (qt, heads_t(k, True), vt))
     own = torch.Generator(device="cuda").manual_seed(res * 1000 + c + b)
     temp = torch.rand(heads, 1, 1, device="cuda", generator=own) + 0.5
@@ -827,6 +837,15 @@ def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
                 lambda: F.conv2d(x.permute(0, 3, 1, 2), taps.reshape(w, 1, 3, 3),
                                  padding=1, groups=w),
                 b * n * 18 * w, f4 * (2 * b * n * w + 9 * w))
+
+    def dtaps_row(x, g, taps):  # the library: cuDNN's weight gradient alone
+        w = x.shape[-1]
+        xn, gn, w4 = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2), taps.reshape(w, 1, 3, 3)
+        return (lambda: kdw.dwconv3x3_dtaps(x, g), lambda: kdw.dwconv3x3_dtaps_plain(x, g),
+                lambda: torch.ops.aten.convolution_backward(
+                    gn, xn, w4, None, [1, 1], [1, 1], [1, 1], False, [0, 0], w,
+                    [False, True, False]),
+                b * n * 18 * w, f4 * (2 * b * n * w + 9 * w))
     rows.update({
         # no one call computes the attend: two_bmm_ms below times q_hat k_hat^T
         # and attn v on pre-normalised, pre-transposed heads, as rows 3-4 do
@@ -835,12 +854,16 @@ def kernel_timings(gen, label, res, c, heads, b, names) -> dict:
                         b * n * (4 * c * ch + 4 * c), f4 * (4 * b * n * c + heads)),
         "dwconv3x3": dw_row(x_g, taps_g, kdw.dwconv3x3_fwd),
         "dwconv3x3_qkv": dw_row(x_m, taps_m, kdw.dwconv3x3_fwd),
-        # the wrapper, with the rotation of the taps (a 9 x 2h copy)
         "dwconv3x3_dx": dw_row(g_g, taps_g, kdw.dwconv3x3_dx),
+        "dwconv3x3_dx_qkv": dw_row(g_head, taps_m, kdw.dwconv3x3_dx),
+        "dwconv3x3_dtaps": dtaps_row(x_m, g_head, taps_m),
     })
-    # the core's two sums over a block's pixel range (G, dattn): their error
+    # the sums over a block's pixel range (G, dattn, dtaps): their error
     # against the float64 twin, max|kernel - float64| / max|float64|
-    sums = {"mdta_gram_fwd": (lambda: kgram.mdta_gram_fwd(qkv, heads)[0],
+    sums = {"dwconv3x3_dtaps": (lambda: kdw.dwconv3x3_dtaps(x_m, g_head),
+                                lambda: kdw.dwconv3x3_dtaps_plain(x_m.double(),
+                                                                  g_head.double())),
+            "mdta_gram_fwd": (lambda: kgram.mdta_gram_fwd(qkv, heads)[0],
                               lambda: kgram.mdta_gram_plain(qkv.double(), heads)[0]),
             "attn_apply_bwd": (lambda: kgram.attn_apply_bwd(qkv, attn, g_c)[1],
                                lambda: kgram.attn_apply_bwd_plain(
@@ -1105,9 +1128,9 @@ def phase_train_opt_in(gen, card) -> dict:
     depthwise kernel in the JAX trainer's default composition, "tail" (the
     JAX package's RCOT_PALLAS_MDTA=1 RCOT_PALLAS_FUSED=0
     RCOT_PALLAS_DWCONV=1): three iterations at 128^2, B = 3, counted (94
-    launches each of dwconv3x3, dwconv3x3_dx, block_tail, block_tail_bwd
-    and mdta_attend per iteration, no other kernel); iterations/s in turns
-    with today's "tail" (Gram core, fused tier)."""
+    launches each of dwconv3x3, dwconv3x3_dx, dwconv3x3_dtaps, block_tail,
+    block_tail_bwd and mdta_attend per iteration, no other kernel);
+    iterations/s in turns with today's "tail" (Gram core, fused tier)."""
     cfg = Config()
     state = create_train_state(cfg, seed=0, device="cuda", attention_core="mdta",
                                depthwise="dwconv")
@@ -1508,7 +1531,8 @@ def main() -> int:
     # their own: after those phases the profiler loses device records
     gen_timing = torch.Generator(device="cuda").manual_seed(2)
     train_timings = {label: kernel_timings(gen_timing, label, res, c, heads, TRAIN_B,
-                                           [*KERNELS, "dwconv3x3_qkv"])
+                                           [*KERNELS, "dwconv3x3_qkv",
+                                            "dwconv3x3_dx_qkv"])
                      for label, res, c, heads in TRAIN_SHAPES}
 
     train = phase_train(gen)
@@ -1531,7 +1555,9 @@ def main() -> int:
         # a kernel's ms are at its main path's shapes: serving's forward at
         # 256 px, B = 1; every other at the training shapes, 128 px, B = 3
         t = timings if path.startswith("serve") else train_timings
-        l1, lat = t["L1"][name], t["latent"][name]
+        # the training path runs the depthwise backward at the qkv width
+        row = "dwconv3x3_dx_qkv" if name == "dwconv3x3_dx" else name
+        l1, lat = t["L1"][row], t["latent"][row]
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launch_runs[path][name], launches_counted_in=path,
@@ -1544,10 +1570,14 @@ def main() -> int:
             bound_ms=l1["bound_ms"], bound_by=l1["bound_by"],
             library_ms=l1["library_ms"], library_device_ms=l1["library_device_ms"],
             at=l1["shape"], latent=lat,
-            train_L1=train_timings["L1"][name])
+            train_L1=train_timings["L1"][row])
         if name == "dwconv3x3":
             entry.update(width="GDFN (2h)", qkv_width=t["L1"]["dwconv3x3_qkv"],
                          train_L1_qkv_width=train_timings["L1"]["dwconv3x3_qkv"])
+        elif name == "dwconv3x3_dx":
+            entry.update(width="qkv (3C)", gdfn_width=train_timings["L1"][name])
+        elif name == "dwconv3x3_dtaps":
+            entry.update(width="qkv (3C)")
         kernels.append(entry)
     for tag, tt in (("serve", timings), ("train", train_timings)):
         for label in BLOCKS_PER_FORWARD:

@@ -1,4 +1,5 @@
-// Depthwise 3x3 SAME convolution for Hopper (sm_90a), bias-free, NHWC.
+// Depthwise 3x3 SAME convolution for Hopper (sm_90a), bias-free, NHWC:
+// the forward, its dx, and its dtaps.
 //
 // Replaces the TPU kernel of rcot_tpu/ops/pallas_dwconv.py, `_kernel`
 // (:28-54) launched by dwconv3x3_fwd (pallas_call at :87):
@@ -6,91 +7,424 @@
 //   out[b, y, x, c] = sum_{i, j in 0..2} taps[c, i, j] x[b, y + i - 1, x + j - 1, c]
 //
 // with zeros outside the image; taps are (C, 3, 3), the port's layout of a
-// (C, 1, 3, 3) depthwise weight. The backward's dx is this kernel on the
-// cotangent with the taps rotated by 180 degrees (pallas_dwconv.py:118-120);
-// the wrapper rotates them.
+// (C, 1, 3, 3) depthwise weight. The backward's dx is the same kernel on
+// the cotangent with the taps rotated by 180 degrees (pallas_dwconv.py:
+// 118-120); here the rotation is a template flag, so dx is one launch and
+// no copy. The backward's dtaps, which the JAX package computes in jnp
+// (pallas_dwconv.py:121-134),
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 without tensor cores):
-// 18 flops per output against 8 bytes (x read once, out written once), so
-// bytes bound it: about 30 us at 3 x 128^2 x 254 channels.
+//   dtaps[c, i, j] = sum_{b, y, x} g[b, y, x, c] x[b, y + i - 1, x + j - 1, c],
 //
-// Design. No TPU workaround is carried over: no 128-lane channel padding,
-// no W % 8 condition, no row-tile search; any B, H, W and C, odd C too.
-// One image row is W*C contiguous floats, so a block's threads walk the
-// flattened (x, c) index of a row: neighbouring threads read neighbouring
-// addresses whatever C is, and the left and right taps sit at the same
-// index -+ C (masked at the image's edges). Each thread owns one (x, c) and
-// a strip of kStrip output rows. It reads the kStrip + 2 input rows of its
-// column once each, at x - 1, x and x + 1, and adds each value into the up
-// to three outputs it feeds, so device memory sees x about
-// (kStrip + 2) / kStrip times (the side reads are the neighbouring
-// threads' centre reads and hit L1) and out once. The zero halo is the
-// masked read, inside the kernel; nothing is padded.
+// is dwconv3x3_dtaps_kernel and a fixed-order reduce.
+//
+// Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 without tensor cores):
+// 18 flops per element against 8 bytes (the forward and dx read x and
+// write out; dtaps reads x and g), so bytes bound all three: about 17 us
+// at 3 x 128^2 x 144 channels (the qkv width at the first level in training).
+//
+// Design. Each block owns a tile of `tc` columns by `cv` channel vectors of
+// V floats (V = 4, 2 or 1, the widest that divides C and keeps every row
+// aligned; the wrapper picks it) and walks a band of rows of one image
+// (grid: column tile, channel chunk, image x band). The plan comes from
+// Python (ops/dwconv.py dwconv_tile, dwconv_rows): about three blocks an
+// SM, on the longest bands that give them, since more blocks an SM on
+// shorter bands ran slower on the card. Every input row of the band and
+// its two halo rows, with a halo column on each side, goes through a
+// four-stage cp.async ring in shared memory, 16 or 8 bytes a copy where V
+// allows, each asking L2 for the 256 bytes around it; zero padding is the
+// copy's zero fill, so nothing is padded in memory. Each input value is
+// read from device memory once per band (the halo rows and columns again,
+// mostly from L2), and each thread reads its left and right neighbours
+// from shared memory. A thread owns one column-vector: the forward keeps
+// its 9 V taps in registers (staged once per block, coalesced, and rotated
+// for dx) and three output rows in flight, and stores an output row when
+// its last input row has passed; dtaps keeps 9 V partial sums and a
+// three-row window of g, and adds the 9 products of each input row. A
+// dtaps block then adds its threads' partials over its columns in a fixed
+// order and stores them to a workspace, and dwconv_reduce_kernel adds the
+// blocks' partials in a fixed order: no atomics, no memset, the same bits
+// on every call. No grid index needs a 64-bit division.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStrip = 8;  // output rows per thread
+constexpr int kThreads = 256;  // the most threads (tc * cv) a block has
+constexpr int kStages = 4;       // depth of the forward's cp.async ring of x rows
+constexpr int kDtapsStages = 4;  // and of dtaps's ring of x and g rows
+constexpr int kMaxVectors = 32;
 
-__global__ void __launch_bounds__(kThreads)
-dwconv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
-                 float* __restrict__ out, int H, int W, int C) {
-  const long long row = (long long)W * C;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= row) return;
-  const int c = (int)(idx % C);
-  const int col = (int)(idx / C);
-  const bool left = col > 0, right = col + 1 < W;
-  float w[9];
-#pragma unroll
-  for (int t = 0; t < 9; ++t) w[t] = __ldg(taps + 9LL * c + t);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int y0 = blockIdx.y * kStrip;
-  const long long img = (long long)blockIdx.z * H * row;
-  const float* xb = x + img + idx;
-  float* ob = out + img + idx;
-  float acc[kStrip];
-#pragma unroll
-  for (int s = 0; s < kStrip; ++s) acc[s] = 0.f;
+// dst <- V floats at src, or zeros where !in (the source is not read);
+// L2 fetches the 256 bytes around src
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in) {
+  const uint32_t to = smem_addr(dst);
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src),
+                 "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global.L2::256B [%0], [%1], %2, %3;\n" ::"r"(to), "l"(src),
+                 "n"(4 * V), "r"(in ? 4 * V : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  // input row y0 - 1 + r feeds output row y0 + s through tap row i = r - s
+template <int V>
+__device__ __forceinline__ void load_vec(float (&d)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+  } else if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    d[0] = v.x, d[1] = v.y;
+  } else {
+    d[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&d)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  else if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+  else
+    *p = d[0];
+}
+
+// Where a block sits and what each of its threads copies. Thread t owns
+// column x0 + t / cv and channel vector t % cv of the chunk. A staged x row
+// is (tc + 2) columns from x0 - 1 by cv vectors; piece i of it (column
+// i / cv, vector i % cv) is copied by thread i % (tc cv), so each thread
+// copies at most three (tc >= 1), at the same offsets in every row.
+template <int V>
+struct Tile {
+  int H, W, C, x0, c0, b, y0, n_out, j, v;
+  long long row;  // floats per image row
+  int s_off[3], g_off[3];
+  bool ok[3];
+
+  __device__ Tile(int H_, int W_, int C_, int cv, int tc, int rows, int bands)
+      : H(H_), W(W_), C(C_) {
+    row = (long long)W * C;
+    x0 = blockIdx.x * tc;
+    c0 = blockIdx.y * cv * V;
+    b = blockIdx.z / bands;
+    y0 = (blockIdx.z - b * bands) * rows;
+    n_out = min(rows, H - y0);
+    j = threadIdx.x / cv;
+    v = threadIdx.x - j * cv;
+    const int nt = tc * cv, pieces = (tc + 2) * cv;
 #pragma unroll
-  for (int r = 0; r < kStrip + 2; ++r) {
-    const int yi = y0 - 1 + r;
-    if (yi < 0 || yi >= H) continue;
-    const float* p = xb + yi * row;
-    const float l = left ? __ldg(p - C) : 0.f;
-    const float m = __ldg(p);
-    const float rt = right ? __ldg(p + C) : 0.f;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const int s = r - i;
-      if (s >= 0 && s < kStrip)
-        acc[s] = fmaf(w[3 * i], l,
-                      fmaf(w[3 * i + 1], m, fmaf(w[3 * i + 2], rt, acc[s])));
+    for (int k = 0; k < 3; ++k) {
+      const int i = threadIdx.x + k * nt;
+      const int col = i / cv, gx = x0 - 1 + col, gc = c0 + (i - col * cv) * V;
+      s_off[k] = i < pieces ? i * V : -1;
+      ok[k] = gx >= 0 && gx < W && gc < C;
+      g_off[k] = ok[k] ? gx * C + gc : 0;
     }
   }
+
+  // x row y0 - 1 + r (zeros outside the image) into `dst`
+  __device__ __forceinline__ void stage_x(float* dst, const float* img, int r) const {
+    const int y = y0 - 1 + r;
+    const bool in_row = y >= 0 && y < H;
+    const float* src = img + (in_row ? y * row : 0);
 #pragma unroll
-  for (int s = 0; s < kStrip; ++s)
-    if (y0 + s < H) ob[(y0 + s) * row] = acc[s];
+    for (int k = 0; k < 3; ++k)
+      if (s_off[k] >= 0) cp_async<V>(dst + s_off[k], src + g_off[k], in_row && ok[k]);
+  }
+
+  __device__ __forceinline__ bool active() const {
+    return x0 + j < W && c0 + v * V < C;
+  }
+};
+
+// The forward (ROT false) or dx (ROT true: taps rotated by 180 degrees).
+template <int V, bool ROT>
+__global__ void __launch_bounds__(kThreads)
+dwconv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
+                 float* __restrict__ out, int H, int W, int C, int cv, int tc, int rows,
+                 int bands) {
+  extern __shared__ __align__(16) float smem[];
+  const Tile<V> t(H, W, C, cv, tc, rows, bands);
+  const int nt = tc * cv, cw = cv * V, ld = (tc + 2) * cw;
+  float* ring = smem;
+  float* s_taps = smem + kStages * ld;  // 9 rows of cw floats, tap-major
+  const float* img = x + (long long)t.b * H * t.row;
+  const int n_in = t.n_out + 2;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_in) t.stage_x(ring + s * ld, img, s);
+    cp_commit();
+  }
+  // the chunk's taps: 9 * cc contiguous floats, read once, coalesced
+  const int cc = min(cw, C - t.c0);
+  for (int f = threadIdx.x; f < 9 * cc; f += nt)
+    s_taps[(f % 9) * cw + f / 9] = taps[9LL * t.c0 + f];
+  __syncthreads();
+  float w[9][V];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) load_vec<V>(w[ROT ? 8 - k : k], s_taps + k * cw + t.v * V);
+
+  const bool active = t.active();
+  float* dst = out + (long long)t.b * H * t.row + (long long)t.y0 * t.row + (t.x0 + t.j) * C +
+               t.c0 + t.v * V;
+  // acc0, acc1, acc2: output rows y + 1, y, y - 1 of input row y
+  float acc0[V], acc1[V], acc2[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc0[e] = acc1[e] = acc2[e] = 0.f;
+  for (int r = 0; r < n_in; ++r) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // row r is in; every thread is done with row r - 1's slot
+    if (r + kStages - 1 < n_in) t.stage_x(ring + ((r + kStages - 1) % kStages) * ld, img,
+                                         r + kStages - 1);
+    cp_commit();
+    const float* s = ring + (r % kStages) * ld + (t.j * cv + t.v) * V;
+    float l[V], m[V], rt[V];
+    load_vec<V>(l, s);
+    load_vec<V>(m, s + cw);
+    load_vec<V>(rt, s + 2 * cw);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      acc0[e] = fmaf(w[0][e], l[e], fmaf(w[1][e], m[e], fmaf(w[2][e], rt[e], acc0[e])));
+      acc1[e] = fmaf(w[3][e], l[e], fmaf(w[4][e], m[e], fmaf(w[5][e], rt[e], acc1[e])));
+      acc2[e] = fmaf(w[6][e], l[e], fmaf(w[7][e], m[e], fmaf(w[8][e], rt[e], acc2[e])));
+    }
+    if (r >= 2 && active) store_vec<V>(dst + (long long)(r - 2) * t.row, acc2);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      acc2[e] = acc1[e];
+      acc1[e] = acc0[e];
+      acc0[e] = 0.f;
+    }
+  }
+}
+
+// dtaps partials: block (tile, chunk, image x band) sums its pixels and
+// stores 9 floats per channel of its chunk at ws[part * 9C + 9c + tap],
+// part = (b * bands + band) * tiles + tile.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+dwconv3x3_dtaps_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                       float* __restrict__ ws, int H, int W, int C, int cv, int tc, int rows,
+                       int bands) {
+  extern __shared__ __align__(16) float smem[];
+  const Tile<V> t(H, W, C, cv, tc, rows, bands);
+  const int cw = cv * V, ldx = (tc + 2) * cw, ld = ldx + tc * cw;
+  const long long img_off = (long long)t.b * H * t.row;
+  const float* img = x + img_off;
+  // each thread copies its own g vector: row y0 + r of the band
+  const bool own = t.active();
+  const float* g_src = g + img_off + (long long)t.y0 * t.row +
+                       (own ? (t.x0 + t.j) * C + t.c0 + t.v * V : 0);
+  const int g_slot = ldx + threadIdx.x * V;
+  const int n_in = t.n_out + 2;
+  auto stage = [&](int r) {
+    float* dst = smem + (r % kDtapsStages) * ld;
+    t.stage_x(dst, img, r);
+    if (r < t.n_out) cp_async<V>(dst + g_slot, g_src + (own ? r * t.row : 0), own);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kDtapsStages - 1; ++s) {
+    if (s < n_in) stage(s);
+    cp_commit();
+  }
+  // acc[i][k][e]: tap (i, k) of channel c0 + v V + e; gp, g0, gm: g rows
+  // y + 1, y, y - 1 of input row y (zeros outside the band)
+  float acc[3][3][V], gp[V], g0[V], gm[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    g0[e] = gm[e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) acc[k / 3][k % 3][e] = 0.f;
+  }
+  for (int r = 0; r < n_in; ++r) {
+    cp_wait<kDtapsStages - 2>();
+    __syncthreads();
+    if (r + kDtapsStages - 1 < n_in) stage(r + kDtapsStages - 1);
+    cp_commit();
+    const float* slot = smem + (r % kDtapsStages) * ld;
+    const float* s = slot + (t.j * cv + t.v) * V;
+    float xv[3][V];
+    load_vec<V>(xv[0], s);
+    load_vec<V>(xv[1], s + cw);
+    load_vec<V>(xv[2], s + 2 * cw);
+    if (r < t.n_out) {
+      load_vec<V>(gp, slot + g_slot);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) gp[e] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        acc[0][k][e] = fmaf(gp[e], xv[k][e], acc[0][k][e]);
+        acc[1][k][e] = fmaf(g0[e], xv[k][e], acc[1][k][e]);
+        acc[2][k][e] = fmaf(gm[e], xv[k][e], acc[2][k][e]);
+      }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      gm[e] = g0[e];
+      g0[e] = gp[e];
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it becomes red[tc][9 cw]
+  float* red = smem + t.j * 9 * cw + t.v * V * 9;
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+#pragma unroll
+    for (int k = 0; k < 9; ++k) red[e * 9 + k] = acc[k / 3][k % 3][e];
+  __syncthreads();
+  const int n = 9 * min(cw, C - t.c0);
+  const int part = blockIdx.z * gridDim.x + blockIdx.x;
+  float* dst = ws + (long long)part * 9 * C + 9 * t.c0;
+  for (int o = threadIdx.x; o < n; o += tc * cv) {
+    float sum = 0.f;
+    for (int jj = 0; jj < tc; ++jj) sum += smem[jj * 9 * cw + o];
+    dst[o] = sum;
+  }
+}
+
+// out[e] = sum over parts p of ws[p * E + e]: warp w adds parts w, w + W,
+// ... in order, then warp 0 adds the W warps' sums in order.
+constexpr int kReduceWarps = 16;
+
+__global__ void __launch_bounds__(32 * kReduceWarps)
+dwconv_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out, int E, int parts) {
+  __shared__ float part[kReduceWarps][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, W = blockDim.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
+  float v = 0.f;
+  if (e < E) {
+#pragma unroll 8
+    for (int p = w; p < parts; p += W) v += ws[(long long)p * E + e];
+  }
+  part[w][lane] = v;
+  __syncthreads();
+  if (w != 0 || e >= E) return;
+  float sum = 0.f;
+  for (int i = 0; i < W; ++i) sum += part[i][lane];
+  out[e] = sum;
+}
+
+bool bad_plan(int C, int vec, int cv, int tc, int rows) {
+  return !(vec == 1 || vec == 2 || vec == 4) || C % vec != 0 || cv < 1 || cv > kMaxVectors ||
+         tc < 1 || tc * cv > kThreads || rows < 1;
+}
+
+dim3 grid_of(int B, int H, int W, int C, int vec, int cv, int tc, int rows) {
+  const int chunks = (C / vec + cv - 1) / cv, bands = (H + rows - 1) / rows;
+  return dim3((unsigned)((W + tc - 1) / tc), (unsigned)chunks, (unsigned)(B * bands));
+}
+
+size_t fwd_smem(int vec, int cv, int tc) {
+  return sizeof(float) * (kStages * (tc + 2) + 9) * cv * vec;
+}
+
+size_t dtaps_smem(int vec, int cv, int tc) {
+  const int ring = kDtapsStages * (2 * tc + 2) * cv * vec, red = 9 * tc * cv * vec;
+  return sizeof(float) * (ring > red ? ring : red);
+}
+
+template <int V, bool ROT>
+void launch_fwd(const float* x, const float* taps, float* out, int B, int H, int W, int C,
+                int cv, int tc, int rows, cudaStream_t st) {
+  dwconv3x3_kernel<V, ROT><<<grid_of(B, H, W, C, V, cv, tc, rows), tc * cv,
+                             fwd_smem(V, cv, tc), st>>>(x, taps, out, H, W, C, cv, tc, rows,
+                                                        (H + rows - 1) / rows);
+}
+
+template <int V>
+void launch_dtaps(const float* x, const float* g, float* ws, int B, int H, int W, int C,
+                  int cv, int tc, int rows, cudaStream_t st) {
+  dwconv3x3_dtaps_kernel<V><<<grid_of(B, H, W, C, V, cv, tc, rows), tc * cv,
+                              dtaps_smem(V, cv, tc), st>>>(x, g, ws, H, W, C, cv, tc, rows,
+                                                           (H + rows - 1) / rows);
+}
+
+template <typename Kernel>
+cudaError_t occupancy(int* blocks, Kernel k, int threads, size_t smem) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, threads, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B, H, W, C), taps (C, 3, 3) -> out (B, H, W, C); out must not alias x.
-int rcot_dwconv3x3(const float* x, const float* taps, float* out, int B,
-                   int H, int W, int C, void* stream) {
+// x (B, H, W, C), taps (C, 3, 3) -> out (B, H, W, C); out must not alias
+// x. rot != 0 rotates the taps by 180 degrees (the backward's dx). vec,
+// cv, tc and rows are ops/dwconv.py dwconv_plan's; x and out 4 * vec-byte
+// aligned.
+int rcot_dwconv3x3(const float* x, const float* taps, float* out, int B, int H, int W, int C,
+                   int vec, int cv, int tc, int rows, int rot, void* stream) {
   if ((long long)B * H * W * C == 0) return cudaSuccess;
-  const long long row = (long long)W * C;
-  dim3 grid((unsigned)((row + kThreads - 1) / kThreads),
-            (unsigned)((H + kStrip - 1) / kStrip), (unsigned)B);
-  dwconv3x3_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, taps, out,
-                                                                H, W, C);
+  if (bad_plan(C, vec, cv, tc, rows)) return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vec == 4)
+    rot ? launch_fwd<4, true>(x, taps, out, B, H, W, C, cv, tc, rows, st)
+        : launch_fwd<4, false>(x, taps, out, B, H, W, C, cv, tc, rows, st);
+  else if (vec == 2)
+    rot ? launch_fwd<2, true>(x, taps, out, B, H, W, C, cv, tc, rows, st)
+        : launch_fwd<2, false>(x, taps, out, B, H, W, C, cv, tc, rows, st);
+  else
+    rot ? launch_fwd<1, true>(x, taps, out, B, H, W, C, cv, tc, rows, st)
+        : launch_fwd<1, false>(x, taps, out, B, H, W, C, cv, tc, rows, st);
+  return cudaGetLastError();
+}
+
+// Blocks of tc * cv threads of the forward (dtaps == 0; dx takes as
+// many) or of dtaps that one SM of the current device holds at once.
+int rcot_dwconv3x3_blocks_per_sm(int vec, int cv, int tc, int dtaps, int* blocks) {
+  if (bad_plan(4, vec, cv, tc, 1)) return cudaErrorInvalidValue;
+  const int n = tc * cv;
+  if (dtaps) {
+    const size_t smem = dtaps_smem(vec, cv, tc);
+    return vec == 4   ? occupancy(blocks, dwconv3x3_dtaps_kernel<4>, n, smem)
+           : vec == 2 ? occupancy(blocks, dwconv3x3_dtaps_kernel<2>, n, smem)
+                      : occupancy(blocks, dwconv3x3_dtaps_kernel<1>, n, smem);
+  }
+  const size_t smem = fwd_smem(vec, cv, tc);
+  return vec == 4   ? occupancy(blocks, dwconv3x3_kernel<4, false>, n, smem)
+         : vec == 2 ? occupancy(blocks, dwconv3x3_kernel<2, false>, n, smem)
+                    : occupancy(blocks, dwconv3x3_kernel<1, false>, n, smem);
+}
+
+// x, g (B, H, W, C) -> dtaps (C, 3, 3), through the workspace ws of
+// B * bands * tiles * 9C floats (ops/dwconv.py dtaps_workspace_numel);
+// B * H * W > 0 (the wrapper writes the zeros of an empty image itself).
+int rcot_dwconv3x3_dtaps(const float* x, const float* g, float* ws, float* dtaps, int B,
+                         int H, int W, int C, int vec, int cv, int tc, int rows,
+                         void* stream) {
+  if (C == 0) return cudaSuccess;
+  if ((long long)B * H * W == 0 || bad_plan(C, vec, cv, tc, rows)) return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vec == 4)
+    launch_dtaps<4>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  else if (vec == 2)
+    launch_dtaps<2>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  else
+    launch_dtaps<1>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid = grid_of(B, H, W, C, vec, cv, tc, rows);
+  const int parts = (int)(grid.x * grid.z), warps = parts < kReduceWarps ? parts : kReduceWarps;
+  dwconv_reduce_kernel<<<(unsigned)((9 * C + 31) / 32), 32 * warps, 0, st>>>(ws, dtaps, 9 * C,
+                                                                             parts);
   return cudaGetLastError();
 }
 

@@ -62,8 +62,12 @@ SIGNATURES = {
     "rcot_conv1x1_dw_bwd": [_P] * 9 + [_I] * 5 + [_P],
     # inputs 5, outputs 4, workspace 5; B, H, W, C, hid; stream
     "rcot_gdfn_fused_bwd": [_P] * 14 + [_I] * 5 + [_P],
-    # x, taps, out; B, H, W, C; stream
-    "rcot_dwconv3x3": [_P] * 3 + [_I] * 4 + [_P],
+    # x, taps, out; B, H, W, C, vec, cv, tc, rows, rot; stream
+    "rcot_dwconv3x3": [_P] * 3 + [_I] * 9 + [_P],
+    # x, g, workspace, dtaps; B, H, W, C, vec, cv, tc, rows; stream
+    "rcot_dwconv3x3_dtaps": [_P] * 4 + [_I] * 8 + [_P],
+    # vec, cv, tc, dtaps; -> blocks an SM holds
+    "rcot_dwconv3x3_blocks_per_sm": [_I] * 4 + [ctypes.POINTER(_I)],
     # q, k, v, temperature, out, workspace; BH, heads, c, N; stream
     "rcot_mdta_attend": [_P] * 6 + [_I] * 3 + [_L, _P],
 }

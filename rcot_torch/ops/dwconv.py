@@ -8,17 +8,20 @@ RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1:
   dwconv3x3(x, taps):  x (B,H,W,C), taps (C,3,3) -> (B,H,W,C)
 
 `DwConv3x3` is the autograd Function. As the JAX custom VJP does, its
-backward computes dx with the same kernel on the cotangent, the taps
-rotated by 180 degrees (launches counted under `dwconv3x3_dx`), and dw as
-the 9-tap pixel reduction sum g * x_shifted, here in PyTorch ops on both
-devices (the JAX package does it in jnp outside its kernel). A CUDA tensor
-goes to the kernel of csrc/dwconv.cu, a CPU tensor to the plain twin
-`dwconv3x3_plain` (ops/conv.py depthwise3x3); the forward's launches are
+backward computes dx with the forward's kernel on the cotangent, the taps
+rotated by 180 degrees (inside the kernel; launches counted under
+`dwconv3x3_dx`), and dtaps as the 9-tap pixel reduction sum g * x_shifted
+(`dwconv3x3_dtaps`, a kernel of its own with a fixed-order sum, where the
+JAX package uses jnp). A CUDA tensor goes to the kernels of csrc/dwconv.cu,
+a CPU tensor to the plain twins `dwconv3x3_plain` (ops/conv.py
+depthwise3x3) and `dwconv3x3_dtaps_plain`; the forward's launches are
 counted under `dwconv3x3`.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -27,6 +30,95 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import build
 from .conv import depthwise3x3
+from .gram import _cdiv, sm_count
+
+# The launch plan of csrc/dwconv.cu's kernels, a pure function of the shape,
+# the vector width and the card: its SM count and the blocks an SM holds
+# at once (the kernel's registers decide; blocks_per_sm reads it once per
+# tile). A block owns `tc` columns by `cv` channel vectors (at most
+# DW_VECTORS, tc * cv <= DW_THREADS threads; dwconv_tile) and walks a band
+# of `rows` rows (dwconv_rows): the bands that give the most blocks up to
+# DW_BLOCKS_PER_SM an SM (or up to what an SM holds, if fewer), the fewest
+# bands (the longest runs down the rows) among equals. On the card, more
+# blocks an SM on shorter bands ran slower at the level-1 shapes, even
+# where all of them fit at once: at 256^2 by 510 channels one band of 256
+# blocks beat two of 512 (PERF.md). Where one band alone gives more than
+# DW_BLOCKS_PER_SM an SM, the bands fill waves of what the card
+# holds at least DW_WAVE_FILL full, or as full as they can. No band is
+# shorter than DW_MIN_ROWS unless the image is. dtaps's bands also hold at
+# most DTAPS_MAX_PIXELS pixels a block: a block's sum over its pixels is one
+# thread's fp32 sum down its rows and a fixed-order sum over its columns,
+# and its error grows with them (as the Gram's, ops/gram.py
+# GRAM_MAX_PIXELS).
+DW_THREADS = 256
+DW_VECTORS = 32
+DW_BLOCKS_PER_SM = 3
+DW_WAVE_FILL = 0.85
+DW_MIN_ROWS = 4
+DTAPS_MAX_PIXELS = 512
+
+
+def dwconv_vec(c: int, *ptrs: int) -> int:
+    """Floats a copy moves: 4 or 2 where they divide C and every pointer is
+    aligned to that many floats, else 1."""
+    for vec in (4, 2):
+        if c % vec == 0 and all(p % (4 * vec) == 0 for p in ptrs):
+            return vec
+    return 1
+
+
+def dwconv_tile(c: int, w: int, vec: int) -> Tuple[int, int]:
+    """-> (cv, tc): channel vectors and columns a block."""
+    n_vec = c // vec
+    cv = _cdiv(n_vec, _cdiv(n_vec, DW_VECTORS))
+    return cv, min(DW_THREADS // cv, w)
+
+
+@functools.lru_cache(maxsize=None)
+def dwconv_rows(b: int, h: int, w: int, c: int, vec: int, n_sm: int, per_sm: int,
+                max_pixels: int = 0) -> int:
+    """-> rows a band, on a card of n_sm SMs that holds per_sm blocks an SM
+    at once (max_pixels, when not 0, caps tc * rows)."""
+    cv, tc = dwconv_tile(c, w, vec)
+    per_band = b * _cdiv(w, tc) * _cdiv(c // vec, cv)
+    most_rows = min(h, max(1, max_pixels // tc)) if max_pixels else h
+    dense, wave = min(DW_BLOCKS_PER_SM, per_sm) * n_sm, per_sm * n_sm
+    runs = {_cdiv(h, bands) for bands in range(_cdiv(h, most_rows),
+                                                _cdiv(h, min(DW_MIN_ROWS, most_rows)) + 1)}
+    # rows -> blocks, the longest bands first
+    blocks = {rows: per_band * _cdiv(h, rows) for rows in sorted(runs, reverse=True)}
+    fitting = [rows for rows, n in blocks.items() if n <= dense]
+    if fitting:
+        return max(fitting, key=lambda rows: blocks[rows])
+    fill = {rows: n / (_cdiv(n, wave) * wave) for rows, n in blocks.items()}
+    full = [rows for rows in blocks if fill[rows] >= DW_WAVE_FILL]
+    return full[0] if full else max(blocks, key=lambda rows: fill[rows])
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(device_index: int, vec: int, cv: int, tc: int, dtaps: bool) -> int:
+    """Blocks of this tile that one SM holds at once, for the forward (and
+    dx) or for dtaps."""
+    n = ctypes.c_int()
+    with torch.cuda.device(device_index):
+        build.call("rcot_dwconv3x3_blocks_per_sm", vec, cv, tc, int(dtaps), ctypes.byref(n))
+    return n.value
+
+
+def _plan(x: torch.Tensor, vec: int, dtaps: bool) -> Tuple[int, int, int]:
+    """-> (cv, tc, rows) of a launch on x (B,H,W,C)."""
+    b, h, w, c = x.shape
+    cv, tc = dwconv_tile(c, w, vec)
+    dev = x.device.index
+    return cv, tc, dwconv_rows(b, h, w, c, vec, sm_count(dev),
+                               blocks_per_sm(dev, vec, cv, tc, dtaps),
+                               DTAPS_MAX_PIXELS if dtaps else 0)
+
+
+def dtaps_workspace_numel(b: int, h: int, w: int, c: int, tc: int, rows: int) -> int:
+    """Floats of workspace dtaps needs: 9C partial sums per block range of
+    (image, band, column tile)."""
+    return b * _cdiv(h, rows) * _cdiv(w, tc) * 9 * c
 
 
 def dwconv3x3_plain(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -34,42 +126,73 @@ def dwconv3x3_plain(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return depthwise3x3(x, taps)
 
 
-def _launch(x: torch.Tensor, taps: torch.Tensor, name: str) -> torch.Tensor:
+def dwconv3x3_dtaps_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The plain twin of dtaps: nine products and sums in PyTorch ops."""
+    h, w = x.shape[1:3]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    dtaps = torch.stack([(g * xp[:, i:i + h, j:j + w]).sum(dim=(0, 1, 2))
+                         for i in range(3) for j in range(3)], dim=-1)
+    return dtaps.reshape(-1, 3, 3)
+
+
+def _launch(x: torch.Tensor, taps: torch.Tensor, name: str, rot: bool) -> torch.Tensor:
     if not x.is_cuda:
-        return dwconv3x3_plain(x, taps)
+        return dwconv3x3_plain(x, taps.flip(1, 2) if rot else taps)
     b, h, w, c = x.shape
-    build.check_arg("x", x, (b, h, w, c), x.device)
-    build.check_arg("taps", taps, (c, 3, 3), x.device)
+    dev = x.device
+    build.check_arg("x", x, (b, h, w, c), dev)
+    build.check_arg("taps", taps, (c, 3, 3), dev)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    if x.numel() == 0:
+        return out
+    vec = dwconv_vec(c, x.data_ptr(), out.data_ptr())
+    cv, tc, rows = _plan(x, vec, dtaps=False)
+    with torch.cuda.device(dev):
         build.call("rcot_dwconv3x3", x.data_ptr(), taps.data_ptr(), out.data_ptr(),
-                   b, h, w, c, build.stream())
+                   b, h, w, c, vec, cv, tc, rows, int(rot), build.stream())
     build.LAUNCHES[name] += 1
     return out
 
 
 def dwconv3x3_fwd(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """x (B,H,W,C), taps (C,3,3) -> (B,H,W,C), zeros outside the image."""
-    return _launch(x, taps, "dwconv3x3")
+    return _launch(x, taps, "dwconv3x3", rot=False)
 
 
 def dwconv3x3_dx(g: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """dx of dwconv3x3_fwd for the cotangent g: the forward on g with the
-    taps rotated by 180 degrees (pallas_dwconv.py:118-120)."""
-    return _launch(g, taps.flip(1, 2).contiguous(), "dwconv3x3_dx")
+    taps rotated by 180 degrees (pallas_dwconv.py:118-120), in the kernel."""
+    return _launch(g, taps, "dwconv3x3_dx", rot=True)
+
+
+def dwconv3x3_dtaps(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dtaps of dwconv3x3_fwd for the cotangent g: dtaps[c, i, j] = sum over
+    pixels of g[b, y, x, c] * x[b, y + i - 1, x + j - 1, c]
+    (pallas_dwconv.py:121-134). On the card the sums run in a fixed order,
+    so two calls on the same input give the same bits."""
+    if not x.is_cuda:
+        return dwconv3x3_dtaps_plain(x, g)
+    b, h, w, c = x.shape
+    dev = x.device
+    build.check_arg("x", x, (b, h, w, c), dev)
+    build.check_arg("g", g, (b, h, w, c), dev)
+    if x.numel() == 0:
+        return x.new_zeros(c, 3, 3)
+    vec = dwconv_vec(c, x.data_ptr(), g.data_ptr())
+    cv, tc, rows = _plan(x, vec, dtaps=True)
+    ws = torch.empty(dtaps_workspace_numel(b, h, w, c, tc, rows), device=dev)
+    dtaps = torch.empty(c, 3, 3, device=dev)
+    with torch.cuda.device(dev):
+        build.call("rcot_dwconv3x3_dtaps", x.data_ptr(), g.data_ptr(), ws.data_ptr(),
+                   dtaps.data_ptr(), b, h, w, c, vec, cv, tc, rows, build.stream())
+    build.LAUNCHES["dwconv3x3_dtaps"] += 1
+    return dtaps
 
 
 def dwconv3x3_bwd(x: torch.Tensor, taps: torch.Tensor, g: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backward of dwconv3x3_fwd for the cotangent g -> (dx, dtaps):
-    dwconv3x3_dx, and dtaps[c, i, j] = sum over pixels of
-    g[b, y, x, c] * x[b, y + i - 1, x + j - 1, c] (pallas_dwconv.py:121-134)."""
-    dx = dwconv3x3_dx(g, taps)
-    h, w = x.shape[1:3]
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    dtaps = torch.stack([(g * xp[:, i:i + h, j:j + w]).sum(dim=(0, 1, 2))
-                         for i in range(3) for j in range(3)], dim=-1)
-    return dx, dtaps.reshape(-1, 3, 3)
+    """Backward of dwconv3x3_fwd for the cotangent g -> (dx, dtaps)."""
+    return dwconv3x3_dx(g, taps), dwconv3x3_dtaps(x, g)
 
 
 class DwConv3x3(torch.autograd.Function):

@@ -204,7 +204,7 @@ WRAPPERS = [(tblock, "block_head_fwd", "block_head"), (tblock, "block_tail_fwd",
             (tfused, "fused_dwconv_fwd", ("conv1x1_dw", "gdfn_fused")),
             (tfused, "fused_dwconv_bwd", ("conv1x1_dw_bwd", "gdfn_fused_bwd")),
             (tmdta, "mdta_attend_fwd", "mdta_attend"), (tdw, "dwconv3x3_fwd", "dwconv3x3"),
-            (tdw, "dwconv3x3_dx", "dwconv3x3_dx")]
+            (tdw, "dwconv3x3_dx", "dwconv3x3_dx"), (tdw, "dwconv3x3_dtaps", "dwconv3x3_dtaps")]
 
 
 @pytest.mark.parametrize("kernels", list(itertools.product(COMPOSITIONS, ATTENTION_CORES,

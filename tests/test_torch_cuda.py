@@ -22,8 +22,9 @@ backward, in another order of sums; cuDNN in fp32 with TF32 off), in each
 of the four block compositions, and with the opt-in attention core and
 depthwise tier (ops/mdta.py, ops/dwconv.py). The fused MDTA attend, whose
 Gram and norms are pixel sums added with atomics, and the depthwise
-kernel's backward (dx by the same kernel, dtaps a pixel sum) are held
-against float64 twins at the same 1e-5.
+kernel's backward (dx by the same kernel, dtaps a pixel sum in a fixed
+order, bitwise repeatable) are held against float64 twins at the same
+1e-5.
 """
 
 import pytest
@@ -317,12 +318,54 @@ def test_dwconv3x3_kernel_and_backward_match_plain(cuda_device, shape):
     assert build.LAUNCHES["dwconv3x3"] == n0 + 1
     assert _rel_err(got, tdw.dwconv3x3_plain(x, taps)) < RTOL
     leaves = [x.clone().requires_grad_(), taps.clone().requires_grad_()]
-    n0 = build.LAUNCHES["dwconv3x3_dx"]
+    n0 = {k: build.LAUNCHES[k] for k in ("dwconv3x3_dx", "dwconv3x3_dtaps")}
     tdw.dwconv3x3(*leaves).backward(g)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["dwconv3x3_dx"] == n0 + 1
+    assert {k: build.LAUNCHES[k] - n for k, n in n0.items()} == {
+        "dwconv3x3_dx": 1, "dwconv3x3_dtaps": 1}
     want = tblock._vjp_plain(tdw.dwconv3x3_plain, _double([x, taps]), g.double())
     _assert_grads_match([t.grad for t in leaves], want, ["dx", "dtaps"])
+
+
+# one shape of each copy width (16, 8 and 4 bytes: C % 4 == 0, C % 2 == 0,
+# odd C), each with a ragged column tile, channel chunk or row band
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,vec", [((2, 19, 23, 144), 4), ((1, 13, 37, 2042), 2),
+                                       ((3, 11, 29, 255), 1)])
+def test_dwconv3x3_and_its_rotated_dx_match_plain_at_each_copy_width(cuda_device, shape,
+                                                                      vec):
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn(*shape, device="cuda", generator=gen)
+    taps = torch.randn(shape[-1], 3, 3, device="cuda", generator=gen) * 0.3
+    assert tdw.dwconv_vec(shape[-1], x.data_ptr()) == vec
+    n0 = build.LAUNCHES["dwconv3x3_dx"]
+    got_fwd, got_dx = tdw.dwconv3x3_fwd(x, taps), tdw.dwconv3x3_dx(x, taps)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dwconv3x3_dx"] == n0 + 1
+    assert _rel_err(got_fwd, tdw.dwconv3x3_plain(x, taps)) < RTOL
+    assert _rel_err(got_dx, tdw.dwconv3x3_plain(x, taps.flip(1, 2))) < RTOL
+    # a row not aligned to 16 bytes takes the narrower copies
+    off = torch.empty(x.numel() + 1, device="cuda")[1:].view(shape).copy_(x)
+    assert tdw.dwconv_vec(shape[-1], off.data_ptr()) == 1
+    assert torch.equal(tdw.dwconv3x3_fwd(off, taps), got_fwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 20, 19, 6), (3, 16, 16, 144), (2, 9, 33, 1021),
+                                   (1, 13, 37, 2042), (3, 64, 64, 288), (1, 1, 1, 5),
+                                   (2, 7, 5, 1), (3, 128, 128, 144)])
+def test_dwconv3x3_dtaps_kernel_matches_float64_and_repeats_bitwise(cuda_device, shape):
+    """Ragged shapes, odd C, C = 1, a width of each copy class, and train
+    L1 at 3C."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x, g = (torch.randn(*shape, device="cuda", generator=gen) for _ in range(2))
+    n0 = build.LAUNCHES["dwconv3x3_dtaps"]
+    got, again = tdw.dwconv3x3_dtaps(x, g), tdw.dwconv3x3_dtaps(x, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dwconv3x3_dtaps"] == n0 + 2
+    assert got.shape == (shape[-1], 3, 3)
+    assert _rel_err(got.double(), tdw.dwconv3x3_dtaps_plain(x.double(), g.double())) < RTOL
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -366,6 +409,7 @@ def test_opt_in_tiers_on_the_card_match_the_cpu(cuda_device, composition, core, 
     want_launches = {"mdta_attend": 22 if core == "mdta" else 0,
                      "dwconv3x3": n_dw if depthwise == "dwconv" else 0}
     want_launches["dwconv3x3_dx"] = want_launches["dwconv3x3"]
+    want_launches["dwconv3x3_dtaps"] = want_launches["dwconv3x3"]
     for k, n in want_launches.items():
         assert build.LAUNCHES[k] - before.get(k, 0) == n, k
     want_out, want = run(cpu, "cpu")

@@ -25,27 +25,47 @@ HERE = Path(__file__).resolve().parents[1]
 NAMES = ["mdta_gram_fwd", "attn_apply_fwd", "mdta_gram_bwd", "attn_apply_bwd"]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def load(doc: str):
+    """Parse --root, put it first on the import path and return this
+    checkout's chip_smoke module (importing rcot_torch from the root), or
+    None without a card."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     root = Path(ap.parse_args().root).resolve()
     sys.path.insert(0, str(root))
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    torch = smoke.torch
-    if not torch.cuda.is_available():
-        print("port_gram_times: no CUDA card", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke.root = root
+    if not smoke.torch.cuda.is_available():
+        print(f"{Path(sys.argv[0]).stem}: no CUDA card", file=sys.stderr)
+        return None
+    smoke.torch.backends.cuda.matmul.allow_tf32 = False
+    smoke.torch.backends.cudnn.allow_tf32 = False
     smoke.build.library()
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    return smoke
+
+
+def time_shapes(smoke, names) -> dict:
+    """Times `names` at every serving (B = 1) and training (B = 3) block
+    shape; prints and returns one row per shape, by "serve L1" etc."""
+    gen = smoke.torch.Generator(device="cuda").manual_seed(0)
+    out = {}
     for tag, b, shapes in (("serve", 1, smoke.MAIN_SHAPES),
                            ("train", smoke.TRAIN_B, smoke.TRAIN_SHAPES)):
         for label, res, c, heads in shapes:
-            rows = smoke.kernel_timings(gen, label, res, c, heads, b, NAMES)
+            rows = smoke.kernel_timings(gen, label, res, c, heads, b, names)
+            out[f"{tag} {label}"] = rows
             print(json.dumps({"shape": f"{tag} {label}", **rows}), flush=True)
-    print(json.dumps({"root": str(root), "card": smoke.card_line()}))
+    return out
+
+
+def main() -> int:
+    smoke = load(__doc__)
+    if smoke is None:
+        return 1
+    time_shapes(smoke, NAMES)
+    print(json.dumps({"root": str(smoke.root), "card": smoke.card_line()}))
     return 0
 
 
