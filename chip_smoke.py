@@ -11,8 +11,8 @@ Phases (any failure exits non-zero; nothing is caught):
      (bitwise: its sums run in a fixed order);
   3b. hold each backward kernel against its plain twin at every block
      shape of the training path (128x128, B = 3), both LayerNorm types,
-     and the MDTA backward kernels' two calls on one input against each
-     other (bitwise: their sums run in a fixed order);
+     and the MDTA and block backward kernels' two calls on one input
+     against each other (bitwise: their sums run in a fixed order);
   3c. hold the fused dwconv tier's kernels (conv1x1_dw and gdfn_fused,
      forward and backward) against their plain twins at every training
      block shape;
@@ -93,7 +93,8 @@ gram_plain_fp32_vs_float64_rel_err), while the kernel (3xTF32 products,
 fp32 sums in a fixed order) stays well inside it. The backward kernels are held the same way: their per-pixel
 outputs (dx, da, d[q|k], dv) against the fp32 twin, their pixel sums
 (weight, LayerNorm and dattn grads, summed over up to 3 * 128^2 pixels,
-with atomics in the block kernels, in a fixed order in dattn's) against
+with atomics in the fused dwconv tier's kernels, in a fixed order in the
+block kernels' and dattn's) against
 the float64 twin, all at the same bound; d[q|k], a 3xTF32 product, also
 against its float64 twin. Card
 against CPU in training: each parameter's gradient within GRAD_RTOL of its
@@ -404,6 +405,12 @@ def check_bwd(name, got, plain32, plain64, errs) -> None:
             check(f"{name} out{i}", g, w32 if i < n_pix else w64, errs)
 
 
+def check_repeats(name, got, again) -> None:
+    """Two calls on one input give the same bits (sums in a fixed order)."""
+    if not all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{name}: two calls differ")
+
+
 def phase_backward(gen) -> dict:
     """Every backward kernel against its plain twins at the training shapes."""
     errs: dict = {}
@@ -415,15 +422,19 @@ def phase_backward(gen) -> dict:
             g = torch.randn(b, res, res, 3 * c, device="cuda", generator=gen)
             args = head_args(p) + (g,)
             got = kblock.block_head_bwd(*args)
+            again = kblock.block_head_bwd(*args)
             torch.cuda.synchronize()
             check_bwd(f"block_head_bwd {tag}", got, kblock.block_head_bwd_plain(*args),
                       kblock.block_head_bwd_plain(*_double(args)), errs)
+            check_repeats(f"block_head_bwd {tag}", got, again)
             g = torch.randn(b, res, res, c, device="cuda", generator=gen)
             args = tail_args(p) + (g,)
             got = kblock.block_tail_bwd(*args)
+            again = kblock.block_tail_bwd(*args)
             torch.cuda.synchronize()
             check_bwd(f"block_tail_bwd {tag}", got, kblock.block_tail_bwd_plain(*args),
                       kblock.block_tail_bwd_plain(*_double(args)), errs)
+            check_repeats(f"block_tail_bwd {tag}", got, again)
         ch = c // heads
         qkv = torch.randn(b, res, res, 3 * c, device="cuda", generator=gen)
         cot = [torch.randn(b, heads, ch, ch, device="cuda", generator=gen),
@@ -446,10 +457,8 @@ def phase_backward(gen) -> dict:
                   kgram.attn_apply_bwd_plain(qkv, attn, g),
                   kgram.attn_apply_bwd_plain(*_double([qkv, attn, g])), errs)
         # fixed-order sums: two calls on one input give the same bits
-        for name, x, y in (("mdta_gram_bwd", (got,), (again,)),
-                           ("attn_apply_bwd", got_a, again_a)):
-            if not all(torch.equal(u, w) for u, w in zip(x, y)):
-                raise AssertionError(f"{name} {label} B={b}: two calls differ")
+        check_repeats(f"mdta_gram_bwd {label} B={b}", (got,), (again,))
+        check_repeats(f"attn_apply_bwd {label} B={b}", got_a, again_a)
         log(f"backward kernels ok at {label} {res}^2 C={c} heads={heads} B={b}")
     return errs
 

@@ -48,16 +48,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dwconv.cuh"
+#include "tc.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // the most threads (tc * cv) a block has
 constexpr int kStages = 4;       // depth of the forward's cp.async ring of x rows
 constexpr int kDtapsStages = 4;  // and of dtaps's ring of x and g rows
 constexpr int kMaxVectors = 32;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // dst <- V floats at src, or zeros where !in (the source is not read);
 // L2 fetches the 256 bytes around src
@@ -71,14 +70,6 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src, bool in) 
     asm volatile("cp.async.ca.shared.global.L2::256B [%0], [%1], %2, %3;\n" ::"r"(to), "l"(src),
                  "n"(4 * V), "r"(in ? 4 * V : 0));
 }
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <int V>
 __device__ __forceinline__ void load_vec(float (&d)[V], const float* p) {
   if constexpr (V == 4) {
@@ -364,17 +355,12 @@ cudaError_t occupancy(int* blocks, Kernel k, int threads, size_t smem) {
 
 }  // namespace
 
-extern "C" {
+namespace rcot_dwconv {
 
-// x (B, H, W, C), taps (C, 3, 3) -> out (B, H, W, C); out must not alias
-// x. rot != 0 rotates the taps by 180 degrees (the backward's dx). vec,
-// cv, tc and rows are ops/dwconv.py dwconv_plan's; x and out 4 * vec-byte
-// aligned.
-int rcot_dwconv3x3(const float* x, const float* taps, float* out, int B, int H, int W, int C,
-                   int vec, int cv, int tc, int rows, int rot, void* stream) {
+cudaError_t conv(const float* x, const float* taps, float* out, int B, int H, int W, int C,
+                 int vec, int cv, int tc, int rows, bool rot, cudaStream_t st) {
   if ((long long)B * H * W * C == 0) return cudaSuccess;
   if (bad_plan(C, vec, cv, tc, rows)) return cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   if (vec == 4)
     rot ? launch_fwd<4, true>(x, taps, out, B, H, W, C, cv, tc, rows, st)
         : launch_fwd<4, false>(x, taps, out, B, H, W, C, cv, tc, rows, st);
@@ -385,6 +371,36 @@ int rcot_dwconv3x3(const float* x, const float* taps, float* out, int B, int H, 
     rot ? launch_fwd<1, true>(x, taps, out, B, H, W, C, cv, tc, rows, st)
         : launch_fwd<1, false>(x, taps, out, B, H, W, C, cv, tc, rows, st);
   return cudaGetLastError();
+}
+
+cudaError_t dtaps(const float* x, const float* g, float* ws, float* dtaps, int B, int H, int W,
+                  int C, int vec, int cv, int tc, int rows, cudaStream_t st) {
+  if (C == 0) return cudaSuccess;
+  if ((long long)B * H * W == 0 || bad_plan(C, vec, cv, tc, rows)) return cudaErrorInvalidValue;
+  if (vec == 4)
+    launch_dtaps<4>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  else if (vec == 2)
+    launch_dtaps<2>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  else
+    launch_dtaps<1>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid = grid_of(B, H, W, C, vec, cv, tc, rows);
+  const int parts = (int)(grid.x * grid.z), warps = parts < kReduceWarps ? parts : kReduceWarps;
+  dwconv_reduce_kernel<<<(unsigned)((9 * C + 31) / 32), 32 * warps, 0, st>>>(ws, dtaps, 9 * C,
+                                                                             parts);
+  return cudaGetLastError();
+}
+
+}  // namespace rcot_dwconv
+
+extern "C" {
+
+// x (B, H, W, C), taps (C, 3, 3) -> out (B, H, W, C) (rcot_dwconv::conv)
+int rcot_dwconv3x3(const float* x, const float* taps, float* out, int B, int H, int W, int C,
+                   int vec, int cv, int tc, int rows, int rot, void* stream) {
+  return rcot_dwconv::conv(x, taps, out, B, H, W, C, vec, cv, tc, rows, rot != 0,
+                           (cudaStream_t)stream);
 }
 
 // Blocks of tc * cv threads of the forward (dtaps == 0; dx takes as
@@ -404,28 +420,12 @@ int rcot_dwconv3x3_blocks_per_sm(int vec, int cv, int tc, int dtaps, int* blocks
                     : occupancy(blocks, dwconv3x3_kernel<1, false>, n, smem);
 }
 
-// x, g (B, H, W, C) -> dtaps (C, 3, 3), through the workspace ws of
-// B * bands * tiles * 9C floats (ops/dwconv.py dtaps_workspace_numel);
-// B * H * W > 0 (the wrapper writes the zeros of an empty image itself).
+// x, g (B, H, W, C) -> dtaps (C, 3, 3) (rcot_dwconv::dtaps)
 int rcot_dwconv3x3_dtaps(const float* x, const float* g, float* ws, float* dtaps, int B,
                          int H, int W, int C, int vec, int cv, int tc, int rows,
                          void* stream) {
-  if (C == 0) return cudaSuccess;
-  if ((long long)B * H * W == 0 || bad_plan(C, vec, cv, tc, rows)) return cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (vec == 4)
-    launch_dtaps<4>(x, g, ws, B, H, W, C, cv, tc, rows, st);
-  else if (vec == 2)
-    launch_dtaps<2>(x, g, ws, B, H, W, C, cv, tc, rows, st);
-  else
-    launch_dtaps<1>(x, g, ws, B, H, W, C, cv, tc, rows, st);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid = grid_of(B, H, W, C, vec, cv, tc, rows);
-  const int parts = (int)(grid.x * grid.z), warps = parts < kReduceWarps ? parts : kReduceWarps;
-  dwconv_reduce_kernel<<<(unsigned)((9 * C + 31) / 32), 32 * warps, 0, st>>>(ws, dtaps, 9 * C,
-                                                                             parts);
-  return cudaGetLastError();
+  return rcot_dwconv::dtaps(x, g, ws, dtaps, B, H, W, C, vec, cv, tc, rows,
+                            (cudaStream_t)stream);
 }
 
 }  // extern "C"

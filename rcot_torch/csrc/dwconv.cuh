@@ -1,0 +1,24 @@
+// The depthwise 3x3 kernels of dwconv.cu (row 11), for other kernels'
+// launchers: block_bwd.cu runs its three depthwise stages through them.
+// The plan (vec, cv, tc, rows) is ops/dwconv.py's dwconv_plan, made in
+// Python and passed in; both launch on `st` and return the launch's error.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace rcot_dwconv {
+
+// x (B, H, W, C), taps (C, 3, 3) -> out (B, H, W, C), zeros outside the
+// image; rot rotates the taps by 180 degrees (the backward's dx). out must
+// not alias x; x and out 4 * vec-byte aligned.
+cudaError_t conv(const float* x, const float* taps, float* out, int B, int H, int W, int C,
+                 int vec, int cv, int tc, int rows, bool rot, cudaStream_t st);
+
+// dtaps[c, i, j] = sum over pixels of g[b, y, x, c] x[b, y + i - 1, x + j - 1, c],
+// through the workspace ws of ops/dwconv.py dtaps_workspace_numel floats,
+// summed in a fixed order (bitwise repeatable); B * H * W > 0.
+cudaError_t dtaps(const float* x, const float* g, float* ws, float* dtaps, int B, int H, int W,
+                  int C, int vec, int cv, int tc, int rows, cudaStream_t st);
+
+}  // namespace rcot_dwconv

@@ -71,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -80,27 +82,6 @@ constexpr int kThreads = 256;
 constexpr int kGramStages = 3;   // depth of each kernel's cp.async ring
 constexpr int kApplyStages = 3;
 constexpr int kApplyTP = 128;    // pixels per apply tile: eight warps of 16 rows
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// dst <- src (16 or 4 bytes), or zeros where !in (the source is not read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows [p0, p0 + rows) of a head slice (row r at src + r * stride, ch
 // floats) into a tile of pitch ld; rows at or past `end` are zero-filled.
@@ -129,41 +110,6 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
       ++r;
     }
   }
-}
-
-// x = hi + lo + O(2^-22 |x|), hi and lo tf32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-// d += a b on the tensor cores. Not volatile, so that the compiler may
-// interleave independent products and hide each one's latency.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32 over a warp's M x N tiles of one 8-deep step: acc[i][j] += a_i b_j
-// as al bh + ah bl + ah bh (al bl, ~2^-22 of the product, dropped), each
-// term over every tile before the next, so that no product waits on the
-// one before it. Tiles outside the matrix (use_m, use_n false) are skipped.
-template <int M, int N>
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[M][N][4], uint32_t (&ah)[M][4],
-                                           uint32_t (&al)[M][4], uint32_t (&bh)[N][2],
-                                           uint32_t (&bl)[N][2], const bool (&use_m)[M],
-                                           const bool (&use_n)[N]) {
-#pragma unroll
-  for (int term = 0; term < 3; ++term)
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        if (use_m[i] && use_n[j])
-          mma_tf32(acc[i][j], term == 0 ? al[i] : ah[i], term == 1 ? bl[j] : bh[j]);
 }
 
 // The Gram at head width ch <= 16R: G (16R x 16R, zero-padded) in 16 x 8
@@ -900,27 +846,6 @@ apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
       for (int w = 0; w < G::WK; ++w) v += smem[w * E + c * RP + d];
       out[c * ch + d] = v;
     }
-}
-
-// Raise the dynamic shared-memory limit of a kernel's two variants to
-// `floats`, once per device (the attribute is the device's): `done` is the
-// caller's function-local flags. A failure is returned and tried again on
-// the next call.
-constexpr int kMaxDevices = 64;
-
-template <typename Kernel>
-cudaError_t allow_smem(bool (&done)[kMaxDevices], Kernel k1, Kernel k2, int floats) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || (dev < kMaxDevices && done[dev])) return e;
-  const Kernel ks[2] = {k1, k2};
-  for (int i = 0; i < 2; ++i) {
-    e = cudaFuncSetAttribute(ks[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sizeof(float) * floats);
-    if (e != cudaSuccess) return e;
-  }
-  if (dev < kMaxDevices) done[dev] = true;
-  return cudaSuccess;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

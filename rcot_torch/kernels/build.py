@@ -2,11 +2,11 @@
 
 Every `rcot_torch/csrc/*.cu` file is compiled with nvcc for sm_90a, each
 source by its own nvcc process and all of them at once, then linked into
-one shared library with a plain C interface that ctypes loads. Nothing is
-built when a module is imported: the first kernel launch builds, into
-`build/kernels/` at the root of the checkout, under a name that hashes the
-sources and flags, so a changed source is rebuilt and an unchanged one is
-loaded as it is.
+one shared library with a plain C interface that ctypes loads; the sources
+share the headers `csrc/*.cuh`. Nothing is built when a module is imported:
+the first kernel launch builds, into `build/kernels/` at the root of the
+checkout, under a name that hashes the sources, the headers and the flags,
+so a changed source is rebuilt and an unchanged one is loaded as it is.
 
 Each C entry point returns cudaGetLastError() (or the error of a failed
 set-up call); `call` raises when it is not 0. Launch counts live in
@@ -47,10 +47,10 @@ SIGNATURES = {
     "rcot_mdta_gram": [_P] * 5 + [_I, _L, _I, _I, _I, _L, _P],
     # qkv, attn, out; B, hw, heads, ch, blocks, tiles per block; stream
     "rcot_attn_apply": [_P, _P, _P, _I, _L, _I, _I, _I, _L, _P],
-    # inputs 6, outputs 5, workspace 5; B, H, W, C, M; stream
-    "rcot_block_head_bwd": [_P] * 16 + [_I] * 5 + [_P],
-    # inputs 9, outputs 8, workspace 9; B, H, W, C, hid; stream
-    "rcot_block_tail_bwd": [_P] * 26 + [_I] * 5 + [_P],
+    # inputs 6, outputs 5, workspace 6, plan (ops/block.py); B, H, W, C, M; stream
+    "rcot_block_head_bwd": [_P] * 17 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # inputs 9, outputs 8, workspace 9, plan; B, H, W, C, hid; stream
+    "rcot_block_tail_bwd": [_P] * 26 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # qkv, dG, dnq, dnk, d[q|k]; B, hw, heads, ch, blocks, tiles per block; stream
     "rcot_mdta_gram_bwd": [_P] * 5 + [_I, _L, _I, _I, _I, _L, _P],
     # qkv, attn, g, dv, dattn, workspace; B, hw, heads, ch, splits, pixels per split; stream
@@ -95,9 +95,13 @@ def nvcc_path() -> str:
     return found
 
 
+def headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *headers()]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

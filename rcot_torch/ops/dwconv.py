@@ -105,14 +105,19 @@ def blocks_per_sm(device_index: int, vec: int, cv: int, tc: int, dtaps: bool) ->
     return n.value
 
 
+def dwconv_plan(b: int, h: int, w: int, c: int, device_index: int, vec: int,
+                dtaps: bool) -> Tuple[int, int, int]:
+    """-> (cv, tc, rows) of a launch on (B,H,W,C) on this card: the forward
+    and dx (dtaps False) or dtaps."""
+    cv, tc = dwconv_tile(c, w, vec)
+    return cv, tc, dwconv_rows(b, h, w, c, vec, sm_count(device_index),
+                               blocks_per_sm(device_index, vec, cv, tc, dtaps),
+                               DTAPS_MAX_PIXELS if dtaps else 0)
+
+
 def _plan(x: torch.Tensor, vec: int, dtaps: bool) -> Tuple[int, int, int]:
     """-> (cv, tc, rows) of a launch on x (B,H,W,C)."""
-    b, h, w, c = x.shape
-    cv, tc = dwconv_tile(c, w, vec)
-    dev = x.device.index
-    return cv, tc, dwconv_rows(b, h, w, c, vec, sm_count(dev),
-                               blocks_per_sm(dev, vec, cv, tc, dtaps),
-                               DTAPS_MAX_PIXELS if dtaps else 0)
+    return dwconv_plan(*x.shape, x.device.index, vec, dtaps)
 
 
 def dtaps_workspace_numel(b: int, h: int, w: int, c: int, tc: int, rows: int) -> int:

@@ -13,7 +13,8 @@ float64: in fp32 on the card the twin's own rounding comes near the
 tolerance. Its kernel sums in a fixed order, so two calls agree bitwise. The
 backward kernels, whose weight grads are such sums too, are held against
 their plain twins run in float64, every output at the same 1e-5; the MDTA
-backward kernels sum in a fixed order too, and two calls agree bitwise.
+and block backward kernels sum in a fixed order too, and two calls agree
+bitwise.
 
 The autograd case holds a small T_net on the card against the same model
 on the CPU: every parameter's gradient agrees within 1e-4 of that
@@ -214,6 +215,73 @@ def test_block_bwd_kernels_match_float64_plain(cuda_device, shape, ln_bias):
     _assert_grads_match(got, tblock.block_tail_bwd_plain(*_double(tail + [g])),
                         ["dx", "da", "dw_proj", "dln_w", "dln_b", "dw_in", "ddw",
                          "dw_out"])
+
+
+def _block_bwd_calls(p, b, h, w, c, gen):
+    """{name: (wrapper, its inputs with a cotangent)} of both row-5 configs."""
+    head = [p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"]]
+    tail = [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")]
+    return {"block_head_bwd": (tblock.block_head_bwd, head + [
+                torch.randn(b, h, w, 3 * c, device="cuda", generator=gen)]),
+            "block_tail_bwd": (tblock.block_tail_bwd, tail + [
+                torch.randn(b, h, w, c, device="cuda", generator=gen)])}
+
+
+# row 5 sums in a fixed order (no atomics): two calls give the same bits,
+# and each call is one launch of its own count and of no other; fewer than
+# 512 pixels (one range), widths that are no multiple of a tile, odd h
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 20, 19, 6), (3, 32, 32, 48), (1, 9, 33, 384),
+                                   (2, 16, 24, 96)])
+@pytest.mark.parametrize("ln_bias", [True, False], ids=["WithBias", "BiasFree"])
+def test_block_bwd_kernels_repeat_bitwise_in_one_launch_each(cuda_device, shape, ln_bias):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    p = _block_inputs(gen, *shape, ln_bias)
+    for name, (fn, args) in _block_bwd_calls(p, *shape, gen).items():
+        before = dict(build.LAUNCHES)
+        first = fn(*args)
+        torch.cuda.synchronize()
+        after = dict(build.LAUNCHES)
+        assert after.pop(name) == before.pop(name, 0) + 1, name
+        assert after == before, name
+        again = fn(*args)
+        torch.cuda.synchronize()
+        for i, (x, y) in enumerate(zip(first, again)):
+            assert (x is None) == (y is None), (name, i)
+            assert x is None or torch.equal(x, y), (name, i)
+
+
+# operands at a 4-byte offset from their allocation take 4-byte copies
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 12, 13, 48), (1, 8, 9, 96)])
+def test_block_bwd_kernels_take_unaligned_operands(cuda_device, shape):
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    p = _block_inputs(gen, *shape, True)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device="cuda")
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    p = {k: None if v is None else shifted(v) for k, v in p.items()}
+    for name, (fn, args) in _block_bwd_calls(p, *shape, gen).items():
+        args = [None if t is None else shifted(t) for t in args]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        plain = (tblock.block_head_bwd_plain if name == "block_head_bwd"
+                 else tblock.block_tail_bwd_plain)
+        want = plain(*_double(args))
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert (a is None) == (b is None), (name, i)
+            assert a is None or _rel_err(a.double(), b) < RTOL, (name, i)
+
+
+@pytest.mark.cuda
+def test_block_bwd_wrappers_refuse_more_than_512_channels(cuda_device):
+    p = _block_inputs(torch.Generator(device="cuda").manual_seed(11), 1, 2, 2, 520, True)
+    with pytest.raises(ValueError, match="512"):
+        tblock.block_tail_bwd(*[p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in",
+                                               "dw_in", "w_out")], p["x"])
 
 
 # (heads, ch, (H, W)) at B = 2: 16-byte copies and 4-byte ones (ch = 5,
