@@ -7,8 +7,13 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the CUDA kernels from rcot_torch/csrc with nvcc (sm_90a);
   3. hold each forward kernel against its plain PyTorch twin on the card at
      every block shape of a 256x256 forward, B = 1 and 2, both LayerNorm
-     types, and the Gram's two calls on one input against each other
-     (bitwise: its sums run in a fixed order);
+     types, and the Gram's and the block head's and tail's two calls on one
+     input against each other (bitwise: their sums run in a fixed order);
+     the block head and tail against their float64 twins, there and at every
+     training block shape (B = 1 and 2, both LayerNorm types), at each
+     block shape of phase 4's 250x321 image and nine-tile 600x600 one, at
+     C = 6, with every operand 4 bytes off its allocation, and on a W_out
+     product of K = h = 1,021 terms that never cancel;
   3b. hold each backward kernel against its plain twin at every block
      shape of the training path (128x128, B = 3), both LayerNorm types,
      and the MDTA and block backward kernels' two calls on one input
@@ -36,7 +41,8 @@ Phases (any failure exits non-zero; nothing is caught):
      launches of mdta_attend and 188 of dwconv3x3 per two-pass forward and
      no other kernel, the outputs against the default's, img/s at 256 px,
      batch 1 and 8;
-  5. time images/s at 256 px, batch 1 and 8, and each kernel at every
+  5. time images/s at 256 px, batch 1 and 8 (with the peak of
+     torch.cuda.max_memory_allocated at batch 8), and each kernel at every
      block shape of serving and of training (the latter before phase 6)
      beside its bound, its plain twin and, where one exists, a
      single PyTorch call computing the same product, each both as `ms`
@@ -306,14 +312,15 @@ def sm_clock_mhz():
 
 # ------------------------------------------------------------ inputs
 
-def block_inputs(gen, b, res, c, ln_bias):
+def block_inputs(gen, b, res, c, ln_bias, w=None):
+    """Block inputs at (b, res, w or res, c), weights at their init scales."""
     hid = int(c * 2.66)
     m = 3 * c
 
     def r(*shape, loc=0.0, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=gen) * scale + loc
     return dict(
-        x=r(b, res, res, c), a=r(b, res, res, c),
+        x=r(b, res, w or res, c), a=r(b, res, w or res, c),
         ln_w=r(c, loc=1.0, scale=0.1), ln_b=r(c, scale=0.1) if ln_bias else None,
         w_qkv=r(m, c, scale=c ** -0.5), dw_qkv=r(m, 3, 3, scale=0.3),
         w_proj=r(c, c, scale=c ** -0.5), w_in=r(2 * hid, c, scale=c ** -0.5),
@@ -348,6 +355,22 @@ def check(name, got, want, errs) -> None:
 
 # ------------------------------------------------------------ phases
 
+def check_block_fwd(tag, p, errs) -> torch.Tensor:
+    """Rows 1-2 on the block inputs p against their float64 twins, and two
+    calls on one input bitwise equal (their sums run in a fixed order);
+    returns the head's qkv."""
+    out = {}
+    for name, fn, plain, args in (
+            ("block_head", kblock.block_head, kblock.block_head_plain, head_args(p)),
+            ("block_tail", kblock.block_tail, kblock.block_tail_plain, tail_args(p))):
+        got, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        check(f"{name} {tag}", got, plain(*_double(args)), errs)
+        check_repeats(f"{name} {tag}", (got,), (again,))
+        out[name] = got
+    return out["block_head"]
+
+
 def phase_kernels(gen) -> dict:
     """Every kernel against its plain twin at the main-path shapes."""
     errs: dict = {}
@@ -356,12 +379,7 @@ def phase_kernels(gen) -> dict:
             for ln_bias in (True, False):
                 p = block_inputs(gen, b, res, c, ln_bias)
                 tag = f"{label} B={b} {'WithBias' if ln_bias else 'BiasFree'}"
-                qkv = kblock.block_head(*head_args(p))
-                torch.cuda.synchronize()
-                check(f"block_head {tag}", qkv, kblock.block_head_plain(*head_args(p)), errs)
-                y = kblock.block_tail(*tail_args(p))
-                torch.cuda.synchronize()
-                check(f"block_tail {tag}", y, kblock.block_tail_plain(*tail_args(p)), errs)
+                qkv = check_block_fwd(tag, p, errs)
             gram = kgram.mdta_gram_fwd(qkv, heads)
             again = kgram.mdta_gram_fwd(qkv, heads)
             torch.cuda.synchronize()
@@ -382,6 +400,54 @@ def phase_kernels(gen) -> dict:
                   kgram.attn_apply_plain(qkv, attn), errs)
             log(f"kernels ok at {label} {res}^2 C={c} heads={heads} B={b}")
     return errs
+
+
+def shifted(t):
+    """A copy of t that starts 4 bytes past its allocation (None stays None)."""
+    if t is None:
+        return None
+    out = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def drift_inputs(gen, c):
+    """Tail inputs at (1, 32, 32, c) whose y is the W_out product alone (x
+    = a = 0, so t = 0) over K = h positive terms: LN2(0) = ln_b > 0, and
+    W_in, the taps and W_out positive, so that no term cancels and a
+    tensor-core accumulation that drifts (rcot_torch/csrc/mm.cuh, mm_kernel)
+    shows in full."""
+    p = block_inputs(gen, 1, 32, 32, c, True)
+    p["x"], p["a"] = torch.zeros_like(p["x"]), torch.zeros_like(p["a"])
+    for k in ("ln_b", "w_in", "dw_in", "w_out"):
+        p[k] = p[k].abs()
+    return p
+
+
+def phase_block_fwd(gen, errs) -> None:
+    """Rows 1-2 beyond serving's shapes, on inputs of their own: every
+    training block shape at B = 1 and 2 in both LayerNorm kinds; each block
+    shape of the 250x321 image (padded to 256x328) and of the 600x600 image
+    in nine 256 px tiles (B = 9) that phase 4 serves; C = 6 (h = 15);
+    every operand 4 bytes past its allocation (4-byte copies); and the mma
+    chain of the W_out product at K = h = 1,021 on terms that never cancel.
+    Each against its float64 twin, two calls bitwise equal; the worst
+    errors join errs."""
+    cases = [(f"train {label} B={b} {'WithBias' if ln_bias else 'BiasFree'}",
+              block_inputs(gen, b, res, c, ln_bias))
+             for label, res, c, _ in TRAIN_SHAPES for b in (1, 2) for ln_bias in (True, False)]
+    for label, res, c, _ in MAIN_SHAPES:
+        f = 256 // res
+        for tag, b, h, w in (("250x321", 1, 256 // f, 328 // f), ("600x600 tiles", 9, res, res)):
+            cases.append((f"{tag} {label} {(b, h, w, c)}",
+                          block_inputs(gen, b, h, c, True, w=w)))
+    cases.append(("odd C=6 h=15 (2, 20, 19, 6)", block_inputs(gen, 2, 20, 6, True, w=19)))
+    for label, res, c, _ in (TRAIN_SHAPES[0], TRAIN_SHAPES[3]):
+        p = {k: shifted(v) for k, v in block_inputs(gen, 2, res, c, True).items()}
+        cases.append((f"unaligned train {label} B=2", p))
+    cases.append(("mma-chain drift K=h=1021 (1, 32, 32, 384)", drift_inputs(gen, 384)))
+    for tag, p in cases:
+        check_block_fwd(tag, p, errs)
+    log(f"block forward kernels ok at {len(cases)} further cases")
 
 
 # leading per-pixel outputs of each backward kernel (the rest are pixel sums)
@@ -1519,6 +1585,8 @@ def main() -> int:
     gen_opt = torch.Generator(device="cuda").manual_seed(1)
     gen_np_opt = np.random.default_rng(1)
     errs = phase_kernels(gen)
+    # rows 1-2 beyond serving's shapes draw from a generator of their own
+    phase_block_fwd(torch.Generator(device="cuda").manual_seed(3), errs)
     errs.update(phase_backward(gen))
     errs.update(phase_fused(gen))
     errs.update(phase_opt_in_kernels(gen_opt))
@@ -1526,9 +1594,11 @@ def main() -> int:
     serve_opt = phase_serve_opt_in(gen_np_opt, model["net"], card)
 
     ips1 = images_per_sec(model["restorer"], gen_np, 1, 10)
+    torch.cuda.reset_peak_memory_stats()
     ips8 = images_per_sec(model["restorer"], gen_np, 8, 3)
+    peak8 = torch.cuda.max_memory_allocated()
     log(f"256px restore_batch: {ips1:.3f} img/s at batch 1, {ips8:.3f} img/s "
-        f"at batch 8 ({card})")
+        f"at batch 8, peak memory {peak8} bytes ({card})")
 
     serve_kernels = composition_kernels("full", backward=False) + [
         "mdta_attend", "dwconv3x3", "dwconv3x3_qkv"]
@@ -1594,7 +1664,7 @@ def main() -> int:
                 name: {k: v for k, v in t.items() if k != "shape"}
                 for name, t in tt[label].items()}}))
     log(json.dumps({"e2e_256px": {"batch1_img_per_s": ips1, "batch8_img_per_s": ips8,
-                                  "card": card},
+                                  "batch8_max_memory_allocated": peak8, "card": card},
                     "forward_256px_b1": breakdown,
                     "train_128px_b3": {"iterations_per_s": train["it_per_s"],
                                        "iterations_per_s_runs": train["it_per_s_runs"],

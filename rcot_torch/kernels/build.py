@@ -41,8 +41,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 SIGNATURES = {
-    "rcot_block_head": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rcot_block_tail": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
+    # inputs 5, output 1, workspace 4, plan (ops/block.py); B, H, W, C, M; stream
+    "rcot_block_head": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # inputs 8, output 1, workspace 6, plan; B, H, W, C, hid; stream
+    "rcot_block_tail": [_P] * 15 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # qkv, G, nq, nk, workspace; B, hw, heads, ch, splits, pixels per split; stream
     "rcot_mdta_gram": [_P] * 5 + [_I, _L, _I, _I, _I, _L, _P],
     # qkv, attn, out; B, hw, heads, ch, blocks, tiles per block; stream

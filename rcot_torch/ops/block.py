@@ -15,8 +15,8 @@ BlockTail). As the JAX custom VJP does, the forward saves only the inputs
 and weights, and the backward recomputes the rest. A CUDA tensor goes to
 the kernels of csrc/block_fwd.cu and csrc/block_bwd.cu; a CPU tensor to the
 plain twins below, composed from the port's ops and differentiated by
-autograd, so they share none of the kernels' formulas. The backward
-kernels take their launch plan from block_bwd_plan below.
+autograd, so they share none of the kernels' formulas. The kernels take
+their launch plans from block_fwd_plan and block_bwd_plan below.
 """
 
 from __future__ import annotations
@@ -75,22 +75,30 @@ def block_tail_bwd_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
 
 def block_head_fwd(x: torch.Tensor, ln_w: torch.Tensor, ln_b: Optional[torch.Tensor],
                    w_qkv: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
-    """x (B,H,W,C) -> qkv (B,H,W,M); w_qkv (M,C), dwk (M,3,3)."""
+    """x (B,H,W,C) -> qkv (B,H,W,M); w_qkv (M,C), dwk (M,3,3). On the card
+    two calls on the same inputs give the same bits."""
     if not x.is_cuda:
         return block_head_plain(x, ln_w, ln_b, w_qkv, dwk)
     b, h, w, c = x.shape
     m = w_qkv.shape[0]
+    n = b * h * w
     dev = x.device
-    build.check_arg("x", x, (b, h, w, c), dev)
-    build.check_arg("ln_w", ln_w, (c,), dev)
-    build.check_arg("ln_b", ln_b, (c,), dev)
-    build.check_arg("w_qkv", w_qkv, (m, c), dev)
-    build.check_arg("dwk", dwk, (m, 3, 3), dev)
+    for name, t, shape in (("x", x, (b, h, w, c)), ("ln_w", ln_w, (c,)),
+                           ("ln_b", ln_b, (c,)), ("w_qkv", w_qkv, (m, c)),
+                           ("dwk", dwk, (m, 3, 3))):
+        build.check_arg(name, t, shape, dev)
+    _check_channels(c)
     out = torch.empty(b, h, w, m, device=dev)
+    # u, stats, h
+    buf, ws = _workspaces(dev, fwd_workspace_numel(n, c, m, False))
+    vecs = fwd_vecs(c, m, False, {"u": ws[0], "w_qkv": w_qkv.data_ptr(), "h": ws[2],
+                                  "out": out.data_ptr()})
+    plan, n_sums = _fwd_card_plan(b, h, w, c, m, False, dev.index, *vecs)
+    sums = torch.empty(n_sums, device=dev) if n_sums else None
     with torch.cuda.device(dev):
-        build.call("rcot_block_head", x.data_ptr(), ln_w.data_ptr(),
-                   build.ptr(ln_b), w_qkv.data_ptr(), dwk.data_ptr(),
-                   out.data_ptr(), b, h, w, c, m, build.stream())
+        build.call("rcot_block_head", x.data_ptr(), ln_w.data_ptr(), build.ptr(ln_b),
+                   w_qkv.data_ptr(), dwk.data_ptr(), out.data_ptr(), *ws, build.ptr(sums),
+                   plan, b, h, w, c, m, build.stream())
     build.LAUNCHES["block_head"] += 1
     return out
 
@@ -100,29 +108,33 @@ def block_tail_fwd(x: torch.Tensor, a: torch.Tensor, w_proj: torch.Tensor,
                    w_in: torch.Tensor, dwk: torch.Tensor,
                    w_out: torch.Tensor) -> torch.Tensor:
     """x, a (B,H,W,C) -> y (B,H,W,C); w_proj (C,C), w_in (2h,C),
-    dwk (2h,3,3), w_out (C,h). One launch is the two CUDA kernels of the
-    tail (projection, then GDFN; csrc/block_fwd.cu says why)."""
+    dwk (2h,3,3), w_out (C,h). On the card two calls on the same inputs
+    give the same bits."""
     if not x.is_cuda:
         return block_tail_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out)
     b, h, w, c = x.shape
     hid = w_out.shape[1]
+    n = b * h * w
     dev = x.device
-    build.check_arg("x", x, (b, h, w, c), dev)
-    build.check_arg("a", a, (b, h, w, c), dev)
-    build.check_arg("w_proj", w_proj, (c, c), dev)
-    build.check_arg("ln_w", ln_w, (c,), dev)
-    build.check_arg("ln_b", ln_b, (c,), dev)
-    build.check_arg("w_in", w_in, (2 * hid, c), dev)
-    build.check_arg("dwk", dwk, (2 * hid, 3, 3), dev)
-    build.check_arg("w_out", w_out, (c, hid), dev)
-    t_scratch = torch.empty_like(x)
+    for name, t, shape in (("x", x, (b, h, w, c)), ("a", a, (b, h, w, c)),
+                           ("w_proj", w_proj, (c, c)), ("ln_w", ln_w, (c,)),
+                           ("ln_b", ln_b, (c,)), ("w_in", w_in, (2 * hid, c)),
+                           ("dwk", dwk, (2 * hid, 3, 3)), ("w_out", w_out, (c, hid))):
+        build.check_arg(name, t, shape, dev)
+    _check_channels(c)
     y = torch.empty_like(x)
+    # t, stats, u, h, conv
+    buf, ws = _workspaces(dev, fwd_workspace_numel(n, c, 2 * hid, True))
+    ptrs = {"a": a.data_ptr(), "u": ws[2], "w_proj": w_proj.data_ptr(),
+            "w_in": w_in.data_ptr(), "h": ws[3], "conv": ws[4], "w_out": w_out.data_ptr()}
+    plan, n_sums = _fwd_card_plan(b, h, w, c, 2 * hid, True, dev.index,
+                                  *fwd_vecs(c, 2 * hid, True, ptrs))
+    sums = torch.empty(n_sums, device=dev) if n_sums else None
     with torch.cuda.device(dev):
-        build.call("rcot_block_tail", x.data_ptr(), a.data_ptr(),
-                   w_proj.data_ptr(), ln_w.data_ptr(), build.ptr(ln_b),
-                   w_in.data_ptr(), dwk.data_ptr(), w_out.data_ptr(),
-                   t_scratch.data_ptr(), y.data_ptr(), b, h, w, c, hid,
-                   build.stream())
+        build.call("rcot_block_tail",
+                   *(t.data_ptr() for t in (x, a, w_proj, ln_w)), build.ptr(ln_b),
+                   *(t.data_ptr() for t in (w_in, dwk, w_out, y)), *ws, build.ptr(sums),
+                   plan, b, h, w, c, hid, build.stream())
     build.LAUNCHES["block_tail"] += 1
     return y
 
@@ -256,7 +268,110 @@ def _card_plan(b, h, w, c, width, tail, device_index, vec_c, vec_h, vec_m):
 def _check_channels(c: int) -> None:
     if c > LN_MAX_CHANNELS:
         raise ValueError(f"{c} channels > {LN_MAX_CHANNELS} is not supported by the "
-                         "block backward kernels")
+                         "block kernels")
+
+
+# The launch plan of csrc/block_fwd.cu's forward kernels, made as the
+# backward's is (the same products, LayerNorm and depthwise forward): the
+# LayerNorm forward's blocks (ln_plan), the K splits of the per-pixel
+# products t, h and out (the tail's gated W_out product; split_plan) and
+# row 11's (vec, cv, tc, rows) of the depthwise forward, as FWD_PLAN_INTS
+# ints. Copy widths come in width classes, C (a, u, W_proj, W_in, W_qkv),
+# h (either half of conv, W_out's rows) and the gate's rows: an odd h
+# leaves the c2 half 4-byte aligned, and its class takes 4-byte copies;
+# the gate of a gate pass lies in rows padded to 4 floats (gate_ld).
+# The tail's W_out product takes the gate gelu(c1) c2 as it stages conv
+# where C <= GATE_FUSED_MAX_C, one output tile wide; a wider C would take
+# it anew in each of its output tiles, and the gate is a pass of its own
+# into h's buffer, read by a plain product (gate_pass). On the card the
+# fused gate was the faster at C = 48 and the pass from C = 96 up (PERF.md).
+FWD_PLAN_INTS = 15
+GATE_FUSED_MAX_C = MM_TILE_N
+
+
+class FwdPlan(NamedTuple):
+    """A forward's launch plan; `ints()` is what the kernel takes."""
+    ln_blocks: int                       # blocks of the LayerNorm forward
+    vec_c: int                           # copy widths of the C- and h-wide operands
+    vec_h: int
+    vec_g: int                           # ... and of the gate's padded rows
+    splits: Tuple[Tuple[int, int], ...]  # (K ranges, depth a range) of t, h, out
+    dw_conv: Tuple[int, int, int, int]   # (vec, cv, tc, rows) of the depthwise forward
+    gate_pass: int                       # 1: the tail's gate as a pass of its own
+    sums_numel: int                      # floats of the split partials' workspace
+
+    def ints(self) -> Tuple[int, ...]:
+        out = (self.ln_blocks, self.vec_c, self.vec_h, self.vec_g,
+               *(k for split in self.splits for k in split), *self.dw_conv, self.gate_pass)
+        assert len(out) == FWD_PLAN_INTS
+        return out
+
+
+def block_fwd_plan(b: int, h: int, w: int, c: int, width: int, tail: bool, n_sm: int,
+                   vecs: Tuple[int, int, int], dw_conv: Tuple[int, int, int, int]) -> FwdPlan:
+    """The plan of a forward on (B,H,W,C) with depthwise width `width` (2h
+    in the tail, 3C in the head) on a card of n_sm SMs; vecs the copy
+    widths of the C class, the h class and the gate's rows, dw_conv row
+    11's (vec, cv, tc, rows) on (B,H,W,width)."""
+    n = b * h * w
+    # (n, k) of t, h and out (None: not run)
+    prods = ((c, c), (width, c), (c, width // 2)) if tail else (None, (width, c), None)
+    splits = tuple((1, 0) if nk is None else split_plan(n, *nk, n_sm) for nk in prods)
+    numel = max([0] + [s * n * nk[0] for (s, _), nk in zip(splits, prods) if s > 1])
+    return FwdPlan(ln_plan(n, n_sm)[0], *vecs, splits, dw_conv,
+                   int(tail and c > GATE_FUSED_MAX_C), numel)
+
+
+def _workspaces(dev, sizes) -> Tuple[torch.Tensor, list]:
+    """One allocation that holds workspaces of these sizes (floats), each
+    starting on a 512-byte boundary, as the caching allocator's blocks do
+    -> (the tensor, which must outlive the launch, and their addresses)."""
+    starts, total = [], 0
+    for k in sizes:
+        starts.append(total)
+        total += _cdiv(k, 128) * 128
+    buf = torch.empty(total, device=dev)
+    return buf, [buf.data_ptr() + 4 * s for s in starts]
+
+
+def gate_ld(hid: int) -> int:
+    """Floats between rows of a gate pass's gate: hid rounded up to 4."""
+    return _cdiv(hid, 4) * 4
+
+
+def fwd_workspace_numel(n: int, c: int, width: int, tail: bool) -> Tuple[int, ...]:
+    """Floats of each workspace of a forward on n pixels, in the order the
+    kernel takes them: the tail's t, stats, u, h, conv (h's buffer takes
+    the gate of a gate pass, n rows of gate_ld(h)), the head's u, stats, h."""
+    if tail:
+        return n * c, 2 * n, n * c, n * max(width, gate_ld(width // 2)), n * width
+    return n * c, 2 * n, n * width
+
+
+def fwd_vecs(c: int, width: int, tail: bool, ptrs: dict) -> Tuple[int, int, int, int]:
+    """-> copy widths of the C class, the h class, the gate's rows and the
+    depthwise width of a forward whose operands start at ptrs (name ->
+    address): the tail's a, u, w_proj, w_in, h, conv, w_out, the head's u,
+    w_qkv, h, out. The h class takes conv's two halves (at columns 0 and h
+    of its rows) and W_out's rows, the gate's rows lie gate_ld(h) floats
+    apart in h's buffer; the head has neither (1)."""
+    if tail:
+        hid = width // 2
+        return (kdw.dwconv_vec(c, *(ptrs[k] for k in ("a", "u", "w_proj", "w_in"))),
+                kdw.dwconv_vec(hid, *(ptrs[k] for k in ("conv", "w_out"))),
+                kdw.dwconv_vec(gate_ld(hid), ptrs["h"]),
+                kdw.dwconv_vec(width, ptrs["h"], ptrs["conv"]))
+    return (kdw.dwconv_vec(c, ptrs["u"], ptrs["w_qkv"]), 1, 1,
+            kdw.dwconv_vec(width, ptrs["h"], ptrs["out"]))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_card_plan(b, h, w, c, width, tail, device_index, vec_c, vec_h, vec_g, vec_m):
+    """-> (the forward plan's ints as a ctypes array, floats of sums) on this card."""
+    dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False))
+    plan = block_fwd_plan(b, h, w, c, width, tail, sm_count(device_index),
+                          (vec_c, vec_h, vec_g), dw_conv)
+    return (ctypes.c_int * FWD_PLAN_INTS)(*plan.ints()), plan.sums_numel
 
 
 def block_head_bwd(x, ln_w, ln_b, w_qkv, dwk, g):

@@ -7,7 +7,9 @@ a machine without them:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 TF32 is off for the plain twins. Tolerance: max|kernel - plain| <= 1e-5 *
-max|plain| (fp32 sums in another order). The Gram, whose sums run over
+max|plain| (fp32 sums in another order). The block head and tail (3xTF32
+products, sums in a fixed order) are held against their plain twins run in
+float64, and two calls agree bitwise. The Gram, whose sums run over
 every pixel with cancelling terms, is held against its plain twin run in
 float64: in fp32 on the card the twin's own rounding comes near the
 tolerance. Its kernel sums in a fixed order, so two calls agree bitwise. The
@@ -70,24 +72,86 @@ def _block_inputs(gen, b, h, w, c, ln_bias):
         dw_in=r(2 * hid, 3, 3, scale=0.3), w_out=r(c, hid, scale=hid ** -0.5))
 
 
+def _block_fwd_calls(p):
+    """{name: (kernel, plain twin, inputs)} of both row 1-2 configurations."""
+    head = [p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"]]
+    tail = [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")]
+    return {"block_head": (tblock.block_head, tblock.block_head_plain, head),
+            "block_tail": (tblock.block_tail, tblock.block_tail_plain, tail)}
+
+
+# rows 1-2 against their float64 twins, one launch of each count a call:
+# C = 6 (h = 15), widths that are no multiple of a tile, odd h (127, 255,
+# 1,021) and h = 510, split products (the latent), B = 3
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 20, 19, 6), (2, 32, 32, 48), (1, 16, 16, 192),
-                                   (1, 9, 33, 384)])
+                                   (1, 9, 33, 384), (3, 16, 16, 384), (1, 24, 40, 96)])
 @pytest.mark.parametrize("ln_bias", [True, False], ids=["WithBias", "BiasFree"])
 def test_block_kernels_match_plain(cuda_device, shape, ln_bias):
     p = _block_inputs(torch.Generator(device="cuda").manual_seed(5), *shape, ln_bias)
-    head = (p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"])
-    n0 = build.LAUNCHES["block_head"]
-    got = tblock.block_head(*head)
+    for name, (fn, plain, args) in _block_fwd_calls(p).items():
+        n0 = build.LAUNCHES[name]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == n0 + 1, name
+        assert _rel_err(got.double(), plain(*_double(args))) < RTOL, name
+
+
+# rows 1-2 sum in a fixed order (no atomics): two calls give the same bits
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 20, 19, 6), (3, 32, 32, 48), (1, 9, 33, 384),
+                                   (2, 16, 24, 96)])
+def test_block_fwd_kernels_repeat_bitwise(cuda_device, shape):
+    p = _block_inputs(torch.Generator(device="cuda").manual_seed(16), *shape, True)
+    for name, (fn, _, args) in _block_fwd_calls(p).items():
+        first, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again), name
+
+
+def _shifted(t):
+    """A copy of t that starts 4 bytes past its allocation."""
+    if t is None:
+        return None
+    out = torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape)
+    return out.copy_(t)
+
+
+# every operand 4 bytes past its allocation takes 4-byte copies
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 12, 13, 48), (1, 8, 9, 192)])
+def test_block_fwd_kernels_take_unaligned_operands(cuda_device, shape):
+    p = _block_inputs(torch.Generator(device="cuda").manual_seed(17), *shape, True)
+    p = {k: _shifted(v) for k, v in p.items()}
+    for name, (fn, plain, args) in _block_fwd_calls(p).items():
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert _rel_err(got.double(), plain(*_double(args))) < RTOL, name
+
+
+@pytest.mark.cuda
+def test_block_tail_w_out_product_does_not_drift_at_k_1021(cuda_device):
+    """y is the W_out product alone (x = a = 0, so t = 0) over K = h = 1,021
+    positive terms (LN2(0) = ln_b, W_in, the taps and W_out positive): a
+    chain of mma.sync into one accumulator would drift toward zero here
+    (rcot_torch/csrc/mm.cuh, mm_kernel), past the gate."""
+    p = _block_inputs(torch.Generator(device="cuda").manual_seed(18), 1, 32, 32, 384, True)
+    p["x"], p["a"] = torch.zeros_like(p["x"]), torch.zeros_like(p["a"])
+    for k in ("ln_b", "w_in", "dw_in", "w_out"):
+        p[k] = p[k].abs()
+    fn, plain, args = _block_fwd_calls(p)["block_tail"]
+    got = fn(*args)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["block_head"] == n0 + 1
-    assert _rel_err(got, tblock.block_head_plain(*head)) < RTOL
-    tail = [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")]
-    n0 = build.LAUNCHES["block_tail"]
-    got = tblock.block_tail(*tail)
-    torch.cuda.synchronize()
-    assert build.LAUNCHES["block_tail"] == n0 + 1
-    assert _rel_err(got, tblock.block_tail_plain(*tail)) < RTOL
+    assert bool((got > 0).all())
+    assert _rel_err(got.double(), plain(*_double(args))) < RTOL
+
+
+@pytest.mark.cuda
+def test_block_fwd_wrappers_refuse_more_than_512_channels(cuda_device):
+    p = _block_inputs(torch.Generator(device="cuda").manual_seed(19), 1, 2, 2, 520, True)
+    for name, (fn, _, args) in _block_fwd_calls(p).items():
+        with pytest.raises(ValueError, match="512"):
+            fn(*args)
 
 
 # (B, heads, ch, (H, W)): the forward kernels' 16-byte (ch % 4 == 0) and
@@ -256,16 +320,9 @@ def test_block_bwd_kernels_repeat_bitwise_in_one_launch_each(cuda_device, shape,
 @pytest.mark.parametrize("shape", [(2, 12, 13, 48), (1, 8, 9, 96)])
 def test_block_bwd_kernels_take_unaligned_operands(cuda_device, shape):
     gen = torch.Generator(device="cuda").manual_seed(10)
-    p = _block_inputs(gen, *shape, True)
-
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, device="cuda")
-        out = buf[1:].view(t.shape)
-        out.copy_(t)
-        return out
-    p = {k: None if v is None else shifted(v) for k, v in p.items()}
+    p = {k: _shifted(v) for k, v in _block_inputs(gen, *shape, True).items()}
     for name, (fn, args) in _block_bwd_calls(p, *shape, gen).items():
-        args = [None if t is None else shifted(t) for t in args]
+        args = [_shifted(t) for t in args]
         got = fn(*args)
         torch.cuda.synchronize()
         plain = (tblock.block_head_bwd_plain if name == "block_head_bwd"

@@ -2,7 +2,7 @@
 of an rcot_torch tree on one CUDA card, at every block shape of the
 training path (128^2, B = 3).
 
-    python tools/port_block_bwd_times.py [--root DIR] [--iterations]
+    python tools/port_block_bwd_times.py [--root DIR] [--iterations] [--digest]
 
 As tools/port_gram_times.py does: rcot_torch and its kernels are DIR's
 (default: this checkout), timed with this checkout's
@@ -15,13 +15,17 @@ LayerNorm, the gate, memsets and copies), then both configurations' sums
 over one training iteration (94 blocks, chip_smoke.BLOCKS_PER_FORWARD): a
 "tail" iteration runs 94 tail backwards, a "full" one 94 of each. With
 --iterations it also times full-width minimax iterations/s in "tail" and
-"full" in turns (chip_smoke.timed_in_turns), as context. Last come the
-root and the card's name and power limit. To hold two trees against each
+"full" in turns (chip_smoke.timed_in_turns), as context. With --digest it
+first prints a SHA-256 of both configurations' outputs on seeded inputs at
+every training shape, WithBias and BiasFree: two trees whose digests agree
+computed the same bits. Last come the root and the card's name and power
+limit. To hold two trees against each
 other, run them in turns in one call (A, B, B, A).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -34,7 +38,10 @@ NAMES = ["block_tail_bwd", "block_head_bwd"]
 STAGES = (("reduce", "reduce"), ("sum_parts", "reduce"), ("gemm", "products"),
           ("mm_kernel", "products"), ("dw3x3", "stencils"), ("ddw", "stencils"),
           ("dwconv", "stencils"), ("ln_", "layernorm"), ("gate", "gate"),
-          ("Memset", "memsets and copies"), ("Memcpy", "memsets and copies"))
+          ("Memset", "memsets and copies"), ("Memcpy", "memsets and copies"),
+          # the earlier CUDA-core block forward (rows 1-2), in an older tree
+          ("tail_proj", "products"), ("head_kernel", "fused halo"),
+          ("tail_gdfn", "fused halo"))
 SPLIT_CALLS = 10
 TF32X3_FLOPS = 495e12 / 3  # H100 SXM: TF32 on the tensor cores, three products each
 
@@ -97,6 +104,26 @@ def stage_split(smoke, fn) -> dict:
     return out
 
 
+def digests(smoke) -> dict:
+    """SHA-256 of row 5's outputs on seeded inputs, by shape and LN kind."""
+    torch = smoke.torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, out = smoke.TRAIN_B, {}
+    for label, res, c, _ in smoke.TRAIN_SHAPES:
+        for ln_bias in (True, False):
+            p = smoke.block_inputs(gen, b, res, c, ln_bias)
+            g_head = torch.randn(b, res, res, 3 * c, device="cuda", generator=gen)
+            g_c = torch.randn(b, res, res, c, device="cuda", generator=gen)
+            got = (*smoke.kblock.block_tail_bwd(*smoke.tail_args(p), g_c),
+                   *smoke.kblock.block_head_bwd(*smoke.head_args(p), g_head))
+            h = hashlib.sha256()
+            for t in got:
+                if t is not None:
+                    h.update(t.cpu().numpy().tobytes())
+            out[f"{label} {'WithBias' if ln_bias else 'BiasFree'}"] = h.hexdigest()
+    return out
+
+
 def iterations(smoke) -> dict:
     """Full-width minimax iterations/s in "tail" and "full", in turns."""
     cfg = smoke.Config()
@@ -111,12 +138,13 @@ def iterations(smoke) -> dict:
 
 
 def main() -> int:
-    with_iterations = "--iterations" in sys.argv
-    if with_iterations:
-        sys.argv.remove("--iterations")
+    flags = {f: f in sys.argv for f in ("--iterations", "--digest")}
+    sys.argv = [a for a in sys.argv if a not in flags]
     smoke = port_gram_times.load(__doc__)
     if smoke is None:
         return 1
+    if flags["--digest"]:
+        print(json.dumps({"digests": digests(smoke)}), flush=True)
     gen = smoke.torch.Generator(device="cuda").manual_seed(0)
     b = smoke.TRAIN_B
     rows = {}
@@ -141,7 +169,7 @@ def main() -> int:
     full = {k: per["block_tail_bwd"][k] + per["block_head_bwd"][k] for k in keys}
     print(json.dumps({"per_train_iteration": {"tail": per["block_tail_bwd"], "full": full}}),
           flush=True)
-    if with_iterations:
+    if flags["--iterations"]:
         print(json.dumps({"iterations_per_s_in_turns": iterations(smoke)}), flush=True)
     print(json.dumps({"root": str(smoke.root), "card": smoke.card_line()}))
     return 0

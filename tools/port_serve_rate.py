@@ -5,8 +5,9 @@
 Imports rcot_torch from DIR (default: this checkout), builds its kernels
 into DIR/build/kernels, and times make_restorer(...).restore_batch on
 256x256 images at batch 1 and 8 with the full-width T_net (ModelConfig(),
-seeded weights), TF32 off, as chip_smoke.py phase 5 does. Prints one JSON
-line with the card's name and power limit. To hold two trees against each
+seeded weights), TF32 off, as chip_smoke.py phase 5 does, and the peak
+of torch.cuda.max_memory_allocated over the batch-8 rounds. Prints one
+JSON line with the card's name and power limit. To hold two trees against each
 other, run them in turns on the same card (A, B, B, A).
 """
 
@@ -61,9 +62,11 @@ def main() -> int:
         return batch * iters / (time.perf_counter() - t0)
 
     b1 = [rate(1, 10) for _ in range(args.rounds)]
+    torch.cuda.reset_peak_memory_stats()
     b8 = [rate(8, 3) for _ in range(args.rounds)]
     print(json.dumps({"root": str(root), "card": card, "batch1_img_per_s": b1,
-                      "batch8_img_per_s": b8}))
+                      "batch8_img_per_s": b8,
+                      "batch8_max_memory_allocated": torch.cuda.max_memory_allocated()}))
     return 0
 
 
