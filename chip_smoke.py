@@ -13,14 +13,20 @@ Phases (any failure exits non-zero; nothing is caught):
      training block shape (B = 1 and 2, both LayerNorm types), at each
      block shape of phase 4's 250x321 image and nine-tile 600x600 one, at
      C = 6, with every operand 4 bytes off its allocation, and on a W_out
-     product of K = h = 1,021 terms that never cancel;
+     product of K = h = 1,021 terms that never cancel; and the block head
+     and tail, forward and backward, at C = 576 and 768 (past the 512
+     channels that the LayerNorm holds in registers), both LayerNorm types,
+     against their float64 twins and bitwise against a second call;
   3b. hold each backward kernel against its plain twin at every block
      shape of the training path (128x128, B = 3), both LayerNorm types,
      and the MDTA and block backward kernels' two calls on one input
      against each other (bitwise: their sums run in a fixed order);
   3c. hold the fused dwconv tier's kernels (conv1x1_dw and gdfn_fused,
      forward and backward) against their plain twins at every training
-     block shape;
+     block shape (pixel sums against the float64 twin), each bitwise
+     against a second call (their sums run in a fixed order), and the GDFN
+     on terms that never cancel, through its W_out product at K = h = 1,021
+     and its dx product at K = 2h = 2,042, against its float64 twin;
   3d. hold the opt-in tiers' kernels against their plain twins: the fused
      MDTA attend (mdta_attend, against its float64 twin) and the depthwise
      kernel (dwconv3x3 at the qkv and the GDFN widths, and its backward's
@@ -98,11 +104,9 @@ rounding comes near the tolerance (printed as
 gram_plain_fp32_vs_float64_rel_err), while the kernel (3xTF32 products,
 fp32 sums in a fixed order) stays well inside it. The backward kernels are held the same way: their per-pixel
 outputs (dx, da, d[q|k], dv) against the fp32 twin, their pixel sums
-(weight, LayerNorm and dattn grads, summed over up to 3 * 128^2 pixels,
-with atomics in the fused dwconv tier's kernels, in a fixed order in the
-block kernels' and dattn's) against
-the float64 twin, all at the same bound; d[q|k], a 3xTF32 product, also
-against its float64 twin. Card
+(weight, LayerNorm and dattn grads, summed over up to 3 * 128^2 pixels in
+a fixed order) against the float64 twin, all at the same bound; d[q|k], a
+3xTF32 product, also against its float64 twin. Card
 against CPU in training: each parameter's gradient within GRAD_RTOL of its
 largest entry (fp32 through the whole T_net and F_net, forward and
 backward, in another order of sums; the worst seen was 4.1e-5) or, for
@@ -538,7 +542,8 @@ def fused_args(p, gdfn):
 
 def phase_fused(gen) -> dict:
     """The fused dwconv tier's kernels, both configurations, forward and
-    backward, against their plain twins at every training block shape."""
+    backward, against their plain twins at every training block shape,
+    each bitwise against a second call; then the GDFN's drift case."""
     errs: dict = {}
     b = TRAIN_B
     for label, res, c, heads in TRAIN_SHAPES:
@@ -546,16 +551,66 @@ def phase_fused(gen) -> dict:
         for gdfn, name in ((False, "conv1x1_dw"), (True, "gdfn_fused")):
             args = fused_args(p, gdfn)
             tag = f"{label} B={b}"
-            got = kfused.fused_dwconv_fwd(*args)
+            got, again = kfused.fused_dwconv_fwd(*args), kfused.fused_dwconv_fwd(*args)
             torch.cuda.synchronize()
             check(f"{name} {tag}", got, kfused.fused_dwconv_plain(*args), errs)
+            check_repeats(f"{name} {tag}", (got,), (again,))
             g = torch.randn(*got.shape, device="cuda", generator=gen)
-            got = kfused.fused_dwconv_bwd(*args, g)
+            got, again = (kfused.fused_dwconv_bwd(*args, g) for _ in range(2))
             torch.cuda.synchronize()
             check_bwd(f"{name}_bwd {tag}", got, kfused.fused_dwconv_bwd_plain(*args, g),
                       kfused.fused_dwconv_bwd_plain(*_double(args + (g,))), errs)
+            check_repeats(f"{name}_bwd {tag}", got, again)
         log(f"fused kernels ok at {label} {res}^2 C={c} B={b}")
+    # inputs of their own, so that `gen` reaches the later phases as before
+    fused_drift(torch.Generator(device="cuda").manual_seed(5), errs)
     return errs
+
+
+def fused_drift(gen, errs) -> None:
+    """The GDFN at (1, 32, 32, 384) on terms that never cancel: x, W_in, the
+    taps, W_out and the cotangent positive, so that conv, the gate, dgate,
+    dconv and dh are too, and a tensor-core accumulation that drifts
+    (rcot_torch/csrc/mm.cuh, mm_kernel) shows in full in the W_out product
+    (K = h = 1,021) and the dx product (K = 2h = 2,042). Every output
+    against the float64 twin."""
+    p = {k: v.abs() if v is not None else None
+         for k, v in block_inputs(gen, 1, 32, 384, False).items()}
+    args = fused_args(p, True)
+    tag = "mma-chain drift K=h=1021, 2h=2042 (1, 32, 32, 384)"
+    got = kfused.fused_dwconv_fwd(*args)
+    g = torch.rand(*got.shape, device="cuda", generator=gen)
+    grads = kfused.fused_dwconv_bwd(*args, g)
+    torch.cuda.synchronize()
+    check(f"gdfn_fused {tag}", got, kfused.fused_dwconv_plain(*_double(args)), errs)
+    check(f"gdfn_fused_bwd {tag}", grads,
+          kfused.fused_dwconv_bwd_plain(*_double(args + (g,))), errs)
+    log(f"fused kernels ok on the {tag}")
+
+
+def phase_block_wide(gen, errs) -> None:
+    """Rows 1-2 and 5 at C = 576 and 768 on (1, 12, 12, C), both LayerNorm
+    kinds: past the 512 channels that a warp's registers hold, the
+    LayerNorm walks its channels in device memory (and its backward keeps
+    48-96 KB of partials in shared memory). Forward against the float64
+    twin, backward as phase 3b holds it, two calls bitwise equal."""
+    for c in (576, 768):
+        for ln_bias in (True, False):
+            p = block_inputs(gen, 1, 12, c, ln_bias)
+            tag = f"wide C={c} (1, 12, 12, {c}) {'WithBias' if ln_bias else 'BiasFree'}"
+            check_block_fwd(tag, p, errs)
+            for name, fn, plain, args, width in (
+                    ("block_head_bwd", kblock.block_head_bwd, kblock.block_head_bwd_plain,
+                     head_args(p), 3 * c),
+                    ("block_tail_bwd", kblock.block_tail_bwd, kblock.block_tail_bwd_plain,
+                     tail_args(p), c)):
+                g = torch.randn(1, 12, 12, width, device="cuda", generator=gen)
+                got, again = fn(*args, g), fn(*args, g)
+                torch.cuda.synchronize()
+                check_bwd(f"{name} {tag}", got, plain(*args, g),
+                          plain(*_double(args + (g,))), errs)
+                check_repeats(f"{name} {tag}", got, again)
+        log(f"block kernels ok at C={c} (1, 12, 12, {c})")
 
 
 def phase_opt_in_kernels(gen) -> dict:
@@ -1588,6 +1643,8 @@ def main() -> int:
     # rows 1-2 beyond serving's shapes draw from a generator of their own
     phase_block_fwd(torch.Generator(device="cuda").manual_seed(3), errs)
     errs.update(phase_backward(gen))
+    # rows 1-2 and 5 past 512 channels, on inputs of their own
+    phase_block_wide(torch.Generator(device="cuda").manual_seed(4), errs)
     errs.update(phase_fused(gen))
     errs.update(phase_opt_in_kernels(gen_opt))
     model = phase_model(gen_np)

@@ -69,7 +69,13 @@ def save_png(path: str, img01: np.ndarray) -> None:
 
 def load_state_dict(path: str):
     """-> (state_dict, ModelConfig) from a JAX-package .npz (whose metadata
-    may carry the model config) or a .pt TNet state_dict at ModelConfig()."""
+    may carry the model config) or a .pt TNet state_dict at ModelConfig().
+    A reference checkpoint (.pth, a pickle of the reference's modules) stops
+    the run by name: reading it needs the reference-weights port."""
+    if path.endswith(".pth"):
+        raise SystemExit(f"{path}: a reference .pth checkpoint is not ported to rcot_torch "
+                         "yet (ROADMAP.md, Queue 1 item 3); convert it with "
+                         "tools/port_reference_ckpt.py and pass the .npz it writes")
     if path.endswith(".npz"):
         return load_jax_npz(path)
     return torch.load(path, map_location="cpu", weights_only=True), ModelConfig()

@@ -43,20 +43,22 @@
 //     read-modify-write), and dgate's is the gate's backward: it reads conv and writes dconv and gate, so
 //     dgate is never stored. One whose tiles alone leave the card short
 //     (the latent's du) splits K into ranges (the plan's). Pixel sums
-//     (dW_out, dW_in, dW_proj, dW_qkv) take the pixels as depth, split into
-//     ranges of at most 512 pixels (a block's fp32 sum grows in error with
-//     its pixels; ops/gram.py GRAM_MAX_PIXELS). Every split stores its
-//     partials with plain stores, and sum_parts_kernel adds them in a fixed
-//     order;
+//     (dW_out, dW_in, dW_proj, dW_qkv; mm.cuh pixel_sum) take the pixels as
+//     depth, split into ranges of at most 512 pixels (a block's fp32 sum
+//     grows in error with its pixels; ops/gram.py GRAM_MAX_PIXELS). Every
+//     split stores its partials with plain stores, and sum_parts_kernel
+//     adds them in a fixed order;
 //   - the depthwise stages are row 11's kernels (dwconv.cuh): conv = the
 //     forward of h, dh = the rotated forward of dconv, ddw = dtaps(h,
 //     dconv), with h in device memory for every pixel, so the conv's zero
 //     padding is "outside the image reads 0" and the halo trap of the
 //     banded kernel (LN(0) = ln_b on out-of-image rows) cannot occur;
 //   - LayerNorm is one warp a pixel, a lane holding up to 16 channels in
-//     registers (C <= 512); its backward's per-channel sums (dln_w, dln_b)
-//     are per-block partials added over the warps in a fixed order and
-//     then over the blocks by sum_parts_kernel.
+//     registers (C <= 512) or, above, walking them in device memory; its
+//     backward's per-channel sums (dln_w, dln_b) are per-block partials
+//     added over the warps in a fixed order and then over the blocks by
+//     sum_parts_kernel (above 512 channels the warps' partials take up to
+//     227 KB of shared memory: C <= kLnMaxChannels = 3,632).
 // No atomics and no memsets: two calls on the same inputs give the same
 // bits. The gelu derivative is exact: Phi(x) + x phi(x) with erff.
 
@@ -87,24 +89,6 @@ enum Plan {
   kPlanInts = kDwTaps + 4
 };
 enum Prod { kProdT, kProdH, kProdDu, kProdDa };
-
-// Pixel sum: out (M x N) = sum over pixels q of A[q, m] B[q, n] for A
-// (n_pix x M) and B (n_pix x N), in ranges of `per` pixels; with more than
-// one range the partials go to ws (ranges * M * N floats) and are added
-// in a fixed order.
-cudaError_t pixel_sum(const float* a, int va, const float* b, int vb, float* out, float* ws,
-                      int M, int N, long long n_pix, long long per, cudaStream_t st) {
-  if (per < 1) return cudaErrorInvalidValue;
-  const long long ranges = (n_pix + per - 1) / per;
-  MmArgs p{};
-  p.a = a, p.lda = M, p.va = va;
-  p.b = b, p.ldb = N, p.vb = vb;
-  p.out = ranges > 1 ? ws : out, p.ldo = N, p.z_stride = ranges > 1 ? (long long)M * N : 0;
-  p.M = M, p.N = N, p.K = n_pix, p.k_per = per;
-  RCOT_TRY((mm<true, true, kEpiStore>(p, (int)ranges, st)));
-  if (ranges > 1) return sum_parts(ws, out, nullptr, M * N, M * N, (long long)M * N, ranges, st);
-  return cudaSuccess;
-}
 
 // dt = VJP of LN at t for the cotangent du (plus g_res when not null), and
 // the block's partial of dln_w = sum du * that and dln_b = sum du at
@@ -191,15 +175,76 @@ cudaError_t ln_bwd_l(const float* t, const float* du, const float* stats, const 
   return cudaGetLastError();
 }
 
+// C > kLnRegChannels: as ln_bwd_kernel, a lane walking its channels in
+// device memory (the row read once for s1 and s2 and once for dt) and its
+// warp's partials of dln_w, dln_b kept in shared memory from the start,
+// each lane adding into its own channels in the order of the warp's pixels
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_wide_kernel(const float* __restrict__ t, const float* __restrict__ du,
+                   const float* __restrict__ mean_in, const float* __restrict__ inv_in,
+                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                   const float* __restrict__ g_res, float* __restrict__ dt,
+                   float* __restrict__ ws, long long n_pix, int C, long long per) {
+  extern __shared__ float part[];  // [kWarps][2C]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long p0 = blockIdx.x * per;
+  const long long p1 = p0 + per < n_pix ? p0 + per : n_pix;
+  const bool with_bias = ln_b != nullptr;
+  float* sw = part + warp * 2 * C;
+  float* sb = sw + C;
+  for (int c = lane; c < C; c += 32) sw[c] = sb[c] = 0.f;
+  for (long long p = p0 + warp; p < p1; p += kWarps) {
+    const float mean = mean_in[p], inv = inv_in[p];
+    const float* tp = t + p * C;
+    const float* dp = du + p * C;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float gw = dp[c] * ln_w[c];
+      const float that = with_bias ? (tp[c] - mean) * inv : tp[c] * inv;
+      s1 += gw;
+      s2 += with_bias ? gw * that : gw * tp[c];
+    }
+    s1 = warp_sum(s1) / C;
+    s2 = warp_sum(s2) / C;
+    for (int c = lane; c < C; c += 32) {
+      const float tv = tp[c], dv = dp[c], gw = dv * ln_w[c];
+      const float that = with_bias ? (tv - mean) * inv : tv * inv;
+      const float v = with_bias ? inv * (gw - s1 - (tv - mean) * inv * s2)
+                                : inv * gw - inv * inv * inv * (tv - mean) * s2;
+      dt[p * C + c] = v + (g_res ? g_res[p * C + c] : 0.f);
+      sw[c] += dv * that;
+      sb[c] += dv;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 2 * C; e += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += part[w * 2 * C + e];
+    ws[blockIdx.x * 2LL * C + e] = s;
+  }
+}
+
 // dt and dln_w, dln_b (null with ln_b) through the workspace ws of
-// ceil(n_pix / per) * 2C floats
+// ceil(n_pix / per) * 2C floats; above kLnRegChannels the partials take
+// kWarps * 2C floats of shared memory, up to kLnMaxChannels
+constexpr int kLnMaxChannels = kMaxSmemBytes / (int)sizeof(float) / (2 * kWarps);
+
 cudaError_t ln_bwd(const float* t, const float* du, const float* stats, const float* ln_w,
                    const float* ln_b, const float* g_res, float* dt, float* dln_w,
                    float* dln_b, float* ws, long long n_pix, int C, long long per,
                    cudaStream_t st) {
-  if (per < 1) return cudaErrorInvalidValue;
+  if (per < 1 || C > kLnMaxChannels) return cudaErrorInvalidValue;
   const long long blocks = (n_pix + per - 1) / per;
   const cudaError_t err = [&]() -> cudaError_t {
+    if (C > kLnRegChannels) {
+      static bool done[kMaxDevices];
+      RCOT_TRY(allow_smem(done, ln_bwd_wide_kernel, ln_bwd_wide_kernel,
+                          2 * kWarps * kLnMaxChannels));
+      ln_bwd_wide_kernel<<<(unsigned)blocks, kThreads, sizeof(float) * kWarps * 2 * C, st>>>(
+          t, du, stats, stats + n_pix, ln_w, ln_b, g_res, dt, ws, n_pix, C, per);
+      return cudaGetLastError();
+    }
 #define RCOT_CALL(L) ln_bwd_l<L>(t, du, stats, ln_w, ln_b, g_res, dt, ws, n_pix, C, per, blocks, st)
     RCOT_BY_LANES(C, RCOT_CALL)
 #undef RCOT_CALL

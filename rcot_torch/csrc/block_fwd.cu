@@ -40,9 +40,9 @@
 //         stages both halves of conv and takes the gate in shared memory
 //         before its mma (kEpiGatedAdd), so the gate is never stored;
 //         where C spans several, each of them would take the gate anew, and
-//         the plan's gate_pass writes it once into h's buffer (dead by
-//         then), in rows padded to 16 bytes, for a plain product (both
-//         measured: PERF.md).
+//         the plan's gate pass (mm.cuh gate_pass) writes it once into h's
+//         buffer (dead by then), in rows padded to 16 bytes, for a plain
+//         product (both measured: PERF.md).
 // h lies in device memory for every pixel, so the conv's zero padding is
 // "outside the image reads 0": no halo is recomputed, and LN(0) = ln_b
 // never reaches the conv. A product whose tiles alone leave the card short
@@ -73,31 +73,6 @@ enum Plan {
   kPlanInts
 };
 enum Prod { kProdT, kProdH, kProdOut };
-
-// gate = gelu(c1) c2 of conv = [c1 | c2] (n_pix x 2 hid), in rows of
-// gate_ld(hid) floats whose columns past hid hold 0, so that the product
-// reading it takes 16-byte copies at any hid; one warp a pixel, as the
-// LayerNorm forward (and with its blocks)
-__host__ __device__ constexpr int gate_ld(int hid) { return (hid + 3) / 4 * 4; }
-
-__global__ void __launch_bounds__(kThreads)
-gate_pass_kernel(const float* __restrict__ conv, float* __restrict__ gate, long long n_pix,
-                 int hid) {
-  const int lane = threadIdx.x % 32, ld = gate_ld(hid);
-  const long long warps = (long long)gridDim.x * kWarps;
-  for (long long m = blockIdx.x * kWarps + threadIdx.x / 32; m < n_pix; m += warps) {
-    const float* row = conv + m * 2 * hid;
-#pragma unroll 4
-    for (int j = lane; j < ld; j += 32)
-      gate[m * ld + j] = j < hid ? gate_fwd(row[j], row[hid + j]) : 0.f;
-  }
-}
-
-cudaError_t gate_pass(const float* conv, float* gate, long long n_pix, int hid, int blocks,
-                      cudaStream_t st) {
-  gate_pass_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(conv, gate, n_pix, hid);
-  return cudaGetLastError();
-}
 
 // The depthwise forward by row 11's kernel with the plan's (vec, cv, tc, rows)
 cudaError_t dw(const float* x, const float* taps, float* out, int B, int H, int W, int M,

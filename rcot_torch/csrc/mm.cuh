@@ -1,7 +1,9 @@
-// The building blocks of the fused block kernels (block_fwd.cu, rows 1-2;
-// block_bwd.cu, row 5): the 1x1 products on the tensor cores (mm_kernel
-// and its launchers), the fixed-order sum of split partials (sum_parts)
-// and the LayerNorm forward (ln_fwd). Launch plans come from ops/block.py.
+// The building blocks of the port's 1x1-product kernels (block_fwd.cu,
+// rows 1-2; block_bwd.cu, row 5; fused_dwconv.cu, rows 8-9): the 1x1
+// products on the tensor cores (mm_kernel and its launchers `product` and
+// `pixel_sum`), the fixed-order sum of split partials (sum_parts), the
+// LayerNorm forward (ln_fwd) and the GDFN gate as a pass of its own
+// (gate_pass). Launch plans come from ops/block.py and ops/fused.py.
 //
 // mm_kernel: 3xTF32 mma.sync m16n8k8 with fp32 accumulation, 128 x 64
 // output tiles of eight warps, 32-deep steps through a cp.async ring (16-,
@@ -11,15 +13,18 @@
 // edge, each value split into tf32 halves by integer ops (split_fast). The
 // epilogue goes through shared memory, so rows leave in runs of 32 floats,
 // and may add an input (kEpiAdd), apply the gate's backward (kEpiGate) or,
-// with the gate taken where A is staged, add an input (kEpiGatedAdd). A
+// with the gate taken where A is staged, add an input (kEpiGatedAdd); with
+// no input (extra null) the last two store the product alone. A
 // product whose tiles alone leave the card short splits K into ranges, and
 // every split stores its partials with plain stores for sum_parts, which
 // adds them in a fixed order. No atomics: two calls give the same bits.
 //
-// LayerNorm: one warp a pixel, a lane holding up to 16 channels in
-// registers (C <= 512); fp32 statistics, biased variance, eps 1e-5 inside
-// the rsqrt; WithBias is (t - mean) inv w + b, BiasFree t inv w with the
-// variance taken about the mean.
+// LayerNorm: one warp a pixel; fp32 statistics, biased variance, eps 1e-5
+// inside the rsqrt; WithBias is (t - mean) inv w + b, BiasFree t inv w
+// with the variance taken about the mean. Up to 512 channels a lane holds
+// its (up to 16) channels in registers; above, it walks them in device
+// memory, reading the row once for each of the sum, the variance and the
+// output, in the same order.
 
 #pragma once
 
@@ -34,6 +39,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kLnEps = 1e-5f;
+constexpr int kLnRegChannels = 16 * 32;  // LayerNorm in registers up to here
 
 #define RCOT_TRY(expr)                       \
   do {                                       \
@@ -280,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
     for (int h2 = 0; h2 < 2; ++h2) {
       const long long m = m0 + warp + q * kWarps;
       const int n = n0 + lane + 32 * h2;
-      const bool ok = m < p.M && n < p.N && EPI != kEpiStore && !partial;
+      const bool ok = m < p.M && n < p.N && EPI != kEpiStore && !partial && p.extra;
       in1[q][h2] = ok ? __ldg(p.extra + m * (EPI == kEpiGate ? 2 * p.N : p.ldo) + n) : 0.f;
       in2[q][h2] = ok && EPI == kEpiGate ? __ldg(p.extra + m * 2 * p.N + p.N + n) : 0.f;
     }
@@ -386,6 +392,24 @@ cudaError_t product(const float* a, int K, int va, const float* w, int vb, float
   return cudaSuccess;
 }
 
+// Pixel sum: out (M x N) = sum over pixels q of A[q, m] B[q, n] for A
+// (n_pix x M) and B (n_pix x N), in ranges of `per` pixels; with more than
+// one range the partials go to ws (ranges * M * N floats) and are added
+// in a fixed order.
+cudaError_t pixel_sum(const float* a, int va, const float* b, int vb, float* out, float* ws,
+                      int M, int N, long long n_pix, long long per, cudaStream_t st) {
+  if (per < 1) return cudaErrorInvalidValue;
+  const long long ranges = (n_pix + per - 1) / per;
+  MmArgs p{};
+  p.a = a, p.lda = M, p.va = va;
+  p.b = b, p.ldb = N, p.vb = vb;
+  p.out = ranges > 1 ? ws : out, p.ldo = N, p.z_stride = ranges > 1 ? (long long)M * N : 0;
+  p.M = M, p.N = N, p.K = n_pix, p.k_per = per;
+  RCOT_TRY((mm<true, true, kEpiStore>(p, (int)ranges, st)));
+  if (ranges > 1) return sum_parts(ws, out, nullptr, M * N, M * N, (long long)M * N, ranges, st);
+  return cudaSuccess;
+}
+
 // ------------------------------------------------------------ LayerNorm
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -437,7 +461,7 @@ ln_fwd_kernel(const float* __restrict__ t, const float* __restrict__ ln_w,
 }
 
 // L, the channels a lane holds, for C: the least power of two that reaches
-// C, up to 16 (C <= 512)
+// C, up to 16 (C <= kLnRegChannels)
 #define RCOT_BY_LANES(C, CALL)                          \
   switch (((C) + 31) / 32) {                            \
     case 1: return CALL(1);                             \
@@ -457,12 +481,72 @@ cudaError_t ln_fwd_l(const float* t, const float* ln_w, const float* ln_b, float
   return cudaGetLastError();
 }
 
+// C > kLnRegChannels: as ln_fwd_kernel, a lane walking its channels l,
+// l + 32, ... in device memory, once for each of the sum, the variance and
+// the output
+__global__ void __launch_bounds__(kThreads)
+ln_fwd_wide_kernel(const float* __restrict__ t, const float* __restrict__ ln_w,
+                   const float* __restrict__ ln_b, float* __restrict__ u,
+                   float* __restrict__ mean_out, float* __restrict__ inv_out,
+                   long long n_pix, int C) {
+  const int lane = threadIdx.x % 32;
+  const long long warps = (long long)gridDim.x * kWarps;
+  for (long long p = blockIdx.x * kWarps + threadIdx.x / 32; p < n_pix; p += warps) {
+    const float* tp = t + p * C;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += tp[c];
+    const float mean = warp_sum(s) / C;
+    float var = 0.f;
+    for (int c = lane; c < C; c += 32) var += (tp[c] - mean) * (tp[c] - mean);
+    const float inv = rsqrtf(warp_sum(var) / C + kLnEps);
+    float* up = u + p * C;
+    for (int c = lane; c < C; c += 32)
+      up[c] = ln_b ? (tp[c] - mean) * inv * ln_w[c] + ln_b[c] : tp[c] * inv * ln_w[c];
+    if (lane == 0) {
+      mean_out[p] = mean;
+      inv_out[p] = inv;
+    }
+  }
+}
+
 cudaError_t ln_fwd(const float* t, const float* ln_w, const float* ln_b, float* u, float* stats,
                    long long n_pix, int C, int blocks, cudaStream_t st) {
   if (blocks < 1) return cudaErrorInvalidValue;
+  if (C > kLnRegChannels) {
+    ln_fwd_wide_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(t, ln_w, ln_b, u, stats,
+                                                              stats + n_pix, n_pix, C);
+    return cudaGetLastError();
+  }
 #define RCOT_CALL(L) ln_fwd_l<L>(t, ln_w, ln_b, u, stats, n_pix, C, blocks, st)
   RCOT_BY_LANES(C, RCOT_CALL)
 #undef RCOT_CALL
+}
+
+// ------------------------------------------------------------ the gate
+
+// gate = gelu(c1) c2 of conv = [c1 | c2] (n_pix x 2 hid), in rows of
+// gate_ld(hid) floats whose columns past hid hold 0, so that the product
+// reading it takes 16-byte copies at any hid; one warp a pixel, as the
+// LayerNorm forward
+__host__ __device__ constexpr int gate_ld(int hid) { return (hid + 3) / 4 * 4; }
+
+__global__ void __launch_bounds__(kThreads)
+gate_pass_kernel(const float* __restrict__ conv, float* __restrict__ gate, long long n_pix,
+                 int hid) {
+  const int lane = threadIdx.x % 32, ld = gate_ld(hid);
+  const long long warps = (long long)gridDim.x * kWarps;
+  for (long long m = blockIdx.x * kWarps + threadIdx.x / 32; m < n_pix; m += warps) {
+    const float* row = conv + m * 2 * hid;
+#pragma unroll 4
+    for (int j = lane; j < ld; j += 32)
+      gate[m * ld + j] = j < hid ? gate_fwd(row[j], row[hid + j]) : 0.f;
+  }
+}
+
+cudaError_t gate_pass(const float* conv, float* gate, long long n_pix, int hid, int blocks,
+                      cudaStream_t st) {
+  gate_pass_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(conv, gate, n_pix, hid);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -90,6 +90,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[M][N][4], uint32_t (&ah)
 // caller's function-local flags. A failure is returned and tried again on
 // the next call.
 constexpr int kMaxDevices = 64;
+constexpr int kMaxSmemBytes = 232448;  // a block's most on sm_90 (227 KB)
 
 template <typename Kernel>
 cudaError_t allow_smem(bool (&done)[kMaxDevices], Kernel k1, Kernel k2, int floats) {

@@ -57,13 +57,14 @@ SIGNATURES = {
     "rcot_mdta_gram_bwd": [_P] * 5 + [_I, _L, _I, _I, _I, _L, _P],
     # qkv, attn, g, dv, dattn, workspace; B, hw, heads, ch, splits, pixels per split; stream
     "rcot_attn_apply_bwd": [_P] * 6 + [_I, _L, _I, _I, _I, _L, _P],
-    # inputs 3 (+ w_out), output 1; B, H, W, C, M or hid; stream
-    "rcot_conv1x1_dw": [_P] * 4 + [_I] * 5 + [_P],
-    "rcot_gdfn_fused": [_P] * 5 + [_I] * 5 + [_P],
-    # inputs 4, outputs 3, workspace 2; B, H, W, C, M; stream
-    "rcot_conv1x1_dw_bwd": [_P] * 9 + [_I] * 5 + [_P],
-    # inputs 5, outputs 4, workspace 5; B, H, W, C, hid; stream
-    "rcot_gdfn_fused_bwd": [_P] * 14 + [_I] * 5 + [_P],
+    # inputs 3, output 1, workspace 2, plan (ops/fused.py); B, H, W, C, M; stream
+    "rcot_conv1x1_dw": [_P] * 6 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # inputs 4, output 1, workspace 3, plan; B, H, W, C, hid; stream
+    "rcot_gdfn_fused": [_P] * 8 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # inputs 4, outputs 3, workspace 3, plan; B, H, W, C, M; stream
+    "rcot_conv1x1_dw_bwd": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # inputs 5, outputs 4, workspace 5, plan; B, H, W, C, hid; stream
+    "rcot_gdfn_fused_bwd": [_P] * 14 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # x, taps, out; B, H, W, C, vec, cv, tc, rows, rot; stream
     "rcot_dwconv3x3": [_P] * 3 + [_I] * 9 + [_P],
     # x, g, workspace, dtaps; B, H, W, C, vec, cv, tc, rows; stream

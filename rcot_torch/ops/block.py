@@ -158,18 +158,22 @@ def block_tail_fwd(x: torch.Tensor, a: torch.Tensor, w_proj: torch.Tensor,
 # takes ranges of pixels a multiple of LN_WARPS, about LN_BLOCKS_PER_SM
 # blocks an SM, at most SUM_MAX_PIXELS each, and adds their partial dln_w,
 # dln_b in order; the forward runs LN_BLOCKS_PER_SM blocks an SM. A lane
-# of either holds its channels in registers: C <= LN_MAX_CHANNELS. Each
-# operand is copied 4, 2 or 1 floats at a time (kdw.dwconv_vec: the widest
-# that its width divides and its pointer's alignment allows), one width per
-# width class: C, h (W_out's rows and the gate) and the depthwise width M
-# (2h in the tail, 3C in the head).
+# of either holds its channels in registers up to 512 and walks them in
+# device memory above; there the backward's warps keep their partials of
+# dln_w and dln_b in shared memory, LN_WARPS * 2C floats of a block's
+# SMEM_BYTES: C <= LN_MAX_CHANNELS. Each operand is copied 4, 2 or 1
+# floats at a time (kdw.dwconv_vec: the widest that its width divides and
+# its pointer's alignment allows), one width per width class: C, h (W_out's
+# rows and the gate) and the depthwise width M (2h in the tail, 3C in the
+# head).
 MM_TILE_M, MM_TILE_N, MM_STEP = 128, 64, 32
 SUM_MAX_PIXELS = GRAM_MAX_PIXELS
 SUM_BLOCKS_PER_SM = 2
 SPLIT_MIN_STEPS = 4
 LN_WARPS = 8
 LN_BLOCKS_PER_SM = 8
-LN_MAX_CHANNELS = 512
+SMEM_BYTES = 232448
+LN_MAX_CHANNELS = SMEM_BYTES // (4 * 2 * LN_WARPS)
 PLAN_INTS = 28
 
 
@@ -268,7 +272,7 @@ def _card_plan(b, h, w, c, width, tail, device_index, vec_c, vec_h, vec_m):
 def _check_channels(c: int) -> None:
     if c > LN_MAX_CHANNELS:
         raise ValueError(f"{c} channels > {LN_MAX_CHANNELS} is not supported by the "
-                         "block kernels")
+                         "block kernels' LayerNorm backward (its partials in shared memory)")
 
 
 # The launch plan of csrc/block_fwd.cu's forward kernels, made as the

@@ -9,28 +9,34 @@ model calls:
 
 Weights are in the port's layouts, as ops/block.py takes them: w_in (M, C),
 dwk (M, 3, 3), w_out (C, h) with M = 2h in the GDFN. The odd gate widths
-of the reference model (h = 127, 255, ...) are masked inside the kernel;
-nothing is padded.
+of the reference model (h = 127, 255, ...) take narrower copies in the
+kernels; nothing is padded.
 
 `FusedDwconv` is the autograd Function. As the JAX custom VJP does, its
 forward saves only x and the weights, and the backward recomputes the
 rest. A CUDA tensor goes to the kernels of csrc/fused_dwconv.cu, a CPU
 tensor to the plain twins below (composed from the port's ops, the backward
-by autograd on them). Launches are counted under conv1x1_dw, gdfn_fused and
-their *_bwd names.
+by autograd on them). The kernels take their launch plans from
+fused_fwd_plan and fused_bwd_plan below. Launches are counted under
+conv1x1_dw, gdfn_fused and their *_bwd names.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..kernels import build
-from .block import _vjp_plain
+from . import dwconv as kdw
+from .block import (GATE_FUSED_MAX_C, _vjp_plain, _workspaces, gate_ld, ln_plan, split_plan,
+                    sum_plan, sum_workspace_numel)
 from .conv import conv1x1, depthwise3x3
 from .gdfn import gated
+from .gram import sm_count
 
 
 # ------------------------------------------------------------------ plain
@@ -45,6 +51,156 @@ def fused_dwconv_plain(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
 def fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g):
     """-> (dx, dw_in, ddw, dw_out); dw_out is None when w_out is."""
     return _vjp_plain(fused_dwconv_plain, (x, w_in, dwk, w_out), g)
+
+
+# ------------------------------------------------------------------ plans
+
+# The launch plans of csrc/fused_dwconv.cu, pure functions of the shape,
+# the copy widths and the card, made as ops/block.py makes the block
+# kernels' (the same products, pixel sums, gate and depthwise kernels): the
+# K splits of the per-pixel products (split_plan: h and the GDFN's W_out
+# product forward, h and dx backward), the pixel ranges of the pixel sums
+# (sum_plan: dW_out and dW_in), row 11's (vec, cv, tc, rows) of the
+# depthwise forward (also the rotated one) and of its dtaps, and, in the
+# GDFN forward, the gate taken in the W_out product where C <=
+# GATE_FUSED_MAX_C, else a gate pass of ln_plan's blocks. Each is passed as
+# FWD_PLAN_INTS or BWD_PLAN_INTS ints, the order of its fields. Copy widths
+# come in width classes: C (x, W_in, the GDFN's g), h (either half of
+# conv, W_out's rows, the gate) and M (h, dh, dconv, the qkv's g and out);
+# the workspaces start on 512-byte boundaries (ops/block.py _workspaces),
+# so only their widths decide their copies.
+FWD_PLAN_INTS = 13
+BWD_PLAN_INTS = 21
+
+
+class FusedFwdPlan(NamedTuple):
+    """A forward's launch plan; `ints()` is what the kernel takes."""
+    gate_blocks: int                     # blocks of a gate pass
+    vec_c: int                           # copy widths of the C- and h-wide operands
+    vec_h: int
+    vec_g: int                           # ... and of a gate pass's padded rows
+    splits: Tuple[Tuple[int, int], ...]  # (K ranges, depth a range) of h, out
+    dw_conv: Tuple[int, int, int, int]   # (vec, cv, tc, rows) of the depthwise forward
+    gate_pass: int                       # 1: the gate as a pass of its own
+    sums_numel: int                      # floats of the split partials' workspace
+
+    def ints(self) -> Tuple[int, ...]:
+        out = (self.gate_blocks, self.vec_c, self.vec_h, self.vec_g,
+               *(k for split in self.splits for k in split), *self.dw_conv, self.gate_pass)
+        assert len(out) == FWD_PLAN_INTS
+        return out
+
+
+class FusedBwdPlan(NamedTuple):
+    """A backward's launch plan; `ints()` is what the kernel takes."""
+    sum_per: Tuple[int, int]             # pixels a range: dW_out (0 in qkv), dW_in
+    vec_c: int                           # copy widths of the C-, h- and M-wide operands
+    vec_h: int
+    vec_m: int
+    splits: Tuple[Tuple[int, int], ...]  # (K ranges, depth a range) of h, dx
+    dw_conv: Tuple[int, int, int, int]   # (vec, cv, tc, rows) of the depthwise forward
+    dw_rot: Tuple[int, int, int, int]    # ... its rotated forward (dh)
+    dw_taps: Tuple[int, int, int, int]   # ... its dtaps
+    sums_numel: int                      # floats of the sums workspace
+
+    def ints(self) -> Tuple[int, ...]:
+        out = (*self.sum_per, self.vec_c, self.vec_h, self.vec_m,
+               *(k for split in self.splits for k in split), *self.dw_conv,
+               *self.dw_rot, *self.dw_taps)
+        assert len(out) == BWD_PLAN_INTS
+        return out
+
+
+def _splits(pixels: int, prods, n_sm: int) -> Tuple[Tuple[int, int], ...]:
+    return tuple((1, 0) if nk is None else split_plan(pixels, *nk, n_sm) for nk in prods)
+
+
+def fused_fwd_plan(b: int, h: int, w: int, c: int, width: int, gdfn: bool, n_sm: int,
+                   vecs: Tuple[int, int, int], dw_conv: Tuple[int, int, int, int]
+                   ) -> FusedFwdPlan:
+    """The plan of a forward on (B,H,W,C) with depthwise width `width` (2h
+    in the GDFN, M in the qkv configuration) on a card of n_sm SMs; vecs the
+    copy widths of the C class, the h class and a gate pass's rows, dw_conv
+    row 11's (vec, cv, tc, rows) on (B,H,W,width)."""
+    n = b * h * w
+    # (n, k) of h and out (None: not run)
+    prods = ((width, c), (c, width // 2) if gdfn else None)
+    splits = _splits(n, prods, n_sm)
+    numel = max([0] + [s * n * nk[0] for (s, _), nk in zip(splits, prods) if s > 1])
+    return FusedFwdPlan(ln_plan(n, n_sm)[0], *vecs, splits, dw_conv,
+                        int(gdfn and c > GATE_FUSED_MAX_C), numel)
+
+
+def fused_bwd_plan(b: int, h: int, w: int, c: int, width: int, gdfn: bool, n_sm: int,
+                   vecs: Tuple[int, int, int], dw_conv: Tuple[int, int, int, int],
+                   dw_taps: Tuple[int, int, int, int]) -> FusedBwdPlan:
+    """The plan of a backward on (B,H,W,C) with depthwise width `width` on a
+    card of n_sm SMs; vecs the copy widths of the C, h and M classes,
+    dw_conv and dw_taps row 11's (vec, cv, tc, rows) on (B,H,W,width) for
+    its forward (and rotated forward) and its dtaps."""
+    n = b * h * w
+    # (m, n) of the pixel sums dW_out and dW_in; (n, k) of the products h, dx
+    sums = ((c, width // 2) if gdfn else None, (width, c))
+    prods = ((width, c), (c, width))
+    splits = _splits(n, prods, n_sm)
+    numel = max([sum_workspace_numel(m, k, n, n_sm) for m, k in filter(None, sums)]
+                + [s * n * nk[0] for (s, _), nk in zip(splits, prods) if s > 1]
+                + [kdw.dtaps_workspace_numel(b, h, w, width, dw_taps[2], dw_taps[3])])
+    per = tuple(0 if mk is None else sum_plan(*mk, n, n_sm)[1] for mk in sums)
+    return FusedBwdPlan(per, *vecs, splits, dw_conv if gdfn else (0, 0, 0, 0), dw_conv,
+                        dw_taps, numel)
+
+
+def fwd_workspace_numel(n: int, width: int, gdfn: bool) -> Tuple[int, ...]:
+    """Floats of each workspace of a forward on n pixels, in the order the
+    kernel takes them: the GDFN's h (which takes the gate of a gate pass, n
+    rows of gate_ld(h)) and conv, the qkv configuration's h."""
+    if gdfn:
+        return n * max(width, gate_ld(width // 2)), n * width
+    return (n * width,)
+
+
+def bwd_workspace_numel(n: int, width: int, gdfn: bool) -> Tuple[int, ...]:
+    """Floats of each workspace of a backward on n pixels, in the order the
+    kernel takes them: the GDFN's h, conv (then dh), dconv and gate, the qkv
+    configuration's h and dh."""
+    if gdfn:
+        return n * width, n * width, n * width, n * (width // 2)
+    return n * width, n * width
+
+
+def fused_vecs(c: int, width: int, gdfn: bool, ptrs: dict) -> Tuple[int, int, int, int]:
+    """-> copy widths of the C class, the h class, a gate pass's rows and the
+    M class of a call whose operands start at ptrs (name -> address; the
+    workspaces start on 512-byte boundaries): x, w_in and, in the GDFN,
+    w_out and, where they are C- or M-wide operands, g and out."""
+    if gdfn:  # g is C-wide; y leaves through the product's epilogue, not by copies
+        hid = width // 2
+        g = [ptrs["g"]] if "g" in ptrs else []
+        return (kdw.dwconv_vec(c, ptrs["x"], ptrs["w_in"], *g),
+                kdw.dwconv_vec(hid, ptrs["w_out"]), kdw.dwconv_vec(gate_ld(hid)),
+                kdw.dwconv_vec(width))
+    m_wide = [ptrs[k] for k in ("g", "out") if k in ptrs]
+    return kdw.dwconv_vec(c, ptrs["x"], ptrs["w_in"]), 1, 1, kdw.dwconv_vec(width, *m_wide)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_card_plan(b, h, w, c, width, gdfn, device_index, vec_c, vec_h, vec_g, vec_m):
+    """-> (the forward plan's ints as a ctypes array, floats of sums) on this card."""
+    dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False))
+    plan = fused_fwd_plan(b, h, w, c, width, gdfn, sm_count(device_index),
+                          (vec_c, vec_h, vec_g), dw_conv)
+    return (ctypes.c_int * FWD_PLAN_INTS)(*plan.ints()), plan.sums_numel
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_card_plan(b, h, w, c, width, gdfn, device_index, vec_c, vec_h, vec_m):
+    """-> (the backward plan's ints as a ctypes array, floats of sums) on this card."""
+    dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False))
+    dw_taps = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, True))
+    plan = fused_bwd_plan(b, h, w, c, width, gdfn, sm_count(device_index),
+                          (vec_c, vec_h, vec_m), dw_conv, dw_taps)
+    return (ctypes.c_int * BWD_PLAN_INTS)(*plan.ints()), plan.sums_numel
 
 
 # ---------------------------------------------------------------- kernels
@@ -66,23 +222,25 @@ def _check(x, w_in, dwk, w_out, g=None):
 
 def fused_dwconv_fwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
                      w_out: Optional[torch.Tensor]) -> torch.Tensor:
-    """x (B,H,W,C) -> (B,H,W,M) without w_out, (B,H,W,C) with it."""
+    """x (B,H,W,C) -> (B,H,W,M) without w_out, (B,H,W,C) with it. On the
+    card two calls on the same inputs give the same bits."""
     if not x.is_cuda:
         return fused_dwconv_plain(x, w_in, dwk, w_out)
     b, h, w, c, m = _check(x, w_in, dwk, w_out)
-    with torch.cuda.device(x.device):
-        if w_out is None:
-            out = torch.empty(b, h, w, m, device=x.device)
-            build.call("rcot_conv1x1_dw", x.data_ptr(), w_in.data_ptr(),
-                       dwk.data_ptr(), out.data_ptr(), b, h, w, c, m,
-                       build.stream())
-            build.LAUNCHES["conv1x1_dw"] += 1
-        else:
-            out = torch.empty_like(x)
-            build.call("rcot_gdfn_fused", x.data_ptr(), w_in.data_ptr(),
-                       dwk.data_ptr(), w_out.data_ptr(), out.data_ptr(), b, h,
-                       w, c, m // 2, build.stream())
-            build.LAUNCHES["gdfn_fused"] += 1
+    gdfn = w_out is not None
+    dev = x.device
+    out = torch.empty(b, h, w, c if gdfn else m, device=dev)
+    ptrs = {"x": x.data_ptr(), "w_in": w_in.data_ptr(), "w_out": build.ptr(w_out),
+            "out": out.data_ptr()}
+    plan, n_sums = _fwd_card_plan(b, h, w, c, m, gdfn, dev.index,
+                                  *fused_vecs(c, m, gdfn, ptrs))
+    buf, ws = _workspaces(dev, (*fwd_workspace_numel(b * h * w, m, gdfn), n_sums))
+    name = "gdfn_fused" if gdfn else "conv1x1_dw"
+    with torch.cuda.device(dev):
+        build.call(f"rcot_{name}", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
+                   *((w_out.data_ptr(),) if gdfn else ()), out.data_ptr(), *ws, plan,
+                   b, h, w, c, m // 2 if gdfn else m, build.stream())
+    build.LAUNCHES[name] += 1
     return out
 
 
@@ -91,32 +249,28 @@ def fused_dwconv_bwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 Optional[torch.Tensor]]:
     """Backward of fused_dwconv_fwd for the cotangent g ->
-    (dx, dw_in, ddw, dw_out); dw_out is None when w_out is."""
+    (dx, dw_in, ddw, dw_out); dw_out is None when w_out is. On the card
+    every sum runs in a fixed order, so two calls on the same inputs give
+    the same bits."""
     if not x.is_cuda:
         return fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g)
     b, h, w, c, m = _check(x, w_in, dwk, w_out, g)
-    n = b * h * w
+    gdfn = w_out is not None
     dev = x.device
     dx, dw_in, ddw = (torch.empty_like(t) for t in (x, w_in, dwk))
+    dw_out = torch.empty_like(w_out) if gdfn else None
+    ptrs = {"x": x.data_ptr(), "w_in": w_in.data_ptr(), "w_out": build.ptr(w_out),
+            "g": g.data_ptr()}
+    vec_c, vec_h, _, vec_m = fused_vecs(c, m, gdfn, ptrs)
+    plan, n_sums = _bwd_card_plan(b, h, w, c, m, gdfn, dev.index, vec_c, vec_h, vec_m)
+    buf, ws = _workspaces(dev, (*bwd_workspace_numel(b * h * w, m, gdfn), n_sums))
+    name = "gdfn_fused_bwd" if gdfn else "conv1x1_dw_bwd"
     with torch.cuda.device(dev):
-        if w_out is None:
-            ws = [torch.empty(n * m, device=dev) for _ in range(2)]  # h, dh
-            build.call("rcot_conv1x1_dw_bwd", x.data_ptr(), w_in.data_ptr(),
-                       dwk.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                       dw_in.data_ptr(), ddw.data_ptr(),
-                       *(t.data_ptr() for t in ws), b, h, w, c, m,
-                       build.stream())
-            build.LAUNCHES["conv1x1_dw_bwd"] += 1
-            return dx, dw_in, ddw, None
-        hid = m // 2
-        dw_out = torch.empty_like(w_out)
-        # h, conv/dh, dconv, dgate, gate
-        ws = [torch.empty(k, device=dev) for k in (n * m, n * m, n * m, n * hid, n * hid)]
-        build.call("rcot_gdfn_fused_bwd", x.data_ptr(), w_in.data_ptr(),
-                   dwk.data_ptr(), w_out.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                   dw_in.data_ptr(), ddw.data_ptr(), dw_out.data_ptr(),
-                   *(t.data_ptr() for t in ws), b, h, w, c, hid, build.stream())
-        build.LAUNCHES["gdfn_fused_bwd"] += 1
+        build.call(f"rcot_{name}", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
+                   *((w_out.data_ptr(),) if gdfn else ()), g.data_ptr(), dx.data_ptr(),
+                   dw_in.data_ptr(), ddw.data_ptr(), *((dw_out.data_ptr(),) if gdfn else ()),
+                   *ws, plan, b, h, w, c, m // 2 if gdfn else m, build.stream())
+    build.LAUNCHES[name] += 1
     return dx, dw_in, ddw, dw_out
 
 

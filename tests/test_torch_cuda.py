@@ -14,9 +14,9 @@ every pixel with cancelling terms, is held against its plain twin run in
 float64: in fp32 on the card the twin's own rounding comes near the
 tolerance. Its kernel sums in a fixed order, so two calls agree bitwise. The
 backward kernels, whose weight grads are such sums too, are held against
-their plain twins run in float64, every output at the same 1e-5; the MDTA
-and block backward kernels sum in a fixed order too, and two calls agree
-bitwise.
+their plain twins run in float64, every output at the same 1e-5; the MDTA,
+block and fused dwconv kernels sum in a fixed order too, and two calls
+agree bitwise.
 
 The autograd case holds a small T_net on the card against the same model
 on the CPU: every parameter's gradient agrees within 1e-4 of that
@@ -147,11 +147,41 @@ def test_block_tail_w_out_product_does_not_drift_at_k_1021(cuda_device):
 
 
 @pytest.mark.cuda
-def test_block_fwd_wrappers_refuse_more_than_512_channels(cuda_device):
-    p = _block_inputs(torch.Generator(device="cuda").manual_seed(19), 1, 2, 2, 520, True)
+def test_block_fwd_wrappers_refuse_more_channels_than_the_layernorm_holds(cuda_device):
+    c = tblock.LN_MAX_CHANNELS + 1
+    p = _block_inputs(torch.Generator(device="cuda").manual_seed(19), 1, 2, 2, c, True)
     for name, (fn, _, args) in _block_fwd_calls(p).items():
-        with pytest.raises(ValueError, match="512"):
+        with pytest.raises(ValueError, match=str(tblock.LN_MAX_CHANNELS)):
             fn(*args)
+
+
+# past 512 channels the LayerNorm walks a pixel's channels in device memory
+# (and its backward keeps 48-96 KB of partials in shared memory, 768 past
+# the 48 KB that needs no attribute): rows 1-2 and 5 against their float64
+# twins, two calls bitwise equal
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [576, 768])
+@pytest.mark.parametrize("ln_bias", [True, False], ids=["WithBias", "BiasFree"])
+def test_block_kernels_past_512_channels_match_float64_and_repeat(cuda_device, c, ln_bias):
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    p = _block_inputs(gen, 1, 12, 11, c, ln_bias)
+    for name, (fn, plain, args) in _block_fwd_calls(p).items():
+        got, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert _rel_err(got.double(), plain(*_double(args))) < RTOL, name
+        assert torch.equal(got, again), name
+    head = [p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"]]
+    tail = [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")]
+    for fn, plain, args, width, names in (
+            (tblock.block_head_bwd, tblock.block_head_bwd_plain, head, 3 * c,
+             ["dx", "dln_w", "dln_b", "dw_qkv", "ddw"]),
+            (tblock.block_tail_bwd, tblock.block_tail_bwd_plain, tail, c,
+             ["dx", "da", "dw_proj", "dln_w", "dln_b", "dw_in", "ddw", "dw_out"])):
+        g = torch.randn(1, 12, 11, width, device="cuda", generator=gen)
+        got, again = fn(*args, g), fn(*args, g)
+        torch.cuda.synchronize()
+        _assert_grads_match(got, plain(*_double(args + [g])), names)
+        assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again))
 
 
 # (B, heads, ch, (H, W)): the forward kernels' 16-byte (ch % 4 == 0) and
@@ -334,9 +364,10 @@ def test_block_bwd_kernels_take_unaligned_operands(cuda_device, shape):
 
 
 @pytest.mark.cuda
-def test_block_bwd_wrappers_refuse_more_than_512_channels(cuda_device):
-    p = _block_inputs(torch.Generator(device="cuda").manual_seed(11), 1, 2, 2, 520, True)
-    with pytest.raises(ValueError, match="512"):
+def test_block_bwd_wrappers_refuse_more_channels_than_the_layernorm_holds(cuda_device):
+    c = tblock.LN_MAX_CHANNELS + 1
+    p = _block_inputs(torch.Generator(device="cuda").manual_seed(11), 1, 2, 2, c, True)
+    with pytest.raises(ValueError, match=str(tblock.LN_MAX_CHANNELS)):
         tblock.block_tail_bwd(*[p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in",
                                                "dw_in", "w_out")], p["x"])
 
@@ -401,6 +432,45 @@ def test_fused_kernels_match_plain(cuda_device, shape, gdfn):
     torch.cuda.synchronize()
     assert build.LAUNCHES[name + "_bwd"] == n0 + 1
     _assert_grads_match(got, tfused.fused_dwconv_bwd_plain(*_double(list(args) + [g])),
+                        ["dx", "dw_in", "ddw", "dw_out"])
+
+
+# rows 8-9 sum in a fixed order (no atomics, no memsets): two calls give
+# the same bits, forward and backward, in both configurations, at C = 6
+# (h = 15), a split product (the latent), odd h = 127 and a gate pass
+# (C = 96)
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 20, 19, 6), (3, 32, 32, 48), (1, 9, 33, 384),
+                                   (2, 16, 24, 96)])
+@pytest.mark.parametrize("gdfn", [False, True], ids=["conv1x1_dw", "gdfn_fused"])
+def test_fused_kernels_repeat_bitwise(cuda_device, shape, gdfn):
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    p = _block_inputs(gen, *shape, False)
+    args = ((p["x"], p["w_in"], p["dw_in"], p["w_out"]) if gdfn
+            else (p["x"], p["w_qkv"], p["dw_qkv"], None))
+    first, again = tfused.fused_dwconv_fwd(*args), tfused.fused_dwconv_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    g = torch.randn(*first.shape, device="cuda", generator=gen)
+    first, again = tfused.fused_dwconv_bwd(*args, g), tfused.fused_dwconv_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(first, again))
+
+
+# the GDFN on terms that never cancel (everything positive): its W_out
+# product chains K = h = 1,021 steps, its dx product K = 2h = 2,042
+@pytest.mark.cuda
+def test_fused_gdfn_products_do_not_drift_at_k_1021_and_2042(cuda_device):
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    p = {k: None if v is None else v.abs()
+         for k, v in _block_inputs(gen, 1, 32, 32, 384, False).items()}
+    args = [p["x"], p["w_in"], p["dw_in"], p["w_out"]]
+    got = tfused.fused_dwconv_fwd(*args)
+    g = torch.rand(*got.shape, device="cuda", generator=gen)
+    grads = tfused.fused_dwconv_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert _rel_err(got.double(), tfused.fused_dwconv_plain(*_double(args))) < RTOL
+    _assert_grads_match(grads, tfused.fused_dwconv_bwd_plain(*_double(args + [g])),
                         ["dx", "dw_in", "ddw", "dw_out"])
 
 

@@ -149,3 +149,16 @@ def test_cli_reads_a_port_state_dict(tmp_path):
     assert sd.keys() == net.state_dict().keys()
     assert all(torch.equal(sd[k], v) for k, v in net.state_dict().items())
 
+
+
+def test_cli_refuses_a_reference_pth_by_name(tmp_path):
+    """A reference checkpoint is a pickle of the reference's modules, which
+    this repo does not have: the CLI stops by name before unpickling it."""
+    import pickle
+
+    from rcot_torch.cli.test import load_state_dict
+
+    path = tmp_path / "model_derain.pth"
+    path.write_bytes(pickle.dumps({"epoch": 3, "Tnet": {"w": np.zeros(2)}}))
+    with pytest.raises(SystemExit, match=r"reference \.pth .*Queue 1 item 3"):
+        load_state_dict(str(path))

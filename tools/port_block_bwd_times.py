@@ -39,9 +39,11 @@ STAGES = (("reduce", "reduce"), ("sum_parts", "reduce"), ("gemm", "products"),
           ("mm_kernel", "products"), ("dw3x3", "stencils"), ("ddw", "stencils"),
           ("dwconv", "stencils"), ("ln_", "layernorm"), ("gate", "gate"),
           ("Memset", "memsets and copies"), ("Memcpy", "memsets and copies"),
-          # the earlier CUDA-core block forward (rows 1-2), in an older tree
+          # the earlier CUDA-core block forward (rows 1-2) and rows 8-9, in an
+          # older tree
           ("tail_proj", "products"), ("head_kernel", "fused halo"),
-          ("tail_gdfn", "fused halo"))
+          ("tail_gdfn", "fused halo"), ("conv1x1_dw_kernel", "fused halo"),
+          ("gdfn_kernel", "fused halo"))
 SPLIT_CALLS = 10
 TF32X3_FLOPS = 495e12 / 3  # H100 SXM: TF32 on the tensor cores, three products each
 

@@ -2,7 +2,7 @@
 of an rcot_torch tree on one CUDA card, at every block shape of the serving
 path (256^2, B = 1) and of the training path (128^2, B = 3).
 
-    python tools/port_block_fwd_times.py [--root DIR] [--serve-rate] [--odd-h]
+    python tools/port_block_fwd_times.py [--root DIR] [--digest] [--serve-rate] [--odd-h]
 
 As tools/port_block_bwd_times.py does: rcot_torch and its kernels are DIR's
 (default: this checkout), timed with this checkout's
@@ -20,12 +20,16 @@ context. With --odd-h it times the tail at train L1 and serve decoder L1
 with the model's odd h (127, 255: conv's c2 half and W_out's rows 4-byte
 aligned, so their width class takes 4-byte copies) and with h rounded up to
 a multiple of 4 (16-byte copies), split by launch: what the narrow copies
-cost. Last come the root and the card's name and power limit. To hold
-two trees against each other, run them in turns in one call (A, B, B, A).
+cost. With --digest it first prints a SHA-256 of both configurations'
+outputs on seeded inputs at every training shape, WithBias and BiasFree:
+two trees whose digests agree computed the same bits. Last come the root
+and the card's name and power limit. To hold two trees against each
+other, run them in turns in one call (A, B, B, A).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -75,6 +79,21 @@ def odd_h_cost(smoke) -> dict:
     return out
 
 
+def digests(smoke) -> dict:
+    """SHA-256 of rows 1-2's outputs on seeded inputs, by shape and LN kind."""
+    gen = smoke.torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for label, res, c, _ in smoke.TRAIN_SHAPES:
+        for ln_bias in (True, False):
+            p = smoke.block_inputs(gen, smoke.TRAIN_B, res, c, ln_bias)
+            h = hashlib.sha256()
+            for t in (smoke.kblock.block_tail_fwd(*smoke.tail_args(p)),
+                      smoke.kblock.block_head_fwd(*smoke.head_args(p))):
+                h.update(t.cpu().numpy().tobytes())
+            out[f"{label} {'WithBias' if ln_bias else 'BiasFree'}"] = h.hexdigest()
+    return out
+
+
 def serve_rate(root: Path) -> dict:
     """tools/port_serve_rate.py's line for this root."""
     out = subprocess.run([sys.executable, str(Path(__file__).resolve().parent
@@ -84,11 +103,13 @@ def serve_rate(root: Path) -> dict:
 
 
 def main() -> int:
-    flags = {f: f in sys.argv for f in ("--serve-rate", "--odd-h")}
+    flags = {f: f in sys.argv for f in ("--digest", "--serve-rate", "--odd-h")}
     sys.argv = [a for a in sys.argv if a not in flags]
     smoke = port_gram_times.load(__doc__)
     if smoke is None:
         return 1
+    if flags["--digest"]:
+        print(json.dumps({"digests": digests(smoke)}), flush=True)
     gen = smoke.torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for tag, b, shapes in (("serve", 1, smoke.MAIN_SHAPES),
