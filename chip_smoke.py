@@ -28,11 +28,19 @@ Phases (any failure exits non-zero; nothing is caught):
      on terms that never cancel, through its W_out product at K = h = 1,021
      and its dx product at K = 2h = 2,042, against its float64 twin;
   3d. hold the opt-in tiers' kernels against their plain twins: the fused
-     MDTA attend (mdta_attend, against its float64 twin) and the depthwise
-     kernel (dwconv3x3 at the qkv and the GDFN widths, and its backward's
-     dwconv3x3_dx and dwconv3x3_dtaps launches, dtaps also bitwise against
-     a second call) at every serving block shape, B = 1 and 2, and every
-     training one, B = 3;
+     MDTA attend (mdta_attend, against its float64 twin and bitwise against
+     a second call) and the depthwise kernel (dwconv3x3 at the qkv and the
+     GDFN widths, and its backward's dwconv3x3_dx and dwconv3x3_dtaps
+     launches, dtaps also bitwise against a second call) at every serving
+     block shape, B = 1 and 2, and every training one, B = 3; the attend
+     also at N = 80,250 (the 250x321 image unpadded: 4-byte copies) and an
+     odd N;
+  3e. hold the MDTA kernels (rows 3-4, 6-7 and 10) at heads wider than 128
+     channels (192 and 384, ModelConfig(heads=(1, 1, 1, 1))'s, at serving
+     and training shapes; 136; 150, no multiple of 4) against their float64
+     twins and bitwise against a second call; and the pixel sums of rows 3,
+     7 and 10 on terms that never cancel, over ranges of 512 pixels, against
+     float64 (their errors printed);
   4. serve the full-width T_net (ModelConfig(), 46,853,150 parameters,
      seeded random weights) through make_restorer: restore_batch on 256^2
      images plus a 250x321 one, and a tiled 600x600 restore; check shapes,
@@ -83,6 +91,11 @@ Phases (any failure exits non-zero; nothing is caught):
      launches each of dwconv3x3, dwconv3x3_dx, dwconv3x3_dtaps, block_tail,
      block_tail_bwd and mdta_attend per iteration, no other kernel), finite
      metrics, every used parameter moved; iterations/s in turns with "tail";
+  6d. ModelConfig(heads=(1, 1, 1, 1)) at full width (heads of 192 and 384
+     channels): served through make_restorer in full/gram/fused and
+     off/mdta/dwconv against the same restorer on the CPU, and one 64^2,
+     B = 1 iteration's gradients in tail/gram/fused and tail/mdta/dwconv
+     against the CPU's within GRAD_RTOL, each run's launches its tiers';
   7. the train CLI (rcot_torch.cli.train.main) at full width on a seeded
      synthetic tree: a run stopped by --fail-at-step 5, resumed from
      latest.npz at the epoch step its metadata holds, both epochs with
@@ -121,9 +134,10 @@ move every entry with a near-zero gradient by about +-10 lr with a sign
 that the order of sums decides; they are held to STEPPED_RTOL (the worst
 seen was 2.9e-4, t_adv).
 
-The fused MDTA attend's output, whose Gram and norms are pixel sums added
-with atomics, is held against its float64 twin like the Gram; the
-depthwise backward's dtaps, a pixel sum in a fixed order, likewise.
+The fused MDTA attend's output, whose Gram and norms are pixel sums over
+every pixel, is held against its float64 twin like the Gram; the
+depthwise backward's dtaps, a pixel sum, likewise. Every kernel sums in a
+fixed order and is held bitwise against a second call.
 
 Prints the kernels' JSON line (all sixteen kernels) and, last,
 {"ok": true, "device": {...}}.
@@ -615,13 +629,16 @@ def phase_block_wide(gen, errs) -> None:
 
 def phase_opt_in_kernels(gen) -> dict:
     """The opt-in tiers' kernels against their plain twins: mdta_attend
-    (against its float64 twin: its Gram and norms are pixel sums added with
-    atomics) at every serving block shape, B = 1 and 2, and every training
-    one, B = 3; dwconv3x3 at the qkv width (3C) and the GDFN's (2h) at the
-    same shapes, and its backward there: dx (the dwconv3x3_dx launch)
-    against the fp32 twin, dtaps (the dwconv3x3_dtaps launch, a pixel sum)
-    against the float64 twin and bitwise against a second call (its sums
-    run in a fixed order)."""
+    (against its float64 twin: its Gram and norms are pixel sums over every
+    pixel, as the Gram core's) at every serving block shape, B = 1 and 2,
+    and every training one, B = 3, each bitwise against a second call (its
+    sums run in a fixed order), then at the 250x321 image's N unpadded
+    (80,250: N % 4 == 2, 4-byte copies; served, the image is padded to
+    256x328) and at an odd N; dwconv3x3 at the qkv width (3C) and the
+    GDFN's (2h) at the same shapes, and its backward there: dx (the
+    dwconv3x3_dx launch) against the fp32 twin, dtaps (the dwconv3x3_dtaps
+    launch, a pixel sum) against the float64 twin and bitwise against a
+    second call (its sums run in a fixed order)."""
     errs: dict = {}
     cases = [(label, res, c, heads, b) for label, res, c, heads in MAIN_SHAPES
              for b in (1, 2)]
@@ -634,10 +651,11 @@ def phase_opt_in_kernels(gen) -> dict:
         tag = f"{label} {res}^2 C={c} heads={heads} B={b}"
         q, k, v = (r(b, heads, c // heads, res * res) for _ in range(3))
         temp = torch.rand(heads, 1, 1, device="cuda", generator=gen) * 1.5 + 0.5
-        got = kmdta.mdta_attend_fwd(q, k, v, temp)
+        got, again = kmdta.mdta_attend_fwd(q, k, v, temp), kmdta.mdta_attend_fwd(q, k, v, temp)
         torch.cuda.synchronize()
         check(f"mdta_attend {tag}", got, kmdta.mdta_attend_plain(*_double([q, k, v, temp])),
               errs)
+        check_repeats(f"mdta_attend {tag}", (got,), (again,))
         for width in (3 * c, 2 * int(c * 2.66)):
             x, g = r(b, res, res, width), r(b, res, res, width)
             taps = r(width, 3, 3, scale=0.3)
@@ -654,7 +672,102 @@ def phase_opt_in_kernels(gen) -> dict:
             if not torch.equal(dtaps, again):
                 raise AssertionError(f"dwconv3x3_dtaps {tag} width {width}: two calls differ")
         log(f"opt-in kernels ok at {tag}")
+    for n in (250 * 321, 125 * 161):
+        q, k, v = (r(1, 1, 48, n) for _ in range(3))
+        temp = torch.rand(1, 1, 1, device="cuda", generator=gen) + 0.5
+        got, again = kmdta.mdta_attend_fwd(q, k, v, temp), kmdta.mdta_attend_fwd(q, k, v, temp)
+        torch.cuda.synchronize()
+        tag = f"N={n} (1, 1, 48, {n})"
+        check(f"mdta_attend {tag}", got, kmdta.mdta_attend_plain(*_double([q, k, v, temp])),
+              errs)
+        check_repeats(f"mdta_attend {tag}", (got,), (again,))
+        log(f"mdta_attend ok at {tag}")
     return errs
+
+
+# (label, (b, h, w), heads, ch) past 128 channels a head: ModelConfig(heads=
+# (1, 1, 1, 1))'s level-3 and latent heads (192, 384) at 256 px, B = 1, and
+# in training, 128 px, B = 3; two blocks of 68 (136), and of 75 (150, no
+# multiple of 4: 4-byte copies)
+WIDE_HEADS = [("serve L3 one head", (1, 64, 64), 1, 192),
+              ("serve latent one head", (1, 32, 32), 1, 384),
+              ("train L3 one head", (TRAIN_B, 32, 32), 1, 192),
+              ("train latent one head", (TRAIN_B, 16, 16), 1, 384),
+              ("ch=136", (2, 24, 20), 2, 136), ("ch=150", (2, 33, 7), 1, 150)]
+
+
+def phase_wide_heads(gen, errs) -> None:
+    """Rows 3-4, 6-7 and 10 at heads wider than 128 channels (WIDE_HEADS),
+    which run as blocks of at most 128 (csrc/gram.cu, csrc/mdta.cu): every
+    output against its float64 twin, two calls bitwise equal, one count a
+    call. The worst errors join errs."""
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    for label, (b, h, w), heads, ch in WIDE_HEADS:
+        qkv, g = r(b, h, w, 3 * heads * ch), r(b, h, w, heads * ch)
+        attn = torch.softmax(r(b, heads, ch, ch), -1)
+        cot = [r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)]
+        q, k, v = (r(b, heads, ch, h * w) for _ in range(3))
+        temp = torch.rand(heads, 1, 1, device="cuda", generator=gen) + 0.5
+        calls = {
+            "mdta_gram_fwd": (lambda: kgram.mdta_gram_fwd(qkv, heads),
+                              lambda: kgram.mdta_gram_plain(qkv.double(), heads)),
+            "attn_apply_fwd": (lambda: kgram.attn_apply_fwd(qkv, attn),
+                               lambda: kgram.attn_apply_plain(*_double([qkv, attn]))),
+            "mdta_gram_bwd": (lambda: kgram.mdta_gram_bwd(qkv, *cot, heads),
+                              lambda: kgram.mdta_gram_bwd_plain(*_double([qkv, *cot]), heads)),
+            "attn_apply_bwd": (lambda: kgram.attn_apply_bwd(qkv, attn, g),
+                               lambda: kgram.attn_apply_bwd_plain(*_double([qkv, attn, g]))),
+            "mdta_attend": (lambda: kmdta.mdta_attend_fwd(q, k, v, temp),
+                            lambda: kmdta.mdta_attend_plain(*_double([q, k, v, temp]))),
+        }
+        tag = f"{label} {(b, h, w)} heads={heads} ch={ch}"
+        for name, (kernel, plain) in calls.items():
+            n0 = build.LAUNCHES[name]
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            if build.LAUNCHES[name] != n0 + 2:
+                raise AssertionError(f"{name} {tag}: {build.LAUNCHES[name] - n0} counts "
+                                     "for two calls")
+            check(f"{name} {tag}", got, plain(), errs)
+            check_repeats(f"{name} {tag}", got if isinstance(got, tuple) else (got,),
+                          again if isinstance(again, tuple) else (again,))
+        log(f"MDTA kernels ok at {tag}")
+
+
+def phase_sum_drift(gen, errs) -> dict:
+    """The pixel sums of rows 3, 7 and 10 on terms that never cancel, the
+    attention core's counterpart of drift_inputs: q, k, v and the cotangent
+    uniform in [0, 1) at 256^2, B = 1, one head, so that each (b, head) is
+    cut into 128 ranges of 512 pixels, the most a range holds, and a
+    tensor-core accumulation that drifts toward zero shows in full: the
+    Gram's G (row 3), dattn (row 7) and row 10's output, whose Gram is such
+    a sum, each against its float64 twin at ch = 48, 96 and 128 (a warp's
+    chain holds 128 pixels of a range at 48 and all 512 at 96 and 128).
+    -> {"<kernel> ch=<ch>": max|err| / max(max|float64|, 1)}; the worst
+    errors join errs."""
+    out = {}
+    for ch in (48, 96, 128):
+        qkv = torch.rand(1, 256, 256, 3 * ch, device="cuda", generator=gen)
+        g = torch.rand(1, 256, 256, ch, device="cuda", generator=gen)
+        attn = torch.softmax(torch.randn(1, 1, ch, ch, device="cuda", generator=gen), -1)
+        q, k, v = (t.reshape(1, 1, 256 * 256, ch).transpose(2, 3).contiguous()
+                   for t in qkv.split(ch, dim=-1))
+        temp = torch.ones(1, 1, 1, device="cuda")
+        for name, got, want in (
+                ("mdta_gram_fwd", kgram.mdta_gram_fwd(qkv, 1)[0],
+                 kgram.mdta_gram_plain(qkv.double(), 1)[0]),
+                ("attn_apply_bwd", kgram.attn_apply_bwd(qkv, attn, g)[1],
+                 kgram.attn_apply_bwd_plain(*_double([qkv, attn, g]))[1]),
+                ("mdta_attend", kmdta.mdta_attend_fwd(q, k, v, temp),
+                 kmdta.mdta_attend_plain(*_double([q, k, v, temp])))):
+            torch.cuda.synchronize()
+            out[f"{name} ch={ch}"] = float((got.double() - want).abs().max()
+                                           / max(float(want.abs().max()), 1.0))
+            check(f"{name} sum drift 512-pixel ranges ch={ch}", got, want, errs)
+    log(f"pixel sums on non-cancelling terms, max|err| / max(max|float64|, 1): "
+        f"{json.dumps(out)}")
+    return out
 
 
 def phase_model(gen_np) -> dict:
@@ -1596,6 +1709,92 @@ def phase_train_vs_cpu(gen_np) -> dict:
     return dict(grad_worst_rel=worst[0][1], metric_worst_rel=max(m_rel.values()))
 
 
+ONE_HEAD = ModelConfig(heads=(1, 1, 1, 1))  # heads of 48, 96, 192 and 384 channels
+ONE_HEAD_TIERS = (("gram", "fused"), ("mdta", "dwconv"))
+
+
+def phase_one_head(gen_np) -> dict:
+    """ModelConfig(heads=(1, 1, 1, 1)) at full width (seeded weights): the
+    level-3 and latent heads are 192 and 384 channels wide, past the 128 a
+    block of the MDTA kernels takes, and run as channel blocks. Serving:
+    make_restorer(...).restore_batch on a 128^2 image in full/gram/fused
+    and in off/mdta/dwconv (94 launches of the attention core's kernels a
+    forward), each against the same restorer on the CPU within the forward
+    gate (MODEL_ATOL, MODEL_RTOL). Training: one 64^2, B = 1 iteration's T
+    and F gradients (train_grads) in tail/gram/fused and tail/mdta/dwconv
+    against the CPU's in the same tiers, each within GRAD_RTOL of its
+    largest entry, the critic's sign pattern pinned to the CPU's
+    (LeakyPattern) and a temperature held to the floor its terms set
+    (TemperatureTerms, recorded in the CPU's gram run: the mdta run's
+    temperatures are the same sums)."""
+    out: dict = {}
+    img = gen_np.uniform(0, 1, (128, 128, 3)).astype(np.float32)
+    for core, tier, mode in (("gram", "fused", "full"), ("mdta", "dwconv", "off")):
+        key = f"{mode}/{core}/{tier}"
+        nets = {"cuda": TNet(ONE_HEAD, device="cuda", seed=0).eval(),
+                "cpu": TNet(ONE_HEAD, device="cpu", seed=None).eval()}
+        nets["cpu"].load_state_dict({k: v.cpu() for k, v in nets["cuda"].state_dict().items()})
+        restorers = {dev: make_restorer(net, ONE_HEAD, device=dev, composition=mode,
+                                        attention_core=core, depthwise=tier)
+                     for dev, net in nets.items()}
+        forwards = counting(restorers["cuda"])
+        build.reset_launches()
+        got = restorers["cuda"].restore_batch([img])[0]
+        torch.cuda.synchronize()
+        check_launches(f"one head serving {key}", dict(build.LAUNCHES),
+                       expected_launches(FORWARD_LAUNCHES * forwards[0], mode, False,
+                                         core=core, depthwise=tier))
+        want = restorers["cpu"].restore_batch([img])[0]
+        err = float(np.abs(got - want).max())
+        torch.testing.assert_close(torch.from_numpy(got), torch.from_numpy(want),
+                                   atol=MODEL_ATOL, rtol=MODEL_RTOL)
+        out[f"serve {key} max_abs_err"] = err
+        log(f"one head a level, serving {key}: card vs CPU 128^2 max|err| {err:.3e}")
+        del nets, restorers
+
+    model = ONE_HEAD
+    cfg = Config(model=model, critic=CriticConfig(patch_size=64), train=TrainConfig(batch_size=1))
+    b, res = cfg.train.batch_size, cfg.critic.patch_size
+    deg, tgt = (gen_np.uniform(0, 1, (b, res, res, 3)).astype(np.float32) for _ in range(2))
+    alpha = np.full((b, 1, 1, 1), 0.37, np.float32)
+    terms = None
+    for core, tier in ONE_HEAD_TIERS:
+        key = f"tail/{core}/{tier}"
+        pattern = LeakyPattern()
+        sides = {}
+        for dev in ("cpu", "cuda"):  # the CPU records the critic's pattern (and the terms)
+            state = create_train_state(cfg, seed=1, device=dev, attention_core=core,
+                                       depthwise=tier)
+            if state.t_net.composition != "tail":
+                raise AssertionError(f"training composition {state.t_net.composition!r}")
+            batch = Batch(torch.from_numpy(deg).to(dev), torch.from_numpy(tgt).to(dev),
+                          torch.tensor([0] * b, device=dev))
+            record = dev == "cpu" and terms is None
+            if record:
+                terms = TemperatureTerms(state.t_net)
+            build.reset_launches()
+            with pattern.recording() if dev == "cpu" else pattern.replaying():
+                with terms.recording() if record else contextlib.nullcontext():
+                    sides[dev] = {k: v.cpu() for k, v in train_grads(
+                        state, batch, torch.from_numpy(alpha).to(dev), cfg).items()}
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                check_launches(f"one head training {key}", dict(build.LAUNCHES),
+                               expected_launches(FORWARD_LAUNCHES, "tail", core=core,
+                                                 depthwise=tier))
+            del state
+        rel, bad = grad_errors(sides["cuda"], sides["cpu"], terms.sums)
+        if set(sides["cuda"]) != set(sides["cpu"]) or bad:
+            raise AssertionError(f"one head a level, training {key}: gradients off by more "
+                                 f"than {GRAD_RTOL} of their largest (or a temperature's "
+                                 f"floor): {bad}")
+        worst = max(rel.items(), key=lambda kv: kv[1])
+        out[f"train {key} worst_grad_rel"] = worst
+        log(f"one head a level, training {key}: card vs CPU 64^2, {len(rel)} gradients, "
+            f"worst max|err|/max|grad| {worst}")
+    return out
+
+
 def iteration_breakdown(it_per_s, critic_ms, timings, mode) -> dict:
     """One iteration at 128^2, B = 3 in `mode` (host clock, synchronised)
     beside each of its kernels' time at every block shape times the blocks
@@ -1647,6 +1846,9 @@ def main() -> int:
     phase_block_wide(torch.Generator(device="cuda").manual_seed(4), errs)
     errs.update(phase_fused(gen))
     errs.update(phase_opt_in_kernels(gen_opt))
+    # heads past 128 channels and the pixel sums' drift, on inputs of their own
+    phase_wide_heads(torch.Generator(device="cuda").manual_seed(6), errs)
+    drift = phase_sum_drift(torch.Generator(device="cuda").manual_seed(7), errs)
     model = phase_model(gen_np)
     serve_opt = phase_serve_opt_in(gen_np_opt, model["net"], card)
 
@@ -1677,6 +1879,7 @@ def main() -> int:
     vs_cpu = phase_train_vs_cpu(gen_np)
     compositions = phase_compositions(gen_np)
     train_opt = phase_train_opt_in(gen_opt, card)
+    one_head = phase_one_head(np.random.default_rng(2))
     cli = phase_train_cli(card)
     cli_opt = phase_cli_opt_in(card)
     splits = {mode: iteration_breakdown(train["it_per_s"][mode], train["critic_ms"],
@@ -1741,6 +1944,8 @@ def main() -> int:
                                    k: v for k, v in compositions["worst"].items()
                                    if "/" in k},
                                "clis": cli_opt},
+                    "one_head_a_level": one_head,
+                    "pixel_sum_drift_512_pixel_ranges": drift,
                     "gram_plain_fp32_vs_float64_rel_err": errs["gram_plain_fp32_rel"],
                     "golden_max_abs_err": model["golden_err"],
                     "seconds": time.perf_counter() - t_start}))

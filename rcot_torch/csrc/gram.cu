@@ -67,6 +67,24 @@
 //     registers over the whole range (the Gram's warp layout), is added
 //     over the warps in shared memory in a fixed order and written into
 //     dattn, or into a workspace that gram_reduce_kernel sums in order.
+//
+// Heads of any width. A kernel is templated on a channel block of at most
+// 128 channels (R <= 8). A wider head is cut into nb blocks of cb channels
+// (the last one narrower; ops/gram.py channel_blocks), and every kernel
+// runs over a grid of block pairs (i, j), one more grid dimension, each
+// pair a head of today's kernels whose q-side operand is block i (wi
+// channels) and whose k-side operand is block j (wj): G_ij = q_i^T k_j,
+// out_i += v_j attn_ij^T, dq_i += k_j dG_ij^T, dk_j += q_i dG_ij,
+// dv_j += g_i attn_ij, dattn_ij = g_i^T v_j. A pair reads its channels at
+// offsets into the head and writes its block of a ch x ch matrix at pitch
+// ch, so the Gram's and dattn's partials and their reduce are those of one
+// head; nq comes from the pairs (i, 0), nk from (0, j). A sum over blocks
+// (the apply's, and dq, dk and dv) goes to nb slots of a workspace, one
+// per block of the summed index, that tc.cuh's sum_slots adds in order;
+// 2 q dnq is added in the pairs (i, 0) alone, 2 k dnk in (0, j). A head of
+// ch <= 128 is one pair (nb = 1, cb = ch) and runs each kernel's BLK =
+// false variant, which compiles to a single block's arithmetic: the
+// launches, the bits and the time of a head without blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,6 +100,20 @@ constexpr int kThreads = 256;
 constexpr int kGramStages = 3;   // depth of each kernel's cp.async ring
 constexpr int kApplyStages = 3;
 constexpr int kApplyTP = 128;    // pixels per apply tile: eight warps of 16 rows
+
+// The channel-block pair (i, j) of a block and the two blocks' widths:
+// with BLK, pair p = i * nb + j of the grid; without, the one pair of a
+// head of ch <= 128 channels, whose kernels then compile to the arithmetic
+// of a single block (i = j = 0, wi = wj = ch).
+struct Pair {
+  int i, j, wi, wj;
+};
+template <bool BLK>
+__device__ __forceinline__ Pair pair_of(int p, int ch, int cb) {
+  if (!BLK) return {0, 0, ch, ch};
+  const int nb = (ch + cb - 1) / cb, i = p / nb, j = p - i * nb;
+  return {i, j, block_width(i, ch, cb), block_width(j, ch, cb)};
+}
 
 // Rows [p0, p0 + rows) of a head slice (row r at src + r * stride, ch
 // floats) into a tile of pitch ld; rows at or past `end` are zero-filled.
@@ -136,26 +168,31 @@ struct GramCfg {
   static_assert(KS >= 1, "a stage feeds every warp group");
 };
 
-// Block (s, bh) sums G = q^T k, nq = sum q^2 and nk = sum k^2 over pixels
-// [s * per, (s + 1) * per) of (b, h) and writes them with plain stores to
-// g_out + (bh * splits + s) * g_stride (nq, nk likewise with n_stride): the
-// outputs themselves when splits == 1, else the workspace that
-// gram_reduce_kernel sums.
-template <int R, bool VEC>
+// Block (s, bh, i * nb + j) sums G_ij = q_i^T k_j, nq = sum q_i^2 and
+// nk = sum k_j^2 over pixels [s * per, (s + 1) * per) of (b, h) and writes
+// them with plain stores to g_out + (bh * splits + s) * g_stride, G_ij at
+// row i cb and column j cb of a ch x ch matrix (nq, nk likewise with
+// n_stride, from the pairs (i, 0) and (0, j)): the outputs themselves when
+// splits == 1, else the workspace that gram_reduce_kernel sums.
+template <int R, bool VEC, bool BLK>
 __global__ void __launch_bounds__(kThreads)
 gram_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ g_out,
                 float* __restrict__ nq_out, float* __restrict__ nk_out,
                 long long g_stride, long long n_stride, long long hw, int heads,
-                int ch, int splits, long long per) {
+                int ch, int cb, int splits, long long per) {
   using Cfg = GramCfg<R>;
   constexpr int LD = Cfg::LD, TP = Cfg::TP, CHP = Cfg::CHP, MW = Cfg::MW, NW = Cfg::NW;
   extern __shared__ __align__(16) float smem[];
   const int s = blockIdx.x, bh = blockIdx.y;
   const int b = bh / heads, h = bh - b * heads;
+  const Pair pr = pair_of<BLK>(blockIdx.z, ch, cb);
+  const int pi = pr.i, pj = pr.j, wi = pr.wi, wj = pr.wj;
   const long long C = (long long)heads * ch, stride = 3 * C;
   const long long begin = s * per;
   const long long end = begin + per < hw ? begin + per : hw;
-  const float* q_rows = qkv + (long long)b * hw * stride + (long long)h * ch;
+  const float* head = qkv + (long long)b * hw * stride + (long long)h * ch;
+  const float* q_rows = head + pi * cb;
+  const float* k_rows = head + C + pj * cb;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wk = warp % Cfg::WK, wt = warp / Cfg::WK;
@@ -168,17 +205,19 @@ gram_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ g_out,
 #pragma unroll
   for (int j = 0; j < NW; ++j) use_n[j] = Cfg::NT % Cfg::WTN == 0 || wn * NW + j < Cfg::NT;
 
-  // the copies never write columns [ch, LD): zero them once
-  for (int i = tid; i < kGramStages * 2 * TP * (LD - ch); i += kThreads) {
-    const int r = i / (LD - ch);
-    smem[r * LD + ch + (i - r * (LD - ch))] = 0.f;
+  // the copies never write columns [wi, LD) of a q row or [wj, LD) of a k
+  // row: zero them once
+  const int wmin = wi < wj ? wi : wj, pad = LD - wmin;
+  for (int i = tid; i < kGramStages * 2 * TP * pad; i += kThreads) {
+    const int r = i / pad, c = wmin + (i - r * pad);
+    if (c >= ((r / TP) & 1 ? wj : wi)) smem[r * LD + c] = 0.f;
   }
   const int n_tiles = (int)((end - begin + TP - 1) / TP);
   auto load = [&](int t) {
     float* dst = smem + (t % kGramStages) * Cfg::STAGE;
     const long long p0 = begin + (long long)t * TP;
-    stage_rows<VEC>(dst, LD, q_rows, stride, p0, end, TP, ch);
-    stage_rows<VEC>(dst + TP * LD, LD, q_rows + C, stride, p0, end, TP, ch);
+    stage_rows<VEC>(dst, LD, q_rows, stride, p0, end, TP, wi);
+    stage_rows<VEC>(dst + TP * LD, LD, k_rows, stride, p0, end, TP, wj);
   };
 
   float acc[MW][NW][4];
@@ -272,9 +311,9 @@ gram_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ g_out,
 
   // the WK partials in a fixed order, written once: warp w rows w, w + 8, ...
   const long long unit = (long long)bh * splits + s;
-  float* go = g_out + unit * g_stride;
-  for (int c = warp; c < ch; c += kThreads / 32)
-    for (int d = lane; d < ch; d += 32) {
+  float* go = g_out + unit * g_stride + (long long)pi * cb * ch + pj * cb;
+  for (int c = warp; c < wi; c += kThreads / 32)
+    for (int d = lane; d < wj; d += 32) {
       float v = 0.f;
 #pragma unroll
       for (int w = 0; w < Cfg::WK; ++w) v += smem[w * Cfg::E + c * RP + d];
@@ -282,11 +321,12 @@ gram_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ g_out,
     }
   for (int e = tid; e < 2 * CHP; e += kThreads) {
     const int which = e / CHP, c = e - which * CHP;
-    if (c >= ch) continue;
+    // nq from the pairs (i, 0), nk from the pairs (0, j)
+    if (c >= (which ? wj : wi) || (which ? pi : pj) != 0) continue;
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < Cfg::WK; ++w) v += smem[w * Cfg::E + SQ + e];
-    (which ? nk_out : nq_out)[unit * n_stride + c] = v;
+    (which ? nk_out + pj * cb : nq_out + pi * cb)[unit * n_stride + c] = v;
   }
 }
 
@@ -356,15 +396,16 @@ struct ApplyCfg {
 };
 
 // Tiles t = bh * tiles_per_bh + i (pixels [i TP, (i + 1) TP) of (b, h));
-// block k walks tiles [k * per_block, (k + 1) * per_block), restaging attn
-// only where bh changes, with the v tiles streaming through the ring. The
-// results leave straight from the accumulators: each group of four lanes
-// writes 32 contiguous bytes of a row.
-template <int R, bool VEC>
+// block (k, i * nb + j) walks tiles [k * per_block, (k + 1) * per_block),
+// restaging attn_ij only where bh changes, with the tiles of v_j streaming
+// through the ring, and writes out_i's part from block j to out + j * slot.
+// The results leave straight from the accumulators: each group of four
+// lanes writes 32 contiguous bytes of a row.
+template <int R, bool VEC, bool BLK>
 __global__ void __launch_bounds__(kThreads)
 apply_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
-                 float* __restrict__ out, long long hw, int heads, int ch,
-                 long long tiles_per_bh, long long n_tiles_all, long long per_block) {
+                 float* __restrict__ out, long long slot, long long hw, int heads, int ch,
+                 int cb, long long tiles_per_bh, long long n_tiles_all, long long per_block) {
   using Cfg = ApplyCfg<R>;
   constexpr int LD = Cfg::LD, TP = kApplyTP, CHP = Cfg::CHP, NT = Cfg::NT;
   constexpr int STAGES = Cfg::STAGES;
@@ -376,6 +417,8 @@ apply_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
   const long long t1 = t0 + per_block < n_tiles_all ? t0 + per_block : n_tiles_all;
   if (t0 >= t1) return;
   const int n = (int)(t1 - t0);
+  const Pair pr = pair_of<BLK>(blockIdx.y, ch, cb);
+  const int pi = pr.i, pj = pr.j, wi = pr.wi, wj = pr.wj;
   const long long C = (long long)heads * ch, stride = 3 * C;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -385,22 +428,22 @@ apply_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
 #pragma unroll
   for (int j = 0; j < NT; ++j) use_n[j] = true;  // no branch in the hot loop: padding adds zeros
 
-  // the product runs over d < CHP: the v columns [ch, LD) stay zero
-  for (int i = tid; i < STAGES * TP * (LD - ch); i += kThreads) {
-    const int r = i / (LD - ch);
-    ring[r * LD + ch + (i - r * (LD - ch))] = 0.f;
+  // the product runs over d < CHP: the v columns [wj, LD) stay zero
+  for (int i = tid; i < STAGES * TP * (LD - wj); i += kThreads) {
+    const int r = i / (LD - wj);
+    ring[r * LD + wj + (i - r * (LD - wj))] = 0.f;
   }
   auto load = [&](int i) {
     const long long t = t0 + i, bh = t / tiles_per_bh, b = bh / heads;
     stage_rows<VEC>(ring + (i % STAGES) * TP * LD, LD,
-                    qkv + b * hw * stride + (bh - b * heads) * ch + 2 * C, stride,
-                    (t - bh * tiles_per_bh) * TP, hw, TP, ch);
+                    qkv + b * hw * stride + (bh - b * heads) * ch + 2 * C + pj * cb, stride,
+                    (t - bh * tiles_per_bh) * TP, hw, TP, wj);
   };
-  auto stage_attn = [&](long long bh) {  // zero outside ch x ch
-    const float* a = attn + bh * ch * ch;
+  auto stage_attn = [&](long long bh) {  // zero outside wi x wj
+    const float* a = attn + bh * ch * ch + (long long)pi * cb * ch + pj * cb;
     for (int idx = tid; idx < CHP * CHP; idx += kThreads) {
       const int c = idx / CHP, d = idx - c * CHP;
-      const float x = c < ch && d < ch ? a[c * ch + d] : 0.f;
+      const float x = c < wi && d < wj ? a[c * ch + d] : 0.f;
       if (Cfg::SPLIT) {
         uint32_t hi, lo;
         split_tf32(x, hi, lo);
@@ -460,16 +503,16 @@ apply_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
     }
     const long long b = bh / heads;
     const long long r0 = (t - bh * tiles_per_bh) * TP + m0 + gid, r1 = r0 + 8;
-    float* ob = out + b * hw * C + (bh - b * heads) * ch;
+    float* ob = out + pj * slot + b * hw * C + (bh - b * heads) * ch + pi * cb;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = j * 8 + 2 * tig;
-      if (c >= ch) continue;
-      if (VEC) {  // ch is even: c + 1 < ch
+      if (c >= wi) continue;
+      if (VEC) {  // wi is even: c + 1 < wi
         if (r0 < hw) *reinterpret_cast<float2*>(ob + r0 * C + c) = make_float2(acc[0][j][0], acc[0][j][1]);
         if (r1 < hw) *reinterpret_cast<float2*>(ob + r1 * C + c) = make_float2(acc[0][j][2], acc[0][j][3]);
       } else {
-        const bool c1 = c + 1 < ch;
+        const bool c1 = c + 1 < wi;
         if (r0 < hw) {
           ob[r0 * C + c] = acc[0][j][0];
           if (c1) ob[r0 * C + c + 1] = acc[0][j][1];
@@ -518,26 +561,29 @@ struct BwdCfg {
 // Element (r, c) of a swizzled tile or matrix of pitch ld.
 __device__ __forceinline__ int swz(int r, int c, int ld) { return r * ld + (c ^ (r & 4)); }
 
-// Zero columns [ch, CHP) of `rows` swizzled rows: the copies never write
-// them, and the products run over all CHP.
+// Zero columns [w, CHP) of the swizzled rows of the ring's `stages` stages
+// of two kBwdTP-row tiles each, w = w0 in a stage's first tile and w1 in its
+// second: the copies never write them, and the products run over all CHP.
 template <int R>
-__device__ __forceinline__ void zero_pad(float* tiles, int rows, int ch) {
+__device__ __forceinline__ void zero_pad(float* tiles, int stages, int w0, int w1) {
   constexpr int CHP = BwdCfg<R>::CHP, LD = BwdCfg<R>::LD;
-  const int pad = CHP - ch;
-  for (int i = threadIdx.x; i < rows * pad; i += kThreads) {
-    const int r = i / pad;
-    tiles[swz(r, ch + i - r * pad, LD)] = 0.f;
+  const int wmin = w0 < w1 ? w0 : w1, pad = CHP - wmin;
+  for (int i = threadIdx.x; i < stages * 2 * kBwdTP * pad; i += kThreads) {
+    const int r = i / pad, c = wmin + i - r * pad;
+    if (c >= ((r / kBwdTP) & 1 ? w1 : w0)) tiles[swz(r, c, LD)] = 0.f;
   }
 }
 
-// A ch x ch matrix (row-major at m), zero-padded to CHP x CHP, into
-// shared memory swizzled: its tf32 high and low parts (SPLIT) or itself.
+// A rows x cols block of a row-major matrix of pitch ld at m, zero-padded
+// to CHP x CHP, into shared memory swizzled: its tf32 high and low parts
+// (SPLIT) or itself.
 template <int R>
-__device__ __forceinline__ void stage_matrix(float* mh, float* ml, const float* m, int ch) {
+__device__ __forceinline__ void stage_matrix(float* mh, float* ml, const float* m, int rows,
+                                             int cols, int ld) {
   using Cfg = BwdCfg<R>;
   for (int idx = threadIdx.x; idx < Cfg::CHP * Cfg::CHP; idx += kThreads) {
     const int r = idx / Cfg::CHP, c = idx - r * Cfg::CHP;
-    const float x = r < ch && c < ch ? m[r * ch + c] : 0.f;
+    const float x = r < rows && c < cols ? m[r * ld + c] : 0.f;
     const int o = swz(r, c, Cfg::LD);
     if (Cfg::SPLIT) {
       uint32_t hi, lo;
@@ -627,16 +673,18 @@ __device__ __forceinline__ void store_rows(float* out, long long stride, long lo
 }
 
 // Row 6. Tiles t = bh * tiles_per_bh + i (pixels [i TP, (i + 1) TP) of
-// (b, h)); block k walks tiles [k * per_block, (k + 1) * per_block),
-// restaging dG, dnq and dnk only where bh changes, with the q and k tiles
-// streaming through the ring. Warp w < 4 writes dq at rows 16 w of each
-// tile, warp w >= 4 dk at rows 16 (w - 4).
-template <int R, bool VEC>
+// (b, h)); block (k, i * nb + j) walks tiles [k * per_block, (k + 1) *
+// per_block), restaging dG_ij, dnq_i and dnk_j only where bh changes, with
+// the tiles of q_i and k_j streaming through the ring. Warp w < 4 writes
+// dq_i's part from block j at rows 16 w of each tile (to dqdk + j * slot),
+// warp w >= 4 dk_j's part from block i at rows 16 (w - 4) (to dqdk + i *
+// slot).
+template <int R, bool VEC, bool BLK>
 __global__ void __launch_bounds__(kThreads)
 gram_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dgram,
                 const float* __restrict__ dnq, const float* __restrict__ dnk,
-                float* __restrict__ dqdk, long long hw, int heads, int ch,
-                long long tiles_per_bh, long long n_tiles_all, long long per_block) {
+                float* __restrict__ dqdk, long long slot, long long hw, int heads, int ch,
+                int cb, long long tiles_per_bh, long long n_tiles_all, long long per_block) {
   using Cfg = BwdCfg<R>;
   constexpr int LD = Cfg::LD, TP = kBwdTP, CHP = Cfg::CHP, NT = Cfg::NT;
   constexpr int STAGES = Cfg::STAGES;
@@ -654,21 +702,27 @@ gram_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dgram,
   const int gid = lane >> 2, tig = lane & 3;
   const bool is_dq = warp < 4;
   const int m0 = (warp & 3) * 16;
+  const Pair pr = pair_of<BLK>(blockIdx.y, ch, cb);
+  const int pi = pr.i, pj = pr.j, wi = pr.wi, wj = pr.wj;
+  // 2 q dnq joins dq_i in the pair (i, 0) alone, 2 k dnk joins dk_j in (0, j)
+  const bool add_dn = (is_dq ? pj : pi) == 0;
 
-  zero_pad<R>(ring, STAGES * 2 * TP, ch);
+  zero_pad<R>(ring, STAGES, wi, wj);
   auto load = [&](int i) {
     const long long t = t0 + i, bh = t / tiles_per_bh, b = bh / heads;
-    const float* q_rows = qkv + b * hw * stride + (bh - b * heads) * ch;
+    const float* head = qkv + b * hw * stride + (bh - b * heads) * ch;
     const long long p0 = (t - bh * tiles_per_bh) * TP;
     float* dst = ring + (i % STAGES) * Cfg::TILES;
-    stage_rows<VEC, true>(dst, LD, q_rows, stride, p0, hw, TP, ch);
-    stage_rows<VEC, true>(dst + TP * LD, LD, q_rows + C, stride, p0, hw, TP, ch);
+    stage_rows<VEC, true>(dst, LD, head + pi * cb, stride, p0, hw, TP, wi);
+    stage_rows<VEC, true>(dst + TP * LD, LD, head + C + pj * cb, stride, p0, hw, TP, wj);
   };
   auto stage = [&](long long bh) {
-    stage_matrix<R>(mh, ml, dgram + bh * ch * ch, ch);
+    stage_matrix<R>(mh, ml, dgram + bh * ch * ch + (long long)pi * cb * ch + pj * cb, wi, wj,
+                    ch);
     for (int c = tid; c < 2 * CHP; c += kThreads) {
       const int which = c / CHP, cc = c - which * CHP;
-      dn[c] = cc < ch ? (which ? dnk : dnq)[bh * ch + cc] : 0.f;
+      dn[c] = cc < (which ? wj : wi) ? (which ? dnk + pj * cb : dnq + pi * cb)[bh * ch + cc]
+                                     : 0.f;
     }
   };
 
@@ -701,34 +755,39 @@ gram_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dgram,
     else
       tile_product<R, NT, true>(acc, qs, m0, 0, mh, ml, gid, tig);
     const int rl = m0 + gid, s = gid & 4;  // rows rl, rl + 8: swizzle bit s
+    if (add_dn) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = j * 8 + 2 * tig, sc = c ^ s;
+      for (int j = 0; j < NT; ++j) {
+        const int c = j * 8 + 2 * tig, sc = c ^ s;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = self[(rl + (e >> 1) * 8) * LD + sc + (e & 1)];
-        acc[0][j][e] = fmaf(2.0f * x, dnv[c + (e & 1)], acc[0][j][e]);
+        for (int e = 0; e < 4; ++e) {
+          const float x = self[(rl + (e >> 1) * 8) * LD + sc + (e & 1)];
+          acc[0][j][e] = fmaf(2.0f * x, dnv[c + (e & 1)], acc[0][j][e]);
+        }
       }
     }
     const long long b = bh / heads;
-    float* out = dqdk + b * hw * 2 * C + (is_dq ? 0 : C) + (bh - b * heads) * ch;
-    store_rows<NT, VEC>(out, 2 * C, (t - bh * tiles_per_bh) * TP + rl, hw, 0, tig, ch, acc[0]);
+    float* out = dqdk + (is_dq ? pj : pi) * slot + b * hw * 2 * C + (is_dq ? 0 : C) +
+                 (bh - b * heads) * ch + (is_dq ? pi : pj) * cb;
+    store_rows<NT, VEC>(out, 2 * C, (t - bh * tiles_per_bh) * TP + rl, hw, 0, tig,
+                        is_dq ? wi : wj, acc[0]);
   }
 }
 
-// Row 7. Block (s, bh) owns pixels [s * per, (s + 1) * per) of (b, h)
-// and reads each 64-pixel tile of g and v once: warp w writes dv = g attn
-// at rows 16 (w % 4) of the tile and column tiles [R (w / 4), R (w / 4 + 1));
-// the warps' dattn = g^T v partials stay in registers (GramCfg's layout,
-// the pixel steps split over WK warp groups) and are written with plain
-// stores to out + (bh * splits + s) * ch * ch: dattn itself when
-// splits == 1, else the workspace that gram_reduce_kernel sums.
-template <int R, bool VEC>
+// Row 7. Block (s, bh, i * nb + j) owns pixels [s * per, (s + 1) * per) of
+// (b, h) and reads each 64-pixel tile of g_i and v_j once: warp w writes
+// dv_j's part from block i, g_i attn_ij, at rows 16 (w % 4) of the tile and
+// column tiles [R (w / 4), R (w / 4 + 1)) (to dv + i * slot); the warps'
+// dattn_ij = g_i^T v_j partials stay in registers (GramCfg's layout, the
+// pixel steps split over WK warp groups) and are written with plain stores
+// to out + (bh * splits + s) * ch * ch at row i cb and column j cb: dattn
+// itself when splits == 1, else the workspace that gram_reduce_kernel sums.
+template <int R, bool VEC, bool BLK>
 __global__ void __launch_bounds__(kThreads)
 apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
-                 const float* __restrict__ g, float* __restrict__ dv,
-                 float* __restrict__ dattn_out, long long hw, int heads, int ch, int splits,
-                 long long per) {
+                 const float* __restrict__ g, float* __restrict__ dv, long long slot,
+                 float* __restrict__ dattn_out, long long hw, int heads, int ch, int cb,
+                 int splits, long long per) {
   using Cfg = BwdCfg<R>;
   using G = GramCfg<R>;
   constexpr int LD = Cfg::LD, TP = kBwdTP, CHP = Cfg::CHP, STAGES = Cfg::STAGES;
@@ -739,11 +798,13 @@ apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
   float* ml = mh + Cfg::MAT;
   const int s = blockIdx.x, bh = blockIdx.y;
   const int b = bh / heads, h = bh - b * heads;
+  const Pair pr = pair_of<BLK>(blockIdx.z, ch, cb);
+  const int pi = pr.i, pj = pr.j, wi = pr.wi, wj = pr.wj;
   const long long C = (long long)heads * ch;
   const long long begin = s * per;
   const long long end = begin + per < hw ? begin + per : hw;
-  const float* g_rows = g + (long long)b * hw * C + (long long)h * ch;
-  const float* v_rows = qkv + (long long)b * hw * 3 * C + 2 * C + (long long)h * ch;
+  const float* g_rows = g + (long long)b * hw * C + (long long)h * ch + pi * cb;
+  const float* v_rows = qkv + (long long)b * hw * 3 * C + 2 * C + (long long)h * ch + pj * cb;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int m0 = (warp & 3) * 16, j0 = (warp >> 2) * R;  // this warp's dv rows and columns
@@ -755,13 +816,13 @@ apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
 #pragma unroll
   for (int j = 0; j < NW; ++j) use_n[j] = G::NT % G::WTN == 0 || wn * NW + j < G::NT;
 
-  zero_pad<R>(ring, STAGES * 2 * TP, ch);
+  zero_pad<R>(ring, STAGES, wi, wj);
   const int n_tiles = (int)((end - begin + TP - 1) / TP);
   auto load = [&](int t) {
     float* dst = ring + (t % STAGES) * Cfg::TILES;
     const long long p0 = begin + (long long)t * TP;
-    stage_rows<VEC, true>(dst, LD, g_rows, C, p0, end, TP, ch);
-    stage_rows<VEC, true>(dst + TP * LD, LD, v_rows, 3 * C, p0, end, TP, ch);
+    stage_rows<VEC, true>(dst, LD, g_rows, C, p0, end, TP, wi);
+    stage_rows<VEC, true>(dst + TP * LD, LD, v_rows, 3 * C, p0, end, TP, wj);
   };
   float part[MW][NW][4];
 #pragma unroll
@@ -776,7 +837,8 @@ apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
     if (t < n_tiles) load(t);
     cp_commit();
   }
-  stage_matrix<R>(mh, ml, attn + (long long)bh * ch * ch, ch);
+  stage_matrix<R>(mh, ml, attn + (long long)bh * ch * ch + (long long)pi * cb * ch + pj * cb,
+                  wi, wj, ch);
   for (int t = 0; t < n_tiles; ++t) {
     cp_wait<STAGES - 2>();
     __syncthreads();  // tile t has landed (and attn, at t = 0); tile t - 1 is done with
@@ -787,8 +849,8 @@ apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
     {  // dv = g attn: rows m0 .. m0 + 15, column tiles j0 ..
       float acc[1][R][4];
       tile_product<R, R, true>(acc, gs, m0, j0, mh, ml, gid, tig);
-      float* out = dv + (long long)b * hw * C + (long long)h * ch;
-      store_rows<R, VEC>(out, C, begin + (long long)t * TP + m0 + gid, end, j0, tig, ch, acc[0]);
+      float* out = dv + pi * slot + (long long)b * hw * C + (long long)h * ch + pj * cb;
+      store_rows<R, VEC>(out, C, begin + (long long)t * TP + m0 + gid, end, j0, tig, wj, acc[0]);
     }
     // dattn += g^T v over this warp group's pixel steps: A(c, p) = g(p, c),
     // B(p, d) = v(p, d); lane rows p = step + tig (swizzle bit 0) and p + 4 (bit 1)
@@ -838,9 +900,9 @@ apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
   }
   __syncthreads();
   // the WK partials in a fixed order, written once: warp w rows w, w + 8, ...
-  float* out = dattn_out + ((long long)bh * splits + s) * ch * ch;
-  for (int c = warp; c < ch; c += kThreads / 32)
-    for (int d = lane; d < ch; d += 32) {
+  float* out = dattn_out + ((long long)bh * splits + s) * ch * ch + (long long)pi * cb * ch + pj * cb;
+  for (int c = warp; c < wi; c += kThreads / 32)
+    for (int d = lane; d < wj; d += 32) {
       float v = 0.f;
 #pragma unroll
       for (int w = 0; w < G::WK; ++w) v += smem[w * E + c * RP + d];
@@ -850,17 +912,44 @@ apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The channel blocks of a head of ch channels, cut into blocks of cb
+// (ops/gram.py channel_blocks): nb blocks, nb * nb pairs.
+int n_blocks(int ch, int cb) { return (ch + cb - 1) / cb; }
+
+// A kernel's four variants, by copy width (VEC) and channel blocks (BLK),
+// with the shared-memory limit of each raised once per device. A head cut
+// into blocks has blocks of 65..128 channels (R >= 5; ops/gram.py
+// channel_blocks): below, the BLK slot holds the single-block variant,
+// which no plan launches there, so that it is not compiled for nothing.
+template <int R>
+constexpr bool kBlocked = R >= 5;
+
+template <typename Kernel>
+struct Variants {
+  Kernel k[2][2];  // [VEC][BLK]
+  cudaError_t allow(bool (&done)[2][kMaxDevices], int floats) const {
+    for (int blk = 0; blk < 2; ++blk) {
+      const cudaError_t e = allow_smem(done[blk], k[1][blk], k[0][blk], floats);
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }
+};
+
 template <int R>
 cudaError_t gram_fwd(const float* qkv, float* gram, float* nq, float* nk, float* ws,
-                     int B, long long hw, int heads, int ch, int splits, long long per,
+                     int B, long long hw, int heads, int ch, int cb, int splits, long long per,
                      cudaStream_t st) {
   using Cfg = GramCfg<R>;
-  static bool done[kMaxDevices];
-  const cudaError_t attr =
-      allow_smem(done, gram_fwd_kernel<R, true>, gram_fwd_kernel<R, false>, Cfg::FLOATS);
+  static bool done[2][kMaxDevices];
+  const Variants<decltype(&gram_fwd_kernel<R, true, false>)> ks{
+      {{gram_fwd_kernel<R, false, false>, gram_fwd_kernel<R, false, kBlocked<R>>},
+       {gram_fwd_kernel<R, true, false>, gram_fwd_kernel<R, true, kBlocked<R>>}}};
+  const cudaError_t attr = ks.allow(done, Cfg::FLOATS);
   if (attr != cudaSuccess) return attr;
   const bool vec = ch % 4 == 0 && aligned16(qkv);
-  const dim3 grid((unsigned)splits, (unsigned)(B * heads));
+  const int nb = n_blocks(ch, cb);
+  const dim3 grid((unsigned)splits, (unsigned)(B * heads), (unsigned)(nb * nb));
   const size_t smem = sizeof(float) * Cfg::FLOATS;
   const long long E = (long long)ch * ch + 2 * ch;
   float* g_out = splits > 1 ? ws : gram;
@@ -868,138 +957,179 @@ cudaError_t gram_fwd(const float* qkv, float* gram, float* nq, float* nk, float*
   float* nk_out = splits > 1 ? ws + ch * ch + ch : nk;
   const long long g_stride = splits > 1 ? E : (long long)ch * ch;
   const long long n_stride = splits > 1 ? E : ch;
-  const auto kernel = vec ? gram_fwd_kernel<R, true> : gram_fwd_kernel<R, false>;
-  kernel<<<grid, kThreads, smem, st>>>(qkv, g_out, nq_out, nk_out, g_stride, n_stride, hw,
-                                       heads, ch, splits, per);
+  ks.k[vec][nb > 1]<<<grid, kThreads, smem, st>>>(qkv, g_out, nq_out, nk_out, g_stride,
+                                                  n_stride, hw, heads, ch, cb, splits, per);
   if (splits > 1) return launch_reduce(ws, gram, nq, nk, B, heads, ch, (int)E, splits, st);
   return cudaGetLastError();
 }
 
-// `blocks` blocks of `per_block` tiles, as ops/gram.py apply_plan gives them
+// `blocks` blocks of `per_block` tiles for each channel-block pair, as
+// ops/gram.py apply_plan gives them; with nb > 1 blocks the parts of out
+// go to nb slots of ws and a second launch sums them
 template <int R>
-cudaError_t apply_fwd(const float* qkv, const float* attn, float* out, int B, long long hw,
-                      int heads, int ch, int blocks, long long per_block, cudaStream_t st) {
+cudaError_t apply_fwd(const float* qkv, const float* attn, float* out, float* ws, int B,
+                      long long hw, int heads, int ch, int cb, int blocks, long long per_block,
+                      cudaStream_t st) {
   using Cfg = ApplyCfg<R>;
-  static bool done[kMaxDevices];
-  const cudaError_t attr =
-      allow_smem(done, apply_fwd_kernel<R, true>, apply_fwd_kernel<R, false>, Cfg::FLOATS);
+  static bool done[2][kMaxDevices];
+  const Variants<decltype(&apply_fwd_kernel<R, true, false>)> ks{
+      {{apply_fwd_kernel<R, false, false>, apply_fwd_kernel<R, false, kBlocked<R>>},
+       {apply_fwd_kernel<R, true, false>, apply_fwd_kernel<R, true, kBlocked<R>>}}};
+  const cudaError_t attr = ks.allow(done, Cfg::FLOATS);
   if (attr != cudaSuccess) return attr;
-  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(attn) && aligned16(out);
+  const int nb = n_blocks(ch, cb);
+  float* dst = nb > 1 ? ws : out;
+  const long long slot = (long long)B * hw * heads * ch;
+  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(attn) && aligned16(dst);
   const long long tiles_per_bh = (hw + kApplyTP - 1) / kApplyTP;
   const long long n_tiles = tiles_per_bh * B * heads;
-  const auto kernel = vec ? apply_fwd_kernel<R, true> : apply_fwd_kernel<R, false>;
-  kernel<<<(unsigned)blocks, kThreads, sizeof(float) * Cfg::FLOATS, st>>>(
-      qkv, attn, out, hw, heads, ch, tiles_per_bh, n_tiles, per_block);
+  ks.k[vec][nb > 1]<<<dim3((unsigned)blocks, (unsigned)(nb * nb)), kThreads,
+                      sizeof(float) * Cfg::FLOATS, st>>>(qkv, attn, dst, slot, hw, heads, ch, cb,
+                                                         tiles_per_bh, n_tiles, per_block);
+  if (nb > 1) return sum_slots(ws, out, slot, nb, st);
   return cudaGetLastError();
 }
 
-// `blocks` blocks of `per_block` 64-pixel tiles (ops/gram.py gram_bwd_plan)
+// `blocks` blocks of `per_block` 64-pixel tiles for each channel-block pair
+// (ops/gram.py gram_bwd_plan); with nb > 1 blocks the parts of d[q|k] go to
+// nb slots of ws and a second launch sums them
 template <int R>
 cudaError_t gram_bwd(const float* qkv, const float* dgram, const float* dnq, const float* dnk,
-                     float* dqdk, int B, long long hw, int heads, int ch, int blocks,
-                     long long per_block, cudaStream_t st) {
+                     float* dqdk, float* ws, int B, long long hw, int heads, int ch, int cb,
+                     int blocks, long long per_block, cudaStream_t st) {
   using Cfg = BwdCfg<R>;
-  static bool done[kMaxDevices];
-  const cudaError_t attr = allow_smem(done, gram_bwd_kernel<R, true>, gram_bwd_kernel<R, false>,
-                                      Cfg::GRAM_FLOATS);
+  static bool done[2][kMaxDevices];
+  const Variants<decltype(&gram_bwd_kernel<R, true, false>)> ks{
+      {{gram_bwd_kernel<R, false, false>, gram_bwd_kernel<R, false, kBlocked<R>>},
+       {gram_bwd_kernel<R, true, false>, gram_bwd_kernel<R, true, kBlocked<R>>}}};
+  const cudaError_t attr = ks.allow(done, Cfg::GRAM_FLOATS);
   if (attr != cudaSuccess) return attr;
-  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(dqdk);
+  const int nb = n_blocks(ch, cb);
+  float* dst = nb > 1 ? ws : dqdk;
+  const long long slot = (long long)B * hw * 2 * heads * ch;
+  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(dst);
   const long long tiles_per_bh = (hw + kBwdTP - 1) / kBwdTP;
   const long long n_tiles = tiles_per_bh * B * heads;
-  const auto kernel = vec ? gram_bwd_kernel<R, true> : gram_bwd_kernel<R, false>;
-  kernel<<<(unsigned)blocks, kThreads, sizeof(float) * Cfg::GRAM_FLOATS, st>>>(
-      qkv, dgram, dnq, dnk, dqdk, hw, heads, ch, tiles_per_bh, n_tiles, per_block);
+  ks.k[vec][nb > 1]<<<dim3((unsigned)blocks, (unsigned)(nb * nb)), kThreads,
+                      sizeof(float) * Cfg::GRAM_FLOATS, st>>>(
+      qkv, dgram, dnq, dnk, dst, slot, hw, heads, ch, cb, tiles_per_bh, n_tiles, per_block);
+  if (nb > 1) return sum_slots(ws, dqdk, slot, nb, st);
   return cudaGetLastError();
 }
 
-// `splits` ranges of `per` pixels per (b, h) (ops/gram.py gram_plan); with
-// splits > 1 the dattn partials go to ws and a second launch sums them
+// `splits` ranges of `per` pixels per (b, h) (ops/gram.py gram_plan) for
+// each channel-block pair; with splits > 1 the dattn partials go to ws and
+// a second launch sums them, with nb > 1 blocks the parts of dv go to nb
+// slots of ws after them and another launch sums those
 template <int R>
 cudaError_t apply_bwd(const float* qkv, const float* attn, const float* g, float* dv,
-                      float* dattn, float* ws, int B, long long hw, int heads, int ch,
+                      float* dattn, float* ws, int B, long long hw, int heads, int ch, int cb,
                       int splits, long long per, cudaStream_t st) {
   using Cfg = BwdCfg<R>;
-  static bool done[kMaxDevices];
-  const cudaError_t attr = allow_smem(done, apply_bwd_kernel<R, true>,
-                                      apply_bwd_kernel<R, false>, Cfg::APPLY_FLOATS);
+  static bool done[2][kMaxDevices];
+  const Variants<decltype(&apply_bwd_kernel<R, true, false>)> ks{
+      {{apply_bwd_kernel<R, false, false>, apply_bwd_kernel<R, false, kBlocked<R>>},
+       {apply_bwd_kernel<R, true, false>, apply_bwd_kernel<R, true, kBlocked<R>>}}};
+  const cudaError_t attr = ks.allow(done, Cfg::APPLY_FLOATS);
   if (attr != cudaSuccess) return attr;
-  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(g) && aligned16(dv);
-  const auto kernel = vec ? apply_bwd_kernel<R, true> : apply_bwd_kernel<R, false>;
-  kernel<<<dim3((unsigned)splits, (unsigned)(B * heads)), kThreads,
-           sizeof(float) * Cfg::APPLY_FLOATS, st>>>(qkv, attn, g, dv, splits > 1 ? ws : dattn,
-                                                    hw, heads, ch, splits, per);
-  if (splits > 1)
-    return launch_reduce(ws, dattn, nullptr, nullptr, B, heads, ch, ch * ch, splits, st);
+  const int nb = n_blocks(ch, cb);
+  float* ws_dv = ws + (splits > 1 ? (long long)splits * B * heads * ch * ch : 0);
+  float* dv_dst = nb > 1 ? ws_dv : dv;
+  const long long slot = (long long)B * hw * heads * ch;
+  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(g) && aligned16(dv_dst);
+  ks.k[vec][nb > 1]<<<dim3((unsigned)splits, (unsigned)(B * heads), (unsigned)(nb * nb)),
+                      kThreads, sizeof(float) * Cfg::APPLY_FLOATS, st>>>(
+      qkv, attn, g, dv_dst, slot, splits > 1 ? ws : dattn, hw, heads, ch, cb, splits, per);
+  if (splits > 1) {
+    const cudaError_t err =
+        launch_reduce(ws, dattn, nullptr, nullptr, B, heads, ch, ch * ch, splits, st);
+    if (err != cudaSuccess) return err;
+  }
+  if (nb > 1) return sum_slots(ws_dv, dv, slot, nb, st);
   return cudaGetLastError();
 }
+
+// A plan's channel blocks: 1 <= cb <= 128 (R <= 8) and cb <= ch, and more
+// than 64 wide where a head is cut (kBlocked).
+bool bad_blocks(int ch, int cb) { return cb < 1 || cb > 128 || cb > ch || (cb < ch && cb <= 64); }
 
 }  // namespace
 
-// ch <= 128 picks R = ceil(ch / 16) in 1..8; anything wider is refused.
-#define RCOT_BY_WIDTH(ch, CALL)           \
-  switch (((ch) + 15) / 16) {             \
-    case 1: return CALL(1);               \
-    case 2: return CALL(2);               \
-    case 3: return CALL(3);               \
-    case 4: return CALL(4);               \
-    case 5: return CALL(5);               \
-    case 6: return CALL(6);               \
-    case 7: return CALL(7);               \
-    case 8: return CALL(8);               \
-    default: return cudaErrorInvalidValue; \
+// The channel-block width cb (1..128, ops/gram.py channel_blocks) picks
+// R = ceil(cb / 16) in 1..8; the kernels take a head of any width ch in
+// blocks of cb.
+#define RCOT_BY_WIDTH(ch, cb, CALL)                   \
+  if (bad_blocks((ch), (cb))) return cudaErrorInvalidValue; \
+  switch (((cb) + 15) / 16) {                         \
+    case 1: return CALL(1);                           \
+    case 2: return CALL(2);                           \
+    case 3: return CALL(3);                           \
+    case 4: return CALL(4);                           \
+    case 5: return CALL(5);                           \
+    case 6: return CALL(6);                           \
+    case 7: return CALL(7);                           \
+    default: return CALL(8);                          \
   }
 
 extern "C" {
 
-// qkv (B, hw, 3*heads*ch) -> gram (B,heads,ch,ch), nq and nk (B,heads,ch).
-// The pixels of each (b, head) are split into `splits` ranges of `per`
-// (ops/gram.py gram_plan); with splits > 1 the partials go to ws
-// (B*heads*splits*(ch*ch + 2ch) floats) and a second launch sums them.
+// qkv (B, hw, 3*heads*ch) -> gram (B,heads,ch,ch), nq and nk (B,heads,ch),
+// in channel blocks of cb. The pixels of each (b, head) are split into
+// `splits` ranges of `per` (ops/gram.py gram_plan); with splits > 1 the
+// partials go to ws (B*heads*splits*(ch*ch + 2ch) floats) and a second
+// launch sums them.
 int rcot_mdta_gram(const float* qkv, float* gram, float* nq, float* nk, float* ws,
-                   int B, long long hw, int heads, int ch, int splits, long long per,
+                   int B, long long hw, int heads, int ch, int cb, int splits, long long per,
                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define RCOT_CALL(R) gram_fwd<R>(qkv, gram, nq, nk, ws, B, hw, heads, ch, splits, per, st)
-  RCOT_BY_WIDTH(ch, RCOT_CALL)
+#define RCOT_CALL(R) gram_fwd<R>(qkv, gram, nq, nk, ws, B, hw, heads, ch, cb, splits, per, st)
+  RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
 #undef RCOT_CALL
 }
 
 // qkv (B, hw, 3*heads*ch), attn (B,heads,ch,ch) -> out (B, hw, heads*ch),
-// on `blocks` blocks of `per_block` 128-pixel tiles (ops/gram.py apply_plan).
-int rcot_attn_apply(const float* qkv, const float* attn, float* out, int B,
-                    long long hw, int heads, int ch, int blocks, long long per_block,
+// in channel blocks of cb, on `blocks` blocks of `per_block` 128-pixel
+// tiles for each block pair (ops/gram.py apply_plan); ws holds nb slots of
+// out where nb = ceil(ch / cb) > 1 (ops/gram.py apply_workspace_numel).
+int rcot_attn_apply(const float* qkv, const float* attn, float* out, float* ws, int B,
+                    long long hw, int heads, int ch, int cb, int blocks, long long per_block,
                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define RCOT_CALL(R) apply_fwd<R>(qkv, attn, out, B, hw, heads, ch, blocks, per_block, st)
-  RCOT_BY_WIDTH(ch, RCOT_CALL)
+#define RCOT_CALL(R) \
+  apply_fwd<R>(qkv, attn, out, ws, B, hw, heads, ch, cb, blocks, per_block, st)
+  RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
 #undef RCOT_CALL
 }
 
 // qkv (B, hw, 3*heads*ch), dgram (B,heads,ch,ch), dnq, dnk (B,heads,ch)
-// -> dqdk (B, hw, 2*heads*ch) = [dq | dk], in one launch of `blocks`
-// blocks of `per_block` 64-pixel tiles (ops/gram.py gram_bwd_plan).
+// -> dqdk (B, hw, 2*heads*ch) = [dq | dk], in channel blocks of cb, on
+// `blocks` blocks of `per_block` 64-pixel tiles for each block pair
+// (ops/gram.py gram_bwd_plan); ws holds nb slots of dqdk where nb > 1
+// (ops/gram.py gram_bwd_workspace_numel).
 int rcot_mdta_gram_bwd(const float* qkv, const float* dgram, const float* dnq,
-                       const float* dnk, float* dqdk, int B, long long hw, int heads, int ch,
-                       int blocks, long long per_block, void* stream) {
+                       const float* dnk, float* dqdk, float* ws, int B, long long hw,
+                       int heads, int ch, int cb, int blocks, long long per_block,
+                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define RCOT_CALL(R) \
-  gram_bwd<R>(qkv, dgram, dnq, dnk, dqdk, B, hw, heads, ch, blocks, per_block, st)
-  RCOT_BY_WIDTH(ch, RCOT_CALL)
+  gram_bwd<R>(qkv, dgram, dnq, dnk, dqdk, ws, B, hw, heads, ch, cb, blocks, per_block, st)
+  RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
 #undef RCOT_CALL
 }
 
 // qkv (B, hw, 3*heads*ch), attn (B,heads,ch,ch), g (B, hw, heads*ch)
-// -> dv (B, hw, heads*ch), dattn (B,heads,ch,ch). The pixels of each
-// (b, head) are split into `splits` ranges of `per` (ops/gram.py
-// gram_plan); with splits > 1 the partials go to ws (B*heads*splits*ch*ch
-// floats) and a second launch sums them.
+// -> dv (B, hw, heads*ch), dattn (B,heads,ch,ch), in channel blocks of cb.
+// The pixels of each (b, head) are split into `splits` ranges of `per`
+// (ops/gram.py gram_plan); ws holds the dattn partials where splits > 1
+// (B*heads*splits*ch*ch floats), then nb slots of dv where nb > 1, each
+// summed by a launch of its own.
 int rcot_attn_apply_bwd(const float* qkv, const float* attn, const float* g, float* dv,
                         float* dattn, float* ws, int B, long long hw, int heads, int ch,
-                        int splits, long long per, void* stream) {
+                        int cb, int splits, long long per, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define RCOT_CALL(R) \
-  apply_bwd<R>(qkv, attn, g, dv, dattn, ws, B, hw, heads, ch, splits, per, st)
-  RCOT_BY_WIDTH(ch, RCOT_CALL)
+  apply_bwd<R>(qkv, attn, g, dv, dattn, ws, B, hw, heads, ch, cb, splits, per, st)
+  RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
 #undef RCOT_CALL
 }
 

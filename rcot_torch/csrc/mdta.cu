@@ -5,259 +5,577 @@
 // (b, head), on q, k and v of shape (c, N), channels by pixels (the layout
 // the caller's transposes give, as rcot_tpu/ops/attention.py:75-76 does):
 //
-//   attn = softmax_d( (q_hat k_hat^T)[i, d] * temperature[head] ),
+//   P   = softmax_d( (q_hat k_hat^T)[i, d] * temperature[head] ),
 //   q_hat = q / max(|q_i|, 1e-12) along N (k_hat likewise),
-//   out  = attn v,
+//   out = P v,
 //
 // through the identity q_hat k_hat^T = (q k^T) / (max(|q_i|, eps)
 // max(|k_d|, eps)): the Gram and the two sums of squares are pixel sums of
 // the raw inputs, and the normalisation touches only the c x c matrix.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 without tensor cores):
-// q, k and v are read and out written once, 16 bytes per element of (c, N),
-// against 4c + 4 flops per element (2c for the Gram, 2c for the apply, the
-// squares); at c = 48 bytes bound it: about 15 us at serve L1
-// (1 x 48 x 65536).
+// Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 on the CUDA cores, 495
+// TF32 on the tensor cores): q, k and v are read and out written once, 16
+// bytes per element of (c, N), against 4c + 4 flops per element; at c = 48
+// and 96 the bytes bound it (about 15 us at serve L1, 1 x 48 x 65536). Even
+// as 3xTF32 the products stay below the bytes on the tensor cores.
 //
-// Design. The TPU kernel runs one sequential program per (b, head) that
-// streams N twice, its sums carried in scratch across the grid
-// (BH, 2, N / chunk). At serve L1 B * heads is 1: one CUDA block per head
-// would use one SM of 132. Here N is split over blocks, in two launches:
-//   1. mdta_sums: blocks over (N-chunk, bh) sum G = q k^T, sum q^2 and
-//      sum k^2 over their pixels (32-pixel tiles staged in shared memory; a
-//      16 x 16 thread grid keeps an R x R tile of G in registers, thread
-//      (ty, tx) owning rows ty + 16i and columns tx + 16j) and add them into
-//      a workspace zeroed on the stream first, with atomicAdd. The adds come
-//      in no fixed order: the sums agree with a fixed-order sum to about
-//      1e-6 relative, not bitwise.
-//   2. mdta_emit: blocks over (N-chunk, bh) rebuild the normalised,
-//      temperature-scaled row softmax P (c x c, at most 128 x 129 floats)
-//      in shared memory from the workspace (one warp per row), then write
-//      out = P v over their pixels in 64-pixel tiles, v staged in shared
-//      memory, thread (ty, tx) owning rows ty + 16i and pixels tx + 16j.
-// Each block of launch 2 recomputes P (c^2 exponentials, against c * 64
-// outputs per tile). No TPU fallback is carried over: every N and every
-// c <= 128 is taken, with no chunk search and no c % 8 condition.
+// Design: three launches, every sum in a fixed order (no atomics, no
+// memset: two calls give the same bits), the launch plan from Python
+// (ops/mdta.py mdta_plan, the SM count read once per device), each
+// kernel's shared-memory limit raised once per device, and one workspace:
+// [slots of out (c > 128) | Gram partials | P].
+//   1. mdta_gram_kernel: one block per (pixel range of at most 512 pixels,
+//      bh, channel-block pair). q and k rows (channels) stream through a
+//      cp.async ring of 64-pixel stages, four deep up to 64 channels and
+//      three above (16-byte copies where N % 4 == 0 and the rows are
+//      aligned, 4-byte ones otherwise, as at N = 80,250, a 250x321 image
+//      unpadded), staged [channel][pixel] as they lie, so that
+//      q is the row-major A operand and k the column-major B operand of
+//      G = q k^T on mma.sync m16n8k8 with no transpose. Products are
+//      3xTF32, each value split into its tf32 halves by integer ops
+//      (tc.cuh split_fast: two cvt.rna.tf32 a value made the conversions
+//      the limit); every chain is one 32-deep step (four k-steps) that starts
+//      from zero and joins the range's total in fp32, since a long chain of
+//      mma.sync accumulations drifts toward zero (PERF.md, PR 9). The sums
+//      of squares come from the same staged fragments, in fp32 on the CUDA
+//      cores. The eight warps split G's tiles and each stage's pixels
+//      (gram.cu's layout); their partials are added in shared memory in a
+//      fixed order and written with plain stores, one record G | nq | nk of
+//      the range.
+//   2. mdta_softmax_kernel: one block per (row i, bh), of W <= 32 warps
+//      (the plan's): warp w sums the ranges w, w + W, ... of row i of G, of
+//      nk and of nq[i] in order, a few each with their loads in flight
+//      together, the W sums are added in order, then warp 0
+//      normalises by max(sqrt(nq), eps) * max(sqrt(nk), eps), scales by
+//      temperature[head] and takes the row softmax (any c: 32 columns at a
+//      time, the row in shared memory up to 8,192 columns), writing row i
+//      of P (BH, c, c) once.
+//   3. mdta_apply_kernel: out = P v over 128-pixel tiles. Blocks walk runs
+//      of (bh, tile); P_bh is staged once per bh a block meets, already
+//      split into its tf32 parts, as the row-major A operand; v tiles
+//      ([channel][pixel], the column-major B operand) come through a ring.
+//      Warp w owns pixels [16 w, 16 w + 16) of a tile and every row, so
+//      each v value is split once; chains are 32 deep, as above; the output
+//      leaves straight from the accumulators, four lanes writing 32
+//      contiguous bytes of a row.
+// Heads wider than 128 channels are cut into channel blocks (ops/gram.py
+// channel_blocks) and every launch runs over block pairs (i, j), as
+// gram.cu does: G_ij = q_i k_j^T and the squares from (i, 0) and (0, j)
+// into the records at row i cb, column j cb; out_i's part P_ij v_j into
+// slot j of the workspace, and tc.cuh's sum_slots adds the slots in order.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tc.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSumTile = 32;   // pixels per shared-memory stage (mdta_sums)
-constexpr int kEmitTile = 64;  // pixels per output tile (mdta_emit)
-constexpr int kMaxCh = 128;    // 16 * R with R <= 8
+constexpr int kGramTP = 64;       // pixels a Gram stage
+constexpr int kApplyTP = 128;     // pixels an apply tile: eight warps of 16
+constexpr int kChain = 4;         // k-steps of 8 in one mma chain: 32 deep
+constexpr int kMaxBlock = 128;    // the widest channel block
+constexpr int kSoftmaxWarps = 32; // the most warps a softmax block sums with
 constexpr float kEps = 1e-12f;
 
-// ws_g (BH, c, c) += q k^T, ws_nq (BH, c) += sum q^2, ws_nk += sum k^2
-// over pixels [blockIdx.x * per, ...) of head bh = blockIdx.y.
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-mdta_sums_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 float* __restrict__ ws_g, float* __restrict__ ws_nq,
-                 float* __restrict__ ws_nk, long long n, int c, long long per) {
-  __shared__ float qs[kMaxCh * (kSumTile + 1)];  // [c][kSumTile + 1]
-  __shared__ float ks[kMaxCh * (kSumTile + 1)];
-  constexpr int ld = kSumTile + 1;
-  const long long bh = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long begin = blockIdx.x * per;
-  const long long end = begin + per < n ? begin + per : n;
-  const float* qb = q + bh * c * n;
-  const float* kb = k + bh * c * n;
-
-  float acc[R][R];
+// acc = 0 at the start of a chain; total += acc at its end
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&acc)[M][N][4]) {
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
-  float sq = 0.f;  // thread tid < c sums q^2 of row tid, c <= tid < 2c
-                   // sums k^2 of row tid - c
-
-  for (long long p0 = begin; p0 < end; p0 += kSumTile) {
-    __syncthreads();
-    for (int idx = tid; idx < c * kSumTile; idx += kThreads) {
-      const int i = idx / kSumTile, p = idx % kSumTile;
-      const long long pix = p0 + p;
-      const bool in = pix < end;
-      qs[i * ld + p] = in ? qb[i * n + pix] : 0.f;
-      ks[i * ld + p] = in ? kb[i * n + pix] : 0.f;
-    }
-    __syncthreads();
-    for (int p = 0; p < kSumTile; ++p) {
-      float a[R], bv[R];
+    for (int j = 0; j < N; ++j)
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int r = ty + 16 * i;
-        a[i] = r < c ? qs[r * ld + p] : 0.f;
-        const int d = tx + 16 * i;
-        bv[i] = d < c ? ks[d * ld + p] : 0.f;
-      }
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+}
+template <int M, int N>
+__device__ __forceinline__ void join(float (&total)[M][N][4], const float (&acc)[M][N][4]) {
 #pragma unroll
-      for (int i = 0; i < R; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-        for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    if (tid < 2 * c) {
-      const float* src = tid < c ? qs + tid * ld : ks + (tid - c) * ld;
-      for (int p = 0; p < kSumTile; ++p) sq = fmaf(src[p], src[p], sq);
-    }
-  }
-
-  float* g = ws_g + bh * c * c;
+    for (int j = 0; j < N; ++j)
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int d = tx + 16 * j;
-      if (r < c && d < c) atomicAdd(g + r * c + d, acc[i][j]);
-    }
-  }
-  if (tid < c)
-    atomicAdd(ws_nq + bh * c + tid, sq);
-  else if (tid < 2 * c)
-    atomicAdd(ws_nk + bh * c + tid - c, sq);
+      for (int r = 0; r < 4; ++r) total[i][j][r] += acc[i][j][r];
 }
 
-// out[bh] = softmax(G / (rq rk^T) * temp[bh % heads]) v[bh] over pixels
-// [blockIdx.x * per, ...) of head bh = blockIdx.y.
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-mdta_emit_kernel(const float* __restrict__ v, const float* __restrict__ ws_g,
-                 const float* __restrict__ ws_nq,
-                 const float* __restrict__ ws_nk, const float* __restrict__ temp,
-                 float* __restrict__ out, long long n, int c, int heads,
-                 long long per) {
-  extern __shared__ float smem[];
-  const int lp = c + 1;
-  float* P = smem;            // [c][c + 1]
-  float* vs = smem + c * lp;  // [c][kEmitTile]
-  const long long bh = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long begin = blockIdx.x * per;
-  const long long end = begin + per < n ? begin + per : n;
+// Rows [0, rows) of a (., n) row-major matrix at src, pixels [p0, p0 + TP)
+// (zeros at or past `end`), into dst rows of pitch ld, V floats a copy.
+// V divides TP and, with V = 4, n and end (whole copies in or out).
+template <int TP, int V>
+__device__ __forceinline__ void stage_pixels(float* dst, int ld, const float* src, long long n,
+                                             int rows, long long p0, long long end) {
+  constexpr int PER = TP / V;
+  for (int idx = threadIdx.x; idx < rows * PER; idx += kThreads) {
+    const int r = idx / PER, off = (idx - r * PER) * V;
+    const long long pix = p0 + off;
+    const bool in = pix < end;
+    cp_async_v<V>(dst + r * ld + off, src + r * n + (in ? pix : 0), in);
+  }
+}
 
-  // logits, then a numerically stable row softmax, one warp per row
-  const float t = temp[bh % heads];
-  const float* g = ws_g + bh * c * c;
-  const float* nq = ws_nq + bh * c;
-  const float* nk = ws_nk + bh * c;
-  for (int idx = tid; idx < c * c; idx += kThreads) {
-    const int i = idx / c, d = idx % c;
-    const float rq = fmaxf(sqrtf(nq[i]), kEps), rk = fmaxf(sqrtf(nk[d]), kEps);
-    P[i * lp + d] = g[idx] / (rq * rk) * t;
+// ------------------------------------------------------------ the Gram
+
+// G (16R x 16R, zero-padded) in 16 x 8 mma tiles, R row tiles by 2R column
+// tiles; the eight warps split the tiles (WTM x WTN) and each stage's
+// pixels (WK groups, KS k-steps each), as gram.cu's GramCfg.
+template <int R>
+struct GramCfg {
+  static constexpr int CHP = 16 * R;
+  static constexpr int LD = kGramTP + 4;  // pitch: fragment reads hit 32 banks
+  static constexpr int MT = R, NT = 2 * R;
+  static constexpr int WK = R <= 2 ? 8 : (R <= 4 ? 4 : 1);
+  static constexpr int WTM = R <= 4 ? 1 : 2;
+  static constexpr int WTN = R <= 2 ? 1 : (R <= 4 ? 2 : 4);
+  static constexpr int MW = (MT + WTM - 1) / WTM, NW = (NT + WTN - 1) / WTN;
+  static constexpr int KS = kGramTP / (8 * WK);
+  static constexpr int STAGES = R <= 4 ? 4 : 3;  // the ring's depth, as fits 227 KB
+  static constexpr int STAGE = 2 * CHP * LD;     // q rows, k rows
+  static constexpr int RP = CHP + 1;             // pitch of a partial G
+  static constexpr int E = CHP * RP + 2 * CHP;
+  static constexpr int FLOATS = STAGES * STAGE > WK * E ? STAGES * STAGE : WK * E;
+  static_assert(WK * WTM * WTN == kThreads / 32, "eight warps");
+  static_assert(KS >= 1, "a stage feeds every warp group");
+};
+
+// Block (s, bh, i * nb + j): over pixels [s * per, (s + 1) * per) of bh,
+// G_ij = q_i k_j^T, nq_i = sum q_i^2 (pairs (i, 0)) and nk_j = sum k_j^2
+// (pairs (0, j)), written with plain stores into the record
+// ws + (bh * splits + s) * (c * c + 2c): G at row i cb, column j cb (pitch
+// c), then nq, then nk.
+template <int R, int V>
+__global__ void __launch_bounds__(kThreads)
+mdta_gram_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 float* __restrict__ ws, long long n, int c, int cb, int splits, int per) {
+  using Cfg = GramCfg<R>;
+  constexpr int LD = Cfg::LD, TP = kGramTP, CHP = Cfg::CHP, MW = Cfg::MW, NW = Cfg::NW;
+  constexpr int kStages = Cfg::STAGES;
+  extern __shared__ __align__(16) float smem[];
+  const int s = blockIdx.x, bh = blockIdx.y;
+  const int nb = (c + cb - 1) / cb, pi = blockIdx.z / nb, pj = blockIdx.z - pi * nb;
+  const int wi = block_width(pi, c, cb), wj = block_width(pj, c, cb);
+  const long long begin = (long long)s * per;
+  const long long end = begin + per < n ? begin + per : n;
+  const float* qb = q + ((long long)bh * c + pi * cb) * n;
+  const float* kb = k + ((long long)bh * c + pj * cb) * n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wk = warp % Cfg::WK, wt = warp / Cfg::WK;
+  const int wm = wt / Cfg::WTN, wn = wt % Cfg::WTN;
+  // warps whose share runs past the padded G (odd R) skip those tiles; the
+  // hot loop has no other branch (rows past a block's width add zeros)
+  bool use_m[MW], use_n[NW];
+#pragma unroll
+  for (int i = 0; i < MW; ++i) use_m[i] = Cfg::MT % Cfg::WTM == 0 || wm * MW + i < Cfg::MT;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) use_n[j] = Cfg::NT % Cfg::WTN == 0 || wn * NW + j < Cfg::NT;
+
+  // the copies never write rows [wi, CHP) of q or [wj, CHP) of k: zero them once
+  const int zq = CHP - wi, zk = CHP - wj;
+  for (int idx = tid; idx < kStages * (zq + zk) * LD; idx += kThreads) {
+    const int r = idx / LD, col = idx - r * LD;
+    const int st = r / (zq + zk), rr = r - st * (zq + zk);
+    smem[st * Cfg::STAGE + (rr < zq ? wi + rr : CHP + wj + rr - zq) * LD + col] = 0.f;
+  }
+  const int n_tiles = (int)((end - begin + TP - 1) / TP);
+  auto load = [&](int t) {
+    float* dst = smem + (t % kStages) * Cfg::STAGE;
+    const long long p0 = begin + (long long)t * TP;
+    stage_pixels<TP, V>(dst, LD, qb, n, wi, p0, end);
+    stage_pixels<TP, V>(dst + CHP * LD, LD, kb, n, wj, p0, end);
+  };
+
+  float acc[MW][NW][4], total[MW][NW][4];
+  float sq_q[MW][2], sq_k[NW];
+  zero(total);
+#pragma unroll
+  for (int i = 0; i < MW; ++i) sq_q[i][0] = sq_q[i][1] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) sq_k[j] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load(t);
+    cp_commit();
+  }
+  int step = 0;  // this warp's k-steps so far: a chain is kChain of them
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t + kStages - 1 < n_tiles) load(t + kStages - 1);
+    cp_commit();
+    const float* qs = smem + (t % kStages) * Cfg::STAGE;
+    const float* ks = qs + CHP * LD;
+#pragma unroll
+    for (int kk = 0; kk < Cfg::KS; ++kk) {
+      const int p = (wk * Cfg::KS + kk) * 8 + tig;  // this lane's pixels: p, p + 4
+      if (step % kChain == 0) zero(acc);
+      uint32_t ah[MW][4], al[MW][4], bh_[NW][2], bl[NW][2];
+#pragma unroll
+      for (int i = 0; i < MW; ++i) {
+        const int r = (wm * MW + i) * 16 + gid;
+        if (!use_m[i]) continue;
+        const float x[4] = {qs[r * LD + p], qs[(r + 8) * LD + p], qs[r * LD + p + 4],
+                            qs[(r + 8) * LD + p + 4]};
+        sq_q[i][0] = fmaf(x[2], x[2], fmaf(x[0], x[0], sq_q[i][0]));
+        sq_q[i][1] = fmaf(x[3], x[3], fmaf(x[1], x[1], sq_q[i][1]));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_fast(x[e], ah[i][e], al[i][e]);
+      }
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int d = (wn * NW + j) * 8 + gid;
+        if (!use_n[j]) continue;
+        const float y[2] = {ks[d * LD + p], ks[d * LD + p + 4]};
+        sq_k[j] = fmaf(y[1], y[1], fmaf(y[0], y[0], sq_k[j]));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) split_fast(y[e], bh_[j][e], bl[j][e]);
+      }
+      mma_3xtf32(acc, ah, al, bh_, bl, use_m, use_n);
+      if (step % kChain == kChain - 1) join(total, acc);
+      ++step;
+    }
+  }
+  if (step % kChain != 0) join(total, acc);
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warp groups' partials now
+
+  constexpr int RP = Cfg::RP, SQ = CHP * RP;  // partial: [G (CHP rows of RP) | nq | nk]
+  float* red = smem + wk * Cfg::E;
+#pragma unroll
+  for (int i = 0; i < MW; ++i) {
+    if (!use_m[i]) continue;
+    const int r = (wm * MW + i) * 16 + gid;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (!use_n[j]) continue;
+      const int d = (wn * NW + j) * 8 + 2 * tig;
+      red[r * RP + d] = total[i][j][0];
+      red[r * RP + d + 1] = total[i][j][1];
+      red[(r + 8) * RP + d] = total[i][j][2];
+      red[(r + 8) * RP + d + 1] = total[i][j][3];
+    }
+    // each channel's squares sit in the four lanes of its group
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = sq_q[i][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (wn == 0 && tig == 0) red[SQ + r + 8 * h] = v;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    if (!use_n[j]) continue;
+    float v = sq_k[j];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (wm == 0 && tig == 0) red[SQ + CHP + (wn * NW + j) * 8 + gid] = v;
   }
   __syncthreads();
-  const int warp = tid / 32, lane = tid % 32;
-  for (int i = warp; i < c; i += kThreads / 32) {
-    float* prow = P + i * lp;
-    float m = -INFINITY;
-    for (int d = lane; d < c; d += 32) m = fmaxf(m, prow[d]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float s = 0.f;
-    for (int d = lane; d < c; d += 32) {
-      const float e = expf(prow[d] - m);
-      prow[d] = e;
-      s += e;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float inv = 1.f / s;
-    for (int d = lane; d < c; d += 32) prow[d] *= inv;
-  }
 
-  const float* vb = v + bh * c * n;
-  float* ob = out + bh * c * n;
-  constexpr int PJ = kEmitTile / 16;
-  for (long long p0 = begin; p0 < end; p0 += kEmitTile) {
-    __syncthreads();  // P is written; the last tile's vs is read
-    for (int idx = tid; idx < c * kEmitTile; idx += kThreads) {
-      const int d = idx / kEmitTile, p = idx % kEmitTile;
-      const long long pix = p0 + p;
-      vs[idx] = pix < end ? vb[d * n + pix] : 0.f;
+  // the WK partials in a fixed order, written once: warp w rows w, w + 8, ...
+  float* rec = ws + ((long long)bh * splits + s) * ((long long)c * c + 2 * c);
+  float* go = rec + (long long)pi * cb * c + pj * cb;
+  for (int r = warp; r < wi; r += kThreads / 32)
+    for (int d = lane; d < wj; d += 32) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < Cfg::WK; ++w) v += smem[w * Cfg::E + r * RP + d];
+      go[(long long)r * c + d] = v;
     }
+  for (int e = tid; e < 2 * CHP; e += kThreads) {
+    const int which = e / CHP, r = e - which * CHP;
+    // nq from the pairs (i, 0), nk from the pairs (0, j)
+    if (r >= (which ? wj : wi) || (which ? pi : pj) != 0) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < Cfg::WK; ++w) v += smem[w * Cfg::E + SQ + e];
+    rec[(long long)c * c + (which ? c + pj * cb : pi * cb) + r] = v;
+  }
+}
+
+// ------------------------------------------------------- the softmax
+
+// Row i of P[bh] (c x c) from the `splits` records of bh: logits
+// G[i, d] / (max(sqrt(nq[i]), eps) max(sqrt(nk[d]), eps)) * temp[bh % heads],
+// then a numerically stable softmax over d. Warp w of W adds the records
+// w, w + W, ... in order (a few each, their loads issued together), and
+// warp 0 adds the W sums in order, 32 columns at a time, keeping the row
+// in shared memory (dynamic, c floats) up to kRowFloats columns and in P
+// itself above.
+constexpr int kRowFloats = 8192;
+
+__global__ void __launch_bounds__(32 * kSoftmaxWarps)
+mdta_softmax_kernel(const float* __restrict__ ws, const float* __restrict__ temp,
+                    float* __restrict__ P, int c, int heads, int splits) {
+  __shared__ float part[2][kSoftmaxWarps][32];
+  __shared__ float part_q[kSoftmaxWarps];
+  extern __shared__ float row_smem[];
+  const int i = blockIdx.x, bh = blockIdx.y;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, W = blockDim.x >> 5;
+  const long long E = (long long)c * c + 2 * c;
+  const float* rec = ws + (long long)bh * splits * E;
+  const float t = temp[bh % heads];
+  float* prow = P + ((long long)bh * c + i) * c;
+  float* x = c <= kRowFloats ? row_smem : prow;  // the row until it is final
+  float rq = 0.f, m = -INFINITY;
+  for (int d0 = 0; d0 < c; d0 += 32) {
+    const int d = d0 + lane;
+    const bool in = d < c;
+    float g = 0.f, nk = 0.f, nq = 0.f;  // nq[i]: with the first 32 columns
+#pragma unroll 4
+    for (int s = w; s < splits; s += W) {
+      const float* r = rec + s * E;
+      if (in) {
+        g += r[(long long)i * c + d];
+        nk += r[(long long)c * c + c + d];
+      }
+      if (d0 == 0) nq += r[(long long)c * c + i];
+    }
+    part[0][w][lane] = g;
+    part[1][w][lane] = nk;
+    if (d0 == 0 && lane == 0) part_q[w] = nq;
     __syncthreads();
-    float acc[R][PJ];
+    if (w == 0) {
+      if (d0 == 0) {
+        float q = 0.f;
+#pragma unroll 8
+        for (int u = 0; u < W; ++u) q += part_q[u];
+        rq = fmaxf(sqrtf(q), kEps);
+      }
+      if (in) {
+        float gs = 0.f, ks = 0.f;
+#pragma unroll 8
+        for (int u = 0; u < W; ++u) {
+          gs += part[0][u][lane];
+          ks += part[1][u][lane];
+        }
+        const float l = gs / (rq * fmaxf(sqrtf(ks), kEps)) * t;
+        x[d] = l;
+        m = fmaxf(m, l);
+      }
+    }
+    __syncthreads();  // warp 0 is done with `part` before the next columns
+  }
+  if (w != 0) return;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float sum = 0.f;
+  for (int d = lane; d < c; d += 32) {  // each lane rereads what it wrote
+    const float e = expf(x[d] - m);
+    x[d] = e;
+    sum += e;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float inv = 1.f / sum;
+  for (int d = lane; d < c; d += 32) prow[d] = x[d] * inv;
+}
+
+// ---------------------------------------------------------- the apply
+
+// out (16R x 128 pixels) = P (16R x 16R, zero-padded) v (16R x 128): P
+// staged row-major [r][d] (pitch CHP + 4), split into its tf32 parts where
+// both copies fit beside the ring (SPLIT), else whole and split at each
+// use; the v ring [d][pixel] (pitch 136).
+template <int R>
+struct ApplyCfg {
+  static constexpr int CHP = 16 * R;
+  static constexpr int LDA = CHP + 4;       // A fragment reads hit 32 banks
+  static constexpr int LDV = kApplyTP + 8;  // and so do B's
+  static constexpr int STAGES = R <= 4 ? 3 : 2;
+  static constexpr bool SPLIT = R <= 7;
+  static constexpr int RING = STAGES * CHP * LDV;
+  static constexpr int MAT = CHP * LDA;
+  static constexpr int FLOATS = RING + (SPLIT ? 2 : 1) * MAT;
+  static_assert(kApplyTP == 16 * (kThreads / 32), "a warp per 16 pixels");
+  static_assert(CHP * CHP == R * R * kThreads, "P is R^2 entries a thread");
+};
+
+// Tiles t = bh * tiles_per_bh + x (pixels [x TP, (x + 1) TP) of bh); block
+// (k, i * nb + j) walks tiles [k * per_block, (k + 1) * per_block) and
+// writes out_i's part P_ij v_j to out + j * slot, restaging P_ij only where
+// bh changes.
+template <int R, int V>
+__global__ void __launch_bounds__(kThreads)
+mdta_apply_kernel(const float* __restrict__ v, const float* __restrict__ P,
+                  float* __restrict__ out, long long slot, long long n, int c, int cb,
+                  long long tiles_per_bh, long long n_tiles_all, int per_block) {
+  using Cfg = ApplyCfg<R>;
+  constexpr int LDA = Cfg::LDA, LDV = Cfg::LDV, TP = kApplyTP, CHP = Cfg::CHP;
+  constexpr int STAGES = Cfg::STAGES, KSTEPS = CHP / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* ph = ring + Cfg::RING;  // P(r, d) at [r * LDA + d]: its high part, or itself
+  float* pl = ph + Cfg::MAT;     // its low part (SPLIT)
+  const long long t0 = (long long)blockIdx.x * per_block;
+  const long long t1 = t0 + per_block < n_tiles_all ? t0 + per_block : n_tiles_all;
+  if (t0 >= t1) return;
+  const int nt = (int)(t1 - t0);
+  const int nb = (c + cb - 1) / cb, pi = blockIdx.y / nb, pj = blockIdx.y - pi * nb;
+  const int wi = block_width(pi, c, cb), wj = block_width(pj, c, cb);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = warp * 16;  // this warp's pixels in a tile
+
+  // the copies never write rows [wj, CHP) of a v tile: zero them once
+  const int zr = CHP - wj;
+  for (int idx = tid; idx < STAGES * zr * LDV; idx += kThreads) {
+    const int r = idx / LDV, col = idx - r * LDV;
+    const int st = r / zr;
+    ring[(st * CHP + wj + r - st * zr) * LDV + col] = 0.f;
+  }
+  auto load = [&](int x) {
+    const long long t = t0 + x, bh = t / tiles_per_bh;
+    stage_pixels<TP, V>(ring + (x % STAGES) * CHP * LDV, LDV, v + (bh * c + pj * cb) * n, n, wj,
+                        (t - bh * tiles_per_bh) * TP, n);
+  };
+  auto stage_p = [&](long long bh) {  // zero outside wi x wj; R^2 entries a thread
+    const float* a = P + (bh * c + pi * cb) * c + pj * cb;
+#pragma unroll 8
+    for (int it = 0; it < R * R; ++it) {
+      const int idx = tid + it * kThreads, r = idx / CHP, d = idx - r * CHP;
+      const float x = r < wi && d < wj ? a[(long long)r * c + d] : 0.f;
+      if (Cfg::SPLIT) {
+        uint32_t hi, lo;
+        split_fast(x, hi, lo);
+        ph[r * LDA + d] = __uint_as_float(hi);
+        pl[r * LDA + d] = __uint_as_float(lo);
+      } else {
+        ph[r * LDA + d] = x;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int x = 0; x < STAGES - 1; ++x) {
+    if (x < nt) load(x);
+    cp_commit();
+  }
+  long long staged = t0 / tiles_per_bh;  // the bh whose P is in shared memory
+  stage_p(staged);
+  for (int x = 0; x < nt; ++x) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // tile x has landed; every warp is done with tile x - 1
+    if (x + STAGES - 1 < nt) load(x + STAGES - 1);
+    cp_commit();
+    const long long t = t0 + x, bh = t / tiles_per_bh;
+    if (bh != staged) {  // a run that crosses into the next bh
+      stage_p(bh);
+      staged = bh;
+      __syncthreads();
+    }
+    const float* vs = ring + (x % STAGES) * CHP * LDV;
+    float acc[R][2][4], total[R][2][4];
+    zero(total);
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int k0 = ks * 8;
+      if (ks % kChain == 0) zero(acc);
+      // B(d, p) = v(d, p): rows k0 + tig, k0 + tig + 4, this warp's pixels
+      uint32_t bh_[2][2], bl[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int p = n0 + j * 8 + gid;
+        split_fast(vs[(k0 + tig) * LDV + p], bh_[j][0], bl[j][0]);
+        split_fast(vs[(k0 + tig + 4) * LDV + p], bh_[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int o = (i * 16 + gid) * LDA + k0 + tig;
+        const int os[4] = {o, o + 8 * LDA, o + 4, o + 8 * LDA + 4};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (Cfg::SPLIT) {
+            ah[e] = __float_as_uint(ph[os[e]]);
+            al[e] = __float_as_uint(pl[os[e]]);
+          } else {
+            split_fast(ph[os[e]], ah[e], al[e]);
+          }
+        }
+        // al bh + ah bl + ah bh, each term over both tiles before the next
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            mma_tf32(acc[i][j], term == 0 ? al : ah, term == 1 ? bl[j] : bh_[j]);
+      }
+      if (ks % kChain == kChain - 1 || ks == KSTEPS - 1) join(total, acc);
+    }
+    const long long p0 = (t - bh * tiles_per_bh) * TP + n0 + 2 * tig;
+    float* ob = out + pj * slot + (bh * c + pi * cb) * n;
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < PJ; ++j) acc[i][j] = 0.f;
-    for (int d = 0; d < c; ++d) {
-      float w[R], x[PJ];
+      for (int h = 0; h < 2; ++h) {
+        const int r = i * 16 + gid + 8 * h;
+        if (r >= wi) continue;
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int r = ty + 16 * i;
-        w[i] = r < c ? P[r * lp + d] : 0.f;
+        for (int j = 0; j < 2; ++j) {
+          const long long p = p0 + j * 8;
+          float* dst = ob + r * n + p;
+          if (V == 4) {  // n % 4 == 0, p even: p + 1 < n where p < n
+            if (p < n) *reinterpret_cast<float2*>(dst) = make_float2(total[i][j][2 * h],
+                                                                     total[i][j][2 * h + 1]);
+          } else {
+            if (p < n) dst[0] = total[i][j][2 * h];
+            if (p + 1 < n) dst[1] = total[i][j][2 * h + 1];
+          }
+        }
       }
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) x[j] = vs[d * kEmitTile + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) acc[i][j] = fmaf(w[i], x[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= c) continue;
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) {
-        const long long pix = p0 + tx + 16 * j;
-        if (pix < end) ob[r * n + pix] = acc[i][j];
-      }
-    }
   }
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
-
-// Pixels per block, a whole number of tiles: about four blocks per SM over
-// all BH heads, at least one tile each.
-long long pixels_per_block(long long n, int bh, int tile) {
-  const long long tiles = (n + tile - 1) / tile;
-  long long blocks = (4LL * sm_count() + bh - 1) / bh;
-  if (blocks > tiles) blocks = tiles;
-  if (blocks < 1) blocks = 1;
-  return (tiles + blocks - 1) / blocks * tile;
-}
+// ------------------------------------------------------------- the call
 
 template <int R>
-cudaError_t attend(const float* q, const float* k, const float* v,
-                   const float* temp, float* out, float* ws, int BH, int heads,
-                   int c, long long n, cudaStream_t st) {
-  float* ws_g = ws;
-  float* ws_nq = ws + (long long)BH * c * c;
-  float* ws_nk = ws_nq + (long long)BH * c;
-  cudaError_t err =
-      cudaMemsetAsync(ws, 0, sizeof(float) * (size_t)BH * c * (c + 2), st);
+cudaError_t attend(const float* q, const float* k, const float* v, const float* temp,
+                   float* out, float* ws, int BH, int heads, int c, long long n, int splits,
+                   int per, int cb, int apply_blocks, int apply_per, int warps, int vec,
+                   cudaStream_t st) {
+  static bool done_g[kMaxDevices], done_a[kMaxDevices];
+  cudaError_t err = allow_smem(done_g, mdta_gram_kernel<R, 4>, mdta_gram_kernel<R, 1>,
+                               GramCfg<R>::FLOATS);
   if (err != cudaSuccess) return err;
+  err = allow_smem(done_a, mdta_apply_kernel<R, 4>, mdta_apply_kernel<R, 1>,
+                   ApplyCfg<R>::FLOATS);
+  if (err != cudaSuccess) return err;
+  const int nb = (c + cb - 1) / cb;
+  const long long slot = (long long)BH * c * n;
+  // the workspace: [nb slots of out where nb > 1 | Gram records | P]
+  float* slots = ws;
+  float* records = ws + (nb > 1 ? nb * slot : 0);
+  float* P = records + (long long)splits * BH * ((long long)c * c + 2 * c);
 
-  long long per = pixels_per_block(n, BH, kSumTile);
-  dim3 grid((unsigned)((n + per - 1) / per), (unsigned)BH);
-  mdta_sums_kernel<R><<<grid, kThreads, 0, st>>>(q, k, ws_g, ws_nq, ws_nk, n,
-                                                 c, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t smem = sizeof(float) * ((size_t)c * (c + 1) + (size_t)c * kEmitTile);
-  err = cudaFuncSetAttribute(mdta_emit_kernel<R>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  per = pixels_per_block(n, BH, kEmitTile);
-  grid = dim3((unsigned)((n + per - 1) / per), (unsigned)BH);
-  mdta_emit_kernel<R><<<grid, kThreads, smem, st>>>(v, ws_g, ws_nq, ws_nk,
-                                                    temp, out, n, c, heads, per);
+  const auto gram = vec == 4 ? mdta_gram_kernel<R, 4> : mdta_gram_kernel<R, 1>;
+  gram<<<dim3((unsigned)splits, (unsigned)BH, (unsigned)(nb * nb)), kThreads,
+         sizeof(float) * GramCfg<R>::FLOATS, st>>>(q, k, records, n, c, cb, splits, per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mdta_softmax_kernel<<<dim3((unsigned)c, (unsigned)BH), 32 * warps,
+                        c <= kRowFloats ? sizeof(float) * c : 0, st>>>(records, temp, P, c,
+                                                                        heads, splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long tiles_per_bh = (n + kApplyTP - 1) / kApplyTP;
+  const auto apply = vec == 4 ? mdta_apply_kernel<R, 4> : mdta_apply_kernel<R, 1>;
+  apply<<<dim3((unsigned)apply_blocks, (unsigned)(nb * nb)), kThreads,
+          sizeof(float) * ApplyCfg<R>::FLOATS, st>>>(v, P, nb > 1 ? slots : out, slot, n, c,
+                                                     cb, tiles_per_bh, tiles_per_bh * BH,
+                                                     apply_per);
+  if (nb > 1) return sum_slots(slots, out, slot, nb, st);
   return cudaGetLastError();
+}
+
+// A plan the kernels take (ops/mdta.py mdta_plan): channel blocks of 1..128
+// channels, ranges of whole stages, 1..32 softmax warps, copies of 4 or 1
+// floats.
+bool bad_plan(int c, int splits, int per, int cb, int apply_blocks, int apply_per, int warps,
+              int vec) {
+  return cb < 1 || cb > kMaxBlock || cb > c || splits < 1 || per < 1 || per % kGramTP != 0 ||
+         apply_blocks < 1 || apply_per < 1 || warps < 1 || warps > kSoftmaxWarps ||
+         (vec != 4 && vec != 1);
 }
 
 }  // namespace
@@ -265,16 +583,23 @@ cudaError_t attend(const float* q, const float* k, const float* v,
 extern "C" {
 
 // q, k, v (BH, c, N) with bh = b * heads + head, temp (heads,) -> out
-// (BH, c, N); ws holds BH * c * (c + 2) floats (G, sum q^2, sum k^2) and is
-// zeroed here, on the stream. c <= 128 picks R = ceil(c / 16) in 1..8;
-// anything wider is refused.
-int rcot_mdta_attend(const float* q, const float* k, const float* v,
-                     const float* temp, float* out, float* ws, int BH,
-                     int heads, int c, long long n, void* stream) {
+// (BH, c, N), on the plan of ops/mdta.py mdta_plan: `splits` ranges of
+// `per` pixels, channel blocks of cb, the apply on `apply_blocks` blocks of
+// `apply_per` 128-pixel tiles for each block pair, the softmax's `warps`,
+// copies of `vec` floats. ws holds mdta_workspace_numel floats. The block
+// width cb picks R = ceil(cb / 16) in 1..8.
+int rcot_mdta_attend(const float* q, const float* k, const float* v, const float* temp,
+                     float* out, float* ws, int BH, int heads, int c, long long n, int splits,
+                     int per, int cb, int apply_blocks, int apply_per, int warps, int vec,
+                     void* stream) {
   if ((long long)BH * c * n == 0) return cudaSuccess;
+  if (bad_plan(c, splits, per, cb, apply_blocks, apply_per, warps, vec))
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define RCOT_CALL(R) attend<R>(q, k, v, temp, out, ws, BH, heads, c, n, st)
-  switch ((c + 15) / 16) {
+#define RCOT_CALL(R)                                                                       \
+  attend<R>(q, k, v, temp, out, ws, BH, heads, c, n, splits, per, cb, apply_blocks, apply_per, \
+            warps, vec, st)
+  switch ((cb + 15) / 16) {
     case 1: return RCOT_CALL(1);
     case 2: return RCOT_CALL(2);
     case 3: return RCOT_CALL(3);
@@ -282,8 +607,7 @@ int rcot_mdta_attend(const float* q, const float* k, const float* v,
     case 5: return RCOT_CALL(5);
     case 6: return RCOT_CALL(6);
     case 7: return RCOT_CALL(7);
-    case 8: return RCOT_CALL(8);
-    default: return cudaErrorInvalidValue;
+    default: return RCOT_CALL(8);
   }
 #undef RCOT_CALL
 }

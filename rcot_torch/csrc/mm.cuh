@@ -10,7 +10,7 @@
 // 8- or 4-byte copies, the widest that the operand's width and alignment
 // allow; the plan's), each operand staged in the orientation it lies in
 // memory (a transposed operand costs nothing), zero fill at every ragged
-// edge, each value split into tf32 halves by integer ops (split_fast). The
+// edge, each value split into tf32 halves by integer ops (tc.cuh split_fast). The
 // epilogue goes through shared memory, so rows leave in runs of 32 floats,
 // and may add an input (kEpiAdd), apply the gate's backward (kEpiGate) or,
 // with the gate taken where A is staged, add an input (kEpiGatedAdd); with
@@ -96,16 +96,6 @@ __device__ __forceinline__ void stage(float* dst, const float* src, long long ld
     stage_tile<R, KROW, 2>(dst, src, ld, r0, r_end, k0, k_end);
   else
     stage_tile<R, KROW, 1>(dst, src, ld, r0, r_end, k0, k_end);
-}
-
-// x = hi + lo exactly, hi = x rounded to tf32 (to nearest, ties away from
-// zero) by integer ops on its bits; lo goes to the tensor cores as it is,
-// and they read its top 19 bits (|error| <= 2^-21 |x|, of either sign).
-// Two integer ops and a subtraction, where two cvt.rna.tf32 and a
-// subtraction (tc.cuh split_tf32) made the conversions the products' limit.
-__device__ __forceinline__ void split_fast(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 enum Epi {

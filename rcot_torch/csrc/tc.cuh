@@ -1,7 +1,9 @@
-// Helpers shared by the port's tensor-core kernels (gram.cu, block_bwd.cu)
-// and its cp.async rings (dwconv.cu): asynchronous copies into shared
-// memory, 3xTF32 products on mma.sync m16n8k8, and the once-per-device
-// raise of a kernel's dynamic shared-memory limit.
+// Helpers shared by the port's tensor-core kernels (gram.cu, mdta.cu and,
+// through mm.cuh, the block and fused kernels) and its cp.async rings
+// (dwconv.cu): asynchronous copies into shared memory, 3xTF32 products on
+// mma.sync m16n8k8, the channel blocks of a wide head and the fixed-order
+// sum of a tensor's slots, and the once-per-device raise of a kernel's
+// dynamic shared-memory limit.
 //
 // 3xTF32: a float x is split into two tf32 values, x = hi + lo + O(2^-22
 // |x|), and a product a b is taken as al bh + ah bl + ah bh (al bl, about
@@ -57,6 +59,17 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
 }
 
+// x = hi + lo exactly, hi = x rounded to tf32 (to nearest, ties away from
+// zero) by integer ops on its bits; lo goes to the tensor cores as it is,
+// and they read its top 19 bits (|error| <= 2^-21 |x|, of either sign).
+// Two integer ops and a subtraction, where two cvt.rna.tf32 and a
+// subtraction (split_tf32) made the conversions the products' limit
+// (mm.cuh, mdta.cu).
+__device__ __forceinline__ void split_fast(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // d += a b on the tensor cores. Not volatile, so that the compiler may
 // interleave independent products and hide each one's latency.
 __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
@@ -83,6 +96,38 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[M][N][4], uint32_t (&ah)
       for (int j = 0; j < N; ++j)
         if (use_m[i] && use_n[j])
           mma_tf32(acc[i][j], term == 0 ? al[i] : ah[i], term == 1 ? bl[j] : bh[j]);
+}
+
+// Width of channel block k of a head of ch channels cut into blocks of cb
+// (ops/gram.py channel_blocks), the last one the narrowest.
+__device__ __forceinline__ int block_width(int k, int ch, int cb) {
+  const int w = ch - k * cb;
+  return w < cb ? w : cb;
+}
+
+// out[e] = ws[e] + ws[size + e] + ... + ws[(nb - 1) * size + e], in that
+// order: the fixed-order sum of a tensor's nb slots of `size` floats, one
+// slot per channel block of a sum over channel blocks (gram.cu, mdta.cu).
+constexpr int kSlotThreads = 256;
+
+__global__ void __launch_bounds__(kSlotThreads)
+sum_slots_kernel(const float* __restrict__ ws, float* __restrict__ out, long long size,
+                 int nb) {
+  const long long e = (long long)blockIdx.x * kSlotThreads + threadIdx.x;
+  if (e >= size) return;
+  float v = ws[e];
+  for (int k = 1; k < nb; ++k) v += ws[k * size + e];
+  out[e] = v;
+}
+
+// After the launch that filled ws (its error is returned first).
+inline cudaError_t sum_slots(const float* ws, float* out, long long size, int nb,
+                             cudaStream_t st) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_slots_kernel<<<(unsigned)((size + kSlotThreads - 1) / kSlotThreads), kSlotThreads, 0,
+                     st>>>(ws, out, size, nb);
+  return cudaGetLastError();
 }
 
 // Raise the dynamic shared-memory limit of a kernel's two variants to

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -45,18 +46,22 @@ SIGNATURES = {
     "rcot_block_head": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # inputs 8, output 1, workspace 6, plan; B, H, W, C, hid; stream
     "rcot_block_tail": [_P] * 15 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # qkv, G, nq, nk, workspace; B, hw, heads, ch, splits, pixels per split; stream
-    "rcot_mdta_gram": [_P] * 5 + [_I, _L, _I, _I, _I, _L, _P],
-    # qkv, attn, out; B, hw, heads, ch, blocks, tiles per block; stream
-    "rcot_attn_apply": [_P, _P, _P, _I, _L, _I, _I, _I, _L, _P],
+    # qkv, G, nq, nk, workspace; B, hw, heads, ch, channel block, splits,
+    # pixels per split; stream
+    "rcot_mdta_gram": [_P] * 5 + [_I, _L, _I, _I, _I, _I, _L, _P],
+    # qkv, attn, out, workspace; B, hw, heads, ch, channel block, blocks,
+    # tiles per block; stream
+    "rcot_attn_apply": [_P] * 4 + [_I, _L, _I, _I, _I, _I, _L, _P],
     # inputs 6, outputs 5, workspace 6, plan (ops/block.py); B, H, W, C, M; stream
     "rcot_block_head_bwd": [_P] * 17 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # inputs 9, outputs 8, workspace 9, plan; B, H, W, C, hid; stream
     "rcot_block_tail_bwd": [_P] * 26 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # qkv, dG, dnq, dnk, d[q|k]; B, hw, heads, ch, blocks, tiles per block; stream
-    "rcot_mdta_gram_bwd": [_P] * 5 + [_I, _L, _I, _I, _I, _L, _P],
-    # qkv, attn, g, dv, dattn, workspace; B, hw, heads, ch, splits, pixels per split; stream
-    "rcot_attn_apply_bwd": [_P] * 6 + [_I, _L, _I, _I, _I, _L, _P],
+    # qkv, dG, dnq, dnk, d[q|k], workspace; B, hw, heads, ch, channel block,
+    # blocks, tiles per block; stream
+    "rcot_mdta_gram_bwd": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _P],
+    # qkv, attn, g, dv, dattn, workspace; B, hw, heads, ch, channel block,
+    # splits, pixels per split; stream
+    "rcot_attn_apply_bwd": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _P],
     # inputs 3, output 1, workspace 2, plan (ops/fused.py); B, H, W, C, M; stream
     "rcot_conv1x1_dw": [_P] * 6 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # inputs 4, output 1, workspace 3, plan; B, H, W, C, hid; stream
@@ -71,8 +76,10 @@ SIGNATURES = {
     "rcot_dwconv3x3_dtaps": [_P] * 4 + [_I] * 8 + [_P],
     # vec, cv, tc, dtaps; -> blocks an SM holds
     "rcot_dwconv3x3_blocks_per_sm": [_I] * 4 + [ctypes.POINTER(_I)],
-    # q, k, v, temperature, out, workspace; BH, heads, c, N; stream
-    "rcot_mdta_attend": [_P] * 6 + [_I] * 3 + [_L, _P],
+    # q, k, v, temperature, out, workspace; BH, heads, c, N; the plan
+    # (ops/mdta.py mdta_plan): splits, pixels per split, channel block,
+    # apply blocks, tiles per apply block, softmax warps; copy width; stream
+    "rcot_mdta_attend": [_P] * 6 + [_I] * 3 + [_L] + [_I] * 7 + [_P],
 }
 
 
@@ -113,7 +120,7 @@ def _digest(srcs) -> str:
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Compile the sources (in parallel) and link the library; returns its
     path. The compiler's output, register and shared-memory use included,
-    is kept beside it in build.log."""
+    and each source's compile time are kept beside it in build.log."""
     srcs = sources()
     lib = build_dir / f"librcot_kernels_{_digest(srcs)}.so"
     if lib.exists():
@@ -122,16 +129,25 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs, procs = [], []
+        t0 = time.perf_counter()
         for s in srcs:
             obj = Path(tmp) / (s.stem + ".o")
             objs.append(obj)
-            procs.append((s, subprocess.Popen(
+            out = open(Path(tmp) / (s.stem + ".log"), "w+")
+            procs.append((s, out, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                stdout=out, stderr=subprocess.STDOUT, text=True)))
+        seconds: dict = {}
+        while len(seconds) < len(procs):
+            for s, _, p in procs:
+                if s not in seconds and p.poll() is not None:
+                    seconds[s] = time.perf_counter() - t0
+            time.sleep(0.05)
         log, failed = [], []
-        for s, p in procs:
-            out, _ = p.communicate()
-            log.append(f"== {s.name} (rc {p.returncode})\n{out}")
+        for s, out, p in procs:
+            out.seek(0)
+            log.append(f"== {s.name} (rc {p.returncode}, {seconds[s]:.1f} s)\n{out.read()}")
+            out.close()
             if p.returncode != 0:
                 failed.append(s.name)
         if not failed:

@@ -18,7 +18,10 @@ dqkv = [dq | dk | dv].
 
 Each kernel wrapper launches its CUDA kernel (csrc/gram.cu) for a CUDA
 tensor and runs its plain twin for a CPU tensor; nothing else. The backward
-twins differentiate the forward twins by autograd.
+twins differentiate the forward twins by autograd. The kernels take heads
+of any width: a head wider than HEAD_BLOCK channels runs as channel blocks
+(channel_blocks) in a grid of block pairs, each sum over blocks through
+slots of a workspace (slots_numel) added in a fixed order.
 """
 
 from __future__ import annotations
@@ -75,11 +78,6 @@ def attn_apply_bwd_plain(qkv, attn, g):
 
 # ---------------------------------------------------------------- kernels
 
-def _check_head_width(ch: int) -> None:
-    if ch > 128:
-        raise ValueError(f"head width {ch} > 128 is not supported")
-
-
 # The launch plans of every kernel of csrc/gram.cu that splits its work
 # by the card's size; the kernels take them as they are. Each is a pure
 # function of the shape and the SM count (sm_count, read once per device).
@@ -105,6 +103,13 @@ def _check_head_width(ch: int) -> None:
 # 64K registers); at ch = 64 it takes 147,968 bytes and only one fits.
 # The apply backward sums dattn over the Gram forward's pixel ranges
 # (gram_plan), so the cap and its error bound hold for both.
+# Heads of any width: each kernel takes a channel block of at most
+# HEAD_BLOCK channels, and a wider head runs as channel_blocks's blocks, in
+# a grid of block pairs, each pair a head of a plan's (csrc/gram.cu, "Heads
+# of any width"); a head of ch <= HEAD_BLOCK is one block of ch and keeps
+# its plans. The blocks share out a plan's blocks: the Gram's ranges count
+# pairs as heads, the runs of tiles are per pair.
+HEAD_BLOCK = 128
 GRAM_BLOCKS_PER_SM = 1
 GRAM_PIXEL_STEP = 64
 GRAM_MAX_PIXELS = 512
@@ -116,6 +121,18 @@ GRAM_BWD_TWO_MAX_CH = 48
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def channel_blocks(ch: int) -> Tuple[int, int]:
+    """-> (blocks, width): a head of ch channels cut into blocks of `width`
+    channels, block k covering [k * width, min((k + 1) * width, ch)), every
+    one of them at most HEAD_BLOCK wide and none empty: as few blocks as
+    HEAD_BLOCK allows, of about equal width, a multiple of 4 where ch is
+    (so that 16-byte copies stay aligned). ch <= HEAD_BLOCK is one block."""
+    n = _cdiv(ch, HEAD_BLOCK)
+    unit = 4 if ch % 4 == 0 else 1
+    width = _cdiv(_cdiv(ch, n), unit) * unit
+    return _cdiv(ch, width), width
 
 
 def gram_plan(b: int, hw: int, heads: int, n_sm: int) -> Tuple[int, int]:
@@ -131,6 +148,12 @@ def gram_plan(b: int, hw: int, heads: int, n_sm: int) -> Tuple[int, int]:
     return _cdiv(hw, per), per
 
 
+def gram_pairs_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int, int]:
+    """gram_plan for a head of ch channels: its channel-block pairs count
+    as heads. The Gram forward's and the apply backward's ranges."""
+    return gram_plan(b, hw, heads * channel_blocks(ch)[0] ** 2, n_sm)
+
+
 def _runs(tiles: int, per_sm: int, n_sm: int) -> Tuple[int, int]:
     """-> (blocks, tiles per block): block k takes tiles
     [k * per, min((k + 1) * per, tiles)), at most per_sm * n_sm blocks and
@@ -139,20 +162,28 @@ def _runs(tiles: int, per_sm: int, n_sm: int) -> Tuple[int, int]:
     return _cdiv(tiles, per), per
 
 
+def pair_runs(tiles: int, ch: int, two_max_ch: int, n_sm: int) -> Tuple[int, int]:
+    """_runs for each channel-block pair of a head of ch channels: two
+    blocks an SM where the block width is at most two_max_ch, and the
+    pairs share the card's SMs."""
+    nb, cb = channel_blocks(ch)
+    return _runs(tiles, 2 if cb <= two_max_ch else 1, max(1, n_sm // (nb * nb)))
+
+
 def apply_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int, int]:
-    """-> (blocks, tiles per block) of the apply forward: tile t of the
-    b * heads * ceil(hw / APPLY_TILE) covers pixels [i * APPLY_TILE, ...)
-    of (b, head) t // ceil(hw / APPLY_TILE), i = t % that. At most two
-    blocks an SM (one where ch > APPLY_TWO_MAX_CH)."""
-    return _runs(b * heads * _cdiv(hw, APPLY_TILE), 2 if ch <= APPLY_TWO_MAX_CH else 1, n_sm)
+    """-> (blocks, tiles per block) of the apply forward, for each
+    channel-block pair: tile t of the b * heads * ceil(hw / APPLY_TILE)
+    covers pixels [i * APPLY_TILE, ...) of (b, head) t // ceil(hw /
+    APPLY_TILE), i = t % that. At most two blocks an SM (one where the
+    block width > APPLY_TWO_MAX_CH)."""
+    return pair_runs(b * heads * _cdiv(hw, APPLY_TILE), ch, APPLY_TWO_MAX_CH, n_sm)
 
 
 def gram_bwd_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int, int]:
     """-> (blocks, tiles per block) of the Gram backward, as apply_plan's
     over tiles of GRAM_BWD_TILE pixels, at most two blocks an SM (one where
-    ch > GRAM_BWD_TWO_MAX_CH)."""
-    return _runs(b * heads * _cdiv(hw, GRAM_BWD_TILE),
-                 2 if ch <= GRAM_BWD_TWO_MAX_CH else 1, n_sm)
+    the block width > GRAM_BWD_TWO_MAX_CH)."""
+    return pair_runs(b * heads * _cdiv(hw, GRAM_BWD_TILE), ch, GRAM_BWD_TWO_MAX_CH, n_sm)
 
 
 def gram_workspace_numel(splits: int, b: int, heads: int, ch: int) -> int:
@@ -167,6 +198,15 @@ def apply_bwd_workspace_numel(splits: int, b: int, heads: int, ch: int) -> int:
     (b, head): one partial dattn per range, none when each (b, head) is one
     range."""
     return 0 if splits == 1 else splits * b * heads * ch * ch
+
+
+def slots_numel(b: int, hw: int, heads: int, ch: int, width: int) -> int:
+    """Floats of the slots of a sum over channel blocks: one (b, hw, width
+    * heads * ch) slot per block where a head of ch channels is more than one
+    block (the apply's out, width 1; the Gram backward's d[q|k], 2; the apply
+    backward's dv, 1), none otherwise."""
+    nb = channel_blocks(ch)[0]
+    return 0 if nb == 1 else nb * b * hw * width * heads * ch
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,8 +226,8 @@ def mdta_gram_fwd(qkv: torch.Tensor, num_heads: int
     ch = c3 // 3 // num_heads
     dev = qkv.device
     build.check_arg("qkv", qkv, (b, h, w, 3 * num_heads * ch), dev)
-    _check_head_width(ch)
-    splits, per = gram_plan(b, h * w, num_heads, sm_count(dev.index))
+    cb = channel_blocks(ch)[1]
+    splits, per = gram_pairs_plan(b, h * w, num_heads, ch, sm_count(dev.index))
     n_ws = gram_workspace_numel(splits, b, num_heads, ch)
     # three allocations: views of one cost the host more (PERF.md, PR 5)
     gram = torch.empty(b, num_heads, ch, ch, device=dev)
@@ -196,7 +236,7 @@ def mdta_gram_fwd(qkv: torch.Tensor, num_heads: int
     ws = torch.empty(n_ws, device=dev) if n_ws else None
     with torch.cuda.device(dev):
         build.call("rcot_mdta_gram", qkv.data_ptr(), gram.data_ptr(), nq.data_ptr(),
-                   nk.data_ptr(), build.ptr(ws), b, h * w, num_heads, ch, splits, per,
+                   nk.data_ptr(), build.ptr(ws), b, h * w, num_heads, ch, cb, splits, per,
                    build.stream())
     build.LAUNCHES["mdta_gram_fwd"] += 1
     return gram, nq, nk
@@ -211,12 +251,14 @@ def attn_apply_fwd(qkv: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     dev = qkv.device
     build.check_arg("qkv", qkv, (b, h, w, 3 * heads * ch), dev)
     build.check_arg("attn", attn, (b, heads, ch, ch), dev)
-    _check_head_width(ch)
+    cb = channel_blocks(ch)[1]
     blocks, per = apply_plan(b, h * w, heads, ch, sm_count(dev.index))
+    n_ws = slots_numel(b, h * w, heads, ch, 1)
     out = torch.empty(b, h, w, heads * ch, device=dev)
+    ws = torch.empty(n_ws, device=dev) if n_ws else None
     with torch.cuda.device(dev):
-        build.call("rcot_attn_apply", qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), b,
-                   h * w, heads, ch, blocks, per, build.stream())
+        build.call("rcot_attn_apply", qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
+                   build.ptr(ws), b, h * w, heads, ch, cb, blocks, per, build.stream())
     build.LAUNCHES["attn_apply_fwd"] += 1
     return out
 
@@ -235,13 +277,15 @@ def mdta_gram_bwd(qkv: torch.Tensor, dgram: torch.Tensor, dnq: torch.Tensor,
     build.check_arg("dgram", dgram, (b, num_heads, ch, ch), dev)
     build.check_arg("dnq", dnq, (b, num_heads, ch), dev)
     build.check_arg("dnk", dnk, (b, num_heads, ch), dev)
-    _check_head_width(ch)
+    cb = channel_blocks(ch)[1]
     blocks, per = gram_bwd_plan(b, h * w, num_heads, ch, sm_count(dev.index))
+    n_ws = slots_numel(b, h * w, num_heads, ch, 2)
     dqdk = torch.empty(b, h, w, 2 * num_heads * ch, device=dev)
+    ws = torch.empty(n_ws, device=dev) if n_ws else None
     with torch.cuda.device(dev):
         build.call("rcot_mdta_gram_bwd", qkv.data_ptr(), dgram.data_ptr(),
-                   dnq.data_ptr(), dnk.data_ptr(), dqdk.data_ptr(), b, h * w,
-                   num_heads, ch, blocks, per, build.stream())
+                   dnq.data_ptr(), dnk.data_ptr(), dqdk.data_ptr(), build.ptr(ws), b,
+                   h * w, num_heads, ch, cb, blocks, per, build.stream())
     build.LAUNCHES["mdta_gram_bwd"] += 1
     return dqdk
 
@@ -260,16 +304,18 @@ def attn_apply_bwd(qkv: torch.Tensor, attn: torch.Tensor, g: torch.Tensor
     build.check_arg("qkv", qkv, (b, h, w, 3 * heads * ch), dev)
     build.check_arg("attn", attn, (b, heads, ch, ch), dev)
     build.check_arg("g", g, (b, h, w, heads * ch), dev)
-    _check_head_width(ch)
-    splits, per = gram_plan(b, h * w, heads, sm_count(dev.index))
-    n_ws = apply_bwd_workspace_numel(splits, b, heads, ch)
+    cb = channel_blocks(ch)[1]
+    splits, per = gram_pairs_plan(b, h * w, heads, ch, sm_count(dev.index))
+    # one allocation: the dattn partials, then the slots of dv
+    n_ws = (apply_bwd_workspace_numel(splits, b, heads, ch)
+            + slots_numel(b, h * w, heads, ch, 1))
     dv = torch.empty(b, h, w, heads * ch, device=dev)
     dattn = torch.empty(b, heads, ch, ch, device=dev)
     ws = torch.empty(n_ws, device=dev) if n_ws else None
     with torch.cuda.device(dev):
         build.call("rcot_attn_apply_bwd", qkv.data_ptr(), attn.data_ptr(),
                    g.data_ptr(), dv.data_ptr(), dattn.data_ptr(), build.ptr(ws), b,
-                   h * w, heads, ch, splits, per, build.stream())
+                   h * w, heads, ch, cb, splits, per, build.stream())
     build.LAUNCHES["attn_apply_bwd"] += 1
     return dv, dattn
 

@@ -267,12 +267,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tblock.block_head(p["x"].double(), p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"])
     with pytest.raises(ValueError):
         tblock.block_head(p["x"], p["ln_w"].cpu(), p["ln_b"], p["w_qkv"], p["dw_qkv"])
-    with pytest.raises(ValueError, match="128"):
-        tgram.mdta_gram_fwd(torch.zeros(1, 2, 2, 3 * 130, device="cuda"), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgram.mdta_gram_fwd(torch.zeros(1, 2, 2, 3 * 130, device="cuda").transpose(1, 2), 1)
 
 
 def _double(ts):
     return [None if t is None else t.double() for t in ts]
+
+
+def _within(got, want64):
+    """max|got - want| <= RTOL * max(max|want|, 1), want a float64 twin's."""
+    assert got.shape == want64.shape
+    err = float((got.double() - want64).abs().max())
+    return err <= RTOL * max(float(want64.abs().max()), 1.0)
 
 
 def _assert_grads_match(got, want64, names):
@@ -485,18 +492,27 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tfused.gdfn_fused(p["x"], p["w_in"], p["dw_in"], p["w_out"][:, :-1])
 
 
+# (B, heads, c, N): serve L1 and decoder L1, train L1 (B = 3), the latent's
+# eight heads, N = 80,250 (250 x 321 unpadded: N % 4 == 2, 4-byte copies)
+# and odd N, c = 5 and 128, a head of 136 channels (two blocks of 68)
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 1, 48, 65536), (2, 4, 24, 231), (3, 8, 96, 256),
-                                   (1, 2, 5, 9), (1, 1, 128, 1000)])
+                                   (1, 2, 5, 9), (1, 1, 128, 1000), (1, 1, 96, 65536),
+                                   (3, 1, 48, 16384), (2, 8, 48, 1024), (1, 1, 48, 80250),
+                                   (1, 1, 48, 20125), (2, 1, 136, 999)])
 def test_mdta_attend_kernel_matches_float64_plain(cuda_device, shape):
+    """Against the float64 twin, and two calls bitwise equal (csrc/mdta.cu
+    sums in a fixed order)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     q, k, v = (torch.randn(*shape, device="cuda", generator=gen) for _ in range(3))
     temp = torch.rand(shape[1], 1, 1, device="cuda", generator=gen) * 1.5 + 0.5
     n0 = build.LAUNCHES["mdta_attend"]
     got = tmdta.mdta_attend_fwd(q, k, v, temp)
+    again = tmdta.mdta_attend_fwd(q, k, v, temp)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["mdta_attend"] == n0 + 1
+    assert build.LAUNCHES["mdta_attend"] == n0 + 2
     assert _rel_err(got.double(), tmdta.mdta_attend_plain(*_double([q, k, v, temp]))) < RTOL
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -566,8 +582,8 @@ def test_dwconv3x3_dtaps_kernel_matches_float64_and_repeats_bitwise(cuda_device,
 @pytest.mark.cuda
 def test_mdta_and_dwconv_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(1, 1, 130, 4, device="cuda")
-    with pytest.raises(ValueError, match="128"):
-        tmdta.mdta_attend_fwd(q, q, q, torch.ones(1, 1, 1, device="cuda"))
+    with pytest.raises(ValueError, match="temperature"):
+        tmdta.mdta_attend_fwd(q, q, q, torch.ones(2, 1, 1, device="cuda"))
     with pytest.raises(ValueError, match="contiguous"):
         tmdta.mdta_attend_fwd(q, q.transpose(2, 3), q, torch.ones(1, 1, 1, device="cuda"))
     x = torch.zeros(1, 4, 4, 6, device="cuda")
@@ -647,4 +663,116 @@ def test_tnet_grads_on_the_card_match_the_cpu(cuda_device, ln, composition):
         gc = got[name]
         assert gc is not None, f"{name} has no gradient on the card"
         err = float((gc.cpu() - gw).abs().max())
+        assert err <= 1e-4 * float(gw.abs().max()), (name, err)
+
+
+# Heads wider than 128 channels (csrc/gram.cu and csrc/mdta.cu, "Heads of
+# any width"): two blocks of 68 (136) and of 96 (192), three of 128 (384),
+# two of 75 (150, 4-byte copies), split ranges (64^2) and whole ones.
+WIDE_CORE = [(2, 1, 136, (16, 16)), (1, 2, 192, (24, 40)), (3, 1, 384, (8, 9)),
+             (2, 1, 150, (33, 7)), (1, 1, 192, (64, 64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,ch,hw", WIDE_CORE)
+def test_mdta_core_kernels_at_wide_heads_match_float64_and_repeat(cuda_device, b, heads,
+                                                                   ch, hw):
+    """Rows 3-4 and 6-7, each output against its float64 twin within
+    RTOL * max(max|twin|, 1), two calls bitwise equal, one count a call."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    qkv = r(b, *hw, 3 * heads * ch)
+    attn = torch.softmax(r(b, heads, ch, ch), -1)
+    cot = [r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)]
+    g = r(b, *hw, heads * ch)
+    calls = {
+        "mdta_gram_fwd": (lambda: tgram.mdta_gram_fwd(qkv, heads),
+                          lambda: tgram.mdta_gram_plain(qkv.double(), heads)),
+        "attn_apply_fwd": (lambda: (tgram.attn_apply_fwd(qkv, attn),),
+                           lambda: (tgram.attn_apply_plain(*_double([qkv, attn])),)),
+        "mdta_gram_bwd": (lambda: (tgram.mdta_gram_bwd(qkv, *cot, heads),),
+                          lambda: (tgram.mdta_gram_bwd_plain(*_double([qkv, *cot]), heads),)),
+        "attn_apply_bwd": (lambda: tgram.attn_apply_bwd(qkv, attn, g),
+                           lambda: tgram.attn_apply_bwd_plain(*_double([qkv, attn, g]))),
+    }
+    for name, (kernel, plain) in calls.items():
+        n0 = build.LAUNCHES[name]
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == n0 + 2, name
+        for i, (x, y, z) in enumerate(zip(got, plain(), again)):
+            assert _within(x, y), (name, i)
+            assert torch.equal(x, z), (name, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 136, 256), (1, 2, 192, 999), (1, 1, 384, 1024),
+                                   (3, 1, 150, 300)])
+def test_mdta_attend_at_wide_heads_matches_float64_and_repeats(cuda_device, shape):
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v = (torch.randn(*shape, device="cuda", generator=gen) for _ in range(3))
+    temp = torch.rand(shape[1], 1, 1, device="cuda", generator=gen) + 0.5
+    got, again = (tmdta.mdta_attend_fwd(q, k, v, temp) for _ in range(2))
+    torch.cuda.synchronize()
+    assert _within(got, tmdta.mdta_attend_plain(*_double([q, k, v, temp])))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [48, 96, 128])
+def test_pixel_sums_do_not_drift_over_512_pixel_ranges(cuda_device, ch):
+    """The Gram's and dattn's sums (rows 3 and 7) and row 10's Gram on
+    terms that never cancel (q, k, v and g positive), at 256^2 with one
+    head: 128 ranges of 512 pixels, the longest a range holds; a tensor-core
+    accumulation that drifts toward zero shows in full. Against float64."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    qkv = torch.rand(1, 256, 256, 3 * ch, device="cuda", generator=gen)
+    g = torch.rand(1, 256, 256, ch, device="cuda", generator=gen)
+    attn = torch.softmax(torch.randn(1, 1, ch, ch, device="cuda", generator=gen), -1)
+    assert tgram.gram_plan(1, 256 * 256, 1, tgram.sm_count(0)) == (128, 512)
+    for x, y in zip(tgram.mdta_gram_fwd(qkv, 1), tgram.mdta_gram_plain(qkv.double(), 1)):
+        assert _within(x, y)
+    dattn = tgram.attn_apply_bwd(qkv, attn, g)[1]
+    assert _within(dattn, tgram.attn_apply_bwd_plain(*_double([qkv, attn, g]))[1])
+    q, k, v = (t.reshape(1, 256 * 256, 1, ch).permute(0, 2, 3, 1).contiguous()
+               for t in qkv.split(ch, dim=-1))
+    temp = torch.ones(1, 1, 1, device="cuda")
+    assert _within(tmdta.mdta_attend_fwd(q, k, v, temp),
+                   tmdta.mdta_attend_plain(*_double([q, k, v, temp])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("core,composition,depthwise", [("gram", "full", "fused"),
+                                                        ("mdta", "off", "dwconv"),
+                                                        ("gram", "tail", "fused"),
+                                                        ("mdta", "tail", "dwconv")])
+def test_one_head_a_level_runs_on_the_card_as_on_the_cpu(cuda_device, core, composition,
+                                                         depthwise):
+    """heads = (1, 1, 1, 1) at dim 48: heads of 192 channels at level 3 and
+    384 at the latent, which the JAX package serves. The outputs and every
+    gradient on the card against the CPU model's, as
+    test_opt_in_tiers_on_the_card_match_the_cpu holds them."""
+    cfg = ModelConfig(dim=48, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
+                      heads=(1, 1, 1, 1), parity_params=False)
+    kw = dict(seed=3, composition=composition, attention_core=core, depthwise=depthwise)
+    cpu, card = TNet(cfg, device="cpu", **kw), TNet(cfg, device="cuda", **kw)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand(1, 32, 32, 3, generator=gen)
+    wts = torch.randn(3, 1, 32, 32, 3, generator=gen)
+
+    def run(net, dev):
+        net.zero_grad()
+        outs = net(x.to(dev))
+        sum((o * w.to(dev)).sum() for o, w in zip(outs, wts)).backward()
+        return outs[0].detach().cpu(), {n: p.grad for n, p in net.named_parameters()}
+
+    before = dict(build.LAUNCHES)
+    got_out, got = run(card, "cuda")
+    torch.cuda.synchronize()
+    kernel = "mdta_attend" if core == "mdta" else "mdta_gram_fwd"
+    assert build.LAUNCHES[kernel] - before.get(kernel, 0) == 22
+    want_out, want = run(cpu, "cpu")
+    assert float((got_out - want_out).abs().max()) <= 1e-4
+    for name, gw in want.items():
+        err = float((got[name].cpu() - gw).abs().max())
         assert err <= 1e-4 * float(gw.abs().max()), (name, err)

@@ -9,7 +9,12 @@ block shape of chip_smoke.py and at odd ones, for several SM counts: the
 pieces cover the work exactly once with none empty, in whole kernel
 stages, and the blocks stay within the waves each design states. The
 workspaces are one partial per range when a (b, head) is split (G | nq | nk
-for the Gram, dattn for the apply backward), and none otherwise.
+for the Gram, dattn for the apply backward), and none otherwise. A head
+wider than 128 channels runs as channel blocks (channel_blocks) in a grid
+of block pairs: the blocks cover the head once, at most 128 channels each;
+the pairs count as heads for the Gram's ranges and share the card's SMs
+for the runs of tiles; a sum over blocks takes one slot per block; and a
+head of ch <= 128 keeps the plans it had before it could be cut.
 """
 
 import pytest
@@ -105,3 +110,50 @@ def test_the_gram_backward_fills_the_card():
     assert tgram.apply_bwd_workspace_numel(4, 3, 8, 48) == 4 * 24 * 48 * 48
     assert tgram.apply_bwd_workspace_numel(1, 3, 44, 48) == 0
 
+
+
+# heads past 128 channels: the one-head-a-level model's 192 and 384 at the
+# serving and training shapes, two blocks of 68 (136) and of 75 (150), and
+# 33 blocks (4,100)
+WIDE = [(1, 64 * 64, 1, 192), (3, 32 * 32, 1, 192), (1, 32 * 32, 1, 384),
+        (3, 16 * 16, 1, 384), (2, 24 * 20, 2, 136), (2, 33 * 7, 1, 150), (1, 9, 1, 4100)]
+
+
+@pytest.mark.parametrize("ch", [1, 5, 24, 48, 96, 128, 129, 130, 136, 150, 192, 255, 256,
+                                257, 260, 384, 1000, 4100])
+def test_channel_blocks_cover_a_head_once(ch):
+    """As few blocks as 128 channels a block allow, every channel once,
+    none empty; more than 64 channels each where a head is cut (the
+    kernels' block variants are compiled for those alone), a multiple of 4
+    where ch is (16-byte copies stay aligned); ch <= 128 is one block."""
+    nb, cb = tgram.channel_blocks(ch)
+    _tiles_once(ch, nb, cb)
+    assert nb == -(-ch // tgram.HEAD_BLOCK) and cb <= tgram.HEAD_BLOCK
+    if nb == 1:
+        assert cb == ch
+    else:
+        assert cb > 64 and (ch % 4 != 0 or cb % 4 == 0)
+
+
+@pytest.mark.parametrize("b,hw,heads,ch", sorted(set(MAIN)) + ODD + WIDE)
+def test_heads_up_to_128_keep_their_plans_and_wider_ones_share_the_card(b, hw, heads, ch):
+    nb, cb = tgram.channel_blocks(ch)
+    pairs = nb * nb
+    for n_sm in SM_COUNTS:
+        splits, per = tgram.gram_pairs_plan(b, hw, heads, ch, n_sm)
+        assert (splits, per) == tgram.gram_plan(b, hw, heads * pairs, n_sm)
+        _tiles_once(hw, splits, per)
+        for plan, tile, two_max in ((tgram.apply_plan, tgram.APPLY_TILE, tgram.APPLY_TWO_MAX_CH),
+                                    (tgram.gram_bwd_plan, tgram.GRAM_BWD_TILE,
+                                     tgram.GRAM_BWD_TWO_MAX_CH)):
+            tiles = b * heads * -(-hw // tile)
+            blocks, per = plan(b, hw, heads, ch, n_sm)
+            _tiles_once(tiles, blocks, per)
+            per_sm = 2 if cb <= two_max else 1
+            assert blocks <= per_sm * max(1, n_sm // pairs)
+            if nb == 1:  # the plan of a head that is not cut, as it always was
+                want = -(-tiles // min(tiles, per_sm * n_sm))
+                assert (blocks, per) == (-(-tiles // want), want)
+        for width in (1, 2):
+            assert tgram.slots_numel(b, hw, heads, ch, width) == (
+                0 if nb == 1 else nb * b * hw * width * heads * ch)

@@ -1,14 +1,17 @@
 """Serving rate of an rcot_torch tree on one CUDA card.
 
     python tools/port_serve_rate.py [--root DIR] [--rounds 3]
+        [--composition full --attention-core gram --depthwise fused]
 
 Imports rcot_torch from DIR (default: this checkout), builds its kernels
 into DIR/build/kernels, and times make_restorer(...).restore_batch on
 256x256 images at batch 1 and 8 with the full-width T_net (ModelConfig(),
 seeded weights), TF32 off, as chip_smoke.py phase 5 does, and the peak
-of torch.cuda.max_memory_allocated over the batch-8 rounds. Prints one
-JSON line with the card's name and power limit. To hold two trees against each
-other, run them in turns on the same card (A, B, B, A).
+of torch.cuda.max_memory_allocated over the batch-8 rounds, in the block
+composition, attention core and depthwise tier given (serving's default
+"full"/gram/fused; e.g. off/mdta/dwconv, chip_smoke.py phase 4b's). Prints
+one JSON line with the card's name and power limit. To hold two trees
+against each other, run them in turns on the same card (A, B, B, A).
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--composition", default="full")
+    ap.add_argument("--attention-core", default="gram")
+    ap.add_argument("--depthwise", default="fused")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -47,7 +53,10 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     build.library()
     cfg = ModelConfig()
-    restorer = make_restorer(TNet(cfg, device="cuda", seed=0).eval(), cfg, device="cuda")
+    tier = dict(composition=args.composition, attention_core=args.attention_core,
+                depthwise=args.depthwise)
+    restorer = make_restorer(TNet(cfg, device="cuda", seed=0).eval(), cfg, device="cuda",
+                             **tier)
     rng = np.random.default_rng(0)
 
     def rate(batch: int, iters: int) -> float:
@@ -64,7 +73,7 @@ def main() -> int:
     b1 = [rate(1, 10) for _ in range(args.rounds)]
     torch.cuda.reset_peak_memory_stats()
     b8 = [rate(8, 3) for _ in range(args.rounds)]
-    print(json.dumps({"root": str(root), "card": card, "batch1_img_per_s": b1,
+    print(json.dumps({"root": str(root), "card": card, **tier, "batch1_img_per_s": b1,
                       "batch8_img_per_s": b8,
                       "batch8_max_memory_allocated": torch.cuda.max_memory_allocated()}))
     return 0
