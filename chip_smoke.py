@@ -106,7 +106,17 @@ Phases (any failure exits non-zero; nothing is caught):
   7b. the train CLI for one epoch with --attention-core mdta --depthwise
      dwconv, then rcot_torch.cli.test on its validation folder from its
      latest.npz with --composition off --attention-core mdta --depthwise
-     dwconv: finite metrics and PSNRs, each run's launches its tiers'.
+     dwconv: finite metrics and PSNRs, each run's launches its tiers';
+  8. evaluation at full width on a seeded tree of 256^2 images and a
+     ModelConfig() checkpoint from a seed: rcot_torch.cli.eval_all over
+     every task (denoise at sigmas 15 and 50, derain, dehaze, deblur,
+     lowlight, a --paired tree; each row finite with its n, 94 launches of
+     each "full" kernel per forward, each task's seconds), cli.test with
+     --fid --lpips --niqe-model fit:<clean folder> (finite averages), the
+     Inception pool3, LPIPS and FID of its saved images on the card against
+     the CPU, the metrics' costs, and the CLI's per-image PSNR against a CPU
+     run, in this script's fp32 and under PyTorch's default flags (TF32 in
+     cuDNN), each within 1e-3 dB.
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
 plain twins and the CPU reference run in full fp32. Kernel agreement is
@@ -163,10 +173,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rcot_torch.cli import eval_all as eval_cli
+from rcot_torch.cli import fid as fid_cli
 from rcot_torch.cli import test as test_cli
 from rcot_torch.cli import train as train_cli
-from rcot_torch.data.synthetic import write_synthetic_tree
+from rcot_torch.data.datasets import list_image_folder, load_rgb
+from rcot_torch.data.synthetic import write_eval_tree, write_synthetic_tree
 from rcot_torch.kernels import build
+from rcot_torch.metrics import inception
+from rcot_torch.metrics import lpips as lpips_mod
+from rcot_torch.metrics import niqe as niqe_mod
 from rcot_torch.models import critic
 from rcot_torch.models.inference import make_restorer
 from rcot_torch.models.restormer import TNet, count_params
@@ -1582,6 +1598,191 @@ def phase_cli_opt_in(card) -> dict:
                     launches=launches, test_launches=test_launches)
 
 
+EVAL_RES = 256
+EVAL_SIGMAS = ("15", "50")
+EVAL_PER_TASK = 2     # images a task; the denoise folder runs once a sigma
+EVAL_TASKS = [f"denoise_sigma{s}" for s in EVAL_SIGMAS] + [
+    "derain", "dehaze", "deblur", "lowlight", "val"]
+TEST_IMAGES = 6       # cli.test's folder: FID's covariances need a few
+POOL3_RTOL, POOL3_ATOL = 2e-3, 2e-4  # as tests/test_fid_torch_parity.py
+LPIPS_ATOL = 1e-5
+FID_REL = 2e-2
+PSNR_GATE_DB = 1e-3   # card vs CPU per-image PSNR, as tests/test_torch_inference.py
+
+
+def run_cli(main, argv) -> tuple:
+    """(what main returned, its standard output)."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        ret = main(argv)
+    torch.cuda.synchronize()
+    return ret, printed.getvalue()
+
+
+def printed_psnrs(text: str) -> dict:
+    return {name: float(v) for name, v in re.findall(r"^(\S+): psnr (\S+) ssim", text, re.M)}
+
+
+def printed_average(text: str, metric: str) -> float:
+    m = re.search(rf"^{metric}: average (\S+)", text, re.M)
+    if m is None or not np.isfinite(float(m.group(1))):
+        raise AssertionError(f"no finite {metric} average in {text!r}")
+    return float(m.group(1))
+
+
+def phase_eval(card, default_flags) -> dict:
+    """The evaluation surface at full width on a seeded tree of 256^2
+    images (rcot_torch.data.synthetic.write_eval_tree) and a ModelConfig()
+    checkpoint drawn from a seed: rcot_torch.cli.eval_all over every task
+    (denoise at two sigmas, derain, dehaze, deblur, lowlight, a --paired
+    tree), each row finite with its n, 94 launches of each "full" kernel per
+    forward; rcot_torch.cli.test with --fid --lpips --niqe-model fit:<the
+    clean folder>, finite averages; the Inception, LPIPS and FID of its saved
+    images on the card against the CPU; the cost of each metric; and the
+    CLI's per-image PSNR against the CPU's, in this script's fp32 and under
+    PyTorch's default flags (default_flags: TF32 for cuDNN convolutions)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root, test = f"{tmp}/eval", f"{tmp}/test"
+        write_eval_tree(root, seed=3, n=EVAL_PER_TASK, size=(EVAL_RES, EVAL_RES))
+        write_eval_tree(test, seed=4, n=TEST_IMAGES, size=(EVAL_RES, EVAL_RES))
+        ckpt = f"{tmp}/tnet.pt"
+        torch.save(TNet(ModelConfig(), device="cpu", seed=5).state_dict(), ckpt)
+
+        # ---- cli.eval_all over every task, counted; each task timed
+        task_s: dict = {}
+        plain_items = eval_cli._eval_items
+
+        def timed_items(restorer, items, task):
+            t0 = time.perf_counter()
+            row = plain_items(restorer, items, task)
+            torch.cuda.synchronize()
+            task_s[task] = time.perf_counter() - t0
+            return row
+        eval_cli._eval_items = timed_items
+        build.reset_launches()
+        try:
+            rc, _ = run_cli(eval_cli.main, [
+                "--ckpt", ckpt, "--denoise-path", f"{root}/denoise", "--sigmas", *EVAL_SIGMAS,
+                "--derain-path", f"{root}/derain", "--dehaze-path", f"{root}/dehaze",
+                "--deblur-dir", f"{root}/deblur", "--lowlight-dir", f"{root}/lowlight",
+                "--paired", "val", f"{root}/paired", "--json-out", f"{tmp}/eval.json"])
+        finally:
+            eval_cli._eval_items = plain_items
+        launches = dict(build.LAUNCHES)
+        with open(f"{tmp}/eval.json") as f:
+            results = json.load(f)["results"]
+        if rc != 0 or list(results) != EVAL_TASKS:
+            raise AssertionError(f"eval_all returned {rc}, tasks {list(results)}")
+        for key, row in results.items():
+            if row.get("n") != EVAL_PER_TASK or "skipped" in row or not all(
+                    np.isfinite(row[k]) for k in ("psnr", "ssim", "input_psnr", "input_ssim")):
+                raise AssertionError(f"eval_all {key}: {row}")
+        n_fwd = sum(row["n"] for row in results.values())
+        check_launches(f"eval_all ({n_fwd} forwards in full)", launches,
+                       expected_launches(FORWARD_LAUNCHES * n_fwd, "full", backward=False))
+        log(f"eval_all at full width: {json.dumps(results)}; seconds by task "
+            f"{json.dumps(task_s)} ({card})")
+
+        # ---- cli.test with every metric, counted
+        out, tar = f"{tmp}/out/", f"{tmp}/tar/"
+        argv = ["--ckpt", ckpt, "--degset", f"{test}/paired/input/", "--tarset",
+                f"{test}/paired/target/", "--save", out, "--savetar", tar,
+                "--saveres", f"{tmp}/res/"]
+        build.reset_launches()
+        t0 = time.perf_counter()
+        _, text = run_cli(test_cli.main, argv + ["--fid", "--lpips", "--niqe-model",
+                                              f"fit:{test}/paired/target"])
+        test_s = time.perf_counter() - t0
+        test_launches = dict(build.LAUNCHES)
+        check_launches(f"test CLI ({TEST_IMAGES} forwards in full)", test_launches,
+                       expected_launches(FORWARD_LAUNCHES * TEST_IMAGES, "full", False))
+        card_psnr = printed_psnrs(text)
+        averages = {m: printed_average(text, m) for m in ("PSNR", "SSIM", "LPIPS", "NIQE")}
+        fid_line = re.search(r"^FID value: (\S+)$", text, re.M)
+        if len(card_psnr) != TEST_IMAGES or f"({TEST_IMAGES} images)" not in text \
+                or fid_line is None or not np.isfinite(float(fid_line.group(1))):
+            raise AssertionError(f"cli.test printed {text!r}")
+        log(f"test CLI at full width with --fid --lpips --niqe-model fit: {averages}, "
+            f"FID {fid_line.group(1)}, {test_s:.3f} s for {TEST_IMAGES} images ({card})")
+
+        # ---- the metrics of the saved images, card against CPU
+        outs, tars = list_image_folder(out), list_image_folder(tar)
+        batch = np.stack([fid_cli._load_and_preprocess(f) for f in outs])
+        nets = {dev: inception.InceptionV3(None, dev) for dev in ("cuda", "cpu")}
+        feats = {dev: inception.inception_pool3(net, batch).cpu() for dev, net in nets.items()}
+        torch.testing.assert_close(feats["cuda"], feats["cpu"], rtol=POOL3_RTOL, atol=POOL3_ATOL)
+        pool3_err = float((feats["cuda"] - feats["cpu"]).abs().max())
+        x = np.stack([load_rgb(f) for f in outs]).astype(np.float32) / 255.0
+        y = np.stack([load_rgb(f) for f in tars]).astype(np.float32) / 255.0
+        lp = {dev: lpips_mod.LPIPS(None, dev) for dev in ("cuda", "cpu")}
+        dist = {dev: lpips_mod.lpips(net, x, y).cpu() for dev, net in lp.items()}
+        lpips_err = float((dist["cuda"] - dist["cpu"]).abs().max())
+        if not lpips_err <= LPIPS_ATOL:
+            raise AssertionError(f"LPIPS card vs CPU: max|err| {lpips_err:.3e} > {LPIPS_ATOL:g}")
+        fid_card, fid_cpu = (fid_cli.compute_fid_folders(tar, out, device=dev)
+                             for dev in ("cuda", "cpu"))
+        fid_rel = abs(fid_card - fid_cpu) / abs(fid_cpu)
+        if not fid_rel <= FID_REL or abs(fid_card - float(fid_line.group(1))) > 1e-4:
+            raise AssertionError(f"FID card {fid_card} vs CPU {fid_cpu}, "
+                                 f"cli.test printed {fid_line.group(1)}")
+        log(f"metrics card vs CPU on the saved images: pool3 max|err| {pool3_err:.3e}, "
+            f"LPIPS max|err| {lpips_err:.3e}, FID {fid_card!r} vs {fid_cpu!r} "
+            f"(rel {fid_rel:.3e})")
+
+        # ---- what evaluation costs
+        x50 = torch.rand(50, EVAL_RES, EVAL_RES, 3, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(8))
+        inception.inception_pool3(nets["cuda"], x50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            inception.inception_pool3(nets["cuda"], x50)
+        torch.cuda.synchronize()
+        inception_img_s = 5 * 50 / (time.perf_counter() - t0)
+        xa, ya = x50[:1].contiguous(), x50[1:2].contiguous()
+        lpips_ms = cuda_ms(lambda: lpips_mod.lpips(lp["cuda"], xa, ya))
+        model = niqe_mod.fit_niqe_model([load_rgb(f).astype(np.float64) for f in tars])
+        img = load_rgb(outs[0]).astype(np.float64)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            niqe_mod.niqe(img, model)
+        niqe_ms = (time.perf_counter() - t0) / 3 * 1e3
+        del nets, lp, x50
+        log(f"eval costs: Inception pool3 {inception_img_s:.3f} img/s at batch 50 "
+            f"({EVAL_RES}^2 in), LPIPS {lpips_ms:.4f} ms per {EVAL_RES}^2 pair, NIQE "
+            f"{niqe_ms:.3f} ms per {EVAL_RES}^2 image on the host ({card})")
+
+        # ---- the CLI's numeric mode: per-image PSNR against the CPU's, in
+        # fp32 and under PyTorch's default flags
+        cpu_psnr = printed_psnrs(run_cli(test_cli.main, argv + ["--device", "cpu"])[1])
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = default_flags
+        try:
+            default_psnr = printed_psnrs(run_cli(test_cli.main, argv)[1])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        if not card_psnr.keys() == cpu_psnr.keys() == default_psnr.keys():
+            raise AssertionError(f"PSNR lines {card_psnr}, {cpu_psnr}, {default_psnr}")
+        gap_fp32 = max(abs(card_psnr[k] - cpu_psnr[k]) for k in cpu_psnr)
+        gap_default = max(abs(default_psnr[k] - cpu_psnr[k]) for k in cpu_psnr)
+        log(f"test CLI per-image PSNR vs the CPU: max gap {gap_fp32:.4f} dB in fp32, "
+            f"{gap_default:.4f} dB under PyTorch's default flags (matmul.allow_tf32, "
+            f"cudnn.allow_tf32 = {default_flags}); printed to 4 decimals")
+        if not max(gap_fp32, gap_default) <= PSNR_GATE_DB:
+            raise AssertionError(f"card vs CPU PSNR gap {gap_fp32} / {gap_default} dB "
+                                 f"> {PSNR_GATE_DB}")
+        return dict(eval_all=results, eval_all_seconds_by_task=task_s,
+                    eval_all_launches=launches, test_cli=averages,
+                    test_cli_fid=float(fid_line.group(1)), test_cli_seconds=test_s,
+                    test_cli_launches=test_launches, pool3_max_abs_err=pool3_err,
+                    lpips_max_abs_err=lpips_err, fid_card=fid_card, fid_cpu=fid_cpu,
+                    inception_img_per_s_b50=inception_img_s, lpips_ms_per_pair=lpips_ms,
+                    niqe_ms_per_image_host=niqe_ms, psnr_gap_db_fp32=gap_fp32,
+                    psnr_gap_db_default_flags=gap_default,
+                    default_flags=dict(zip(("matmul.allow_tf32", "cudnn.allow_tf32"),
+                                           default_flags)), card=card)
+
+
 def check_same_state(a, b) -> None:
     """Parameters, optimizer slots and step of two TrainStates are equal."""
     for tag, na, nb, oa, ob in (("T", a.t_net, b.t_net, a.t_opt, b.t_opt),
@@ -1819,6 +2020,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "measures the CUDA port and has nothing to run here", file=sys.stderr)
         return 1
+    # PyTorch's own flags, which a user's CLI run sees (phase 8 runs under them once)
+    default_flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1882,6 +2085,7 @@ def main() -> int:
     one_head = phase_one_head(np.random.default_rng(2))
     cli = phase_train_cli(card)
     cli_opt = phase_cli_opt_in(card)
+    evals = phase_eval(card, default_flags)
     splits = {mode: iteration_breakdown(train["it_per_s"][mode], train["critic_ms"],
                                         train_timings, mode) for mode in ("tail", "full")}
 
@@ -1945,6 +2149,7 @@ def main() -> int:
                                    if "/" in k},
                                "clis": cli_opt},
                     "one_head_a_level": one_head,
+                    "eval_256px": evals,
                     "pixel_sum_drift_512_pixel_ranges": drift,
                     "gram_plain_fp32_vs_float64_rel_err": errs["gram_plain_fp32_rel"],
                     "golden_max_abs_err": model["golden_err"],

@@ -1,9 +1,10 @@
-"""Folder restoration and PSNR/SSIM report (counterpart of rcot_tpu/cli/test.py).
+"""Folder restoration and its metrics (counterpart of rcot_tpu/cli/test.py).
 
     python -m rcot_torch.cli.test --ckpt CKPT --degset DEG/ --tarset TAR/ \
         [--batch N] [--tile T --tile-overlap O] [--noise-sigma S] [--device cuda] \
         [--composition full|head|tail|off] [--attention-core gram|mdta] \
-        [--depthwise fused|dwconv]
+        [--depthwise fused|dwconv] [--fid [--inception-weights W.npz]] \
+        [--lpips [--lpips-weights W.npz]] [--niqe-model PARAMS.mat|.npz|fit:FOLDER]
 
 --ckpt is a JAX-package .npz (a raw T-params npz or a trainer checkpoint)
 or a .pt state_dict of this package's TNet. Images are reflect-padded to
@@ -13,6 +14,16 @@ mod 8 and cropped back; residual, output and target PNGs are written to
 (ops/dispatch.py), as RCOT_INFER_BLOCK, RCOT_PALLAS_MDTA=1 and
 RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1 do for the JAX package's tester;
 the defaults are serving's: full, gram, fused.
+
+Besides per-image and average PSNR/SSIM it reports, as the JAX tester
+does, the mean LPIPS (--lpips, metrics/lpips.py), the mean NIQE of the
+restored images (--niqe-model: a params file, or fit:FOLDER for a
+surrogate pristine model fit on a clean folder; images smaller than one
+96 px patch are skipped by name) and FID between --savetar and --save
+(--fid, cli/fid.py). Without a weights file the LPIPS and Inception nets
+use the JAX package's crc32-seeded surrogates, whose scores compare only
+with each other. Flags of paths not ported yet (--dtype bfloat16,
+--backbone mprnet, --sr-scale, --spatial) stop the run by name.
 """
 
 from __future__ import annotations
@@ -25,7 +36,9 @@ import torch
 from PIL import Image
 
 from ..compat.jax_params import load_jax_npz
-from ..data.datasets import eval_pairs, load_rgb
+from ..data.datasets import eval_pairs, list_image_folder, load_rgb
+from ..metrics import niqe as niqe_mod
+from ..metrics.lpips import LPIPS, lpips as lpips_dist
 from ..metrics.quality import AverageMeter, psnr, ssim_ref_single
 from ..models.inference import make_restorer
 from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE
@@ -58,7 +71,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--depthwise", default="fused", choices=DEPTHWISE,
                    help="depthwise tier of qkv and GDFN outside the block kernels "
                         "(dwconv = the standalone depthwise kernel)")
+    p.add_argument("--fid", action="store_true", help="also compute FID")
+    p.add_argument("--inception-weights", default=None)
+    p.add_argument("--lpips", action="store_true", help="also report mean LPIPS")
+    p.add_argument("--lpips-weights", default=None)
+    p.add_argument("--niqe-model", default=None,
+                   help="NIQE pristine-model params (.mat/.npz) or 'fit:<folder>' "
+                        "to fit a surrogate from a clean folder; reports the mean "
+                        "no-reference NIQE of the restored outputs")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="bfloat16 is not ported yet")
+    p.add_argument("--backbone", choices=["auto", "restormer", "mprnet"], default="auto",
+                   help="T_net backbone (mprnet is not ported yet)")
+    p.add_argument("--sr-scale", type=int, default=0,
+                   help="legacy SR mode of the MPRNet backbone (not ported yet)")
+    p.add_argument("--spatial", type=int, default=0,
+                   help="row sharding over N devices (not ported yet)")
     return p
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """The JAX tester's flags whose paths this package does not have yet
+    (ROADMAP.md, Queue 1) stop the run instead of being ignored. Also
+    cli.eval_all's, whose parser has only --dtype of them."""
+    unported = [
+        (args.dtype == "bfloat16", "--dtype bfloat16", "bf16 activations (item 4)"),
+        (getattr(args, "backbone", "auto") == "mprnet", "--backbone mprnet",
+         "the MPRNet backbone (item 6)"),
+        (getattr(args, "sr_scale", 0) > 0, "--sr-scale", "the legacy SR mode (item 6)"),
+        (getattr(args, "spatial", 0) > 1, "--spatial", "row sharding over devices (item 8)"),
+    ]
+    for given, flag, what in unported:
+        if given:
+            raise SystemExit(f"{flag}: {what} is not ported to rcot_torch yet "
+                             "(ROADMAP.md, Queue 1)")
+
+
+def fit_or_load_niqe(spec: str):
+    """--niqe-model: 'fit:FOLDER' fits a surrogate pristine model on the
+    folder's images, anything else is a params file."""
+    if not spec.startswith("fit:"):
+        return niqe_mod.load_niqe_model(spec)
+    folder = spec[4:]
+    imgs = [load_rgb(f).astype(np.float64) for f in list_image_folder(folder)]
+    model = niqe_mod.fit_niqe_model(imgs)
+    print(f"NIQE: surrogate model fit on {len(imgs)} images from {folder} "
+          "(relative scores only)")
+    return model
 
 
 def save_png(path: str, img01: np.ndarray) -> None:
@@ -83,6 +142,7 @@ def load_state_dict(path: str):
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    refuse_unported(args)
     sd, model_cfg = load_state_dict(args.ckpt)
     restorer = make_restorer(sd, model_cfg, tile=args.tile,
                              tile_overlap=args.tile_overlap, device=args.device,
@@ -91,6 +151,9 @@ def main(argv=None) -> None:
 
     rng = np.random.default_rng(args.seed)
     p_meter, s_meter = AverageMeter(), AverageMeter()
+    l_meter, n_meter = AverageMeter(), AverageMeter()
+    lpips_net = LPIPS(args.lpips_weights, args.device) if args.lpips else None
+    niqe_model = fit_or_load_niqe(args.niqe_model) if args.niqe_model else None
     best, worst = (-1.0, None), (1e9, None)
 
     def flush(chunk):
@@ -109,6 +172,13 @@ def main(argv=None) -> None:
             s = float(ssim_ref_single(o * 255.0, t * 255.0))
             p_meter.update(p)
             s_meter.update(s)
+            if lpips_net is not None:
+                l_meter.update(float(lpips_dist(lpips_net, o[None], t[None])[0]))
+            if niqe_model is not None:
+                try:
+                    n_meter.update(niqe_mod.niqe(np.asarray(out, np.float64), niqe_model))
+                except ValueError as e:  # image smaller than one 96 px patch
+                    print(f"niqe skip {name}: {e}")
             if p > best[0]:
                 best = (p, name)
             if p < worst[0]:
@@ -137,6 +207,15 @@ def main(argv=None) -> None:
     print(f"PSNR: average {p_meter.avg:.5f}  best {best[1]} {best[0]:.4f}  "
           f"worst {worst[1]} {worst[0]:.4f}")
     print(f"SSIM: average {s_meter.avg:.5f}")
+    if lpips_net is not None:
+        print(f"LPIPS: average {l_meter.avg:.5f}")
+    if niqe_model is not None and n_meter.count:
+        print(f"NIQE: average {n_meter.avg:.5f} ({n_meter.count} images)")
+    if args.fid:
+        from .fid import compute_fid_folders
+        fid = compute_fid_folders(args.savetar, args.save,
+                                  weights=args.inception_weights, device=args.device)
+        print(f"FID value: {fid:.4f}")
 
 
 if __name__ == "__main__":

@@ -15,6 +15,12 @@ ROOT/Train/Derain/ --dehaze-dir ROOT/Train/Dehaze/ --data-file-dir
 ROOT/manifests/ --degset ROOT/val/input/ --tarset ROOT/val/target/.
 Degraded images are their clean ones plus seeded noise (rain) or a veil
 (haze): content for smoke runs, not for learning.
+
+write_eval_tree (--eval) writes the test sets of cli.eval_all instead: a
+clean denoise folder, derain (input/xK-rain -> target/xK-norain), dehaze
+(input/<p>_<beta> -> target/<p>), GoPro-style deblur (test/blur,
+test/sharp), LOL-style lowlight (low/, high/) and a --paired tree (input/,
+target/); clean images are blocks with grain, so NIQE finds sharp patches.
 """
 
 from __future__ import annotations
@@ -79,13 +85,51 @@ def write_synthetic_tree(root: str, *, seed: int = 0, n_denoise: int = 3,
         _save(f"{root}/val/input/val{k}.png", degrade(tgt))
 
 
+def write_eval_tree(root: str, *, seed: int = 0, n: int = 2,
+                    size: Tuple[int, int] = (256, 256)) -> None:
+    """n images a task at `size` (the denoise folder's k-th image 3k rows
+    taller). Run with --denoise-path ROOT/denoise --derain-path ROOT/derain
+    --dehaze-path ROOT/dehaze --deblur-dir ROOT/deblur --lowlight-dir
+    ROOT/lowlight --paired NAME ROOT/paired."""
+    rng = np.random.default_rng(seed)
+    h, w = size
+
+    def clean(hh=h):
+        blocks = rng.integers(0, 256, (-(-hh // 8), -(-w // 8), 3))
+        img = np.kron(blocks, np.ones((8, 8, 1)))[:hh, :w]
+        return np.clip(img + rng.normal(0, 10, img.shape), 0, 255).astype(np.uint8)
+
+    def degrade(img):
+        return np.clip(img.astype(int) + rng.integers(-40, 40, img.shape),
+                       0, 255).astype(np.uint8)
+
+    for k in range(n):
+        _save(f"{root}/denoise/clean{k}.png", clean(h + 3 * k))
+    for k in range(n):
+        for deg, tgt in ((f"derain/input/x{k}-rain.png", f"derain/target/x{k}-norain.png"),
+                         (f"dehaze/input/{k:04d}_0.8_0.2.png", f"dehaze/target/{k:04d}.png"),
+                         (f"deblur/test/blur/b{k}.png", f"deblur/test/sharp/b{k}.png"),
+                         (f"paired/input/p{k}.png", f"paired/target/p{k}.png")):
+            gt = clean()
+            _save(f"{root}/{tgt}", gt)
+            _save(f"{root}/{deg}", degrade(gt))
+        gt = clean()
+        _save(f"{root}/lowlight/high/l{k}.png", gt)
+        _save(f"{root}/lowlight/low/l{k}.png", gt // 4)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("root")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--size", type=int, default=192)
+    p.add_argument("--eval", action="store_true",
+                   help="write the test sets of cli.eval_all (write_eval_tree)")
     args = p.parse_args(argv)
-    write_synthetic_tree(args.root, seed=args.seed, size=args.size)
+    if args.eval:
+        write_eval_tree(args.root, seed=args.seed, size=(args.size, args.size))
+    else:
+        write_synthetic_tree(args.root, seed=args.seed, size=args.size)
 
 
 if __name__ == "__main__":

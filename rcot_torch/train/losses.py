@@ -13,6 +13,9 @@ Critic (F):
     GP     = 10 * mean((||dF/dx_hat||_2 - 1)^2),  x_hat = a*y + (1-a)*T(x)
 The caller draws the interpolation weights a (B,1,1,1) from its own
 generator and passes them in.
+
+gan_loss and tv_loss are the reference's helpers that its main path does
+not call (util/loss_utils.py:6-45, utils.py:59-72).
 """
 
 from __future__ import annotations
@@ -44,6 +47,37 @@ def t_loss(out: torch.Tensor, inp: torch.Tensor, target: torch.Tensor,
 def wgan_critic_loss(score_real: torch.Tensor, score_fake: torch.Tensor) -> torch.Tensor:
     """-mean F(real) + mean F(fake)."""
     return -score_real.mean() + score_fake.mean()
+
+
+def gan_loss(scores: torch.Tensor, target_is_real: bool,
+             mode: str = "lsgan") -> torch.Tensor:
+    """The reference's GANLoss: 'lsgan' = MSE to 1/0 labels, 'vanilla' =
+    BCE with logits, 'wgan' = -/+ mean score."""
+    if mode == "lsgan":
+        target = torch.ones_like(scores) if target_is_real else torch.zeros_like(scores)
+        return (scores - target).square().mean()
+    if mode == "vanilla":
+        target = torch.ones_like(scores) if target_is_real else torch.zeros_like(scores)
+        return (scores.clamp(min=0) - scores * target
+                + torch.log1p(torch.exp(-scores.abs()))).mean()
+    if mode == "wgan":
+        return -scores.mean() if target_is_real else scores.mean()
+    raise ValueError(f"unknown gan loss mode {mode!r}")
+
+
+def tv_loss(x: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
+    """Total variation of (B, H, W, C): the per-element means of squared
+    forward differences over height and over width, summed, times 2, over
+    the batch (the standard TVLoss the reference derives from).
+
+    A deliberate deviation, as in the JAX package: the reference's copy
+    (utils.py:59-72, dead on its main path) squeezes to CHW but keeps 4-D
+    indexing, so its 'h_tv' differences channels and its 'w_tv' height.
+    This is the math the snippet intends."""
+    b, h, w, c = x.shape
+    dh = (x[:, 1:] - x[:, :-1]).square().sum()
+    dw = (x[:, :, 1:] - x[:, :, :-1]).square().sum()
+    return weight * 2.0 * (dh / (c * (h - 1) * w) + dw / (c * h * (w - 1))) / b
 
 
 def gradient_penalty(critic_fn: Callable[[torch.Tensor], torch.Tensor],

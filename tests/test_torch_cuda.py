@@ -776,3 +776,26 @@ def test_one_head_a_level_runs_on_the_card_as_on_the_cpu(cuda_device, core, comp
     for name, gw in want.items():
         err = float((got[name].cpu() - gw).abs().max())
         assert err <= 1e-4 * float(gw.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_metric_nets_on_the_card_match_the_cpu(cuda_device):
+    """The evaluation nets (no kernel of their own: cuDNN convolutions) on
+    the card against the CPU, on the surrogate weights: Inception pool3 at
+    rtol 2e-3, atol 2e-4 (upscale and downscale to 299), LPIPS within 1e-5."""
+    import warnings
+
+    from rcot_torch.metrics import inception, lpips
+
+    gen = torch.Generator().manual_seed(7)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        inc = {d: inception.InceptionV3(device=d) for d in ("cuda", "cpu")}
+        lp = {d: lpips.LPIPS(device=d) for d in ("cuda", "cpu")}
+    for shape in ((2, 96, 80, 3), (1, 320, 331, 3)):
+        x = torch.rand(*shape, generator=gen)
+        got, want = (inception.inception_pool3(inc[d], x).cpu() for d in ("cuda", "cpu"))
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-4)
+    x, y = torch.rand(2, 2, 64, 72, 3, generator=gen)
+    got, want = (lpips.lpips(lp[d], x, y).cpu() for d in ("cuda", "cpu"))
+    assert float((got - want).abs().max()) <= 1e-5

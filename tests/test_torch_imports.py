@@ -35,6 +35,10 @@ def test_the_check_sees_the_port():
             "rcot_torch/train/trainer.py", "rcot_torch/cli/train.py",
             "rcot_torch/utils/checkpoint.py", "rcot_torch/data/pipeline.py",
             "rcot_torch/ops/mdta.py", "rcot_torch/ops/dwconv.py",
-            "chip_smoke.py"} <= names
+            "rcot_torch/cli/eval_all.py", "rcot_torch/cli/fid.py",
+            "rcot_torch/metrics/inception.py", "rcot_torch/metrics/lpips.py",
+            "rcot_torch/metrics/niqe.py", "rcot_torch/metrics/frechet.py",
+            "rcot_torch/data/eval_datasets.py", "rcot_torch/train/schedulers.py",
+            "rcot_torch/ops/edges.py", "chip_smoke.py"} <= names
     assert list(_imported_roots(ast.parse("def f():\n    from jax import numpy\n"))) == [
         ("jax", 2)]
