@@ -67,6 +67,18 @@ Phases (any failure exits non-zero; nothing is caught):
      Gram's and dattn's pixel sums against float64 (`sum_rel_err`); split
      one 256 px forward into its four kernels (each timed at every block
      shape, times the blocks at that shape) and the rest;
+  5b. serve in bf16 (make_restorer(dtype=torch.bfloat16), the JAX
+     package's make_restorer(dtype=jnp.bfloat16)): rows 1-4 in bf16
+     (block_head_bf16, block_tail_bf16, mdta_gram_fwd_bf16,
+     attn_apply_fwd_bf16) against their plain bf16 twins at every block
+     shape of a 256x256 forward, B = 1 and 2, and a head of 192 channels,
+     each bitwise against a second call (the share of elements not bitwise
+     equal to the twin printed); the full-width T_net at 256^2, batch 1 and
+     8, through restore_batch: 94 launches of each bf16 kernel per forward
+     and none of their fp32 forms, the outputs against the same weights in
+     bf16 on the CPU; bf16 and fp32 img/s at batch 1 and 8 in turns and the
+     peak memory at batch 8; rcot_torch.cli.test --dtype bfloat16 against a
+     CPU run; the bf16 kernels timed as phase 5 times the fp32 ones;
   6. train at full width: create_train_state(Config()) (T_net 46,853,150
      and F_net 30,588,609 parameters, seeded) in the JAX trainer's default
      composition, "tail"; three minimax iterations (make_train_iteration)
@@ -149,8 +161,10 @@ every pixel, is held against its float64 twin like the Gram; the
 depthwise backward's dtaps, a pixel sum, likewise. Every kernel sums in a
 fixed order and is held bitwise against a second call.
 
-Prints the kernels' JSON line (all sixteen kernels) and, last,
-{"ok": true, "device": {...}}.
+The bf16 phase's gates, and why they are what they are: the note above BF16_RTOL.
+
+Prints the kernels' JSON line (all twenty kernels: the sixteen fp32 ones
+and rows 1-4 in bf16) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -900,7 +914,7 @@ def phase_serve_opt_in(gen_np, net, card) -> dict:
 
 def check_launches(tag: str, launches: dict, want: dict) -> None:
     """Each kernel launched as often as `want` says, every other none."""
-    bad = {name: launches.get(name, 0) for name in KERNELS
+    bad = {name: launches.get(name, 0) for name in ALL_KERNELS
            if launches.get(name, 0) != want.get(name, 0)}
     if bad:
         raise AssertionError(f"{tag}: launches {bad}, want {want} and none of the others")
@@ -1174,6 +1188,254 @@ def forward_breakdown(gen, net, timings) -> dict:
         for name in composition_kernels("full", backward=False)} for key in ("ms", "device_ms"))
     return dict(forward_ms=fwd, kernels_ms=per_kernel, kernels_device_ms=per_kernel_device,
                 outside_kernels_ms=fwd - sum(per_kernel.values()))
+
+
+# ------------------------------------------------------------ bf16 serving
+
+# bf16 serving's kernels (rows 1-4 in bf16: csrc/block_fwd_bf16.cu,
+# csrc/gram_bf16.cu), counted apart from the fp32 rows
+BF16_KERNELS = {
+    "block_head_bf16": ("rcot_torch/csrc/block_fwd_bf16.cu", "rcot_tpu/ops/pallas_block.py:586"),
+    "block_tail_bf16": ("rcot_torch/csrc/block_fwd_bf16.cu", "rcot_tpu/ops/pallas_block.py:597"),
+    "mdta_gram_fwd_bf16": ("rcot_torch/csrc/gram_bf16.cu", "rcot_tpu/ops/pallas_gram.py:99"),
+    "attn_apply_fwd_bf16": ("rcot_torch/csrc/gram_bf16.cu", "rcot_tpu/ops/pallas_gram.py:178"),
+}
+ALL_KERNELS = {**KERNELS, **BF16_KERNELS}
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
+# Gates of the bf16 phase. A bf16 output of
+# a kernel rounds where its plain twin rounds, from fp32 sums taken in
+# another order: where a sum falls next to a rounding boundary the two
+# round apart, by one bf16 ulp there, and later stages carry that on. So a
+# bf16 output is held within BF16_RTOL * max(max|plain|, 1), four bf16 ulps
+# of the largest value (the share of elements that differ at all is
+# printed); the Gram's outputs are fp32 sums of exact products, held within
+# KERNEL_RTOL against the float64 twin as the fp32 rows are. The forward on
+# the card against the CPU (both bf16) is held, as the CPU tests hold the
+# port against the JAX package (tests/test_torch_bf16.py), to a quarter of
+# what bf16 changes on the mean: mean|card - CPU| <= mean|fp32 - bf16| / 4
+# (a flip that reaches the bf16 output makes its difference an ulp there,
+# about max|fp32 - bf16|, so the largest difference is held to BF16_RTOL
+# alone), and the CLI's per-image PSNR to BF16_PSNR_DB.
+BF16_RTOL = 2.0 ** -6
+BF16_PSNR_DB = 0.02
+BF16 = torch.bfloat16
+
+
+def bf16_block_inputs(p):
+    """Block inputs p in serving's bf16: activations and weights bf16, the
+    LayerNorm's fp32."""
+    return {k: v if v is None or k.startswith("ln_") else v.to(BF16) for k, v in p.items()}
+
+
+def check_bf16_out(name, got, want, errs) -> None:
+    """A bf16 kernel output against its plain twin within BF16_RTOL; keeps
+    the worst error and the share of elements not bitwise equal."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(float(want.float().abs().max()), 1.0)
+    worst = errs.setdefault(name.split()[0], {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                              "share_not_equal": 0.0})
+    worst["max_abs_err"] = max(worst["max_abs_err"], err)
+    worst["max_rel_err"] = max(worst["max_rel_err"], err / scale)
+    worst["share_not_equal"] = max(worst["share_not_equal"],
+                                   float((got != want).float().mean()))
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not err <= BF16_RTOL * scale:
+        raise AssertionError(f"{name}: max|err| {err:.3e} > {BF16_RTOL:g} * {scale:.3e}")
+
+
+def check_bf16_gram(name, gen, qkv, heads, errs) -> None:
+    """The bf16 Gram (fp32 outputs, against the float64 twin as the fp32
+    rows are) and apply on qkv against their twins, each bitwise against a
+    second call."""
+    gram, again = kgram.mdta_gram_fwd(qkv, heads), kgram.mdta_gram_fwd(qkv, heads)
+    torch.cuda.synchronize()
+    check(f"mdta_gram_fwd_bf16 {name}", gram, kgram.mdta_gram_plain(qkv.double(), heads), errs)
+    check_repeats(f"mdta_gram_fwd_bf16 {name}", gram, again)
+    ch = qkv.shape[-1] // 3 // heads
+    attn = torch.softmax(torch.randn(qkv.shape[0], heads, ch, ch, device="cuda",
+                                     generator=gen), -1)
+    out, again = kgram.attn_apply_fwd(qkv, attn), kgram.attn_apply_fwd(qkv, attn)
+    torch.cuda.synchronize()
+    check_bf16_out(f"attn_apply_fwd_bf16 {name}", out, kgram.attn_apply_plain(qkv, attn), errs)
+    check_repeats(f"attn_apply_fwd_bf16 {name}", (out,), (again,))
+
+
+def phase_bf16_kernels(gen) -> dict:
+    """Rows 1-4 in bf16 against their plain bf16 twins at every block shape
+    of a 256x256 forward, B = 1 and 2, and at a head of 192 channels, each
+    bitwise against a second call."""
+    errs: dict = {}
+    for label, res, c, heads in MAIN_SHAPES:
+        for b in (1, 2):
+            p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
+            tag = f"{label} B={b}"
+            for name, fn, plain, args in (
+                    ("block_head_bf16", kblock.block_head, kblock.block_head_plain,
+                     head_args(p)),
+                    ("block_tail_bf16", kblock.block_tail, kblock.block_tail_plain,
+                     tail_args(p))):
+                got, again = fn(*args), fn(*args)
+                torch.cuda.synchronize()
+                check_bf16_out(f"{name} {tag}", got, plain(*args), errs)
+                check_repeats(f"{name} {tag}", (got,), (again,))
+                if name == "block_head_bf16":
+                    qkv = got
+            check_bf16_gram(tag, gen, qkv, heads, errs)
+    # a head of 192 channels: two channel blocks of 96
+    qkv = torch.randn(1, 64, 64, 3 * 192, device="cuda", generator=gen).to(BF16)
+    check_bf16_gram("serve L3 one head ch=192", gen, qkv, 1, errs)
+    errs["mdta_gram_fwd_bf16"] = dict(zip(("max_abs_err", "max_rel_err"),
+                                          errs["mdta_gram_fwd_bf16"]))
+    log(f"bf16 kernels against their plain bf16 twins at the 16 block shapes and ch=192: "
+        f"{json.dumps(errs)}")
+    return errs
+
+
+def bf16_timings(gen, label, res, c, heads, b) -> dict:
+    """Rows 1-4 in bf16 at one block shape, as kernel_timings times the fp32
+    rows; the bound takes bf16 bytes and the products at the bf16
+    tensor-core rate (the stencils, LN and gate at the fp32 rate, the
+    larger of those times and the bytes' time); the library for rows 3-4 is
+    bmm on bf16 heads."""
+    n = res * res
+    p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
+    m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
+    qkv = kblock.block_head(*head_args(p))
+    attn = torch.softmax(torch.randn(b, heads, ch, ch, device="cuda", generator=gen), -1)
+
+    def heads_t(t, transpose):
+        t = t.reshape(b, n, heads, ch)
+        return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
+                ).reshape(bh, *((ch, n) if transpose else (n, ch))).contiguous()
+    qt, kn, vt = heads_t(qkv[..., :c], True), heads_t(qkv[..., c:2 * c], False), heads_t(
+        qkv[..., 2 * c:], True)
+    at = attn.reshape(bh, ch, ch).to(BF16)
+    w_head = 2 * (m * c + 9 * m) + 4 * 2 * c
+    w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
+    rows = {  # kernel, plain, library, product flops, other flops, bytes
+        "block_head_bf16": (lambda: kblock.block_head(*head_args(p)),
+                            lambda: kblock.block_head_plain(*head_args(p)), None,
+                            b * n * 2 * c * m, b * n * (18 * m + 8 * c),
+                            2 * b * n * (c + m) + w_head),
+        "block_tail_bf16": (lambda: kblock.block_tail(*tail_args(p)),
+                            lambda: kblock.block_tail_plain(*tail_args(p)), None,
+                            b * n * (2 * c * c + 6 * c * hid), b * n * (46 * hid + 10 * c),
+                            2 * 3 * b * n * c + w_tail),
+        "mdta_gram_fwd_bf16": (lambda: kgram.mdta_gram_fwd(qkv, heads),
+                               lambda: kgram.mdta_gram_plain(qkv, heads),
+                               lambda: torch.bmm(qt, kn),
+                               b * n * 2 * c * ch, b * n * 4 * c,
+                               2 * b * n * 2 * c + 4 * bh * (ch * ch + 2 * ch)),
+        "attn_apply_fwd_bf16": (lambda: kgram.attn_apply_fwd(qkv, attn),
+                                lambda: kgram.attn_apply_plain(qkv, attn),
+                                lambda: torch.bmm(at, vt),
+                                b * n * 2 * c * ch, 0,
+                                2 * 2 * b * n * c + 4 * bh * ch * ch),
+    }
+    out = {}
+    for name, (kern, plain, lib, mm_flops, flops, nbytes) in rows.items():
+        times = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": max(mm_flops / PEAK_BF16_FLOPS, flops / PEAK_FLOPS) * 1e3}
+        by = max(times, key=times.get)
+        dev, records = device_ms(kern)
+        out[name] = dict(shape=f"{label} {res}^2 C={c} heads={heads} B={b}",
+                         ms=cuda_ms(kern), device_ms=dev, device_records=records,
+                         sm_mhz=sm_clock_mhz(), plain_ms=cuda_ms(plain, iters=5),
+                         bound_ms=times[by], bound_by=by,
+                         library_ms=cuda_ms(lib) if lib else None,
+                         library_device_ms=device_ms(lib)[0] if lib else None)
+    return out
+
+
+def phase_bf16(gen, gen_np, net, card) -> dict:
+    """bf16 serving (make_restorer(dtype=torch.bfloat16), the JAX package's
+    make_restorer(dtype=jnp.bfloat16)): rows 1-4 in bf16 against their
+    twins; the full-width T_net at 256^2, batch 1 and 8, through
+    restore_batch, each kernel of rows 1-4 in bf16 launched 94 times a
+    forward and none of their fp32 forms, against the same weights in bf16
+    on the CPU within a quarter of max|fp32 - bf16|; bf16 and fp32 img/s at
+    batch 1 and 8 in turns and the peak memory at batch 8; cli.test
+    --dtype bfloat16 against a CPU run; the bf16 kernels' times."""
+    errs = phase_bf16_kernels(gen)
+    cfg = ModelConfig()
+    r16 = make_restorer(net, cfg, device="cuda", dtype=BF16)
+    r32 = make_restorer(net, cfg, device="cuda")
+    forwards = counting(r16)
+    imgs = [gen_np.uniform(0, 1, (256, 256, 3)).astype(np.float32) for _ in range(8)]
+
+    # ---- the main path of bf16 serving, counted
+    build.reset_launches()
+    out1 = r16.restore_batch(imgs[:1])
+    out8 = r16.restore_batch(imgs)
+    torch.cuda.synchronize()
+    launches, n_fwd = dict(build.LAUNCHES), forwards[0]
+    check_launches("serving bf16", launches,
+                   {name: FORWARD_LAUNCHES * n_fwd for name in BF16_KERNELS})
+    log(f"serving bf16: {n_fwd} two-pass forwards, launches {launches}")
+    for o in out1 + out8:
+        if o.shape != (256, 256, 3) or not np.isfinite(o).all():
+            raise AssertionError(f"bad bf16 output {o.shape}")
+
+    # ---- against the same weights in bf16 on the CPU
+    cpu_net = TNet(cfg, device="cpu", seed=None).eval()
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    cpu16 = make_restorer(cpu_net, cfg, device="cpu", dtype=BF16)
+    vs_cpu = {}
+    for tag, (img, got) in {"batch 1": (imgs[0], out1[0]),
+                            "batch 8, image 5": (imgs[5], out8[5])}.items():
+        ref = cpu16.restore_batch([img])[0]
+        gap = np.abs(r32.restore_batch([img])[0] - ref)
+        err = np.abs(got - ref)
+        vs_cpu[tag] = row = {"mean_abs_err": float(err.mean()), "mean_fp32_bf16_gap": float(
+            gap.mean()), "max_abs_err": float(err.max()), "max_fp32_bf16_gap": float(gap.max()),
+            "share_not_equal": float((err > 0).mean())}
+        log(f"bf16 card vs CPU 256^2 {tag}: {json.dumps(row)}")
+        if not (row["mean_abs_err"] <= row["mean_fp32_bf16_gap"] / 4
+                and row["max_abs_err"] <= BF16_RTOL * max(float(np.abs(ref).max()), 1.0)):
+            raise AssertionError(f"bf16 card vs CPU {tag}: {row}")
+    del cpu16, cpu_net
+
+    # ---- img/s in turns, fp32 and bf16, and the peak memory at batch 8
+    rate = {"fp32": {1: [], 8: []}, "bf16": {1: [], 8: []}}
+    peak = {}
+    for tag in ("fp32", "bf16", "bf16", "fp32"):
+        r = r16 if tag == "bf16" else r32
+        rate[tag][1].append(images_per_sec(r, gen_np, 1, 10))
+        torch.cuda.reset_peak_memory_stats()
+        rate[tag][8].append(images_per_sec(r, gen_np, 8, 3))
+        peak[tag] = torch.cuda.max_memory_allocated()
+    log(f"256px restore_batch, in turns fp32/bf16/bf16/fp32: {json.dumps(rate)}, "
+        f"peak memory at batch 8 {json.dumps(peak)} ({card})")
+
+    # ---- cli.test --dtype bfloat16 on the card against the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        write_eval_tree(tmp, seed=8, n=2, size=(256, 256))
+        ckpt = os.path.join(tmp, "tnet.pt")
+        torch.save({k: v.cpu() for k, v in net.state_dict().items()}, ckpt)
+        argv = ["--ckpt", ckpt, "--degset", f"{tmp}/paired/input/", "--tarset",
+                f"{tmp}/paired/target/", "--dtype", "bfloat16"]
+        build.reset_launches()
+        card_psnr = printed_psnrs(run_cli(test_cli.main, argv)[1])
+        cli_launches = dict(build.LAUNCHES)
+        cpu_psnr = printed_psnrs(run_cli(test_cli.main, argv + ["--device", "cpu"])[1])
+    if not card_psnr or card_psnr.keys() != cpu_psnr.keys():
+        raise AssertionError(f"cli.test --dtype bfloat16: {card_psnr} against {cpu_psnr}")
+    if not all(n % FORWARD_LAUNCHES == 0 and n > 0 for n in cli_launches.values()) or set(
+            cli_launches) != set(BF16_KERNELS):
+        raise AssertionError(f"cli.test --dtype bfloat16 launched {cli_launches}")
+    psnr_gap = max(abs(card_psnr[k] - cpu_psnr[k]) for k in card_psnr)
+    log(f"cli.test --dtype bfloat16 per-image PSNR, card {card_psnr}, CPU {cpu_psnr}: "
+        f"max gap {psnr_gap:.4f} dB")
+    if not psnr_gap <= BF16_PSNR_DB:
+        raise AssertionError(f"cli.test bf16 PSNR gap {psnr_gap} dB > {BF16_PSNR_DB}")
+
+    timings = {label: bf16_timings(gen, label, res, c, heads, 1)
+               for label, res, c, heads in MAIN_SHAPES}
+    return dict(errs=errs, launches=launches, n_fwd=n_fwd, vs_cpu=vs_cpu,
+                img_per_s=rate, batch8_max_memory_allocated=peak, cli_psnr_gap_db=psnr_gap,
+                cli_launches=cli_launches, timings=timings, card=card)
 
 
 # ------------------------------------------------------------ training
@@ -2067,6 +2329,9 @@ def main() -> int:
     timings = {label: kernel_timings(gen, label, res, c, heads, 1, serve_kernels)
                for label, res, c, heads in MAIN_SHAPES}
     breakdown = forward_breakdown(gen, model["net"], timings)
+    # bf16 serving, on inputs of its own, timed before the training phases
+    bf16 = phase_bf16(torch.Generator(device="cuda").manual_seed(9), np.random.default_rng(9),
+                      model["net"], card)
     del model["restorer"], model["net"]
     # the training shapes are timed before the training phases, on inputs of
     # their own: after those phases the profiler loses device records
@@ -2122,7 +2387,17 @@ def main() -> int:
         elif name == "dwconv3x3_dtaps":
             entry.update(width="qkv (3C)")
         kernels.append(entry)
-    for tag, tt in (("serve", timings), ("train", train_timings)):
+    for name, (source, replaces) in BF16_KERNELS.items():
+        l1, err = bf16["timings"]["L1"][name], bf16["errs"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=bf16["launches"][name], launches_counted_in="serve bf16", **err,
+            ms=l1["ms"], device_ms=l1["device_ms"], plain_ms=l1["plain_ms"],
+            bound_ms=l1["bound_ms"], bound_by=l1["bound_by"], library_ms=l1["library_ms"],
+            library_device_ms=l1["library_device_ms"], at=l1["shape"],
+            latent=bf16["timings"]["latent"][name]))
+    for tag, tt in (("serve", timings), ("train", train_timings),
+                    ("serve bf16", bf16["timings"])):
         for label in BLOCKS_PER_FORWARD:
             log(json.dumps({"shape": f"{tag} {label}", **{
                 name: {k: v for k, v in t.items() if k != "shape"}
@@ -2149,6 +2424,8 @@ def main() -> int:
                                    if "/" in k},
                                "clis": cli_opt},
                     "one_head_a_level": one_head,
+                    "bf16_serving_256px": {k: v for k, v in bf16.items()
+                                           if k not in ("timings", "errs")},
                     "eval_256px": evals,
                     "pixel_sum_drift_512_pixel_ranges": drift,
                     "gram_plain_fp32_vs_float64_rel_err": errs["gram_plain_fp32_rel"],

@@ -21,7 +21,8 @@ reference's SSIM, ssim_ref_single) beside the identity baseline
   partial results survive a later crash;
 - an item that fails (a shape mismatch, an unreadable file) is skipped,
   logged with its reason and counted in its row.
---dtype bfloat16 is not ported yet and stops the run by name.
+--dtype bfloat16 serves in bf16, in full/gram/fused alone (cli/test.py
+refuse_unported stops any other choice by name).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from ..data.eval_datasets import (DeblurTestDataset, DenoiseTestDataset,
 from ..metrics.quality import AverageMeter, psnr, ssim_ref_single
 from ..models.inference import make_restorer
 from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE
-from .test import load_state_dict, refuse_unported
+from .test import DTYPES, load_state_dict, refuse_unported
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,8 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "order (tester.py:55-58 semantics); repeatable")
     p.add_argument("--tile", type=int, default=0)
     p.add_argument("--tile-overlap", type=int, default=32)
-    p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="bfloat16 is not ported yet")
+    p.add_argument("--dtype", choices=list(DTYPES), default="float32",
+                   help="activation dtype (bfloat16: full/gram/fused only)")
     p.add_argument("--json-out", default=None, help="write the summary JSON here too")
     p.add_argument("--device", default="cuda")
     p.add_argument("--composition", default="full", choices=COMPOSITIONS,
@@ -173,7 +174,8 @@ def main(argv=None) -> int:
     sd, model_cfg = load_state_dict(args.ckpt)
     restorer = make_restorer(sd, model_cfg, tile=args.tile, tile_overlap=args.tile_overlap,
                              device=args.device, composition=args.composition,
-                             attention_core=args.attention_core, depthwise=args.depthwise)
+                             attention_core=args.attention_core, depthwise=args.depthwise,
+                             dtype=DTYPES[args.dtype])
     results = {}
     failed = 0
     for key, build in build_tasks(args):

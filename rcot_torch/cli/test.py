@@ -22,8 +22,10 @@ surrogate pristine model fit on a clean folder; images smaller than one
 96 px patch are skipped by name) and FID between --savetar and --save
 (--fid, cli/fid.py). Without a weights file the LPIPS and Inception nets
 use the JAX package's crc32-seeded surrogates, whose scores compare only
-with each other. Flags of paths not ported yet (--dtype bfloat16,
---backbone mprnet, --sr-scale, --spatial) stop the run by name.
+with each other. --dtype bfloat16 serves in bf16 (models/inference.py
+make_restorer), in the default full/gram/fused only. Flags of paths not
+ported yet (--backbone mprnet, --sr-scale, --spatial, and bf16 with another
+--composition, --attention-core or --depthwise) stop the run by name.
 """
 
 from __future__ import annotations
@@ -41,8 +43,11 @@ from ..metrics import niqe as niqe_mod
 from ..metrics.lpips import LPIPS, lpips as lpips_dist
 from ..metrics.quality import AverageMeter, psnr, ssim_ref_single
 from ..models.inference import make_restorer
-from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE
+from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE, check_bf16
 from ..utils.config import EvalConfig, ModelConfig
+
+# --dtype: the activation dtype a restorer serves in
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,8 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="NIQE pristine-model params (.mat/.npz) or 'fit:<folder>' "
                         "to fit a surrogate from a clean folder; reports the mean "
                         "no-reference NIQE of the restored outputs")
-    p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="bfloat16 is not ported yet")
+    p.add_argument("--dtype", choices=list(DTYPES), default="float32",
+                   help="activation dtype (bfloat16: full/gram/fused only)")
     p.add_argument("--backbone", choices=["auto", "restormer", "mprnet"], default="auto",
                    help="T_net backbone (mprnet is not ported yet)")
     p.add_argument("--sr-scale", type=int, default=0,
@@ -93,9 +98,14 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args: argparse.Namespace) -> None:
     """The JAX tester's flags whose paths this package does not have yet
     (ROADMAP.md, Queue 1) stop the run instead of being ignored. Also
-    cli.eval_all's, whose parser has only --dtype of them."""
+    cli.eval_all's, whose parser has only --dtype of them: bf16 serves in
+    full/gram/fused alone (ops/dispatch.py check_bf16)."""
+    if args.dtype == "bfloat16":
+        try:
+            check_bf16(args.composition, args.attention_core, args.depthwise)
+        except NotImplementedError as e:
+            raise SystemExit(f"--dtype bfloat16: {e}") from None
     unported = [
-        (args.dtype == "bfloat16", "--dtype bfloat16", "bf16 activations (item 4)"),
         (getattr(args, "backbone", "auto") == "mprnet", "--backbone mprnet",
          "the MPRNet backbone (item 6)"),
         (getattr(args, "sr_scale", 0) > 0, "--sr-scale", "the legacy SR mode (item 6)"),
@@ -147,7 +157,8 @@ def main(argv=None) -> None:
     restorer = make_restorer(sd, model_cfg, tile=args.tile,
                              tile_overlap=args.tile_overlap, device=args.device,
                              composition=args.composition,
-                             attention_core=args.attention_core, depthwise=args.depthwise)
+                             attention_core=args.attention_core, depthwise=args.depthwise,
+                             dtype=DTYPES[args.dtype])
 
     rng = np.random.default_rng(args.seed)
     p_meter, s_meter = AverageMeter(), AverageMeter()

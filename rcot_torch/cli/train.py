@@ -118,7 +118,8 @@ def _refuse_unported(args: argparse.Namespace) -> None:
          or args.process_id is not None,
          "--coordinator/--num-processes/--process-id", "multi-process training"),
         (args.backbone == "mprnet", "--backbone mprnet", "the MPRNet backbone"),
-        (args.dtype == "bfloat16", "--dtype bfloat16", "bf16 activations"),
+        (args.dtype == "bfloat16", "--dtype bfloat16",
+         "bf16 training (the part of item 4 left after bf16 serving)"),
         (args.pretrained is not None, "--pretrained",
          "porting a reference .pth (it needs the reference-weights port)"),
     ]

@@ -44,6 +44,13 @@
 // order and stores them to a workspace, and dwconv_reduce_kernel adds the
 // blocks' partials in a fixed order: no atomics, no memset, the same bits
 // on every call. No grid index needs a 64-bit division.
+//
+// bf16 (serving's bf16 block forward, block_fwd_bf16.cu): the forward also
+// takes a bf16 x and bf16 taps (rcot_dwconv::conv_bf16), staged as bf16 in
+// the same ring (copies of V = 8, 4 or 2 bf16: 16, 8 or 4 bytes), and
+// accumulates in fp32 in the same order, writing fp32 (the tail's conv,
+// which its gate reads unrounded, as the JAX kernel's) or bf16 (the head's
+// qkv). The fp32 kernels keep their code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,21 +65,27 @@ constexpr int kStages = 4;       // depth of the forward's cp.async ring of x ro
 constexpr int kDtapsStages = 4;  // and of dtaps's ring of x and g rows
 constexpr int kMaxVectors = 32;
 
-// dst <- V floats at src, or zeros where !in (the source is not read);
+// dst <- V elements at src, or zeros where !in (the source is not read);
 // L2 fetches the 256 bytes around src
-template <int V>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in) {
+template <int V, typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool in) {
+  constexpr int B = V * (int)sizeof(T);
   const uint32_t to = smem_addr(dst);
-  if constexpr (V == 4)
+  if constexpr (B == 16)
     asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src),
                  "r"(in ? 16 : 0));
   else
     asm volatile("cp.async.ca.shared.global.L2::256B [%0], [%1], %2, %3;\n" ::"r"(to), "l"(src),
-                 "n"(4 * V), "r"(in ? 4 * V : 0));
+                 "n"(B), "r"(in ? B : 0));
 }
 template <int V>
 __device__ __forceinline__ void load_vec(float (&d)[V], const float* p) {
-  if constexpr (V == 4) {
+  if constexpr (V == 8) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    const float4 w = *reinterpret_cast<const float4*>(p + 4);
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w, d[4] = w.x, d[5] = w.y, d[6] = w.z,
+    d[7] = w.w;
+  } else if constexpr (V == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
   } else if constexpr (V == 2) {
@@ -82,15 +95,56 @@ __device__ __forceinline__ void load_vec(float (&d)[V], const float* p) {
     d[0] = *p;
   }
 }
+// V (8, 4 or 2) bf16 as floats; pairs of bf16 lie in 32-bit words
+template <int V>
+__device__ __forceinline__ void load_vec(float (&d)[V], const bf16* p) {
+  static_assert(V % 2 == 0, "bf16 vectors are pairs");
+  uint32_t w[V / 2];
+  if constexpr (V == 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else if constexpr (V == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    d[2 * i] = f.x, d[2 * i + 1] = f.y;
+  }
+}
 
 template <int V>
 __device__ __forceinline__ void store_vec(float* p, const float (&d)[V]) {
-  if constexpr (V == 4)
+  if constexpr (V == 8) {
     *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
-  else if constexpr (V == 2)
+    *reinterpret_cast<float4*>(p + 4) = make_float4(d[4], d[5], d[6], d[7]);
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  } else if constexpr (V == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
-  else
+  } else {
     *p = d[0];
+  }
+}
+// V (8, 4 or 2) floats rounded to bf16, stored in pairs
+template <int V>
+__device__ __forceinline__ void store_vec(bf16* p, const float (&d)[V]) {
+  static_assert(V % 2 == 0, "bf16 vectors are pairs");
+  uint32_t w[V / 2];
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(d[2 * i], d[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  if constexpr (V == 8)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (V == 4)
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint32_t*>(p) = w[0];
 }
 
 // Where a block sits and what each of its threads copies. Thread t owns
@@ -98,7 +152,8 @@ __device__ __forceinline__ void store_vec(float* p, const float (&d)[V]) {
 // is (tc + 2) columns from x0 - 1 by cv vectors; piece i of it (column
 // i / cv, vector i % cv) is copied by thread i % (tc cv), so each thread
 // copies at most three (tc >= 1), at the same offsets in every row.
-template <int V>
+// Offsets count elements of T, the type of x.
+template <int V, typename T = float>
 struct Tile {
   int H, W, C, x0, c0, b, y0, n_out, j, v;
   long long row;  // floats per image row
@@ -127,10 +182,10 @@ struct Tile {
   }
 
   // x row y0 - 1 + r (zeros outside the image) into `dst`
-  __device__ __forceinline__ void stage_x(float* dst, const float* img, int r) const {
+  __device__ __forceinline__ void stage_x(T* dst, const T* img, int r) const {
     const int y = y0 - 1 + r;
     const bool in_row = y >= 0 && y < H;
-    const float* src = img + (in_row ? y * row : 0);
+    const T* src = img + (in_row ? y * row : 0);
 #pragma unroll
     for (int k = 0; k < 3; ++k)
       if (s_off[k] >= 0) cp_async<V>(dst + s_off[k], src + g_off[k], in_row && ok[k]);
@@ -141,18 +196,22 @@ struct Tile {
   }
 };
 
-// The forward (ROT false) or dx (ROT true: taps rotated by 180 degrees).
-template <int V, bool ROT>
+// The forward (ROT false) or dx (ROT true: taps rotated by 180 degrees);
+// x and taps of type TI, out of type TO (float, or bf16 in and fp32 or
+// bf16 out), fp32 arithmetic.
+template <int V, bool ROT, typename TI = float, typename TO = float>
 __global__ void __launch_bounds__(kThreads)
-dwconv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
-                 float* __restrict__ out, int H, int W, int C, int cv, int tc, int rows,
+dwconv3x3_kernel(const TI* __restrict__ x, const TI* __restrict__ taps,
+                 TO* __restrict__ out, int H, int W, int C, int cv, int tc, int rows,
                  int bands) {
   extern __shared__ __align__(16) float smem[];
-  const Tile<V> t(H, W, C, cv, tc, rows, bands);
+  const Tile<V, TI> t(H, W, C, cv, tc, rows, bands);
   const int nt = tc * cv, cw = cv * V, ld = (tc + 2) * cw;
-  float* ring = smem;
-  float* s_taps = smem + kStages * ld;  // 9 rows of cw floats, tap-major
-  const float* img = x + (long long)t.b * H * t.row;
+  TI* ring = reinterpret_cast<TI*>(smem);
+  // 9 rows of cw floats, tap-major, past the ring (16-byte aligned: cw is
+  // even in bf16)
+  float* s_taps = reinterpret_cast<float*>(ring + kStages * ld);
+  const TI* img = x + (long long)t.b * H * t.row;
   const int n_in = t.n_out + 2;
 
 #pragma unroll
@@ -163,15 +222,15 @@ dwconv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
   // the chunk's taps: 9 * cc contiguous floats, read once, coalesced
   const int cc = min(cw, C - t.c0);
   for (int f = threadIdx.x; f < 9 * cc; f += nt)
-    s_taps[(f % 9) * cw + f / 9] = taps[9LL * t.c0 + f];
+    s_taps[(f % 9) * cw + f / 9] = to_f(taps[9LL * t.c0 + f]);
   __syncthreads();
   float w[9][V];
 #pragma unroll
   for (int k = 0; k < 9; ++k) load_vec<V>(w[ROT ? 8 - k : k], s_taps + k * cw + t.v * V);
 
   const bool active = t.active();
-  float* dst = out + (long long)t.b * H * t.row + (long long)t.y0 * t.row + (t.x0 + t.j) * C +
-               t.c0 + t.v * V;
+  TO* dst = out + (long long)t.b * H * t.row + (long long)t.y0 * t.row + (t.x0 + t.j) * C +
+            t.c0 + t.v * V;
   // acc0, acc1, acc2: output rows y + 1, y, y - 1 of input row y
   float acc0[V], acc1[V], acc2[V];
 #pragma unroll
@@ -182,7 +241,7 @@ dwconv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
     if (r + kStages - 1 < n_in) t.stage_x(ring + ((r + kStages - 1) % kStages) * ld, img,
                                          r + kStages - 1);
     cp_commit();
-    const float* s = ring + (r % kStages) * ld + (t.j * cv + t.v) * V;
+    const TI* s = ring + (r % kStages) * ld + (t.j * cv + t.v) * V;
     float l[V], m[V], rt[V];
     load_vec<V>(l, s);
     load_vec<V>(m, s + cw);
@@ -313,9 +372,10 @@ dwconv_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out, int 
   out[e] = sum;
 }
 
-bool bad_plan(int C, int vec, int cv, int tc, int rows) {
-  return !(vec == 1 || vec == 2 || vec == 4) || C % vec != 0 || cv < 1 || cv > kMaxVectors ||
-         tc < 1 || tc * cv > kThreads || rows < 1;
+bool bad_plan(int C, int vec, int cv, int tc, int rows, bool bf16 = false) {
+  const bool vec_ok = bf16 ? vec == 2 || vec == 4 || vec == 8 : vec == 1 || vec == 2 || vec == 4;
+  return !vec_ok || C % vec != 0 || cv < 1 || cv > kMaxVectors || tc < 1 ||
+         tc * cv > kThreads || rows < 1;
 }
 
 dim3 grid_of(int B, int H, int W, int C, int vec, int cv, int tc, int rows) {
@@ -323,8 +383,10 @@ dim3 grid_of(int B, int H, int W, int C, int vec, int cv, int tc, int rows) {
   return dim3((unsigned)((W + tc - 1) / tc), (unsigned)chunks, (unsigned)(B * bands));
 }
 
+// the ring of x rows (elements of TI) and the taps (floats)
+template <typename TI = float>
 size_t fwd_smem(int vec, int cv, int tc) {
-  return sizeof(float) * (kStages * (tc + 2) + 9) * cv * vec;
+  return (sizeof(TI) * kStages * (tc + 2) + sizeof(float) * 9) * cv * vec;
 }
 
 size_t dtaps_smem(int vec, int cv, int tc) {
@@ -332,12 +394,23 @@ size_t dtaps_smem(int vec, int cv, int tc) {
   return sizeof(float) * (ring > red ? ring : red);
 }
 
-template <int V, bool ROT>
-void launch_fwd(const float* x, const float* taps, float* out, int B, int H, int W, int C,
+template <int V, bool ROT, typename TI = float, typename TO = float>
+void launch_fwd(const TI* x, const TI* taps, TO* out, int B, int H, int W, int C,
                 int cv, int tc, int rows, cudaStream_t st) {
-  dwconv3x3_kernel<V, ROT><<<grid_of(B, H, W, C, V, cv, tc, rows), tc * cv,
-                             fwd_smem(V, cv, tc), st>>>(x, taps, out, H, W, C, cv, tc, rows,
-                                                        (H + rows - 1) / rows);
+  dwconv3x3_kernel<V, ROT, TI, TO><<<grid_of(B, H, W, C, V, cv, tc, rows), tc * cv,
+                                     fwd_smem<TI>(V, cv, tc), st>>>(x, taps, out, H, W, C, cv,
+                                                                    tc, rows,
+                                                                    (H + rows - 1) / rows);
+}
+
+// the bf16 forward with V bf16 a copy, into fp32 or bf16
+template <int V>
+void launch_fwd_bf16(const bf16* x, const bf16* taps, void* out, bool out_bf16, int B, int H,
+                     int W, int C, int cv, int tc, int rows, cudaStream_t st) {
+  if (out_bf16)
+    launch_fwd<V, false>(x, taps, static_cast<bf16*>(out), B, H, W, C, cv, tc, rows, st);
+  else
+    launch_fwd<V, false>(x, taps, static_cast<float*>(out), B, H, W, C, cv, tc, rows, st);
 }
 
 template <int V>
@@ -370,6 +443,19 @@ cudaError_t conv(const float* x, const float* taps, float* out, int B, int H, in
   else
     rot ? launch_fwd<1, true>(x, taps, out, B, H, W, C, cv, tc, rows, st)
         : launch_fwd<1, false>(x, taps, out, B, H, W, C, cv, tc, rows, st);
+  return cudaGetLastError();
+}
+
+cudaError_t conv_bf16(const bf16* x, const bf16* taps, void* out, bool out_bf16, int B, int H,
+                      int W, int C, int vec, int cv, int tc, int rows, cudaStream_t st) {
+  if ((long long)B * H * W * C == 0) return cudaSuccess;
+  if (bad_plan(C, vec, cv, tc, rows, true)) return cudaErrorInvalidValue;
+  if (vec == 8)
+    launch_fwd_bf16<8>(x, taps, out, out_bf16, B, H, W, C, cv, tc, rows, st);
+  else if (vec == 4)
+    launch_fwd_bf16<4>(x, taps, out, out_bf16, B, H, W, C, cv, tc, rows, st);
+  else
+    launch_fwd_bf16<2>(x, taps, out, out_bf16, B, H, W, C, cv, tc, rows, st);
   return cudaGetLastError();
 }
 
@@ -418,6 +504,19 @@ int rcot_dwconv3x3_blocks_per_sm(int vec, int cv, int tc, int dtaps, int* blocks
   return vec == 4   ? occupancy(blocks, dwconv3x3_kernel<4, false>, n, smem)
          : vec == 2 ? occupancy(blocks, dwconv3x3_kernel<2, false>, n, smem)
                     : occupancy(blocks, dwconv3x3_kernel<1, false>, n, smem);
+}
+
+// Blocks of tc * cv threads of the bf16 forward (V = vec bf16 a copy)
+// into bf16 (out_bf16) or fp32 that one SM of the current device holds.
+int rcot_dwconv3x3_bf16_blocks_per_sm(int vec, int cv, int tc, int out_bf16, int* blocks) {
+  if (bad_plan(8, vec, cv, tc, 1, true)) return cudaErrorInvalidValue;
+  const int n = tc * cv;
+  const size_t smem = fwd_smem<bf16>(vec, cv, tc);
+#define RCOT_OCC(V)                                                                      \
+  (out_bf16 ? occupancy(blocks, dwconv3x3_kernel<V, false, bf16, bf16>, n, smem)         \
+            : occupancy(blocks, dwconv3x3_kernel<V, false, bf16, float>, n, smem))
+  return vec == 8 ? RCOT_OCC(8) : vec == 4 ? RCOT_OCC(4) : RCOT_OCC(2);
+#undef RCOT_OCC
 }
 
 // x, g (B, H, W, C) -> dtaps (C, 3, 3) (rcot_dwconv::dtaps)

@@ -1,10 +1,12 @@
 // The depthwise 3x3 kernels of dwconv.cu (row 11), for other kernels'
-// launchers: block_bwd.cu runs its three depthwise stages through them.
+// launchers: block_bwd.cu runs its three depthwise stages through them,
+// block_fwd_bf16.cu its bf16 forward.
 // The plan (vec, cv, tc, rows) is ops/dwconv.py's dwconv_plan, made in
 // Python and passed in; both launch on `st` and return the launch's error.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace rcot_dwconv {
@@ -14,6 +16,12 @@ namespace rcot_dwconv {
 // not alias x; x and out 4 * vec-byte aligned.
 cudaError_t conv(const float* x, const float* taps, float* out, int B, int H, int W, int C,
                  int vec, int cv, int tc, int rows, bool rot, cudaStream_t st);
+
+// conv on bf16 x and taps (vec = 8, 4 or 2 bf16 a copy), fp32 sums,
+// into out: bf16 where out_bf16, else fp32.
+cudaError_t conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* taps, void* out,
+                      bool out_bf16, int B, int H, int W, int C, int vec, int cv, int tc,
+                      int rows, cudaStream_t st);
 
 // dtaps[c, i, j] = sum over pixels of g[b, y, x, c] x[b, y + i - 1, x + j - 1, c],
 // through the workspace ws of ops/dwconv.py dtaps_workspace_numel floats,

@@ -1,0 +1,509 @@
+// MDTA attention core forward in bf16 for Hopper (sm_90a): serving's bf16
+// path (make_restorer(dtype=torch.bfloat16)).
+//
+// Replaces the TPU kernels of rcot_tpu/ops/pallas_gram.py as the JAX
+// package runs them on a bf16 qkv:
+//
+//   mdta_gram (mdta_gram_fwd, pallas_gram.py:99, pallas_call at :106):
+//       per (b, head h):  G = q^T k,  nq = sum q^2,  nk = sum k^2, in fp32
+//       (the kernel upcasts qkv, :81; a bf16 product is exact in fp32, so
+//       bf16 operands with fp32 sums are the same arithmetic);
+//   attn_apply (attn_apply_fwd, pallas_gram.py:178, pallas_call at :185):
+//       out[pixel, h*ch + c] = bf16(sum_d v[pixel, h*ch + d] bf16(attn[b, h, c, d]))
+//       (attn, fp32 from the glue, rounded to bf16 as :171 casts it; fp32
+//       sums; the result rounded once).
+//
+// Bounds on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores):
+// per pixel the Gram reads 2C bf16 (4C bytes) against 2 C ch flops, the
+// apply reads C and writes C bf16 (4C bytes) against 2 C ch: both bound by
+// their bytes at every head width the model has.
+//
+// Design: gram.cu's plans and grids (ops/gram.py gram_pairs_plan,
+// apply_plan; channel blocks of at most 128 for wider heads, gram.cuh), on
+// bf16 tiles staged by cp.async (16- or 4-byte copies, or 2-byte loads
+// where a head's rows are only 2-byte aligned) and mma.sync m16n8k16 with
+// fp32 accumulation, fragments by ldmatrix (transposed for the Gram, whose
+// q and k tiles lie pixel-major and are summed over pixels).
+//   - gram_bf16_kernel: a block sums one of gram_plan's pixel ranges of a
+//     (b, head, block pair); its warps split the G tiles and the pixels of
+//     each stage, and each stage's products start from zero and join the
+//     running sums in IEEE fp32 (mm.cuh's note on a long mma chain); the
+//     sums of squares are per-thread fp32 sums over a channel's pixels. The
+//     warps' partials are added in shared memory in a fixed order, and a
+//     split (b, head) adds its ranges in gram.cuh's fixed-order reduce.
+//   - apply_bf16_kernel: runs of 128-pixel tiles, each warp 16 rows and all
+//     columns, attn staged once per (b, h) a block meets, rounded to bf16;
+//     out leaves in bf16 from the accumulators, or, for a head cut into
+//     channel blocks, as fp32 parts in nb slots that sum_slots_bf16 adds in
+//     order and rounds.
+// No atomics and no memsets: two calls on the same input give the same bits.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gram.cuh"
+#include "tc.cuh"
+
+namespace {
+
+constexpr int kStagesBf = 3;   // the Gram's cp.async ring
+constexpr int kApplyTPBf = 128;  // pixels per apply tile: eight warps of 16 rows
+
+// Rows [p0, p0 + rows) of a head slice (row r at src + r * stride, w bf16)
+// into a tile of pitch ld; rows at or past `end` are zero-filled. V bf16 a
+// copy (8: 16 bytes, 2: 4 bytes, 1: a load by the thread); V divides w.
+template <int V>
+__device__ __forceinline__ void stage_rows_bf16(bf16* dst, int ld, const bf16* src,
+                                                long long stride, long long p0, long long end,
+                                                int rows, int w) {
+  const int per_row = w / V;
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * V;
+    const bool in = p0 + r < end;
+    const bf16* from = src + (in ? (p0 + r) * stride : 0) + c;
+    bf16* to = dst + r * ld + c;
+    if constexpr (V == 1)
+      *to = in ? *from : __float2bfloat16_rn(0.f);
+    else
+      cp_async_bytes<2 * V>(to, from, in);
+  }
+}
+
+// The Gram at channel-block width <= 16R: G (16R x 16R, zero-padded) in
+// 16 x 8 mma tiles, R row tiles by 2R column tiles; the eight warps split
+// the tiles (WTM x WTN) and the 16-pixel steps of each stage (WK groups);
+// each warp holds MW x NW tiles in registers.
+template <int R>
+struct GramBf {
+  static constexpr int CHP = 16 * R;
+  static constexpr int LD = CHP + 8;  // bf16 pitch: ldmatrix's 16-byte rows hit 32 banks
+  static constexpr int MT = R, NT = 2 * R;
+  static constexpr int WK = R <= 2 ? 8 : (R <= 4 ? 4 : 1);
+  static constexpr int WTM = R <= 4 ? 1 : 2;
+  static constexpr int WTN = R <= 2 ? 1 : (R <= 4 ? 2 : 4);
+  static constexpr int MW = (MT + WTM - 1) / WTM, NW = (NT + WTN - 1) / WTN;
+  static constexpr int KS = R <= 4 ? 1 : 2;      // 16-pixel steps per warp and stage
+  static constexpr int TP = 16 * WK * KS;        // pixels per stage
+  static constexpr int STAGE = 2 * TP * LD;      // q tile, k tile (bf16)
+  static constexpr int G = kThreads / CHP;       // threads a channel, for the squares
+  static constexpr int RP = CHP + 1;             // pitch of a partial G
+  static constexpr int E = CHP * RP + 2 * CHP;   // one warp group's partial (floats)
+  static constexpr int RED = WK * E + 2 * G * CHP;
+  static constexpr int RING = (kStagesBf * STAGE * 2 + 3) / 4;  // in floats
+  static constexpr int FLOATS = RING > RED ? RING : RED;
+  static_assert(WK * WTM * WTN == kThreads / 32, "eight warps");
+  static_assert(G >= 1, "a thread per channel at least");
+};
+
+// Block (s, bh, i * nb + j) sums G_ij, nq and nk over pixels [s * per,
+// (s + 1) * per) of (b, h), as gram.cu's gram_fwd_kernel, from bf16 qkv.
+template <int R, int V>
+__global__ void __launch_bounds__(kThreads)
+gram_bf16_kernel(const bf16* __restrict__ qkv, float* __restrict__ g_out,
+                 float* __restrict__ nq_out, float* __restrict__ nk_out, long long g_stride,
+                 long long n_stride, long long hw, int heads, int ch, int cb, int splits,
+                 long long per) {
+  using Cfg = GramBf<R>;
+  constexpr int LD = Cfg::LD, TP = Cfg::TP, CHP = Cfg::CHP, MW = Cfg::MW, NW = Cfg::NW;
+  extern __shared__ __align__(16) float smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int s = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / heads, h = bh - b * heads;
+  const Pair pr = pair_of<true>(blockIdx.z, ch, cb);
+  const int pi = pr.i, pj = pr.j, wi = pr.wi, wj = pr.wj;
+  const long long C = (long long)heads * ch, stride = 3 * C;
+  const long long begin = s * per;
+  const long long end = begin + per < hw ? begin + per : hw;
+  const bf16* head = qkv + (long long)b * hw * stride + (long long)h * ch;
+  const bf16* q_rows = head + pi * cb;
+  const bf16* k_rows = head + C + pj * cb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wk = warp % Cfg::WK, wt = warp / Cfg::WK;
+  const int wm = wt / Cfg::WTN, wn = wt % Cfg::WTN;
+  bool use_m[MW], use_n[NW];
+#pragma unroll
+  for (int i = 0; i < MW; ++i) use_m[i] = Cfg::MT % Cfg::WTM == 0 || wm * MW + i < Cfg::MT;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) use_n[j] = Cfg::NT % Cfg::WTN == 0 || wn * NW + j < Cfg::NT;
+  // the squares: thread (c, g) sums channel c over pixels g, g + G, ...
+  const int sq_c = tid % CHP, sq_g = tid / CHP;
+  const bool sq_on = sq_g < Cfg::G;
+
+  // the copies never write columns [wi, LD) of a q row or [wj, LD) of a k row
+  const int wmin = wi < wj ? wi : wj, pad = LD - wmin;
+  for (int i = tid; i < kStagesBf * 2 * TP * pad; i += kThreads) {
+    const int r = i / pad, c = wmin + (i - r * pad);
+    if (c >= ((r / TP) & 1 ? wj : wi)) ring[r * LD + c] = __float2bfloat16_rn(0.f);
+  }
+  const int n_tiles = (int)((end - begin + TP - 1) / TP);
+  auto load = [&](int t) {
+    bf16* dst = ring + (t % kStagesBf) * Cfg::STAGE;
+    const long long p0 = begin + (long long)t * TP;
+    stage_rows_bf16<V>(dst, LD, q_rows, stride, p0, end, TP, wi);
+    stage_rows_bf16<V>(dst + TP * LD, LD, k_rows, stride, p0, end, TP, wj);
+  };
+
+  float acc[MW][NW][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  float sq_q = 0.f, sq_k = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < kStagesBf - 1; ++t) {
+    if (t < n_tiles) load(t);
+    cp_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait<kStagesBf - 2>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t + kStagesBf - 1 < n_tiles) load(t + kStagesBf - 1);
+    cp_commit();
+    const bf16* qs = ring + (t % kStagesBf) * Cfg::STAGE;
+    const bf16* ks = qs + TP * LD;
+    float part[MW][NW][4];
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < Cfg::KS; ++kk) {
+      const int p0 = (wk * Cfg::KS + kk) * 16;
+      // A = q^T (channel x pixel) and B = k (pixel x channel), both from
+      // pixel-major tiles: ldmatrix transposed, lane l at pixel
+      // p0 + 8 (l / 16 or l / 8 % 2) + l % 8
+      uint32_t af[MW][4], bfr[NW][2];
+#pragma unroll
+      for (int i = 0; i < MW; ++i) {
+        if (!use_m[i]) continue;
+        ldmatrix_x4<true>(af[i], qs + (p0 + ((lane >> 4) & 1) * 8 + (lane & 7)) * LD +
+                                     (wm * MW + i) * 16 + ((lane >> 3) & 1) * 8);
+      }
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        if (!use_n[j]) continue;
+        ldmatrix_x2<true>(bfr[j], ks + (p0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                                      (wn * NW + j) * 8);
+      }
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+          if (use_m[i] && use_n[j]) mma_bf16(part[i][j], af[i], bfr[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
+    if (sq_on) {
+      for (int p = sq_g; p < TP; p += Cfg::G) {
+        const float x = to_f(qs[p * LD + sq_c]), y = to_f(ks[p * LD + sq_c]);
+        sq_q = fmaf(x, x, sq_q);
+        sq_k = fmaf(y, y, sq_k);
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it holds the partials now
+
+  constexpr int RP = Cfg::RP;
+  float* red = smem + wk * Cfg::E;
+#pragma unroll
+  for (int i = 0; i < MW; ++i) {
+    if (!use_m[i]) continue;
+    const int c = (wm * MW + i) * 16 + gid;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (!use_n[j]) continue;
+      const int d = (wn * NW + j) * 8 + 2 * tig;
+      red[c * RP + d] = acc[i][j][0];
+      red[c * RP + d + 1] = acc[i][j][1];
+      red[(c + 8) * RP + d] = acc[i][j][2];
+      red[(c + 8) * RP + d + 1] = acc[i][j][3];
+    }
+  }
+  float* sq = smem + Cfg::WK * Cfg::E;  // [q | k][G][CHP]
+  if (sq_on) {
+    sq[sq_g * CHP + sq_c] = sq_q;
+    sq[(Cfg::G + sq_g) * CHP + sq_c] = sq_k;
+  }
+  __syncthreads();
+
+  // the partials in a fixed order, written once: warp w rows w, w + 8, ...
+  const long long unit = (long long)bh * splits + s;
+  float* go = g_out + unit * g_stride + (long long)pi * cb * ch + pj * cb;
+  for (int c = warp; c < wi; c += kThreads / 32)
+    for (int d = lane; d < wj; d += 32) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < Cfg::WK; ++w) v += smem[w * Cfg::E + c * RP + d];
+      go[c * ch + d] = v;
+    }
+  for (int e = tid; e < 2 * CHP; e += kThreads) {
+    const int which = e / CHP, c = e - which * CHP;
+    // nq from the pairs (i, 0), nk from the pairs (0, j)
+    if (c >= (which ? wj : wi) || (which ? pi : pj) != 0) continue;
+    float v = 0.f;
+    for (int g = 0; g < Cfg::G; ++g) v += sq[(which * Cfg::G + g) * CHP + c];
+    (which ? nk_out + pj * cb : nq_out + pi * cb)[unit * n_stride + c] = v;
+  }
+}
+
+// The apply at channel-block width <= 16R: each 128-pixel tile is out
+// (128 x 16R) = v (128 x 16R) attn^T in 16 x 8 mma tiles, 16-deep steps
+// over d; warp w owns pixel rows [16 w, 16 w + 16) and all 2R column
+// tiles. attn (bf16, rounded once) is held in shared memory.
+template <int R>
+struct ApplyBf {
+  static constexpr int CHP = 16 * R;
+  static constexpr int LD = CHP + 8;  // bf16 pitch of the v and attn tiles
+  static constexpr int NT = 2 * R;
+  static constexpr int STAGES = R <= 4 ? 3 : 2;
+  static constexpr int RING = STAGES * kApplyTPBf * LD;
+  static constexpr int FLOATS = (2 * (RING + CHP * LD) + 3) / 4;
+  static_assert(kApplyTPBf == 16 * (kThreads / 32), "a warp per 16 rows");
+};
+
+// Tiles t = bh * tiles_per_bh + i; block (k, i * nb + j) walks tiles
+// [k * per_block, (k + 1) * per_block) as gram.cu's apply_fwd_kernel. A
+// head of one block (nb = 1) writes out (bf16); a blocked one writes its
+// fp32 part of out_i from block j to slots + j * slot.
+template <int R, int V>
+__global__ void __launch_bounds__(kThreads)
+apply_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ attn,
+                  bf16* __restrict__ out, float* __restrict__ slots, long long slot,
+                  long long hw, int heads, int ch, int cb, long long tiles_per_bh,
+                  long long n_tiles_all, long long per_block) {
+  using Cfg = ApplyBf<R>;
+  constexpr int LD = Cfg::LD, TP = kApplyTPBf, CHP = Cfg::CHP, NT = Cfg::NT;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ __align__(16) float smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* ma = ring + Cfg::RING;  // attn(c, d) at [c * LD + d]
+  const long long t0 = blockIdx.x * per_block;
+  const long long t1 = t0 + per_block < n_tiles_all ? t0 + per_block : n_tiles_all;
+  if (t0 >= t1) return;
+  const int n = (int)(t1 - t0);
+  const Pair pr = pair_of<true>(blockIdx.y, ch, cb);
+  const int pi = pr.i, pj = pr.j, wi = pr.wi, wj = pr.wj;
+  const bool blocked = cb < ch;
+  const long long C = (long long)heads * ch, stride = 3 * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = warp * 16;
+
+  for (int i = tid; i < STAGES * TP * (LD - wj); i += kThreads) {
+    const int r = i / (LD - wj);
+    ring[r * LD + wj + (i - r * (LD - wj))] = __float2bfloat16_rn(0.f);
+  }
+  auto load = [&](int i) {
+    const long long t = t0 + i, bh = t / tiles_per_bh, b = bh / heads;
+    stage_rows_bf16<V>(ring + (i % STAGES) * TP * LD, LD,
+                       qkv + b * hw * stride + (bh - b * heads) * ch + 2 * C + pj * cb, stride,
+                       (t - bh * tiles_per_bh) * TP, hw, TP, wj);
+  };
+  auto stage_attn = [&](long long bh) {  // zero outside wi x wj
+    const float* a = attn + bh * ch * ch + (long long)pi * cb * ch + pj * cb;
+    for (int idx = tid; idx < CHP * CHP; idx += kThreads) {
+      const int c = idx / CHP, d = idx - c * CHP;
+      ma[c * LD + d] = __float2bfloat16_rn(c < wi && d < wj ? a[c * ch + d] : 0.f);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n) load(i);
+    cp_commit();
+  }
+  long long staged = t0 / tiles_per_bh;  // the (b, h) whose attn is in shared memory
+  stage_attn(staged);
+  for (int i = 0; i < n; ++i) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    if (i + STAGES - 1 < n) load(i + STAGES - 1);
+    cp_commit();
+    const long long t = t0 + i, bh = t / tiles_per_bh;
+    if (bh != staged) {  // a run that crosses into the next (b, h)
+      stage_attn(bh);
+      staged = bh;
+      __syncthreads();
+    }
+    const bf16* vs = ring + (i % STAGES) * TP * LD;
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < CHP; k0 += 16) {
+      // A = v (pixel x d) as it lies; B(d, c) = attn[c][d], n rows of d
+      uint32_t af[4];
+      ldmatrix_x4<false>(af, vs + (m0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t r4[4];
+        ldmatrix_x4<false>(r4, ma + ((j + (lane >> 4)) * 8 + (lane & 7)) * LD + k0 +
+                                   ((lane >> 3) & 1) * 8);
+        const uint32_t b0[2] = {r4[0], r4[1]}, b1[2] = {r4[2], r4[3]};
+        mma_bf16(acc[j], af, b0);
+        mma_bf16(acc[j + 1], af, b1);
+      }
+    }
+    const long long b = bh / heads;
+    const long long r0 = (t - bh * tiles_per_bh) * TP + m0 + gid, r1 = r0 + 8;
+    const long long base = b * hw * C + (bh - b * heads) * ch + pi * cb;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = j * 8 + 2 * tig;
+      if (c >= wi) continue;
+      const bool c1 = c + 1 < wi;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long r = half ? r1 : r0;
+        if (r >= hw) continue;
+        const float x = acc[j][2 * half], y = acc[j][2 * half + 1];
+        if (blocked) {
+          float* o = slots + pj * slot + base + r * C + c;
+          o[0] = x;
+          if (c1) o[1] = y;
+        } else if (V > 1) {  // c, wi and every offset even: a pair is 4-byte aligned
+          *reinterpret_cast<__nv_bfloat162*>(out + base + r * C + c) =
+              __floats2bfloat162_rn(x, y);
+        } else {
+          out[base + r * C + c] = __float2bfloat16_rn(x);
+          if (c1) out[base + r * C + c + 1] = __float2bfloat16_rn(y);
+        }
+      }
+    }
+  }
+}
+
+// out[e] = bf16(ws[e] + ws[size + e] + ... + ws[(nb - 1) * size + e]), in
+// that order (tc.cuh's sum_slots, rounded once)
+__global__ void __launch_bounds__(kSlotThreads)
+sum_slots_bf16_kernel(const float* __restrict__ ws, bf16* __restrict__ out, long long size,
+                      int nb) {
+  const long long e = (long long)blockIdx.x * kSlotThreads + threadIdx.x;
+  if (e >= size) return;
+  float v = ws[e];
+  for (int k = 1; k < nb; ++k) v += ws[k * size + e];
+  out[e] = __float2bfloat16_rn(v);
+}
+
+// V, the bf16 a copy of a head's rows (ops/gram.py bf16_copy_width): 8
+// (16 bytes), 2 (4 bytes) or 1, dividing ch and cb
+bool bad_copy(int v, int ch, int cb) {
+  return !(v == 8 || v == 2 || v == 1) || ch % v != 0 || cb % v != 0;
+}
+
+#define RCOT_BY_COPY(v, CALL) \
+  v == 8 ? CALL(8) : v == 2 ? CALL(2) : CALL(1)
+
+template <int R, int V>
+cudaError_t gram_bf16_v(const bf16* qkv, float* gram, float* nq, float* nk, float* ws, int B,
+                        long long hw, int heads, int ch, int cb, int splits, long long per,
+                        cudaStream_t st) {
+  using Cfg = GramBf<R>;
+  static bool done[kMaxDevices];
+  const auto kernel = gram_bf16_kernel<R, V>;
+  const cudaError_t attr = allow_smem(done, kernel, kernel, Cfg::FLOATS);
+  if (attr != cudaSuccess) return attr;
+  const int nb = (ch + cb - 1) / cb;
+  const long long E = (long long)ch * ch + 2 * ch;
+  float* g_out = splits > 1 ? ws : gram;
+  float* nq_out = splits > 1 ? ws + ch * ch : nq;
+  float* nk_out = splits > 1 ? ws + ch * ch + ch : nk;
+  const long long g_stride = splits > 1 ? E : (long long)ch * ch;
+  const long long n_stride = splits > 1 ? E : ch;
+  kernel<<<dim3((unsigned)splits, (unsigned)(B * heads), (unsigned)(nb * nb)), kThreads,
+           sizeof(float) * Cfg::FLOATS, st>>>(qkv, g_out, nq_out, nk_out, g_stride, n_stride,
+                                              hw, heads, ch, cb, splits, per);
+  if (splits > 1) return launch_reduce(ws, gram, nq, nk, B, heads, ch, (int)E, splits, st);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t gram_bf16(const bf16* qkv, float* gram, float* nq, float* nk, float* ws, int B,
+                      long long hw, int heads, int ch, int cb, int splits, long long per, int v,
+                      cudaStream_t st) {
+  if (bad_copy(v, ch, cb)) return cudaErrorInvalidValue;
+#define RCOT_CALL(V) \
+  gram_bf16_v<R, V>(qkv, gram, nq, nk, ws, B, hw, heads, ch, cb, splits, per, st)
+  return RCOT_BY_COPY(v, RCOT_CALL);
+#undef RCOT_CALL
+}
+
+template <int R, int V>
+cudaError_t apply_bf16_v(const bf16* qkv, const float* attn, bf16* out, float* ws, int B,
+                         long long hw, int heads, int ch, int cb, int blocks,
+                         long long per_block, cudaStream_t st) {
+  using Cfg = ApplyBf<R>;
+  static bool done[kMaxDevices];
+  const auto kernel = apply_bf16_kernel<R, V>;
+  const cudaError_t attr = allow_smem(done, kernel, kernel, Cfg::FLOATS);
+  if (attr != cudaSuccess) return attr;
+  const int nb = (ch + cb - 1) / cb;
+  const long long slot = (long long)B * hw * heads * ch;
+  const long long tiles_per_bh = (hw + kApplyTPBf - 1) / kApplyTPBf;
+  kernel<<<dim3((unsigned)blocks, (unsigned)(nb * nb)), kThreads, sizeof(float) * Cfg::FLOATS,
+           st>>>(qkv, attn, out, ws, slot, hw, heads, ch, cb, tiles_per_bh,
+                 tiles_per_bh * B * heads, per_block);
+  const cudaError_t err = cudaGetLastError();
+  if (nb == 1 || err != cudaSuccess) return err;
+  sum_slots_bf16_kernel<<<(unsigned)((slot + kSlotThreads - 1) / kSlotThreads), kSlotThreads, 0,
+                          st>>>(ws, out, slot, nb);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t apply_bf16(const bf16* qkv, const float* attn, bf16* out, float* ws, int B,
+                       long long hw, int heads, int ch, int cb, int blocks, long long per_block,
+                       int v, cudaStream_t st) {
+  if (bad_copy(v, ch, cb)) return cudaErrorInvalidValue;
+#define RCOT_CALL(V) \
+  apply_bf16_v<R, V>(qkv, attn, out, ws, B, hw, heads, ch, cb, blocks, per_block, st)
+  return RCOT_BY_COPY(v, RCOT_CALL);
+#undef RCOT_CALL
+}
+
+}  // namespace
+
+extern "C" {
+
+// qkv (B, hw, 3*heads*ch) bf16 -> gram (B,heads,ch,ch), nq and nk
+// (B,heads,ch) fp32, as rcot_mdta_gram (the same plan and workspace), with
+// copies of vec bf16 (ops/gram.py bf16_copy_width).
+int rcot_mdta_gram_bf16(const bf16* qkv, float* gram, float* nq, float* nk, float* ws, int B,
+                        long long hw, int heads, int ch, int cb, int splits, long long per,
+                        int vec, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define RCOT_CALL(R) \
+  gram_bf16<R>(qkv, gram, nq, nk, ws, B, hw, heads, ch, cb, splits, per, vec, st)
+  RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
+#undef RCOT_CALL
+}
+
+// qkv (B, hw, 3*heads*ch) bf16, attn (B,heads,ch,ch) fp32 -> out
+// (B, hw, heads*ch) bf16, as rcot_attn_apply (the same plan; ws holds nb
+// fp32 slots of out where the head is cut into nb > 1 channel blocks), with
+// copies of vec bf16 (ops/gram.py bf16_copy_width, out included).
+int rcot_attn_apply_bf16(const bf16* qkv, const float* attn, bf16* out, float* ws, int B,
+                         long long hw, int heads, int ch, int cb, int blocks,
+                         long long per_block, int vec, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define RCOT_CALL(R) \
+  apply_bf16<R>(qkv, attn, out, ws, B, hw, heads, ch, cb, blocks, per_block, vec, st)
+  RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
+#undef RCOT_CALL
+}
+
+}  // extern "C"

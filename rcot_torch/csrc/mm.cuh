@@ -19,6 +19,17 @@
 // every split stores its partials with plain stores for sum_parts, which
 // adds them in a fixed order. No atomics: two calls give the same bits.
 //
+// bf16 (block_fwd_bf16.cu, serving in bf16): the per-pixel products take
+// the element type T = bf16 (mma_kernel's !A_KROW, !B_KROW, kEpiStore or
+// kEpiAdd): tiles of bf16 in shared memory (a BK-deep step is two
+// mma.sync m16n8k16 with fp32 accumulation, fragments by ldmatrix), copies
+// of 16, 8 or 4 bytes where the plan allows and 2-byte loads where a
+// weight's rows are only 2-byte aligned (W_out at odd h), and an epilogue
+// that rounds as the JAX kernel does: out = bf16(extra + bf16(acc)) (a
+// double rounding), with split partials in fp32 and the rounding after
+// sum_parts's fixed-order sum. The LayerNorm and the gate pass take bf16
+// inputs or outputs too, with fp32 arithmetic. T = float keeps its code.
+//
 // LayerNorm: one warp a pixel; fp32 statistics, biased variance, eps 1e-5
 // inside the rsqrt; WithBias is (t - mean) inv w + b, BiasFree t inv w
 // with the variance taken about the mean. Up to 512 channels a lane holds
@@ -56,24 +67,25 @@ constexpr int MI = 2, NI = 4;
 
 // A tile of R rows (of the output's M or N) by BK (of K) in shared memory,
 // stored k-major ([BK][R + 8]) where the operand lies k-major in memory
-// (KROW), else [R][BK + 4]; either pitch spreads a warp's fragment reads
-// over 32 banks.
-template <int R, bool KROW>
+// (KROW), else [R][BK + 4] ([R][BK + 8] in bf16); each pitch spreads a
+// warp's fragment reads (ldmatrix's eight 16-byte rows in bf16) over 32
+// banks. Sizes count elements of T.
+template <int R, bool KROW, typename T = float>
 struct Tile {
-  static constexpr int LD = KROW ? R + 8 : BK + 4;
+  static constexpr int LD = KROW ? R + 8 : BK + (sizeof(T) == 2 ? 8 : 4);
   static constexpr int FLOATS = KROW ? BK * LD : R * LD;
   __device__ static __forceinline__ int at(int r, int k) { return KROW ? k * LD + r : r * LD + k; }
 };
 
 // Tile (r0.., k0..) of an operand whose element (r, k) is at
-// src[KROW ? k * ld + r : r * ld + k] into dst, V floats a copy along the
+// src[KROW ? k * ld + r : r * ld + k] into dst, V elements a copy along the
 // contiguous side; zeros at r >= r_end or k >= k_end. V divides the
-// contiguous side's extent and src is 4V-byte aligned (the plan's copy
-// width), so a copy is wholly in or wholly out.
-template <int R, bool KROW, int V>
-__device__ __forceinline__ void stage_tile(float* dst, const float* src, long long ld,
-                                           long long r0, long long r_end, long long k0,
-                                           long long k_end) {
+// contiguous side's extent and src is V-element aligned (the plan's copy
+// width), so a copy is wholly in or wholly out. A copy of 4 bytes or more
+// is a cp.async; a single bf16 is loaded and stored by the thread.
+template <int R, bool KROW, int V, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, long long r0,
+                                           long long r_end, long long k0, long long k_end) {
   constexpr int EXT = KROW ? R : BK, LINES = KROW ? BK : R;
   constexpr int PER_LINE = EXT / V, PIECES = LINES * PER_LINE;
 #pragma unroll 4
@@ -82,14 +94,23 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src, long lo
     const long long r = KROW ? r0 + off : r0 + line;
     const long long k = KROW ? k0 + line : k0 + off;
     const bool in = r < r_end && k < k_end;
-    cp_async_v<V>(dst + line * Tile<R, KROW>::LD + off,
-                  src + (in ? (KROW ? k * ld + r : r * ld + k) : 0), in);
+    T* to = dst + line * Tile<R, KROW, T>::LD + off;
+    const T* from = src + (in ? (KROW ? k * ld + r : r * ld + k) : 0);
+    if constexpr (sizeof(T) == 4)
+      cp_async_v<V>(to, from, in);
+    else if constexpr (V == 1)
+      *to = in ? *from : from_f<T>(0.f);
+    else
+      cp_async_bytes<2 * V>(to, from, in);
   }
 }
 
-template <int R, bool KROW>
-__device__ __forceinline__ void stage(float* dst, const float* src, long long ld, long long r0,
+template <int R, bool KROW, typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long ld, long long r0,
                                       long long r_end, long long k0, long long k_end, int v) {
+  if constexpr (sizeof(T) == 2) {
+    if (v == 8) return stage_tile<R, KROW, 8>(dst, src, ld, r0, r_end, k0, k_end);
+  }
   if (v == 4)
     stage_tile<R, KROW, 4>(dst, src, ld, r0, r_end, k0, k_end);
   else if (v == 2)
@@ -116,13 +137,14 @@ __device__ __forceinline__ float gate_fwd(float x1, float x2) {
 // (a[k * lda + m] with A_KROW), B(k, n) is b[n * ldb + k] (b[k * ldb + n]
 // with B_KROW). Block (x, z): output tile x (the N tiles fastest, so
 // blocks that share A rows run together), K range [z k_per, (z + 1) k_per),
-// written at out + z * z_stride.
+// written at out + z * z_stride. a, a2, b and extra hold the kernel's
+// element type T; out holds T, or fp32 partials where z_stride != 0.
 struct MmArgs {
-  const float* a;
-  const float* a2;  // kEpiGatedAdd: c2, staged beside a (c1)
-  const float* b;
-  float* out;
-  const float* extra;
+  const void* a;
+  const void* a2;  // kEpiGatedAdd: c2, staged beside a (c1)
+  const void* b;
+  void* out;
+  const void* extra;
   float* gate;
   long long lda, ldb, ldo, M, K, k_per, z_stride;
   int N, n_tiles, va, vb;
@@ -140,13 +162,16 @@ __device__ __forceinline__ void gate_bwd(float dg, float x1, float x2, float* dc
 
 // The shared memory of a product: a ring of kStages steps, each an A and a
 // B tile (two stages of two A tiles, c1 and c2, and a B tile with the
-// gate: 90 KB, so that two blocks still fit an SM).
-template <bool A_KROW, bool B_KROW, int EPI>
+// gate: 90 KB, so that two blocks still fit an SM). Sizes count elements
+// of T; SMEM_FLOATS is the ring's size in floats.
+template <bool A_KROW, bool B_KROW, int EPI, typename T = float>
 struct MmRing {
   static constexpr int STAGES = EPI == kEpiGatedAdd ? 2 : kStages;
-  static constexpr int A_FLOATS = (EPI == kEpiGatedAdd ? 2 : 1) * Tile<BM, A_KROW>::FLOATS;
-  static constexpr int STAGE = A_FLOATS + Tile<BN, B_KROW>::FLOATS;
+  static constexpr int A_FLOATS =
+      (EPI == kEpiGatedAdd ? 2 : 1) * Tile<BM, A_KROW, T>::FLOATS;
+  static constexpr int STAGE = A_FLOATS + Tile<BN, B_KROW, T>::FLOATS;
   static constexpr int FLOATS = STAGES * STAGE;
+  static constexpr int SMEM_FLOATS = (int)((sizeof(T) * FLOATS + 3) / 4);
 };
 
 // The tensor cores add an mma's products to its accumulator with
@@ -154,16 +179,23 @@ struct MmRing {
 // mma.sync into one accumulator drifts toward zero by about an ulp of the
 // running sum a step: at K = 1,020-2,042 that bias reached 1.1e-5 of the
 // float64 result in dln_b and dW_proj, past the 1e-5 gate. So each BK-deep
-// step accumulates from zero on the tensor cores (12 mma at most a chain)
-// and is added to the running sum in IEEE fp32, as a plain fp32 loop would.
-template <bool A_KROW, bool B_KROW, int EPI>
+// step accumulates from zero on the tensor cores (12 mma at most a chain;
+// 2 in bf16) and is added to the running sum in IEEE fp32, as a plain fp32
+// loop would.
+template <bool A_KROW, bool B_KROW, int EPI, typename T = float>
 __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
-  using TA = Tile<BM, A_KROW>;
-  using TB = Tile<BN, B_KROW>;
-  using Ring = MmRing<A_KROW, B_KROW, EPI>;
+  constexpr bool BF16 = sizeof(T) == 2;
+  static_assert(!BF16 || (!A_KROW && !B_KROW && (EPI == kEpiStore || EPI == kEpiAdd)),
+                "bf16 products: per-pixel, stored or added");
+  using TA = Tile<BM, A_KROW, T>;
+  using TB = Tile<BN, B_KROW, T>;
+  using Ring = MmRing<A_KROW, B_KROW, EPI, T>;
   constexpr int STAGES = Ring::STAGES, STAGE = Ring::STAGE;
   constexpr bool GATED = EPI == kEpiGatedAdd;
   extern __shared__ __align__(16) float smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  const T* a = static_cast<const T*>(p.a);
+  const T* b = static_cast<const T*>(p.b);
   const int tile_m = blockIdx.x / p.n_tiles;
   const long long m0 = (long long)tile_m * BM;
   const int n0 = (blockIdx.x - tile_m * p.n_tiles) * BN;
@@ -171,11 +203,13 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
   const long long ke = kb + p.k_per < p.K ? kb + p.k_per : p.K;
   const int n_steps = (int)((ke - kb + BK - 1) / BK);
   auto load = [&](int s) {
-    float* dst = smem + (s % STAGES) * STAGE;
+    T* dst = ring + (s % STAGES) * STAGE;
     const long long k0 = kb + (long long)s * BK;
-    stage<BM, A_KROW>(dst, p.a, p.lda, m0, p.M, k0, ke, p.va);
-    if constexpr (GATED) stage<BM, A_KROW>(dst + TA::FLOATS, p.a2, p.lda, m0, p.M, k0, ke, p.va);
-    stage<BN, B_KROW>(dst + Ring::A_FLOATS, p.b, p.ldb, n0, p.N, k0, ke, p.vb);
+    stage<BM, A_KROW>(dst, a, p.lda, m0, p.M, k0, ke, p.va);
+    if constexpr (GATED)
+      stage<BM, A_KROW>(dst + TA::FLOATS, static_cast<const T*>(p.a2), p.lda, m0, p.M, k0, ke,
+                        p.va);
+    stage<BN, B_KROW>(dst + Ring::A_FLOATS, b, p.ldb, n0, p.N, k0, ke, p.vb);
   };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -200,8 +234,8 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
     __syncthreads();  // step s has landed; every warp is done with step s - 1
     if (s + STAGES - 1 < n_steps) load(s + STAGES - 1);
     cp_commit();
-    float* as = smem + (s % STAGES) * STAGE;
-    const float* bs = as + Ring::A_FLOATS;
+    T* as = ring + (s % STAGES) * STAGE;
+    const T* bs = as + Ring::A_FLOATS;
     if constexpr (GATED) {
       // the gate in place of c1, once per value (zero fill gives 0)
       for (int i = threadIdx.x; i < BM * BK; i += kThreads) {
@@ -217,24 +251,49 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
       for (int j = 0; j < NI; ++j)
 #pragma unroll
         for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
+    if constexpr (BF16) {
+      // A (m, k) and B stored [n][k]: ldmatrix gives both fragments as
+      // they lie; lane l points at row l % 16 (A) of the 16-row tile, or
+      // row l % 8 of n tile j + l / 16 (B), at column k + 8 (l / 8 % 2)
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      uint32_t ah[MI][4], al[MI][4], bh[NI][2], bl[NI][2];
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t af[MI][4], bfr[NI][2];
 #pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int r = wm * 32 + i * 16 + gid;
-        split_fast(as[TA::at(r, kk + tig)], ah[i][0], al[i][0]);
-        split_fast(as[TA::at(r + 8, kk + tig)], ah[i][1], al[i][1]);
-        split_fast(as[TA::at(r, kk + tig + 4)], ah[i][2], al[i][2]);
-        split_fast(as[TA::at(r + 8, kk + tig + 4)], ah[i][3], al[i][3]);
+        for (int i = 0; i < MI; ++i)
+          ldmatrix_x4<false>(af[i], as + TA::at(wm * 32 + i * 16 + (lane & 15),
+                                                kk + (lane >> 4) * 8));
+#pragma unroll
+        for (int j = 0; j < NI; j += 2) {
+          uint32_t r4[4];
+          ldmatrix_x4<false>(r4, bs + TB::at(wn * 32 + (j + (lane >> 4)) * 8 + (lane & 7),
+                                             kk + ((lane >> 3) & 1) * 8));
+          bfr[j][0] = r4[0], bfr[j][1] = r4[1], bfr[j + 1][0] = r4[2], bfr[j + 1][1] = r4[3];
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j) mma_bf16(part[i][j], af[i], bfr[j]);
       }
+    } else {
 #pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int n = wn * 32 + j * 8 + gid;
-        split_fast(bs[TB::at(n, kk + tig)], bh[j][0], bl[j][0]);
-        split_fast(bs[TB::at(n, kk + tig + 4)], bh[j][1], bl[j][1]);
+      for (int kk = 0; kk < BK; kk += 8) {
+        uint32_t ah[MI][4], al[MI][4], bh[NI][2], bl[NI][2];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const int r = wm * 32 + i * 16 + gid;
+          split_fast(as[TA::at(r, kk + tig)], ah[i][0], al[i][0]);
+          split_fast(as[TA::at(r + 8, kk + tig)], ah[i][1], al[i][1]);
+          split_fast(as[TA::at(r, kk + tig + 4)], ah[i][2], al[i][2]);
+          split_fast(as[TA::at(r + 8, kk + tig + 4)], ah[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int n = wn * 32 + j * 8 + gid;
+          split_fast(bs[TB::at(n, kk + tig)], bh[j][0], bl[j][0]);
+          split_fast(bs[TB::at(n, kk + tig + 4)], bh[j][1], bl[j][1]);
+        }
+        mma_3xtf32(part, ah, al, bh, bl, use_m, use_n);
       }
-      mma_3xtf32(part, ah, al, bh, bl, use_m, use_n);
     }
     // the step's sum joins the total in IEEE fp32 (see the note above)
 #pragma unroll
@@ -246,12 +305,12 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
   }
 
   // The epilogue goes through shared memory, so that each warp reads and
-  // writes 32 consecutive floats of an output row (a thread's own
-  // accumulators hold two floats of each of 8 rows). With a K range per
+  // writes 32 consecutive elements of an output row (a thread's own
+  // accumulators hold two of each of 8 rows). With a K range per
   // block (a pixel sum or a split product), partials go to
-  // out + z * z_stride for sum_parts_kernel.
+  // out + z * z_stride for sum_parts_kernel, in fp32.
   constexpr int OLD = BN + 8;  // pitch: the float2 stores below hit 32 banks
-  static_assert(BM * OLD <= Ring::FLOATS, "the tile fits in the ring");
+  static_assert(BM * OLD <= Ring::SMEM_FLOATS, "the tile fits in the ring");
   cp_wait<0>();
   __syncthreads();  // the ring is free
 #pragma unroll
@@ -264,8 +323,8 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
                                    j * 8 + 2 * tig) =
             make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
   __syncthreads();
-  float* out = p.out + (long long)blockIdx.z * p.z_stride;
   const bool partial = p.z_stride != 0;
+  const T* extra = static_cast<const T*>(p.extra);
   // warp w takes rows w, w + 8, ..., lane l columns l and l + 32; every
   // input of a warp's rows is loaded before the first store
   constexpr int RW = BM / kWarps;
@@ -276,9 +335,9 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
     for (int h2 = 0; h2 < 2; ++h2) {
       const long long m = m0 + warp + q * kWarps;
       const int n = n0 + lane + 32 * h2;
-      const bool ok = m < p.M && n < p.N && EPI != kEpiStore && !partial && p.extra;
-      in1[q][h2] = ok ? __ldg(p.extra + m * (EPI == kEpiGate ? 2 * p.N : p.ldo) + n) : 0.f;
-      in2[q][h2] = ok && EPI == kEpiGate ? __ldg(p.extra + m * 2 * p.N + p.N + n) : 0.f;
+      const bool ok = m < p.M && n < p.N && EPI != kEpiStore && !partial && extra;
+      in1[q][h2] = ok ? to_f(__ldg(extra + m * (EPI == kEpiGate ? 2 * p.N : p.ldo) + n)) : 0.f;
+      in2[q][h2] = ok && EPI == kEpiGate ? to_f(__ldg(extra + m * 2 * p.N + p.N + n)) : 0.f;
     }
 #pragma unroll
   for (int q = 0; q < RW; ++q)
@@ -289,18 +348,26 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
       const int n = n0 + lane + 32 * h2;
       if (m >= p.M || n >= p.N) continue;
       const float v = smem[r * OLD + lane + 32 * h2];
-      if (EPI == kEpiGate && !partial)
-        gate_bwd(v, in1[q][h2], in2[q][h2], out, p.gate, m, n, p.N);
-      else
-        out[m * p.ldo + n] = in1[q][h2] + v;
+      if constexpr (BF16) {
+        if (partial)
+          static_cast<float*>(p.out)[blockIdx.z * p.z_stride + m * p.ldo + n] = v;
+        else
+          static_cast<T*>(p.out)[m * p.ldo + n] = from_f<T>(in1[q][h2] + round_to<T>(v));
+      } else {
+        float* out = static_cast<float*>(p.out) + (long long)blockIdx.z * p.z_stride;
+        if (EPI == kEpiGate && !partial)
+          gate_bwd(v, in1[q][h2], in2[q][h2], out, p.gate, m, n, p.N);
+        else
+          out[m * p.ldo + n] = in1[q][h2] + v;
+      }
     }
 }
 
-template <bool A_KROW, bool B_KROW, int EPI>
+template <bool A_KROW, bool B_KROW, int EPI, typename T = float>
 cudaError_t mm(MmArgs p, int ranges, cudaStream_t st) {
-  constexpr int FLOATS = MmRing<A_KROW, B_KROW, EPI>::FLOATS;
+  constexpr int FLOATS = MmRing<A_KROW, B_KROW, EPI, T>::SMEM_FLOATS;
   static bool done[kMaxDevices];
-  const auto kernel = mm_kernel<A_KROW, B_KROW, EPI>;
+  const auto kernel = mm_kernel<A_KROW, B_KROW, EPI, T>;
   RCOT_TRY(allow_smem(done, kernel, kernel, FLOATS));
   p.n_tiles = (p.N + BN - 1) / BN;
   const long long tiles = (p.M + BM - 1) / BM * p.n_tiles;
@@ -310,16 +377,18 @@ cudaError_t mm(MmArgs p, int ranges, cudaStream_t st) {
 }
 
 // out[e] (e < split) or out2[e - split] = sum over parts q of ws[q * ld + e]
-// (plus add[e] where add is not null), e < E. A block's eight warps are
+// (plus add[e] where add is not null), e < E; a bf16 out takes
+// bf16(add[e] + bf16(sum)), as the products' epilogue. A block's eight warps are
 // G = 8 / W groups of 32 entries by W warps over the parts (W, a power of
 // two up to 8, the most that `parts` fills): warp w of a group adds parts
 // w, w + W, ... in order, then the group's first warp adds its W sums in
 // order, so the order is a function of `parts` alone.
 constexpr int kReduceThreads = 256;
 
+template <typename TO>
 __global__ void __launch_bounds__(kReduceThreads)
-sum_parts_kernel(const float* __restrict__ ws, const float* __restrict__ add,
-                 float* __restrict__ out, float* __restrict__ out2, int E, int split, long long ld,
+sum_parts_kernel(const float* __restrict__ ws, const TO* __restrict__ add,
+                 TO* __restrict__ out, float* __restrict__ out2, int E, int split, long long ld,
                  long long parts, int W) {
   __shared__ float part[kReduceThreads / 32][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -335,19 +404,21 @@ sum_parts_kernel(const float* __restrict__ ws, const float* __restrict__ add,
   if (w != 0 || e >= E) return;
   float sum = 0.f;
   for (int i = 0; i < W; ++i) sum += part[warp + i][lane];
-  if (add) sum = add[e] + sum;
+  sum = round_to<TO>(sum);
+  if (add) sum = to_f(add[e]) + sum;
   if (e < split)
-    out[e] = sum;
+    out[e] = from_f<TO>(sum);
   else
     out2[e - split] = sum;
 }
 
-cudaError_t sum_parts(const float* ws, float* out, float* out2, int E, int split, long long ld,
-                      long long parts, cudaStream_t st, const float* add = nullptr) {
+template <typename TO = float>
+cudaError_t sum_parts(const float* ws, TO* out, float* out2, int E, int split, long long ld,
+                      long long parts, cudaStream_t st, const TO* add = nullptr) {
   int W = 1;
   while (W < kReduceThreads / 32 && 2 * W <= parts) W *= 2;
   const int per_block = kReduceThreads / W;  // entries a block
-  sum_parts_kernel<<<(unsigned)((E + per_block - 1) / per_block), kReduceThreads, 0, st>>>(
+  sum_parts_kernel<TO><<<(unsigned)((E + per_block - 1) / per_block), kReduceThreads, 0, st>>>(
       ws, add, out, out2, E, split, ld, parts, W);
   return cudaGetLastError();
 }
@@ -361,24 +432,30 @@ cudaError_t sum_parts(const float* ws, float* out, float* out2, int E, int split
 // below K and runs past it reads the pad). With splits > 1 (the plan's, where the output has too
 // few tiles to fill the card) K is cut into ranges of k_per, whose
 // partials go to ws (splits * n_pix * N floats) and are added in a fixed
-// order; kEpiGate is never split.
-template <bool B_KROW, int EPI>
-cudaError_t product(const float* a, int K, int va, const float* w, int vb, float* out, int N,
+// order; kEpiGate is never split. T = bf16 rounds as mm_kernel says.
+template <typename T>
+struct Same {  // T where it is not to be deduced (a null extra)
+  using type = T;
+};
+
+template <bool B_KROW, int EPI, typename T = float>
+cudaError_t product(const T* a, int K, int va, const T* w, int vb, T* out, int N,
                     long long n_pix, int splits, long long k_per, float* ws, cudaStream_t st,
-                    const float* extra = nullptr, float* gate = nullptr, long long lda = 0) {
+                    const typename Same<T>::type* extra = nullptr, float* gate = nullptr,
+                    long long lda = 0) {
   if (splits < 1 || (splits > 1 && (EPI == kEpiGate || k_per < 1))) return cudaErrorInvalidValue;
   constexpr bool GATED = EPI == kEpiGatedAdd;
   MmArgs p{};
   p.a = a, p.a2 = GATED ? a + K : nullptr, p.va = va;
   p.lda = lda ? lda : GATED ? 2LL * K : K;
   p.b = w, p.ldb = B_KROW ? N : K, p.vb = vb;
-  p.out = splits > 1 ? ws : out, p.ldo = N, p.extra = extra, p.gate = gate;
+  p.out = splits > 1 ? (void*)ws : (void*)out, p.ldo = N, p.extra = extra, p.gate = gate;
   p.z_stride = splits > 1 ? n_pix * N : 0;
   p.M = n_pix, p.N = N, p.K = K, p.k_per = splits > 1 ? k_per : K;
-  RCOT_TRY((mm<false, B_KROW, EPI>(p, splits, st)));
+  RCOT_TRY((mm<false, B_KROW, EPI, T>(p, splits, st)));
   if (splits > 1)
-    return sum_parts(ws, out, nullptr, (int)(n_pix * N), (int)(n_pix * N), n_pix * N, splits,
-                     st, EPI == kEpiAdd || GATED ? extra : nullptr);
+    return sum_parts<T>(ws, out, nullptr, (int)(n_pix * N), (int)(n_pix * N), n_pix * N,
+                        splits, st, EPI == kEpiAdd || GATED ? extra : nullptr);
   return cudaSuccess;
 }
 
@@ -411,23 +488,24 @@ __device__ __forceinline__ float warp_sum(float v) {
 // u = LN(t) per pixel, with its mean and inv = rsqrt(var + eps); one warp
 // a pixel, lane l holding channels l, l + 32, ... (L of them, RCOT_BY_LANES:
 // small C keeps few registers and many warps).
-// ln_b null: BiasFree (u = t * inv * w).
-template <int L>
+// ln_b null: BiasFree (u = t * inv * w). t and u are TI and TO (float, or
+// bf16 in serving's bf16 path); the statistics and the weights are fp32.
+template <int L, typename TI = float, typename TO = float>
 __global__ void __launch_bounds__(kThreads)
-ln_fwd_kernel(const float* __restrict__ t, const float* __restrict__ ln_w,
-              const float* __restrict__ ln_b, float* __restrict__ u,
+ln_fwd_kernel(const TI* __restrict__ t, const float* __restrict__ ln_w,
+              const float* __restrict__ ln_b, TO* __restrict__ u,
               float* __restrict__ mean_out, float* __restrict__ inv_out,
               long long n_pix, int C) {
   const int lane = threadIdx.x % 32;
   const long long warps = (long long)gridDim.x * kWarps;
   for (long long p = blockIdx.x * kWarps + threadIdx.x / 32; p < n_pix; p += warps) {
-    const float* tp = t + p * C;
+    const TI* tp = t + p * C;
     float v[L];
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < L; ++i) {
       const int c = lane + 32 * i;
-      v[i] = c < C ? tp[c] : 0.f;
+      v[i] = c < C ? to_f(tp[c]) : 0.f;
       s += v[i];
     }
     const float mean = warp_sum(s) / C;
@@ -436,12 +514,13 @@ ln_fwd_kernel(const float* __restrict__ t, const float* __restrict__ ln_w,
     for (int i = 0; i < L; ++i)
       if (lane + 32 * i < C) var += (v[i] - mean) * (v[i] - mean);
     const float inv = rsqrtf(warp_sum(var) / C + kLnEps);
-    float* up = u + p * C;
+    TO* up = u + p * C;
 #pragma unroll
     for (int i = 0; i < L; ++i) {
       const int c = lane + 32 * i;
       if (c < C)
-        up[c] = ln_b ? (v[i] - mean) * inv * ln_w[c] + ln_b[c] : v[i] * inv * ln_w[c];
+        up[c] = from_f<TO>(ln_b ? (v[i] - mean) * inv * ln_w[c] + ln_b[c]
+                                : v[i] * inv * ln_w[c]);
     }
     if (lane == 0) {
       mean_out[p] = mean;
@@ -463,35 +542,37 @@ ln_fwd_kernel(const float* __restrict__ t, const float* __restrict__ ln_w,
     default: return cudaErrorInvalidValue;              \
   }
 
-template <int L>
-cudaError_t ln_fwd_l(const float* t, const float* ln_w, const float* ln_b, float* u,
+template <int L, typename TI, typename TO>
+cudaError_t ln_fwd_l(const TI* t, const float* ln_w, const float* ln_b, TO* u,
                      float* stats, long long n_pix, int C, int blocks, cudaStream_t st) {
-  ln_fwd_kernel<L><<<(unsigned)blocks, kThreads, 0, st>>>(t, ln_w, ln_b, u, stats,
-                                                          stats + n_pix, n_pix, C);
+  ln_fwd_kernel<L, TI, TO><<<(unsigned)blocks, kThreads, 0, st>>>(t, ln_w, ln_b, u, stats,
+                                                                  stats + n_pix, n_pix, C);
   return cudaGetLastError();
 }
 
 // C > kLnRegChannels: as ln_fwd_kernel, a lane walking its channels l,
 // l + 32, ... in device memory, once for each of the sum, the variance and
 // the output
+template <typename TI = float, typename TO = float>
 __global__ void __launch_bounds__(kThreads)
-ln_fwd_wide_kernel(const float* __restrict__ t, const float* __restrict__ ln_w,
-                   const float* __restrict__ ln_b, float* __restrict__ u,
+ln_fwd_wide_kernel(const TI* __restrict__ t, const float* __restrict__ ln_w,
+                   const float* __restrict__ ln_b, TO* __restrict__ u,
                    float* __restrict__ mean_out, float* __restrict__ inv_out,
                    long long n_pix, int C) {
   const int lane = threadIdx.x % 32;
   const long long warps = (long long)gridDim.x * kWarps;
   for (long long p = blockIdx.x * kWarps + threadIdx.x / 32; p < n_pix; p += warps) {
-    const float* tp = t + p * C;
+    const TI* tp = t + p * C;
     float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += tp[c];
+    for (int c = lane; c < C; c += 32) s += to_f(tp[c]);
     const float mean = warp_sum(s) / C;
     float var = 0.f;
-    for (int c = lane; c < C; c += 32) var += (tp[c] - mean) * (tp[c] - mean);
+    for (int c = lane; c < C; c += 32) var += (to_f(tp[c]) - mean) * (to_f(tp[c]) - mean);
     const float inv = rsqrtf(warp_sum(var) / C + kLnEps);
-    float* up = u + p * C;
+    TO* up = u + p * C;
     for (int c = lane; c < C; c += 32)
-      up[c] = ln_b ? (tp[c] - mean) * inv * ln_w[c] + ln_b[c] : tp[c] * inv * ln_w[c];
+      up[c] = from_f<TO>(ln_b ? (to_f(tp[c]) - mean) * inv * ln_w[c] + ln_b[c]
+                              : to_f(tp[c]) * inv * ln_w[c]);
     if (lane == 0) {
       mean_out[p] = mean;
       inv_out[p] = inv;
@@ -499,12 +580,13 @@ ln_fwd_wide_kernel(const float* __restrict__ t, const float* __restrict__ ln_w,
   }
 }
 
-cudaError_t ln_fwd(const float* t, const float* ln_w, const float* ln_b, float* u, float* stats,
+template <typename TI, typename TO>
+cudaError_t ln_fwd(const TI* t, const float* ln_w, const float* ln_b, TO* u, float* stats,
                    long long n_pix, int C, int blocks, cudaStream_t st) {
   if (blocks < 1) return cudaErrorInvalidValue;
   if (C > kLnRegChannels) {
-    ln_fwd_wide_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(t, ln_w, ln_b, u, stats,
-                                                              stats + n_pix, n_pix, C);
+    ln_fwd_wide_kernel<TI, TO><<<(unsigned)blocks, kThreads, 0, st>>>(t, ln_w, ln_b, u, stats,
+                                                                      stats + n_pix, n_pix, C);
     return cudaGetLastError();
   }
 #define RCOT_CALL(L) ln_fwd_l<L>(t, ln_w, ln_b, u, stats, n_pix, C, blocks, st)
@@ -514,28 +596,34 @@ cudaError_t ln_fwd(const float* t, const float* ln_w, const float* ln_b, float* 
 
 // ------------------------------------------------------------ the gate
 
-// gate = gelu(c1) c2 of conv = [c1 | c2] (n_pix x 2 hid), in rows of
-// gate_ld(hid) floats whose columns past hid hold 0, so that the product
-// reading it takes 16-byte copies at any hid; one warp a pixel, as the
-// LayerNorm forward
-__host__ __device__ constexpr int gate_ld(int hid) { return (hid + 3) / 4 * 4; }
+// gate = gelu(c1) c2 of conv = [c1 | c2] (n_pix x 2 hid, fp32), in rows of
+// gate_ld<TO>(hid) elements (16 bytes' worth: 4 floats, 8 bf16) whose
+// columns past hid hold 0, so that the product reading it takes 16-byte
+// copies at any hid; one warp a pixel, as the LayerNorm forward. A bf16
+// gate is the fp32 gate rounded once.
+template <typename TO = float>
+__host__ __device__ constexpr int gate_ld(int hid) {
+  return (hid + 16 / (int)sizeof(TO) - 1) / (16 / (int)sizeof(TO)) * (16 / (int)sizeof(TO));
+}
 
+template <typename TO>
 __global__ void __launch_bounds__(kThreads)
-gate_pass_kernel(const float* __restrict__ conv, float* __restrict__ gate, long long n_pix,
+gate_pass_kernel(const float* __restrict__ conv, TO* __restrict__ gate, long long n_pix,
                  int hid) {
-  const int lane = threadIdx.x % 32, ld = gate_ld(hid);
+  const int lane = threadIdx.x % 32, ld = gate_ld<TO>(hid);
   const long long warps = (long long)gridDim.x * kWarps;
   for (long long m = blockIdx.x * kWarps + threadIdx.x / 32; m < n_pix; m += warps) {
     const float* row = conv + m * 2 * hid;
 #pragma unroll 4
     for (int j = lane; j < ld; j += 32)
-      gate[m * ld + j] = j < hid ? gate_fwd(row[j], row[hid + j]) : 0.f;
+      gate[m * ld + j] = from_f<TO>(j < hid ? gate_fwd(row[j], row[hid + j]) : 0.f);
   }
 }
 
-cudaError_t gate_pass(const float* conv, float* gate, long long n_pix, int hid, int blocks,
+template <typename TO = float>
+cudaError_t gate_pass(const float* conv, TO* gate, long long n_pix, int hid, int blocks,
                       cudaStream_t st) {
-  gate_pass_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(conv, gate, n_pix, hid);
+  gate_pass_kernel<TO><<<(unsigned)blocks, kThreads, 0, st>>>(conv, gate, n_pix, hid);
   return cudaGetLastError();
 }
 

@@ -3,7 +3,9 @@
 // (dwconv.cu): asynchronous copies into shared memory, 3xTF32 products on
 // mma.sync m16n8k8, the channel blocks of a wide head and the fixed-order
 // sum of a tensor's slots, and the once-per-device raise of a kernel's
-// dynamic shared-memory limit.
+// dynamic shared-memory limit; for the bf16 kernels (block_fwd_bf16.cu,
+// gram_bf16.cu) the conversions, copies of any byte width, ldmatrix and
+// bf16 products on mma.sync m16n8k16 with fp32 accumulation.
 //
 // 3xTF32: a float x is split into two tf32 values, x = hi + lo + O(2^-22
 // |x|), and a product a b is taken as al bh + ah bl + ah bh (al bl, about
@@ -12,10 +14,13 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -43,6 +48,16 @@ __device__ __forceinline__ void cp_async_v(float* dst, const float* src, bool in
     cp_async8(dst, src, in);
   else
     cp_async4(dst, src, in);
+}
+// dst <- BYTES (16, 8 or 4) bytes at src, or zeros where !in
+template <int BYTES>
+__device__ __forceinline__ void cp_async_bytes(void* dst, const void* src, bool in) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "n"(BYTES), "r"(in ? BYTES : 0));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -96,6 +111,58 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[M][N][4], uint32_t (&ah)
       for (int j = 0; j < N; ++j)
         if (use_m[i] && use_n[j])
           mma_tf32(acc[i][j], term == 0 ? al[i] : ah[i], term == 1 ? bl[j] : bh[j]);
+}
+
+// Conversions between a storage type (float or bf16) and fp32 arithmetic;
+// round_to<T>(v) is v rounded to T's precision, kept as a float (the
+// identity for float).
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (sizeof(T) == 2)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// Fragments of four (x4) or two (x2) 8 x 8 bf16 matrices from shared
+// memory, lane l giving the address of row l % 8 of matrix l / 8; with
+// TRANS each matrix is read transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(smem_addr(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(smem_addr(p)));
+}
+
+// d += a b on the tensor cores, bf16 operands, fp32 accumulator; a bf16
+// product is exact in fp32.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Width of channel block k of a head of ch channels cut into blocks of cb

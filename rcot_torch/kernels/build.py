@@ -46,12 +46,19 @@ SIGNATURES = {
     "rcot_block_head": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # inputs 8, output 1, workspace 6, plan; B, H, W, C, hid; stream
     "rcot_block_tail": [_P] * 15 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # the same two in bf16 (block_fwd_bf16.cu): the same arguments
+    "rcot_block_head_bf16": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    "rcot_block_tail_bf16": [_P] * 15 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # qkv, G, nq, nk, workspace; B, hw, heads, ch, channel block, splits,
     # pixels per split; stream
     "rcot_mdta_gram": [_P] * 5 + [_I, _L, _I, _I, _I, _I, _L, _P],
     # qkv, attn, out, workspace; B, hw, heads, ch, channel block, blocks,
     # tiles per block; stream
     "rcot_attn_apply": [_P] * 4 + [_I, _L, _I, _I, _I, _I, _L, _P],
+    # the same two on a bf16 qkv (gram_bf16.cu): the same arguments and the
+    # copy width (ops/gram.py bf16_copy_width) before the stream
+    "rcot_mdta_gram_bf16": [_P] * 5 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
+    "rcot_attn_apply_bf16": [_P] * 4 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
     # inputs 6, outputs 5, workspace 6, plan (ops/block.py); B, H, W, C, M; stream
     "rcot_block_head_bwd": [_P] * 17 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # inputs 9, outputs 8, workspace 9, plan; B, H, W, C, hid; stream
@@ -76,6 +83,8 @@ SIGNATURES = {
     "rcot_dwconv3x3_dtaps": [_P] * 4 + [_I] * 8 + [_P],
     # vec, cv, tc, dtaps; -> blocks an SM holds
     "rcot_dwconv3x3_blocks_per_sm": [_I] * 4 + [ctypes.POINTER(_I)],
+    # vec, cv, tc, bf16 out; -> blocks an SM holds of the bf16 forward
+    "rcot_dwconv3x3_bf16_blocks_per_sm": [_I] * 4 + [ctypes.POINTER(_I)],
     # q, k, v, temperature, out, workspace; BH, heads, c, N; the plan
     # (ops/mdta.py mdta_plan): splits, pixels per split, channel block,
     # apply blocks, tiles per apply block, softmax warps; copy width; stream
@@ -193,13 +202,20 @@ def ptr(t) -> int:
     return None if t is None else t.data_ptr()
 
 
-def check_arg(name: str, t, shape, device) -> None:
-    """Raise unless t is None or a contiguous float32 tensor of this shape
-    on this device: what the kernels take."""
+def kernel_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a kernel takes an activation like t in: bf16 for a bf16 t
+    (serving's bf16 kernels), else fp32 (check_arg refuses any other)."""
+    return torch.bfloat16 if t.dtype == torch.bfloat16 else torch.float32
+
+
+def check_arg(name: str, t, shape, device, dtype=torch.float32) -> None:
+    """Raise unless t is None or a contiguous tensor of this dtype (float32
+    unless the kernel takes another) and shape on this device: what the
+    kernels take. Nothing is cast."""
     if t is None:
         return
-    if (t.dtype != torch.float32 or t.device != device
+    if (t.dtype != dtype or t.device != device
             or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
-        raise ValueError(f"{name}: need contiguous float32 {tuple(shape)} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+        raise ValueError(f"{name}: need contiguous {str(dtype).replace('torch.', '')} "
+                         f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device} (contiguous={t.is_contiguous()})")

@@ -3,22 +3,27 @@ by bucket, and feathered overlap tiling.
 
 Counterpart of rcot_tpu/models/inference.py (no mesh, no mprnet, no SR
 mode yet). Images are (H, W, C) float32 numpy arrays in [0, 1]; the model
-sees (B, H, W, C) tensors on the restorer's device.
+sees (B, H, W, C) tensors on the restorer's device, in the restorer's dtype
+(fp32, or bf16 as make_restorer(dtype=jnp.bfloat16) serves: the input cast
+to bf16, the output back to fp32).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.dispatch import (resolve_attention_core, resolve_composition,
+from ..ops.dispatch import (check_bf16, resolve_attention_core, resolve_composition,
                             resolve_depthwise)
 from ..utils.config import ModelConfig
 from ..utils.device import resolve_device
-from .restormer import TNet
+from .restormer import Attention, TNet, _LayerNormBody
+
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _pad_nhwc(x: torch.Tensor, ph: int, pw: int, mode: str) -> torch.Tensor:
@@ -162,20 +167,45 @@ class Restorer:
         return acc / weight
 
 
+def cast_copy(tnet: TNet, dtype: torch.dtype) -> TNet:
+    """A copy of tnet whose weights are in dtype, but for the LayerNorms'
+    and the temperatures, which stay fp32: the values the JAX package's
+    forward uses on a bf16 input, cast once here instead of at every use
+    (rcot_tpu/ops/conv.py:45, rcot_tpu/models/restormer.py:77-89)."""
+    net = copy.deepcopy(tnet)
+    keep = {id(p) for m in net.modules() if isinstance(m, _LayerNormBody)
+            for p in m.parameters()}
+    keep |= {id(m.temperature) for m in net.modules() if isinstance(m, Attention)}
+    with torch.no_grad():
+        for p in net.parameters():
+            if id(p) not in keep:
+                p.data = p.data.to(dtype)
+    return net
+
+
 def make_restorer(model: Union[torch.nn.Module, Mapping[str, object]],
                   model_cfg: ModelConfig = ModelConfig(), *, tile: int = 0,
                   tile_overlap: int = 32, device="cuda", composition: str = "full",
-                  attention_core: str = "gram", depthwise: str = "fused") -> Restorer:
+                  attention_core: str = "gram", depthwise: str = "fused",
+                  dtype: torch.dtype = torch.float32) -> Restorer:
     """Restorer around the two-pass T_net's out2. `model` is a TNet or a
     state_dict (numpy arrays or tensors) to load into a new one. Its
     forwards run in the composition, attention core and depthwise tier
     given (ops/dispatch.py; by default serving's "full" with the Gram core,
     as the JAX inference scope resolves RCOT_INFER_BLOCK and its kernel
     switches), and leave a shared TNet's own three as they found them, so a
-    trainer can validate its training net."""
+    trainer can validate its training net. With dtype=torch.bfloat16 the
+    input is cast to bf16 and the output back to fp32
+    (rcot_tpu/models/inference.py:264-269), on a bf16 copy of the weights
+    made here, once (cast_copy; a later change to a shared TNet's weights
+    does not reach it); bf16 serves only "full"/gram/fused (check_bf16)."""
     choice = dict(composition=resolve_composition(composition, training=False),
                   attention_core=resolve_attention_core(attention_core),
                   depthwise=resolve_depthwise(depthwise))
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype}: one of {DTYPES}")
+    if dtype == torch.bfloat16:
+        check_bf16(**choice)
     dev = resolve_device(device)
     if model_cfg.backbone != "restormer":
         raise ValueError(f"backbone {model_cfg.backbone!r} is not ported yet")
@@ -186,13 +216,15 @@ def make_restorer(model: Union[torch.nn.Module, Mapping[str, object]],
         tnet.load_state_dict({k: torch.as_tensor(v) for k, v in model.items()},
                              strict=True)
     tnet.eval()
+    if dtype != torch.float32:
+        tnet = cast_copy(tnet, dtype)
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         before = {k: getattr(tnet, k) for k in choice}
         for k, v in choice.items():
             setattr(tnet, k, v)
         try:
-            return tnet(x.float())[0]
+            return tnet(x.to(dtype))[0].float()
         finally:
             for k, v in before.items():
                 setattr(tnet, k, v)

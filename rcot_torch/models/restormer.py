@@ -33,6 +33,14 @@ qkv and gdfn: "fused" (conv1x1_dw_fused, gdfn_fused, the default) or
 nothing in "full". (ops/block.py, ops/fused.py, ops/gram.py, ops/mdta.py,
 ops/dwconv.py.) With bias=True every composition takes the plain ops, as
 the JAX package does.
+
+A bf16 input runs the same forward in bf16, as apply_tnet on a bf16 input
+(rcot_tpu/models/restormer.py): every weight is used in the activation's
+dtype (ops/conv.py; the block kernels get their weights in x's dtype and
+their LN weights in fp32, rcot_tpu/models/restormer.py:77-89), LayerNorms
+compute in fp32 and round, the residual adds stay bf16. A bias-free block
+serves bf16 only in "full" with the Gram core and the fused tier
+(ops/dispatch.py check_bf16).
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ import torch.nn as nn
 from ..ops.attention import mdta, mdta_core, mdta_qkv
 from ..ops.block import block_head, block_tail
 from ..ops.conv import conv1x1, conv2d
-from ..ops.dispatch import (COMPOSITIONS, resolve_attention_core,
+from ..ops.dispatch import (COMPOSITIONS, check_bf16, resolve_attention_core,
                             resolve_depthwise)
 from ..ops.gdfn import gdfn, hidden_features
 from ..ops.layernorm import layernorm
@@ -146,14 +154,22 @@ class _Choice:
                 setattr(m, self.name, value)
 
 
-def _mat(conv: Conv) -> torch.Tensor:
-    """(O, I, 1, 1) 1x1 weight as an (O, I) view."""
-    return conv.weight.view(conv.weight.shape[0], -1)
+def _mat(conv: Conv, dtype: torch.dtype) -> torch.Tensor:
+    """(O, I, 1, 1) 1x1 weight as an (O, I) view, in dtype (a view where it
+    is the weight's)."""
+    return conv.weight.view(conv.weight.shape[0], -1).to(dtype)
 
 
-def _taps(conv: Conv) -> torch.Tensor:
-    """(C, 1, 3, 3) depthwise weight as a (C, 3, 3) view."""
-    return conv.weight.view(-1, 3, 3)
+def _taps(conv: Conv, dtype: torch.dtype) -> torch.Tensor:
+    """(C, 1, 3, 3) depthwise weight as a (C, 3, 3) view, in dtype."""
+    return conv.weight.view(-1, 3, 3).to(dtype)
+
+
+def _ln(norm: LayerNorm):
+    """A LayerNorm's weight and bias (or None) in fp32, as the block kernels
+    take them."""
+    b = norm.body.bias
+    return norm.body.weight.float(), None if b is None else b.float()
 
 
 class TransformerBlock(nn.Module):
@@ -177,18 +193,20 @@ class TransformerBlock(nn.Module):
         if at.qkv.bias is not None:
             x = x + at(self.norm1(x))
             return x + f(self.norm2(x))
+        if x.dtype == torch.bfloat16:
+            check_bf16(self.composition, self.attention_core, self.depthwise)
+        dt = x.dtype
         if self.composition in ("tail", "off"):
             qkv = mdta_qkv(self.norm1(x), at.qkv.weight, at.qkv_dwconv.weight,
                            depthwise=self.depthwise)
         else:
-            qkv = block_head(x, self.norm1.body.weight, self.norm1.body.bias,
-                             _mat(at.qkv), _taps(at.qkv_dwconv))
+            qkv = block_head(x, *_ln(self.norm1), _mat(at.qkv, dt), _taps(at.qkv_dwconv, dt))
         a = mdta_core(at.temperature, qkv, at.num_heads, self.attention_core)
         if self.composition in ("full", "tail"):
-            return block_tail(x, a, _mat(at.project_out), self.norm2.body.weight,
-                              self.norm2.body.bias, _mat(f.project_in),
-                              _taps(f.dwconv), _mat(f.project_out))
-        x = x + conv1x1(a, _mat(at.project_out))
+            return block_tail(x, a, _mat(at.project_out, dt), *_ln(self.norm2),
+                              _mat(f.project_in, dt), _taps(f.dwconv, dt),
+                              _mat(f.project_out, dt))
+        x = x + conv1x1(a, _mat(at.project_out, dt))
         return x + gdfn(self.norm2(x), f.project_in.weight, f.dwconv.weight,
                         f.project_out.weight, depthwise=self.depthwise)
 
@@ -360,7 +378,10 @@ class TNet(nn.Module):
         if single_pass or not self.cfg.decoder:
             return out1, out1, res
         _, _, _, reslatent = self._encode(res, res_branch=True)
-        latent2 = latent + self.cfg.latent_cond_scale * reslatent
+        # the scale in the activations' dtype, as JAX takes a Python float
+        # (0.8 is 0.80078125 in bf16)
+        scale = torch.tensor(self.cfg.latent_cond_scale, dtype=reslatent.dtype)
+        latent2 = latent + scale * reslatent
         out2 = self._decode(latent2, e1, e2, e3, inp)
         return out2, out1, res
 

@@ -17,6 +17,14 @@ the kernels of csrc/block_fwd.cu and csrc/block_bwd.cu; a CPU tensor to the
 plain twins below, composed from the port's ops and differentiated by
 autograd, so they share none of the kernels' formulas. The kernels take
 their launch plans from block_fwd_plan and block_bwd_plan below.
+
+bf16 (serving, forward only): a bf16 x with bf16 weights (LN weights fp32,
+as rcot_tpu/models/restormer.py:77-89 passes them) goes to the bf16 kernels
+of csrc/block_fwd_bf16.cu on the card, counted as block_head_bf16 and
+block_tail_bf16. The plain twins take any float dtype: their products and
+stencils run in at least fp32 and round to x's dtype where the JAX kernel
+(rcot_tpu/ops/pallas_block.py:111-142) rounds, which in fp32 or float64
+is no rounding at all.
 """
 
 from __future__ import annotations
@@ -38,14 +46,30 @@ from .layernorm import layernorm
 
 # ------------------------------------------------------------------ plain
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in at least fp32 (a float64 twin stays float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 1x1 product a @ w^T in at least fp32, rounded to a's dtype."""
+    return conv1x1(_wide(a), _wide(w)).to(a.dtype)
+
+
 def block_head_plain(x, ln_w, ln_b, w_qkv, dwk):
-    return depthwise3x3(conv1x1(layernorm(x, ln_w, ln_b), w_qkv), dwk)
+    """qkv = dw3x3(LN1(x) @ W_qkv), rounded to x's dtype after the LN, the
+    product and the stencil (pallas_block.py:119-142)."""
+    h = _mm(layernorm(x, ln_w, ln_b), w_qkv)
+    return depthwise3x3(_wide(h), _wide(dwk)).to(x.dtype)
 
 
 def block_tail_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out):
-    t = x + conv1x1(a, w_proj)
-    h = depthwise3x3(conv1x1(layernorm(t, ln_w, ln_b), w_in), dwk)
-    return t + conv1x1(gated(h), w_out)
+    """y = t + gate @ W_out, t = x + a @ W_proj, rounded to x's dtype after
+    each product, each residual add, the LN and the gate; the stencil and
+    the gate in at least fp32 (pallas_block.py:111-142)."""
+    t = (_wide(x) + _wide(_mm(a, w_proj))).to(x.dtype)
+    h = depthwise3x3(_wide(_mm(layernorm(t, ln_w, ln_b), w_in)), _wide(dwk))
+    return (_wide(t) + _wide(_mm(gated(h).to(x.dtype), w_out))).to(x.dtype)
 
 
 def _vjp_plain(fn, inputs, g):
@@ -75,31 +99,35 @@ def block_tail_bwd_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
 
 def block_head_fwd(x: torch.Tensor, ln_w: torch.Tensor, ln_b: Optional[torch.Tensor],
                    w_qkv: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
-    """x (B,H,W,C) -> qkv (B,H,W,M); w_qkv (M,C), dwk (M,3,3). On the card
-    two calls on the same inputs give the same bits."""
+    """x (B,H,W,C) -> qkv (B,H,W,M); w_qkv (M,C), dwk (M,3,3), in x's
+    dtype (fp32, or bf16 with fp32 ln_w, ln_b). On the card two calls on
+    the same inputs give the same bits."""
     if not x.is_cuda:
         return block_head_plain(x, ln_w, ln_b, w_qkv, dwk)
     b, h, w, c = x.shape
     m = w_qkv.shape[0]
     n = b * h * w
     dev = x.device
-    for name, t, shape in (("x", x, (b, h, w, c)), ("ln_w", ln_w, (c,)),
-                           ("ln_b", ln_b, (c,)), ("w_qkv", w_qkv, (m, c)),
-                           ("dwk", dwk, (m, 3, 3))):
-        build.check_arg(name, t, shape, dev)
+    dt = build.kernel_dtype(x)
+    bf16 = dt == torch.bfloat16
+    for name, t, shape, want in (("x", x, (b, h, w, c), dt), ("ln_w", ln_w, (c,), None),
+                                 ("ln_b", ln_b, (c,), None), ("w_qkv", w_qkv, (m, c), dt),
+                                 ("dwk", dwk, (m, 3, 3), dt)):
+        build.check_arg(name, t, shape, dev, want or torch.float32)
     _check_channels(c)
-    out = torch.empty(b, h, w, m, device=dev)
+    out = torch.empty(b, h, w, m, device=dev, dtype=dt)
     # u, stats, h
-    buf, ws = _workspaces(dev, fwd_workspace_numel(n, c, m, False))
+    buf, ws = _workspaces(dev, fwd_workspace_numel(n, c, m, False, bf16))
     vecs = fwd_vecs(c, m, False, {"u": ws[0], "w_qkv": w_qkv.data_ptr(), "h": ws[2],
-                                  "out": out.data_ptr()})
-    plan, n_sums = _fwd_card_plan(b, h, w, c, m, False, dev.index, *vecs)
+                                  "out": out.data_ptr()}, bf16)
+    plan, n_sums = _fwd_card_plan(b, h, w, c, m, False, dev.index, *vecs, bf16)
     sums = torch.empty(n_sums, device=dev) if n_sums else None
+    kernel = "block_head_bf16" if bf16 else "block_head"
     with torch.cuda.device(dev):
-        build.call("rcot_block_head", x.data_ptr(), ln_w.data_ptr(), build.ptr(ln_b),
+        build.call("rcot_" + kernel, x.data_ptr(), ln_w.data_ptr(), build.ptr(ln_b),
                    w_qkv.data_ptr(), dwk.data_ptr(), out.data_ptr(), *ws, build.ptr(sums),
                    plan, b, h, w, c, m, build.stream())
-    build.LAUNCHES["block_head"] += 1
+    build.LAUNCHES[kernel] += 1
     return out
 
 
@@ -108,34 +136,38 @@ def block_tail_fwd(x: torch.Tensor, a: torch.Tensor, w_proj: torch.Tensor,
                    w_in: torch.Tensor, dwk: torch.Tensor,
                    w_out: torch.Tensor) -> torch.Tensor:
     """x, a (B,H,W,C) -> y (B,H,W,C); w_proj (C,C), w_in (2h,C),
-    dwk (2h,3,3), w_out (C,h). On the card two calls on the same inputs
-    give the same bits."""
+    dwk (2h,3,3), w_out (C,h), in x's dtype (fp32, or bf16 with fp32 ln_w,
+    ln_b). On the card two calls on the same inputs give the same bits."""
     if not x.is_cuda:
         return block_tail_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out)
     b, h, w, c = x.shape
     hid = w_out.shape[1]
     n = b * h * w
     dev = x.device
-    for name, t, shape in (("x", x, (b, h, w, c)), ("a", a, (b, h, w, c)),
-                           ("w_proj", w_proj, (c, c)), ("ln_w", ln_w, (c,)),
-                           ("ln_b", ln_b, (c,)), ("w_in", w_in, (2 * hid, c)),
-                           ("dwk", dwk, (2 * hid, 3, 3)), ("w_out", w_out, (c, hid))):
-        build.check_arg(name, t, shape, dev)
+    dt = build.kernel_dtype(x)
+    bf16 = dt == torch.bfloat16
+    for name, t, shape, want in (("x", x, (b, h, w, c), dt), ("a", a, (b, h, w, c), dt),
+                                 ("w_proj", w_proj, (c, c), dt), ("ln_w", ln_w, (c,), None),
+                                 ("ln_b", ln_b, (c,), None), ("w_in", w_in, (2 * hid, c), dt),
+                                 ("dwk", dwk, (2 * hid, 3, 3), dt),
+                                 ("w_out", w_out, (c, hid), dt)):
+        build.check_arg(name, t, shape, dev, want or torch.float32)
     _check_channels(c)
     y = torch.empty_like(x)
     # t, stats, u, h, conv
-    buf, ws = _workspaces(dev, fwd_workspace_numel(n, c, 2 * hid, True))
+    buf, ws = _workspaces(dev, fwd_workspace_numel(n, c, 2 * hid, True, bf16))
     ptrs = {"a": a.data_ptr(), "u": ws[2], "w_proj": w_proj.data_ptr(),
             "w_in": w_in.data_ptr(), "h": ws[3], "conv": ws[4], "w_out": w_out.data_ptr()}
     plan, n_sums = _fwd_card_plan(b, h, w, c, 2 * hid, True, dev.index,
-                                  *fwd_vecs(c, 2 * hid, True, ptrs))
+                                  *fwd_vecs(c, 2 * hid, True, ptrs, bf16), bf16)
     sums = torch.empty(n_sums, device=dev) if n_sums else None
+    kernel = "block_tail_bf16" if bf16 else "block_tail"
     with torch.cuda.device(dev):
-        build.call("rcot_block_tail",
+        build.call("rcot_" + kernel,
                    *(t.data_ptr() for t in (x, a, w_proj, ln_w)), build.ptr(ln_b),
                    *(t.data_ptr() for t in (w_in, dwk, w_out, y)), *ws, build.ptr(sums),
                    plan, b, h, w, c, hid, build.stream())
-    build.LAUNCHES["block_tail"] += 1
+    build.LAUNCHES[kernel] += 1
     return y
 
 
@@ -289,6 +321,10 @@ def _check_channels(c: int) -> None:
 # it anew in each of its output tiles, and the gate is a pass of its own
 # into h's buffer, read by a plain product (gate_pass). On the card the
 # fused gate was the faster at C = 48 and the pass from C = 96 up (PERF.md).
+# In bf16 (csrc/block_fwd_bf16.cu) the copy widths count bf16 elements
+# (kdw.bf16_vec), the gate is always a pass (its A tile holds bf16, and the
+# gate is taken from fp32 conv) into rows of gate_ld(h, bf16) = h rounded
+# up to 8, and the workspaces hold bf16 but for stats and conv (fp32).
 FWD_PLAN_INTS = 15
 GATE_FUSED_MAX_C = MM_TILE_N
 
@@ -312,18 +348,19 @@ class FwdPlan(NamedTuple):
 
 
 def block_fwd_plan(b: int, h: int, w: int, c: int, width: int, tail: bool, n_sm: int,
-                   vecs: Tuple[int, int, int], dw_conv: Tuple[int, int, int, int]) -> FwdPlan:
+                   vecs: Tuple[int, int, int], dw_conv: Tuple[int, int, int, int],
+                   bf16: bool = False) -> FwdPlan:
     """The plan of a forward on (B,H,W,C) with depthwise width `width` (2h
     in the tail, 3C in the head) on a card of n_sm SMs; vecs the copy
     widths of the C class, the h class and the gate's rows, dw_conv row
-    11's (vec, cv, tc, rows) on (B,H,W,width)."""
+    11's (vec, cv, tc, rows) on (B,H,W,width); bf16 the bf16 kernels'."""
     n = b * h * w
     # (n, k) of t, h and out (None: not run)
     prods = ((c, c), (width, c), (c, width // 2)) if tail else (None, (width, c), None)
     splits = tuple((1, 0) if nk is None else split_plan(n, *nk, n_sm) for nk in prods)
     numel = max([0] + [s * n * nk[0] for (s, _), nk in zip(splits, prods) if s > 1])
     return FwdPlan(ln_plan(n, n_sm)[0], *vecs, splits, dw_conv,
-                   int(tail and c > GATE_FUSED_MAX_C), numel)
+                   int(tail and (bf16 or c > GATE_FUSED_MAX_C)), numel)
 
 
 def _workspaces(dev, sizes) -> Tuple[torch.Tensor, list]:
@@ -338,27 +375,38 @@ def _workspaces(dev, sizes) -> Tuple[torch.Tensor, list]:
     return buf, [buf.data_ptr() + 4 * s for s in starts]
 
 
-def gate_ld(hid: int) -> int:
-    """Floats between rows of a gate pass's gate: hid rounded up to 4."""
-    return _cdiv(hid, 4) * 4
+def gate_ld(hid: int, bf16: bool = False) -> int:
+    """Elements between rows of a gate pass's gate: 16 bytes' worth, hid
+    rounded up to 4 floats or 8 bf16."""
+    unit = 8 if bf16 else 4
+    return _cdiv(hid, unit) * unit
 
 
-def fwd_workspace_numel(n: int, c: int, width: int, tail: bool) -> Tuple[int, ...]:
+def fwd_workspace_numel(n: int, c: int, width: int, tail: bool,
+                        bf16: bool = False) -> Tuple[int, ...]:
     """Floats of each workspace of a forward on n pixels, in the order the
     kernel takes them: the tail's t, stats, u, h, conv (h's buffer takes
-    the gate of a gate pass, n rows of gate_ld(h)), the head's u, stats, h."""
+    the gate of a gate pass, n rows of gate_ld(h)), the head's u, stats, h;
+    in bf16 all but stats and conv hold bf16, two to a float."""
+    half = (lambda k: _cdiv(k, 2)) if bf16 else (lambda k: k)
     if tail:
-        return n * c, 2 * n, n * c, n * max(width, gate_ld(width // 2)), n * width
-    return n * c, 2 * n, n * width
+        return (half(n * c), 2 * n, half(n * c),
+                half(n * max(width, gate_ld(width // 2, bf16))), n * width)
+    return half(n * c), 2 * n, half(n * width)
 
 
-def fwd_vecs(c: int, width: int, tail: bool, ptrs: dict) -> Tuple[int, int, int, int]:
+def fwd_vecs(c: int, width: int, tail: bool, ptrs: dict,
+             bf16: bool = False) -> Tuple[int, int, int, int]:
     """-> copy widths of the C class, the h class, the gate's rows and the
     depthwise width of a forward whose operands start at ptrs (name ->
     address): the tail's a, u, w_proj, w_in, h, conv, w_out, the head's u,
     w_qkv, h, out. The h class takes conv's two halves (at columns 0 and h
     of its rows) and W_out's rows, the gate's rows lie gate_ld(h) floats
-    apart in h's buffer; the head has neither (1)."""
+    apart in h's buffer; the head has neither (1). In bf16 the widths count
+    bf16 (the h class is W_out's rows alone: the gate pass reads conv), and
+    the depthwise copies at least two, so its width must be even."""
+    if bf16:
+        return _fwd_vecs_bf16(c, width, tail, ptrs)
     if tail:
         hid = width // 2
         return (kdw.dwconv_vec(c, *(ptrs[k] for k in ("a", "u", "w_proj", "w_in"))),
@@ -369,12 +417,30 @@ def fwd_vecs(c: int, width: int, tail: bool, ptrs: dict) -> Tuple[int, int, int,
             kdw.dwconv_vec(width, ptrs["h"], ptrs["out"]))
 
 
+def _fwd_vecs_bf16(c: int, width: int, tail: bool, ptrs: dict) -> Tuple[int, int, int, int]:
+    if tail:
+        hid = width // 2
+        vecs = (kdw.bf16_vec(c, *(ptrs[k] for k in ("a", "u", "w_proj", "w_in"))),
+                kdw.bf16_vec(hid, ptrs["w_out"]),
+                kdw.bf16_vec(gate_ld(hid, True), ptrs["h"]),
+                kdw.bf16_vec(width, ptrs["h"], f32_ptrs=(ptrs["conv"],)))
+    else:
+        vecs = (kdw.bf16_vec(c, ptrs["u"], ptrs["w_qkv"]), 1, 1,
+                kdw.bf16_vec(width, ptrs["h"], ptrs["out"]))
+    if vecs[3] < 2:
+        raise ValueError(f"bf16 block kernels: the depthwise width {width} must be even "
+                         "(its copies move two bf16 at least)")
+    return vecs
+
+
 @functools.lru_cache(maxsize=None)
-def _fwd_card_plan(b, h, w, c, width, tail, device_index, vec_c, vec_h, vec_g, vec_m):
+def _fwd_card_plan(b, h, w, c, width, tail, device_index, vec_c, vec_h, vec_g, vec_m,
+                   bf16=False):
     """-> (the forward plan's ints as a ctypes array, floats of sums) on this card."""
-    dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False))
+    io = ("bf16_f32" if tail else "bf16") if bf16 else "f32"
+    dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False, io))
     plan = block_fwd_plan(b, h, w, c, width, tail, sm_count(device_index),
-                          (vec_c, vec_h, vec_g), dw_conv)
+                          (vec_c, vec_h, vec_g), dw_conv, bf16)
     return (ctypes.c_int * FWD_PLAN_INTS)(*plan.ints()), plan.sums_numel
 
 

@@ -33,6 +33,10 @@ The depthwise tier of the qkv and the GDFN outside the block kernels
 
 In "full" the depthwise tier changes nothing: the head and tail kernels do
 their own depthwise convs, in the JAX package as here.
+
+In bf16 (serving's --dtype bfloat16) only "full" with the Gram core and the
+fused tier has kernels yet (rows 1-4); every other choice stops by name
+(check_bf16), on either device, rather than run another path.
 """
 
 from __future__ import annotations
@@ -62,3 +66,20 @@ def resolve_depthwise(requested: str) -> str:
     if requested not in DEPTHWISE:
         raise ValueError(f"unknown depthwise tier {requested!r}; one of {DEPTHWISE}")
     return requested
+
+
+# the one choice that serves in bf16 (ROADMAP Queue 1 item 4)
+BF16_CHOICE = {"composition": "full", "attention_core": "gram", "depthwise": "fused"}
+_BF16_FLAGS = {"composition": "--composition", "attention_core": "--attention-core",
+               "depthwise": "--depthwise"}
+
+
+def check_bf16(composition: str, attention_core: str, depthwise: str) -> None:
+    """Raise for a bf16 forward in any choice but BF16_CHOICE, naming it."""
+    given = {"composition": composition, "attention_core": attention_core,
+             "depthwise": depthwise}
+    for key, want in BF16_CHOICE.items():
+        if given[key] != want:
+            raise NotImplementedError(
+                f"bf16 with `{_BF16_FLAGS[key]} {given[key]}` is not ported yet "
+                "(ROADMAP Queue 1 item 4)")

@@ -67,6 +67,18 @@ def dwconv_vec(c: int, *ptrs: int) -> int:
     return 1
 
 
+def bf16_vec(c: int, *ptrs: int, f32_ptrs: Tuple[int, ...] = ()) -> int:
+    """bf16 a copy moves in serving's bf16 kernels: 8, 4 or 2 where they
+    divide C and every bf16 pointer is aligned to that many bf16 and every
+    fp32 one (an fp32 output of as many values, stored 16 or 8 bytes at a
+    time) to min(16, 4 * vec) bytes, else 1."""
+    for vec in (8, 4, 2):
+        if (c % vec == 0 and all(p % (2 * vec) == 0 for p in ptrs)
+                and all(p % min(16, 4 * vec) == 0 for p in f32_ptrs)):
+            return vec
+    return 1
+
+
 def dwconv_tile(c: int, w: int, vec: int) -> Tuple[int, int]:
     """-> (cv, tc): channel vectors and columns a block."""
     n_vec = c // vec
@@ -95,23 +107,35 @@ def dwconv_rows(b: int, h: int, w: int, c: int, vec: int, n_sm: int, per_sm: int
     return full[0] if full else max(blocks, key=lambda rows: fill[rows])
 
 
+# The element types of a forward launch: "f32" (fp32 in and out), or the
+# bf16 forward of serving's bf16 block kernels, into bf16 ("bf16", the
+# head's qkv) or fp32 ("bf16_f32", the tail's conv); vec counts elements.
+DW_IO = ("f32", "bf16", "bf16_f32")
+
+
 @functools.lru_cache(maxsize=None)
-def blocks_per_sm(device_index: int, vec: int, cv: int, tc: int, dtaps: bool) -> int:
+def blocks_per_sm(device_index: int, vec: int, cv: int, tc: int, dtaps: bool,
+                  io: str = "f32") -> int:
     """Blocks of this tile that one SM holds at once, for the forward (and
-    dx) or for dtaps."""
+    dx) or for dtaps, of the element types io."""
     n = ctypes.c_int()
     with torch.cuda.device(device_index):
-        build.call("rcot_dwconv3x3_blocks_per_sm", vec, cv, tc, int(dtaps), ctypes.byref(n))
+        if io == "f32":
+            build.call("rcot_dwconv3x3_blocks_per_sm", vec, cv, tc, int(dtaps),
+                       ctypes.byref(n))
+        else:
+            build.call("rcot_dwconv3x3_bf16_blocks_per_sm", vec, cv, tc, int(io == "bf16"),
+                       ctypes.byref(n))
     return n.value
 
 
 def dwconv_plan(b: int, h: int, w: int, c: int, device_index: int, vec: int,
-                dtaps: bool) -> Tuple[int, int, int]:
+                dtaps: bool, io: str = "f32") -> Tuple[int, int, int]:
     """-> (cv, tc, rows) of a launch on (B,H,W,C) on this card: the forward
-    and dx (dtaps False) or dtaps."""
+    and dx (dtaps False) or dtaps, of the element types io (DW_IO)."""
     cv, tc = dwconv_tile(c, w, vec)
     return cv, tc, dwconv_rows(b, h, w, c, vec, sm_count(device_index),
-                               blocks_per_sm(device_index, vec, cv, tc, dtaps),
+                               blocks_per_sm(device_index, vec, cv, tc, dtaps, io),
                                DTAPS_MAX_PIXELS if dtaps else 0)
 
 

@@ -22,6 +22,13 @@ twins differentiate the forward twins by autograd. The kernels take heads
 of any width: a head wider than HEAD_BLOCK channels runs as channel blocks
 (channel_blocks) in a grid of block pairs, each sum over blocks through
 slots of a workspace (slots_numel) added in a fixed order.
+
+bf16 (serving, forward only; rcot_tpu/ops/pallas_gram.py on a bf16 qkv): the
+Gram reads a bf16 qkv and writes fp32 G, nq and nk (the JAX kernel upcasts
+first, :81; a bf16 product is exact in fp32), the glue stays fp32, and the
+apply rounds attn to bf16 (:171), sums in fp32 and writes bf16. On the card
+a bf16 qkv goes to csrc/gram_bf16.cu's kernels, with the fp32 kernels'
+plans, counted as mdta_gram_fwd_bf16 and attn_apply_fwd_bf16.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ L2_EPS = 1e-12
 
 def mdta_gram_plain(qkv: torch.Tensor, num_heads: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if qkv.dtype == torch.bfloat16:
+        qkv = qkv.float()
     b, h, w, c3 = qkv.shape
     c = c3 // 3
     ch = c // num_heads
@@ -51,6 +60,9 @@ def mdta_gram_plain(qkv: torch.Tensor, num_heads: int
 
 
 def attn_apply_plain(qkv: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    if qkv.dtype == torch.bfloat16:
+        attn = attn.to(torch.bfloat16).float()
+        return attn_apply_plain(qkv.float(), attn).to(torch.bfloat16)
     b, h, w, c3 = qkv.shape
     c = c3 // 3
     heads, ch = attn.shape[1], attn.shape[2]
@@ -209,6 +221,18 @@ def slots_numel(b: int, hw: int, heads: int, ch: int, width: int) -> int:
     return 0 if nb == 1 else nb * b * hw * width * heads * ch
 
 
+def bf16_copy_width(ch: int, cb: int, *ptrs: int) -> int:
+    """bf16 a copy of a head's rows in the bf16 Gram and apply (csrc/
+    gram_bf16.cu): 8 (16 bytes) where ch and the channel block cb are
+    multiples of 8 and every pointer is 16-byte aligned, 2 (4 bytes) where
+    they are even and 4-byte aligned, else 1 (a 2-byte load by the thread):
+    every row offset of a head is then a multiple of the copy."""
+    for vec in (8, 2):
+        if ch % vec == 0 and cb % vec == 0 and all(p % (2 * vec) == 0 for p in ptrs):
+            return vec
+    return 1
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
     """The card's SM count, read once per device."""
@@ -225,7 +249,8 @@ def mdta_gram_fwd(qkv: torch.Tensor, num_heads: int
     b, h, w, c3 = qkv.shape
     ch = c3 // 3 // num_heads
     dev = qkv.device
-    build.check_arg("qkv", qkv, (b, h, w, 3 * num_heads * ch), dev)
+    bf16 = qkv.dtype == torch.bfloat16
+    build.check_arg("qkv", qkv, (b, h, w, 3 * num_heads * ch), dev, build.kernel_dtype(qkv))
     cb = channel_blocks(ch)[1]
     splits, per = gram_pairs_plan(b, h * w, num_heads, ch, sm_count(dev.index))
     n_ws = gram_workspace_numel(splits, b, num_heads, ch)
@@ -234,32 +259,41 @@ def mdta_gram_fwd(qkv: torch.Tensor, num_heads: int
     nq = torch.empty(b, num_heads, ch, device=dev)
     nk = torch.empty(b, num_heads, ch, device=dev)
     ws = torch.empty(n_ws, device=dev) if n_ws else None
+    kernel = "mdta_gram_fwd_bf16" if bf16 else "mdta_gram_fwd"
+    # the bf16 kernel takes its copy width after the plan
+    vec = (bf16_copy_width(ch, cb, qkv.data_ptr()),) if bf16 else ()
     with torch.cuda.device(dev):
-        build.call("rcot_mdta_gram", qkv.data_ptr(), gram.data_ptr(), nq.data_ptr(),
-                   nk.data_ptr(), build.ptr(ws), b, h * w, num_heads, ch, cb, splits, per,
-                   build.stream())
-    build.LAUNCHES["mdta_gram_fwd"] += 1
+        build.call("rcot_mdta_gram_bf16" if bf16 else "rcot_mdta_gram", qkv.data_ptr(),
+                   gram.data_ptr(), nq.data_ptr(), nk.data_ptr(), build.ptr(ws), b, h * w,
+                   num_heads, ch, cb, splits, per, *vec, build.stream())
+    build.LAUNCHES[kernel] += 1
     return gram, nq, nk
 
 
 def attn_apply_fwd(qkv: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-    """qkv (B,H,W,3C), attn (B,heads,ch,ch) -> (B,H,W,C)."""
+    """qkv (B,H,W,3C), attn (B,heads,ch,ch) fp32 -> (B,H,W,C) in qkv's
+    dtype."""
     if not qkv.is_cuda:
         return attn_apply_plain(qkv, attn)
     b, h, w, _ = qkv.shape
     heads, ch = attn.shape[1], attn.shape[2]
     dev = qkv.device
-    build.check_arg("qkv", qkv, (b, h, w, 3 * heads * ch), dev)
+    bf16 = qkv.dtype == torch.bfloat16
+    build.check_arg("qkv", qkv, (b, h, w, 3 * heads * ch), dev, build.kernel_dtype(qkv))
     build.check_arg("attn", attn, (b, heads, ch, ch), dev)
     cb = channel_blocks(ch)[1]
     blocks, per = apply_plan(b, h * w, heads, ch, sm_count(dev.index))
     n_ws = slots_numel(b, h * w, heads, ch, 1)
-    out = torch.empty(b, h, w, heads * ch, device=dev)
+    out = torch.empty(b, h, w, heads * ch, device=dev, dtype=qkv.dtype)
     ws = torch.empty(n_ws, device=dev) if n_ws else None
+    kernel = "attn_apply_fwd_bf16" if bf16 else "attn_apply_fwd"
+    # the bf16 kernel stores pairs of bf16 where it copies two or more
+    vec = (bf16_copy_width(ch, cb, qkv.data_ptr(), out.data_ptr()),) if bf16 else ()
     with torch.cuda.device(dev):
-        build.call("rcot_attn_apply", qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-                   build.ptr(ws), b, h * w, heads, ch, cb, blocks, per, build.stream())
-    build.LAUNCHES["attn_apply_fwd"] += 1
+        build.call("rcot_attn_apply_bf16" if bf16 else "rcot_attn_apply", qkv.data_ptr(),
+                   attn.data_ptr(), out.data_ptr(), build.ptr(ws), b, h * w, heads, ch, cb,
+                   blocks, per, *vec, build.stream())
+    build.LAUNCHES[kernel] += 1
     return out
 
 

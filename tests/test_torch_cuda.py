@@ -28,6 +28,14 @@ Gram and norms are pixel sums added with atomics, and the depthwise
 kernel's backward (dx by the same kernel, dtaps a pixel sum in a fixed
 order, bitwise repeatable) are held against float64 twins at the same
 1e-5.
+
+bf16 serving (rows 1-4 in bf16, csrc/block_fwd_bf16.cu and gram_bf16.cu):
+each bf16 output within BF16_RTOL = 2^-6 of max(max|twin|, 1) of its plain
+bf16 twin (four bf16 ulps of the largest value: where a sum falls next to a
+rounding boundary the kernel and the twin round it apart, and later stages
+carry that on), the Gram's fp32 outputs (sums of exact bf16 products)
+within 1e-5 of the float64 twin's; every bf16 kernel repeats bitwise; a bf16
+tensor at an fp32-only kernel (rows 5-11) raises and names its dtype.
 """
 
 import pytest
@@ -799,3 +807,103 @@ def test_metric_nets_on_the_card_match_the_cpu(cuda_device):
     x, y = torch.rand(2, 2, 64, 72, 3, generator=gen)
     got, want = (lpips.lpips(lp[d], x, y).cpu() for d in ("cuda", "cpu"))
     assert float((got - want).abs().max()) <= 1e-5
+
+
+# ------------------------------------------------------------ bf16 serving
+
+BF16_RTOL = 2.0 ** -6
+
+
+def _bf16_within(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    return err <= BF16_RTOL * max(float(want.float().abs().max()), 1.0)
+
+
+def _to_bf16(p):
+    return {k: v if v is None or k.startswith("ln_") else v.bfloat16() for k, v in p.items()}
+
+
+# rows 1-2 in bf16: C = 6 (h = 15), odd h (127, 255, 1,021: W_out's rows
+# 2-byte aligned) and h = 510, split products (the latent), B = 3
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 20, 19, 6), (2, 32, 32, 48), (1, 16, 16, 192),
+                                   (1, 9, 33, 384), (3, 16, 16, 384), (1, 24, 40, 96)])
+@pytest.mark.parametrize("ln_bias", [True, False], ids=["WithBias", "BiasFree"])
+def test_bf16_block_kernels_match_their_bf16_twins_and_repeat(cuda_device, shape, ln_bias):
+    p = _to_bf16(_block_inputs(torch.Generator(device="cuda").manual_seed(15), *shape,
+                               ln_bias))
+    for name, (fn, plain, args) in _block_fwd_calls(p).items():
+        n0, n32 = build.LAUNCHES[name + "_bf16"], build.LAUNCHES[name]
+        got, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name + "_bf16"] == n0 + 2 and build.LAUNCHES[name] == n32, name
+        assert _bf16_within(got, plain(*args)), name
+        assert torch.equal(got, again), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,ch,hw", [(1, 1, 48, (64, 64)), (2, 8, 48, (16, 16)),
+                                           (3, 4, 24, (33, 7)), (1, 1, 192, (32, 32)),
+                                           (1, 1, 150, (9, 9)), (2, 2, 5, (6, 7))])
+def test_bf16_gram_and_apply_match_their_twins_and_repeat(cuda_device, b, heads, ch, hw):
+    """Heads of 48 (16-byte copies), 24, 192 (two blocks of 96), 150 (blocks
+    of 75: 2-byte loads) and 5."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    qkv = torch.randn(b, *hw, 3 * heads * ch, device="cuda", generator=gen).bfloat16()
+    got, again = tgram.mdta_gram_fwd(qkv, heads), tgram.mdta_gram_fwd(qkv, heads)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, tgram.mdta_gram_plain(qkv.double(), heads)):
+        assert g.dtype == torch.float32 and _within(g, w) and torch.equal(g, a)
+    attn = torch.softmax(torch.randn(b, heads, ch, ch, device="cuda", generator=gen), -1)
+    out, again = tgram.attn_apply_fwd(qkv, attn), tgram.attn_apply_fwd(qkv, attn)
+    torch.cuda.synchronize()
+    assert _bf16_within(out, tgram.attn_apply_plain(qkv, attn)) and torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_fp32_only_kernels_refuse_bf16_by_its_dtype(cuda_device):
+    """Rows 5-11 have no bf16 form yet: a bf16 tensor raises, never casts."""
+    p = _to_bf16(_block_inputs(torch.Generator(device="cuda").manual_seed(17), 1, 8, 8, 8,
+                               True))
+    head = [p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"]]
+    q = torch.zeros(1, 1, 8, 64, device="cuda", dtype=torch.bfloat16)
+    calls = [
+        lambda: tblock.block_head_bwd(*head, torch.zeros_like(p["x"]).repeat(1, 1, 1, 3)),
+        lambda: tgram.mdta_gram_bwd(torch.zeros(1, 8, 8, 24, device="cuda",
+                                                dtype=torch.bfloat16),
+                                    *(torch.zeros(1, 1, 8, 8, device="cuda"),
+                                      torch.zeros(1, 1, 8, device="cuda"),
+                                      torch.zeros(1, 1, 8, device="cuda")), 1),
+        lambda: tfused.conv1x1_dw_fused(p["x"], p["w_qkv"], p["dw_qkv"]),
+        lambda: tdw.dwconv3x3(p["x"], p["dw_qkv"][:8]),
+        lambda: tmdta.mdta_attend(q, q, q, torch.ones(1, 1, 1, device="cuda"))]
+    for call in calls:
+        with pytest.raises(ValueError, match="bfloat16"):
+            call()
+
+
+@pytest.mark.cuda
+def test_a_bf16_tnet_on_the_card_matches_the_cpu(cuda_device):
+    """A small T_net served in bf16 (make_restorer's dtype) on the card
+    against the same restorer on the CPU: mean|card - CPU| within a quarter
+    of mean|fp32 - bf16| (tests/test_torch_bf16.py says why the mean), each
+    bf16 kernel launched once a block and no fp32 row 1-4 kernel."""
+    import numpy as np
+
+    from rcot_torch.models.inference import make_restorer
+    cfg = ModelConfig(dim=16, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
+                      parity_params=False)
+    net = TNet(cfg, device="cpu", seed=3).eval()
+    img = np.random.default_rng(3).uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    cpu16 = make_restorer(net, cfg, device="cpu", dtype=torch.bfloat16)(img)
+    cpu32 = make_restorer(net, cfg, device="cpu")(img)
+    before = dict(build.LAUNCHES)
+    card = make_restorer(net.cuda(), cfg, device="cuda", dtype=torch.bfloat16)(img)
+    launched = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert set(launched) == {"block_head_bf16", "block_tail_bf16", "mdta_gram_fwd_bf16",
+                             "attn_apply_fwd_bf16"}
+    assert len(set(launched.values())) == 1
+    err, gap = np.abs(card - cpu16).mean(), np.abs(cpu32 - cpu16).mean()
+    assert err <= gap / 4, (err, gap)

@@ -238,8 +238,10 @@ def test_cli_test_metrics_match_jax(tmp_path, jax_ckpt, capsys):
     assert np.isfinite(n_got) and abs(n_got - n_want) <= 1e-5
 
 
+# bf16 serves in full/gram/fused; bf16 in another composition stops by name
 @pytest.mark.parametrize("flags,what", [
-    (["--dtype", "bfloat16"], "bf16"), (["--backbone", "mprnet"], "MPRNet"),
+    (["--dtype", "bfloat16", "--composition", "off"], "bf16"),
+    (["--backbone", "mprnet"], "MPRNet"),
     (["--sr-scale", "2"], "SR mode"), (["--spatial", "2"], "row sharding")])
 def test_cli_test_refuses_unported_flags_by_name(flags, what):
     argv = ["--ckpt", "missing.npz", "--degset", "a/", "--tarset", "b/"] + flags
@@ -249,7 +251,7 @@ def test_cli_test_refuses_unported_flags_by_name(flags, what):
 
 @pytest.mark.parametrize("flags", [[], ["--dtype", "float32"], ["--backbone", "auto"],
                                    ["--backbone", "restormer"], ["--sr-scale", "0"],
-                                   ["--spatial", "1"]])
+                                   ["--spatial", "1"], ["--dtype", "bfloat16"]])
 def test_cli_test_takes_the_ported_values(flags):
     args = t_test.build_parser().parse_args(
         ["--ckpt", "x.npz", "--degset", "a/", "--tarset", "b/"] + flags)
@@ -257,11 +259,21 @@ def test_cli_test_takes_the_ported_values(flags):
 
 
 def test_eval_all_refuses_bf16_by_name():
-    with pytest.raises(SystemExit, match="--dtype bfloat16.*not ported"):
-        t_eval.main(["--ckpt", "missing.npz", "--dtype", "bfloat16"])
+    """bf16 with the fused MDTA attend is not ported: stopped by name."""
+    with pytest.raises(SystemExit,
+                       match="--dtype bfloat16: bf16 with `--attention-core mdta` is not ported"):
+        t_eval.main(["--ckpt", "missing.npz", "--dtype", "bfloat16",
+                     "--attention-core", "mdta"])
     args = t_eval.build_parser().parse_args(["--ckpt", "x.npz", "--sigmas", "15", "50",
                                              "--paired", "a", "b/", "--dtype", "float32"])
     assert args.sigmas == [15, 50] and args.paired == [["a", "b/"]]
     assert (args.device, args.composition, args.attention_core, args.depthwise) == (
         "cuda", "full", "gram", "fused")
     t_test.refuse_unported(args)
+
+
+def test_cli_train_refuses_bf16_training_by_name():
+    """bf16 serves; bf16 training (the rest of ROADMAP Queue 1 item 4) does not."""
+    from rcot_torch.cli import train as t_train
+    with pytest.raises(SystemExit, match="--dtype bfloat16: bf16 training .* not ported"):
+        t_train.main(["--dtype", "bfloat16", "--device", "cpu"])

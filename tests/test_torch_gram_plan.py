@@ -157,3 +157,33 @@ def test_heads_up_to_128_keep_their_plans_and_wider_ones_share_the_card(b, hw, h
         for width in (1, 2):
             assert tgram.slots_numel(b, hw, heads, ch, width) == (
                 0 if nb == 1 else nb * b * hw * width * heads * ch)
+
+
+def _offsets_fit(b, hw, heads, ch, ptr, vec):
+    """Every row of a head's q, k and v slices and of its channel blocks
+    starts on a copy: offsets (in bf16) b hw 3C + p 3C + h ch + third C + k cb,
+    and the copy's bytes align with ptr + 2 offset."""
+    nb, cb = tgram.channel_blocks(ch)
+    c = heads * ch
+    offs = {bb * hw * 3 * c + p * 3 * c + h * ch + third * c + k * cb
+            for bb in range(min(b, 2)) for p in range(min(hw, 3)) for h in range(heads)
+            for third in range(3) for k in range(nb)}
+    return (ch % vec == 0 and cb % vec == 0
+            and all((ptr + 2 * o) % min(16, 2 * vec) == 0 for o in offs))
+
+
+@pytest.mark.parametrize("b,hw,heads,ch", sorted(set(MAIN)) + ODD + WIDE)
+@pytest.mark.parametrize("ptr", [0, 4, 2])
+def test_the_bf16_copies_fit_every_row_of_a_head(b, hw, heads, ch, ptr):
+    """The bf16 Gram and apply (csrc/gram_bf16.cu) copy a head's rows 8
+    bf16 (16 bytes) at a time where the head, its channel blocks and the
+    pointer allow, 2 (4 bytes) where they are even and 4-byte aligned, and
+    load single bf16 otherwise (ch = 150 cuts into blocks of 75)."""
+    vec = tgram.bf16_copy_width(ch, tgram.channel_blocks(ch)[1], ptr)
+    assert vec in (8, 2, 1)
+    assert _offsets_fit(b, hw, heads, ch, ptr, vec)
+    wider = {8: None, 2: 8, 1: 2}[vec]
+    if wider is not None:  # the widest that fits
+        assert not _offsets_fit(b, hw, heads, ch, ptr, wider)
+    if (b, hw, heads, ch) in MAIN and ptr == 0:
+        assert vec == 8  # every head of the main path: 16-byte copies

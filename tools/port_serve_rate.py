@@ -2,6 +2,7 @@
 
     python tools/port_serve_rate.py [--root DIR] [--rounds 3]
         [--composition full --attention-core gram --depthwise fused]
+        [--dtype float32|bfloat16]
 
 Imports rcot_torch from DIR (default: this checkout), builds its kernels
 into DIR/build/kernels, and times make_restorer(...).restore_batch on
@@ -9,8 +10,9 @@ into DIR/build/kernels, and times make_restorer(...).restore_batch on
 seeded weights), TF32 off, as chip_smoke.py phase 5 does, and the peak
 of torch.cuda.max_memory_allocated over the batch-8 rounds, in the block
 composition, attention core and depthwise tier given (serving's default
-"full"/gram/fused; e.g. off/mdta/dwconv, chip_smoke.py phase 4b's). Prints
-one JSON line with the card's name and power limit. To hold two trees
+"full"/gram/fused; e.g. off/mdta/dwconv, chip_smoke.py phase 4b's), in fp32
+or bf16 (make_restorer's dtype; a tree without it prints its refusal).
+Prints one JSON line with the card's name and power limit. To hold two trees
 against each other, run them in turns on the same card (A, B, B, A).
 """
 
@@ -31,6 +33,7 @@ def main() -> int:
     ap.add_argument("--composition", default="full")
     ap.add_argument("--attention-core", default="gram")
     ap.add_argument("--depthwise", default="fused")
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -55,8 +58,14 @@ def main() -> int:
     cfg = ModelConfig()
     tier = dict(composition=args.composition, attention_core=args.attention_core,
                 depthwise=args.depthwise)
-    restorer = make_restorer(TNet(cfg, device="cuda", seed=0).eval(), cfg, device="cuda",
-                             **tier)
+    dtype = {} if args.dtype == "float32" else {"dtype": torch.bfloat16}
+    try:
+        restorer = make_restorer(TNet(cfg, device="cuda", seed=0).eval(), cfg, device="cuda",
+                                 **tier, **dtype)
+    except TypeError as e:  # a tree from before bf16 serving
+        print(json.dumps({"root": str(root), "card": card, "dtype": args.dtype,
+                          "refused": str(e)}))
+        return 0
     rng = np.random.default_rng(0)
 
     def rate(batch: int, iters: int) -> float:
@@ -73,7 +82,8 @@ def main() -> int:
     b1 = [rate(1, 10) for _ in range(args.rounds)]
     torch.cuda.reset_peak_memory_stats()
     b8 = [rate(8, 3) for _ in range(args.rounds)]
-    print(json.dumps({"root": str(root), "card": card, **tier, "batch1_img_per_s": b1,
+    print(json.dumps({"root": str(root), "card": card, **tier, "dtype": args.dtype,
+                      "batch1_img_per_s": b1,
                       "batch8_img_per_s": b8,
                       "batch8_max_memory_allocated": torch.cuda.max_memory_allocated()}))
     return 0
