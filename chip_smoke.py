@@ -79,6 +79,12 @@ Phases (any failure exits non-zero; nothing is caught):
      bf16 on the CPU; bf16 and fp32 img/s at batch 1 and 8 in turns and the
      peak memory at batch 8; rcot_torch.cli.test --dtype bfloat16 against a
      CPU run; the bf16 kernels timed as phase 5 times the fp32 ones;
+  5c. bf16 training's kernels (conv1x1_dw_bf16, conv1x1_dw_bwd_bf16,
+     block_tail_bwd_bf16, mdta_gram_bwd_bf16, attn_apply_bwd_bf16) against
+     their plain bf16 twins at every training block shape (128x128, B = 3:
+     each level, the decoder's and the refinement's), rows 6-7 also at the
+     wide heads of phase 3e, each bitwise against a second call, and timed
+     as phase 5 times the others, before the training phases;
   6. train at full width: create_train_state(Config()) (T_net 46,853,150
      and F_net 30,588,609 parameters, seeded) in the JAX trainer's default
      composition, "tail"; three minimax iterations (make_train_iteration)
@@ -91,6 +97,15 @@ Phases (any failure exits non-zero; nothing is caught):
      and in "full" in turns, every kernel at the training shapes, and split
      one iteration of each into forward kernels, backward kernels, the
      critic and the rest;
+  6e. train in bf16 (cli.train --dtype bfloat16's path): a full-width
+     state in "tail", three iterations at 128^2, B = 3 on bf16 batches,
+     counted (94 launches an iteration of each of BF16_TRAIN_PATH and none
+     of the fp32 rows 2-9), finite metrics, fp32 parameters that moved;
+     fp32 and bf16 iterations/s in turns with the peak memory of each;
+     the bf16 gradients and an lr = 0 iteration's metrics at 64^2, B = 1
+     against the CPU's (the critic's sign pattern pinned); and the train
+     CLI with --dtype bfloat16 for one epoch through --fail-at-step 3 and a
+     resume, its validation in fp32;
   6b. from one full-width state at 64^2, B = 1, each of the compositions
      full, head, tail and off, in the default tiers and then with the
      fused MDTA attend and the depthwise kernel: its kernels launched 94
@@ -161,10 +176,12 @@ every pixel, is held against its float64 twin like the Gram; the
 depthwise backward's dtaps, a pixel sum, likewise. Every kernel sums in a
 fixed order and is held bitwise against a second call.
 
-The bf16 phase's gates, and why they are what they are: the note above BF16_RTOL.
+The bf16 phases' gates, and why they are what they are: the notes above
+BF16_RTOL, BF16_FLIP_RTOL and BF16_MODEL_RATIO.
 
-Prints the kernels' JSON line (all twenty kernels: the sixteen fp32 ones
-and rows 1-4 in bf16) and, last, {"ok": true, "device": {...}}.
+Prints the kernels' JSON line (all twenty-five kernels: the sixteen fp32
+ones, rows 1-4 in bf16 and bf16 training's five forms) and, last,
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1200,7 +1217,24 @@ BF16_KERNELS = {
     "mdta_gram_fwd_bf16": ("rcot_torch/csrc/gram_bf16.cu", "rcot_tpu/ops/pallas_gram.py:99"),
     "attn_apply_fwd_bf16": ("rcot_torch/csrc/gram_bf16.cu", "rcot_tpu/ops/pallas_gram.py:178"),
 }
-ALL_KERNELS = {**KERNELS, **BF16_KERNELS}
+# bf16 training's forms (csrc/fused_dwconv_bf16.cu, block_bwd_bf16.cu,
+# gram_bwd_bf16.cu), and every kernel of one bf16 "tail" iteration
+BF16_TRAIN_KERNELS = {
+    "conv1x1_dw_bf16": ("rcot_torch/csrc/fused_dwconv_bf16.cu",
+                        "rcot_tpu/ops/pallas_fused.py:238"),
+    "conv1x1_dw_bwd_bf16": ("rcot_torch/csrc/fused_dwconv_bf16.cu",
+                            "rcot_tpu/ops/pallas_fused.py:415"),
+    "block_tail_bwd_bf16": ("rcot_torch/csrc/block_bwd_bf16.cu",
+                            "rcot_tpu/ops/pallas_block.py:401"),
+    "mdta_gram_bwd_bf16": ("rcot_torch/csrc/gram_bwd_bf16.cu",
+                           "rcot_tpu/ops/pallas_gram.py:141"),
+    "attn_apply_bwd_bf16": ("rcot_torch/csrc/gram_bwd_bf16.cu",
+                            "rcot_tpu/ops/pallas_gram.py:219"),
+}
+BF16_TRAIN_PATH = ("conv1x1_dw_bf16", "block_tail_bf16", "mdta_gram_fwd_bf16",
+                   "attn_apply_fwd_bf16", "block_tail_bwd_bf16", "mdta_gram_bwd_bf16",
+                   "attn_apply_bwd_bf16", "conv1x1_dw_bwd_bf16")
+ALL_KERNELS = {**KERNELS, **BF16_KERNELS, **BF16_TRAIN_KERNELS}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 # Gates of the bf16 phase. A bf16 output of
 # a kernel rounds where its plain twin rounds, from fp32 sums taken in
@@ -1219,6 +1253,26 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 BF16_RTOL = 2.0 ** -6
 BF16_PSNR_DB = 0.02
 BF16 = torch.bfloat16
+# bf16 training's fp32 outputs are held against the float64 twin: row 7's
+# dattn (a pixel sum of widened bf16 values, no rounding point before it)
+# within KERNEL_RTOL of max(max|twin|, 1), row 5's dln_w and dln_b within
+# BF16_FLIP_RTOL of it. Those follow bf16 rounding points (t, u, h), and
+# where the kernel's, the twin's and float64's fp32 sums fall on either side
+# of a rounding boundary they round a value one bf16 ulp apart, which the
+# pixel sums carry: 1.2e-4 of the largest entry on the card at C = 192, the
+# fp32 twin itself 2.9e-4 from float64 there.
+BF16_FLIP_RTOL = 1e-3
+BF16_TRAIN_F32_RTOL = {"block_tail_bwd_bf16": BF16_FLIP_RTOL,
+                       "attn_apply_bwd_bf16": KERNEL_RTOL}
+# bf16 training on the whole model (the card against the CPU): the quarter
+# rule on the mean taken over every gradient entry together, sum|card - CPU
+# bf16| <= BF16_MODEL_RATIO * sum|CPU fp32 - CPU bf16|. Per tensor it cannot
+# hold: an MDTA temperature's gradient is a cancelling sum of a few entries,
+# and the flips above, through both passes and the backward, reach almost
+# every gradient entry (measured on the card 1.6 of the gap at a
+# temperature, 0.17 at the median tensor, 0.016 summed; a run in fp32 by
+# mistake reads about 1).
+BF16_MODEL_RATIO = 0.25
 
 
 def bf16_block_inputs(p):
@@ -1436,6 +1490,320 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
     return dict(errs=errs, launches=launches, n_fwd=n_fwd, vs_cpu=vs_cpu,
                 img_per_s=rate, batch8_max_memory_allocated=peak, cli_psnr_gap_db=psnr_gap,
                 cli_launches=cli_launches, timings=timings, card=card)
+
+
+# ------------------------------------------------------------ bf16 training
+
+def bf16_block_calls(p, r):
+    """{name: (kernel, bf16 twin, the twin's arithmetic in float64 or None)}
+    of rows 8-9 (qkv) and 5 (tail) in bf16 training on bf16 block inputs p,
+    cotangents drawn by r."""
+    b, res, _, c = p["x"].shape
+    g_m, g_c = r(b, res, res, 3 * c).to(BF16), r(b, res, res, c).to(BF16)
+    qkv_args, tail = fused_args(p, False), tail_args(p)
+    rounded = functools.partial(kblock._block_tail_rounded, BF16)
+    return {
+        "conv1x1_dw_bf16": (lambda: (kfused.fused_dwconv_fwd(*qkv_args),),
+                            lambda: (kfused.fused_dwconv_plain(*qkv_args),), None),
+        "conv1x1_dw_bwd_bf16": (lambda: kfused.fused_dwconv_bwd(*qkv_args, g_m)[:3],
+                                lambda: kfused.fused_dwconv_bwd_plain(*qkv_args, g_m)[:3],
+                                None),
+        "block_tail_bwd_bf16": (lambda: kblock.block_tail_bwd(*tail, g_c),
+                                lambda: kblock.block_tail_bwd_plain(*tail, g_c),
+                                lambda: kblock._vjp_plain(rounded, _double(tail),
+                                                          g_c.double())),
+    }
+
+
+def bf16_mdta_calls(qkv, heads, r):
+    """The same for rows 6-7 on a bf16 qkv."""
+    ch = qkv.shape[-1] // 3 // heads
+    b = qkv.shape[0]
+    g_v = r(*qkv.shape[:3], heads * ch).to(BF16)
+    dgram, dnq, dnk = r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)
+    attn = torch.softmax(r(b, heads, ch, ch), -1)
+    return {
+        "mdta_gram_bwd_bf16": (lambda: (kgram.mdta_gram_bwd(qkv, dgram, dnq, dnk, heads),),
+                               lambda: (kgram.mdta_gram_bwd_plain(qkv, dgram, dnq, dnk,
+                                                                  heads),), None),
+        "attn_apply_bwd_bf16": (lambda: kgram.attn_apply_bwd(qkv, attn, g_v),
+                                lambda: kgram.attn_apply_bwd_plain(qkv, attn, g_v),
+                                lambda: kgram.attn_apply_bwd_plain(*_double([qkv, attn, g_v]))),
+    }
+
+
+def check_bf16_train_call(name, tag, calls, errs) -> None:
+    """One bf16 training form: two calls bitwise equal and one count each;
+    its bf16 outputs against the bf16 twin (check_bf16_out), its fp32
+    outputs against the float64 twin within BF16_TRAIN_F32_RTOL of
+    max(max|twin|, 1)."""
+    kernel, plain, plain64 = calls[name]
+    n0 = build.LAUNCHES[name]
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    if build.LAUNCHES[name] != n0 + 2:
+        raise AssertionError(f"{name} {tag}: {build.LAUNCHES[name] - n0} counts for two calls")
+    check_repeats(f"{name} {tag}", tuple(t for t in got if t is not None),
+                  tuple(t for t in again if t is not None))
+    want, want64 = plain(), plain64() if plain64 else None
+    worst = errs.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                   "share_not_equal": 0.0})
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None:
+            continue
+        if g.dtype == BF16:
+            check_bf16_out(f"{name} {tag} output {i}", g, w, errs)
+            continue
+        w64 = want64[i]
+        err = float((g.double() - w64).abs().max())
+        twin = float((w.double() - w64).abs().max())
+        scale = max(float(w64.abs().max()), 1.0)
+        worst["fp32_max_rel_err"] = max(worst.get("fp32_max_rel_err", 0.0), err / scale)
+        worst["fp32_twin_rel_err"] = max(worst.get("fp32_twin_rel_err", 0.0), twin / scale)
+        if not (g.dtype == torch.float32 and err <= BF16_TRAIN_F32_RTOL[name] * scale):
+            raise AssertionError(f"{name} {tag} output {i}: max|err| {err:.3e} against float64 "
+                                 f"> {BF16_TRAIN_F32_RTOL[name]:g} * {scale:.3e} (the bf16 "
+                                 f"twin's {twin:.3e})")
+
+
+def phase_bf16_train_kernels(gen) -> dict:
+    """The five bf16 training forms against their twins at every training
+    block shape (128^2, B = 3: every level, the decoder's and the
+    refinement's), rows 6-7 also at the wide heads of phase 3e; each
+    bitwise against a second call."""
+    errs: dict = {}
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    for label, res, c, heads in TRAIN_SHAPES:
+        p = bf16_block_inputs(block_inputs(gen, TRAIN_B, res, c, True))
+        qkv = kblock.block_head(*head_args(p))
+        calls = {**bf16_block_calls(p, r), **bf16_mdta_calls(qkv, heads, r)}
+        tag = f"{label} {res}^2 C={c} heads={heads} B={TRAIN_B}"
+        for name in BF16_TRAIN_KERNELS:
+            check_bf16_train_call(name, tag, calls, errs)
+        log(f"bf16 training kernels ok at {tag}")
+    for label, (b, h, w), heads, ch in WIDE_HEADS:
+        calls = bf16_mdta_calls(r(b, h, w, 3 * heads * ch).to(BF16), heads, r)
+        tag = f"{label} {(b, h, w)} heads={heads} ch={ch}"
+        for name in ("mdta_gram_bwd_bf16", "attn_apply_bwd_bf16"):
+            check_bf16_train_call(name, tag, calls, errs)
+        log(f"bf16 MDTA backward kernels ok at {tag}")
+    log(f"bf16 training kernels against their twins: {json.dumps(errs)}")
+    return errs
+
+
+def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
+    """The five bf16 training forms at one block shape, as bf16_timings
+    times the serving ones: the bound takes bf16 activations' bytes (fp32
+    for the LN weights, G's cotangents, attn and dattn), the bf16 products of
+    a recompute at the bf16 tensor-core rate and every other product,
+    stencil and sum at the fp32 rate (the backward products run 3xTF32, as
+    JAX takes them in fp32); the library for rows 6-7 is bmm on bf16 heads."""
+    n = res * res
+    p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
+    m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    qkv = kblock.block_head(*head_args(p))
+    calls = {**bf16_block_calls(p, r), **bf16_mdta_calls(qkv, heads, r)}
+    g_c = r(b, res, res, c).to(BF16)
+    attn = torch.softmax(r(b, heads, ch, ch), -1)
+    dgram = r(b, heads, ch, ch)
+
+    def heads_t(t, transpose):
+        t = t.reshape(b, n, heads, ch)
+        return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
+                ).reshape(bh, *((ch, n) if transpose else (n, ch))).contiguous()
+    kn, qn, vn = (heads_t(qkv[..., i * c:(i + 1) * c], False) for i in range(3))
+    gn, gt = heads_t(g_c, False), heads_t(g_c, True)
+    at, dg = attn.reshape(bh, ch, ch).to(BF16), dgram.reshape(bh, ch, ch).to(BF16)
+    w_qkv = 2 * (m * c + 9 * m)
+    w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
+    rows = {  # library, bf16 product flops, other flops, bytes
+        "conv1x1_dw_bf16": (None, b * n * 2 * c * m, b * n * 18 * m,
+                            2 * b * n * (c + m) + w_qkv),
+        "conv1x1_dw_bwd_bf16": (None, b * n * 2 * c * m, b * n * (4 * c * m + 36 * m),
+                                2 * b * n * (2 * c + m) + 2 * w_qkv),
+        "block_tail_bwd_bf16": (None, b * n * (2 * c * c + 4 * c * hid),
+                                b * n * (4 * c * c + 12 * c * hid + 128 * hid + 18 * c),
+                                2 * 5 * b * n * c + 2 * w_tail),
+        "mdta_gram_bwd_bf16": (lambda: (torch.bmm(kn, dg), torch.bmm(qn, dg)), 0,
+                               b * n * (4 * c * ch + 4 * c),
+                               2 * 4 * b * n * c + 4 * bh * (ch * ch + 2 * ch)),
+        "attn_apply_bwd_bf16": (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)), 0,
+                                b * n * 4 * c * ch,
+                                2 * 3 * b * n * c + 4 * 2 * bh * ch * ch),
+    }
+    out = {}
+    for name, (lib, mm_flops, flops, nbytes) in rows.items():
+        kern, plain, _ = calls[name]
+        times = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": max(mm_flops / PEAK_BF16_FLOPS, flops / PEAK_FLOPS) * 1e3}
+        by = max(times, key=times.get)
+        dev, records = device_ms(kern)
+        out[name] = dict(shape=f"{label} {res}^2 C={c} heads={heads} B={b}",
+                         ms=cuda_ms(kern), device_ms=dev, device_records=records,
+                         sm_mhz=sm_clock_mhz(), plain_ms=cuda_ms(plain, iters=5),
+                         bound_ms=times[by], bound_by=by,
+                         library_ms=cuda_ms(lib) if lib else None,
+                         library_device_ms=device_ms(lib)[0] if lib else None)
+    return out
+
+
+def bf16_batches(batches, alphas):
+    """The same batches and GP draws rounded to bf16, as the JAX trainer
+    makes them in bf16 training."""
+    return ([Batch(bt.degraded.to(BF16), bt.target.to(BF16), bt.de_id) for bt in batches],
+            [a.to(BF16) for a in alphas])
+
+
+def phase_bf16_train(gen, card) -> dict:
+    """bf16 training at full width (cli.train --dtype bfloat16's path):
+    create_train_state(Config(train=TrainConfig(dtype="bfloat16"))) in
+    "tail", three iterations at 128^2, B = 3 on bf16 batches, counted: each
+    of BF16_TRAIN_PATH launched 94 times an iteration and no fp32 form of
+    rows 2-9; finite metrics, fp32 parameters that moved. Then fp32 and bf16
+    iterations/s in turns (fp32, bf16, bf16, fp32) from that state, with the
+    peak max_memory_allocated of each run."""
+    cfg = Config(train=TrainConfig(dtype="bfloat16"))
+    state = create_train_state(cfg, seed=0, device="cuda")
+    if state.t_net.composition != "tail":
+        raise AssertionError(f"bf16 training composition {state.t_net.composition!r}")
+    batches, alphas = train_inputs(gen, cfg)
+    batches16, alphas16 = bf16_batches(batches, alphas)
+    state, metrics, launches = counted_iterations(
+        state, cfg, batches16, alphas16, "training bf16",
+        {name: FORWARD_LAUNCHES for name in BF16_TRAIN_PATH})
+    for net in (state.t_net, state.f_net):
+        if any(q.dtype != torch.float32 for q in net.parameters()):
+            raise AssertionError("bf16 training left a parameter out of fp32")
+    iteration = make_train_iteration(cfg)
+    lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
+    rates, peak = {"fp32": [], "bf16": []}, {"fp32": [], "bf16": []}
+    for tag in ("fp32", "bf16", "bf16", "fp32"):
+        bs, als = (batches16, alphas16) if tag == "bf16" else (batches, alphas)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(5):
+            state, _ = iteration(state, bs[i % 3], als[i % 3], False, lr)
+        torch.cuda.synchronize()
+        rates[tag].append(5 / (time.perf_counter() - t0))
+        peak[tag].append(torch.cuda.max_memory_allocated())
+    log(f"training {TRAIN_RES}px B={TRAIN_B} in tail, in turns fp32/bf16/bf16/fp32: "
+        f"iterations/s {json.dumps(rates)}, peak memory {json.dumps(peak)} ({card})")
+    return dict(launches=launches, metrics=metrics, it_per_s_runs=rates,
+                it_per_s={k: sum(v) / len(v) for k, v in rates.items()},
+                max_memory_allocated=peak, card=card)
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(abs(v))) - 7) if v else 2.0 ** -133
+
+
+def phase_bf16_train_vs_cpu(gen_np) -> dict:
+    """bf16 training's gradients and one iteration's metrics on the card
+    against the CPU's, from one seed at 64^2, B = 1, critic patch 64, the
+    critic's sign pattern pinned to the CPU's bf16 run (LeakyPattern; the
+    CPU's fp32 run records its own): the gradients, all together, within
+    a quarter of what bf16 changes on the CPU, sum|card - CPU bf16| <=
+    BF16_MODEL_RATIO * sum|CPU fp32 - CPU bf16|; each metric of an iteration
+    at lr = 0 within two bf16 ulps of the CPU's (at lr = 0 the critic does
+    not move: after an RMSprop step every entry with a near-zero gradient
+    has moved by +-10 lr with a sign that the order of sums decides, and in
+    bf16 that reaches the scores read after it)."""
+    cfg = Config(critic=CriticConfig(patch_size=64),
+                 train=TrainConfig(batch_size=1, dtype="bfloat16"))
+    b, res = cfg.train.batch_size, cfg.critic.patch_size
+    deg, tgt = (torch.from_numpy(gen_np.uniform(0, 1, (b, res, res, 3)).astype(np.float32))
+                .to(BF16) for _ in range(2))
+    alpha = torch.full((b, 1, 1, 1), 0.37).to(BF16)
+    sides, seconds = {}, {}
+    pattern = LeakyPattern()
+    for key, dev, dtype in (("cpu bf16", "cpu", BF16), ("cpu fp32", "cpu", torch.float32),
+                            ("card bf16", "cuda", BF16)):
+        t0 = time.perf_counter()
+        state = create_train_state(cfg, seed=1, device=dev)
+        batch = Batch(deg.to(dev, dtype), tgt.to(dev, dtype), torch.tensor([0] * b, device=dev))
+        a = alpha.to(dev, dtype)
+        ctx = (pattern.recording() if key == "cpu bf16" else
+               pattern.replaying() if dev == "cuda" else LeakyPattern().recording())
+        with ctx:
+            grads = {k: v.float().cpu() for k, v in train_grads(state, batch, a, cfg).items()}
+            _, m = make_train_iteration(cfg)(state, batch, a, True, 0.0)
+        sides[key] = (grads, {k: float(v) for k, v in m.items()})
+        seconds[key] = time.perf_counter() - t0
+        del state
+    (g16, m16), (g32, m32), (gc, mc) = sides["cpu bf16"], sides["cpu fp32"], sides["card bf16"]
+    if not set(gc) == set(g16) == set(g32):
+        raise AssertionError(f"card and CPU differ in which parameters get a gradient: "
+                             f"{set(gc) ^ set(g16)} {set(g16) ^ set(g32)}")
+    err = sum(float((gc[k] - g16[k]).abs().sum()) for k in gc)
+    gap = sum(float((g32[k] - g16[k]).abs().sum()) for k in gc)
+    per = sorted(((float((gc[k] - g16[k]).abs().mean() / (g32[k] - g16[k]).abs().mean()
+                         .clamp_min(1e-30)), k) for k in gc), reverse=True)
+    m_ulps = {k: abs(mc[k] - m16[k]) / _bf16_ulp(m16[k]) for k in m16}
+    log(f"bf16 training card vs CPU 64^2 ({len(gc)} gradients; seconds {json.dumps(seconds)}): "
+        f"sum|card - CPU| / sum|fp32 - bf16| {err / gap:.4f}, per tensor on the mean: median "
+        f"{per[len(per) // 2][0]:.4f}, largest {per[:3]}; metrics at lr 0 card "
+        f"{json.dumps(mc)}, CPU bf16 {json.dumps(m16)}, CPU fp32 {json.dumps(m32)}, "
+        f"bf16 ulps apart {json.dumps(m_ulps)}")
+    if not err <= BF16_MODEL_RATIO * gap:
+        raise AssertionError(f"bf16 gradients card vs CPU: {err / gap:.4f} of the fp32 - bf16 "
+                             f"gap summed, > {BF16_MODEL_RATIO}")
+    bad = {k: v for k, v in m_ulps.items() if not v <= 2}
+    if bad:
+        raise AssertionError(f"bf16 metrics card vs CPU more than two bf16 ulps apart: {bad}")
+    return dict(grad_ratio=err / gap, grad_ratio_median_tensor=per[len(per) // 2][0],
+                metric_ulps=m_ulps, cpu_seconds=seconds)
+
+
+def phase_bf16_train_cli(card: str) -> dict:
+    """rcot_torch.cli.train --dtype bfloat16 at full width for one epoch on
+    the seeded tree of phase 7: stopped by --fail-at-step 3, resumed from
+    latest.npz; each kernel of bf16 "tail" launched 94 times an iteration,
+    the validation's forwards in fp32 "full"; finite metrics, fp32
+    checkpoints; imgs_per_sec as the CLI logs it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root, run = f"{tmp}/tree", f"{tmp}/run"
+        write_synthetic_tree(root, seed=0, n_denoise=3, n_rain=0, n_haze=6, size=192,
+                             val_sizes=((192, 192), (250, 321)))
+        argv = train_cli_argv(root, run) + ["--dtype", "bfloat16"]
+        argv[argv.index("--n-epochs") + 1] = "1"
+        build.reset_launches()
+        try:
+            train_cli.main(argv + ["--fail-at-step", "3"])
+        except InjectedFailure as e:
+            log(f"bf16 train CLI stopped as asked: {e}")
+        else:
+            raise AssertionError("--fail-at-step 3 did not stop the run")
+        latest = f"{run}/ckpt/latest.npz"
+        meta = read_metadata(latest)
+        trainer = train_cli.main(argv + ["--resume", latest])
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        with open(f"{run}/log.jsonl") as f:
+            events = [json.loads(line) for line in f]
+        steps = [e for e in events if e["event"] == "train_step"]
+        names = ("f_wgan", "f_gp", "t_loss", "t_adv", "rmse", "fourier", "paired_l1")
+        vals = [e for e in events if e["event"] == "validation"]
+        if not steps or not all(np.isfinite(e[k]) for e in steps for k in names) or \
+                trainer.host_step != 7 or len(vals) != 1 or not np.isfinite(vals[0]["psnr"]):
+            raise AssertionError(f"bf16 train CLI: step {trainer.host_step}, {steps}, {vals}")
+        if any(q.dtype != torch.float32 for q in trainer.state.t_net.parameters()):
+            raise AssertionError("bf16 train CLI: a T_net parameter is not fp32")
+        n_iter = 3 + 7 - meta["epoch_step"]
+        want = sum_launches({name: FORWARD_LAUNCHES * n_iter for name in BF16_TRAIN_PATH},
+                            expected_launches(FORWARD_LAUNCHES * 2, "full", False))
+        check_launches(f"bf16 train CLI ({n_iter} iterations, 2 forwards in fp32 full)",
+                       launches, want)
+        ips = [e["imgs_per_sec"] for e in steps]
+        log(f"bf16 train CLI at full width: resumed at step {meta['epoch_step']}, 7 steps, "
+            f"PSNR {vals[0]['psnr']:.4f}, imgs_per_sec at logged steps {ips} ({card})")
+        return dict(resumed_at=meta["epoch_step"], imgs_per_sec=ips, psnr=vals[0]["psnr"],
+                    launches=launches, card=card)
 
 
 # ------------------------------------------------------------ training
@@ -2333,6 +2701,12 @@ def main() -> int:
     bf16 = phase_bf16(torch.Generator(device="cuda").manual_seed(9), np.random.default_rng(9),
                       model["net"], card)
     del model["restorer"], model["net"]
+    # bf16 training's kernels, on inputs of their own, checked and timed
+    # before the training phases
+    gen_bf16 = torch.Generator(device="cuda").manual_seed(10)
+    bf16_train_errs = phase_bf16_train_kernels(gen_bf16)
+    bf16_train_times = {label: bf16_train_timings(gen_bf16, label, res, c, heads, TRAIN_B)
+                        for label, res, c, heads in TRAIN_SHAPES}
     # the training shapes are timed before the training phases, on inputs of
     # their own: after those phases the profiler loses device records
     gen_timing = torch.Generator(device="cuda").manual_seed(2)
@@ -2345,11 +2719,14 @@ def main() -> int:
     log(f"training {TRAIN_RES}px B={TRAIN_B}: {train['it_per_s']['tail']:.4f} "
         f"iterations/s in tail, {train['it_per_s']['full']:.4f} in full ({card})")
     vs_cpu = phase_train_vs_cpu(gen_np)
+    bf16_train = phase_bf16_train(torch.Generator(device="cuda").manual_seed(11), card)
+    bf16_train_vs_cpu = phase_bf16_train_vs_cpu(np.random.default_rng(11))
     compositions = phase_compositions(gen_np)
     train_opt = phase_train_opt_in(gen_opt, card)
     one_head = phase_one_head(np.random.default_rng(2))
     cli = phase_train_cli(card)
     cli_opt = phase_cli_opt_in(card)
+    bf16_cli = phase_bf16_train_cli(card)
     evals = phase_eval(card, default_flags)
     splits = {mode: iteration_breakdown(train["it_per_s"][mode], train["critic_ms"],
                                         train_timings, mode) for mode in ("tail", "full")}
@@ -2395,9 +2772,23 @@ def main() -> int:
             ms=l1["ms"], device_ms=l1["device_ms"], plain_ms=l1["plain_ms"],
             bound_ms=l1["bound_ms"], bound_by=l1["bound_by"], library_ms=l1["library_ms"],
             library_device_ms=l1["library_device_ms"], at=l1["shape"],
-            latent=bf16["timings"]["latent"][name]))
+            latent=bf16["timings"]["latent"][name],
+            launches_per_train_iteration_bf16=bf16_train["launches"].get(name, 0) // len(
+                bf16_train["metrics"])))
+    for name, (source, replaces) in BF16_TRAIN_KERNELS.items():
+        t = bf16_train_times["L1"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=bf16_train["launches"][name], launches_counted_in="train bf16",
+            launches_per_train_iteration_bf16=bf16_train["launches"][name] // len(
+                bf16_train["metrics"]), **bf16_train_errs[name],
+            ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+            library_device_ms=t["library_device_ms"], at=t["shape"],
+            decoder_L1=bf16_train_times["decoder_level1"][name],
+            latent=bf16_train_times["latent"][name]))
     for tag, tt in (("serve", timings), ("train", train_timings),
-                    ("serve bf16", bf16["timings"])):
+                    ("serve bf16", bf16["timings"]), ("train bf16", bf16_train_times)):
         for label in BLOCKS_PER_FORWARD:
             log(json.dumps({"shape": f"{tag} {label}", **{
                 name: {k: v for k, v in t.items() if k != "shape"}
@@ -2426,6 +2817,11 @@ def main() -> int:
                     "one_head_a_level": one_head,
                     "bf16_serving_256px": {k: v for k, v in bf16.items()
                                            if k not in ("timings", "errs")},
+                    "bf16_training_128px_b3": {
+                        **{k: v for k, v in bf16_train.items() if k != "launches"},
+                        "card_vs_cpu_64px": bf16_train_vs_cpu,
+                        "cli": {k: v for k, v in bf16_cli.items() if k != "launches"},
+                        "kernel_errs": bf16_train_errs},
                     "eval_256px": evals,
                     "pixel_sum_drift_512_pixel_ranges": drift,
                     "gram_plain_fp32_vs_float64_rel_err": errs["gram_plain_fp32_rel"],

@@ -12,9 +12,11 @@ cuda, raises without a card. `--composition`, `--attention-core` and
 the JAX trainer's default composition, "tail"; `--attention-core mdta` is
 the JAX package's RCOT_PALLAS_MDTA=1, `--depthwise dwconv` its
 RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1. Validation serves in "full" with
-the same attention core and depthwise tier.
-Flags of paths not ported yet (multi-GPU, MPRNet, bf16, --pretrained)
-raise rather than being ignored.
+the same attention core and depthwise tier. `--dtype bfloat16` trains on
+bf16 batches (the JAX trainer's --dtype bfloat16) in "tail" with the Gram
+core and the fused tier; any other composition, core or tier stops by name.
+Flags of paths not ported yet (multi-GPU, MPRNet, --pretrained) raise
+rather than being ignored.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import argparse
 import dataclasses
 import os
 
-from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE
+from ..ops.dispatch import (ATTENTION_CORES, COMPOSITIONS, DEPTHWISE, check_bf16,
+                            resolve_composition)
 from ..utils.config import Config, get_preset
 
 
@@ -118,8 +121,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
          or args.process_id is not None,
          "--coordinator/--num-processes/--process-id", "multi-process training"),
         (args.backbone == "mprnet", "--backbone mprnet", "the MPRNet backbone"),
-        (args.dtype == "bfloat16", "--dtype bfloat16",
-         "bf16 training (the part of item 4 left after bf16 serving)"),
         (args.pretrained is not None, "--pretrained",
          "porting a reference .pth (it needs the reference-weights port)"),
     ]
@@ -127,6 +128,13 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         if given:
             raise SystemExit(f"{flag}: {what} is not ported to rcot_torch yet "
                              "(ROADMAP.md, Queue 1)")
+    if args.dtype == "bfloat16":
+        try:
+            check_bf16(resolve_composition(args.composition, training=True),
+                       getattr(args, "attention_core", "gram"),
+                       getattr(args, "depthwise", "fused"), use="backward")
+        except NotImplementedError as e:
+            raise SystemExit(f"--dtype bfloat16: {e}") from None
 
 
 def main(argv=None):

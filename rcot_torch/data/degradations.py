@@ -12,7 +12,9 @@ the batch's device:
   0, 255), floored (numpy's uint8 truncation), then / 255.
 
 Random draws come from an explicit torch.Generator, or are passed in
-(`modes`, `noise`), so a test can hand in the JAX package's draws.
+(`modes`, `noise`), so a test can hand in the JAX package's draws. The
+batch comes out in fp32, or in bf16 for bf16 training, each image divided
+by 255 in fp32 and then rounded (rcot_tpu/data/degradations.py:69-75).
 """
 
 from __future__ import annotations
@@ -53,12 +55,13 @@ def augment_and_degrade(clean: torch.Tensor, degraded: torch.Tensor,
                         de_id: torch.Tensor, *,
                         generator: Optional[torch.Generator] = None,
                         modes: Optional[torch.Tensor] = None,
-                        noise: Optional[torch.Tensor] = None
+                        noise: Optional[torch.Tensor] = None,
+                        out_dtype: torch.dtype = torch.float32
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """clean, degraded (B, P, P, C) uint8 (degraded == clean for denoise
-    ids); de_id (B,) -> (degraded, clean) float32 in [0, 1]. `modes` (B,)
-    and `noise` (B, P, P, C), when not given, are drawn from `generator`
-    in that order."""
+    ids); de_id (B,) -> (degraded, clean) in [0, 1], out_dtype. `modes`
+    (B,) and `noise` (B, P, P, C), when not given, are drawn from
+    `generator` in that order."""
     dev = clean.device
     b = clean.shape[0]
     if modes is None:
@@ -71,4 +74,4 @@ def augment_and_degrade(clean: torch.Tensor, degraded: torch.Tensor,
     noisy = torch.floor((clean + noise * sigma[:, None, None, None]).clamp(0.0, 255.0))
     is_noise = (de_id < 3)[:, None, None, None]
     degraded = torch.where(is_noise, noisy, degraded)
-    return degraded / 255.0, clean / 255.0
+    return (degraded / 255.0).to(out_dtype), (clean / 255.0).to(out_dtype)

@@ -77,6 +77,19 @@ SIGNATURES = {
     "rcot_conv1x1_dw_bwd": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # inputs 5, outputs 4, workspace 5, plan; B, H, W, C, hid; stream
     "rcot_gdfn_fused_bwd": [_P] * 14 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # bf16 training (fused_dwconv_bf16.cu, block_bwd_bf16.cu, gram_bwd_bf16.cu):
+    # the qkv forward in bf16, the arguments of rcot_conv1x1_dw
+    "rcot_conv1x1_dw_bf16": [_P] * 6 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # inputs 4, outputs 3, workspace 11, plan; bf16 copy width; B, H, W, C, M; stream
+    "rcot_conv1x1_dw_bwd_bf16": [_P] * 18 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
+    # inputs 9, outputs 8, workspace 24, plan, bf16 plan; B, H, W, C, hid; stream
+    "rcot_block_tail_bwd_bf16": [_P] * 41 + [ctypes.POINTER(_I)] * 2 + [_I] * 5 + [_P],
+    # qkv, dG, dnq, dnk, d[q|k], workspace 3; B, hw, heads, ch, channel block,
+    # blocks, tiles per block; stream
+    "rcot_mdta_gram_bwd_bf16": [_P] * 8 + [_I, _L, _I, _I, _I, _I, _L, _P],
+    # qkv, attn, g, dv, dattn, workspace 4; B, hw, heads, ch, channel block,
+    # splits, pixels per split; stream
+    "rcot_attn_apply_bwd_bf16": [_P] * 9 + [_I, _L, _I, _I, _I, _I, _L, _P],
     # x, taps, out; B, H, W, C, vec, cv, tc, rows, rot; stream
     "rcot_dwconv3x3": [_P] * 3 + [_I] * 9 + [_P],
     # x, g, workspace, dtaps; B, H, W, C, vec, cv, tc, rows; stream

@@ -45,7 +45,16 @@ CONV_SPECS = [
 ]
 
 
+# the slope in bf16, as jax.nn.leaky_relu takes it against a bf16 x
+SLOPE_BF16 = float(torch.tensor(0.2).to(torch.bfloat16))
+
+
 def _leaky(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.2); on bf16 as jax.nn.leaky_relu computes it,
+    where(x >= 0, x, slope * x) with the slope in bf16 (0.2001953125; its
+    gradient 1 at 0), which F.leaky_relu's fp32 slope would round apart."""
+    if x.dtype == torch.bfloat16:
+        return torch.where(x >= 0, x, x * SLOPE_BF16)
     return F.leaky_relu(x, negative_slope=0.2)
 
 

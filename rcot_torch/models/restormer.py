@@ -38,9 +38,11 @@ A bf16 input runs the same forward in bf16, as apply_tnet on a bf16 input
 (rcot_tpu/models/restormer.py): every weight is used in the activation's
 dtype (ops/conv.py; the block kernels get their weights in x's dtype and
 their LN weights in fp32, rcot_tpu/models/restormer.py:77-89), LayerNorms
-compute in fp32 and round, the residual adds stay bf16. A bias-free block
-serves bf16 only in "full" with the Gram core and the fused tier
-(ops/dispatch.py check_bf16).
+compute in fp32 and round, the residual adds stay bf16; gradients reach
+the fp32 parameters through those casts. A bias-free block runs bf16 only
+with the Gram core and the fused tier: a forward in "full" or "tail", one
+that autograd may differentiate (grad enabled: bf16 training) in "tail"
+alone (ops/dispatch.py check_bf16).
 """
 
 from __future__ import annotations
@@ -194,10 +196,12 @@ class TransformerBlock(nn.Module):
             x = x + at(self.norm1(x))
             return x + f(self.norm2(x))
         if x.dtype == torch.bfloat16:
-            check_bf16(self.composition, self.attention_core, self.depthwise)
+            check_bf16(self.composition, self.attention_core, self.depthwise,
+                       "backward" if torch.is_grad_enabled() else "forward")
         dt = x.dtype
         if self.composition in ("tail", "off"):
-            qkv = mdta_qkv(self.norm1(x), at.qkv.weight, at.qkv_dwconv.weight,
+            # the weights in x's dtype, as rcot_tpu/ops/attention.py:102-103
+            qkv = mdta_qkv(self.norm1(x), _mat(at.qkv, dt), _taps(at.qkv_dwconv, dt),
                            depthwise=self.depthwise)
         else:
             qkv = block_head(x, *_ln(self.norm1), _mat(at.qkv, dt), _taps(at.qkv_dwconv, dt))

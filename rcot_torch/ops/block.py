@@ -18,13 +18,19 @@ plain twins below, composed from the port's ops and differentiated by
 autograd, so they share none of the kernels' formulas. The kernels take
 their launch plans from block_fwd_plan and block_bwd_plan below.
 
-bf16 (serving, forward only): a bf16 x with bf16 weights (LN weights fp32,
-as rcot_tpu/models/restormer.py:77-89 passes them) goes to the bf16 kernels
-of csrc/block_fwd_bf16.cu on the card, counted as block_head_bf16 and
-block_tail_bf16. The plain twins take any float dtype: their products and
-stencils run in at least fp32 and round to x's dtype where the JAX kernel
-(rcot_tpu/ops/pallas_block.py:111-142) rounds, which in fp32 or float64
-is no rounding at all.
+bf16: a bf16 x with bf16 weights (LN weights fp32, as
+rcot_tpu/models/restormer.py:77-89 passes them) goes to the bf16 kernels of
+csrc/block_fwd_bf16.cu on the card, counted as block_head_bf16 and
+block_tail_bf16, and the tail's backward (bf16 training in "tail") to
+csrc/block_bwd_bf16.cu, counted as block_tail_bwd_bf16; the head's
+backward in bf16 ("full" bf16 training) is not ported and stops by name.
+The plain forward twins take any float dtype: their products and stencils
+run in at least fp32 and round to x's dtype where the JAX kernel
+(rcot_tpu/ops/pallas_block.py:111-142) rounds, which in fp32 or float64 is
+no rounding at all. The bf16 backward twin is not autograd through them:
+the JAX backward kernel (:208-397) recomputes the forward with its
+rounding points but differentiates it in fp32, with fp32 cotangents and
+the unrounded gate (_vjp_widened).
 """
 
 from __future__ import annotations
@@ -84,13 +90,49 @@ def _vjp_plain(fn, inputs, g):
     return tuple(None if t is None else next(grads) for t in leaves)
 
 
+def _st(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """v with the value of v rounded to dtype and the gradient of v: a
+    rounding point of the JAX forward that its backward kernel recomputes
+    and differentiates as the identity. No rounding in v's own dtype."""
+    return v + (v.to(dtype).to(v.dtype) - v).detach()
+
+
+def _vjp_widened(fn, inputs, g):
+    """Grads of fn(*inputs) for the cotangent g as the JAX backward kernels
+    take them on bf16 (RCOT_BWD_BF16 unset): every input and g widened to
+    at least fp32, fn (its rounding points _st) differentiated there, and
+    each grad rounded once to its input's dtype (the kernels' bf16 outputs
+    and the VJPs' .astype(w.dtype)); None stays None."""
+    grads = _vjp_plain(fn, [None if t is None else _wide(t) for t in inputs], _wide(g))
+    return tuple(None if d is None else d.to(t.dtype) for d, t in zip(grads, inputs))
+
+
+def _block_tail_rounded(dtype, x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out):
+    """The tail in fp32 as the JAX backward kernel recomputes and
+    differentiates it (pallas_block.py:286-397): pre, t, u and h rounded to
+    dtype; conv, the gate (dW_out takes it unrounded) and the rest fp32."""
+    t = _st(x + _st(conv1x1(a, w_proj), dtype), dtype)
+    h = _st(conv1x1(_st(layernorm(t, ln_w, ln_b), dtype), w_in), dtype)
+    return t + conv1x1(gated(depthwise3x3(h, dwk)), w_out)
+
+
+def block_tail_bwd_bf16_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
+    """The bf16 tail backward as the JAX kernel computes it -> (dx, da,
+    dw_proj, dln_w, dln_b, dw_in, ddw, dw_out), bf16 but dln_w, dln_b."""
+    return _vjp_widened(functools.partial(_block_tail_rounded, x.dtype),
+                        (x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out), g)
+
+
 def block_head_bwd_plain(x, ln_w, ln_b, w_qkv, dwk, g):
     """-> (dx, dln_w, dln_b, dw_qkv, ddw)."""
     return _vjp_plain(block_head_plain, (x, ln_w, ln_b, w_qkv, dwk), g)
 
 
 def block_tail_bwd_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
-    """-> (dx, da, dw_proj, dln_w, dln_b, dw_in, ddw, dw_out)."""
+    """-> (dx, da, dw_proj, dln_w, dln_b, dw_in, ddw, dw_out); on bf16
+    block_tail_bwd_bf16_plain."""
+    if x.dtype == torch.bfloat16:
+        return block_tail_bwd_bf16_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g)
     return _vjp_plain(block_tail_plain,
                       (x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out), g)
 
@@ -448,7 +490,11 @@ def block_head_bwd(x, ln_w, ln_b, w_qkv, dwk, g):
     """Backward of block_head for the cotangent g (B,H,W,M) ->
     (dx, dln_w, dln_b, dw_qkv, ddw); dln_b is None when ln_b is. On the
     card every sum runs in a fixed order, so two calls on the same inputs
-    give the same bits."""
+    give the same bits. A bf16 x stops by name ("full" bf16 training)."""
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "the bf16 backward of the block head (bf16 training in `--composition full` "
+            "or `head`) is not ported yet (ROADMAP Queue 1 item 4)")
     if not x.is_cuda:
         return block_head_bwd_plain(x, ln_w, ln_b, w_qkv, dwk, g)
     b, h, w, c = x.shape
@@ -486,11 +532,14 @@ def block_head_bwd(x, ln_w, ln_b, w_qkv, dwk, g):
 def block_tail_bwd(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
     """Backward of block_tail for the cotangent g (B,H,W,C) ->
     (dx, da, dw_proj, dln_w, dln_b, dw_in, ddw, dw_out); dln_b is None when
-    ln_b is. On the card every sum runs in a fixed order, so two calls on
-    the same inputs give the same bits."""
+    ln_b is. In x's dtype (fp32, or bf16 with fp32 ln_w, ln_b: the weight
+    grads bf16, dln_w and dln_b fp32). On the card every sum runs in a
+    fixed order, so two calls on the same inputs give the same bits."""
     if not x.is_cuda:
         return block_tail_bwd_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk,
                                     w_out, g)
+    if x.dtype == torch.bfloat16:
+        return _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g)
     b, h, w, c = x.shape
     hid = w_out.shape[1]
     n = b * h * w
@@ -523,6 +572,71 @@ def block_tail_bwd(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
                    *(t.data_ptr() for t in ws), plan, b, h, w, c, hid, build.stream())
     build.LAUNCHES["block_tail_bwd"] += 1
     return tuple(outs)
+
+
+def bwd_bf16_workspace_numel(n: int, c: int, hid: int) -> Tuple[int, ...]:
+    """Floats of each workspace of the bf16 tail backward on n pixels, in
+    the order csrc/block_bwd_bf16.cu takes them (bf16 ones two to a float):
+    tb, ub, hb; stats, conv_dh, dconv, gate, du; t32, u32, h32, g32, a32,
+    dx32, da32; the widened weights wp32, win32, dwk32, wout32; their fp32
+    grads dwp32, dwin32, ddw32, dwout32."""
+    m2 = 2 * hid
+    weights = (c * c, m2 * c, 9 * m2, c * hid)
+    return (_cdiv(n * c, 2), _cdiv(n * c, 2), _cdiv(n * m2, 2),
+            2 * n, n * m2, n * m2, n * hid, n * c,
+            n * c, n * c, n * m2, n * c, n * c, n * c, n * c, *weights, *weights)
+
+
+def _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
+    """block_tail_bwd on bf16 CUDA tensors: csrc/block_bwd_bf16.cu."""
+    b, h, w, c = x.shape
+    hid = w_out.shape[1]
+    m2 = 2 * hid
+    n = b * h * w
+    dev = x.device
+    bf = torch.bfloat16
+    for name, t, shape, want in (("x", x, (b, h, w, c), bf), ("a", a, (b, h, w, c), bf),
+                                 ("w_proj", w_proj, (c, c), bf), ("ln_w", ln_w, (c,), None),
+                                 ("ln_b", ln_b, (c,), None), ("w_in", w_in, (m2, c), bf),
+                                 ("dwk", dwk, (m2, 3, 3), bf), ("w_out", w_out, (c, hid), bf),
+                                 ("g", g, (b, h, w, c), bf)):
+        build.check_arg(name, t, shape, dev, want or torch.float32)
+    _check_channels(c)
+    outs = [torch.empty_like(t) for t in (x, a, w_proj, ln_w)]
+    outs += [None if ln_b is None else torch.empty_like(ln_b)]
+    outs += [torch.empty_like(t) for t in (w_in, dwk, w_out)]
+    buf, ws = _workspaces(dev, bwd_bf16_workspace_numel(n, c, hid))
+    tb, ub, hb, conv_dh, dconv, gate = ws[0], ws[1], ws[2], ws[4], ws[5], ws[6]
+    du, t32, u32, h32, g32, a32, dx32, da32, wp32, win32, _, wout32 = ws[7:19]
+    vec_c = kdw.dwconv_vec(c, du, t32, u32, g32, a32, dx32, da32, wp32, win32)
+    vec_h = kdw.dwconv_vec(hid, wout32, gate)
+    vec_m = kdw.dwconv_vec(m2, h32, conv_dh, dconv)
+    plan, n_sums = _card_plan(b, h, w, c, m2, True, dev.index, vec_c, vec_h, vec_m)
+    plan16 = _bf16_recompute_plan(b, h, w, c, m2, dev.index,
+                                  kdw.bf16_vec(c, a.data_ptr(), ub, w_proj.data_ptr(),
+                                               w_in.data_ptr()),
+                                  kdw.bf16_vec(m2, hb, f32_ptrs=(conv_dh,)))
+    sums = torch.empty(n_sums, device=dev)
+    with torch.cuda.device(dev):
+        build.call("rcot_block_tail_bwd_bf16",
+                   *(t.data_ptr() for t in (x, a, w_proj, ln_w)), build.ptr(ln_b),
+                   *(t.data_ptr() for t in (w_in, dwk, w_out, g)),
+                   *(build.ptr(t) for t in outs), *ws, sums.data_ptr(), plan, plan16,
+                   b, h, w, c, hid, build.stream())
+    build.LAUNCHES["block_tail_bwd_bf16"] += 1
+    return tuple(outs)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_recompute_plan(b, h, w, c, width, device_index, vec_c, vec_m):
+    """-> the bf16 tail backward's second plan as a ctypes array: bf16 a
+    copy of the C-wide operands of its recompute, and the bf16 depthwise
+    forward's (vec, cv, tc, rows) into fp32 conv."""
+    if vec_m < 2:
+        raise ValueError(f"bf16 block kernels: the depthwise width {width} must be even "
+                         "(its copies move two bf16 at least)")
+    dw = kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False, "bf16_f32")
+    return (ctypes.c_int * 5)(vec_c, vec_m, *dw)
 
 
 # --------------------------------------------------------------- autograd

@@ -8,7 +8,10 @@ critic's stride-2 4x4 convs pad 1). Weights and biases are cast to the
 activation's dtype where they are used, as rcot_tpu/ops/conv.py:45,52,92-94
 casts them (a bf16 activation with an fp32 parameter would otherwise run,
 or promote, in fp32); an fp32 parameter of an fp32 activation is used as it
-is, no copy.
+is, no copy. In bf16 a bias is added after the convolution or product is
+rounded, as JAX adds it (rcot_tpu/ops/conv.py:52-53,93-94); PyTorch's
+fused bias would round once, and the two differ in a third of the critic's
+bf16 outputs. In fp32 the bias stays fused.
 """
 
 from __future__ import annotations
@@ -24,20 +27,29 @@ def _as(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
     return None if t is None else t.to(x.dtype)
 
 
+def _fused_bias(bias: Optional[torch.Tensor], x: torch.Tensor) -> bool:
+    """Whether the op adds bias itself: fp32 and float64, not bf16."""
+    return bias is not None and x.dtype != torch.bfloat16
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *, stride: int = 1,
            padding: Optional[int] = None, groups: int = 1) -> torch.Tensor:
     """x (B,H,W,Cin), weight (Cout, Cin/groups, k, k) -> (B,H',W',Cout)."""
     pad = weight.shape[-1] // 2 if padding is None else padding
-    y = F.conv2d(x.permute(0, 3, 1, 2), _as(weight, x), _as(bias, x), stride=stride,
-                 padding=pad, groups=groups)
-    return y.permute(0, 2, 3, 1).contiguous()
+    fused = _fused_bias(bias, x)
+    y = F.conv2d(x.permute(0, 3, 1, 2), _as(weight, x), _as(bias, x) if fused else None,
+                 stride=stride, padding=pad, groups=groups)
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return y if fused or bias is None else y + _as(bias, x)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., in), weight (out, in) as nn.Linear holds it -> (..., out)."""
-    return F.linear(x, _as(weight, x), _as(bias, x))
+    fused = _fused_bias(bias, x)
+    y = F.linear(x, _as(weight, x), _as(bias, x) if fused else None)
+    return y if fused or bias is None else y + _as(bias, x)
 
 
 def conv1x1(x: torch.Tensor, weight: torch.Tensor,

@@ -34,9 +34,12 @@ The depthwise tier of the qkv and the GDFN outside the block kernels
 In "full" the depthwise tier changes nothing: the head and tail kernels do
 their own depthwise convs, in the JAX package as here.
 
-In bf16 (serving's --dtype bfloat16) only "full" with the Gram core and the
-fused tier has kernels yet (rows 1-4); every other choice stops by name
-(check_bf16), on either device, rather than run another path.
+In bf16 only the Gram core and the fused tier have kernels yet, and of the
+compositions: serving (--dtype bfloat16 on cli.test and cli.eval_all)
+"full", rows 1-4; a bf16 forward in training "full" or "tail"; bf16
+training, its backward, "tail" alone (rows 2-4 forward, rows 5 tail, 6-9
+qkv; the JAX trainer's default at the port's batch). Every other choice
+stops by name (check_bf16), on either device, rather than run another path.
 """
 
 from __future__ import annotations
@@ -68,18 +71,28 @@ def resolve_depthwise(requested: str) -> str:
     return requested
 
 
-# the one choice that serves in bf16 (ROADMAP Queue 1 item 4)
+# the choices that run in bf16 (ROADMAP Queue 1 item 4), by use: serving,
+# a forward (serving's, or a forward of bf16 training) and bf16 training's
+# backward
 BF16_CHOICE = {"composition": "full", "attention_core": "gram", "depthwise": "fused"}
+BF16_COMPOSITIONS = {"serve": ("full",), "forward": ("full", "tail"), "backward": ("tail",)}
 _BF16_FLAGS = {"composition": "--composition", "attention_core": "--attention-core",
                "depthwise": "--depthwise"}
 
 
-def check_bf16(composition: str, attention_core: str, depthwise: str) -> None:
-    """Raise for a bf16 forward in any choice but BF16_CHOICE, naming it."""
+def check_bf16(composition: str, attention_core: str, depthwise: str,
+               use: str = "serve") -> None:
+    """Raise for bf16 in a choice that has no bf16 kernels for `use`
+    ("serve", "forward" or "backward"; BF16_COMPOSITIONS), naming it."""
     given = {"composition": composition, "attention_core": attention_core,
              "depthwise": depthwise}
-    for key, want in BF16_CHOICE.items():
-        if given[key] != want:
+    what = "bf16 training" if use == "backward" else "bf16"
+    if composition not in BF16_COMPOSITIONS[use]:
+        raise NotImplementedError(
+            f"{what} with `--composition {composition}` is not ported yet "
+            "(ROADMAP Queue 1 item 4)")
+    for key in ("attention_core", "depthwise"):
+        if given[key] != BF16_CHOICE[key]:
             raise NotImplementedError(
-                f"bf16 with `{_BF16_FLAGS[key]} {given[key]}` is not ported yet "
+                f"{what} with `{_BF16_FLAGS[key]} {given[key]}` is not ported yet "
                 "(ROADMAP Queue 1 item 4)")

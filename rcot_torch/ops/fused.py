@@ -19,6 +19,14 @@ tensor to the plain twins below (composed from the port's ops, the backward
 by autograd on them). The kernels take their launch plans from
 fused_fwd_plan and fused_bwd_plan below. Launches are counted under
 conv1x1_dw, gdfn_fused and their *_bwd names.
+
+bf16 (bf16 training in "tail", the qkv configuration only): a bf16 x with
+bf16 weights goes to csrc/fused_dwconv_bf16.cu on the card, counted as
+conv1x1_dw_bf16 and conv1x1_dw_bwd_bf16. The forward twin rounds h and the
+output to bf16 where the JAX kernel does (pallas_fused.py:153-183); the
+backward twin is the JAX backward kernel's (:297-410): h recomputed and
+rounded, then everything in fp32, each grad rounded once (ops/block.py
+_vjp_widened). The GDFN configuration in bf16 stops by name.
 """
 
 from __future__ import annotations
@@ -32,8 +40,8 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import build
 from . import dwconv as kdw
-from .block import (GATE_FUSED_MAX_C, _vjp_plain, _workspaces, gate_ld, ln_plan, split_plan,
-                    sum_plan, sum_workspace_numel)
+from .block import (GATE_FUSED_MAX_C, _mm, _st, _vjp_plain, _vjp_widened, _wide, _workspaces,
+                    gate_ld, ln_plan, split_plan, sum_plan, sum_workspace_numel)
 from .conv import conv1x1, depthwise3x3
 from .gdfn import gated
 from .gram import sm_count
@@ -43,13 +51,24 @@ from .gram import sm_count
 
 def fused_dwconv_plain(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
                        w_out: Optional[torch.Tensor]) -> torch.Tensor:
-    """w_out None: the qkv configuration; else the GDFN (gate, then W_out)."""
-    h = depthwise3x3(conv1x1(x, w_in), dwk)
-    return h if w_out is None else conv1x1(gated(h), w_out)
+    """w_out None: the qkv configuration, h and the output rounded to x's
+    dtype (no rounding in fp32); else the GDFN (gate, then W_out)."""
+    h = depthwise3x3(_wide(_mm(x, w_in)), _wide(dwk))
+    return h.to(x.dtype) if w_out is None else conv1x1(gated(h), w_out)
+
+
+def _qkv_rounded(dtype, x, w_in, dwk):
+    """The qkv configuration in fp32 as the JAX backward kernel recomputes
+    and differentiates it: h rounded to dtype, the stencil fp32."""
+    return depthwise3x3(_st(conv1x1(x, w_in), dtype), dwk)
 
 
 def fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g):
-    """-> (dx, dw_in, ddw, dw_out); dw_out is None when w_out is."""
+    """-> (dx, dw_in, ddw, dw_out); dw_out is None when w_out is. On bf16
+    (the qkv configuration) as the JAX backward kernel computes it."""
+    if x.dtype == torch.bfloat16 and w_out is None:
+        return (*_vjp_widened(functools.partial(_qkv_rounded, x.dtype), (x, w_in, dwk), g),
+                None)
     return _vjp_plain(fused_dwconv_plain, (x, w_in, dwk, w_out), g)
 
 
@@ -185,9 +204,11 @@ def fused_vecs(c: int, width: int, gdfn: bool, ptrs: dict) -> Tuple[int, int, in
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_card_plan(b, h, w, c, width, gdfn, device_index, vec_c, vec_h, vec_g, vec_m):
-    """-> (the forward plan's ints as a ctypes array, floats of sums) on this card."""
-    dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False))
+def _fwd_card_plan(b, h, w, c, width, gdfn, device_index, vec_c, vec_h, vec_g, vec_m,
+                   io="f32"):
+    """-> (the forward plan's ints as a ctypes array, floats of sums) on this
+    card; io the depthwise forward's element types (ops/dwconv.py DW_IO)."""
+    dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False, io))
     plan = fused_fwd_plan(b, h, w, c, width, gdfn, sm_count(device_index),
                           (vec_c, vec_h, vec_g), dw_conv)
     return (ctypes.c_int * FWD_PLAN_INTS)(*plan.ints()), plan.sums_numel
@@ -205,27 +226,39 @@ def _bwd_card_plan(b, h, w, c, width, gdfn, device_index, vec_c, vec_h, vec_m):
 
 # ---------------------------------------------------------------- kernels
 
+def _refuse_bf16_gdfn(x, w_out) -> None:
+    if x.dtype == torch.bfloat16 and w_out is not None:
+        raise NotImplementedError(
+            "gdfn_fused in bf16 (bf16 training in `--composition head` or `off`) is not "
+            "ported yet (ROADMAP Queue 1 item 4)")
+
+
 def _check(x, w_in, dwk, w_out, g=None):
     b, h, w, c = x.shape
     m = w_in.shape[0]
     dev = x.device
-    build.check_arg("x", x, (b, h, w, c), dev)
-    build.check_arg("w_in", w_in, (m, c), dev)
-    build.check_arg("dwk", dwk, (m, 3, 3), dev)
+    dt = build.kernel_dtype(x)
+    build.check_arg("x", x, (b, h, w, c), dev, dt)
+    build.check_arg("w_in", w_in, (m, c), dev, dt)
+    build.check_arg("dwk", dwk, (m, 3, 3), dev, dt)
     if w_out is not None:
         if m % 2:
             raise ValueError(f"the gate needs an even width, got {m}")
-        build.check_arg("w_out", w_out, (c, m // 2), dev)
-    build.check_arg("g", g, (b, h, w, m if w_out is None else c), dev)
+        build.check_arg("w_out", w_out, (c, m // 2), dev, dt)
+    build.check_arg("g", g, (b, h, w, m if w_out is None else c), dev, dt)
     return b, h, w, c, m
 
 
 def fused_dwconv_fwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
                      w_out: Optional[torch.Tensor]) -> torch.Tensor:
-    """x (B,H,W,C) -> (B,H,W,M) without w_out, (B,H,W,C) with it. On the
-    card two calls on the same inputs give the same bits."""
+    """x (B,H,W,C) -> (B,H,W,M) without w_out, (B,H,W,C) with it, in x's
+    dtype (fp32, or bf16 without w_out). On the card two calls on the same
+    inputs give the same bits."""
+    _refuse_bf16_gdfn(x, w_out)
     if not x.is_cuda:
         return fused_dwconv_plain(x, w_in, dwk, w_out)
+    if x.dtype == torch.bfloat16:
+        return _conv1x1_dw_bf16(x, w_in, dwk)
     b, h, w, c, m = _check(x, w_in, dwk, w_out)
     gdfn = w_out is not None
     dev = x.device
@@ -251,9 +284,12 @@ def fused_dwconv_bwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
     """Backward of fused_dwconv_fwd for the cotangent g ->
     (dx, dw_in, ddw, dw_out); dw_out is None when w_out is. On the card
     every sum runs in a fixed order, so two calls on the same inputs give
-    the same bits."""
+    the same bits; in x's dtype."""
+    _refuse_bf16_gdfn(x, w_out)
     if not x.is_cuda:
         return fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g)
+    if x.dtype == torch.bfloat16:
+        return (*_conv1x1_dw_bwd_bf16(x, w_in, dwk, g), None)
     b, h, w, c, m = _check(x, w_in, dwk, w_out, g)
     gdfn = w_out is not None
     dev = x.device
@@ -272,6 +308,51 @@ def fused_dwconv_bwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
                    *ws, plan, b, h, w, c, m // 2 if gdfn else m, build.stream())
     build.LAUNCHES[name] += 1
     return dx, dw_in, ddw, dw_out
+
+
+def _conv1x1_dw_bf16(x, w_in, dwk):
+    """The qkv forward on bf16 CUDA tensors: csrc/fused_dwconv_bf16.cu,
+    with fused_fwd_plan's plan in bf16 copy widths."""
+    b, h, w, c, m = _check(x, w_in, dwk, None)
+    dev = x.device
+    out = torch.empty(b, h, w, m, device=dev, dtype=torch.bfloat16)
+    buf, (hbuf,) = _workspaces(dev, (-(-b * h * w * m // 2),))
+    vec_c = kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr())
+    vec_m = kdw.bf16_vec(m, hbuf, out.data_ptr())
+    if vec_m < 2:
+        raise ValueError(f"bf16 conv1x1_dw: the width {m} must be even "
+                         "(its depthwise copies move two bf16 at least)")
+    plan, n_sums = _fwd_card_plan(b, h, w, c, m, False, dev.index, vec_c, 1, 1, vec_m, "bf16")
+    sums = torch.empty(n_sums, device=dev) if n_sums else None
+    with torch.cuda.device(dev):
+        build.call("rcot_conv1x1_dw_bf16", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
+                   out.data_ptr(), hbuf, build.ptr(sums), plan, b, h, w, c, m, build.stream())
+    build.LAUNCHES["conv1x1_dw_bf16"] += 1
+    return out
+
+
+def _conv1x1_dw_bwd_bf16(x, w_in, dwk, g):
+    """The qkv backward on bf16 CUDA tensors -> (dx, dw_in, ddw), bf16:
+    csrc/fused_dwconv_bf16.cu, with fused_bwd_plan's plan on its fp32
+    workspaces."""
+    b, h, w, c, m = _check(x, w_in, dwk, None, g)
+    dev = x.device
+    n = b * h * w
+    dx, dw_in, ddw = (torch.empty_like(t) for t in (x, w_in, dwk))
+    # hb (bf16); x32, g32, h32, dh, dx32, w32, dwk32, dw_in32, ddw32
+    buf, ws = _workspaces(dev, (-(-n * m // 2), n * c, n * m, n * m, n * m, n * c, m * c,
+                                9 * m, m * c, 9 * m))
+    vec_c = kdw.dwconv_vec(c, ws[1], ws[5], ws[6])
+    vec_m = kdw.dwconv_vec(m, ws[2], ws[3], ws[4])
+    plan, n_sums = _bwd_card_plan(b, h, w, c, m, False, dev.index, vec_c, 1, vec_m)
+    sums = torch.empty(n_sums, device=dev)
+    with torch.cuda.device(dev):
+        build.call("rcot_conv1x1_dw_bwd_bf16", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
+                   g.data_ptr(), dx.data_ptr(), dw_in.data_ptr(), ddw.data_ptr(), *ws,
+                   sums.data_ptr(), plan, kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr()),
+                   b, h, w, c, m, build.stream())
+    build.LAUNCHES["conv1x1_dw_bwd_bf16"] += 1
+    return dx, dw_in, ddw
 
 
 # --------------------------------------------------------------- autograd

@@ -23,12 +23,17 @@ of any width: a head wider than HEAD_BLOCK channels runs as channel blocks
 (channel_blocks) in a grid of block pairs, each sum over blocks through
 slots of a workspace (slots_numel) added in a fixed order.
 
-bf16 (serving, forward only; rcot_tpu/ops/pallas_gram.py on a bf16 qkv): the
-Gram reads a bf16 qkv and writes fp32 G, nq and nk (the JAX kernel upcasts
-first, :81; a bf16 product is exact in fp32), the glue stays fp32, and the
-apply rounds attn to bf16 (:171), sums in fp32 and writes bf16. On the card
-a bf16 qkv goes to csrc/gram_bf16.cu's kernels, with the fp32 kernels'
-plans, counted as mdta_gram_fwd_bf16 and attn_apply_fwd_bf16.
+bf16 (rcot_tpu/ops/pallas_gram.py on a bf16 qkv): the Gram reads a bf16
+qkv and writes fp32 G, nq and nk (the JAX kernel upcasts first, :81; a bf16
+product is exact in fp32), the glue stays fp32, and the apply rounds attn
+to bf16 (:171), sums in fp32 and writes bf16. On the card a bf16 qkv goes
+to csrc/gram_bf16.cu's kernels, with the fp32 kernels' plans, counted as
+mdta_gram_fwd_bf16 and attn_apply_fwd_bf16. In bf16 training the backward
+kernels take the bf16 qkv and cotangent widened to fp32, the fp32 attn
+(not the rounded one) and fp32 dG, dnq, dnk, and round d[q|k] and dv to
+bf16 (:120-138, :195-216; dattn stays fp32): csrc/gram_bwd_bf16.cu,
+counted as mdta_gram_bwd_bf16 and attn_apply_bwd_bf16. Their twins are
+the fp32 twins on the widened operands, their outputs rounded.
 """
 
 from __future__ import annotations
@@ -71,7 +76,10 @@ def attn_apply_plain(qkv: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
 
 
 def mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads):
-    """-> d[q|k] (B,H,W,2C), by autograd through mdta_gram_plain."""
+    """-> d[q|k] (B,H,W,2C) in qkv's dtype, by autograd through
+    mdta_gram_plain (a bf16 qkv widened first)."""
+    if qkv.dtype == torch.bfloat16:
+        return mdta_gram_bwd_plain(qkv.float(), dgram, dnq, dnk, num_heads).to(qkv.dtype)
     with torch.enable_grad():
         leaf = qkv.detach().requires_grad_()
         outs = mdta_gram_plain(leaf, num_heads)
@@ -80,8 +88,12 @@ def mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads):
 
 
 def attn_apply_bwd_plain(qkv, attn, g):
-    """-> (dv (B,H,W,C), dattn (B,heads,ch,ch)), by autograd through
-    attn_apply_plain."""
+    """-> (dv (B,H,W,C) in qkv's dtype, dattn (B,heads,ch,ch) fp32), by
+    autograd through attn_apply_plain (a bf16 qkv and g widened first, attn
+    taken unrounded)."""
+    if qkv.dtype == torch.bfloat16:
+        dv, dattn = attn_apply_bwd_plain(qkv.float(), attn, g.float())
+        return dv.to(qkv.dtype), dattn
     with torch.enable_grad():
         leaves = [qkv.detach().requires_grad_(), attn.detach().requires_grad_()]
         dqkv, dattn = torch.autograd.grad(attn_apply_plain(*leaves), leaves, g)
@@ -301,56 +313,68 @@ def mdta_gram_bwd(qkv: torch.Tensor, dgram: torch.Tensor, dnq: torch.Tensor,
                   dnk: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Backward of mdta_gram_fwd: qkv (B,H,W,3C) and the cotangents of G,
     nq, nk -> d[q|k] (B,H,W,2C); the v third is structurally zero and not
-    written."""
+    written; in qkv's dtype (fp32, or bf16 from fp32 cotangents)."""
     if not qkv.is_cuda:
         return mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads)
     b, h, w, c3 = qkv.shape
     ch = c3 // 3 // num_heads
     dev = qkv.device
-    build.check_arg("qkv", qkv, (b, h, w, 3 * num_heads * ch), dev)
+    bf16 = qkv.dtype == torch.bfloat16
+    build.check_arg("qkv", qkv, (b, h, w, 3 * num_heads * ch), dev, build.kernel_dtype(qkv))
     build.check_arg("dgram", dgram, (b, num_heads, ch, ch), dev)
     build.check_arg("dnq", dnq, (b, num_heads, ch), dev)
     build.check_arg("dnk", dnk, (b, num_heads, ch), dev)
     cb = channel_blocks(ch)[1]
     blocks, per = gram_bwd_plan(b, h * w, num_heads, ch, sm_count(dev.index))
     n_ws = slots_numel(b, h * w, num_heads, ch, 2)
-    dqdk = torch.empty(b, h, w, 2 * num_heads * ch, device=dev)
+    dqdk = torch.empty(b, h, w, 2 * num_heads * ch, device=dev, dtype=qkv.dtype)
     ws = torch.empty(n_ws, device=dev) if n_ws else None
+    # the bf16 kernel's fp32 copies of qkv (its q and k thirds) and of d[q|k]
+    wide = [torch.empty(k, device=dev) for k in (qkv.numel(), dqdk.numel())] if bf16 else []
+    kernel = "mdta_gram_bwd_bf16" if bf16 else "mdta_gram_bwd"
     with torch.cuda.device(dev):
-        build.call("rcot_mdta_gram_bwd", qkv.data_ptr(), dgram.data_ptr(),
-                   dnq.data_ptr(), dnk.data_ptr(), dqdk.data_ptr(), build.ptr(ws), b,
+        build.call("rcot_" + kernel, qkv.data_ptr(), dgram.data_ptr(),
+                   dnq.data_ptr(), dnk.data_ptr(), dqdk.data_ptr(),
+                   *(t.data_ptr() for t in wide), build.ptr(ws), b,
                    h * w, num_heads, ch, cb, blocks, per, build.stream())
-    build.LAUNCHES["mdta_gram_bwd"] += 1
+    build.LAUNCHES[kernel] += 1
     return dqdk
 
 
 def attn_apply_bwd(qkv: torch.Tensor, attn: torch.Tensor, g: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of attn_apply_fwd for the cotangent g (B,H,W,C) ->
-    (dv (B,H,W,C), dattn (B,heads,ch,ch)). On the card dattn's pixel sums
-    run in a fixed order, so two calls on the same input give the same
-    bits."""
+    (dv (B,H,W,C) in qkv's dtype, dattn (B,heads,ch,ch) fp32); attn fp32,
+    g in qkv's dtype. On the card dattn's pixel sums run in a fixed order,
+    so two calls on the same input give the same bits."""
     if not qkv.is_cuda:
         return attn_apply_bwd_plain(qkv, attn, g)
     b, h, w, _ = qkv.shape
     heads, ch = attn.shape[1], attn.shape[2]
     dev = qkv.device
-    build.check_arg("qkv", qkv, (b, h, w, 3 * heads * ch), dev)
+    dt = build.kernel_dtype(qkv)
+    bf16 = dt == torch.bfloat16
+    build.check_arg("qkv", qkv, (b, h, w, 3 * heads * ch), dev, dt)
     build.check_arg("attn", attn, (b, heads, ch, ch), dev)
-    build.check_arg("g", g, (b, h, w, heads * ch), dev)
+    build.check_arg("g", g, (b, h, w, heads * ch), dev, dt)
     cb = channel_blocks(ch)[1]
     splits, per = gram_pairs_plan(b, h * w, heads, ch, sm_count(dev.index))
     # one allocation: the dattn partials, then the slots of dv
     n_ws = (apply_bwd_workspace_numel(splits, b, heads, ch)
             + slots_numel(b, h * w, heads, ch, 1))
-    dv = torch.empty(b, h, w, heads * ch, device=dev)
+    dv = torch.empty(b, h, w, heads * ch, device=dev, dtype=dt)
     dattn = torch.empty(b, heads, ch, ch, device=dev)
     ws = torch.empty(n_ws, device=dev) if n_ws else None
+    # the bf16 kernel's fp32 copies of qkv (its v third), g and dv
+    wide = ([torch.empty(k, device=dev) for k in (qkv.numel(), g.numel(), dv.numel())]
+            if bf16 else [])
+    kernel = "attn_apply_bwd_bf16" if bf16 else "attn_apply_bwd"
     with torch.cuda.device(dev):
-        build.call("rcot_attn_apply_bwd", qkv.data_ptr(), attn.data_ptr(),
-                   g.data_ptr(), dv.data_ptr(), dattn.data_ptr(), build.ptr(ws), b,
+        build.call("rcot_" + kernel, qkv.data_ptr(), attn.data_ptr(),
+                   g.data_ptr(), dv.data_ptr(), dattn.data_ptr(),
+                   *(t.data_ptr() for t in wide), build.ptr(ws), b,
                    h * w, heads, ch, cb, splits, per, build.stream())
-    build.LAUNCHES["attn_apply_bwd"] += 1
+    build.LAUNCHES[kernel] += 1
     return dv, dattn
 
 

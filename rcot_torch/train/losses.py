@@ -27,6 +27,13 @@ import torch
 from ..ops.fourier import fourier_residual_penalty, residual_rmse
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's gradient at 0, +1 (jnp.abs; torch.abs takes 0 there).
+    In bf16 out == target ties are common, and the paired term's weight
+    (Sigma = 1e4) makes each one count."""
+    return torch.where(x >= 0, x, -x)
+
+
 def t_loss(out: torch.Tensor, inp: torch.Tensor, target: torch.Tensor,
            de_id: torch.Tensor, critic_score: torch.Tensor, *, sigma: float,
            Sigma: float, paired: bool, loss_math: str = "reference"
@@ -36,10 +43,12 @@ def t_loss(out: torch.Tensor, inp: torch.Tensor, target: torch.Tensor,
     rmse = residual_rmse(res)
     fourier = fourier_residual_penalty(res, de_id, loss_math)
     adv = -critic_score.mean()
-    paired_l1 = (out - target).abs().mean()
+    paired_l1 = _abs(out - target).mean()
     loss = adv + sigma * (rmse + fourier)
     if paired:
-        loss = loss + Sigma * paired_l1
+        # Sigma in paired_l1's dtype, as JAX takes the Python float (1e4 is
+        # 9984 in bf16)
+        loss = loss + float(torch.tensor(Sigma).to(paired_l1.dtype)) * paired_l1
     return loss, {"t_adv": adv, "rmse": rmse, "fourier": fourier,
                   "paired_l1": paired_l1}
 

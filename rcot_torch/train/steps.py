@@ -18,7 +18,11 @@ caller from its own generator, so a test can hand in JAX's draw.
 patches, every random draw (augment modes, noise, alpha) from
 `step_generator(seed, step)`, so a resumed run repeats the uninterrupted
 one on the same device (the JAX trainer folds the step into its key the
-same way, trainer.py:152-158).
+same way, trainer.py:152-158). In bf16 training (TrainConfig.dtype
+"bfloat16") the batch and alpha are bf16, as the JAX trainer's
+(trainer.py:145, losses.py:94); the parameters, the optimizer state and
+the checkpoints stay fp32, and the losses follow JAX's dtypes (the RMSE
+and the Fourier term in fp32, the critic's scores and the GP in bf16).
 """
 
 from __future__ import annotations
@@ -81,14 +85,21 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int.from_bytes(key, "little") >> 1)
 
 
+def batch_dtype(cfg: Config) -> torch.dtype:
+    """The dtype of a training batch: TrainConfig.dtype."""
+    return torch.bfloat16 if cfg.train.dtype == "bfloat16" else torch.float32
+
+
 def step_inputs(seed: int, step: int, clean: torch.Tensor, degraded: torch.Tensor,
-                de_id: torch.Tensor) -> Tuple[Batch, torch.Tensor]:
+                de_id: torch.Tensor, dtype: torch.dtype = torch.float32
+                ) -> Tuple[Batch, torch.Tensor]:
     """uint8 patches (B, P, P, C) and de_id (B,) of one step, on the device
-    -> (its Batch, the GP's alpha (B, 1, 1, 1)): augment modes, noise, then
-    alpha, drawn in that order from step_generator(seed, step)."""
+    -> (its Batch, the GP's alpha (B, 1, 1, 1)), in dtype: augment modes,
+    noise, then alpha, drawn in that order from step_generator(seed, step)."""
     gen = step_generator(seed, step, clean.device)
-    deg, target = augment_and_degrade(clean, degraded, de_id, generator=gen)
-    alpha = torch.rand(clean.shape[0], 1, 1, 1, generator=gen, device=clean.device)
+    deg, target = augment_and_degrade(clean, degraded, de_id, generator=gen, out_dtype=dtype)
+    alpha = torch.rand(clean.shape[0], 1, 1, 1, generator=gen, device=clean.device,
+                       dtype=dtype)
     return Batch(deg, target, de_id), alpha
 
 

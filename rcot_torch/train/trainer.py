@@ -24,6 +24,11 @@ T's bias-free blocks run in `composition` ("auto" = the JAX trainer's
 default, "tail"), `attention_core` and `depthwise` (ops/dispatch.py);
 validation serves in "full" with the same attention core and depthwise
 tier, as the JAX package's kernel switches hold in its inference scope too.
+With TrainConfig.dtype "bfloat16" the batches (and the sample dump's
+forward) are bf16, in "tail" with the Gram core and the fused tier alone
+(any other choice stops by name at construction); validation still serves
+in fp32 (rcot_tpu/train/trainer.py:507 makes its restorer without a
+dtype), and the parameters, optimizer state and checkpoints stay fp32.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from ..data.datasets import eval_pairs, load_rgb
 from ..data.pipeline import device_prefetch, TrainLoader
 from ..metrics.quality import psnr
 from ..models.inference import make_restorer
-from ..ops.dispatch import (resolve_attention_core, resolve_composition,
+from ..ops.dispatch import (check_bf16, resolve_attention_core, resolve_composition,
                             resolve_depthwise)
 from ..utils.checkpoint import AsyncCheckpointer, load_checkpoint, snapshot_state
 from ..utils.config import Config
@@ -51,7 +56,8 @@ from ..utils.device import resolve_device
 from ..utils.image_io import save_sample_grid
 from ..utils.logging import MetricsLogger, StepTimer, profile_trace
 from .optim import step_decay_lr
-from .steps import TrainState, create_train_state, make_train_iteration, step_inputs
+from .steps import (TrainState, batch_dtype, create_train_state, make_train_iteration,
+                    step_inputs)
 
 
 class InjectedFailure(RuntimeError):
@@ -72,6 +78,9 @@ class Trainer:
         self.composition = resolve_composition(composition, training=True)
         self.attention_core = resolve_attention_core(attention_core)
         self.depthwise = resolve_depthwise(depthwise)
+        self.dtype = batch_dtype(cfg)
+        if self.dtype == torch.bfloat16:
+            check_bf16(**self._kernels(), use="backward")
         self.log = MetricsLogger(log_path)
         self.loader = TrainLoader(cfg, seed=cfg.train.seed)
         self.iteration = make_train_iteration(cfg)
@@ -191,7 +200,7 @@ class Trainer:
                     self.log.log("profile_trace", dir=profile_dir)
                 timer.start()
                 inputs, alpha = step_inputs(t.seed, self.host_step, b.clean, b.degraded,
-                                            b.de_id)
+                                            b.de_id, self.dtype)
                 self.state, metrics = self.iteration(self.state, inputs, alpha,
                                                      step_idx < paired_until, lr)
                 batch = b
@@ -232,14 +241,18 @@ class Trainer:
     @torch.no_grad()
     def _dump_samples(self, epoch: int, batch) -> None:
         """Output, degraded, target and 2 x residual grids of the last batch,
-        its augmented inputs made again from the step's own draws."""
+        its augmented inputs made again from the step's own draws, through
+        the training forward in the batch's dtype."""
         t = self.cfg.train
         inputs, _ = step_inputs(t.seed, self.host_step - 1, batch.clean, batch.degraded,
-                                batch.de_id)
+                                batch.de_id, self.dtype)
         out, _, res = self.state.t_net(inputs.degraded)
+
+        def host(x):
+            return x.float().cpu().numpy()
         save_sample_grid(os.path.join(t.sample_dir, t.run_name), f"epoch{epoch}",
-                         output=out.cpu().numpy(), degraded=inputs.degraded.cpu().numpy(),
-                         target=inputs.target.cpu().numpy(), res=2.0 * res.cpu().numpy())
+                         output=host(out), degraded=host(inputs.degraded),
+                         target=host(inputs.target), res=2.0 * host(res))
 
     def evaluate_folder(self, degset: str, tarset: str) -> float:
         """Mean full-size PSNR over a validation folder (reference:

@@ -323,7 +323,9 @@ def test_cli_test_bf16_matches_the_jax_cli(tiny_config, tmp_path, capsys, pallas
     (dict(depthwise="dwconv"), "--depthwise dwconv")])
 def test_bf16_refuses_every_other_choice_by_name(tiny_model_cfg, choice, flag):
     """On the CPU as on the card: make_restorer and a bias-free block stop
-    by name before any forward in bf16."""
+    by name before any forward in bf16; "tail", bf16 training's
+    composition, stops in serving but its forward runs (its backward:
+    tests/test_torch_bf16_train.py)."""
     full = dict(composition="full", attention_core="gram", depthwise="fused")
     with pytest.raises(NotImplementedError, match=f"bf16 with `{flag}` is not ported yet"):
         check_bf16(**{**full, **choice})
@@ -333,6 +335,11 @@ def test_bf16_refuses_every_other_choice_by_name(tiny_model_cfg, choice, flag):
         tinf.make_restorer(net, tcfg, device="cpu", dtype=torch.bfloat16, **choice)
     for k, v in choice.items():
         setattr(net, k, v)
-    with pytest.raises(NotImplementedError, match=flag), torch.no_grad():
-        net(torch.zeros(1, 16, 16, 3, dtype=torch.bfloat16))
+    x = torch.zeros(1, 16, 16, 3, dtype=torch.bfloat16)
+    if choice == dict(composition="tail"):
+        with torch.no_grad():
+            assert net(x)[0].dtype == torch.bfloat16
+    else:
+        with pytest.raises(NotImplementedError, match=flag), torch.no_grad():
+            net(x)
     check_bf16(**full)  # does not raise

@@ -35,7 +35,23 @@ bf16 twin (four bf16 ulps of the largest value: where a sum falls next to a
 rounding boundary the kernel and the twin round it apart, and later stages
 carry that on), the Gram's fp32 outputs (sums of exact bf16 products)
 within 1e-5 of the float64 twin's; every bf16 kernel repeats bitwise; a bf16
-tensor at an fp32-only kernel (rows 5-11) raises and names its dtype.
+tensor at a kernel with no bf16 form (rows 10-11) raises and names its dtype,
+one at a configuration with none (row 5's head, rows 8-9's GDFN) stops by
+name.
+
+bf16 training (row 8's qkv forward, rows 5 (tail), 6-7 and 9 (qkv)
+backward: csrc/fused_dwconv_bf16.cu, block_bwd_bf16.cu, gram_bwd_bf16.cu):
+each bf16 output within BF16_RTOL of its plain bf16 twin, each fp32 output
+(dln_w, dln_b, dattn: pixel sums) against the twin's arithmetic in float64,
+dattn within 1e-5 of max(max|twin|, 1), dln_w and dln_b within BF16_FLIP_RTOL
+(they follow bf16 rounding points, t, u and h: where two fp32 sums fall on
+either side of a rounding boundary they round a value one bf16 ulp apart,
+and the pixel sums carry that; chip_smoke.py measured 1.2e-4, the fp32 twin
+itself 2.9e-4 from float64); every kernel repeats bitwise; a small T_net's
+bf16 gradients on the card against the CPU's under the quarter rule on the
+mean taken over every gradient entry together (sum|card - CPU bf16| <=
+sum|fp32 - bf16| / 4; per tensor an MDTA temperature's cancelling sum of a
+few entries breaks it, chip_smoke.py BF16_MODEL_RATIO).
 """
 
 import pytest
@@ -863,23 +879,22 @@ def test_bf16_gram_and_apply_match_their_twins_and_repeat(cuda_device, b, heads,
 
 @pytest.mark.cuda
 def test_fp32_only_kernels_refuse_bf16_by_its_dtype(cuda_device):
-    """Rows 5-11 have no bf16 form yet: a bf16 tensor raises, never casts."""
+    """Rows 10-11 have no bf16 form: a bf16 tensor raises, never casts; row
+    5's head configuration and rows 8-9's GDFN have none either ("full" and
+    "head"/"off" bf16 training) and stop by name."""
     p = _to_bf16(_block_inputs(torch.Generator(device="cuda").manual_seed(17), 1, 8, 8, 8,
                                True))
     head = [p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"]]
+    gdfn = [p["x"], p["w_in"], p["dw_in"], p["w_out"]]
     q = torch.zeros(1, 1, 8, 64, device="cuda", dtype=torch.bfloat16)
-    calls = [
-        lambda: tblock.block_head_bwd(*head, torch.zeros_like(p["x"]).repeat(1, 1, 1, 3)),
-        lambda: tgram.mdta_gram_bwd(torch.zeros(1, 8, 8, 24, device="cuda",
-                                                dtype=torch.bfloat16),
-                                    *(torch.zeros(1, 1, 8, 8, device="cuda"),
-                                      torch.zeros(1, 1, 8, device="cuda"),
-                                      torch.zeros(1, 1, 8, device="cuda")), 1),
-        lambda: tfused.conv1x1_dw_fused(p["x"], p["w_qkv"], p["dw_qkv"]),
-        lambda: tdw.dwconv3x3(p["x"], p["dw_qkv"][:8]),
-        lambda: tmdta.mdta_attend(q, q, q, torch.ones(1, 1, 1, device="cuda"))]
-    for call in calls:
+    for call in (lambda: tdw.dwconv3x3(p["x"], p["dw_qkv"][:8]),
+                 lambda: tmdta.mdta_attend(q, q, q, torch.ones(1, 1, 1, device="cuda"))):
         with pytest.raises(ValueError, match="bfloat16"):
+            call()
+    for call in (lambda: tblock.block_head_bwd(*head, torch.zeros_like(p["x"]).repeat(1, 1, 1, 3)),
+                 lambda: tfused.fused_dwconv_fwd(*gdfn),
+                 lambda: tfused.fused_dwconv_bwd(*gdfn, torch.zeros_like(p["x"]))):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
             call()
 
 
@@ -907,3 +922,130 @@ def test_a_bf16_tnet_on_the_card_matches_the_cpu(cuda_device):
     assert len(set(launched.values())) == 1
     err, gap = np.abs(card - cpu16).mean(), np.abs(cpu32 - cpu16).mean()
     assert err <= gap / 4, (err, gap)
+
+
+# ------------------------------------------------------------ bf16 training
+
+def _bf16_train_calls(p, g_m, g_c):
+    """{name: (kernel, bf16 twin, the twin's arithmetic in float64)} of row
+    8's qkv forward and rows 9 (qkv) and 5 (tail) backward on bf16 p."""
+    import functools
+    qkv = [p["x"], p["w_qkv"], p["dw_qkv"]]
+    tail = [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")]
+    rounded = functools.partial(tblock._block_tail_rounded, torch.bfloat16)
+    return {
+        "conv1x1_dw_bf16": (lambda: (tfused.fused_dwconv_fwd(*qkv, None),),
+                            lambda: (tfused.fused_dwconv_plain(*qkv, None),), None),
+        "conv1x1_dw_bwd_bf16": (lambda: tfused.fused_dwconv_bwd(*qkv, None, g_m)[:3],
+                                lambda: tfused.fused_dwconv_bwd_plain(*qkv, None, g_m)[:3],
+                                None),
+        "block_tail_bwd_bf16": (lambda: tblock.block_tail_bwd(*tail, g_c),
+                                lambda: tblock.block_tail_bwd_plain(*tail, g_c),
+                                lambda: tblock._vjp_plain(rounded, _double(tail), g_c.double())),
+    }
+
+
+BF16_FLIP_RTOL = 1e-3
+BF16_MODEL_RATIO = 0.25
+F32_RTOL = {"block_tail_bwd_bf16": BF16_FLIP_RTOL, "attn_apply_bwd_bf16": RTOL}
+
+
+def _check_bf16_outputs(name, got, again, want, want64):
+    for i, (gt, ag, wt) in enumerate(zip(got, again, want)):
+        if gt is None:
+            continue
+        assert torch.equal(gt, ag), (name, i)
+        if gt.dtype == torch.bfloat16:
+            assert _bf16_within(gt, wt), (name, i)
+            continue
+        assert gt.dtype == wt.dtype == torch.float32
+        err = float((gt.double() - want64[i]).abs().max())
+        scale = max(float(want64[i].abs().max()), 1.0)
+        assert err <= F32_RTOL[name] * scale, (name, i, err, scale)
+
+
+# rows 8-9 (qkv) and 5 (tail) in bf16: C = 6 (h = 15), odd h (127, 255,
+# 1,021), h = 510, split products (the latent), B = 3
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 20, 19, 6), (3, 16, 16, 48), (1, 16, 16, 192),
+                                   (1, 9, 33, 384), (3, 8, 8, 384), (1, 24, 40, 96)])
+@pytest.mark.parametrize("ln_bias", [True, False], ids=["WithBias", "BiasFree"])
+def test_bf16_train_block_kernels_match_their_twins_and_repeat(cuda_device, shape, ln_bias):
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    p = _to_bf16(_block_inputs(gen, *shape, ln_bias))
+    g_m = torch.randn(*shape[:3], 3 * shape[3], device="cuda", generator=gen).bfloat16()
+    g_c = torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+    for name, (fn, plain, plain64) in _bf16_train_calls(p, g_m, g_c).items():
+        n0 = build.LAUNCHES[name]
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == n0 + 2, name
+        _check_bf16_outputs(name, got, again, plain(), plain64() if plain64 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,ch,hw", [(1, 1, 48, (64, 64)), (2, 8, 48, (16, 16)),
+                                           (3, 4, 24, (33, 7)), (1, 1, 192, (32, 32)),
+                                           (1, 1, 150, (9, 9)), (2, 2, 5, (6, 7))])
+def test_bf16_mdta_backward_kernels_match_their_twins_and_repeat(cuda_device, b, heads, ch,
+                                                                 hw):
+    """Rows 6-7 on a bf16 qkv and cotangent: d[q|k] and dv bf16, dattn fp32
+    (against float64), at the heads of the bf16 Gram's test."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    qkv = r(b, *hw, 3 * heads * ch).bfloat16()
+    dgram, dnq, dnk = r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)
+    attn = torch.softmax(r(b, heads, ch, ch), -1)
+    g = r(b, *hw, heads * ch).bfloat16()
+    n0 = build.LAUNCHES["mdta_gram_bwd_bf16"], build.LAUNCHES["attn_apply_bwd_bf16"]
+    got, again = (tgram.mdta_gram_bwd(qkv, dgram, dnq, dnk, heads) for _ in range(2))
+    apply, apply2 = (tgram.attn_apply_bwd(qkv, attn, g) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["mdta_gram_bwd_bf16"], build.LAUNCHES["attn_apply_bwd_bf16"]) == (
+        n0[0] + 2, n0[1] + 2)
+    _check_bf16_outputs("mdta_gram_bwd_bf16", (got,), (again,),
+                        (tgram.mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, heads),), None)
+    want64 = tgram.attn_apply_bwd_plain(qkv.double(), attn.double(), g.double())
+    _check_bf16_outputs("attn_apply_bwd_bf16", apply, apply2,
+                        tgram.attn_apply_bwd_plain(qkv, attn, g), want64)
+
+
+@pytest.mark.cuda
+def test_a_bf16_tnet_trains_on_the_card_as_on_the_cpu(cuda_device):
+    """A small T_net in "tail" on a bf16 input, differentiated for a bf16
+    cotangent of its output, on the card against the CPU: the gradients,
+    all together, within a quarter of what bf16 changes on the CPU;
+    each bf16 training kernel launched once a block, and no fp32 form of
+    rows 2-9."""
+    import copy
+
+    cfg = ModelConfig(dim=16, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
+                      parity_params=False)
+    net = TNet(cfg, device="cpu", seed=4, composition="tail")
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand(2, 32, 32, 3, generator=gen)
+    g = torch.randn(2, 32, 32, 3, generator=gen).bfloat16()
+
+    def grads(n, dtype, dev):
+        named = list(n.named_parameters())
+        out = n(x.to(dev, dtype))[0]
+        gs = torch.autograd.grad(out, [q for _, q in named], g.to(dev, dtype),
+                                 allow_unused=True)
+        return {k: t.float().cpu() for (k, _), t in zip(named, gs) if t is not None}
+    cpu16, cpu32 = grads(net, torch.bfloat16, "cpu"), grads(net, torch.float32, "cpu")
+    before = dict(build.LAUNCHES)
+    card = grads(copy.deepcopy(net).cuda(), torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert set(launched) == {"conv1x1_dw_bf16", "block_tail_bf16", "mdta_gram_fwd_bf16",
+                             "attn_apply_fwd_bf16", "block_tail_bwd_bf16",
+                             "mdta_gram_bwd_bf16", "attn_apply_bwd_bf16",
+                             "conv1x1_dw_bwd_bf16"}, launched
+    assert len(set(launched.values())) == 1
+    assert card.keys() == cpu16.keys()
+    err = sum(float((card[k] - cpu16[k]).abs().sum()) for k in card)
+    gap = sum(float((cpu32[k] - cpu16[k]).abs().sum()) for k in card)
+    assert err <= BF16_MODEL_RATIO * gap, (err, gap)

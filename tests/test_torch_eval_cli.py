@@ -273,7 +273,8 @@ def test_eval_all_refuses_bf16_by_name():
 
 
 def test_cli_train_refuses_bf16_training_by_name():
-    """bf16 serves; bf16 training (the rest of ROADMAP Queue 1 item 4) does not."""
+    """bf16 serves, and trains in "tail" (tests/test_torch_bf16_train.py);
+    bf16 training in "full" (the rest of ROADMAP Queue 1 item 4) does not."""
     from rcot_torch.cli import train as t_train
     with pytest.raises(SystemExit, match="--dtype bfloat16: bf16 training .* not ported"):
-        t_train.main(["--dtype", "bfloat16", "--device", "cpu"])
+        t_train.main(["--dtype", "bfloat16", "--composition", "full", "--device", "cpu"])

@@ -83,7 +83,8 @@ def test_cli_takes_the_jax_flags():
 
 @pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--coordinator", "h:1"],
                                    ["--num-processes", "2"], ["--backbone", "mprnet"],
-                                   ["--dtype", "bfloat16"], ["--pretrained", "w.pth"]],
+                                   ["--dtype", "bfloat16", "--composition", "full"],
+                                   ["--pretrained", "w.pth"]],
                          ids=lambda f: f[0])
 def test_cli_refuses_unported_flags(flags):
     with pytest.raises(SystemExit, match="not ported"):
