@@ -78,9 +78,14 @@ Phases (any failure exits non-zero; nothing is caught):
      and none of their fp32 forms, the outputs against the same weights in
      bf16 on the CPU; bf16 and fp32 img/s at batch 1 and 8 in turns and the
      peak memory at batch 8; rcot_torch.cli.test --dtype bfloat16 against a
-     CPU run; the bf16 kernels timed as phase 5 times the fp32 ones;
+     CPU run; one full-width bf16 forward of a 128^2 image in each of
+     "head", "tail" and "off" (94 launches of each of its composition's
+     bf16 kernels, none of another) against the same composition on the
+     CPU, and bf16 img/s at 256^2, batch 8, in all four compositions in
+     turns; the bf16 kernels timed as phase 5 times the fp32 ones;
   5c. bf16 training's kernels (conv1x1_dw_bf16, conv1x1_dw_bwd_bf16,
-     block_tail_bwd_bf16, mdta_gram_bwd_bf16, attn_apply_bwd_bf16) against
+     block_tail_bwd_bf16, mdta_gram_bwd_bf16, attn_apply_bwd_bf16, and
+     since PR 16 block_head_bwd_bf16, gdfn_fused_bf16, gdfn_fused_bwd_bf16) against
      their plain bf16 twins at every training block shape (128x128, B = 3:
      each level, the decoder's and the refinement's), rows 6-7 also at the
      wide heads of phase 3e, each bitwise against a second call, and timed
@@ -100,12 +105,17 @@ Phases (any failure exits non-zero; nothing is caught):
   6e. train in bf16 (cli.train --dtype bfloat16's path): a full-width
      state in "tail", three iterations at 128^2, B = 3 on bf16 batches,
      counted (94 launches an iteration of each of BF16_TRAIN_PATH and none
-     of the fp32 rows 2-9), finite metrics, fp32 parameters that moved;
-     fp32 and bf16 iterations/s in turns with the peak memory of each;
-     the bf16 gradients and an lr = 0 iteration's metrics at 64^2, B = 1
-     against the CPU's (the critic's sign pattern pinned); and the train
-     CLI with --dtype bfloat16 for one epoch through --fail-at-step 3 and a
-     resume, its validation in fp32;
+     of the fp32 rows 1-9), finite metrics, fp32 parameters that moved;
+     then three counted iterations in "full" and one each in "head" and
+     "off" (each of its composition's bf16 kernels, bf16_path, 94 times an
+     iteration); iterations/s in turns (fp32 and bf16 "tail", bf16 and fp32
+     "full") with the peak memory of each; the bf16 gradients and an lr = 0
+     iteration's metrics at 64^2, B = 1 against the CPU's (the critic's
+     sign pattern pinned), in "tail" and in "full"; the train CLI with
+     --dtype bfloat16 for one epoch through --fail-at-step 3 and a resume,
+     its validation in fp32; and, in "full" with cuDNN deterministic, a
+     run stopped and resumed against one straight through (bitwise, or
+     within RESUME_ATOL);
   6b. from one full-width state at 64^2, B = 1, each of the compositions
      full, head, tail and off, in the default tiers and then with the
      fused MDTA attend and the depthwise kernel: its kernels launched 94
@@ -179,8 +189,8 @@ fixed order and is held bitwise against a second call.
 The bf16 phases' gates, and why they are what they are: the notes above
 BF16_RTOL, BF16_FLIP_RTOL and BF16_MODEL_RATIO.
 
-Prints the kernels' JSON line (all twenty-five kernels: the sixteen fp32
-ones, rows 1-4 in bf16 and bf16 training's five forms) and, last,
+Prints the kernels' JSON line (all twenty-eight kernels: the sixteen fp32
+ones, rows 1-4 in bf16 and bf16 training's eight forms) and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -1218,7 +1228,9 @@ BF16_KERNELS = {
     "attn_apply_fwd_bf16": ("rcot_torch/csrc/gram_bf16.cu", "rcot_tpu/ops/pallas_gram.py:178"),
 }
 # bf16 training's forms (csrc/fused_dwconv_bf16.cu, block_bwd_bf16.cu,
-# gram_bwd_bf16.cu), and every kernel of one bf16 "tail" iteration
+# gram_bwd_bf16.cu): the qkv configuration of rows 8-9, row 5's tail and rows
+# 6-7 (PR 15), then the GDFN configuration of rows 8-9 and row 5's head,
+# which "full", "head" and "off" run in bf16
 BF16_TRAIN_KERNELS = {
     "conv1x1_dw_bf16": ("rcot_torch/csrc/fused_dwconv_bf16.cu",
                         "rcot_tpu/ops/pallas_fused.py:238"),
@@ -1230,10 +1242,34 @@ BF16_TRAIN_KERNELS = {
                            "rcot_tpu/ops/pallas_gram.py:141"),
     "attn_apply_bwd_bf16": ("rcot_torch/csrc/gram_bwd_bf16.cu",
                             "rcot_tpu/ops/pallas_gram.py:219"),
+    "block_head_bwd_bf16": ("rcot_torch/csrc/block_bwd_bf16.cu",
+                            "rcot_tpu/ops/pallas_block.py:401"),
+    "gdfn_fused_bf16": ("rcot_torch/csrc/fused_dwconv_bf16.cu",
+                        "rcot_tpu/ops/pallas_fused.py:238"),
+    "gdfn_fused_bwd_bf16": ("rcot_torch/csrc/fused_dwconv_bf16.cu",
+                            "rcot_tpu/ops/pallas_fused.py:415"),
 }
-BF16_TRAIN_PATH = ("conv1x1_dw_bf16", "block_tail_bf16", "mdta_gram_fwd_bf16",
-                   "attn_apply_fwd_bf16", "block_tail_bwd_bf16", "mdta_gram_bwd_bf16",
-                   "attn_apply_bwd_bf16", "conv1x1_dw_bwd_bf16")
+# the attention-side and the FFN-side bf16 kernel of each block composition
+# (COMPOSITION_KERNELS in bf16), and the bf16 Gram core's two
+BF16_SIDES = {"full": ("block_head_bf16", "block_tail_bf16"),
+              "head": ("block_head_bf16", "gdfn_fused_bf16"),
+              "tail": ("conv1x1_dw_bf16", "block_tail_bf16"),
+              "off": ("conv1x1_dw_bf16", "gdfn_fused_bf16")}
+BF16_CORE = ("mdta_gram_fwd_bf16", "attn_apply_fwd_bf16")
+
+
+def bf16_path(mode: str, backward: bool = True) -> tuple:
+    """The bf16 kernels one block launches in this composition, once each."""
+    fwd = (*BF16_SIDES[mode], *BF16_CORE)
+    bwd = tuple(k.replace("_fwd_bf16", "_bf16").replace("_bf16", "_bwd_bf16") for k in fwd)
+    return fwd + (bwd if backward else ())
+
+
+BF16_TRAIN_PATH = bf16_path("tail")
+# where the kernels line counts a bf16 training form's launches: the
+# composition of phase 6e that runs it ("tail" unless named here)
+BF16_LAUNCHES_FROM = {"block_head_bwd_bf16": "full", "gdfn_fused_bf16": "head",
+                      "gdfn_fused_bwd_bf16": "head"}
 ALL_KERNELS = {**KERNELS, **BF16_KERNELS, **BF16_TRAIN_KERNELS}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 # Gates of the bf16 phase. A bf16 output of
@@ -1263,6 +1299,7 @@ BF16 = torch.bfloat16
 # fp32 twin itself 2.9e-4 from float64 there.
 BF16_FLIP_RTOL = 1e-3
 BF16_TRAIN_F32_RTOL = {"block_tail_bwd_bf16": BF16_FLIP_RTOL,
+                       "block_head_bwd_bf16": BF16_FLIP_RTOL,
                        "attn_apply_bwd_bf16": KERNEL_RTOL}
 # bf16 training on the whole model (the card against the CPU): the quarter
 # rule on the mean taken over every gradient entry together, sum|card - CPU
@@ -1485,23 +1522,75 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
     if not psnr_gap <= BF16_PSNR_DB:
         raise AssertionError(f"cli.test bf16 PSNR gap {psnr_gap} dB > {BF16_PSNR_DB}")
 
+    compositions = bf16_compositions(gen_np, net, r32, cpu16_net(net), card)
     timings = {label: bf16_timings(gen, label, res, c, heads, 1)
                for label, res, c, heads in MAIN_SHAPES}
     return dict(errs=errs, launches=launches, n_fwd=n_fwd, vs_cpu=vs_cpu,
                 img_per_s=rate, batch8_max_memory_allocated=peak, cli_psnr_gap_db=psnr_gap,
-                cli_launches=cli_launches, timings=timings, card=card)
+                cli_launches=cli_launches, compositions=compositions, timings=timings,
+                card=card)
+
+
+def cpu16_net(net):
+    """The same weights in a TNet on the CPU."""
+    cpu_net = TNet(ModelConfig(), device="cpu", seed=None).eval()
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    return cpu_net
+
+
+def bf16_compositions(gen_np, net, r32, cpu_net, card) -> dict:
+    """bf16 serving in "head", "tail" and "off" beside "full": one
+    full-width two-pass forward each on a 128^2 image, counted (each bf16
+    kernel of the composition 94 times, none of another), against the same
+    composition's bf16 forward on the CPU by the rule of the "full" check
+    above (mean|card - CPU| <= mean|fp32 - bf16| / 4, the fp32 side the
+    card's "full"); then img/s at 256 px, batch 8, in turns (full, head,
+    tail, off, off, tail, head, full)."""
+    cfg = ModelConfig()
+    img = gen_np.uniform(0, 1, (128, 128, 3)).astype(np.float32)
+    fp32 = r32.restore_batch([img])[0]
+    rs, out = {"full": make_restorer(net, cfg, device="cuda", dtype=BF16)}, {}
+    for mode in ("head", "tail", "off"):
+        r = rs[mode] = make_restorer(net, cfg, device="cuda", dtype=BF16, composition=mode)
+        forwards = counting(r)
+        build.reset_launches()
+        got = r.restore_batch([img])[0]
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        check_launches(f"serving bf16 {mode}", launches,
+                       {k: FORWARD_LAUNCHES * forwards[0] for k in bf16_path(mode, False)})
+        ref = make_restorer(cpu_net, cfg, device="cpu", dtype=BF16,
+                            composition=mode).restore_batch([img])[0]
+        err, gap = np.abs(got - ref), np.abs(fp32 - ref)
+        out[mode] = row = {"launches": launches, "mean_abs_err": float(err.mean()),
+                           "mean_fp32_bf16_gap": float(gap.mean()),
+                           "max_abs_err": float(err.max()),
+                           "share_not_equal": float((err > 0).mean())}
+        log(f"serving bf16 {mode} card vs CPU 128^2: {json.dumps(row)}")
+        if got.shape != img.shape or not np.isfinite(got).all() or not (
+                row["mean_abs_err"] <= row["mean_fp32_bf16_gap"] / 4
+                and row["max_abs_err"] <= BF16_RTOL * max(float(np.abs(ref).max()), 1.0)):
+            raise AssertionError(f"serving bf16 {mode} card vs CPU: {row}")
+    rate = {mode: [] for mode in rs}
+    for mode in ("full", "head", "tail", "off", "off", "tail", "head", "full"):
+        rate[mode].append(images_per_sec(rs[mode], gen_np, 8, 3))
+    log(f"256px restore_batch bf16 at batch 8 by composition, in turns: {json.dumps(rate)} "
+        f"({card})")
+    return dict(vs_cpu_128px=out, batch8_img_per_s=rate)
 
 
 # ------------------------------------------------------------ bf16 training
 
 def bf16_block_calls(p, r):
     """{name: (kernel, bf16 twin, the twin's arithmetic in float64 or None)}
-    of rows 8-9 (qkv) and 5 (tail) in bf16 training on bf16 block inputs p,
-    cotangents drawn by r."""
+    of rows 8-9 and 5 in bf16 training, both configurations each, on bf16
+    block inputs p, cotangents drawn by r."""
     b, res, _, c = p["x"].shape
     g_m, g_c = r(b, res, res, 3 * c).to(BF16), r(b, res, res, c).to(BF16)
-    qkv_args, tail = fused_args(p, False), tail_args(p)
+    qkv_args, gdfn = fused_args(p, False), fused_args(p, True)
+    head, tail = head_args(p), tail_args(p)
     rounded = functools.partial(kblock._block_tail_rounded, BF16)
+    head_rounded = functools.partial(kblock._block_head_rounded, BF16)
     return {
         "conv1x1_dw_bf16": (lambda: (kfused.fused_dwconv_fwd(*qkv_args),),
                             lambda: (kfused.fused_dwconv_plain(*qkv_args),), None),
@@ -1512,6 +1601,14 @@ def bf16_block_calls(p, r):
                                 lambda: kblock.block_tail_bwd_plain(*tail, g_c),
                                 lambda: kblock._vjp_plain(rounded, _double(tail),
                                                           g_c.double())),
+        "block_head_bwd_bf16": (lambda: kblock.block_head_bwd(*head, g_m),
+                                lambda: kblock.block_head_bwd_plain(*head, g_m),
+                                lambda: kblock._vjp_plain(head_rounded, _double(head),
+                                                          g_m.double())),
+        "gdfn_fused_bf16": (lambda: (kfused.fused_dwconv_fwd(*gdfn),),
+                            lambda: (kfused.fused_dwconv_plain(*gdfn),), None),
+        "gdfn_fused_bwd_bf16": (lambda: kfused.fused_dwconv_bwd(*gdfn, g_c),
+                                lambda: kfused.fused_dwconv_bwd_plain(*gdfn, g_c), None),
     }
 
 
@@ -1621,6 +1718,7 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     at, dg = attn.reshape(bh, ch, ch).to(BF16), dgram.reshape(bh, ch, ch).to(BF16)
     w_qkv = 2 * (m * c + 9 * m)
     w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
+    w_gdfn = 2 * (3 * hid * c + 18 * hid)
     rows = {  # library, bf16 product flops, other flops, bytes
         "conv1x1_dw_bf16": (None, b * n * 2 * c * m, b * n * 18 * m,
                             2 * b * n * (c + m) + w_qkv),
@@ -1635,6 +1733,18 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
         "attn_apply_bwd_bf16": (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)), 0,
                                 b * n * 4 * c * ch,
                                 2 * 3 * b * n * c + 4 * 2 * bh * ch * ch),
+        # the head's backward: the recompute's h product in bf16; du, dW_qkv,
+        # the rotated stencil, dtaps and the LayerNorm's backward in fp32
+        "block_head_bwd_bf16": (None, b * n * 2 * c * m,
+                                b * n * (4 * c * m + 36 * m + 12 * c),
+                                2 * b * n * (2 * c + m) + 2 * w_qkv + 4 * 4 * c),
+        # the GDFN forward: both products bf16, the stencil and the gate fp32
+        "gdfn_fused_bf16": (None, b * n * 6 * hid * c, b * n * 46 * hid,
+                            2 * 2 * b * n * c + w_gdfn),
+        # its backward: h's product in bf16; dgate, dW_out, dx, dW_in, the
+        # three stencils and the gate's derivative in fp32
+        "gdfn_fused_bwd_bf16": (None, b * n * 4 * hid * c, b * n * (12 * hid * c + 128 * hid),
+                                2 * 3 * b * n * c + 2 * w_gdfn),
     }
     out = {}
     for name, (lib, mm_flops, flops, nbytes) in rows.items():
@@ -1664,26 +1774,34 @@ def phase_bf16_train(gen, card) -> dict:
     create_train_state(Config(train=TrainConfig(dtype="bfloat16"))) in
     "tail", three iterations at 128^2, B = 3 on bf16 batches, counted: each
     of BF16_TRAIN_PATH launched 94 times an iteration and no fp32 form of
-    rows 2-9; finite metrics, fp32 parameters that moved. Then fp32 and bf16
-    iterations/s in turns (fp32, bf16, bf16, fp32) from that state, with the
-    peak max_memory_allocated of each run."""
+    rows 1-9; finite metrics, fp32 parameters that moved. The same state
+    then trains three counted iterations in "full" and one each in "head"
+    and "off", each launching its composition's bf16 kernels (bf16_path)
+    94 times an iteration and no other. Then iterations/s in turns (fp32
+    tail, bf16 tail, bf16 full, fp32 full, and back) from that state, with
+    the peak max_memory_allocated of each run."""
     cfg = Config(train=TrainConfig(dtype="bfloat16"))
     state = create_train_state(cfg, seed=0, device="cuda")
     if state.t_net.composition != "tail":
         raise AssertionError(f"bf16 training composition {state.t_net.composition!r}")
     batches, alphas = train_inputs(gen, cfg)
     batches16, alphas16 = bf16_batches(batches, alphas)
-    state, metrics, launches = counted_iterations(
-        state, cfg, batches16, alphas16, "training bf16",
-        {name: FORWARD_LAUNCHES for name in BF16_TRAIN_PATH})
+    launches_by, metrics_by = {}, {}
+    for mode, n in (("tail", 3), ("full", 3), ("head", 1), ("off", 1)):
+        state.t_net.composition = mode
+        state, metrics_by[mode], launches_by[mode] = counted_iterations(
+            state, cfg, batches16[:n], alphas16[:n], f"training bf16 {mode}",
+            {name: FORWARD_LAUNCHES for name in bf16_path(mode)})
     for net in (state.t_net, state.f_net):
         if any(q.dtype != torch.float32 for q in net.parameters()):
             raise AssertionError("bf16 training left a parameter out of fp32")
     iteration = make_train_iteration(cfg)
     lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
-    rates, peak = {"fp32": [], "bf16": []}, {"fp32": [], "bf16": []}
-    for tag in ("fp32", "bf16", "bf16", "fp32"):
-        bs, als = (batches16, alphas16) if tag == "bf16" else (batches, alphas)
+    runs = ("fp32 tail", "bf16 tail", "bf16 full", "fp32 full")
+    rates, peak = {k: [] for k in runs}, {k: [] for k in runs}
+    for tag in runs + runs[::-1]:
+        dtype, state.t_net.composition = tag.split()
+        bs, als = (batches16, alphas16) if dtype == "bf16" else (batches, alphas)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1692,10 +1810,13 @@ def phase_bf16_train(gen, card) -> dict:
         torch.cuda.synchronize()
         rates[tag].append(5 / (time.perf_counter() - t0))
         peak[tag].append(torch.cuda.max_memory_allocated())
-    log(f"training {TRAIN_RES}px B={TRAIN_B} in tail, in turns fp32/bf16/bf16/fp32: "
+    state.t_net.composition = "tail"
+    log(f"training {TRAIN_RES}px B={TRAIN_B}, in turns {' / '.join(runs + runs[::-1])}: "
         f"iterations/s {json.dumps(rates)}, peak memory {json.dumps(peak)} ({card})")
-    return dict(launches=launches, metrics=metrics, it_per_s_runs=rates,
-                it_per_s={k: sum(v) / len(v) for k, v in rates.items()},
+    return dict(launches=launches_by["tail"], metrics=metrics_by["tail"],
+                launches_by=launches_by,
+                iterations_by={k: len(v) for k, v in metrics_by.items()},
+                it_per_s_runs=rates, it_per_s={k: sum(v) / len(v) for k, v in rates.items()},
                 max_memory_allocated=peak, card=card)
 
 
@@ -1703,9 +1824,10 @@ def _bf16_ulp(v: float) -> float:
     return 2.0 ** (np.floor(np.log2(abs(v))) - 7) if v else 2.0 ** -133
 
 
-def phase_bf16_train_vs_cpu(gen_np) -> dict:
+def phase_bf16_train_vs_cpu(gen_np, composition: str = "tail") -> dict:
     """bf16 training's gradients and one iteration's metrics on the card
-    against the CPU's, from one seed at 64^2, B = 1, critic patch 64, the
+    against the CPU's, in the composition given (both sides), from one seed
+    at 64^2, B = 1, critic patch 64, the
     critic's sign pattern pinned to the CPU's bf16 run (LeakyPattern; the
     CPU's fp32 run records its own): the gradients, all together, within
     a quarter of what bf16 changes on the CPU, sum|card - CPU bf16| <=
@@ -1725,7 +1847,7 @@ def phase_bf16_train_vs_cpu(gen_np) -> dict:
     for key, dev, dtype in (("cpu bf16", "cpu", BF16), ("cpu fp32", "cpu", torch.float32),
                             ("card bf16", "cuda", BF16)):
         t0 = time.perf_counter()
-        state = create_train_state(cfg, seed=1, device=dev)
+        state = create_train_state(cfg, seed=1, device=dev, composition=composition)
         batch = Batch(deg.to(dev, dtype), tgt.to(dev, dtype), torch.tensor([0] * b, device=dev))
         a = alpha.to(dev, dtype)
         ctx = (pattern.recording() if key == "cpu bf16" else
@@ -1745,17 +1867,19 @@ def phase_bf16_train_vs_cpu(gen_np) -> dict:
     per = sorted(((float((gc[k] - g16[k]).abs().mean() / (g32[k] - g16[k]).abs().mean()
                          .clamp_min(1e-30)), k) for k in gc), reverse=True)
     m_ulps = {k: abs(mc[k] - m16[k]) / _bf16_ulp(m16[k]) for k in m16}
-    log(f"bf16 training card vs CPU 64^2 ({len(gc)} gradients; seconds {json.dumps(seconds)}): "
+    log(f"bf16 training card vs CPU 64^2 in {composition} ({len(gc)} gradients; seconds "
+        f"{json.dumps(seconds)}): "
         f"sum|card - CPU| / sum|fp32 - bf16| {err / gap:.4f}, per tensor on the mean: median "
         f"{per[len(per) // 2][0]:.4f}, largest {per[:3]}; metrics at lr 0 card "
         f"{json.dumps(mc)}, CPU bf16 {json.dumps(m16)}, CPU fp32 {json.dumps(m32)}, "
         f"bf16 ulps apart {json.dumps(m_ulps)}")
     if not err <= BF16_MODEL_RATIO * gap:
-        raise AssertionError(f"bf16 gradients card vs CPU: {err / gap:.4f} of the fp32 - bf16 "
-                             f"gap summed, > {BF16_MODEL_RATIO}")
+        raise AssertionError(f"bf16 gradients card vs CPU in {composition}: {err / gap:.4f} of "
+                             f"the fp32 - bf16 gap summed, > {BF16_MODEL_RATIO}")
     bad = {k: v for k, v in m_ulps.items() if not v <= 2}
     if bad:
-        raise AssertionError(f"bf16 metrics card vs CPU more than two bf16 ulps apart: {bad}")
+        raise AssertionError(f"bf16 metrics card vs CPU in {composition} more than two bf16 "
+                             f"ulps apart: {bad}")
     return dict(grad_ratio=err / gap, grad_ratio_median_tensor=per[len(per) // 2][0],
                 metric_ulps=m_ulps, cpu_seconds=seconds)
 
@@ -1804,6 +1928,81 @@ def phase_bf16_train_cli(card: str) -> dict:
             f"PSNR {vals[0]['psnr']:.4f}, imgs_per_sec at logged steps {ips} ({card})")
         return dict(resumed_at=meta["epoch_step"], imgs_per_sec=ips, psnr=vals[0]["psnr"],
                     launches=launches, card=card)
+
+
+# a bf16 "full" cli.train run stopped and resumed against one that ran
+# through (phase_bf16_resume): equal bit for bit, or each parameter and
+# optimizer slot within RESUME_ATOL of the other run's, forty steps of F's
+# learning rate (1e-4): where an order of sums differs, an RMSprop step
+# moves an entry with a near-zero gradient by up to about +-10 lr with a
+# sign that the order decides, over the four steps after the resume
+RESUME_ATOL = 4e-3
+
+
+def phase_bf16_resume(card: str) -> dict:
+    """rcot_torch.cli.train --dtype bfloat16 --composition full at full
+    width, one epoch of 7 steps on phase 7's seeded tree, twice: stopped by
+    --fail-at-step 3 and resumed from latest.npz, and straight through. Each
+    counted (the bf16 "full" kernels 94 times an iteration, the
+    validation's two forwards in fp32 "full"). The two final states'
+    parameters and RMSprop slots are compared: bitwise, else the largest
+    difference against RESUME_ATOL. cuDNN runs deterministic for these two
+    runs alone (its convolutions' backward may otherwise pick algorithms
+    that sum in another order from call to call); the library does not set
+    it."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = f"{tmp}/tree"
+            write_synthetic_tree(root, seed=0, n_denoise=3, n_rain=0, n_haze=6, size=192,
+                                 val_sizes=((192, 192), (250, 321)))
+            runs, launches = {}, {}
+            for tag in ("resumed", "straight"):
+                run = f"{tmp}/{tag}"
+                argv = train_cli_argv(root, run) + ["--dtype", "bfloat16", "--composition",
+                                                    "full"]
+                argv[argv.index("--n-epochs") + 1] = "1"
+                build.reset_launches()
+                n_iter = 7
+                if tag == "resumed":
+                    try:
+                        train_cli.main(argv + ["--fail-at-step", "3"])
+                    except InjectedFailure:
+                        pass
+                    else:
+                        raise AssertionError("--fail-at-step 3 did not stop the run")
+                    latest = f"{run}/ckpt/latest.npz"
+                    n_iter = 3 + 7 - read_metadata(latest)["epoch_step"]
+                    argv += ["--resume", latest]
+                runs[tag] = train_cli.main(argv)
+                torch.cuda.synchronize()
+                launches[tag] = dict(build.LAUNCHES)
+                want = sum_launches({k: FORWARD_LAUNCHES * n_iter for k in bf16_path("full")},
+                                    expected_launches(FORWARD_LAUNCHES * 2, "full", False))
+                check_launches(f"bf16 train CLI in full, {tag} ({n_iter} iterations, 2 "
+                               "forwards in fp32 full)", launches[tag], want)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = runs["resumed"].state, runs["straight"].state
+    worst, where, n_diff = 0.0, None, 0
+    for tag, na, nb, oa, ob in (("T", a.t_net, b.t_net, a.t_opt, b.t_opt),
+                                ("F", a.f_net, b.f_net, a.f_opt, b.f_opt)):
+        for (n, p), q in zip(na.named_parameters(), nb.parameters()):
+            pairs = [(n, p, q)] + [(f"{n} {k}", oa.state[p][k], ob.state[q][k])
+                                   for k in oa.state.get(p, {}) if k != "step"]
+            for name, u, v in pairs:
+                d = float((u.float() - v.float()).abs().max()) if u.numel() else 0.0
+                n_diff += int(d > 0)
+                if d > worst:
+                    worst, where = d, f"{tag} {name}"
+    row = dict(bitwise_equal=n_diff == 0, tensors_differing=n_diff, max_abs_diff=worst,
+               at=where, atol=RESUME_ATOL, steps=(a.step, b.step))
+    log(f"bf16 train CLI in full, fail-then-resume against straight through, cuDNN "
+        f"deterministic: {json.dumps(row)} ({card})")
+    if a.step != b.step or not worst <= RESUME_ATOL:
+        raise AssertionError(f"bf16 resume in full: {row}")
+    return dict(row, launches=launches)
 
 
 # ------------------------------------------------------------ training
@@ -2721,12 +2920,14 @@ def main() -> int:
     vs_cpu = phase_train_vs_cpu(gen_np)
     bf16_train = phase_bf16_train(torch.Generator(device="cuda").manual_seed(11), card)
     bf16_train_vs_cpu = phase_bf16_train_vs_cpu(np.random.default_rng(11))
+    bf16_full_vs_cpu = phase_bf16_train_vs_cpu(np.random.default_rng(12), "full")
     compositions = phase_compositions(gen_np)
     train_opt = phase_train_opt_in(gen_opt, card)
     one_head = phase_one_head(np.random.default_rng(2))
     cli = phase_train_cli(card)
     cli_opt = phase_cli_opt_in(card)
     bf16_cli = phase_bf16_train_cli(card)
+    bf16_resume = phase_bf16_resume(card)
     evals = phase_eval(card, default_flags)
     splits = {mode: iteration_breakdown(train["it_per_s"][mode], train["critic_ms"],
                                         train_timings, mode) for mode in ("tail", "full")}
@@ -2777,11 +2978,13 @@ def main() -> int:
                 bf16_train["metrics"])))
     for name, (source, replaces) in BF16_TRAIN_KERNELS.items():
         t = bf16_train_times["L1"][name]
+        mode = BF16_LAUNCHES_FROM.get(name, "tail")
+        n = bf16_train["launches_by"][mode][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=bf16_train["launches"][name], launches_counted_in="train bf16",
-            launches_per_train_iteration_bf16=bf16_train["launches"][name] // len(
-                bf16_train["metrics"]), **bf16_train_errs[name],
+            launches=n, launches_counted_in=f"train bf16 {mode}",
+            launches_per_train_iteration_bf16=n // bf16_train["iterations_by"][mode],
+            **bf16_train_errs[name],
             ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
             library_device_ms=t["library_device_ms"], at=t["shape"],
@@ -2820,7 +3023,10 @@ def main() -> int:
                     "bf16_training_128px_b3": {
                         **{k: v for k, v in bf16_train.items() if k != "launches"},
                         "card_vs_cpu_64px": bf16_train_vs_cpu,
+                        "card_vs_cpu_64px_full": bf16_full_vs_cpu,
                         "cli": {k: v for k, v in bf16_cli.items() if k != "launches"},
+                        "resume_full": {k: v for k, v in bf16_resume.items()
+                                        if k != "launches"},
                         "kernel_errs": bf16_train_errs},
                     "eval_256px": evals,
                     "pixel_sum_drift_512_pixel_ranges": drift,

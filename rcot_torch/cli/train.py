@@ -13,8 +13,8 @@ the JAX trainer's default composition, "tail"; `--attention-core mdta` is
 the JAX package's RCOT_PALLAS_MDTA=1, `--depthwise dwconv` its
 RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1. Validation serves in "full" with
 the same attention core and depthwise tier. `--dtype bfloat16` trains on
-bf16 batches (the JAX trainer's --dtype bfloat16) in "tail" with the Gram
-core and the fused tier; any other composition, core or tier stops by name.
+bf16 batches (the JAX trainer's --dtype bfloat16) in any composition with
+the Gram core and the fused tier; the opt-in core and tier stop by name.
 Flags of paths not ported yet (multi-GPU, MPRNet, --pretrained) raise
 rather than being ignored.
 """

@@ -1,15 +1,17 @@
-// Fused transformer-block tail backward in bf16 for Hopper (sm_90a): the
-// block tail of bf16 training in "tail" (cli.train --dtype bfloat16).
+// Fused transformer-block backward in bf16 for Hopper (sm_90a), in both
+// configurations: the block tail of bf16 training in "tail" and "full",
+// the block head in "full" and "head" (cli.train --dtype bfloat16).
 //
 // Replaces the TPU kernel rcot_tpu/ops/pallas_block.py fused_block_bwd
 // (pallas_call at :515, kernel body :208-397) in its tail configuration
-// (block_tail, :597) as the JAX package runs it on bf16 activations and
-// bf16 weights, its LayerNorm weights fp32:
+// (block_tail, :597) and its head configuration (block_head, :586) as the
+// JAX package runs them on bf16 activations and bf16 weights, its
+// LayerNorm weights fp32:
 //
-//   recompute: pre = bf16(a @ W_proj^T), t = bf16(x + pre),
+//   tail recompute: pre = bf16(a @ W_proj^T), t = bf16(x + pre),
 //              u = bf16(LN2(t)) (fp32 statistics), h = bf16(u @ W_in^T),
 //              conv = dw3x3(h) in fp32;
-//   backward, all in fp32 on the widened values: dgate = g @ W_out, the
+//   tail backward, all in fp32 on the widened values: dgate = g @ W_out, the
 //   gate's backward from conv; dW_out = g^T gate with the fp32 gate (the
 //   forward rounds it to bf16, the backward takes it unrounded, :392-397);
 //   dh, ddw, du = dh @ W_in, dW_in = dh^T u; the LN backward at t;
@@ -17,24 +19,34 @@
 //   outputs dx = bf16(dt), da in bf16, the four weight grads rounded to
 //   bf16 (the JAX VJP's .astype(w.dtype), :573-578), dln_w, dln_b fp32.
 //
-// Bound on an H100 SXM: as block_bwd.cu's tail, bound by its operations
-// (2 N (3 C^2 + 8 h C) flops of products, the recompute's part in bf16 on
-// the tensor cores, the rest fp32), with half its input bytes
-// (chip_smoke.py states the bound).
+//   head recompute: u = bf16(LN1(x)) (fp32 statistics), h = bf16(u @
+//              W_qkv^T) (:280-285); no conv: with no gate dconv = g (:309);
+//   head backward, in fp32 on the widened values: dh = the rotated dw3x3
+//   of g, ddw = the pixel sum of g times the h taps, du = dh @ W_qkv,
+//   dW_qkv = dh^T u, the LN backward at x; outputs dx = bf16(dx), dW_qkv
+//   and ddw rounded to bf16, dln_w, dln_b fp32.
 //
-// Design. The recompute is block_fwd_bf16.cu's tail forward up to conv:
-// mm.cuh's bf16 products (mma.sync m16n8k16, fp32 sums, the epilogues
-// rounding as JAX rounds: t = bf16(x + bf16(acc))), ln_fwd on bf16, row
-// 11's depthwise kernel bf16 into fp32 (dwconv.cuh conv_bf16). One launch
-// then widens t, u, h, g, a and the four weights into fp32 workspaces
-// (cast.cuh), and the rest is block_bwd.cu's tail backward on them (the
-// 3xTF32 products with dgate's gate epilogue, the rotated depthwise and
-// dtaps, ln_bwd.cuh, the pixel sums), every sum in a fixed order; one last
-// launch rounds dx, da and the four weight grads to bf16. No atomics and
-// no memsets: two calls on the same inputs give the same bits. The plan is
-// ops/block.py block_bwd_plan's on the fp32 workspaces, and a second, of
-// five ints, for the bf16 recompute: bf16 a copy of the C-wide operands,
-// and the depthwise forward's (vec, cv, tc, rows), bf16 into fp32.
+// Bound on an H100 SXM: as block_bwd.cu's, bound by its operations (the
+// tail 2 N (3 C^2 + 8 h C) flops of products, the head 2 N 2 * 3C C, the
+// recompute's part in bf16 on the tensor cores, the rest fp32), with half
+// its input bytes (chip_smoke.py states the bound).
+//
+// Design. The tail's recompute is block_fwd_bf16.cu's tail forward up to
+// conv: mm.cuh's bf16 products (mma.sync m16n8k16, fp32 sums, the
+// epilogues rounding as JAX rounds: t = bf16(x + bf16(acc))), ln_fwd on
+// bf16, row 11's depthwise kernel bf16 into fp32 (dwconv.cuh conv_bf16);
+// the head's is block_fwd_bf16.cu's head up to h (ln_fwd, the bf16
+// product). One launch then widens every operand of the backward into
+// fp32 workspaces (cast.cuh), and the rest is block_bwd.cu's backward of
+// the same configuration on them (the 3xTF32 products with dgate's gate
+// epilogue, the rotated depthwise and dtaps, ln_bwd.cuh, the pixel sums),
+// every sum in a fixed order; one last launch rounds the bf16 outputs. So
+// the backward starts from the rounded u and h, as JAX's does. No atomics
+// and no memsets: two calls on the same inputs give the same bits. The
+// plan is ops/block.py block_bwd_plan's on the fp32 workspaces, and for
+// the bf16 recompute a second: the tail's five ints (bf16 a copy of the
+// C-wide operands, and the depthwise forward's (vec, cv, tc, rows), bf16
+// into fp32), the head's one int (the copy width).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,12 +63,12 @@ namespace {
 enum Plan {
   kLnBlocks,  // blocks of the LayerNorm forward
   kLnPer,     // pixels a block of the LayerNorm backward
-  kSumPer0,   // pixels a range of each pixel sum: dW_out,
+  kSumPer0,   // pixels a range of each pixel sum: dW_out (dW_qkv in the head),
   kSumPer1,   //   dW_in,
   kSumPer2,   //   dW_proj
   kVecC,      // floats a copy of the C-wide operands,
   kVecH,      //   of the h-wide ones (W_out's rows, gate),
-  kVecM,      //   of the 2h-wide one (dh)
+  kVecM,      //   of the 2h- or 3C-wide ones (h, dh, the head's g)
   kSplit,     // (K ranges, depth a range) of the per-pixel products t, h,
               // du, da, at kSplit + 2 * kProd*
   kDwFwd = kSplit + 8,   // (vec, cv, tc, rows) of the depthwise forward (unused:
@@ -146,6 +158,56 @@ int rcot_block_tail_bwd_bf16(
   down.add(dwin32, C, dw_in, C, m2, C);
   down.add(ddw32, 9, ddw, 9, m2, 9);
   down.add(dwout32, hid, dw_out, hid, C, hid);
+  return down.run(st);
+}
+
+// Block-head backward on bf16. Inputs x (B,H,W,C), w_qkv (M,C), dwk
+// (M,3,3), g (B,H,W,M), bf16; ln_w, ln_b (C, fp32; ln_b null for BiasFree).
+// Outputs dx (B,H,W,C), dw_qkv (M,C), ddw (M,3,3), bf16; dln_w, dln_b (C,
+// fp32; null with ln_b). Workspace: ub (N,C), hb (N,M) bf16; stats (2N),
+// x32 (N,C), u32 (N,C), h32 (N,M), g32 (N,M), dh (N,M), du (N,C), dx32
+// (N,C), w32 (M,C), dwk32 (M,9), dw32 (M,C), ddw32 (M,9), sums (the
+// plan's), fp32; N = B*H*W. plan: kPlanInts ints (block_head_bwd's); vcb:
+// bf16 a copy of u and W_qkv in the recompute of h.
+int rcot_block_head_bwd_bf16(const bf16* x, const float* ln_w, const float* ln_b,
+                             const bf16* w_qkv, const bf16* dwk, const bf16* g, bf16* dx,
+                             float* dln_w, float* dln_b, bf16* dw_qkv, bf16* ddw, bf16* ub,
+                             bf16* hb, float* stats, float* x32, float* u32, float* h32,
+                             float* g32, float* dh, float* du, float* dx32, float* w32,
+                             float* dwk32, float* dw32, float* ddw32, float* sums,
+                             const int* plan, int vcb, int B, int H, int W, int C, int M,
+                             void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * H * W;
+  const int vc = plan[kVecC], vm = plan[kVecM];
+  // recompute in bf16, rounding as the forward: u = bf16(LN1(x)), h = bf16(u @ W_qkv^T)
+  RCOT_TRY(ln_fwd(x, ln_w, ln_b, ub, stats, n, C, plan[kLnBlocks], st));
+  RCOT_TRY((product<false, kEpiStore>(ub, C, vcb, w_qkv, vcb, hb, M, n, SPLIT(kProdH), sums,
+                                      st)));
+  // every operand of the backward, widened to fp32
+  Widen up;
+  up.add(x, C, x32, C, n, C);
+  up.add(ub, C, u32, C, n, C);
+  up.add(hb, M, h32, M, n, M);
+  up.add(g, M, g32, M, n, M);
+  up.add(w_qkv, C, w32, C, M, C);
+  up.add(dwk, 9, dwk32, 9, M, 9);
+  RCOT_TRY(up.run(st));
+  // depthwise backward, dconv = g: dh = the rotated forward of g, ddw
+  RCOT_TRY(rcot_dwconv::conv(g32, dwk32, dh, B, H, W, M, plan[kDwRot], plan[kDwRot + 1],
+                             plan[kDwRot + 2], plan[kDwRot + 3], true, st));
+  RCOT_TRY(rcot_dwconv::dtaps(h32, g32, sums, ddw32, B, H, W, M, plan[kDwTaps],
+                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
+  // 1x1 backward: du = dh @ W_qkv, dW_qkv = dh^T u
+  RCOT_TRY((product<true, kEpiStore>(dh, M, vm, w32, vc, du, C, n, SPLIT(kProdDu), sums, st)));
+  RCOT_TRY(pixel_sum(dh, vm, u32, vc, dw32, sums, M, C, n, plan[kSumPer0], st));
+  // LN1: dx = LN-VJP(du) at x
+  RCOT_TRY(ln_bwd(x32, du, stats, ln_w, ln_b, nullptr, dx32, dln_w, dln_b, sums, n, C,
+                  plan[kLnPer], st));
+  Narrow down;
+  down.add(dx32, C, dx, C, n, C);
+  down.add(dw32, C, dw_qkv, C, M, C);
+  down.add(ddw32, 9, ddw, 9, M, 9);
   return down.run(st);
 }
 

@@ -1,40 +1,62 @@
-// Fused 1x1 -> depthwise 3x3 in bf16 for Hopper (sm_90a), forward and
-// backward: the MDTA qkv path of bf16 training in "tail"
-// (cli.train --dtype bfloat16).
+// Fused 1x1 -> depthwise 3x3 [-> gelu gate -> 1x1] in bf16 for Hopper
+// (sm_90a), forward and backward: the MDTA qkv path of bf16 training in
+// "tail" and "off", and the whole GDFN of bf16 serving and training in
+// "head" and "off" (cli.train --dtype bfloat16, cli.test --dtype bfloat16).
 //
-// Replaces the TPU kernels of rcot_tpu/ops/pallas_fused.py in the qkv
-// configuration (conv1x1_dw_fused, :568) as the JAX package runs them on
-// bf16 activations and bf16 weights:
+// Replaces the TPU kernels of rcot_tpu/ops/pallas_fused.py in both
+// configurations, the qkv (conv1x1_dw_fused, :568) and the GDFN
+// (gdfn_fused, :549), as the JAX package runs them on bf16 activations
+// and bf16 weights:
 //
 //   conv1x1_dw_bf16 (fused_dwconv_fwd, pallas_call at :274, body :153-183):
 //       h = bf16(x @ W_in^T); qkv = bf16(dw3x3(h)), the stencil in fp32;
+//   gdfn_fused_bf16 (the same kernel with the gate and W_out):
+//       h = bf16(x @ W_in^T); [c1 | c2] = dw3x3(h) in fp32;
+//       gate = bf16(gelu(c1) c2); y = bf16(gate @ W_out^T), fp32 sums;
 //   conv1x1_dw_bwd_bf16 (fused_dwconv_bwd, pallas_call at :456, body
 //   :297-410), which recomputes h = bf16(x @ W_in^T) and then works in
 //   fp32: dconv = g, dh = the rotated dw3x3 of g, dx = bf16(dh @ W_in),
-//   dW_in = bf16(dh^T x), ddw = bf16(sum of dconv times the h taps).
+//   dW_in = bf16(dh^T x), ddw = bf16(sum of dconv times the h taps);
+//   gdfn_fused_bwd_bf16 (the same kernel with the gate and W_out): h
+//   recomputed and rounded, conv fp32, then in fp32: dgate = g @ W_out,
+//   dconv through the gate's derivative, dh = the rotated dw3x3 of dconv,
+//   dx = bf16(dh @ W_in), dW_in = bf16(dh^T x), ddw = bf16(sum of dconv
+//   times the h taps), dW_out = bf16(g^T gate) with the unrounded fp32
+//   gate (:405-412).
 //
-// Weights in the port's layouts, read in place: W_in (M, C), taps (M, 3, 3).
+// Weights in the port's layouts, read in place: W_in (M, C), taps (M, 3, 3),
+// W_out (C, h) with M = 2h in the GDFN. The JAX package pads each gate half
+// to 128 lanes with zeros (pad_gate_halves, :512-536), a TPU layout that
+// changes no value; here odd h (127, 255, 1,021) takes narrower copies and
+// the gate's rows are padded to 8 bf16 (gate_ld), as block_fwd_bf16.cu's.
 //
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores,
-// 67 TFLOP/s fp32 outside them). The forward reads 2C and writes 2M bytes
-// a pixel against 2 M C flops of product (bf16) and 18 M of stencil (fp32):
-// bound by its bytes up to about C = 96 and by the stencil's operations
-// above it. The backward reads 2C + 2M bytes a pixel and writes 2C against
-// 4 M C flops of fp32 products (the recompute's 2 M C in bf16) and 36 M of
-// stencils: bound by its operations (chip_smoke.py states the bound).
+// 67 TFLOP/s fp32 outside them). The qkv forward reads 2C and writes 2M
+// bytes a pixel against 2 M C flops of product (bf16) and 18 M of stencil
+// (fp32): bound by its bytes up to about C = 96 and by the stencil's
+// operations above it. The GDFN forward reads and writes 2C bytes a pixel
+// each against 6 h C flops of bf16 products and ~46 h of stencil and gate
+// (fp32): bound by those operations. The backwards read 2C + 2M bytes a
+// pixel (the GDFN 4C) and write 2C against 4 M C flops of fp32 products
+// (the GDFN 8 h C; the recompute's 2 M C in bf16) and 36 M of stencils:
+// bound by their operations (chip_smoke.py states the bound).
 //
-// Design. The forward is block_fwd_bf16.cu's head without its LayerNorm:
-// mm.cuh's bf16 product (mma.sync m16n8k16, fp32 sums, the epilogue
-// rounding h to bf16) into a bf16 workspace, then row 11's depthwise
-// kernel on bf16 into bf16 (dwconv.cuh conv_bf16). The backward recomputes
-// h with the same bf16 product, so that h is rounded where the forward
-// rounds it; widens x, g, h and the weights into fp32 workspaces in one
-// launch (cast.cuh); runs fused_dwconv.cu's fp32 backward on them (the
-// rotated depthwise, dtaps, the 3xTF32 dx product and the dW_in pixel sum,
-// every sum in a fixed order); and rounds dx, dW_in and ddw to bf16 in one
-// last launch. No atomics and no memsets: two calls on the same inputs
-// give the same bits. The plans are ops/fused.py's (fused_fwd_plan with
-// copy widths in bf16 elements, fused_bwd_plan on the fp32 workspaces).
+// Design. The forwards are block_fwd_bf16.cu's head and tail without their
+// LayerNorm and residuals: mm.cuh's bf16 product (mma.sync m16n8k16, fp32
+// sums, the epilogue rounding h to bf16) into a bf16 workspace, then row
+// 11's depthwise kernel on bf16 (dwconv.cuh conv_bf16), into bf16 for the
+// qkv and into fp32 conv for the GDFN, whose gate is a pass of its own
+// (gate_pass, rounding the fp32 gate once) into h's buffer, read by a bf16
+// W_out product that stores bf16. The backwards recompute h with the same
+// bf16 product, so that h is rounded where the forward rounds it; widen
+// every operand into fp32 workspaces in one launch (cast.cuh); run
+// fused_dwconv.cu's fp32 backward of the same configuration on them (the
+// depthwise forward, the gated dgate product, the rotated depthwise,
+// dtaps, the 3xTF32 dx product and the pixel sums, every sum in a fixed
+// order); and round their bf16 outputs in one last launch. No atomics and
+// no memsets: two calls on the same inputs give the same bits. The plans
+// are ops/fused.py's (fused_fwd_plan with copy widths in bf16 elements and
+// the GDFN's gate always a pass, fused_bwd_plan on the fp32 workspaces).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,28 +71,37 @@ namespace {
 enum FwdPlan {
   kGateBlocks,
   kFVecC,  // bf16 a copy of the C-wide operands (x, W_in)
-  kFVecH,
-  kFVecG,
+  kFVecH,  //   of W_out's rows (h),
+  kFVecG,  //   of the gate's padded rows (gate_ld<bf16> apart)
   kFSplit,  // (K ranges, depth a range) of the products h and out
-  kFDw = kFSplit + 4,  // (vec, cv, tc, rows) of the depthwise forward, bf16 into bf16
-  kGatePass = kFDw + 4,
+  kFDw = kFSplit + 4,  // (vec, cv, tc, rows) of the depthwise forward, bf16 into
+                       //   bf16 (qkv) or fp32 (GDFN)
+  kGatePass = kFDw + 4,  // 1: the GDFN's gate as a pass of its own (always, in bf16)
   kFwdInts
 };
 // The backward's plan, ops/fused.py fused_bwd_plan (as fused_dwconv.cu's),
 // its copy widths those of the fp32 workspaces.
 enum BwdPlan {
-  kSumOut,
-  kSumIn,   // pixels a range of the pixel sum dW_in
-  kBVecC,   // floats a copy of the C-wide operands (x32, W_in32, dx32),
-  kBVecH,
-  kBVecM,   //   of the M-wide ones (h32, dh, g32)
+  kSumOut,  // pixels a range of the pixel sums dW_out,
+  kSumIn,   //   and dW_in
+  kBVecC,   // floats a copy of the C-wide operands (x32, W_in32, dx32, the GDFN's g32),
+  kBVecH,   //   of the h-wide ones (W_out32's rows, the gate),
+  kBVecM,   //   of the M-wide ones (h32, dh, dconv, the qkv's g32)
   kBSplit,  // (K ranges, depth a range) of the products h and dx
-  kDwFwd = kBSplit + 4,
-  kDwRot = kDwFwd + 4,   // (vec, cv, tc, rows) of the rotated forward (dh),
+  kDwFwd = kBSplit + 4,  // (vec, cv, tc, rows) of the depthwise forward (GDFN),
+  kDwRot = kDwFwd + 4,   //   of its rotated forward (dh),
   kDwTaps = kDwRot + 4,  //   of the dtaps
   kBwdInts = kDwTaps + 4
 };
-enum Prod { kProdH, kProdDx };
+enum Prod { kProdH, kProdOut, kProdDx = kProdOut };
+
+// The fp32 depthwise forward (or, rot, its rotated forward) by row 11's
+// kernel with the plan's (vec, cv, tc, rows) at plan[at]
+cudaError_t dw(const float* x, const float* taps, float* out, int B, int H, int W, int M,
+               const int* plan, int at, bool rot, cudaStream_t st) {
+  return rcot_dwconv::conv(x, taps, out, B, H, W, M, plan[at], plan[at + 1], plan[at + 2],
+                           plan[at + 3], rot, st);
+}
 
 }  // namespace
 
@@ -119,8 +150,7 @@ int rcot_conv1x1_dw_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, c
   up.add(dwk, 9, dwk32, 9, M, 9);
   RCOT_TRY(up.run(st));
   // dconv = g: dh = the rotated forward of g, ddw = dtaps(h, g)
-  RCOT_TRY(rcot_dwconv::conv(g32, dwk32, dh, B, H, W, M, plan[kDwRot], plan[kDwRot + 1],
-                             plan[kDwRot + 2], plan[kDwRot + 3], true, st));
+  RCOT_TRY(dw(g32, dwk32, dh, B, H, W, M, plan, kDwRot, true, st));
   RCOT_TRY(rcot_dwconv::dtaps(h32, g32, sums, ddw32, B, H, W, M, plan[kDwTaps],
                               plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
   // dx = dh @ W_in, dW_in = dh^T x
@@ -131,6 +161,79 @@ int rcot_conv1x1_dw_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, c
   down.add(dx32, C, dx, C, n, C);
   down.add(dw_in32, C, dw_in, C, M, C);
   down.add(ddw32, 9, ddw, 9, M, 9);
+  return down.run(st);
+}
+
+// y = bf16(gate @ W_out^T), gate = bf16(gelu(c1) c2), [c1 | c2] =
+// dw3x3(bf16(x @ W_in^T)) in fp32. Inputs x (B,H,W,C), w_in (2h,C), dwk
+// (2h,3,3), w_out (C,h), bf16; output y (B,H,W,C) bf16. Workspace: h (N,
+// max(2h, gate_ld<bf16>(h))) bf16 (then the gate), conv (N,2h) fp32, and
+// sums (fp32, the plan's). plan: kFwdInts ints (kGatePass must be 1).
+int rcot_gdfn_fused_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const bf16* w_out,
+                         bf16* y, bf16* h, float* conv, float* sums, const int* plan, int B,
+                         int H, int W, int C, int hid, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * H * W;
+  const int m2 = 2 * hid, vc = plan[kFVecC], vh = plan[kFVecH], vg = plan[kFVecG];
+  if (!plan[kGatePass]) return cudaErrorInvalidValue;
+  RCOT_TRY((product<false, kEpiStore>(x, C, vc, w_in, vc, h, m2, n, SPLIT(kFSplit, kProdH),
+                                      sums, st)));
+  RCOT_TRY(rcot_dwconv::conv_bf16(h, dwk, conv, false, B, H, W, m2, plan[kFDw], plan[kFDw + 1],
+                                  plan[kFDw + 2], plan[kFDw + 3], st));
+  // h is dead: its buffer takes the gate
+  RCOT_TRY(gate_pass(conv, h, n, hid, plan[kGateBlocks], st));
+  return product<false, kEpiStore>(h, hid, vg, w_out, vh, y, C, n, SPLIT(kFSplit, kProdOut),
+                                   sums, st, nullptr, nullptr, gate_ld<bf16>(hid));
+}
+
+// Backward of rcot_gdfn_fused_bf16 for the cotangent g (B,H,W,C) bf16.
+// Outputs dx (B,H,W,C), dw_in (2h,C), ddw (2h,3,3), dw_out (C,h), bf16.
+// Workspace: hb (N,2h) bf16; x32 (N,C), g32 (N,C), h32 (N,2h), conv_dh
+// (N,2h), dconv (N,2h), gate (N,h), dx32 (N,C), win32 (2h,C), dwk32 (2h,9),
+// wout32 (C,h), dwin32 (2h,C), ddw32 (2h,9), dwout32 (C,h) fp32; sums
+// (fp32, the plan's); N = B*H*W. plan: kBwdInts ints; vcb: bf16 a copy of
+// x and W_in in the recompute of h.
+int rcot_gdfn_fused_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk,
+                             const bf16* w_out, const bf16* g, bf16* dx, bf16* dw_in, bf16* ddw,
+                             bf16* dw_out, bf16* hb, float* x32, float* g32, float* h32,
+                             float* conv_dh, float* dconv, float* gate, float* dx32,
+                             float* win32, float* dwk32, float* wout32, float* dwin32,
+                             float* ddw32, float* dwout32, float* sums, const int* plan,
+                             int vcb, int B, int H, int W, int C, int hid, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * H * W;
+  const int m2 = 2 * hid, vc = plan[kBVecC], vh = plan[kBVecH], vm = plan[kBVecM];
+  // recompute h = bf16(x @ W_in^T), as the forward rounds it
+  RCOT_TRY((product<false, kEpiStore>(x, C, vcb, w_in, vcb, hb, m2, n, SPLIT(kBSplit, kProdH),
+                                      sums, st)));
+  Widen up;
+  up.add(x, C, x32, C, n, C);
+  up.add(g, C, g32, C, n, C);
+  up.add(hb, m2, h32, m2, n, m2);
+  up.add(w_in, C, win32, C, m2, C);
+  up.add(dwk, 9, dwk32, 9, m2, 9);
+  up.add(w_out, hid, wout32, hid, C, hid);
+  RCOT_TRY(up.run(st));
+  // conv = dw3x3(h) in fp32
+  RCOT_TRY(dw(h32, dwk32, conv_dh, B, H, W, m2, plan, kDwFwd, false, st));
+  // W_out: dgate = g @ W_out, its epilogue the gate's backward (dconv and
+  // the fp32 gate from conv); dW_out = g^T gate
+  RCOT_TRY((product<true, kEpiGate>(g32, C, vc, wout32, vh, dconv, hid, n, 1, 0, nullptr, st,
+                                    conv_dh, gate)));
+  RCOT_TRY(pixel_sum(g32, vc, gate, vh, dwout32, sums, C, hid, n, plan[kSumOut], st));
+  // depthwise backward (conv is dead now: its buffer takes dh)
+  RCOT_TRY(dw(dconv, dwk32, conv_dh, B, H, W, m2, plan, kDwRot, true, st));
+  RCOT_TRY(rcot_dwconv::dtaps(h32, dconv, sums, ddw32, B, H, W, m2, plan[kDwTaps],
+                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
+  // W_in: dx = dh @ W_in, dW_in = dh^T x
+  RCOT_TRY((product<true, kEpiStore>(conv_dh, m2, vm, win32, vc, dx32, C, n,
+                                     SPLIT(kBSplit, kProdDx), sums, st)));
+  RCOT_TRY(pixel_sum(conv_dh, vm, x32, vc, dwin32, sums, m2, C, n, plan[kSumIn], st));
+  Narrow down;
+  down.add(dx32, C, dx, C, n, C);
+  down.add(dwin32, C, dw_in, C, m2, C);
+  down.add(ddw32, 9, ddw, 9, m2, 9);
+  down.add(dwout32, hid, dw_out, hid, C, hid);
   return down.run(st);
 }
 

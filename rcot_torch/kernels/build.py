@@ -84,6 +84,12 @@ SIGNATURES = {
     "rcot_conv1x1_dw_bwd_bf16": [_P] * 18 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
     # inputs 9, outputs 8, workspace 24, plan, bf16 plan; B, H, W, C, hid; stream
     "rcot_block_tail_bwd_bf16": [_P] * 41 + [ctypes.POINTER(_I)] * 2 + [_I] * 5 + [_P],
+    # inputs 6, outputs 5, workspace 15, plan; bf16 copy width; B, H, W, C, M; stream
+    "rcot_block_head_bwd_bf16": [_P] * 26 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
+    # the GDFN in bf16 (fused_dwconv_bf16.cu): the arguments of rcot_gdfn_fused
+    "rcot_gdfn_fused_bf16": [_P] * 8 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # inputs 5, outputs 4, workspace 15, plan; bf16 copy width; B, H, W, C, hid; stream
+    "rcot_gdfn_fused_bwd_bf16": [_P] * 24 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
     # qkv, dG, dnq, dnk, d[q|k], workspace 3; B, hw, heads, ch, channel block,
     # blocks, tiles per block; stream
     "rcot_mdta_gram_bwd_bf16": [_P] * 8 + [_I, _L, _I, _I, _I, _I, _L, _P],

@@ -198,7 +198,8 @@ def make_restorer(model: Union[torch.nn.Module, Mapping[str, object]],
     input is cast to bf16 and the output back to fp32
     (rcot_tpu/models/inference.py:264-269), on a bf16 copy of the weights
     made here, once (cast_copy; a later change to a shared TNet's weights
-    does not reach it); bf16 serves only "full"/gram/fused (check_bf16)."""
+    does not reach it); bf16 serves in every composition with the Gram core
+    and the fused tier alone (check_bf16)."""
     choice = dict(composition=resolve_composition(composition, training=False),
                   attention_core=resolve_attention_core(attention_core),
                   depthwise=resolve_depthwise(depthwise))

@@ -39,10 +39,9 @@ A bf16 input runs the same forward in bf16, as apply_tnet on a bf16 input
 dtype (ops/conv.py; the block kernels get their weights in x's dtype and
 their LN weights in fp32, rcot_tpu/models/restormer.py:77-89), LayerNorms
 compute in fp32 and round, the residual adds stay bf16; gradients reach
-the fp32 parameters through those casts. A bias-free block runs bf16 only
-with the Gram core and the fused tier: a forward in "full" or "tail", one
-that autograd may differentiate (grad enabled: bf16 training) in "tail"
-alone (ops/dispatch.py check_bf16).
+the fp32 parameters through those casts. A bias-free block runs bf16 in
+every composition, forward and backward, with the Gram core and the fused
+tier alone (ops/dispatch.py check_bf16).
 """
 
 from __future__ import annotations
@@ -211,8 +210,9 @@ class TransformerBlock(nn.Module):
                               _mat(f.project_in, dt), _taps(f.dwconv, dt),
                               _mat(f.project_out, dt))
         x = x + conv1x1(a, _mat(at.project_out, dt))
-        return x + gdfn(self.norm2(x), f.project_in.weight, f.dwconv.weight,
-                        f.project_out.weight, depthwise=self.depthwise)
+        # the weights in x's dtype, as rcot_tpu/ops/gdfn.py:53-56
+        return x + gdfn(self.norm2(x), _mat(f.project_in, dt), _taps(f.dwconv, dt),
+                        _mat(f.project_out, dt), depthwise=self.depthwise)
 
 
 class _Resample(nn.Module):

@@ -21,10 +21,10 @@ their launch plans from block_fwd_plan and block_bwd_plan below.
 bf16: a bf16 x with bf16 weights (LN weights fp32, as
 rcot_tpu/models/restormer.py:77-89 passes them) goes to the bf16 kernels of
 csrc/block_fwd_bf16.cu on the card, counted as block_head_bf16 and
-block_tail_bf16, and the tail's backward (bf16 training in "tail") to
-csrc/block_bwd_bf16.cu, counted as block_tail_bwd_bf16; the head's
-backward in bf16 ("full" bf16 training) is not ported and stops by name.
-The plain forward twins take any float dtype: their products and stencils
+block_tail_bf16, and their backwards (bf16 training: the tail in "tail"
+and "full", the head in "full" and "head") to csrc/block_bwd_bf16.cu,
+counted as block_tail_bwd_bf16 and block_head_bwd_bf16. The plain forward
+twins take any float dtype: their products and stencils
 run in at least fp32 and round to x's dtype where the JAX kernel
 (rcot_tpu/ops/pallas_block.py:111-142) rounds, which in fp32 or float64 is
 no rounding at all. The bf16 backward twin is not autograd through them:
@@ -123,8 +123,25 @@ def block_tail_bwd_bf16_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
                         (x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out), g)
 
 
+def _block_head_rounded(dtype, x, ln_w, ln_b, w_qkv, dwk):
+    """The head in fp32 as the JAX backward kernel recomputes and
+    differentiates it (pallas_block.py:270-309): u and h rounded to dtype,
+    the stencil fp32."""
+    u = _st(layernorm(x, ln_w, ln_b), dtype)
+    return depthwise3x3(_st(conv1x1(u, w_qkv), dtype), dwk)
+
+
+def block_head_bwd_bf16_plain(x, ln_w, ln_b, w_qkv, dwk, g):
+    """The bf16 head backward as the JAX kernel computes it -> (dx, dln_w,
+    dln_b, dw_qkv, ddw), bf16 but dln_w, dln_b."""
+    return _vjp_widened(functools.partial(_block_head_rounded, x.dtype),
+                        (x, ln_w, ln_b, w_qkv, dwk), g)
+
+
 def block_head_bwd_plain(x, ln_w, ln_b, w_qkv, dwk, g):
-    """-> (dx, dln_w, dln_b, dw_qkv, ddw)."""
+    """-> (dx, dln_w, dln_b, dw_qkv, ddw); on bf16 block_head_bwd_bf16_plain."""
+    if x.dtype == torch.bfloat16:
+        return block_head_bwd_bf16_plain(x, ln_w, ln_b, w_qkv, dwk, g)
     return _vjp_plain(block_head_plain, (x, ln_w, ln_b, w_qkv, dwk), g)
 
 
@@ -488,15 +505,14 @@ def _fwd_card_plan(b, h, w, c, width, tail, device_index, vec_c, vec_h, vec_g, v
 
 def block_head_bwd(x, ln_w, ln_b, w_qkv, dwk, g):
     """Backward of block_head for the cotangent g (B,H,W,M) ->
-    (dx, dln_w, dln_b, dw_qkv, ddw); dln_b is None when ln_b is. On the
-    card every sum runs in a fixed order, so two calls on the same inputs
-    give the same bits. A bf16 x stops by name ("full" bf16 training)."""
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "the bf16 backward of the block head (bf16 training in `--composition full` "
-            "or `head`) is not ported yet (ROADMAP Queue 1 item 4)")
+    (dx, dln_w, dln_b, dw_qkv, ddw); dln_b is None when ln_b is. In x's
+    dtype (fp32, or bf16 with fp32 ln_w, ln_b: dx and the weight grads
+    bf16, dln_w and dln_b fp32). On the card every sum runs in a fixed
+    order, so two calls on the same inputs give the same bits."""
     if not x.is_cuda:
         return block_head_bwd_plain(x, ln_w, ln_b, w_qkv, dwk, g)
+    if x.dtype == torch.bfloat16:
+        return _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g)
     b, h, w, c = x.shape
     m = w_qkv.shape[0]
     n = b * h * w
@@ -625,6 +641,46 @@ def _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
                    b, h, w, c, hid, build.stream())
     build.LAUNCHES["block_tail_bwd_bf16"] += 1
     return tuple(outs)
+
+
+def head_bwd_bf16_workspace_numel(n: int, c: int, m: int) -> Tuple[int, ...]:
+    """Floats of each workspace of the bf16 head backward on n pixels, in
+    the order csrc/block_bwd_bf16.cu takes them (bf16 ones two to a float):
+    ub, hb; stats, x32, u32, h32, g32, dh, du, dx32; the widened weights
+    w32, dwk32; their fp32 grads dw32, ddw32."""
+    weights = (m * c, 9 * m)
+    return (_cdiv(n * c, 2), _cdiv(n * m, 2), 2 * n, n * c, n * c, n * m, n * m, n * m,
+            n * c, n * c, *weights, *weights)
+
+
+def _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g):
+    """block_head_bwd on bf16 CUDA tensors: csrc/block_bwd_bf16.cu."""
+    b, h, w, c = x.shape
+    m = w_qkv.shape[0]
+    n = b * h * w
+    dev = x.device
+    bf = torch.bfloat16
+    for name, t, shape, want in (("x", x, (b, h, w, c), bf), ("ln_w", ln_w, (c,), None),
+                                 ("ln_b", ln_b, (c,), None), ("w_qkv", w_qkv, (m, c), bf),
+                                 ("dwk", dwk, (m, 3, 3), bf), ("g", g, (b, h, w, m), bf)):
+        build.check_arg(name, t, shape, dev, want or torch.float32)
+    _check_channels(c)
+    dx, dln_w, dw_qkv, ddw = (torch.empty_like(t) for t in (x, ln_w, w_qkv, dwk))
+    dln_b = None if ln_b is None else torch.empty_like(ln_b)
+    buf, ws = _workspaces(dev, head_bwd_bf16_workspace_numel(n, c, m))
+    ub, x32, u32, h32, g32, dh, du, dx32, w32 = ws[0], *ws[3:11]
+    vec_c = kdw.dwconv_vec(c, x32, u32, du, dx32, w32)
+    vec_m = kdw.dwconv_vec(m, h32, g32, dh)
+    plan, n_sums = _card_plan(b, h, w, c, m, False, dev.index, vec_c, 1, vec_m)
+    sums = torch.empty(n_sums, device=dev)
+    with torch.cuda.device(dev):
+        build.call("rcot_block_head_bwd_bf16",
+                   *(t.data_ptr() for t in (x, ln_w)), build.ptr(ln_b),
+                   *(t.data_ptr() for t in (w_qkv, dwk, g, dx, dln_w)), build.ptr(dln_b),
+                   dw_qkv.data_ptr(), ddw.data_ptr(), *ws, sums.data_ptr(), plan,
+                   kdw.bf16_vec(c, ub, w_qkv.data_ptr()), b, h, w, c, m, build.stream())
+    build.LAUNCHES["block_head_bwd_bf16"] += 1
+    return dx, dln_w, dln_b, dw_qkv, ddw
 
 
 @functools.lru_cache(maxsize=None)

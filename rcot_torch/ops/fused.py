@@ -20,13 +20,15 @@ by autograd on them). The kernels take their launch plans from
 fused_fwd_plan and fused_bwd_plan below. Launches are counted under
 conv1x1_dw, gdfn_fused and their *_bwd names.
 
-bf16 (bf16 training in "tail", the qkv configuration only): a bf16 x with
-bf16 weights goes to csrc/fused_dwconv_bf16.cu on the card, counted as
-conv1x1_dw_bf16 and conv1x1_dw_bwd_bf16. The forward twin rounds h and the
-output to bf16 where the JAX kernel does (pallas_fused.py:153-183); the
-backward twin is the JAX backward kernel's (:297-410): h recomputed and
-rounded, then everything in fp32, each grad rounded once (ops/block.py
-_vjp_widened). The GDFN configuration in bf16 stops by name.
+bf16 (the qkv configuration in bf16 training's "tail" and "off", the GDFN
+in bf16 serving and training's "head" and "off"): a bf16 x with bf16
+weights goes to csrc/fused_dwconv_bf16.cu on the card, counted as
+conv1x1_dw_bf16, gdfn_fused_bf16 and their *_bwd_bf16 names. The forward
+twin rounds h, the GDFN's gate and the output to bf16 where the JAX kernel
+does (pallas_fused.py:153-183); the backward twin is the JAX backward
+kernel's (:297-412): h recomputed and rounded, then everything in fp32
+(dW_out from the unrounded gate), each grad rounded once (ops/block.py
+_vjp_widened).
 """
 
 from __future__ import annotations
@@ -52,9 +54,10 @@ from .gram import sm_count
 def fused_dwconv_plain(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
                        w_out: Optional[torch.Tensor]) -> torch.Tensor:
     """w_out None: the qkv configuration, h and the output rounded to x's
-    dtype (no rounding in fp32); else the GDFN (gate, then W_out)."""
+    dtype (no rounding in fp32); else the GDFN, h, the gate and the output
+    rounded to x's dtype, the stencil and the gate in at least fp32."""
     h = depthwise3x3(_wide(_mm(x, w_in)), _wide(dwk))
-    return h.to(x.dtype) if w_out is None else conv1x1(gated(h), w_out)
+    return h.to(x.dtype) if w_out is None else _mm(gated(h).to(x.dtype), w_out)
 
 
 def _qkv_rounded(dtype, x, w_in, dwk):
@@ -63,13 +66,22 @@ def _qkv_rounded(dtype, x, w_in, dwk):
     return depthwise3x3(_st(conv1x1(x, w_in), dtype), dwk)
 
 
+def _gdfn_rounded(dtype, x, w_in, dwk, w_out):
+    """The GDFN in fp32 as the JAX backward kernel recomputes and
+    differentiates it (pallas_fused.py:330-412): h rounded to dtype; conv,
+    the gate (dW_out takes it unrounded) and the rest fp32."""
+    return conv1x1(gated(_qkv_rounded(dtype, x, w_in, dwk)), w_out)
+
+
 def fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g):
     """-> (dx, dw_in, ddw, dw_out); dw_out is None when w_out is. On bf16
-    (the qkv configuration) as the JAX backward kernel computes it."""
-    if x.dtype == torch.bfloat16 and w_out is None:
+    as the JAX backward kernel computes it."""
+    if x.dtype != torch.bfloat16:
+        return _vjp_plain(fused_dwconv_plain, (x, w_in, dwk, w_out), g)
+    if w_out is None:
         return (*_vjp_widened(functools.partial(_qkv_rounded, x.dtype), (x, w_in, dwk), g),
                 None)
-    return _vjp_plain(fused_dwconv_plain, (x, w_in, dwk, w_out), g)
+    return _vjp_widened(functools.partial(_gdfn_rounded, x.dtype), (x, w_in, dwk, w_out), g)
 
 
 # ------------------------------------------------------------------ plans
@@ -135,19 +147,20 @@ def _splits(pixels: int, prods, n_sm: int) -> Tuple[Tuple[int, int], ...]:
 
 
 def fused_fwd_plan(b: int, h: int, w: int, c: int, width: int, gdfn: bool, n_sm: int,
-                   vecs: Tuple[int, int, int], dw_conv: Tuple[int, int, int, int]
-                   ) -> FusedFwdPlan:
+                   vecs: Tuple[int, int, int], dw_conv: Tuple[int, int, int, int],
+                   bf16: bool = False) -> FusedFwdPlan:
     """The plan of a forward on (B,H,W,C) with depthwise width `width` (2h
     in the GDFN, M in the qkv configuration) on a card of n_sm SMs; vecs the
     copy widths of the C class, the h class and a gate pass's rows, dw_conv
-    row 11's (vec, cv, tc, rows) on (B,H,W,width)."""
+    row 11's (vec, cv, tc, rows) on (B,H,W,width); bf16 the bf16 kernels'
+    (the GDFN's gate always a pass, as ops/block.py's bf16 tail)."""
     n = b * h * w
     # (n, k) of h and out (None: not run)
     prods = ((width, c), (c, width // 2) if gdfn else None)
     splits = _splits(n, prods, n_sm)
     numel = max([0] + [s * n * nk[0] for (s, _), nk in zip(splits, prods) if s > 1])
     return FusedFwdPlan(ln_plan(n, n_sm)[0], *vecs, splits, dw_conv,
-                        int(gdfn and c > GATE_FUSED_MAX_C), numel)
+                        int(gdfn and (bf16 or c > GATE_FUSED_MAX_C)), numel)
 
 
 def fused_bwd_plan(b: int, h: int, w: int, c: int, width: int, gdfn: bool, n_sm: int,
@@ -210,7 +223,7 @@ def _fwd_card_plan(b, h, w, c, width, gdfn, device_index, vec_c, vec_h, vec_g, v
     card; io the depthwise forward's element types (ops/dwconv.py DW_IO)."""
     dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False, io))
     plan = fused_fwd_plan(b, h, w, c, width, gdfn, sm_count(device_index),
-                          (vec_c, vec_h, vec_g), dw_conv)
+                          (vec_c, vec_h, vec_g), dw_conv, io != "f32")
     return (ctypes.c_int * FWD_PLAN_INTS)(*plan.ints()), plan.sums_numel
 
 
@@ -225,13 +238,6 @@ def _bwd_card_plan(b, h, w, c, width, gdfn, device_index, vec_c, vec_h, vec_m):
 
 
 # ---------------------------------------------------------------- kernels
-
-def _refuse_bf16_gdfn(x, w_out) -> None:
-    if x.dtype == torch.bfloat16 and w_out is not None:
-        raise NotImplementedError(
-            "gdfn_fused in bf16 (bf16 training in `--composition head` or `off`) is not "
-            "ported yet (ROADMAP Queue 1 item 4)")
-
 
 def _check(x, w_in, dwk, w_out, g=None):
     b, h, w, c = x.shape
@@ -252,13 +258,13 @@ def _check(x, w_in, dwk, w_out, g=None):
 def fused_dwconv_fwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
                      w_out: Optional[torch.Tensor]) -> torch.Tensor:
     """x (B,H,W,C) -> (B,H,W,M) without w_out, (B,H,W,C) with it, in x's
-    dtype (fp32, or bf16 without w_out). On the card two calls on the same
-    inputs give the same bits."""
-    _refuse_bf16_gdfn(x, w_out)
+    dtype (fp32 or bf16). On the card two calls on the same inputs give the
+    same bits."""
     if not x.is_cuda:
         return fused_dwconv_plain(x, w_in, dwk, w_out)
     if x.dtype == torch.bfloat16:
-        return _conv1x1_dw_bf16(x, w_in, dwk)
+        return _conv1x1_dw_bf16(x, w_in, dwk) if w_out is None else _gdfn_fused_bf16(
+            x, w_in, dwk, w_out)
     b, h, w, c, m = _check(x, w_in, dwk, w_out)
     gdfn = w_out is not None
     dev = x.device
@@ -285,11 +291,12 @@ def fused_dwconv_bwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
     (dx, dw_in, ddw, dw_out); dw_out is None when w_out is. On the card
     every sum runs in a fixed order, so two calls on the same inputs give
     the same bits; in x's dtype."""
-    _refuse_bf16_gdfn(x, w_out)
     if not x.is_cuda:
         return fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g)
     if x.dtype == torch.bfloat16:
-        return (*_conv1x1_dw_bwd_bf16(x, w_in, dwk, g), None)
+        if w_out is None:
+            return (*_conv1x1_dw_bwd_bf16(x, w_in, dwk, g), None)
+        return _gdfn_fused_bwd_bf16(x, w_in, dwk, w_out, g)
     b, h, w, c, m = _check(x, w_in, dwk, w_out, g)
     gdfn = w_out is not None
     dev = x.device
@@ -353,6 +360,66 @@ def _conv1x1_dw_bwd_bf16(x, w_in, dwk, g):
                    b, h, w, c, m, build.stream())
     build.LAUNCHES["conv1x1_dw_bwd_bf16"] += 1
     return dx, dw_in, ddw
+
+
+def _gdfn_fused_bf16(x, w_in, dwk, w_out):
+    """The GDFN forward on bf16 CUDA tensors: csrc/fused_dwconv_bf16.cu, with
+    fused_fwd_plan's plan in bf16 copy widths, its gate a pass of its own."""
+    b, h, w, c, m = _check(x, w_in, dwk, w_out)
+    hid = m // 2
+    dev = x.device
+    n = b * h * w
+    y = torch.empty_like(x)
+    # h (then the gate, in rows of gate_ld(h, bf16)) bf16; conv fp32
+    buf, (hbuf, conv) = _workspaces(dev, (-(-n * max(m, gate_ld(hid, True)) // 2), n * m))
+    vecs = (kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr()), kdw.bf16_vec(hid, w_out.data_ptr()),
+            kdw.bf16_vec(gate_ld(hid, True), hbuf), kdw.bf16_vec(m, hbuf, f32_ptrs=(conv,)))
+    if vecs[3] < 2:
+        raise ValueError(f"bf16 gdfn_fused: the width {m} must be even "
+                         "(its depthwise copies move two bf16 at least)")
+    plan, n_sums = _fwd_card_plan(b, h, w, c, m, True, dev.index, *vecs, "bf16_f32")
+    sums = torch.empty(n_sums, device=dev) if n_sums else None
+    with torch.cuda.device(dev):
+        build.call("rcot_gdfn_fused_bf16", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
+                   w_out.data_ptr(), y.data_ptr(), hbuf, conv, build.ptr(sums), plan,
+                   b, h, w, c, hid, build.stream())
+    build.LAUNCHES["gdfn_fused_bf16"] += 1
+    return y
+
+
+def gdfn_bwd_bf16_workspace_numel(n: int, c: int, hid: int) -> Tuple[int, ...]:
+    """Floats of each workspace of the bf16 GDFN backward on n pixels, in the
+    order csrc/fused_dwconv_bf16.cu takes them (hb bf16, two to a float):
+    hb; x32, g32, h32, conv_dh, dconv, gate, dx32; the widened weights
+    win32, dwk32, wout32; their fp32 grads dwin32, ddw32, dwout32."""
+    m = 2 * hid
+    weights = (m * c, 9 * m, c * hid)
+    return (-(-n * m // 2), n * c, n * c, n * m, n * m, n * m, n * hid, n * c,
+            *weights, *weights)
+
+
+def _gdfn_fused_bwd_bf16(x, w_in, dwk, w_out, g):
+    """The GDFN backward on bf16 CUDA tensors -> (dx, dw_in, ddw, dw_out),
+    bf16: csrc/fused_dwconv_bf16.cu, with fused_bwd_plan's plan on its fp32
+    workspaces."""
+    b, h, w, c, m = _check(x, w_in, dwk, w_out, g)
+    hid = m // 2
+    dev = x.device
+    dx, dw_in, ddw, dw_out = (torch.empty_like(t) for t in (x, w_in, dwk, w_out))
+    buf, ws = _workspaces(dev, gdfn_bwd_bf16_workspace_numel(b * h * w, c, hid))
+    x32, g32, h32, conv_dh, dconv, gate, dx32, win32, _, wout32 = ws[1:11]
+    vec_c = kdw.dwconv_vec(c, x32, g32, dx32, win32)
+    vec_h = kdw.dwconv_vec(hid, wout32, gate)
+    vec_m = kdw.dwconv_vec(m, h32, conv_dh, dconv)
+    plan, n_sums = _bwd_card_plan(b, h, w, c, m, True, dev.index, vec_c, vec_h, vec_m)
+    sums = torch.empty(n_sums, device=dev)
+    with torch.cuda.device(dev):
+        build.call("rcot_gdfn_fused_bwd_bf16",
+                   *(t.data_ptr() for t in (x, w_in, dwk, w_out, g, dx, dw_in, ddw, dw_out)),
+                   *ws, sums.data_ptr(), plan, kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr()),
+                   b, h, w, c, hid, build.stream())
+    build.LAUNCHES["gdfn_fused_bwd_bf16"] += 1
+    return dx, dw_in, ddw, dw_out
 
 
 # --------------------------------------------------------------- autograd

@@ -25,8 +25,8 @@ default, "tail"), `attention_core` and `depthwise` (ops/dispatch.py);
 validation serves in "full" with the same attention core and depthwise
 tier, as the JAX package's kernel switches hold in its inference scope too.
 With TrainConfig.dtype "bfloat16" the batches (and the sample dump's
-forward) are bf16, in "tail" with the Gram core and the fused tier alone
-(any other choice stops by name at construction); validation still serves
+forward) are bf16, in any composition with the Gram core and the fused
+tier alone (the opt-in ones stop by name at construction); validation serves
 in fp32 (rcot_tpu/train/trainer.py:507 makes its restorer without a
 dtype), and the parameters, optimizer state and checkpoints stay fp32.
 """

@@ -37,8 +37,8 @@ Tolerances:
   1e-5 * max(max|JAX|, 1);
 - cli.test --dtype bfloat16's per-image PSNR within PSNR_DB of the JAX
   CLI's in bf16 (the fp32 CLIs agree to 1e-3 dB, tests/test_torch_inference.py);
-- the refusals: every bf16 choice but full/gram/fused stops by name, on the
-  CPU as on the card.
+- the refusals: bf16 with the opt-in attention core or depthwise tier
+  stops by name, on the CPU as on the card; every composition serves.
 """
 
 import dataclasses
@@ -322,11 +322,22 @@ def test_cli_test_bf16_matches_the_jax_cli(tiny_config, tmp_path, capsys, pallas
     (dict(attention_core="mdta"), "--attention-core mdta"),
     (dict(depthwise="dwconv"), "--depthwise dwconv")])
 def test_bf16_refuses_every_other_choice_by_name(tiny_model_cfg, choice, flag):
-    """On the CPU as on the card: make_restorer and a bias-free block stop
-    by name before any forward in bf16; "tail", bf16 training's
-    composition, stops in serving but its forward runs (its backward:
-    tests/test_torch_bf16_train.py)."""
+    """On the CPU as on the card: every composition serves in bf16 with the
+    Gram core and the fused tier ("off" and "tail" here, beside "full"),
+    through make_restorer and a bias-free block's forward; the opt-in
+    attention core and depthwise tier stop by name before any forward."""
     full = dict(composition="full", attention_core="gram", depthwise="fused")
+    if "composition" in choice:
+        check_bf16(**{**full, **choice})
+        tcfg = TModelConfig(**dataclasses.asdict(tiny_model_cfg))
+        net = TNet(tcfg, device="cpu", seed=0)
+        out = tinf.make_restorer(net, tcfg, device="cpu", dtype=torch.bfloat16, **choice)(
+            np.random.default_rng(16).uniform(0, 1, (16, 16, 3)).astype(np.float32))
+        assert out.dtype == np.float32 and np.isfinite(out).all()
+        net.composition = choice["composition"]
+        with torch.no_grad():
+            assert net(torch.zeros(1, 16, 16, 3, dtype=torch.bfloat16))[0].dtype == torch.bfloat16
+        return
     with pytest.raises(NotImplementedError, match=f"bf16 with `{flag}` is not ported yet"):
         check_bf16(**{**full, **choice})
     tcfg = TModelConfig(**dataclasses.asdict(tiny_model_cfg))
@@ -336,10 +347,6 @@ def test_bf16_refuses_every_other_choice_by_name(tiny_model_cfg, choice, flag):
     for k, v in choice.items():
         setattr(net, k, v)
     x = torch.zeros(1, 16, 16, 3, dtype=torch.bfloat16)
-    if choice == dict(composition="tail"):
-        with torch.no_grad():
-            assert net(x)[0].dtype == torch.bfloat16
-    else:
-        with pytest.raises(NotImplementedError, match=flag), torch.no_grad():
-            net(x)
+    with pytest.raises(NotImplementedError, match=flag), torch.no_grad():
+        net(x)
     check_bf16(**full)  # does not raise

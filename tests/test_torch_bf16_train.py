@@ -30,8 +30,8 @@ the block tail's and the Gram core's tests pin.
 The train CLI trains a tiny T_net for two epochs in bf16 on the CPU, with
 an injected failure and a resume, its checkpoints fp32, its validation
 fp32, its sample dump through the bf16 training forward, and its config
-hash the JAX CLI's for the same flags. Every other bf16 training choice
-stops by name.
+hash the JAX CLI's for the same flags. Every composition trains in bf16;
+the opt-in attention core and depthwise tier stop by name.
 
 The whole tiny T_net's bf16 gradients (tests/test_torch_bf16_train_tnet.py)
 and one bf16 minimax iteration (tests/test_torch_bf16_train_iteration.py)
@@ -242,11 +242,31 @@ def test_mdta_core_gram_bf16_backward_matches_pallas(b, heads, ch, hw):
     (dict(composition="off"), "--composition off"),
     (dict(attention_core="mdta"), "--attention-core mdta"),
     (dict(depthwise="dwconv"), "--depthwise dwconv")])
-def test_bf16_training_refuses_every_other_choice_by_name(choice, flag):
-    """check_bf16 for a backward, a Trainer in bf16, a tiny T_net's bf16
-    forward with grad enabled and the CLI all stop by name; "tail" with the
-    Gram core and the fused tier passes."""
+def test_bf16_training_refuses_every_other_choice_by_name(choice, flag, monkeypatch):
+    """Every composition trains in bf16 with the Gram core and the fused
+    tier: check_bf16 for a backward, a Trainer in bf16, a tiny T_net's bf16
+    forward and backward (fp32 parameter gradients, finite) and the CLI's
+    flags pass in "full", "head" and "off" as in "tail". The opt-in
+    attention core and depthwise tier stop by name in all four places."""
     tail = dict(composition="tail", attention_core="gram", depthwise="fused")
+    if "composition" in choice:
+        from rcot_torch.train import trainer as ttrainer
+        check_bf16(**{**tail, **choice}, use="backward")
+        cfg = tconfig.Config(model=TINY, train=tconfig.TrainConfig(dtype="bfloat16"))
+        monkeypatch.setattr(ttrainer, "TrainLoader", lambda *a, **k: None)
+        assert Trainer(cfg, device="cpu", **{**tail, **choice}).composition == choice[
+            "composition"]
+        state = tsteps.create_train_state(cfg, seed=0, device="cpu", **{**tail, **choice})
+        x = torch.rand(1, 16, 16, 3, generator=torch.Generator().manual_seed(25))
+        out = state.t_net(x.to(torch.bfloat16))[0]
+        params = list(state.t_net.parameters())
+        grads = torch.autograd.grad(out.float().square().sum(), params, allow_unused=True)
+        live = [g for g in grads if g is not None]
+        assert out.dtype == torch.bfloat16 and len(live) == len(params)
+        assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in live)
+        tcli._refuse_unported(tcli.build_parser().parse_args(
+            ["--dtype", "bfloat16", *flag.split()]))  # does not raise
+        return
     with pytest.raises(NotImplementedError, match=f"bf16 training with `{flag}` is not"):
         check_bf16(**{**tail, **choice}, use="backward")
     check_bf16(**tail, use="backward")
@@ -262,18 +282,28 @@ def test_bf16_training_refuses_every_other_choice_by_name(choice, flag):
 
 
 def test_the_gdfn_and_head_configurations_refuse_bf16_by_name():
-    """On the CPU as on the card (tests/test_torch_cuda.py): rows 8-9's GDFN
-    configuration and row 5's head have no bf16 training form."""
+    """Rows 8-9's GDFN configuration and row 5's head now have bf16 forms:
+    on the CPU a bf16 call runs their plain bf16 twins (their outputs bf16,
+    dln fp32) and launches nothing; on the card, their kernels
+    (tests/test_torch_cuda.py). Their twins against the JAX kernels:
+    tests/test_torch_bf16_head_gdfn.py."""
+    from rcot_torch.kernels import build
     p = _inputs(np.random.default_rng(23), 1, 4, 4, 8, True)
     gdfn = (_bf(p["x"]), _bf(p["w_in"]), _bf(p["dw_in"]), _bf(p["w_out"]))
-    with pytest.raises(NotImplementedError, match="gdfn_fused in bf16"):
-        tfused.gdfn_fused(*gdfn)
-    with pytest.raises(NotImplementedError, match="gdfn_fused in bf16"):
-        tfused.fused_dwconv_bwd(*gdfn, _bf(p["g_c"]))
     head = (_bf(p["x"]), torch.from_numpy(p["ln_w"]), torch.from_numpy(p["ln_b"]),
             _bf(p["w_qkv"]), _bf(p["dw_qkv"]))
-    with pytest.raises(NotImplementedError, match="bf16 backward of the block head"):
-        tblock.block_head_bwd(*head, _bf(p["g_m"]))
+    before = dict(build.LAUNCHES)
+    y = tfused.gdfn_fused(*gdfn)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, tfused.fused_dwconv_plain(*gdfn))
+    for got, want in ((tfused.fused_dwconv_bwd(*gdfn, _bf(p["g_c"])),
+                       tfused.fused_dwconv_bwd_plain(*gdfn, _bf(p["g_c"]))),
+                      (tblock.block_head_bwd(*head, _bf(p["g_m"])),
+                       tblock.block_head_bwd_bf16_plain(*head, _bf(p["g_m"])))):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert [t.dtype for t in tblock.block_head_bwd(*head, _bf(p["g_m"]))] == [
+        torch.bfloat16, torch.float32, torch.float32, torch.bfloat16, torch.bfloat16]
+    assert dict(build.LAUNCHES) == before
 
 
 # ------------------------------------------------------------ the train CLI
@@ -368,6 +398,28 @@ def test_cli_trains_in_bf16_and_resumes(tmp_path, tiny_presets, monkeypatch):
     j_cfg = jcli.overlay_config(jconfig.get_preset(jargs.preset), jargs)
     assert t_cfg.train.dtype == j_cfg.train.dtype == "bfloat16"
     assert t_cfg.hash() == j_cfg.hash()
+
+
+@pytest.mark.parametrize("composition", ["full", "head", "off"])
+def test_cli_trains_in_bf16_in_every_composition(tmp_path, tiny_presets, composition):
+    """cli.train --dtype bfloat16 --composition full, head or off for one
+    epoch on the CPU: the T_net's blocks in that composition, finite
+    metrics and validation, fp32 parameters."""
+    import json
+    tree, run = tmp_path / "tree", tmp_path / "run"
+    write_synthetic_tree(str(tree), seed=2, n_denoise=1, n_rain=0, n_haze=2, size=48,
+                         val_sizes=((32, 32),))
+    flags = _flags(tree, run, "--composition", composition)
+    flags[flags.index("--n-epochs") + 1] = "1"
+    trainer = tcli.main(flags)
+    assert trainer.state.t_net.composition == composition
+    assert all(p.dtype == torch.float32 for p in trainer.state.t_net.parameters())
+    with open(run / "log.jsonl") as f:
+        ev = [json.loads(line) for line in f]
+    steps = [e for e in ev if e["event"] == "train_step"]
+    vals = [e for e in ev if e["event"] == "validation"]
+    assert steps and all(np.isfinite(e[k]) for e in steps for k in ("f_wgan", "t_loss"))
+    assert vals and all(np.isfinite(v["psnr"]) for v in vals)
 
 
 def test_bf16_plan_workspaces():

@@ -879,9 +879,10 @@ def test_bf16_gram_and_apply_match_their_twins_and_repeat(cuda_device, b, heads,
 
 @pytest.mark.cuda
 def test_fp32_only_kernels_refuse_bf16_by_its_dtype(cuda_device):
-    """Rows 10-11 have no bf16 form: a bf16 tensor raises, never casts; row
-    5's head configuration and rows 8-9's GDFN have none either ("full" and
-    "head"/"off" bf16 training) and stop by name."""
+    """Rows 10-11 have no bf16 form: a bf16 tensor raises, never casts. Row
+    5's head configuration and rows 8-9's GDFN have bf16 forms now ("full"
+    and "head"/"off" bf16 training): a bf16 call launches them, once each,
+    and returns bf16 (dln fp32)."""
     p = _to_bf16(_block_inputs(torch.Generator(device="cuda").manual_seed(17), 1, 8, 8, 8,
                                True))
     head = [p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"]]
@@ -891,11 +892,17 @@ def test_fp32_only_kernels_refuse_bf16_by_its_dtype(cuda_device):
                  lambda: tmdta.mdta_attend(q, q, q, torch.ones(1, 1, 1, device="cuda"))):
         with pytest.raises(ValueError, match="bfloat16"):
             call()
-    for call in (lambda: tblock.block_head_bwd(*head, torch.zeros_like(p["x"]).repeat(1, 1, 1, 3)),
-                 lambda: tfused.fused_dwconv_fwd(*gdfn),
-                 lambda: tfused.fused_dwconv_bwd(*gdfn, torch.zeros_like(p["x"]))):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    for name, call in (
+            ("block_head_bwd_bf16",
+             lambda: tblock.block_head_bwd(*head, torch.zeros_like(p["x"]).repeat(1, 1, 1, 3))),
+            ("gdfn_fused_bf16", lambda: (tfused.fused_dwconv_fwd(*gdfn),)),
+            ("gdfn_fused_bwd_bf16",
+             lambda: tfused.fused_dwconv_bwd(*gdfn, torch.zeros_like(p["x"])))):
+        n0 = build.LAUNCHES[name]
+        outs = [t for t in call() if t is not None]
+        assert build.LAUNCHES[name] == n0 + 1, name
+        assert {t.dtype for t in outs} <= {torch.bfloat16, torch.float32}
+        assert outs[0].dtype == torch.bfloat16, name
 
 
 @pytest.mark.cuda
@@ -928,12 +935,24 @@ def test_a_bf16_tnet_on_the_card_matches_the_cpu(cuda_device):
 
 def _bf16_train_calls(p, g_m, g_c):
     """{name: (kernel, bf16 twin, the twin's arithmetic in float64)} of row
-    8's qkv forward and rows 9 (qkv) and 5 (tail) backward on bf16 p."""
+    8's forward and rows 9 and 5 backward, both configurations each, on
+    bf16 p."""
     import functools
     qkv = [p["x"], p["w_qkv"], p["dw_qkv"]]
+    gdfn = [p["x"], p["w_in"], p["dw_in"], p["w_out"]]
+    head = [p[k] for k in ("x", "ln_w", "ln_b", "w_qkv", "dw_qkv")]
     tail = [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")]
     rounded = functools.partial(tblock._block_tail_rounded, torch.bfloat16)
+    head_rounded = functools.partial(tblock._block_head_rounded, torch.bfloat16)
     return {
+        "gdfn_fused_bf16": (lambda: (tfused.fused_dwconv_fwd(*gdfn),),
+                            lambda: (tfused.fused_dwconv_plain(*gdfn),), None),
+        "gdfn_fused_bwd_bf16": (lambda: tfused.fused_dwconv_bwd(*gdfn, g_c),
+                                lambda: tfused.fused_dwconv_bwd_plain(*gdfn, g_c), None),
+        "block_head_bwd_bf16": (lambda: tblock.block_head_bwd(*head, g_m),
+                                lambda: tblock.block_head_bwd_plain(*head, g_m),
+                                lambda: tblock._vjp_plain(head_rounded, _double(head),
+                                                          g_m.double())),
         "conv1x1_dw_bf16": (lambda: (tfused.fused_dwconv_fwd(*qkv, None),),
                             lambda: (tfused.fused_dwconv_plain(*qkv, None),), None),
         "conv1x1_dw_bwd_bf16": (lambda: tfused.fused_dwconv_bwd(*qkv, None, g_m)[:3],
@@ -947,7 +966,8 @@ def _bf16_train_calls(p, g_m, g_c):
 
 BF16_FLIP_RTOL = 1e-3
 BF16_MODEL_RATIO = 0.25
-F32_RTOL = {"block_tail_bwd_bf16": BF16_FLIP_RTOL, "attn_apply_bwd_bf16": RTOL}
+F32_RTOL = {"block_tail_bwd_bf16": BF16_FLIP_RTOL, "block_head_bwd_bf16": BF16_FLIP_RTOL,
+            "attn_apply_bwd_bf16": RTOL}
 
 
 def _check_bf16_outputs(name, got, again, want, want64):
@@ -964,7 +984,7 @@ def _check_bf16_outputs(name, got, again, want, want64):
         assert err <= F32_RTOL[name] * scale, (name, i, err, scale)
 
 
-# rows 8-9 (qkv) and 5 (tail) in bf16: C = 6 (h = 15), odd h (127, 255,
+# rows 8-9 and 5 in bf16, both configurations each: C = 6 (h = 15), odd h (127, 255,
 # 1,021), h = 510, split products (the latent), B = 3
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 20, 19, 6), (3, 16, 16, 48), (1, 16, 16, 192),
@@ -1012,18 +1032,26 @@ def test_bf16_mdta_backward_kernels_match_their_twins_and_repeat(cuda_device, b,
                         tgram.attn_apply_bwd_plain(qkv, attn, g), want64)
 
 
+# the bf16 kernels of one training block in each composition
+BF16_TRAIN_SIDES = {"full": ("block_head_bf16", "block_tail_bf16"),
+                    "head": ("block_head_bf16", "gdfn_fused_bf16"),
+                    "tail": ("conv1x1_dw_bf16", "block_tail_bf16"),
+                    "off": ("conv1x1_dw_bf16", "gdfn_fused_bf16")}
+
+
 @pytest.mark.cuda
-def test_a_bf16_tnet_trains_on_the_card_as_on_the_cpu(cuda_device):
-    """A small T_net in "tail" on a bf16 input, differentiated for a bf16
-    cotangent of its output, on the card against the CPU: the gradients,
-    all together, within a quarter of what bf16 changes on the CPU;
-    each bf16 training kernel launched once a block, and no fp32 form of
-    rows 2-9."""
+@pytest.mark.parametrize("composition", list(BF16_TRAIN_SIDES))
+def test_a_bf16_tnet_trains_on_the_card_as_on_the_cpu(cuda_device, composition):
+    """A small T_net in each composition on a bf16 input, differentiated
+    for a bf16 cotangent of its output, on the card against the CPU: the
+    gradients, all together, within a quarter of what bf16 changes on the
+    CPU; each bf16 kernel of the composition, forward and backward,
+    launched once a block, and no fp32 form of rows 1-9."""
     import copy
 
     cfg = ModelConfig(dim=16, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
                       parity_params=False)
-    net = TNet(cfg, device="cpu", seed=4, composition="tail")
+    net = TNet(cfg, device="cpu", seed=4, composition=composition)
     gen = torch.Generator().manual_seed(4)
     x = torch.rand(2, 32, 32, 3, generator=gen)
     g = torch.randn(2, 32, 32, 3, generator=gen).bfloat16()
@@ -1040,10 +1068,10 @@ def test_a_bf16_tnet_trains_on_the_card_as_on_the_cpu(cuda_device):
     torch.cuda.synchronize()
     launched = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
                 if v != before.get(k, 0)}
-    assert set(launched) == {"conv1x1_dw_bf16", "block_tail_bf16", "mdta_gram_fwd_bf16",
-                             "attn_apply_fwd_bf16", "block_tail_bwd_bf16",
-                             "mdta_gram_bwd_bf16", "attn_apply_bwd_bf16",
-                             "conv1x1_dw_bwd_bf16"}, launched
+    sides = BF16_TRAIN_SIDES[composition]
+    assert set(launched) == {*sides, *(k.replace("_bf16", "_bwd_bf16") for k in sides),
+                             "mdta_gram_fwd_bf16", "attn_apply_fwd_bf16",
+                             "mdta_gram_bwd_bf16", "attn_apply_bwd_bf16"}, launched
     assert len(set(launched.values())) == 1
     assert card.keys() == cpu16.keys()
     err = sum(float((card[k] - cpu16[k]).abs().sum()) for k in card)

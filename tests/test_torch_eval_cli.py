@@ -238,9 +238,10 @@ def test_cli_test_metrics_match_jax(tmp_path, jax_ckpt, capsys):
     assert np.isfinite(n_got) and abs(n_got - n_want) <= 1e-5
 
 
-# bf16 serves in full/gram/fused; bf16 in another composition stops by name
+# bf16 serves in every composition with the Gram core and the fused tier;
+# bf16 in the opt-in depthwise tier stops by name
 @pytest.mark.parametrize("flags,what", [
-    (["--dtype", "bfloat16", "--composition", "off"], "bf16"),
+    (["--dtype", "bfloat16", "--depthwise", "dwconv"], "bf16"),
     (["--backbone", "mprnet"], "MPRNet"),
     (["--sr-scale", "2"], "SR mode"), (["--spatial", "2"], "row sharding")])
 def test_cli_test_refuses_unported_flags_by_name(flags, what):
@@ -251,7 +252,8 @@ def test_cli_test_refuses_unported_flags_by_name(flags, what):
 
 @pytest.mark.parametrize("flags", [[], ["--dtype", "float32"], ["--backbone", "auto"],
                                    ["--backbone", "restormer"], ["--sr-scale", "0"],
-                                   ["--spatial", "1"], ["--dtype", "bfloat16"]])
+                                   ["--spatial", "1"], ["--dtype", "bfloat16"],
+                                   ["--dtype", "bfloat16", "--composition", "off"]])
 def test_cli_test_takes_the_ported_values(flags):
     args = t_test.build_parser().parse_args(
         ["--ckpt", "x.npz", "--degset", "a/", "--tarset", "b/"] + flags)
@@ -273,8 +275,43 @@ def test_eval_all_refuses_bf16_by_name():
 
 
 def test_cli_train_refuses_bf16_training_by_name():
-    """bf16 serves, and trains in "tail" (tests/test_torch_bf16_train.py);
-    bf16 training in "full" (the rest of ROADMAP Queue 1 item 4) does not."""
+    """bf16 serves and trains in every composition
+    (tests/test_torch_bf16_train.py); bf16 training in the opt-in depthwise
+    tier (ROADMAP Queue 2) stops by name."""
     from rcot_torch.cli import train as t_train
     with pytest.raises(SystemExit, match="--dtype bfloat16: bf16 training .* not ported"):
-        t_train.main(["--dtype", "bfloat16", "--composition", "full", "--device", "cpu"])
+        t_train.main(["--dtype", "bfloat16", "--depthwise", "dwconv", "--device", "cpu"])
+    for composition in ("full", "head", "tail", "off", "auto"):
+        t_train._refuse_unported(t_train.build_parser().parse_args(
+            ["--dtype", "bfloat16", "--composition", composition]))  # does not raise
+
+
+@pytest.mark.parametrize("composition", ["head", "tail", "off"])
+def test_bf16_serves_in_every_composition_through_the_clis(tmp_path, jax_ckpt, composition,
+                                                           capsys):
+    """cli.eval_all and cli.test --dtype bfloat16 --composition head, tail or
+    off on the CPU: the rows and per-image PSNR of "full" in bf16 (the four
+    compositions round to bf16 at the same points; the JAX package's bf16
+    forwards in each are held in tests/test_torch_bf16_head_gdfn.py)."""
+    root = write_eval_tree(str(tmp_path / "tree"))
+    rows = []
+    for extra in ([], ["--composition", composition]):
+        out = str(tmp_path / f"{len(rows)}.json")
+        assert t_eval.main(["--ckpt", jax_ckpt, "--paired", "val", f"{root}/paired",
+                            "--json-out", out, "--device", "cpu", "--dtype", "bfloat16"]
+                           + extra) == 0
+        rows.append(json.load(open(out))["results"]["val"])
+    a, b = rows
+    assert a["n"] == b["n"] == 2 and abs(a["psnr"] - b["psnr"]) <= 1e-3 + 5e-5
+    assert abs(a["ssim"] - b["ssim"]) <= 1e-4 + 5e-6
+    capsys.readouterr()
+    psnrs = []
+    for extra in ([], ["--composition", composition]):
+        t_test.main(["--ckpt", jax_ckpt, "--degset", f"{root}/paired/input/", "--tarset",
+                     f"{root}/paired/target/", "--device", "cpu", "--dtype", "bfloat16"]
+                    + extra)
+        psnrs.append(dict(re.findall(r"^(\S+\.png): psnr ([\d.]+)", capsys.readouterr().out,
+                                     re.M)))
+    assert psnrs[0] and psnrs[0].keys() == psnrs[1].keys()
+    for k in psnrs[0]:
+        assert abs(float(psnrs[0][k]) - float(psnrs[1][k])) <= 1e-3, k

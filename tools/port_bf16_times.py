@@ -3,8 +3,10 @@ in bf16 (serving's: block_head_bf16, block_tail_bf16, mdta_gram_fwd_bf16,
 attn_apply_fwd_bf16) at every block shape of the serving path (256^2,
 B = 1), and bf16 training's forms of rows 8 (qkv) forward and 9 (qkv), 5
 (tail), 6 and 7 backward (conv1x1_dw_bf16, conv1x1_dw_bwd_bf16,
-block_tail_bwd_bf16, mdta_gram_bwd_bf16, attn_apply_bwd_bf16) at every
-block shape of the training path (128^2, B = 3).
+block_tail_bwd_bf16, mdta_gram_bwd_bf16, attn_apply_bwd_bf16) and of rows 5
+(head) backward and 8-9 (GDFN) forward and backward (block_head_bwd_bf16,
+gdfn_fused_bf16, gdfn_fused_bwd_bf16) at every block shape of the training
+path (128^2, B = 3).
 
     python tools/port_bf16_times.py [--root DIR]
 
@@ -65,7 +67,8 @@ def split_train(smoke, gen, res, c, heads) -> dict:
     def r(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
     calls16 = {**smoke.bf16_block_calls(p16, r), **smoke.bf16_mdta_calls(qkv16, heads, r)}
-    fp32 = {"qkv": smoke.fused_args(p32, False), "tail": smoke.tail_args(p32)}
+    fp32 = {"qkv": smoke.fused_args(p32, False), "gdfn": smoke.fused_args(p32, True),
+            "head": smoke.head_args(p32), "tail": smoke.tail_args(p32)}
     b = smoke.TRAIN_B
     ch = c // heads
     g_m, g_c = r(b, res, res, 3 * c), r(b, res, res, c)
@@ -77,7 +80,10 @@ def split_train(smoke, gen, res, c, heads) -> dict:
                "conv1x1_dw_bwd_bf16": lambda: kf.fused_dwconv_bwd(*fp32["qkv"], g_m),
                "block_tail_bwd_bf16": lambda: kb.block_tail_bwd(*fp32["tail"], g_c),
                "mdta_gram_bwd_bf16": lambda: kg.mdta_gram_bwd(qkv32, *cot, heads),
-               "attn_apply_bwd_bf16": lambda: kg.attn_apply_bwd(qkv32, attn, g_c)}
+               "attn_apply_bwd_bf16": lambda: kg.attn_apply_bwd(qkv32, attn, g_c),
+               "block_head_bwd_bf16": lambda: kb.block_head_bwd(*fp32["head"], g_m),
+               "gdfn_fused_bf16": lambda: kf.fused_dwconv_fwd(*fp32["gdfn"]),
+               "gdfn_fused_bwd_bf16": lambda: kf.fused_dwconv_bwd(*fp32["gdfn"], g_c)}
     out: dict = {}
     for name in smoke.BF16_TRAIN_KERNELS:
         for i, tag in enumerate(("fp32", "bf16", "bf16", "fp32")):
