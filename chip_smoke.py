@@ -1,6 +1,6 @@
 """Drive the rcot_torch port on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--root PARENT]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
@@ -90,6 +90,18 @@ Phases (any failure exits non-zero; nothing is caught):
      each level, the decoder's and the refinement's), rows 6-7 also at the
      wide heads of phase 3e, each bitwise against a second call, and timed
      as phase 5 times the others, before the training phases;
+  5d. rows 10 and 11 in bf16 (mdta_attend_bf16, dwconv3x3_bf16,
+     dwconv3x3_dx_bf16, dwconv3x3_dtaps_bf16) against their plain bf16
+     twins at every serving and training block shape, the depthwise forms
+     at 3C and 2h (dtaps, fp32, against float64), the attend also at heads
+     of 192, at N = 80,250 and at an odd N, each bitwise against a second
+     call; the jnp route at N = 2,112 (no kernel, counted
+     mdta_attend_jnp_bf16); the forms timed beside their fp32 forms; then
+     bf16 serving in off/mdta/dwconv at 256^2, batch 1 and 8 (94 launches
+     of mdta_attend_bf16 and 188 of dwconv3x3_bf16 a forward, no other
+     kernel), a 128^2 forward against the CPU by the quarter rule on the
+     mean, img/s in turns with fp32 off/mdta/dwconv and bf16 "full" (the
+     seconds of each phase of the opt-in tiers in bf16 in the summary line);
   6. train at full width: create_train_state(Config()) (T_net 46,853,150
      and F_net 30,588,609 parameters, seeded) in the JAX trainer's default
      composition, "tail"; three minimax iterations (make_train_iteration)
@@ -116,6 +128,11 @@ Phases (any failure exits non-zero; nothing is caught):
      its validation in fp32; and, in "full" with cuDNN deterministic, a
      run stopped and resumed against one straight through (bitwise, or
      within RESUME_ATOL);
+  6f. train in bf16 in tail/mdta/dwconv: three iterations at
+     128^2, B = 3, counted (94 launches an iteration of each of the four
+     forms, block_tail_bf16 and block_tail_bwd_bf16, no fp32 row), the
+     parameters fp32 and moved, it/s in turns with fp32 tail/mdta/dwconv;
+     the gradients and lr = 0 metrics at 64^2, B = 1 against the CPU's;
   6b. from one full-width state at 64^2, B = 1, each of the compositions
      full, head, tail and off, in the default tiers and then with the
      fused MDTA attend and the depthwise kernel: its kernels launched 94
@@ -144,6 +161,10 @@ Phases (any failure exits non-zero; nothing is caught):
      dwconv, then rcot_torch.cli.test on its validation folder from its
      latest.npz with --composition off --attention-core mdta --depthwise
      dwconv: finite metrics and PSNRs, each run's launches its tiers';
+  7c. the train CLI with --dtype bfloat16 --attention-core mdta --depthwise
+     dwconv for one epoch, then rcot_torch.cli.test --dtype bfloat16
+     --composition off --attention-core mdta --depthwise dwconv on its
+     validation folder: finite PSNRs, each run's launches its tiers';
   8. evaluation at full width on a seeded tree of 256^2 images and a
      ModelConfig() checkpoint from a seed: rcot_torch.cli.eval_all over
      every task (denoise at sigmas 15 and 50, derain, dehaze, deblur,
@@ -153,7 +174,13 @@ Phases (any failure exits non-zero; nothing is caught):
      Inception pool3, LPIPS and FID of its saved images on the card against
      the CPU, the metrics' costs, and the CLI's per-image PSNR against a CPU
      run, in this script's fp32 and under PyTorch's default flags (TF32 in
-     cuDNN), each within 1e-3 dB.
+     cuDNN), each within 1e-3 dB;
+  9. with --root PARENT (a checkout of an earlier commit, as
+     tools/port_fp32_digests.py takes it; left out without it):
+     tools/port_fp32_digests.py on PARENT and on this checkout, each in a
+     process of its own that builds its tree's kernels, and every digest
+     equal: each fp32 kernel's outputs, rows 1-9's bf16 forms and bf16
+     serving's outputs in full/head/tail/off in the fused tier, bit for bit.
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
 plain twins and the CPU reference run in full fp32. Kernel agreement is
@@ -189,13 +216,14 @@ fixed order and is held bitwise against a second call.
 The bf16 phases' gates, and why they are what they are: the notes above
 BF16_RTOL, BF16_FLIP_RTOL and BF16_MODEL_RATIO.
 
-Prints the kernels' JSON line (all twenty-eight kernels: the sixteen fp32
-ones, rows 1-4 in bf16 and bf16 training's eight forms) and, last,
-{"ok": true, "device": {...}}.
+Prints the kernels' JSON line (all thirty-two kernels: the sixteen fp32
+ones, rows 1-4 in bf16, bf16 training's eight forms and rows 10-11's four
+bf16 forms) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
 import functools
@@ -1270,7 +1298,16 @@ BF16_TRAIN_PATH = bf16_path("tail")
 # composition of phase 6e that runs it ("tail" unless named here)
 BF16_LAUNCHES_FROM = {"block_head_bwd_bf16": "full", "gdfn_fused_bf16": "head",
                       "gdfn_fused_bwd_bf16": "head"}
-ALL_KERNELS = {**KERNELS, **BF16_KERNELS, **BF16_TRAIN_KERNELS}
+# rows 10 and 11 in bf16: the opt-in tiers' forms, bf16 q, k, v and
+# out (mdta_attend_bf16); bf16 x and out on fp32 taps, and dtaps fp32 from
+# bf16 x and g (the dwconv3x3 *_bf16 forms)
+BF16_OPT_IN_KERNELS = {
+    "mdta_attend_bf16": ("rcot_torch/csrc/mdta.cu", "rcot_tpu/ops/pallas_mdta.py:88"),
+    "dwconv3x3_bf16": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:73"),
+    "dwconv3x3_dx_bf16": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:73"),
+    "dwconv3x3_dtaps_bf16": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:121"),
+}
+ALL_KERNELS = {**KERNELS, **BF16_KERNELS, **BF16_TRAIN_KERNELS, **BF16_OPT_IN_KERNELS}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 # Gates of the bf16 phase. A bf16 output of
 # a kernel rounds where its plain twin rounds, from fp32 sums taken in
@@ -1287,6 +1324,11 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 # about max|fp32 - bf16|, so the largest difference is held to BF16_RTOL
 # alone), and the CLI's per-image PSNR to BF16_PSNR_DB.
 BF16_RTOL = 2.0 ** -6
+# rows 10-11's bf16 forms are also held to the CPU tests' share of bitwise
+# equal elements against their twins (tests/test_torch_bf16_opt_in.py): a
+# wrong Gram, norm, temperature or split sum moves far more than 1% of the
+# outputs by an ulp, even where it stays within BF16_RTOL.
+BF16_EQUAL_SHARE = 0.99
 BF16_PSNR_DB = 0.02
 BF16 = torch.bfloat16
 # bf16 training's fp32 outputs are held against the float64 twin: row 7's
@@ -1824,9 +1866,10 @@ def _bf16_ulp(v: float) -> float:
     return 2.0 ** (np.floor(np.log2(abs(v))) - 7) if v else 2.0 ** -133
 
 
-def phase_bf16_train_vs_cpu(gen_np, composition: str = "tail") -> dict:
+def phase_bf16_train_vs_cpu(gen_np, composition: str = "tail", **tiers) -> dict:
     """bf16 training's gradients and one iteration's metrics on the card
-    against the CPU's, in the composition given (both sides), from one seed
+    against the CPU's, in the composition (and attention core and depthwise
+    tier, `tiers`) given (both sides), from one seed
     at 64^2, B = 1, critic patch 64, the
     critic's sign pattern pinned to the CPU's bf16 run (LeakyPattern; the
     CPU's fp32 run records its own): the gradients, all together, within
@@ -1847,7 +1890,7 @@ def phase_bf16_train_vs_cpu(gen_np, composition: str = "tail") -> dict:
     for key, dev, dtype in (("cpu bf16", "cpu", BF16), ("cpu fp32", "cpu", torch.float32),
                             ("card bf16", "cuda", BF16)):
         t0 = time.perf_counter()
-        state = create_train_state(cfg, seed=1, device=dev, composition=composition)
+        state = create_train_state(cfg, seed=1, device=dev, composition=composition, **tiers)
         batch = Batch(deg.to(dev, dtype), tgt.to(dev, dtype), torch.tensor([0] * b, device=dev))
         a = alpha.to(dev, dtype)
         ctx = (pattern.recording() if key == "cpu bf16" else
@@ -1859,6 +1902,7 @@ def phase_bf16_train_vs_cpu(gen_np, composition: str = "tail") -> dict:
         seconds[key] = time.perf_counter() - t0
         del state
     (g16, m16), (g32, m32), (gc, mc) = sides["cpu bf16"], sides["cpu fp32"], sides["card bf16"]
+    composition = "/".join((composition, *tiers.values()))
     if not set(gc) == set(g16) == set(g32):
         raise AssertionError(f"card and CPU differ in which parameters get a gradient: "
                              f"{set(gc) ^ set(g16)} {set(g16) ^ set(g32)}")
@@ -2006,6 +2050,360 @@ def phase_bf16_resume(card: str) -> dict:
 
 
 # ------------------------------------------------------------ training
+
+# ------------------------------------------------- bf16 in the opt-in tiers
+
+# bf16 serving in off/mdta/dwconv and training in tail/mdta/dwconv: the
+# launches of one two-pass forward and of one iteration (rows 2 and 5 in
+# bf16 are the tail's, phase 6e's)
+BF16_SERVE_OPT_IN = {"mdta_attend_bf16": FORWARD_LAUNCHES,
+                     "dwconv3x3_bf16": 2 * FORWARD_LAUNCHES}
+BF16_TRAIN_OPT_IN = {name: FORWARD_LAUNCHES for name in (
+    "mdta_attend_bf16", "dwconv3x3_bf16", "dwconv3x3_dx_bf16", "dwconv3x3_dtaps_bf16",
+    "block_tail_bf16", "block_tail_bwd_bf16")}
+OPT_IN_TIERS = dict(attention_core="mdta", depthwise="dwconv")
+# the count of the JAX wrapper's jnp route in bf16 (ops/mdta.py mdta_route),
+# which no main path at 128^2 or 256^2 takes
+JNP_ROUTE = "mdta_attend_jnp_bf16"
+
+
+def attend_inputs(gen, b, heads, ch, n) -> tuple:
+    """bf16 q, k, v (b, heads, ch, n) and an fp32 temperature (heads, 1, 1)
+    whose softmax is far from uniform. Independent q and k at these N give
+    a Gram of about 1/sqrt(N) and a P uniform to 1%, where `out` hardly
+    depends on q, k or the temperature; here k = q + noise / 2, so each row
+    of q-hat meets its own row of k-hat at a cosine near 0.9 and the others
+    near 0, and a temperature in [2, 8] puts P's diagonal between about 0.1
+    and 0.97 at 48 channels."""
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    q = r(b, heads, ch, n)
+    k, v = q + 0.5 * r(b, heads, ch, n), r(b, heads, ch, n)
+    temp = torch.rand(heads, 1, 1, device="cuda", generator=gen) * 6 + 2
+    return q.to(BF16), k.to(BF16), v.to(BF16), temp
+
+
+def bf16_opt_in_inputs(gen, b, res, c, heads) -> dict:
+    """Inputs of rows 10 and 11 in bf16 at one block shape: "attend" ->
+    attend_inputs; each depthwise width (3C, the qkv's; 2h, the GDFN's) ->
+    bf16 x and g, fp32 taps."""
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+    out = {"attend": attend_inputs(gen, b, heads, c // heads, res * res)}
+    for width in (3 * c, 2 * int(c * 2.66)):
+        out[width] = (r(b, res, res, width).to(BF16), r(b, res, res, width).to(BF16),
+                      r(width, 3, 3, scale=0.3))
+    return out
+
+
+def bf16_opt_in_calls(inputs) -> dict:
+    """{(name, width or None): (kernel, bf16 twin, float64 twin or None)} on
+    bf16_opt_in_inputs."""
+    q, k, v, temp = inputs["attend"]
+    calls = {("mdta_attend_bf16", None): (
+        lambda: kmdta.mdta_attend_fwd(q, k, v, temp),
+        lambda: kmdta.mdta_attend_bf16_plain(q, k, v, temp), None)}
+    for width, (x, g, taps) in ((w, t) for w, t in inputs.items() if w != "attend"):
+        calls.update({
+            ("dwconv3x3_bf16", width): (lambda x=x, t=taps: kdw.dwconv3x3_fwd(x, t),
+                                        lambda x=x, t=taps: kdw.dwconv3x3_bf16_plain(x, t),
+                                        None),
+            ("dwconv3x3_dx_bf16", width): (
+                lambda g=g, t=taps: kdw.dwconv3x3_dx(g, t),
+                lambda g=g, t=taps: kdw.dwconv3x3_bf16_plain(g, t.flip(1, 2)), None),
+            ("dwconv3x3_dtaps_bf16", width): (
+                lambda x=x, g=g: kdw.dwconv3x3_dtaps(x, g),
+                lambda x=x, g=g: kdw.dwconv3x3_dtaps_plain(x.float(), g.float()),
+                lambda x=x, g=g: kdw.dwconv3x3_dtaps_plain(x.double(), g.double()))})
+    return calls
+
+
+def check_bf16_opt_in_call(name, tag, call, errs) -> None:
+    """One form at one shape: one count a call, two calls bitwise equal, a
+    bf16 output within BF16_RTOL of its twin (check_bf16_out) and bitwise
+    equal to it in at least BF16_EQUAL_SHARE of its elements, dtaps (fp32)
+    within KERNEL_RTOL of its float64 twin."""
+    kernel, plain, plain64 = call
+    n0 = build.LAUNCHES[name]
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    if build.LAUNCHES[name] != n0 + 2:
+        raise AssertionError(f"{name} {tag}: {build.LAUNCHES[name] - n0} counts for two calls")
+    check_repeats(f"{name} {tag}", (got,), (again,))
+    if plain64 is None:
+        want = plain()
+        check_bf16_out(f"{name} {tag}", got, want, errs)
+        equal = float((got == want).float().mean())
+        if not equal >= BF16_EQUAL_SHARE:
+            raise AssertionError(f"{name} {tag}: {equal:.4f} of the elements bitwise equal to "
+                                 f"the twin's < {BF16_EQUAL_SHARE}")
+        return
+    want64 = plain64()
+    err = float((got.double() - want64).abs().max())
+    scale = max(float(want64.abs().max()), 1.0)
+    worst = errs.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
+    worst["max_abs_err"] = max(worst["max_abs_err"], err)
+    worst["max_rel_err"] = max(worst["max_rel_err"], err / scale)
+    if not (got.dtype == torch.float32 and err <= KERNEL_RTOL * scale):
+        raise AssertionError(f"{name} {tag}: {got.dtype}, max|err| {err:.3e} against float64 "
+                             f"> {KERNEL_RTOL:g} * {scale:.3e}")
+
+
+def phase_bf16_opt_in_kernels(gen) -> dict:
+    """Rows 10 and 11 in bf16 against their twins at every block shape of
+    serving (256^2, B = 1) and training (128^2, B = 3), the depthwise forms
+    at 3C and 2h, row 10 also at heads of 192 channels (two channel blocks,
+    their slots summed and rounded once), at N = 80,250 (the 250x321 image
+    unpadded: element copies) and an odd N the route gives the kernel: each
+    bitwise against a second call, one count a call. Then the route: at
+    N = 2,112 the JAX wrapper takes its jnp formula, and so does the port
+    (counted as mdta_attend_jnp_bf16, no kernel launched)."""
+    errs: dict = {}
+    cases = [(label, res, c, heads, 1) for label, res, c, heads in MAIN_SHAPES]
+    cases += [(f"train {label}", res, c, heads, TRAIN_B)
+              for label, res, c, heads in TRAIN_SHAPES]
+    for label, res, c, heads, b in cases:
+        tag = f"{label} {res}^2 C={c} heads={heads} B={b}"
+        calls = bf16_opt_in_calls(bf16_opt_in_inputs(gen, b, res, c, heads))
+        for (name, width), call in calls.items():
+            check_bf16_opt_in_call(name, f"{tag} width {width}", call, errs)
+        log(f"bf16 opt-in kernels ok at {tag}")
+
+    for tag, (b, heads, ch, n) in (("serve L3 one head", (1, 1, 192, 64 * 64)),
+                                   ("train L3 one head", (TRAIN_B, 1, 192, 32 * 32)),
+                                   ("N=80,250", (1, 1, 48, 250 * 321)),
+                                   ("odd N=1,025", (1, 2, 48, 25 * 41))):
+        q, k, v, temp = attend_inputs(gen, b, heads, ch, n)
+        check_bf16_opt_in_call("mdta_attend_bf16", tag, (
+            lambda: kmdta.mdta_attend_fwd(q, k, v, temp),
+            lambda: kmdta.mdta_attend_bf16_plain(q, k, v, temp), None), errs)
+        log(f"mdta_attend_bf16 ok at {tag} {(b, heads, ch, n)}")
+    q, k, v, temp = attend_inputs(gen, 1, 1, 48, 2112)
+    build.reset_launches()
+    out = kmdta.mdta_attend(q, k, v, temp)
+    torch.cuda.synchronize()
+    if kmdta.mdta_route(48, 2112) != "jnp" or dict(build.LAUNCHES) != {JNP_ROUTE: 1} or \
+            not torch.equal(out, kmdta.mdta_attend_jnp_bf16(q, k, v, temp)):
+        raise AssertionError(f"the jnp route at N = 2,112: launches {dict(build.LAUNCHES)}")
+    log(f"bf16 opt-in forms against their twins: {json.dumps(errs)}; N = 2,112 takes the "
+        f"jnp route, as the JAX wrapper does")
+    return errs
+
+
+def bf16_opt_in_timings(gen, label, res, c, heads, b) -> dict:
+    """Rows 10 and 11 in bf16 at one block shape, each beside its fp32 form
+    on the same values widened (fp32_device_ms), timed as kernel_timings
+    times the fp32 rows: the attend; the depthwise forward at 2h
+    ("dwconv3x3_bf16") and 3C ("dwconv3x3_bf16_qkv"); dx and dtaps at 3C,
+    the width training runs them at. Bounds: bf16 bytes (the taps, dtaps
+    and temperature fp32), the attend's two products at the bf16
+    tensor-core rate and its squares at the fp32 rate, the depthwise forms'
+    18 flops an element at the fp32 rate (fp32 taps). The library for the
+    forward and dx is one bf16 F.conv2d(groups=C), whose taps are bf16 (not
+    quite the same function), for dtaps cuDNN's bf16 weight gradient (a
+    bf16 result); the attend has none (two_bmm_ms: its two products as
+    bf16 bmm on pre-normalised heads)."""
+    n, ch, bh = res * res, c // heads, b * heads
+    inputs = bf16_opt_in_inputs(gen, b, res, c, heads)
+    calls = bf16_opt_in_calls(inputs)
+    q, k, v, temp = inputs["attend"]
+    f32 = [t.float() for t in (q, k, v)]
+    qh = (q.float() / q.float().norm(dim=-1, keepdim=True)).to(BF16).reshape(bh, ch, n)
+    kh = (k.float() / k.float().norm(dim=-1, keepdim=True)).to(BF16).reshape(bh, ch, n)
+    kh, vh = kh.transpose(1, 2).contiguous(), v.reshape(bh, ch, n)
+    at = torch.softmax(torch.randn(bh, ch, ch, device="cuda", generator=gen), -1).to(BF16)
+    rows = {  # key: (name, width, fp32 form, library, product flops, other flops, bytes)
+        "mdta_attend_bf16": ("mdta_attend_bf16", None,
+                             lambda: kmdta.mdta_attend_fwd(*f32, temp), None,
+                             b * n * 4 * c * ch, b * n * 4 * c, 2 * 4 * b * n * c + 4 * heads)}
+    h2 = 2 * int(c * 2.66)
+    for key, name, w in (("dwconv3x3_bf16", "dwconv3x3_bf16", h2),
+                         ("dwconv3x3_bf16_qkv", "dwconv3x3_bf16", 3 * c),
+                         ("dwconv3x3_dx_bf16", "dwconv3x3_dx_bf16", 3 * c),
+                         ("dwconv3x3_dtaps_bf16", "dwconv3x3_dtaps_bf16", 3 * c)):
+        x, g, taps = inputs[w]
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        t16 = taps.reshape(w, 1, 3, 3).to(BF16)
+        if name == "dwconv3x3_dtaps_bf16":
+            fp32 = functools.partial(kdw.dwconv3x3_dtaps, x.float(), g.float())
+            lib = functools.partial(torch.ops.aten.convolution_backward, gn, xn, t16, None,
+                                    [1, 1], [1, 1], [1, 1], False, [0, 0], w,
+                                    [False, True, False])
+        else:
+            fn = kdw.dwconv3x3_fwd if name == "dwconv3x3_bf16" else kdw.dwconv3x3_dx
+            src = xn if name == "dwconv3x3_bf16" else gn
+            fp32 = functools.partial(fn, (x if name == "dwconv3x3_bf16" else g).float(), taps)
+            lib = functools.partial(F.conv2d, src, t16, padding=1, groups=w)
+        rows[key] = (name, w, fp32, lib, 0, b * n * 18 * w, 2 * 2 * b * n * w + 4 * 9 * w)
+    out = {}
+    for key, (name, w, fp32, lib, mm_flops, flops, nbytes) in rows.items():
+        kern, plain, _ = calls[(name, w)]
+        times = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": max(mm_flops / PEAK_BF16_FLOPS, flops / PEAK_FLOPS) * 1e3}
+        by = max(times, key=times.get)
+        dev, records = device_ms(kern)
+        out[key] = dict(shape=f"{label} {res}^2 C={c} heads={heads} B={b}"
+                        + (f" width {w}" if w else ""),
+                        ms=cuda_ms(kern), device_ms=dev, device_records=records,
+                        sm_mhz=sm_clock_mhz(), fp32_device_ms=device_ms(fp32)[0],
+                        plain_ms=cuda_ms(plain, iters=5), bound_ms=times[by], bound_by=by,
+                        library_ms=cuda_ms(lib) if lib else None,
+                        library_device_ms=device_ms(lib)[0] if lib else None)
+    out["mdta_attend_bf16"]["two_bmm_ms"] = cuda_ms(lambda: (torch.bmm(qh, kh),
+                                                             torch.bmm(at, vh)))
+    return out
+
+
+def phase_bf16_serve_opt_in(gen_np, net, card) -> dict:
+    """bf16 serving in off/mdta/dwconv (the JAX package's RCOT_INFER_BLOCK=off
+    RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1 RCOT_PALLAS_MDTA=1 with
+    --dtype bfloat16): the full-width T_net at 256^2, batch 1 and 8,
+    through restore_batch, 94 launches of mdta_attend_bf16 and 188 of
+    dwconv3x3_bf16 a forward and no other kernel (no fp32 row, none of rows
+    1-9 in bf16); a 128^2 forward against the same tiers in bf16 on the
+    CPU (mean|card - CPU| <= mean|fp32 - bf16| / 4, the fp32 side the
+    card's fp32 off/mdta/dwconv; a full-width CPU forward at 256^2 takes
+    tens of seconds); img/s at batch 1 and 8 in turns with fp32
+    off/mdta/dwconv and bf16 "full", and the peak memory at batch 8."""
+    cfg = ModelConfig()
+    tiers = dict(composition="off", **OPT_IN_TIERS)
+    r16 = make_restorer(net, cfg, device="cuda", dtype=BF16, **tiers)
+    r32 = make_restorer(net, cfg, device="cuda", **tiers)
+    full16 = make_restorer(net, cfg, device="cuda", dtype=BF16)
+    forwards = counting(r16)
+    imgs = [gen_np.uniform(0, 1, (256, 256, 3)).astype(np.float32) for _ in range(8)]
+
+    # ---- the main path of bf16 serving in the opt-in tiers, counted
+    build.reset_launches()
+    out1 = r16.restore_batch(imgs[:1])
+    out8 = r16.restore_batch(imgs)
+    torch.cuda.synchronize()
+    launches, n_fwd = dict(build.LAUNCHES), forwards[0]
+    check_launches("serving bf16 off/mdta/dwconv", launches,
+                   {k: n * n_fwd for k, n in BF16_SERVE_OPT_IN.items()})
+    if launches.get(JNP_ROUTE, 0):
+        raise AssertionError(f"serving bf16 off/mdta/dwconv took the jnp route: {launches}")
+    log(f"serving bf16 off/mdta/dwconv: {n_fwd} two-pass forwards, launches {launches}")
+    for o in out1 + out8:
+        if o.shape != (256, 256, 3) or not np.isfinite(o).all():
+            raise AssertionError(f"bad bf16 output {o.shape}")
+
+    # ---- against the same tiers in bf16 on the CPU
+    img = gen_np.uniform(0, 1, (128, 128, 3)).astype(np.float32)
+    ref = make_restorer(cpu16_net(net), cfg, device="cpu", dtype=BF16,
+                        **tiers).restore_batch([img])[0]
+    err = np.abs(r16.restore_batch([img])[0] - ref)
+    gap = np.abs(r32.restore_batch([img])[0] - ref)
+    vs_cpu = {"mean_abs_err": float(err.mean()), "mean_fp32_bf16_gap": float(gap.mean()),
+              "max_abs_err": float(err.max()), "share_not_equal": float((err > 0).mean())}
+    log(f"bf16 off/mdta/dwconv card vs CPU 128^2: {json.dumps(vs_cpu)}")
+    if not (vs_cpu["mean_abs_err"] <= vs_cpu["mean_fp32_bf16_gap"] / 4
+            and vs_cpu["max_abs_err"] <= BF16_RTOL * max(float(np.abs(ref).max()), 1.0)):
+        raise AssertionError(f"bf16 off/mdta/dwconv card vs CPU: {vs_cpu}")
+
+    # ---- img/s in turns, and the peak memory at batch 8
+    runs = {"bf16 off/mdta/dwconv": r16, "fp32 off/mdta/dwconv": r32, "bf16 full": full16}
+    rate = {k: {1: [], 8: []} for k in runs}
+    peak = {}
+    for tag in (*runs, *list(runs)[::-1]):
+        rate[tag][1].append(images_per_sec(runs[tag], gen_np, 1, 10))
+        torch.cuda.reset_peak_memory_stats()
+        rate[tag][8].append(images_per_sec(runs[tag], gen_np, 8, 3))
+        peak[tag] = torch.cuda.max_memory_allocated()
+    log(f"256px restore_batch, in turns {' / '.join(runs)} and back: {json.dumps(rate)}, "
+        f"peak memory at batch 8 {json.dumps(peak)} ({card})")
+    return dict(launches=launches, n_fwd=n_fwd, vs_cpu=vs_cpu, img_per_s=rate,
+                batch8_max_memory_allocated=peak, card=card)
+
+
+def phase_bf16_train_opt_in(gen, card) -> dict:
+    """bf16 training in tail/mdta/dwconv (cli.train --dtype bfloat16
+    --attention-core mdta --depthwise dwconv's path, the JAX package's
+    RCOT_PALLAS_BLOCK=tail RCOT_PALLAS_MDTA=1 RCOT_PALLAS_FUSED=0
+    RCOT_PALLAS_DWCONV=1 with --dtype bfloat16): a full-width state, three
+    iterations at 128^2, B = 3 on bf16 batches, counted (94 launches an
+    iteration each of mdta_attend_bf16, dwconv3x3_bf16, dwconv3x3_dx_bf16,
+    dwconv3x3_dtaps_bf16, block_tail_bf16 and block_tail_bwd_bf16, no fp32
+    row), finite metrics, fp32 parameters that moved, the depthwise taps'
+    gradients fp32; iterations/s in turns with fp32 tail/mdta/dwconv."""
+    cfg = Config(train=TrainConfig(dtype="bfloat16"))
+    state = create_train_state(cfg, seed=0, device="cuda", **OPT_IN_TIERS)
+    batches, alphas = train_inputs(gen, cfg)
+    batches16, alphas16 = bf16_batches(batches, alphas)
+    state, metrics, launches = counted_iterations(
+        state, cfg, batches16, alphas16, "training bf16 tail/mdta/dwconv", BF16_TRAIN_OPT_IN)
+    if launches.get(JNP_ROUTE, 0):
+        raise AssertionError(f"training bf16 tail/mdta/dwconv took the jnp route: {launches}")
+    for net in (state.t_net, state.f_net):
+        if any(q.dtype != torch.float32 for q in net.parameters()):
+            raise AssertionError("bf16 training left a parameter out of fp32")
+    iteration = make_train_iteration(cfg)
+    lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
+    rates = {"fp32": [], "bf16": []}
+    for tag in ("fp32", "bf16", "bf16", "fp32"):
+        bs, als = (batches16, alphas16) if tag == "bf16" else (batches, alphas)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(5):
+            state, _ = iteration(state, bs[i % 3], als[i % 3], False, lr)
+        torch.cuda.synchronize()
+        rates[tag].append(5 / (time.perf_counter() - t0))
+    log(f"training {TRAIN_RES}px B={TRAIN_B} tail/mdta/dwconv, in turns fp32/bf16/bf16/fp32: "
+        f"iterations/s {json.dumps(rates)} ({card})")
+    return dict(launches=launches, metrics=metrics, it_per_s_runs=rates,
+                it_per_s={k: sum(v) / len(v) for k, v in rates.items()}, card=card)
+
+
+def phase_bf16_cli_opt_in(card) -> dict:
+    """rcot_torch.cli.train --dtype bfloat16 --attention-core mdta
+    --depthwise dwconv for one epoch on phase 7b's seeded tree (its
+    iterations counted as phase_bf16_train_opt_in's, its validation in fp32
+    full/mdta as the JAX trainer's), then rcot_torch.cli.test --dtype
+    bfloat16 --composition off --attention-core mdta --depthwise dwconv on
+    the validation folder from the run's latest.npz: finite metrics and
+    PSNRs, each run's launches its tiers' (the card against the CPU in
+    these tiers: phase_bf16_serve_opt_in)."""
+    flags = ["--attention-core", "mdta", "--depthwise", "dwconv", "--dtype", "bfloat16"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root, run = f"{tmp}/tree", f"{tmp}/run"
+        write_synthetic_tree(root, seed=1, n_denoise=3, n_rain=0, n_haze=6, size=192,
+                             val_sizes=((192, 192), (250, 321)))
+        argv = train_cli_argv(root, run)
+        argv[argv.index("--n-epochs") + 1] = "1"
+        build.reset_launches()
+        trainer = train_cli.main(argv + flags)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        with open(f"{run}/log.jsonl") as f:
+            events = [json.loads(line) for line in f]
+        steps = [e for e in events if e["event"] == "train_step"]
+        names = ("f_wgan", "f_gp", "t_loss", "t_adv", "rmse", "fourier", "paired_l1")
+        if not steps or not all(np.isfinite(e[k]) for e in steps for k in names):
+            raise AssertionError(f"train_step metrics missing or not finite: {steps}")
+        vals = [e for e in events if e["event"] == "validation"]
+        if [v["epoch"] for v in vals] != [1] or not np.isfinite(vals[0]["psnr"]):
+            raise AssertionError(f"validations {vals}")
+        n_iter, n_val = trainer.host_step, 2
+        check_launches(f"train CLI bf16 mdta/dwconv ({n_iter} iterations, {n_val} validation "
+                       "forwards)", launches,
+                       sum_launches({k: n * n_iter for k, n in BF16_TRAIN_OPT_IN.items()},
+                                    expected_launches(FORWARD_LAUNCHES * n_val, "full", False,
+                                                      **OPT_IN)))
+        argv = ["--ckpt", f"{run}/ckpt/latest.npz", "--degset", f"{root}/val/input/",
+                "--tarset", f"{root}/val/target/", "--composition", "off"] + flags
+        build.reset_launches()
+        psnrs = printed_psnrs(run_cli(test_cli.main, argv)[1])
+        test_launches = dict(build.LAUNCHES)
+    check_launches("test CLI bf16 off/mdta/dwconv (2 forwards)", test_launches,
+                   {k: 2 * n for k, n in BF16_SERVE_OPT_IN.items()})
+    if len(psnrs) != 2 or not all(np.isfinite(list(psnrs.values()))):
+        raise AssertionError(f"cli.test bf16 off/mdta/dwconv printed {psnrs}")
+    log(f"train CLI bf16 mdta/dwconv at full width: {n_iter} steps, PSNR "
+        f"{vals[0]['psnr']:.4f}; test CLI bf16 off/mdta/dwconv: PSNR {psnrs} ({card})")
+    return dict(steps=n_iter, val_psnr=vals[0]["psnr"], test_psnr=psnrs,
+                imgs_per_sec=[e["imgs_per_sec"] for e in steps],
+                launches=launches, test_launches=test_launches)
+
 
 class LeakyPattern:
     """Pins the critic's LeakyReLU(0.2) sign pattern across two runs of one
@@ -2844,7 +3242,44 @@ def iteration_breakdown(it_per_s, critic_ms, timings, mode) -> dict:
 
 # ------------------------------------------------------------ main
 
-def main() -> int:
+def phase_parent_bits(parent: str) -> dict:
+    """Phase 9: tools/port_fp32_digests.py on the parent checkout and on
+    this one, each in a process of its own (each imports its tree's
+    rcot_torch and builds its kernels), and every digest equal."""
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    here = Path(__file__).resolve().parent
+    tool = here / "tools" / "port_fp32_digests.py"
+    lines = {}
+    for tag, root in (("parent", Path(parent).resolve()), ("this", here)):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(tool), "--root", str(root)], cwd=here,
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            raise AssertionError(f"port_fp32_digests.py on {root}: rc {run.returncode}\n"
+                                 f"{run.stderr[-4000:]}")
+        lines[tag] = json.loads(run.stdout.strip().splitlines()[-1])
+        log(f"digests of {root}: {time.perf_counter() - t0:.1f} s")
+
+    def flat(line):
+        return {f"{group} {key}": d for group, ds in line["digests"].items()
+                for key, d in ds.items()}
+    parent_d, this_d = flat(lines["parent"]), flat(lines["this"])
+    differ = sorted(k for k in parent_d.keys() | this_d.keys()
+                    if parent_d.get(k) != this_d.get(k))
+    if differ or not this_d:
+        raise AssertionError(f"digests differ from {parent}'s: {differ}")
+    log(f"{len(this_d)} digests equal to {parent}'s, bf16 serving in the fused tier among "
+        f"them: {sorted(k for k in this_d if k.startswith('bf16_serving'))}")
+    return {"parent": str(Path(parent).resolve()), "digests_equal": len(this_d),
+            "card": lines["this"]["card"], "seconds": time.perf_counter() - t_start}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=None,
+                    help="a checkout of an earlier commit, for phase 9 (left out without it)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "measures the CUDA port and has nothing to run here", file=sys.stderr)
@@ -2895,10 +3330,26 @@ def main() -> int:
         "mdta_attend", "dwconv3x3", "dwconv3x3_qkv"]
     timings = {label: kernel_timings(gen, label, res, c, heads, 1, serve_kernels)
                for label, res, c, heads in MAIN_SHAPES}
+    # rows 10 and 11 in bf16, timed on inputs of their own before the
+    # bf16 phases (after them the profiler loses some of their records)
+    gen_oi = torch.Generator(device="cuda").manual_seed(13)
+    t_oi = time.perf_counter()
+    bf16_opt_times = {f"{tag} {label}": bf16_opt_in_timings(gen_oi, label, res, c, heads, b)
+                      for tag, shapes, b in (("serve", MAIN_SHAPES, 1),
+                                             ("train", TRAIN_SHAPES, TRAIN_B))
+                      for label, res, c, heads in shapes if label == "L1"}
+    opt_seconds = {"timings": time.perf_counter() - t_oi}
     breakdown = forward_breakdown(gen, model["net"], timings)
     # bf16 serving, on inputs of its own, timed before the training phases
     bf16 = phase_bf16(torch.Generator(device="cuda").manual_seed(9), np.random.default_rng(9),
                       model["net"], card)
+    # rows 10 and 11 in bf16 against their twins, then bf16 serving in
+    # off/mdta/dwconv
+    t_oi = time.perf_counter()
+    bf16_opt_errs = phase_bf16_opt_in_kernels(gen_oi)
+    opt_seconds["kernels"] = time.perf_counter() - t_oi
+    bf16_serve_opt = phase_bf16_serve_opt_in(np.random.default_rng(13), model["net"], card)
+    opt_seconds["serving"] = time.perf_counter() - t_oi - opt_seconds["kernels"]
     del model["restorer"], model["net"]
     # bf16 training's kernels, on inputs of their own, checked and timed
     # before the training phases
@@ -2921,6 +3372,11 @@ def main() -> int:
     bf16_train = phase_bf16_train(torch.Generator(device="cuda").manual_seed(11), card)
     bf16_train_vs_cpu = phase_bf16_train_vs_cpu(np.random.default_rng(11))
     bf16_full_vs_cpu = phase_bf16_train_vs_cpu(np.random.default_rng(12), "full")
+    t_oi = time.perf_counter()
+    bf16_train_opt = phase_bf16_train_opt_in(torch.Generator(device="cuda").manual_seed(14),
+                                             card)
+    bf16_opt_vs_cpu = phase_bf16_train_vs_cpu(np.random.default_rng(14), "tail", **OPT_IN_TIERS)
+    opt_seconds["training"] = time.perf_counter() - t_oi
     compositions = phase_compositions(gen_np)
     train_opt = phase_train_opt_in(gen_opt, card)
     one_head = phase_one_head(np.random.default_rng(2))
@@ -2928,7 +3384,11 @@ def main() -> int:
     cli_opt = phase_cli_opt_in(card)
     bf16_cli = phase_bf16_train_cli(card)
     bf16_resume = phase_bf16_resume(card)
+    t_oi = time.perf_counter()
+    bf16_cli_opt = phase_bf16_cli_opt_in(card)
+    opt_seconds["clis"] = time.perf_counter() - t_oi
     evals = phase_eval(card, default_flags)
+    parent_bits = phase_parent_bits(args.root) if args.root else "not run: no --root"
     splits = {mode: iteration_breakdown(train["it_per_s"][mode], train["critic_ms"],
                                         train_timings, mode) for mode in ("tail", "full")}
 
@@ -2990,6 +3450,24 @@ def main() -> int:
             library_device_ms=t["library_device_ms"], at=t["shape"],
             decoder_L1=bf16_train_times["decoder_level1"][name],
             latent=bf16_train_times["latent"][name]))
+    for name, (source, replaces) in BF16_OPT_IN_KERNELS.items():
+        # a form's ms are at its main path's L1 shape: the attend and the
+        # forward (at 2h) in serving, dx and dtaps (at 3C) in training
+        serve = name in BF16_SERVE_OPT_IN
+        t = bf16_opt_times["serve L1" if serve else "train L1"][name]
+        n = (bf16_serve_opt if serve else bf16_train_opt)["launches"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=n,
+            launches_counted_in="serve bf16 off/mdta/dwconv" if serve else
+            "train bf16 tail/mdta/dwconv",
+            launches_per_train_iteration_bf16_tail_mdta_dwconv=bf16_train_opt["launches"].get(
+                name, 0) // len(bf16_train_opt["metrics"]),
+            **bf16_opt_errs[name],
+            ms=t["ms"], device_ms=t["device_ms"], fp32_device_ms=t["fp32_device_ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], library_device_ms=t["library_device_ms"],
+            at=t["shape"], train_L1=bf16_opt_times["train L1"][
+                "dwconv3x3_bf16_qkv" if name == "dwconv3x3_bf16" else name]))
     for tag, tt in (("serve", timings), ("train", train_timings),
                     ("serve bf16", bf16["timings"]), ("train bf16", bf16_train_times)):
         for label in BLOCKS_PER_FORWARD:
@@ -3028,7 +3506,17 @@ def main() -> int:
                         "resume_full": {k: v for k, v in bf16_resume.items()
                                         if k != "launches"},
                         "kernel_errs": bf16_train_errs},
+                    "bf16_opt_in": {
+                        "serve_off_mdta_dwconv_256px": bf16_serve_opt,
+                        "train_tail_mdta_dwconv_128px_b3": {
+                            **{k: v for k, v in bf16_train_opt.items() if k != "launches"},
+                            "card_vs_cpu_64px": bf16_opt_vs_cpu},
+                        "clis": {k: v for k, v in bf16_cli_opt.items()
+                                 if not k.endswith("launches")},
+                        "timings": bf16_opt_times, "kernel_errs": bf16_opt_errs,
+                        "seconds": opt_seconds},
                     "eval_256px": evals,
+                    "parent_bits": parent_bits,
                     "pixel_sum_drift_512_pixel_ranges": drift,
                     "gram_plain_fp32_vs_float64_rel_err": errs["gram_plain_fp32_rel"],
                     "golden_max_abs_err": model["golden_err"],

@@ -21,9 +21,8 @@ reference's SSIM, ssim_ref_single) beside the identity baseline
   partial results survive a later crash;
 - an item that fails (a shape mismatch, an unreadable file) is skipped,
   logged with its reason and counted in its row.
---dtype bfloat16 serves in bf16, in every composition with the Gram core
-and the fused tier alone (cli/test.py refuse_unported stops the opt-in
-tiers by name).
+--dtype bfloat16 serves in bf16, in every composition, attention core and
+depthwise tier.
 """
 
 from __future__ import annotations
@@ -62,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tile", type=int, default=0)
     p.add_argument("--tile-overlap", type=int, default=32)
     p.add_argument("--dtype", choices=list(DTYPES), default="float32",
-                   help="activation dtype (bfloat16: gram/fused only)")
+                   help="activation dtype")
     p.add_argument("--json-out", default=None, help="write the summary JSON here too")
     p.add_argument("--device", default="cuda")
     p.add_argument("--composition", default="full", choices=COMPOSITIONS,

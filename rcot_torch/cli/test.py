@@ -23,10 +23,9 @@ surrogate pristine model fit on a clean folder; images smaller than one
 (--fid, cli/fid.py). Without a weights file the LPIPS and Inception nets
 use the JAX package's crc32-seeded surrogates, whose scores compare only
 with each other. --dtype bfloat16 serves in bf16 (models/inference.py
-make_restorer), in every --composition with the Gram core and the fused
-tier. Flags of paths not ported yet (--backbone mprnet, --sr-scale,
---spatial, and bf16 with --attention-core mdta or --depthwise dwconv) stop
-the run by name.
+make_restorer), in every --composition, --attention-core and --depthwise.
+Flags of paths not ported yet (--backbone mprnet, --sr-scale, --spatial)
+stop the run by name.
 """
 
 from __future__ import annotations
@@ -44,7 +43,7 @@ from ..metrics import niqe as niqe_mod
 from ..metrics.lpips import LPIPS, lpips as lpips_dist
 from ..metrics.quality import AverageMeter, psnr, ssim_ref_single
 from ..models.inference import make_restorer
-from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE, check_bf16
+from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE
 from ..utils.config import EvalConfig, ModelConfig
 
 # --dtype: the activation dtype a restorer serves in
@@ -86,7 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "to fit a surrogate from a clean folder; reports the mean "
                         "no-reference NIQE of the restored outputs")
     p.add_argument("--dtype", choices=list(DTYPES), default="float32",
-                   help="activation dtype (bfloat16: gram/fused only)")
+                   help="activation dtype")
     p.add_argument("--backbone", choices=["auto", "restormer", "mprnet"], default="auto",
                    help="T_net backbone (mprnet is not ported yet)")
     p.add_argument("--sr-scale", type=int, default=0,
@@ -99,14 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args: argparse.Namespace) -> None:
     """The JAX tester's flags whose paths this package does not have yet
     (ROADMAP.md, Queue 1) stop the run instead of being ignored. Also
-    cli.eval_all's, whose parser has only --dtype of them: bf16 serves in
-    every composition with the Gram core and the fused tier alone
-    (ops/dispatch.py check_bf16)."""
-    if args.dtype == "bfloat16":
-        try:
-            check_bf16(args.composition, args.attention_core, args.depthwise)
-        except NotImplementedError as e:
-            raise SystemExit(f"--dtype bfloat16: {e}") from None
+    cli.eval_all's. bf16 serves in every composition, attention core and
+    depthwise tier."""
     unported = [
         (getattr(args, "backbone", "auto") == "mprnet", "--backbone mprnet",
          "the MPRNet backbone (item 6)"),

@@ -13,8 +13,8 @@ the JAX trainer's default composition, "tail"; `--attention-core mdta` is
 the JAX package's RCOT_PALLAS_MDTA=1, `--depthwise dwconv` its
 RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1. Validation serves in "full" with
 the same attention core and depthwise tier. `--dtype bfloat16` trains on
-bf16 batches (the JAX trainer's --dtype bfloat16) in any composition with
-the Gram core and the fused tier; the opt-in core and tier stop by name.
+bf16 batches (the JAX trainer's --dtype bfloat16) in any composition,
+attention core and depthwise tier.
 Flags of paths not ported yet (multi-GPU, MPRNet, --pretrained) raise
 rather than being ignored.
 """
@@ -25,8 +25,7 @@ import argparse
 import dataclasses
 import os
 
-from ..ops.dispatch import (ATTENTION_CORES, COMPOSITIONS, DEPTHWISE, check_bf16,
-                            resolve_composition)
+from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE
 from ..utils.config import Config, get_preset
 
 
@@ -128,13 +127,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         if given:
             raise SystemExit(f"{flag}: {what} is not ported to rcot_torch yet "
                              "(ROADMAP.md, Queue 1)")
-    if args.dtype == "bfloat16":
-        try:
-            check_bf16(resolve_composition(args.composition, training=True),
-                       getattr(args, "attention_core", "gram"),
-                       getattr(args, "depthwise", "fused"), use="backward")
-        except NotImplementedError as e:
-            raise SystemExit(f"--dtype bfloat16: {e}") from None
 
 
 def main(argv=None):

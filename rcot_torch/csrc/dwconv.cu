@@ -51,6 +51,15 @@
 // accumulates in fp32 in the same order, writing fp32 (the tail's conv,
 // which its gate reads unrounded, as the JAX kernel's) or bf16 (the head's
 // qkv). The fp32 kernels keep their code.
+//
+// bf16 in the standalone tier (row 11's bf16 forms: the JAX package passes
+// the depthwise weight uncast there, rcot_tpu/ops/attention.py:112-114,
+// gdfn.py:66-67, so its kernel multiplies widened bf16 values by fp32
+// taps): the forward and dx take a bf16 x, fp32 taps (TW) and write bf16
+// (rcot_dwconv::conv_w32); dtaps takes a bf16 x and g, staged as bf16 in
+// its ring and widened as they leave it, and sums in fp32 in the same
+// order into fp32 dtaps (rcot_dwconv::dtaps_w32), as the JAX backward
+// sums its widened cotangent (pallas_dwconv.py:121-134).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,11 +206,11 @@ struct Tile {
 };
 
 // The forward (ROT false) or dx (ROT true: taps rotated by 180 degrees);
-// x and taps of type TI, out of type TO (float, or bf16 in and fp32 or
-// bf16 out), fp32 arithmetic.
-template <int V, bool ROT, typename TI = float, typename TO = float>
+// x of type TI, taps of type TW (TI unless given), out of type TO (float,
+// or bf16 in and fp32 or bf16 out), fp32 arithmetic.
+template <int V, bool ROT, typename TI = float, typename TO = float, typename TW = TI>
 __global__ void __launch_bounds__(kThreads)
-dwconv3x3_kernel(const TI* __restrict__ x, const TI* __restrict__ taps,
+dwconv3x3_kernel(const TI* __restrict__ x, const TW* __restrict__ taps,
                  TO* __restrict__ out, int H, int W, int C, int cv, int tc, int rows,
                  int bands) {
   extern __shared__ __align__(16) float smem[];
@@ -264,25 +273,27 @@ dwconv3x3_kernel(const TI* __restrict__ x, const TI* __restrict__ taps,
 
 // dtaps partials: block (tile, chunk, image x band) sums its pixels and
 // stores 9 floats per channel of its chunk at ws[part * 9C + 9c + tap],
-// part = (b * bands + band) * tiles + tile.
-template <int V>
+// part = (b * bands + band) * tiles + tile; x and g of type TI (float, or
+// bf16 widened as they leave the ring).
+template <int V, typename TI = float>
 __global__ void __launch_bounds__(kThreads)
-dwconv3x3_dtaps_kernel(const float* __restrict__ x, const float* __restrict__ g,
+dwconv3x3_dtaps_kernel(const TI* __restrict__ x, const TI* __restrict__ g,
                        float* __restrict__ ws, int H, int W, int C, int cv, int tc, int rows,
                        int bands) {
   extern __shared__ __align__(16) float smem[];
-  const Tile<V> t(H, W, C, cv, tc, rows, bands);
+  const Tile<V, TI> t(H, W, C, cv, tc, rows, bands);
+  TI* ring = reinterpret_cast<TI*>(smem);
   const int cw = cv * V, ldx = (tc + 2) * cw, ld = ldx + tc * cw;
   const long long img_off = (long long)t.b * H * t.row;
-  const float* img = x + img_off;
+  const TI* img = x + img_off;
   // each thread copies its own g vector: row y0 + r of the band
   const bool own = t.active();
-  const float* g_src = g + img_off + (long long)t.y0 * t.row +
-                       (own ? (t.x0 + t.j) * C + t.c0 + t.v * V : 0);
+  const TI* g_src = g + img_off + (long long)t.y0 * t.row +
+                    (own ? (t.x0 + t.j) * C + t.c0 + t.v * V : 0);
   const int g_slot = ldx + threadIdx.x * V;
   const int n_in = t.n_out + 2;
   auto stage = [&](int r) {
-    float* dst = smem + (r % kDtapsStages) * ld;
+    TI* dst = ring + (r % kDtapsStages) * ld;
     t.stage_x(dst, img, r);
     if (r < t.n_out) cp_async<V>(dst + g_slot, g_src + (own ? r * t.row : 0), own);
   };
@@ -306,8 +317,8 @@ dwconv3x3_dtaps_kernel(const float* __restrict__ x, const float* __restrict__ g,
     __syncthreads();
     if (r + kDtapsStages - 1 < n_in) stage(r + kDtapsStages - 1);
     cp_commit();
-    const float* slot = smem + (r % kDtapsStages) * ld;
-    const float* s = slot + (t.j * cv + t.v) * V;
+    const TI* slot = ring + (r % kDtapsStages) * ld;
+    const TI* s = slot + (t.j * cv + t.v) * V;
     float xv[3][V];
     load_vec<V>(xv[0], s);
     load_vec<V>(xv[1], s + cw);
@@ -389,18 +400,20 @@ size_t fwd_smem(int vec, int cv, int tc) {
   return (sizeof(TI) * kStages * (tc + 2) + sizeof(float) * 9) * cv * vec;
 }
 
+// the ring of x and g rows (elements of TI), then the partials (floats)
+template <typename TI = float>
 size_t dtaps_smem(int vec, int cv, int tc) {
-  const int ring = kDtapsStages * (2 * tc + 2) * cv * vec, red = 9 * tc * cv * vec;
-  return sizeof(float) * (ring > red ? ring : red);
+  const size_t ring = sizeof(TI) * kDtapsStages * (2 * tc + 2) * cv * vec,
+               red = sizeof(float) * 9 * tc * cv * vec;
+  return ring > red ? ring : red;
 }
 
-template <int V, bool ROT, typename TI = float, typename TO = float>
-void launch_fwd(const TI* x, const TI* taps, TO* out, int B, int H, int W, int C,
+template <int V, bool ROT, typename TI = float, typename TO = float, typename TW = TI>
+void launch_fwd(const TI* x, const TW* taps, TO* out, int B, int H, int W, int C,
                 int cv, int tc, int rows, cudaStream_t st) {
-  dwconv3x3_kernel<V, ROT, TI, TO><<<grid_of(B, H, W, C, V, cv, tc, rows), tc * cv,
-                                     fwd_smem<TI>(V, cv, tc), st>>>(x, taps, out, H, W, C, cv,
-                                                                    tc, rows,
-                                                                    (H + rows - 1) / rows);
+  dwconv3x3_kernel<V, ROT, TI, TO, TW><<<grid_of(B, H, W, C, V, cv, tc, rows), tc * cv,
+                                         fwd_smem<TI>(V, cv, tc), st>>>(
+      x, taps, out, H, W, C, cv, tc, rows, (H + rows - 1) / rows);
 }
 
 // the bf16 forward with V bf16 a copy, into fp32 or bf16
@@ -413,17 +426,47 @@ void launch_fwd_bf16(const bf16* x, const bf16* taps, void* out, bool out_bf16, 
     launch_fwd<V, false>(x, taps, static_cast<float*>(out), B, H, W, C, cv, tc, rows, st);
 }
 
-template <int V>
-void launch_dtaps(const float* x, const float* g, float* ws, int B, int H, int W, int C,
+template <int V, typename TI = float>
+void launch_dtaps(const TI* x, const TI* g, float* ws, int B, int H, int W, int C,
                   int cv, int tc, int rows, cudaStream_t st) {
-  dwconv3x3_dtaps_kernel<V><<<grid_of(B, H, W, C, V, cv, tc, rows), tc * cv,
-                              dtaps_smem(V, cv, tc), st>>>(x, g, ws, H, W, C, cv, tc, rows,
-                                                           (H + rows - 1) / rows);
+  dwconv3x3_dtaps_kernel<V, TI><<<grid_of(B, H, W, C, V, cv, tc, rows), tc * cv,
+                                  dtaps_smem<TI>(V, cv, tc), st>>>(x, g, ws, H, W, C, cv, tc,
+                                                                   rows, (H + rows - 1) / rows);
+}
+
+// dtaps's fixed-order reduce of the blocks' partials, after the launch of
+// dwconv3x3_dtaps_kernel (its error is returned first)
+cudaError_t reduce_dtaps(const float* ws, float* dtaps, int B, int H, int W, int C, int vec,
+                         int cv, int tc, int rows, cudaStream_t st) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid = grid_of(B, H, W, C, vec, cv, tc, rows);
+  const int parts = (int)(grid.x * grid.z), warps = parts < kReduceWarps ? parts : kReduceWarps;
+  dwconv_reduce_kernel<<<(unsigned)((9 * C + 31) / 32), 32 * warps, 0, st>>>(ws, dtaps, 9 * C,
+                                                                             parts);
+  return cudaGetLastError();
 }
 
 template <typename Kernel>
 cudaError_t occupancy(int* blocks, Kernel k, int threads, size_t smem) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, threads, smem);
+}
+
+// dtaps on bf16 sums twice the channels a block of fp32's (a copy moves 8
+// bf16), and its 9 partials a channel pass 48 KB of shared memory at 256
+// threads: its kernels may take what an SM gives a block, once per device.
+template <int V>
+cudaError_t allow_dtaps_w32_v() {
+  static bool done[kMaxDevices];
+  const auto k = dwconv3x3_dtaps_kernel<V, bf16>;
+  return allow_smem(done, k, k, kMaxSmemBytes / (int)sizeof(float));
+}
+
+cudaError_t allow_dtaps_w32() {
+  cudaError_t e = allow_dtaps_w32_v<8>();
+  if (e == cudaSuccess) e = allow_dtaps_w32_v<4>();
+  if (e == cudaSuccess) e = allow_dtaps_w32_v<2>();
+  return e;
 }
 
 }  // namespace
@@ -469,13 +512,40 @@ cudaError_t dtaps(const float* x, const float* g, float* ws, float* dtaps, int B
     launch_dtaps<2>(x, g, ws, B, H, W, C, cv, tc, rows, st);
   else
     launch_dtaps<1>(x, g, ws, B, H, W, C, cv, tc, rows, st);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid = grid_of(B, H, W, C, vec, cv, tc, rows);
-  const int parts = (int)(grid.x * grid.z), warps = parts < kReduceWarps ? parts : kReduceWarps;
-  dwconv_reduce_kernel<<<(unsigned)((9 * C + 31) / 32), 32 * warps, 0, st>>>(ws, dtaps, 9 * C,
-                                                                             parts);
+  return reduce_dtaps(ws, dtaps, B, H, W, C, vec, cv, tc, rows, st);
+}
+
+cudaError_t conv_w32(const bf16* x, const float* taps, bf16* out, int B, int H, int W, int C,
+                     int vec, int cv, int tc, int rows, bool rot, cudaStream_t st) {
+  if ((long long)B * H * W * C == 0) return cudaSuccess;
+  if (bad_plan(C, vec, cv, tc, rows, true)) return cudaErrorInvalidValue;
+#define RCOT_FWD(V)                                                            \
+  (rot ? launch_fwd<V, true>(x, taps, out, B, H, W, C, cv, tc, rows, st)       \
+       : launch_fwd<V, false>(x, taps, out, B, H, W, C, cv, tc, rows, st))
+  if (vec == 8)
+    RCOT_FWD(8);
+  else if (vec == 4)
+    RCOT_FWD(4);
+  else
+    RCOT_FWD(2);
+#undef RCOT_FWD
   return cudaGetLastError();
+}
+
+cudaError_t dtaps_w32(const bf16* x, const bf16* g, float* ws, float* dtaps, int B, int H,
+                      int W, int C, int vec, int cv, int tc, int rows, cudaStream_t st) {
+  if (C == 0) return cudaSuccess;
+  if ((long long)B * H * W == 0 || bad_plan(C, vec, cv, tc, rows, true))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_dtaps_w32();
+  if (err != cudaSuccess) return err;
+  if (vec == 8)
+    launch_dtaps<8>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  else if (vec == 4)
+    launch_dtaps<4>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  else
+    launch_dtaps<2>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  return reduce_dtaps(ws, dtaps, B, H, W, C, vec, cv, tc, rows, st);
 }
 
 }  // namespace rcot_dwconv
@@ -489,34 +559,51 @@ int rcot_dwconv3x3(const float* x, const float* taps, float* out, int B, int H, 
                            (cudaStream_t)stream);
 }
 
-// Blocks of tc * cv threads of the forward (dtaps == 0; dx takes as
-// many) or of dtaps that one SM of the current device holds at once.
-int rcot_dwconv3x3_blocks_per_sm(int vec, int cv, int tc, int dtaps, int* blocks) {
-  if (bad_plan(4, vec, cv, tc, 1)) return cudaErrorInvalidValue;
+// Blocks of tc * cv threads that one SM of the current device holds at
+// once, of the element types io (ops/dwconv.py DW_IO: 0 fp32, 1 bf16 into
+// bf16, 2 bf16 into fp32, 3 bf16 on fp32 taps; vec elements a copy): the
+// forward (dtaps == 0; dx takes as many) or dtaps (io 0 and 3).
+int rcot_dwconv3x3_blocks_per_sm(int io, int vec, int cv, int tc, int dtaps, int* blocks) {
+  const bool f32 = io == 0;
+  if (io < 0 || io > 3 || (dtaps && io != 0 && io != 3) ||
+      bad_plan(f32 ? 4 : 8, vec, cv, tc, 1, !f32))
+    return cudaErrorInvalidValue;
   const int n = tc * cv;
-  if (dtaps) {
-    const size_t smem = dtaps_smem(vec, cv, tc);
-    return vec == 4   ? occupancy(blocks, dwconv3x3_dtaps_kernel<4>, n, smem)
-           : vec == 2 ? occupancy(blocks, dwconv3x3_dtaps_kernel<2>, n, smem)
-                      : occupancy(blocks, dwconv3x3_dtaps_kernel<1>, n, smem);
+  if (f32) {
+    const size_t smem = dtaps ? dtaps_smem(vec, cv, tc) : fwd_smem(vec, cv, tc);
+#define RCOT_OCC(V)                                                               \
+  (dtaps ? occupancy(blocks, dwconv3x3_dtaps_kernel<V>, n, smem)                  \
+         : occupancy(blocks, dwconv3x3_kernel<V, false>, n, smem))
+    return vec == 4 ? RCOT_OCC(4) : vec == 2 ? RCOT_OCC(2) : RCOT_OCC(1);
+#undef RCOT_OCC
   }
-  const size_t smem = fwd_smem(vec, cv, tc);
-  return vec == 4   ? occupancy(blocks, dwconv3x3_kernel<4, false>, n, smem)
-         : vec == 2 ? occupancy(blocks, dwconv3x3_kernel<2, false>, n, smem)
-                    : occupancy(blocks, dwconv3x3_kernel<1, false>, n, smem);
-}
-
-// Blocks of tc * cv threads of the bf16 forward (V = vec bf16 a copy)
-// into bf16 (out_bf16) or fp32 that one SM of the current device holds.
-int rcot_dwconv3x3_bf16_blocks_per_sm(int vec, int cv, int tc, int out_bf16, int* blocks) {
-  if (bad_plan(8, vec, cv, tc, 1, true)) return cudaErrorInvalidValue;
-  const int n = tc * cv;
-  const size_t smem = fwd_smem<bf16>(vec, cv, tc);
-#define RCOT_OCC(V)                                                                      \
-  (out_bf16 ? occupancy(blocks, dwconv3x3_kernel<V, false, bf16, bf16>, n, smem)         \
-            : occupancy(blocks, dwconv3x3_kernel<V, false, bf16, float>, n, smem))
+  if (dtaps) {
+    const cudaError_t err = allow_dtaps_w32();
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = dtaps ? dtaps_smem<bf16>(vec, cv, tc) : fwd_smem<bf16>(vec, cv, tc);
+#define RCOT_OCC(V)                                                                       \
+  (dtaps      ? occupancy(blocks, dwconv3x3_dtaps_kernel<V, bf16>, n, smem)               \
+   : io == 1  ? occupancy(blocks, dwconv3x3_kernel<V, false, bf16, bf16>, n, smem)        \
+   : io == 2  ? occupancy(blocks, dwconv3x3_kernel<V, false, bf16, float>, n, smem)       \
+              : occupancy(blocks, dwconv3x3_kernel<V, false, bf16, bf16, float>, n, smem))
   return vec == 8 ? RCOT_OCC(8) : vec == 4 ? RCOT_OCC(4) : RCOT_OCC(2);
 #undef RCOT_OCC
+}
+
+// bf16 x (B, H, W, C), fp32 taps (C, 3, 3) -> bf16 out (rcot_dwconv::conv_w32)
+int rcot_dwconv3x3_w32(const bf16* x, const float* taps, bf16* out, int B, int H, int W,
+                       int C, int vec, int cv, int tc, int rows, int rot, void* stream) {
+  return rcot_dwconv::conv_w32(x, taps, out, B, H, W, C, vec, cv, tc, rows, rot != 0,
+                               (cudaStream_t)stream);
+}
+
+// bf16 x, g (B, H, W, C) -> fp32 dtaps (C, 3, 3) (rcot_dwconv::dtaps_w32)
+int rcot_dwconv3x3_dtaps_w32(const bf16* x, const bf16* g, float* ws, float* dtaps, int B,
+                             int H, int W, int C, int vec, int cv, int tc, int rows,
+                             void* stream) {
+  return rcot_dwconv::dtaps_w32(x, g, ws, dtaps, B, H, W, C, vec, cv, tc, rows,
+                                (cudaStream_t)stream);
 }
 
 // x, g (B, H, W, C) -> dtaps (C, 3, 3) (rcot_dwconv::dtaps)

@@ -34,7 +34,7 @@
 //   - apply_bf16_kernel: runs of 128-pixel tiles, each warp 16 rows and all
 //     columns, attn staged once per (b, h) a block meets, rounded to bf16;
 //     out leaves in bf16 from the accumulators, or, for a head cut into
-//     channel blocks, as fp32 parts in nb slots that sum_slots_bf16 adds in
+//     channel blocks, as fp32 parts in nb slots that tc.cuh's sum_slots adds in
 //     order and rounds.
 // No atomics and no memsets: two calls on the same input give the same bits.
 
@@ -387,18 +387,6 @@ apply_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ attn,
   }
 }
 
-// out[e] = bf16(ws[e] + ws[size + e] + ... + ws[(nb - 1) * size + e]), in
-// that order (tc.cuh's sum_slots, rounded once)
-__global__ void __launch_bounds__(kSlotThreads)
-sum_slots_bf16_kernel(const float* __restrict__ ws, bf16* __restrict__ out, long long size,
-                      int nb) {
-  const long long e = (long long)blockIdx.x * kSlotThreads + threadIdx.x;
-  if (e >= size) return;
-  float v = ws[e];
-  for (int k = 1; k < nb; ++k) v += ws[k * size + e];
-  out[e] = __float2bfloat16_rn(v);
-}
-
 // V, the bf16 a copy of a head's rows (ops/gram.py bf16_copy_width): 8
 // (16 bytes), 2 (4 bytes) or 1, dividing ch and cb
 bool bad_copy(int v, int ch, int cb) {
@@ -457,11 +445,8 @@ cudaError_t apply_bf16_v(const bf16* qkv, const float* attn, bf16* out, float* w
   kernel<<<dim3((unsigned)blocks, (unsigned)(nb * nb)), kThreads, sizeof(float) * Cfg::FLOATS,
            st>>>(qkv, attn, out, ws, slot, hw, heads, ch, cb, tiles_per_bh,
                  tiles_per_bh * B * heads, per_block);
-  const cudaError_t err = cudaGetLastError();
-  if (nb == 1 || err != cudaSuccess) return err;
-  sum_slots_bf16_kernel<<<(unsigned)((slot + kSlotThreads - 1) / kSlotThreads), kSlotThreads, 0,
-                          st>>>(ws, out, slot, nb);
-  return cudaGetLastError();
+  if (nb == 1) return cudaGetLastError();
+  return sum_slots(ws, out, slot, nb, st);
 }
 
 template <int R>

@@ -63,10 +63,25 @@
 // gram.cu does: G_ij = q_i k_j^T and the squares from (i, 0) and (0, j)
 // into the records at row i cb, column j cb; out_i's part P_ij v_j into
 // slot j of the workspace, and tc.cuh's sum_slots adds the slots in order.
+//
+// bf16 (row 10's bf16 form, rcot_mdta_attend_bf16): the kernels are
+// templated on the element type T of q, k, v and out. The JAX kernel
+// widens q, k and v to fp32 (pallas_mdta.py:56-57, :73), keeps G, the
+// norms and P in fp32 and writes out in v's dtype (:76, :126). Here bf16
+// tiles are staged as they lie (16-byte copies of 8 bf16 where N % 8 == 0
+// and the rows are aligned, else a load a value) and widened as they
+// become fragments. A bf16 value is exact in tf32, so its low tf32 part is
+// zero: the Gram's products take the one term ah bh (a product of two
+// tf32 values is exact in fp32, fp32 sums as in fp32), the apply's the two
+// al bh + ah bh (P is fp32); the sums of squares, the reduce and the
+// softmax are the fp32 kernels'. out is rounded to bf16 once, from the
+// accumulators, or by sum_slots for a head cut into channel blocks.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc.cuh"
 
@@ -100,30 +115,56 @@ __device__ __forceinline__ void join(float (&total)[M][N][4], const float (&acc)
       for (int r = 0; r < 4; ++r) total[i][j][r] += acc[i][j][r];
 }
 
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, bf16>::value;
+
 // Rows [0, rows) of a (., n) row-major matrix at src, pixels [p0, p0 + TP)
-// (zeros at or past `end`), into dst rows of pitch ld, V floats a copy.
-// V divides TP and, with V = 4, n and end (whole copies in or out).
-template <int TP, int V>
-__device__ __forceinline__ void stage_pixels(float* dst, int ld, const float* src, long long n,
+// (zeros at or past `end`), into dst rows of pitch ld, V elements of T a
+// copy (V floats: cp.async; bf16: 8 by cp.async, or 1 loaded and stored by
+// the thread). V divides TP and, with V > 1, n and end (whole copies in or
+// out).
+template <int TP, int V, typename T>
+__device__ __forceinline__ void stage_pixels(T* dst, int ld, const T* src, long long n,
                                              int rows, long long p0, long long end) {
   constexpr int PER = TP / V;
   for (int idx = threadIdx.x; idx < rows * PER; idx += kThreads) {
     const int r = idx / PER, off = (idx - r * PER) * V;
     const long long pix = p0 + off;
     const bool in = pix < end;
-    cp_async_v<V>(dst + r * ld + off, src + r * n + (in ? pix : 0), in);
+    if constexpr (!kBf16<T>)
+      cp_async_v<V>(dst + r * ld + off, src + r * n + (in ? pix : 0), in);
+    else if constexpr (V == 1)
+      dst[r * ld + off] = in ? src[r * n + pix] : __float2bfloat16_rn(0.f);
+    else
+      cp_async_bytes<2 * V>(dst + r * ld + off, src + r * n + (in ? pix : 0), in);
   }
+}
+
+// 1xTF32 where both operands are exact in tf32 (bf16 values): acc[i][j] +=
+// a_i b_j as ah bh alone, over the warp's M x N tiles of one 8-deep step.
+template <int M, int N>
+__device__ __forceinline__ void mma_1xtf32(float (&acc)[M][N][4], uint32_t (&ah)[M][4],
+                                           uint32_t (&bh)[N][2], const bool (&use_m)[M],
+                                           const bool (&use_n)[N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (use_m[i] && use_n[j]) mma_tf32(acc[i][j], ah[i], bh[j]);
 }
 
 // ------------------------------------------------------------ the Gram
 
 // G (16R x 16R, zero-padded) in 16 x 8 mma tiles, R row tiles by 2R column
 // tiles; the eight warps split the tiles (WTM x WTN) and each stage's
-// pixels (WK groups, KS k-steps each), as gram.cu's GramCfg.
-template <int R>
+// pixels (WK groups, KS k-steps each), as gram.cu's GramCfg. The ring holds
+// elements of T; FLOATS counts floats.
+template <int R, typename T = float>
 struct GramCfg {
   static constexpr int CHP = 16 * R;
-  static constexpr int LD = kGramTP + 4;  // pitch: fragment reads hit 32 banks
+  // pitch in elements: fragment reads hit 32 banks (bf16: two lanes a
+  // word), rows 16-byte aligned
+  static constexpr int LD = kGramTP + (kBf16<T> ? 8 : 4);
   static constexpr int MT = R, NT = 2 * R;
   static constexpr int WK = R <= 2 ? 8 : (R <= 4 ? 4 : 1);
   static constexpr int WTM = R <= 4 ? 1 : 2;
@@ -134,7 +175,8 @@ struct GramCfg {
   static constexpr int STAGE = 2 * CHP * LD;     // q rows, k rows
   static constexpr int RP = CHP + 1;             // pitch of a partial G
   static constexpr int E = CHP * RP + 2 * CHP;
-  static constexpr int FLOATS = STAGES * STAGE > WK * E ? STAGES * STAGE : WK * E;
+  static constexpr int RING = STAGES * STAGE * (int)sizeof(T) / 4;  // in floats
+  static constexpr int FLOATS = RING > WK * E ? RING : WK * E;
   static_assert(WK * WTM * WTN == kThreads / 32, "eight warps");
   static_assert(KS >= 1, "a stage feeds every warp group");
 };
@@ -144,21 +186,22 @@ struct GramCfg {
 // (pairs (0, j)), written with plain stores into the record
 // ws + (bh * splits + s) * (c * c + 2c): G at row i cb, column j cb (pitch
 // c), then nq, then nk.
-template <int R, int V>
+template <int R, int V, typename T = float>
 __global__ void __launch_bounds__(kThreads)
-mdta_gram_kernel(const float* __restrict__ q, const float* __restrict__ k,
+mdta_gram_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ ws, long long n, int c, int cb, int splits, int per) {
-  using Cfg = GramCfg<R>;
+  using Cfg = GramCfg<R, T>;
   constexpr int LD = Cfg::LD, TP = kGramTP, CHP = Cfg::CHP, MW = Cfg::MW, NW = Cfg::NW;
   constexpr int kStages = Cfg::STAGES;
   extern __shared__ __align__(16) float smem[];
+  T* ring = reinterpret_cast<T*>(smem);
   const int s = blockIdx.x, bh = blockIdx.y;
   const int nb = (c + cb - 1) / cb, pi = blockIdx.z / nb, pj = blockIdx.z - pi * nb;
   const int wi = block_width(pi, c, cb), wj = block_width(pj, c, cb);
   const long long begin = (long long)s * per;
   const long long end = begin + per < n ? begin + per : n;
-  const float* qb = q + ((long long)bh * c + pi * cb) * n;
-  const float* kb = k + ((long long)bh * c + pj * cb) * n;
+  const T* qb = q + ((long long)bh * c + pi * cb) * n;
+  const T* kb = k + ((long long)bh * c + pj * cb) * n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wk = warp % Cfg::WK, wt = warp / Cfg::WK;
@@ -176,11 +219,12 @@ mdta_gram_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = tid; idx < kStages * (zq + zk) * LD; idx += kThreads) {
     const int r = idx / LD, col = idx - r * LD;
     const int st = r / (zq + zk), rr = r - st * (zq + zk);
-    smem[st * Cfg::STAGE + (rr < zq ? wi + rr : CHP + wj + rr - zq) * LD + col] = 0.f;
+    ring[st * Cfg::STAGE + (rr < zq ? wi + rr : CHP + wj + rr - zq) * LD + col] =
+        from_f<T>(0.f);
   }
   const int n_tiles = (int)((end - begin + TP - 1) / TP);
   auto load = [&](int t) {
-    float* dst = smem + (t % kStages) * Cfg::STAGE;
+    T* dst = ring + (t % kStages) * Cfg::STAGE;
     const long long p0 = begin + (long long)t * TP;
     stage_pixels<TP, V>(dst, LD, qb, n, wi, p0, end);
     stage_pixels<TP, V>(dst + CHP * LD, LD, kb, n, wj, p0, end);
@@ -205,8 +249,8 @@ mdta_gram_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // tile t has landed; every warp is done with tile t - 1
     if (t + kStages - 1 < n_tiles) load(t + kStages - 1);
     cp_commit();
-    const float* qs = smem + (t % kStages) * Cfg::STAGE;
-    const float* ks = qs + CHP * LD;
+    const T* qs = ring + (t % kStages) * Cfg::STAGE;
+    const T* ks = qs + CHP * LD;
 #pragma unroll
     for (int kk = 0; kk < Cfg::KS; ++kk) {
       const int p = (wk * Cfg::KS + kk) * 8 + tig;  // this lane's pixels: p, p + 4
@@ -216,8 +260,8 @@ mdta_gram_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < MW; ++i) {
         const int r = (wm * MW + i) * 16 + gid;
         if (!use_m[i]) continue;
-        const float x[4] = {qs[r * LD + p], qs[(r + 8) * LD + p], qs[r * LD + p + 4],
-                            qs[(r + 8) * LD + p + 4]};
+        const float x[4] = {to_f(qs[r * LD + p]), to_f(qs[(r + 8) * LD + p]),
+                            to_f(qs[r * LD + p + 4]), to_f(qs[(r + 8) * LD + p + 4])};
         sq_q[i][0] = fmaf(x[2], x[2], fmaf(x[0], x[0], sq_q[i][0]));
         sq_q[i][1] = fmaf(x[3], x[3], fmaf(x[1], x[1], sq_q[i][1]));
 #pragma unroll
@@ -227,12 +271,15 @@ mdta_gram_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < NW; ++j) {
         const int d = (wn * NW + j) * 8 + gid;
         if (!use_n[j]) continue;
-        const float y[2] = {ks[d * LD + p], ks[d * LD + p + 4]};
+        const float y[2] = {to_f(ks[d * LD + p]), to_f(ks[d * LD + p + 4])};
         sq_k[j] = fmaf(y[1], y[1], fmaf(y[0], y[0], sq_k[j]));
 #pragma unroll
         for (int e = 0; e < 2; ++e) split_fast(y[e], bh_[j][e], bl[j][e]);
       }
-      mma_3xtf32(acc, ah, al, bh_, bl, use_m, use_n);
+      if constexpr (kBf16<T>)
+        mma_1xtf32(acc, ah, bh_, use_m, use_n);
+      else
+        mma_3xtf32(acc, ah, al, bh_, bl, use_m, use_n);
       if (step % kChain == kChain - 1) join(total, acc);
       ++step;
     }
@@ -379,15 +426,15 @@ mdta_softmax_kernel(const float* __restrict__ ws, const float* __restrict__ temp
 // out (16R x 128 pixels) = P (16R x 16R, zero-padded) v (16R x 128): P
 // staged row-major [r][d] (pitch CHP + 4), split into its tf32 parts where
 // both copies fit beside the ring (SPLIT), else whole and split at each
-// use; the v ring [d][pixel] (pitch 136).
-template <int R>
+// use; the v ring [d][pixel] (pitch 136 elements of T).
+template <int R, typename T = float>
 struct ApplyCfg {
   static constexpr int CHP = 16 * R;
   static constexpr int LDA = CHP + 4;       // A fragment reads hit 32 banks
   static constexpr int LDV = kApplyTP + 8;  // and so do B's
   static constexpr int STAGES = R <= 4 ? 3 : 2;
   static constexpr bool SPLIT = R <= 7;
-  static constexpr int RING = STAGES * CHP * LDV;
+  static constexpr int RING = STAGES * CHP * LDV * (int)sizeof(T) / 4;  // in floats
   static constexpr int MAT = CHP * LDA;
   static constexpr int FLOATS = RING + (SPLIT ? 2 : 1) * MAT;
   static_assert(kApplyTP == 16 * (kThreads / 32), "a warp per 16 pixels");
@@ -397,18 +444,18 @@ struct ApplyCfg {
 // Tiles t = bh * tiles_per_bh + x (pixels [x TP, (x + 1) TP) of bh); block
 // (k, i * nb + j) walks tiles [k * per_block, (k + 1) * per_block) and
 // writes out_i's part P_ij v_j to out + j * slot, restaging P_ij only where
-// bh changes.
-template <int R, int V>
+// bh changes. v of type T, out of type TO (T, or fp32 slots).
+template <int R, int V, typename T = float, typename TO = T>
 __global__ void __launch_bounds__(kThreads)
-mdta_apply_kernel(const float* __restrict__ v, const float* __restrict__ P,
-                  float* __restrict__ out, long long slot, long long n, int c, int cb,
+mdta_apply_kernel(const T* __restrict__ v, const float* __restrict__ P,
+                  TO* __restrict__ out, long long slot, long long n, int c, int cb,
                   long long tiles_per_bh, long long n_tiles_all, int per_block) {
-  using Cfg = ApplyCfg<R>;
+  using Cfg = ApplyCfg<R, T>;
   constexpr int LDA = Cfg::LDA, LDV = Cfg::LDV, TP = kApplyTP, CHP = Cfg::CHP;
   constexpr int STAGES = Cfg::STAGES, KSTEPS = CHP / 8;
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
-  float* ph = ring + Cfg::RING;  // P(r, d) at [r * LDA + d]: its high part, or itself
+  T* ring = reinterpret_cast<T*>(smem);
+  float* ph = smem + Cfg::RING;  // P(r, d) at [r * LDA + d]: its high part, or itself
   float* pl = ph + Cfg::MAT;     // its low part (SPLIT)
   const long long t0 = (long long)blockIdx.x * per_block;
   const long long t1 = t0 + per_block < n_tiles_all ? t0 + per_block : n_tiles_all;
@@ -425,7 +472,7 @@ mdta_apply_kernel(const float* __restrict__ v, const float* __restrict__ P,
   for (int idx = tid; idx < STAGES * zr * LDV; idx += kThreads) {
     const int r = idx / LDV, col = idx - r * LDV;
     const int st = r / zr;
-    ring[(st * CHP + wj + r - st * zr) * LDV + col] = 0.f;
+    ring[(st * CHP + wj + r - st * zr) * LDV + col] = from_f<T>(0.f);
   }
   auto load = [&](int x) {
     const long long t = t0 + x, bh = t / tiles_per_bh;
@@ -467,7 +514,7 @@ mdta_apply_kernel(const float* __restrict__ v, const float* __restrict__ P,
       staged = bh;
       __syncthreads();
     }
-    const float* vs = ring + (x % STAGES) * CHP * LDV;
+    const T* vs = ring + (x % STAGES) * CHP * LDV;
     float acc[R][2][4], total[R][2][4];
     zero(total);
 #pragma unroll
@@ -479,8 +526,8 @@ mdta_apply_kernel(const float* __restrict__ v, const float* __restrict__ P,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int p = n0 + j * 8 + gid;
-        split_fast(vs[(k0 + tig) * LDV + p], bh_[j][0], bl[j][0]);
-        split_fast(vs[(k0 + tig + 4) * LDV + p], bh_[j][1], bl[j][1]);
+        split_fast(to_f(vs[(k0 + tig) * LDV + p]), bh_[j][0], bl[j][0]);
+        split_fast(to_f(vs[(k0 + tig + 4) * LDV + p]), bh_[j][1], bl[j][1]);
       }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
@@ -497,16 +544,18 @@ mdta_apply_kernel(const float* __restrict__ v, const float* __restrict__ P,
           }
         }
         // al bh + ah bl + ah bh, each term over both tiles before the next
+        // (bf16 v: bl is zero, its term left out)
 #pragma unroll
         for (int term = 0; term < 3; ++term)
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            mma_tf32(acc[i][j], term == 0 ? al : ah, term == 1 ? bl[j] : bh_[j]);
+            if (!kBf16<T> || term != 1)
+              mma_tf32(acc[i][j], term == 0 ? al : ah, term == 1 ? bl[j] : bh_[j]);
       }
       if (ks % kChain == kChain - 1 || ks == KSTEPS - 1) join(total, acc);
     }
     const long long p0 = (t - bh * tiles_per_bh) * TP + n0 + 2 * tig;
-    float* ob = out + pj * slot + (bh * c + pi * cb) * n;
+    TO* ob = out + pj * slot + (bh * c + pi * cb) * n;
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -516,13 +565,17 @@ mdta_apply_kernel(const float* __restrict__ v, const float* __restrict__ P,
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const long long p = p0 + j * 8;
-          float* dst = ob + r * n + p;
-          if (V == 4) {  // n % 4 == 0, p even: p + 1 < n where p < n
-            if (p < n) *reinterpret_cast<float2*>(dst) = make_float2(total[i][j][2 * h],
-                                                                     total[i][j][2 * h + 1]);
+          TO* dst = ob + r * n + p;
+          const float e0 = total[i][j][2 * h], e1 = total[i][j][2 * h + 1];
+          if (V > 1) {  // n % V == 0, p even: p + 1 < n where p < n
+            if (p >= n) continue;
+            if constexpr (kBf16<TO>)
+              *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(e0, e1);
+            else
+              *reinterpret_cast<float2*>(dst) = make_float2(e0, e1);
           } else {
-            if (p < n) dst[0] = total[i][j][2 * h];
-            if (p + 1 < n) dst[1] = total[i][j][2 * h + 1];
+            if (p < n) dst[0] = from_f<TO>(e0);
+            if (p + 1 < n) dst[1] = from_f<TO>(e1);
           }
         }
       }
@@ -531,17 +584,34 @@ mdta_apply_kernel(const float* __restrict__ v, const float* __restrict__ P,
 
 // ------------------------------------------------------------- the call
 
-template <int R>
-cudaError_t attend(const float* q, const float* k, const float* v, const float* temp,
-                   float* out, float* ws, int BH, int heads, int c, long long n, int splits,
-                   int per, int cb, int apply_blocks, int apply_per, int warps, int vec,
-                   cudaStream_t st) {
-  static bool done_g[kMaxDevices], done_a[kMaxDevices];
-  cudaError_t err = allow_smem(done_g, mdta_gram_kernel<R, 4>, mdta_gram_kernel<R, 1>,
-                               GramCfg<R>::FLOATS);
+// out = P v for one T: v's copy width VV (4 or 1 floats, 8 or 1 bf16), out
+// of type TO (T, or the fp32 slots of a head cut into channel blocks)
+template <int R, typename T, typename TO>
+cudaError_t apply_to(const T* v, const float* P, TO* out, long long slot, long long n, int c,
+                     int cb, int BH, int apply_blocks, int apply_per, int vec, cudaStream_t st) {
+  constexpr int VV = kBf16<T> ? 8 : 4;
+  static bool done[kMaxDevices];
+  const cudaError_t err = allow_smem(done, mdta_apply_kernel<R, VV, T, TO>,
+                                     mdta_apply_kernel<R, 1, T, TO>, ApplyCfg<R, T>::FLOATS);
   if (err != cudaSuccess) return err;
-  err = allow_smem(done_a, mdta_apply_kernel<R, 4>, mdta_apply_kernel<R, 1>,
-                   ApplyCfg<R>::FLOATS);
+  const int nb = (c + cb - 1) / cb;
+  const long long tiles_per_bh = (n + kApplyTP - 1) / kApplyTP;
+  const auto apply =
+      vec == VV ? mdta_apply_kernel<R, VV, T, TO> : mdta_apply_kernel<R, 1, T, TO>;
+  apply<<<dim3((unsigned)apply_blocks, (unsigned)(nb * nb)), kThreads,
+          sizeof(float) * ApplyCfg<R, T>::FLOATS, st>>>(v, P, out, slot, n, c, cb, tiles_per_bh,
+                                                        tiles_per_bh * BH, apply_per);
+  return cudaGetLastError();
+}
+
+template <int R, typename T>
+cudaError_t attend(const T* q, const T* k, const T* v, const float* temp, T* out, float* ws,
+                   int BH, int heads, int c, long long n, int splits, int per, int cb,
+                   int apply_blocks, int apply_per, int warps, int vec, cudaStream_t st) {
+  constexpr int VV = kBf16<T> ? 8 : 4;
+  static bool done_g[kMaxDevices];
+  cudaError_t err = allow_smem(done_g, mdta_gram_kernel<R, VV, T>, mdta_gram_kernel<R, 1, T>,
+                               GramCfg<R, T>::FLOATS);
   if (err != cudaSuccess) return err;
   const int nb = (c + cb - 1) / cb;
   const long long slot = (long long)BH * c * n;
@@ -550,50 +620,38 @@ cudaError_t attend(const float* q, const float* k, const float* v, const float* 
   float* records = ws + (nb > 1 ? nb * slot : 0);
   float* P = records + (long long)splits * BH * ((long long)c * c + 2 * c);
 
-  const auto gram = vec == 4 ? mdta_gram_kernel<R, 4> : mdta_gram_kernel<R, 1>;
+  const auto gram = vec == VV ? mdta_gram_kernel<R, VV, T> : mdta_gram_kernel<R, 1, T>;
   gram<<<dim3((unsigned)splits, (unsigned)BH, (unsigned)(nb * nb)), kThreads,
-         sizeof(float) * GramCfg<R>::FLOATS, st>>>(q, k, records, n, c, cb, splits, per);
+         sizeof(float) * GramCfg<R, T>::FLOATS, st>>>(q, k, records, n, c, cb, splits, per);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mdta_softmax_kernel<<<dim3((unsigned)c, (unsigned)BH), 32 * warps,
                         c <= kRowFloats ? sizeof(float) * c : 0, st>>>(records, temp, P, c,
                                                                         heads, splits);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long tiles_per_bh = (n + kApplyTP - 1) / kApplyTP;
-  const auto apply = vec == 4 ? mdta_apply_kernel<R, 4> : mdta_apply_kernel<R, 1>;
-  apply<<<dim3((unsigned)apply_blocks, (unsigned)(nb * nb)), kThreads,
-          sizeof(float) * ApplyCfg<R>::FLOATS, st>>>(v, P, nb > 1 ? slots : out, slot, n, c,
-                                                     cb, tiles_per_bh, tiles_per_bh * BH,
-                                                     apply_per);
-  if (nb > 1) return sum_slots(slots, out, slot, nb, st);
-  return cudaGetLastError();
+  if (nb == 1)
+    return apply_to<R>(v, P, out, slot, n, c, cb, BH, apply_blocks, apply_per, vec, st);
+  err = apply_to<R>(v, P, slots, slot, n, c, cb, BH, apply_blocks, apply_per, vec, st);
+  if (err != cudaSuccess) return err;
+  return sum_slots(slots, out, slot, nb, st);
 }
 
 // A plan the kernels take (ops/mdta.py mdta_plan): channel blocks of 1..128
-// channels, ranges of whole stages, 1..32 softmax warps, copies of 4 or 1
-// floats.
+// channels, ranges of whole stages, 1..32 softmax warps, copies of `wide`
+// (4 floats or 8 bf16) or 1 element.
 bool bad_plan(int c, int splits, int per, int cb, int apply_blocks, int apply_per, int warps,
-              int vec) {
+              int vec, int wide) {
   return cb < 1 || cb > kMaxBlock || cb > c || splits < 1 || per < 1 || per % kGramTP != 0 ||
          apply_blocks < 1 || apply_per < 1 || warps < 1 || warps > kSoftmaxWarps ||
-         (vec != 4 && vec != 1);
+         (vec != wide && vec != 1);
 }
 
-}  // namespace
-
-extern "C" {
-
-// q, k, v (BH, c, N) with bh = b * heads + head, temp (heads,) -> out
-// (BH, c, N), on the plan of ops/mdta.py mdta_plan: `splits` ranges of
-// `per` pixels, channel blocks of cb, the apply on `apply_blocks` blocks of
-// `apply_per` 128-pixel tiles for each block pair, the softmax's `warps`,
-// copies of `vec` floats. ws holds mdta_workspace_numel floats. The block
-// width cb picks R = ceil(cb / 16) in 1..8.
-int rcot_mdta_attend(const float* q, const float* k, const float* v, const float* temp,
-                     float* out, float* ws, int BH, int heads, int c, long long n, int splits,
-                     int per, int cb, int apply_blocks, int apply_per, int warps, int vec,
-                     void* stream) {
+// The call on q, k, v and out of type T: R = ceil(cb / 16) in 1..8.
+template <typename T>
+int attend_call(const T* q, const T* k, const T* v, const float* temp, T* out, float* ws,
+                int BH, int heads, int c, long long n, int splits, int per, int cb,
+                int apply_blocks, int apply_per, int warps, int vec, void* stream) {
   if ((long long)BH * c * n == 0) return cudaSuccess;
-  if (bad_plan(c, splits, per, cb, apply_blocks, apply_per, warps, vec))
+  if (bad_plan(c, splits, per, cb, apply_blocks, apply_per, warps, vec, kBf16<T> ? 8 : 4))
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define RCOT_CALL(R)                                                                       \
@@ -610,6 +668,34 @@ int rcot_mdta_attend(const float* q, const float* k, const float* v, const float
     default: return RCOT_CALL(8);
   }
 #undef RCOT_CALL
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v (BH, c, N) with bh = b * heads + head, temp (heads,) -> out
+// (BH, c, N), on the plan of ops/mdta.py mdta_plan: `splits` ranges of
+// `per` pixels, channel blocks of cb, the apply on `apply_blocks` blocks of
+// `apply_per` 128-pixel tiles for each block pair, the softmax's `warps`,
+// copies of `vec` floats. ws holds mdta_workspace_numel floats. The block
+// width cb picks R = ceil(cb / 16) in 1..8.
+int rcot_mdta_attend(const float* q, const float* k, const float* v, const float* temp,
+                     float* out, float* ws, int BH, int heads, int c, long long n, int splits,
+                     int per, int cb, int apply_blocks, int apply_per, int warps, int vec,
+                     void* stream) {
+  return attend_call(q, k, v, temp, out, ws, BH, heads, c, n, splits, per, cb, apply_blocks,
+                     apply_per, warps, vec, stream);
+}
+
+// The same on bf16 q, k, v -> bf16 out, the temperature and ws fp32; copies
+// of `vec` bf16 (8 where N % 8 == 0 and the rows are 16-byte aligned, else 1).
+int rcot_mdta_attend_bf16(const bf16* q, const bf16* k, const bf16* v, const float* temp,
+                          bf16* out, float* ws, int BH, int heads, int c, long long n,
+                          int splits, int per, int cb, int apply_blocks, int apply_per,
+                          int warps, int vec, void* stream) {
+  return attend_call(q, k, v, temp, out, ws, BH, heads, c, n, splits, per, cb, apply_blocks,
+                     apply_per, warps, vec, stream);
 }
 
 }  // extern "C"

@@ -174,26 +174,28 @@ __device__ __forceinline__ int block_width(int k, int ch, int cb) {
 
 // out[e] = ws[e] + ws[size + e] + ... + ws[(nb - 1) * size + e], in that
 // order: the fixed-order sum of a tensor's nb slots of `size` floats, one
-// slot per channel block of a sum over channel blocks (gram.cu, mdta.cu).
+// slot per channel block of a sum over channel blocks (gram.cu, mdta.cu),
+// stored as TO (a bf16 out rounded once: gram_bf16.cu, mdta.cu in bf16).
 constexpr int kSlotThreads = 256;
 
+template <typename TO>
 __global__ void __launch_bounds__(kSlotThreads)
-sum_slots_kernel(const float* __restrict__ ws, float* __restrict__ out, long long size,
-                 int nb) {
+sum_slots_kernel(const float* __restrict__ ws, TO* __restrict__ out, long long size, int nb) {
   const long long e = (long long)blockIdx.x * kSlotThreads + threadIdx.x;
   if (e >= size) return;
   float v = ws[e];
   for (int k = 1; k < nb; ++k) v += ws[k * size + e];
-  out[e] = v;
+  out[e] = from_f<TO>(v);
 }
 
 // After the launch that filled ws (its error is returned first).
-inline cudaError_t sum_slots(const float* ws, float* out, long long size, int nb,
+template <typename TO>
+inline cudaError_t sum_slots(const float* ws, TO* out, long long size, int nb,
                              cudaStream_t st) {
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sum_slots_kernel<<<(unsigned)((size + kSlotThreads - 1) / kSlotThreads), kSlotThreads, 0,
-                     st>>>(ws, out, size, nb);
+  sum_slots_kernel<TO><<<(unsigned)((size + kSlotThreads - 1) / kSlotThreads), kSlotThreads, 0,
+                         st>>>(ws, out, size, nb);
   return cudaGetLastError();
 }
 

@@ -32,6 +32,15 @@ from ..utils.config import DE_DICT, DataConfig
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
 
 
+def collapse_de_id(de_id):
+    """The noise_combine label collapse (rcot_tpu/data/datasets.py:180,
+    reference util/dataset_utils.py:267-277): every denoise id -> 0, the
+    others shift down by 2. Ints or arrays. Batches keep the canonical ids;
+    this is for prompt-style harnesses."""
+    collapsed = np.asarray(de_id) - 2
+    return np.maximum(collapsed, 0) if collapsed.ndim else max(int(collapsed), 0)
+
+
 def load_rgb(path: str) -> np.ndarray:
     with Image.open(path) as img:
         return np.asarray(img.convert("RGB"), dtype=np.uint8)

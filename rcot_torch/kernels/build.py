@@ -100,14 +100,18 @@ SIGNATURES = {
     "rcot_dwconv3x3": [_P] * 3 + [_I] * 9 + [_P],
     # x, g, workspace, dtaps; B, H, W, C, vec, cv, tc, rows; stream
     "rcot_dwconv3x3_dtaps": [_P] * 4 + [_I] * 8 + [_P],
-    # vec, cv, tc, dtaps; -> blocks an SM holds
-    "rcot_dwconv3x3_blocks_per_sm": [_I] * 4 + [ctypes.POINTER(_I)],
-    # vec, cv, tc, bf16 out; -> blocks an SM holds of the bf16 forward
-    "rcot_dwconv3x3_bf16_blocks_per_sm": [_I] * 4 + [ctypes.POINTER(_I)],
+    # io (ops/dwconv.py DW_IO), vec, cv, tc, dtaps; -> blocks an SM holds
+    "rcot_dwconv3x3_blocks_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
+    # row 11 in bf16 on fp32 taps (io "w32"): the arguments of rcot_dwconv3x3
+    # and rcot_dwconv3x3_dtaps (bf16 x, out and g; fp32 taps, workspace, dtaps)
+    "rcot_dwconv3x3_w32": [_P] * 3 + [_I] * 9 + [_P],
+    "rcot_dwconv3x3_dtaps_w32": [_P] * 4 + [_I] * 8 + [_P],
     # q, k, v, temperature, out, workspace; BH, heads, c, N; the plan
     # (ops/mdta.py mdta_plan): splits, pixels per split, channel block,
     # apply blocks, tiles per apply block, softmax warps; copy width; stream
     "rcot_mdta_attend": [_P] * 6 + [_I] * 3 + [_L] + [_I] * 7 + [_P],
+    # the same on bf16 q, k, v and out (the temperature and workspace fp32)
+    "rcot_mdta_attend_bf16": [_P] * 6 + [_I] * 3 + [_L] + [_I] * 7 + [_P],
 }
 
 

@@ -17,11 +17,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.dispatch import (check_bf16, resolve_attention_core, resolve_composition,
+from ..ops.dispatch import (resolve_attention_core, resolve_composition,
                             resolve_depthwise)
 from ..utils.config import ModelConfig
 from ..utils.device import resolve_device
-from .restormer import Attention, TNet, _LayerNormBody
+from .restormer import Attention, Conv, TNet, _LayerNormBody
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -58,6 +58,12 @@ def pad_to_multiple(x: torch.Tensor, base: int = 8
     if ph or pw:
         x = _reflect_pad_hw(x, ph, pw)
     return x, (h, w)
+
+
+def crop_back(y: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, H', W', C) -> its top-left (B, H, W, C): pad_to_multiple undone."""
+    h, w = hw
+    return y[:, :h, :w, :]
 
 
 def bucket_size(n: int, base: int = 8, buckets: Tuple[int, ...] = ()) -> int:
@@ -167,15 +173,20 @@ class Restorer:
         return acc / weight
 
 
-def cast_copy(tnet: TNet, dtype: torch.dtype) -> TNet:
+def cast_copy(tnet: TNet, dtype: torch.dtype, depthwise: str = "fused") -> TNet:
     """A copy of tnet whose weights are in dtype, but for the LayerNorms'
     and the temperatures, which stay fp32: the values the JAX package's
     forward uses on a bf16 input, cast once here instead of at every use
-    (rcot_tpu/ops/conv.py:45, rcot_tpu/models/restormer.py:77-89)."""
+    (rcot_tpu/ops/conv.py:45, rcot_tpu/models/restormer.py:77-89). For the
+    "dwconv" tier the depthwise weights stay fp32 too: that tier takes its
+    taps uncast (rcot_tpu/ops/attention.py:112-114, gdfn.py:66-67), the
+    block kernels cast them at use (restormer.py _taps, _dw_taps)."""
     net = copy.deepcopy(tnet)
     keep = {id(p) for m in net.modules() if isinstance(m, _LayerNormBody)
             for p in m.parameters()}
     keep |= {id(m.temperature) for m in net.modules() if isinstance(m, Attention)}
+    if depthwise == "dwconv":
+        keep |= {id(m.weight) for m in net.modules() if isinstance(m, Conv) and m.groups > 1}
     with torch.no_grad():
         for p in net.parameters():
             if id(p) not in keep:
@@ -198,15 +209,13 @@ def make_restorer(model: Union[torch.nn.Module, Mapping[str, object]],
     input is cast to bf16 and the output back to fp32
     (rcot_tpu/models/inference.py:264-269), on a bf16 copy of the weights
     made here, once (cast_copy; a later change to a shared TNet's weights
-    does not reach it); bf16 serves in every composition with the Gram core
-    and the fused tier alone (check_bf16)."""
+    does not reach it); bf16 serves in every composition, attention core and
+    depthwise tier."""
     choice = dict(composition=resolve_composition(composition, training=False),
                   attention_core=resolve_attention_core(attention_core),
                   depthwise=resolve_depthwise(depthwise))
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype}: one of {DTYPES}")
-    if dtype == torch.bfloat16:
-        check_bf16(**choice)
     dev = resolve_device(device)
     if model_cfg.backbone != "restormer":
         raise ValueError(f"backbone {model_cfg.backbone!r} is not ported yet")
@@ -218,7 +227,7 @@ def make_restorer(model: Union[torch.nn.Module, Mapping[str, object]],
                              strict=True)
     tnet.eval()
     if dtype != torch.float32:
-        tnet = cast_copy(tnet, dtype)
+        tnet = cast_copy(tnet, dtype, choice["depthwise"])
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         before = {k: getattr(tnet, k) for k in choice}

@@ -39,9 +39,11 @@ A bf16 input runs the same forward in bf16, as apply_tnet on a bf16 input
 dtype (ops/conv.py; the block kernels get their weights in x's dtype and
 their LN weights in fp32, rcot_tpu/models/restormer.py:77-89), LayerNorms
 compute in fp32 and round, the residual adds stay bf16; gradients reach
-the fp32 parameters through those casts. A bias-free block runs bf16 in
-every composition, forward and backward, with the Gram core and the fused
-tier alone (ops/dispatch.py check_bf16).
+the fp32 parameters through those casts. The one exception is the
+depthwise weight in the "dwconv" tier, which the JAX package passes uncast
+(rcot_tpu/ops/attention.py:112-114, gdfn.py:66-67): its taps stay fp32,
+and so does their gradient (_dw_taps). A bias-free block runs bf16 in every
+composition, attention core and depthwise tier, forward and backward.
 """
 
 from __future__ import annotations
@@ -56,8 +58,7 @@ import torch.nn as nn
 from ..ops.attention import mdta, mdta_core, mdta_qkv
 from ..ops.block import block_head, block_tail
 from ..ops.conv import conv1x1, conv2d
-from ..ops.dispatch import (COMPOSITIONS, check_bf16, resolve_attention_core,
-                            resolve_depthwise)
+from ..ops.dispatch import COMPOSITIONS, resolve_attention_core, resolve_depthwise
 from ..ops.gdfn import gdfn, hidden_features
 from ..ops.layernorm import layernorm
 from ..ops.resample import downsample, upsample
@@ -166,6 +167,15 @@ def _taps(conv: Conv, dtype: torch.dtype) -> torch.Tensor:
     return conv.weight.view(-1, 3, 3).to(dtype)
 
 
+def _dw_taps(conv: Conv, dtype: torch.dtype, depthwise: str) -> torch.Tensor:
+    """The taps of the qkv's and the GDFN's depthwise conv outside the block
+    kernels: in dtype for the fused tier (rcot_tpu/ops/attention.py:102-103,
+    gdfn.py:53-56), fp32 for "dwconv" (attention.py:112-114, gdfn.py:66-67;
+    a bf16 serving copy keeps those weights fp32, models/inference.py
+    cast_copy)."""
+    return _taps(conv, torch.float32 if depthwise == "dwconv" else dtype)
+
+
 def _ln(norm: LayerNorm):
     """A LayerNorm's weight and bias (or None) in fp32, as the block kernels
     take them."""
@@ -194,13 +204,12 @@ class TransformerBlock(nn.Module):
         if at.qkv.bias is not None:
             x = x + at(self.norm1(x))
             return x + f(self.norm2(x))
-        if x.dtype == torch.bfloat16:
-            check_bf16(self.composition, self.attention_core, self.depthwise,
-                       "backward" if torch.is_grad_enabled() else "forward")
         dt = x.dtype
         if self.composition in ("tail", "off"):
-            # the weights in x's dtype, as rcot_tpu/ops/attention.py:102-103
-            qkv = mdta_qkv(self.norm1(x), _mat(at.qkv, dt), _taps(at.qkv_dwconv, dt),
+            # the weights in x's dtype, as rcot_tpu/ops/attention.py:102-103,
+            # but for the dwconv tier's taps (_dw_taps)
+            qkv = mdta_qkv(self.norm1(x), _mat(at.qkv, dt),
+                           _dw_taps(at.qkv_dwconv, dt, self.depthwise),
                            depthwise=self.depthwise)
         else:
             qkv = block_head(x, *_ln(self.norm1), _mat(at.qkv, dt), _taps(at.qkv_dwconv, dt))
@@ -210,9 +219,10 @@ class TransformerBlock(nn.Module):
                               _mat(f.project_in, dt), _taps(f.dwconv, dt),
                               _mat(f.project_out, dt))
         x = x + conv1x1(a, _mat(at.project_out, dt))
-        # the weights in x's dtype, as rcot_tpu/ops/gdfn.py:53-56
-        return x + gdfn(self.norm2(x), _mat(f.project_in, dt), _taps(f.dwconv, dt),
-                        _mat(f.project_out, dt), depthwise=self.depthwise)
+        # the weights in x's dtype, as rcot_tpu/ops/gdfn.py:53-56 (but _dw_taps)
+        return x + gdfn(self.norm2(x), _mat(f.project_in, dt),
+                        _dw_taps(f.dwconv, dt, self.depthwise), _mat(f.project_out, dt),
+                        depthwise=self.depthwise)
 
 
 class _Resample(nn.Module):

@@ -34,13 +34,12 @@ The depthwise tier of the qkv and the GDFN outside the block kernels
 In "full" the depthwise tier changes nothing: the head and tail kernels do
 their own depthwise convs, in the JAX package as here.
 
-In bf16 every composition runs, in serving (--dtype bfloat16 on cli.test
-and cli.eval_all) and in training (cli.train --dtype bfloat16) alike, with
-the Gram core and the fused tier: rows 1-4 and 8 forward, rows 5-7 and 9
-backward, each in the configurations its composition calls. The opt-in
-tiers have no bf16 kernels yet (rows 10-11): `--attention-core mdta` and
-`--depthwise dwconv` stop by name (check_bf16), on either device, rather
-than run another path.
+In bf16 every choice runs, in serving (--dtype bfloat16 on cli.test and
+cli.eval_all) and in training (cli.train --dtype bfloat16) alike: rows 1-4
+and 8 forward, rows 5-7 and 9 backward, each in the configurations its
+composition calls, and with `--attention-core mdta` and `--depthwise
+dwconv` the bf16 forms of rows 10 and 11 (ops/mdta.py, ops/dwconv.py), as
+the JAX package runs each of them on a bf16 input.
 """
 
 from __future__ import annotations
@@ -71,22 +70,3 @@ def resolve_depthwise(requested: str) -> str:
         raise ValueError(f"unknown depthwise tier {requested!r}; one of {DEPTHWISE}")
     return requested
 
-
-# the choices that run in bf16 (ROADMAP Queue 1 item 4): every composition,
-# in serving and in training, with the Gram core and the fused tier
-BF16_CHOICE = {"attention_core": "gram", "depthwise": "fused"}
-_BF16_FLAGS = {"attention_core": "--attention-core", "depthwise": "--depthwise"}
-
-
-def check_bf16(composition: str, attention_core: str, depthwise: str,
-               use: str = "serve") -> None:
-    """Raise for bf16 in a choice that has no bf16 kernels (BF16_CHOICE),
-    naming it; every composition has them. `use` ("serve", "forward" or
-    "backward": bf16 training) words the message."""
-    given = {"attention_core": attention_core, "depthwise": depthwise}
-    what = "bf16 training" if use == "backward" else "bf16"
-    for key in ("attention_core", "depthwise"):
-        if given[key] != BF16_CHOICE[key]:
-            raise NotImplementedError(
-                f"{what} with `{_BF16_FLAGS[key]} {given[key]}` is not ported yet "
-                "(ROADMAP Queue 2)")

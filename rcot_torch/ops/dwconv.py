@@ -16,6 +16,15 @@ JAX package uses jnp). A CUDA tensor goes to the kernels of csrc/dwconv.cu,
 a CPU tensor to the plain twins `dwconv3x3_plain` (ops/conv.py
 depthwise3x3) and `dwconv3x3_dtaps_plain`; the forward's launches are
 counted under `dwconv3x3`.
+
+bf16 (the tier's bf16 forms): x is bf16 and the taps stay fp32, as the JAX
+package passes the depthwise weight uncast in this tier
+(rcot_tpu/ops/attention.py:112-114, gdfn.py:66-67) and its kernel widens
+both (pallas_dwconv.py:45-53). The forward and dx write bf16 (launches
+`dwconv3x3_bf16`, `dwconv3x3_dx_bf16`), dtaps sums the widened x and g in
+fp32 and stays fp32 (`dwconv3x3_dtaps_bf16`; pallas_dwconv.py:121-134),
+so the fp32 parameter's gradient is never rounded to bf16. Their CPU twins
+are `dwconv3x3_bf16_plain` and dtaps's plain twin on the widened values.
 """
 
 from __future__ import annotations
@@ -107,10 +116,13 @@ def dwconv_rows(b: int, h: int, w: int, c: int, vec: int, n_sm: int, per_sm: int
     return full[0] if full else max(blocks, key=lambda rows: fill[rows])
 
 
-# The element types of a forward launch: "f32" (fp32 in and out), or the
-# bf16 forward of serving's bf16 block kernels, into bf16 ("bf16", the
-# head's qkv) or fp32 ("bf16_f32", the tail's conv); vec counts elements.
-DW_IO = ("f32", "bf16", "bf16_f32")
+# The element types of a launch: "f32" (fp32 in and out), the bf16 forward
+# of serving's bf16 block kernels, into bf16 ("bf16", the head's qkv) or
+# fp32 ("bf16_f32", the tail's conv), or the standalone tier's bf16 forms
+# ("w32": bf16 x and out on fp32 taps, and dtaps on bf16 x and g; C entry
+# points rcot_dwconv3x3_w32 and rcot_dwconv3x3_dtaps_w32); vec counts
+# elements. The index is the C side's io.
+DW_IO = ("f32", "bf16", "bf16_f32", "w32")
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,12 +132,8 @@ def blocks_per_sm(device_index: int, vec: int, cv: int, tc: int, dtaps: bool,
     dx) or for dtaps, of the element types io."""
     n = ctypes.c_int()
     with torch.cuda.device(device_index):
-        if io == "f32":
-            build.call("rcot_dwconv3x3_blocks_per_sm", vec, cv, tc, int(dtaps),
-                       ctypes.byref(n))
-        else:
-            build.call("rcot_dwconv3x3_bf16_blocks_per_sm", vec, cv, tc, int(io == "bf16"),
-                       ctypes.byref(n))
+        build.call("rcot_dwconv3x3_blocks_per_sm", DW_IO.index(io), vec, cv, tc, int(dtaps),
+                   ctypes.byref(n))
     return n.value
 
 
@@ -139,9 +147,18 @@ def dwconv_plan(b: int, h: int, w: int, c: int, device_index: int, vec: int,
                                DTAPS_MAX_PIXELS if dtaps else 0)
 
 
-def _plan(x: torch.Tensor, vec: int, dtaps: bool) -> Tuple[int, int, int]:
-    """-> (cv, tc, rows) of a launch on x (B,H,W,C)."""
-    return dwconv_plan(*x.shape, x.device.index, vec, dtaps)
+def _plan(x: torch.Tensor, dtaps: bool, *ptrs: int) -> Tuple[int, int, int, int]:
+    """-> (vec, cv, tc, rows) of a launch on x (B,H,W,C) and the tensors at
+    ptrs: fp32, or bf16 on fp32 taps (io "w32", which takes no
+    element-wise copies: an odd C raises)."""
+    c = x.shape[-1]
+    if x.dtype != torch.bfloat16:
+        vec = dwconv_vec(c, *ptrs)
+        return (vec, *dwconv_plan(*x.shape, x.device.index, vec, dtaps))
+    vec = bf16_vec(c, *ptrs)
+    if vec == 1:
+        raise ValueError(f"bf16 depthwise kernels take an even C, aligned: C = {c}")
+    return (vec, *dwconv_plan(*x.shape, x.device.index, vec, dtaps, "w32"))
 
 
 def dtaps_workspace_numel(b: int, h: int, w: int, c: int, tc: int, rows: int) -> int:
@@ -155,6 +172,20 @@ def dwconv3x3_plain(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return depthwise3x3(x, taps)
 
 
+def dwconv3x3_bf16_plain(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The plain twin of the bf16 forward: x widened times the fp32 taps,
+    the nine terms summed in fp32 dy-major, dx-minor, each product rounded
+    before its add, as the JAX kernel's (pallas_dwconv.py:45-53), then
+    rounded once to x's dtype."""
+    h, w = x.shape[1:3]
+    xp, t = F.pad(x.float(), (0, 0, 1, 1, 1, 1)), taps.float()
+    acc = xp[:, :h, :w] * t[:, 0, 0]
+    for k in range(1, 9):
+        i, j = divmod(k, 3)
+        acc = acc + xp[:, i:i + h, j:j + w] * t[:, i, j]
+    return acc.to(x.dtype)
+
+
 def dwconv3x3_dtaps_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The plain twin of dtaps: nine products and sums in PyTorch ops."""
     h, w = x.shape[1:3]
@@ -165,21 +196,23 @@ def dwconv3x3_dtaps_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x: torch.Tensor, taps: torch.Tensor, name: str, rot: bool) -> torch.Tensor:
+    bf16 = x.dtype == torch.bfloat16
     if not x.is_cuda:
-        return dwconv3x3_plain(x, taps.flip(1, 2) if rot else taps)
+        plain = dwconv3x3_bf16_plain if bf16 else dwconv3x3_plain
+        return plain(x, taps.flip(1, 2) if rot else taps)
     b, h, w, c = x.shape
     dev = x.device
-    build.check_arg("x", x, (b, h, w, c), dev)
+    build.check_arg("x", x, (b, h, w, c), dev, build.kernel_dtype(x))
     build.check_arg("taps", taps, (c, 3, 3), dev)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    vec = dwconv_vec(c, x.data_ptr(), out.data_ptr())
-    cv, tc, rows = _plan(x, vec, dtaps=False)
+    vec, cv, tc, rows = _plan(x, False, x.data_ptr(), out.data_ptr())
+    entry = "rcot_dwconv3x3_w32" if bf16 else "rcot_dwconv3x3"
     with torch.cuda.device(dev):
-        build.call("rcot_dwconv3x3", x.data_ptr(), taps.data_ptr(), out.data_ptr(),
+        build.call(entry, x.data_ptr(), taps.data_ptr(), out.data_ptr(),
                    b, h, w, c, vec, cv, tc, rows, int(rot), build.stream())
-    build.LAUNCHES[name] += 1
+    build.LAUNCHES[name + ("_bf16" if bf16 else "")] += 1
     return out
 
 
@@ -198,23 +231,27 @@ def dwconv3x3_dtaps(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dtaps of dwconv3x3_fwd for the cotangent g: dtaps[c, i, j] = sum over
     pixels of g[b, y, x, c] * x[b, y + i - 1, x + j - 1, c]
     (pallas_dwconv.py:121-134). On the card the sums run in a fixed order,
-    so two calls on the same input give the same bits."""
+    so two calls on the same input give the same bits. fp32 for a bf16 x
+    and g too: their widened products, summed in fp32."""
+    bf16 = x.dtype == torch.bfloat16
     if not x.is_cuda:
+        if bf16:
+            x, g = x.float(), g.float()
         return dwconv3x3_dtaps_plain(x, g)
     b, h, w, c = x.shape
     dev = x.device
-    build.check_arg("x", x, (b, h, w, c), dev)
-    build.check_arg("g", g, (b, h, w, c), dev)
+    build.check_arg("x", x, (b, h, w, c), dev, build.kernel_dtype(x))
+    build.check_arg("g", g, (b, h, w, c), dev, build.kernel_dtype(x))
     if x.numel() == 0:
-        return x.new_zeros(c, 3, 3)
-    vec = dwconv_vec(c, x.data_ptr(), g.data_ptr())
-    cv, tc, rows = _plan(x, vec, dtaps=True)
+        return torch.zeros(c, 3, 3, device=dev)
+    vec, cv, tc, rows = _plan(x, True, x.data_ptr(), g.data_ptr())
     ws = torch.empty(dtaps_workspace_numel(b, h, w, c, tc, rows), device=dev)
     dtaps = torch.empty(c, 3, 3, device=dev)
     with torch.cuda.device(dev):
-        build.call("rcot_dwconv3x3_dtaps", x.data_ptr(), g.data_ptr(), ws.data_ptr(),
+        build.call("rcot_dwconv3x3_dtaps_w32" if bf16 else "rcot_dwconv3x3_dtaps",
+                   x.data_ptr(), g.data_ptr(), ws.data_ptr(),
                    dtaps.data_ptr(), b, h, w, c, vec, cv, tc, rows, build.stream())
-    build.LAUNCHES["dwconv3x3_dtaps"] += 1
+    build.LAUNCHES["dwconv3x3_dtaps" + ("_bf16" if bf16 else "")] += 1
     return dtaps
 
 
@@ -226,7 +263,8 @@ def dwconv3x3_bwd(x: torch.Tensor, taps: torch.Tensor, g: torch.Tensor
 
 class DwConv3x3(torch.autograd.Function):
     """dwconv3x3_fwd with its backward; saves x and the taps
-    (pallas_dwconv.py _fwd)."""
+    (pallas_dwconv.py _fwd). For a bf16 x the taps are fp32 and so is their
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, taps):

@@ -8,6 +8,7 @@ back to dim.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -24,8 +25,17 @@ def hidden_features(dim: int, ffn_expansion_factor: float,
 
 
 def gated(h: torch.Tensor) -> torch.Tensor:
+    """gelu(x1) * x2 of the halves of h. On a bf16 h, as jax.nn.gelu
+    (approximate=False) and the product run on bf16 in XLA ops, each
+    rounding to bf16: 0.5 x (erfc(-x sqrt(0.5))) with sqrt(0.5) in bf16,
+    rounded after the scale, the erfc, the gelu's product and the gate's
+    (rcot_tpu/ops/gdfn.py:75; jax/_src/nn/functions.py gelu). The kernel
+    twins widen h first and take the gate in fp32."""
     x1, x2 = h.chunk(2, dim=-1)
-    return F.gelu(x1, approximate="none") * x2
+    if h.dtype != torch.bfloat16:
+        return F.gelu(x1, approximate="none") * x2
+    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=h.dtype)
+    return 0.5 * x1 * torch.special.erfc(-x1 * sqrt_half) * x2
 
 
 def gdfn(x: torch.Tensor, w_in: torch.Tensor, w_dw: torch.Tensor,

@@ -25,8 +25,8 @@ default, "tail"), `attention_core` and `depthwise` (ops/dispatch.py);
 validation serves in "full" with the same attention core and depthwise
 tier, as the JAX package's kernel switches hold in its inference scope too.
 With TrainConfig.dtype "bfloat16" the batches (and the sample dump's
-forward) are bf16, in any composition with the Gram core and the fused
-tier alone (the opt-in ones stop by name at construction); validation serves
+forward) are bf16, in any composition, attention core and depthwise tier
+(the dwconv tier's taps and their gradients fp32); validation serves
 in fp32 (rcot_tpu/train/trainer.py:507 makes its restorer without a
 dtype), and the parameters, optimizer state and checkpoints stay fp32.
 """
@@ -48,8 +48,7 @@ from ..data.datasets import eval_pairs, load_rgb
 from ..data.pipeline import device_prefetch, TrainLoader
 from ..metrics.quality import psnr
 from ..models.inference import make_restorer
-from ..ops.dispatch import (check_bf16, resolve_attention_core, resolve_composition,
-                            resolve_depthwise)
+from ..ops.dispatch import resolve_attention_core, resolve_composition, resolve_depthwise
 from ..utils.checkpoint import AsyncCheckpointer, load_checkpoint, snapshot_state
 from ..utils.config import Config
 from ..utils.device import resolve_device
@@ -79,8 +78,6 @@ class Trainer:
         self.attention_core = resolve_attention_core(attention_core)
         self.depthwise = resolve_depthwise(depthwise)
         self.dtype = batch_dtype(cfg)
-        if self.dtype == torch.bfloat16:
-            check_bf16(**self._kernels(), use="backward")
         self.log = MetricsLogger(log_path)
         self.loader = TrainLoader(cfg, seed=cfg.train.seed)
         self.iteration = make_train_iteration(cfg)

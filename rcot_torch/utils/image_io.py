@@ -1,7 +1,9 @@
-"""PNG grids of (B, H, W, C) images in [0, 1]: the trainer's sample dumps.
+"""PNG grids of (B, H, W, C) images in [0, 1]: the trainer's sample dumps;
+and the library's converters between PIL images and float HWC arrays and
+the SOTS ground truths' border crop.
 
-Counterpart of save_image and save_sample_grid in
-rcot_tpu/utils/image_io.py (torchvision's save_image layout).
+Counterpart of rcot_tpu/utils/image_io.py (torchvision's save_image
+layout; reference util/image_io.py:20-80).
 """
 
 from __future__ import annotations
@@ -11,6 +13,25 @@ import os
 
 import numpy as np
 from PIL import Image
+
+
+def pil_to_np(img) -> np.ndarray:
+    """PIL -> float32 HWC in [0, 1]."""
+    return np.asarray(img.convert("RGB"), np.float32) / 255.0
+
+
+def np_to_pil(arr: np.ndarray) -> Image.Image:
+    """HWC in [0, 1] -> PIL, rounded half up to 8 bits; one channel -> "L"."""
+    a = np.clip(np.asarray(arr) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    if a.ndim == 3 and a.shape[-1] == 1:
+        a = a[..., 0]
+    return Image.fromarray(a)
+
+
+def prepare_gt_img(img: np.ndarray, d: int = 10) -> np.ndarray:
+    """SOTS ground-truth border crop: outdoor SOTS ground truths carry a
+    d-pixel border the hazy inputs lack; d = 0 is the identity."""
+    return img if d == 0 else img[d:-d, d:-d, :]
 
 
 def save_image(path: str, images: np.ndarray, *, nrow: int = 8,

@@ -37,8 +37,9 @@ Tolerances:
   1e-5 * max(max|JAX|, 1);
 - cli.test --dtype bfloat16's per-image PSNR within PSNR_DB of the JAX
   CLI's in bf16 (the fp32 CLIs agree to 1e-3 dB, tests/test_torch_inference.py);
-- the refusals: bf16 with the opt-in attention core or depthwise tier
-  stops by name, on the CPU as on the card; every composition serves.
+- every choice serves in bf16: each composition, and since the opt-in
+  tiers have bf16 forms (rows 10-11, tests/test_torch_bf16_opt_in.py)
+  `--attention-core mdta` and `--depthwise dwconv` too.
 """
 
 import dataclasses
@@ -58,7 +59,6 @@ from rcot_torch.models import inference as tinf
 from rcot_torch.models.restormer import TNet
 from rcot_torch.ops import block as tblock
 from rcot_torch.ops import gram as tgram
-from rcot_torch.ops.dispatch import check_bf16
 from rcot_torch.utils.config import ModelConfig as TModelConfig
 from rcot_tpu.cli import test as j_test
 from rcot_tpu.models import inference as jinf
@@ -322,31 +322,19 @@ def test_cli_test_bf16_matches_the_jax_cli(tiny_config, tmp_path, capsys, pallas
     (dict(attention_core="mdta"), "--attention-core mdta"),
     (dict(depthwise="dwconv"), "--depthwise dwconv")])
 def test_bf16_refuses_every_other_choice_by_name(tiny_model_cfg, choice, flag):
-    """On the CPU as on the card: every composition serves in bf16 with the
-    Gram core and the fused tier ("off" and "tail" here, beside "full"),
-    through make_restorer and a bias-free block's forward; the opt-in
-    attention core and depthwise tier stop by name before any forward."""
-    full = dict(composition="full", attention_core="gram", depthwise="fused")
-    if "composition" in choice:
-        check_bf16(**{**full, **choice})
-        tcfg = TModelConfig(**dataclasses.asdict(tiny_model_cfg))
-        net = TNet(tcfg, device="cpu", seed=0)
-        out = tinf.make_restorer(net, tcfg, device="cpu", dtype=torch.bfloat16, **choice)(
-            np.random.default_rng(16).uniform(0, 1, (16, 16, 3)).astype(np.float32))
-        assert out.dtype == np.float32 and np.isfinite(out).all()
-        net.composition = choice["composition"]
-        with torch.no_grad():
-            assert net(torch.zeros(1, 16, 16, 3, dtype=torch.bfloat16))[0].dtype == torch.bfloat16
-        return
-    with pytest.raises(NotImplementedError, match=f"bf16 with `{flag}` is not ported yet"):
-        check_bf16(**{**full, **choice})
+    """On the CPU as on the card, nothing is refused any more: every
+    composition serves in bf16 ("off" and "tail" here, beside "full"), and
+    so do the opt-in attention core and depthwise tier, through
+    make_restorer and a bias-free block's forward (their outputs against the
+    JAX package: tests/test_torch_bf16_opt_in.py). `flag` names the choice."""
+    assert flag.split()[1] == next(iter(choice.values()))
     tcfg = TModelConfig(**dataclasses.asdict(tiny_model_cfg))
     net = TNet(tcfg, device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match=flag):
-        tinf.make_restorer(net, tcfg, device="cpu", dtype=torch.bfloat16, **choice)
+    out = tinf.make_restorer(net, tcfg, device="cpu", dtype=torch.bfloat16, **choice)(
+        np.random.default_rng(16).uniform(0, 1, (16, 16, 3)).astype(np.float32))
+    assert out.dtype == np.float32 and np.isfinite(out).all()
     for k, v in choice.items():
         setattr(net, k, v)
-    x = torch.zeros(1, 16, 16, 3, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=flag), torch.no_grad():
-        net(x)
-    check_bf16(**full)  # does not raise
+    with torch.no_grad():
+        out = net(torch.zeros(1, 16, 16, 3, dtype=torch.bfloat16))[0]
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()

@@ -30,8 +30,9 @@ the block tail's and the Gram core's tests pin.
 The train CLI trains a tiny T_net for two epochs in bf16 on the CPU, with
 an injected failure and a resume, its checkpoints fp32, its validation
 fp32, its sample dump through the bf16 training forward, and its config
-hash the JAX CLI's for the same flags. Every composition trains in bf16;
-the opt-in attention core and depthwise tier stop by name.
+hash the JAX CLI's for the same flags. Every composition trains in bf16,
+and so do the opt-in attention core and depthwise tier
+(tests/test_torch_bf16_opt_in.py holds their bf16 forms).
 
 The whole tiny T_net's bf16 gradients (tests/test_torch_bf16_train_tnet.py)
 and one bf16 minimax iteration (tests/test_torch_bf16_train_iteration.py)
@@ -49,7 +50,6 @@ from rcot_torch.data.synthetic import write_synthetic_tree
 from rcot_torch.ops import block as tblock
 from rcot_torch.ops import fused as tfused
 from rcot_torch.ops import gram as tgram
-from rcot_torch.ops.dispatch import check_bf16
 from rcot_torch.train import steps as tsteps
 from rcot_torch.train.trainer import InjectedFailure, Trainer
 from rcot_torch.utils import checkpoint as tckpt
@@ -243,42 +243,27 @@ def test_mdta_core_gram_bf16_backward_matches_pallas(b, heads, ch, hw):
     (dict(attention_core="mdta"), "--attention-core mdta"),
     (dict(depthwise="dwconv"), "--depthwise dwconv")])
 def test_bf16_training_refuses_every_other_choice_by_name(choice, flag, monkeypatch):
-    """Every composition trains in bf16 with the Gram core and the fused
-    tier: check_bf16 for a backward, a Trainer in bf16, a tiny T_net's bf16
-    forward and backward (fp32 parameter gradients, finite) and the CLI's
-    flags pass in "full", "head" and "off" as in "tail". The opt-in
-    attention core and depthwise tier stop by name in all four places."""
+    """Nothing is refused any more: every composition trains in bf16, and
+    so do the opt-in attention core and depthwise tier (rows 10-11 in bf16):
+    a Trainer in bf16, a tiny T_net's bf16 forward and backward (fp32
+    parameter gradients, finite) and the CLI's flags pass in each choice
+    as in "tail"."""
+    from rcot_torch.train import trainer as ttrainer
     tail = dict(composition="tail", attention_core="gram", depthwise="fused")
-    if "composition" in choice:
-        from rcot_torch.train import trainer as ttrainer
-        check_bf16(**{**tail, **choice}, use="backward")
-        cfg = tconfig.Config(model=TINY, train=tconfig.TrainConfig(dtype="bfloat16"))
-        monkeypatch.setattr(ttrainer, "TrainLoader", lambda *a, **k: None)
-        assert Trainer(cfg, device="cpu", **{**tail, **choice}).composition == choice[
-            "composition"]
-        state = tsteps.create_train_state(cfg, seed=0, device="cpu", **{**tail, **choice})
-        x = torch.rand(1, 16, 16, 3, generator=torch.Generator().manual_seed(25))
-        out = state.t_net(x.to(torch.bfloat16))[0]
-        params = list(state.t_net.parameters())
-        grads = torch.autograd.grad(out.float().square().sum(), params, allow_unused=True)
-        live = [g for g in grads if g is not None]
-        assert out.dtype == torch.bfloat16 and len(live) == len(params)
-        assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in live)
-        tcli._refuse_unported(tcli.build_parser().parse_args(
-            ["--dtype", "bfloat16", *flag.split()]))  # does not raise
-        return
-    with pytest.raises(NotImplementedError, match=f"bf16 training with `{flag}` is not"):
-        check_bf16(**{**tail, **choice}, use="backward")
-    check_bf16(**tail, use="backward")
     cfg = tconfig.Config(model=TINY, train=tconfig.TrainConfig(dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match=flag):
-        Trainer(cfg, device="cpu", **{**tail, **choice})
+    monkeypatch.setattr(ttrainer, "TrainLoader", lambda *a, **k: None)
+    trainer = Trainer(cfg, device="cpu", **{**tail, **choice})
+    assert all(getattr(trainer, k) == v for k, v in choice.items())
     state = tsteps.create_train_state(cfg, seed=0, device="cpu", **{**tail, **choice})
-    with pytest.raises(NotImplementedError, match=flag):
-        state.t_net(torch.zeros(1, 16, 16, 3, dtype=torch.bfloat16))
-    argv = ["--device", "cpu", "--dtype", "bfloat16", *flag.split()]
-    with pytest.raises(SystemExit, match=f"bf16 training with `{flag}` is not ported"):
-        tcli.main(argv)
+    x = torch.rand(1, 16, 16, 3, generator=torch.Generator().manual_seed(25))
+    out = state.t_net(x.to(torch.bfloat16))[0]
+    params = list(state.t_net.parameters())
+    grads = torch.autograd.grad(out.float().square().sum(), params, allow_unused=True)
+    live = [g for g in grads if g is not None]
+    assert out.dtype == torch.bfloat16 and len(live) == len(params)
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in live)
+    tcli._refuse_unported(tcli.build_parser().parse_args(
+        ["--dtype", "bfloat16", *flag.split()]))  # does not raise
 
 
 def test_the_gdfn_and_head_configurations_refuse_bf16_by_name():

@@ -34,10 +34,16 @@ each bf16 output within BF16_RTOL = 2^-6 of max(max|twin|, 1) of its plain
 bf16 twin (four bf16 ulps of the largest value: where a sum falls next to a
 rounding boundary the kernel and the twin round it apart, and later stages
 carry that on), the Gram's fp32 outputs (sums of exact bf16 products)
-within 1e-5 of the float64 twin's; every bf16 kernel repeats bitwise; a bf16
-tensor at a kernel with no bf16 form (rows 10-11) raises and names its dtype,
-one at a configuration with none (row 5's head, rows 8-9's GDFN) stops by
-name.
+within 1e-5 of the float64 twin's; every bf16 kernel repeats bitwise; a
+tensor of another dtype than a kernel takes (fp32 beside bf16, bf16 taps at
+row 11's bf16 forms, which take fp32 ones) raises and names its dtype.
+
+bf16 in the opt-in tiers (rows 10-11 in bf16, csrc/mdta.cu and dwconv.cu on
+bf16 tiles): the same gates, dtaps (fp32) within 1e-5 of its float64 twin;
+a small T_net served in off/mdta/dwconv and trained in tail/mdta/dwconv on
+the card against the CPU by the quarter rule, each form launched once a
+block; the JAX wrapper's jnp route (ops/mdta.py mdta_route) launches no
+kernel.
 
 bf16 training (row 8's qkv forward, rows 5 (tail), 6-7 and 9 (qkv)
 backward: csrc/fused_dwconv_bf16.cu, block_bwd_bf16.cu, gram_bwd_bf16.cu):
@@ -879,18 +885,19 @@ def test_bf16_gram_and_apply_match_their_twins_and_repeat(cuda_device, b, heads,
 
 @pytest.mark.cuda
 def test_fp32_only_kernels_refuse_bf16_by_its_dtype(cuda_device):
-    """Rows 10-11 have no bf16 form: a bf16 tensor raises, never casts. Row
-    5's head configuration and rows 8-9's GDFN have bf16 forms now ("full"
-    and "head"/"off" bf16 training): a bf16 call launches them, once each,
-    and returns bf16 (dln fp32)."""
+    """Every row has a bf16 form now; what a form does not take raises by
+    dtype, never casts: bf16 taps at row 11's bf16 forms (which take the
+    fp32 taps the dwconv tier passes), an fp32 k beside a bf16 q at row 10.
+    Row 5's head configuration and rows 8-9's GDFN in bf16: a bf16 call
+    launches them, once each, and returns bf16 (dln fp32)."""
     p = _to_bf16(_block_inputs(torch.Generator(device="cuda").manual_seed(17), 1, 8, 8, 8,
                                True))
     head = [p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"]]
     gdfn = [p["x"], p["w_in"], p["dw_in"], p["w_out"]]
     q = torch.zeros(1, 1, 8, 64, device="cuda", dtype=torch.bfloat16)
     for call in (lambda: tdw.dwconv3x3(p["x"], p["dw_qkv"][:8]),
-                 lambda: tmdta.mdta_attend(q, q, q, torch.ones(1, 1, 1, device="cuda"))):
-        with pytest.raises(ValueError, match="bfloat16"):
+                 lambda: tmdta.mdta_attend(q, q.float(), q, torch.ones(1, 1, 1, device="cuda"))):
+        with pytest.raises(ValueError, match="bfloat16|float32"):
             call()
     for name, call in (
             ("block_head_bwd_bf16",
@@ -1074,6 +1081,125 @@ def test_a_bf16_tnet_trains_on_the_card_as_on_the_cpu(cuda_device, composition):
                              "mdta_gram_bwd_bf16", "attn_apply_bwd_bf16"}, launched
     assert len(set(launched.values())) == 1
     assert card.keys() == cpu16.keys()
+    err = sum(float((card[k] - cpu16[k]).abs().sum()) for k in card)
+    gap = sum(float((cpu32[k] - cpu16[k]).abs().sum()) for k in card)
+    assert err <= BF16_MODEL_RATIO * gap, (err, gap)
+
+
+# ------------------------------------------------------- bf16 opt-in tiers
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,ch,n", [(1, 1, 48, 4096), (3, 2, 48, 1024), (1, 1, 192, 1024),
+                                          (2, 2, 24, 1025), (1, 1, 48, 80250), (2, 4, 16, 63)])
+def test_bf16_mdta_attend_matches_its_twin_and_repeats(cuda_device, b, heads, ch, n):
+    """Row 10 in bf16: 16-byte copies (N % 8 == 0), a head of 192 (two
+    channel blocks, slots summed and rounded once), element copies (N odd,
+    N % 8 == 2); one count a call, no fp32 launch."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v = (torch.randn(b, heads, ch, n, device="cuda", generator=gen).bfloat16()
+               for _ in range(3))
+    temp = torch.rand(heads, 1, 1, device="cuda", generator=gen) + 0.5
+    n0, n32 = build.LAUNCHES["mdta_attend_bf16"], build.LAUNCHES["mdta_attend"]
+    got, again = (tmdta.mdta_attend_fwd(q, k, v, temp) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["mdta_attend_bf16"], build.LAUNCHES["mdta_attend"]) == (n0 + 2, n32)
+    assert _bf16_within(got, tmdta.mdta_attend_bf16_plain(q, k, v, temp))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 16, 16, 144), (3, 8, 8, 254), (1, 20, 19, 6),
+                                   (2, 9, 33, 1020), (1, 1, 300, 42)])
+def test_bf16_dwconv3x3_forms_match_their_twins_and_repeat(cuda_device, shape):
+    """Row 11 in bf16 on fp32 taps: the forward and dx bf16 (copies of 8, 2
+    and 4 bf16), dtaps fp32 against float64; each one count a call and
+    bitwise on a repeat."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x, g = (torch.randn(*shape, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    taps = torch.randn(shape[-1], 3, 3, device="cuda", generator=gen) * 0.3
+    for name, fn, plain in (
+            ("dwconv3x3_bf16", lambda: tdw.dwconv3x3_fwd(x, taps),
+             lambda: tdw.dwconv3x3_bf16_plain(x, taps)),
+            ("dwconv3x3_dx_bf16", lambda: tdw.dwconv3x3_dx(g, taps),
+             lambda: tdw.dwconv3x3_bf16_plain(g, taps.flip(1, 2)))):
+        n0 = build.LAUNCHES[name]
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == n0 + 2, name
+        assert _bf16_within(got, plain()) and torch.equal(got, again), name
+    n0 = build.LAUNCHES["dwconv3x3_dtaps_bf16"]
+    got, again = tdw.dwconv3x3_dtaps(x, g), tdw.dwconv3x3_dtaps(x, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dwconv3x3_dtaps_bf16"] == n0 + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    want = tdw.dwconv3x3_dtaps_plain(x.double(), g.double())
+    assert float((got.double() - want).abs().max()) <= RTOL * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+def test_the_jnp_route_launches_no_kernel(cuda_device):
+    """At N = 2,112 (no chunk of the JAX kernel) bf16 takes the jnp formula,
+    counted as mdta_attend_jnp_bf16; fp32 takes the kernel at every N."""
+    q = torch.randn(1, 1, 48, 2112, device="cuda").bfloat16()
+    temp = torch.ones(1, 1, 1, device="cuda")
+    before = dict(build.LAUNCHES)
+    out = tmdta.mdta_attend(q, q, q, temp)
+    tmdta.mdta_attend(q.float(), q.float(), q.float(), temp)
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert launched == {"mdta_attend_jnp_bf16": 1, "mdta_attend": 1}
+    assert torch.equal(out, tmdta.mdta_attend_jnp_bf16(q, q, q, temp))
+
+
+@pytest.mark.cuda
+def test_a_bf16_tnet_in_the_opt_in_tiers_on_the_card_matches_the_cpu(cuda_device):
+    """A small T_net served in bf16 in off/mdta/dwconv and its gradients in
+    tail/mdta/dwconv, on the card against the CPU: the quarter rule on the
+    mean (serving) and summed (training); each bf16 form launched as often
+    a block as its tier runs it, no fp32 row."""
+    import copy
+
+    import numpy as np
+
+    from rcot_torch.models.inference import make_restorer
+    cfg = ModelConfig(dim=16, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
+                      parity_params=False)
+    net = TNet(cfg, device="cpu", seed=6).eval()
+    tiers = dict(composition="off", attention_core="mdta", depthwise="dwconv")
+    img = np.random.default_rng(6).uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    cpu16 = make_restorer(net, cfg, device="cpu", dtype=torch.bfloat16, **tiers)(img)
+    cpu32 = make_restorer(net, cfg, device="cpu", **tiers)(img)
+    before = dict(build.LAUNCHES)
+    card = make_restorer(copy.deepcopy(net).cuda(), cfg, device="cuda", dtype=torch.bfloat16,
+                         **tiers)(img)
+    launched = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    # 22 blocks a two-pass forward: 4 + 4 encoding, 7 a decoder pass
+    assert launched == {"mdta_attend_bf16": 22, "dwconv3x3_bf16": 44}, launched
+    err, gap = np.abs(card - cpu16).mean(), np.abs(cpu32 - cpu16).mean()
+    assert err <= gap / 4, (err, gap)
+
+    net.composition, net.attention_core, net.depthwise = "tail", "mdta", "dwconv"
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand(2, 32, 32, 3, generator=gen)
+    g = torch.randn(2, 32, 32, 3, generator=gen).bfloat16()
+
+    def grads(n, dtype, dev):
+        named = list(n.named_parameters())
+        out = n(x.to(dev, dtype))[0]
+        gs = torch.autograd.grad(out, [q for _, q in named], g.to(dev, dtype),
+                                 allow_unused=True)
+        return {k: t.float().cpu() for (k, _), t in zip(named, gs) if t is not None}
+    cpu16, cpu32 = grads(net, torch.bfloat16, "cpu"), grads(net, torch.float32, "cpu")
+    before = dict(build.LAUNCHES)
+    card = grads(copy.deepcopy(net).cuda(), torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert launched == {k: 22 for k in ("mdta_attend_bf16", "dwconv3x3_bf16",
+                                        "dwconv3x3_dx_bf16", "dwconv3x3_dtaps_bf16",
+                                        "block_tail_bf16", "block_tail_bwd_bf16")}, launched
     err = sum(float((card[k] - cpu16[k]).abs().sum()) for k in card)
     gap = sum(float((cpu32[k] - cpu16[k]).abs().sum()) for k in card)
     assert err <= BF16_MODEL_RATIO * gap, (err, gap)

@@ -238,14 +238,17 @@ def test_cli_test_metrics_match_jax(tmp_path, jax_ckpt, capsys):
     assert np.isfinite(n_got) and abs(n_got - n_want) <= 1e-5
 
 
-# bf16 serves in every composition with the Gram core and the fused tier;
-# bf16 in the opt-in depthwise tier stops by name
+# bf16 serves in every composition, attention core and depthwise tier: the
+# first case, once refused, now passes
 @pytest.mark.parametrize("flags,what", [
     (["--dtype", "bfloat16", "--depthwise", "dwconv"], "bf16"),
     (["--backbone", "mprnet"], "MPRNet"),
     (["--sr-scale", "2"], "SR mode"), (["--spatial", "2"], "row sharding")])
 def test_cli_test_refuses_unported_flags_by_name(flags, what):
     argv = ["--ckpt", "missing.npz", "--degset", "a/", "--tarset", "b/"] + flags
+    if what == "bf16":
+        t_test.refuse_unported(t_test.build_parser().parse_args(argv))  # does not raise
+        return
     with pytest.raises(SystemExit, match=rf"{flags[0]}.*{what}.*not ported"):
         t_test.main(argv)
 
@@ -261,11 +264,10 @@ def test_cli_test_takes_the_ported_values(flags):
 
 
 def test_eval_all_refuses_bf16_by_name():
-    """bf16 with the fused MDTA attend is not ported: stopped by name."""
-    with pytest.raises(SystemExit,
-                       match="--dtype bfloat16: bf16 with `--attention-core mdta` is not ported"):
-        t_eval.main(["--ckpt", "missing.npz", "--dtype", "bfloat16",
-                     "--attention-core", "mdta"])
+    """bf16 with the fused MDTA attend has its bf16 form now: cli.eval_all's
+    flags pass in bf16 with --attention-core mdta, as in fp32."""
+    t_test.refuse_unported(t_eval.build_parser().parse_args(
+        ["--ckpt", "x.npz", "--dtype", "bfloat16", "--attention-core", "mdta"]))
     args = t_eval.build_parser().parse_args(["--ckpt", "x.npz", "--sigmas", "15", "50",
                                              "--paired", "a", "b/", "--dtype", "float32"])
     assert args.sigmas == [15, 50] and args.paired == [["a", "b/"]]
@@ -276,11 +278,11 @@ def test_eval_all_refuses_bf16_by_name():
 
 def test_cli_train_refuses_bf16_training_by_name():
     """bf16 serves and trains in every composition
-    (tests/test_torch_bf16_train.py); bf16 training in the opt-in depthwise
-    tier (ROADMAP Queue 2) stops by name."""
+    (tests/test_torch_bf16_train.py) and, since rows 10-11 have bf16 forms,
+    in the opt-in tiers: no flag of them is refused."""
     from rcot_torch.cli import train as t_train
-    with pytest.raises(SystemExit, match="--dtype bfloat16: bf16 training .* not ported"):
-        t_train.main(["--dtype", "bfloat16", "--depthwise", "dwconv", "--device", "cpu"])
+    t_train._refuse_unported(t_train.build_parser().parse_args(
+        ["--dtype", "bfloat16", "--depthwise", "dwconv", "--attention-core", "mdta"]))
     for composition in ("full", "head", "tail", "off", "auto"):
         t_train._refuse_unported(t_train.build_parser().parse_args(
             ["--dtype", "bfloat16", "--composition", composition]))  # does not raise

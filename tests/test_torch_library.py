@@ -1,5 +1,8 @@
 """The library functions that no main path calls, against the JAX package's:
-the LR schedules, gan_loss, tv_loss and edge_map, within 1e-6."""
+the LR schedules, gan_loss, tv_loss and edge_map, within 1e-6; and the
+helpers collapse_de_id, pil_to_np, np_to_pil, prepare_gt_img and crop_back,
+each on the JAX test's case (tests/test_data.py, test_extras.py,
+test_inference.py) and equal to the JAX function's output."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -72,3 +75,55 @@ def test_edge_map_matches_jax(shape):
     want = np.asarray(j_edge_map(jnp.asarray(x)))
     assert got.shape == want.shape == shape[:-1] + (1,)
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+def test_collapse_de_id_mapping():
+    """noise_combine label collapse: every denoise id -> 0, the paired ids
+    shift down by 2 (tests/test_data.py TestNoiseCombine)."""
+    from rcot_torch.data.datasets import collapse_de_id
+    from rcot_tpu.data.datasets import collapse_de_id as j_collapse
+    assert [int(collapse_de_id(i)) for i in range(7)] == [0, 0, 0, 1, 2, 3, 4]
+    arr = collapse_de_id(np.array([0, 1, 2, 3, 4, 5, 6]))
+    assert arr.tolist() == [0, 0, 0, 1, 2, 3, 4] == j_collapse(np.arange(7)).tolist()
+
+
+def test_pil_np_roundtrip():
+    """tests/test_extras.py's round trip: 1/255 levels, half a level at
+    most; one channel squeezes to mode "L"; both packages' bytes equal."""
+    from PIL import Image
+
+    from rcot_torch.utils.image_io import np_to_pil, pil_to_np
+    from rcot_tpu.utils.image_io import np_to_pil as j_np_to_pil
+    from rcot_tpu.utils.image_io import pil_to_np as j_pil_to_np
+    arr = np.random.default_rng(0).uniform(size=(17, 23, 3)).astype(np.float32)
+    back = pil_to_np(np_to_pil(arr))
+    assert back.shape == (17, 23, 3) and back.dtype == np.float32
+    assert np.abs(back - arr).max() <= (0.5 / 255.0) + 1e-6
+    assert np.array_equal(back, j_pil_to_np(j_np_to_pil(arr)))
+    gray = np_to_pil(arr[..., :1])
+    assert isinstance(gray, Image.Image) and gray.mode == "L"
+    assert np.array_equal(np.asarray(gray), np.asarray(j_np_to_pil(arr[..., :1])))
+
+
+@pytest.mark.parametrize("d", [10, 0])
+def test_prepare_gt_img_sots_crop(d):
+    from rcot_torch.utils.image_io import prepare_gt_img
+    from rcot_tpu.utils.image_io import prepare_gt_img as j_prepare
+    img = np.random.default_rng(1).uniform(size=(64, 48, 3)).astype(np.float32)
+    out = prepare_gt_img(img, d=d)
+    assert out.shape == ((44, 28, 3) if d else (64, 48, 3))
+    assert np.array_equal(out, j_prepare(img, d=d))
+
+
+def test_crop_back_undoes_pad_to_multiple():
+    """tests/test_inference.py's case: (1, 100, 92, 3) padded to (104, 96)
+    and cropped back, the JAX package's crop on the same array."""
+    from rcot_torch.models.inference import crop_back, pad_to_multiple
+    from rcot_tpu.models.inference import crop_back as j_crop_back
+    x = torch.from_numpy(np.random.default_rng(2).uniform(size=(1, 100, 92, 3))
+                         .astype(np.float32))
+    padded, hw = pad_to_multiple(x, 8)
+    assert padded.shape == (1, 104, 96, 3) and hw == (100, 92)
+    got = crop_back(padded, hw)
+    assert got.shape == (1, 100, 92, 3) and torch.equal(got, x)
+    assert np.array_equal(got.numpy(), np.asarray(j_crop_back(jnp.asarray(padded.numpy()), hw)))

@@ -87,6 +87,11 @@ def test_cli_takes_the_jax_flags():
                                    ["--pretrained", "w.pth"]],
                          ids=lambda f: f[0])
 def test_cli_refuses_unported_flags(flags):
+    """The flags of paths not ported stop the CLI by name; bf16 with the
+    opt-in attention core, once among them, is ported and passes."""
+    if flags[0] == "--dtype":
+        tcli._refuse_unported(tcli.build_parser().parse_args(flags))  # does not raise
+        return
     with pytest.raises(SystemExit, match="not ported"):
         tcli.main(flags + ["--device", "cpu"])
 

@@ -6,7 +6,9 @@ B = 1), and bf16 training's forms of rows 8 (qkv) forward and 9 (qkv), 5
 block_tail_bwd_bf16, mdta_gram_bwd_bf16, attn_apply_bwd_bf16) and of rows 5
 (head) backward and 8-9 (GDFN) forward and backward (block_head_bwd_bf16,
 gdfn_fused_bf16, gdfn_fused_bwd_bf16) at every block shape of the training
-path (128^2, B = 3).
+path (128^2, B = 3); and rows 10 and 11 in bf16 (mdta_attend_bf16;
+dwconv3x3_bf16 at 2h and 3C, dwconv3x3_dx_bf16 and dwconv3x3_dtaps_bf16 at
+3C) at every serving and training shape, where the tree has them.
 
     python tools/port_bf16_times.py [--root DIR]
 
@@ -19,10 +21,14 @@ decoder L1 and the latent each call of rows 1-4 is then split by launch in
 bf16 and in fp32 on the same inputs (tools/port_block_bwd_times.py
 stage_split: `by_launch` lists each launch's kernel and device ms), and at
 train L1, decoder L1 and the latent each call of the training forms the
-same way, in turns with their fp32 forms (fp32, bf16, bf16, fp32). Last
-come the sums per serving forward and per bf16 training iteration
-(chip_smoke.BLOCKS_PER_FORWARD, device ms) and the root and the card's name
-and power limit.
+same way, in turns with their fp32 forms (fp32, bf16, bf16, fp32). Rows
+10-11 in bf16 are timed with chip_smoke.bf16_opt_in_timings (the library
+call a bf16 F.conv2d(groups=C) and cuDNN's bf16 weight gradient) and each
+in turns with its fp32 form on the widened values (device ms, fp32, bf16,
+bf16, fp32). Last come the sums per serving forward and per bf16 training
+iteration (chip_smoke.BLOCKS_PER_FORWARD, device ms; rows 10-11 per bf16
+off/mdta/dwconv forward and tail/mdta/dwconv iteration) and the root and
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -92,6 +98,70 @@ def split_train(smoke, gen, res, c, heads) -> dict:
     return out
 
 
+# rows 10-11 in bf16: key -> (name in bf16_opt_in_calls, width: "3C" or "2h")
+OPT_IN_ROWS = {"mdta_attend_bf16": ("mdta_attend_bf16", None),
+               "dwconv3x3_bf16": ("dwconv3x3_bf16", "2h"),
+               "dwconv3x3_bf16_qkv": ("dwconv3x3_bf16", "3C"),
+               "dwconv3x3_dx_bf16": ("dwconv3x3_dx_bf16", "3C"),
+               "dwconv3x3_dtaps_bf16": ("dwconv3x3_dtaps_bf16", "3C")}
+# the rows one block runs in bf16 off/mdta/dwconv serving and in bf16
+# tail/mdta/dwconv training
+SERVE_OPT_IN = ("mdta_attend_bf16", "dwconv3x3_bf16", "dwconv3x3_bf16_qkv")
+TRAIN_OPT_IN = ("mdta_attend_bf16", "dwconv3x3_bf16_qkv", "dwconv3x3_dx_bf16",
+                "dwconv3x3_dtaps_bf16")
+
+
+def opt_in_turns(smoke, gen, res, c, heads, b) -> dict:
+    """Rows 10-11 in bf16 and their fp32 forms on the same values widened,
+    device ms in turns fp32, bf16, bf16, fp32."""
+    kdw, kmdta = smoke.kdw, smoke.kmdta
+    inputs = smoke.bf16_opt_in_inputs(gen, b, res, c, heads)
+    calls = smoke.bf16_opt_in_calls(inputs)
+    # the fp32 forms' inputs are widened here, outside the timed calls
+    q, k, v = (t.float() for t in inputs["attend"][:3])
+    temp = inputs["attend"][3]
+    widths = {"3C": 3 * c, "2h": 2 * int(c * 2.66)}
+    fp32 = {"mdta_attend_bf16": lambda: kmdta.mdta_attend_fwd(q, k, v, temp)}
+    for key, (name, w) in OPT_IN_ROWS.items():
+        if w is None:
+            continue
+        x, g, taps = inputs[widths[w]]
+        x, g = x.float(), g.float()
+        fp32[key] = {"dwconv3x3_bf16": lambda x=x, t=taps: kdw.dwconv3x3_fwd(x, t),
+                     "dwconv3x3_dx_bf16": lambda g=g, t=taps: kdw.dwconv3x3_dx(g, t),
+                     "dwconv3x3_dtaps_bf16": lambda x=x, g=g: kdw.dwconv3x3_dtaps(x, g)}[name]
+    out = {}
+    for key, (name, w) in OPT_IN_ROWS.items():
+        bf16 = calls[(name, widths[w] if w else None)][0]
+        for i, tag in enumerate(("fp32", "bf16", "bf16", "fp32")):
+            out[f"{key} {tag} {1 + i // 2}"] = smoke.device_ms(
+                fp32[key] if tag == "fp32" else bf16)[0]
+    return out
+
+
+def opt_in(smoke, gen) -> dict:
+    """Rows 10-11 in bf16 at every serving (B = 1) and training (B = 3)
+    shape: their timings and their turns with the fp32 forms, printed a
+    line a shape; -> the device ms per bf16 off/mdta/dwconv forward and per
+    tail/mdta/dwconv iteration."""
+    sums = {"device_ms_per_bf16_off_mdta_dwconv_forward": {},
+            "device_ms_per_bf16_tail_mdta_dwconv_iteration": {}}
+    for tag, shapes, b, keys, total in (
+            ("serve", smoke.MAIN_SHAPES, 1, SERVE_OPT_IN,
+             "device_ms_per_bf16_off_mdta_dwconv_forward"),
+            ("train", smoke.TRAIN_SHAPES, smoke.TRAIN_B, TRAIN_OPT_IN,
+             "device_ms_per_bf16_tail_mdta_dwconv_iteration")):
+        for label, res, c, heads in shapes:
+            rows = smoke.bf16_opt_in_timings(gen, label, res, c, heads, b)
+            turns = opt_in_turns(smoke, gen, res, c, heads, b)
+            for key in keys:
+                sums[total][key] = (sums[total].get(key, 0.0)
+                                    + smoke.BLOCKS_PER_FORWARD[label] * rows[key]["device_ms"])
+            print(json.dumps({"shape": f"{tag} {label} bf16 opt-in", **rows, "turns": turns}),
+                  flush=True)
+    return sums
+
+
 def main() -> int:
     smoke = port_gram_times.load(__doc__)
     if smoke is None:
@@ -117,8 +187,9 @@ def main() -> int:
         if label in SPLIT_AT:
             print(json.dumps({"split": f"train {label}",
                               **split_train(smoke, gen, res, c, heads)}), flush=True)
+    sums = opt_in(smoke, gen) if hasattr(smoke.kmdta, "mdta_route") else {}
     print(json.dumps({"device_ms_per_serving_forward": per_forward,
-                      "device_ms_per_bf16_training_iteration": per_iteration}))
+                      "device_ms_per_bf16_training_iteration": per_iteration, **sums}))
     print(json.dumps({"root": str(smoke.root), "card": smoke.card_line()}))
     return 0
 

@@ -1,7 +1,13 @@
 """SHA-256 digests of the fp32 kernels' outputs of an rcot_torch tree on
 one CUDA card: rows 1-2 (tools/port_block_fwd_times.py), 3-4 and 6-7
 (port_gram_times.py), 5 (port_block_bwd_times.py) and 8-9
-(port_fused_times.py), each tool's `digests` alone, without its timings.
+(port_fused_times.py), each tool's `digests` alone, without its timings;
+rows 10-11 (the fused attend, the depthwise forward, dx and dtaps); the
+bf16 forms of rows 1-4 (rows 1-2 share row 11's depthwise template, rows
+3-4 at a head of 192 channels tc.cuh's slot sum) and of bf16 training's
+rows 5-9 (`opt_in_and_bf16`); and bf16 serving's outputs in every
+composition of the fused tier, a full-width T_net from a seed at 128^2
+(`bf16_serving`).
 
     python tools/port_fp32_digests.py [--root DIR]
 
@@ -12,6 +18,7 @@ root and the card's name and power limit.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -23,6 +30,67 @@ import port_fused_times  # noqa: E402
 import port_gram_times  # noqa: E402
 
 
+def _hash(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().float().numpy().tobytes())
+    return h.hexdigest()
+
+
+def opt_in_and_bf16(smoke) -> dict:
+    """SHA-256 of rows 10-11's fp32 outputs at every training shape (B = 3)
+    and of rows 1-2's bf16 outputs at every serving shape (B = 1), seeded."""
+    torch, kdw, kmdta = smoke.torch, smoke.kdw, smoke.kmdta
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for label, res, c, heads in smoke.TRAIN_SHAPES:
+        b = smoke.TRAIN_B
+
+        def r(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen)
+        q, k, v = (r(b, heads, c // heads, res * res) for _ in range(3))
+        temp = torch.rand(heads, 1, 1, device="cuda", generator=gen) + 0.5
+        x, g, taps = r(b, res, res, 3 * c), r(b, res, res, 3 * c), r(3 * c, 3, 3)
+        out[f"rows 10-11 fp32 train {label}"] = _hash(
+            kmdta.mdta_attend_fwd(q, k, v, temp), kdw.dwconv3x3_fwd(x, taps),
+            kdw.dwconv3x3_dx(g, taps), kdw.dwconv3x3_dtaps(x, g))
+    for label, res, c, _ in smoke.MAIN_SHAPES:
+        p = smoke.bf16_block_inputs(smoke.block_inputs(gen, 1, res, c, True))
+        out[f"rows 1-2 bf16 serve {label}"] = _hash(
+            smoke.kblock.block_head(*smoke.head_args(p)),
+            smoke.kblock.block_tail(*smoke.tail_args(p)))
+    qkv = torch.randn(1, 64, 64, 3 * 192, device="cuda", generator=gen).to(torch.bfloat16)
+    attn = torch.softmax(torch.randn(1, 1, 192, 192, device="cuda", generator=gen), -1)
+    out["rows 3-4 bf16 one head of 192"] = _hash(*smoke.kgram.mdta_gram_fwd(qkv, 1),
+                                                 smoke.kgram.attn_apply_fwd(qkv, attn))
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    for label, res, c, heads in smoke.TRAIN_SHAPES:
+        if label not in ("L1", "latent"):
+            continue
+        p = smoke.bf16_block_inputs(smoke.block_inputs(gen, smoke.TRAIN_B, res, c, True))
+        qkv = smoke.kblock.block_head(*smoke.head_args(p))
+        calls = {**smoke.bf16_block_calls(p, r), **smoke.bf16_mdta_calls(qkv, heads, r)}
+        for name in sorted(calls):
+            out[f"{name} train {label}"] = _hash(*(t for t in calls[name][0]() if t is not None))
+    return out
+
+
+def bf16_serving(smoke) -> dict:
+    """SHA-256 of ModelConfig()'s bf16 forward (seed 0) of one seeded 128^2
+    image through make_restorer in each composition, Gram core, fused tier."""
+    np, torch = smoke.np, smoke.torch
+    net = smoke.TNet(smoke.ModelConfig(), device="cuda", seed=0).eval()
+    img = np.random.default_rng(7).uniform(0, 1, (128, 128, 3)).astype(np.float32)
+    out = {}
+    for mode in smoke.COMPOSITIONS:
+        r = smoke.make_restorer(net, smoke.ModelConfig(), device="cuda", dtype=torch.bfloat16,
+                                composition=mode)
+        out[mode] = hashlib.sha256(r(img).tobytes()).hexdigest()
+    return out
+
+
 def main() -> int:
     smoke = port_gram_times.load(__doc__)
     if smoke is None:
@@ -30,6 +98,8 @@ def main() -> int:
     out = {name: mod.digests(smoke) for name, mod in (
         ("block_fwd", port_block_fwd_times), ("gram", port_gram_times),
         ("block_bwd", port_block_bwd_times), ("fused", port_fused_times))}
+    out["opt_in_and_bf16"] = opt_in_and_bf16(smoke)
+    out["bf16_serving"] = bf16_serving(smoke)
     print(json.dumps({"root": str(smoke.root), "card": smoke.card_line(), "digests": out}))
     return 0
 
