@@ -4,7 +4,10 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from rcot_torch/csrc with nvcc (sm_90a);
+  2. build the CUDA kernels from rcot_torch/csrc with nvcc (sm_90a); the
+     run prints each phase's seconds (`phase <name>: <s>`, and
+     `phase_seconds` in the summary line): it must end well inside the
+     1,200 s its check on the card allows;
   3. hold each forward kernel against its plain PyTorch twin on the card at
      every block shape of a 256x256 forward, B = 1 and 2, both LayerNorm
      types, and the Gram's and the block head's and tail's two calls on one
@@ -82,14 +85,16 @@ Phases (any failure exits non-zero; nothing is caught):
      "head", "tail" and "off" (94 launches of each of its composition's
      bf16 kernels, none of another) against the same composition on the
      CPU, and bf16 img/s at 256^2, batch 8, in all four compositions in
-     turns; the bf16 kernels timed as phase 5 times the fp32 ones;
+     turns; the bf16 kernels timed as phase 5 times the fp32 ones, at
+     BF16_TIMED_SHAPES;
   5c. bf16 training's kernels (conv1x1_dw_bf16, conv1x1_dw_bwd_bf16,
      block_tail_bwd_bf16, mdta_gram_bwd_bf16, attn_apply_bwd_bf16, and
      since PR 16 block_head_bwd_bf16, gdfn_fused_bf16, gdfn_fused_bwd_bf16) against
      their plain bf16 twins at every training block shape (128x128, B = 3:
      each level, the decoder's and the refinement's), rows 6-7 also at the
      wide heads of phase 3e, each bitwise against a second call, and timed
-     as phase 5 times the others, before the training phases;
+     as phase 5 times the others at BF16_TRAIN_TIMED_SHAPES, before the
+     training phases;
   5d. rows 10 and 11 in bf16 (mdta_attend_bf16, dwconv3x3_bf16,
      dwconv3x3_dx_bf16, dwconv3x3_dtaps_bf16) against their plain bf16
      twins at every serving and training block shape, the depthwise forms
@@ -102,6 +107,28 @@ Phases (any failure exits non-zero; nothing is caught):
      kernel), a 128^2 forward against the CPU by the quarter rule on the
      mean, img/s in turns with fp32 off/mdta/dwconv and bf16 "full" (the
      seconds of each phase of the opt-in tiers in bf16 in the summary line);
+  5e. the backward forms with bf16 operands in their products (cli.train
+     --bwd-bf16, the JAX package's RCOT_BWD_BF16; B16OPS_KERNELS: rows 5
+     head and tail, 6, 7 and 9 qkv and GDFN, on fp32 and on bf16
+     activations) against their plain twins with bf16 operands at every
+     training block shape, rows 6-7 also at the wide heads, by the rule
+     above B16OPS_SHARE (a form sits within 1/16 of what its 3xTF32 form
+     is from the twin, a quarter for the _bf16 forms), each bitwise against a
+     second call; each timed at
+     train L1 and decoder L1 in turns with its 3xTF32 form, before the
+     training phases;
+  6g. fp32 training with --bwd-bf16 all in "full": three iterations at
+     128^2, B = 3, counted (every backward of rows 5-7 in its _b16ops form,
+     94 an iteration, none of its 3xTF32 form); one in "tail" with "gram"
+     alone (only rows 6-7 switch) and one in bf16 "full" with every tier;
+     iterations/s, device ms an iteration and peak memory of fp32 "full"
+     with and without the option in turns at B = 3 and 8; one counted
+     iteration at 64^2, B = 1 in "head", "tail", "off", tail/mdta/dwconv
+     and bf16 "off" with every tier; T's gradients at 64^2, B = 1 in "full"
+     with every tier, the card against the CPU (B16OPS_MODEL_RATIO says
+     how); and, after phase 7, cli.train --bwd-bf16 all --composition full
+     and cli.train --composition tail, each through --fail-at-step 3 and a
+     resume, bit for bit equal to a run straight through;
   6. train at full width: create_train_state(Config()) (T_net 46,853,150
      and F_net 30,588,609 parameters, seeded) in the JAX trainer's default
      composition, "tail"; three minimax iterations (make_train_iteration)
@@ -110,7 +137,9 @@ Phases (any failure exits non-zero; nothing is caught):
      composition (conv1x1_dw, block_tail, the Gram and the apply, forward
      and backward) ran 94 times per iteration and no other kernel ran;
      compare the T_net and F_net gradients and one iteration's metrics with
-     the same state on the CPU at 64^2, B = 1; time iterations/s in "tail"
+     the same state on the CPU at 64^2, B = 1 (at full width and one block
+     a level, VS_CPU_MODEL, as every training check against the CPU); time
+     iterations/s in "tail"
      and in "full" in turns, every kernel at the training shapes, and split
      one iteration of each into forward kernels, backward kernels, the
      critic and the rest;
@@ -145,8 +174,8 @@ Phases (any failure exits non-zero; nothing is caught):
      launches each of dwconv3x3, dwconv3x3_dx, dwconv3x3_dtaps, block_tail,
      block_tail_bwd and mdta_attend per iteration, no other kernel), finite
      metrics, every used parameter moved; iterations/s in turns with "tail";
-  6d. ModelConfig(heads=(1, 1, 1, 1)) at full width (heads of 192 and 384
-     channels): served through make_restorer in full/gram/fused and
+  6d. ModelConfig(heads=(1, 1, 1, 1)) at full width and VS_CPU_MODEL's
+     depth (heads of 192 and 384 channels): served through make_restorer in full/gram/fused and
      off/mdta/dwconv against the same restorer on the CPU, and one 64^2,
      B = 1 iteration's gradients in tail/gram/fused and tail/mdta/dwconv
      against the CPU's within GRAD_RTOL, each run's launches its tiers';
@@ -171,10 +200,11 @@ Phases (any failure exits non-zero; nothing is caught):
      lowlight, a --paired tree; each row finite with its n, 94 launches of
      each "full" kernel per forward, each task's seconds), cli.test with
      --fid --lpips --niqe-model fit:<clean folder> (finite averages), the
-     Inception pool3, LPIPS and FID of its saved images on the card against
-     the CPU, the metrics' costs, and the CLI's per-image PSNR against a CPU
-     run, in this script's fp32 and under PyTorch's default flags (TF32 in
-     cuDNN), each within 1e-3 dB;
+     Inception pool3 and LPIPS of its saved images on the card against the
+     CPU and its FID against the CPU's, the metrics' costs, and the CLI's
+     per-image PSNR on PSNR_IMAGES of them against a CPU run, in this
+     script's fp32 and under PyTorch's default flags (TF32 in cuDNN), each
+     within 1e-3 dB;
   9. with --root PARENT (a checkout of an earlier commit, as
      tools/port_fp32_digests.py takes it; left out without it):
      tools/port_fp32_digests.py on PARENT and on this checkout, each in a
@@ -216,9 +246,10 @@ fixed order and is held bitwise against a second call.
 The bf16 phases' gates, and why they are what they are: the notes above
 BF16_RTOL, BF16_FLIP_RTOL and BF16_MODEL_RATIO.
 
-Prints the kernels' JSON line (all thirty-two kernels: the sixteen fp32
-ones, rows 1-4 in bf16, bf16 training's eight forms and rows 10-11's four
-bf16 forms) and, last, {"ok": true, "device": {...}}.
+Prints the kernels' JSON line (all forty-four kernels: the sixteen fp32
+ones, rows 1-4 in bf16, bf16 training's eight forms, rows 10-11's four
+bf16 forms and the twelve forms with bf16 operands) and, last, {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -231,6 +262,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -273,6 +305,26 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_RTOL = 1e-5
 MODEL_ATOL, MODEL_RTOL = 2e-4, 1e-3
 FORWARD_LAUNCHES = 94  # blocks per two-pass forward at ModelConfig()
+
+
+def blocks_per_forward(model: ModelConfig) -> int:
+    """TransformerBlocks in one two-pass forward: every level of the encoder
+    and of the residual encoder, and in each pass the decoder's levels, the
+    refinement and the three noise-level blocks."""
+    nb = model.num_blocks
+    return 2 * sum(nb) + 2 * (nb[0] + nb[1] + nb[2] + model.num_refinement_blocks + 3)
+
+
+assert blocks_per_forward(ModelConfig()) == FORWARD_LAUNCHES
+# The training checks of the card against the CPU (phases 6a, 6d, 6e, 6f,
+# 6g) run the full width at a cut depth, one block a level and one
+# refinement block (22 blocks a forward): every block shape and kernel
+# configuration of the main path stays, and the CPU's side, most of those
+# phases' time, falls about fourfold.
+SHALLOW = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
+VS_CPU_MODEL = ModelConfig(**SHALLOW)
+# in-turn serving rates: images at batch 1 and batches of 8 a run
+TURN_IMAGES_B1, TURN_BATCHES_B8 = 5, 2
 GRAD_RTOL = 2e-4      # card vs CPU gradients, of each parameter's largest
 # A floor for the gradient of an MDTA temperature, a sum of cancelling terms
 # (grad_allowance). Each term dlogits * g_hat is a product of a normalised
@@ -290,6 +342,8 @@ STEPPED_RTOL = 1e-3   # ... and those read at the critic after its steps
 STEPPED_METRICS = ("f_gp", "t_loss", "t_adv")
 # the training recipe's crop and batch (CriticConfig(), TrainConfig())
 TRAIN_RES, TRAIN_B = CriticConfig().patch_size, TrainConfig().batch_size
+# iterations in each timed run of the training rates taken in turns
+TIMED_ITERATIONS = 3
 
 # (name, resolution, C, heads) of every block group of a 256x256 forward
 MAIN_SHAPES = [
@@ -308,6 +362,10 @@ assert sum(BLOCKS_PER_FORWARD.values()) == FORWARD_LAUNCHES
 # backward of each block per iteration
 TRAIN_SHAPES = [(label, res * TRAIN_RES // 256, c, heads)
                 for label, res, c, heads in MAIN_SHAPES]
+# the block shapes at which the bf16 forms are timed: those the kernels line
+# reports (the fp32 rows are timed at every shape, for the breakdowns)
+BF16_TIMED_SHAPES = ("L1", "latent")
+BF16_TRAIN_TIMED_SHAPES = ("L1", "decoder_level1", "latent")
 
 FORWARD_KERNELS = {
     "block_head": ("rcot_torch/csrc/block_fwd.cu", "rcot_tpu/ops/pallas_block.py:586"),
@@ -322,8 +380,8 @@ FORWARD_KERNELS = {
 BACKWARD_KERNELS = {
     "block_head_bwd": ("rcot_torch/csrc/block_bwd.cu", "rcot_tpu/ops/pallas_block.py:401"),
     "block_tail_bwd": ("rcot_torch/csrc/block_bwd.cu", "rcot_tpu/ops/pallas_block.py:401"),
-    "mdta_gram_bwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:141"),
-    "attn_apply_bwd": ("rcot_torch/csrc/gram.cu", "rcot_tpu/ops/pallas_gram.py:219"),
+    "mdta_gram_bwd": ("rcot_torch/csrc/gram_bwd.cu", "rcot_tpu/ops/pallas_gram.py:141"),
+    "attn_apply_bwd": ("rcot_torch/csrc/apply_bwd.cu", "rcot_tpu/ops/pallas_gram.py:219"),
     "conv1x1_dw_bwd": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:415"),
     "gdfn_fused_bwd": ("rcot_torch/csrc/fused_dwconv.cu", "rcot_tpu/ops/pallas_fused.py:415"),
     # the dwconv backward's dx: the forward kernel on the cotangent with the
@@ -383,6 +441,18 @@ OPT_IN = dict(core="mdta", depthwise="dwconv")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def cpu_budget() -> int:
+    """The CPUs this process may use: its affinity, capped by its cgroup's
+    CPU quota where one is set (a quota of 8 CPUs on a host of many more
+    leaves torch's default thread count far above what runs at once)."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        quota, period = Path("/sys/fs/cgroup/cpu.max").read_text().split()[:2]
+    except (OSError, ValueError):
+        return n
+    return n if quota == "max" else max(1, min(n, -(-int(quota) // int(period))))
 
 
 def card_line() -> str:
@@ -1302,12 +1372,49 @@ BF16_LAUNCHES_FROM = {"block_head_bwd_bf16": "full", "gdfn_fused_bf16": "head",
 # out (mdta_attend_bf16); bf16 x and out on fp32 taps, and dtaps fp32 from
 # bf16 x and g (the dwconv3x3 *_bf16 forms)
 BF16_OPT_IN_KERNELS = {
-    "mdta_attend_bf16": ("rcot_torch/csrc/mdta.cu", "rcot_tpu/ops/pallas_mdta.py:88"),
+    "mdta_attend_bf16": ("rcot_torch/csrc/mdta_bf16.cu", "rcot_tpu/ops/pallas_mdta.py:88"),
     "dwconv3x3_bf16": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:73"),
     "dwconv3x3_dx_bf16": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:73"),
     "dwconv3x3_dtaps_bf16": ("rcot_torch/csrc/dwconv.cu", "rcot_tpu/ops/pallas_dwconv.py:121"),
 }
-ALL_KERNELS = {**KERNELS, **BF16_KERNELS, **BF16_TRAIN_KERNELS, **BF16_OPT_IN_KERNELS}
+# the backward forms with bf16 operands in their products (the JAX
+# package's RCOT_BWD_BF16, cli.train --bwd-bf16): rows 5, 6-7 and 9 on fp32
+# activations and their bf16 forms, each counted under its 3xTF32 form's
+# name with _b16ops after it, and the tier that switches it
+B16OPS_TIER = {"block_head_bwd": "block", "block_tail_bwd": "block", "mdta_gram_bwd": "gram",
+               "attn_apply_bwd": "gram", "conv1x1_dw_bwd": "fused", "gdfn_fused_bwd": "fused"}
+B16OPS_KERNELS = {
+    f"{name}{dt}_b16ops": ((BF16_TRAIN_KERNELS[f"{name}_bf16"][0] if dt else
+                            BACKWARD_KERNELS[name][0].replace(".cu", "_b16ops.cu")
+                            if tier == "gram" else BACKWARD_KERNELS[name][0]),
+                           BACKWARD_KERNELS[name][1])
+    for dt in ("", "_bf16") for name, tier in B16OPS_TIER.items()}
+ALL_TIERS = frozenset(B16OPS_TIER.values())
+ALL_KERNELS = {**KERNELS, **BF16_KERNELS, **BF16_TRAIN_KERNELS, **BF16_OPT_IN_KERNELS,
+               **B16OPS_KERNELS}
+
+
+# the run of phase_b16ops_train whose counts the kernels line takes for each
+# form: fp32 "full" (rows 5-7), fp32 "tail" and "off" at 64^2 (row 9's two
+# configurations), bf16 "full" and bf16 "off" at 64^2
+B16OPS_LAUNCHES_FROM = {
+    **{f"{k}_b16ops": "full all" for k in ("block_head_bwd", "block_tail_bwd", "mdta_gram_bwd",
+                                           "attn_apply_bwd")},
+    "conv1x1_dw_bwd_b16ops": "64px tail all", "gdfn_fused_bwd_b16ops": "64px off all",
+    **{f"{k}_bf16_b16ops": "bf16 full all" for k in ("block_head_bwd", "block_tail_bwd",
+                                                     "mdta_gram_bwd", "attn_apply_bwd")},
+    "conv1x1_dw_bwd_bf16_b16ops": "64px bf16 off all",
+    "gdfn_fused_bwd_bf16_b16ops": "64px bf16 off all"}
+
+
+def with_b16ops(want: dict, tiers) -> dict:
+    """`want` ({kernel: launches}) with each backward form of a tier in
+    `tiers` counted under its _b16ops name instead."""
+    out: dict = {}
+    for k, n in want.items():
+        key = f"{k}_b16ops" if B16OPS_TIER.get(k.replace("_bwd_bf16", "_bwd")) in tiers else k
+        out[key] = out.get(key, 0) + n
+    return out
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 # Gates of the bf16 phase. A bf16 output of
 # a kernel rounds where its plain twin rounds, from fp32 sums taken in
@@ -1488,10 +1595,17 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
     twins; the full-width T_net at 256^2, batch 1 and 8, through
     restore_batch, each kernel of rows 1-4 in bf16 launched 94 times a
     forward and none of their fp32 forms, against the same weights in bf16
-    on the CPU within a quarter of max|fp32 - bf16|; bf16 and fp32 img/s at
-    batch 1 and 8 in turns and the peak memory at batch 8; cli.test
-    --dtype bfloat16 against a CPU run; the bf16 kernels' times."""
+    on the CPU within a quarter of max|fp32 - bf16| (one image, served
+    alone and sixth in the batch, against one CPU forward); bf16 and fp32
+    img/s at batch 1 and 8 in turns and the peak memory at batch 8; cli.test
+    --dtype bfloat16 on one 128^2 pair against a CPU run; the bf16 kernels'
+    times."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def part(name):
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
     errs = phase_bf16_kernels(gen)
+    part("kernels")
     cfg = ModelConfig()
     r16 = make_restorer(net, cfg, device="cuda", dtype=BF16)
     r32 = make_restorer(net, cfg, device="cuda")
@@ -1500,7 +1614,7 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
 
     # ---- the main path of bf16 serving, counted
     build.reset_launches()
-    out1 = r16.restore_batch(imgs[:1])
+    out1 = r16.restore_batch(imgs[5:6])
     out8 = r16.restore_batch(imgs)
     torch.cuda.synchronize()
     launches, n_fwd = dict(build.LAUNCHES), forwards[0]
@@ -1511,15 +1625,15 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
         if o.shape != (256, 256, 3) or not np.isfinite(o).all():
             raise AssertionError(f"bad bf16 output {o.shape}")
 
-    # ---- against the same weights in bf16 on the CPU
+    # ---- against the same weights in bf16 on the CPU: image 5 alone and
+    # as the sixth of the batch of 8, against one CPU forward
     cpu_net = TNet(cfg, device="cpu", seed=None).eval()
     cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
     cpu16 = make_restorer(cpu_net, cfg, device="cpu", dtype=BF16)
+    ref = cpu16.restore_batch(imgs[5:6])[0]
+    gap = np.abs(r32.restore_batch(imgs[5:6])[0] - ref)
     vs_cpu = {}
-    for tag, (img, got) in {"batch 1": (imgs[0], out1[0]),
-                            "batch 8, image 5": (imgs[5], out8[5])}.items():
-        ref = cpu16.restore_batch([img])[0]
-        gap = np.abs(r32.restore_batch([img])[0] - ref)
+    for tag, got in {"batch 1, image 5": out1[0], "batch 8, image 5": out8[5]}.items():
         err = np.abs(got - ref)
         vs_cpu[tag] = row = {"mean_abs_err": float(err.mean()), "mean_fp32_bf16_gap": float(
             gap.mean()), "max_abs_err": float(err.max()), "max_fp32_bf16_gap": float(gap.max()),
@@ -1529,22 +1643,24 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
                 and row["max_abs_err"] <= BF16_RTOL * max(float(np.abs(ref).max()), 1.0)):
             raise AssertionError(f"bf16 card vs CPU {tag}: {row}")
     del cpu16, cpu_net
+    part("serving and CPU")
 
     # ---- img/s in turns, fp32 and bf16, and the peak memory at batch 8
     rate = {"fp32": {1: [], 8: []}, "bf16": {1: [], 8: []}}
     peak = {}
     for tag in ("fp32", "bf16", "bf16", "fp32"):
         r = r16 if tag == "bf16" else r32
-        rate[tag][1].append(images_per_sec(r, gen_np, 1, 10))
+        rate[tag][1].append(images_per_sec(r, gen_np, 1, TURN_IMAGES_B1))
         torch.cuda.reset_peak_memory_stats()
-        rate[tag][8].append(images_per_sec(r, gen_np, 8, 3))
+        rate[tag][8].append(images_per_sec(r, gen_np, 8, TURN_BATCHES_B8))
         peak[tag] = torch.cuda.max_memory_allocated()
     log(f"256px restore_batch, in turns fp32/bf16/bf16/fp32: {json.dumps(rate)}, "
         f"peak memory at batch 8 {json.dumps(peak)} ({card})")
+    part("rates")
 
     # ---- cli.test --dtype bfloat16 on the card against the CPU
     with tempfile.TemporaryDirectory() as tmp:
-        write_eval_tree(tmp, seed=8, n=2, size=(256, 256))
+        write_eval_tree(tmp, seed=8, n=1, size=(128, 128))
         ckpt = os.path.join(tmp, "tnet.pt")
         torch.save({k: v.cpu() for k, v in net.state_dict().items()}, ckpt)
         argv = ["--ckpt", ckpt, "--degset", f"{tmp}/paired/input/", "--tarset",
@@ -1564,13 +1680,17 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
     if not psnr_gap <= BF16_PSNR_DB:
         raise AssertionError(f"cli.test bf16 PSNR gap {psnr_gap} dB > {BF16_PSNR_DB}")
 
+    part("cli.test")
     compositions = bf16_compositions(gen_np, net, r32, cpu16_net(net), card)
+    part("compositions")
     timings = {label: bf16_timings(gen, label, res, c, heads, 1)
-               for label, res, c, heads in MAIN_SHAPES}
+               for label, res, c, heads in MAIN_SHAPES if label in BF16_TIMED_SHAPES}
+    part("timings")
+    log(f"bf16 serving phase seconds: {json.dumps(seconds)}")
     return dict(errs=errs, launches=launches, n_fwd=n_fwd, vs_cpu=vs_cpu,
                 img_per_s=rate, batch8_max_memory_allocated=peak, cli_psnr_gap_db=psnr_gap,
                 cli_launches=cli_launches, compositions=compositions, timings=timings,
-                card=card)
+                seconds=seconds, card=card)
 
 
 def cpu16_net(net):
@@ -1615,7 +1735,7 @@ def bf16_compositions(gen_np, net, r32, cpu_net, card) -> dict:
             raise AssertionError(f"serving bf16 {mode} card vs CPU: {row}")
     rate = {mode: [] for mode in rs}
     for mode in ("full", "head", "tail", "off", "off", "tail", "head", "full"):
-        rate[mode].append(images_per_sec(rs[mode], gen_np, 8, 3))
+        rate[mode].append(images_per_sec(rs[mode], gen_np, 8, TURN_BATCHES_B8))
     log(f"256px restore_batch bf16 at batch 8 by composition, in turns: {json.dumps(rate)} "
         f"({card})")
     return dict(vs_cpu_128px=out, batch8_img_per_s=rate)
@@ -1847,10 +1967,10 @@ def phase_bf16_train(gen, card) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for i in range(5):
+        for i in range(TIMED_ITERATIONS):
             state, _ = iteration(state, bs[i % 3], als[i % 3], False, lr)
         torch.cuda.synchronize()
-        rates[tag].append(5 / (time.perf_counter() - t0))
+        rates[tag].append(TIMED_ITERATIONS / (time.perf_counter() - t0))
         peak[tag].append(torch.cuda.max_memory_allocated())
     state.t_net.composition = "tail"
     log(f"training {TRAIN_RES}px B={TRAIN_B}, in turns {' / '.join(runs + runs[::-1])}: "
@@ -1869,8 +1989,8 @@ def _bf16_ulp(v: float) -> float:
 def phase_bf16_train_vs_cpu(gen_np, composition: str = "tail", **tiers) -> dict:
     """bf16 training's gradients and one iteration's metrics on the card
     against the CPU's, in the composition (and attention core and depthwise
-    tier, `tiers`) given (both sides), from one seed
-    at 64^2, B = 1, critic patch 64, the
+    tier, `tiers`) given (both sides), from one seed, at full width and
+    VS_CPU_MODEL's depth, at 64^2, B = 1, critic patch 64, the
     critic's sign pattern pinned to the CPU's bf16 run (LeakyPattern; the
     CPU's fp32 run records its own): the gradients, all together, within
     a quarter of what bf16 changes on the CPU, sum|card - CPU bf16| <=
@@ -1879,7 +1999,7 @@ def phase_bf16_train_vs_cpu(gen_np, composition: str = "tail", **tiers) -> dict:
     not move: after an RMSprop step every entry with a near-zero gradient
     has moved by +-10 lr with a sign that the order of sums decides, and in
     bf16 that reaches the scores read after it)."""
-    cfg = Config(critic=CriticConfig(patch_size=64),
+    cfg = Config(model=VS_CPU_MODEL, critic=CriticConfig(patch_size=64),
                  train=TrainConfig(batch_size=1, dtype="bfloat16"))
     b, res = cfg.train.batch_size, cfg.critic.patch_size
     deg, tgt = (torch.from_numpy(gen_np.uniform(0, 1, (b, res, res, 3)).astype(np.float32))
@@ -1983,17 +2103,16 @@ def phase_bf16_train_cli(card: str) -> dict:
 RESUME_ATOL = 4e-3
 
 
-def phase_bf16_resume(card: str) -> dict:
-    """rcot_torch.cli.train --dtype bfloat16 --composition full at full
-    width, one epoch of 7 steps on phase 7's seeded tree, twice: stopped by
-    --fail-at-step 3 and resumed from latest.npz, and straight through. Each
-    counted (the bf16 "full" kernels 94 times an iteration, the
-    validation's two forwards in fp32 "full"). The two final states'
-    parameters and RMSprop slots are compared: bitwise, else the largest
-    difference against RESUME_ATOL. cuDNN runs deterministic for these two
-    runs alone (its convolutions' backward may otherwise pick algorithms
-    that sum in another order from call to call); the library does not set
-    it."""
+def cli_resume(card: str, tag: str, flags: list, per_iteration: dict, bitwise: bool) -> dict:
+    """rcot_torch.cli.train with `flags` at full width, one epoch of 7 steps
+    on phase 7's seeded tree, twice: stopped by --fail-at-step 3 and resumed
+    from latest.npz, and straight through. Each counted (`per_iteration`
+    launches an iteration, the validation's two forwards in fp32 "full").
+    The two final states' parameters and RMSprop slots are compared:
+    bitwise (`bitwise`), else the largest difference against RESUME_ATOL.
+    cuDNN runs deterministic for these runs alone (its convolutions'
+    backward may otherwise pick algorithms that sum in another order from
+    call to call); the library does not set it."""
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -2002,14 +2121,13 @@ def phase_bf16_resume(card: str) -> dict:
             write_synthetic_tree(root, seed=0, n_denoise=3, n_rain=0, n_haze=6, size=192,
                                  val_sizes=((192, 192), (250, 321)))
             runs, launches = {}, {}
-            for tag in ("resumed", "straight"):
-                run = f"{tmp}/{tag}"
-                argv = train_cli_argv(root, run) + ["--dtype", "bfloat16", "--composition",
-                                                    "full"]
+            for run_tag in ("resumed", "straight"):
+                run = f"{tmp}/{run_tag}"
+                argv = train_cli_argv(root, run) + flags
                 argv[argv.index("--n-epochs") + 1] = "1"
                 build.reset_launches()
                 n_iter = 7
-                if tag == "resumed":
+                if run_tag == "resumed":
                     try:
                         train_cli.main(argv + ["--fail-at-step", "3"])
                     except InjectedFailure:
@@ -2019,19 +2137,19 @@ def phase_bf16_resume(card: str) -> dict:
                     latest = f"{run}/ckpt/latest.npz"
                     n_iter = 3 + 7 - read_metadata(latest)["epoch_step"]
                     argv += ["--resume", latest]
-                runs[tag] = train_cli.main(argv)
+                runs[run_tag] = train_cli.main(argv)
                 torch.cuda.synchronize()
-                launches[tag] = dict(build.LAUNCHES)
-                want = sum_launches({k: FORWARD_LAUNCHES * n_iter for k in bf16_path("full")},
+                launches[run_tag] = dict(build.LAUNCHES)
+                want = sum_launches({k: n * n_iter for k, n in per_iteration.items()},
                                     expected_launches(FORWARD_LAUNCHES * 2, "full", False))
-                check_launches(f"bf16 train CLI in full, {tag} ({n_iter} iterations, 2 "
-                               "forwards in fp32 full)", launches[tag], want)
+                check_launches(f"{tag}, {run_tag} ({n_iter} iterations, 2 forwards in fp32 "
+                               "full)", launches[run_tag], want)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     a, b = runs["resumed"].state, runs["straight"].state
     worst, where, n_diff = 0.0, None, 0
-    for tag, na, nb, oa, ob in (("T", a.t_net, b.t_net, a.t_opt, b.t_opt),
-                                ("F", a.f_net, b.f_net, a.f_opt, b.f_opt)):
+    for net_tag, na, nb, oa, ob in (("T", a.t_net, b.t_net, a.t_opt, b.t_opt),
+                                    ("F", a.f_net, b.f_net, a.f_opt, b.f_opt)):
         for (n, p), q in zip(na.named_parameters(), nb.parameters()):
             pairs = [(n, p, q)] + [(f"{n} {k}", oa.state[p][k], ob.state[q][k])
                                    for k in oa.state.get(p, {}) if k != "step"]
@@ -2039,14 +2157,415 @@ def phase_bf16_resume(card: str) -> dict:
                 d = float((u.float() - v.float()).abs().max()) if u.numel() else 0.0
                 n_diff += int(d > 0)
                 if d > worst:
-                    worst, where = d, f"{tag} {name}"
+                    worst, where = d, f"{net_tag} {name}"
     row = dict(bitwise_equal=n_diff == 0, tensors_differing=n_diff, max_abs_diff=worst,
-               at=where, atol=RESUME_ATOL, steps=(a.step, b.step))
-    log(f"bf16 train CLI in full, fail-then-resume against straight through, cuDNN "
-        f"deterministic: {json.dumps(row)} ({card})")
-    if a.step != b.step or not worst <= RESUME_ATOL:
-        raise AssertionError(f"bf16 resume in full: {row}")
+               at=where, atol=0.0 if bitwise else RESUME_ATOL, steps=(a.step, b.step))
+    log(f"{tag}, fail-then-resume against straight through, cuDNN deterministic: "
+        f"{json.dumps(row)} ({card})")
+    if a.step != b.step or not worst <= row["atol"]:
+        raise AssertionError(f"{tag} resume: {row}")
     return dict(row, launches=launches)
+
+
+def phase_bf16_resume(card: str) -> dict:
+    """rcot_torch.cli.train --dtype bfloat16 --composition full through a
+    failure and a resume against a run straight through (cli_resume), the
+    bf16 "full" kernels 94 times an iteration."""
+    return cli_resume(card, "bf16 train CLI in full", ["--dtype", "bfloat16", "--composition",
+                                                       "full"],
+                      {k: FORWARD_LAUNCHES for k in bf16_path("full")}, bitwise=False)
+
+
+# ---------------------------------------------- bf16 operands (--bwd-bf16)
+
+# The bf16-operand forms are held against their plain twins with bf16
+# operands (ops/block.py _Mm16, the explicit formulas of ops/gram.py) by the
+# rule of tests/test_torch_bwd_bf16.py, which tells a form that rounds from
+# one that does not: on every output that rounding reaches, mean|form -
+# twin| <= B16OPS_SHARE * mean|3xTF32 form - twin| (the twin sits a whole
+# gap from the 3xTF32 form, a form that ignored its flag would read 1), and
+# max|form - twin| <= B16OPS_MAX_RTOL * max(max|twin|, 1): an fp32 ulp of
+# difference in an intermediate that rounds (dh, dt, the gate) or in a bf16
+# output now and then lands it on the neighbouring bf16, one ulp, at most
+# 2^-7 of the value (measured: one ulp of a bf16 da at 6.3, 2^-5). An output that no rounded product reaches (B16OPS_UNREACHED:
+# ddw of the head and the qkv configuration, whose dconv is g itself; on
+# bf16 activations the tail's and the GDFN's ddw and dattn, whose operands
+# are bf16 already) is the same function in both forms: held against the
+# twin as its 3xTF32 form is, KERNEL_RTOL in fp32, BF16_RTOL in bf16 (the
+# 3xTF32 form sits as far from the twin there as the form does: the sums'
+# order, not the rounding).
+B16OPS_SHARE = 1.0 / 16
+B16OPS_MAX_RTOL = 2.0 ** -7
+# The _bf16 forms round at the forward's rounding points too (t, u and h,
+# recomputed in bf16) and round their bf16 outputs: where a value lies
+# next to a boundary, the form's and the twin's fp32 sums round it an ulp
+# apart, and so do the 3xTF32 form's and the twin's. Those flips are the
+# same in both distances and are most of the 3xTF32 form's where the
+# operands' rounding moves a value by less than an ulp (a pixel sum; dx,
+# mostly the residual g): there a form read up to 0.12 of the gap on the
+# card (dW_proj at L2; dln_b 0.075; dx 0.06-0.08 at C = 192 and 384). The
+# _bf16 forms are held to a quarter of the gap, the repo's rule for bf16;
+# a form that ignored its flag reads about 1 there too.
+B16OPS_BF16_SHARE = 1.0 / 4
+B16OPS_UNREACHED = {("block_head_bwd_b16ops", 4), ("conv1x1_dw_bwd_b16ops", 2),
+                    ("block_head_bwd_bf16_b16ops", 4), ("conv1x1_dw_bwd_bf16_b16ops", 2),
+                    ("block_tail_bwd_bf16_b16ops", 6), ("gdfn_fused_bwd_bf16_b16ops", 2),
+                    ("attn_apply_bwd_bf16_b16ops", 1)}
+
+
+def b16ops_calls(p, qkv, heads, r) -> dict:
+    """{name: (the bf16-operand form, its plain twin, the 3xTF32 form)},
+    each a call -> a tuple of outputs, of rows 5 (head and tail), 6-7 and 9
+    (qkv and GDFN) on block inputs p and a qkv (fp32, or bf16 with the
+    _bf16 forms), cotangents drawn by r."""
+    dt = p["x"].dtype
+    b, res, _, c = p["x"].shape
+    g_m, g_c = r(b, res, res, 3 * c).to(dt), r(b, res, res, c).to(dt)
+    rows = {
+        "block_tail_bwd": (kblock.block_tail_bwd, kblock.block_tail_bwd_plain,
+                           (*tail_args(p), g_c)),
+        "block_head_bwd": (kblock.block_head_bwd, kblock.block_head_bwd_plain,
+                           (*head_args(p), g_m)),
+        "conv1x1_dw_bwd": (kfused.fused_dwconv_bwd, kfused.fused_dwconv_bwd_plain,
+                           (*fused_args(p, False), g_m)),
+        "gdfn_fused_bwd": (kfused.fused_dwconv_bwd, kfused.fused_dwconv_bwd_plain,
+                           (*fused_args(p, True), g_c)),
+    }
+    sfx = "_bf16" if dt == BF16 else ""
+    calls = {f"{name}{sfx}_b16ops": (functools.partial(fn, *args, bf16_ops=True),
+                                     functools.partial(plain, *args, bf16_ops=True),
+                                     functools.partial(fn, *args))
+             for name, (fn, plain, args) in rows.items()}
+    return {**calls, **b16ops_gram_calls(g_c, qkv, heads, r)}
+
+
+def check_b16ops_call(name, tag, calls, errs) -> None:
+    """One bf16-operand form: two calls bitwise equal and one count each,
+    every output against the twin by the rule above B16OPS_SHARE."""
+    form, twin, base = calls[name]
+    n0 = build.LAUNCHES[name]
+    got, again = form(), form()
+    torch.cuda.synchronize()
+    if build.LAUNCHES[name] != n0 + 2:
+        raise AssertionError(f"{name} {tag}: {build.LAUNCHES[name] - n0} counts for two calls")
+    check_repeats(f"{name} {tag}", tuple(t for t in got if t is not None),
+                  tuple(t for t in again if t is not None))
+    want, old = twin(), base()
+    worst = errs.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                   "mean_share_of_gap": 0.0})
+    for i, (g, w, o) in enumerate(zip(got, want, old)):
+        if g is None:
+            continue
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name} {tag} output {i}: {g.dtype} {tuple(g.shape)} against "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        d = (g.double() - w.double()).abs()
+        err, mean = float(d.max()), float(d.mean())
+        gap = float((o.double() - w.double()).abs().mean())
+        scale = max(float(w.abs().max()), 1.0)
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["max_rel_err"] = max(worst["max_rel_err"], err / scale)
+        if (name, i) in B16OPS_UNREACHED:
+            tol = (BF16_RTOL if g.dtype == BF16 else KERNEL_RTOL) * scale
+            if not err <= tol:
+                raise AssertionError(f"{name} {tag} output {i} (no rounded product): max|err| "
+                                     f"{err:.3e} > {tol:.3e}")
+            continue
+        worst["mean_share_of_gap"] = max(worst["mean_share_of_gap"], mean / gap)
+        share = B16OPS_BF16_SHARE if "_bf16_" in name else B16OPS_SHARE
+        if not (mean <= share * gap and err <= B16OPS_MAX_RTOL * scale):
+            raise AssertionError(f"{name} {tag} output {i}: mean|form - twin| {mean:.3e} "
+                                 f"({mean / gap:.4f} of the 3xTF32 form's {gap:.3e}, gate "
+                                 f"{share}), max {err:.3e} (gate {B16OPS_MAX_RTOL * scale:.3e})")
+
+
+def phase_b16ops_kernels(gen) -> dict:
+    """The twelve bf16-operand forms (rows 5, 6-7 and 9 on fp32 and on bf16
+    activations) against their twins at every training block shape (128^2,
+    B = 3), rows 6-7 also at the wide heads; each bitwise against a second
+    call."""
+    errs: dict = {}
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    failed = []
+
+    def checked(name, tag, calls):
+        try:
+            check_b16ops_call(name, tag, calls, errs)
+        except AssertionError as e:  # every form at every shape runs; the phase fails below
+            failed.append(str(e))
+    for label, res, c, heads in TRAIN_SHAPES:
+        for dt in (torch.float32, BF16):
+            p = block_inputs(gen, TRAIN_B, res, c, True)
+            p = bf16_block_inputs(p) if dt == BF16 else p
+            calls = b16ops_calls(p, r(TRAIN_B, res, res, 3 * c).to(dt), heads, r)
+            tag = f"{label} {res}^2 C={c} heads={heads} B={TRAIN_B} {str(dt)[6:]}"
+            for name in calls:
+                checked(name, tag, calls)
+            log(f"bf16-operand forms checked at {tag}")
+    for label, (b, h, w), heads, ch in WIDE_HEADS:
+        for dt in (torch.float32, BF16):
+            calls = b16ops_gram_calls(r(b, h, w, heads * ch).to(dt),
+                                      r(b, h, w, 3 * heads * ch).to(dt), heads, r)
+            for name in calls:
+                checked(name, f"{label} {str(dt)[6:]}", calls)
+        log(f"bf16-operand MDTA backward forms checked at {label} heads={heads} ch={ch}")
+    log(f"bf16-operand forms against their twins: {json.dumps(errs)}")
+    if failed:
+        raise AssertionError(f"{len(failed)} bf16-operand checks failed:\n" + "\n".join(failed))
+    return errs
+
+
+def b16ops_gram_calls(g, qkv, heads, r) -> dict:
+    """b16ops_calls' rows 6-7, on a qkv of any head width and the apply's
+    cotangent g."""
+    b, h, w, c = g.shape
+    ch = c // heads
+    dgram, dnq, dnk = r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)
+    attn = torch.softmax(r(b, heads, ch, ch), -1)
+    sfx = "_bf16" if qkv.dtype == BF16 else ""
+
+    def gram(**k):
+        return (kgram.mdta_gram_bwd(qkv, dgram, dnq, dnk, heads, **k),)
+
+    def gram_plain(**k):
+        return (kgram.mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, heads, **k),)
+    return {f"mdta_gram_bwd{sfx}_b16ops": (functools.partial(gram, bf16_ops=True),
+                                           functools.partial(gram_plain, bf16_ops=True), gram),
+            f"attn_apply_bwd{sfx}_b16ops": (
+                functools.partial(kgram.attn_apply_bwd, qkv, attn, g, bf16_ops=True),
+                functools.partial(kgram.attn_apply_bwd_plain, qkv, attn, g, bf16_ops=True),
+                functools.partial(kgram.attn_apply_bwd, qkv, attn, g))}
+
+
+def b16ops_timings(gen, label, res, c, heads, b) -> dict:
+    """The twelve bf16-operand forms at one training block shape: each as
+    ms (events) and device ms, and the device ms of its 3xTF32 form in turns
+    (form, 3xTF32, 3xTF32, form); the bound takes the form's input and
+    output bytes (fp32 or bf16 activations), its backward products at the
+    bf16 tensor-core rate (bf16 operands), its recompute's products (bf16
+    in the bf16 forms, fp32 in the fp32 ones), stencils, gate and LayerNorm
+    at the fp32 rate; the library for rows 6-7 is bmm on bf16 heads of the
+    same operands, none for rows 5 and 9."""
+    n = res * res
+    m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    out = {}
+    for dt in (torch.float32, BF16):
+        p = block_inputs(gen, b, res, c, True)
+        p = bf16_block_inputs(p) if dt == BF16 else p
+        qkv = r(b, res, res, 3 * c).to(dt)
+        calls = b16ops_calls(p, qkv, heads, r)
+        e = 2 if dt == BF16 else 4  # bytes an activation or 1x1 weight element
+        sfx = "_bf16" if dt == BF16 else ""
+        g_c = r(b, res, res, c).to(BF16)
+
+        def heads_t(t, transpose):
+            t = t.reshape(b, n, heads, ch)
+            return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
+                    ).reshape(bh, *((ch, n) if transpose else (n, ch))).to(BF16).contiguous()
+        kn, qn, vn = (heads_t(qkv[..., i * c:(i + 1) * c], False) for i in range(3))
+        gn, gt = heads_t(g_c, False), heads_t(g_c, True)
+        at = torch.softmax(r(b, heads, ch, ch), -1).reshape(bh, ch, ch).to(BF16)
+        dg = r(bh, ch, ch).to(BF16)
+        rec16 = dt == BF16  # the recompute's products on bf16 operands
+        w_qkv, w_tail = e * (m * c) + 4 * 9 * m, e * (c * c + 3 * hid * c) + 4 * (18 * hid + 2 * c)
+        w_gdfn = e * 3 * hid * c + 4 * 18 * hid
+        rows = {  # library, bf16-operand product flops, recompute flops, other flops, bytes
+            "block_tail_bwd": (None, b * n * (4 * c * c + 12 * hid * c),
+                               b * n * (2 * c * c + 4 * hid * c), b * n * (128 * hid + 18 * c),
+                               e * 5 * b * n * c + 2 * w_tail),
+            "block_head_bwd": (None, b * n * 4 * c * m, b * n * 2 * c * m,
+                               b * n * (36 * m + 12 * c), e * b * n * (2 * c + m) + 2 * w_qkv),
+            "conv1x1_dw_bwd": (None, b * n * 4 * c * m, b * n * 2 * c * m, b * n * 36 * m,
+                               e * b * n * (2 * c + m) + 2 * w_qkv),
+            "gdfn_fused_bwd": (None, b * n * 12 * hid * c, b * n * 4 * hid * c,
+                               b * n * 128 * hid, e * 3 * b * n * c + 2 * w_gdfn),
+            "mdta_gram_bwd": (lambda: (torch.bmm(kn, dg), torch.bmm(qn, dg)), b * n * 4 * c * ch,
+                              0, b * n * 4 * c, e * 4 * b * n * c + 4 * bh * (ch * ch + 2 * ch)),
+            "attn_apply_bwd": (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)),
+                               b * n * 4 * c * ch, 0, 0,
+                               e * 3 * b * n * c + 4 * 2 * bh * ch * ch),
+        }
+        for base, (lib, mm16, rec, other, nbytes) in rows.items():
+            name = f"{base}{sfx}_b16ops"
+            form, plain, old = calls[name]
+            ops = max((mm16 + (rec if rec16 else 0)) / PEAK_BF16_FLOPS,
+                      (other + (0 if rec16 else rec)) / PEAK_FLOPS)
+            times = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops * 1e3}
+            by = max(times, key=times.get)
+            dev, turns = [], []
+            for fn in (form, old, old, form):
+                turns.append(device_ms(fn)[0])
+            out[name] = dict(shape=f"{label} {res}^2 C={c} heads={heads} B={b}",
+                             ms=cuda_ms(form), device_ms=(turns[0] + turns[3]) / 2,
+                             device_ms_turns=turns, sm_mhz=sm_clock_mhz(),
+                             tf32x3_device_ms=(turns[1] + turns[2]) / 2,
+                             plain_ms=cuda_ms(plain, iters=5), bound_ms=times[by], bound_by=by,
+                             library_ms=cuda_ms(lib) if lib else None,
+                             library_device_ms=device_ms(lib)[0] if lib else None)
+    return out
+
+
+def phase_b16ops_train(gen, card) -> dict:
+    """fp32 training with every backward tier on bf16 operands (cli.train
+    --bwd-bf16 all) at full width, in "full" (the JAX trainer's
+    RCOT_PALLAS_BLOCK=full beside RCOT_BWD_BF16=all): three counted
+    iterations at 128^2, B = 3 (each backward of rows 5-7 in its _b16ops
+    form 94 times an iteration, none of its 3xTF32 form); one counted
+    iteration in "tail" with "gram" alone (rows 6-7 switch, row 5's tail
+    and row 9's qkv stay 3xTF32); one counted bf16 iteration in "full" with
+    every tier; then iterations/s and peak memory of fp32 "full" without
+    and with the option in turns (off, all, all, off) at B = 3 and at B = 8,
+    and the device ms of one iteration in the first run of each; and one
+    counted iteration at 64^2, B = 1 in each
+    of "head", "tail", "off" and tail/mdta/dwconv with every tier, and in
+    bf16 "off"."""
+    cfg = Config()
+    state = create_train_state(cfg, seed=0, device="cuda", composition="full", bwd_bf16="all")
+    if state.t_net.bwd_bf16 != ALL_TIERS:
+        raise AssertionError(f"bwd_bf16 {state.t_net.bwd_bf16}, not every tier")
+    batches, alphas = train_inputs(gen, cfg)
+    launches = {}
+    state, metrics, launches["full all"] = counted_iterations(
+        state, cfg, batches, alphas, "training full --bwd-bf16 all",
+        with_b16ops(expected_launches(FORWARD_LAUNCHES, "full"), ALL_TIERS))
+    state.t_net.composition, state.t_net.bwd_bf16 = "tail", "gram"
+    state, _, launches["tail gram"] = counted_iterations(
+        state, cfg, batches[:1], alphas[:1], "training tail --bwd-bf16 gram",
+        with_b16ops(expected_launches(FORWARD_LAUNCHES, "tail"), {"gram"}))
+    cfg16 = Config(train=TrainConfig(dtype="bfloat16"))
+    b16, a16 = bf16_batches(batches, alphas)
+    state.t_net.composition, state.t_net.bwd_bf16 = "full", "all"
+    state, _, launches["bf16 full all"] = counted_iterations(
+        state, cfg16, b16[:1], a16[:1], "training bf16 full --bwd-bf16 all",
+        with_b16ops({k: FORWARD_LAUNCHES for k in bf16_path("full")}, ALL_TIERS))
+
+    iteration = make_train_iteration(cfg)
+    lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
+    rates, peak, dev_ms = {}, {}, {}
+    for bsz in (TRAIN_B, 8):
+        bs, als = (batches, alphas) if bsz == TRAIN_B else (
+            [seeded_batch(gen, bsz, TRAIN_RES, [0, 3, 4] * 2 + [0, 3]) for _ in range(3)],
+            [torch.rand(bsz, 1, 1, 1, device="cuda", generator=gen) for _ in range(3)])
+        for tiers in ("0", "all", "all", "0"):
+            tag = f"B={bsz} full {'--bwd-bf16 all' if tiers == 'all' else 'off'}"
+            state.t_net.bwd_bf16 = tiers
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(TIMED_ITERATIONS):
+                state, _ = iteration(state, bs[i % 3], als[i % 3], False, lr)
+            torch.cuda.synchronize()
+            rates.setdefault(tag, []).append(TIMED_ITERATIONS / (time.perf_counter() - t0))
+            peak.setdefault(tag, []).append(torch.cuda.max_memory_allocated())
+            if tag not in dev_ms:  # one profiled iteration a setting: each takes seconds
+                dev_ms[tag] = device_ms(lambda: iteration(state, bs[0], als[0], False, lr),
+                                        iters=1, warmup=0, tries=2)[0]
+    log(f"training fp32 full {TRAIN_RES}px, --bwd-bf16 all in turns with off, at B = 3 and 8: "
+        f"iterations/s {json.dumps(rates)}, device ms an iteration {json.dumps(dev_ms)}, peak "
+        f"memory {json.dumps(peak)} ({card})")
+
+    del state
+    # the other compositions at 64^2, B = 1, on a state of that patch size
+    small = Config(critic=CriticConfig(patch_size=64), train=TrainConfig(batch_size=1))
+    state = create_train_state(small, seed=0, device="cuda", bwd_bf16="all")
+    sb, sa = ([seeded_batch(gen, 1, 64, [3])], [torch.full((1, 1, 1, 1), 0.37, device="cuda")])
+    for key, mode, tiers, dtype in (("head", "head", {}, None), ("tail", "tail", {}, None),
+                                    ("off", "off", {}, None),
+                                    ("tail/mdta/dwconv", "tail", OPT_IN, None),
+                                    ("bf16 off", "off", {}, "bfloat16")):
+        state.t_net.composition = mode
+        state.t_net.attention_core = tiers.get("core", "gram")
+        state.t_net.depthwise = tiers.get("depthwise", "fused")
+        c_ = small if dtype is None else Config(critic=CriticConfig(patch_size=64),
+                                                train=TrainConfig(batch_size=1, dtype=dtype))
+        want = (expected_launches(FORWARD_LAUNCHES, mode, **tiers) if dtype is None else
+                {k: FORWARD_LAUNCHES for k in bf16_path(mode)})
+        bb, aa = (sb, sa) if dtype is None else bf16_batches(sb, sa)
+        state, _, launches[f"64px {key} all"] = counted_iterations(
+            state, c_, bb, aa, f"training 64^2 {key} --bwd-bf16 all", with_b16ops(want, ALL_TIERS))
+    return dict(launches=launches, iterations={k: 3 if k == "full all" else 1 for k in launches},
+                metrics=metrics, it_per_s_runs=rates,
+                it_per_s={k: sum(v) / len(v) for k, v in rates.items()},
+                device_ms_per_iteration=dev_ms, max_memory_allocated=peak, card=card)
+
+
+# fp32 training's gradients with every tier on bf16 operands, the card
+# against the CPU (phase_b16ops_vs_cpu). Both sides round the same operands
+# to bf16 from fp32 values that differ only in their order of sums, but
+# where such a value lies next to a rounding boundary they round it one
+# bf16 ulp apart, and the backward carries each flip into the next block's
+# cotangent, where it moves many more values across boundaries: the two
+# sides' roundings part more with each block the backward goes through
+# (tests/test_torch_bwd_bf16_tnet.py, on the tiny T_net against JAX: 0.27
+# of the fp32 - bf16 gap at the block it reaches first, 0.76 summed over
+# every gradient, 1.00 for a side that rounds nothing; the JAX package
+# against itself, op by op against compiled, PERF.md section 6). So the
+# gradients, summed over T's tensors, within B16OPS_MODEL_RATIO of what the
+# option changes on the CPU, and those of the block the backward reaches
+# first (the last refinement block) within B16OPS_FIRST_RATIO.
+B16OPS_MODEL_RATIO = 0.9
+B16OPS_FIRST_RATIO = 0.5
+
+
+def phase_b16ops_vs_cpu(gen_np) -> dict:
+    """The full-width nets at VS_CPU_MODEL's depth from one seed at 64^2,
+    B = 1, in fp32 "full" with every tier on bf16 operands, on the card and
+    on the CPU (and on the
+    CPU with none, for the gap): T's gradients by the rule above
+    B16OPS_MODEL_RATIO, the critic's sign pattern pinned to the CPU's."""
+    cfg = Config(model=VS_CPU_MODEL, critic=CriticConfig(patch_size=64),
+                 train=TrainConfig(batch_size=1))
+    b, res = cfg.train.batch_size, cfg.critic.patch_size
+    deg, tgt = (torch.from_numpy(gen_np.uniform(0, 1, (b, res, res, 3)).astype(np.float32))
+                for _ in range(2))
+    alpha = torch.full((b, 1, 1, 1), 0.37)
+    sides, seconds = {}, {}
+    pattern = LeakyPattern()
+    for key, dev, tiers in (("cpu all", "cpu", "all"), ("cpu off", "cpu", "0"),
+                            ("card all", "cuda", "all")):
+        t0 = time.perf_counter()
+        state = create_train_state(cfg, seed=1, device=dev, composition="full", bwd_bf16=tiers)
+        batch = Batch(deg.to(dev), tgt.to(dev), torch.tensor([0] * b, device=dev))
+        ctx = (pattern.recording() if key == "cpu all" else
+               pattern.replaying() if dev == "cuda" else LeakyPattern().recording())
+        with ctx:
+            grads = {k: v.float().cpu() for k, v in
+                     train_grads(state, batch, alpha.to(dev), cfg).items() if k.startswith("T ")}
+        sides[key] = grads
+        seconds[key] = time.perf_counter() - t0
+        del state
+    g16, g32, gc = sides["cpu all"], sides["cpu off"], sides["card all"]
+
+    def summed(keys):
+        err = sum(float((gc[k] - g16[k]).abs().sum()) for k in keys)
+        return err / sum(float((g32[k] - g16[k]).abs().sum()) for k in keys)
+    last = VS_CPU_MODEL.num_refinement_blocks - 1
+    first = [k for k in gc if k.startswith(f"T refinement.{last}.")]
+    row = dict(summed=summed(list(gc)), first_block=summed(first), tensors=len(gc),
+               cpu_seconds=seconds)
+    log(f"fp32 --bwd-bf16 all training card vs CPU 64^2 in full: sum|card - CPU| / "
+        f"sum|CPU off - CPU all| {json.dumps(row)}")
+    if not (row["summed"] <= B16OPS_MODEL_RATIO and row["first_block"] <= B16OPS_FIRST_RATIO):
+        raise AssertionError(f"--bwd-bf16 all gradients card vs CPU: {row}")
+    return row
+
+
+def phase_b16ops_resume(card: str) -> dict:
+    """rcot_torch.cli.train in fp32 through a failure and a resume against
+    a run straight through, bit for bit (cli_resume): --bwd-bf16 all
+    --composition full, and --composition tail without the option."""
+    full = expected_launches(FORWARD_LAUNCHES, "full")
+    return {"full --bwd-bf16 all": cli_resume(
+                card, "fp32 train CLI in full --bwd-bf16 all",
+                ["--bwd-bf16", "all", "--composition", "full"], with_b16ops(full, ALL_TIERS),
+                bitwise=True),
+            "tail": cli_resume(card, "fp32 train CLI in tail", ["--composition", "tail"],
+                               expected_launches(FORWARD_LAUNCHES, "tail"), bitwise=True)}
 
 
 # ------------------------------------------------------------ training
@@ -2306,9 +2825,9 @@ def phase_bf16_serve_opt_in(gen_np, net, card) -> dict:
     rate = {k: {1: [], 8: []} for k in runs}
     peak = {}
     for tag in (*runs, *list(runs)[::-1]):
-        rate[tag][1].append(images_per_sec(runs[tag], gen_np, 1, 10))
+        rate[tag][1].append(images_per_sec(runs[tag], gen_np, 1, TURN_IMAGES_B1))
         torch.cuda.reset_peak_memory_stats()
-        rate[tag][8].append(images_per_sec(runs[tag], gen_np, 8, 3))
+        rate[tag][8].append(images_per_sec(runs[tag], gen_np, 8, TURN_BATCHES_B8))
         peak[tag] = torch.cuda.max_memory_allocated()
     log(f"256px restore_batch, in turns {' / '.join(runs)} and back: {json.dumps(rate)}, "
         f"peak memory at batch 8 {json.dumps(peak)} ({card})")
@@ -2344,10 +2863,10 @@ def phase_bf16_train_opt_in(gen, card) -> dict:
         bs, als = (batches16, alphas16) if tag == "bf16" else (batches, alphas)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(5):
+        for i in range(TIMED_ITERATIONS):
             state, _ = iteration(state, bs[i % 3], als[i % 3], False, lr)
         torch.cuda.synchronize()
-        rates[tag].append(5 / (time.perf_counter() - t0))
+        rates[tag].append(TIMED_ITERATIONS / (time.perf_counter() - t0))
     log(f"training {TRAIN_RES}px B={TRAIN_B} tail/mdta/dwconv, in turns fp32/bf16/bf16/fp32: "
         f"iterations/s {json.dumps(rates)} ({card})")
     return dict(launches=launches, metrics=metrics, it_per_s_runs=rates,
@@ -2590,9 +3109,10 @@ def counted_iterations(state, cfg, batches, alphas, tag, want_per_iteration):
     return state, metrics, launches
 
 
-def timed_in_turns(state, cfg, batches, alphas, settings: dict, n_timed: int = 5) -> dict:
+def timed_in_turns(state, cfg, batches, alphas, settings: dict,
+                   n_timed: int = TIMED_ITERATIONS) -> dict:
     """Iterations/s of each named setting of the T_net's kernel choices,
-    five iterations each, in turns A B B A; -> {name: [rate, rate]}."""
+    TIMED_ITERATIONS each, in turns A B B A; -> {name: [rate, rate]}."""
     iteration = make_train_iteration(cfg)
     lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
     a, b = settings
@@ -2835,6 +3355,7 @@ POOL3_RTOL, POOL3_ATOL = 2e-3, 2e-4  # as tests/test_fid_torch_parity.py
 LPIPS_ATOL = 1e-5
 FID_REL = 2e-2
 PSNR_GATE_DB = 1e-3   # card vs CPU per-image PSNR, as tests/test_torch_inference.py
+PSNR_IMAGES = 1       # of cli.test's folder, run again on the CPU and under default flags
 
 
 def run_cli(main, argv) -> tuple:
@@ -2868,6 +3389,10 @@ def phase_eval(card, default_flags) -> dict:
     images on the card against the CPU; the cost of each metric; and the
     CLI's per-image PSNR against the CPU's, in this script's fp32 and under
     PyTorch's default flags (default_flags: TF32 for cuDNN convolutions)."""
+    seconds, t_phase = {}, time.perf_counter()
+
+    def part(name):
+        seconds[name] = time.perf_counter() - t_phase - sum(seconds.values())
     with tempfile.TemporaryDirectory() as tmp:
         root, test = f"{tmp}/eval", f"{tmp}/test"
         write_eval_tree(root, seed=3, n=EVAL_PER_TASK, size=(EVAL_RES, EVAL_RES))
@@ -2910,6 +3435,8 @@ def phase_eval(card, default_flags) -> dict:
         log(f"eval_all at full width: {json.dumps(results)}; seconds by task "
             f"{json.dumps(task_s)} ({card})")
 
+        part("eval_all")
+
         # ---- cli.test with every metric, counted
         out, tar = f"{tmp}/out/", f"{tmp}/tar/"
         argv = ["--ckpt", ckpt, "--degset", f"{test}/paired/input/", "--tarset",
@@ -2932,6 +3459,8 @@ def phase_eval(card, default_flags) -> dict:
         log(f"test CLI at full width with --fid --lpips --niqe-model fit: {averages}, "
             f"FID {fid_line.group(1)}, {test_s:.3f} s for {TEST_IMAGES} images ({card})")
 
+        part("cli.test")
+
         # ---- the metrics of the saved images, card against CPU
         outs, tars = list_image_folder(out), list_image_folder(tar)
         batch = np.stack([fid_cli._load_and_preprocess(f) for f in outs])
@@ -2946,15 +3475,18 @@ def phase_eval(card, default_flags) -> dict:
         lpips_err = float((dist["cuda"] - dist["cpu"]).abs().max())
         if not lpips_err <= LPIPS_ATOL:
             raise AssertionError(f"LPIPS card vs CPU: max|err| {lpips_err:.3e} > {LPIPS_ATOL:g}")
-        fid_card, fid_cpu = (fid_cli.compute_fid_folders(tar, out, device=dev)
-                             for dev in ("cuda", "cpu"))
+        # the card's FID is the one cli.test printed (compute_fid_folders on
+        # the card, to four decimals)
+        fid_card = float(fid_line.group(1))
+        fid_cpu = fid_cli.compute_fid_folders(tar, out, device="cpu")
         fid_rel = abs(fid_card - fid_cpu) / abs(fid_cpu)
-        if not fid_rel <= FID_REL or abs(fid_card - float(fid_line.group(1))) > 1e-4:
-            raise AssertionError(f"FID card {fid_card} vs CPU {fid_cpu}, "
-                                 f"cli.test printed {fid_line.group(1)}")
+        if not fid_rel <= FID_REL:
+            raise AssertionError(f"FID card (cli.test) {fid_card} vs CPU {fid_cpu}")
         log(f"metrics card vs CPU on the saved images: pool3 max|err| {pool3_err:.3e}, "
             f"LPIPS max|err| {lpips_err:.3e}, FID {fid_card!r} vs {fid_cpu!r} "
             f"(rel {fid_rel:.3e})")
+
+        part("metrics vs CPU")
 
         # ---- what evaluation costs
         x50 = torch.rand(50, EVAL_RES, EVAL_RES, 3, device="cuda",
@@ -2979,8 +3511,17 @@ def phase_eval(card, default_flags) -> dict:
             f"({EVAL_RES}^2 in), LPIPS {lpips_ms:.4f} ms per {EVAL_RES}^2 pair, NIQE "
             f"{niqe_ms:.3f} ms per {EVAL_RES}^2 image on the host ({card})")
 
+        part("costs")
+
         # ---- the CLI's numeric mode: per-image PSNR against the CPU's, in
-        # fp32 and under PyTorch's default flags
+        # fp32 and under PyTorch's default flags, on PSNR_IMAGES of the images
+        sub = f"{tmp}/sub"
+        for side in ("input", "target"):
+            os.makedirs(f"{sub}/{side}")
+            for f in list_image_folder(f"{test}/paired/{side}")[:PSNR_IMAGES]:
+                shutil.copy(f, f"{sub}/{side}/")
+        argv = ["--ckpt", ckpt, "--degset", f"{sub}/input/", "--tarset", f"{sub}/target/",
+                "--save", f"{sub}/out/", "--savetar", f"{sub}/tar/", "--saveres", f"{sub}/res/"]
         cpu_psnr = printed_psnrs(run_cli(test_cli.main, argv + ["--device", "cpu"])[1])
         saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = default_flags
@@ -2988,13 +3529,16 @@ def phase_eval(card, default_flags) -> dict:
             default_psnr = printed_psnrs(run_cli(test_cli.main, argv)[1])
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-        if not card_psnr.keys() == cpu_psnr.keys() == default_psnr.keys():
+        if len(cpu_psnr) != PSNR_IMAGES or not cpu_psnr.keys() <= card_psnr.keys() \
+                or cpu_psnr.keys() != default_psnr.keys():
             raise AssertionError(f"PSNR lines {card_psnr}, {cpu_psnr}, {default_psnr}")
         gap_fp32 = max(abs(card_psnr[k] - cpu_psnr[k]) for k in cpu_psnr)
         gap_default = max(abs(default_psnr[k] - cpu_psnr[k]) for k in cpu_psnr)
         log(f"test CLI per-image PSNR vs the CPU: max gap {gap_fp32:.4f} dB in fp32, "
             f"{gap_default:.4f} dB under PyTorch's default flags (matmul.allow_tf32, "
             f"cudnn.allow_tf32 = {default_flags}); printed to 4 decimals")
+        part("PSNR vs CPU")
+        log(f"evaluation phase seconds: {json.dumps(seconds)}")
         if not max(gap_fp32, gap_default) <= PSNR_GATE_DB:
             raise AssertionError(f"card vs CPU PSNR gap {gap_fp32} / {gap_default} dB "
                                  f"> {PSNR_GATE_DB}")
@@ -3007,7 +3551,7 @@ def phase_eval(card, default_flags) -> dict:
                     niqe_ms_per_image_host=niqe_ms, psnr_gap_db_fp32=gap_fp32,
                     psnr_gap_db_default_flags=gap_default,
                     default_flags=dict(zip(("matmul.allow_tf32", "cudnn.allow_tf32"),
-                                           default_flags)), card=card)
+                                           default_flags)), seconds=seconds, card=card)
 
 
 def check_same_state(a, b) -> None:
@@ -3094,10 +3638,12 @@ def train_grads(state, batch, alpha, cfg) -> dict:
 
 
 def phase_train_vs_cpu(gen_np) -> dict:
-    """The full-width nets from one seed on the card and on the CPU, at 64^2,
-    B = 1, critic patch 64: every gradient, then one iteration's metrics,
-    the critic's sign pattern pinned to the CPU's (LeakyPattern)."""
-    cfg = Config(critic=CriticConfig(patch_size=64), train=TrainConfig(batch_size=1))
+    """The full-width nets at VS_CPU_MODEL's depth from one seed on the card
+    and on the CPU, at 64^2, B = 1, critic patch 64: every gradient, then
+    one iteration's metrics, the critic's sign pattern pinned to the CPU's
+    (LeakyPattern)."""
+    cfg = Config(model=VS_CPU_MODEL, critic=CriticConfig(patch_size=64),
+                 train=TrainConfig(batch_size=1))
     b, res = cfg.train.batch_size, cfg.critic.patch_size
     deg, tgt = (gen_np.uniform(0, 1, (b, res, res, 3)).astype(np.float32) for _ in range(2))
     alpha = np.full((b, 1, 1, 1), 0.37, np.float32)
@@ -3137,17 +3683,19 @@ def phase_train_vs_cpu(gen_np) -> dict:
     return dict(grad_worst_rel=worst[0][1], metric_worst_rel=max(m_rel.values()))
 
 
-ONE_HEAD = ModelConfig(heads=(1, 1, 1, 1))  # heads of 48, 96, 192 and 384 channels
+# heads of 48, 96, 192 and 384 channels, at VS_CPU_MODEL's depth
+ONE_HEAD = ModelConfig(heads=(1, 1, 1, 1), **SHALLOW)
 ONE_HEAD_TIERS = (("gram", "fused"), ("mdta", "dwconv"))
 
 
 def phase_one_head(gen_np) -> dict:
-    """ModelConfig(heads=(1, 1, 1, 1)) at full width (seeded weights): the
+    """ModelConfig(heads=(1, 1, 1, 1)) at full width and VS_CPU_MODEL's depth
+    (seeded weights): the
     level-3 and latent heads are 192 and 384 channels wide, past the 128 a
     block of the MDTA kernels takes, and run as channel blocks. Serving:
     make_restorer(...).restore_batch on a 128^2 image in full/gram/fused
-    and in off/mdta/dwconv (94 launches of the attention core's kernels a
-    forward), each against the same restorer on the CPU within the forward
+    and in off/mdta/dwconv (a launch of each of the attention core's kernels
+    a block a forward), each against the same restorer on the CPU within the forward
     gate (MODEL_ATOL, MODEL_RTOL). Training: one 64^2, B = 1 iteration's T
     and F gradients (train_grads) in tail/gram/fused and tail/mdta/dwconv
     against the CPU's in the same tiers, each within GRAD_RTOL of its
@@ -3170,7 +3718,7 @@ def phase_one_head(gen_np) -> dict:
         got = restorers["cuda"].restore_batch([img])[0]
         torch.cuda.synchronize()
         check_launches(f"one head serving {key}", dict(build.LAUNCHES),
-                       expected_launches(FORWARD_LAUNCHES * forwards[0], mode, False,
+                       expected_launches(blocks_per_forward(ONE_HEAD) * forwards[0], mode, False,
                                          core=core, depthwise=tier))
         want = restorers["cpu"].restore_batch([img])[0]
         err = float(np.abs(got - want).max())
@@ -3208,7 +3756,7 @@ def phase_one_head(gen_np) -> dict:
             if dev == "cuda":
                 torch.cuda.synchronize()
                 check_launches(f"one head training {key}", dict(build.LAUNCHES),
-                               expected_launches(FORWARD_LAUNCHES, "tail", core=core,
+                               expected_launches(blocks_per_forward(ONE_HEAD), "tail", core=core,
                                                  depthwise=tier))
             del state
         rel, bad = grad_errors(sides["cuda"], sides["cpu"], terms.sums)
@@ -3289,15 +3837,30 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    # seconds of each phase, for keeping the run inside its time limit
+    phase_s: dict = {}
+    t_lap = [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    cpus, threads = cpu_budget(), torch.get_num_threads()
+    if threads > cpus:
+        torch.set_num_threads(cpus)
+    log(f"host: {cpus} CPUs for this process, torch threads {threads} -> "
+        f"{torch.get_num_threads()} (os.cpu_count() {os.cpu_count()})")
 
     t0 = time.perf_counter()
     lib = build.build()
     build.library()
     log(f"kernels built: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    lap('build')
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     gen_np = np.random.default_rng(0)
@@ -3316,8 +3879,10 @@ def main(argv=None) -> int:
     # heads past 128 channels and the pixel sums' drift, on inputs of their own
     phase_wide_heads(torch.Generator(device="cuda").manual_seed(6), errs)
     drift = phase_sum_drift(torch.Generator(device="cuda").manual_seed(7), errs)
+    lap('kernels')
     model = phase_model(gen_np)
     serve_opt = phase_serve_opt_in(gen_np_opt, model["net"], card)
+    lap('model and serving')
 
     ips1 = images_per_sec(model["restorer"], gen_np, 1, 10)
     torch.cuda.reset_peak_memory_stats()
@@ -3330,6 +3895,7 @@ def main(argv=None) -> int:
         "mdta_attend", "dwconv3x3", "dwconv3x3_qkv"]
     timings = {label: kernel_timings(gen, label, res, c, heads, 1, serve_kernels)
                for label, res, c, heads in MAIN_SHAPES}
+    lap('serve rate and timings')
     # rows 10 and 11 in bf16, timed on inputs of their own before the
     # bf16 phases (after them the profiler loses some of their records)
     gen_oi = torch.Generator(device="cuda").manual_seed(13)
@@ -3340,9 +3906,11 @@ def main(argv=None) -> int:
                       for label, res, c, heads in shapes if label == "L1"}
     opt_seconds = {"timings": time.perf_counter() - t_oi}
     breakdown = forward_breakdown(gen, model["net"], timings)
+    lap('bf16 opt-in timings and breakdown')
     # bf16 serving, on inputs of its own, timed before the training phases
     bf16 = phase_bf16(torch.Generator(device="cuda").manual_seed(9), np.random.default_rng(9),
                       model["net"], card)
+    lap('bf16 serving')
     # rows 10 and 11 in bf16 against their twins, then bf16 serving in
     # off/mdta/dwconv
     t_oi = time.perf_counter()
@@ -3350,13 +3918,27 @@ def main(argv=None) -> int:
     opt_seconds["kernels"] = time.perf_counter() - t_oi
     bf16_serve_opt = phase_bf16_serve_opt_in(np.random.default_rng(13), model["net"], card)
     opt_seconds["serving"] = time.perf_counter() - t_oi - opt_seconds["kernels"]
+    lap('bf16 opt-in kernels and serving')
     del model["restorer"], model["net"]
     # bf16 training's kernels, on inputs of their own, checked and timed
     # before the training phases
     gen_bf16 = torch.Generator(device="cuda").manual_seed(10)
     bf16_train_errs = phase_bf16_train_kernels(gen_bf16)
     bf16_train_times = {label: bf16_train_timings(gen_bf16, label, res, c, heads, TRAIN_B)
-                        for label, res, c, heads in TRAIN_SHAPES}
+                        for label, res, c, heads in TRAIN_SHAPES
+                        if label in BF16_TRAIN_TIMED_SHAPES}
+    lap('bf16 training kernels')
+    # the bf16-operand forms (--bwd-bf16), on inputs of their own, checked
+    # and timed before the training phases too
+    gen_b16 = torch.Generator(device="cuda").manual_seed(15)
+    t_b16 = time.perf_counter()
+    b16ops_errs = phase_b16ops_kernels(gen_b16)
+    b16ops_seconds = {"kernels": time.perf_counter() - t_b16}
+    b16ops_times = {label: b16ops_timings(gen_b16, label, res, c, heads, TRAIN_B)
+                    for label, res, c, heads in TRAIN_SHAPES
+                    if label in ("L1", "decoder_level1")}
+    b16ops_seconds["timings"] = time.perf_counter() - t_b16 - b16ops_seconds["kernels"]
+    lap('bf16-operand kernels')
     # the training shapes are timed before the training phases, on inputs of
     # their own: after those phases the profiler loses device records
     gen_timing = torch.Generator(device="cuda").manual_seed(2)
@@ -3364,31 +3946,57 @@ def main(argv=None) -> int:
                                            [*KERNELS, "dwconv3x3_qkv",
                                             "dwconv3x3_dx_qkv"])
                      for label, res, c, heads in TRAIN_SHAPES}
+    lap('training timings')
 
     train = phase_train(gen)
+    lap('training')
     log(f"training {TRAIN_RES}px B={TRAIN_B}: {train['it_per_s']['tail']:.4f} "
         f"iterations/s in tail, {train['it_per_s']['full']:.4f} in full ({card})")
     vs_cpu = phase_train_vs_cpu(gen_np)
+    lap('training vs CPU')
     bf16_train = phase_bf16_train(torch.Generator(device="cuda").manual_seed(11), card)
+    lap('bf16 training')
     bf16_train_vs_cpu = phase_bf16_train_vs_cpu(np.random.default_rng(11))
     bf16_full_vs_cpu = phase_bf16_train_vs_cpu(np.random.default_rng(12), "full")
+    lap('bf16 training vs CPU')
     t_oi = time.perf_counter()
     bf16_train_opt = phase_bf16_train_opt_in(torch.Generator(device="cuda").manual_seed(14),
                                              card)
     bf16_opt_vs_cpu = phase_bf16_train_vs_cpu(np.random.default_rng(14), "tail", **OPT_IN_TIERS)
     opt_seconds["training"] = time.perf_counter() - t_oi
+    lap('bf16 opt-in training')
+    t_b16 = time.perf_counter()
+    b16ops_train = phase_b16ops_train(torch.Generator(device="cuda").manual_seed(17), card)
+    b16ops_seconds["training"] = time.perf_counter() - t_b16
+    b16ops_vs_cpu = phase_b16ops_vs_cpu(np.random.default_rng(17))
+    b16ops_seconds["vs_cpu"] = time.perf_counter() - t_b16 - b16ops_seconds["training"]
+    lap('bf16-operand training')
     compositions = phase_compositions(gen_np)
+    lap('compositions')
     train_opt = phase_train_opt_in(gen_opt, card)
+    lap('opt-in training')
     one_head = phase_one_head(np.random.default_rng(2))
+    lap('one head')
     cli = phase_train_cli(card)
+    lap('train CLI')
     cli_opt = phase_cli_opt_in(card)
+    lap('opt-in CLIs')
     bf16_cli = phase_bf16_train_cli(card)
+    lap('bf16 train CLI')
     bf16_resume = phase_bf16_resume(card)
+    lap('bf16 resume')
+    t_b16 = time.perf_counter()
+    b16ops_resume = phase_b16ops_resume(card)
+    b16ops_seconds["resume"] = time.perf_counter() - t_b16
+    lap('bf16-operand resume')
     t_oi = time.perf_counter()
     bf16_cli_opt = phase_bf16_cli_opt_in(card)
     opt_seconds["clis"] = time.perf_counter() - t_oi
+    lap('bf16 opt-in CLIs')
     evals = phase_eval(card, default_flags)
+    lap('evaluation')
     parent_bits = phase_parent_bits(args.root) if args.root else "not run: no --root"
+    lap('parent digests')
     splits = {mode: iteration_breakdown(train["it_per_s"][mode], train["critic_ms"],
                                         train_timings, mode) for mode in ("tail", "full")}
 
@@ -3468,9 +4076,22 @@ def main(argv=None) -> int:
             library_ms=t["library_ms"], library_device_ms=t["library_device_ms"],
             at=t["shape"], train_L1=bf16_opt_times["train L1"][
                 "dwconv3x3_bf16_qkv" if name == "dwconv3x3_bf16" else name]))
+    for name, (source, replaces) in B16OPS_KERNELS.items():
+        t = b16ops_times["L1"][name]
+        run = B16OPS_LAUNCHES_FROM[name]
+        n = b16ops_train["launches"][run].get(name, 0)
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=n,
+            launches_counted_in=f"train {run}",
+            launches_per_train_iteration=n // b16ops_train["iterations"][run],
+            **b16ops_errs[name],
+            ms=t["ms"], device_ms=t["device_ms"], tf32x3_device_ms=t["tf32x3_device_ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], library_device_ms=t["library_device_ms"],
+            at=t["shape"], decoder_L1=b16ops_times["decoder_level1"][name]))
     for tag, tt in (("serve", timings), ("train", train_timings),
                     ("serve bf16", bf16["timings"]), ("train bf16", bf16_train_times)):
-        for label in BLOCKS_PER_FORWARD:
+        for label in tt:
             log(json.dumps({"shape": f"{tag} {label}", **{
                 name: {k: v for k, v in t.items() if k != "shape"}
                 for name, t in tt[label].items()}}))
@@ -3515,11 +4136,19 @@ def main(argv=None) -> int:
                                  if not k.endswith("launches")},
                         "timings": bf16_opt_times, "kernel_errs": bf16_opt_errs,
                         "seconds": opt_seconds},
+                    "bwd_bf16": {
+                        "training": {k: v for k, v in b16ops_train.items() if k != "launches"},
+                        "card_vs_cpu_64px_full": b16ops_vs_cpu,
+                        "cli_resume": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                                       for k, v in b16ops_resume.items()},
+                        "timings": b16ops_times, "kernel_errs": b16ops_errs,
+                        "seconds": b16ops_seconds},
                     "eval_256px": evals,
                     "parent_bits": parent_bits,
                     "pixel_sum_drift_512_pixel_ranges": drift,
                     "gram_plain_fp32_vs_float64_rel_err": errs["gram_plain_fp32_rel"],
                     "golden_max_abs_err": model["golden_err"],
+                    "phase_seconds": phase_s,
                     "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(card)

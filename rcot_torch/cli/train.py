@@ -3,7 +3,7 @@
     python -m rcot_torch.cli.train --preset derain --batch-size 3 --patch-size 128 \
         --n-epochs 51 --pairnum 10000000 --Sigma 10000 --sigma 1 \
         [--device cuda] [--composition auto|full|head|tail|off] \
-        [--attention-core gram|mdta] [--depthwise fused|dwconv]
+        [--attention-core gram|mdta] [--depthwise fused|dwconv] [--bwd-bf16 0|all|block,gram,...]
 
 Flags overlay a named preset (utils/config.py PRESETS, the reference's
 README recipes). `--device cpu` runs the plain PyTorch path; the default,
@@ -14,7 +14,11 @@ the JAX package's RCOT_PALLAS_MDTA=1, `--depthwise dwconv` its
 RCOT_PALLAS_FUSED=0 RCOT_PALLAS_DWCONV=1. Validation serves in "full" with
 the same attention core and depthwise tier. `--dtype bfloat16` trains on
 bf16 batches (the JAX trainer's --dtype bfloat16) in any composition,
-attention core and depthwise tier.
+attention core and depthwise tier. `--bwd-bf16` is the JAX package's
+RCOT_BWD_BF16: the backward kernels of the tiers named ("block" row 5,
+"gram" rows 6-7, "fused" row 9; "all" or "1" every one) take bf16 operands
+in their products, with fp32 sums, in fp32 and bf16 training alike; an
+unknown tier name stops the run.
 Flags of paths not ported yet (multi-GPU, MPRNet, --pretrained) raise
 rather than being ignored.
 """
@@ -25,7 +29,7 @@ import argparse
 import dataclasses
 import os
 
-from ..ops.dispatch import ATTENTION_CORES, COMPOSITIONS, DEPTHWISE
+from ..ops.dispatch import ATTENTION_CORES, BWD_BF16_TIERS, COMPOSITIONS, DEPTHWISE
 from ..utils.config import Config, get_preset
 
 
@@ -86,6 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--depthwise", choices=DEPTHWISE, default=argparse.SUPPRESS,
                    help="depthwise tier of the T_net blocks' qkv and GDFN (default "
                         "fused; dwconv = the standalone depthwise kernel)")
+    p.add_argument("--bwd-bf16", dest="bwd_bf16", default=argparse.SUPPRESS,
+                   help="backward kernels whose products take bf16 operands, the JAX "
+                        "package's RCOT_BWD_BF16: 0 (default) none, 1 or all every tier, "
+                        "or a comma list of " + ", ".join(BWD_BF16_TIERS))
     return p
 
 
@@ -141,7 +149,8 @@ def main(argv=None):
     trainer = Trainer(cfg, log_path=log_path, device=args.device,
                       composition=args.composition,
                       attention_core=getattr(args, "attention_core", "gram"),
-                      depthwise=getattr(args, "depthwise", "fused"))
+                      depthwise=getattr(args, "depthwise", "fused"),
+                      bwd_bf16=getattr(args, "bwd_bf16", "0"))
     if args.resume:
         trainer.resume(args.resume)
     trainer.fit(eval_degset=args.degset, eval_tarset=args.tarset,

@@ -61,6 +61,15 @@
 //     227 KB of shared memory: C <= kLnMaxChannels = 3,632).
 // No atomics and no memsets: two calls on the same inputs give the same
 // bits. The gelu derivative is exact: Phi(x) + x phi(x) with erff.
+//
+// bf16 operands (RCOT_BWD_BF16's "block" tier, pallas_block.py's
+// _bwd_dot(..., tier="block") at :305-306, :324-325, :356-357, :375-376,
+// :384-385, :398; the `ops16` argument): the backward products (dgate, du,
+// da, dW_out, dW_in, dW_proj, dW_qkv) take mm.cuh's OPS16 policy, each
+// operand rounded to bf16 as it enters its fragment, one tf32 mma.sync a
+// step; the recompute's products (t, h) stay 3xTF32, and the LayerNorm
+// backward, the residual, dx, dln_w, dln_b and ddw read the unrounded
+// values, as the TPU kernel's do.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -105,25 +114,14 @@ cudaError_t dw_taps(const float* x, const float* g, float* ws, float* ddw, int B
                             plan[kDwTaps + 2], plan[kDwTaps + 3], st);
 }
 
-}  // namespace
-
 // the plan's (K ranges, depth a range) of per-pixel product k
 #define SPLIT(k) plan[kSplit + 2 * (k)], plan[kSplit + 2 * (k) + 1]
 
-extern "C" {
-
-// Block-head backward. Inputs x (B,H,W,C), ln_w, ln_b (C; ln_b null for
-// BiasFree), w_qkv (M,C), dwk (M,3,3), g (B,H,W,M). Outputs dx (B,H,W,C),
-// dln_w, dln_b (C; null with ln_b), dw_qkv (M,C), ddw (M,3,3). Workspace:
-// u (N,C), stats (2N), h (N,M), dh (N,M), du (N,C), N = B*H*W, and sums
-// (ops/block.py block_bwd_plan's). plan: kPlanInts ints (kSumPer0 is
-// dW_qkv's; kVecH, kSumPer1, kSumPer2, kProdT, kProdDa and kDwFwd unused).
-int rcot_block_head_bwd(const float* x, const float* ln_w, const float* ln_b,
-                        const float* w_qkv, const float* dwk, const float* g, float* dx,
-                        float* dln_w, float* dln_b, float* dw_qkv, float* ddw, float* u,
-                        float* stats, float* h, float* dh, float* du, float* sums,
-                        const int* plan, int B, int H, int W, int C, int M, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+template <bool OPS16>
+int head_bwd(const float* x, const float* ln_w, const float* ln_b, const float* w_qkv,
+             const float* dwk, const float* g, float* dx, float* dln_w, float* dln_b,
+             float* dw_qkv, float* ddw, float* u, float* stats, float* h, float* dh, float* du,
+             float* sums, const int* plan, int B, int H, int W, int C, int M, cudaStream_t st) {
   const long long n = (long long)B * H * W;
   const int vc = plan[kVecC], vm = plan[kVecM];
   // recompute: u = LN1(x), h = u @ W_qkv^T
@@ -133,27 +131,20 @@ int rcot_block_head_bwd(const float* x, const float* ln_w, const float* ln_b,
   RCOT_TRY(dw(g, dwk, dh, B, H, W, M, plan, kDwRot, true, st));
   RCOT_TRY(dw_taps(h, g, sums, ddw, B, H, W, M, plan, st));
   // 1x1 backward: du = dh @ W_qkv, dW_qkv = dh^T u
-  RCOT_TRY((product<true, kEpiStore>(dh, M, vm, w_qkv, vc, du, C, n, SPLIT(kProdDu), sums, st)));
-  RCOT_TRY(pixel_sum(dh, vm, u, vc, dw_qkv, sums, M, C, n, plan[kSumPer0], st));
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dh, M, vm, w_qkv, vc, du, C, n, SPLIT(kProdDu),
+                                                   sums, st)));
+  RCOT_TRY(pixel_sum<OPS16>(dh, vm, u, vc, dw_qkv, sums, M, C, n, plan[kSumPer0], st));
   return ln_bwd(x, du, stats, ln_w, ln_b, nullptr, dx, dln_w, dln_b, sums, n, C,
                 plan[kLnPer], st);
 }
 
-// Block-tail backward. Inputs x, a (B,H,W,C), w_proj (C,C), ln_w, ln_b (C;
-// ln_b null for BiasFree), w_in (2h,C), dwk (2h,3,3), w_out (C,h),
-// g (B,H,W,C). Outputs dx, da (B,H,W,C), dw_proj (C,C), dln_w, dln_b (C;
-// null with ln_b), dw_in (2h,C), ddw (2h,3,3), dw_out (C,h). Workspace:
-// t (N,C), stats (2N), u (N,C), h (N,2h), conv_dh (N,2h), dconv (N,2h),
-// gate (N,h), du (N,C), N = B*H*W, and sums (ops/block.py
-// block_bwd_plan's). plan: kPlanInts ints.
-int rcot_block_tail_bwd(const float* x, const float* a, const float* w_proj,
-                        const float* ln_w, const float* ln_b, const float* w_in,
-                        const float* dwk, const float* w_out, const float* g, float* dx,
-                        float* da, float* dw_proj, float* dln_w, float* dln_b, float* dw_in,
-                        float* ddw, float* dw_out, float* t, float* stats, float* u, float* h,
-                        float* conv_dh, float* dconv, float* gate, float* du, float* sums,
-                        const int* plan, int B, int H, int W, int C, int hid, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+template <bool OPS16>
+int tail_bwd(const float* x, const float* a, const float* w_proj, const float* ln_w,
+             const float* ln_b, const float* w_in, const float* dwk, const float* w_out,
+             const float* g, float* dx, float* da, float* dw_proj, float* dln_w, float* dln_b,
+             float* dw_in, float* ddw, float* dw_out, float* t, float* stats, float* u, float* h,
+             float* conv_dh, float* dconv, float* gate, float* du, float* sums, const int* plan,
+             int B, int H, int W, int C, int hid, cudaStream_t st) {
   const long long n = (long long)B * H * W;
   const int m2 = 2 * hid, vc = plan[kVecC], vh = plan[kVecH], vm = plan[kVecM];
   // recompute: t = x + a @ W_proj^T, u = LN2(t), h = u @ W_in^T, conv = dw(h)
@@ -163,21 +154,66 @@ int rcot_block_tail_bwd(const float* x, const float* a, const float* w_proj,
   RCOT_TRY(dw(h, dwk, conv_dh, B, H, W, m2, plan, kDwFwd, false, st));
   // W_out: dgate = g @ W_out, its epilogue the gate's backward (dconv and
   // gate from conv); dW_out = g^T gate
-  RCOT_TRY((product<true, kEpiGate>(g, C, vc, w_out, vh, dconv, hid, n, 1, 0, nullptr, st,
-                                    conv_dh, gate)));
-  RCOT_TRY(pixel_sum(g, vc, gate, vh, dw_out, sums, C, hid, n, plan[kSumPer0], st));
+  RCOT_TRY((product<true, kEpiGate, float, OPS16>(g, C, vc, w_out, vh, dconv, hid, n, 1, 0, nullptr,
+                                                  st, conv_dh, gate)));
+  RCOT_TRY(pixel_sum<OPS16>(g, vc, gate, vh, dw_out, sums, C, hid, n, plan[kSumPer0], st));
   // depthwise backward (conv is dead now: its buffer takes dh)
   RCOT_TRY(dw(dconv, dwk, conv_dh, B, H, W, m2, plan, kDwRot, true, st));
   RCOT_TRY(dw_taps(h, dconv, sums, ddw, B, H, W, m2, plan, st));
   // W_in: du = dh @ W_in, dW_in = dh^T u
-  RCOT_TRY((product<true, kEpiStore>(conv_dh, m2, vm, w_in, vc, du, C, n, SPLIT(kProdDu), sums,
-                                     st)));
-  RCOT_TRY(pixel_sum(conv_dh, vm, u, vc, dw_in, sums, m2, C, n, plan[kSumPer1], st));
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(conv_dh, m2, vm, w_in, vc, du, C, n,
+                                                   SPLIT(kProdDu), sums, st)));
+  RCOT_TRY(pixel_sum<OPS16>(conv_dh, vm, u, vc, dw_in, sums, m2, C, n, plan[kSumPer1], st));
   // LN2 and the residual: dx = dt = LN-VJP(du) + g
   RCOT_TRY(ln_bwd(t, du, stats, ln_w, ln_b, g, dx, dln_w, dln_b, sums, n, C, plan[kLnPer], st));
   // W_proj: da = dt @ W_proj, dW_proj = dt^T a
-  RCOT_TRY((product<true, kEpiStore>(dx, C, vc, w_proj, vc, da, C, n, SPLIT(kProdDa), sums, st)));
-  return pixel_sum(dx, vc, a, vc, dw_proj, sums, C, C, n, plan[kSumPer2], st);
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dx, C, vc, w_proj, vc, da, C, n, SPLIT(kProdDa),
+                                                   sums, st)));
+  return pixel_sum<OPS16>(dx, vc, a, vc, dw_proj, sums, C, C, n, plan[kSumPer2], st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Block-head backward. Inputs x (B,H,W,C), ln_w, ln_b (C; ln_b null for
+// BiasFree), w_qkv (M,C), dwk (M,3,3), g (B,H,W,M). Outputs dx (B,H,W,C),
+// dln_w, dln_b (C; null with ln_b), dw_qkv (M,C), ddw (M,3,3). Workspace:
+// u (N,C), stats (2N), h (N,M), dh (N,M), du (N,C), N = B*H*W, and sums
+// (ops/block.py block_bwd_plan's). plan: kPlanInts ints (kSumPer0 is
+// dW_qkv's; kVecH, kSumPer1, kSumPer2, kProdT, kProdDa and kDwFwd unused).
+// ops16: 1 takes the bf16-operand policy in the backward products.
+int rcot_block_head_bwd(const float* x, const float* ln_w, const float* ln_b,
+                        const float* w_qkv, const float* dwk, const float* g, float* dx,
+                        float* dln_w, float* dln_b, float* dw_qkv, float* ddw, float* u,
+                        float* stats, float* h, float* dh, float* du, float* sums,
+                        const int* plan, int B, int H, int W, int C, int M, int ops16,
+                        void* stream) {
+  return (ops16 ? head_bwd<true> : head_bwd<false>)(x, ln_w, ln_b, w_qkv, dwk, g, dx, dln_w, dln_b,
+                                                    dw_qkv, ddw, u, stats, h, dh, du, sums, plan, B,
+                                                    H, W, C, M, (cudaStream_t)stream);
+}
+
+// Block-tail backward. Inputs x, a (B,H,W,C), w_proj (C,C), ln_w, ln_b (C;
+// ln_b null for BiasFree), w_in (2h,C), dwk (2h,3,3), w_out (C,h),
+// g (B,H,W,C). Outputs dx, da (B,H,W,C), dw_proj (C,C), dln_w, dln_b (C;
+// null with ln_b), dw_in (2h,C), ddw (2h,3,3), dw_out (C,h). Workspace:
+// t (N,C), stats (2N), u (N,C), h (N,2h), conv_dh (N,2h), dconv (N,2h),
+// gate (N,h), du (N,C), N = B*H*W, and sums (ops/block.py
+// block_bwd_plan's). plan: kPlanInts ints. ops16: as the head's.
+int rcot_block_tail_bwd(const float* x, const float* a, const float* w_proj,
+                        const float* ln_w, const float* ln_b, const float* w_in,
+                        const float* dwk, const float* w_out, const float* g, float* dx,
+                        float* da, float* dw_proj, float* dln_w, float* dln_b, float* dw_in,
+                        float* ddw, float* dw_out, float* t, float* stats, float* u, float* h,
+                        float* conv_dh, float* dconv, float* gate, float* du, float* sums,
+                        const int* plan, int B, int H, int W, int C, int hid, int ops16,
+                        void* stream) {
+  return (ops16 ? tail_bwd<true> : tail_bwd<false>)(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g,
+                                                    dx, da, dw_proj, dln_w, dln_b, dw_in, ddw,
+                                                    dw_out, t, stats, u, h, conv_dh, dconv, gate,
+                                                    du, sums, plan, B, H, W, C, hid,
+                                                    (cudaStream_t)stream);
 }
 
 }  // extern "C"

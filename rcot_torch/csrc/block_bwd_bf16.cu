@@ -47,6 +47,11 @@
 // the bf16 recompute a second: the tail's five ints (bf16 a copy of the
 // C-wide operands, and the depthwise forward's (vec, cv, tc, rows), bf16
 // into fp32), the head's one int (the copy width).
+//
+// bf16 operands (RCOT_BWD_BF16's "block" tier, the `ops16` argument): the
+// fp32 design's backward products take mm.cuh's OPS16 policy, as in
+// block_bwd.cu; the bf16 values widened into them are exact in bf16, so
+// only the fp32 intermediates (dh, dt, the gate) round.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,27 +91,19 @@ enum Plan16 { kVecC16, kDw16, kPlan16Ints = kDw16 + 4 };
 
 #define SPLIT(k) plan[kSplit + 2 * (k)], plan[kSplit + 2 * (k) + 1]
 
-extern "C" {
+namespace {
 
-// Block-tail backward on bf16. Inputs x, a (B,H,W,C), w_proj (C,C), w_in
-// (2h,C), dwk (2h,3,3), w_out (C,h), g (B,H,W,C), bf16; ln_w, ln_b (C,
-// fp32; ln_b null for BiasFree). Outputs dx, da (B,H,W,C), dw_proj (C,C),
-// dw_in (2h,C), ddw (2h,3,3), dw_out (C,h), bf16; dln_w, dln_b (C, fp32;
-// null with ln_b). Workspace: tb, ub (N,C), hb (N,2h) bf16; stats (2N),
-// conv_dh, dconv (N,2h), gate (N,h), du (N,C), t32, u32 (N,C), h32 (N,2h),
-// g32, a32, dx32, da32 (N,C), wp32 (C,C), win32 (2h,C), dwk32 (2h,9),
-// wout32 (C,h), dwp32 (C,C), dwin32 (2h,C), ddw32 (2h,9), dwout32 (C,h),
-// sums (the plan's), fp32; N = B*H*W. plan: kPlanInts ints; plan16:
-// kPlan16Ints ints.
-int rcot_block_tail_bwd_bf16(
-    const bf16* x, const bf16* a, const bf16* w_proj, const float* ln_w, const float* ln_b,
-    const bf16* w_in, const bf16* dwk, const bf16* w_out, const bf16* g, bf16* dx, bf16* da,
-    bf16* dw_proj, float* dln_w, float* dln_b, bf16* dw_in, bf16* ddw, bf16* dw_out, bf16* tb,
-    bf16* ub, bf16* hb, float* stats, float* conv_dh, float* dconv, float* gate, float* du,
-    float* t32, float* u32, float* h32, float* g32, float* a32, float* dx32, float* da32,
-    float* wp32, float* win32, float* dwk32, float* wout32, float* dwp32, float* dwin32,
-    float* ddw32, float* dwout32, float* sums, const int* plan, const int* plan16, int B, int H,
-    int W, int C, int hid, void* stream) {
+template <bool OPS16>
+int block_tail_bwd_bf16(const bf16* x, const bf16* a, const bf16* w_proj, const float* ln_w,
+                        const float* ln_b, const bf16* w_in, const bf16* dwk, const bf16* w_out,
+                        const bf16* g, bf16* dx, bf16* da, bf16* dw_proj, float* dln_w,
+                        float* dln_b, bf16* dw_in, bf16* ddw, bf16* dw_out, bf16* tb, bf16* ub,
+                        bf16* hb, float* stats, float* conv_dh, float* dconv, float* gate,
+                        float* du, float* t32, float* u32, float* h32, float* g32, float* a32,
+                        float* dx32, float* da32, float* wp32, float* win32, float* dwk32,
+                        float* wout32, float* dwp32, float* dwin32, float* ddw32, float* dwout32,
+                        float* sums, const int* plan, const int* plan16, int B, int H, int W, int C,
+                        int hid, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * H * W;
   const int m2 = 2 * hid, vc = plan[kVecC], vh = plan[kVecH], vm = plan[kVecM];
@@ -132,25 +129,25 @@ int rcot_block_tail_bwd_bf16(
   RCOT_TRY(up.run(st));
   // W_out: dgate = g @ W_out, its epilogue the gate's backward (dconv and
   // the fp32 gate from conv); dW_out = g^T gate
-  RCOT_TRY((product<true, kEpiGate>(g32, C, vc, wout32, vh, dconv, hid, n, 1, 0, nullptr, st,
-                                    conv_dh, gate)));
-  RCOT_TRY(pixel_sum(g32, vc, gate, vh, dwout32, sums, C, hid, n, plan[kSumPer0], st));
+  RCOT_TRY((product<true, kEpiGate, float, OPS16>(g32, C, vc, wout32, vh, dconv, hid, n, 1, 0,
+                                                  nullptr, st, conv_dh, gate)));
+  RCOT_TRY(pixel_sum<OPS16>(g32, vc, gate, vh, dwout32, sums, C, hid, n, plan[kSumPer0], st));
   // depthwise backward (conv is dead now: its buffer takes dh)
   RCOT_TRY(rcot_dwconv::conv(dconv, dwk32, conv_dh, B, H, W, m2, plan[kDwRot], plan[kDwRot + 1],
                              plan[kDwRot + 2], plan[kDwRot + 3], true, st));
   RCOT_TRY(rcot_dwconv::dtaps(h32, dconv, sums, ddw32, B, H, W, m2, plan[kDwTaps],
                               plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
   // W_in: du = dh @ W_in, dW_in = dh^T u
-  RCOT_TRY((product<true, kEpiStore>(conv_dh, m2, vm, win32, vc, du, C, n, SPLIT(kProdDu), sums,
-                                     st)));
-  RCOT_TRY(pixel_sum(conv_dh, vm, u32, vc, dwin32, sums, m2, C, n, plan[kSumPer1], st));
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(conv_dh, m2, vm, win32, vc, du, C, n,
+                                                   SPLIT(kProdDu), sums, st)));
+  RCOT_TRY(pixel_sum<OPS16>(conv_dh, vm, u32, vc, dwin32, sums, m2, C, n, plan[kSumPer1], st));
   // LN2 and the residual: dt = LN-VJP(du) at t, plus g
   RCOT_TRY(ln_bwd(t32, du, stats, ln_w, ln_b, g32, dx32, dln_w, dln_b, sums, n, C, plan[kLnPer],
                   st));
   // W_proj: da = dt @ W_proj, dW_proj = dt^T a
-  RCOT_TRY((product<true, kEpiStore>(dx32, C, vc, wp32, vc, da32, C, n, SPLIT(kProdDa), sums,
-                                     st)));
-  RCOT_TRY(pixel_sum(dx32, vc, a32, vc, dwp32, sums, C, C, n, plan[kSumPer2], st));
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dx32, C, vc, wp32, vc, da32, C, n,
+                                                   SPLIT(kProdDa), sums, st)));
+  RCOT_TRY(pixel_sum<OPS16>(dx32, vc, a32, vc, dwp32, sums, C, C, n, plan[kSumPer2], st));
   Narrow down;
   down.add(dx32, C, dx, C, n, C);
   down.add(da32, C, da, C, n, C);
@@ -161,22 +158,13 @@ int rcot_block_tail_bwd_bf16(
   return down.run(st);
 }
 
-// Block-head backward on bf16. Inputs x (B,H,W,C), w_qkv (M,C), dwk
-// (M,3,3), g (B,H,W,M), bf16; ln_w, ln_b (C, fp32; ln_b null for BiasFree).
-// Outputs dx (B,H,W,C), dw_qkv (M,C), ddw (M,3,3), bf16; dln_w, dln_b (C,
-// fp32; null with ln_b). Workspace: ub (N,C), hb (N,M) bf16; stats (2N),
-// x32 (N,C), u32 (N,C), h32 (N,M), g32 (N,M), dh (N,M), du (N,C), dx32
-// (N,C), w32 (M,C), dwk32 (M,9), dw32 (M,C), ddw32 (M,9), sums (the
-// plan's), fp32; N = B*H*W. plan: kPlanInts ints (block_head_bwd's); vcb:
-// bf16 a copy of u and W_qkv in the recompute of h.
-int rcot_block_head_bwd_bf16(const bf16* x, const float* ln_w, const float* ln_b,
-                             const bf16* w_qkv, const bf16* dwk, const bf16* g, bf16* dx,
-                             float* dln_w, float* dln_b, bf16* dw_qkv, bf16* ddw, bf16* ub,
-                             bf16* hb, float* stats, float* x32, float* u32, float* h32,
-                             float* g32, float* dh, float* du, float* dx32, float* w32,
-                             float* dwk32, float* dw32, float* ddw32, float* sums,
-                             const int* plan, int vcb, int B, int H, int W, int C, int M,
-                             void* stream) {
+template <bool OPS16>
+int block_head_bwd_bf16(const bf16* x, const float* ln_w, const float* ln_b, const bf16* w_qkv,
+                        const bf16* dwk, const bf16* g, bf16* dx, float* dln_w, float* dln_b,
+                        bf16* dw_qkv, bf16* ddw, bf16* ub, bf16* hb, float* stats, float* x32,
+                        float* u32, float* h32, float* g32, float* dh, float* du, float* dx32,
+                        float* w32, float* dwk32, float* dw32, float* ddw32, float* sums,
+                        const int* plan, int vcb, int B, int H, int W, int C, int M, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * H * W;
   const int vc = plan[kVecC], vm = plan[kVecM];
@@ -199,8 +187,9 @@ int rcot_block_head_bwd_bf16(const bf16* x, const float* ln_w, const float* ln_b
   RCOT_TRY(rcot_dwconv::dtaps(h32, g32, sums, ddw32, B, H, W, M, plan[kDwTaps],
                               plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
   // 1x1 backward: du = dh @ W_qkv, dW_qkv = dh^T u
-  RCOT_TRY((product<true, kEpiStore>(dh, M, vm, w32, vc, du, C, n, SPLIT(kProdDu), sums, st)));
-  RCOT_TRY(pixel_sum(dh, vm, u32, vc, dw32, sums, M, C, n, plan[kSumPer0], st));
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dh, M, vm, w32, vc, du, C, n, SPLIT(kProdDu),
+                                                   sums, st)));
+  RCOT_TRY(pixel_sum<OPS16>(dh, vm, u32, vc, dw32, sums, M, C, n, plan[kSumPer0], st));
   // LN1: dx = LN-VJP(du) at x
   RCOT_TRY(ln_bwd(x32, du, stats, ln_w, ln_b, nullptr, dx32, dln_w, dln_b, sums, n, C,
                   plan[kLnPer], st));
@@ -209,6 +198,57 @@ int rcot_block_head_bwd_bf16(const bf16* x, const float* ln_w, const float* ln_b
   down.add(dw32, C, dw_qkv, C, M, C);
   down.add(ddw32, 9, ddw, 9, M, 9);
   return down.run(st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Block-tail backward on bf16. Inputs x, a (B,H,W,C), w_proj (C,C), w_in
+// (2h,C), dwk (2h,3,3), w_out (C,h), g (B,H,W,C), bf16; ln_w, ln_b (C,
+// fp32; ln_b null for BiasFree). Outputs dx, da (B,H,W,C), dw_proj (C,C),
+// dw_in (2h,C), ddw (2h,3,3), dw_out (C,h), bf16; dln_w, dln_b (C, fp32;
+// null with ln_b). Workspace: tb, ub (N,C), hb (N,2h) bf16; stats (2N),
+// conv_dh, dconv (N,2h), gate (N,h), du (N,C), t32, u32 (N,C), h32 (N,2h),
+// g32, a32, dx32, da32 (N,C), wp32 (C,C), win32 (2h,C), dwk32 (2h,9),
+// wout32 (C,h), dwp32 (C,C), dwin32 (2h,C), ddw32 (2h,9), dwout32 (C,h),
+// sums (the plan's), fp32; N = B*H*W. plan: kPlanInts ints; plan16:
+// kPlan16Ints ints.
+int rcot_block_tail_bwd_bf16(const bf16* x, const bf16* a, const bf16* w_proj, const float* ln_w,
+                             const float* ln_b, const bf16* w_in, const bf16* dwk,
+                             const bf16* w_out, const bf16* g, bf16* dx, bf16* da, bf16* dw_proj,
+                             float* dln_w, float* dln_b, bf16* dw_in, bf16* ddw, bf16* dw_out,
+                             bf16* tb, bf16* ub, bf16* hb, float* stats, float* conv_dh,
+                             float* dconv, float* gate, float* du, float* t32, float* u32,
+                             float* h32, float* g32, float* a32, float* dx32, float* da32,
+                             float* wp32, float* win32, float* dwk32, float* wout32, float* dwp32,
+                             float* dwin32, float* ddw32, float* dwout32, float* sums,
+                             const int* plan, const int* plan16, int B, int H, int W, int C,
+                             int hid, int ops16, void* stream) {
+  return (ops16 ? block_tail_bwd_bf16<true> : block_tail_bwd_bf16<false>)(x, a, w_proj, ln_w, ln_b,
+      w_in, dwk, w_out, g, dx, da, dw_proj, dln_w, dln_b, dw_in, ddw, dw_out, tb, ub, hb, stats,
+      conv_dh, dconv, gate, du, t32, u32, h32, g32, a32, dx32, da32, wp32, win32, dwk32, wout32,
+      dwp32, dwin32, ddw32, dwout32, sums, plan, plan16, B, H, W, C, hid, stream);
+}
+
+// Block-head backward on bf16. Inputs x (B,H,W,C), w_qkv (M,C), dwk
+// (M,3,3), g (B,H,W,M), bf16; ln_w, ln_b (C, fp32; ln_b null for BiasFree).
+// Outputs dx (B,H,W,C), dw_qkv (M,C), ddw (M,3,3), bf16; dln_w, dln_b (C,
+// fp32; null with ln_b). Workspace: ub (N,C), hb (N,M) bf16; stats (2N),
+// x32 (N,C), u32 (N,C), h32 (N,M), g32 (N,M), dh (N,M), du (N,C), dx32
+// (N,C), w32 (M,C), dwk32 (M,9), dw32 (M,C), ddw32 (M,9), sums (the
+// plan's), fp32; N = B*H*W. plan: kPlanInts ints (block_head_bwd's); vcb:
+// bf16 a copy of u and W_qkv in the recompute of h.
+int rcot_block_head_bwd_bf16(const bf16* x, const float* ln_w, const float* ln_b, const bf16* w_qkv,
+                             const bf16* dwk, const bf16* g, bf16* dx, float* dln_w, float* dln_b,
+                             bf16* dw_qkv, bf16* ddw, bf16* ub, bf16* hb, float* stats, float* x32,
+                             float* u32, float* h32, float* g32, float* dh, float* du, float* dx32,
+                             float* w32, float* dwk32, float* dw32, float* ddw32, float* sums,
+                             const int* plan, int vcb, int B, int H, int W, int C, int M, int ops16,
+                             void* stream) {
+  return (ops16 ? block_head_bwd_bf16<true> : block_head_bwd_bf16<false>)(x, ln_w, ln_b, w_qkv,
+      dwk, g, dx, dln_w, dln_b, dw_qkv, ddw, ub, hb, stats, x32, u32, h32, g32, dh, du, dx32, w32,
+      dwk32, dw32, ddw32, sums, plan, vcb, B, H, W, C, M, stream);
 }
 
 }  // extern "C"

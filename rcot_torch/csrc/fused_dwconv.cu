@@ -106,6 +106,54 @@ cudaError_t dw_taps(const float* x, const float* g, float* ws, float* ddw, int B
 // the plan's (K ranges, depth a range) of product k, at plan[at + 2k]
 #define SPLIT(at, k) plan[(at) + 2 * (k)], plan[(at) + 2 * (k) + 1]
 
+namespace {
+
+template <bool OPS16>
+int conv1x1_dw_bwd(const float* x, const float* w_in, const float* dwk, const float* g, float* dx,
+                   float* dw_in, float* ddw, float* h, float* dh, float* sums, const int* plan,
+                   int B, int H, int W, int C, int M, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * H * W;
+  const int vc = plan[kBVecC], vm = plan[kBVecM];
+  // recompute h = x @ W_in^T; with no gate and no W_out, dconv = g
+  RCOT_TRY((product<false, kEpiStore>(x, C, vc, w_in, vc, h, M, n, SPLIT(kBSplit, kProdH), sums,
+                                      st)));
+  RCOT_TRY(dw(g, dwk, dh, B, H, W, M, plan, kDwRot, true, st));
+  RCOT_TRY(dw_taps(h, g, sums, ddw, B, H, W, M, plan, st));
+  // dx = dh @ W_in, dW_in = dh^T x
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dh, M, vm, w_in, vc, dx, C, n,
+                                                   SPLIT(kBSplit, kProdDx), sums, st)));
+  return pixel_sum<OPS16>(dh, vm, x, vc, dw_in, sums, M, C, n, plan[kSumIn], st);
+}
+
+template <bool OPS16>
+int gdfn_fused_bwd(const float* x, const float* w_in, const float* dwk, const float* w_out,
+                   const float* g, float* dx, float* dw_in, float* ddw, float* dw_out, float* h,
+                   float* conv_dh, float* dconv, float* gate, float* sums, const int* plan, int B,
+                   int H, int W, int C, int hid, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * H * W;
+  const int m2 = 2 * hid, vc = plan[kBVecC], vh = plan[kBVecH], vm = plan[kBVecM];
+  // recompute h = x @ W_in^T, conv = dw3x3(h)
+  RCOT_TRY((product<false, kEpiStore>(x, C, vc, w_in, vc, h, m2, n, SPLIT(kBSplit, kProdH),
+                                      sums, st)));
+  RCOT_TRY(dw(h, dwk, conv_dh, B, H, W, m2, plan, kDwFwd, false, st));
+  // W_out: dgate = g @ W_out, its epilogue the gate's backward (dconv and
+  // gate from conv); dW_out = g^T gate
+  RCOT_TRY((product<true, kEpiGate, float, OPS16>(g, C, vc, w_out, vh, dconv, hid, n, 1, 0, nullptr,
+                                                  st, conv_dh, gate)));
+  RCOT_TRY(pixel_sum<OPS16>(g, vc, gate, vh, dw_out, sums, C, hid, n, plan[kSumOut], st));
+  // depthwise backward (conv is dead now: its buffer takes dh)
+  RCOT_TRY(dw(dconv, dwk, conv_dh, B, H, W, m2, plan, kDwRot, true, st));
+  RCOT_TRY(dw_taps(h, dconv, sums, ddw, B, H, W, m2, plan, st));
+  // W_in: dx = dh @ W_in, dW_in = dh^T x
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(conv_dh, m2, vm, w_in, vc, dx, C, n,
+                                                   SPLIT(kBSplit, kProdDx), sums, st)));
+  return pixel_sum<OPS16>(conv_dh, vm, x, vc, dw_in, sums, m2, C, n, plan[kSumIn], st);
+}
+
+}  // namespace
+
 extern "C" {
 
 // qkv = dw3x3(x @ W_in^T). Inputs x (B,H,W,C), w_in (M,C), dwk (M,3,3);
@@ -153,19 +201,11 @@ int rcot_gdfn_fused(const float* x, const float* w_in, const float* dwk, const f
 // (kSumOut, kBVecH and kDwFwd unused).
 int rcot_conv1x1_dw_bwd(const float* x, const float* w_in, const float* dwk, const float* g,
                         float* dx, float* dw_in, float* ddw, float* h, float* dh, float* sums,
-                        const int* plan, int B, int H, int W, int C, int M, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const long long n = (long long)B * H * W;
-  const int vc = plan[kBVecC], vm = plan[kBVecM];
-  // recompute h = x @ W_in^T; with no gate and no W_out, dconv = g
-  RCOT_TRY((product<false, kEpiStore>(x, C, vc, w_in, vc, h, M, n, SPLIT(kBSplit, kProdH), sums,
-                                      st)));
-  RCOT_TRY(dw(g, dwk, dh, B, H, W, M, plan, kDwRot, true, st));
-  RCOT_TRY(dw_taps(h, g, sums, ddw, B, H, W, M, plan, st));
-  // dx = dh @ W_in, dW_in = dh^T x
-  RCOT_TRY((product<true, kEpiStore>(dh, M, vm, w_in, vc, dx, C, n, SPLIT(kBSplit, kProdDx),
-                                     sums, st)));
-  return pixel_sum(dh, vm, x, vc, dw_in, sums, M, C, n, plan[kSumIn], st);
+                        const int* plan, int B, int H, int W, int C, int M, int ops16,
+                        void* stream) {
+  return (ops16 ? conv1x1_dw_bwd<true> : conv1x1_dw_bwd<false>)(x, w_in, dwk, g, dx, dw_in, ddw, h,
+                                                                dh, sums, plan, B, H, W, C, M,
+                                                                stream);
 }
 
 // Backward of rcot_gdfn_fused for the cotangent g (B,H,W,C). Outputs dx
@@ -175,26 +215,12 @@ int rcot_conv1x1_dw_bwd(const float* x, const float* w_in, const float* dwk, con
 int rcot_gdfn_fused_bwd(const float* x, const float* w_in, const float* dwk, const float* w_out,
                         const float* g, float* dx, float* dw_in, float* ddw, float* dw_out,
                         float* h, float* conv_dh, float* dconv, float* gate, float* sums,
-                        const int* plan, int B, int H, int W, int C, int hid, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const long long n = (long long)B * H * W;
-  const int m2 = 2 * hid, vc = plan[kBVecC], vh = plan[kBVecH], vm = plan[kBVecM];
-  // recompute h = x @ W_in^T, conv = dw3x3(h)
-  RCOT_TRY((product<false, kEpiStore>(x, C, vc, w_in, vc, h, m2, n, SPLIT(kBSplit, kProdH),
-                                      sums, st)));
-  RCOT_TRY(dw(h, dwk, conv_dh, B, H, W, m2, plan, kDwFwd, false, st));
-  // W_out: dgate = g @ W_out, its epilogue the gate's backward (dconv and
-  // gate from conv); dW_out = g^T gate
-  RCOT_TRY((product<true, kEpiGate>(g, C, vc, w_out, vh, dconv, hid, n, 1, 0, nullptr, st,
-                                    conv_dh, gate)));
-  RCOT_TRY(pixel_sum(g, vc, gate, vh, dw_out, sums, C, hid, n, plan[kSumOut], st));
-  // depthwise backward (conv is dead now: its buffer takes dh)
-  RCOT_TRY(dw(dconv, dwk, conv_dh, B, H, W, m2, plan, kDwRot, true, st));
-  RCOT_TRY(dw_taps(h, dconv, sums, ddw, B, H, W, m2, plan, st));
-  // W_in: dx = dh @ W_in, dW_in = dh^T x
-  RCOT_TRY((product<true, kEpiStore>(conv_dh, m2, vm, w_in, vc, dx, C, n,
-                                     SPLIT(kBSplit, kProdDx), sums, st)));
-  return pixel_sum(conv_dh, vm, x, vc, dw_in, sums, m2, C, n, plan[kSumIn], st);
+                        const int* plan, int B, int H, int W, int C, int hid, int ops16,
+                        void* stream) {
+  return (ops16 ? gdfn_fused_bwd<true> : gdfn_fused_bwd<false>)(x, w_in, dwk, w_out, g, dx, dw_in,
+                                                                ddw, dw_out, h, conv_dh, dconv,
+                                                                gate, sums, plan, B, H, W, C, hid,
+                                                                stream);
 }
 
 }  // extern "C"

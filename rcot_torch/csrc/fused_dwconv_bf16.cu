@@ -57,6 +57,8 @@
 // no memsets: two calls on the same inputs give the same bits. The plans
 // are ops/fused.py's (fused_fwd_plan with copy widths in bf16 elements and
 // the GDFN's gate always a pass, fused_bwd_plan on the fp32 workspaces).
+// The backwards' `ops16` argument takes RCOT_BWD_BF16's "fused" tier, as
+// fused_dwconv.cu's do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,6 +109,88 @@ cudaError_t dw(const float* x, const float* taps, float* out, int B, int H, int 
 
 #define SPLIT(at, k) plan[(at) + 2 * (k)], plan[(at) + 2 * (k) + 1]
 
+namespace {
+
+template <bool OPS16>
+int conv1x1_dw_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const bf16* g, bf16* dx,
+                        bf16* dw_in, bf16* ddw, bf16* hb, float* x32, float* g32, float* h32,
+                        float* dh, float* dx32, float* w32, float* dwk32, float* dw_in32,
+                        float* ddw32, float* sums, const int* plan, int vcb, int B, int H, int W,
+                        int C, int M, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * H * W;
+  const int vc = plan[kBVecC], vm = plan[kBVecM];
+  // recompute h = bf16(x @ W_in^T), as the forward rounds it
+  RCOT_TRY((product<false, kEpiStore>(x, C, vcb, w_in, vcb, hb, M, n, SPLIT(kBSplit, kProdH),
+                                      sums, st)));
+  Widen up;
+  up.add(x, C, x32, C, n, C);
+  up.add(g, M, g32, M, n, M);
+  up.add(hb, M, h32, M, n, M);
+  up.add(w_in, C, w32, C, M, C);
+  up.add(dwk, 9, dwk32, 9, M, 9);
+  RCOT_TRY(up.run(st));
+  // dconv = g: dh = the rotated forward of g, ddw = dtaps(h, g)
+  RCOT_TRY(dw(g32, dwk32, dh, B, H, W, M, plan, kDwRot, true, st));
+  RCOT_TRY(rcot_dwconv::dtaps(h32, g32, sums, ddw32, B, H, W, M, plan[kDwTaps],
+                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
+  // dx = dh @ W_in, dW_in = dh^T x
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dh, M, vm, w32, vc, dx32, C, n,
+                                                   SPLIT(kBSplit, kProdDx), sums, st)));
+  RCOT_TRY(pixel_sum<OPS16>(dh, vm, x32, vc, dw_in32, sums, M, C, n, plan[kSumIn], st));
+  Narrow down;
+  down.add(dx32, C, dx, C, n, C);
+  down.add(dw_in32, C, dw_in, C, M, C);
+  down.add(ddw32, 9, ddw, 9, M, 9);
+  return down.run(st);
+}
+
+template <bool OPS16>
+int gdfn_fused_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const bf16* w_out,
+                        const bf16* g, bf16* dx, bf16* dw_in, bf16* ddw, bf16* dw_out, bf16* hb,
+                        float* x32, float* g32, float* h32, float* conv_dh, float* dconv,
+                        float* gate, float* dx32, float* win32, float* dwk32, float* wout32,
+                        float* dwin32, float* ddw32, float* dwout32, float* sums, const int* plan,
+                        int vcb, int B, int H, int W, int C, int hid, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * H * W;
+  const int m2 = 2 * hid, vc = plan[kBVecC], vh = plan[kBVecH], vm = plan[kBVecM];
+  // recompute h = bf16(x @ W_in^T), as the forward rounds it
+  RCOT_TRY((product<false, kEpiStore>(x, C, vcb, w_in, vcb, hb, m2, n, SPLIT(kBSplit, kProdH),
+                                      sums, st)));
+  Widen up;
+  up.add(x, C, x32, C, n, C);
+  up.add(g, C, g32, C, n, C);
+  up.add(hb, m2, h32, m2, n, m2);
+  up.add(w_in, C, win32, C, m2, C);
+  up.add(dwk, 9, dwk32, 9, m2, 9);
+  up.add(w_out, hid, wout32, hid, C, hid);
+  RCOT_TRY(up.run(st));
+  // conv = dw3x3(h) in fp32
+  RCOT_TRY(dw(h32, dwk32, conv_dh, B, H, W, m2, plan, kDwFwd, false, st));
+  // W_out: dgate = g @ W_out, its epilogue the gate's backward (dconv and
+  // the fp32 gate from conv); dW_out = g^T gate
+  RCOT_TRY((product<true, kEpiGate, float, OPS16>(g32, C, vc, wout32, vh, dconv, hid, n, 1, 0,
+                                                  nullptr, st, conv_dh, gate)));
+  RCOT_TRY(pixel_sum<OPS16>(g32, vc, gate, vh, dwout32, sums, C, hid, n, plan[kSumOut], st));
+  // depthwise backward (conv is dead now: its buffer takes dh)
+  RCOT_TRY(dw(dconv, dwk32, conv_dh, B, H, W, m2, plan, kDwRot, true, st));
+  RCOT_TRY(rcot_dwconv::dtaps(h32, dconv, sums, ddw32, B, H, W, m2, plan[kDwTaps],
+                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
+  // W_in: dx = dh @ W_in, dW_in = dh^T x
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(conv_dh, m2, vm, win32, vc, dx32, C, n,
+                                                   SPLIT(kBSplit, kProdDx), sums, st)));
+  RCOT_TRY(pixel_sum<OPS16>(conv_dh, vm, x32, vc, dwin32, sums, m2, C, n, plan[kSumIn], st));
+  Narrow down;
+  down.add(dx32, C, dx, C, n, C);
+  down.add(dwin32, C, dw_in, C, m2, C);
+  down.add(ddw32, 9, ddw, 9, m2, 9);
+  down.add(dwout32, hid, dw_out, hid, C, hid);
+  return down.run(st);
+}
+
+}  // namespace
+
 extern "C" {
 
 // qkv = bf16(dw3x3(bf16(x @ W_in^T))). Inputs x (B,H,W,C), w_in (M,C), dwk
@@ -135,33 +219,10 @@ int rcot_conv1x1_dw_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, c
                              bf16* dx, bf16* dw_in, bf16* ddw, bf16* hb, float* x32, float* g32,
                              float* h32, float* dh, float* dx32, float* w32, float* dwk32,
                              float* dw_in32, float* ddw32, float* sums, const int* plan, int vcb,
-                             int B, int H, int W, int C, int M, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const long long n = (long long)B * H * W;
-  const int vc = plan[kBVecC], vm = plan[kBVecM];
-  // recompute h = bf16(x @ W_in^T), as the forward rounds it
-  RCOT_TRY((product<false, kEpiStore>(x, C, vcb, w_in, vcb, hb, M, n, SPLIT(kBSplit, kProdH),
-                                      sums, st)));
-  Widen up;
-  up.add(x, C, x32, C, n, C);
-  up.add(g, M, g32, M, n, M);
-  up.add(hb, M, h32, M, n, M);
-  up.add(w_in, C, w32, C, M, C);
-  up.add(dwk, 9, dwk32, 9, M, 9);
-  RCOT_TRY(up.run(st));
-  // dconv = g: dh = the rotated forward of g, ddw = dtaps(h, g)
-  RCOT_TRY(dw(g32, dwk32, dh, B, H, W, M, plan, kDwRot, true, st));
-  RCOT_TRY(rcot_dwconv::dtaps(h32, g32, sums, ddw32, B, H, W, M, plan[kDwTaps],
-                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
-  // dx = dh @ W_in, dW_in = dh^T x
-  RCOT_TRY((product<true, kEpiStore>(dh, M, vm, w32, vc, dx32, C, n, SPLIT(kBSplit, kProdDx),
-                                     sums, st)));
-  RCOT_TRY(pixel_sum(dh, vm, x32, vc, dw_in32, sums, M, C, n, plan[kSumIn], st));
-  Narrow down;
-  down.add(dx32, C, dx, C, n, C);
-  down.add(dw_in32, C, dw_in, C, M, C);
-  down.add(ddw32, 9, ddw, 9, M, 9);
-  return down.run(st);
+                             int B, int H, int W, int C, int M, int ops16, void* stream) {
+  return (ops16 ? conv1x1_dw_bwd_bf16<true> : conv1x1_dw_bwd_bf16<false>)(x, w_in, dwk, g, dx,
+      dw_in, ddw, hb, x32, g32, h32, dh, dx32, w32, dwk32, dw_in32, ddw32, sums, plan, vcb, B, H, W,
+      C, M, stream);
 }
 
 // y = bf16(gate @ W_out^T), gate = bf16(gelu(c1) c2), [c1 | c2] =
@@ -193,48 +254,16 @@ int rcot_gdfn_fused_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const
 // wout32 (C,h), dwin32 (2h,C), ddw32 (2h,9), dwout32 (C,h) fp32; sums
 // (fp32, the plan's); N = B*H*W. plan: kBwdInts ints; vcb: bf16 a copy of
 // x and W_in in the recompute of h.
-int rcot_gdfn_fused_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk,
-                             const bf16* w_out, const bf16* g, bf16* dx, bf16* dw_in, bf16* ddw,
-                             bf16* dw_out, bf16* hb, float* x32, float* g32, float* h32,
-                             float* conv_dh, float* dconv, float* gate, float* dx32,
-                             float* win32, float* dwk32, float* wout32, float* dwin32,
-                             float* ddw32, float* dwout32, float* sums, const int* plan,
-                             int vcb, int B, int H, int W, int C, int hid, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const long long n = (long long)B * H * W;
-  const int m2 = 2 * hid, vc = plan[kBVecC], vh = plan[kBVecH], vm = plan[kBVecM];
-  // recompute h = bf16(x @ W_in^T), as the forward rounds it
-  RCOT_TRY((product<false, kEpiStore>(x, C, vcb, w_in, vcb, hb, m2, n, SPLIT(kBSplit, kProdH),
-                                      sums, st)));
-  Widen up;
-  up.add(x, C, x32, C, n, C);
-  up.add(g, C, g32, C, n, C);
-  up.add(hb, m2, h32, m2, n, m2);
-  up.add(w_in, C, win32, C, m2, C);
-  up.add(dwk, 9, dwk32, 9, m2, 9);
-  up.add(w_out, hid, wout32, hid, C, hid);
-  RCOT_TRY(up.run(st));
-  // conv = dw3x3(h) in fp32
-  RCOT_TRY(dw(h32, dwk32, conv_dh, B, H, W, m2, plan, kDwFwd, false, st));
-  // W_out: dgate = g @ W_out, its epilogue the gate's backward (dconv and
-  // the fp32 gate from conv); dW_out = g^T gate
-  RCOT_TRY((product<true, kEpiGate>(g32, C, vc, wout32, vh, dconv, hid, n, 1, 0, nullptr, st,
-                                    conv_dh, gate)));
-  RCOT_TRY(pixel_sum(g32, vc, gate, vh, dwout32, sums, C, hid, n, plan[kSumOut], st));
-  // depthwise backward (conv is dead now: its buffer takes dh)
-  RCOT_TRY(dw(dconv, dwk32, conv_dh, B, H, W, m2, plan, kDwRot, true, st));
-  RCOT_TRY(rcot_dwconv::dtaps(h32, dconv, sums, ddw32, B, H, W, m2, plan[kDwTaps],
-                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
-  // W_in: dx = dh @ W_in, dW_in = dh^T x
-  RCOT_TRY((product<true, kEpiStore>(conv_dh, m2, vm, win32, vc, dx32, C, n,
-                                     SPLIT(kBSplit, kProdDx), sums, st)));
-  RCOT_TRY(pixel_sum(conv_dh, vm, x32, vc, dwin32, sums, m2, C, n, plan[kSumIn], st));
-  Narrow down;
-  down.add(dx32, C, dx, C, n, C);
-  down.add(dwin32, C, dw_in, C, m2, C);
-  down.add(ddw32, 9, ddw, 9, m2, 9);
-  down.add(dwout32, hid, dw_out, hid, C, hid);
-  return down.run(st);
+int rcot_gdfn_fused_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const bf16* w_out,
+                             const bf16* g, bf16* dx, bf16* dw_in, bf16* ddw, bf16* dw_out,
+                             bf16* hb, float* x32, float* g32, float* h32, float* conv_dh,
+                             float* dconv, float* gate, float* dx32, float* win32, float* dwk32,
+                             float* wout32, float* dwin32, float* ddw32, float* dwout32,
+                             float* sums, const int* plan, int vcb, int B, int H, int W, int C,
+                             int hid, int ops16, void* stream) {
+  return (ops16 ? gdfn_fused_bwd_bf16<true> : gdfn_fused_bwd_bf16<false>)(x, w_in, dwk, w_out, g,
+      dx, dw_in, ddw, dw_out, hb, x32, g32, h32, conv_dh, dconv, gate, dx32, win32, dwk32, wout32,
+      dwin32, ddw32, dwout32, sums, plan, vcb, B, H, W, C, hid, stream);
 }
 
 }  // extern "C"

@@ -85,6 +85,14 @@
 // ch <= 128 is one pair (nb = 1, cb = ch) and runs each kernel's BLK =
 // false variant, which compiles to a single block's arithmetic: the
 // launches, the bits and the time of a head without blocks.
+//
+// The kernels that several sources share live in headers: stage_rows,
+// GramCfg and the variants' table in gram.cuh, the two backward kernels in
+// gram_bwd.cuh, templated on the operand policy of their products. This
+// source compiles the forward kernels; gram_bwd.cu (row 6) and apply_bwd.cu
+// (row 7) the backward's 3xTF32 form, gram_bwd_b16ops.cu and
+// apply_bwd_b16ops.cu its bf16-operand form (RCOT_BWD_BF16's "gram" tier):
+// five sources, so that nvcc builds them in parallel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,62 +105,8 @@ namespace {
 
 // ------------------------------------------------- the forward kernels
 
-constexpr int kGramStages = 3;   // depth of each kernel's cp.async ring
 constexpr int kApplyStages = 3;
 constexpr int kApplyTP = 128;    // pixels per apply tile: eight warps of 16 rows
-
-// Rows [p0, p0 + rows) of a head slice (row r at src + r * stride, ch
-// floats) into a tile of pitch ld; rows at or past `end` are zero-filled.
-// Thread t copies pieces t, t + kThreads, ... of the row-major tile; with
-// SWZ, element (r, c) goes to r * ld + (c ^ (r & 4)) (swz below: a piece
-// of four floats stays whole).
-template <bool VEC, bool SWZ = false>
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
-                                           long long stride, long long p0,
-                                           long long end, int rows, int ch) {
-  const int w = VEC ? 4 : 1, per_row = ch / w;  // pieces of w floats per row
-  const int dr = kThreads / per_row, dc = kThreads - dr * per_row;
-  int r = threadIdx.x / per_row, c = threadIdx.x - r * per_row;
-  while (r < rows) {
-    const bool in = p0 + r < end;
-    const float* from = src + (in ? (p0 + r) * stride : 0) + c * w;
-    const int col = SWZ ? (c * w) ^ (r & 4) : c * w;
-    if (VEC)
-      cp_async16(dst + r * ld + col, from, in);
-    else
-      cp_async4(dst + r * ld + col, from, in);
-    r += dr;
-    c += dc;
-    if (c >= per_row) {
-      c -= per_row;
-      ++r;
-    }
-  }
-}
-
-// The Gram at head width ch <= 16R: G (16R x 16R, zero-padded) in 16 x 8
-// mma tiles, R row tiles by 2R column tiles. The eight warps split the
-// tiles (WTM x WTN) and the pixels of each stage (WK groups); each warp
-// holds MW x NW tiles in registers.
-template <int R>
-struct GramCfg {
-  static constexpr int CHP = 16 * R;
-  static constexpr int LD = CHP + 8;  // pitch: fragment reads hit 32 banks
-  static constexpr int MT = R, NT = 2 * R;
-  static constexpr int WK = R <= 2 ? 8 : (R <= 4 ? 4 : 1);
-  static constexpr int WTM = R <= 4 ? 1 : 2;
-  static constexpr int WTN = R <= 2 ? 1 : (R <= 4 ? 2 : 4);
-  static constexpr int MW = (MT + WTM - 1) / WTM, NW = (NT + WTN - 1) / WTN;
-  static constexpr int TP = R <= 4 ? 64 : 32;   // pixels per stage
-  static constexpr int KS = TP / (8 * WK);      // 8-pixel steps per warp and stage
-  static constexpr int STAGE = 2 * TP * LD;     // q tile, k tile
-  static constexpr int RP = CHP + 1;             // pitch of a partial G: stores spread over banks
-  static constexpr int E = CHP * RP + 2 * CHP;   // one warp group's partial
-  static constexpr int FLOATS =
-      kGramStages * STAGE > WK * E ? kGramStages * STAGE : WK * E;
-  static_assert(WK * WTM * WTN == kThreads / 32, "eight warps");
-  static_assert(KS >= 1, "a stage feeds every warp group");
-};
 
 // Block (s, bh, i * nb + j) sums G_ij = q_i^T k_j, nq = sum q_i^2 and
 // nk = sum k_j^2 over pixels [s * per, (s + 1) * per) of (b, h) and writes
@@ -465,416 +419,6 @@ apply_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
   }
 }
 
-// ------------------------------------------------ the backward kernels
-
-constexpr int kBwdTP = 64;  // pixels per backward tile: four warps of 16 rows
-
-// Both backward kernels at head width ch <= 16R. Every tile and matrix in
-// their shared memory has pitch LD and is swizzled (swz): the mma
-// fragments read rows gid and columns tig of one operand and rows tig and
-// columns gid of another, and this layout serves both from 32 banks. A
-// stage of the ring holds two tiles of kBwdTP rows; the ch x ch matrix
-// (dG or attn) is staged split into its tf32 parts (SPLIT) where both
-// copies fit beside the ring, else whole and split at each use.
-template <int R>
-struct BwdCfg {
-  static constexpr int CHP = 16 * R;
-  static constexpr int LD = CHP + 8;
-  static constexpr int NT = 2 * R;  // 8-wide column tiles, and 8-deep steps over a channel
-  static constexpr int STAGES = R <= 4 ? 3 : 2;
-  static constexpr bool SPLIT = R <= 7;
-  static constexpr int TILES = 2 * kBwdTP * LD;  // one stage
-  static constexpr int RING = STAGES * TILES;
-  static constexpr int MAT = CHP * LD;
-  static constexpr int MATS = (SPLIT ? 2 : 1) * MAT;
-  // gram_bwd_kernel: ring | dG | dnq, dnk
-  static constexpr int GRAM_FLOATS = RING + MATS + 2 * CHP;
-  // apply_bwd_kernel: ring (at the end the warp groups' dattn partials,
-  // ch rows of pitch CHP + 1 each) | attn
-  static constexpr int RED = GramCfg<R>::WK * CHP * (CHP + 1);
-  static constexpr int APPLY_FLOATS = (RING > RED ? RING : RED) + MATS;
-  static_assert(kBwdTP == 16 * (kThreads / 32) / 2, "four warps of 16 rows per tile");
-  static_assert(kBwdTP % (8 * GramCfg<R>::WK) == 0, "a tile feeds every warp group");
-};
-
-// Element (r, c) of a swizzled tile or matrix of pitch ld.
-__device__ __forceinline__ int swz(int r, int c, int ld) { return r * ld + (c ^ (r & 4)); }
-
-// Zero columns [w, CHP) of the swizzled rows of the ring's `stages` stages
-// of two kBwdTP-row tiles each, w = w0 in a stage's first tile and w1 in its
-// second: the copies never write them, and the products run over all CHP.
-template <int R>
-__device__ __forceinline__ void zero_pad(float* tiles, int stages, int w0, int w1) {
-  constexpr int CHP = BwdCfg<R>::CHP, LD = BwdCfg<R>::LD;
-  const int wmin = w0 < w1 ? w0 : w1, pad = CHP - wmin;
-  for (int i = threadIdx.x; i < stages * 2 * kBwdTP * pad; i += kThreads) {
-    const int r = i / pad, c = wmin + i - r * pad;
-    if (c >= ((r / kBwdTP) & 1 ? w1 : w0)) tiles[swz(r, c, LD)] = 0.f;
-  }
-}
-
-// A rows x cols block of a row-major matrix of pitch ld at m, zero-padded
-// to CHP x CHP, into shared memory swizzled: its tf32 high and low parts
-// (SPLIT) or itself.
-template <int R>
-__device__ __forceinline__ void stage_matrix(float* mh, float* ml, const float* m, int rows,
-                                             int cols, int ld) {
-  using Cfg = BwdCfg<R>;
-  for (int idx = threadIdx.x; idx < Cfg::CHP * Cfg::CHP; idx += kThreads) {
-    const int r = idx / Cfg::CHP, c = idx - r * Cfg::CHP;
-    const float x = r < rows && c < cols ? m[r * ld + c] : 0.f;
-    const int o = swz(r, c, Cfg::LD);
-    if (Cfg::SPLIT) {
-      uint32_t hi, lo;
-      split_tf32(x, hi, lo);
-      mh[o] = __uint_as_float(hi);
-      ml[o] = __uint_as_float(lo);
-    } else {
-      mh[o] = x;
-    }
-  }
-}
-
-// acc (16 rows from m0 of a tile, column tiles j0 .. j0 + NJ - 1) = A M'
-// over all CHP steps, A the swizzled tile `as` (rows are pixels), M the
-// staged matrix: M' = M^T (out[n, c] = sum_d a[n, d] M(c, d)) or, with
-// TRANS, M' = M (out[n, d] = sum_c a[n, c] M(c, d)). Lane (gid, tig)
-// reads A at rows m0 + gid (+ 8), whose swizzle bit is gid & 4.
-template <int R, int NJ, bool TRANS>
-__device__ __forceinline__ void tile_product(float (&acc)[1][NJ][4], const float* as, int m0,
-                                             int j0, const float* mh, const float* ml,
-                                             int gid, int tig) {
-  using Cfg = BwdCfg<R>;
-  constexpr int LD = Cfg::LD;
-  const bool use_m[1] = {true};
-  bool use_n[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    use_n[j] = true;  // no branch in the hot loop: padding adds zeros
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[0][j][r] = 0.f;
-  }
-  // columns k0 + tig and k0 + tig + 4 of a row with swizzle bit s
-  const int s = gid & 4, x0 = tig + s, x1 = tig + 4 - s;
-  const float* a0 = as + (m0 + gid) * LD;
-#pragma unroll
-  for (int k0 = 0; k0 < Cfg::CHP; k0 += 8) {
-    const float x[4] = {a0[k0 + x0], a0[8 * LD + k0 + x0], a0[k0 + x1], a0[8 * LD + k0 + x1]};
-    uint32_t ah[1][4], al[1][4], bh[NJ][2], bl[NJ][2];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) split_tf32(x[r], ah[0][r], al[0][r]);
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int n = (j0 + jj) * 8 + gid;
-      // B(k, n) for k = k0 + tig and k0 + tig + 4
-      const int o0 = TRANS ? (k0 + tig) * LD + n : n * LD + k0 + x0;
-      const int o1 = TRANS ? (k0 + tig + 4) * LD + (n ^ 4) : n * LD + k0 + x1;
-      if (Cfg::SPLIT) {
-        bh[jj][0] = __float_as_uint(mh[o0]);
-        bh[jj][1] = __float_as_uint(mh[o1]);
-        bl[jj][0] = __float_as_uint(ml[o0]);
-        bl[jj][1] = __float_as_uint(ml[o1]);
-      } else {
-        split_tf32(mh[o0], bh[jj][0], bl[jj][0]);
-        split_tf32(mh[o1], bh[jj][1], bl[jj][1]);
-      }
-    }
-    mma_3xtf32(acc, ah, al, bh, bl, use_m, use_n);
-  }
-}
-
-// Rows r0 and r0 + 8 (each stored only below `end`) of a warp's 16 x 8NJ
-// result into out (row r at out + r * stride), columns below ch.
-template <int NJ, bool VEC>
-__device__ __forceinline__ void store_rows(float* out, long long stride, long long r0,
-                                           long long end, int j0, int tig, int ch,
-                                           const float (&v)[NJ][4]) {
-  const long long r1 = r0 + 8;
-#pragma unroll
-  for (int jj = 0; jj < NJ; ++jj) {
-    const int c = (j0 + jj) * 8 + 2 * tig;
-    if (c >= ch) continue;
-    if (VEC) {  // ch is even: c + 1 < ch
-      if (r0 < end) *reinterpret_cast<float2*>(out + r0 * stride + c) = make_float2(v[jj][0], v[jj][1]);
-      if (r1 < end) *reinterpret_cast<float2*>(out + r1 * stride + c) = make_float2(v[jj][2], v[jj][3]);
-    } else {
-      const bool c1 = c + 1 < ch;
-      if (r0 < end) {
-        out[r0 * stride + c] = v[jj][0];
-        if (c1) out[r0 * stride + c + 1] = v[jj][1];
-      }
-      if (r1 < end) {
-        out[r1 * stride + c] = v[jj][2];
-        if (c1) out[r1 * stride + c + 1] = v[jj][3];
-      }
-    }
-  }
-}
-
-// Row 6. Tiles t = bh * tiles_per_bh + i (pixels [i TP, (i + 1) TP) of
-// (b, h)); block (k, i * nb + j) walks tiles [k * per_block, (k + 1) *
-// per_block), restaging dG_ij, dnq_i and dnk_j only where bh changes, with
-// the tiles of q_i and k_j streaming through the ring. Warp w < 4 writes
-// dq_i's part from block j at rows 16 w of each tile (to dqdk + j * slot),
-// warp w >= 4 dk_j's part from block i at rows 16 (w - 4) (to dqdk + i *
-// slot).
-template <int R, bool VEC, bool BLK>
-__global__ void __launch_bounds__(kThreads)
-gram_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dgram,
-                const float* __restrict__ dnq, const float* __restrict__ dnk,
-                float* __restrict__ dqdk, long long slot, long long hw, int heads, int ch,
-                int cb, long long tiles_per_bh, long long n_tiles_all, long long per_block) {
-  using Cfg = BwdCfg<R>;
-  constexpr int LD = Cfg::LD, TP = kBwdTP, CHP = Cfg::CHP, NT = Cfg::NT;
-  constexpr int STAGES = Cfg::STAGES;
-  extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
-  float* mh = ring + Cfg::RING;  // dG(c, d) at swz(c, d): its high part, or itself
-  float* ml = mh + Cfg::MAT;     // its low part (SPLIT)
-  float* dn = mh + Cfg::MATS;    // dnq | dnk, CHP each, zero past ch
-  const long long t0 = blockIdx.x * per_block;
-  const long long t1 = t0 + per_block < n_tiles_all ? t0 + per_block : n_tiles_all;
-  if (t0 >= t1) return;
-  const int n = (int)(t1 - t0);
-  const long long C = (long long)heads * ch, stride = 3 * C;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const bool is_dq = warp < 4;
-  const int m0 = (warp & 3) * 16;
-  const Pair pr = pair_of<BLK>(blockIdx.y, ch, cb);
-  const int pi = pr.i, pj = pr.j, wi = pr.wi, wj = pr.wj;
-  // 2 q dnq joins dq_i in the pair (i, 0) alone, 2 k dnk joins dk_j in (0, j)
-  const bool add_dn = (is_dq ? pj : pi) == 0;
-
-  zero_pad<R>(ring, STAGES, wi, wj);
-  auto load = [&](int i) {
-    const long long t = t0 + i, bh = t / tiles_per_bh, b = bh / heads;
-    const float* head = qkv + b * hw * stride + (bh - b * heads) * ch;
-    const long long p0 = (t - bh * tiles_per_bh) * TP;
-    float* dst = ring + (i % STAGES) * Cfg::TILES;
-    stage_rows<VEC, true>(dst, LD, head + pi * cb, stride, p0, hw, TP, wi);
-    stage_rows<VEC, true>(dst + TP * LD, LD, head + C + pj * cb, stride, p0, hw, TP, wj);
-  };
-  auto stage = [&](long long bh) {
-    stage_matrix<R>(mh, ml, dgram + bh * ch * ch + (long long)pi * cb * ch + pj * cb, wi, wj,
-                    ch);
-    for (int c = tid; c < 2 * CHP; c += kThreads) {
-      const int which = c / CHP, cc = c - which * CHP;
-      dn[c] = cc < (which ? wj : wi) ? (which ? dnk + pj * cb : dnq + pi * cb)[bh * ch + cc]
-                                     : 0.f;
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < n) load(i);
-    cp_commit();
-  }
-  long long staged = t0 / tiles_per_bh;  // the (b, h) whose dG is in shared memory
-  stage(staged);
-  for (int i = 0; i < n; ++i) {
-    cp_wait<STAGES - 2>();
-    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
-    if (i + STAGES - 1 < n) load(i + STAGES - 1);
-    cp_commit();
-    const long long t = t0 + i, bh = t / tiles_per_bh;
-    if (bh != staged) {  // a run that crosses into the next (b, h)
-      stage(bh);
-      staged = bh;
-      __syncthreads();
-    }
-    const float* qs = ring + (i % STAGES) * Cfg::TILES;
-    const float* ks = qs + TP * LD;
-    // dq = k dG^T + 2 q dnq; dk = q dG + 2 k dnk
-    const float* self = is_dq ? qs : ks;
-    const float* dnv = dn + (is_dq ? 0 : CHP);
-    float acc[1][NT][4];
-    if (is_dq)
-      tile_product<R, NT, false>(acc, ks, m0, 0, mh, ml, gid, tig);
-    else
-      tile_product<R, NT, true>(acc, qs, m0, 0, mh, ml, gid, tig);
-    const int rl = m0 + gid, s = gid & 4;  // rows rl, rl + 8: swizzle bit s
-    if (add_dn) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = j * 8 + 2 * tig, sc = c ^ s;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = self[(rl + (e >> 1) * 8) * LD + sc + (e & 1)];
-          acc[0][j][e] = fmaf(2.0f * x, dnv[c + (e & 1)], acc[0][j][e]);
-        }
-      }
-    }
-    const long long b = bh / heads;
-    float* out = dqdk + (is_dq ? pj : pi) * slot + b * hw * 2 * C + (is_dq ? 0 : C) +
-                 (bh - b * heads) * ch + (is_dq ? pi : pj) * cb;
-    store_rows<NT, VEC>(out, 2 * C, (t - bh * tiles_per_bh) * TP + rl, hw, 0, tig,
-                        is_dq ? wi : wj, acc[0]);
-  }
-}
-
-// Row 7. Block (s, bh, i * nb + j) owns pixels [s * per, (s + 1) * per) of
-// (b, h) and reads each 64-pixel tile of g_i and v_j once: warp w writes
-// dv_j's part from block i, g_i attn_ij, at rows 16 (w % 4) of the tile and
-// column tiles [R (w / 4), R (w / 4 + 1)) (to dv + i * slot); the warps'
-// dattn_ij = g_i^T v_j partials stay in registers (GramCfg's layout, the
-// pixel steps split over WK warp groups) and are written with plain stores
-// to out + (bh * splits + s) * ch * ch at row i cb and column j cb: dattn
-// itself when splits == 1, else the workspace that gram_reduce_kernel sums.
-template <int R, bool VEC, bool BLK>
-__global__ void __launch_bounds__(kThreads)
-apply_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
-                 const float* __restrict__ g, float* __restrict__ dv, long long slot,
-                 float* __restrict__ dattn_out, long long hw, int heads, int ch, int cb,
-                 int splits, long long per) {
-  using Cfg = BwdCfg<R>;
-  using G = GramCfg<R>;
-  constexpr int LD = Cfg::LD, TP = kBwdTP, CHP = Cfg::CHP, STAGES = Cfg::STAGES;
-  constexpr int MW = G::MW, NW = G::NW, KS = TP / (8 * G::WK);
-  extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
-  float* mh = ring + (Cfg::RING > Cfg::RED ? Cfg::RING : Cfg::RED);  // attn(c, d) at swz(c, d)
-  float* ml = mh + Cfg::MAT;
-  const int s = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / heads, h = bh - b * heads;
-  const Pair pr = pair_of<BLK>(blockIdx.z, ch, cb);
-  const int pi = pr.i, pj = pr.j, wi = pr.wi, wj = pr.wj;
-  const long long C = (long long)heads * ch;
-  const long long begin = s * per;
-  const long long end = begin + per < hw ? begin + per : hw;
-  const float* g_rows = g + (long long)b * hw * C + (long long)h * ch + pi * cb;
-  const float* v_rows = qkv + (long long)b * hw * 3 * C + 2 * C + (long long)h * ch + pj * cb;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int m0 = (warp & 3) * 16, j0 = (warp >> 2) * R;  // this warp's dv rows and columns
-  const int wk = warp % G::WK, wt = warp / G::WK;         // and its dattn tiles
-  const int wm = wt / G::WTN, wn = wt % G::WTN;
-  bool use_m[MW], use_n[NW];
-#pragma unroll
-  for (int i = 0; i < MW; ++i) use_m[i] = G::MT % G::WTM == 0 || wm * MW + i < G::MT;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) use_n[j] = G::NT % G::WTN == 0 || wn * NW + j < G::NT;
-
-  zero_pad<R>(ring, STAGES, wi, wj);
-  const int n_tiles = (int)((end - begin + TP - 1) / TP);
-  auto load = [&](int t) {
-    float* dst = ring + (t % STAGES) * Cfg::TILES;
-    const long long p0 = begin + (long long)t * TP;
-    stage_rows<VEC, true>(dst, LD, g_rows, C, p0, end, TP, wi);
-    stage_rows<VEC, true>(dst + TP * LD, LD, v_rows, 3 * C, p0, end, TP, wj);
-  };
-  float part[MW][NW][4];
-#pragma unroll
-  for (int i = 0; i < MW; ++i)
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
-
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < n_tiles) load(t);
-    cp_commit();
-  }
-  stage_matrix<R>(mh, ml, attn + (long long)bh * ch * ch + (long long)pi * cb * ch + pj * cb,
-                  wi, wj, ch);
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_wait<STAGES - 2>();
-    __syncthreads();  // tile t has landed (and attn, at t = 0); tile t - 1 is done with
-    if (t + STAGES - 1 < n_tiles) load(t + STAGES - 1);
-    cp_commit();
-    const float* gs = ring + (t % STAGES) * Cfg::TILES;
-    const float* vs = gs + TP * LD;
-    {  // dv = g attn: rows m0 .. m0 + 15, column tiles j0 ..
-      float acc[1][R][4];
-      tile_product<R, R, true>(acc, gs, m0, j0, mh, ml, gid, tig);
-      float* out = dv + pi * slot + (long long)b * hw * C + (long long)h * ch + pj * cb;
-      store_rows<R, VEC>(out, C, begin + (long long)t * TP + m0 + gid, end, j0, tig, wj, acc[0]);
-    }
-    // dattn += g^T v over this warp group's pixel steps: A(c, p) = g(p, c),
-    // B(p, d) = v(p, d); lane rows p = step + tig (swizzle bit 0) and p + 4 (bit 1)
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int p = (wk * KS + kk) * 8 + tig;
-      const float* g0 = gs + p * LD;
-      const float* g4 = g0 + 4 * LD;
-      uint32_t ah[MW][4], al[MW][4], bh_[NW][2], bl[NW][2];
-#pragma unroll
-      for (int i = 0; i < MW; ++i) {
-        const int c = (wm * MW + i) * 16 + gid;
-        if (!use_m[i]) continue;
-        const float x[4] = {g0[c], g0[c + 8], g4[c ^ 4], g4[(c + 8) ^ 4]};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) split_tf32(x[r], ah[i][r], al[i][r]);
-      }
-#pragma unroll
-      for (int j = 0; j < NW; ++j) {
-        const int d = (wn * NW + j) * 8 + gid;
-        if (!use_n[j]) continue;
-        const float y[2] = {vs[p * LD + d], vs[(p + 4) * LD + (d ^ 4)]};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) split_tf32(y[r], bh_[j][r], bl[j][r]);
-      }
-      mma_3xtf32(part, ah, al, bh_, bl, use_m, use_n);
-    }
-  }
-  cp_wait<0>();
-  __syncthreads();  // the ring is free: it holds the warp groups' partials now
-
-  constexpr int RP = CHP + 1, E = CHP * RP;
-  float* red = smem + wk * E;
-#pragma unroll
-  for (int i = 0; i < MW; ++i) {
-    if (!use_m[i]) continue;
-    const int c = (wm * MW + i) * 16 + gid;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      if (!use_n[j]) continue;
-      const int d = (wn * NW + j) * 8 + 2 * tig;
-      red[c * RP + d] = part[i][j][0];
-      red[c * RP + d + 1] = part[i][j][1];
-      red[(c + 8) * RP + d] = part[i][j][2];
-      red[(c + 8) * RP + d + 1] = part[i][j][3];
-    }
-  }
-  __syncthreads();
-  // the WK partials in a fixed order, written once: warp w rows w, w + 8, ...
-  float* out = dattn_out + ((long long)bh * splits + s) * ch * ch + (long long)pi * cb * ch + pj * cb;
-  for (int c = warp; c < wi; c += kThreads / 32)
-    for (int d = lane; d < wj; d += 32) {
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < G::WK; ++w) v += smem[w * E + c * RP + d];
-      out[c * ch + d] = v;
-    }
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-// The channel blocks of a head of ch channels, cut into blocks of cb
-// (ops/gram.py channel_blocks): nb blocks, nb * nb pairs.
-int n_blocks(int ch, int cb) { return (ch + cb - 1) / cb; }
-
-// A kernel's four variants, by copy width (VEC) and channel blocks (BLK),
-// with the shared-memory limit of each raised once per device. A head cut
-// into blocks has blocks of 65..128 channels (R >= 5; ops/gram.py
-// channel_blocks): below, the BLK slot holds the single-block variant,
-// which no plan launches there, so that it is not compiled for nothing.
-template <int R>
-constexpr bool kBlocked = R >= 5;
-
-template <typename Kernel>
-struct Variants {
-  Kernel k[2][2];  // [VEC][BLK]
-  cudaError_t allow(bool (&done)[2][kMaxDevices], int floats) const {
-    for (int blk = 0; blk < 2; ++blk) {
-      const cudaError_t e = allow_smem(done[blk], k[1][blk], k[0][blk], floats);
-      if (e != cudaSuccess) return e;
-    }
-    return cudaSuccess;
-  }
-};
-
 template <int R>
 cudaError_t gram_fwd(const float* qkv, float* gram, float* nq, float* nk, float* ws,
                      int B, long long hw, int heads, int ch, int cb, int splits, long long per,
@@ -929,65 +473,6 @@ cudaError_t apply_fwd(const float* qkv, const float* attn, float* out, float* ws
   return cudaGetLastError();
 }
 
-// `blocks` blocks of `per_block` 64-pixel tiles for each channel-block pair
-// (ops/gram.py gram_bwd_plan); with nb > 1 blocks the parts of d[q|k] go to
-// nb slots of ws and a second launch sums them
-template <int R>
-cudaError_t gram_bwd(const float* qkv, const float* dgram, const float* dnq, const float* dnk,
-                     float* dqdk, float* ws, int B, long long hw, int heads, int ch, int cb,
-                     int blocks, long long per_block, cudaStream_t st) {
-  using Cfg = BwdCfg<R>;
-  static bool done[2][kMaxDevices];
-  const Variants<decltype(&gram_bwd_kernel<R, true, false>)> ks{
-      {{gram_bwd_kernel<R, false, false>, gram_bwd_kernel<R, false, kBlocked<R>>},
-       {gram_bwd_kernel<R, true, false>, gram_bwd_kernel<R, true, kBlocked<R>>}}};
-  const cudaError_t attr = ks.allow(done, Cfg::GRAM_FLOATS);
-  if (attr != cudaSuccess) return attr;
-  const int nb = n_blocks(ch, cb);
-  float* dst = nb > 1 ? ws : dqdk;
-  const long long slot = (long long)B * hw * 2 * heads * ch;
-  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(dst);
-  const long long tiles_per_bh = (hw + kBwdTP - 1) / kBwdTP;
-  const long long n_tiles = tiles_per_bh * B * heads;
-  ks.k[vec][nb > 1]<<<dim3((unsigned)blocks, (unsigned)(nb * nb)), kThreads,
-                      sizeof(float) * Cfg::GRAM_FLOATS, st>>>(
-      qkv, dgram, dnq, dnk, dst, slot, hw, heads, ch, cb, tiles_per_bh, n_tiles, per_block);
-  if (nb > 1) return sum_slots(ws, dqdk, slot, nb, st);
-  return cudaGetLastError();
-}
-
-// `splits` ranges of `per` pixels per (b, h) (ops/gram.py gram_plan) for
-// each channel-block pair; with splits > 1 the dattn partials go to ws and
-// a second launch sums them, with nb > 1 blocks the parts of dv go to nb
-// slots of ws after them and another launch sums those
-template <int R>
-cudaError_t apply_bwd(const float* qkv, const float* attn, const float* g, float* dv,
-                      float* dattn, float* ws, int B, long long hw, int heads, int ch, int cb,
-                      int splits, long long per, cudaStream_t st) {
-  using Cfg = BwdCfg<R>;
-  static bool done[2][kMaxDevices];
-  const Variants<decltype(&apply_bwd_kernel<R, true, false>)> ks{
-      {{apply_bwd_kernel<R, false, false>, apply_bwd_kernel<R, false, kBlocked<R>>},
-       {apply_bwd_kernel<R, true, false>, apply_bwd_kernel<R, true, kBlocked<R>>}}};
-  const cudaError_t attr = ks.allow(done, Cfg::APPLY_FLOATS);
-  if (attr != cudaSuccess) return attr;
-  const int nb = n_blocks(ch, cb);
-  float* ws_dv = ws + (splits > 1 ? (long long)splits * B * heads * ch * ch : 0);
-  float* dv_dst = nb > 1 ? ws_dv : dv;
-  const long long slot = (long long)B * hw * heads * ch;
-  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(g) && aligned16(dv_dst);
-  ks.k[vec][nb > 1]<<<dim3((unsigned)splits, (unsigned)(B * heads), (unsigned)(nb * nb)),
-                      kThreads, sizeof(float) * Cfg::APPLY_FLOATS, st>>>(
-      qkv, attn, g, dv_dst, slot, splits > 1 ? ws : dattn, hw, heads, ch, cb, splits, per);
-  if (splits > 1) {
-    const cudaError_t err =
-        launch_reduce(ws, dattn, nullptr, nullptr, B, heads, ch, ch * ch, splits, st);
-    if (err != cudaSuccess) return err;
-  }
-  if (nb > 1) return sum_slots(ws_dv, dv, slot, nb, st);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -1016,38 +501,6 @@ int rcot_attn_apply(const float* qkv, const float* attn, float* out, float* ws, 
   cudaStream_t st = (cudaStream_t)stream;
 #define RCOT_CALL(R) \
   apply_fwd<R>(qkv, attn, out, ws, B, hw, heads, ch, cb, blocks, per_block, st)
-  RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
-#undef RCOT_CALL
-}
-
-// qkv (B, hw, 3*heads*ch), dgram (B,heads,ch,ch), dnq, dnk (B,heads,ch)
-// -> dqdk (B, hw, 2*heads*ch) = [dq | dk], in channel blocks of cb, on
-// `blocks` blocks of `per_block` 64-pixel tiles for each block pair
-// (ops/gram.py gram_bwd_plan); ws holds nb slots of dqdk where nb > 1
-// (ops/gram.py gram_bwd_workspace_numel).
-int rcot_mdta_gram_bwd(const float* qkv, const float* dgram, const float* dnq,
-                       const float* dnk, float* dqdk, float* ws, int B, long long hw,
-                       int heads, int ch, int cb, int blocks, long long per_block,
-                       void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define RCOT_CALL(R) \
-  gram_bwd<R>(qkv, dgram, dnq, dnk, dqdk, ws, B, hw, heads, ch, cb, blocks, per_block, st)
-  RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
-#undef RCOT_CALL
-}
-
-// qkv (B, hw, 3*heads*ch), attn (B,heads,ch,ch), g (B, hw, heads*ch)
-// -> dv (B, hw, heads*ch), dattn (B,heads,ch,ch), in channel blocks of cb.
-// The pixels of each (b, head) are split into `splits` ranges of `per`
-// (ops/gram.py gram_plan); ws holds the dattn partials where splits > 1
-// (B*heads*splits*ch*ch floats), then nb slots of dv where nb > 1, each
-// summed by a launch of its own.
-int rcot_attn_apply_bwd(const float* qkv, const float* attn, const float* g, float* dv,
-                        float* dattn, float* ws, int B, long long hw, int heads, int ch,
-                        int cb, int splits, long long per, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define RCOT_CALL(R) \
-  apply_bwd<R>(qkv, attn, g, dv, dattn, ws, B, hw, heads, ch, cb, splits, per, st)
   RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
 #undef RCOT_CALL
 }

@@ -1,11 +1,16 @@
-// The pieces that the MDTA core's kernels in fp32 (gram.cu) and in bf16
-// (gram_bf16.cu) share: the channel-block pairs of a head wider than 128
-// channels, the fixed-order reduce of the Gram's (and dattn's) pixel-range
-// partials, and the choice of a kernel's width R from the channel block.
+// The pieces that the MDTA core's kernels in fp32 (gram.cu, gram_bwd.cuh)
+// and in bf16 (gram_bf16.cu) share: the channel-block pairs of a head wider
+// than 128 channels, the fixed-order reduce of the Gram's (and dattn's)
+// pixel-range partials, and the choice of a kernel's width R from the
+// channel block; and what the fp32 forward and backward kernels share: the
+// staging of a head's rows, the Gram's warp layout (GramCfg, which the
+// apply backward's dattn takes too) and a kernel's variants by copy width
+// and channel blocks.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "tc.cuh"
 
@@ -77,6 +82,87 @@ cudaError_t launch_reduce(const float* ws, float* gram, float* nq, float* nk, in
 // A plan's channel blocks: 1 <= cb <= 128 (R <= 8) and cb <= ch, and more
 // than 64 wide where a head is cut (kBlocked).
 bool bad_blocks(int ch, int cb) { return cb < 1 || cb > 128 || cb > ch || (cb < ch && cb <= 64); }
+
+constexpr int kGramStages = 3;   // depth of each kernel's cp.async ring
+
+// Rows [p0, p0 + rows) of a head slice (row r at src + r * stride, ch
+// floats) into a tile of pitch ld; rows at or past `end` are zero-filled.
+// Thread t copies pieces t, t + kThreads, ... of the row-major tile; with
+// SWZ, element (r, c) goes to r * ld + (c ^ (r & 4)) (gram_bwd.cuh swz: a piece
+// of four floats stays whole).
+template <bool VEC, bool SWZ = false>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
+                                           long long stride, long long p0,
+                                           long long end, int rows, int ch) {
+  const int w = VEC ? 4 : 1, per_row = ch / w;  // pieces of w floats per row
+  const int dr = kThreads / per_row, dc = kThreads - dr * per_row;
+  int r = threadIdx.x / per_row, c = threadIdx.x - r * per_row;
+  while (r < rows) {
+    const bool in = p0 + r < end;
+    const float* from = src + (in ? (p0 + r) * stride : 0) + c * w;
+    const int col = SWZ ? (c * w) ^ (r & 4) : c * w;
+    if (VEC)
+      cp_async16(dst + r * ld + col, from, in);
+    else
+      cp_async4(dst + r * ld + col, from, in);
+    r += dr;
+    c += dc;
+    if (c >= per_row) {
+      c -= per_row;
+      ++r;
+    }
+  }
+}
+
+// The Gram at head width ch <= 16R: G (16R x 16R, zero-padded) in 16 x 8
+// mma tiles, R row tiles by 2R column tiles. The eight warps split the
+// tiles (WTM x WTN) and the pixels of each stage (WK groups); each warp
+// holds MW x NW tiles in registers.
+template <int R>
+struct GramCfg {
+  static constexpr int CHP = 16 * R;
+  static constexpr int LD = CHP + 8;  // pitch: fragment reads hit 32 banks
+  static constexpr int MT = R, NT = 2 * R;
+  static constexpr int WK = R <= 2 ? 8 : (R <= 4 ? 4 : 1);
+  static constexpr int WTM = R <= 4 ? 1 : 2;
+  static constexpr int WTN = R <= 2 ? 1 : (R <= 4 ? 2 : 4);
+  static constexpr int MW = (MT + WTM - 1) / WTM, NW = (NT + WTN - 1) / WTN;
+  static constexpr int TP = R <= 4 ? 64 : 32;   // pixels per stage
+  static constexpr int KS = TP / (8 * WK);      // 8-pixel steps per warp and stage
+  static constexpr int STAGE = 2 * TP * LD;     // q tile, k tile
+  static constexpr int RP = CHP + 1;             // pitch of a partial G: stores spread over banks
+  static constexpr int E = CHP * RP + 2 * CHP;   // one warp group's partial
+  static constexpr int FLOATS =
+      kGramStages * STAGE > WK * E ? kGramStages * STAGE : WK * E;
+  static_assert(WK * WTM * WTN == kThreads / 32, "eight warps");
+  static_assert(KS >= 1, "a stage feeds every warp group");
+};
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The channel blocks of a head of ch channels, cut into blocks of cb
+// (ops/gram.py channel_blocks): nb blocks, nb * nb pairs.
+int n_blocks(int ch, int cb) { return (ch + cb - 1) / cb; }
+
+// A kernel's four variants, by copy width (VEC) and channel blocks (BLK),
+// with the shared-memory limit of each raised once per device. A head cut
+// into blocks has blocks of 65..128 channels (R >= 5; ops/gram.py
+// channel_blocks): below, the BLK slot holds the single-block variant,
+// which no plan launches there, so that it is not compiled for nothing.
+template <int R>
+constexpr bool kBlocked = R >= 5;
+
+template <typename Kernel>
+struct Variants {
+  Kernel k[2][2];  // [VEC][BLK]
+  cudaError_t allow(bool (&done)[2][kMaxDevices], int floats) const {
+    for (int blk = 0; blk < 2; ++blk) {
+      const cudaError_t e = allow_smem(done[blk], k[1][blk], k[0][blk], floats);
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }
+};
 
 }  // namespace
 

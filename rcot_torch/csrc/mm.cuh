@@ -30,6 +30,15 @@
 // sum_parts's fixed-order sum. The LayerNorm and the gate pass take bf16
 // inputs or outputs too, with fp32 arithmetic. T = float keeps its code.
 //
+// bf16 operands (the backward products under RCOT_BWD_BF16, block_bwd.cu,
+// fused_dwconv.cu and their bf16 forms: OPS16): the tiles stay fp32 in
+// shared memory, exactly as staged, and each value is rounded to bf16 (RNE)
+// as it enters its fragment (tc.cuh bf16_tf32), so one tf32 mma.sync per
+// step takes the bf16 x bf16 products exactly, summed in fp32 as the
+// 3xTF32 path sums. Nothing staged is rounded, so an epilogue or a later
+// launch that reads the same operand reads it unrounded. OPS16 = false is
+// the 3xTF32 path, unchanged.
+//
 // LayerNorm: one warp a pixel; fp32 statistics, biased variance, eps 1e-5
 // inside the rsqrt; WithBias is (t - mean) inv w + b, BiasFree t inv w
 // with the variance taken about the mean. Up to 512 channels a lane holds
@@ -182,11 +191,12 @@ struct MmRing {
 // step accumulates from zero on the tensor cores (12 mma at most a chain;
 // 2 in bf16) and is added to the running sum in IEEE fp32, as a plain fp32
 // loop would.
-template <bool A_KROW, bool B_KROW, int EPI, typename T = float>
+template <bool A_KROW, bool B_KROW, int EPI, typename T = float, bool OPS16 = false>
 __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
   constexpr bool BF16 = sizeof(T) == 2;
   static_assert(!BF16 || (!A_KROW && !B_KROW && (EPI == kEpiStore || EPI == kEpiAdd)),
                 "bf16 products: per-pixel, stored or added");
+  static_assert(!(BF16 && OPS16), "the bf16-operand policy: fp32 tiles");
   using TA = Tile<BM, A_KROW, T>;
   using TB = Tile<BN, B_KROW, T>;
   using Ring = MmRing<A_KROW, B_KROW, EPI, T>;
@@ -273,6 +283,27 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
         for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int j = 0; j < NI; ++j) mma_bf16(part[i][j], af[i], bfr[j]);
+      }
+    } else if constexpr (OPS16) {
+      // each operand rounded to bf16 as it enters its fragment, one term
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 8) {
+        uint32_t ar[MI][4], br[NI][2];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const int r = wm * 32 + i * 16 + gid;
+          ar[i][0] = bf16_tf32(as[TA::at(r, kk + tig)]);
+          ar[i][1] = bf16_tf32(as[TA::at(r + 8, kk + tig)]);
+          ar[i][2] = bf16_tf32(as[TA::at(r, kk + tig + 4)]);
+          ar[i][3] = bf16_tf32(as[TA::at(r + 8, kk + tig + 4)]);
+        }
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int n = wn * 32 + j * 8 + gid;
+          br[j][0] = bf16_tf32(bs[TB::at(n, kk + tig)]);
+          br[j][1] = bf16_tf32(bs[TB::at(n, kk + tig + 4)]);
+        }
+        mma_1xtf32(part, ar, br, use_m, use_n);
       }
     } else {
 #pragma unroll
@@ -363,11 +394,11 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
     }
 }
 
-template <bool A_KROW, bool B_KROW, int EPI, typename T = float>
+template <bool A_KROW, bool B_KROW, int EPI, typename T = float, bool OPS16 = false>
 cudaError_t mm(MmArgs p, int ranges, cudaStream_t st) {
   constexpr int FLOATS = MmRing<A_KROW, B_KROW, EPI, T>::SMEM_FLOATS;
   static bool done[kMaxDevices];
-  const auto kernel = mm_kernel<A_KROW, B_KROW, EPI, T>;
+  const auto kernel = mm_kernel<A_KROW, B_KROW, EPI, T, OPS16>;
   RCOT_TRY(allow_smem(done, kernel, kernel, FLOATS));
   p.n_tiles = (p.N + BN - 1) / BN;
   const long long tiles = (p.M + BM - 1) / BM * p.n_tiles;
@@ -432,13 +463,14 @@ cudaError_t sum_parts(const float* ws, TO* out, float* out2, int E, int split, l
 // below K and runs past it reads the pad). With splits > 1 (the plan's, where the output has too
 // few tiles to fill the card) K is cut into ranges of k_per, whose
 // partials go to ws (splits * n_pix * N floats) and are added in a fixed
-// order; kEpiGate is never split. T = bf16 rounds as mm_kernel says.
+// order; kEpiGate is never split. T = bf16 rounds as mm_kernel says; OPS16
+// takes the bf16-operand policy (fp32 T).
 template <typename T>
 struct Same {  // T where it is not to be deduced (a null extra)
   using type = T;
 };
 
-template <bool B_KROW, int EPI, typename T = float>
+template <bool B_KROW, int EPI, typename T = float, bool OPS16 = false>
 cudaError_t product(const T* a, int K, int va, const T* w, int vb, T* out, int N,
                     long long n_pix, int splits, long long k_per, float* ws, cudaStream_t st,
                     const typename Same<T>::type* extra = nullptr, float* gate = nullptr,
@@ -452,7 +484,7 @@ cudaError_t product(const T* a, int K, int va, const T* w, int vb, T* out, int N
   p.out = splits > 1 ? (void*)ws : (void*)out, p.ldo = N, p.extra = extra, p.gate = gate;
   p.z_stride = splits > 1 ? n_pix * N : 0;
   p.M = n_pix, p.N = N, p.K = K, p.k_per = splits > 1 ? k_per : K;
-  RCOT_TRY((mm<false, B_KROW, EPI, T>(p, splits, st)));
+  RCOT_TRY((mm<false, B_KROW, EPI, T, OPS16>(p, splits, st)));
   if (splits > 1)
     return sum_parts<T>(ws, out, nullptr, (int)(n_pix * N), (int)(n_pix * N), n_pix * N,
                         splits, st, EPI == kEpiAdd || GATED ? extra : nullptr);
@@ -462,7 +494,8 @@ cudaError_t product(const T* a, int K, int va, const T* w, int vb, T* out, int N
 // Pixel sum: out (M x N) = sum over pixels q of A[q, m] B[q, n] for A
 // (n_pix x M) and B (n_pix x N), in ranges of `per` pixels; with more than
 // one range the partials go to ws (ranges * M * N floats) and are added
-// in a fixed order.
+// in a fixed order. OPS16: the bf16-operand policy.
+template <bool OPS16 = false>
 cudaError_t pixel_sum(const float* a, int va, const float* b, int vb, float* out, float* ws,
                       int M, int N, long long n_pix, long long per, cudaStream_t st) {
   if (per < 1) return cudaErrorInvalidValue;
@@ -472,7 +505,7 @@ cudaError_t pixel_sum(const float* a, int va, const float* b, int vb, float* out
   p.b = b, p.ldb = N, p.vb = vb;
   p.out = ranges > 1 ? ws : out, p.ldo = N, p.z_stride = ranges > 1 ? (long long)M * N : 0;
   p.M = M, p.N = N, p.K = n_pix, p.k_per = per;
-  RCOT_TRY((mm<true, true, kEpiStore>(p, (int)ranges, st)));
+  RCOT_TRY((mm<true, true, kEpiStore, float, OPS16>(p, (int)ranges, st)));
   if (ranges > 1) return sum_parts(ws, out, nullptr, M * N, M * N, (long long)M * N, ranges, st);
   return cudaSuccess;
 }

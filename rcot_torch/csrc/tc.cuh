@@ -5,7 +5,9 @@
 // sum of a tensor's slots, and the once-per-device raise of a kernel's
 // dynamic shared-memory limit; for the bf16 kernels (block_fwd_bf16.cu,
 // gram_bf16.cu) the conversions, copies of any byte width, ldmatrix and
-// bf16 products on mma.sync m16n8k16 with fp32 accumulation.
+// bf16 products on mma.sync m16n8k16 with fp32 accumulation; for the
+// backward products' bf16-operand policy the rounding of an operand into a
+// tf32 fragment and a one-term product (bf16_tf32, mma_1xtf32).
 //
 // 3xTF32: a float x is split into two tf32 values, x = hi + lo + O(2^-22
 // |x|), and a product a b is taken as al bh + ah bl + ah bh (al bl, about
@@ -111,6 +113,30 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[M][N][4], uint32_t (&ah)
       for (int j = 0; j < N; ++j)
         if (use_m[i] && use_n[j])
           mma_tf32(acc[i][j], term == 0 ? al[i] : ah[i], term == 1 ? bl[j] : bh[j]);
+}
+
+// The bf16-operand policy of the backward products (RCOT_BWD_BF16 in the
+// JAX package, rcot_tpu/ops/pallas_fused.py _bwd_dot): x rounded to bf16
+// (to nearest, ties to even) and handed to the tensor cores as a tf32
+// value. A bf16 value is exact in tf32, so one tf32 mma.sync m16n8k8 on two
+// such operands takes exactly the bf16 x bf16 products, with fp32 sums.
+__device__ __forceinline__ uint32_t bf16_tf32(float x) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x)) << 16;
+}
+
+// One tf32 term where both operands are exact in tf32 (bf16 values: the
+// bf16-operand policy's, bf16_tf32's, and mdta.cu's bf16 Gram), over a
+// warp's M x N tiles of one 8-deep step: acc[i][j] += a_i b_j. Tiles
+// outside the matrix (use_m, use_n false) are skipped.
+template <int M, int N>
+__device__ __forceinline__ void mma_1xtf32(float (&acc)[M][N][4], uint32_t (&a)[M][4],
+                                           uint32_t (&b)[N][2], const bool (&use_m)[M],
+                                           const bool (&use_n)[N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (use_m[i] && use_n[j]) mma_tf32(acc[i][j], a[i], b[j]);
 }
 
 // Conversions between a storage type (float or bf16) and fp32 arithmetic;

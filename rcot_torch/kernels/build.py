@@ -59,43 +59,50 @@ SIGNATURES = {
     # copy width (ops/gram.py bf16_copy_width) before the stream
     "rcot_mdta_gram_bf16": [_P] * 5 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
     "rcot_attn_apply_bf16": [_P] * 4 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
-    # inputs 6, outputs 5, workspace 6, plan (ops/block.py); B, H, W, C, M; stream
-    "rcot_block_head_bwd": [_P] * 17 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # inputs 9, outputs 8, workspace 9, plan; B, H, W, C, hid; stream
-    "rcot_block_tail_bwd": [_P] * 26 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # inputs 6, outputs 5, workspace 6, plan (ops/block.py); B, H, W, C, M;
+    # ops16 (1: bf16 operands in the backward products, RCOT_BWD_BF16); stream
+    "rcot_block_head_bwd": [_P] * 17 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
+    # inputs 9, outputs 8, workspace 9, plan; B, H, W, C, hid; ops16; stream
+    "rcot_block_tail_bwd": [_P] * 26 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
     # qkv, dG, dnq, dnk, d[q|k], workspace; B, hw, heads, ch, channel block,
     # blocks, tiles per block; stream
     "rcot_mdta_gram_bwd": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _P],
     # qkv, attn, g, dv, dattn, workspace; B, hw, heads, ch, channel block,
     # splits, pixels per split; stream
     "rcot_attn_apply_bwd": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _P],
+    # the same two with bf16 operands (gram_bwd_b16ops.cu): the same arguments
+    "rcot_mdta_gram_bwd_b16ops": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _P],
+    "rcot_attn_apply_bwd_b16ops": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _P],
     # inputs 3, output 1, workspace 2, plan (ops/fused.py); B, H, W, C, M; stream
     "rcot_conv1x1_dw": [_P] * 6 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # inputs 4, output 1, workspace 3, plan; B, H, W, C, hid; stream
     "rcot_gdfn_fused": [_P] * 8 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # inputs 4, outputs 3, workspace 3, plan; B, H, W, C, M; stream
-    "rcot_conv1x1_dw_bwd": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # inputs 5, outputs 4, workspace 5, plan; B, H, W, C, hid; stream
-    "rcot_gdfn_fused_bwd": [_P] * 14 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # inputs 4, outputs 3, workspace 3, plan; B, H, W, C, M; ops16; stream
+    "rcot_conv1x1_dw_bwd": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
+    # inputs 5, outputs 4, workspace 5, plan; B, H, W, C, hid; ops16; stream
+    "rcot_gdfn_fused_bwd": [_P] * 14 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
     # bf16 training (fused_dwconv_bf16.cu, block_bwd_bf16.cu, gram_bwd_bf16.cu):
     # the qkv forward in bf16, the arguments of rcot_conv1x1_dw
     "rcot_conv1x1_dw_bf16": [_P] * 6 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # inputs 4, outputs 3, workspace 11, plan; bf16 copy width; B, H, W, C, M; stream
-    "rcot_conv1x1_dw_bwd_bf16": [_P] * 18 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
-    # inputs 9, outputs 8, workspace 24, plan, bf16 plan; B, H, W, C, hid; stream
-    "rcot_block_tail_bwd_bf16": [_P] * 41 + [ctypes.POINTER(_I)] * 2 + [_I] * 5 + [_P],
-    # inputs 6, outputs 5, workspace 15, plan; bf16 copy width; B, H, W, C, M; stream
-    "rcot_block_head_bwd_bf16": [_P] * 26 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
+    # inputs 4, outputs 3, workspace 11, plan; bf16 copy width; B, H, W, C, M;
+    # ops16; stream
+    "rcot_conv1x1_dw_bwd_bf16": [_P] * 18 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P],
+    # inputs 9, outputs 8, workspace 24, plan, bf16 plan; B, H, W, C, hid; ops16; stream
+    "rcot_block_tail_bwd_bf16": [_P] * 41 + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P],
+    # inputs 6, outputs 5, workspace 15, plan; bf16 copy width; B, H, W, C, M;
+    # ops16; stream
+    "rcot_block_head_bwd_bf16": [_P] * 26 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P],
     # the GDFN in bf16 (fused_dwconv_bf16.cu): the arguments of rcot_gdfn_fused
     "rcot_gdfn_fused_bf16": [_P] * 8 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # inputs 5, outputs 4, workspace 15, plan; bf16 copy width; B, H, W, C, hid; stream
-    "rcot_gdfn_fused_bwd_bf16": [_P] * 24 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
+    # inputs 5, outputs 4, workspace 15, plan; bf16 copy width; B, H, W, C, hid;
+    # ops16; stream
+    "rcot_gdfn_fused_bwd_bf16": [_P] * 24 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P],
     # qkv, dG, dnq, dnk, d[q|k], workspace 3; B, hw, heads, ch, channel block,
-    # blocks, tiles per block; stream
-    "rcot_mdta_gram_bwd_bf16": [_P] * 8 + [_I, _L, _I, _I, _I, _I, _L, _P],
+    # blocks, tiles per block; ops16; stream
+    "rcot_mdta_gram_bwd_bf16": [_P] * 8 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
     # qkv, attn, g, dv, dattn, workspace 4; B, hw, heads, ch, channel block,
-    # splits, pixels per split; stream
-    "rcot_attn_apply_bwd_bf16": [_P] * 9 + [_I, _L, _I, _I, _I, _I, _L, _P],
+    # splits, pixels per split; ops16; stream
+    "rcot_attn_apply_bwd_bf16": [_P] * 9 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
     # x, taps, out; B, H, W, C, vec, cv, tc, rows, rot; stream
     "rcot_dwconv3x3": [_P] * 3 + [_I] * 9 + [_P],
     # x, g, workspace, dtaps; B, H, W, C, vec, cv, tc, rows; stream
@@ -117,6 +124,12 @@ SIGNATURES = {
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def counted(kernel: str, bf16_ops: bool = False) -> str:
+    """The LAUNCHES name of a backward kernel: with bf16_ops (its products
+    on bf16 operands, RCOT_BWD_BF16) the name with _b16ops after it."""
+    return kernel + "_b16ops" if bf16_ops else kernel
 
 
 def sources() -> list:

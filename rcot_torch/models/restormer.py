@@ -31,8 +31,13 @@ so that Config.hash() stays the JAX package's). `composition`:
 qkv and gdfn: "fused" (conv1x1_dw_fused, gdfn_fused, the default) or
 "dwconv" (1x1 products around the standalone depthwise kernel); it changes
 nothing in "full". (ops/block.py, ops/fused.py, ops/gram.py, ops/mdta.py,
-ops/dwconv.py.) With bias=True every composition takes the plain ops, as
-the JAX package does.
+ops/dwconv.py.) `bwd_bf16`, the tiers of the JAX package's RCOT_BWD_BF16
+(ops/dispatch.py resolve_bwd_bf16; a frozenset of "block", "gram",
+"fused", empty by default), rounds the operands of the backward products
+of those kernels to bf16: row 5 (block_head, block_tail), rows 6-7 (the
+Gram core) and row 9 (the fused tier's qkv and GDFN); the forward, the
+"mdta" core and the "dwconv" tier have nothing it changes. With bias=True
+every composition takes the plain ops, as the JAX package does.
 
 A bf16 input runs the same forward in bf16, as apply_tnet on a bf16 input
 (rcot_tpu/models/restormer.py): every weight is used in the activation's
@@ -58,7 +63,8 @@ import torch.nn as nn
 from ..ops.attention import mdta, mdta_core, mdta_qkv
 from ..ops.block import block_head, block_tail
 from ..ops.conv import conv1x1, conv2d
-from ..ops.dispatch import COMPOSITIONS, resolve_attention_core, resolve_depthwise
+from ..ops.dispatch import (COMPOSITIONS, resolve_attention_core, resolve_bwd_bf16,
+                            resolve_depthwise)
 from ..ops.gdfn import gdfn, hidden_features
 from ..ops.layernorm import layernorm
 from ..ops.resample import downsample, upsample
@@ -187,6 +193,7 @@ class TransformerBlock(nn.Module):
     composition = _Choice(_composition)
     attention_core = _Choice(resolve_attention_core)
     depthwise = _Choice(resolve_depthwise)
+    bwd_bf16 = _Choice(resolve_bwd_bf16)
 
     def __init__(self, dim: int, num_heads: int, ffn_factor: float, *,
                  bias: bool, ln_bias: bool, ffn_multiple: int = 1):
@@ -198,6 +205,7 @@ class TransformerBlock(nn.Module):
         self.composition = "full"
         self.attention_core = "gram"
         self.depthwise = "fused"
+        self.bwd_bf16 = "0"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         at, f = self.attn, self.ffn
@@ -205,24 +213,27 @@ class TransformerBlock(nn.Module):
             x = x + at(self.norm1(x))
             return x + f(self.norm2(x))
         dt = x.dtype
+        block, fused = "block" in self.bwd_bf16, "fused" in self.bwd_bf16
         if self.composition in ("tail", "off"):
             # the weights in x's dtype, as rcot_tpu/ops/attention.py:102-103,
             # but for the dwconv tier's taps (_dw_taps)
             qkv = mdta_qkv(self.norm1(x), _mat(at.qkv, dt),
                            _dw_taps(at.qkv_dwconv, dt, self.depthwise),
-                           depthwise=self.depthwise)
+                           depthwise=self.depthwise, bf16_ops=fused)
         else:
-            qkv = block_head(x, *_ln(self.norm1), _mat(at.qkv, dt), _taps(at.qkv_dwconv, dt))
-        a = mdta_core(at.temperature, qkv, at.num_heads, self.attention_core)
+            qkv = block_head(x, *_ln(self.norm1), _mat(at.qkv, dt), _taps(at.qkv_dwconv, dt),
+                             block)
+        a = mdta_core(at.temperature, qkv, at.num_heads, self.attention_core,
+                      "gram" in self.bwd_bf16)
         if self.composition in ("full", "tail"):
             return block_tail(x, a, _mat(at.project_out, dt), *_ln(self.norm2),
                               _mat(f.project_in, dt), _taps(f.dwconv, dt),
-                              _mat(f.project_out, dt))
+                              _mat(f.project_out, dt), block)
         x = x + conv1x1(a, _mat(at.project_out, dt))
         # the weights in x's dtype, as rcot_tpu/ops/gdfn.py:53-56 (but _dw_taps)
         return x + gdfn(self.norm2(x), _mat(f.project_in, dt),
                         _dw_taps(f.dwconv, dt, self.depthwise), _mat(f.project_out, dt),
-                        depthwise=self.depthwise)
+                        depthwise=self.depthwise, bf16_ops=fused)
 
 
 class _Resample(nn.Module):
@@ -252,17 +263,18 @@ class _PatchEmbed(nn.Module):
 class TNet(nn.Module):
     """The RCOT T_net. `seed` fills every parameter from a numpy generator
     keyed by its name (init_weights_); load a checkpoint over it to serve
-    trained weights. `composition`, `attention_core` and `depthwise` pick
-    the bias-free blocks' kernels (module docstring)."""
+    trained weights. `composition`, `attention_core`, `depthwise` and
+    `bwd_bf16` pick the bias-free blocks' kernels (module docstring)."""
 
     composition = _Choice(_composition)
     attention_core = _Choice(resolve_attention_core)
     depthwise = _Choice(resolve_depthwise)
+    bwd_bf16 = _Choice(resolve_bwd_bf16)
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), *,
                  device="cuda", seed: Optional[int] = 0,
                  composition: str = "full", attention_core: str = "gram",
-                 depthwise: str = "fused"):
+                 depthwise: str = "fused", bwd_bf16="0"):
         super().__init__()
         self.cfg = cfg
         d1, d2, d3, d4 = cfg.dims
@@ -329,6 +341,7 @@ class TNet(nn.Module):
         self.composition = composition
         self.attention_core = attention_core
         self.depthwise = depthwise
+        self.bwd_bf16 = bwd_bf16
         self.to(resolve_device(device))
         if seed is not None:
             self.init_weights_(seed)

@@ -37,13 +37,14 @@ def _attend_heads(attend: Callable, temperature: torch.Tensor, qkv: torch.Tensor
 
 
 def mdta_core(temperature: torch.Tensor, qkv: torch.Tensor, num_heads: int,
-              core: str = "mdta") -> torch.Tensor:
+              core: str = "mdta", bf16_ops: bool = False) -> torch.Tensor:
     """The attention core of the bias-free model, (B,H,W,3C) -> (B,H,W,C).
-    "gram": the transpose-free Gram and apply kernels (ops/gram.py);
-    "mdta" (the default, the transposed formulation): the transposes and
-    the fused attend kernel (ops/mdta.py)."""
+    "gram": the transpose-free Gram and apply kernels (ops/gram.py), their
+    backward's products on bf16 operands with bf16_ops; "mdta" (the
+    default, the transposed formulation): the transposes and the fused
+    attend kernel (ops/mdta.py), whose backward has no such form."""
     if core == "gram":
-        return mdta_core_gram(temperature, qkv, num_heads)
+        return mdta_core_gram(temperature, qkv, num_heads, bf16_ops)
     if core != "mdta":
         raise ValueError(f"unknown attention core {core!r}")
     return _attend_heads(mdta_attend_kernel, temperature, qkv, num_heads)
@@ -52,15 +53,16 @@ def mdta_core(temperature: torch.Tensor, qkv: torch.Tensor, num_heads: int,
 def mdta_qkv(x: torch.Tensor, w_qkv: torch.Tensor, w_dw: torch.Tensor,
              b_qkv: Optional[torch.Tensor] = None,
              b_dw: Optional[torch.Tensor] = None,
-             depthwise: str = "fused") -> torch.Tensor:
+             depthwise: str = "fused", bf16_ops: bool = False) -> torch.Tensor:
     """1x1 qkv projection then its 3x3 depthwise conv: (B,H,W,C) -> 3C.
     Bias-free, in the depthwise tier named: "fused", one kernel
-    (conv1x1_dw_fused); "dwconv", the 1x1 as a product, then the depthwise
-    kernel (dwconv3x3). With biases, plain convs."""
+    (conv1x1_dw_fused; bf16_ops: its backward's products on bf16
+    operands); "dwconv", the 1x1 as a product, then the depthwise kernel
+    (dwconv3x3). With biases, plain convs."""
     if b_qkv is None and b_dw is None:
         m = w_qkv.shape[0]
         if depthwise == "fused":
-            return conv1x1_dw_fused(x, w_qkv.reshape(m, -1), w_dw.reshape(m, 3, 3))
+            return conv1x1_dw_fused(x, w_qkv.reshape(m, -1), w_dw.reshape(m, 3, 3), bf16_ops)
         if depthwise != "dwconv":
             raise ValueError(f"unknown depthwise tier {depthwise!r}")
         return dwconv3x3(conv1x1(x, w_qkv), w_dw.reshape(m, 3, 3))

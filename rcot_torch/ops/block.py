@@ -31,6 +31,15 @@ no rounding at all. The bf16 backward twin is not autograd through them:
 the JAX backward kernel (:208-397) recomputes the forward with its
 rounding points but differentiates it in fp32, with fp32 cotangents and
 the unrounded gate (_vjp_widened).
+
+bf16 operands (the JAX package's RCOT_BWD_BF16 "block" tier,
+pallas_block.py's _bwd_dot(..., tier="block")): with bf16_ops the backward
+rounds both operands of each of its products (dgate, du, da and the pixel
+sums dW_out, dW_in, dW_proj, dW_qkv) to bf16 and sums in fp32; the
+recompute, the LayerNorm backward, the residual and the taps' gradient stay
+as they were. On the card that is the kernels' `ops16` form (csrc/mm.cuh
+OPS16), counted under the backward's name with _b16ops after it; the twins
+take each 1x1 product through _Mm16, whose backward does the same.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from ..kernels import build
 from . import dwconv as kdw
 from .conv import conv1x1, depthwise3x3
 from .gdfn import gated
-from .gram import GRAM_MAX_PIXELS, _cdiv, sm_count
+from .gram import GRAM_MAX_PIXELS, _cdiv, _r16, sm_count
 from .layernorm import layernorm
 
 
@@ -57,25 +66,55 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The 1x1 product a @ w^T in at least fp32, rounded to a's dtype."""
-    return conv1x1(_wide(a), _wide(w)).to(a.dtype)
+class _Mm16(torch.autograd.Function):
+    """The 1x1 product a @ w^T (conv1x1) whose backward takes bf16
+    operands: both operands of each of its two products, da = g w and
+    dw = g^T a, rounded to bf16 and summed in the working dtype, as the JAX
+    backward kernels' _bwd_dot under RCOT_BWD_BF16
+    (rcot_tpu/ops/pallas_fused.py:144-148)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return conv1x1(a, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g16 = _r16(g)
+        da = g16 @ _r16(w.reshape(w.shape[0], -1))
+        dw = g16.reshape(-1, g.shape[-1]).t() @ _r16(a).reshape(-1, a.shape[-1])
+        return da, dw.reshape(w.shape)
 
 
-def block_head_plain(x, ln_w, ln_b, w_qkv, dwk):
+def _prod(a: torch.Tensor, w: torch.Tensor, bf16_ops: bool = False) -> torch.Tensor:
+    """conv1x1(a, w), through _Mm16 with bf16_ops."""
+    return _Mm16.apply(a, w) if bf16_ops else conv1x1(a, w)
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor, bf16_ops: bool = False) -> torch.Tensor:
+    """The 1x1 product a @ w^T in at least fp32, rounded to a's dtype; its
+    backward on bf16 operands with bf16_ops."""
+    return _prod(_wide(a), _wide(w), bf16_ops).to(a.dtype)
+
+
+def block_head_plain(x, ln_w, ln_b, w_qkv, dwk, bf16_ops=False):
     """qkv = dw3x3(LN1(x) @ W_qkv), rounded to x's dtype after the LN, the
-    product and the stencil (pallas_block.py:119-142)."""
-    h = _mm(layernorm(x, ln_w, ln_b), w_qkv)
+    product and the stencil (pallas_block.py:119-142); bf16_ops: the
+    product's backward on bf16 operands."""
+    h = _mm(layernorm(x, ln_w, ln_b), w_qkv, bf16_ops)
     return depthwise3x3(_wide(h), _wide(dwk)).to(x.dtype)
 
 
-def block_tail_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out):
+def block_tail_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, bf16_ops=False):
     """y = t + gate @ W_out, t = x + a @ W_proj, rounded to x's dtype after
     each product, each residual add, the LN and the gate; the stencil and
-    the gate in at least fp32 (pallas_block.py:111-142)."""
-    t = (_wide(x) + _wide(_mm(a, w_proj))).to(x.dtype)
-    h = depthwise3x3(_wide(_mm(layernorm(t, ln_w, ln_b), w_in)), _wide(dwk))
-    return (_wide(t) + _wide(_mm(gated(h).to(x.dtype), w_out))).to(x.dtype)
+    the gate in at least fp32 (pallas_block.py:111-142); bf16_ops: the
+    products' backward on bf16 operands."""
+    t = (_wide(x) + _wide(_mm(a, w_proj, bf16_ops))).to(x.dtype)
+    h = depthwise3x3(_wide(_mm(layernorm(t, ln_w, ln_b), w_in, bf16_ops)), _wide(dwk))
+    return (_wide(t) + _wide(_mm(gated(h).to(x.dtype), w_out, bf16_ops))).to(x.dtype)
 
 
 def _vjp_plain(fn, inputs, g):
@@ -107,50 +146,54 @@ def _vjp_widened(fn, inputs, g):
     return tuple(None if d is None else d.to(t.dtype) for d, t in zip(grads, inputs))
 
 
-def _block_tail_rounded(dtype, x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out):
+def _block_tail_rounded(dtype, x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, bf16_ops=False):
     """The tail in fp32 as the JAX backward kernel recomputes and
     differentiates it (pallas_block.py:286-397): pre, t, u and h rounded to
-    dtype; conv, the gate (dW_out takes it unrounded) and the rest fp32."""
-    t = _st(x + _st(conv1x1(a, w_proj), dtype), dtype)
-    h = _st(conv1x1(_st(layernorm(t, ln_w, ln_b), dtype), w_in), dtype)
-    return t + conv1x1(gated(depthwise3x3(h, dwk)), w_out)
+    dtype; conv, the gate (dW_out takes it unrounded) and the rest fp32;
+    bf16_ops: the products' backward on bf16 operands."""
+    t = _st(x + _st(_prod(a, w_proj, bf16_ops), dtype), dtype)
+    h = _st(_prod(_st(layernorm(t, ln_w, ln_b), dtype), w_in, bf16_ops), dtype)
+    return t + _prod(gated(depthwise3x3(h, dwk)), w_out, bf16_ops)
 
 
-def block_tail_bwd_bf16_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
+def block_tail_bwd_bf16_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops=False):
     """The bf16 tail backward as the JAX kernel computes it -> (dx, da,
     dw_proj, dln_w, dln_b, dw_in, ddw, dw_out), bf16 but dln_w, dln_b."""
-    return _vjp_widened(functools.partial(_block_tail_rounded, x.dtype),
+    return _vjp_widened(functools.partial(_block_tail_rounded, x.dtype, bf16_ops=bf16_ops),
                         (x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out), g)
 
 
-def _block_head_rounded(dtype, x, ln_w, ln_b, w_qkv, dwk):
+def _block_head_rounded(dtype, x, ln_w, ln_b, w_qkv, dwk, bf16_ops=False):
     """The head in fp32 as the JAX backward kernel recomputes and
     differentiates it (pallas_block.py:270-309): u and h rounded to dtype,
-    the stencil fp32."""
+    the stencil fp32; bf16_ops: the product's backward on bf16 operands."""
     u = _st(layernorm(x, ln_w, ln_b), dtype)
-    return depthwise3x3(_st(conv1x1(u, w_qkv), dtype), dwk)
+    return depthwise3x3(_st(_prod(u, w_qkv, bf16_ops), dtype), dwk)
 
 
-def block_head_bwd_bf16_plain(x, ln_w, ln_b, w_qkv, dwk, g):
+def block_head_bwd_bf16_plain(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops=False):
     """The bf16 head backward as the JAX kernel computes it -> (dx, dln_w,
     dln_b, dw_qkv, ddw), bf16 but dln_w, dln_b."""
-    return _vjp_widened(functools.partial(_block_head_rounded, x.dtype),
+    return _vjp_widened(functools.partial(_block_head_rounded, x.dtype, bf16_ops=bf16_ops),
                         (x, ln_w, ln_b, w_qkv, dwk), g)
 
 
-def block_head_bwd_plain(x, ln_w, ln_b, w_qkv, dwk, g):
-    """-> (dx, dln_w, dln_b, dw_qkv, ddw); on bf16 block_head_bwd_bf16_plain."""
+def block_head_bwd_plain(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops=False):
+    """-> (dx, dln_w, dln_b, dw_qkv, ddw); on bf16 block_head_bwd_bf16_plain;
+    bf16_ops: the products on bf16 operands."""
     if x.dtype == torch.bfloat16:
-        return block_head_bwd_bf16_plain(x, ln_w, ln_b, w_qkv, dwk, g)
-    return _vjp_plain(block_head_plain, (x, ln_w, ln_b, w_qkv, dwk), g)
+        return block_head_bwd_bf16_plain(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops)
+    return _vjp_plain(functools.partial(block_head_plain, bf16_ops=bf16_ops),
+                      (x, ln_w, ln_b, w_qkv, dwk), g)
 
 
-def block_tail_bwd_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
+def block_tail_bwd_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops=False):
     """-> (dx, da, dw_proj, dln_w, dln_b, dw_in, ddw, dw_out); on bf16
-    block_tail_bwd_bf16_plain."""
+    block_tail_bwd_bf16_plain; bf16_ops: the products on bf16 operands."""
     if x.dtype == torch.bfloat16:
-        return block_tail_bwd_bf16_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g)
-    return _vjp_plain(block_tail_plain,
+        return block_tail_bwd_bf16_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g,
+                                         bf16_ops)
+    return _vjp_plain(functools.partial(block_tail_plain, bf16_ops=bf16_ops),
                       (x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out), g)
 
 
@@ -503,16 +546,17 @@ def _fwd_card_plan(b, h, w, c, width, tail, device_index, vec_c, vec_h, vec_g, v
     return (ctypes.c_int * FWD_PLAN_INTS)(*plan.ints()), plan.sums_numel
 
 
-def block_head_bwd(x, ln_w, ln_b, w_qkv, dwk, g):
+def block_head_bwd(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops=False):
     """Backward of block_head for the cotangent g (B,H,W,M) ->
     (dx, dln_w, dln_b, dw_qkv, ddw); dln_b is None when ln_b is. In x's
     dtype (fp32, or bf16 with fp32 ln_w, ln_b: dx and the weight grads
-    bf16, dln_w and dln_b fp32). On the card every sum runs in a fixed
-    order, so two calls on the same inputs give the same bits."""
+    bf16, dln_w and dln_b fp32); bf16_ops: its products on bf16 operands
+    (module docstring). On the card every sum runs in a fixed order, so
+    two calls on the same inputs give the same bits."""
     if not x.is_cuda:
-        return block_head_bwd_plain(x, ln_w, ln_b, w_qkv, dwk, g)
+        return block_head_bwd_plain(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops)
     if x.dtype == torch.bfloat16:
-        return _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g)
+        return _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops)
     b, h, w, c = x.shape
     m = w_qkv.shape[0]
     n = b * h * w
@@ -540,22 +584,23 @@ def block_head_bwd(x, ln_w, ln_b, w_qkv, dwk, g):
                    g.data_ptr(), dx.data_ptr(), dln_w.data_ptr(),
                    build.ptr(dln_b), dw_qkv.data_ptr(), ddw.data_ptr(),
                    *(t.data_ptr() for t in (u, stats, hbuf, dh, du, sums)), plan,
-                   b, h, w, c, m, build.stream())
-    build.LAUNCHES["block_head_bwd"] += 1
+                   b, h, w, c, m, int(bf16_ops), build.stream())
+    build.LAUNCHES[build.counted("block_head_bwd", bf16_ops)] += 1
     return dx, dln_w, dln_b, dw_qkv, ddw
 
 
-def block_tail_bwd(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
+def block_tail_bwd(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops=False):
     """Backward of block_tail for the cotangent g (B,H,W,C) ->
     (dx, da, dw_proj, dln_w, dln_b, dw_in, ddw, dw_out); dln_b is None when
     ln_b is. In x's dtype (fp32, or bf16 with fp32 ln_w, ln_b: the weight
-    grads bf16, dln_w and dln_b fp32). On the card every sum runs in a
-    fixed order, so two calls on the same inputs give the same bits."""
+    grads bf16, dln_w and dln_b fp32); bf16_ops: its products on bf16
+    operands (module docstring). On the card every sum runs in a fixed
+    order, so two calls on the same inputs give the same bits."""
     if not x.is_cuda:
         return block_tail_bwd_plain(x, a, w_proj, ln_w, ln_b, w_in, dwk,
-                                    w_out, g)
+                                    w_out, g, bf16_ops)
     if x.dtype == torch.bfloat16:
-        return _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g)
+        return _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops)
     b, h, w, c = x.shape
     hid = w_out.shape[1]
     n = b * h * w
@@ -585,8 +630,9 @@ def block_tail_bwd(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
                    build.ptr(ln_b),
                    *(t.data_ptr() for t in (w_in, dwk, w_out, g)),
                    *(build.ptr(t) for t in outs),
-                   *(t.data_ptr() for t in ws), plan, b, h, w, c, hid, build.stream())
-    build.LAUNCHES["block_tail_bwd"] += 1
+                   *(t.data_ptr() for t in ws), plan, b, h, w, c, hid, int(bf16_ops),
+                   build.stream())
+    build.LAUNCHES[build.counted("block_tail_bwd", bf16_ops)] += 1
     return tuple(outs)
 
 
@@ -603,7 +649,7 @@ def bwd_bf16_workspace_numel(n: int, c: int, hid: int) -> Tuple[int, ...]:
             n * c, n * c, n * m2, n * c, n * c, n * c, n * c, *weights, *weights)
 
 
-def _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
+def _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops):
     """block_tail_bwd on bf16 CUDA tensors: csrc/block_bwd_bf16.cu."""
     b, h, w, c = x.shape
     hid = w_out.shape[1]
@@ -638,8 +684,8 @@ def _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g):
                    *(t.data_ptr() for t in (x, a, w_proj, ln_w)), build.ptr(ln_b),
                    *(t.data_ptr() for t in (w_in, dwk, w_out, g)),
                    *(build.ptr(t) for t in outs), *ws, sums.data_ptr(), plan, plan16,
-                   b, h, w, c, hid, build.stream())
-    build.LAUNCHES["block_tail_bwd_bf16"] += 1
+                   b, h, w, c, hid, int(bf16_ops), build.stream())
+    build.LAUNCHES[build.counted("block_tail_bwd_bf16", bf16_ops)] += 1
     return tuple(outs)
 
 
@@ -653,7 +699,7 @@ def head_bwd_bf16_workspace_numel(n: int, c: int, m: int) -> Tuple[int, ...]:
             n * c, n * c, *weights, *weights)
 
 
-def _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g):
+def _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops):
     """block_head_bwd on bf16 CUDA tensors: csrc/block_bwd_bf16.cu."""
     b, h, w, c = x.shape
     m = w_qkv.shape[0]
@@ -678,8 +724,9 @@ def _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g):
                    *(t.data_ptr() for t in (x, ln_w)), build.ptr(ln_b),
                    *(t.data_ptr() for t in (w_qkv, dwk, g, dx, dln_w)), build.ptr(dln_b),
                    dw_qkv.data_ptr(), ddw.data_ptr(), *ws, sums.data_ptr(), plan,
-                   kdw.bf16_vec(c, ub, w_qkv.data_ptr()), b, h, w, c, m, build.stream())
-    build.LAUNCHES["block_head_bwd_bf16"] += 1
+                   kdw.bf16_vec(c, ub, w_qkv.data_ptr()), b, h, w, c, m, int(bf16_ops),
+                   build.stream())
+    build.LAUNCHES[build.counted("block_head_bwd_bf16", bf16_ops)] += 1
     return dx, dln_w, dln_b, dw_qkv, ddw
 
 
@@ -698,43 +745,49 @@ def _bf16_recompute_plan(b, h, w, c, width, device_index, vec_c, vec_m):
 # --------------------------------------------------------------- autograd
 
 class BlockHead(torch.autograd.Function):
-    """block_head with its backward kernel; saves only inputs and weights."""
+    """block_head with its backward kernel; saves only inputs and weights;
+    bf16_ops (not a tensor) picks the backward's operand form."""
 
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, w_qkv, dwk):
+    def forward(ctx, x, ln_w, ln_b, w_qkv, dwk, bf16_ops):
         ctx.save_for_backward(x, ln_w, ln_b, w_qkv, dwk)
+        ctx.bf16_ops = bf16_ops
         return block_head_fwd(x, ln_w, ln_b, w_qkv, dwk)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         # a strided slice of torch.cat's backward arrives here
-        return block_head_bwd(*ctx.saved_tensors, g.contiguous())
+        return (*block_head_bwd(*ctx.saved_tensors, g.contiguous(), ctx.bf16_ops), None)
 
 
 class BlockTail(torch.autograd.Function):
-    """block_tail with its backward kernel; saves only inputs and weights."""
+    """block_tail with its backward kernel; saves only inputs and weights;
+    bf16_ops (not a tensor) picks the backward's operand form."""
 
     @staticmethod
-    def forward(ctx, x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out):
+    def forward(ctx, x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, bf16_ops):
         ctx.save_for_backward(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out)
+        ctx.bf16_ops = bf16_ops
         return block_tail_fwd(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return block_tail_bwd(*ctx.saved_tensors, g.contiguous())
+        return (*block_tail_bwd(*ctx.saved_tensors, g.contiguous(), ctx.bf16_ops), None)
 
 
 def block_head(x: torch.Tensor, ln_w: torch.Tensor, ln_b: Optional[torch.Tensor],
-               w_qkv: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
-    """Differentiable block head: x (B,H,W,C) -> qkv (B,H,W,M)."""
-    return BlockHead.apply(x, ln_w, ln_b, w_qkv, dwk)
+               w_qkv: torch.Tensor, dwk: torch.Tensor, bf16_ops: bool = False) -> torch.Tensor:
+    """Differentiable block head: x (B,H,W,C) -> qkv (B,H,W,M); bf16_ops:
+    its backward's products on bf16 operands (RCOT_BWD_BF16's "block")."""
+    return BlockHead.apply(x, ln_w, ln_b, w_qkv, dwk, bf16_ops)
 
 
 def block_tail(x: torch.Tensor, a: torch.Tensor, w_proj: torch.Tensor,
                ln_w: torch.Tensor, ln_b: Optional[torch.Tensor],
                w_in: torch.Tensor, dwk: torch.Tensor,
-               w_out: torch.Tensor) -> torch.Tensor:
-    """Differentiable block tail: x, a (B,H,W,C) -> y (B,H,W,C)."""
-    return BlockTail.apply(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out)
+               w_out: torch.Tensor, bf16_ops: bool = False) -> torch.Tensor:
+    """Differentiable block tail: x, a (B,H,W,C) -> y (B,H,W,C); bf16_ops
+    as block_head's."""
+    return BlockTail.apply(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, bf16_ops)

@@ -40,6 +40,10 @@ and 8 forward, rows 5-7 and 9 backward, each in the configurations its
 composition calls, and with `--attention-core mdta` and `--depthwise
 dwconv` the bf16 forms of rows 10 and 11 (ops/mdta.py, ops/dwconv.py), as
 the JAX package runs each of them on a bf16 input.
+
+A fourth choice, of training alone: which backward kernels round the
+operands of their products to bf16 (RCOT_BWD_BF16, resolve_bwd_bf16). It
+changes nothing in serving, which runs no backward.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from __future__ import annotations
 COMPOSITIONS = ("full", "head", "tail", "off")
 ATTENTION_CORES = ("gram", "mdta")
 DEPTHWISE = ("fused", "dwconv")
+BWD_BF16_TIERS = ("fused", "block", "gram")
 
 
 def resolve_composition(requested: str, *, training: bool) -> str:
@@ -70,3 +75,28 @@ def resolve_depthwise(requested: str) -> str:
         raise ValueError(f"unknown depthwise tier {requested!r}; one of {DEPTHWISE}")
     return requested
 
+
+
+def resolve_bwd_bf16(requested) -> frozenset:
+    """The backward tiers whose products take bf16 operands, as
+    RCOT_BWD_BF16 names them (rcot_tpu/ops/pallas_fused.py:123-141
+    _bwd_dot_dtype, read through dispatch.resolved_env, dispatch.py:43-51):
+    "0" or "" none; "1" or "all" every tier; else a comma list of "fused"
+    (row 9, fused_dwconv_bwd), "block" (row 5, fused_block_bwd) and "gram"
+    (rows 6-7, mdta_gram_bwd and attn_apply_bwd). In those kernels each
+    backward product rounds both operands to bf16 (round to nearest even)
+    and sums in fp32 (_bwd_dot, :144-148); nothing else changes. A resolved
+    set is taken as it is. An unknown tier name raises."""
+    if isinstance(requested, (set, frozenset)):
+        names = requested
+    elif requested in (None, "", "0"):
+        return frozenset()
+    elif requested in ("1", "all"):
+        return frozenset(BWD_BF16_TIERS)
+    else:
+        names = requested.split(",")
+    bad = [n for n in names if n not in BWD_BF16_TIERS]
+    if bad:
+        raise ValueError(f"unknown backward tier {bad[0]!r} in {requested!r}; 0, 1, all or "
+                         f"a comma list of {BWD_BF16_TIERS}")
+    return frozenset(names)

@@ -29,6 +29,12 @@ does (pallas_fused.py:153-183); the backward twin is the JAX backward
 kernel's (:297-412): h recomputed and rounded, then everything in fp32
 (dW_out from the unrounded gate), each grad rounded once (ops/block.py
 _vjp_widened).
+
+bf16 operands (the JAX package's RCOT_BWD_BF16 "fused" tier, the default
+tier of pallas_fused.py's _bwd_dot): with bf16_ops the backward's products
+(dgate, dx, dW_in, dW_out) round both operands to bf16 and sum in fp32,
+in fp32 and in bf16 alike; on the card the kernels' `ops16` form, counted
+under the backward's name with _b16ops after it (ops/block.py says more).
 """
 
 from __future__ import annotations
@@ -42,9 +48,9 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import build
 from . import dwconv as kdw
-from .block import (GATE_FUSED_MAX_C, _mm, _st, _vjp_plain, _vjp_widened, _wide, _workspaces,
-                    gate_ld, ln_plan, split_plan, sum_plan, sum_workspace_numel)
-from .conv import conv1x1, depthwise3x3
+from .block import (GATE_FUSED_MAX_C, _mm, _prod, _st, _vjp_plain, _vjp_widened, _wide,
+                    _workspaces, gate_ld, ln_plan, split_plan, sum_plan, sum_workspace_numel)
+from .conv import conv1x1, depthwise3x3  # noqa: F401 (conv1x1: _prod's product, re-exported)
 from .gdfn import gated
 from .gram import sm_count
 
@@ -52,36 +58,40 @@ from .gram import sm_count
 # ------------------------------------------------------------------ plain
 
 def fused_dwconv_plain(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
-                       w_out: Optional[torch.Tensor]) -> torch.Tensor:
+                       w_out: Optional[torch.Tensor], bf16_ops: bool = False) -> torch.Tensor:
     """w_out None: the qkv configuration, h and the output rounded to x's
     dtype (no rounding in fp32); else the GDFN, h, the gate and the output
-    rounded to x's dtype, the stencil and the gate in at least fp32."""
-    h = depthwise3x3(_wide(_mm(x, w_in)), _wide(dwk))
-    return h.to(x.dtype) if w_out is None else _mm(gated(h).to(x.dtype), w_out)
+    rounded to x's dtype, the stencil and the gate in at least fp32;
+    bf16_ops: the products' backward on bf16 operands."""
+    h = depthwise3x3(_wide(_mm(x, w_in, bf16_ops)), _wide(dwk))
+    return h.to(x.dtype) if w_out is None else _mm(gated(h).to(x.dtype), w_out, bf16_ops)
 
 
-def _qkv_rounded(dtype, x, w_in, dwk):
+def _qkv_rounded(dtype, x, w_in, dwk, bf16_ops=False):
     """The qkv configuration in fp32 as the JAX backward kernel recomputes
     and differentiates it: h rounded to dtype, the stencil fp32."""
-    return depthwise3x3(_st(conv1x1(x, w_in), dtype), dwk)
+    return depthwise3x3(_st(_prod(x, w_in, bf16_ops), dtype), dwk)
 
 
-def _gdfn_rounded(dtype, x, w_in, dwk, w_out):
+def _gdfn_rounded(dtype, x, w_in, dwk, w_out, bf16_ops=False):
     """The GDFN in fp32 as the JAX backward kernel recomputes and
     differentiates it (pallas_fused.py:330-412): h rounded to dtype; conv,
     the gate (dW_out takes it unrounded) and the rest fp32."""
-    return conv1x1(gated(_qkv_rounded(dtype, x, w_in, dwk)), w_out)
+    return _prod(gated(_qkv_rounded(dtype, x, w_in, dwk, bf16_ops)), w_out, bf16_ops)
 
 
-def fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g):
+def fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g, bf16_ops=False):
     """-> (dx, dw_in, ddw, dw_out); dw_out is None when w_out is. On bf16
-    as the JAX backward kernel computes it."""
+    as the JAX backward kernel computes it; bf16_ops: the products on bf16
+    operands."""
     if x.dtype != torch.bfloat16:
-        return _vjp_plain(fused_dwconv_plain, (x, w_in, dwk, w_out), g)
+        return _vjp_plain(functools.partial(fused_dwconv_plain, bf16_ops=bf16_ops),
+                          (x, w_in, dwk, w_out), g)
     if w_out is None:
-        return (*_vjp_widened(functools.partial(_qkv_rounded, x.dtype), (x, w_in, dwk), g),
-                None)
-    return _vjp_widened(functools.partial(_gdfn_rounded, x.dtype), (x, w_in, dwk, w_out), g)
+        return (*_vjp_widened(functools.partial(_qkv_rounded, x.dtype, bf16_ops=bf16_ops),
+                              (x, w_in, dwk), g), None)
+    return _vjp_widened(functools.partial(_gdfn_rounded, x.dtype, bf16_ops=bf16_ops),
+                        (x, w_in, dwk, w_out), g)
 
 
 # ------------------------------------------------------------------ plans
@@ -284,19 +294,20 @@ def fused_dwconv_fwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
 
 
 def fused_dwconv_bwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
-                     w_out: Optional[torch.Tensor], g: torch.Tensor
+                     w_out: Optional[torch.Tensor], g: torch.Tensor, bf16_ops: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 Optional[torch.Tensor]]:
     """Backward of fused_dwconv_fwd for the cotangent g ->
-    (dx, dw_in, ddw, dw_out); dw_out is None when w_out is. On the card
-    every sum runs in a fixed order, so two calls on the same inputs give
-    the same bits; in x's dtype."""
+    (dx, dw_in, ddw, dw_out); dw_out is None when w_out is; bf16_ops: its
+    products on bf16 operands (module docstring). On the card every sum
+    runs in a fixed order, so two calls on the same inputs give the same
+    bits; in x's dtype."""
     if not x.is_cuda:
-        return fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g)
+        return fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g, bf16_ops)
     if x.dtype == torch.bfloat16:
         if w_out is None:
-            return (*_conv1x1_dw_bwd_bf16(x, w_in, dwk, g), None)
-        return _gdfn_fused_bwd_bf16(x, w_in, dwk, w_out, g)
+            return (*_conv1x1_dw_bwd_bf16(x, w_in, dwk, g, bf16_ops), None)
+        return _gdfn_fused_bwd_bf16(x, w_in, dwk, w_out, g, bf16_ops)
     b, h, w, c, m = _check(x, w_in, dwk, w_out, g)
     gdfn = w_out is not None
     dev = x.device
@@ -312,8 +323,8 @@ def fused_dwconv_bwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
         build.call(f"rcot_{name}", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
                    *((w_out.data_ptr(),) if gdfn else ()), g.data_ptr(), dx.data_ptr(),
                    dw_in.data_ptr(), ddw.data_ptr(), *((dw_out.data_ptr(),) if gdfn else ()),
-                   *ws, plan, b, h, w, c, m // 2 if gdfn else m, build.stream())
-    build.LAUNCHES[name] += 1
+                   *ws, plan, b, h, w, c, m // 2 if gdfn else m, int(bf16_ops), build.stream())
+    build.LAUNCHES[build.counted(name, bf16_ops)] += 1
     return dx, dw_in, ddw, dw_out
 
 
@@ -338,7 +349,7 @@ def _conv1x1_dw_bf16(x, w_in, dwk):
     return out
 
 
-def _conv1x1_dw_bwd_bf16(x, w_in, dwk, g):
+def _conv1x1_dw_bwd_bf16(x, w_in, dwk, g, bf16_ops):
     """The qkv backward on bf16 CUDA tensors -> (dx, dw_in, ddw), bf16:
     csrc/fused_dwconv_bf16.cu, with fused_bwd_plan's plan on its fp32
     workspaces."""
@@ -357,8 +368,8 @@ def _conv1x1_dw_bwd_bf16(x, w_in, dwk, g):
         build.call("rcot_conv1x1_dw_bwd_bf16", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
                    g.data_ptr(), dx.data_ptr(), dw_in.data_ptr(), ddw.data_ptr(), *ws,
                    sums.data_ptr(), plan, kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr()),
-                   b, h, w, c, m, build.stream())
-    build.LAUNCHES["conv1x1_dw_bwd_bf16"] += 1
+                   b, h, w, c, m, int(bf16_ops), build.stream())
+    build.LAUNCHES[build.counted("conv1x1_dw_bwd_bf16", bf16_ops)] += 1
     return dx, dw_in, ddw
 
 
@@ -398,7 +409,7 @@ def gdfn_bwd_bf16_workspace_numel(n: int, c: int, hid: int) -> Tuple[int, ...]:
             *weights, *weights)
 
 
-def _gdfn_fused_bwd_bf16(x, w_in, dwk, w_out, g):
+def _gdfn_fused_bwd_bf16(x, w_in, dwk, w_out, g, bf16_ops):
     """The GDFN backward on bf16 CUDA tensors -> (dx, dw_in, ddw, dw_out),
     bf16: csrc/fused_dwconv_bf16.cu, with fused_bwd_plan's plan on its fp32
     workspaces."""
@@ -417,8 +428,8 @@ def _gdfn_fused_bwd_bf16(x, w_in, dwk, w_out, g):
         build.call("rcot_gdfn_fused_bwd_bf16",
                    *(t.data_ptr() for t in (x, w_in, dwk, w_out, g, dx, dw_in, ddw, dw_out)),
                    *ws, sums.data_ptr(), plan, kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr()),
-                   b, h, w, c, hid, build.stream())
-    build.LAUNCHES["gdfn_fused_bwd_bf16"] += 1
+                   b, h, w, c, hid, int(bf16_ops), build.stream())
+    build.LAUNCHES[build.counted("gdfn_fused_bwd_bf16", bf16_ops)] += 1
     return dx, dw_in, ddw, dw_out
 
 
@@ -426,29 +437,32 @@ def _gdfn_fused_bwd_bf16(x, w_in, dwk, w_out, g):
 
 class FusedDwconv(torch.autograd.Function):
     """fused_dwconv_fwd with its backward kernel; saves only x and the
-    weights (pallas_fused.py _vjp_fwd)."""
+    weights (pallas_fused.py _vjp_fwd); bf16_ops (not a tensor) picks the
+    backward's operand form."""
 
     @staticmethod
-    def forward(ctx, x, w_in, dwk, w_out):
+    def forward(ctx, x, w_in, dwk, w_out, bf16_ops):
         ctx.save_for_backward(x, w_in, dwk, w_out)
+        ctx.bf16_ops = bf16_ops
         return fused_dwconv_fwd(x, w_in, dwk, w_out)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         # a strided slice of torch.cat's backward arrives here
-        return fused_dwconv_bwd(*ctx.saved_tensors, g.contiguous())
+        return (*fused_dwconv_bwd(*ctx.saved_tensors, g.contiguous(), ctx.bf16_ops), None)
 
 
-def conv1x1_dw_fused(x: torch.Tensor, w_in: torch.Tensor,
-                     dwk: torch.Tensor) -> torch.Tensor:
+def conv1x1_dw_fused(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
+                     bf16_ops: bool = False) -> torch.Tensor:
     """1x1 conv then its depthwise 3x3, differentiable: x (B,H,W,C) ->
-    (B,H,W,M); w_in (M,C), dwk (M,3,3). The MDTA qkv path."""
-    return FusedDwconv.apply(x, w_in, dwk, None)
+    (B,H,W,M); w_in (M,C), dwk (M,3,3). The MDTA qkv path. bf16_ops: the
+    backward's products on bf16 operands (RCOT_BWD_BF16's "fused")."""
+    return FusedDwconv.apply(x, w_in, dwk, None, bf16_ops)
 
 
 def gdfn_fused(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
-               w_out: torch.Tensor) -> torch.Tensor:
+               w_out: torch.Tensor, bf16_ops: bool = False) -> torch.Tensor:
     """The whole bias-free GDFN, differentiable: x (B,H,W,C) -> (B,H,W,C);
-    w_in (2h,C), dwk (2h,3,3), w_out (C,h)."""
-    return FusedDwconv.apply(x, w_in, dwk, w_out)
+    w_in (2h,C), dwk (2h,3,3), w_out (C,h); bf16_ops as conv1x1_dw_fused's."""
+    return FusedDwconv.apply(x, w_in, dwk, w_out, bf16_ops)

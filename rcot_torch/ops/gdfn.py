@@ -42,18 +42,19 @@ def gdfn(x: torch.Tensor, w_in: torch.Tensor, w_dw: torch.Tensor,
          w_out: torch.Tensor, b_in: Optional[torch.Tensor] = None,
          b_dw: Optional[torch.Tensor] = None,
          b_out: Optional[torch.Tensor] = None,
-         depthwise: str = "fused") -> torch.Tensor:
+         depthwise: str = "fused", bf16_ops: bool = False) -> torch.Tensor:
     """(B, H, W, C) -> (B, H, W, C), routed as rcot_tpu/ops/gdfn.py:44-75.
     Bias-free, in the depthwise tier named: "fused", the whole GDFN in one
-    kernel (gdfn_fused); "dwconv", the 1x1 as a product, the depthwise
-    kernel (dwconv3x3), the gate and the 1x1 out. With biases, plain ops."""
+    kernel (gdfn_fused; bf16_ops: its backward's products on bf16
+    operands); "dwconv", the 1x1 as a product, the depthwise kernel
+    (dwconv3x3), the gate and the 1x1 out. With biases, plain ops."""
     if b_in is None and b_dw is None and b_out is None:
         m = w_in.shape[0]
         if depthwise == "fused":
             # imported here: ops/fused.py takes `gated` from this module
             from .fused import gdfn_fused
             return gdfn_fused(x, w_in.reshape(m, -1), w_dw.reshape(m, 3, 3),
-                              w_out.reshape(w_out.shape[0], -1))
+                              w_out.reshape(w_out.shape[0], -1), bf16_ops)
         if depthwise != "dwconv":
             raise ValueError(f"unknown depthwise tier {depthwise!r}")
         h = dwconv3x3(conv1x1(x, w_in), w_dw.reshape(m, 3, 3))

@@ -34,6 +34,15 @@ kernels take the bf16 qkv and cotangent widened to fp32, the fp32 attn
 bf16 (:120-138, :195-216; dattn stays fp32): csrc/gram_bwd_bf16.cu,
 counted as mdta_gram_bwd_bf16 and attn_apply_bwd_bf16. Their twins are
 the fp32 twins on the widened operands, their outputs rounded.
+
+bf16 operands (the JAX package's RCOT_BWD_BF16 "gram" tier, _bwd_dot(...,
+tier="gram") at pallas_gram.py:129-130 and :211-212): with bf16_ops the
+two backward kernels round k, q and dG (d[q|k]) and g, attn and v (dv,
+dattn) to bf16 for their products and sum in fp32; 2 q dnq and 2 k dnk
+keep the fp32 q and k. On the card csrc/gram_bwd_b16ops.cu (and, on a
+bf16 qkv, gram_bwd_bf16.cu with its ops16 argument), counted under the
+backward's name with _b16ops after it; the twins take the same formula
+with those operands rounded.
 """
 
 from __future__ import annotations
@@ -75,11 +84,27 @@ def attn_apply_plain(qkv: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bxyhd,bhcd->bxyhc", v, attn).reshape(b, h, w, c)
 
 
-def mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads):
+def _r16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest, ties to even), in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads, bf16_ops=False):
     """-> d[q|k] (B,H,W,2C) in qkv's dtype, by autograd through
-    mdta_gram_plain (a bf16 qkv widened first)."""
+    mdta_gram_plain (a bf16 qkv widened first); with bf16_ops dq = k16 dG16^T
+    + 2 q dnq, dk = q16 dG16 + 2 k dnk, x16 = x rounded to bf16."""
     if qkv.dtype == torch.bfloat16:
-        return mdta_gram_bwd_plain(qkv.float(), dgram, dnq, dnk, num_heads).to(qkv.dtype)
+        return mdta_gram_bwd_plain(qkv.float(), dgram, dnq, dnk, num_heads,
+                                   bf16_ops).to(qkv.dtype)
+    if bf16_ops:
+        b, h, w, c3 = qkv.shape
+        c = c3 // 3
+        q, k = (t.reshape(b, h * w, num_heads, c // num_heads)
+                for t in (qkv[..., :c], qkv[..., c:2 * c]))
+        dg = _r16(dgram.to(qkv.dtype))
+        dq = torch.einsum("bnhd,bhcd->bnhc", _r16(k), dg) + 2 * q * dnq[:, None]
+        dk = torch.einsum("bnhc,bhcd->bnhd", _r16(q), dg) + 2 * k * dnk[:, None]
+        return torch.cat([dq.reshape(b, h, w, c), dk.reshape(b, h, w, c)], dim=-1)
     with torch.enable_grad():
         leaf = qkv.detach().requires_grad_()
         outs = mdta_gram_plain(leaf, num_heads)
@@ -87,13 +112,23 @@ def mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads):
     return dqkv[..., :2 * (qkv.shape[-1] // 3)]
 
 
-def attn_apply_bwd_plain(qkv, attn, g):
+def attn_apply_bwd_plain(qkv, attn, g, bf16_ops=False):
     """-> (dv (B,H,W,C) in qkv's dtype, dattn (B,heads,ch,ch) fp32), by
     autograd through attn_apply_plain (a bf16 qkv and g widened first, attn
-    taken unrounded)."""
+    taken unrounded); with bf16_ops dv = g16 attn16, dattn = g16^T v16, x16
+    = x rounded to bf16."""
     if qkv.dtype == torch.bfloat16:
-        dv, dattn = attn_apply_bwd_plain(qkv.float(), attn, g.float())
+        dv, dattn = attn_apply_bwd_plain(qkv.float(), attn, g.float(), bf16_ops)
         return dv.to(qkv.dtype), dattn
+    if bf16_ops:
+        b, h, w, c3 = qkv.shape
+        c = c3 // 3
+        heads, ch = attn.shape[1], attn.shape[2]
+        v = _r16(qkv[..., 2 * c:].reshape(b, h, w, heads, ch))
+        g16 = _r16(g.reshape(b, h, w, heads, ch))
+        dv = torch.einsum("bxyhc,bhcd->bxyhd", g16, _r16(attn.to(qkv.dtype)))
+        dattn = torch.einsum("bxyhc,bxyhd->bhcd", g16, v)
+        return dv.reshape(b, h, w, c), dattn
     with torch.enable_grad():
         leaves = [qkv.detach().requires_grad_(), attn.detach().requires_grad_()]
         dqkv, dattn = torch.autograd.grad(attn_apply_plain(*leaves), leaves, g)
@@ -310,12 +345,13 @@ def attn_apply_fwd(qkv: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
 
 
 def mdta_gram_bwd(qkv: torch.Tensor, dgram: torch.Tensor, dnq: torch.Tensor,
-                  dnk: torch.Tensor, num_heads: int) -> torch.Tensor:
+                  dnk: torch.Tensor, num_heads: int, bf16_ops: bool = False) -> torch.Tensor:
     """Backward of mdta_gram_fwd: qkv (B,H,W,3C) and the cotangents of G,
     nq, nk -> d[q|k] (B,H,W,2C); the v third is structurally zero and not
-    written; in qkv's dtype (fp32, or bf16 from fp32 cotangents)."""
+    written; in qkv's dtype (fp32, or bf16 from fp32 cotangents); bf16_ops:
+    its products on bf16 operands (module docstring)."""
     if not qkv.is_cuda:
-        return mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads)
+        return mdta_gram_bwd_plain(qkv, dgram, dnq, dnk, num_heads, bf16_ops)
     b, h, w, c3 = qkv.shape
     ch = c3 // 3 // num_heads
     dev = qkv.device
@@ -332,23 +368,27 @@ def mdta_gram_bwd(qkv: torch.Tensor, dgram: torch.Tensor, dnq: torch.Tensor,
     # the bf16 kernel's fp32 copies of qkv (its q and k thirds) and of d[q|k]
     wide = [torch.empty(k, device=dev) for k in (qkv.numel(), dqdk.numel())] if bf16 else []
     kernel = "mdta_gram_bwd_bf16" if bf16 else "mdta_gram_bwd"
+    # the bf16 kernel takes the operand form as an argument, the fp32 one by name
+    entry = "rcot_" + (kernel if bf16 else build.counted(kernel, bf16_ops))
+    ops16 = (int(bf16_ops),) if bf16 else ()
     with torch.cuda.device(dev):
-        build.call("rcot_" + kernel, qkv.data_ptr(), dgram.data_ptr(),
+        build.call(entry, qkv.data_ptr(), dgram.data_ptr(),
                    dnq.data_ptr(), dnk.data_ptr(), dqdk.data_ptr(),
                    *(t.data_ptr() for t in wide), build.ptr(ws), b,
-                   h * w, num_heads, ch, cb, blocks, per, build.stream())
-    build.LAUNCHES[kernel] += 1
+                   h * w, num_heads, ch, cb, blocks, per, *ops16, build.stream())
+    build.LAUNCHES[build.counted(kernel, bf16_ops)] += 1
     return dqdk
 
 
-def attn_apply_bwd(qkv: torch.Tensor, attn: torch.Tensor, g: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def attn_apply_bwd(qkv: torch.Tensor, attn: torch.Tensor, g: torch.Tensor,
+                   bf16_ops: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of attn_apply_fwd for the cotangent g (B,H,W,C) ->
     (dv (B,H,W,C) in qkv's dtype, dattn (B,heads,ch,ch) fp32); attn fp32,
-    g in qkv's dtype. On the card dattn's pixel sums run in a fixed order,
-    so two calls on the same input give the same bits."""
+    g in qkv's dtype; bf16_ops: its products on bf16 operands (module
+    docstring). On the card dattn's pixel sums run in a fixed order, so two
+    calls on the same input give the same bits."""
     if not qkv.is_cuda:
-        return attn_apply_bwd_plain(qkv, attn, g)
+        return attn_apply_bwd_plain(qkv, attn, g, bf16_ops)
     b, h, w, _ = qkv.shape
     heads, ch = attn.shape[1], attn.shape[2]
     dev = qkv.device
@@ -369,12 +409,14 @@ def attn_apply_bwd(qkv: torch.Tensor, attn: torch.Tensor, g: torch.Tensor
     wide = ([torch.empty(k, device=dev) for k in (qkv.numel(), g.numel(), dv.numel())]
             if bf16 else [])
     kernel = "attn_apply_bwd_bf16" if bf16 else "attn_apply_bwd"
+    entry = "rcot_" + (kernel if bf16 else build.counted(kernel, bf16_ops))
+    ops16 = (int(bf16_ops),) if bf16 else ()
     with torch.cuda.device(dev):
-        build.call("rcot_" + kernel, qkv.data_ptr(), attn.data_ptr(),
+        build.call(entry, qkv.data_ptr(), attn.data_ptr(),
                    g.data_ptr(), dv.data_ptr(), dattn.data_ptr(),
                    *(t.data_ptr() for t in wide), build.ptr(ws), b,
-                   h * w, heads, ch, cb, splits, per, build.stream())
-    build.LAUNCHES[kernel] += 1
+                   h * w, heads, ch, cb, splits, per, *ops16, build.stream())
+    build.LAUNCHES[build.counted(kernel, bf16_ops)] += 1
     return dv, dattn
 
 
@@ -391,13 +433,15 @@ def _glue(gram: torch.Tensor, nq: torch.Tensor, nk: torch.Tensor,
 
 class MdtaCore(torch.autograd.Function):
     """The MDTA core with its backward kernels; saves qkv, G, nq, nk and
-    the temperature (attn is rebuilt in the backward)."""
+    the temperature (attn is rebuilt in the backward); bf16_ops (not a
+    tensor) picks the backward kernels' operand form."""
 
     @staticmethod
-    def forward(ctx, temperature, qkv, num_heads):
+    def forward(ctx, temperature, qkv, num_heads, bf16_ops=False):
         gram, nq, nk = mdta_gram_fwd(qkv, num_heads)
         ctx.save_for_backward(qkv, gram, nq, nk, temperature)
         ctx.num_heads = num_heads
+        ctx.bf16_ops = bf16_ops
         return attn_apply_fwd(qkv, _glue(gram, nq, nk, temperature))
 
     @staticmethod
@@ -407,15 +451,16 @@ class MdtaCore(torch.autograd.Function):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (gram, nq, nk, temperature)]
             attn = _glue(*leaves)
-        dv, dattn = attn_apply_bwd(qkv, attn.detach(), g.contiguous())
+        dv, dattn = attn_apply_bwd(qkv, attn.detach(), g.contiguous(), ctx.bf16_ops)
         dgram, dnq, dnk, dtemp = torch.autograd.grad(attn, leaves, dattn)
         dqdk = mdta_gram_bwd(qkv, dgram.contiguous(), dnq.contiguous(),
-                             dnk.contiguous(), ctx.num_heads)
-        return dtemp, torch.cat([dqdk, dv], dim=-1), None
+                             dnk.contiguous(), ctx.num_heads, ctx.bf16_ops)
+        return dtemp, torch.cat([dqdk, dv], dim=-1), None, None
 
 
 def mdta_core_gram(temperature: torch.Tensor, qkv: torch.Tensor,
-                   num_heads: int) -> torch.Tensor:
+                   num_heads: int, bf16_ops: bool = False) -> torch.Tensor:
     """The whole MDTA core on NHWC qkv (B,H,W,3C) -> (B,H,W,C),
-    differentiable in qkv and the temperature (heads, 1, 1)."""
-    return MdtaCore.apply(temperature, qkv, num_heads)
+    differentiable in qkv and the temperature (heads, 1, 1); bf16_ops: its
+    backward kernels' products on bf16 operands (RCOT_BWD_BF16's "gram")."""
+    return MdtaCore.apply(temperature, qkv, num_heads, bf16_ops)

@@ -60,18 +60,18 @@ class Batch(NamedTuple):
 
 def create_train_state(cfg: Config, *, seed: Optional[int] = 0, device="cuda",
                        composition: str = "auto", attention_core: str = "gram",
-                       depthwise: str = "fused") -> TrainState:
+                       depthwise: str = "fused", bwd_bf16="0") -> TrainState:
     """T and F from `seed` (each module's own seeded init; None leaves them
     uninitialised, for a checkpoint to fill), T's optimizer at lr / 2 and
     F's at lr. T's blocks run in `composition` ("auto" is the JAX trainer's
-    default, "tail", with either attention core), `attention_core` and
-    `depthwise` (ops/dispatch.py)."""
+    default, "tail", with either attention core), `attention_core`,
+    `depthwise` and `bwd_bf16` (RCOT_BWD_BF16's tiers; ops/dispatch.py)."""
     if cfg.model.backbone != "restormer":
         raise ValueError(f"backbone {cfg.model.backbone!r} is not ported yet")
     dev = resolve_device(device)
     t_net = TNet(cfg.model, device=dev, seed=seed,
                  composition=resolve_composition(composition, training=True),
-                 attention_core=attention_core, depthwise=depthwise)
+                 attention_core=attention_core, depthwise=depthwise, bwd_bf16=bwd_bf16)
     f_net = FNet(cfg.critic, device=dev, seed=seed)
     return TrainState(
         t_net=t_net, f_net=f_net,

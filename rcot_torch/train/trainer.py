@@ -21,9 +21,14 @@ main/train/evaluate):
   preempted, ckpt_skipped_inflight, ...
 
 T's bias-free blocks run in `composition` ("auto" = the JAX trainer's
-default, "tail"), `attention_core` and `depthwise` (ops/dispatch.py);
+default, "tail"), `attention_core`, `depthwise` and `bwd_bf16` (the tiers
+whose backward products take bf16 operands, RCOT_BWD_BF16; ops/dispatch.py);
 validation serves in "full" with the same attention core and depthwise
-tier, as the JAX package's kernel switches hold in its inference scope too.
+tier, as the JAX package's kernel switches hold in its inference scope too
+(bwd_bf16 changes nothing there: serving runs no backward). The JAX
+trainer's own switch to RCOT_BWD_BF16=all at a per-chip batch of 8 or more
+(rcot_tpu/train/trainer.py:78-110) is a TPU measurement and is not taken:
+the option is the caller's.
 With TrainConfig.dtype "bfloat16" the batches (and the sample dump's
 forward) are bf16, in any composition, attention core and depthwise tier
 (the dwconv tier's taps and their gradients fp32); validation serves
@@ -48,7 +53,8 @@ from ..data.datasets import eval_pairs, load_rgb
 from ..data.pipeline import device_prefetch, TrainLoader
 from ..metrics.quality import psnr
 from ..models.inference import make_restorer
-from ..ops.dispatch import resolve_attention_core, resolve_composition, resolve_depthwise
+from ..ops.dispatch import (resolve_attention_core, resolve_bwd_bf16, resolve_composition,
+                            resolve_depthwise)
 from ..utils.checkpoint import AsyncCheckpointer, load_checkpoint, snapshot_state
 from ..utils.config import Config
 from ..utils.device import resolve_device
@@ -71,12 +77,13 @@ class Preempted(Exception):
 class Trainer:
     def __init__(self, cfg: Config, *, log_path: Optional[str] = None,
                  device="cuda", composition: str = "auto",
-                 attention_core: str = "gram", depthwise: str = "fused"):
+                 attention_core: str = "gram", depthwise: str = "fused", bwd_bf16="0"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.composition = resolve_composition(composition, training=True)
         self.attention_core = resolve_attention_core(attention_core)
         self.depthwise = resolve_depthwise(depthwise)
+        self.bwd_bf16 = resolve_bwd_bf16(bwd_bf16)
         self.dtype = batch_dtype(cfg)
         self.log = MetricsLogger(log_path)
         self.loader = TrainLoader(cfg, seed=cfg.train.seed)
@@ -100,7 +107,7 @@ class Trainer:
 
     def _kernels(self) -> dict:
         return dict(composition=self.composition, attention_core=self.attention_core,
-                    depthwise=self.depthwise)
+                    depthwise=self.depthwise, bwd_bf16=self.bwd_bf16)
 
     def init_state(self) -> TrainState:
         self.state = create_train_state(self.cfg, seed=self.cfg.train.seed,

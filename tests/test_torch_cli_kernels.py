@@ -13,6 +13,9 @@ rcot_torch/models/inference.py), on the CPU with a tiny T_net.
 - In every composition x attention core x depthwise tier, a forward and
   backward reaches each kernel wrapper as often as chip_smoke.py's launch
   counts for it say.
+- cli.train --bwd-bf16 (RCOT_BWD_BF16) reaches the Trainer, which refuses
+  an unknown tier; with it a forward and backward reaches each backward
+  wrapper's bf16-operand form where chip_smoke.py counts it.
 """
 
 import collections
@@ -29,6 +32,7 @@ import chip_smoke
 from rcot_torch.cli import test as test_cli
 from rcot_torch.cli import train as train_cli
 from rcot_torch.data.synthetic import write_synthetic_tree
+from rcot_torch.kernels.build import counted as tcounted
 from rcot_torch.models import inference as tinf
 from rcot_torch.models.restormer import TNet
 from rcot_torch.ops import block as tblock
@@ -227,3 +231,53 @@ def test_chip_smoke_counts_the_wrappers_each_tier_reaches(monkeypatch, kernels):
     sum(o.sum() for o in net(torch.rand(1, 16, 16, 3))).backward()
     mode, core, tier = kernels
     assert dict(calls) == chip_smoke.expected_launches(22, mode, core=core, depthwise=tier)
+
+
+# ------------------------------------------------------------ --bwd-bf16
+
+@pytest.mark.parametrize("flags,want", [
+    ([], "0"), (["--bwd-bf16", "all"], "all"), (["--bwd-bf16", "fused,gram"], "fused,gram"),
+    (["--bwd-bf16", "all", "--composition", "full"], "all")],
+    ids=["default-off", "all", "fused-gram", "all-full"])
+def test_train_cli_threads_bwd_bf16_into_the_trainer(monkeypatch, flags, want):
+    """cli.train --bwd-bf16 (the JAX package's RCOT_BWD_BF16) reaches the
+    Trainer as given; without it the option is off."""
+    monkeypatch.setattr(ttrainer, "Trainer", _Recorder)
+    train_cli.main(["--device", "cpu"] + flags)
+    assert _Recorder.seen["bwd_bf16"] == want
+    assert "bwd_bf16" not in vars(train_cli.build_parser().parse_args([]))
+
+
+def test_trainer_and_train_state_take_bwd_bf16_and_refuse_unknown_tiers():
+    """The Trainer resolves the tiers once (an unknown name stops it before
+    anything is built) and builds its T_net with them on every block;
+    Config.hash() does not see them."""
+    cfg = tconfig.Config(model=TINY)
+    with pytest.raises(ValueError, match="blok"):
+        ttrainer.Trainer(cfg, device="cpu", bwd_bf16="block,blok")
+    state = tsteps.create_train_state(cfg, seed=0, device="cpu", bwd_bf16="block,gram")
+    assert state.t_net.bwd_bf16 == {"block", "gram"}
+    blocks = [m for m in state.t_net.modules() if hasattr(m, "ffn")]
+    assert blocks and all(b.bwd_bf16 == {"block", "gram"} for b in blocks)
+    state.t_net.bwd_bf16 = "all"
+    assert all(b.bwd_bf16 == {"block", "gram", "fused"} for b in blocks)
+    assert tsteps.create_train_state(cfg, seed=0, device="cpu").t_net.bwd_bf16 == frozenset()
+
+
+@pytest.mark.parametrize("mode,tiers", [("full", "all"), ("tail", "gram"), ("off", "fused"),
+                                        ("head", "block,fused")], ids="-".join)
+def test_chip_smoke_counts_the_bf16_operand_forms_each_tier_reaches(monkeypatch, mode, tiers):
+    """With bwd_bf16, a forward and backward of the tiny T_net reaches each
+    backward wrapper with bf16_ops exactly where chip_smoke.with_b16ops
+    counts its _b16ops form, and every other wrapper as before."""
+    calls = collections.Counter()
+    for mod, fn, name in WRAPPERS:
+        def counted(*args, _real=getattr(mod, fn), _name=name, **kw):
+            key = _name if isinstance(_name, str) else _name[args[3] is not None]
+            calls[tcounted(key, bool(kw.get("bf16_ops", args[-1] is True)))] += 1
+            return _real(*args, **kw)
+        monkeypatch.setattr(mod, fn, counted)
+    net = TNet(TINY, device="cpu", seed=0, composition=mode, bwd_bf16=tiers)
+    sum(o.sum() for o in net(torch.rand(1, 16, 16, 3))).backward()
+    assert dict(calls) == chip_smoke.with_b16ops(chip_smoke.expected_launches(22, mode),
+                                                 net.bwd_bf16)

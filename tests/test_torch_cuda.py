@@ -58,6 +58,16 @@ bf16 gradients on the card against the CPU's under the quarter rule on the
 mean taken over every gradient entry together (sum|card - CPU bf16| <=
 sum|fp32 - bf16| / 4; per tensor an MDTA temperature's cancelling sum of a
 few entries breaks it, chip_smoke.py BF16_MODEL_RATIO).
+
+bf16 operands in the backward products (--bwd-bf16, RCOT_BWD_BF16: rows 5,
+6-7 and 9 on fp32 and bf16 activations, counted *_b16ops): each form
+against its plain twin with bf16 operands, within 1/16 of what its 3xTF32
+form is from the twin on the mean of every output rounding reaches (a
+quarter for the _bf16 forms, which carry flips of their own) and
+2^-7 of the largest value at most (an ulp), bitwise on a repeat; a small fp32 T_net
+with every tier on against the CPU, summed within 0.9 of what the option
+changes (chip_smoke.py B16OPS_MODEL_RATIO says why no tighter), only the
+_b16ops backward forms launched.
 """
 
 import pytest
@@ -1203,3 +1213,132 @@ def test_a_bf16_tnet_in_the_opt_in_tiers_on_the_card_matches_the_cpu(cuda_device
     err = sum(float((card[k] - cpu16[k]).abs().sum()) for k in card)
     gap = sum(float((cpu32[k] - cpu16[k]).abs().sum()) for k in card)
     assert err <= BF16_MODEL_RATIO * gap, (err, gap)
+
+
+# ------------------------------------------- bf16 operands (--bwd-bf16)
+
+# A bf16-operand form against its plain twin with bf16 operands, by the rule
+# that tells a form that rounds from one that does not (chip_smoke.py
+# B16OPS_SHARE): on every output rounding reaches, mean|form - twin| <= 1/16
+# of mean|3xTF32 form - twin|, max|form - twin| <= 2^-7 of max(max|twin|, 1)
+# (one bf16 flip of an intermediate or of a bf16 output, an ulp: at most
+# 2^-7 of the value); an output no
+# rounded product reaches (UNREACHED: ddw where dconv is g itself or comes
+# from bf16 operands, dattn on bf16 g and v) is held as the 3xTF32 form is.
+B16OPS_SHARE, B16OPS_MAX_RTOL = 1.0 / 16, 2.0 ** -7
+# the _bf16 forms round at the forward's rounding points and at their bf16
+# outputs, flips the same in both distances: a quarter of the gap there
+# (chip_smoke.py B16OPS_BF16_SHARE says why)
+B16OPS_BF16_SHARE = 1.0 / 4
+UNREACHED = {("block_head_bwd", 4), ("conv1x1_dw_bwd", 2), ("block_head_bwd_bf16", 4),
+             ("conv1x1_dw_bwd_bf16", 2), ("block_tail_bwd_bf16", 6),
+             ("gdfn_fused_bwd_bf16", 2), ("attn_apply_bwd_bf16", 1)}
+
+
+def _b16ops_calls(p, g_m, g_c, qkv, heads, gen):
+    """{base name: (wrapper, plain twin, arguments)} of rows 5, 6-7, 9."""
+    b, h, w, c = p["x"].shape
+    ch = c // heads
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    dgram, dnq, dnk = r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)
+    attn = torch.softmax(r(b, heads, ch, ch), -1)
+    head = [p["x"], p["ln_w"], p["ln_b"], p["w_qkv"], p["dw_qkv"], g_m]
+    tail = [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")] + [g_c]
+    return {
+        "block_head_bwd": (tblock.block_head_bwd, tblock.block_head_bwd_plain, head),
+        "block_tail_bwd": (tblock.block_tail_bwd, tblock.block_tail_bwd_plain, tail),
+        "conv1x1_dw_bwd": (tfused.fused_dwconv_bwd, tfused.fused_dwconv_bwd_plain,
+                           [p["x"], p["w_qkv"], p["dw_qkv"], None, g_m]),
+        "gdfn_fused_bwd": (tfused.fused_dwconv_bwd, tfused.fused_dwconv_bwd_plain,
+                           [p["x"], p["w_in"], p["dw_in"], p["w_out"], g_c]),
+        "mdta_gram_bwd": (lambda *a, **k: (tgram.mdta_gram_bwd(*a, **k),),
+                          lambda *a, **k: (tgram.mdta_gram_bwd_plain(*a, **k),),
+                          [qkv, dgram, dnq, dnk, heads]),
+        "attn_apply_bwd": (tgram.attn_apply_bwd, tgram.attn_apply_bwd_plain, [qkv, attn, g_c]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads", [((1, 20, 19, 6), 1), ((3, 16, 16, 48), 1),
+                                         ((1, 16, 16, 192), 4), ((1, 9, 33, 384), 8),
+                                         ((2, 8, 8, 144), 1)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_bf16_operand_forms_match_their_twins_and_repeat(cuda_device, shape, heads, dtype):
+    """Rows 5 (head, tail), 6-7 and 9 (qkv, GDFN) with bf16_ops, on fp32 and
+    bf16 activations: one count a call under the form's _b16ops name, two
+    calls bitwise equal, the rule above B16OPS_SHARE against the twin."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    p = _block_inputs(gen, *shape, True)
+    bf = dtype == "bf16"
+    p = _to_bf16(p) if bf else p
+    dt = torch.bfloat16 if bf else torch.float32
+    g_m = torch.randn(*shape[:3], 3 * shape[3], device="cuda", generator=gen).to(dt)
+    g_c = torch.randn(*shape, device="cuda", generator=gen).to(dt)
+    qkv = torch.randn(*shape[:3], 3 * shape[3], device="cuda", generator=gen).to(dt)
+    for base, (fn, plain, args) in _b16ops_calls(p, g_m, g_c, qkv, heads, gen).items():
+        name = build.counted(f"{base}_bf16" if bf else base, True)
+        n0 = build.LAUNCHES[name]
+        got, again = fn(*args, bf16_ops=True), fn(*args, bf16_ops=True)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == n0 + 2, name
+        want, old = plain(*args, bf16_ops=True), fn(*args)
+        for i, (x, y, w, o) in enumerate(zip(got, again, want, old)):
+            if x is None:
+                continue
+            assert torch.equal(x, y), (name, i)
+            assert x.dtype == w.dtype and x.shape == w.shape, (name, i)
+            d = (x.double() - w.double()).abs()
+            gap = float((o.double() - w.double()).abs().mean())
+            scale = max(float(w.abs().max()), 1.0)
+            if (name.replace("_b16ops", ""), i) in UNREACHED:
+                assert float(d.max()) <= (BF16_RTOL if bf else RTOL) * scale, (name, i)
+                continue
+            share = B16OPS_BF16_SHARE if bf else B16OPS_SHARE
+            assert float(d.mean()) <= share * gap, (name, i, float(d.mean()), gap)
+            assert float(d.max()) <= B16OPS_MAX_RTOL * scale, (name, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("composition", ["full", "tail", "head", "off"])
+def test_a_tnet_with_every_tier_on_bf16_operands_trains_on_the_card_as_on_the_cpu(
+        cuda_device, composition):
+    """A small fp32 T_net with bwd_bf16="all" on the card against the CPU:
+    each backward of its composition launched once a block in its _b16ops
+    form and none in its 3xTF32 form; the gradients, all together, within
+    0.9 of what the option changes on the CPU (chip_smoke.py
+    B16OPS_MODEL_RATIO says why the rule is no tighter)."""
+    import copy
+
+    cfg = ModelConfig(dim=16, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
+                      parity_params=False)
+    net = TNet(cfg, device="cpu", seed=4, composition=composition, bwd_bf16="all")
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand(2, 32, 32, 3, generator=gen)
+    g = torch.randn(2, 32, 32, 3, generator=gen)
+
+    def grads(n, dev):
+        named = list(n.named_parameters())
+        out = n(x.to(dev))[0]
+        gs = torch.autograd.grad(out, [q for _, q in named], g.to(dev), allow_unused=True)
+        return {k: t.cpu() for (k, _), t in zip(named, gs) if t is not None}
+    cpu16 = grads(net, "cpu")
+    net.bwd_bf16 = "0"
+    cpu32 = grads(net, "cpu")
+    net.bwd_bf16 = "all"
+    before = dict(build.LAUNCHES)
+    card = grads(copy.deepcopy(net).cuda(), "cuda")
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    bwd = {"full": ("block_head_bwd", "block_tail_bwd"), "tail": ("conv1x1_dw_bwd",
+                                                                  "block_tail_bwd"),
+           "head": ("block_head_bwd", "gdfn_fused_bwd"),
+           "off": ("conv1x1_dw_bwd", "gdfn_fused_bwd")}[composition]
+    assert {k for k in launched if k.endswith("_bwd") or "_bwd_" in k} == {
+        f"{k}_b16ops" for k in (*bwd, "mdta_gram_bwd", "attn_apply_bwd")}, launched
+    assert len(set(launched.values())) == 1
+    err = sum(float((card[k] - cpu16[k]).abs().sum()) for k in card)
+    gap = sum(float((cpu32[k] - cpu16[k]).abs().sum()) for k in card)
+    assert 0.0 < err <= 0.9 * gap, (err, gap)
