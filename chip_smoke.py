@@ -209,8 +209,12 @@ Phases (any failure exits non-zero; nothing is caught):
      tools/port_fp32_digests.py takes it; left out without it):
      tools/port_fp32_digests.py on PARENT and on this checkout, each in a
      process of its own that builds its tree's kernels, and every digest
-     equal: each fp32 kernel's outputs, rows 1-9's bf16 forms and bf16
-     serving's outputs in full/head/tail/off in the fused tier, bit for bit.
+     equal: each fp32 kernel's outputs, rows 1-9's bf16 forms, bf16
+     serving's outputs in full/head/tail/off in the fused tier and rows 3-4
+     and 6 on bf16 at odd widths, a ragged image and two channel blocks,
+     bit for bit; then the bf16 forms of rows 4 and 6 that their Hopper
+     redesign replaced, device ms and kernels a call, on PARENT and on this
+     checkout in turns (tools/port_bf16_times.py --redesigned).
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
 plain twins and the CPU reference run in full fp32. Kernel agreement is
@@ -1384,11 +1388,14 @@ BF16_OPT_IN_KERNELS = {
 B16OPS_TIER = {"block_head_bwd": "block", "block_tail_bwd": "block", "mdta_gram_bwd": "gram",
                "attn_apply_bwd": "gram", "conv1x1_dw_bwd": "fused", "gdfn_fused_bwd": "fused"}
 B16OPS_KERNELS = {
-    f"{name}{dt}_b16ops": ((BF16_TRAIN_KERNELS[f"{name}_bf16"][0] if dt else
-                            BACKWARD_KERNELS[name][0].replace(".cu", "_b16ops.cu")
-                            if tier == "gram" else BACKWARD_KERNELS[name][0]),
-                           BACKWARD_KERNELS[name][1])
-    for dt in ("", "_bf16") for name, tier in B16OPS_TIER.items()}
+    **{f"{name}{dt}_b16ops": (BF16_TRAIN_KERNELS[f"{name}_bf16"][0] if dt
+                              else BACKWARD_KERNELS[name][0].replace(".cu", "_b16ops.cu")
+                              if tier == "gram" else BACKWARD_KERNELS[name][0],
+                              BACKWARD_KERNELS[name][1])
+       for dt in ("", "_bf16") for name, tier in B16OPS_TIER.items()},
+    # the one bf16 form compiled in a source of its own
+    "mdta_gram_bwd_bf16_b16ops": ("rcot_torch/csrc/gram_bwd_bf16_b16ops.cu",
+                                  BACKWARD_KERNELS["mdta_gram_bwd"][1])}
 ALL_TIERS = frozenset(B16OPS_TIER.values())
 ALL_KERNELS = {**KERNELS, **BF16_KERNELS, **BF16_TRAIN_KERNELS, **BF16_OPT_IN_KERNELS,
                **B16OPS_KERNELS}
@@ -1416,6 +1423,50 @@ def with_b16ops(want: dict, tiers) -> dict:
         out[key] = out.get(key, 0) + n
     return out
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
+PEAK_TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
+PEAKS = {"fp32": PEAK_FLOPS, "tf32": PEAK_TF32_FLOPS, "bf16": PEAK_BF16_FLOPS}
+
+
+def bound_at(flops: dict, nbytes: float):
+    """-> (ms, "bytes" or "operations"): the larger of the bytes' time and
+    the operations' time, the longest of the times flops ({rate: flops},
+    a rate of PEAKS) take, each unit at its peak."""
+    times = {"bytes": nbytes / PEAK_BYTES * 1e3,
+             "operations": max(f / PEAKS[rate] for rate, f in flops.items()) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def bf16_gram_yardstick(qkv, heads, attn=None, dgram=None) -> dict:
+    """The work and the library call of the bf16 forms of rows 4 (given
+    attn, (B, heads, ch, ch)) and 6 (given G's cotangent dgram, the same
+    shape) on a bf16 qkv (B, H, W, 3C): {name: (library call, {rate:
+    flops}, bytes)}. Row 4's products run on bf16 operands; row 6's 3xTF32
+    form takes two TF32 products a step on bf16 tiles (a bf16 value's low
+    tf32 part is zero, so that term is left out), its ops16 form one; its
+    2 q dnq and 2 k dnk at the fp32 rate. Bytes: each input read once, each
+    output written once. The library call is bmm on bf16 heads of the same
+    operands, transposed outside it."""
+    b, res, _, m = qkv.shape
+    c, n = m // 3, res * res
+    ch, bh = c // heads, b * heads
+
+    def third(i, transpose):  # qkv's i-th third as (bh, n, ch), or (bh, ch, n)
+        t = qkv[..., i * c:(i + 1) * c].reshape(b, n, heads, ch)
+        return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
+                ).reshape(bh, *((ch, n) if transpose else (n, ch))).contiguous()
+    out = {}
+    if attn is not None:
+        vt, at = third(2, True), attn.reshape(bh, ch, ch).to(BF16)
+        out["attn_apply_fwd_bf16"] = (lambda: torch.bmm(at, vt), {"bf16": b * n * 2 * c * ch},
+                                      2 * 2 * b * n * c + 4 * bh * ch * ch)
+    if dgram is not None:
+        qn, kn, dg = third(0, False), third(1, False), dgram.reshape(bh, ch, ch).to(BF16)
+        mm, nbytes = b * n * 4 * c * ch, 2 * 4 * b * n * c + 4 * bh * (ch * ch + 2 * ch)
+        for name, terms in (("mdta_gram_bwd_bf16", 2), ("mdta_gram_bwd_bf16_b16ops", 1)):
+            out[name] = (lambda: (torch.bmm(kn, dg), torch.bmm(qn, dg)),
+                         {"tf32": terms * mm, "fp32": b * n * 4 * c}, nbytes)
+    return out
 # Gates of the bf16 phase. A bf16 output of
 # a kernel rounds where its plain twin rounds, from fp32 sums taken in
 # another order: where a sum falls next to a rounding boundary the two
@@ -1538,7 +1589,7 @@ def bf16_timings(gen, label, res, c, heads, b) -> dict:
     rows; the bound takes bf16 bytes and the products at the bf16
     tensor-core rate (the stencils, LN and gate at the fp32 rate, the
     larger of those times and the bytes' time); the library for rows 3-4 is
-    bmm on bf16 heads."""
+    bmm on bf16 heads (row 4's yardstick: bf16_gram_yardstick)."""
     n = res * res
     p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
     m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
@@ -1549,41 +1600,37 @@ def bf16_timings(gen, label, res, c, heads, b) -> dict:
         t = t.reshape(b, n, heads, ch)
         return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
                 ).reshape(bh, *((ch, n) if transpose else (n, ch))).contiguous()
-    qt, kn, vt = heads_t(qkv[..., :c], True), heads_t(qkv[..., c:2 * c], False), heads_t(
-        qkv[..., 2 * c:], True)
-    at = attn.reshape(bh, ch, ch).to(BF16)
+    qt, kn = heads_t(qkv[..., :c], True), heads_t(qkv[..., c:2 * c], False)
     w_head = 2 * (m * c + 9 * m) + 4 * 2 * c
     w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
-    rows = {  # kernel, plain, library, product flops, other flops, bytes
+    rows = {  # kernel, plain, library, flops by rate, bytes
         "block_head_bf16": (lambda: kblock.block_head(*head_args(p)),
                             lambda: kblock.block_head_plain(*head_args(p)), None,
-                            b * n * 2 * c * m, b * n * (18 * m + 8 * c),
+                            {"bf16": b * n * 2 * c * m, "fp32": b * n * (18 * m + 8 * c)},
                             2 * b * n * (c + m) + w_head),
         "block_tail_bf16": (lambda: kblock.block_tail(*tail_args(p)),
                             lambda: kblock.block_tail_plain(*tail_args(p)), None,
-                            b * n * (2 * c * c + 6 * c * hid), b * n * (46 * hid + 10 * c),
+                            {"bf16": b * n * (2 * c * c + 6 * c * hid),
+                             "fp32": b * n * (46 * hid + 10 * c)},
                             2 * 3 * b * n * c + w_tail),
         "mdta_gram_fwd_bf16": (lambda: kgram.mdta_gram_fwd(qkv, heads),
                                lambda: kgram.mdta_gram_plain(qkv, heads),
                                lambda: torch.bmm(qt, kn),
-                               b * n * 2 * c * ch, b * n * 4 * c,
+                               {"bf16": b * n * 2 * c * ch, "fp32": b * n * 4 * c},
                                2 * b * n * 2 * c + 4 * bh * (ch * ch + 2 * ch)),
         "attn_apply_fwd_bf16": (lambda: kgram.attn_apply_fwd(qkv, attn),
                                 lambda: kgram.attn_apply_plain(qkv, attn),
-                                lambda: torch.bmm(at, vt),
-                                b * n * 2 * c * ch, 0,
-                                2 * 2 * b * n * c + 4 * bh * ch * ch),
+                                *bf16_gram_yardstick(qkv, heads, attn=attn)[
+                                    "attn_apply_fwd_bf16"]),
     }
     out = {}
-    for name, (kern, plain, lib, mm_flops, flops, nbytes) in rows.items():
-        times = {"bytes": nbytes / PEAK_BYTES * 1e3,
-                 "operations": max(mm_flops / PEAK_BF16_FLOPS, flops / PEAK_FLOPS) * 1e3}
-        by = max(times, key=times.get)
+    for name, (kern, plain, lib, flops, nbytes) in rows.items():
+        bound_ms, by = bound_at(flops, nbytes)
         dev, records = device_ms(kern)
         out[name] = dict(shape=f"{label} {res}^2 C={c} heads={heads} B={b}",
                          ms=cuda_ms(kern), device_ms=dev, device_records=records,
                          sm_mhz=sm_clock_mhz(), plain_ms=cuda_ms(plain, iters=5),
-                         bound_ms=times[by], bound_by=by,
+                         bound_ms=bound_ms, bound_by=by,
                          library_ms=cuda_ms(lib) if lib else None,
                          library_device_ms=device_ms(lib)[0] if lib else None)
     return out
@@ -1858,7 +1905,8 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     for the LN weights, G's cotangents, attn and dattn), the bf16 products of
     a recompute at the bf16 tensor-core rate and every other product,
     stencil and sum at the fp32 rate (the backward products run 3xTF32, as
-    JAX takes them in fp32); the library for rows 6-7 is bmm on bf16 heads."""
+    JAX takes them in fp32), but row 6's, which bf16_gram_yardstick counts
+    at the TF32 rate; the library for rows 6-7 is bmm on bf16 heads."""
     n = res * res
     p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
     m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
@@ -1875,50 +1923,48 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
         t = t.reshape(b, n, heads, ch)
         return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
                 ).reshape(bh, *((ch, n) if transpose else (n, ch))).contiguous()
-    kn, qn, vn = (heads_t(qkv[..., i * c:(i + 1) * c], False) for i in range(3))
-    gn, gt = heads_t(g_c, False), heads_t(g_c, True)
-    at, dg = attn.reshape(bh, ch, ch).to(BF16), dgram.reshape(bh, ch, ch).to(BF16)
+    vn, gn, gt = heads_t(qkv[..., 2 * c:], False), heads_t(g_c, False), heads_t(g_c, True)
+    at = attn.reshape(bh, ch, ch).to(BF16)
     w_qkv = 2 * (m * c + 9 * m)
     w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
     w_gdfn = 2 * (3 * hid * c + 18 * hid)
-    rows = {  # library, bf16 product flops, other flops, bytes
-        "conv1x1_dw_bf16": (None, b * n * 2 * c * m, b * n * 18 * m,
+    rows = {  # library, flops by rate, bytes
+        "conv1x1_dw_bf16": (None, {"bf16": b * n * 2 * c * m, "fp32": b * n * 18 * m},
                             2 * b * n * (c + m) + w_qkv),
-        "conv1x1_dw_bwd_bf16": (None, b * n * 2 * c * m, b * n * (4 * c * m + 36 * m),
+        "conv1x1_dw_bwd_bf16": (None, {"bf16": b * n * 2 * c * m,
+                                       "fp32": b * n * (4 * c * m + 36 * m)},
                                 2 * b * n * (2 * c + m) + 2 * w_qkv),
-        "block_tail_bwd_bf16": (None, b * n * (2 * c * c + 4 * c * hid),
-                                b * n * (4 * c * c + 12 * c * hid + 128 * hid + 18 * c),
+        "block_tail_bwd_bf16": (None, {"bf16": b * n * (2 * c * c + 4 * c * hid),
+                                       "fp32": b * n * (4 * c * c + 12 * c * hid + 128 * hid
+                                                        + 18 * c)},
                                 2 * 5 * b * n * c + 2 * w_tail),
-        "mdta_gram_bwd_bf16": (lambda: (torch.bmm(kn, dg), torch.bmm(qn, dg)), 0,
-                               b * n * (4 * c * ch + 4 * c),
-                               2 * 4 * b * n * c + 4 * bh * (ch * ch + 2 * ch)),
-        "attn_apply_bwd_bf16": (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)), 0,
-                                b * n * 4 * c * ch,
+        "mdta_gram_bwd_bf16": bf16_gram_yardstick(qkv, heads, dgram=dgram)["mdta_gram_bwd_bf16"],
+        "attn_apply_bwd_bf16": (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)),
+                                {"fp32": b * n * 4 * c * ch},
                                 2 * 3 * b * n * c + 4 * 2 * bh * ch * ch),
         # the head's backward: the recompute's h product in bf16; du, dW_qkv,
         # the rotated stencil, dtaps and the LayerNorm's backward in fp32
-        "block_head_bwd_bf16": (None, b * n * 2 * c * m,
-                                b * n * (4 * c * m + 36 * m + 12 * c),
+        "block_head_bwd_bf16": (None, {"bf16": b * n * 2 * c * m,
+                                       "fp32": b * n * (4 * c * m + 36 * m + 12 * c)},
                                 2 * b * n * (2 * c + m) + 2 * w_qkv + 4 * 4 * c),
         # the GDFN forward: both products bf16, the stencil and the gate fp32
-        "gdfn_fused_bf16": (None, b * n * 6 * hid * c, b * n * 46 * hid,
+        "gdfn_fused_bf16": (None, {"bf16": b * n * 6 * hid * c, "fp32": b * n * 46 * hid},
                             2 * 2 * b * n * c + w_gdfn),
         # its backward: h's product in bf16; dgate, dW_out, dx, dW_in, the
         # three stencils and the gate's derivative in fp32
-        "gdfn_fused_bwd_bf16": (None, b * n * 4 * hid * c, b * n * (12 * hid * c + 128 * hid),
+        "gdfn_fused_bwd_bf16": (None, {"bf16": b * n * 4 * hid * c,
+                                       "fp32": b * n * (12 * hid * c + 128 * hid)},
                                 2 * 3 * b * n * c + 2 * w_gdfn),
     }
     out = {}
-    for name, (lib, mm_flops, flops, nbytes) in rows.items():
+    for name, (lib, flops, nbytes) in rows.items():
         kern, plain, _ = calls[name]
-        times = {"bytes": nbytes / PEAK_BYTES * 1e3,
-                 "operations": max(mm_flops / PEAK_BF16_FLOPS, flops / PEAK_FLOPS) * 1e3}
-        by = max(times, key=times.get)
+        bound_ms, by = bound_at(flops, nbytes)
         dev, records = device_ms(kern)
         out[name] = dict(shape=f"{label} {res}^2 C={c} heads={heads} B={b}",
                          ms=cuda_ms(kern), device_ms=dev, device_records=records,
                          sm_mhz=sm_clock_mhz(), plain_ms=cuda_ms(plain, iters=5),
-                         bound_ms=times[by], bound_by=by,
+                         bound_ms=bound_ms, bound_by=by,
                          library_ms=cuda_ms(lib) if lib else None,
                          library_device_ms=device_ms(lib)[0] if lib else None)
     return out
@@ -2347,7 +2393,8 @@ def b16ops_timings(gen, label, res, c, heads, b) -> dict:
     bf16 tensor-core rate (bf16 operands), its recompute's products (bf16
     in the bf16 forms, fp32 in the fp32 ones), stencils, gate and LayerNorm
     at the fp32 rate; the library for rows 6-7 is bmm on bf16 heads of the
-    same operands, none for rows 5 and 9."""
+    same operands, none for rows 5 and 9 (row 6 on bf16: bf16_gram_yardstick,
+    its one TF32 product a step at the TF32 rate)."""
     n = res * res
     m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
 
@@ -2390,13 +2437,13 @@ def b16ops_timings(gen, label, res, c, heads, b) -> dict:
                                b * n * 4 * c * ch, 0, 0,
                                e * 3 * b * n * c + 4 * 2 * bh * ch * ch),
         }
+        yard = bf16_gram_yardstick(qkv, heads, dgram=dg) if dt == BF16 else {}
         for base, (lib, mm16, rec, other, nbytes) in rows.items():
             name = f"{base}{sfx}_b16ops"
             form, plain, old = calls[name]
-            ops = max((mm16 + (rec if rec16 else 0)) / PEAK_BF16_FLOPS,
-                      (other + (0 if rec16 else rec)) / PEAK_FLOPS)
-            times = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops * 1e3}
-            by = max(times, key=times.get)
+            flops = {"bf16": mm16 + (rec if rec16 else 0), "fp32": other + (0 if rec16 else rec)}
+            lib, flops, nbytes = yard.get(name, (lib, flops, nbytes))
+            bound_ms, by = bound_at(flops, nbytes)
             dev, turns = [], []
             for fn in (form, old, old, form):
                 turns.append(device_ms(fn)[0])
@@ -2404,7 +2451,7 @@ def b16ops_timings(gen, label, res, c, heads, b) -> dict:
                              ms=cuda_ms(form), device_ms=(turns[0] + turns[3]) / 2,
                              device_ms_turns=turns, sm_mhz=sm_clock_mhz(),
                              tf32x3_device_ms=(turns[1] + turns[2]) / 2,
-                             plain_ms=cuda_ms(plain, iters=5), bound_ms=times[by], bound_by=by,
+                             plain_ms=cuda_ms(plain, iters=5), bound_ms=bound_ms, bound_by=by,
                              library_ms=cuda_ms(lib) if lib else None,
                              library_device_ms=device_ms(lib)[0] if lib else None)
     return out
@@ -3819,8 +3866,42 @@ def phase_parent_bits(parent: str) -> dict:
         raise AssertionError(f"digests differ from {parent}'s: {differ}")
     log(f"{len(this_d)} digests equal to {parent}'s, bf16 serving in the fused tier among "
         f"them: {sorted(k for k in this_d if k.startswith('bf16_serving'))}")
+    redesigned = redesigned_turns(here, {"parent": Path(parent).resolve(), "this": here})
     return {"parent": str(Path(parent).resolve()), "digests_equal": len(this_d),
-            "card": lines["this"]["card"], "seconds": time.perf_counter() - t_start}
+            "redesigned_bf16_forms": redesigned, "card": lines["this"]["card"],
+            "seconds": time.perf_counter() - t_start}
+
+
+def redesigned_turns(here: Path, roots: dict) -> dict:
+    """The bf16 forms of rows 4 and 6 that their Hopper redesign replaced
+    (tools/port_bf16_times.py --redesigned), timed on the parent's tree and
+    on this one in turns (parent, this, this, parent), each run in a process
+    that imports its tree's rcot_torch (the kernels built by phase 9's
+    digests): each form's device ms in the two turns of each tree, the
+    kernels one call puts on the card, this tree's event ms, the bound and
+    the library call's device ms."""
+    tool = here / "tools" / "port_bf16_times.py"
+    runs = []
+    for tag in ("parent", "this", "this", "parent"):
+        run = subprocess.run([sys.executable, str(tool), "--root", str(roots[tag]),
+                              "--redesigned"], cwd=here, capture_output=True, text=True,
+                             timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"port_bf16_times.py --redesigned on {roots[tag]}: rc "
+                                 f"{run.returncode}\n{run.stderr[-4000:]}")
+        runs.append((tag, json.loads(run.stdout.strip().splitlines()[-1])["redesigned"]))
+    out = {}
+    for key in runs[0][1]:
+        row = {"parent_device_ms": [], "this_device_ms": [], "this_ms": []}
+        for tag, rows in runs:
+            row[f"{tag}_device_ms"].append(rows[key]["device_ms"])
+            row[f"{tag}_kernels_a_call"] = rows[key]["device_records"]
+        row["this_ms"] = [rows[key]["ms"] for tag, rows in runs if tag == "this"]
+        row.update({k: runs[1][1][key][k] for k in ("bound_ms", "bound_by",
+                                                     "library_device_ms")})
+        out[key] = row
+    log(f"redesigned bf16 forms, parent and this tree in turns: {json.dumps(out)}")
+    return out
 
 
 def main(argv=None) -> int:

@@ -5,10 +5,12 @@
 // channel block; and what the fp32 forward and backward kernels share: the
 // staging of a head's rows, the Gram's warp layout (GramCfg, which the
 // apply backward's dattn takes too) and a kernel's variants by copy width
-// and channel blocks.
+// and channel blocks; and the bf16 kernels' row copies in and out of
+// shared memory at any copy width (gram_bf16.cu, gram_bwd.cuh's bf16 form).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,6 +114,74 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
       ++r;
     }
   }
+}
+
+// Rows [p0, p0 + rows) of a head slice (row r at src + r * stride, w bf16)
+// into a tile of pitch ld; rows at or past `end` are zero-filled. V bf16 a
+// copy (8: 16 bytes, 2: 4 bytes, 1: a load by the thread); V divides w
+// (gram_bf16.cu, gram_bwd.cuh).
+template <int V>
+__device__ __forceinline__ void stage_rows_bf16(bf16* dst, int ld, const bf16* src,
+                                                long long stride, long long p0, long long end,
+                                                int rows, int w) {
+  const int per_row = w / V;
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * V;
+    const bool in = p0 + r < end;
+    const bf16* from = src + (in ? (p0 + r) * stride : 0) + c;
+    bf16* to = dst + r * ld + c;
+    if constexpr (V == 1)
+      *to = in ? *from : __float2bfloat16_rn(0.f);
+    else
+      cp_async_bytes<2 * V>(to, from, in);
+  }
+}
+
+// The same with the copy width v (8, 2 or 1) chosen at run time: one
+// kernel for every width, the branch uniform and outside the products.
+__device__ __forceinline__ void stage_rows_bf16_v(bf16* dst, int ld, const bf16* src,
+                                                  long long stride, long long p0, long long end,
+                                                  int rows, int w, int v) {
+  if (v == 8)
+    stage_rows_bf16<8>(dst, ld, src, stride, p0, end, rows, w);
+  else if (v == 2)
+    stage_rows_bf16<2>(dst, ld, src, stride, p0, end, rows, w);
+  else
+    stage_rows_bf16<1>(dst, ld, src, stride, p0, end, rows, w);
+}
+
+// Rows [0, rows) of a bf16 tile staged in shared memory (pitch ld), those
+// with r0 + r below `end`, into out (row r at out + (r0 + r) * stride),
+// columns below w, by the `n` threads t = 0 .. n - 1 (t the caller's index
+// among them): V bf16 a store (16, 4 or 2 bytes), neighbouring threads on
+// neighbouring addresses of a row.
+template <int V>
+__device__ __forceinline__ void store_staged(bf16* out, long long stride, const bf16* st, int ld,
+                                             long long r0, long long end, int rows, int w,
+                                             int t, int n) {
+  const int per_row = w / V;
+  for (int i = t; i < rows * per_row; i += n) {
+    const int r = i / per_row, c = (i - r * per_row) * V;
+    if (r0 + r >= end) break;  // i grows with r
+    bf16* to = out + (r0 + r) * stride + c;
+    const bf16* from = st + r * ld + c;
+    if constexpr (V == 8)
+      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(from);
+    else if constexpr (V == 2)
+      *reinterpret_cast<uint32_t*>(to) = *reinterpret_cast<const uint32_t*>(from);
+    else
+      *to = *from;
+  }
+}
+__device__ __forceinline__ void store_staged_v(bf16* out, long long stride, const bf16* st,
+                                               int ld, long long r0, long long end, int rows,
+                                               int w, int t, int n, int v) {
+  if (v == 8)
+    store_staged<8>(out, stride, st, ld, r0, end, rows, w, t, n);
+  else if (v == 2)
+    store_staged<2>(out, stride, st, ld, r0, end, rows, w, t, n);
+  else
+    store_staged<1>(out, stride, st, ld, r0, end, rows, w, t, n);
 }
 
 // The Gram at head width ch <= 16R: G (16R x 16R, zero-padded) in 16 x 8

@@ -18,12 +18,13 @@
 // apply reads C and writes C bf16 (4C bytes) against 2 C ch: both bound by
 // their bytes at every head width the model has.
 //
-// Design: gram.cu's plans and grids (ops/gram.py gram_pairs_plan,
-// apply_plan; channel blocks of at most 128 for wider heads, gram.cuh), on
-// bf16 tiles staged by cp.async (16- or 4-byte copies, or 2-byte loads
-// where a head's rows are only 2-byte aligned) and mma.sync m16n8k16 with
-// fp32 accumulation, fragments by ldmatrix (transposed for the Gram, whose
-// q and k tiles lie pixel-major and are summed over pixels).
+// Design: gram.cu's grids (ops/gram.py gram_pairs_plan for the Gram,
+// apply_bf16_plan for the apply; channel blocks of at most 128 for wider
+// heads, gram.cuh), on bf16 tiles staged by cp.async (16- or 4-byte
+// copies, or 2-byte loads where a head's rows are only 2-byte aligned) and
+// mma.sync m16n8k16 with fp32 accumulation, fragments by ldmatrix
+// (transposed for the Gram, whose q and k tiles lie pixel-major and are
+// summed over pixels).
 //   - gram_bf16_kernel: a block sums one of gram_plan's pixel ranges of a
 //     (b, head, block pair); its warps split the G tiles and the pixels of
 //     each stage, and each stage's products start from zero and join the
@@ -32,10 +33,17 @@
 //     warps' partials are added in shared memory in a fixed order, and a
 //     split (b, head) adds its ranges in gram.cuh's fixed-order reduce.
 //   - apply_bf16_kernel: runs of 128-pixel tiles, each warp 16 rows and all
-//     columns, attn staged once per (b, h) a block meets, rounded to bf16;
-//     out leaves in bf16 from the accumulators, or, for a head cut into
-//     channel blocks, as fp32 parts in nb slots that tc.cuh's sum_slots adds in
-//     order and rounds.
+//     columns. Its bytes are few a block (a 256^2 image at ch = 48 is 512
+//     tiles, two a block), so what bounds it is the latency of getting them
+//     in flight: the plan holds as many blocks an SM as its shared memory
+//     and registers take (two at ch = 48 and 96), each block's first
+//     tiles leave with attn in one group of cp.async copies (attn as fp32,
+//     converted to bf16 in shared memory once it lands, while the tiles are
+//     still on their way), every later tile as soon as its slot frees, and
+//     out leaves in bf16 through shared memory, 16 bytes a lane along a
+//     row. Each output's sum is the same: 16-deep m16n8k16 steps from zero
+//     over d. A head cut into channel blocks writes fp32 parts in nb slots
+//     that tc.cuh's sum_slots adds in order and rounds.
 // No atomics and no memsets: two calls on the same input give the same bits.
 
 #include <cuda_bf16.h>
@@ -49,26 +57,6 @@ namespace {
 
 constexpr int kStagesBf = 3;   // the Gram's cp.async ring
 constexpr int kApplyTPBf = 128;  // pixels per apply tile: eight warps of 16 rows
-
-// Rows [p0, p0 + rows) of a head slice (row r at src + r * stride, w bf16)
-// into a tile of pitch ld; rows at or past `end` are zero-filled. V bf16 a
-// copy (8: 16 bytes, 2: 4 bytes, 1: a load by the thread); V divides w.
-template <int V>
-__device__ __forceinline__ void stage_rows_bf16(bf16* dst, int ld, const bf16* src,
-                                                long long stride, long long p0, long long end,
-                                                int rows, int w) {
-  const int per_row = w / V;
-  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i - r * per_row) * V;
-    const bool in = p0 + r < end;
-    const bf16* from = src + (in ? (p0 + r) * stride : 0) + c;
-    bf16* to = dst + r * ld + c;
-    if constexpr (V == 1)
-      *to = in ? *from : __float2bfloat16_rn(0.f);
-    else
-      cp_async_bytes<2 * V>(to, from, in);
-  }
-}
 
 // The Gram at channel-block width <= 16R: G (16R x 16R, zero-padded) in
 // 16 x 8 mma tiles, R row tiles by 2R column tiles; the eight warps split
@@ -261,34 +249,51 @@ gram_bf16_kernel(const bf16* __restrict__ qkv, float* __restrict__ g_out,
 // The apply at channel-block width <= 16R: each 128-pixel tile is out
 // (128 x 16R) = v (128 x 16R) attn^T in 16 x 8 mma tiles, 16-deep steps
 // over d; warp w owns pixel rows [16 w, 16 w + 16) and all 2R column
-// tiles. attn (bf16, rounded once) is held in shared memory.
+// tiles. Shared memory: a ring of STAGES bf16 v tiles (pitch LD), attn in
+// bf16 (rounded once, pitch LD) and attn's fp32 rows as they land (pitch
+// CHP). A block holds BYTES; MIN_BLOCKS of them an SM, as many as its
+// shared memory takes and at most REG_BLOCKS, the blocks whose share of the
+// registers a thread needs without spilling (ptxas: 64 at R = 1, up to 80
+// at R = 2, 122-130 at R = 3-6, 174-184 at R = 7-8); __launch_bounds__
+// holds it to that (ops/gram.py apply_bf16_per_sm says the same).
 template <int R>
 struct ApplyBf {
   static constexpr int CHP = 16 * R;
   static constexpr int LD = CHP + 8;  // bf16 pitch of the v and attn tiles
   static constexpr int NT = 2 * R;
-  static constexpr int STAGES = R <= 4 ? 3 : 2;
-  static constexpr int RING = STAGES * kApplyTPBf * LD;
-  static constexpr int FLOATS = (2 * (RING + CHP * LD) + 3) / 4;
+  static constexpr int STAGES = R <= 4 ? 4 : 2;
+  static constexpr int RING = STAGES * kApplyTPBf * LD;  // bf16
+  static constexpr int BYTES = 2 * (RING + CHP * LD) + 4 * CHP * CHP;
+  static constexpr int SMEM_BLOCKS = kSmemPerSm / (BYTES + kSmemPerBlockReserved);
+  static constexpr int REG_BLOCKS = R == 1 ? 4 : R == 2 ? 3 : R <= 6 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = SMEM_BLOCKS < REG_BLOCKS ? SMEM_BLOCKS : REG_BLOCKS;
   static_assert(kApplyTPBf == 16 * (kThreads / 32), "a warp per 16 rows");
+  static_assert(BYTES % 16 == 0 && MIN_BLOCKS >= 1, "fits an SM");
 };
 
 // Tiles t = bh * tiles_per_bh + i; block (k, i * nb + j) walks tiles
-// [k * per_block, (k + 1) * per_block) as gram.cu's apply_fwd_kernel. A
-// head of one block (nb = 1) writes out (bf16); a blocked one writes its
-// fp32 part of out_i from block j to slots + j * slot.
-template <int R, int V>
-__global__ void __launch_bounds__(kThreads)
+// [k * per_block, (k + 1) * per_block) as gram.cu's apply_fwd_kernel. The
+// run's first STAGES tiles and attn leave device memory together (cp.async;
+// attn's fp32 rows in copies of av floats, converted to bf16 in shared
+// memory once they land, while the other tiles are still on their way);
+// each tile reloads the slot freed by the one before it. attn is restaged
+// where the run crosses into the next (b, h). A head of one block (nb = 1)
+// writes out (bf16), each warp's rows staged in place of its own v rows and
+// stored v bf16 at a time; a blocked one writes its fp32 part of out_i from
+// block j to slots + j * slot.
+template <int R>
+__global__ void __launch_bounds__(kThreads, ApplyBf<R>::MIN_BLOCKS)
 apply_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ attn,
                   bf16* __restrict__ out, float* __restrict__ slots, long long slot,
                   long long hw, int heads, int ch, int cb, long long tiles_per_bh,
-                  long long n_tiles_all, long long per_block) {
+                  long long n_tiles_all, long long per_block, int v, int av) {
   using Cfg = ApplyBf<R>;
   constexpr int LD = Cfg::LD, TP = kApplyTPBf, CHP = Cfg::CHP, NT = Cfg::NT;
   constexpr int STAGES = Cfg::STAGES;
   extern __shared__ __align__(16) float smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* ma = ring + Cfg::RING;  // attn(c, d) at [c * LD + d]
+  bf16* ma = ring + Cfg::RING;                           // attn(c, d) at [c * LD + d]
+  float* a32 = reinterpret_cast<float*>(ma + CHP * LD);  // attn(c, d) at [c * CHP + d]
   const long long t0 = blockIdx.x * per_block;
   const long long t1 = t0 + per_block < n_tiles_all ? t0 + per_block : n_tiles_all;
   if (t0 >= t1) return;
@@ -301,43 +306,69 @@ apply_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ attn,
   const int gid = lane >> 2, tig = lane & 3;
   const int m0 = warp * 16;
 
-  for (int i = tid; i < STAGES * TP * (LD - wj); i += kThreads) {
-    const int r = i / (LD - wj);
-    ring[r * LD + wj + (i - r * (LD - wj))] = __float2bfloat16_rn(0.f);
+  // the copies never write columns [wj, CHP) of a v row; the products read them
+  if (wj < CHP) {
+    for (int i = tid; i < STAGES * TP * (CHP - wj); i += kThreads) {
+      const int r = i / (CHP - wj);
+      ring[r * LD + wj + (i - r * (CHP - wj))] = __float2bfloat16_rn(0.f);
+    }
   }
   auto load = [&](int i) {
     const long long t = t0 + i, bh = t / tiles_per_bh, b = bh / heads;
-    stage_rows_bf16<V>(ring + (i % STAGES) * TP * LD, LD,
-                       qkv + b * hw * stride + (bh - b * heads) * ch + 2 * C + pj * cb, stride,
-                       (t - bh * tiles_per_bh) * TP, hw, TP, wj);
+    stage_rows_bf16_v(ring + (i % STAGES) * TP * LD, LD,
+                      qkv + b * hw * stride + (bh - b * heads) * ch + 2 * C + pj * cb, stride,
+                      (t - bh * tiles_per_bh) * TP, hw, TP, wj, v);
   };
-  auto stage_attn = [&](long long bh) {  // zero outside wi x wj
+  auto load_attn = [&](long long bh) {  // its wi x wj block, fp32
     const float* a = attn + bh * ch * ch + (long long)pi * cb * ch + pj * cb;
+    const int per_row = wj / av;
+    for (int i = tid; i < wi * per_row; i += kThreads) {
+      const int c = i / per_row, d = (i - c * per_row) * av;
+      if (av == 4)
+        cp_async16(a32 + c * CHP + d, a + (long long)c * ch + d, true);
+      else
+        cp_async4(a32 + c * CHP + d, a + (long long)c * ch + d, true);
+    }
+  };
+  auto convert_attn = [&]() {  // rounded once; zero outside wi x wj
     for (int idx = tid; idx < CHP * CHP; idx += kThreads) {
       const int c = idx / CHP, d = idx - c * CHP;
-      ma[c * LD + d] = __float2bfloat16_rn(c < wi && d < wj ? a[c * ch + d] : 0.f);
+      ma[c * LD + d] = __float2bfloat16_rn(c < wi && d < wj ? a32[c * CHP + d] : 0.f);
     }
   };
 
+  long long staged = t0 / tiles_per_bh;  // the (b, h) whose attn is in shared memory
+  load_attn(staged);  // in tile 0's group
 #pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
+  for (int i = 0; i < STAGES; ++i) {
     if (i < n) load(i);
     cp_commit();
   }
-  long long staged = t0 / tiles_per_bh;  // the (b, h) whose attn is in shared memory
-  stage_attn(staged);
+  // tile i is group i: STAGES groups before tile 0's wait, one more before each later one
   for (int i = 0; i < n; ++i) {
-    cp_wait<STAGES - 2>();
-    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
-    if (i + STAGES - 1 < n) load(i + STAGES - 1);
-    cp_commit();
+    if (i == 0)
+      cp_wait<STAGES - 1>();
+    else
+      cp_wait<STAGES - 2>();
+    __syncthreads();  // tile i (and attn, at i = 0) has landed; tile i - 1 is done with
     const long long t = t0 + i, bh = t / tiles_per_bh;
-    if (bh != staged) {  // a run that crosses into the next (b, h)
-      stage_attn(bh);
-      staged = bh;
+    if (i == 0) {
+      convert_attn();
       __syncthreads();
+    } else {
+      if (i + STAGES - 1 < n) load(i + STAGES - 1);  // into tile i - 1's slot
+      cp_commit();
+      if (bh != staged) {  // a run that crosses into the next (b, h)
+        load_attn(bh);
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        convert_attn();
+        staged = bh;
+        __syncthreads();
+      }
     }
-    const bf16* vs = ring + (i % STAGES) * TP * LD;
+    bf16* vs = ring + (i % STAGES) * TP * LD;
     float acc[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -358,31 +389,45 @@ apply_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ attn,
         mma_bf16(acc[j + 1], af, b1);
       }
     }
-    const long long b = bh / heads;
-    const long long r0 = (t - bh * tiles_per_bh) * TP + m0 + gid, r1 = r0 + 8;
+    const long long b = bh / heads, p0 = (t - bh * tiles_per_bh) * TP;
     const long long base = b * hw * C + (bh - b * heads) * ch + pi * cb;
+    if (blocked) {
+      const long long r0 = p0 + m0 + gid, r1 = r0 + 8;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = j * 8 + 2 * tig;
-      if (c >= wi) continue;
-      const bool c1 = c + 1 < wi;
+      for (int j = 0; j < NT; ++j) {
+        const int c = j * 8 + 2 * tig;
+        if (c >= wi) continue;
+        const bool c1 = c + 1 < wi;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long r = half ? r1 : r0;
-        if (r >= hw) continue;
-        const float x = acc[j][2 * half], y = acc[j][2 * half + 1];
-        if (blocked) {
+        for (int half = 0; half < 2; ++half) {
+          const long long r = half ? r1 : r0;
+          if (r >= hw) continue;
           float* o = slots + pj * slot + base + r * C + c;
-          o[0] = x;
-          if (c1) o[1] = y;
-        } else if (V > 1) {  // c, wi and every offset even: a pair is 4-byte aligned
-          *reinterpret_cast<__nv_bfloat162*>(out + base + r * C + c) =
-              __floats2bfloat162_rn(x, y);
-        } else {
-          out[base + r * C + c] = __float2bfloat16_rn(x);
-          if (c1) out[base + r * C + c + 1] = __float2bfloat16_rn(y);
+          o[0] = acc[j][2 * half];
+          if (c1) o[1] = acc[j][2 * half + 1];
         }
       }
+    } else {
+      // rounded and staged in place of this warp's own 16 v rows (only this
+      // warp reads them), columns below wi = wj, then stored v bf16 a lane
+      __syncwarp();
+      bf16* st = vs + m0 * LD;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = j * 8 + 2 * tig;
+        if (c >= wi) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          bf16* o = st + (gid + 8 * half) * LD + c;
+          if (c + 1 < wi)
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+          else
+            *o = __float2bfloat16_rn(acc[j][2 * half]);
+        }
+      }
+      __syncwarp();
+      store_staged_v(out + base, C, st, LD, p0 + m0, hw, 16, wi, lane, 32, v);
     }
   }
 }
@@ -430,34 +475,38 @@ cudaError_t gram_bf16(const bf16* qkv, float* gram, float* nq, float* nk, float*
 #undef RCOT_CALL
 }
 
-template <int R, int V>
-cudaError_t apply_bf16_v(const bf16* qkv, const float* attn, bf16* out, float* ws, int B,
-                         long long hw, int heads, int ch, int cb, int blocks,
-                         long long per_block, cudaStream_t st) {
-  using Cfg = ApplyBf<R>;
-  static bool done[kMaxDevices];
-  const auto kernel = apply_bf16_kernel<R, V>;
-  const cudaError_t attr = allow_smem(done, kernel, kernel, Cfg::FLOATS);
-  if (attr != cudaSuccess) return attr;
-  const int nb = (ch + cb - 1) / cb;
-  const long long slot = (long long)B * hw * heads * ch;
-  const long long tiles_per_bh = (hw + kApplyTPBf - 1) / kApplyTPBf;
-  kernel<<<dim3((unsigned)blocks, (unsigned)(nb * nb)), kThreads, sizeof(float) * Cfg::FLOATS,
-           st>>>(qkv, attn, out, ws, slot, hw, heads, ch, cb, tiles_per_bh,
-                 tiles_per_bh * B * heads, per_block);
-  if (nb == 1) return cudaGetLastError();
-  return sum_slots(ws, out, slot, nb, st);
-}
-
 template <int R>
 cudaError_t apply_bf16(const bf16* qkv, const float* attn, bf16* out, float* ws, int B,
                        long long hw, int heads, int ch, int cb, int blocks, long long per_block,
                        int v, cudaStream_t st) {
   if (bad_copy(v, ch, cb)) return cudaErrorInvalidValue;
-#define RCOT_CALL(V) \
-  apply_bf16_v<R, V>(qkv, attn, out, ws, B, hw, heads, ch, cb, blocks, per_block, st)
-  return RCOT_BY_COPY(v, RCOT_CALL);
-#undef RCOT_CALL
+  using Cfg = ApplyBf<R>;
+  static bool done[kMaxDevices];
+  const auto kernel = apply_bf16_kernel<R>;
+  const cudaError_t attr = allow_smem(done, kernel, kernel, Cfg::BYTES / 4);
+  if (attr != cudaSuccess) return attr;
+  const int nb = (ch + cb - 1) / cb;
+  const long long slot = (long long)B * hw * heads * ch;
+  const long long tiles_per_bh = (hw + kApplyTPBf - 1) / kApplyTPBf;
+  // attn's rows in 16-byte copies where every row of every block starts on 16 bytes
+  const int av = ch % 4 == 0 && cb % 4 == 0 && aligned16(attn) ? 4 : 1;
+  kernel<<<dim3((unsigned)blocks, (unsigned)(nb * nb)), kThreads, Cfg::BYTES, st>>>(
+      qkv, attn, out, ws, slot, hw, heads, ch, cb, tiles_per_bh, tiles_per_bh * B * heads,
+      per_block, v, av);
+  if (nb == 1) return cudaGetLastError();
+  return sum_slots(ws, out, slot, nb, st);
+}
+
+template <int R>
+cudaError_t apply_bf16_occupancy(int* blocks, int* bytes, int* min_blocks) {
+  using Cfg = ApplyBf<R>;
+  static bool done[kMaxDevices];
+  const auto kernel = apply_bf16_kernel<R>;
+  *bytes = Cfg::BYTES;
+  *min_blocks = Cfg::MIN_BLOCKS;
+  const cudaError_t attr = allow_smem(done, kernel, kernel, Cfg::BYTES / 4);
+  if (attr != cudaSuccess) return attr;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, Cfg::BYTES);
 }
 
 }  // namespace
@@ -478,15 +527,26 @@ int rcot_mdta_gram_bf16(const bf16* qkv, float* gram, float* nq, float* nk, floa
 }
 
 // qkv (B, hw, 3*heads*ch) bf16, attn (B,heads,ch,ch) fp32 -> out
-// (B, hw, heads*ch) bf16, as rcot_attn_apply (the same plan; ws holds nb
-// fp32 slots of out where the head is cut into nb > 1 channel blocks), with
-// copies of vec bf16 (ops/gram.py bf16_copy_width, out included).
+// (B, hw, heads*ch) bf16 (ws holds nb fp32 slots of out where the head is
+// cut into nb > 1 channel blocks), on ops/gram.py apply_bf16_plan's
+// blocks, with copies and stores of vec bf16 (ops/gram.py bf16_copy_width,
+// out included).
 int rcot_attn_apply_bf16(const bf16* qkv, const float* attn, bf16* out, float* ws, int B,
                          long long hw, int heads, int ch, int cb, int blocks,
                          long long per_block, int vec, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define RCOT_CALL(R) \
   apply_bf16<R>(qkv, attn, out, ws, B, hw, heads, ch, cb, blocks, per_block, vec, st)
+  RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
+#undef RCOT_CALL
+}
+
+// -> *blocks: the blocks of rcot_attn_apply_bf16's kernel for (ch, cb)
+// that one SM holds; *bytes and *min_blocks: its ApplyBf's BYTES and
+// MIN_BLOCKS (ops/gram.py apply_bf16_smem and apply_bf16_per_sm state them).
+int rcot_attn_apply_bf16_blocks_per_sm(int ch, int cb, int* blocks, int* bytes,
+                                       int* min_blocks) {
+#define RCOT_CALL(R) apply_bf16_occupancy<R>(blocks, bytes, min_blocks)
   RCOT_BY_WIDTH(ch, cb, RCOT_CALL)
 #undef RCOT_CALL
 }

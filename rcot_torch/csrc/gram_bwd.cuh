@@ -16,11 +16,24 @@
 // swizzle, the fixed-order sums, the channel blocks) is the 3xTF32
 // kernels'. Each policy is compiled in a source of its own, so that the
 // two build in parallel.
+//
+// The Gram backward is also templated on the element type of qkv and
+// d[q|k]: float (the kernels above) or bf16 (gram_bwd_bf16.cu, bf16
+// training). On bf16 it stages bf16 tiles (BwdBfCfg) and widens each value
+// as it enters its tf32 fragment: a bf16 value is exact in tf32, so the
+// 3xTF32 policy's al bh term adds exact zeros and is left out (two mma.sync
+// a step, the others in their order) and the ops16 policy's rounding of it
+// is the identity; the sums are those of the fp32 kernel on the widened
+// values. d[q|k] is rounded to bf16 in the epilogue and leaves through
+// shared memory in stores of 16 bytes where the widths allow.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "gram.cuh"
 #include "tc.cuh"
@@ -60,16 +73,52 @@ struct BwdCfg {
 // Element (r, c) of a swizzled tile or matrix of pitch ld.
 __device__ __forceinline__ int swz(int r, int c, int ld) { return r * ld + (c ^ (r & 4)); }
 
-// Zero columns [w, CHP) of the swizzled rows of the ring's `stages` stages
-// of two kBwdTP-row tiles each, w = w0 in a stage's first tile and w1 in its
-// second: the copies never write them, and the products run over all CHP.
+// The bf16 Gram backward's shared memory: a ring of STAGES stages of a bf16
+// q and k tile each, of pitch LDB, then dG (BwdCfg's MATS, fp32, swizzled)
+// and dnq | dnk. The tiles are not swizzled: a row of LDB bf16 is 8R + 4
+// words, 4 mod 8, so the rows gid = 0..7 of a fragment read start in
+// different groups of four banks and its columns tig, tig + 4 (two words)
+// fall inside them: the 32 lanes read 16 words from 16 banks. The
+// epilogue stages each warp's d[q|k] rows in place of its own rows of the
+// tiles. The plan (ops/gram.py gram_bwd_bf16_plan) takes the same sizes.
 template <int R>
-__device__ __forceinline__ void zero_pad(float* tiles, int stages, int w0, int w1) {
-  constexpr int CHP = BwdCfg<R>::CHP, LD = BwdCfg<R>::LD;
+struct BwdBfCfg {
+  using F = BwdCfg<R>;
+  static constexpr int LDB = F::CHP + 8;
+  static constexpr int STAGES = R <= 4 ? 4 : 3;
+  static constexpr int TILES = 2 * kBwdTP * LDB;  // bf16, one stage
+  static constexpr int BYTES = 2 * STAGES * TILES + 4 * (F::MATS + 2 * F::CHP);
+  // blocks an SM: the registers allowed a thread (__launch_bounds__) leave
+  // room for MIN_BLOCKS (ops/gram.py _gram_bwd_bf16_reg_blocks)
+  static constexpr int MIN_BLOCKS = R <= 3 ? 2 : 1;
+  static_assert(BYTES % 16 == 0 && BYTES <= kMaxSmemBytes, "fits a block");
+};
+
+// Blocks an SM that a Gram backward kernel's registers are held to leave
+// room for: one for the fp32 kernels (their __launch_bounds__ as before).
+template <typename T, int R>
+constexpr int kGramBwdMinBlocks = std::is_same<T, float>::value ? 1 : BwdBfCfg<R>::MIN_BLOCKS;
+
+// A named barrier of the bf16 Gram backward's four warps that read rows
+// [32 rh, 32 rh + 32) of a stage's tiles (ids 1 and 2; 0 is
+// __syncthreads').
+__device__ __forceinline__ void rows_sync(int rh) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + rh) : "memory");
+}
+
+// Zero columns [w, CHP) of the rows of the ring's `stages` stages of two
+// kBwdTP-row tiles each, w = w0 in a stage's first tile and w1 in its
+// second: the copies never write them, and the products run over all CHP.
+// fp32 tiles are swizzled (pitch LD), bf16 ones not (pitch BwdBfCfg's LDB).
+template <int R, typename T>
+__device__ __forceinline__ void zero_pad(T* tiles, int stages, int w0, int w1) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int CHP = BwdCfg<R>::CHP, LD = BwdCfg<R>::LD, LDB = BwdBfCfg<R>::LDB;
   const int wmin = w0 < w1 ? w0 : w1, pad = CHP - wmin;
   for (int i = threadIdx.x; i < stages * 2 * kBwdTP * pad; i += kThreads) {
     const int r = i / pad, c = wmin + i - r * pad;
-    if (c >= ((r / kBwdTP) & 1 ? w1 : w0)) tiles[swz(r, c, LD)] = 0.f;
+    if (c >= ((r / kBwdTP) & 1 ? w1 : w0))
+      tiles[F32 ? swz(r, c, LD) : r * LDB + c] = from_f<T>(0.f);
   }
 }
 
@@ -104,60 +153,77 @@ __device__ __forceinline__ void stage_matrix(float* mh, float* ml, const float* 
 // TRANS, M' = M (out[n, d] = sum_c a[n, c] M(c, d)). Lane (gid, tig)
 // reads A at rows m0 + gid (+ 8), whose swizzle bit is gid & 4. OPS16: the
 // bf16-operand policy, A rounded as it enters its fragment, M staged
-// rounded (stage_matrix), one tf32 term.
-template <int R, int NJ, bool TRANS, bool OPS16>
-__device__ __forceinline__ void tile_product(float (&acc)[1][NJ][4], const float* as, int m0,
+// rounded (stage_matrix), one tf32 term. T = bf16: A a bf16 tile of pitch
+// BwdBfCfg's LDB, not swizzled, each value widened into its fragment
+// (exact: the ops16 rounding is the identity on it, and 3xTF32 drops its
+// zero low part's term). MT row tiles of 16 from m0 (acc[i] at m0 + 16 i)
+// share each M fragment a step; every output's sum is the same.
+template <int R, int NJ, bool TRANS, bool OPS16, typename T = float, int MT = 1>
+__device__ __forceinline__ void tile_product(float (&acc)[MT][NJ][4], const T* as, int m0,
                                              int j0, const float* mh, const float* ml,
                                              int gid, int tig) {
   using Cfg = BwdCfg<R>;
   constexpr int LD = Cfg::LD;
-  const bool use_m[1] = {true};
-  bool use_n[NJ];
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int LDA = F32 ? LD : BwdBfCfg<R>::LDB;
+  bool use_m[MT], use_n[NJ];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) use_m[i] = true;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     use_n[j] = true;  // no branch in the hot loop: padding adds zeros
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc[0][j][r] = 0.f;
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
   }
   // columns k0 + tig and k0 + tig + 4 of a row with swizzle bit s
   const int s = gid & 4, x0 = tig + s, x1 = tig + 4 - s;
-  const float* a0 = as + (m0 + gid) * LD;
+  const T* a0 = as + (m0 + gid) * LDA;
 #pragma unroll
   for (int k0 = 0; k0 < Cfg::CHP; k0 += 8) {
-    const float x[4] = {a0[k0 + x0], a0[8 * LD + k0 + x0], a0[k0 + x1], a0[8 * LD + k0 + x1]};
-    if constexpr (OPS16) {
-      uint32_t ar[1][4], br[NJ][2];
+    uint32_t ah[MT][4], al[MT][4], bh[NJ][2], bl[NJ][2];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) ar[0][r] = bf16_tf32(x[r]);
+    for (int i = 0; i < MT; ++i) {
+      const T* ai = a0 + 16 * i * LDA;
+      if constexpr (F32) {
+        const float x[4] = {ai[k0 + x0], ai[8 * LD + k0 + x0], ai[k0 + x1], ai[8 * LD + k0 + x1]};
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int n = (j0 + jj) * 8 + gid;
-        br[jj][0] = __float_as_uint(mh[TRANS ? (k0 + tig) * LD + n : n * LD + k0 + x0]);
-        br[jj][1] = __float_as_uint(mh[TRANS ? (k0 + tig + 4) * LD + (n ^ 4) : n * LD + k0 + x1]);
+        for (int r = 0; r < 4; ++r) {
+          if (OPS16)
+            ah[i][r] = bf16_tf32(x[r]);
+          else
+            split_tf32(x[r], ah[i][r], al[i][r]);
+        }
+      } else {  // al = 0, never read
+        const T x[4] = {ai[k0 + tig], ai[8 * LDA + k0 + tig], ai[k0 + tig + 4],
+                        ai[8 * LDA + k0 + tig + 4]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ah[i][r] = widen_tf32(x[r]);
       }
-      mma_1xtf32(acc, ar, br, use_m, use_n);
-    } else {
-      uint32_t ah[1][4], al[1][4], bh[NJ][2], bl[NJ][2];
+    }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) split_tf32(x[r], ah[0][r], al[0][r]);
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int n = (j0 + jj) * 8 + gid;
-        // B(k, n) for k = k0 + tig and k0 + tig + 4
-        const int o0 = TRANS ? (k0 + tig) * LD + n : n * LD + k0 + x0;
-        const int o1 = TRANS ? (k0 + tig + 4) * LD + (n ^ 4) : n * LD + k0 + x1;
-        if (Cfg::SPLIT) {
-          bh[jj][0] = __float_as_uint(mh[o0]);
-          bh[jj][1] = __float_as_uint(mh[o1]);
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int n = (j0 + jj) * 8 + gid;
+      // B(k, n) for k = k0 + tig and k0 + tig + 4
+      const int o0 = TRANS ? (k0 + tig) * LD + n : n * LD + k0 + x0;
+      const int o1 = TRANS ? (k0 + tig + 4) * LD + (n ^ 4) : n * LD + k0 + x1;
+      if (OPS16 || Cfg::SPLIT) {
+        bh[jj][0] = __float_as_uint(mh[o0]);
+        bh[jj][1] = __float_as_uint(mh[o1]);
+        if (!OPS16) {
           bl[jj][0] = __float_as_uint(ml[o0]);
           bl[jj][1] = __float_as_uint(ml[o1]);
-        } else {
-          split_tf32(mh[o0], bh[jj][0], bl[jj][0]);
-          split_tf32(mh[o1], bh[jj][1], bl[jj][1]);
         }
+      } else {
+        split_tf32(mh[o0], bh[jj][0], bl[jj][0]);
+        split_tf32(mh[o1], bh[jj][1], bl[jj][1]);
       }
-      mma_3xtf32(acc, ah, al, bh, bl, use_m, use_n);
     }
+    if constexpr (OPS16)
+      mma_1xtf32(acc, ah, bh, use_m, use_n);
+    else
+      mma_3xtf32<MT, NJ, !F32>(acc, ah, al, bh, bl, use_m, use_n);
   }
 }
 
@@ -193,21 +259,35 @@ __device__ __forceinline__ void store_rows(float* out, long long stride, long lo
 // (b, h)); block (k, i * nb + j) walks tiles [k * per_block, (k + 1) *
 // per_block), restaging dG_ij, dnq_i and dnk_j only where bh changes, with
 // the tiles of q_i and k_j streaming through the ring. Warp w < 4 writes
-// dq_i's part from block j at rows 16 w of each tile (to dqdk + j * slot),
-// warp w >= 4 dk_j's part from block i at rows 16 (w - 4) (to dqdk + i *
-// slot). OPS16: the bf16-operand policy in both products.
-template <int R, bool VEC, bool BLK, bool OPS16>
-__global__ void __launch_bounds__(kThreads)
-gram_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dgram,
+// dq_i's part from block j (to parts + j * slot), warp w >= 4 dk_j's part
+// from block i (to parts + i * slot); a head of one block writes d[q|k]
+// itself to out. In fp32 a warp takes rows 16 (w % 4) of each tile and
+// every column; on bf16 rows 32 ((w / 2) % 2) and half the columns (w %
+// 2), so that each dG fragment it reads from shared memory serves two row
+// tiles (half the fragment reads a row). OPS16: the bf16-operand policy in
+// both products. T: the element type of qkv and out (float, or bf16 with
+// bf16 tiles, copies of v bf16 and the staged epilogue; the parts stay
+// fp32); VEC is the fp32 kernels' copy width. The bf16 kernel is compiled
+// once for both kinds of head (BLK true, the kind read from cb < ch), which
+// halves what gram_bwd_bf16.cu compiles.
+template <typename T, int R, bool VEC, bool BLK, bool OPS16>
+__global__ void __launch_bounds__(kThreads, kGramBwdMinBlocks<T, R>)
+gram_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ dgram,
                 const float* __restrict__ dnq, const float* __restrict__ dnk,
-                float* __restrict__ dqdk, long long slot, long long hw, int heads, int ch,
-                int cb, long long tiles_per_bh, long long n_tiles_all, long long per_block) {
+                T* __restrict__ out, float* __restrict__ parts, long long slot, long long hw,
+                int heads, int ch, int cb, long long tiles_per_bh, long long n_tiles_all,
+                long long per_block, int v) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   using Cfg = BwdCfg<R>;
+  using Bf = BwdBfCfg<R>;
   constexpr int LD = Cfg::LD, TP = kBwdTP, CHP = Cfg::CHP, NT = Cfg::NT;
-  constexpr int STAGES = Cfg::STAGES;
+  constexpr int STAGES = F32 ? Cfg::STAGES : Bf::STAGES;
+  constexpr int LDA = F32 ? LD : Bf::LDB;             // the tiles' pitch
+  constexpr int TILES = F32 ? Cfg::TILES : Bf::TILES;  // elements a stage
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
-  float* mh = ring + Cfg::RING;  // dG(c, d) at swz(c, d): its high part, or itself
+  T* ring = reinterpret_cast<T*>(smem);
+  // dG(c, d) at swz(c, d): its high part, or itself
+  float* mh = reinterpret_cast<float*>(ring + STAGES * TILES);
   float* ml = mh + Cfg::MAT;     // its low part (SPLIT)
   float* dn = mh + Cfg::MATS;    // dnq | dnk, CHP each, zero past ch
   const long long t0 = blockIdx.x * per_block;
@@ -218,20 +298,29 @@ gram_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dgram,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const bool is_dq = warp < 4;
-  const int m0 = (warp & 3) * 16;
+  // this warp's MT row tiles from m0 and NJ column tiles from j0
+  constexpr int MT = F32 ? 1 : 2, NJ = NT / MT;
+  const int rh = (warp >> 1) & 1;  // bf16: the half of a tile's rows
+  const int m0 = F32 ? (warp & 3) * 16 : rh * 32, j0 = F32 ? 0 : (warp & 1) * NJ;
   const Pair pr = pair_of<BLK>(blockIdx.y, ch, cb);
   const int pi = pr.i, pj = pr.j, wi = pr.wi, wj = pr.wj;
+  const bool blocked = F32 ? BLK : cb < ch;
   // 2 q dnq joins dq_i in the pair (i, 0) alone, 2 k dnk joins dk_j in (0, j)
   const bool add_dn = (is_dq ? pj : pi) == 0;
 
   zero_pad<R>(ring, STAGES, wi, wj);
   auto load = [&](int i) {
     const long long t = t0 + i, bh = t / tiles_per_bh, b = bh / heads;
-    const float* head = qkv + b * hw * stride + (bh - b * heads) * ch;
+    const T* head = qkv + b * hw * stride + (bh - b * heads) * ch;
     const long long p0 = (t - bh * tiles_per_bh) * TP;
-    float* dst = ring + (i % STAGES) * Cfg::TILES;
-    stage_rows<VEC, true>(dst, LD, head + pi * cb, stride, p0, hw, TP, wi);
-    stage_rows<VEC, true>(dst + TP * LD, LD, head + C + pj * cb, stride, p0, hw, TP, wj);
+    T* dst = ring + (i % STAGES) * TILES;
+    if constexpr (F32) {
+      stage_rows<VEC, true>(dst, LD, head + pi * cb, stride, p0, hw, TP, wi);
+      stage_rows<VEC, true>(dst + TP * LD, LD, head + C + pj * cb, stride, p0, hw, TP, wj);
+    } else {
+      stage_rows_bf16_v(dst, LDA, head + pi * cb, stride, p0, hw, TP, wi, v);
+      stage_rows_bf16_v(dst + TP * LDA, LDA, head + C + pj * cb, stride, p0, hw, TP, wj, v);
+    }
   };
   auto stage = [&](long long bh) {
     stage_matrix<R, OPS16>(mh, ml, dgram + bh * ch * ch + (long long)pi * cb * ch + pj * cb, wi, wj,
@@ -261,33 +350,70 @@ gram_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dgram,
       staged = bh;
       __syncthreads();
     }
-    const float* qs = ring + (i % STAGES) * Cfg::TILES;
-    const float* ks = qs + TP * LD;
+    T* qs = ring + (i % STAGES) * TILES;
+    T* ks = qs + TP * LDA;
     // dq = k dG^T + 2 q dnq; dk = q dG + 2 k dnk
-    const float* self = is_dq ? qs : ks;
+    const T* self = is_dq ? qs : ks;
     const float* dnv = dn + (is_dq ? 0 : CHP);
-    float acc[1][NT][4];
+    float acc[MT][NJ][4];
     if (is_dq)
-      tile_product<R, NT, false, OPS16>(acc, ks, m0, 0, mh, ml, gid, tig);
+      tile_product<R, NJ, false, OPS16, T, MT>(acc, ks, m0, j0, mh, ml, gid, tig);
     else
-      tile_product<R, NT, true, OPS16>(acc, qs, m0, 0, mh, ml, gid, tig);
-    const int rl = m0 + gid, s = gid & 4;  // rows rl, rl + 8: swizzle bit s
+      tile_product<R, NJ, true, OPS16, T, MT>(acc, qs, m0, j0, mh, ml, gid, tig);
+    const int rl = m0 + gid, s = F32 ? gid & 4 : 0;  // rows rl (+ 16 i), + 8: swizzle bit s
     if (add_dn) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = j * 8 + 2 * tig, sc = c ^ s;
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = self[(rl + (e >> 1) * 8) * LD + sc + (e & 1)];
-          acc[0][j][e] = fmaf(2.0f * x, dnv[c + (e & 1)], acc[0][j][e]);
+        for (int j = 0; j < NJ; ++j) {
+          const int c = (j0 + j) * 8 + 2 * tig, sc = c ^ s;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = to_f(self[(rl + 16 * i + (e >> 1) * 8) * LDA + sc + (e & 1)]);
+            acc[i][j][e] = fmaf(2.0f * x, dnv[c + (e & 1)], acc[i][j][e]);
+          }
         }
-      }
     }
-    const long long b = bh / heads;
-    float* out = dqdk + (is_dq ? pj : pi) * slot + b * hw * 2 * C + (is_dq ? 0 : C) +
-                 (bh - b * heads) * ch + (is_dq ? pi : pj) * cb;
-    store_rows<NT, VEC>(out, 2 * C, (t - bh * tiles_per_bh) * TP + rl, hw, 0, tig,
-                        is_dq ? wi : wj, acc[0]);
+    const long long b = bh / heads, p0 = (t - bh * tiles_per_bh) * TP;
+    const long long off = b * hw * 2 * C + (is_dq ? 0 : C) + (bh - b * heads) * ch +
+                          (is_dq ? pi : pj) * cb;
+    const int w = is_dq ? wi : wj;
+    if (blocked) {  // the fp32 part of a head cut into channel blocks
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        store_rows<NJ, F32 && VEC>(parts + (is_dq ? pj : pi) * slot + off, 2 * C,
+                                   p0 + rl + 16 * i, hw, j0, tig, w, acc[i]);
+    } else if constexpr (F32) {
+      store_rows<NT, VEC>(out + off, 2 * C, p0 + rl, hw, 0, tig, w, acc[0]);
+    } else {
+      // Rounded to bf16 and staged in place of the rows [m0, m0 + 32) of
+      // this warp's tile (q for dq, k for dk), in its own columns, once the
+      // four warps that read those rows have read them; the pad columns
+      // [w, CHP) keep their zeros. Then, the columns of both halves staged,
+      // the warp's 16 rows from m0 + 16 (w % 2) leave in stores of v bf16.
+      rows_sync(rh);
+      T* st = (is_dq ? qs : ks) + m0 * LDA;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int c = (j0 + j) * 8 + 2 * tig;
+          if (c >= w) continue;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            T* o = st + (16 * i + gid + 8 * half) * LDA + c;
+            if (c + 1 < w)
+              *reinterpret_cast<__nv_bfloat162*>(o) =
+                  __floats2bfloat162_rn(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+            else
+              *o = __float2bfloat16_rn(acc[i][j][2 * half]);
+          }
+        }
+      rows_sync(rh);
+      const int r16 = 16 * (warp & 1);
+      store_staged_v(out + off, 2 * C, st + r16 * LDA, LDA, p0 + m0 + r16, hw, 16, w, lane,
+                     32, v);
+    }
   }
 }
 
@@ -458,9 +584,11 @@ cudaError_t gram_bwd(const float* qkv, const float* dgram, const float* dnq, con
                      int blocks, long long per_block, cudaStream_t st) {
   using Cfg = BwdCfg<R>;
   static bool done[2][kMaxDevices];
-  const Variants<decltype(&gram_bwd_kernel<R, true, false, OPS16>)> ks{
-      {{gram_bwd_kernel<R, false, false, OPS16>, gram_bwd_kernel<R, false, kBlocked<R>, OPS16>},
-       {gram_bwd_kernel<R, true, false, OPS16>, gram_bwd_kernel<R, true, kBlocked<R>, OPS16>}}};
+  const Variants<decltype(&gram_bwd_kernel<float, R, true, false, OPS16>)> ks{
+      {{gram_bwd_kernel<float, R, false, false, OPS16>,
+        gram_bwd_kernel<float, R, false, kBlocked<R>, OPS16>},
+       {gram_bwd_kernel<float, R, true, false, OPS16>,
+        gram_bwd_kernel<float, R, true, kBlocked<R>, OPS16>}}};
   const cudaError_t attr = ks.allow(done, Cfg::GRAM_FLOATS);
   if (attr != cudaSuccess) return attr;
   const int nb = n_blocks(ch, cb);
@@ -471,10 +599,72 @@ cudaError_t gram_bwd(const float* qkv, const float* dgram, const float* dnq, con
   const long long n_tiles = tiles_per_bh * B * heads;
   ks.k[vec][nb > 1]<<<dim3((unsigned)blocks, (unsigned)(nb * nb)), kThreads,
                       sizeof(float) * Cfg::GRAM_FLOATS, st>>>(
-      qkv, dgram, dnq, dnk, dst, slot, hw, heads, ch, cb, tiles_per_bh, n_tiles, per_block);
+      qkv, dgram, dnq, dnk, dqdk, ws, slot, hw, heads, ch, cb, tiles_per_bh, n_tiles, per_block,
+      0);
   if (nb > 1) return sum_slots(ws, dqdk, slot, nb, st);
   return cudaGetLastError();
 }
+
+// The same on a bf16 qkv into a bf16 d[q|k], in one launch where the head
+// is one channel block (ops/gram.py gram_bwd_bf16_plan; copies of v bf16,
+// bf16_copy_width); with nb > 1 blocks the fp32 parts go to nb slots of ws
+// and tc.cuh's sum_slots adds them in order and rounds once.
+template <int R, bool OPS16>
+cudaError_t gram_bwd_bf16(const bf16* qkv, const float* dgram, const float* dnq,
+                          const float* dnk, bf16* dqdk, float* ws, int B, long long hw,
+                          int heads, int ch, int cb, int blocks, long long per_block, int v,
+                          cudaStream_t st) {
+  using Bf = BwdBfCfg<R>;
+  static bool done[kMaxDevices];
+  const auto kernel = gram_bwd_kernel<bf16, R, true, true, OPS16>;
+  const cudaError_t attr = allow_smem(done, kernel, kernel, Bf::BYTES / 4);
+  if (attr != cudaSuccess) return attr;
+  const int nb = n_blocks(ch, cb);
+  const long long slot = (long long)B * hw * 2 * heads * ch;
+  const long long tiles_per_bh = (hw + kBwdTP - 1) / kBwdTP;
+  const long long n_tiles = tiles_per_bh * B * heads;
+  kernel<<<dim3((unsigned)blocks, (unsigned)(nb * nb)), kThreads, Bf::BYTES, st>>>(
+      qkv, dgram, dnq, dnk, dqdk, ws, slot, hw, heads, ch, cb, tiles_per_bh, n_tiles, per_block,
+      v);
+  if (nb > 1) return sum_slots(ws, dqdk, slot, nb, st);
+  return cudaGetLastError();
+}
+
+// Blocks an SM holds of the kernel gram_bwd_bf16 launches at width R, as
+// the card's occupancy calculator reads it, and its BwdBfCfg's BYTES and
+// MIN_BLOCKS.
+template <int R, bool OPS16>
+cudaError_t gram_bwd_bf16_blocks_per_sm(int* blocks, int* bytes, int* min_blocks) {
+  using Bf = BwdBfCfg<R>;
+  static bool done[kMaxDevices];
+  const auto kernel = gram_bwd_kernel<bf16, R, true, true, OPS16>;
+  *bytes = Bf::BYTES;
+  *min_blocks = Bf::MIN_BLOCKS;
+  const cudaError_t attr = allow_smem(done, kernel, kernel, Bf::BYTES / 4);
+  if (attr != cudaSuccess) return attr;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, Bf::BYTES);
+}
+
+// The bf16 Gram backward's C entry points of the operand policy a source
+// sets in kGbbOps16 (gram_bwd_bf16.cu, gram_bwd_bf16_b16ops.cu): NAME(qkv,
+// dgram, dnq, dnk, dqdk, ws, B, hw, heads, ch, cb, blocks, per_block, vec,
+// stream) and NAME_blocks_per_sm(ch, cb, blocks, bytes, min_blocks).
+#define RCOT_GRAM_BWD_BF16_ENTRIES(NAME)                                                 \
+  int NAME(const bf16* qkv, const float* dgram, const float* dnq, const float* dnk, bf16* dqdk, \
+           float* ws, int B, long long hw, int heads, int ch, int cb, int blocks,               \
+           long long per_block, int vec, void* stream) {                                       \
+    cudaStream_t st = (cudaStream_t)stream;                                                     \
+    if (!(vec == 8 || vec == 2 || vec == 1) || ch % vec != 0 || cb % vec != 0)                  \
+      return cudaErrorInvalidValue;                                                             \
+    RCOT_BY_WIDTH(ch, cb, RCOT_GBB_CALL)                                                        \
+  }                                                                                             \
+  int NAME##_blocks_per_sm(int ch, int cb, int* blocks, int* bytes, int* min_blocks) {         \
+    RCOT_BY_WIDTH(ch, cb, RCOT_GBB_OCC)                                                         \
+  }
+#define RCOT_GBB_CALL(R)                                                                     \
+  gram_bwd_bf16<R, kGbbOps16>(qkv, dgram, dnq, dnk, dqdk, ws, B, hw, heads, ch, cb, blocks, \
+                              per_block, vec, st)
+#define RCOT_GBB_OCC(R) gram_bwd_bf16_blocks_per_sm<R, kGbbOps16>(blocks, bytes, min_blocks)
 
 // `splits` ranges of `per` pixels per (b, h) (ops/gram.py gram_plan) for
 // each channel-block pair; with splits > 1 the dattn partials go to ws and

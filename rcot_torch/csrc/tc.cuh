@@ -99,14 +99,16 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint
 // 3xTF32 over a warp's M x N tiles of one 8-deep step: acc[i][j] += a_i b_j
 // as al bh + ah bl + ah bh, each term over every tile before the next, so
 // that no product waits on the one before it. Tiles outside the matrix
-// (use_m, use_n false) are skipped.
-template <int M, int N>
+// (use_m, use_n false) are skipped. A_EXACT: every a is exact in tf32 (a
+// bf16 value widened), so al is zero and its term, which adds exact zeros,
+// is left out: two mma.sync a step, the same sums (al is not read).
+template <int M, int N, bool A_EXACT = false>
 __device__ __forceinline__ void mma_3xtf32(float (&acc)[M][N][4], uint32_t (&ah)[M][4],
                                            uint32_t (&al)[M][4], uint32_t (&bh)[N][2],
                                            uint32_t (&bl)[N][2], const bool (&use_m)[M],
                                            const bool (&use_n)[N]) {
 #pragma unroll
-  for (int term = 0; term < 3; ++term)
+  for (int term = A_EXACT ? 1 : 0; term < 3; ++term)
 #pragma unroll
     for (int i = 0; i < M; ++i)
 #pragma unroll
@@ -122,6 +124,11 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[M][N][4], uint32_t (&ah)
 // such operands takes exactly the bf16 x bf16 products, with fp32 sums.
 __device__ __forceinline__ uint32_t bf16_tf32(float x) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x)) << 16;
+}
+
+// A bf16 value as a tf32 operand: its bits widened, exact.
+__device__ __forceinline__ uint32_t widen_tf32(bf16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x) << 16;
 }
 
 // One tf32 term where both operands are exact in tf32 (bf16 values: the
@@ -231,6 +238,8 @@ inline cudaError_t sum_slots(const float* ws, TO* out, long long size, int nb,
 // the next call.
 constexpr int kMaxDevices = 64;
 constexpr int kMaxSmemBytes = 232448;  // a block's most on sm_90 (227 KB)
+constexpr int kSmemPerSm = 233472;     // an SM's for its blocks (228 KB)
+constexpr int kSmemPerBlockReserved = 1024;  // what the runtime keeps of it a block
 
 template <typename Kernel>
 cudaError_t allow_smem(bool (&done)[kMaxDevices], Kernel k1, Kernel k2, int floats) {

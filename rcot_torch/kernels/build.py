@@ -59,6 +59,9 @@ SIGNATURES = {
     # copy width (ops/gram.py bf16_copy_width) before the stream
     "rcot_mdta_gram_bf16": [_P] * 5 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
     "rcot_attn_apply_bf16": [_P] * 4 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
+    # ch, channel block -> blocks of rcot_attn_apply_bf16's kernel an SM
+    # holds, its shared memory bytes and its launch bounds' blocks an SM
+    "rcot_attn_apply_bf16_blocks_per_sm": [_I] * 2 + [ctypes.POINTER(_I)] * 3,
     # inputs 6, outputs 5, workspace 6, plan (ops/block.py); B, H, W, C, M;
     # ops16 (1: bf16 operands in the backward products, RCOT_BWD_BF16); stream
     "rcot_block_head_bwd": [_P] * 17 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
@@ -97,9 +100,15 @@ SIGNATURES = {
     # inputs 5, outputs 4, workspace 15, plan; bf16 copy width; B, H, W, C, hid;
     # ops16; stream
     "rcot_gdfn_fused_bwd_bf16": [_P] * 24 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P],
-    # qkv, dG, dnq, dnk, d[q|k], workspace 3; B, hw, heads, ch, channel block,
-    # blocks, tiles per block; ops16; stream
-    "rcot_mdta_gram_bwd_bf16": [_P] * 8 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
+    # qkv, dG, dnq, dnk, d[q|k], workspace; B, hw, heads, ch, channel block,
+    # blocks, tiles per block; copy width; stream (the bf16-operand form:
+    # gram_bwd_bf16_b16ops.cu, the same arguments)
+    "rcot_mdta_gram_bwd_bf16": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
+    "rcot_mdta_gram_bwd_bf16_b16ops": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
+    # ch, channel block -> blocks of that form's kernel an SM holds, its
+    # shared memory bytes and its launch bounds' blocks an SM
+    "rcot_mdta_gram_bwd_bf16_blocks_per_sm": [_I] * 2 + [ctypes.POINTER(_I)] * 3,
+    "rcot_mdta_gram_bwd_bf16_b16ops_blocks_per_sm": [_I] * 2 + [ctypes.POINTER(_I)] * 3,
     # qkv, attn, g, dv, dattn, workspace 4; B, hw, heads, ch, channel block,
     # splits, pixels per split; ops16; stream
     "rcot_attn_apply_bwd_bf16": [_P] * 9 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],

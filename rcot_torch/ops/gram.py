@@ -27,21 +27,25 @@ bf16 (rcot_tpu/ops/pallas_gram.py on a bf16 qkv): the Gram reads a bf16
 qkv and writes fp32 G, nq and nk (the JAX kernel upcasts first, :81; a bf16
 product is exact in fp32), the glue stays fp32, and the apply rounds attn
 to bf16 (:171), sums in fp32 and writes bf16. On the card a bf16 qkv goes
-to csrc/gram_bf16.cu's kernels, with the fp32 kernels' plans, counted as
-mdta_gram_fwd_bf16 and attn_apply_fwd_bf16. In bf16 training the backward
-kernels take the bf16 qkv and cotangent widened to fp32, the fp32 attn
-(not the rounded one) and fp32 dG, dnq, dnk, and round d[q|k] and dv to
-bf16 (:120-138, :195-216; dattn stays fp32): csrc/gram_bwd_bf16.cu,
-counted as mdta_gram_bwd_bf16 and attn_apply_bwd_bf16. Their twins are
-the fp32 twins on the widened operands, their outputs rounded.
+to csrc/gram_bf16.cu's kernels, counted as mdta_gram_fwd_bf16 and
+attn_apply_fwd_bf16: the Gram with the fp32 kernel's plan, the apply with
+its own (apply_bf16_plan). In bf16 training the backward kernels take the
+bf16 qkv and cotangent as widened to fp32, the fp32 attn (not the rounded
+one) and fp32 dG, dnq, dnk, and round d[q|k] and dv to bf16 (:120-138,
+:195-216; dattn stays fp32): csrc/gram_bwd_bf16.cu, counted as
+mdta_gram_bwd_bf16 and attn_apply_bwd_bf16. The Gram backward runs on bf16
+tiles in one launch (gram_bwd_bf16_plan, no fp32 copy of anything); the
+apply backward widens into fp32 workspaces and runs the fp32 kernel. Their
+twins are the fp32 twins on the widened operands, their outputs rounded.
 
 bf16 operands (the JAX package's RCOT_BWD_BF16 "gram" tier, _bwd_dot(...,
 tier="gram") at pallas_gram.py:129-130 and :211-212): with bf16_ops the
 two backward kernels round k, q and dG (d[q|k]) and g, attn and v (dv,
 dattn) to bf16 for their products and sum in fp32; 2 q dnq and 2 k dnk
-keep the fp32 q and k. On the card csrc/gram_bwd_b16ops.cu (and, on a
-bf16 qkv, gram_bwd_bf16.cu with its ops16 argument), counted under the
-backward's name with _b16ops after it; the twins take the same formula
+keep the fp32 q and k. On the card csrc/gram_bwd_b16ops.cu and
+apply_bwd_b16ops.cu (on a bf16 qkv, gram_bwd_bf16_b16ops.cu for d[q|k] and
+gram_bwd_bf16.cu with its ops16 argument for dv and dattn), counted under
+the backward's name with _b16ops after it; the twins take the same formula
 with those operands rounded.
 """
 
@@ -245,6 +249,95 @@ def gram_bwd_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int,
     return pair_runs(b * heads * _cdiv(hw, GRAM_BWD_TILE), ch, GRAM_BWD_TWO_MAX_CH, n_sm)
 
 
+# The bf16 forms of the apply forward and the Gram backward (csrc/
+# gram_bf16.cu, gram_bwd.cuh on bf16 tiles) take plans of their own: blocks
+# an SM from the shared memory a block takes (the kernels' ApplyBf and
+# BwdBfCfg, mirrored here) and the registers their __launch_bounds__ allow a
+# thread. An SM gives its blocks SMEM_PER_SM bytes, SMEM_RESERVED of them
+# kept by the runtime for each block. The apply holds a ring of
+# _apply_bf16_stages(R) v tiles, attn in bf16 and attn's fp32 rows, at most
+# _apply_bf16_reg_blocks(R) an SM (ptxas: the registers a thread needs
+# without spilling, 64 at R = 1 to 184 at R = 8); the Gram backward a ring of
+# _gram_bwd_bf16_stages(R) stages of a q and a k tile in bf16, dG as the fp32
+# kernel stages it (split into its tf32 parts up to R = 7) and dnq | dnk,
+# its registers held to _gram_bwd_bf16_reg_blocks(R) blocks an SM (ptxas
+# gave the fp32 kernel 118 registers at ch = 48). R = ceil(cb / 16). The
+# kernels' occupancy entries (rcot_*_blocks_per_sm) return their BYTES and
+# MIN_BLOCKS, and tests/test_torch_cuda.py holds these copies to them.
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1_024
+
+
+def _apply_bf16_stages(r: int) -> int:
+    return 4 if r <= 4 else 2
+
+
+def _apply_bf16_reg_blocks(r: int) -> int:
+    return 4 if r == 1 else 3 if r == 2 else 2 if r <= 6 else 1
+
+
+def _gram_bwd_bf16_stages(r: int) -> int:
+    return 4 if r <= 4 else 3
+
+
+def _gram_bwd_bf16_reg_blocks(r: int) -> int:
+    return 2 if r <= 3 else 1
+
+
+def _width(cb: int) -> Tuple[int, int, int]:
+    """-> (R, the padded block width 16 R, the tiles' pitch 16 R + 8)."""
+    r = _cdiv(cb, 16)
+    return r, 16 * r, 16 * r + 8
+
+
+def apply_bf16_smem(cb: int) -> int:
+    """Bytes of shared memory a block of the bf16 apply takes at channel
+    block cb (csrc/gram_bf16.cu ApplyBf::BYTES)."""
+    r, chp, ld = _width(cb)
+    return 2 * (_apply_bf16_stages(r) * APPLY_TILE * ld + chp * ld) + 4 * chp * chp
+
+
+def apply_bf16_per_sm(cb: int) -> int:
+    """Blocks of the bf16 apply an SM holds at channel block cb (ApplyBf::
+    MIN_BLOCKS): what its shared memory and its registers both allow."""
+    return min(_apply_bf16_reg_blocks(_width(cb)[0]),
+               SMEM_PER_SM // (apply_bf16_smem(cb) + SMEM_RESERVED))
+
+
+def gram_bwd_bf16_smem(cb: int) -> int:
+    """Bytes of shared memory a block of the bf16 Gram backward takes at
+    channel block cb (csrc/gram_bwd.cuh BwdBfCfg::BYTES)."""
+    r, chp, ld = _width(cb)
+    mats = (2 if r <= 7 else 1) * chp * ld
+    return 2 * _gram_bwd_bf16_stages(r) * 2 * GRAM_BWD_TILE * ld + 4 * (mats + 2 * chp)
+
+
+def gram_bwd_bf16_per_sm(cb: int) -> int:
+    """Blocks of the bf16 Gram backward an SM holds at channel block cb:
+    what its shared memory and its registers both allow."""
+    r = _width(cb)[0]
+    return min(_gram_bwd_bf16_reg_blocks(r),
+               SMEM_PER_SM // (gram_bwd_bf16_smem(cb) + SMEM_RESERVED))
+
+
+def apply_bf16_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int, int]:
+    """-> (blocks, tiles per block) of the bf16 apply forward for each
+    channel-block pair, over apply_plan's tiles: apply_bf16_per_sm blocks an
+    SM, the pairs sharing the card's SMs."""
+    nb, cb = channel_blocks(ch)
+    return _runs(b * heads * _cdiv(hw, APPLY_TILE), apply_bf16_per_sm(cb),
+                 max(1, n_sm // (nb * nb)))
+
+
+def gram_bwd_bf16_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int, int]:
+    """-> (blocks, tiles per block) of the bf16 Gram backward for each
+    channel-block pair, over gram_bwd_plan's tiles: gram_bwd_bf16_per_sm
+    blocks an SM, the pairs sharing the card's SMs."""
+    nb, cb = channel_blocks(ch)
+    return _runs(b * heads * _cdiv(hw, GRAM_BWD_TILE), gram_bwd_bf16_per_sm(cb),
+                 max(1, n_sm // (nb * nb)))
+
+
 def gram_workspace_numel(splits: int, b: int, heads: int, ch: int) -> int:
     """Floats of workspace the Gram forward needs for `splits` ranges per
     (b, head): one partial G | nq | nk per range, none when each (b, head)
@@ -269,8 +362,9 @@ def slots_numel(b: int, hw: int, heads: int, ch: int, width: int) -> int:
 
 
 def bf16_copy_width(ch: int, cb: int, *ptrs: int) -> int:
-    """bf16 a copy of a head's rows in the bf16 Gram and apply (csrc/
-    gram_bf16.cu): 8 (16 bytes) where ch and the channel block cb are
+    """bf16 a copy of a head's rows in the bf16 Gram, apply and Gram
+    backward (csrc/gram_bf16.cu, gram_bwd.cuh; their stores of a row too):
+    8 (16 bytes) where ch and the channel block cb are
     multiples of 8 and every pointer is 16-byte aligned, 2 (4 bytes) where
     they are even and 4-byte aligned, else 1 (a 2-byte load by the thread):
     every row offset of a head is then a multiple of the copy."""
@@ -329,12 +423,13 @@ def attn_apply_fwd(qkv: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     build.check_arg("qkv", qkv, (b, h, w, 3 * heads * ch), dev, build.kernel_dtype(qkv))
     build.check_arg("attn", attn, (b, heads, ch, ch), dev)
     cb = channel_blocks(ch)[1]
-    blocks, per = apply_plan(b, h * w, heads, ch, sm_count(dev.index))
+    blocks, per = (apply_bf16_plan if bf16 else apply_plan)(b, h * w, heads, ch,
+                                                            sm_count(dev.index))
     n_ws = slots_numel(b, h * w, heads, ch, 1)
     out = torch.empty(b, h, w, heads * ch, device=dev, dtype=qkv.dtype)
     ws = torch.empty(n_ws, device=dev) if n_ws else None
     kernel = "attn_apply_fwd_bf16" if bf16 else "attn_apply_fwd"
-    # the bf16 kernel stores pairs of bf16 where it copies two or more
+    # the bf16 kernel stores out's rows as it copies v's
     vec = (bf16_copy_width(ch, cb, qkv.data_ptr(), out.data_ptr()),) if bf16 else ()
     with torch.cuda.device(dev):
         build.call("rcot_attn_apply_bf16" if bf16 else "rcot_attn_apply", qkv.data_ptr(),
@@ -361,22 +456,20 @@ def mdta_gram_bwd(qkv: torch.Tensor, dgram: torch.Tensor, dnq: torch.Tensor,
     build.check_arg("dnq", dnq, (b, num_heads, ch), dev)
     build.check_arg("dnk", dnk, (b, num_heads, ch), dev)
     cb = channel_blocks(ch)[1]
-    blocks, per = gram_bwd_plan(b, h * w, num_heads, ch, sm_count(dev.index))
+    blocks, per = (gram_bwd_bf16_plan if bf16 else gram_bwd_plan)(b, h * w, num_heads, ch,
+                                                                  sm_count(dev.index))
+    # the slots of a head cut into channel blocks (fp32 in both forms)
     n_ws = slots_numel(b, h * w, num_heads, ch, 2)
     dqdk = torch.empty(b, h, w, 2 * num_heads * ch, device=dev, dtype=qkv.dtype)
     ws = torch.empty(n_ws, device=dev) if n_ws else None
-    # the bf16 kernel's fp32 copies of qkv (its q and k thirds) and of d[q|k]
-    wide = [torch.empty(k, device=dev) for k in (qkv.numel(), dqdk.numel())] if bf16 else []
-    kernel = "mdta_gram_bwd_bf16" if bf16 else "mdta_gram_bwd"
-    # the bf16 kernel takes the operand form as an argument, the fp32 one by name
-    entry = "rcot_" + (kernel if bf16 else build.counted(kernel, bf16_ops))
-    ops16 = (int(bf16_ops),) if bf16 else ()
+    kernel = build.counted("mdta_gram_bwd_bf16" if bf16 else "mdta_gram_bwd", bf16_ops)
+    # the bf16 kernels take their copy width after the plan
+    vec = (bf16_copy_width(ch, cb, qkv.data_ptr(), dqdk.data_ptr()),) if bf16 else ()
     with torch.cuda.device(dev):
-        build.call(entry, qkv.data_ptr(), dgram.data_ptr(),
-                   dnq.data_ptr(), dnk.data_ptr(), dqdk.data_ptr(),
-                   *(t.data_ptr() for t in wide), build.ptr(ws), b,
-                   h * w, num_heads, ch, cb, blocks, per, *ops16, build.stream())
-    build.LAUNCHES[build.counted(kernel, bf16_ops)] += 1
+        build.call("rcot_" + kernel, qkv.data_ptr(), dgram.data_ptr(),
+                   dnq.data_ptr(), dnk.data_ptr(), dqdk.data_ptr(), build.ptr(ws), b,
+                   h * w, num_heads, ch, cb, blocks, per, *vec, build.stream())
+    build.LAUNCHES[kernel] += 1
     return dqdk
 
 

@@ -1342,3 +1342,100 @@ def test_a_tnet_with_every_tier_on_bf16_operands_trains_on_the_card_as_on_the_cp
     err = sum(float((card[k] - cpu16[k]).abs().sum()) for k in card)
     gap = sum(float((cpu32[k] - cpu16[k]).abs().sum()) for k in card)
     assert 0.0 < err <= 0.9 * gap, (err, gap)
+
+
+# Row 6's bf16 forms on bf16 tiles and row 4's bf16 form with its own plan
+# (csrc/gram_bwd.cuh on bf16, csrc/gram_bf16.cu apply_bf16_kernel): odd
+# widths (25: 2-byte copies; 26: 4-byte), a ragged pixel count (250 x 321),
+# the main path's heads (48, 96), the latent's eight heads and a head of
+# 192 (two channel blocks of 96)
+BF16_REDESIGN_SHAPES = [(2, 9, 13, 3, 25), (2, 17, 19, 2, 26), (1, 250, 321, 1, 48),
+                        (3, 128, 128, 1, 48), (3, 64, 64, 1, 96), (3, 16, 16, 8, 48),
+                        (1, 64, 64, 1, 192)]
+
+
+def _device_records(fn):
+    """Kernels, memsets and copies one call of fn puts on the card."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,heads,ch", BF16_REDESIGN_SHAPES)
+@pytest.mark.parametrize("bf16_ops", [False, True], ids=["3xtf32", "ops16"])
+def test_bf16_gram_backward_is_one_launch_with_the_widening_designs_bits(cuda_device, b, h, w,
+                                                                         heads, ch, bf16_ops):
+    """d[q|k] on a bf16 qkv equals, bit for bit, the fp32 kernel's on the
+    widened qkv rounded once (the design it replaces: the dropped term added
+    exact zeros, every other sum keeps its order), sits within BF16_RTOL of
+    its twin, repeats bitwise, counts one launch a call and puts one kernel
+    on the card (two where the head is cut into channel blocks: the slots'
+    sum), and allocates nothing but d[q|k] (and the slots of a head cut
+    into channel blocks): no fp32 copy of qkv or d[q|k]."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    qkv = r(b, h, w, 3 * heads * ch).bfloat16()
+    cot = [r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)]
+    name = build.counted("mdta_gram_bwd_bf16", bf16_ops)
+    n0 = build.LAUNCHES[name]
+    torch.cuda.synchronize()
+    allocs0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = tgram.mdta_gram_bwd(qkv, *cot, heads, bf16_ops)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs0
+    again = tgram.mdta_gram_bwd(qkv, *cot, heads, bf16_ops)
+    widened = tgram.mdta_gram_bwd(qkv.float(), *cot, heads, bf16_ops).bfloat16()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert torch.equal(got, widened)
+    assert _bf16_within(got, tgram.mdta_gram_bwd_plain(qkv, *cot, heads, bf16_ops))
+    nb = tgram.channel_blocks(ch)[0]
+    records = _device_records(lambda: tgram.mdta_gram_bwd(qkv, *cot, heads, bf16_ops))
+    assert len(records) == (1 if nb == 1 else 2), records
+    assert allocs == (1 if nb == 1 else 2), allocs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,heads,ch", BF16_REDESIGN_SHAPES)
+def test_bf16_apply_matches_its_twin_and_repeats_in_one_launch(cuda_device, b, h, w, heads,
+                                                               ch):
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    qkv = torch.randn(b, h, w, 3 * heads * ch, device="cuda", generator=gen).bfloat16()
+    attn = torch.softmax(torch.randn(b, heads, ch, ch, device="cuda", generator=gen), -1)
+    n0 = build.LAUNCHES["attn_apply_fwd_bf16"]
+    out, again = tgram.attn_apply_fwd(qkv, attn), tgram.attn_apply_fwd(qkv, attn)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["attn_apply_fwd_bf16"] == n0 + 2
+    assert _bf16_within(out, tgram.attn_apply_plain(qkv, attn)) and torch.equal(out, again)
+    nb = tgram.channel_blocks(ch)[0]
+    records = _device_records(lambda: tgram.attn_apply_fwd(qkv, attn))
+    assert len(records) == (1 if nb == 1 else 2), records
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [16, 25, 32, 48, 64, 96, 112, 128, 192, 384])
+def test_the_bf16_plans_blocks_an_sm_fit_on_the_card(cuda_device, ch):
+    """The blocks an SM that apply_bf16_plan and gram_bwd_bf16_plan count on
+    fit there: the card's occupancy calculator, given each kernel's shared
+    memory and registers, holds at least as many; and the plans' copies of
+    the kernels' shared memory and launch bounds are the kernels' own."""
+    import ctypes
+    cb = tgram.channel_blocks(ch)[1]
+    lib = build.library()
+    got, nbytes, least = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    outs = (ctypes.byref(got), ctypes.byref(nbytes), ctypes.byref(least))
+    assert lib.rcot_attn_apply_bf16_blocks_per_sm(ch, cb, *outs) == 0
+    assert got.value >= tgram.apply_bf16_per_sm(cb), (got.value, tgram.apply_bf16_per_sm(cb))
+    assert (nbytes.value, least.value) == (tgram.apply_bf16_smem(cb),
+                                           tgram.apply_bf16_per_sm(cb))
+    reg_blocks = tgram._gram_bwd_bf16_reg_blocks(tgram._width(cb)[0])
+    for form in ("mdta_gram_bwd_bf16", "mdta_gram_bwd_bf16_b16ops"):
+        assert getattr(lib, f"rcot_{form}_blocks_per_sm")(ch, cb, *outs) == 0
+        assert got.value >= tgram.gram_bwd_bf16_per_sm(cb), (form, got.value)
+        assert (nbytes.value, least.value) == (tgram.gram_bwd_bf16_smem(cb), reg_blocks), form

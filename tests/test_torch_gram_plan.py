@@ -187,3 +187,75 @@ def test_the_bf16_copies_fit_every_row_of_a_head(b, hw, heads, ch, ptr):
         assert not _offsets_fit(b, hw, heads, ch, ptr, wider)
     if (b, hw, heads, ch) in MAIN and ptr == 0:
         assert vec == 8  # every head of the main path: 16-byte copies
+
+
+# the bf16 apply forward's and Gram backward's plans (csrc/gram_bf16.cu
+# apply_bf16_kernel, csrc/gram_bwd.cuh on bf16 tiles) at the main path's
+# shapes: training at 128^2, B = 3, heads of 48 and 96; serving at 256^2,
+# B = 1 and 8; the one-head-a-level model's heads of 192 and 384
+BF16_PLAN_SHAPES = [(3, 128 * 128, 1, 48), (3, 128 * 128, 1, 96), (1, 256 * 256, 1, 48),
+                    (1, 256 * 256, 1, 96), (8, 256 * 256, 1, 48), (8, 256 * 256, 1, 96),
+                    (1, 64 * 64, 1, 192), (3, 32 * 32, 1, 192), (1, 32 * 32, 1, 384),
+                    (3, 16 * 16, 1, 384)]
+
+
+@pytest.mark.parametrize("b,hw,heads,ch", BF16_PLAN_SHAPES + sorted(set(MAIN)) + ODD + WIDE)
+def test_the_bf16_plans_cover_every_tile_once_within_an_sms_shared_memory(b, hw, heads, ch):
+    """Every tile once, none of the blocks empty, at most the blocks an SM
+    the design counts on (the pairs sharing the card's SMs), each block's
+    shared memory within what a block may have and the blocks an SM within
+    what an SM has; the Gram backward needs no workspace where the head is
+    one channel block (only the slots of a cut head)."""
+    nb, cb = tgram.channel_blocks(ch)
+    for plan, tile, per_sm, smem in (
+            (tgram.apply_bf16_plan, tgram.APPLY_TILE, tgram.apply_bf16_per_sm,
+             tgram.apply_bf16_smem),
+            (tgram.gram_bwd_bf16_plan, tgram.GRAM_BWD_TILE, tgram.gram_bwd_bf16_per_sm,
+             tgram.gram_bwd_bf16_smem)):
+        assert smem(cb) <= 232_448 and smem(cb) % 16 == 0
+        assert 1 <= per_sm(cb) and per_sm(cb) * (smem(cb) + tgram.SMEM_RESERVED) <= (
+            tgram.SMEM_PER_SM)
+        for n_sm in SM_COUNTS:
+            tiles = b * heads * -(-hw // tile)
+            blocks, per = plan(b, hw, heads, ch, n_sm)
+            _tiles_once(tiles, blocks, per)
+            assert blocks <= per_sm(cb) * max(1, n_sm // (nb * nb))
+    assert tgram.slots_numel(b, hw, heads, ch, 2) == (0 if ch <= tgram.HEAD_BLOCK else
+                                                      nb * b * hw * 2 * heads * ch)
+
+
+@pytest.mark.parametrize("ch,apply_smem,apply_per_sm,bwd_smem,bwd_per_sm", [
+    (16, 26_368, 4, 27_776, 2), (32, 47_616, 3, 51_456, 2), (48, 71_936, 2, 79_232, 2),
+    (64, 99_328, 2, 111_104, 1),
+    (96, 110_080, 2, 160_512, 1), (128, 169_984, 1, 175_104, 1)])
+def test_the_bf16_designs_blocks_an_sm(ch, apply_smem, apply_per_sm, bwd_smem, bwd_per_sm):
+    """The apply: a ring of four 128-pixel v tiles up to R = 4 (two above),
+    attn in bf16 and in fp32, as many blocks an SM as that leaves room for
+    and the registers a thread needs without spilling allow (four at R = 1,
+    three at R = 2, two up to R = 6, one above). The Gram backward: a ring
+    of four stages of a q and a k tile in bf16 up to R = 4 (three above), dG
+    split in its tf32 parts and dnq | dnk, two blocks an SM up to R = 3 (the
+    registers), one above."""
+    assert tgram.apply_bf16_smem(ch) == apply_smem
+    assert tgram.apply_bf16_per_sm(ch) == apply_per_sm
+    assert tgram.gram_bwd_bf16_smem(ch) == bwd_smem
+    assert tgram.gram_bwd_bf16_per_sm(ch) == bwd_per_sm
+
+
+def test_the_bf16_plans_at_the_main_path_shapes():
+    """Serve L1 (512 tiles of 128 pixels at ch = 48) and decoder L1 (ch =
+    96), two blocks an SM: 256 blocks of two tiles, each block's whole run
+    in flight at once; batch 8 at L1 256 blocks of sixteen.
+    Train L1 (768 tiles of 64 pixels, ch = 48, two blocks an SM): 256
+    blocks of three tiles, a ring of four stages holding all three; train
+    decoder L1 (ch = 96, one an SM) 128 blocks of six. A head of 192 runs
+    its four block pairs on a quarter of the SMs each."""
+    assert tgram.apply_bf16_plan(1, 256 * 256, 1, 48, H100_SMS) == (256, 2)
+    assert tgram.apply_bf16_plan(1, 256 * 256, 1, 96, H100_SMS) == (256, 2)
+    assert tgram.apply_bf16_plan(8, 256 * 256, 1, 48, H100_SMS) == (256, 16)
+    assert tgram.apply_bf16_plan(3, 128 * 128, 1, 48, H100_SMS) == (192, 2)
+    assert tgram.gram_bwd_bf16_plan(3, 128 * 128, 1, 48, H100_SMS) == (256, 3)
+    assert tgram.gram_bwd_bf16_plan(3, 128 * 128, 1, 96, H100_SMS) == (128, 6)
+    assert tgram.gram_bwd_bf16_plan(3, 16 * 16, 8, 48, H100_SMS) == (96, 1)
+    assert tgram.gram_bwd_bf16_plan(1, 64 * 64, 1, 192, H100_SMS) == (32, 2)
+    assert tgram.apply_bf16_plan(1, 64 * 64, 1, 192, H100_SMS) == (32, 1)

@@ -29,9 +29,17 @@ With --iteration, one bf16 minimax iteration of the JAX package
 patch 32; tests/test_torch_bf16_train_iteration.py's batch and GP draw) at
 the recipe's learning rate, compiled and op by op: each metric's distance
 in bf16 ulps, t_adv's among them; with --port the port's iteration on the
-same state, batch and draw (its plain bf16 twins on the CPU) beside it.
+same state, batch and draw (its plain bf16 twins on the CPU) beside it,
+and for each run the critic's entries whose two RMSprop steps ended more
+than lr from compiled JAX's (`*_critic_flips`: a step of the other sign,
+which t_adv reads).
 --seed picks the batch there too (31 is the test's, where the port reads
-15 ulps of t_adv from the compiled one).
+15 ulps of t_adv from the compiled one). The port's iteration runs twice:
+as it is ("port") and with its critic's bf16 bias gradients summed as XLA
+on the CPU sums them in the compiled JAX iteration ("port_xla_bias_sums";
+xla_bias_sums): a bf16 reduce, the transpose of the bias's broadcast,
+where PyTorch sums in fp32 and rounds once. Only this tool sums so; the
+port's modules are not changed.
 
     python tools/jax_train_spread.py [--configs bf16 bwd_bf16] [--seed 30] [--port]
         [--iteration]
@@ -45,6 +53,7 @@ minutes).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -134,6 +143,53 @@ def ratio(a: dict, ref: dict, fp32: dict) -> dict:
             "share_differ": float(np.mean([(a[k] != ref[k]).mean() for k in ref]))}
 
 
+@contextlib.contextmanager
+def xla_bias_sums():
+    """The port's critic (models/critic.py) with each bf16 bias added by an
+    op whose backward sums the bias gradient as the compiled JAX iteration
+    does: lax.reduce_sum in bf16 (the transpose of the bias's broadcast,
+    bf16 accumulation), compiled with excess precision off, where PyTorch
+    accumulates in fp32 and rounds once. Inside a double backward (the
+    gradient penalty's graph) the sum stays PyTorch's, differentiable."""
+    from jax import lax
+
+    from rcot_torch.models import critic as tcritic
+    from rcot_torch.ops import conv as tconv
+    compiled = {}
+
+    def xla_sum(g):
+        a = jnp.asarray(g.float().numpy(), jnp.bfloat16)
+        axes = tuple(range(a.ndim - 1))
+        if a.shape not in compiled:
+            compiled[a.shape] = jax.jit(lambda t: lax.reduce_sum_p.bind(t, axes=axes)).lower(
+                a).compile(STRICT)
+        return torch.from_numpy(np.asarray(compiled[a.shape](a), np.float32)).bfloat16()
+
+    class BiasAdd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y, b):
+            return y + b
+
+        @staticmethod
+        def backward(ctx, g):
+            if torch.is_grad_enabled():
+                return g, g.sum(dim=tuple(range(g.dim() - 1)))
+            return g, xla_sum(g)
+
+    def wrap(op):
+        def f(x, weight, bias=None, **kw):
+            if bias is None or x.dtype != torch.bfloat16:
+                return op(x, weight, bias, **kw)
+            return BiasAdd.apply(op(x, weight, None, **kw), bias.to(x.dtype))
+        return f
+    saved = tcritic.conv2d, tcritic.linear
+    tcritic.conv2d, tcritic.linear = wrap(tconv.conv2d), wrap(tconv.linear)
+    try:
+        yield
+    finally:
+        tcritic.conv2d, tcritic.linear = saved
+
+
 def iteration_spread(seed: int, port: bool) -> dict:
     """{"jax": {metric: |op by op - compiled|}, "port": {metric: |port -
     compiled|}} in bf16 ulps of the compiled value, of one bf16 minimax
@@ -158,9 +214,22 @@ def iteration_spread(seed: int, port: bool) -> dict:
     args = (state, batch, key, jnp.asarray(True), jnp.asarray(cfg.train.lr, jnp.float32))
     _set_env({**PALLAS, "RCOT_PALLAS_BLOCK": "tail"})
     it = jsteps.make_train_iteration(cfg)
-    jit = jax.jit(it).lower(*args).compile(STRICT)(*args)[1]
+    jit_state, jit = jax.jit(it).lower(*args).compile(STRICT)(*args)
     with jax.disable_jit():
-        eager = it(*args)[1]
+        eager_state, eager = it(*args)
+
+    def critic(f_params):
+        return {k: np.asarray(v, np.float32)
+                for k, v in fnet_state_dict_from_jax(f_params, cfg.critic).items()}
+    ref = critic(jit_state.f_params)
+
+    def flips(sd):
+        # the critic's entries whose two RMSprop steps moved them more than
+        # lr away from compiled JAX's: a step of the other sign (each first
+        # step is about +-10 lr, its sign the gradient's)
+        per = {k: int((np.abs(sd[k] - ref[k]) > cfg.train.lr).sum()) for k in ref}
+        return {"entries": sum(per.values()), "of": sum(v.size for v in ref.values()),
+                "largest": sorted(((n, k) for k, n in per.items() if n), reverse=True)[:4]}
 
     def ulps(m):
         # f_wgan nearly cancels at initialisation: ulps of max(|f_wgan|, 1)
@@ -169,20 +238,26 @@ def iteration_spread(seed: int, port: bool) -> dict:
         return {k: abs(float(m[k]) - float(jit[k])) / ulp(max(abs(float(jit[k])), 1.0)
                                                           if k == "f_wgan" else float(jit[k]))
                 for k in jit}
-    out = {"jax_op_by_op": ulps(eager)}
+    out = {"jax_op_by_op": ulps(eager),
+           "jax_op_by_op_critic_flips": flips(critic(eager_state.f_params))}
     if port:
         tcfg = config_from_dict(cfg.to_dict())
-        ts = tsteps.create_train_state(tcfg, seed=0, device="cpu")
-        for net, sd in ((ts.t_net, tnet_state_dict_from_jax(state.t_params, cfg.model)),
-                        (ts.f_net, fnet_state_dict_from_jax(state.f_params, cfg.critic))):
-            net.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
-                                strict=True)
         alpha = jax.random.uniform(key, (b, 1, 1, 1), dtype=jnp.bfloat16)
         tb = tsteps.Batch(*(torch.from_numpy(np.array(a, np.float32)).bfloat16()
                             for a in (deg, tgt)), torch.from_numpy(de_id))
         a = torch.from_numpy(np.array(alpha, np.float32)).bfloat16()
-        _, m = tsteps.make_train_iteration(tcfg)(ts, tb, a, True, cfg.train.lr)
-        out["port"] = ulps({k: float(v) for k, v in m.items()})
+        for tag, sums in (("port", contextlib.nullcontext), ("port_xla_bias_sums",
+                                                             xla_bias_sums)):
+            ts = tsteps.create_train_state(tcfg, seed=0, device="cpu")
+            for net, sd in ((ts.t_net, tnet_state_dict_from_jax(state.t_params, cfg.model)),
+                            (ts.f_net, fnet_state_dict_from_jax(state.f_params, cfg.critic))):
+                net.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                                    strict=True)
+            with sums():
+                _, m = tsteps.make_train_iteration(tcfg)(ts, tb, a, True, cfg.train.lr)
+            out[tag] = ulps({k: float(v) for k, v in m.items()})
+            out[f"{tag}_critic_flips"] = flips({k: v.detach().float().numpy()
+                                                for k, v in ts.f_net.state_dict().items()})
     return out
 
 

@@ -10,25 +10,35 @@ path (128^2, B = 3); and rows 10 and 11 in bf16 (mdta_attend_bf16;
 dwconv3x3_bf16 at 2h and 3C, dwconv3x3_dx_bf16 and dwconv3x3_dtaps_bf16 at
 3C) at every serving and training shape, where the tree has them.
 
-    python tools/port_bf16_times.py [--root DIR]
+    python tools/port_bf16_times.py [--root DIR] [--redesigned]
 
 As tools/port_gram_times.py does: rcot_torch and its kernels are DIR's
-(default: this checkout), timed with this checkout's chip_smoke.bf16_timings
-and bf16_train_timings (`ms`, `device_ms`, the bound at bf16 bytes and the
-bf16 tensor-core rate for bf16 products, the fp32 rate for the rest, the
-plain bf16 twin, `bmm` on bf16 heads for rows 3-4 and 6-7). At serve L1,
-decoder L1 and the latent each call of rows 1-4 is then split by launch in
-bf16 and in fp32 on the same inputs (tools/port_block_bwd_times.py
-stage_split: `by_launch` lists each launch's kernel and device ms), and at
-train L1, decoder L1 and the latent each call of the training forms the
-same way, in turns with their fp32 forms (fp32, bf16, bf16, fp32). Rows
-10-11 in bf16 are timed with chip_smoke.bf16_opt_in_timings (the library
-call a bf16 F.conv2d(groups=C) and cuDNN's bf16 weight gradient) and each
-in turns with its fp32 form on the widened values (device ms, fp32, bf16,
-bf16, fp32). Last come the sums per serving forward and per bf16 training
-iteration (chip_smoke.BLOCKS_PER_FORWARD, device ms; rows 10-11 per bf16
+(default: this checkout), timed with this checkout's
+chip_smoke.bf16_timings and bf16_train_timings (`ms`, `device_ms`, the
+bound at bf16 bytes and the bf16 tensor-core rate for bf16 products, row
+6's TF32 products at the TF32 rate, the fp32 rate for the rest, the plain
+bf16 twin, `bmm` on bf16 heads for rows 3-4 and 6-7). At serve L1, decoder
+L1 and the latent each call of rows 1-4 is then split by launch in bf16 and
+in fp32 on the same inputs (tools/port_block_bwd_times.py stage_split:
+`by_launch` lists each launch's kernel and device ms), and at train L1,
+decoder L1 and the latent each call of the training forms the same way, in
+turns with their fp32 forms (fp32, bf16, bf16, fp32). Rows 10-11 in bf16
+are timed with chip_smoke.bf16_opt_in_timings (the library call a bf16
+F.conv2d(groups=C) and cuDNN's bf16 weight gradient) and each in turns with
+its fp32 form on the widened values (device ms, fp32, bf16, bf16, fp32).
+Last come the sums per serving forward and per bf16 training iteration
+(chip_smoke.BLOCKS_PER_FORWARD, device ms; rows 10-11 per bf16
 off/mdta/dwconv forward and tail/mdta/dwconv iteration) and the root and
 the card's name and power limit.
+
+With --redesigned it times only the bf16 forms of rows 4 and 6 that their
+Hopper redesign replaced (attn_apply_fwd_bf16 at serve L1 and decoder L1,
+B = 1; mdta_gram_bwd_bf16 and mdta_gram_bwd_bf16_b16ops at train L1 and
+decoder L1, B = 3): device ms, event ms and the kernels one call puts on
+the card, with chip_smoke.bf16_gram_yardstick's bound and library call
+(bmm on bf16 heads, device ms) for each, on seeded inputs, one JSON line.
+chip_smoke.py --root runs it on the parent and on this tree in turns
+(parent, this, this, parent).
 """
 
 from __future__ import annotations
@@ -162,10 +172,57 @@ def opt_in(smoke, gen) -> dict:
     return sums
 
 
+# the forms the redesign replaced, by the path and the levels they are timed at
+REDESIGNED = {"serve": ("attn_apply_fwd_bf16",),
+              "train": ("mdta_gram_bwd_bf16", "mdta_gram_bwd_bf16_b16ops")}
+REDESIGNED_AT = ("L1", "decoder_level1")
+
+
+def redesigned(smoke) -> dict:
+    """{"<form> <path> <level>": {device_ms, device_records (kernels a
+    call), ms, bound_ms, bound_by, library_device_ms}} of the bf16 forms of
+    rows 4 and 6, on inputs seeded alike in every tree; the bound and the
+    library call (bmm on bf16 heads) from chip_smoke.bf16_gram_yardstick."""
+    torch, kg = smoke.torch, smoke.kgram
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    out = {}
+    for path, b, shapes in (("serve", 1, smoke.MAIN_SHAPES),
+                            ("train", smoke.TRAIN_B, smoke.TRAIN_SHAPES)):
+        for label, res, c, heads in shapes:
+            if label not in REDESIGNED_AT:
+                continue
+            ch = c // heads
+            qkv = r(b, res, res, 3 * c).to(torch.bfloat16)
+            attn = torch.softmax(r(b, heads, ch, ch), -1)
+            cot = [r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)]
+            yard = smoke.bf16_gram_yardstick(qkv, heads, attn=attn, dgram=cot[0])
+            calls = {"attn_apply_fwd_bf16": lambda: kg.attn_apply_fwd(qkv, attn),
+                     "mdta_gram_bwd_bf16": lambda: kg.mdta_gram_bwd(qkv, *cot, heads),
+                     "mdta_gram_bwd_bf16_b16ops": lambda: kg.mdta_gram_bwd(
+                         qkv, *cot, heads, bf16_ops=True)}
+            for name in REDESIGNED[path]:
+                fn, (lib, flops, nbytes) = calls[name], yard[name]
+                bound_ms, by = smoke.bound_at(flops, nbytes)
+                dev, records = smoke.device_ms(fn)
+                out[f"{name} {path} {label}"] = dict(
+                    device_ms=dev, device_records=records, ms=smoke.cuda_ms(fn),
+                    bound_ms=bound_ms, bound_by=by, library_device_ms=smoke.device_ms(lib)[0])
+    return out
+
+
 def main() -> int:
+    only = "--redesigned" in sys.argv
+    sys.argv = [a for a in sys.argv if a != "--redesigned"]
     smoke = port_gram_times.load(__doc__)
     if smoke is None:
         return 1
+    if only:
+        print(json.dumps({"redesigned": redesigned(smoke), "root": str(smoke.root),
+                          "card": smoke.card_line()}))
+        return 0
     gen = smoke.torch.Generator(device="cuda").manual_seed(0)
     per_forward: dict = {}
     for label, res, c, heads in smoke.MAIN_SHAPES:

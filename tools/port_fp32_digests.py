@@ -7,7 +7,9 @@ bf16 forms of rows 1-4 (rows 1-2 share row 11's depthwise template, rows
 3-4 at a head of 192 channels tc.cuh's slot sum) and of bf16 training's
 rows 5-9 (`opt_in_and_bf16`); and bf16 serving's outputs in every
 composition of the fused tier, a full-width T_net from a seed at 128^2
-(`bf16_serving`).
+(`bf16_serving`); and rows 3-4 and 6 on a bf16 qkv at odd widths, a ragged
+pixel count and two channel blocks, row 6 in both operand policies
+(`bf16_mdta_edges`).
 
     python tools/port_fp32_digests.py [--root DIR]
 
@@ -74,6 +76,28 @@ def opt_in_and_bf16(smoke) -> dict:
         calls = {**smoke.bf16_block_calls(p, r), **smoke.bf16_mdta_calls(qkv, heads, r)}
         for name in sorted(calls):
             out[f"{name} train {label}"] = _hash(*(t for t in calls[name][0]() if t is not None))
+    out.update(bf16_mdta_edges(smoke, r))
+    return out
+
+
+# (b, h, w, heads, ch): the bf16 MDTA kernels' copy widths (25: 2-byte, 26:
+# 4-byte), a ragged pixel count, the main path's heads, two channel blocks
+BF16_MDTA_EDGES = [(2, 9, 13, 3, 25), (2, 17, 19, 2, 26), (1, 250, 321, 1, 48),
+                   (3, 64, 64, 1, 96), (1, 64, 64, 1, 192)]
+
+
+def bf16_mdta_edges(smoke, r) -> dict:
+    """SHA-256 of rows 3-4 and 6 on a bf16 qkv (the Gram backward in both
+    operand policies) at BF16_MDTA_EDGES."""
+    kg = smoke.kgram
+    out = {}
+    for b, h, w, heads, ch in BF16_MDTA_EDGES:
+        qkv = r(b, h, w, 3 * heads * ch).to(smoke.torch.bfloat16)
+        attn = smoke.torch.softmax(r(b, heads, ch, ch), -1)
+        cot = [r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)]
+        out[f"rows 3-4, 6 bf16 {(b, h, w, heads, ch)}"] = _hash(
+            *kg.mdta_gram_fwd(qkv, heads), kg.attn_apply_fwd(qkv, attn),
+            kg.mdta_gram_bwd(qkv, *cot, heads), kg.mdta_gram_bwd(qkv, *cot, heads, bf16_ops=True))
     return out
 
 
