@@ -210,11 +210,12 @@ Phases (any failure exits non-zero; nothing is caught):
      tools/port_fp32_digests.py on PARENT and on this checkout, each in a
      process of its own that builds its tree's kernels, and every digest
      equal: each fp32 kernel's outputs, rows 1-9's bf16 forms, bf16
-     serving's outputs in full/head/tail/off in the fused tier and rows 3-4
-     and 6 on bf16 at odd widths, a ragged image and two channel blocks,
-     bit for bit; then the bf16 forms of rows 4 and 6 that their Hopper
-     redesign replaced, device ms and kernels a call, on PARENT and on this
-     checkout in turns (tools/port_bf16_times.py --redesigned).
+     serving's outputs in full/head/tail/off in the fused tier and rows 3-4,
+     6 and 7 on bf16 at odd widths, a ragged image and two channel blocks
+     (rows 6 and 7 in both operand policies), bit for bit; then the bf16
+     forms of rows 3 and 7 that their Hopper redesign replaced, device ms
+     and kernels a call, on PARENT and on this checkout in turns
+     (tools/port_bf16_times.py --redesigned).
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
 plain twins and the CPU reference run in full fp32. Kernel agreement is
@@ -1330,7 +1331,7 @@ BF16_KERNELS = {
     "attn_apply_fwd_bf16": ("rcot_torch/csrc/gram_bf16.cu", "rcot_tpu/ops/pallas_gram.py:178"),
 }
 # bf16 training's forms (csrc/fused_dwconv_bf16.cu, block_bwd_bf16.cu,
-# gram_bwd_bf16.cu): the qkv configuration of rows 8-9, row 5's tail and rows
+# gram_bwd_bf16.cu, apply_bwd_bf16.cu): the qkv configuration of rows 8-9, row 5's tail and rows
 # 6-7 (PR 15), then the GDFN configuration of rows 8-9 and row 5's head,
 # which "full", "head" and "off" run in bf16
 BF16_TRAIN_KERNELS = {
@@ -1342,7 +1343,7 @@ BF16_TRAIN_KERNELS = {
                             "rcot_tpu/ops/pallas_block.py:401"),
     "mdta_gram_bwd_bf16": ("rcot_torch/csrc/gram_bwd_bf16.cu",
                            "rcot_tpu/ops/pallas_gram.py:141"),
-    "attn_apply_bwd_bf16": ("rcot_torch/csrc/gram_bwd_bf16.cu",
+    "attn_apply_bwd_bf16": ("rcot_torch/csrc/apply_bwd_bf16.cu",
                             "rcot_tpu/ops/pallas_gram.py:219"),
     "block_head_bwd_bf16": ("rcot_torch/csrc/block_bwd_bf16.cu",
                             "rcot_tpu/ops/pallas_block.py:401"),
@@ -1393,9 +1394,10 @@ B16OPS_KERNELS = {
                               if tier == "gram" else BACKWARD_KERNELS[name][0],
                               BACKWARD_KERNELS[name][1])
        for dt in ("", "_bf16") for name, tier in B16OPS_TIER.items()},
-    # the one bf16 form compiled in a source of its own
-    "mdta_gram_bwd_bf16_b16ops": ("rcot_torch/csrc/gram_bwd_bf16_b16ops.cu",
-                                  BACKWARD_KERNELS["mdta_gram_bwd"][1])}
+    # the bf16 forms of rows 6-7 compiled in sources of their own
+    **{f"{name}_bf16_b16ops": (BF16_TRAIN_KERNELS[f"{name}_bf16"][0].replace(".cu", "_b16ops.cu"),
+                               BACKWARD_KERNELS[name][1])
+       for name in ("mdta_gram_bwd", "attn_apply_bwd")}}
 ALL_TIERS = frozenset(B16OPS_TIER.values())
 ALL_KERNELS = {**KERNELS, **BF16_KERNELS, **BF16_TRAIN_KERNELS, **BF16_OPT_IN_KERNELS,
                **B16OPS_KERNELS}
@@ -1437,36 +1439,50 @@ def bound_at(flops: dict, nbytes: float):
     return times[by], by
 
 
-def bf16_gram_yardstick(qkv, heads, attn=None, dgram=None) -> dict:
-    """The work and the library call of the bf16 forms of rows 4 (given
-    attn, (B, heads, ch, ch)) and 6 (given G's cotangent dgram, the same
-    shape) on a bf16 qkv (B, H, W, 3C): {name: (library call, {rate:
-    flops}, bytes)}. Row 4's products run on bf16 operands; row 6's 3xTF32
-    form takes two TF32 products a step on bf16 tiles (a bf16 value's low
-    tf32 part is zero, so that term is left out), its ops16 form one; its
-    2 q dnq and 2 k dnk at the fp32 rate. Bytes: each input read once, each
-    output written once. The library call is bmm on bf16 heads of the same
-    operands, transposed outside it."""
+def bf16_gram_yardstick(qkv, heads, attn=None, dgram=None, g=None) -> dict:
+    """The work and the library call of the bf16 forms of rows 3 (always),
+    4 (given attn, (B, heads, ch, ch)), 6 (given G's cotangent dgram, the
+    same shape) and 7 (given attn and the cotangent g, (B, H, W, C)) on a
+    bf16 qkv (B, H, W, 3C): {name: (library call, {rate: flops}, bytes)}.
+    Rows 3 and 4's products run on bf16 operands (row 3's squares at the
+    fp32 rate); the backward forms' products on tf32 fragments of bf16
+    values (a bf16 value's low tf32 part is zero, so its terms are left
+    out): row 6's 3xTF32 form two a step, its ops16 form one, its 2 q dnq
+    and 2 k dnk at the fp32 rate; row 7's dv two a step in 3xTF32 (attn is
+    fp32), dattn one (both operands bf16), its ops16 form one in both. Bytes:
+    each input read once, each output written once. The library call is bmm
+    on bf16 heads of the same operands, transposed outside it."""
     b, res, _, m = qkv.shape
     c, n = m // 3, res * res
     ch, bh = c // heads, b * heads
 
-    def third(i, transpose):  # qkv's i-th third as (bh, n, ch), or (bh, ch, n)
-        t = qkv[..., i * c:(i + 1) * c].reshape(b, n, heads, ch)
+    def third(t, i, transpose):  # t's i-th block of c channels as (bh, n, ch), or (bh, ch, n)
+        t = t[..., i * c:(i + 1) * c].reshape(b, n, heads, ch)
         return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
                 ).reshape(bh, *((ch, n) if transpose else (n, ch))).contiguous()
-    out = {}
+    qt, kn = third(qkv, 0, True), third(qkv, 1, False)
+    out = {"mdta_gram_fwd_bf16": (lambda: torch.bmm(qt, kn),
+                                  {"bf16": b * n * 2 * c * ch, "fp32": b * n * 4 * c},
+                                  2 * b * n * 2 * c + 4 * bh * (ch * ch + 2 * ch))}
     if attn is not None:
-        vt, at = third(2, True), attn.reshape(bh, ch, ch).to(BF16)
+        vt, at = third(qkv, 2, True), attn.reshape(bh, ch, ch).to(BF16)
         out["attn_apply_fwd_bf16"] = (lambda: torch.bmm(at, vt), {"bf16": b * n * 2 * c * ch},
                                       2 * 2 * b * n * c + 4 * bh * ch * ch)
     if dgram is not None:
-        qn, kn, dg = third(0, False), third(1, False), dgram.reshape(bh, ch, ch).to(BF16)
+        qn, dg = third(qkv, 0, False), dgram.reshape(bh, ch, ch).to(BF16)
         mm, nbytes = b * n * 4 * c * ch, 2 * 4 * b * n * c + 4 * bh * (ch * ch + 2 * ch)
         for name, terms in (("mdta_gram_bwd_bf16", 2), ("mdta_gram_bwd_bf16_b16ops", 1)):
             out[name] = (lambda: (torch.bmm(kn, dg), torch.bmm(qn, dg)),
                          {"tf32": terms * mm, "fp32": b * n * 4 * c}, nbytes)
+    if attn is not None and g is not None:
+        vn, gn, gt = third(qkv, 2, False), third(g, 0, False), third(g, 0, True)
+        mm, nbytes = b * n * 2 * c * ch, 2 * 3 * b * n * c + 4 * 2 * bh * ch * ch
+        for name, terms in (("attn_apply_bwd_bf16", 3), ("attn_apply_bwd_bf16_b16ops", 2)):
+            out[name] = (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)), {"tf32": terms * mm},
+                         nbytes)
     return out
+
+
 # Gates of the bf16 phase. A bf16 output of
 # a kernel rounds where its plain twin rounds, from fp32 sums taken in
 # another order: where a sum falls next to a rounding boundary the two
@@ -1589,18 +1605,13 @@ def bf16_timings(gen, label, res, c, heads, b) -> dict:
     rows; the bound takes bf16 bytes and the products at the bf16
     tensor-core rate (the stencils, LN and gate at the fp32 rate, the
     larger of those times and the bytes' time); the library for rows 3-4 is
-    bmm on bf16 heads (row 4's yardstick: bf16_gram_yardstick)."""
+    bmm on bf16 heads (their yardstick: bf16_gram_yardstick)."""
     n = res * res
     p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
-    m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
+    m, hid, ch = 3 * c, int(c * 2.66), c // heads
     qkv = kblock.block_head(*head_args(p))
     attn = torch.softmax(torch.randn(b, heads, ch, ch, device="cuda", generator=gen), -1)
-
-    def heads_t(t, transpose):
-        t = t.reshape(b, n, heads, ch)
-        return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
-                ).reshape(bh, *((ch, n) if transpose else (n, ch))).contiguous()
-    qt, kn = heads_t(qkv[..., :c], True), heads_t(qkv[..., c:2 * c], False)
+    yard = bf16_gram_yardstick(qkv, heads, attn=attn)
     w_head = 2 * (m * c + 9 * m) + 4 * 2 * c
     w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
     rows = {  # kernel, plain, library, flops by rate, bytes
@@ -1615,13 +1626,10 @@ def bf16_timings(gen, label, res, c, heads, b) -> dict:
                             2 * 3 * b * n * c + w_tail),
         "mdta_gram_fwd_bf16": (lambda: kgram.mdta_gram_fwd(qkv, heads),
                                lambda: kgram.mdta_gram_plain(qkv, heads),
-                               lambda: torch.bmm(qt, kn),
-                               {"bf16": b * n * 2 * c * ch, "fp32": b * n * 4 * c},
-                               2 * b * n * 2 * c + 4 * bh * (ch * ch + 2 * ch)),
+                               *yard["mdta_gram_fwd_bf16"]),
         "attn_apply_fwd_bf16": (lambda: kgram.attn_apply_fwd(qkv, attn),
                                 lambda: kgram.attn_apply_plain(qkv, attn),
-                                *bf16_gram_yardstick(qkv, heads, attn=attn)[
-                                    "attn_apply_fwd_bf16"]),
+                                *yard["attn_apply_fwd_bf16"]),
     }
     out = {}
     for name, (kern, plain, lib, flops, nbytes) in rows.items():
@@ -1905,11 +1913,11 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     for the LN weights, G's cotangents, attn and dattn), the bf16 products of
     a recompute at the bf16 tensor-core rate and every other product,
     stencil and sum at the fp32 rate (the backward products run 3xTF32, as
-    JAX takes them in fp32), but row 6's, which bf16_gram_yardstick counts
-    at the TF32 rate; the library for rows 6-7 is bmm on bf16 heads."""
+    JAX takes them in fp32), but rows 6 and 7's, which bf16_gram_yardstick
+    counts at the TF32 rate; the library for rows 6-7 is bmm on bf16 heads."""
     n = res * res
     p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
-    m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
+    m, hid, ch = 3 * c, int(c * 2.66), c // heads
 
     def r(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
@@ -1918,13 +1926,7 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     g_c = r(b, res, res, c).to(BF16)
     attn = torch.softmax(r(b, heads, ch, ch), -1)
     dgram = r(b, heads, ch, ch)
-
-    def heads_t(t, transpose):
-        t = t.reshape(b, n, heads, ch)
-        return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
-                ).reshape(bh, *((ch, n) if transpose else (n, ch))).contiguous()
-    vn, gn, gt = heads_t(qkv[..., 2 * c:], False), heads_t(g_c, False), heads_t(g_c, True)
-    at = attn.reshape(bh, ch, ch).to(BF16)
+    yard = bf16_gram_yardstick(qkv, heads, attn=attn, dgram=dgram, g=g_c)
     w_qkv = 2 * (m * c + 9 * m)
     w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
     w_gdfn = 2 * (3 * hid * c + 18 * hid)
@@ -1938,10 +1940,8 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
                                        "fp32": b * n * (4 * c * c + 12 * c * hid + 128 * hid
                                                         + 18 * c)},
                                 2 * 5 * b * n * c + 2 * w_tail),
-        "mdta_gram_bwd_bf16": bf16_gram_yardstick(qkv, heads, dgram=dgram)["mdta_gram_bwd_bf16"],
-        "attn_apply_bwd_bf16": (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)),
-                                {"fp32": b * n * 4 * c * ch},
-                                2 * 3 * b * n * c + 4 * 2 * bh * ch * ch),
+        "mdta_gram_bwd_bf16": yard["mdta_gram_bwd_bf16"],
+        "attn_apply_bwd_bf16": yard["attn_apply_bwd_bf16"],
         # the head's backward: the recompute's h product in bf16; du, dW_qkv,
         # the rotated stencil, dtaps and the LayerNorm's backward in fp32
         "block_head_bwd_bf16": (None, {"bf16": b * n * 2 * c * m,
@@ -2392,9 +2392,11 @@ def b16ops_timings(gen, label, res, c, heads, b) -> dict:
     output bytes (fp32 or bf16 activations), its backward products at the
     bf16 tensor-core rate (bf16 operands), its recompute's products (bf16
     in the bf16 forms, fp32 in the fp32 ones), stencils, gate and LayerNorm
-    at the fp32 rate; the library for rows 6-7 is bmm on bf16 heads of the
-    same operands, none for rows 5 and 9 (row 6 on bf16: bf16_gram_yardstick,
-    its one TF32 product a step at the TF32 rate)."""
+    at the fp32 rate; the library for rows 6-7 on bf16 is bmm on bf16 heads
+    of the same operands (bf16_gram_yardstick, their one TF32 product a step
+    at the TF32 rate), none for rows 5 and 9 and for rows 6-7 on fp32, whose
+    operands bmm takes only cast (those casts with the two bmm are timed as
+    cast_library_device_ms)."""
     n = res * res
     m, hid, ch, bh = 3 * c, int(c * 2.66), c // heads, b * heads
 
@@ -2408,16 +2410,26 @@ def b16ops_timings(gen, label, res, c, heads, b) -> dict:
         calls = b16ops_calls(p, qkv, heads, r)
         e = 2 if dt == BF16 else 4  # bytes an activation or 1x1 weight element
         sfx = "_bf16" if dt == BF16 else ""
-        g_c = r(b, res, res, c).to(BF16)
+        g32 = r(b, res, res, c)
+        g_c = g32.to(BF16)
 
         def heads_t(t, transpose):
             t = t.reshape(b, n, heads, ch)
             return (t.permute(0, 2, 3, 1) if transpose else t.permute(0, 2, 1, 3)
                     ).reshape(bh, *((ch, n) if transpose else (n, ch))).to(BF16).contiguous()
-        kn, qn, vn = (heads_t(qkv[..., i * c:(i + 1) * c], False) for i in range(3))
-        gn, gt = heads_t(g_c, False), heads_t(g_c, True)
-        at = torch.softmax(r(b, heads, ch, ch), -1).reshape(bh, ch, ch).to(BF16)
-        dg = r(bh, ch, ch).to(BF16)
+        at32 = torch.softmax(r(b, heads, ch, ch), -1).reshape(bh, ch, ch)
+        at = at32.to(BF16)
+        dg32 = r(bh, ch, ch)
+        dg = dg32.to(BF16)
+        # the fp32 forms of rows 6-7 take fp32 operands, which bmm takes only
+        # cast to bf16: no one PyTorch call computes them, so their library
+        # is none, and the casts with the two bmm are timed beside
+        cast_libs = {} if dt == BF16 else {
+            "mdta_gram_bwd": lambda: (torch.bmm(heads_t(qkv[..., c:2 * c], False), dg32.to(BF16)),
+                                      torch.bmm(heads_t(qkv[..., :c], False), dg32.to(BF16))),
+            "attn_apply_bwd": lambda: (torch.bmm(heads_t(g32, False), at32.to(BF16)),
+                                       torch.bmm(heads_t(g32, True),
+                                                 heads_t(qkv[..., 2 * c:], False)))}
         rec16 = dt == BF16  # the recompute's products on bf16 operands
         w_qkv, w_tail = e * (m * c) + 4 * 9 * m, e * (c * c + 3 * hid * c) + 4 * (18 * hid + 2 * c)
         w_gdfn = e * 3 * hid * c + 4 * 18 * hid
@@ -2431,18 +2443,19 @@ def b16ops_timings(gen, label, res, c, heads, b) -> dict:
                                e * b * n * (2 * c + m) + 2 * w_qkv),
             "gdfn_fused_bwd": (None, b * n * 12 * hid * c, b * n * 4 * hid * c,
                                b * n * 128 * hid, e * 3 * b * n * c + 2 * w_gdfn),
-            "mdta_gram_bwd": (lambda: (torch.bmm(kn, dg), torch.bmm(qn, dg)), b * n * 4 * c * ch,
-                              0, b * n * 4 * c, e * 4 * b * n * c + 4 * bh * (ch * ch + 2 * ch)),
-            "attn_apply_bwd": (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)),
-                               b * n * 4 * c * ch, 0, 0,
+            "mdta_gram_bwd": (None, b * n * 4 * c * ch, 0, b * n * 4 * c,
+                              e * 4 * b * n * c + 4 * bh * (ch * ch + 2 * ch)),
+            "attn_apply_bwd": (None, b * n * 4 * c * ch, 0, 0,
                                e * 3 * b * n * c + 4 * 2 * bh * ch * ch),
         }
-        yard = bf16_gram_yardstick(qkv, heads, dgram=dg) if dt == BF16 else {}
+        yard = (bf16_gram_yardstick(qkv, heads, attn=at.reshape(b, heads, ch, ch), dgram=dg,
+                                    g=g_c) if dt == BF16 else {})
         for base, (lib, mm16, rec, other, nbytes) in rows.items():
             name = f"{base}{sfx}_b16ops"
             form, plain, old = calls[name]
             flops = {"bf16": mm16 + (rec if rec16 else 0), "fp32": other + (0 if rec16 else rec)}
             lib, flops, nbytes = yard.get(name, (lib, flops, nbytes))
+            cast_lib = cast_libs.get(base)
             bound_ms, by = bound_at(flops, nbytes)
             dev, turns = [], []
             for fn in (form, old, old, form):
@@ -2453,7 +2466,8 @@ def b16ops_timings(gen, label, res, c, heads, b) -> dict:
                              tf32x3_device_ms=(turns[1] + turns[2]) / 2,
                              plain_ms=cuda_ms(plain, iters=5), bound_ms=bound_ms, bound_by=by,
                              library_ms=cuda_ms(lib) if lib else None,
-                             library_device_ms=device_ms(lib)[0] if lib else None)
+                             library_device_ms=device_ms(lib)[0] if lib else None,
+                             cast_library_device_ms=device_ms(cast_lib)[0] if cast_lib else None)
     return out
 
 
@@ -3873,7 +3887,7 @@ def phase_parent_bits(parent: str) -> dict:
 
 
 def redesigned_turns(here: Path, roots: dict) -> dict:
-    """The bf16 forms of rows 4 and 6 that their Hopper redesign replaced
+    """The bf16 forms of rows 3 and 7 that their Hopper redesign replaced
     (tools/port_bf16_times.py --redesigned), timed on the parent's tree and
     on this one in turns (parent, this, this, parent), each run in a process
     that imports its tree's rcot_torch (the kernels built by phase 9's

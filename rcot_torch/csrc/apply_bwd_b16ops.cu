@@ -1,7 +1,7 @@
 // The apply's backward with bf16 operands, for Hopper (sm_90a): row 7
 // under the JAX package's RCOT_BWD_BF16 "gram" tier (cli.train --bwd-bf16
-// gram or all), in fp32 training and, through gram_bwd_bf16.cu, in bf16
-// training.
+// gram or all) in fp32 training (bf16 training's form is
+// apply_bwd_bf16_b16ops.cu's).
 //
 // Replaces the TPU kernel attn_apply_bwd (rcot_tpu/ops/pallas_gram.py:219,
 // pallas_call at :227) as the JAX package runs it with that tier on:

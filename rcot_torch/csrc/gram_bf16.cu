@@ -26,12 +26,18 @@
 // (transposed for the Gram, whose q and k tiles lie pixel-major and are
 // summed over pixels).
 //   - gram_bf16_kernel: a block sums one of gram_plan's pixel ranges of a
-//     (b, head, block pair); its warps split the G tiles and the pixels of
-//     each stage, and each stage's products start from zero and join the
-//     running sums in IEEE fp32 (mm.cuh's note on a long mma chain); the
-//     sums of squares are per-thread fp32 sums over a channel's pixels. The
-//     warps' partials are added in shared memory in a fixed order, and a
-//     split (b, head) adds its ranges in gram.cuh's fixed-order reduce.
+//     (b, head, block pair); its eight warps split the G tiles and the
+//     pixels of each stage, and each stage's products start from zero and
+//     join the running sums in IEEE fp32 (mm.cuh's note on a long mma
+//     chain); the sums of squares are fp32 chains over a channel's pixels,
+//     G a channel. A range is one wave of short blocks whose loads, products
+//     and squares ran in turn (PERF.md, PR 20: the squares, a loop of
+//     dependent shared-memory loads a stage, cost as much as the products),
+//     so up to R = 6 four more warps take the chains, two channels a 4-byte
+//     read, beside the products, and the copies' zero padding runs while the
+//     first tiles fly. The warps' partials are added in shared memory in a
+//     fixed order, and a split (b, head) adds its ranges in gram.cuh's
+//     fixed-order reduce: every sum in the order it had, the same bits.
 //   - apply_bf16_kernel: runs of 128-pixel tiles, each warp 16 rows and all
 //     columns. Its bytes are few a block (a 256^2 image at ch = 48 is 512
 //     tiles, two a block), so what bounds it is the latency of getting them
@@ -55,6 +61,8 @@
 
 namespace {
 
+using bf162 = __nv_bfloat162;
+
 constexpr int kStagesBf = 3;   // the Gram's cp.async ring
 constexpr int kApplyTPBf = 128;  // pixels per apply tile: eight warps of 16 rows
 
@@ -73,8 +81,27 @@ struct GramBf {
   static constexpr int MW = (MT + WTM - 1) / WTM, NW = (NT + WTN - 1) / WTN;
   static constexpr int KS = R <= 4 ? 1 : 2;      // 16-pixel steps per warp and stage
   static constexpr int TP = 16 * WK * KS;        // pixels per stage
-  static constexpr int STAGE = 2 * TP * LD;      // q tile, k tile (bf16)
-  static constexpr int G = kThreads / CHP;       // threads a channel, for the squares
+  // stages a slot of the ring holds, taken between two barriers: two, so
+  // that a range takes half the barriers (the sums keep their stage order)
+  static constexpr int SUB = 2;
+  static constexpr int SLOT = SUB * TP;          // pixels a slot
+  static constexpr int STAGE = 2 * SLOT * LD;    // q rows, k rows (bf16)
+  // The sums of squares: chain (c, g) of q and of k sums channel c over the
+  // pixels g, g + G, ... of each stage in order, G = kThreads / CHP chains a
+  // channel; nq and nk add a channel's G chains in order. Up to R = 6 SQW
+  // warps beside the eight of the products take the chains, so that the
+  // squares run beside the products and not after them: a thread the chains
+  // (c .. c + SQV - 1, g) of PT units (one 4-byte read a pixel where SQV =
+  // 2), units s, s + 32 SQW, ...; above, the products' registers leave no
+  // room for more threads and the eight warps' thread (c, g) takes chain
+  // (c, g) after its products.
+  static constexpr int G = kThreads / CHP;
+  static constexpr int SQ = (TP + G - 1) / G;    // pixels a chain takes a stage, at most
+  static constexpr int SQW = R <= 6 ? 4 : 0;
+  static constexpr int SQV = SQW ? 2 : 1;
+  static constexpr int THREADS = kThreads + 32 * SQW;
+  static constexpr int UNITS = CHP / SQV * G;
+  static constexpr int PT = SQW ? (UNITS + 32 * SQW - 1) / (32 * SQW) : 1;
   static constexpr int RP = CHP + 1;             // pitch of a partial G
   static constexpr int E = CHP * RP + 2 * CHP;   // one warp group's partial (floats)
   static constexpr int RED = WK * E + 2 * G * CHP;
@@ -86,14 +113,17 @@ struct GramBf {
 
 // Block (s, bh, i * nb + j) sums G_ij, nq and nk over pixels [s * per,
 // (s + 1) * per) of (b, h), as gram.cu's gram_fwd_kernel, from bf16 qkv.
+// Warps below eight take the loads and the products; the squares are
+// GramBf's chains.
 template <int R, int V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(GramBf<R>::THREADS)
 gram_bf16_kernel(const bf16* __restrict__ qkv, float* __restrict__ g_out,
                  float* __restrict__ nq_out, float* __restrict__ nk_out, long long g_stride,
                  long long n_stride, long long hw, int heads, int ch, int cb, int splits,
                  long long per) {
   using Cfg = GramBf<R>;
   constexpr int LD = Cfg::LD, TP = Cfg::TP, CHP = Cfg::CHP, MW = Cfg::MW, NW = Cfg::NW;
+  constexpr int PT = Cfg::PT, G = Cfg::G, SQV = Cfg::SQV, SLOT = Cfg::SLOT;
   extern __shared__ __align__(16) float smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   const int s = blockIdx.x, bh = blockIdx.y;
@@ -108,6 +138,7 @@ gram_bf16_kernel(const bf16* __restrict__ qkv, float* __restrict__ g_out,
   const bf16* k_rows = head + C + pj * cb;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
+  const bool mma_warp = warp < kThreads / 32;
   const int wk = warp % Cfg::WK, wt = warp / Cfg::WK;
   const int wm = wt / Cfg::WTN, wn = wt % Cfg::WTN;
   bool use_m[MW], use_n[NW];
@@ -115,22 +146,24 @@ gram_bf16_kernel(const bf16* __restrict__ qkv, float* __restrict__ g_out,
   for (int i = 0; i < MW; ++i) use_m[i] = Cfg::MT % Cfg::WTM == 0 || wm * MW + i < Cfg::MT;
 #pragma unroll
   for (int j = 0; j < NW; ++j) use_n[j] = Cfg::NT % Cfg::WTN == 0 || wn * NW + j < Cfg::NT;
-  // the squares: thread (c, g) sums channel c over pixels g, g + G, ...
-  const int sq_c = tid % CHP, sq_g = tid / CHP;
-  const bool sq_on = sq_g < Cfg::G;
-
-  // the copies never write columns [wi, LD) of a q row or [wj, LD) of a k row
-  const int wmin = wi < wj ? wi : wj, pad = LD - wmin;
-  for (int i = tid; i < kStagesBf * 2 * TP * pad; i += kThreads) {
-    const int r = i / pad, c = wmin + (i - r * pad);
-    if (c >= ((r / TP) & 1 ? wj : wi)) ring[r * LD + c] = __float2bfloat16_rn(0.f);
+  // this thread's chains of the squares: (sq_c + v, sq_g), v < SQV, of units
+  // sq_c / SQV + CHP / SQV * sq_g
+  int sq_c[PT], sq_g[PT];
+  bool sq_on[PT];
+#pragma unroll
+  for (int k = 0; k < PT; ++k) {
+    const int unit = Cfg::SQW ? tid - kThreads + k * 32 * Cfg::SQW : tid;
+    sq_on[k] = (Cfg::SQW ? !mma_warp : true) && unit < Cfg::UNITS;
+    sq_c[k] = sq_on[k] ? unit % (CHP / SQV) * SQV : 0;
+    sq_g[k] = sq_on[k] ? unit / (CHP / SQV) : 0;
   }
-  const int n_tiles = (int)((end - begin + TP - 1) / TP);
+
+  const int n_tiles = (int)((end - begin + SLOT - 1) / SLOT);
   auto load = [&](int t) {
     bf16* dst = ring + (t % kStagesBf) * Cfg::STAGE;
-    const long long p0 = begin + (long long)t * TP;
-    stage_rows_bf16<V>(dst, LD, q_rows, stride, p0, end, TP, wi);
-    stage_rows_bf16<V>(dst + TP * LD, LD, k_rows, stride, p0, end, TP, wj);
+    const long long p0 = begin + (long long)t * SLOT;
+    stage_rows_bf16<V>(dst, LD, q_rows, stride, p0, end, SLOT, wi);
+    stage_rows_bf16<V>(dst + SLOT * LD, LD, k_rows, stride, p0, end, SLOT, wj);
   };
 
   float acc[MW][NW][4];
@@ -140,63 +173,103 @@ gram_bf16_kernel(const bf16* __restrict__ qkv, float* __restrict__ g_out,
     for (int j = 0; j < NW; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-  float sq_q = 0.f, sq_k = 0.f;
-
+  float sq_q[PT][SQV], sq_k[PT][SQV];
 #pragma unroll
-  for (int t = 0; t < kStagesBf - 1; ++t) {
-    if (t < n_tiles) load(t);
-    cp_commit();
+  for (int k = 0; k < PT; ++k)
+#pragma unroll
+    for (int v = 0; v < SQV; ++v) sq_q[k][v] = sq_k[k][v] = 0.f;
+
+  if (mma_warp) {
+#pragma unroll
+    for (int t = 0; t < kStagesBf - 1; ++t) {
+      if (t < n_tiles) load(t);
+      cp_commit();
+    }
+    // the copies never write columns [wi, CHP) of a q row or [wj, CHP) of a
+    // k row, which the products read: zeroed while the first tiles fly
+    const int wmin = wi < wj ? wi : wj, pad = CHP - wmin;
+    for (int i = tid; i < kStagesBf * 2 * SLOT * pad; i += kThreads) {
+      const int r = i / pad, c = wmin + (i - r * pad);
+      if (c >= ((r / SLOT) & 1 ? wj : wi)) ring[r * LD + c] = __float2bfloat16_rn(0.f);
+    }
   }
   for (int t = 0; t < n_tiles; ++t) {
-    cp_wait<kStagesBf - 2>();
+    cp_wait<kStagesBf - 2>();  // (the squares' warps have no copies in flight)
     __syncthreads();  // tile t has landed; every warp is done with tile t - 1
-    if (t + kStagesBf - 1 < n_tiles) load(t + kStagesBf - 1);
-    cp_commit();
     const bf16* qs = ring + (t % kStagesBf) * Cfg::STAGE;
-    const bf16* ks = qs + TP * LD;
-    float part[MW][NW][4];
+    const bf16* ks = qs + SLOT * LD;
+    if (mma_warp) {
+      if (t + kStagesBf - 1 < n_tiles) load(t + kStagesBf - 1);
+      cp_commit();
 #pragma unroll
-    for (int i = 0; i < MW; ++i)
+      for (int u = 0; u < Cfg::SUB; ++u) {  // the slot's stages, in order
+        float part[MW][NW][4];
 #pragma unroll
-      for (int j = 0; j < NW; ++j)
+        for (int i = 0; i < MW; ++i)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
+          for (int j = 0; j < NW; ++j)
 #pragma unroll
-    for (int kk = 0; kk < Cfg::KS; ++kk) {
-      const int p0 = (wk * Cfg::KS + kk) * 16;
-      // A = q^T (channel x pixel) and B = k (pixel x channel), both from
-      // pixel-major tiles: ldmatrix transposed, lane l at pixel
-      // p0 + 8 (l / 16 or l / 8 % 2) + l % 8
-      uint32_t af[MW][4], bfr[NW][2];
+            for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
 #pragma unroll
-      for (int i = 0; i < MW; ++i) {
-        if (!use_m[i]) continue;
-        ldmatrix_x4<true>(af[i], qs + (p0 + ((lane >> 4) & 1) * 8 + (lane & 7)) * LD +
-                                     (wm * MW + i) * 16 + ((lane >> 3) & 1) * 8);
+        for (int kk = 0; kk < Cfg::KS; ++kk) {
+          const int p0 = u * TP + (wk * Cfg::KS + kk) * 16;
+          // A = q^T (channel x pixel) and B = k (pixel x channel), both from
+          // pixel-major tiles: ldmatrix transposed, lane l at pixel
+          // p0 + 8 (l / 16 or l / 8 % 2) + l % 8
+          uint32_t af[MW][4], bfr[NW][2];
+#pragma unroll
+          for (int i = 0; i < MW; ++i) {
+            if (!use_m[i]) continue;
+            ldmatrix_x4<true>(af[i], qs + (p0 + ((lane >> 4) & 1) * 8 + (lane & 7)) * LD +
+                                         (wm * MW + i) * 16 + ((lane >> 3) & 1) * 8);
+          }
+#pragma unroll
+          for (int j = 0; j < NW; ++j) {
+            if (!use_n[j]) continue;
+            ldmatrix_x2<true>(bfr[j], ks + (p0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                                          (wn * NW + j) * 8);
+          }
+#pragma unroll
+          for (int i = 0; i < MW; ++i)
+#pragma unroll
+            for (int j = 0; j < NW; ++j)
+              if (use_m[i] && use_n[j]) mma_bf16(part[i][j], af[i], bfr[j]);
+        }
+#pragma unroll
+        for (int i = 0; i < MW; ++i)
+#pragma unroll
+          for (int j = 0; j < NW; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
       }
-#pragma unroll
-      for (int j = 0; j < NW; ++j) {
-        if (!use_n[j]) continue;
-        ldmatrix_x2<true>(bfr[j], ks + (p0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                                      (wn * NW + j) * 8);
-      }
-#pragma unroll
-      for (int i = 0; i < MW; ++i)
-#pragma unroll
-        for (int j = 0; j < NW; ++j)
-          if (use_m[i] && use_n[j]) mma_bf16(part[i][j], af[i], bfr[j]);
     }
+    // each stage's squares: each unit's loads first, then its chains in pixel order
 #pragma unroll
-    for (int i = 0; i < MW; ++i)
+    for (int u = 0; u < Cfg::SUB; ++u) {
 #pragma unroll
-      for (int j = 0; j < NW; ++j)
+      for (int k = 0; k < PT; ++k) {
+        if (!sq_on[k]) continue;
+        float x[Cfg::SQ][SQV], y[Cfg::SQ][SQV];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
-    if (sq_on) {
-      for (int p = sq_g; p < TP; p += Cfg::G) {
-        const float x = to_f(qs[p * LD + sq_c]), y = to_f(ks[p * LD + sq_c]);
-        sq_q = fmaf(x, x, sq_q);
-        sq_k = fmaf(y, y, sq_k);
+        for (int i = 0; i < Cfg::SQ; ++i) {
+          const int p = sq_g[k] + i * G, o = (u * TP + (p < TP ? p : 0)) * LD + sq_c[k];
+          if constexpr (SQV == 2) {  // channels sq_c and sq_c + 1: one 4-byte read
+            const float2 a = __bfloat1622float2(*reinterpret_cast<const bf162*>(qs + o));
+            const float2 b = __bfloat1622float2(*reinterpret_cast<const bf162*>(ks + o));
+            x[i][0] = a.x, x[i][1] = a.y, y[i][0] = b.x, y[i][1] = b.y;
+          } else {
+            x[i][0] = to_f(qs[o]), y[i][0] = to_f(ks[o]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < Cfg::SQ; ++i) {
+          if (sq_g[k] + i * G >= TP) break;
+#pragma unroll
+          for (int v = 0; v < SQV; ++v) {
+            sq_q[k][v] = fmaf(x[i][v], x[i][v], sq_q[k][v]);
+            sq_k[k][v] = fmaf(y[i][v], y[i][v], sq_k[k][v]);
+          }
+        }
       }
     }
   }
@@ -204,44 +277,51 @@ gram_bf16_kernel(const bf16* __restrict__ qkv, float* __restrict__ g_out,
   __syncthreads();  // the ring is free: it holds the partials now
 
   constexpr int RP = Cfg::RP;
-  float* red = smem + wk * Cfg::E;
+  if (mma_warp) {
+    float* red = smem + wk * Cfg::E;
 #pragma unroll
-  for (int i = 0; i < MW; ++i) {
-    if (!use_m[i]) continue;
-    const int c = (wm * MW + i) * 16 + gid;
+    for (int i = 0; i < MW; ++i) {
+      if (!use_m[i]) continue;
+      const int c = (wm * MW + i) * 16 + gid;
 #pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      if (!use_n[j]) continue;
-      const int d = (wn * NW + j) * 8 + 2 * tig;
-      red[c * RP + d] = acc[i][j][0];
-      red[c * RP + d + 1] = acc[i][j][1];
-      red[(c + 8) * RP + d] = acc[i][j][2];
-      red[(c + 8) * RP + d + 1] = acc[i][j][3];
+      for (int j = 0; j < NW; ++j) {
+        if (!use_n[j]) continue;
+        const int d = (wn * NW + j) * 8 + 2 * tig;
+        red[c * RP + d] = acc[i][j][0];
+        red[c * RP + d + 1] = acc[i][j][1];
+        red[(c + 8) * RP + d] = acc[i][j][2];
+        red[(c + 8) * RP + d + 1] = acc[i][j][3];
+      }
     }
   }
   float* sq = smem + Cfg::WK * Cfg::E;  // [q | k][G][CHP]
-  if (sq_on) {
-    sq[sq_g * CHP + sq_c] = sq_q;
-    sq[(Cfg::G + sq_g) * CHP + sq_c] = sq_k;
+#pragma unroll
+  for (int k = 0; k < PT; ++k) {
+    if (!sq_on[k]) continue;
+#pragma unroll
+    for (int v = 0; v < SQV; ++v) {
+      sq[sq_g[k] * CHP + sq_c[k] + v] = sq_q[k][v];
+      sq[(G + sq_g[k]) * CHP + sq_c[k] + v] = sq_k[k][v];
+    }
   }
   __syncthreads();
 
-  // the partials in a fixed order, written once: warp w rows w, w + 8, ...
+  // the partials in a fixed order, written once: warp w rows w, w + W, ...
   const long long unit = (long long)bh * splits + s;
   float* go = g_out + unit * g_stride + (long long)pi * cb * ch + pj * cb;
-  for (int c = warp; c < wi; c += kThreads / 32)
+  for (int c = warp; c < wi; c += Cfg::THREADS / 32)
     for (int d = lane; d < wj; d += 32) {
       float v = 0.f;
 #pragma unroll
       for (int w = 0; w < Cfg::WK; ++w) v += smem[w * Cfg::E + c * RP + d];
       go[c * ch + d] = v;
     }
-  for (int e = tid; e < 2 * CHP; e += kThreads) {
+  for (int e = tid; e < 2 * CHP; e += Cfg::THREADS) {
     const int which = e / CHP, c = e - which * CHP;
     // nq from the pairs (i, 0), nk from the pairs (0, j)
     if (c >= (which ? wj : wi) || (which ? pi : pj) != 0) continue;
     float v = 0.f;
-    for (int g = 0; g < Cfg::G; ++g) v += sq[(which * Cfg::G + g) * CHP + c];
+    for (int g = 0; g < G; ++g) v += sq[(which * G + g) * CHP + c];
     (which ? nk_out + pj * cb : nq_out + pi * cb)[unit * n_stride + c] = v;
   }
 }
@@ -457,7 +537,7 @@ cudaError_t gram_bf16_v(const bf16* qkv, float* gram, float* nq, float* nk, floa
   float* nk_out = splits > 1 ? ws + ch * ch + ch : nk;
   const long long g_stride = splits > 1 ? E : (long long)ch * ch;
   const long long n_stride = splits > 1 ? E : ch;
-  kernel<<<dim3((unsigned)splits, (unsigned)(B * heads), (unsigned)(nb * nb)), kThreads,
+  kernel<<<dim3((unsigned)splits, (unsigned)(B * heads), (unsigned)(nb * nb)), Cfg::THREADS,
            sizeof(float) * Cfg::FLOATS, st>>>(qkv, g_out, nq_out, nk_out, g_stride, n_stride,
                                               hw, heads, ch, cb, splits, per);
   if (splits > 1) return launch_reduce(ws, gram, nq, nk, B, heads, ch, (int)E, splits, st);

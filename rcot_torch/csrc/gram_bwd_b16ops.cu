@@ -1,6 +1,6 @@
 // The Gram backward with bf16 operands, for Hopper (sm_90a): row 6 under
 // the JAX package's RCOT_BWD_BF16 "gram" tier (cli.train --bwd-bf16 gram or
-// all), in fp32 training and, through gram_bwd_bf16.cu, in bf16 training.
+// all) in fp32 training (bf16 training's form is gram_bwd_bf16_b16ops.cu's).
 //
 // Replaces the TPU kernel mdta_gram_bwd (rcot_tpu/ops/pallas_gram.py:141,
 // pallas_call at :149) as the JAX package runs it with that tier on:

@@ -109,9 +109,15 @@ SIGNATURES = {
     # shared memory bytes and its launch bounds' blocks an SM
     "rcot_mdta_gram_bwd_bf16_blocks_per_sm": [_I] * 2 + [ctypes.POINTER(_I)] * 3,
     "rcot_mdta_gram_bwd_bf16_b16ops_blocks_per_sm": [_I] * 2 + [ctypes.POINTER(_I)] * 3,
-    # qkv, attn, g, dv, dattn, workspace 4; B, hw, heads, ch, channel block,
-    # splits, pixels per split; ops16; stream
-    "rcot_attn_apply_bwd_bf16": [_P] * 9 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
+    # qkv, attn, g, dv, dattn, workspace; B, hw, heads, ch, channel block,
+    # splits, pixels per split; copy width; stream (the bf16-operand form:
+    # apply_bwd_bf16_b16ops.cu, the same arguments)
+    "rcot_attn_apply_bwd_bf16": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
+    "rcot_attn_apply_bwd_bf16_b16ops": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _L, _I, _P],
+    # ch, channel block -> blocks of that form's kernel an SM holds, its
+    # shared memory bytes and its launch bounds' blocks an SM
+    "rcot_attn_apply_bwd_bf16_blocks_per_sm": [_I] * 2 + [ctypes.POINTER(_I)] * 3,
+    "rcot_attn_apply_bwd_bf16_b16ops_blocks_per_sm": [_I] * 2 + [ctypes.POINTER(_I)] * 3,
     # x, taps, out; B, H, W, C, vec, cv, tc, rows, rot; stream
     "rcot_dwconv3x3": [_P] * 3 + [_I] * 9 + [_P],
     # x, g, workspace, dtaps; B, H, W, C, vec, cv, tc, rows; stream

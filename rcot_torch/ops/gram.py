@@ -33,18 +33,20 @@ its own (apply_bf16_plan). In bf16 training the backward kernels take the
 bf16 qkv and cotangent as widened to fp32, the fp32 attn (not the rounded
 one) and fp32 dG, dnq, dnk, and round d[q|k] and dv to bf16 (:120-138,
 :195-216; dattn stays fp32): csrc/gram_bwd_bf16.cu, counted as
-mdta_gram_bwd_bf16 and attn_apply_bwd_bf16. The Gram backward runs on bf16
-tiles in one launch (gram_bwd_bf16_plan, no fp32 copy of anything); the
-apply backward widens into fp32 workspaces and runs the fp32 kernel. Their
-twins are the fp32 twins on the widened operands, their outputs rounded.
+mdta_gram_bwd_bf16 and attn_apply_bwd_bf16 (csrc/apply_bwd_bf16.cu). Both
+run on bf16 tiles with no fp32 copy of anything: the Gram backward in one
+launch (gram_bwd_bf16_plan), the apply backward on gram_pairs_plan's
+ranges, so that dattn sums as the fp32 kernel does, in one launch where a
+(b, head) is one range. Their twins are the fp32 twins on the widened
+operands, their outputs rounded.
 
 bf16 operands (the JAX package's RCOT_BWD_BF16 "gram" tier, _bwd_dot(...,
 tier="gram") at pallas_gram.py:129-130 and :211-212): with bf16_ops the
 two backward kernels round k, q and dG (d[q|k]) and g, attn and v (dv,
 dattn) to bf16 for their products and sum in fp32; 2 q dnq and 2 k dnk
 keep the fp32 q and k. On the card csrc/gram_bwd_b16ops.cu and
-apply_bwd_b16ops.cu (on a bf16 qkv, gram_bwd_bf16_b16ops.cu for d[q|k] and
-gram_bwd_bf16.cu with its ops16 argument for dv and dattn), counted under
+apply_bwd_b16ops.cu (on a bf16 qkv, gram_bwd_bf16_b16ops.cu and
+apply_bwd_bf16_b16ops.cu), counted under
 the backward's name with _b16ops after it; the twins take the same formula
 with those operands rounded.
 """
@@ -261,9 +263,18 @@ def gram_bwd_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int,
 # _gram_bwd_bf16_stages(R) stages of a q and a k tile in bf16, dG as the fp32
 # kernel stages it (split into its tf32 parts up to R = 7) and dnq | dnk,
 # its registers held to _gram_bwd_bf16_reg_blocks(R) blocks an SM (ptxas
-# gave the fp32 kernel 118 registers at ch = 48). R = ceil(cb / 16). The
-# kernels' occupancy entries (rcot_*_blocks_per_sm) return their BYTES and
-# MIN_BLOCKS, and tests/test_torch_cuda.py holds these copies to them.
+# gave the fp32 kernel 118 registers at ch = 48). The bf16 apply backward
+# (csrc/apply_bwd_bf16.cu, gram_bwd.cuh's ApplyBwdBfCfg) keeps the fp32
+# kernel's pixel ranges (gram_pairs_plan: dattn's sums and their order) and
+# holds a ring of _apply_bwd_bf16_stages(R) stages of a g and a v tile in
+# bf16, dv's bf16 staging tile and attn as the fp32 kernel stages it, the
+# warp groups' dattn partials in the ring's place at the end, at most
+# _apply_bwd_bf16_reg_blocks(R) blocks an SM (up to R = 3 each warp holds
+# its attn fragments in registers, which leaves room for two blocks at R = 1
+# only): what its blocks an SM allow is how many of those ranges run at
+# once. R = ceil(cb / 16). The kernels' occupancy entries
+# (rcot_*_blocks_per_sm) return their BYTES and MIN_BLOCKS, and
+# tests/test_torch_cuda.py holds these copies to them.
 SMEM_PER_SM = 233_472
 SMEM_RESERVED = 1_024
 
@@ -282,6 +293,14 @@ def _gram_bwd_bf16_stages(r: int) -> int:
 
 def _gram_bwd_bf16_reg_blocks(r: int) -> int:
     return 2 if r <= 3 else 1
+
+
+def _apply_bwd_bf16_stages(r: int) -> int:
+    return 4 if r <= 4 else 3
+
+
+def _apply_bwd_bf16_reg_blocks(r: int) -> int:
+    return 2 if r <= 1 else 1
 
 
 def _width(cb: int) -> Tuple[int, int, int]:
@@ -304,12 +323,19 @@ def apply_bf16_per_sm(cb: int) -> int:
                SMEM_PER_SM // (apply_bf16_smem(cb) + SMEM_RESERVED))
 
 
+def _mats(r: int, chp: int, ld: int) -> int:
+    """Floats of the ch x ch matrix (dG, attn) the fp32 and bf16 backward
+    kernels stage: split into its tf32 parts up to R = 7, whole above
+    (csrc/gram_bwd.cuh BwdCfg::MATS)."""
+    return (2 if r <= 7 else 1) * chp * ld
+
+
 def gram_bwd_bf16_smem(cb: int) -> int:
     """Bytes of shared memory a block of the bf16 Gram backward takes at
     channel block cb (csrc/gram_bwd.cuh BwdBfCfg::BYTES)."""
     r, chp, ld = _width(cb)
-    mats = (2 if r <= 7 else 1) * chp * ld
-    return 2 * _gram_bwd_bf16_stages(r) * 2 * GRAM_BWD_TILE * ld + 4 * (mats + 2 * chp)
+    return (2 * _gram_bwd_bf16_stages(r) * 2 * GRAM_BWD_TILE * ld
+            + 4 * (_mats(r, chp, ld) + 2 * chp))
 
 
 def gram_bwd_bf16_per_sm(cb: int) -> int:
@@ -318,6 +344,24 @@ def gram_bwd_bf16_per_sm(cb: int) -> int:
     r = _width(cb)[0]
     return min(_gram_bwd_bf16_reg_blocks(r),
                SMEM_PER_SM // (gram_bwd_bf16_smem(cb) + SMEM_RESERVED))
+
+
+def apply_bwd_bf16_smem(cb: int) -> int:
+    """Bytes of shared memory a block of the bf16 apply backward takes at
+    channel block cb (csrc/gram_bwd.cuh ApplyBwdBfCfg::BYTES): the ring and
+    dv's staging tile, or the warp groups' dattn partials where they are
+    larger, then attn."""
+    r, chp, ld = _width(cb)
+    tiles = 2 * (_apply_bwd_bf16_stages(r) * 2 * GRAM_BWD_TILE * ld + GRAM_BWD_TILE * ld)
+    warp_groups = 8 if r <= 2 else 4 if r <= 4 else 1  # csrc/gram.cuh GramCfg::WK
+    return max(tiles, 4 * warp_groups * chp * (chp + 1)) + 4 * _mats(r, chp, ld)
+
+
+def apply_bwd_bf16_per_sm(cb: int) -> int:
+    """Blocks of the bf16 apply backward an SM holds at channel block cb:
+    what its shared memory and its registers both allow."""
+    return min(_apply_bwd_bf16_reg_blocks(_width(cb)[0]),
+               SMEM_PER_SM // (apply_bwd_bf16_smem(cb) + SMEM_RESERVED))
 
 
 def apply_bf16_plan(b: int, hw: int, heads: int, ch: int, n_sm: int) -> Tuple[int, int]:
@@ -492,24 +536,20 @@ def attn_apply_bwd(qkv: torch.Tensor, attn: torch.Tensor, g: torch.Tensor,
     build.check_arg("g", g, (b, h, w, heads * ch), dev, dt)
     cb = channel_blocks(ch)[1]
     splits, per = gram_pairs_plan(b, h * w, heads, ch, sm_count(dev.index))
-    # one allocation: the dattn partials, then the slots of dv
+    # one allocation: the dattn partials, then the slots of dv (fp32 in both forms)
     n_ws = (apply_bwd_workspace_numel(splits, b, heads, ch)
             + slots_numel(b, h * w, heads, ch, 1))
     dv = torch.empty(b, h, w, heads * ch, device=dev, dtype=dt)
     dattn = torch.empty(b, heads, ch, ch, device=dev)
     ws = torch.empty(n_ws, device=dev) if n_ws else None
-    # the bf16 kernel's fp32 copies of qkv (its v third), g and dv
-    wide = ([torch.empty(k, device=dev) for k in (qkv.numel(), g.numel(), dv.numel())]
-            if bf16 else [])
-    kernel = "attn_apply_bwd_bf16" if bf16 else "attn_apply_bwd"
-    entry = "rcot_" + (kernel if bf16 else build.counted(kernel, bf16_ops))
-    ops16 = (int(bf16_ops),) if bf16 else ()
+    kernel = build.counted("attn_apply_bwd_bf16" if bf16 else "attn_apply_bwd", bf16_ops)
+    # the bf16 kernels take their copy width after the plan
+    vec = (bf16_copy_width(ch, cb, qkv.data_ptr(), g.data_ptr(), dv.data_ptr()),) if bf16 else ()
     with torch.cuda.device(dev):
-        build.call(entry, qkv.data_ptr(), attn.data_ptr(),
-                   g.data_ptr(), dv.data_ptr(), dattn.data_ptr(),
-                   *(t.data_ptr() for t in wide), build.ptr(ws), b,
-                   h * w, heads, ch, cb, splits, per, *ops16, build.stream())
-    build.LAUNCHES[build.counted(kernel, bf16_ops)] += 1
+        build.call("rcot_" + kernel, qkv.data_ptr(), attn.data_ptr(),
+                   g.data_ptr(), dv.data_ptr(), dattn.data_ptr(), build.ptr(ws), b,
+                   h * w, heads, ch, cb, splits, per, *vec, build.stream())
+    build.LAUNCHES[kernel] += 1
     return dv, dattn
 
 

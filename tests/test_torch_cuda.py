@@ -1439,3 +1439,95 @@ def test_the_bf16_plans_blocks_an_sm_fit_on_the_card(cuda_device, ch):
         assert getattr(lib, f"rcot_{form}_blocks_per_sm")(ch, cb, *outs) == 0
         assert got.value >= tgram.gram_bwd_bf16_per_sm(cb), (form, got.value)
         assert (nbytes.value, least.value) == (tgram.gram_bwd_bf16_smem(cb), reg_blocks), form
+
+
+# Row 7's bf16 forms on bf16 tiles (csrc/apply_bwd_bf16.cu, gram_bwd.cuh's
+# apply backward on bf16): BF16_REDESIGN_SHAPES and two shapes whose (b,
+# head) is one pixel range (splits == 1: one launch)
+BF16_APPLY_BWD_SHAPES = BF16_REDESIGN_SHAPES + [(2, 8, 8, 2, 48), (1, 8, 8, 1, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,heads,ch", BF16_APPLY_BWD_SHAPES)
+@pytest.mark.parametrize("bf16_ops", [False, True], ids=["3xtf32", "ops16"])
+def test_bf16_apply_backward_on_bf16_tiles_keeps_the_widening_designs_bits(
+        cuda_device, b, h, w, heads, ch, bf16_ops):
+    """dv and dattn on a bf16 qkv and g equal, bit for bit, the fp32
+    kernel's on the widened qkv and g with dv rounded once to bf16 (RNE; the
+    design it replaces: the dropped terms added exact zeros, every other sum
+    keeps its order); dv sits within BF16_RTOL of its twin and dattn within
+    RTOL of the twin's arithmetic in float64; both repeat bitwise; a call
+    counts one launch and puts one kernel on the card where a (b, head) is
+    one pixel range and one channel block (gram_pairs_plan's splits == 1),
+    with the fixed-order reduce of dattn's partials where it is more and the
+    slots' sum where the head is cut into channel blocks; and it allocates
+    nothing but dv, dattn and one workspace (the partials and the slots)
+    where there is one: no fp32 copy of qkv, g or dv."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    qkv = r(b, h, w, 3 * heads * ch).bfloat16()
+    attn = torch.softmax(r(b, heads, ch, ch), -1)
+    g = r(b, h, w, heads * ch).bfloat16()
+    name = build.counted("attn_apply_bwd_bf16", bf16_ops)
+    n0 = build.LAUNCHES[name]
+    torch.cuda.synchronize()
+    allocs0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    dv, dattn = tgram.attn_apply_bwd(qkv, attn, g, bf16_ops)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs0
+    dv2, dattn2 = tgram.attn_apply_bwd(qkv, attn, g, bf16_ops)
+    wide_dv, wide_dattn = tgram.attn_apply_bwd(qkv.float(), attn, g.float(), bf16_ops)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    assert dv.dtype == torch.bfloat16 and dattn.dtype == torch.float32
+    assert torch.equal(dv, dv2) and torch.equal(dattn, dattn2)
+    assert torch.equal(dv, wide_dv.bfloat16()) and torch.equal(dattn, wide_dattn)
+    assert _bf16_within(dv, tgram.attn_apply_bwd_plain(qkv, attn, g, bf16_ops)[0])
+    assert _within(dattn, tgram.attn_apply_bwd_plain(qkv.double(), attn.double(), g.double(),
+                                                     bf16_ops)[1])
+    nb = tgram.channel_blocks(ch)[0]
+    splits = tgram.gram_pairs_plan(b, h * w, heads, ch, tgram.sm_count(0))[0]
+    records = _device_records(lambda: tgram.attn_apply_bwd(qkv, attn, g, bf16_ops))
+    assert len(records) == 1 + (splits > 1) + (nb > 1), records
+    assert allocs == 2 + (splits > 1 or nb > 1), allocs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,heads,ch", BF16_APPLY_BWD_SHAPES)
+def test_bf16_gram_forward_matches_float64_and_repeats_bitwise(cuda_device, b, h, w, heads, ch):
+    """G, nq and nk on a bf16 qkv each within RTOL of its largest value
+    (the fp32 Gram's gate) against the twin's arithmetic in float64, bitwise
+    on a repeat; a
+    call counts one launch and puts the kernel on the card, with the
+    fixed-order reduce of its ranges' partials where a (b, head) is more
+    than one range (gram_pairs_plan) and nothing else."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    qkv = torch.randn(b, h, w, 3 * heads * ch, device="cuda", generator=gen).bfloat16()
+    n0 = build.LAUNCHES["mdta_gram_fwd_bf16"]
+    got, again = tgram.mdta_gram_fwd(qkv, heads), tgram.mdta_gram_fwd(qkv, heads)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mdta_gram_fwd_bf16"] == n0 + 2
+    for x, y, z in zip(got, again, tgram.mdta_gram_plain(qkv.double(), heads)):
+        assert x.dtype == torch.float32 and torch.equal(x, y) and _within(x, z)
+    splits = tgram.gram_pairs_plan(b, h * w, heads, ch, tgram.sm_count(0))[0]
+    records = _device_records(lambda: tgram.mdta_gram_fwd(qkv, heads))
+    assert len(records) == 1 + (splits > 1), records
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [16, 24, 25, 32, 48, 64, 96, 112, 128, 192])
+def test_the_bf16_apply_backwards_blocks_an_sm_fit_on_the_card(cuda_device, ch):
+    """The blocks an SM that apply_bwd_bf16_per_sm counts on fit there, in
+    both operand policies, and the Python copies of the kernel's shared
+    memory and launch bounds are the kernel's own."""
+    import ctypes
+    cb = tgram.channel_blocks(ch)[1]
+    lib = build.library()
+    got, nbytes, least = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    outs = (ctypes.byref(got), ctypes.byref(nbytes), ctypes.byref(least))
+    reg_blocks = tgram._apply_bwd_bf16_reg_blocks(tgram._width(cb)[0])
+    for form in ("attn_apply_bwd_bf16", "attn_apply_bwd_bf16_b16ops"):
+        assert getattr(lib, f"rcot_{form}_blocks_per_sm")(ch, cb, *outs) == 0
+        assert got.value >= tgram.apply_bwd_bf16_per_sm(cb), (form, got.value)
+        assert (nbytes.value, least.value) == (tgram.apply_bwd_bf16_smem(cb), reg_blocks), form

@@ -259,3 +259,50 @@ def test_the_bf16_plans_at_the_main_path_shapes():
     assert tgram.gram_bwd_bf16_plan(3, 16 * 16, 8, 48, H100_SMS) == (96, 1)
     assert tgram.gram_bwd_bf16_plan(1, 64 * 64, 1, 192, H100_SMS) == (32, 2)
     assert tgram.apply_bf16_plan(1, 64 * 64, 1, 192, H100_SMS) == (32, 1)
+
+
+@pytest.mark.parametrize("b,hw,heads,ch", BF16_PLAN_SHAPES + sorted(set(MAIN)) + ODD + WIDE)
+def test_the_bf16_apply_backward_keeps_the_fp32_ranges_within_an_sms_shared_memory(
+        b, hw, heads, ch):
+    """The bf16 apply backward (csrc/apply_bwd_bf16.cu) sums dattn over the
+    fp32 kernel's pixel ranges (gram_pairs_plan): every pixel of each (b,
+    head) and channel-block pair once, none of the ranges empty, in whole
+    64-pixel tiles of at most GRAM_MAX_PIXELS; its block's shared memory
+    within what a block may have and its blocks an SM within what an SM
+    has; one workspace, the dattn partials where a (b, head) is split and
+    the slots of dv where the head is cut into channel blocks."""
+    nb, cb = tgram.channel_blocks(ch)
+    smem, per_sm = tgram.apply_bwd_bf16_smem(cb), tgram.apply_bwd_bf16_per_sm(cb)
+    assert smem <= 232_448 and smem % 16 == 0
+    assert 1 <= per_sm and per_sm * (smem + tgram.SMEM_RESERVED) <= tgram.SMEM_PER_SM
+    for n_sm in SM_COUNTS:
+        splits, per = tgram.gram_pairs_plan(b, hw, heads, ch, n_sm)
+        _tiles_once(hw, splits, per)
+        assert per % tgram.GRAM_BWD_TILE == 0 and per <= tgram.GRAM_MAX_PIXELS
+        n_ws = tgram.apply_bwd_workspace_numel(splits, b, heads, ch)
+        assert n_ws == (0 if splits == 1 else splits * b * heads * ch * ch)
+    assert tgram.slots_numel(b, hw, heads, ch, 1) == (0 if nb == 1 else nb * b * hw * heads * ch)
+
+
+@pytest.mark.parametrize("ch,smem,per_sm", [
+    (16, 30_720, 2), (24, 56_320, 1), (32, 56_320, 1), (48, 86_016, 1), (64, 119_808, 1),
+    (96, 173_056, 1), (112, 215_040, 1), (128, 191_488, 1)])
+def test_the_bf16_apply_backwards_blocks_an_sm(ch, smem, per_sm):
+    """A ring of four stages of a g and a v tile in bf16 up to R = 4 (three
+    above), dv's bf16 staging tile, or the warp groups' dattn partials where
+    larger, then attn split into its tf32 parts (whole at R = 8): two
+    blocks an SM at R = 1, one above (the registers: up to R = 3 a warp
+    holds its attn fragments in them)."""
+    assert tgram.apply_bwd_bf16_smem(ch) == smem
+    assert tgram.apply_bwd_bf16_per_sm(ch) == per_sm
+
+
+@pytest.mark.parametrize("b,hw,heads,ch", MAIN)
+def test_the_bf16_apply_backward_at_the_sixteen_main_path_shapes(b, hw, heads, ch):
+    """At every main-path shape every range is in flight at once on an H100:
+    the grid (splits ranges of each (b, head)) is at most one block an SM,
+    and the blocks an SM are pinned: one at heads of 24, 48 and 96
+    channels."""
+    splits, _ = tgram.gram_pairs_plan(b, hw, heads, ch, H100_SMS)
+    assert splits * b * heads <= H100_SMS
+    assert tgram.apply_bwd_bf16_per_sm(ch) == {24: 1, 48: 1, 96: 1}[ch]

@@ -1,27 +1,48 @@
-"""Where the time of the bf16 Gram backward (row 6, both operand policies)
-and the bf16 apply forward (row 4) goes, by subtraction, on one CUDA card.
+"""Where the time of the bf16 MDTA kernels goes, by subtraction, on one CUDA
+card: the Gram forward (row 3), the apply forward (row 4), the Gram
+backward (row 6, both operand policies) and the apply backward (row 7,
+both operand policies), each on a bf16 qkv.
 
-    python tools/port_bf16_ablate.py [--variants full nostore nomma noload]
+    python tools/port_bf16_ablate.py [--rows 3 4 6 7] [--variants full nostore ...]
 
 Copies this checkout's rcot_torch into build/ablate_<variant>/ with only
-the three sources these kernels need (gram_bwd_bf16.cu without row 7's
-wrapper, gram_bwd_bf16_b16ops.cu, gram_bf16.cu), cuts one part of both
-kernels in the copy's csrc:
+the sources the chosen rows need, cuts one part of their kernels in the
+copy's csrc (or its plan in ops/gram.py):
 
-  full     nothing cut;
-  nostore  the epilogue's stores of d[q|k] and out (the staging stays);
-  nomma    the products (the Gram backward's fragment reads of its tiles
-           and of dG go with them; the apply's ldmatrix reads stay);
-  noload   the copies of the q, k and v tiles (the ring keeps what it
-           holds; dG and attn are still staged),
+  full      nothing cut;
+  nostore   the stores of the results (the Gram forward's partials of G,
+            nq and nk; the epilogues' stores of d[q|k], out and dv; the
+            staging stays);
+  nomma     the products (the fragment reads of the tf32 kernels go with
+            them; the ldmatrix reads of the bf16 ones stay);
+  noload    the copies of the q, k, v and g tiles (the ring keeps what it
+            holds; dG and attn are still staged);
+  nosquare  the Gram forward's sums of squares (row 3);
+  noreduce  the Gram forward's second launch, the fixed-order reduce of its
+            pixel ranges' partials (row 3; G is then wrong);
+  deep      the Gram forward's ring eight stages deep (a 512-pixel range
+            all in flight at ch <= 64; row 3);
+  split2    the Gram forward's ranges planned for two blocks an SM (row 3;
+            GRAM_BLOCKS_PER_SM = 2, so shorter ranges and twice the blocks);
+  sqv1, sqw8, sqw0  the Gram forward's squares read one channel at a time,
+            by eight warps of their own, or by the products' warps after
+            their products (row 3; the same chains, the same bits);
+  ring6     the apply backward's ring six stages deep up to R = 4, four at
+            R = 5-6 (row 7; a whole range of six tiles in flight at train L1);
+  sub1, slot128, slot256  the Gram forward's ring slots one stage each
+            (not two), or 128 pixels each, or 256 up to R = 4 and 128
+            above (row 3; the same sums),
 
 builds the copies at once, then times each in a process of its own, in
-turns (full first and last), at train L1 and decoder L1 (128^2, B = 3; the
-Gram backward) and serve L1, decoder L1 and L1 at batch 8 (256^2; the
-apply): device ms a call (chip_smoke.device_ms). A cut kernel computes
-nothing useful; only its time is read. Each line names its variant; the
-last line the card's name and power limit. Not part of the port: a
-measurement tool, whose copies live under build/ and are rebuilt each run.
+turns (full first and last): device ms a call (chip_smoke.device_ms) and
+each launch's (tools/port_block_bwd_times.py stage_split), row 3 at serve
+L1, serve decoder L1 and train L1, row 4 at serve L1, decoder L1 and L1 at
+batch 8, rows 6 and 7 at train L1 and decoder L1 (128^2, B = 3). A cut
+kernel computes nothing useful; only its time is read. A variant that cuts
+nothing in a row's sources is not timed for it. Each line names its
+variant; the last line the card's name and power limit. Not part of the
+port: a measurement tool, whose copies live under build/ and are rebuilt
+each run.
 """
 
 from __future__ import annotations
@@ -34,46 +55,95 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-# variant -> [(source, text, replacement)]; each text must be found
+# the sources each row's kernels compile from
+ROW_SOURCES = {"3": {"gram_bf16.cu"}, "4": {"gram_bf16.cu"},
+               "6": {"gram_bwd_bf16.cu", "gram_bwd_bf16_b16ops.cu"},
+               "7": {"apply_bwd_bf16.cu", "apply_bwd_bf16_b16ops.cu"}}
+# variant -> [(rows, file under rcot_torch/, text, replacement)]; each text
+# must be found where the rows it serves are built
 CUTS = {
     "full": [],
-    "nostore": [("gram_bwd.cuh", "      store_staged_v(out + off,",
-                 "      if (p0 < 0) store_staged_v(out + off,"),
-                ("gram_bf16.cu", "      store_staged_v(out + base,",
-                 "      if (p0 < 0) store_staged_v(out + base,")],
-    "nomma": [("gram_bwd.cuh",
-               "    if constexpr (OPS16)\n      mma_1xtf32(acc, ah, bh, use_m, use_n);\n"
-               "    else\n      mma_3xtf32<MT, NJ, !F32>(acc, ah, al, bh, bl, use_m, use_n);",
-               "    (void)ah; (void)al; (void)bh; (void)bl;"),
-              ("gram_bf16.cu",
-               "        mma_bf16(acc[j], af, b0);\n        mma_bf16(acc[j + 1], af, b1);",
-               "        (void)b0; (void)b1;")],
-    "noload": [("gram_bwd.cuh", "      stage_rows_bf16_v(dst, LDA,",
-                "      if (p0 < 0) stage_rows_bf16_v(dst, LDA,"),
-               ("gram_bwd.cuh", "      stage_rows_bf16_v(dst + TP * LDA,",
-                "      if (p0 < 0) stage_rows_bf16_v(dst + TP * LDA,"),
-               ("gram_bf16.cu", "    stage_rows_bf16_v(ring + (i % STAGES) * TP * LD, LD,",
-                "    if (t < 0) stage_rows_bf16_v(ring + (i % STAGES) * TP * LD, LD,")],
+    "nostore": [
+        ("6", "csrc/gram_bwd.cuh", "      store_staged_v(out + off,",
+         "      if (p0 < 0) store_staged_v(out + off,"),
+        ("4", "csrc/gram_bf16.cu", "      store_staged_v(out + base,",
+         "      if (p0 < 0) store_staged_v(out + base,"),
+        ("3", "csrc/gram_bf16.cu", "      go[c * ch + d] = v;",
+         "      if (s < 0) go[c * ch + d] = v;"),
+        ("3", "csrc/gram_bf16.cu", "    (which ? nk_out + pj * cb : nq_out + pi * cb)[unit",
+         "    if (s < 0) (which ? nk_out + pj * cb : nq_out + pi * cb)[unit"),
+        ("7", "csrc/gram_bwd.cuh", "          store_staged_v(dv + off + jc,",
+         "          if (p0 < 0) store_staged_v(dv + off + jc,")],
+    "nomma": [
+        ("67", "csrc/gram_bwd.cuh",
+         "    if constexpr (OPS16)\n      mma_1xtf32(acc, ah, bh, use_m, use_n);\n"
+         "    else\n      mma_3xtf32<MT, NJ, !F32>(acc, ah, al, bh, bl, use_m, use_n);",
+         "    (void)ah; (void)al; (void)bh; (void)bl;"),
+        ("7", "csrc/gram_bwd.cuh", "        mma_1xtf32(part, ar, br, use_m, use_n);",
+         "        (void)ar; (void)br;"),
+        ("4", "csrc/gram_bf16.cu",
+         "        mma_bf16(acc[j], af, b0);\n        mma_bf16(acc[j + 1], af, b1);",
+         "        (void)b0; (void)b1;"),
+        ("3", "csrc/gram_bf16.cu",
+         "          if (use_m[i] && use_n[j]) mma_bf16(part[i][j], af[i], bfr[j]);",
+         "          (void)af; (void)bfr;")],
+    "noload": [
+        ("6", "csrc/gram_bwd.cuh", "      stage_rows_bf16_v(dst, LDA,",
+         "      if (p0 < 0) stage_rows_bf16_v(dst, LDA,"),
+        ("6", "csrc/gram_bwd.cuh", "      stage_rows_bf16_v(dst + TP * LDA,",
+         "      if (p0 < 0) stage_rows_bf16_v(dst + TP * LDA,"),
+        ("4", "csrc/gram_bf16.cu", "    stage_rows_bf16_v(ring + (i % STAGES) * TP * LD, LD,",
+         "    if (t < 0) stage_rows_bf16_v(ring + (i % STAGES) * TP * LD, LD,"),
+        ("3", "csrc/gram_bf16.cu", "    stage_rows_bf16<V>(dst, LD, q_rows,",
+         "    if (p0 < 0) stage_rows_bf16<V>(dst, LD, q_rows,"),
+        ("3", "csrc/gram_bf16.cu", "    stage_rows_bf16<V>(dst + SLOT * LD, LD, k_rows,",
+         "    if (p0 < 0) stage_rows_bf16<V>(dst + SLOT * LD, LD, k_rows,"),
+        ("7", "csrc/gram_bwd.cuh", "      stage_rows_bf16_v(dst, LDB, g_rows,",
+         "      if (p0 < 0) stage_rows_bf16_v(dst, LDB, g_rows,"),
+        ("7", "csrc/gram_bwd.cuh", "      stage_rows_bf16_v(dst + TP * LDB, LDB, v_rows,",
+         "      if (p0 < 0) stage_rows_bf16_v(dst + TP * LDB, LDB, v_rows,")],
+    "nosquare": [("3", "csrc/gram_bf16.cu", "        if (!sq_on[k]) continue;\n        float x[",
+                  "        if (!sq_on[k] || t >= 0) continue;\n        float x[")],
+    "ring6": [("7", "csrc/gram_bwd.cuh", "  static constexpr int STAGES = R <= 4 ? 4 : 3;\n  static constexpr int TILES = 2 * kBwdTP * LDB;  // bf16, one stage\n  static constexpr int DV",
+               "  static constexpr int STAGES = R <= 4 ? 6 : R <= 6 ? 4 : 3;\n  static constexpr int TILES = 2 * kBwdTP * LDB;  // bf16, one stage\n  static constexpr int DV")],
+    "sub1": [("3", "csrc/gram_bf16.cu", "static constexpr int SUB = 2;",
+              "static constexpr int SUB = 1;")],
+    "slot128": [("3", "csrc/gram_bf16.cu", "static constexpr int SUB = 2;",
+                 "static constexpr int SUB = TP < 128 ? 128 / TP : 1;")],
+    "slot256": [("3", "csrc/gram_bf16.cu", "static constexpr int SUB = 2;",
+                 "static constexpr int SUB = R <= 4 ? 256 / TP : 128 / TP;")],
+    "sqv1": [("3", "csrc/gram_bf16.cu", "static constexpr int SQV = SQW ? 2 : 1;",
+              "static constexpr int SQV = 1;")],
+    "sqw8": [("3", "csrc/gram_bf16.cu", "static constexpr int SQW = R <= 6 ? 4 : 0;",
+              "static constexpr int SQW = R <= 6 ? 8 : 0;")],
+    "sqw0": [("3", "csrc/gram_bf16.cu", "static constexpr int SQW = R <= 6 ? 4 : 0;",
+              "static constexpr int SQW = 0;")],
+    "noreduce": [("3", "csrc/gram_bf16.cu",
+                  "  if (splits > 1) return launch_reduce(ws, gram, nq, nk,",
+                  "  if (splits < 0) return launch_reduce(ws, gram, nq, nk,")],
+    "deep": [("3", "csrc/gram_bf16.cu", "constexpr int kStagesBf = 3;",
+              "constexpr int kStagesBf = 8;")],
+    "split2": [("3", "ops/gram.py", "GRAM_BLOCKS_PER_SM = 1", "GRAM_BLOCKS_PER_SM = 2")],
 }
-KEEP = {"gram_bwd_bf16.cu", "gram_bwd_bf16_b16ops.cu", "gram_bf16.cu"}
 
 
-def make_tree(variant: str) -> Path:
-    """build/ablate_<variant>/rcot_torch with the cut made."""
+def cuts(variant: str, rows) -> list:
+    return [c for c in CUTS[variant] if any(r in c[0] for r in rows)]
+
+
+def make_tree(variant: str, rows) -> Path:
+    """build/ablate_<variant>/rcot_torch with the rows' sources alone and
+    the cut made."""
     root = HERE / "build" / f"ablate_{variant}"
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(HERE / "rcot_torch", root / "rcot_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    csrc = root / "rcot_torch" / "csrc"
-    for f in csrc.glob("*.cu"):
-        if f.name not in KEEP:
+    keep = set().union(*(ROW_SOURCES[r] for r in rows))
+    for f in (root / "rcot_torch" / "csrc").glob("*.cu"):
+        if f.name not in keep:
             f.unlink()
-    src = csrc / "gram_bwd_bf16.cu"  # row 7's wrapper needs apply_bwd.cu: cut it
-    text = src.read_text()
-    cut = text.index("// qkv (B, hw, 3*heads*ch) bf16, attn (B,heads,ch,ch) fp32, g (B, hw,")
-    src.write_text(text[:cut] + "}  // extern \"C\"\n")
-    for name, old, new in CUTS[variant]:
-        f = csrc / name
+    for _, name, old, new in cuts(variant, rows):
+        f = root / "rcot_torch" / name
         text = f.read_text()
         if old not in text:
             raise SystemExit(f"{variant}: {name} no longer holds {old!r}")
@@ -86,52 +156,72 @@ def make_tree(variant: str) -> Path:
     return root
 
 
-def time_tree(root: Path) -> dict:
-    """Device ms of the three forms, imported from root."""
+def time_tree(root: Path, rows) -> dict:
+    """{"<form> <shape>": [device ms, each launch's [name, ms]]} of the rows'
+    forms, imported from root."""
     sys.path.insert(0, str(root))
+    sys.path.insert(0, str(HERE / "tools"))
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    import port_block_bwd_times as bwd_times
     torch, g = cs.torch, cs.kgram
     cs.build.library()
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def r(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
-    out = {}
+    calls = {}
+    if "3" in rows:
+        for tag, b, res, ch in (("serve L1", 1, 256, 48), ("serve decoder L1", 1, 256, 96),
+                                ("train L1", 3, 128, 48)):
+            qkv = r(b, res, res, 3 * ch).to(torch.bfloat16)
+            calls[f"mdta_gram_fwd_bf16 {tag}"] = lambda qkv=qkv: g.mdta_gram_fwd(qkv, 1)
+    if "4" in rows:
+        for tag, b, res, ch in (("serve L1", 1, 256, 48), ("serve decoder L1", 1, 256, 96),
+                                ("serve L1 B=8", 8, 256, 48)):
+            qkv = r(b, res, res, 3 * ch).to(torch.bfloat16)
+            attn = torch.softmax(r(b, 1, ch, ch), -1)
+            calls[f"attn_apply_fwd_bf16 {tag}"] = lambda q=qkv, a=attn: g.attn_apply_fwd(q, a)
     for tag, b, res, ch in (("train L1", 3, 128, 48), ("train decoder L1", 3, 128, 96)):
         qkv = r(b, res, res, 3 * ch).to(torch.bfloat16)
         cot = [r(b, 1, ch, ch), r(b, 1, ch), r(b, 1, ch)]
-        out[f"mdta_gram_bwd_bf16 {tag}"] = cs.device_ms(lambda: g.mdta_gram_bwd(qkv, *cot, 1))[0]
-        out[f"mdta_gram_bwd_bf16_b16ops {tag}"] = cs.device_ms(
-            lambda: g.mdta_gram_bwd(qkv, *cot, 1, bf16_ops=True))[0]
-    for tag, b, res, ch in (("serve L1", 1, 256, 48), ("serve decoder L1", 1, 256, 96),
-                            ("serve L1 B=8", 8, 256, 48)):
-        qkv = r(b, res, res, 3 * ch).to(torch.bfloat16)
-        attn = torch.softmax(r(b, 1, ch, ch), -1)
-        out[f"attn_apply_fwd_bf16 {tag}"] = cs.device_ms(lambda: g.attn_apply_fwd(qkv, attn))[0]
-    return out
+        attn, gc = torch.softmax(r(b, 1, ch, ch), -1), r(b, res, res, ch).to(torch.bfloat16)
+        for ops in (False, True):
+            sfx = "_b16ops" if ops else ""
+            if "6" in rows:
+                calls[f"mdta_gram_bwd_bf16{sfx} {tag}"] = (
+                    lambda q=qkv, c=cot, o=ops: g.mdta_gram_bwd(q, *c, 1, bf16_ops=o))
+            if "7" in rows:
+                calls[f"attn_apply_bwd_bf16{sfx} {tag}"] = (
+                    lambda q=qkv, a=attn, x=gc, o=ops: g.attn_apply_bwd(q, a, x, bf16_ops=o))
+    return {key: [cs.device_ms(fn)[0], bwd_times.stage_split(cs, fn).get("by_launch")]
+            for key, fn in calls.items()}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", nargs="+", default=list(ROW_SOURCES), choices=list(ROW_SOURCES))
     ap.add_argument("--variants", nargs="+", default=list(CUTS), choices=list(CUTS))
     ap.add_argument("--time", help=argparse.SUPPRESS)  # a child: time this tree
     args = ap.parse_args()
     if args.time:
-        print(json.dumps({"device_ms": time_tree(Path(args.time))}))
+        print(json.dumps({"device_ms": time_tree(Path(args.time), args.rows)}))
         return 0
-    variants = list(dict.fromkeys(["full", *args.variants]))
-    roots = {v: make_tree(v) for v in variants}
+    # a variant is timed for the rows it cuts (full for all)
+    variants = {v: [r for r in args.rows if v == "full" or cuts(v, [r])]
+                for v in dict.fromkeys(["full", *args.variants])}
+    variants = {v: rows for v, rows in variants.items() if rows}
+    roots = {v: make_tree(v, rows) for v, rows in variants.items()}
     builds = [subprocess.Popen([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
                                 " from rcot_torch.kernels import build; build.build()", str(root)],
                                cwd=HERE) for root in roots.values()]
     if any(p.wait() for p in builds):
         return 1
     for v in [*variants, "full"]:
-        run = subprocess.run([sys.executable, __file__, "--time", str(roots[v])], cwd=HERE,
-                             capture_output=True, text=True)
+        run = subprocess.run([sys.executable, __file__, "--time", str(roots[v]),
+                              "--rows", *variants[v]], cwd=HERE, capture_output=True, text=True)
         if run.returncode != 0:
             print(run.stderr[-4000:], file=sys.stderr)
             return 1

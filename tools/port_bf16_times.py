@@ -31,14 +31,14 @@ Last come the sums per serving forward and per bf16 training iteration
 off/mdta/dwconv forward and tail/mdta/dwconv iteration) and the root and
 the card's name and power limit.
 
-With --redesigned it times only the bf16 forms of rows 4 and 6 that their
-Hopper redesign replaced (attn_apply_fwd_bf16 at serve L1 and decoder L1,
-B = 1; mdta_gram_bwd_bf16 and mdta_gram_bwd_bf16_b16ops at train L1 and
-decoder L1, B = 3): device ms, event ms and the kernels one call puts on
-the card, with chip_smoke.bf16_gram_yardstick's bound and library call
-(bmm on bf16 heads, device ms) for each, on seeded inputs, one JSON line.
-chip_smoke.py --root runs it on the parent and on this tree in turns
-(parent, this, this, parent).
+With --redesigned it times only the bf16 forms of rows 3 and 7 that their
+latest Hopper redesign replaced (mdta_gram_fwd_bf16 at serve L1 and
+decoder L1, B = 1; attn_apply_bwd_bf16 and attn_apply_bwd_bf16_b16ops at
+train L1 and decoder L1, B = 3): device ms, event ms and the kernels one
+call puts on the card, with chip_smoke.bf16_gram_yardstick's bound and
+library call (bmm on bf16 heads, device ms) for each, on seeded inputs,
+one JSON line. chip_smoke.py --root runs it on the parent and on this tree
+in turns (parent, this, this, parent).
 """
 
 from __future__ import annotations
@@ -173,15 +173,15 @@ def opt_in(smoke, gen) -> dict:
 
 
 # the forms the redesign replaced, by the path and the levels they are timed at
-REDESIGNED = {"serve": ("attn_apply_fwd_bf16",),
-              "train": ("mdta_gram_bwd_bf16", "mdta_gram_bwd_bf16_b16ops")}
+REDESIGNED = {"serve": ("mdta_gram_fwd_bf16",),
+              "train": ("attn_apply_bwd_bf16", "attn_apply_bwd_bf16_b16ops")}
 REDESIGNED_AT = ("L1", "decoder_level1")
 
 
 def redesigned(smoke) -> dict:
     """{"<form> <path> <level>": {device_ms, device_records (kernels a
     call), ms, bound_ms, bound_by, library_device_ms}} of the bf16 forms of
-    rows 4 and 6, on inputs seeded alike in every tree; the bound and the
+    rows 3 and 7, on inputs seeded alike in every tree; the bound and the
     library call (bmm on bf16 heads) from chip_smoke.bf16_gram_yardstick."""
     torch, kg = smoke.torch, smoke.kgram
     gen = torch.Generator(device="cuda").manual_seed(19)
@@ -197,12 +197,12 @@ def redesigned(smoke) -> dict:
             ch = c // heads
             qkv = r(b, res, res, 3 * c).to(torch.bfloat16)
             attn = torch.softmax(r(b, heads, ch, ch), -1)
-            cot = [r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)]
-            yard = smoke.bf16_gram_yardstick(qkv, heads, attn=attn, dgram=cot[0])
-            calls = {"attn_apply_fwd_bf16": lambda: kg.attn_apply_fwd(qkv, attn),
-                     "mdta_gram_bwd_bf16": lambda: kg.mdta_gram_bwd(qkv, *cot, heads),
-                     "mdta_gram_bwd_bf16_b16ops": lambda: kg.mdta_gram_bwd(
-                         qkv, *cot, heads, bf16_ops=True)}
+            g = r(b, res, res, c).to(torch.bfloat16)
+            yard = smoke.bf16_gram_yardstick(qkv, heads, attn=attn, g=g)
+            calls = {"mdta_gram_fwd_bf16": lambda: kg.mdta_gram_fwd(qkv, heads),
+                     "attn_apply_bwd_bf16": lambda: kg.attn_apply_bwd(qkv, attn, g),
+                     "attn_apply_bwd_bf16_b16ops": lambda: kg.attn_apply_bwd(
+                         qkv, attn, g, bf16_ops=True)}
             for name in REDESIGNED[path]:
                 fn, (lib, flops, nbytes) = calls[name], yard[name]
                 bound_ms, by = smoke.bound_at(flops, nbytes)

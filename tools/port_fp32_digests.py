@@ -7,9 +7,10 @@ bf16 forms of rows 1-4 (rows 1-2 share row 11's depthwise template, rows
 3-4 at a head of 192 channels tc.cuh's slot sum) and of bf16 training's
 rows 5-9 (`opt_in_and_bf16`); and bf16 serving's outputs in every
 composition of the fused tier, a full-width T_net from a seed at 128^2
-(`bf16_serving`); and rows 3-4 and 6 on a bf16 qkv at odd widths, a ragged
-pixel count and two channel blocks, row 6 in both operand policies
-(`bf16_mdta_edges`).
+(`bf16_serving`); and rows 3-4, 6 and 7 on a bf16 qkv at odd widths, a
+ragged pixel count, the main path's heads and two channel blocks, rows 6
+and 7 in both operand policies, and row 7 in both at train L1 and decoder
+L1 (`bf16_mdta_edges`).
 
     python tools/port_fp32_digests.py [--root DIR]
 
@@ -84,20 +85,29 @@ def opt_in_and_bf16(smoke) -> dict:
 # 4-byte), a ragged pixel count, the main path's heads, two channel blocks
 BF16_MDTA_EDGES = [(2, 9, 13, 3, 25), (2, 17, 19, 2, 26), (1, 250, 321, 1, 48),
                    (3, 64, 64, 1, 96), (1, 64, 64, 1, 192)]
+# row 7 in bf16 also at train L1 and decoder L1 (128^2, B = 3)
+BF16_APPLY_BWD_SHAPES = [(3, 128, 128, 1, 48), (3, 128, 128, 1, 96)]
 
 
 def bf16_mdta_edges(smoke, r) -> dict:
-    """SHA-256 of rows 3-4 and 6 on a bf16 qkv (the Gram backward in both
-    operand policies) at BF16_MDTA_EDGES."""
-    kg = smoke.kgram
+    """SHA-256 of rows 3-4, 6 and 7 on a bf16 qkv (the backward forms in
+    both operand policies) at BF16_MDTA_EDGES, and of row 7 in both at
+    BF16_APPLY_BWD_SHAPES."""
+    kg, bf16 = smoke.kgram, smoke.torch.bfloat16
     out = {}
     for b, h, w, heads, ch in BF16_MDTA_EDGES:
-        qkv = r(b, h, w, 3 * heads * ch).to(smoke.torch.bfloat16)
+        qkv = r(b, h, w, 3 * heads * ch).to(bf16)
         attn = smoke.torch.softmax(r(b, heads, ch, ch), -1)
         cot = [r(b, heads, ch, ch), r(b, heads, ch), r(b, heads, ch)]
         out[f"rows 3-4, 6 bf16 {(b, h, w, heads, ch)}"] = _hash(
             *kg.mdta_gram_fwd(qkv, heads), kg.attn_apply_fwd(qkv, attn),
             kg.mdta_gram_bwd(qkv, *cot, heads), kg.mdta_gram_bwd(qkv, *cot, heads, bf16_ops=True))
+    for b, h, w, heads, ch in BF16_MDTA_EDGES + BF16_APPLY_BWD_SHAPES:
+        qkv = r(b, h, w, 3 * heads * ch).to(bf16)
+        attn = smoke.torch.softmax(r(b, heads, ch, ch), -1)
+        g = r(b, h, w, heads * ch).to(bf16)
+        out[f"row 7 bf16 {(b, h, w, heads, ch)}"] = _hash(
+            *kg.attn_apply_bwd(qkv, attn, g), *kg.attn_apply_bwd(qkv, attn, g, bf16_ops=True))
     return out
 
 
