@@ -94,7 +94,9 @@ Phases (any failure exits non-zero; nothing is caught):
      each level, the decoder's and the refinement's), rows 6-7 also at the
      wide heads of phase 3e, each bitwise against a second call, and timed
      as phase 5 times the others at BF16_TRAIN_TIMED_SHAPES, before the
-     training phases;
+     training phases; then one bf16 "tail" iteration at 128^2, B = 3 under
+     torch.profiler: each form of its path launched 94 times and no
+     widening or rounding pass (CAST_KERNEL) on the card;
   5d. rows 10 and 11 in bf16 (mdta_attend_bf16, dwconv3x3_bf16,
      dwconv3x3_dx_bf16, dwconv3x3_dtaps_bf16) against their plain bf16
      twins at every serving and training block shape, the depthwise forms
@@ -212,9 +214,11 @@ Phases (any failure exits non-zero; nothing is caught):
      equal: each fp32 kernel's outputs, rows 1-9's bf16 forms, bf16
      serving's outputs in full/head/tail/off in the fused tier and rows 3-4,
      6 and 7 on bf16 at odd widths, a ragged image and two channel blocks
-     (rows 6 and 7 in both operand policies), bit for bit; then the bf16
-     forms of rows 3 and 7 that their Hopper redesign replaced, device ms
-     and kernels a call, on PARENT and on this checkout in turns
+     (rows 6 and 7 in both operand policies), rows 5 (tail) and 9 (qkv)
+     in bf16 in both operand policies, also at odd shapes with a cotangent
+     2 bytes off, bit for bit; then the bf16 forms that their latest
+     Hopper redesign replaced (rows 5's tail and 9's qkv, both policies),
+     device ms and kernels a call, on PARENT and on this checkout in turns
      (tools/port_bf16_times.py --redesigned).
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
@@ -1446,10 +1450,13 @@ def bf16_gram_yardstick(qkv, heads, attn=None, dgram=None, g=None) -> dict:
     bf16 qkv (B, H, W, 3C): {name: (library call, {rate: flops}, bytes)}.
     Rows 3 and 4's products run on bf16 operands (row 3's squares at the
     fp32 rate); the backward forms' products on tf32 fragments of bf16
-    values (a bf16 value's low tf32 part is zero, so its terms are left
-    out): row 6's 3xTF32 form two a step, its ops16 form one, its 2 q dnq
-    and 2 k dnk at the fp32 rate; row 7's dv two a step in 3xTF32 (attn is
-    fp32), dattn one (both operands bf16), its ops16 form one in both. Bytes:
+    values, counted at the least the card needs: a product of two bf16
+    operands at the bf16 rate, one of a bf16 and an fp32 operand as two TF32
+    terms (the bf16 side's low half is zero) at the TF32 rate. Row 6's
+    3xTF32 form (G's cotangent fp32) two TF32 terms, its ops16 form (the
+    cotangent rounded) bf16, its 2 q dnq and 2 k dnk at the fp32 rate; row
+    7's dv two TF32 terms in 3xTF32 (attn is fp32), dattn bf16 (both
+    operands bf16), its ops16 form bf16 in both. Bytes:
     each input read once, each output written once. The library call is bmm
     on bf16 heads of the same operands, transposed outside it."""
     b, res, _, m = qkv.shape
@@ -1471,15 +1478,16 @@ def bf16_gram_yardstick(qkv, heads, attn=None, dgram=None, g=None) -> dict:
     if dgram is not None:
         qn, dg = third(qkv, 0, False), dgram.reshape(bh, ch, ch).to(BF16)
         mm, nbytes = b * n * 4 * c * ch, 2 * 4 * b * n * c + 4 * bh * (ch * ch + 2 * ch)
-        for name, terms in (("mdta_gram_bwd_bf16", 2), ("mdta_gram_bwd_bf16_b16ops", 1)):
+        for name, prods in (("mdta_gram_bwd_bf16", {"tf32": 2 * mm}),
+                            ("mdta_gram_bwd_bf16_b16ops", {"bf16": mm})):
             out[name] = (lambda: (torch.bmm(kn, dg), torch.bmm(qn, dg)),
-                         {"tf32": terms * mm, "fp32": b * n * 4 * c}, nbytes)
+                         {**prods, "fp32": b * n * 4 * c}, nbytes)
     if attn is not None and g is not None:
         vn, gn, gt = third(qkv, 2, False), third(g, 0, False), third(g, 0, True)
         mm, nbytes = b * n * 2 * c * ch, 2 * 3 * b * n * c + 4 * 2 * bh * ch * ch
-        for name, terms in (("attn_apply_bwd_bf16", 3), ("attn_apply_bwd_bf16_b16ops", 2)):
-            out[name] = (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)), {"tf32": terms * mm},
-                         nbytes)
+        for name, prods in (("attn_apply_bwd_bf16", {"tf32": 2 * mm, "bf16": mm}),
+                            ("attn_apply_bwd_bf16_b16ops", {"bf16": 2 * mm})):
+            out[name] = (lambda: (torch.bmm(gn, at), torch.bmm(gt, vn)), prods, nbytes)
     return out
 
 
@@ -1907,14 +1915,56 @@ def phase_bf16_train_kernels(gen) -> dict:
     return errs
 
 
+def bf16_bwd_work(b, n, c, ops16=False) -> dict:
+    """{name: ({rate: flops}, bytes)} of rows 5 and 9's bf16 backward forms,
+    both configurations, on b images of n pixels at C channels (ops16: their
+    bf16-operand forms), at the least the card needs for each product,
+    whatever the kernel runs: the recompute's products and every product of
+    two bf16 operands at the bf16 tensor-core rate (the tail's and the
+    GDFN's dgate = g W_out; under ops16 every backward product, whose fp32
+    side is rounded to bf16); a product of a bf16 and an fp32 operand (du,
+    da, dx and the weight grads in 3xTF32) as the two TF32 terms it needs,
+    the bf16 side's low half being zero, at the TF32 rate (the head and the
+    GDFN run three on widened copies); the stencils, the gate and the
+    LayerNorm at the fp32 rate. Bytes: bf16 activations and weights, fp32
+    LayerNorm weights, each input read once, each output written once."""
+    m, hid = 3 * c, int(c * 2.66)
+    w_qkv = 2 * (m * c + 9 * m)
+    w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
+    w_gdfn = 2 * (3 * hid * c + 18 * hid)
+
+    def rates(bf16, mixed, fp32):  # per pixel: bf16 x bf16, bf16 x fp32, CUDA cores
+        if ops16:
+            return {"bf16": b * n * (bf16 + mixed), "fp32": b * n * fp32}
+        return {"bf16": b * n * bf16, "tf32": 2 * b * n * mixed, "fp32": b * n * fp32}
+    return {
+        # the recompute's h; dx and dW_in; the rotated stencil and dtaps
+        "conv1x1_dw_bwd_bf16": (rates(2 * c * m, 4 * c * m, 36 * m),
+                                2 * b * n * (2 * c + m) + 2 * w_qkv),
+        # the recompute's t and h, dgate; dW_out, du, dW_in, da, dW_proj;
+        # the stencils, the gate and the LayerNorm
+        "block_tail_bwd_bf16": (rates(2 * c * c + 6 * c * hid, 10 * c * hid + 4 * c * c,
+                                      128 * hid + 18 * c),
+                                2 * 5 * b * n * c + 2 * w_tail),
+        # the head: the recompute's h; du, dW_qkv; the rotated stencil,
+        # dtaps and the LayerNorm's backward
+        "block_head_bwd_bf16": (rates(2 * c * m, 4 * c * m, 36 * m + 12 * c),
+                                2 * b * n * (2 * c + m) + 2 * w_qkv + 4 * 4 * c),
+        # the GDFN: h's product and dgate; dW_out, dx, dW_in; the three
+        # stencils and the gate's derivative
+        "gdfn_fused_bwd_bf16": (rates(6 * hid * c, 10 * hid * c, 128 * hid),
+                                2 * 3 * b * n * c + 2 * w_gdfn),
+    }
+
+
 def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     """The five bf16 training forms at one block shape, as bf16_timings
     times the serving ones: the bound takes bf16 activations' bytes (fp32
     for the LN weights, G's cotangents, attn and dattn), the bf16 products of
-    a recompute at the bf16 tensor-core rate and every other product,
-    stencil and sum at the fp32 rate (the backward products run 3xTF32, as
-    JAX takes them in fp32), but rows 6 and 7's, which bf16_gram_yardstick
-    counts at the TF32 rate; the library for rows 6-7 is bmm on bf16 heads."""
+    a recompute at the bf16 tensor-core rate, the backward products at the
+    least the card needs for their operands' types (bf16_bwd_work; rows 6 and
+    7's by bf16_gram_yardstick) and every stencil and sum at the fp32 rate;
+    the library for rows 6-7 is bmm on bf16 heads."""
     n = res * res
     p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
     m, hid, ch = 3 * c, int(c * 2.66), c // heads
@@ -1928,33 +1978,20 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     dgram = r(b, heads, ch, ch)
     yard = bf16_gram_yardstick(qkv, heads, attn=attn, dgram=dgram, g=g_c)
     w_qkv = 2 * (m * c + 9 * m)
-    w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
     w_gdfn = 2 * (3 * hid * c + 18 * hid)
+    work = bf16_bwd_work(b, n, c)
     rows = {  # library, flops by rate, bytes
         "conv1x1_dw_bf16": (None, {"bf16": b * n * 2 * c * m, "fp32": b * n * 18 * m},
                             2 * b * n * (c + m) + w_qkv),
-        "conv1x1_dw_bwd_bf16": (None, {"bf16": b * n * 2 * c * m,
-                                       "fp32": b * n * (4 * c * m + 36 * m)},
-                                2 * b * n * (2 * c + m) + 2 * w_qkv),
-        "block_tail_bwd_bf16": (None, {"bf16": b * n * (2 * c * c + 4 * c * hid),
-                                       "fp32": b * n * (4 * c * c + 12 * c * hid + 128 * hid
-                                                        + 18 * c)},
-                                2 * 5 * b * n * c + 2 * w_tail),
+        "conv1x1_dw_bwd_bf16": (None, *work["conv1x1_dw_bwd_bf16"]),
+        "block_tail_bwd_bf16": (None, *work["block_tail_bwd_bf16"]),
         "mdta_gram_bwd_bf16": yard["mdta_gram_bwd_bf16"],
         "attn_apply_bwd_bf16": yard["attn_apply_bwd_bf16"],
-        # the head's backward: the recompute's h product in bf16; du, dW_qkv,
-        # the rotated stencil, dtaps and the LayerNorm's backward in fp32
-        "block_head_bwd_bf16": (None, {"bf16": b * n * 2 * c * m,
-                                       "fp32": b * n * (4 * c * m + 36 * m + 12 * c)},
-                                2 * b * n * (2 * c + m) + 2 * w_qkv + 4 * 4 * c),
+        "block_head_bwd_bf16": (None, *work["block_head_bwd_bf16"]),
         # the GDFN forward: both products bf16, the stencil and the gate fp32
         "gdfn_fused_bf16": (None, {"bf16": b * n * 6 * hid * c, "fp32": b * n * 46 * hid},
                             2 * 2 * b * n * c + w_gdfn),
-        # its backward: h's product in bf16; dgate, dW_out, dx, dW_in, the
-        # three stencils and the gate's derivative in fp32
-        "gdfn_fused_bwd_bf16": (None, {"bf16": b * n * 4 * hid * c,
-                                       "fp32": b * n * (12 * hid * c + 128 * hid)},
-                                2 * 3 * b * n * c + 2 * w_gdfn),
+        "gdfn_fused_bwd_bf16": (None, *work["gdfn_fused_bwd_bf16"]),
     }
     out = {}
     for name, (lib, flops, nbytes) in rows.items():
@@ -1967,6 +2004,47 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
                          bound_ms=bound_ms, bound_by=by,
                          library_ms=cuda_ms(lib) if lib else None,
                          library_device_ms=device_ms(lib)[0] if lib else None)
+    return out
+
+
+# the name of csrc/cast.cuh's kernel, the widening and rounding passes
+CAST_KERNEL = "cast_kernel"
+
+
+def phase_bf16_tail_profile(gen, card) -> dict:
+    """One bf16 "tail" minimax iteration at 128^2, B = 3 (cli.train --dtype
+    bfloat16's default path) under torch.profiler, after a warm one: it
+    launches each form of BF16_TRAIN_PATH 94 times and puts no widening or
+    rounding pass (CAST_KERNEL) on the card: its bf16 backward forms run on
+    bf16 tiles. Run before the training phases, after which the profiler
+    loses device records."""
+    cfg = Config(train=TrainConfig(dtype="bfloat16"))
+    state = create_train_state(cfg, seed=0, device="cuda")
+    batches, alphas = bf16_batches(*train_inputs(gen, cfg))
+    iteration = make_train_iteration(cfg)
+    lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
+    state, _ = iteration(state, batches[0], alphas[0], True, lr)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, metrics = iteration(state, batches[1], alphas[1], False, lr)
+        torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check_launches("bf16 tail profiled iteration", launches,
+                   {name: FORWARD_LAUNCHES for name in BF16_TRAIN_PATH})
+    records = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    casts = sum(CAST_KERNEL in e.name for e in records)
+    ours = sum(any(k in e.name for k in ("mm_kernel", "dwconv3x3", "ln_bwd", "gram"))
+               for e in records)
+    if not ours or casts:
+        raise AssertionError(f"bf16 tail iteration: {len(records)} device records, {ours} of "
+                             f"the port's kernels, {casts} {CAST_KERNEL}")
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"bf16 tail profiled iteration: metrics not finite: {metrics}")
+    out = dict(device_records=len(records), port_kernel_records=ours, cast_records=casts,
+               device_ms=sum(e.time_range.elapsed_us() for e in records) / 1e3, card=card)
+    log(f"bf16 tail iteration profiled: {json.dumps(out)}")
     return out
 
 
@@ -2393,8 +2471,8 @@ def b16ops_timings(gen, label, res, c, heads, b) -> dict:
     bf16 tensor-core rate (bf16 operands), its recompute's products (bf16
     in the bf16 forms, fp32 in the fp32 ones), stencils, gate and LayerNorm
     at the fp32 rate; the library for rows 6-7 on bf16 is bmm on bf16 heads
-    of the same operands (bf16_gram_yardstick, their one TF32 product a step
-    at the TF32 rate), none for rows 5 and 9 and for rows 6-7 on fp32, whose
+    of the same operands (bf16_gram_yardstick, their products at the bf16
+    rate too), none for rows 5 and 9 and for rows 6-7 on fp32, whose
     operands bmm takes only cast (those casts with the two bmm are timed as
     cast_library_device_ms)."""
     n = res * res
@@ -3887,7 +3965,7 @@ def phase_parent_bits(parent: str) -> dict:
 
 
 def redesigned_turns(here: Path, roots: dict) -> dict:
-    """The bf16 forms of rows 3 and 7 that their Hopper redesign replaced
+    """The bf16 forms that their latest Hopper redesign replaced
     (tools/port_bf16_times.py --redesigned), timed on the parent's tree and
     on this one in turns (parent, this, this, parent), each run in a process
     that imports its tree's rcot_torch (the kernels built by phase 9's
@@ -4022,6 +4100,8 @@ def main(argv=None) -> int:
     bf16_train_times = {label: bf16_train_timings(gen_bf16, label, res, c, heads, TRAIN_B)
                         for label, res, c, heads in TRAIN_SHAPES
                         if label in BF16_TRAIN_TIMED_SHAPES}
+    bf16_tail_profile = phase_bf16_tail_profile(torch.Generator(device="cuda").manual_seed(16),
+                                                card)
     lap('bf16 training kernels')
     # the bf16-operand forms (--bwd-bf16), on inputs of their own, checked
     # and timed before the training phases too
@@ -4221,7 +4301,8 @@ def main(argv=None) -> int:
                         "cli": {k: v for k, v in bf16_cli.items() if k != "launches"},
                         "resume_full": {k: v for k, v in bf16_resume.items()
                                         if k != "launches"},
-                        "kernel_errs": bf16_train_errs},
+                        "kernel_errs": bf16_train_errs,
+                        "tail_iteration_profiled": bf16_tail_profile},
                     "bf16_opt_in": {
                         "serve_off_mdta_dwconv_256px": bf16_serve_opt,
                         "train_tail_mdta_dwconv_128px_b3": {

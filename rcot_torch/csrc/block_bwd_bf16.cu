@@ -28,30 +28,46 @@
 //
 // Bound on an H100 SXM: as block_bwd.cu's, bound by its operations (the
 // tail 2 N (3 C^2 + 8 h C) flops of products, the head 2 N 2 * 3C C, the
-// recompute's part in bf16 on the tensor cores, the rest fp32), with half
-// its input bytes (chip_smoke.py states the bound).
+// recompute's part in bf16 on the tensor cores; the tail's backward
+// products as the tf32 terms they run, the head's as 3xTF32; the rest
+// fp32), with half its input bytes (chip_smoke.py states the bound).
 //
 // Design. The tail's recompute is block_fwd_bf16.cu's tail forward up to
 // conv: mm.cuh's bf16 products (mma.sync m16n8k16, fp32 sums, the
 // epilogues rounding as JAX rounds: t = bf16(x + bf16(acc))), ln_fwd on
 // bf16, row 11's depthwise kernel bf16 into fp32 (dwconv.cuh conv_bf16);
 // the head's is block_fwd_bf16.cu's head up to h (ln_fwd, the bf16
-// product). One launch then widens every operand of the backward into
-// fp32 workspaces (cast.cuh), and the rest is block_bwd.cu's backward of
-// the same configuration on them (the 3xTF32 products with dgate's gate
-// epilogue, the rotated depthwise and dtaps, ln_bwd.cuh, the pixel sums),
-// every sum in a fixed order; one last launch rounds the bf16 outputs. So
-// the backward starts from the rounded u and h, as JAX's does. No atomics
-// and no memsets: two calls on the same inputs give the same bits. The
-// plan is ops/block.py block_bwd_plan's on the fp32 workspaces, and for
-// the bf16 recompute a second: the tail's five ints (bf16 a copy of the
-// C-wide operands, and the depthwise forward's (vec, cv, tc, rows), bf16
-// into fp32), the head's one int (the copy width).
+// product). So the backward starts from the rounded u and h, as JAX's
+// does.
+//
+// The tail's backward is block_bwd.cu's on the bf16 tensors themselves:
+// its 1x1 products and pixel sums are mm.cuh's tf32 path on bf16 tiles
+// (product with T = float, pixel_sum: a bf16 operand staged by cp.async at half the
+// bytes, each value widened into its tf32 fragment, the 3xTF32 terms of its
+// zero low half left out: dgate = g W_out one mma.sync a step, the rest
+// two), the rotated depthwise of the fp32 dconv on the bf16 taps
+// (conv_taps16), dtaps of the bf16 h with dconv (dtaps_16) on the fp32
+// plan's tiles, and ln_bwd.cuh on the bf16 t and residual g, writing the
+// fp32 dt for da and dW_proj and the bf16 dx in the same launch; each bf16
+// output (da, dW_out, dW_in, dW_proj, ddw, dx) is rounded once where it is
+// written, by an epilogue or after a fixed-order sum. Every sum keeps the
+// fp32 design's order and ranges, and every value the fp32 design took
+// widened is exact, so the outputs are the bits of that design on the
+// widened operands, rounded once: no widening or rounding launch, no fp32
+// copy of an operand, two launches fewer (eighteen at the level-1 shapes).
+// The head's backward still widens every operand into fp32 workspaces in
+// one launch (cast.cuh), runs block_bwd.cu's head on them and rounds its
+// bf16 outputs in one last launch. No atomics and no memsets: two calls
+// on the same inputs give the same bits. The plan is ops/block.py
+// block_bwd_plan's, the fp32 design's (copy widths in floats of the fp32
+// operands), and a second for the bf16 ones: the tail's seven ints (bf16 a
+// copy of the C-wide operands, of g and of W_out's rows, and the depthwise
+// forward's (vec, cv, tc, rows), bf16 into fp32), the head's one int.
 //
 // bf16 operands (RCOT_BWD_BF16's "block" tier, the `ops16` argument): the
-// fp32 design's backward products take mm.cuh's OPS16 policy, as in
-// block_bwd.cu; the bf16 values widened into them are exact in bf16, so
-// only the fp32 intermediates (dh, dt, the gate) round.
+// backward products take mm.cuh's OPS16 policy, as in block_bwd.cu; a bf16
+// value is exact in bf16, so only the fp32 intermediates (dh, dt, the gate)
+// round, and a bf16 tile's fragments are its values widened.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,9 +99,10 @@ enum Plan {
   kPlanInts = kDwTaps + 4
 };
 enum Prod { kProdT, kProdH, kProdDu, kProdDa };
-// The recompute's plan: bf16 a copy of the C-wide bf16 operands (a, x,
-// W_proj, u, W_in), and the bf16 depthwise forward's (vec, cv, tc, rows)
-enum Plan16 { kVecC16, kDw16, kPlan16Ints = kDw16 + 4 };
+// The tail's bf16 plan: bf16 a copy of the C-wide bf16 operands (a, W_proj,
+// u, W_in), of g and of W_out's rows, and the bf16 depthwise forward's
+// (vec, cv, tc, rows) into fp32 conv
+enum Plan16 { kVecC16, kVecG16, kVecH16, kDw16, kPlan16Ints = kDw16 + 4 };
 
 }  // namespace
 
@@ -99,15 +116,12 @@ int block_tail_bwd_bf16(const bf16* x, const bf16* a, const bf16* w_proj, const 
                         const bf16* g, bf16* dx, bf16* da, bf16* dw_proj, float* dln_w,
                         float* dln_b, bf16* dw_in, bf16* ddw, bf16* dw_out, bf16* tb, bf16* ub,
                         bf16* hb, float* stats, float* conv_dh, float* dconv, float* gate,
-                        float* du, float* t32, float* u32, float* h32, float* g32, float* a32,
-                        float* dx32, float* da32, float* wp32, float* win32, float* dwk32,
-                        float* wout32, float* dwp32, float* dwin32, float* ddw32, float* dwout32,
-                        float* sums, const int* plan, const int* plan16, int B, int H, int W, int C,
-                        int hid, void* stream) {
+                        float* du, float* dt, float* sums, const int* plan, const int* plan16,
+                        int B, int H, int W, int C, int hid, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * H * W;
   const int m2 = 2 * hid, vc = plan[kVecC], vh = plan[kVecH], vm = plan[kVecM];
-  const int vb = plan16[kVecC16];
+  const int vb = plan16[kVecC16], vg = plan16[kVecG16], vw = plan16[kVecH16];
   // recompute in bf16, rounding as the forward: t = bf16(x + bf16(a @ W_proj^T)),
   // u = bf16(LN2(t)), h = bf16(u @ W_in^T), conv = dw3x3(h) in fp32
   RCOT_TRY((product<false, kEpiAdd>(a, C, vb, w_proj, vb, tb, C, n, SPLIT(kProdT), sums, st, x)));
@@ -115,47 +129,29 @@ int block_tail_bwd_bf16(const bf16* x, const bf16* a, const bf16* w_proj, const 
   RCOT_TRY((product<false, kEpiStore>(ub, C, vb, w_in, vb, hb, m2, n, SPLIT(kProdH), sums, st)));
   RCOT_TRY(rcot_dwconv::conv_bf16(hb, dwk, conv_dh, false, B, H, W, m2, plan16[kDw16],
                                   plan16[kDw16 + 1], plan16[kDw16 + 2], plan16[kDw16 + 3], st));
-  // every operand of the backward, widened to fp32
-  Widen up;
-  up.add(tb, C, t32, C, n, C);
-  up.add(ub, C, u32, C, n, C);
-  up.add(hb, m2, h32, m2, n, m2);
-  up.add(g, C, g32, C, n, C);
-  up.add(a, C, a32, C, n, C);
-  up.add(w_proj, C, wp32, C, C, C);
-  up.add(w_in, C, win32, C, m2, C);
-  up.add(dwk, 9, dwk32, 9, m2, 9);
-  up.add(w_out, hid, wout32, hid, C, hid);
-  RCOT_TRY(up.run(st));
-  // W_out: dgate = g @ W_out, its epilogue the gate's backward (dconv and
-  // the fp32 gate from conv); dW_out = g^T gate
-  RCOT_TRY((product<true, kEpiGate, float, OPS16>(g32, C, vc, wout32, vh, dconv, hid, n, 1, 0,
-                                                  nullptr, st, conv_dh, gate)));
-  RCOT_TRY(pixel_sum<OPS16>(g32, vc, gate, vh, dwout32, sums, C, hid, n, plan[kSumPer0], st));
-  // depthwise backward (conv is dead now: its buffer takes dh)
-  RCOT_TRY(rcot_dwconv::conv(dconv, dwk32, conv_dh, B, H, W, m2, plan[kDwRot], plan[kDwRot + 1],
-                             plan[kDwRot + 2], plan[kDwRot + 3], true, st));
-  RCOT_TRY(rcot_dwconv::dtaps(h32, dconv, sums, ddw32, B, H, W, m2, plan[kDwTaps],
-                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
-  // W_in: du = dh @ W_in, dW_in = dh^T u
-  RCOT_TRY((product<true, kEpiStore, float, OPS16>(conv_dh, m2, vm, win32, vc, du, C, n,
-                                                   SPLIT(kProdDu), sums, st)));
-  RCOT_TRY(pixel_sum<OPS16>(conv_dh, vm, u32, vc, dwin32, sums, m2, C, n, plan[kSumPer1], st));
-  // LN2 and the residual: dt = LN-VJP(du) at t, plus g
-  RCOT_TRY(ln_bwd(t32, du, stats, ln_w, ln_b, g32, dx32, dln_w, dln_b, sums, n, C, plan[kLnPer],
-                  st));
-  // W_proj: da = dt @ W_proj, dW_proj = dt^T a
-  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dx32, C, vc, wp32, vc, da32, C, n,
-                                                   SPLIT(kProdDa), sums, st)));
-  RCOT_TRY(pixel_sum<OPS16>(dx32, vc, a32, vc, dwp32, sums, C, C, n, plan[kSumPer2], st));
-  Narrow down;
-  down.add(dx32, C, dx, C, n, C);
-  down.add(da32, C, da, C, n, C);
-  down.add(dwp32, C, dw_proj, C, C, C);
-  down.add(dwin32, C, dw_in, C, m2, C);
-  down.add(ddw32, 9, ddw, 9, m2, 9);
-  down.add(dwout32, hid, dw_out, hid, C, hid);
-  return down.run(st);
+  // W_out: dgate = g @ W_out on bf16 tiles, its epilogue the gate's backward
+  // (dconv and the fp32 gate from conv); dW_out = g^T gate, rounded
+  RCOT_TRY((product<true, kEpiGate, float, OPS16>(g, C, vg, w_out, vw, dconv, hid, n, 1, 0, nullptr,
+                                                st, conv_dh, gate)));
+  RCOT_TRY(pixel_sum<OPS16>(g, vg, gate, vh, dw_out, sums, C, hid, n, plan[kSumPer0], st));
+  // depthwise backward on the bf16 taps and h (conv is dead now: its
+  // buffer takes dh); ddw rounded in its reduce
+  RCOT_TRY(rcot_dwconv::conv_taps16(dconv, dwk, conv_dh, B, H, W, m2, plan[kDwRot],
+                                    plan[kDwRot + 1], plan[kDwRot + 2], plan[kDwRot + 3], true,
+                                    st));
+  RCOT_TRY(rcot_dwconv::dtaps_16(hb, dconv, false, sums, ddw, B, H, W, m2, plan[kDwTaps],
+                                 plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
+  // W_in: du = dh @ W_in, dW_in = dh^T u, rounded
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(conv_dh, m2, vm, w_in, vb, du, C, n,
+                                                 SPLIT(kProdDu), sums, st)));
+  RCOT_TRY(pixel_sum<OPS16>(conv_dh, vm, ub, vb, dw_in, sums, m2, C, n, plan[kSumPer1], st));
+  // LN2 and the residual: dt = LN-VJP(du) at t, plus g; dx = bf16(dt)
+  RCOT_TRY(ln_bwd(tb, du, stats, ln_w, ln_b, g, dt, dln_w, dln_b, sums, n, C, plan[kLnPer], st,
+                  dx));
+  // W_proj: da = bf16(dt @ W_proj), dW_proj = dt^T a, rounded
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dt, C, vc, w_proj, vb, da, C, n, SPLIT(kProdDa),
+                                                 sums, st)));
+  return pixel_sum<OPS16>(dt, vc, a, vb, dw_proj, sums, C, C, n, plan[kSumPer2], st);
 }
 
 template <bool OPS16>
@@ -209,26 +205,19 @@ extern "C" {
 // fp32; ln_b null for BiasFree). Outputs dx, da (B,H,W,C), dw_proj (C,C),
 // dw_in (2h,C), ddw (2h,3,3), dw_out (C,h), bf16; dln_w, dln_b (C, fp32;
 // null with ln_b). Workspace: tb, ub (N,C), hb (N,2h) bf16; stats (2N),
-// conv_dh, dconv (N,2h), gate (N,h), du (N,C), t32, u32 (N,C), h32 (N,2h),
-// g32, a32, dx32, da32 (N,C), wp32 (C,C), win32 (2h,C), dwk32 (2h,9),
-// wout32 (C,h), dwp32 (C,C), dwin32 (2h,C), ddw32 (2h,9), dwout32 (C,h),
-// sums (the plan's), fp32; N = B*H*W. plan: kPlanInts ints; plan16:
-// kPlan16Ints ints.
+// conv_dh, dconv (N,2h), gate (N,h), du, dt (N,C), sums (the plan's), fp32;
+// N = B*H*W. plan: kPlanInts ints; plan16: kPlan16Ints ints.
 int rcot_block_tail_bwd_bf16(const bf16* x, const bf16* a, const bf16* w_proj, const float* ln_w,
                              const float* ln_b, const bf16* w_in, const bf16* dwk,
                              const bf16* w_out, const bf16* g, bf16* dx, bf16* da, bf16* dw_proj,
                              float* dln_w, float* dln_b, bf16* dw_in, bf16* ddw, bf16* dw_out,
                              bf16* tb, bf16* ub, bf16* hb, float* stats, float* conv_dh,
-                             float* dconv, float* gate, float* du, float* t32, float* u32,
-                             float* h32, float* g32, float* a32, float* dx32, float* da32,
-                             float* wp32, float* win32, float* dwk32, float* wout32, float* dwp32,
-                             float* dwin32, float* ddw32, float* dwout32, float* sums,
+                             float* dconv, float* gate, float* du, float* dt, float* sums,
                              const int* plan, const int* plan16, int B, int H, int W, int C,
                              int hid, int ops16, void* stream) {
   return (ops16 ? block_tail_bwd_bf16<true> : block_tail_bwd_bf16<false>)(x, a, w_proj, ln_w, ln_b,
       w_in, dwk, w_out, g, dx, da, dw_proj, dln_w, dln_b, dw_in, ddw, dw_out, tb, ub, hb, stats,
-      conv_dh, dconv, gate, du, t32, u32, h32, g32, a32, dx32, da32, wp32, win32, dwk32, wout32,
-      dwp32, dwin32, ddw32, dwout32, sums, plan, plan16, B, H, W, C, hid, stream);
+      conv_dh, dconv, gate, du, dt, sums, plan, plan16, B, H, W, C, hid, stream);
 }
 
 // Block-head backward on bf16. Inputs x (B,H,W,C), w_qkv (M,C), dwk

@@ -52,6 +52,19 @@
 // which its gate reads unrounded, as the JAX kernel's) or bf16 (the head's
 // qkv). The fp32 kernels keep their code.
 //
+// bf16 training's backward forms on bf16 tiles (block_bwd_bf16.cu's tail,
+// fused_dwconv_bf16.cu's qkv): the rotated forward of an fp32 x on bf16
+// taps (rcot_dwconv::conv_taps16) or of a bf16 x on bf16 taps, into fp32
+// (conv_bf16_rot), and dtaps of a bf16 x with an fp32 or bf16 g
+// (rcot_dwconv::dtaps_16: each stage's x rows and g row staged in their own
+// types, 16-byte aligned apart where they differ), its fixed-order reduce
+// rounding dtaps to bf16 once. Each widens its bf16 values exactly as they
+// leave the ring or are staged, and takes the fp32 kernels' sums in their
+// order: dtaps's bits follow only its tile's columns (tc) and band (rows),
+// so the caller gives it the fp32 plan's. A bf16 operand that lies only
+// 2-byte aligned takes 2-byte copies (V = 1), loaded and stored by the
+// thread.
+//
 // bf16 in the standalone tier (row 11's bf16 forms: the JAX package passes
 // the depthwise weight uncast there, rcot_tpu/ops/attention.py:112-114,
 // gdfn.py:66-67, so its kernel multiplies widened bf16 values by fp32
@@ -74,13 +87,22 @@ constexpr int kStages = 4;       // depth of the forward's cp.async ring of x ro
 constexpr int kDtapsStages = 4;  // and of dtaps's ring of x and g rows
 constexpr int kMaxVectors = 32;
 
+#define RCOT_DW_TRY(expr)                    \
+  do {                                       \
+    cudaError_t err_ = (expr);               \
+    if (err_ != cudaSuccess) return err_;    \
+  } while (0)
+
 // dst <- V elements at src, or zeros where !in (the source is not read);
-// L2 fetches the 256 bytes around src
+// L2 fetches the 256 bytes around src. A single bf16 is loaded and stored
+// by the thread (the ring's barriers order it as they order the copies).
 template <int V, typename T>
 __device__ __forceinline__ void cp_async(T* dst, const T* src, bool in) {
   constexpr int B = V * (int)sizeof(T);
   const uint32_t to = smem_addr(dst);
-  if constexpr (B == 16)
+  if constexpr (B == 2)
+    *dst = in ? *src : from_f<T>(0.f);
+  else if constexpr (B == 16)
     asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src),
                  "r"(in ? 16 : 0));
   else
@@ -104,11 +126,14 @@ __device__ __forceinline__ void load_vec(float (&d)[V], const float* p) {
     d[0] = *p;
   }
 }
-// V (8, 4 or 2) bf16 as floats; pairs of bf16 lie in 32-bit words
+// V (8, 4, 2 or 1) bf16 as floats; pairs of bf16 lie in 32-bit words
 template <int V>
 __device__ __forceinline__ void load_vec(float (&d)[V], const bf16* p) {
-  static_assert(V % 2 == 0, "bf16 vectors are pairs");
-  uint32_t w[V / 2];
+  if constexpr (V == 1) {
+    d[0] = __bfloat162float(*p);
+    return;
+  }
+  uint32_t w[V / 2 > 0 ? V / 2 : 1];
   if constexpr (V == 8) {
     const uint4 v = *reinterpret_cast<const uint4*>(p);
     w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
@@ -138,11 +163,14 @@ __device__ __forceinline__ void store_vec(float* p, const float (&d)[V]) {
     *p = d[0];
   }
 }
-// V (8, 4 or 2) floats rounded to bf16, stored in pairs
+// V (8, 4, 2 or 1) floats rounded to bf16, stored in pairs
 template <int V>
 __device__ __forceinline__ void store_vec(bf16* p, const float (&d)[V]) {
-  static_assert(V % 2 == 0, "bf16 vectors are pairs");
-  uint32_t w[V / 2];
+  if constexpr (V == 1) {
+    *p = __float2bfloat16_rn(d[0]);
+    return;
+  }
+  uint32_t w[V / 2 > 0 ? V / 2 : 1];
 #pragma unroll
   for (int i = 0; i < V / 2; ++i) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(d[2 * i], d[2 * i + 1]);
@@ -155,6 +183,25 @@ __device__ __forceinline__ void store_vec(bf16* p, const float (&d)[V]) {
   else
     *reinterpret_cast<uint32_t*>(p) = w[0];
 }
+
+// Bytes of n elements of T, rounded up to 16: where the forward's taps start
+// after its ring (no rounding where cw is even in bf16, or in fp32).
+template <typename T>
+__host__ __device__ constexpr size_t ring_bytes(long long n) {
+  return ((size_t)n * sizeof(T) + 15) / 16 * 16;
+}
+
+// A ring stage of dwconv3x3_dtaps_mixed_kernel, tc columns by cw channels:
+// the tc + 2 bf16 x rows' pieces, then the fp32 g row (x_bytes on), each
+// part 16-byte aligned, so that either copy width stays aligned.
+struct MixedStage {
+  __host__ __device__ static int x_bytes(int tc, int cw) {
+    return ((tc + 2) * cw * (int)sizeof(bf16) + 15) / 16 * 16;
+  }
+  __host__ __device__ static int bytes(int tc, int cw) {
+    return x_bytes(tc, cw) + (tc * cw * (int)sizeof(float) + 15) / 16 * 16;
+  }
+};
 
 // Where a block sits and what each of its threads copies. Thread t owns
 // column x0 + t / cv and channel vector t % cv of the chunk. A staged x row
@@ -217,9 +264,9 @@ dwconv3x3_kernel(const TI* __restrict__ x, const TW* __restrict__ taps,
   const Tile<V, TI> t(H, W, C, cv, tc, rows, bands);
   const int nt = tc * cv, cw = cv * V, ld = (tc + 2) * cw;
   TI* ring = reinterpret_cast<TI*>(smem);
-  // 9 rows of cw floats, tap-major, past the ring (16-byte aligned: cw is
-  // even in bf16)
-  float* s_taps = reinterpret_cast<float*>(ring + kStages * ld);
+  // 9 rows of cw floats, tap-major, past the ring (16-byte aligned)
+  float* s_taps = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) +
+                                           ring_bytes<TI>(kStages * ld));
   const TI* img = x + (long long)t.b * H * t.row;
   const int n_in = t.n_out + 2;
 
@@ -361,12 +408,107 @@ dwconv3x3_dtaps_kernel(const TI* __restrict__ x, const TI* __restrict__ g,
   }
 }
 
+// dtaps partials of a bf16 x and an fp32 g (bf16 training's tail backward:
+// its recomputed bf16 h with the fp32 dconv), as dwconv3x3_dtaps_kernel
+// takes them: the same partials in the same order, the ring's stages
+// MixedStage's (the x rows' pieces, then 16-byte aligned the g row). A
+// kernel of its own: the one-type kernels' registers decide their plans'
+// bands (ops/dwconv.py dwconv_rows), and the bands their sums' order, so
+// they keep their code.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+dwconv3x3_dtaps_mixed_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+                             float* __restrict__ ws, int H, int W, int C, int cv, int tc,
+                             int rows, int bands) {
+  extern __shared__ __align__(16) float smem[];
+  const Tile<V, bf16> t(H, W, C, cv, tc, rows, bands);
+  char* ring = reinterpret_cast<char*>(smem);
+  const int cw = cv * V, xb = MixedStage::x_bytes(tc, cw), sb = MixedStage::bytes(tc, cw);
+  const long long img_off = (long long)t.b * H * t.row;
+  const bf16* img = x + img_off;
+  // each thread copies its own g vector: row y0 + r of the band
+  const bool own = t.active();
+  const float* g_src = g + img_off + (long long)t.y0 * t.row +
+                       (own ? (t.x0 + t.j) * C + t.c0 + t.v * V : 0);
+  const int g_slot = threadIdx.x * V;
+  const int n_in = t.n_out + 2;
+  auto stage = [&](int r) {
+    char* dst = ring + (r % kDtapsStages) * sb;
+    t.stage_x(reinterpret_cast<bf16*>(dst), img, r);
+    if (r < t.n_out)
+      cp_async<V>(reinterpret_cast<float*>(dst + xb) + g_slot, g_src + (own ? r * t.row : 0),
+                  own);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kDtapsStages - 1; ++s) {
+    if (s < n_in) stage(s);
+    cp_commit();
+  }
+  float acc[3][3][V], gp[V], g0[V], gm[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    g0[e] = gm[e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) acc[k / 3][k % 3][e] = 0.f;
+  }
+  for (int r = 0; r < n_in; ++r) {
+    cp_wait<kDtapsStages - 2>();
+    __syncthreads();
+    if (r + kDtapsStages - 1 < n_in) stage(r + kDtapsStages - 1);
+    cp_commit();
+    const char* slot = ring + (r % kDtapsStages) * sb;
+    const bf16* s = reinterpret_cast<const bf16*>(slot) + (t.j * cv + t.v) * V;
+    float xv[3][V];
+    load_vec<V>(xv[0], s);
+    load_vec<V>(xv[1], s + cw);
+    load_vec<V>(xv[2], s + 2 * cw);
+    if (r < t.n_out) {
+      load_vec<V>(gp, reinterpret_cast<const float*>(slot + xb) + g_slot);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) gp[e] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        acc[0][k][e] = fmaf(gp[e], xv[k][e], acc[0][k][e]);
+        acc[1][k][e] = fmaf(g0[e], xv[k][e], acc[1][k][e]);
+        acc[2][k][e] = fmaf(gm[e], xv[k][e], acc[2][k][e]);
+      }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      gm[e] = g0[e];
+      g0[e] = gp[e];
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it becomes red[tc][9 cw]
+  float* red = smem + t.j * 9 * cw + t.v * V * 9;
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+#pragma unroll
+    for (int k = 0; k < 9; ++k) red[e * 9 + k] = acc[k / 3][k % 3][e];
+  __syncthreads();
+  const int n = 9 * min(cw, C - t.c0);
+  const int part = blockIdx.z * gridDim.x + blockIdx.x;
+  float* dst = ws + (long long)part * 9 * C + 9 * t.c0;
+  for (int o = threadIdx.x; o < n; o += tc * cv) {
+    float sum = 0.f;
+    for (int jj = 0; jj < tc; ++jj) sum += smem[jj * 9 * cw + o];
+    dst[o] = sum;
+  }
+}
+
 // out[e] = sum over parts p of ws[p * E + e]: warp w adds parts w, w + W,
-// ... in order, then warp 0 adds the W warps' sums in order.
+// ... in order, then warp 0 adds the W warps' sums in order; a bf16 out
+// takes the sum rounded once.
 constexpr int kReduceWarps = 16;
 
+template <typename TO = float>
 __global__ void __launch_bounds__(32 * kReduceWarps)
-dwconv_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out, int E, int parts) {
+dwconv_reduce_kernel(const float* __restrict__ ws, TO* __restrict__ out, int E, int parts) {
   __shared__ float part[kReduceWarps][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, W = blockDim.x >> 5;
   const int e = blockIdx.x * 32 + lane;
@@ -380,11 +522,13 @@ dwconv_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out, int 
   if (w != 0 || e >= E) return;
   float sum = 0.f;
   for (int i = 0; i < W; ++i) sum += part[i][lane];
-  out[e] = sum;
+  out[e] = from_f<TO>(sum);
 }
 
-bool bad_plan(int C, int vec, int cv, int tc, int rows, bool bf16 = false) {
-  const bool vec_ok = bf16 ? vec == 2 || vec == 4 || vec == 8 : vec == 1 || vec == 2 || vec == 4;
+// bf16: vec 8, 4 or 2 (and 1 with one16, the forms that take 2-byte copies)
+bool bad_plan(int C, int vec, int cv, int tc, int rows, bool bf16 = false, bool one16 = false) {
+  const bool vec_ok = bf16 ? vec == 2 || vec == 4 || vec == 8 || (one16 && vec == 1)
+                           : vec == 1 || vec == 2 || vec == 4;
   return !vec_ok || C % vec != 0 || cv < 1 || cv > kMaxVectors || tc < 1 ||
          tc * cv > kThreads || rows < 1;
 }
@@ -394,16 +538,24 @@ dim3 grid_of(int B, int H, int W, int C, int vec, int cv, int tc, int rows) {
   return dim3((unsigned)((W + tc - 1) / tc), (unsigned)chunks, (unsigned)(B * bands));
 }
 
-// the ring of x rows (elements of TI) and the taps (floats)
+// the ring of x rows (elements of TI) and, 16-byte aligned after it, the
+// taps (floats)
 template <typename TI = float>
 size_t fwd_smem(int vec, int cv, int tc) {
-  return (sizeof(TI) * kStages * (tc + 2) + sizeof(float) * 9) * cv * vec;
+  return ring_bytes<TI>(kStages * (tc + 2) * cv * vec) + sizeof(float) * 9 * cv * vec;
 }
 
 // the ring of x and g rows (elements of TI), then the partials (floats)
 template <typename TI = float>
 size_t dtaps_smem(int vec, int cv, int tc) {
   const size_t ring = sizeof(TI) * kDtapsStages * (2 * tc + 2) * cv * vec,
+               red = sizeof(float) * 9 * tc * cv * vec;
+  return ring > red ? ring : red;
+}
+
+// the same for the mixed kernel (bf16 x, fp32 g)
+size_t dtaps_mixed_smem(int vec, int cv, int tc) {
+  const size_t ring = (size_t)kDtapsStages * MixedStage::bytes(tc, cv * vec),
                red = sizeof(float) * 9 * tc * cv * vec;
   return ring > red ? ring : red;
 }
@@ -434,16 +586,25 @@ void launch_dtaps(const TI* x, const TI* g, float* ws, int B, int H, int W, int 
                                                                    rows, (H + rows - 1) / rows);
 }
 
+template <int V>
+void launch_dtaps(const bf16* x, const float* g, float* ws, int B, int H, int W, int C,
+                  int cv, int tc, int rows, cudaStream_t st) {
+  dwconv3x3_dtaps_mixed_kernel<V><<<grid_of(B, H, W, C, V, cv, tc, rows), tc * cv,
+                                    dtaps_mixed_smem(V, cv, tc), st>>>(
+      x, g, ws, H, W, C, cv, tc, rows, (H + rows - 1) / rows);
+}
+
 // dtaps's fixed-order reduce of the blocks' partials, after the launch of
 // dwconv3x3_dtaps_kernel (its error is returned first)
-cudaError_t reduce_dtaps(const float* ws, float* dtaps, int B, int H, int W, int C, int vec,
+template <typename TO = float>
+cudaError_t reduce_dtaps(const float* ws, TO* dtaps, int B, int H, int W, int C, int vec,
                          int cv, int tc, int rows, cudaStream_t st) {
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid = grid_of(B, H, W, C, vec, cv, tc, rows);
   const int parts = (int)(grid.x * grid.z), warps = parts < kReduceWarps ? parts : kReduceWarps;
-  dwconv_reduce_kernel<<<(unsigned)((9 * C + 31) / 32), 32 * warps, 0, st>>>(ws, dtaps, 9 * C,
-                                                                             parts);
+  dwconv_reduce_kernel<TO><<<(unsigned)((9 * C + 31) / 32), 32 * warps, 0, st>>>(
+      ws, dtaps, 9 * C, parts);
   return cudaGetLastError();
 }
 
@@ -467,6 +628,23 @@ cudaError_t allow_dtaps_w32() {
   if (e == cudaSuccess) e = allow_dtaps_w32_v<4>();
   if (e == cudaSuccess) e = allow_dtaps_w32_v<2>();
   return e;
+}
+
+// dtaps on a bf16 x (dtaps_16) with V elements a copy and g of type TG,
+// rounded to bf16; its partials may pass 48 KB, as dtaps_w32's
+template <int V, typename TG>
+cudaError_t dtaps_16_v(const bf16* x, const TG* g, float* ws, bf16* dtaps, int B, int H, int W,
+                       int C, int cv, int tc, int rows, cudaStream_t st) {
+  static bool done[kMaxDevices];
+  if constexpr (sizeof(TG) == 2) {
+    const auto k = dwconv3x3_dtaps_kernel<V, bf16>;
+    RCOT_DW_TRY(allow_smem(done, k, k, kMaxSmemBytes / (int)sizeof(float)));
+  } else {
+    const auto k = dwconv3x3_dtaps_mixed_kernel<V>;
+    RCOT_DW_TRY(allow_smem(done, k, k, kMaxSmemBytes / (int)sizeof(float)));
+  }
+  launch_dtaps<V>(x, g, ws, B, H, W, C, cv, tc, rows, st);
+  return reduce_dtaps(ws, dtaps, B, H, W, C, V, cv, tc, rows, st);
 }
 
 }  // namespace
@@ -513,6 +691,57 @@ cudaError_t dtaps(const float* x, const float* g, float* ws, float* dtaps, int B
   else
     launch_dtaps<1>(x, g, ws, B, H, W, C, cv, tc, rows, st);
   return reduce_dtaps(ws, dtaps, B, H, W, C, vec, cv, tc, rows, st);
+}
+
+cudaError_t conv_taps16(const float* x, const bf16* taps, float* out, int B, int H, int W,
+                        int C, int vec, int cv, int tc, int rows, bool rot, cudaStream_t st) {
+  if ((long long)B * H * W * C == 0) return cudaSuccess;
+  if (bad_plan(C, vec, cv, tc, rows)) return cudaErrorInvalidValue;
+#define RCOT_FWD(V)                                                            \
+  (rot ? launch_fwd<V, true>(x, taps, out, B, H, W, C, cv, tc, rows, st)       \
+       : launch_fwd<V, false>(x, taps, out, B, H, W, C, cv, tc, rows, st))
+  if (vec == 4)
+    RCOT_FWD(4);
+  else if (vec == 2)
+    RCOT_FWD(2);
+  else
+    RCOT_FWD(1);
+#undef RCOT_FWD
+  return cudaGetLastError();
+}
+
+cudaError_t conv_bf16_rot(const bf16* x, const bf16* taps, float* out, int B, int H, int W,
+                          int C, int vec, int cv, int tc, int rows, cudaStream_t st) {
+  if ((long long)B * H * W * C == 0) return cudaSuccess;
+  if (bad_plan(C, vec, cv, tc, rows, true, true)) return cudaErrorInvalidValue;
+  if (vec == 8)
+    launch_fwd<8, true>(x, taps, out, B, H, W, C, cv, tc, rows, st);
+  else if (vec == 4)
+    launch_fwd<4, true>(x, taps, out, B, H, W, C, cv, tc, rows, st);
+  else if (vec == 2)
+    launch_fwd<2, true>(x, taps, out, B, H, W, C, cv, tc, rows, st);
+  else
+    launch_fwd<1, true>(x, taps, out, B, H, W, C, cv, tc, rows, st);
+  return cudaGetLastError();
+}
+
+cudaError_t dtaps_16(const bf16* x, const void* g, bool g_bf16, float* ws, bf16* dtaps, int B,
+                     int H, int W, int C, int vec, int cv, int tc, int rows, cudaStream_t st) {
+  if (C == 0) return cudaSuccess;
+  if ((long long)B * H * W == 0 || bad_plan(C, vec, cv, tc, rows, true, true) ||
+      (!g_bf16 && vec == 8))
+    return cudaErrorInvalidValue;
+  if (g_bf16) {
+    const bf16* gb = static_cast<const bf16*>(g);
+    return vec == 8   ? dtaps_16_v<8>(x, gb, ws, dtaps, B, H, W, C, cv, tc, rows, st)
+           : vec == 4 ? dtaps_16_v<4>(x, gb, ws, dtaps, B, H, W, C, cv, tc, rows, st)
+           : vec == 2 ? dtaps_16_v<2>(x, gb, ws, dtaps, B, H, W, C, cv, tc, rows, st)
+                      : dtaps_16_v<1>(x, gb, ws, dtaps, B, H, W, C, cv, tc, rows, st);
+  }
+  const float* gf = static_cast<const float*>(g);
+  return vec == 4   ? dtaps_16_v<4>(x, gf, ws, dtaps, B, H, W, C, cv, tc, rows, st)
+         : vec == 2 ? dtaps_16_v<2>(x, gf, ws, dtaps, B, H, W, C, cv, tc, rows, st)
+                    : dtaps_16_v<1>(x, gf, ws, dtaps, B, H, W, C, cv, tc, rows, st);
 }
 
 cudaError_t conv_w32(const bf16* x, const float* taps, bf16* out, int B, int H, int W, int C,

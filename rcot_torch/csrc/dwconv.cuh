@@ -1,6 +1,7 @@
 // The depthwise 3x3 kernels of dwconv.cu (row 11), for other kernels'
 // launchers: block_bwd.cu runs its three depthwise stages through them,
-// block_fwd_bf16.cu its bf16 forward.
+// block_fwd_bf16.cu its bf16 forward, and the bf16 backward forms of
+// block_bwd_bf16.cu and fused_dwconv_bf16.cu theirs on bf16 tiles.
 // The plan (vec, cv, tc, rows) is ops/dwconv.py's dwconv_plan, made in
 // Python and passed in; both launch on `st` and return the launch's error.
 
@@ -22,6 +23,26 @@ cudaError_t conv(const float* x, const float* taps, float* out, int B, int H, in
 cudaError_t conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* taps, void* out,
                       bool out_bf16, int B, int H, int W, int C, int vec, int cv, int tc,
                       int rows, cudaStream_t st);
+
+// conv of an fp32 x on bf16 taps (vec = 4, 2 or 1 floats a copy), into fp32
+// out: the bf16 tail backward's dh (rot).
+cudaError_t conv_taps16(const float* x, const __nv_bfloat16* taps, float* out, int B, int H,
+                        int W, int C, int vec, int cv, int tc, int rows, bool rot,
+                        cudaStream_t st);
+
+// the rotated conv of a bf16 x on bf16 taps (vec = 8, 4, 2 or 1 bf16 a
+// copy), into fp32 out: the bf16 qkv backward's dh.
+cudaError_t conv_bf16_rot(const __nv_bfloat16* x, const __nv_bfloat16* taps, float* out, int B,
+                          int H, int W, int C, int vec, int cv, int tc, int rows,
+                          cudaStream_t st);
+
+// dtaps of a bf16 x and a g of fp32 (vec = 4, 2 or 1) or bf16 (g_bf16; vec
+// = 8, 4, 2 or 1), summed as dtaps sums and rounded once into bf16 dtaps;
+// its bits follow (tc, rows), so a caller that must match the fp32 dtaps
+// gives the fp32 plan's.
+cudaError_t dtaps_16(const __nv_bfloat16* x, const void* g, bool g_bf16, float* ws,
+                     __nv_bfloat16* dtaps, int B, int H, int W, int C, int vec, int cv, int tc,
+                     int rows, cudaStream_t st);
 
 // dtaps[c, i, j] = sum over pixels of g[b, y, x, c] x[b, y + i - 1, x + j - 1, c],
 // through the workspace ws of ops/dwconv.py dtaps_workspace_numel floats,

@@ -37,9 +37,11 @@
 // operations above it. The GDFN forward reads and writes 2C bytes a pixel
 // each against 6 h C flops of bf16 products and ~46 h of stencil and gate
 // (fp32): bound by those operations. The backwards read 2C + 2M bytes a
-// pixel (the GDFN 4C) and write 2C against 4 M C flops of fp32 products
-// (the GDFN 8 h C; the recompute's 2 M C in bf16) and 36 M of stencils:
-// bound by their operations (chip_smoke.py states the bound).
+// pixel (the GDFN 4C) and write 2C against 4 M C flops of products (the
+// GDFN 8 h C; the recompute's 2 M C in bf16; the qkv's on 495 TFLOP/s TF32
+// terms, two a step or one in ops16, the GDFN's as 3xTF32) and 36 M of
+// fp32 stencils: bound by their operations (chip_smoke.py states the
+// bound).
 //
 // Design. The forwards are block_fwd_bf16.cu's head and tail without their
 // LayerNorm and residuals: mm.cuh's bf16 product (mma.sync m16n8k16, fp32
@@ -48,16 +50,26 @@
 // qkv and into fp32 conv for the GDFN, whose gate is a pass of its own
 // (gate_pass, rounding the fp32 gate once) into h's buffer, read by a bf16
 // W_out product that stores bf16. The backwards recompute h with the same
-// bf16 product, so that h is rounded where the forward rounds it; widen
-// every operand into fp32 workspaces in one launch (cast.cuh); run
-// fused_dwconv.cu's fp32 backward of the same configuration on them (the
-// depthwise forward, the gated dgate product, the rotated depthwise,
-// dtaps, the 3xTF32 dx product and the pixel sums, every sum in a fixed
-// order); and round their bf16 outputs in one last launch. No atomics and
-// no memsets: two calls on the same inputs give the same bits. The plans
-// are ops/fused.py's (fused_fwd_plan with copy widths in bf16 elements and
-// the GDFN's gate always a pass, fused_bwd_plan on the fp32 workspaces).
-// The backwards' `ops16` argument takes RCOT_BWD_BF16's "fused" tier, as
+// bf16 product, so that h is rounded where the forward rounds it. The qkv
+// backward then runs fused_dwconv.cu's fp32 backward on the bf16 tensors
+// themselves: dh = the rotated depthwise of the bf16 g on the bf16 taps
+// into fp32 (dwconv.cuh conv_bf16_rot), ddw = dtaps of the bf16 h and g on
+// the fp32 plan's tiles, rounded in its reduce (dtaps_16), and dx = dh
+// W_in, dW_in = dh^T x on mm.cuh's tf32 path with W_in and x in bf16 tiles
+// (each value widened into its fragment, two mma.sync a step; one in
+// ops16), dx and dW_in rounded once where written: every sum in the fp32
+// design's order, so the bits of that design on the widened operands,
+// rounded once, in two launches fewer (seven at the level-1 shapes), with
+// no fp32 copy of an operand. The GDFN backward widens every operand into
+// fp32 workspaces in one launch (cast.cuh), runs fused_dwconv.cu's fp32
+// GDFN backward on them (the depthwise forward, the gated dgate product,
+// the rotated depthwise, dtaps, the 3xTF32 dx product and the pixel sums,
+// every sum in a fixed order) and rounds its bf16 outputs in one last
+// launch. No atomics and no memsets: two calls on the same inputs give the
+// same bits. The plans are ops/fused.py's (fused_fwd_plan with copy widths
+// in bf16 elements and the GDFN's gate always a pass, fused_bwd_plan's
+// fp32 design, and for the qkv backward a second of its bf16 pieces). The
+// backwards' `ops16` argument takes RCOT_BWD_BF16's "fused" tier, as
 // fused_dwconv.cu's do.
 
 #include <cuda_bf16.h>
@@ -96,6 +108,10 @@ enum BwdPlan {
   kBwdInts = kDwTaps + 4
 };
 enum Prod { kProdH, kProdOut, kProdDx = kProdOut };
+// The qkv backward's bf16 plan: bf16 a copy of x and W_in, and the (vec,
+// cv, tc, rows) of the rotated depthwise of g and of dtaps (bf16 a copy;
+// dtaps's tc and rows those of the fp32 plan)
+enum Bwd16Plan { kVecC16, kRot16, kTaps16 = kRot16 + 4, kBwd16Ints = kTaps16 + 4 };
 
 // The fp32 depthwise forward (or, rot, its rotated forward) by row 11's
 // kernel with the plan's (vec, cv, tc, rows) at plan[at]
@@ -113,36 +129,25 @@ namespace {
 
 template <bool OPS16>
 int conv1x1_dw_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const bf16* g, bf16* dx,
-                        bf16* dw_in, bf16* ddw, bf16* hb, float* x32, float* g32, float* h32,
-                        float* dh, float* dx32, float* w32, float* dwk32, float* dw_in32,
-                        float* ddw32, float* sums, const int* plan, int vcb, int B, int H, int W,
-                        int C, int M, void* stream) {
+                        bf16* dw_in, bf16* ddw, bf16* hb, float* dh, float* sums, const int* plan,
+                        const int* plan16, int B, int H, int W, int C, int M, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * H * W;
-  const int vc = plan[kBVecC], vm = plan[kBVecM];
+  const int vm = plan[kBVecM], vcb = plan16[kVecC16];
+  const int* rot = plan16 + kRot16;
+  const int* taps = plan16 + kTaps16;
   // recompute h = bf16(x @ W_in^T), as the forward rounds it
   RCOT_TRY((product<false, kEpiStore>(x, C, vcb, w_in, vcb, hb, M, n, SPLIT(kBSplit, kProdH),
                                       sums, st)));
-  Widen up;
-  up.add(x, C, x32, C, n, C);
-  up.add(g, M, g32, M, n, M);
-  up.add(hb, M, h32, M, n, M);
-  up.add(w_in, C, w32, C, M, C);
-  up.add(dwk, 9, dwk32, 9, M, 9);
-  RCOT_TRY(up.run(st));
-  // dconv = g: dh = the rotated forward of g, ddw = dtaps(h, g)
-  RCOT_TRY(dw(g32, dwk32, dh, B, H, W, M, plan, kDwRot, true, st));
-  RCOT_TRY(rcot_dwconv::dtaps(h32, g32, sums, ddw32, B, H, W, M, plan[kDwTaps],
-                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
-  // dx = dh @ W_in, dW_in = dh^T x
-  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dh, M, vm, w32, vc, dx32, C, n,
-                                                   SPLIT(kBSplit, kProdDx), sums, st)));
-  RCOT_TRY(pixel_sum<OPS16>(dh, vm, x32, vc, dw_in32, sums, M, C, n, plan[kSumIn], st));
-  Narrow down;
-  down.add(dx32, C, dx, C, n, C);
-  down.add(dw_in32, C, dw_in, C, M, C);
-  down.add(ddw32, 9, ddw, 9, M, 9);
-  return down.run(st);
+  // dconv = g: dh = the rotated forward of g, ddw = bf16(dtaps(h, g))
+  RCOT_TRY(rcot_dwconv::conv_bf16_rot(g, dwk, dh, B, H, W, M, rot[0], rot[1], rot[2], rot[3],
+                                      st));
+  RCOT_TRY(rcot_dwconv::dtaps_16(hb, g, true, sums, ddw, B, H, W, M, taps[0], taps[1], taps[2],
+                                 taps[3], st));
+  // dx = bf16(dh @ W_in), dW_in = bf16(dh^T x) on bf16 tiles of W_in and x
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dh, M, vm, w_in, vcb, dx, C, n,
+                                                 SPLIT(kBSplit, kProdDx), sums, st)));
+  return pixel_sum<OPS16>(dh, vm, x, vcb, dw_in, sums, M, C, n, plan[kSumIn], st);
 }
 
 template <bool OPS16>
@@ -211,18 +216,15 @@ int rcot_conv1x1_dw_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, bf16*
 
 // Backward of rcot_conv1x1_dw_bf16 for the cotangent g (B,H,W,M) bf16.
 // Outputs dx (B,H,W,C), dw_in (M,C), ddw (M,3,3), bf16. Workspace: hb (N,M)
-// bf16; x32 (N,C), g32 (N,M), h32 (N,M), dh (N,M), dx32 (N,C), w32 (M,C),
-// dwk32 (M,9), dw_in32 (M,C), ddw32 (M,9) fp32; sums (fp32, the plan's);
-// N = B*H*W. plan: kBwdInts ints (kSumOut, kBVecH and kDwFwd unused); vcb:
-// bf16 a copy of x and W_in in the recompute of h.
+// bf16; dh (N,M) and sums (the plan's) fp32; N = B*H*W. plan: kBwdInts ints
+// (kSumOut, kBVecC, kBVecH, kDwFwd and kDwRot unused: the fp32 design's);
+// plan16: kBwd16Ints ints.
 int rcot_conv1x1_dw_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const bf16* g,
-                             bf16* dx, bf16* dw_in, bf16* ddw, bf16* hb, float* x32, float* g32,
-                             float* h32, float* dh, float* dx32, float* w32, float* dwk32,
-                             float* dw_in32, float* ddw32, float* sums, const int* plan, int vcb,
-                             int B, int H, int W, int C, int M, int ops16, void* stream) {
+                             bf16* dx, bf16* dw_in, bf16* ddw, bf16* hb, float* dh, float* sums,
+                             const int* plan, const int* plan16, int B, int H, int W, int C,
+                             int M, int ops16, void* stream) {
   return (ops16 ? conv1x1_dw_bwd_bf16<true> : conv1x1_dw_bwd_bf16<false>)(x, w_in, dwk, g, dx,
-      dw_in, ddw, hb, x32, g32, h32, dh, dx32, w32, dwk32, dw_in32, ddw32, sums, plan, vcb, B, H, W,
-      C, M, stream);
+      dw_in, ddw, hb, dh, sums, plan, plan16, B, H, W, C, M, stream);
 }
 
 // y = bf16(gate @ W_out^T), gate = bf16(gelu(c1) c2), [c1 | c2] =

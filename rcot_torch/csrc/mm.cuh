@@ -39,6 +39,20 @@
 // launch that reads the same operand reads it unrounded. OPS16 = false is
 // the 3xTF32 path, unchanged.
 //
+// bf16 tiles on the tf32 path (the backward products of bf16 training,
+// block_bwd_bf16.cu and fused_dwconv_bf16.cu: product with T = float and pixel_sum
+// with element types TA, TB of the operands and TO of the output): a bf16
+// operand is staged as bf16 (copy widths count bf16 elements, as above,
+// 2-byte loads included) and each value is widened into its tf32 fragment
+// (tc.cuh widen_tf32), which is exact, so the 3xTF32 terms of its low half
+// add exact zeros and are left out (mma_3xtf32's A_EXACT, B_EXACT: two
+// mma.sync a step with one bf16 operand, one with two); under OPS16 the
+// widening is the bf16 rounding, which is the identity on a bf16 value. A
+// bf16 output is the fp32 result rounded once (RNE) where it is written,
+// by the epilogue or, where K is split, by sum_parts after the fixed-order
+// sum. So these products give the bits of the fp32 products on the widened
+// operands, rounded after.
+//
 // LayerNorm: one warp a pixel; fp32 statistics, biased variance, eps 1e-5
 // inside the rsqrt; WithBias is (t - mean) inv w + b, BiasFree t inv w
 // with the variance taken about the mean. Up to 512 channels a lane holds
@@ -51,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc.cuh"
 
@@ -171,17 +187,35 @@ __device__ __forceinline__ void gate_bwd(float dg, float x1, float x2, float* dc
 
 // The shared memory of a product: a ring of kStages steps, each an A and a
 // B tile (two stages of two A tiles, c1 and c2, and a B tile with the
-// gate: 90 KB, so that two blocks still fit an SM). Sizes count elements
-// of T; SMEM_FLOATS is the ring's size in floats.
-template <bool A_KROW, bool B_KROW, int EPI, typename T = float>
+// gate: 90 KB, so that two blocks still fit an SM). A and B tiles hold TA
+// and TB (TA unless given). Where both hold one type a
+// stage is its A tile and then its B tile; else the ring is every stage's A
+// tile and then every stage's B tile, so that each tile is addressed in its
+// own elements. Sizes count bytes but SMEM_FLOATS, the ring's size in
+// floats. Every tile's bytes are a multiple of 16, so each tile starts
+// 16-byte aligned.
+template <bool A_KROW, bool B_KROW, int EPI, typename TA = float, typename TB = TA>
 struct MmRing {
   static constexpr int STAGES = EPI == kEpiGatedAdd ? 2 : kStages;
-  static constexpr int A_FLOATS =
-      (EPI == kEpiGatedAdd ? 2 : 1) * Tile<BM, A_KROW, T>::FLOATS;
-  static constexpr int STAGE = A_FLOATS + Tile<BN, B_KROW, T>::FLOATS;
-  static constexpr int FLOATS = STAGES * STAGE;
-  static constexpr int SMEM_FLOATS = (int)((sizeof(T) * FLOATS + 3) / 4);
+  static constexpr int A_BYTES =
+      (EPI == kEpiGatedAdd ? 2 : 1) * (int)sizeof(TA) * Tile<BM, A_KROW, TA>::FLOATS;
+  static constexpr int B_BYTES = (int)sizeof(TB) * Tile<BN, B_KROW, TB>::FLOATS;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM_FLOATS = (STAGES * STAGE_BYTES + 3) / 4;
+  static_assert(A_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0, "16-byte aligned tiles");
 };
+
+// An operand's value as a tf32 fragment: under OPS16 rounded to bf16 (the
+// identity on a bf16 value, which is widened); else its tf32 halves, a bf16
+// value's high half alone (it is exact: the low half is zero and not read).
+__device__ __forceinline__ uint32_t ops16_frag(float x) { return bf16_tf32(x); }
+__device__ __forceinline__ uint32_t ops16_frag(bf16 x) { return widen_tf32(x); }
+__device__ __forceinline__ void split_frag(float x, uint32_t& hi, uint32_t& lo) {
+  split_fast(x, hi, lo);
+}
+__device__ __forceinline__ void split_frag(bf16 x, uint32_t& hi, uint32_t&) {
+  hi = widen_tf32(x);
+}
 
 // The tensor cores add an mma's products to its accumulator with
 // truncation after aligning them to the largest term, so a long chain of
@@ -191,21 +225,43 @@ struct MmRing {
 // step accumulates from zero on the tensor cores (12 mma at most a chain;
 // 2 in bf16) and is added to the running sum in IEEE fp32, as a plain fp32
 // loop would.
-template <bool A_KROW, bool B_KROW, int EPI, typename T = float, bool OPS16 = false>
+// T = bf16 is the bf16 product (mma.sync m16n8k16); T = float the tf32
+// path, its tiles of EA and EB (float, or bf16 widened into the fragments)
+// and its output of EO (float, or bf16 rounded once; stored).
+template <bool A_KROW, bool B_KROW, int EPI, typename T = float, bool OPS16 = false,
+          typename EA = T, typename EB = T, typename EO = T>
 __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
   constexpr bool BF16 = sizeof(T) == 2;
   static_assert(!BF16 || (!A_KROW && !B_KROW && (EPI == kEpiStore || EPI == kEpiAdd)),
                 "bf16 products: per-pixel, stored or added");
   static_assert(!(BF16 && OPS16), "the bf16-operand policy: fp32 tiles");
-  using TA = Tile<BM, A_KROW, T>;
-  using TB = Tile<BN, B_KROW, T>;
-  using Ring = MmRing<A_KROW, B_KROW, EPI, T>;
-  constexpr int STAGES = Ring::STAGES, STAGE = Ring::STAGE;
+  static_assert(BF16 ? sizeof(EA) == 2 && sizeof(EB) == 2 && sizeof(EO) == 2
+                     : sizeof(EO) == 4 || EPI == kEpiStore,
+                "bf16 tiles on the tf32 path: a bf16 output is stored");
+  static_assert(BF16 || EPI != kEpiGatedAdd || (sizeof(EA) == 4 && sizeof(EB) == 4),
+                "the gate is taken on fp32 tiles");
+  constexpr bool A16 = !BF16 && sizeof(EA) == 2, B16 = !BF16 && sizeof(EB) == 2;
+  using TA = Tile<BM, A_KROW, EA>;
+  using TB = Tile<BN, B_KROW, EB>;
+  using Ring = MmRing<A_KROW, B_KROW, EPI, EA, EB>;
+  // one type: stage s at ring + s STAGE, its B tile B_AT on; two types: A
+  // tile s at ring + s STAGE, B tile s at ring_b + s B_STAGE (MmRing)
+  constexpr bool SAME = sizeof(EA) == sizeof(EB);
+  constexpr int STAGES = Ring::STAGES;
+  constexpr int STAGE = (SAME ? Ring::STAGE_BYTES : Ring::A_BYTES) / (int)sizeof(EA);
+  constexpr int B_AT = Ring::A_BYTES / (int)sizeof(EA), B_STAGE = Ring::B_BYTES / (int)sizeof(EB);
   constexpr bool GATED = EPI == kEpiGatedAdd;
   extern __shared__ __align__(16) float smem[];
-  T* ring = reinterpret_cast<T*>(smem);
-  const T* a = static_cast<const T*>(p.a);
-  const T* b = static_cast<const T*>(p.b);
+  EA* ring = reinterpret_cast<EA*>(smem);
+  EB* ring_b = reinterpret_cast<EB*>(reinterpret_cast<char*>(smem) + STAGES * Ring::A_BYTES);
+  auto b_tile = [&](EA* a_tile, int slot) -> EB* {
+    if constexpr (SAME)
+      return reinterpret_cast<EB*>(a_tile + B_AT);
+    else
+      return ring_b + slot * B_STAGE;
+  };
+  const EA* a = static_cast<const EA*>(p.a);
+  const EB* b = static_cast<const EB*>(p.b);
   const int tile_m = blockIdx.x / p.n_tiles;
   const long long m0 = (long long)tile_m * BM;
   const int n0 = (blockIdx.x - tile_m * p.n_tiles) * BN;
@@ -213,13 +269,13 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
   const long long ke = kb + p.k_per < p.K ? kb + p.k_per : p.K;
   const int n_steps = (int)((ke - kb + BK - 1) / BK);
   auto load = [&](int s) {
-    T* dst = ring + (s % STAGES) * STAGE;
+    EA* dst = ring + (s % STAGES) * STAGE;
     const long long k0 = kb + (long long)s * BK;
     stage<BM, A_KROW>(dst, a, p.lda, m0, p.M, k0, ke, p.va);
     if constexpr (GATED)
-      stage<BM, A_KROW>(dst + TA::FLOATS, static_cast<const T*>(p.a2), p.lda, m0, p.M, k0, ke,
+      stage<BM, A_KROW>(dst + TA::FLOATS, static_cast<const EA*>(p.a2), p.lda, m0, p.M, k0, ke,
                         p.va);
-    stage<BN, B_KROW>(dst + Ring::A_FLOATS, b, p.ldb, n0, p.N, k0, ke, p.vb);
+    stage<BN, B_KROW>(b_tile(dst, s % STAGES), b, p.ldb, n0, p.N, k0, ke, p.vb);
   };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -244,8 +300,8 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
     __syncthreads();  // step s has landed; every warp is done with step s - 1
     if (s + STAGES - 1 < n_steps) load(s + STAGES - 1);
     cp_commit();
-    T* as = ring + (s % STAGES) * STAGE;
-    const T* bs = as + Ring::A_FLOATS;
+    EA* as = ring + (s % STAGES) * STAGE;
+    const EB* bs = b_tile(as, s % STAGES);
     if constexpr (GATED) {
       // the gate in place of c1, once per value (zero fill gives 0)
       for (int i = threadIdx.x; i < BM * BK; i += kThreads) {
@@ -292,16 +348,16 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
           const int r = wm * 32 + i * 16 + gid;
-          ar[i][0] = bf16_tf32(as[TA::at(r, kk + tig)]);
-          ar[i][1] = bf16_tf32(as[TA::at(r + 8, kk + tig)]);
-          ar[i][2] = bf16_tf32(as[TA::at(r, kk + tig + 4)]);
-          ar[i][3] = bf16_tf32(as[TA::at(r + 8, kk + tig + 4)]);
+          ar[i][0] = ops16_frag(as[TA::at(r, kk + tig)]);
+          ar[i][1] = ops16_frag(as[TA::at(r + 8, kk + tig)]);
+          ar[i][2] = ops16_frag(as[TA::at(r, kk + tig + 4)]);
+          ar[i][3] = ops16_frag(as[TA::at(r + 8, kk + tig + 4)]);
         }
 #pragma unroll
         for (int j = 0; j < NI; ++j) {
           const int n = wn * 32 + j * 8 + gid;
-          br[j][0] = bf16_tf32(bs[TB::at(n, kk + tig)]);
-          br[j][1] = bf16_tf32(bs[TB::at(n, kk + tig + 4)]);
+          br[j][0] = ops16_frag(bs[TB::at(n, kk + tig)]);
+          br[j][1] = ops16_frag(bs[TB::at(n, kk + tig + 4)]);
         }
         mma_1xtf32(part, ar, br, use_m, use_n);
       }
@@ -312,18 +368,18 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
           const int r = wm * 32 + i * 16 + gid;
-          split_fast(as[TA::at(r, kk + tig)], ah[i][0], al[i][0]);
-          split_fast(as[TA::at(r + 8, kk + tig)], ah[i][1], al[i][1]);
-          split_fast(as[TA::at(r, kk + tig + 4)], ah[i][2], al[i][2]);
-          split_fast(as[TA::at(r + 8, kk + tig + 4)], ah[i][3], al[i][3]);
+          split_frag(as[TA::at(r, kk + tig)], ah[i][0], al[i][0]);
+          split_frag(as[TA::at(r + 8, kk + tig)], ah[i][1], al[i][1]);
+          split_frag(as[TA::at(r, kk + tig + 4)], ah[i][2], al[i][2]);
+          split_frag(as[TA::at(r + 8, kk + tig + 4)], ah[i][3], al[i][3]);
         }
 #pragma unroll
         for (int j = 0; j < NI; ++j) {
           const int n = wn * 32 + j * 8 + gid;
-          split_fast(bs[TB::at(n, kk + tig)], bh[j][0], bl[j][0]);
-          split_fast(bs[TB::at(n, kk + tig + 4)], bh[j][1], bl[j][1]);
+          split_frag(bs[TB::at(n, kk + tig)], bh[j][0], bl[j][0]);
+          split_frag(bs[TB::at(n, kk + tig + 4)], bh[j][1], bl[j][1]);
         }
-        mma_3xtf32(part, ah, al, bh, bl, use_m, use_n);
+        mma_3xtf32<MI, NI, A16, B16>(part, ah, al, bh, bl, use_m, use_n);
       }
     }
     // the step's sum joins the total in IEEE fp32 (see the note above)
@@ -384,6 +440,11 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
           static_cast<float*>(p.out)[blockIdx.z * p.z_stride + m * p.ldo + n] = v;
         else
           static_cast<T*>(p.out)[m * p.ldo + n] = from_f<T>(in1[q][h2] + round_to<T>(v));
+      } else if constexpr (sizeof(EO) == 2) {
+        if (partial)
+          static_cast<float*>(p.out)[blockIdx.z * p.z_stride + m * p.ldo + n] = in1[q][h2] + v;
+        else
+          static_cast<EO*>(p.out)[m * p.ldo + n] = from_f<EO>(in1[q][h2] + v);
       } else {
         float* out = static_cast<float*>(p.out) + (long long)blockIdx.z * p.z_stride;
         if (EPI == kEpiGate && !partial)
@@ -394,11 +455,12 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmArgs p) {
     }
 }
 
-template <bool A_KROW, bool B_KROW, int EPI, typename T = float, bool OPS16 = false>
+template <bool A_KROW, bool B_KROW, int EPI, typename T = float, bool OPS16 = false,
+          typename EA = T, typename EB = T, typename EO = T>
 cudaError_t mm(MmArgs p, int ranges, cudaStream_t st) {
-  constexpr int FLOATS = MmRing<A_KROW, B_KROW, EPI, T>::SMEM_FLOATS;
+  constexpr int FLOATS = MmRing<A_KROW, B_KROW, EPI, EA, EB>::SMEM_FLOATS;
   static bool done[kMaxDevices];
-  const auto kernel = mm_kernel<A_KROW, B_KROW, EPI, T, OPS16>;
+  const auto kernel = mm_kernel<A_KROW, B_KROW, EPI, T, OPS16, EA, EB, EO>;
   RCOT_TRY(allow_smem(done, kernel, kernel, FLOATS));
   p.n_tiles = (p.N + BN - 1) / BN;
   const long long tiles = (p.M + BM - 1) / BM * p.n_tiles;
@@ -464,17 +526,32 @@ cudaError_t sum_parts(const float* ws, TO* out, float* out2, int E, int split, l
 // few tiles to fill the card) K is cut into ranges of k_per, whose
 // partials go to ws (splits * n_pix * N floats) and are added in a fixed
 // order; kEpiGate is never split. T = bf16 rounds as mm_kernel says; OPS16
-// takes the bf16-operand policy (fp32 T).
+// takes the bf16-operand policy (fp32 T). Where the call names T = float,
+// the operands and the output may lie in bf16 tiles (TA, TB, TO: the tf32
+// path of mm_kernel's header, every split's partials in fp32 and a bf16
+// output rounded once after sum_parts's fixed-order sum; stored, or the
+// gate's backward); where it names no T, a, w and out share their type,
+// which is T.
 template <typename T>
 struct Same {  // T where it is not to be deduced (a null extra)
   using type = T;
 };
 
-template <bool B_KROW, int EPI, typename T = float, bool OPS16 = false>
-cudaError_t product(const T* a, int K, int va, const T* w, int vb, T* out, int N,
+template <typename T, typename TA>
+using ProductT = std::conditional_t<std::is_void<T>::value, TA, T>;
+
+template <bool B_KROW, int EPI, typename T = void, bool OPS16 = false, typename TA, typename TB,
+          typename TO>
+cudaError_t product(const TA* a, int K, int va, const TB* w, int vb, TO* out, int N,
                     long long n_pix, int splits, long long k_per, float* ws, cudaStream_t st,
-                    const typename Same<T>::type* extra = nullptr, float* gate = nullptr,
+                    const ProductT<T, TA>* extra = nullptr, float* gate = nullptr,
                     long long lda = 0) {
+  using MT = ProductT<T, TA>;
+  constexpr bool MIXED = !std::is_same<TA, MT>::value || !std::is_same<TB, MT>::value ||
+                         !std::is_same<TO, MT>::value;
+  static_assert((std::is_same<TB, TA>::value && std::is_same<TO, TA>::value) ||
+                    (std::is_same<MT, float>::value && (EPI == kEpiStore || EPI == kEpiGate)),
+                "bf16 tiles on the tf32 path: T = float, stored or the gate's backward");
   if (splits < 1 || (splits > 1 && (EPI == kEpiGate || k_per < 1))) return cudaErrorInvalidValue;
   constexpr bool GATED = EPI == kEpiGatedAdd;
   MmArgs p{};
@@ -484,29 +561,38 @@ cudaError_t product(const T* a, int K, int va, const T* w, int vb, T* out, int N
   p.out = splits > 1 ? (void*)ws : (void*)out, p.ldo = N, p.extra = extra, p.gate = gate;
   p.z_stride = splits > 1 ? n_pix * N : 0;
   p.M = n_pix, p.N = N, p.K = K, p.k_per = splits > 1 ? k_per : K;
-  RCOT_TRY((mm<false, B_KROW, EPI, T, OPS16>(p, splits, st)));
-  if (splits > 1)
-    return sum_parts<T>(ws, out, nullptr, (int)(n_pix * N), (int)(n_pix * N), n_pix * N,
-                        splits, st, EPI == kEpiAdd || GATED ? extra : nullptr);
+  RCOT_TRY((mm<false, B_KROW, EPI, MT, OPS16, TA, TB, TO>(p, splits, st)));
+  if constexpr (MIXED) {
+    if (splits > 1)
+      return sum_parts<TO>(ws, out, nullptr, (int)(n_pix * N), (int)(n_pix * N), n_pix * N,
+                           splits, st);
+  } else {
+    if (splits > 1)
+      return sum_parts<MT>(ws, out, nullptr, (int)(n_pix * N), (int)(n_pix * N), n_pix * N,
+                           splits, st, EPI == kEpiAdd || GATED ? extra : nullptr);
+  }
   return cudaSuccess;
 }
 
 // Pixel sum: out (M x N) = sum over pixels q of A[q, m] B[q, n] for A
 // (n_pix x M) and B (n_pix x N), in ranges of `per` pixels; with more than
 // one range the partials go to ws (ranges * M * N floats) and are added
-// in a fixed order. OPS16: the bf16-operand policy.
-template <bool OPS16 = false>
-cudaError_t pixel_sum(const float* a, int va, const float* b, int vb, float* out, float* ws,
+// in a fixed order. OPS16: the bf16-operand policy. TA, TB, TO as
+// product's on the tf32 path.
+template <bool OPS16 = false, typename TA = float, typename TB = float, typename TO = float>
+cudaError_t pixel_sum(const TA* a, int va, const TB* b, int vb, TO* out, float* ws,
                       int M, int N, long long n_pix, long long per, cudaStream_t st) {
   if (per < 1) return cudaErrorInvalidValue;
   const long long ranges = (n_pix + per - 1) / per;
   MmArgs p{};
   p.a = a, p.lda = M, p.va = va;
   p.b = b, p.ldb = N, p.vb = vb;
-  p.out = ranges > 1 ? ws : out, p.ldo = N, p.z_stride = ranges > 1 ? (long long)M * N : 0;
+  p.out = ranges > 1 ? (void*)ws : (void*)out, p.ldo = N;
+  p.z_stride = ranges > 1 ? (long long)M * N : 0;
   p.M = M, p.N = N, p.K = n_pix, p.k_per = per;
-  RCOT_TRY((mm<true, true, kEpiStore, float, OPS16>(p, (int)ranges, st)));
-  if (ranges > 1) return sum_parts(ws, out, nullptr, M * N, M * N, (long long)M * N, ranges, st);
+  RCOT_TRY((mm<true, true, kEpiStore, float, OPS16, TA, TB, TO>(p, (int)ranges, st)));
+  if (ranges > 1)
+    return sum_parts<TO>(ws, out, nullptr, M * N, M * N, (long long)M * N, ranges, st);
   return cudaSuccess;
 }
 

@@ -101,20 +101,23 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint
 // that no product waits on the one before it. Tiles outside the matrix
 // (use_m, use_n false) are skipped. A_EXACT: every a is exact in tf32 (a
 // bf16 value widened), so al is zero and its term, which adds exact zeros,
-// is left out: two mma.sync a step, the same sums (al is not read).
-template <int M, int N, bool A_EXACT = false>
+// is left out: two mma.sync a step, the same sums (al is not read); B_EXACT
+// the same for b (bl is not read); both, one mma.sync a step.
+template <int M, int N, bool A_EXACT = false, bool B_EXACT = false>
 __device__ __forceinline__ void mma_3xtf32(float (&acc)[M][N][4], uint32_t (&ah)[M][4],
                                            uint32_t (&al)[M][4], uint32_t (&bh)[N][2],
                                            uint32_t (&bl)[N][2], const bool (&use_m)[M],
                                            const bool (&use_n)[N]) {
 #pragma unroll
-  for (int term = A_EXACT ? 1 : 0; term < 3; ++term)
+  for (int term = A_EXACT ? 1 : 0; term < 3; ++term) {
+    if (B_EXACT && term == 1) continue;
 #pragma unroll
     for (int i = 0; i < M; ++i)
 #pragma unroll
       for (int j = 0; j < N; ++j)
         if (use_m[i] && use_n[j])
           mma_tf32(acc[i][j], term == 0 ? al[i] : ah[i], term == 1 ? bl[j] : bh[j]);
+  }
 }
 
 // The bf16-operand policy of the backward products (RCOT_BWD_BF16 in the

@@ -87,11 +87,11 @@ SIGNATURES = {
     # bf16 training (fused_dwconv_bf16.cu, block_bwd_bf16.cu, gram_bwd_bf16.cu):
     # the qkv forward in bf16, the arguments of rcot_conv1x1_dw
     "rcot_conv1x1_dw_bf16": [_P] * 6 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # inputs 4, outputs 3, workspace 11, plan; bf16 copy width; B, H, W, C, M;
-    # ops16; stream
-    "rcot_conv1x1_dw_bwd_bf16": [_P] * 18 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P],
-    # inputs 9, outputs 8, workspace 24, plan, bf16 plan; B, H, W, C, hid; ops16; stream
-    "rcot_block_tail_bwd_bf16": [_P] * 41 + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P],
+    # inputs 4, outputs 3, workspace 3, plan, bf16 plan; B, H, W, C, M; ops16;
+    # stream
+    "rcot_conv1x1_dw_bwd_bf16": [_P] * 10 + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P],
+    # inputs 9, outputs 8, workspace 10, plan, bf16 plan; B, H, W, C, hid; ops16; stream
+    "rcot_block_tail_bwd_bf16": [_P] * 27 + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P],
     # inputs 6, outputs 5, workspace 15, plan; bf16 copy width; B, H, W, C, M;
     # ops16; stream
     "rcot_block_head_bwd_bf16": [_P] * 26 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P],

@@ -23,7 +23,9 @@ rcot_tpu/models/restormer.py:77-89 passes them) goes to the bf16 kernels of
 csrc/block_fwd_bf16.cu on the card, counted as block_head_bf16 and
 block_tail_bf16, and their backwards (bf16 training: the tail in "tail"
 and "full", the head in "full" and "head") to csrc/block_bwd_bf16.cu,
-counted as block_tail_bwd_bf16 and block_head_bwd_bf16. The plain forward
+counted as block_tail_bwd_bf16 and block_head_bwd_bf16; the tail's runs
+block_bwd.cu's design on the bf16 tensors themselves (block_bwd_plan's plan
+and a second of its bf16 copy widths, tail_bf16_vecs). The plain forward
 twins take any float dtype: their products and stencils
 run in at least fp32 and round to x's dtype where the JAX kernel
 (rcot_tpu/ops/pallas_block.py:111-142) rounds, which in fp32 or float64 is
@@ -639,14 +641,12 @@ def block_tail_bwd(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops=False
 def bwd_bf16_workspace_numel(n: int, c: int, hid: int) -> Tuple[int, ...]:
     """Floats of each workspace of the bf16 tail backward on n pixels, in
     the order csrc/block_bwd_bf16.cu takes them (bf16 ones two to a float):
-    tb, ub, hb; stats, conv_dh, dconv, gate, du; t32, u32, h32, g32, a32,
-    dx32, da32; the widened weights wp32, win32, dwk32, wout32; their fp32
-    grads dwp32, dwin32, ddw32, dwout32."""
+    the recompute's tb, ub, hb; stats, conv_dh, dconv, gate, du, dt. No
+    fp32 copy of an operand: its products and stencils read the bf16
+    tensors as they are."""
     m2 = 2 * hid
-    weights = (c * c, m2 * c, 9 * m2, c * hid)
     return (_cdiv(n * c, 2), _cdiv(n * c, 2), _cdiv(n * m2, 2),
-            2 * n, n * m2, n * m2, n * hid, n * c,
-            n * c, n * c, n * m2, n * c, n * c, n * c, n * c, *weights, *weights)
+            2 * n, n * m2, n * m2, n * hid, n * c, n * c)
 
 
 def _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops):
@@ -668,16 +668,18 @@ def _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops
     outs += [None if ln_b is None else torch.empty_like(ln_b)]
     outs += [torch.empty_like(t) for t in (w_in, dwk, w_out)]
     buf, ws = _workspaces(dev, bwd_bf16_workspace_numel(n, c, hid))
-    tb, ub, hb, conv_dh, dconv, gate = ws[0], ws[1], ws[2], ws[4], ws[5], ws[6]
-    du, t32, u32, h32, g32, a32, dx32, da32, wp32, win32, _, wout32 = ws[7:19]
-    vec_c = kdw.dwconv_vec(c, du, t32, u32, g32, a32, dx32, da32, wp32, win32)
-    vec_h = kdw.dwconv_vec(hid, wout32, gate)
-    vec_m = kdw.dwconv_vec(m2, h32, conv_dh, dconv)
+    ub, hb, conv_dh, dconv, gate, du, dt = ws[1], ws[2], *ws[4:]
+    # the fp32 design's plan: its copy widths those of the fp32 operands
+    vec_c = kdw.dwconv_vec(c, du, dt)
+    vec_h = kdw.dwconv_vec(hid, gate)
+    vec_m = kdw.dwconv_vec(m2, conv_dh, dconv)
     plan, n_sums = _card_plan(b, h, w, c, m2, True, dev.index, vec_c, vec_h, vec_m)
-    plan16 = _bf16_recompute_plan(b, h, w, c, m2, dev.index,
-                                  kdw.bf16_vec(c, a.data_ptr(), ub, w_proj.data_ptr(),
-                                               w_in.data_ptr()),
-                                  kdw.bf16_vec(m2, hb, f32_ptrs=(conv_dh,)))
+    plan16 = _bf16_tail_plan(b, h, w, c, m2, dev.index,
+                             *tail_bf16_vecs(c, hid, {"a": a.data_ptr(), "u": ub,
+                                                      "w_proj": w_proj.data_ptr(),
+                                                      "w_in": w_in.data_ptr(), "g": g.data_ptr(),
+                                                      "w_out": w_out.data_ptr(), "h": hb,
+                                                      "conv": conv_dh}))
     sums = torch.empty(n_sums, device=dev)
     with torch.cuda.device(dev):
         build.call("rcot_block_tail_bwd_bf16",
@@ -730,16 +732,27 @@ def _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops):
     return dx, dln_w, dln_b, dw_qkv, ddw
 
 
+def tail_bf16_vecs(c: int, hid: int, ptrs: dict) -> Tuple[int, int, int, int]:
+    """-> bf16 a copy of the bf16 tail backward's bf16 operands whose
+    operands start at ptrs (name -> address): the C-wide a, u, W_proj and
+    W_in, the cotangent g, W_out's rows (h wide: an odd h copies single
+    bf16) and the recompute's depthwise forward of h into fp32 conv (its
+    width 2h)."""
+    return (kdw.bf16_vec(c, *(ptrs[k] for k in ("a", "u", "w_proj", "w_in"))),
+            kdw.bf16_vec(c, ptrs["g"]), kdw.bf16_vec(hid, ptrs["w_out"]),
+            kdw.bf16_vec(2 * hid, ptrs["h"], f32_ptrs=(ptrs["conv"],)))
+
+
 @functools.lru_cache(maxsize=None)
-def _bf16_recompute_plan(b, h, w, c, width, device_index, vec_c, vec_m):
+def _bf16_tail_plan(b, h, w, c, width, device_index, vec_c, vec_g, vec_h, vec_m):
     """-> the bf16 tail backward's second plan as a ctypes array: bf16 a
-    copy of the C-wide operands of its recompute, and the bf16 depthwise
-    forward's (vec, cv, tc, rows) into fp32 conv."""
+    copy of the C-wide operands, of g and of W_out's rows, and the bf16
+    depthwise forward's (vec, cv, tc, rows) into fp32 conv."""
     if vec_m < 2:
         raise ValueError(f"bf16 block kernels: the depthwise width {width} must be even "
                          "(its copies move two bf16 at least)")
     dw = kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False, "bf16_f32")
-    return (ctypes.c_int * 5)(vec_c, vec_m, *dw)
+    return (ctypes.c_int * 7)(vec_c, vec_g, vec_h, vec_m, *dw)
 
 
 # --------------------------------------------------------------- autograd

@@ -95,6 +95,18 @@ def dwconv_tile(c: int, w: int, vec: int) -> Tuple[int, int]:
     return cv, min(DW_THREADS // cv, w)
 
 
+def retile(plan: Tuple[int, int, int], c: int, vec: int) -> Tuple[int, int, int, int]:
+    """-> (vec, cv, tc, rows) of a launch at vec elements a copy that keeps
+    the columns a block (tc) and the band (rows) of plan = (cv, tc, rows),
+    one planned at another copy width: dtaps's sums follow tc and rows alone,
+    so a bf16 dtaps on plan's tiles adds in the order of plan's fp32 one. cv
+    is dwconv_tile's, held to tc * cv <= DW_THREADS."""
+    _, tc, rows = plan
+    n_vec = c // vec
+    cv = _cdiv(n_vec, _cdiv(n_vec, min(DW_VECTORS, DW_THREADS // tc)))
+    return vec, cv, tc, rows
+
+
 @functools.lru_cache(maxsize=None)
 def dwconv_rows(b: int, h: int, w: int, c: int, vec: int, n_sm: int, per_sm: int,
                 max_pixels: int = 0) -> int:

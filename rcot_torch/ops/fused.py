@@ -23,8 +23,9 @@ conv1x1_dw, gdfn_fused and their *_bwd names.
 bf16 (the qkv configuration in bf16 training's "tail" and "off", the GDFN
 in bf16 serving and training's "head" and "off"): a bf16 x with bf16
 weights goes to csrc/fused_dwconv_bf16.cu on the card, counted as
-conv1x1_dw_bf16, gdfn_fused_bf16 and their *_bwd_bf16 names. The forward
-twin rounds h, the GDFN's gate and the output to bf16 where the JAX kernel
+conv1x1_dw_bf16, gdfn_fused_bf16 and their *_bwd_bf16 names (the qkv
+backward runs fused_dwconv.cu's design on the bf16 tensors themselves, its
+plan fused_bwd_plan's and qkv_bwd_bf16_plan's). The forward twin rounds h, the GDFN's gate and the output to bf16 where the JAX kernel
 does (pallas_fused.py:153-183); the backward twin is the JAX backward
 kernel's (:297-412): h recomputed and rounded, then everything in fp32
 (dW_out from the unrounded gate), each grad rounded once (ops/block.py
@@ -112,6 +113,7 @@ def fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g, bf16_ops=False):
 # so only their widths decide their copies.
 FWD_PLAN_INTS = 13
 BWD_PLAN_INTS = 21
+BWD16_PLAN_INTS = 9
 
 
 class FusedFwdPlan(NamedTuple):
@@ -349,26 +351,61 @@ def _conv1x1_dw_bf16(x, w_in, dwk):
     return out
 
 
+def qkv_bwd_bf16_workspace_numel(n: int, m: int) -> Tuple[int, int]:
+    """Floats of each workspace of the bf16 qkv backward on n pixels, in
+    the order csrc/fused_dwconv_bf16.cu takes them: the recomputed h (bf16,
+    two to a float) and dh (fp32). No fp32 copy of an operand."""
+    return -(-n * m // 2), n * m
+
+
+def qkv_bwd_bf16_plan(m: int, vec_c: int, vec_m: int, rot: Tuple[int, int, int],
+                      taps: Tuple[int, int, int]) -> Tuple[int, ...]:
+    """The bf16 qkv backward's second plan, BWD16_PLAN_INTS ints: vec_c bf16
+    a copy of x and W_in; the rotated depthwise of g (bf16 into fp32 dh) at
+    vec_m bf16 a copy, on rot = (cv, tc, rows), its own plan at that width or
+    the fp32 design's; dtaps of the bf16 h and g at vec_m on the columns and
+    band of the fp32 design's taps = (cv, tc, rows), so that its sums keep
+    their order (ops/dwconv.py retile)."""
+    out = (vec_c, *kdw.retile(rot, m, vec_m), *kdw.retile(taps, m, vec_m))
+    assert len(out) == BWD16_PLAN_INTS
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _qkv_bwd_bf16_card_plan(b, h, w, c, m, device_index, vec_c, vec_m, vec_m32):
+    """-> qkv_bwd_bf16_plan's ints as a ctypes array on this card: the
+    rotated depthwise on the bf16 kernel's own plan (on the fp32 design's
+    where g takes single bf16 copies, a width the bf16 plan has no kernel
+    for), dtaps on the fp32 design's (vec_m32 floats a copy)."""
+    taps = kdw.dwconv_plan(b, h, w, m, device_index, vec_m32, True)
+    rot = (kdw.dwconv_plan(b, h, w, m, device_index, vec_m, False, "bf16_f32") if vec_m > 1
+           else kdw.dwconv_plan(b, h, w, m, device_index, vec_m32, False))
+    ints = qkv_bwd_bf16_plan(m, vec_c, vec_m, rot, taps)
+    return (ctypes.c_int * BWD16_PLAN_INTS)(*ints)
+
+
 def _conv1x1_dw_bwd_bf16(x, w_in, dwk, g, bf16_ops):
     """The qkv backward on bf16 CUDA tensors -> (dx, dw_in, ddw), bf16:
-    csrc/fused_dwconv_bf16.cu, with fused_bwd_plan's plan on its fp32
-    workspaces."""
+    csrc/fused_dwconv_bf16.cu, fused_dwconv.cu's design on the bf16 tensors
+    themselves, with fused_bwd_plan's plan of that design and a second of
+    its bf16 pieces (qkv_bwd_bf16_plan)."""
     b, h, w, c, m = _check(x, w_in, dwk, None, g)
     dev = x.device
     n = b * h * w
     dx, dw_in, ddw = (torch.empty_like(t) for t in (x, w_in, dwk))
-    # hb (bf16); x32, g32, h32, dh, dx32, w32, dwk32, dw_in32, ddw32
-    buf, ws = _workspaces(dev, (-(-n * m // 2), n * c, n * m, n * m, n * m, n * c, m * c,
-                                9 * m, m * c, 9 * m))
-    vec_c = kdw.dwconv_vec(c, ws[1], ws[5], ws[6])
-    vec_m = kdw.dwconv_vec(m, ws[2], ws[3], ws[4])
-    plan, n_sums = _bwd_card_plan(b, h, w, c, m, False, dev.index, vec_c, 1, vec_m)
+    buf, (hbuf, dh) = _workspaces(dev, qkv_bwd_bf16_workspace_numel(n, m))
+    # the fp32 design's plan: its copy widths those of the fp32 operands
+    vec_m32 = kdw.dwconv_vec(m, dh)
+    plan, n_sums = _bwd_card_plan(b, h, w, c, m, False, dev.index, kdw.dwconv_vec(c), 1,
+                                  vec_m32)
+    plan16 = _qkv_bwd_bf16_card_plan(b, h, w, c, m, dev.index,
+                                     kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr()),
+                                     kdw.bf16_vec(m, hbuf, g.data_ptr()), vec_m32)
     sums = torch.empty(n_sums, device=dev)
     with torch.cuda.device(dev):
         build.call("rcot_conv1x1_dw_bwd_bf16", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
-                   g.data_ptr(), dx.data_ptr(), dw_in.data_ptr(), ddw.data_ptr(), *ws,
-                   sums.data_ptr(), plan, kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr()),
-                   b, h, w, c, m, int(bf16_ops), build.stream())
+                   g.data_ptr(), dx.data_ptr(), dw_in.data_ptr(), ddw.data_ptr(), hbuf, dh,
+                   sums.data_ptr(), plan, plan16, b, h, w, c, m, int(bf16_ops), build.stream())
     build.LAUNCHES[build.counted("conv1x1_dw_bwd_bf16", bf16_ops)] += 1
     return dx, dw_in, ddw
 

@@ -409,16 +409,14 @@ def test_cli_trains_in_bf16_in_every_composition(tmp_path, tiny_presets, composi
 
 def test_bf16_plan_workspaces():
     """The bf16 tail backward's workspaces (csrc/block_bwd_bf16.cu's order):
-    bf16 ones two to a float, the rest fp32, the weights and their grads at
-    the weights' sizes."""
+    the recompute's bf16 t, u, h two to a float, then fp32 stats, conv/dh,
+    dconv, the gate, du and dt; no fp32 copy of an operand, a weight or an
+    output."""
     n, c, hid = 3 * 16 * 16, 48, 127
     sizes = tblock.bwd_bf16_workspace_numel(n, c, hid)
-    assert len(sizes) == 23
+    assert len(sizes) == 9
     assert sizes[:3] == (n * c // 2, n * c // 2, n * hid)
-    assert sizes[3:8] == (2 * n, 2 * n * hid, 2 * n * hid, n * hid, n * c)
-    assert sizes[8:15] == (n * c, n * c, 2 * n * hid, n * c, n * c, n * c, n * c)
-    weights = (c * c, 2 * hid * c, 18 * hid, c * hid)
-    assert sizes[15:19] == sizes[19:] == weights
+    assert sizes[3:] == (2 * n, 2 * n * hid, 2 * n * hid, n * hid, n * c, n * c)
     assert tblock.bwd_bf16_workspace_numel(5, 7, 9)[0] == 18  # an odd count rounds up
 
 

@@ -1531,3 +1531,122 @@ def test_the_bf16_apply_backwards_blocks_an_sm_fit_on_the_card(cuda_device, ch):
         assert getattr(lib, f"rcot_{form}_blocks_per_sm")(ch, cb, *outs) == 0
         assert got.value >= tgram.apply_bwd_bf16_per_sm(cb), (form, got.value)
         assert (nbytes.value, least.value) == (tgram.apply_bwd_bf16_smem(cb), reg_blocks), form
+
+
+# Row 5's tail and row 9's qkv backward in bf16 on bf16 tiles (csrc/
+# block_bwd_bf16.cu, fused_dwconv_bf16.cu on mm.cuh's tf32 path with bf16
+# tiles, dwconv.cu's conv_taps16, conv_bf16_rot and dtaps_16, ln_bwd.cuh on
+# bf16): C = 6 (h = 15), the level-1 shapes at B = 3, odd h (127, 255,
+# 1,021), a split latent and C = 576, past the 512 channels the LayerNorm
+# holds in registers
+BF16_TILE_SHAPES = [(1, 20, 19, 6), (3, 128, 128, 48), (3, 128, 128, 96), (2, 12, 13, 192),
+                    (1, 9, 33, 384), (1, 8, 9, 576)]
+
+
+def _exact_recompute_inputs(gen, b, h, w, c):
+    """bf16 block inputs on which the bf16 recompute rounds nothing: x in
+    [-2, 2] and a in [-1, 1] integers, 1x1 weights with four entries of +-1 a
+    row, ln_w 0 and ln_b in {-1, 0, 1}, so t, u = ln_b and h are small
+    integers, exact in bf16 and in the fp32 kernels alike; the taps, W_out
+    and everything after the recompute random."""
+    hid = int(c * 2.66)
+
+    def ints(*shape, lo, hi):
+        return torch.randint(lo, hi + 1, shape, device="cuda", generator=gen).float()
+
+    def sparse(rows, cols):
+        m = torch.zeros(rows, cols, device="cuda")
+        idx = torch.rand(rows, cols, device="cuda", generator=gen).argsort(dim=1)[:, :4]
+        return m.scatter_(1, idx, ints(rows, min(4, cols), lo=0, hi=1) * 2 - 1)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+    p = dict(x=ints(b, h, w, c, lo=-2, hi=2), a=ints(b, h, w, c, lo=-1, hi=1),
+             ln_w=torch.zeros(c, device="cuda"), ln_b=ints(c, lo=-1, hi=1),
+             w_qkv=sparse(3 * c, c), dw_qkv=r(3 * c, 3, 3, scale=0.3), w_proj=sparse(c, c),
+             w_in=sparse(2 * hid, c), dw_in=r(2 * hid, 3, 3, scale=0.3),
+             w_out=r(c, hid, scale=hid ** -0.5))
+    return _to_bf16(p)
+
+
+def _bf16_tile_call(form, args, g, bf16_ops):
+    """A call of the form (or, on fp32 args and g, of its fp32 kernel)."""
+    if form == "block_tail_bwd_bf16":
+        return lambda: tblock.block_tail_bwd(*args, g, bf16_ops)
+    return lambda: tfused.fused_dwconv_bwd(*args, None, g, bf16_ops)[:3]
+
+
+def _bf16_tile_args(form, p):
+    if form == "block_tail_bwd_bf16":
+        return [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")]
+    return [p["x"], p["w_qkv"], p["dw_qkv"]]
+
+
+def _assert_same_bits_with_g_two_bytes_off(form, args, g, bf16_ops, want):
+    buf = torch.empty(g.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    g_off = buf[1:].view_as(g).copy_(g)
+    assert g_off.data_ptr() % 4 == 2
+    for x, y in zip(_bf16_tile_call(form, args, g_off, bf16_ops)(), want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_TILE_SHAPES)
+@pytest.mark.parametrize("form", ["block_tail_bwd_bf16", "conv1x1_dw_bwd_bf16"])
+@pytest.mark.parametrize("bf16_ops", [False, True], ids=["3xtf32", "ops16"])
+def test_bf16_tail_and_qkv_backwards_on_bf16_tiles_keep_the_widening_designs_bits(
+        cuda_device, shape, form, bf16_ops):
+    """On inputs whose recompute rounds nothing, every output equals, bit
+    for bit, the fp32 kernel's on the widened inputs with each bf16 output
+    rounded once (RNE): the design these forms replace, which widened every
+    operand, ran the fp32 design and rounded after; both repeat bitwise; a
+    call counts one launch and puts on the card as many kernels as the fp32
+    design, none of them a widening or rounding pass; it allocates its
+    outputs, one workspace and the sums, no fp32 copy. Those inputs leave u
+    and h the same at every pixel, so the same forms also run on random
+    inputs, held against their plain bf16 twins (with the policy's operands)
+    at the bf16 training gates: bf16 outputs within BF16_RTOL, the tail's
+    dln_w and dln_b within BF16_FLIP_RTOL of the twin's arithmetic in
+    float64. On both, a cotangent 2 bytes off its allocation gives the same
+    bits."""
+    import functools
+    b, h, w, c = shape
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    tail = form == "block_tail_bwd_bf16"
+    args = _bf16_tile_args(form, _exact_recompute_inputs(gen, b, h, w, c))
+    g = torch.randn(b, h, w, c if tail else 3 * c, device="cuda", generator=gen).bfloat16()
+    call = _bf16_tile_call(form, args, g, bf16_ops)
+    wide = _bf16_tile_call(form, [None if t is None else t.float() for t in args], g.float(),
+                           bf16_ops)
+    name = build.counted(form, bf16_ops)
+    n0 = build.LAUNCHES[name]
+    torch.cuda.synchronize()
+    allocs0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = call()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs0
+    again, want = call(), wide()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    for x, y, z in zip(got, again, want):
+        assert x.dtype == (torch.float32 if z.shape == (c,) and tail else torch.bfloat16)
+        assert torch.equal(x, y) and torch.equal(x, z.to(x.dtype))
+    records, records32 = _device_records(call), _device_records(wide)
+    assert not any("cast" in r for r in records), records
+    assert len(records) == len(records32), (records, records32)
+    assert allocs == len(got) + 2, allocs
+    _assert_same_bits_with_g_two_bytes_off(form, args, g, bf16_ops, got)
+
+    args = _bf16_tile_args(form, _to_bf16(_block_inputs(gen, b, h, w, c, True)))
+    g = torch.randn(b, h, w, c if tail else 3 * c, device="cuda", generator=gen).bfloat16()
+    call = _bf16_tile_call(form, args, g, bf16_ops)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    if tail:
+        plain = tblock.block_tail_bwd_plain(*args, g, bf16_ops)
+        rounded = functools.partial(tblock._block_tail_rounded, torch.bfloat16,
+                                    bf16_ops=bf16_ops)
+        plain64 = tblock._vjp_plain(rounded, _double(args), g.double())
+    else:
+        plain, plain64 = tfused.fused_dwconv_bwd_plain(*args, None, g, bf16_ops)[:3], None
+    _check_bf16_outputs(form, got, again, plain, plain64)
+    _assert_same_bits_with_g_two_bytes_off(form, args, g, bf16_ops, got)

@@ -1,13 +1,17 @@
-"""Where the time of the bf16 MDTA kernels goes, by subtraction, on one CUDA
+"""Where the time of the bf16 kernels goes, by subtraction, on one CUDA
 card: the Gram forward (row 3), the apply forward (row 4), the Gram
 backward (row 6, both operand policies) and the apply backward (row 7,
-both operand policies), each on a bf16 qkv.
+both operand policies), each on a bf16 qkv; and bf16 training's block-tail
+backward (row 5, tail) and qkv backward (row 9, qkv), both operand
+policies, in the design that widens its bf16 operands in a launch of its
+own and rounds its outputs in another (csrc/cast.cuh).
 
-    python tools/port_bf16_ablate.py [--rows 3 4 6 7] [--variants full nostore ...]
+    python tools/port_bf16_ablate.py [--rows 3 4 6 7 5 9] [--variants full nostore ...]
+                                     [--root DIR]
 
-Copies this checkout's rcot_torch into build/ablate_<variant>/ with only
-the sources the chosen rows need, cuts one part of their kernels in the
-copy's csrc (or its plan in ops/gram.py):
+Copies the rcot_torch of DIR (default: this checkout) into
+build/ablate_<variant>/ with only the sources the chosen rows need, cuts
+one part of their kernels in the copy's csrc (or its plan in ops/gram.py):
 
   full      nothing cut;
   nostore   the stores of the results (the Gram forward's partials of G,
@@ -31,13 +35,30 @@ copy's csrc (or its plan in ops/gram.py):
             R = 5-6 (row 7; a whole range of six tiles in flight at train L1);
   sub1, slot128, slot256  the Gram forward's ring slots one stage each
             (not two), or 128 pixels each, or 256 up to R = 4 and 128
-            above (row 3; the same sums),
+            above (row 3; the same sums);
+  nowiden   the launch that widens the bf16 operands into fp32 workspaces
+            (rows 5 and 9);
+  nonarrow  the launch that rounds the fp32 results to the bf16 outputs
+            (rows 5 and 9);
+  noprod    the backward's 1x1 products and pixel sums with their
+            fixed-order reduces (rows 5 and 9; the recompute's products
+            stay);
+  lb1       the products on bf16 tiles of the tf32 path (mm.cuh) built
+            for one block an SM, so that they take up to 255 registers
+            and spill none (rows 5 and 9 on bf16 tiles);
+  nob1      the products' single-bf16 copies (W_out's rows at odd h, which
+            the threads load and store themselves) left unread (rows 5
+            and 9 on bf16 tiles),
 
 builds the copies at once, then times each in a process of its own, in
 turns (full first and last): device ms a call (chip_smoke.device_ms) and
 each launch's (tools/port_block_bwd_times.py stage_split), row 3 at serve
 L1, serve decoder L1 and train L1, row 4 at serve L1, decoder L1 and L1 at
-batch 8, rows 6 and 7 at train L1 and decoder L1 (128^2, B = 3). A cut
+batch 8, rows 5-7 and 9 at train L1 and decoder L1 (128^2, B = 3). Rows 5
+and 9's nowiden, nonarrow and noprod cuts are made in the design that
+widens and rounds in launches of its own (`--root` on a checkout that holds
+it); a tree without that design refuses them.
+A cut
 kernel computes nothing useful; only its time is read. A variant that cuts
 nothing in a row's sources is not timed for it. Each line names its
 variant; the last line the card's name and power limit. Not part of the
@@ -58,7 +79,11 @@ HERE = Path(__file__).resolve().parents[1]
 # the sources each row's kernels compile from
 ROW_SOURCES = {"3": {"gram_bf16.cu"}, "4": {"gram_bf16.cu"},
                "6": {"gram_bwd_bf16.cu", "gram_bwd_bf16_b16ops.cu"},
-               "7": {"apply_bwd_bf16.cu", "apply_bwd_bf16_b16ops.cu"}}
+               "7": {"apply_bwd_bf16.cu", "apply_bwd_bf16_b16ops.cu"},
+               "5": {"block_bwd_bf16.cu", "dwconv.cu"},
+               "9": {"fused_dwconv_bf16.cu", "dwconv.cu"}}
+# rows 5 and 9's cuts, the same text in either source
+WIDENING = {"5": "csrc/block_bwd_bf16.cu", "9": "csrc/fused_dwconv_bf16.cu"}
 # variant -> [(rows, file under rcot_torch/, text, replacement)]; each text
 # must be found where the rows it serves are built
 CUTS = {
@@ -124,6 +149,16 @@ CUTS = {
     "deep": [("3", "csrc/gram_bf16.cu", "constexpr int kStagesBf = 3;",
               "constexpr int kStagesBf = 8;")],
     "split2": [("3", "ops/gram.py", "GRAM_BLOCKS_PER_SM = 1", "GRAM_BLOCKS_PER_SM = 2")],
+    "nowiden": [(r, f, "  RCOT_TRY(up.run(st));", "  (void)up;") for r, f in WIDENING.items()],
+    "nonarrow": [(r, f, "  return down.run(st);", "  (void)down;\n  return cudaSuccess;")
+                 for r, f in WIDENING.items()],
+    "noprod": [(r, f, old, "if (n < 0) " + old) for r, f in WIDENING.items()
+               for old in ("RCOT_TRY((product<true, ", "RCOT_TRY(pixel_sum<OPS16>(")],
+    "lb1": [("59", "csrc/mm.cuh", "__global__ void __launch_bounds__(kThreads, 2) mm_kernel(",
+             "__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 && (sizeof(EA) == 2 || "
+             "sizeof(EB) == 2 || sizeof(EO) == 2) ? 1 : 2) mm_kernel(")],
+    "nob1": [("59", "csrc/mm.cuh", "      *to = in ? *from : from_f<T>(0.f);",
+              "      *to = from_f<T>(0.f);")],
 }
 
 
@@ -131,12 +166,12 @@ def cuts(variant: str, rows) -> list:
     return [c for c in CUTS[variant] if any(r in c[0] for r in rows)]
 
 
-def make_tree(variant: str, rows) -> Path:
-    """build/ablate_<variant>/rcot_torch with the rows' sources alone and
-    the cut made."""
+def make_tree(variant: str, rows, src: Path = HERE) -> Path:
+    """build/ablate_<variant>/rcot_torch, src's with the rows' sources alone
+    and the cut made."""
     root = HERE / "build" / f"ablate_{variant}"
     shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(HERE / "rcot_torch", root / "rcot_torch",
+    shutil.copytree(src / "rcot_torch", root / "rcot_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     keep = set().union(*(ROW_SOURCES[r] for r in rows))
     for f in (root / "rcot_torch" / "csrc").glob("*.cu"):
@@ -166,7 +201,7 @@ def time_tree(root: Path, rows) -> dict:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     import port_block_bwd_times as bwd_times
-    torch, g = cs.torch, cs.kgram
+    torch, g, kb, kf = cs.torch, cs.kgram, cs.kblock, cs.kfused
     cs.build.library()
     gen = torch.Generator(device="cuda").manual_seed(3)
 
@@ -196,6 +231,19 @@ def time_tree(root: Path, rows) -> dict:
             if "7" in rows:
                 calls[f"attn_apply_bwd_bf16{sfx} {tag}"] = (
                     lambda q=qkv, a=attn, x=gc, o=ops: g.attn_apply_bwd(q, a, x, bf16_ops=o))
+        if not {"5", "9"} & set(rows):
+            continue
+        p = cs.bf16_block_inputs(cs.block_inputs(gen, b, res, ch, True))
+        g_m = r(b, res, res, 3 * ch).to(torch.bfloat16)
+        for ops in (False, True):
+            sfx = "_b16ops" if ops else ""
+            if "5" in rows:
+                calls[f"block_tail_bwd_bf16{sfx} {tag}"] = (
+                    lambda p=p, x=gc, o=ops: kb.block_tail_bwd(*cs.tail_args(p), x, bf16_ops=o))
+            if "9" in rows:
+                calls[f"conv1x1_dw_bwd_bf16{sfx} {tag}"] = (
+                    lambda p=p, x=g_m, o=ops: kf.fused_dwconv_bwd(*cs.fused_args(p, False), x,
+                                                                  bf16_ops=o))
     return {key: [cs.device_ms(fn)[0], bwd_times.stage_split(cs, fn).get("by_launch")]
             for key, fn in calls.items()}
 
@@ -204,6 +252,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", nargs="+", default=list(ROW_SOURCES), choices=list(ROW_SOURCES))
     ap.add_argument("--variants", nargs="+", default=list(CUTS), choices=list(CUTS))
+    ap.add_argument("--root", type=Path, default=HERE,
+                    help="the tree whose rcot_torch is copied (default: this checkout)")
     ap.add_argument("--time", help=argparse.SUPPRESS)  # a child: time this tree
     args = ap.parse_args()
     if args.time:
@@ -213,7 +263,7 @@ def main() -> int:
     variants = {v: [r for r in args.rows if v == "full" or cuts(v, [r])]
                 for v in dict.fromkeys(["full", *args.variants])}
     variants = {v: rows for v, rows in variants.items() if rows}
-    roots = {v: make_tree(v, rows) for v, rows in variants.items()}
+    roots = {v: make_tree(v, rows, args.root.resolve()) for v, rows in variants.items()}
     builds = [subprocess.Popen([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
                                 " from rcot_torch.kernels import build; build.build()", str(root)],
                                cwd=HERE) for root in roots.values()]

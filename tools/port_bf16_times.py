@@ -15,8 +15,10 @@ dwconv3x3_bf16 at 2h and 3C, dwconv3x3_dx_bf16 and dwconv3x3_dtaps_bf16 at
 As tools/port_gram_times.py does: rcot_torch and its kernels are DIR's
 (default: this checkout), timed with this checkout's
 chip_smoke.bf16_timings and bf16_train_timings (`ms`, `device_ms`, the
-bound at bf16 bytes and the bf16 tensor-core rate for bf16 products, row
-6's TF32 products at the TF32 rate, the fp32 rate for the rest, the plain
+bound at bf16 bytes and the bf16 tensor-core rate for products of two bf16
+operands, a product of a bf16 and an fp32 operand as two TF32 terms at the
+TF32 rate (chip_smoke.bf16_bwd_work, bf16_gram_yardstick), the fp32 rate
+for the rest, the plain
 bf16 twin, `bmm` on bf16 heads for rows 3-4 and 6-7). At serve L1, decoder
 L1 and the latent each call of rows 1-4 is then split by launch in bf16 and
 in fp32 on the same inputs (tools/port_block_bwd_times.py stage_split:
@@ -31,14 +33,14 @@ Last come the sums per serving forward and per bf16 training iteration
 off/mdta/dwconv forward and tail/mdta/dwconv iteration) and the root and
 the card's name and power limit.
 
-With --redesigned it times only the bf16 forms of rows 3 and 7 that their
-latest Hopper redesign replaced (mdta_gram_fwd_bf16 at serve L1 and
-decoder L1, B = 1; attn_apply_bwd_bf16 and attn_apply_bwd_bf16_b16ops at
+With --redesigned it times only the bf16 forms that their latest Hopper
+redesign replaced (REDESIGNED: row 5's tail and row 9's qkv backward,
+block_tail_bwd_bf16 and conv1x1_dw_bwd_bf16, in both operand policies, at
 train L1 and decoder L1, B = 3): device ms, event ms and the kernels one
-call puts on the card, with chip_smoke.bf16_gram_yardstick's bound and
-library call (bmm on bf16 heads, device ms) for each, on seeded inputs,
-one JSON line. chip_smoke.py --root runs it on the parent and on this tree
-in turns (parent, this, this, parent).
+call puts on the card, with chip_smoke.bf16_bwd_work's bound (no library
+call computes them), on seeded inputs, one JSON line. chip_smoke.py --root
+runs it on the parent and on this tree in turns (parent, this, this,
+parent).
 """
 
 from __future__ import annotations
@@ -173,43 +175,43 @@ def opt_in(smoke, gen) -> dict:
 
 
 # the forms the redesign replaced, by the path and the levels they are timed at
-REDESIGNED = {"serve": ("mdta_gram_fwd_bf16",),
-              "train": ("attn_apply_bwd_bf16", "attn_apply_bwd_bf16_b16ops")}
+REDESIGNED = {"train": ("block_tail_bwd_bf16", "block_tail_bwd_bf16_b16ops",
+                        "conv1x1_dw_bwd_bf16", "conv1x1_dw_bwd_bf16_b16ops")}
 REDESIGNED_AT = ("L1", "decoder_level1")
 
 
 def redesigned(smoke) -> dict:
     """{"<form> <path> <level>": {device_ms, device_records (kernels a
     call), ms, bound_ms, bound_by, library_device_ms}} of the bf16 forms of
-    rows 3 and 7, on inputs seeded alike in every tree; the bound and the
-    library call (bmm on bf16 heads) from chip_smoke.bf16_gram_yardstick."""
-    torch, kg = smoke.torch, smoke.kgram
+    row 5's tail and row 9's qkv backward in both operand policies, on
+    inputs seeded alike in every tree; the bound from chip_smoke.bf16_bwd_work
+    (the rate each policy's products run at), no library call (None)."""
+    torch, kb, kf = smoke.torch, smoke.kblock, smoke.kfused
     gen = torch.Generator(device="cuda").manual_seed(19)
 
     def r(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
     out = {}
-    for path, b, shapes in (("serve", 1, smoke.MAIN_SHAPES),
-                            ("train", smoke.TRAIN_B, smoke.TRAIN_SHAPES)):
+    for path, b, shapes in (("train", smoke.TRAIN_B, smoke.TRAIN_SHAPES),):
         for label, res, c, heads in shapes:
             if label not in REDESIGNED_AT:
                 continue
-            ch = c // heads
-            qkv = r(b, res, res, 3 * c).to(torch.bfloat16)
-            attn = torch.softmax(r(b, heads, ch, ch), -1)
-            g = r(b, res, res, c).to(torch.bfloat16)
-            yard = smoke.bf16_gram_yardstick(qkv, heads, attn=attn, g=g)
-            calls = {"mdta_gram_fwd_bf16": lambda: kg.mdta_gram_fwd(qkv, heads),
-                     "attn_apply_bwd_bf16": lambda: kg.attn_apply_bwd(qkv, attn, g),
-                     "attn_apply_bwd_bf16_b16ops": lambda: kg.attn_apply_bwd(
-                         qkv, attn, g, bf16_ops=True)}
+            p = smoke.bf16_block_inputs(smoke.block_inputs(gen, b, res, c, True))
+            g_c, g_m = r(b, res, res, c).to(torch.bfloat16), r(b, res, res, 3 * c).to(
+                torch.bfloat16)
+            tail, qkv = smoke.tail_args(p), smoke.fused_args(p, False)
             for name in REDESIGNED[path]:
-                fn, (lib, flops, nbytes) = calls[name], yard[name]
+                ops16 = name.endswith("_b16ops")
+                fn = ((lambda o=ops16: kb.block_tail_bwd(*tail, g_c, bf16_ops=o))
+                      if name.startswith("block_tail") else
+                      (lambda o=ops16: kf.fused_dwconv_bwd(*qkv, g_m, bf16_ops=o)))
+                flops, nbytes = smoke.bf16_bwd_work(b, res * res, c, ops16)[
+                    name.replace("_b16ops", "")]
                 bound_ms, by = smoke.bound_at(flops, nbytes)
                 dev, records = smoke.device_ms(fn)
                 out[f"{name} {path} {label}"] = dict(
                     device_ms=dev, device_records=records, ms=smoke.cuda_ms(fn),
-                    bound_ms=bound_ms, bound_by=by, library_device_ms=smoke.device_ms(lib)[0])
+                    bound_ms=bound_ms, bound_by=by, library_device_ms=None)
     return out
 
 

@@ -10,7 +10,9 @@ composition of the fused tier, a full-width T_net from a seed at 128^2
 (`bf16_serving`); and rows 3-4, 6 and 7 on a bf16 qkv at odd widths, a
 ragged pixel count, the main path's heads and two channel blocks, rows 6
 and 7 in both operand policies, and row 7 in both at train L1 and decoder
-L1 (`bf16_mdta_edges`).
+L1 (`bf16_mdta_edges`); and rows 5 (tail) and 9 (qkv) in bf16 in both
+operand policies at train L1 and the latent, and at odd shapes with a
+cotangent 2 bytes off (`bf16_tile_edges`).
 
     python tools/port_fp32_digests.py [--root DIR]
 
@@ -77,7 +79,39 @@ def opt_in_and_bf16(smoke) -> dict:
         calls = {**smoke.bf16_block_calls(p, r), **smoke.bf16_mdta_calls(qkv, heads, r)}
         for name in sorted(calls):
             out[f"{name} train {label}"] = _hash(*(t for t in calls[name][0]() if t is not None))
+        # rows 5 tail and 9 qkv in bf16 with bf16 operands in their products
+        b16 = smoke.b16ops_calls(p, qkv, heads, r)
+        for name in ("block_tail_bwd_bf16_b16ops", "conv1x1_dw_bwd_bf16_b16ops"):
+            out[f"{name} train {label}"] = _hash(*(t for t in b16[name][0]() if t is not None))
     out.update(bf16_mdta_edges(smoke, r))
+    out.update(bf16_tile_edges(smoke, gen, r))
+    return out
+
+
+# (b, h, w, c): bf16 training's row 5 tail and row 9 qkv backward also at C =
+# 6 (h = 15), odd shapes, the latent's and C = 576 (the LayerNorm's wide
+# path), each with a cotangent 2 bytes off its allocation
+BF16_TILE_EDGES = [(1, 20, 19, 6), (2, 12, 13, 192), (1, 9, 33, 384), (1, 8, 9, 576)]
+
+
+def bf16_tile_edges(smoke, gen, r) -> dict:
+    """SHA-256 of rows 5 (tail) and 9 (qkv) backward in bf16, both operand
+    policies, at BF16_TILE_EDGES, the cotangent 2 bytes off."""
+    torch, bf16 = smoke.torch, smoke.torch.bfloat16
+    out = {}
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view_as(t).copy_(t)
+    for b, h, w, c in BF16_TILE_EDGES:
+        p = smoke.bf16_block_inputs(smoke.block_inputs(gen, b, h, c, True, w))
+        g_c, g_m = off(r(b, h, w, c).to(bf16)), off(r(b, h, w, 3 * c).to(bf16))
+        for ops in (False, True):
+            got = (*smoke.kblock.block_tail_bwd(*smoke.tail_args(p), g_c, bf16_ops=ops),
+                   *smoke.kfused.fused_dwconv_bwd(*smoke.fused_args(p, False), g_m,
+                                                  bf16_ops=ops)[:3])
+            out[f"rows 5 tail, 9 qkv bf16{'_b16ops' if ops else ''} {(b, h, w, c)}"] = _hash(
+                *(t for t in got if t is not None))
     return out
 
 
