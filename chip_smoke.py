@@ -94,8 +94,9 @@ Phases (any failure exits non-zero; nothing is caught):
      each level, the decoder's and the refinement's), rows 6-7 also at the
      wide heads of phase 3e, each bitwise against a second call, and timed
      as phase 5 times the others at BF16_TRAIN_TIMED_SHAPES, before the
-     training phases; then one bf16 "tail" iteration at 128^2, B = 3 under
-     torch.profiler: each form of its path launched 94 times and no
+     training phases; then one bf16 "tail" and one bf16 "head" iteration
+     at 128^2, B = 3 under torch.profiler ("head" runs the head's and the
+     GDFN's backward forms): each form of its path launched 94 times and no
      widening or rounding pass (CAST_KERNEL) on the card;
   5d. rows 10 and 11 in bf16 (mdta_attend_bf16, dwconv3x3_bf16,
      dwconv3x3_dx_bf16, dwconv3x3_dtaps_bf16) against their plain bf16
@@ -214,10 +215,11 @@ Phases (any failure exits non-zero; nothing is caught):
      equal: each fp32 kernel's outputs, rows 1-9's bf16 forms, bf16
      serving's outputs in full/head/tail/off in the fused tier and rows 3-4,
      6 and 7 on bf16 at odd widths, a ragged image and two channel blocks
-     (rows 6 and 7 in both operand policies), rows 5 (tail) and 9 (qkv)
-     in bf16 in both operand policies, also at odd shapes with a cotangent
-     2 bytes off, bit for bit; then the bf16 forms that their latest
-     Hopper redesign replaced (rows 5's tail and 9's qkv, both policies),
+     (rows 6 and 7 in both operand policies), rows 5 (tail, head) and 9
+     (qkv, GDFN) in bf16 in both operand policies, also at odd shapes with
+     a cotangent 2 bytes off, bit for bit; then the bf16 forms that their
+     latest Hopper redesign replaced (rows 5's head and 9's GDFN, both
+     policies),
      device ms and kernels a call, on PARENT and on this checkout in turns
      (tools/port_bf16_times.py --redesigned).
 
@@ -1924,9 +1926,9 @@ def bf16_bwd_work(b, n, c, ops16=False) -> dict:
     GDFN's dgate = g W_out; under ops16 every backward product, whose fp32
     side is rounded to bf16); a product of a bf16 and an fp32 operand (du,
     da, dx and the weight grads in 3xTF32) as the two TF32 terms it needs,
-    the bf16 side's low half being zero, at the TF32 rate (the head and the
-    GDFN run three on widened copies); the stencils, the gate and the
-    LayerNorm at the fp32 rate. Bytes: bf16 activations and weights, fp32
+    the bf16 side's low half being zero, at the TF32 rate (as every form
+    runs them on bf16 tiles); the stencils, the gate and the LayerNorm at
+    the fp32 rate. Bytes: bf16 activations and weights, fp32
     LayerNorm weights, each input read once, each output written once."""
     m, hid = 3 * c, int(c * 2.66)
     w_qkv = 2 * (m * c + 9 * m)
@@ -2007,44 +2009,54 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     return out
 
 
-# the name of csrc/cast.cuh's kernel, the widening and rounding passes
+# the kernel name of a pass that widens bf16 operands into fp32 copies or
+# rounds fp32 results into bf16 outputs: no bf16 form may launch one
 CAST_KERNEL = "cast_kernel"
+# the bf16 compositions profiled: "tail" (cli.train --dtype bfloat16's
+# default) and "head", which runs the head's and the GDFN's backward forms
+PROFILED_BF16 = ("tail", "head")
 
 
-def phase_bf16_tail_profile(gen, card) -> dict:
-    """One bf16 "tail" minimax iteration at 128^2, B = 3 (cli.train --dtype
-    bfloat16's default path) under torch.profiler, after a warm one: it
-    launches each form of BF16_TRAIN_PATH 94 times and puts no widening or
-    rounding pass (CAST_KERNEL) on the card: its bf16 backward forms run on
-    bf16 tiles. Run before the training phases, after which the profiler
-    loses device records."""
+def phase_bf16_profile(gen, card) -> dict:
+    """One bf16 minimax iteration at 128^2, B = 3 in each composition of
+    PROFILED_BF16 under torch.profiler, each after a warm one, from one
+    state: each launches every form of its bf16 path (bf16_path) 94 times
+    and puts no widening or rounding pass (CAST_KERNEL) on the card: its
+    bf16 backward forms run on bf16 tiles. Run before the training phases,
+    after which the profiler loses device records."""
     cfg = Config(train=TrainConfig(dtype="bfloat16"))
     state = create_train_state(cfg, seed=0, device="cuda")
     batches, alphas = bf16_batches(*train_inputs(gen, cfg))
     iteration = make_train_iteration(cfg)
     lr = step_decay_lr(cfg.train.lr, 0, cfg.train.lr_step)
-    state, _ = iteration(state, batches[0], alphas[0], True, lr)
-    torch.cuda.synchronize()
-    build.reset_launches()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        state, metrics = iteration(state, batches[1], alphas[1], False, lr)
+    # the card's records alone: the host's would only cost their processing
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for mode in PROFILED_BF16:
+        state.t_net.composition = mode
+        state, _ = iteration(state, batches[0], alphas[0], True, lr)
         torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    check_launches("bf16 tail profiled iteration", launches,
-                   {name: FORWARD_LAUNCHES for name in BF16_TRAIN_PATH})
-    records = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    casts = sum(CAST_KERNEL in e.name for e in records)
-    ours = sum(any(k in e.name for k in ("mm_kernel", "dwconv3x3", "ln_bwd", "gram"))
-               for e in records)
-    if not ours or casts:
-        raise AssertionError(f"bf16 tail iteration: {len(records)} device records, {ours} of "
-                             f"the port's kernels, {casts} {CAST_KERNEL}")
-    if not all(np.isfinite(float(v)) for v in metrics.values()):
-        raise AssertionError(f"bf16 tail profiled iteration: metrics not finite: {metrics}")
-    out = dict(device_records=len(records), port_kernel_records=ours, cast_records=casts,
-               device_ms=sum(e.time_range.elapsed_us() for e in records) / 1e3, card=card)
-    log(f"bf16 tail iteration profiled: {json.dumps(out)}")
+        build.reset_launches()
+        with torch.profiler.profile(activities=acts) as prof:
+            state, metrics = iteration(state, batches[1], alphas[1], False, lr)
+            torch.cuda.synchronize()
+        check_launches(f"bf16 {mode} profiled iteration", dict(build.LAUNCHES),
+                       {name: FORWARD_LAUNCHES for name in bf16_path(mode)})
+        records = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        casts = sum(CAST_KERNEL in e.name for e in records)
+        ours = sum(any(k in e.name for k in ("mm_kernel", "dwconv3x3", "ln_bwd", "gram"))
+                   for e in records)
+        if not ours or casts:
+            raise AssertionError(f"bf16 {mode} iteration: {len(records)} device records, {ours} "
+                                 f"of the port's kernels, {casts} {CAST_KERNEL}")
+        if not all(np.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError(f"bf16 {mode} profiled iteration: metrics not finite: {metrics}")
+        out[mode] = dict(device_records=len(records), port_kernel_records=ours,
+                         cast_records=casts,
+                         device_ms=sum(e.time_range.elapsed_us() for e in records) / 1e3,
+                         card=card)
+        log(f"bf16 {mode} iteration profiled: {json.dumps(out[mode])}")
+    state.t_net.composition = "tail"
     return out
 
 
@@ -3970,8 +3982,9 @@ def redesigned_turns(here: Path, roots: dict) -> dict:
     on this one in turns (parent, this, this, parent), each run in a process
     that imports its tree's rcot_torch (the kernels built by phase 9's
     digests): each form's device ms in the two turns of each tree, the
-    kernels one call puts on the card, this tree's event ms, the bound and
-    the library call's device ms."""
+    kernels one call puts on the card and the bytes it allocates at its
+    peak, this tree's event ms, the bound and the library call's device
+    ms."""
     tool = here / "tools" / "port_bf16_times.py"
     runs = []
     for tag in ("parent", "this", "this", "parent"):
@@ -3988,6 +4001,7 @@ def redesigned_turns(here: Path, roots: dict) -> dict:
         for tag, rows in runs:
             row[f"{tag}_device_ms"].append(rows[key]["device_ms"])
             row[f"{tag}_kernels_a_call"] = rows[key]["device_records"]
+            row[f"{tag}_peak_bytes"] = rows[key]["peak_bytes"]
         row["this_ms"] = [rows[key]["ms"] for tag, rows in runs if tag == "this"]
         row.update({k: runs[1][1][key][k] for k in ("bound_ms", "bound_by",
                                                      "library_device_ms")})
@@ -4100,8 +4114,7 @@ def main(argv=None) -> int:
     bf16_train_times = {label: bf16_train_timings(gen_bf16, label, res, c, heads, TRAIN_B)
                         for label, res, c, heads in TRAIN_SHAPES
                         if label in BF16_TRAIN_TIMED_SHAPES}
-    bf16_tail_profile = phase_bf16_tail_profile(torch.Generator(device="cuda").manual_seed(16),
-                                                card)
+    bf16_profiles = phase_bf16_profile(torch.Generator(device="cuda").manual_seed(16), card)
     lap('bf16 training kernels')
     # the bf16-operand forms (--bwd-bf16), on inputs of their own, checked
     # and timed before the training phases too
@@ -4302,7 +4315,8 @@ def main(argv=None) -> int:
                         "resume_full": {k: v for k, v in bf16_resume.items()
                                         if k != "launches"},
                         "kernel_errs": bf16_train_errs,
-                        "tail_iteration_profiled": bf16_tail_profile},
+                        "tail_iteration_profiled": bf16_profiles["tail"],
+                        "head_iteration_profiled": bf16_profiles["head"]},
                     "bf16_opt_in": {
                         "serve_off_mdta_dwconv_256px": bf16_serve_opt,
                         "train_tail_mdta_dwconv_128px_b3": {

@@ -21,16 +21,17 @@
 //
 //   head recompute: u = bf16(LN1(x)) (fp32 statistics), h = bf16(u @
 //              W_qkv^T) (:280-285); no conv: with no gate dconv = g (:309);
-//   head backward, in fp32 on the widened values: dh = the rotated dw3x3
+//   head backward, in fp32 on the bf16 values: dh = the rotated dw3x3
 //   of g, ddw = the pixel sum of g times the h taps, du = dh @ W_qkv,
 //   dW_qkv = dh^T u, the LN backward at x; outputs dx = bf16(dx), dW_qkv
 //   and ddw rounded to bf16, dln_w, dln_b fp32.
 //
 // Bound on an H100 SXM: as block_bwd.cu's, bound by its operations (the
 // tail 2 N (3 C^2 + 8 h C) flops of products, the head 2 N 2 * 3C C, the
-// recompute's part in bf16 on the tensor cores; the tail's backward
-// products as the tf32 terms they run, the head's as 3xTF32; the rest
-// fp32), with half its input bytes (chip_smoke.py states the bound).
+// recompute's part and every product of two bf16 operands in bf16 on the
+// tensor cores, a product of a bf16 and an fp32 operand as two TF32 terms;
+// the rest fp32), with half its input bytes (chip_smoke.py bf16_bwd_work
+// states the bound).
 //
 // Design. The tail's recompute is block_fwd_bf16.cu's tail forward up to
 // conv: mm.cuh's bf16 products (mma.sync m16n8k16, fp32 sums, the
@@ -40,29 +41,34 @@
 // product). So the backward starts from the rounded u and h, as JAX's
 // does.
 //
-// The tail's backward is block_bwd.cu's on the bf16 tensors themselves:
-// its 1x1 products and pixel sums are mm.cuh's tf32 path on bf16 tiles
-// (product with T = float, pixel_sum: a bf16 operand staged by cp.async at half the
-// bytes, each value widened into its tf32 fragment, the 3xTF32 terms of its
-// zero low half left out: dgate = g W_out one mma.sync a step, the rest
-// two), the rotated depthwise of the fp32 dconv on the bf16 taps
-// (conv_taps16), dtaps of the bf16 h with dconv (dtaps_16) on the fp32
-// plan's tiles, and ln_bwd.cuh on the bf16 t and residual g, writing the
-// fp32 dt for da and dW_proj and the bf16 dx in the same launch; each bf16
-// output (da, dW_out, dW_in, dW_proj, ddw, dx) is rounded once where it is
+// Both backwards are block_bwd.cu's on the bf16 tensors themselves: their
+// 1x1 products and pixel sums are mm.cuh's tf32 path on bf16 tiles
+// (product with T = float, pixel_sum: a bf16 operand staged by cp.async at
+// half the bytes, each value widened into its tf32 fragment, the 3xTF32
+// terms of its zero low half left out: the tail's dgate = g W_out one
+// mma.sync a step, the rest two). The tail's depthwise backward is the
+// rotated depthwise of the fp32 dconv on the bf16 taps (conv_taps16) and
+// dtaps of the bf16 h with dconv (dtaps_16) on the fp32 plan's tiles; the
+// head's, whose dconv is its bf16 cotangent g, the rotated depthwise of g
+// on the bf16 taps into fp32 (conv_bf16_rot) and dtaps of the bf16 h and g
+// (dtaps_16) on the fp32 plan's columns and band. ln_bwd.cuh reads the
+// bf16 t (the head's x) as it is: the tail's adds the residual g and
+// writes the fp32 dt for da and dW_proj beside the bf16 dx in the same
+// launch, the head's writes the bf16 dx alone. Each bf16 output (da,
+// dW_out, dW_in, dW_proj, dW_qkv, ddw, dx) is rounded once where it is
 // written, by an epilogue or after a fixed-order sum. Every sum keeps the
 // fp32 design's order and ranges, and every value the fp32 design took
 // widened is exact, so the outputs are the bits of that design on the
 // widened operands, rounded once: no widening or rounding launch, no fp32
-// copy of an operand, two launches fewer (eighteen at the level-1 shapes).
-// The head's backward still widens every operand into fp32 workspaces in
-// one launch (cast.cuh), runs block_bwd.cu's head on them and rounds its
-// bf16 outputs in one last launch. No atomics and no memsets: two calls
-// on the same inputs give the same bits. The plan is ops/block.py
-// block_bwd_plan's, the fp32 design's (copy widths in floats of the fp32
-// operands), and a second for the bf16 ones: the tail's seven ints (bf16 a
-// copy of the C-wide operands, of g and of W_out's rows, and the depthwise
-// forward's (vec, cv, tc, rows), bf16 into fp32), the head's one int.
+// copy of an operand (eighteen launches in the tail, ten in the head at
+// the level-1 shapes). No atomics and no memsets: two calls on the same
+// inputs give the same bits. The plan is ops/block.py block_bwd_plan's,
+// the fp32 design's (copy widths in floats of the fp32 operands), and a
+// second for the bf16 ones: the tail's seven ints (bf16 a copy of the
+// C-wide operands, of g and of W_out's rows, and the depthwise forward's
+// (vec, cv, tc, rows), bf16 into fp32), the head's nine (ops/block.py
+// qkv_bwd_bf16_plan: bf16 a copy of u and W_qkv, the (vec, cv, tc, rows)
+// of the rotated depthwise of g and of dtaps).
 //
 // bf16 operands (RCOT_BWD_BF16's "block" tier, the `ops16` argument): the
 // backward products take mm.cuh's OPS16 policy, as in block_bwd.cu; a bf16
@@ -72,7 +78,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "cast.cuh"
 #include "dwconv.cuh"
 #include "ln_bwd.cuh"
 #include "mm.cuh"
@@ -103,6 +108,10 @@ enum Prod { kProdT, kProdH, kProdDu, kProdDa };
 // u, W_in), of g and of W_out's rows, and the bf16 depthwise forward's
 // (vec, cv, tc, rows) into fp32 conv
 enum Plan16 { kVecC16, kVecG16, kVecH16, kDw16, kPlan16Ints = kDw16 + 4 };
+// The head's bf16 plan: bf16 a copy of u and W_qkv, and the (vec, cv, tc,
+// rows) of the rotated depthwise of g and of dtaps (bf16 a copy; dtaps's tc
+// and rows those of the fp32 plan)
+enum Head16 { kHVecC16, kHRot16, kHTaps16 = kHRot16 + 4, kHead16Ints = kHTaps16 + 4 };
 
 }  // namespace
 
@@ -157,43 +166,31 @@ int block_tail_bwd_bf16(const bf16* x, const bf16* a, const bf16* w_proj, const 
 template <bool OPS16>
 int block_head_bwd_bf16(const bf16* x, const float* ln_w, const float* ln_b, const bf16* w_qkv,
                         const bf16* dwk, const bf16* g, bf16* dx, float* dln_w, float* dln_b,
-                        bf16* dw_qkv, bf16* ddw, bf16* ub, bf16* hb, float* stats, float* x32,
-                        float* u32, float* h32, float* g32, float* dh, float* du, float* dx32,
-                        float* w32, float* dwk32, float* dw32, float* ddw32, float* sums,
-                        const int* plan, int vcb, int B, int H, int W, int C, int M, void* stream) {
+                        bf16* dw_qkv, bf16* ddw, bf16* ub, bf16* hb, float* stats, float* dh,
+                        float* du, float* sums, const int* plan, const int* plan16, int B, int H,
+                        int W, int C, int M, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * H * W;
-  const int vc = plan[kVecC], vm = plan[kVecM];
+  const int vm = plan[kVecM], vcb = plan16[kHVecC16];
+  const int* rot = plan16 + kHRot16;
+  const int* taps = plan16 + kHTaps16;
   // recompute in bf16, rounding as the forward: u = bf16(LN1(x)), h = bf16(u @ W_qkv^T)
   RCOT_TRY(ln_fwd(x, ln_w, ln_b, ub, stats, n, C, plan[kLnBlocks], st));
   RCOT_TRY((product<false, kEpiStore>(ub, C, vcb, w_qkv, vcb, hb, M, n, SPLIT(kProdH), sums,
                                       st)));
-  // every operand of the backward, widened to fp32
-  Widen up;
-  up.add(x, C, x32, C, n, C);
-  up.add(ub, C, u32, C, n, C);
-  up.add(hb, M, h32, M, n, M);
-  up.add(g, M, g32, M, n, M);
-  up.add(w_qkv, C, w32, C, M, C);
-  up.add(dwk, 9, dwk32, 9, M, 9);
-  RCOT_TRY(up.run(st));
-  // depthwise backward, dconv = g: dh = the rotated forward of g, ddw
-  RCOT_TRY(rcot_dwconv::conv(g32, dwk32, dh, B, H, W, M, plan[kDwRot], plan[kDwRot + 1],
-                             plan[kDwRot + 2], plan[kDwRot + 3], true, st));
-  RCOT_TRY(rcot_dwconv::dtaps(h32, g32, sums, ddw32, B, H, W, M, plan[kDwTaps],
-                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
-  // 1x1 backward: du = dh @ W_qkv, dW_qkv = dh^T u
-  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dh, M, vm, w32, vc, du, C, n, SPLIT(kProdDu),
-                                                   sums, st)));
-  RCOT_TRY(pixel_sum<OPS16>(dh, vm, u32, vc, dw32, sums, M, C, n, plan[kSumPer0], st));
-  // LN1: dx = LN-VJP(du) at x
-  RCOT_TRY(ln_bwd(x32, du, stats, ln_w, ln_b, nullptr, dx32, dln_w, dln_b, sums, n, C,
-                  plan[kLnPer], st));
-  Narrow down;
-  down.add(dx32, C, dx, C, n, C);
-  down.add(dw32, C, dw_qkv, C, M, C);
-  down.add(ddw32, 9, ddw, 9, M, 9);
-  return down.run(st);
+  // depthwise backward, dconv = g: dh = the rotated forward of the bf16 g
+  // on the bf16 taps into fp32, ddw = bf16(dtaps(h, g))
+  RCOT_TRY(rcot_dwconv::conv_bf16_rot(g, dwk, dh, B, H, W, M, rot[0], rot[1], rot[2], rot[3],
+                                      st));
+  RCOT_TRY(rcot_dwconv::dtaps_16(hb, g, true, sums, ddw, B, H, W, M, taps[0], taps[1], taps[2],
+                                 taps[3], st));
+  // W_qkv: du = dh @ W_qkv, dW_qkv = bf16(dh^T u) on bf16 tiles of W_qkv and u
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(dh, M, vm, w_qkv, vcb, du, C, n,
+                                                 SPLIT(kProdDu), sums, st)));
+  RCOT_TRY(pixel_sum<OPS16>(dh, vm, ub, vcb, dw_qkv, sums, M, C, n, plan[kSumPer0], st));
+  // LN1: dx = bf16(LN-VJP(du) at x), no fp32 dt
+  return ln_bwd(x, du, stats, ln_w, ln_b, nullptr, nullptr, dln_w, dln_b, sums, n, C,
+                plan[kLnPer], st, dx);
 }
 
 }  // namespace
@@ -224,20 +221,16 @@ int rcot_block_tail_bwd_bf16(const bf16* x, const bf16* a, const bf16* w_proj, c
 // (M,3,3), g (B,H,W,M), bf16; ln_w, ln_b (C, fp32; ln_b null for BiasFree).
 // Outputs dx (B,H,W,C), dw_qkv (M,C), ddw (M,3,3), bf16; dln_w, dln_b (C,
 // fp32; null with ln_b). Workspace: ub (N,C), hb (N,M) bf16; stats (2N),
-// x32 (N,C), u32 (N,C), h32 (N,M), g32 (N,M), dh (N,M), du (N,C), dx32
-// (N,C), w32 (M,C), dwk32 (M,9), dw32 (M,C), ddw32 (M,9), sums (the
-// plan's), fp32; N = B*H*W. plan: kPlanInts ints (block_head_bwd's); vcb:
-// bf16 a copy of u and W_qkv in the recompute of h.
+// dh (N,M), du (N,C), sums (the plan's), fp32; N = B*H*W. plan: kPlanInts
+// ints (block_head_bwd's); plan16: kHead16Ints ints.
 int rcot_block_head_bwd_bf16(const bf16* x, const float* ln_w, const float* ln_b, const bf16* w_qkv,
                              const bf16* dwk, const bf16* g, bf16* dx, float* dln_w, float* dln_b,
-                             bf16* dw_qkv, bf16* ddw, bf16* ub, bf16* hb, float* stats, float* x32,
-                             float* u32, float* h32, float* g32, float* dh, float* du, float* dx32,
-                             float* w32, float* dwk32, float* dw32, float* ddw32, float* sums,
-                             const int* plan, int vcb, int B, int H, int W, int C, int M, int ops16,
-                             void* stream) {
+                             bf16* dw_qkv, bf16* ddw, bf16* ub, bf16* hb, float* stats, float* dh,
+                             float* du, float* sums, const int* plan, const int* plan16, int B,
+                             int H, int W, int C, int M, int ops16, void* stream) {
   return (ops16 ? block_head_bwd_bf16<true> : block_head_bwd_bf16<false>)(x, ln_w, ln_b, w_qkv,
-      dwk, g, dx, dln_w, dln_b, dw_qkv, ddw, ub, hb, stats, x32, u32, h32, g32, dh, du, dx32, w32,
-      dwk32, dw32, ddw32, sums, plan, vcb, B, H, W, C, M, stream);
+      dwk, g, dx, dln_w, dln_b, dw_qkv, ddw, ub, hb, stats, dh, du, sums, plan, plan16, B, H, W, C,
+      M, stream);
 }
 
 }  // extern "C"

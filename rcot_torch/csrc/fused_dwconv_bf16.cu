@@ -18,11 +18,11 @@
 //   fp32: dconv = g, dh = the rotated dw3x3 of g, dx = bf16(dh @ W_in),
 //   dW_in = bf16(dh^T x), ddw = bf16(sum of dconv times the h taps);
 //   gdfn_fused_bwd_bf16 (the same kernel with the gate and W_out): h
-//   recomputed and rounded, conv fp32, then in fp32: dgate = g @ W_out,
-//   dconv through the gate's derivative, dh = the rotated dw3x3 of dconv,
-//   dx = bf16(dh @ W_in), dW_in = bf16(dh^T x), ddw = bf16(sum of dconv
-//   times the h taps), dW_out = bf16(g^T gate) with the unrounded fp32
-//   gate (:405-412).
+//   recomputed and rounded, conv fp32, then in fp32 on the bf16 values:
+//   dgate = g @ W_out, dconv through the gate's derivative, dh = the
+//   rotated dw3x3 of dconv, dx = bf16(dh @ W_in), dW_in = bf16(dh^T x),
+//   ddw = bf16(sum of dconv times the h taps), dW_out = bf16(g^T gate)
+//   with the unrounded fp32 gate (:405-412).
 //
 // Weights in the port's layouts, read in place: W_in (M, C), taps (M, 3, 3),
 // W_out (C, h) with M = 2h in the GDFN. The JAX package pads each gate half
@@ -38,10 +38,10 @@
 // each against 6 h C flops of bf16 products and ~46 h of stencil and gate
 // (fp32): bound by those operations. The backwards read 2C + 2M bytes a
 // pixel (the GDFN 4C) and write 2C against 4 M C flops of products (the
-// GDFN 8 h C; the recompute's 2 M C in bf16; the qkv's on 495 TFLOP/s TF32
-// terms, two a step or one in ops16, the GDFN's as 3xTF32) and 36 M of
-// fp32 stencils: bound by their operations (chip_smoke.py states the
-// bound).
+// GDFN 8 h C; the recompute's 2 M C in bf16; the backward's on 495 TFLOP/s
+// TF32 terms, two a step, one for two bf16 operands or in ops16) and 36 M of
+// fp32 stencils: bound by their operations (chip_smoke.py
+// bf16_bwd_work states the bound, each product at its operands' rate).
 //
 // Design. The forwards are block_fwd_bf16.cu's head and tail without their
 // LayerNorm and residuals: mm.cuh's bf16 product (mma.sync m16n8k16, fp32
@@ -51,31 +51,32 @@
 // (gate_pass, rounding the fp32 gate once) into h's buffer, read by a bf16
 // W_out product that stores bf16. The backwards recompute h with the same
 // bf16 product, so that h is rounded where the forward rounds it. The qkv
-// backward then runs fused_dwconv.cu's fp32 backward on the bf16 tensors
-// themselves: dh = the rotated depthwise of the bf16 g on the bf16 taps
-// into fp32 (dwconv.cuh conv_bf16_rot), ddw = dtaps of the bf16 h and g on
-// the fp32 plan's tiles, rounded in its reduce (dtaps_16), and dx = dh
-// W_in, dW_in = dh^T x on mm.cuh's tf32 path with W_in and x in bf16 tiles
-// (each value widened into its fragment, two mma.sync a step; one in
-// ops16), dx and dW_in rounded once where written: every sum in the fp32
-// design's order, so the bits of that design on the widened operands,
-// rounded once, in two launches fewer (seven at the level-1 shapes), with
-// no fp32 copy of an operand. The GDFN backward widens every operand into
-// fp32 workspaces in one launch (cast.cuh), runs fused_dwconv.cu's fp32
-// GDFN backward on them (the depthwise forward, the gated dgate product,
-// the rotated depthwise, dtaps, the 3xTF32 dx product and the pixel sums,
-// every sum in a fixed order) and rounds its bf16 outputs in one last
-// launch. No atomics and no memsets: two calls on the same inputs give the
-// same bits. The plans are ops/fused.py's (fused_fwd_plan with copy widths
-// in bf16 elements and the GDFN's gate always a pass, fused_bwd_plan's
-// fp32 design, and for the qkv backward a second of its bf16 pieces). The
-// backwards' `ops16` argument takes RCOT_BWD_BF16's "fused" tier, as
-// fused_dwconv.cu's do.
+// backwards then run fused_dwconv.cu's fp32 backwards on the bf16 tensors
+// themselves, with no fp32 copy of an operand. The qkv's: dh = the rotated
+// depthwise of the bf16 g on the bf16 taps into fp32 (dwconv.cuh
+// conv_bf16_rot), ddw = dtaps of the bf16 h and g on the fp32 plan's
+// columns and band, rounded in its reduce (dtaps_16). The GDFN's: conv =
+// the depthwise of the bf16 h into fp32 (conv_bf16), dgate = g W_out on
+// bf16 tiles of both (one mma.sync a step), its epilogue the gate's
+// backward into fp32 dconv and gate, dW_out = g^T gate rounded, dh = the
+// rotated depthwise of the fp32 dconv on the bf16 taps (conv_taps16), ddw
+// = dtaps of the bf16 h with dconv on the fp32 plan's tiles (dtaps_16).
+// Both then take dx = dh W_in, dW_in = dh^T x on mm.cuh's tf32 path with
+// W_in and x in bf16 tiles (each value widened into its fragment, two
+// mma.sync a step; one in ops16), dx and dW_in rounded once where written:
+// every sum in the fp32 design's order, so the bits of that design on the
+// widened operands, rounded once (seven launches in the qkv, eleven in the
+// GDFN at the level-1 shapes). No atomics and no memsets: two calls on the
+// same inputs give the same bits. The plans are ops/fused.py's
+// (fused_fwd_plan with copy widths in bf16 elements and the GDFN's gate
+// always a pass, fused_bwd_plan's fp32 design, and for each backward a
+// second of its bf16 pieces: ops/block.py qkv_bwd_bf16_plan for the qkv's,
+// gated_bwd_bf16_plan for the GDFN's). The backwards' `ops16`
+// argument takes RCOT_BWD_BF16's "fused" tier, as fused_dwconv.cu's do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "cast.cuh"
 #include "dwconv.cuh"
 #include "mm.cuh"
 
@@ -112,14 +113,10 @@ enum Prod { kProdH, kProdOut, kProdDx = kProdOut };
 // cv, tc, rows) of the rotated depthwise of g and of dtaps (bf16 a copy;
 // dtaps's tc and rows those of the fp32 plan)
 enum Bwd16Plan { kVecC16, kRot16, kTaps16 = kRot16 + 4, kBwd16Ints = kTaps16 + 4 };
-
-// The fp32 depthwise forward (or, rot, its rotated forward) by row 11's
-// kernel with the plan's (vec, cv, tc, rows) at plan[at]
-cudaError_t dw(const float* x, const float* taps, float* out, int B, int H, int W, int M,
-               const int* plan, int at, bool rot, cudaStream_t st) {
-  return rcot_dwconv::conv(x, taps, out, B, H, W, M, plan[at], plan[at + 1], plan[at + 2],
-                           plan[at + 3], rot, st);
-}
+// The GDFN backward's bf16 plan (the bf16 block tail backward's layout):
+// bf16 a copy of x and W_in, of g and of W_out's rows, and the bf16
+// depthwise forward's (vec, cv, tc, rows) into fp32 conv
+enum Gdfn16Plan { kGVecC16, kGVecG16, kGVecH16, kGDw16, kGdfn16Ints = kGDw16 + 4 };
 
 }  // namespace
 
@@ -153,45 +150,35 @@ int conv1x1_dw_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const 
 template <bool OPS16>
 int gdfn_fused_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const bf16* w_out,
                         const bf16* g, bf16* dx, bf16* dw_in, bf16* ddw, bf16* dw_out, bf16* hb,
-                        float* x32, float* g32, float* h32, float* conv_dh, float* dconv,
-                        float* gate, float* dx32, float* win32, float* dwk32, float* wout32,
-                        float* dwin32, float* ddw32, float* dwout32, float* sums, const int* plan,
-                        int vcb, int B, int H, int W, int C, int hid, void* stream) {
+                        float* conv_dh, float* dconv, float* gate, float* sums, const int* plan,
+                        const int* plan16, int B, int H, int W, int C, int hid, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * H * W;
-  const int m2 = 2 * hid, vc = plan[kBVecC], vh = plan[kBVecH], vm = plan[kBVecM];
-  // recompute h = bf16(x @ W_in^T), as the forward rounds it
+  const int m2 = 2 * hid, vh = plan[kBVecH], vm = plan[kBVecM];
+  const int vcb = plan16[kGVecC16], vg = plan16[kGVecG16], vw = plan16[kGVecH16];
+  const int* dw16 = plan16 + kGDw16;
+  // recompute h = bf16(x @ W_in^T), as the forward rounds it, and conv =
+  // dw3x3(h) in fp32
   RCOT_TRY((product<false, kEpiStore>(x, C, vcb, w_in, vcb, hb, m2, n, SPLIT(kBSplit, kProdH),
                                       sums, st)));
-  Widen up;
-  up.add(x, C, x32, C, n, C);
-  up.add(g, C, g32, C, n, C);
-  up.add(hb, m2, h32, m2, n, m2);
-  up.add(w_in, C, win32, C, m2, C);
-  up.add(dwk, 9, dwk32, 9, m2, 9);
-  up.add(w_out, hid, wout32, hid, C, hid);
-  RCOT_TRY(up.run(st));
-  // conv = dw3x3(h) in fp32
-  RCOT_TRY(dw(h32, dwk32, conv_dh, B, H, W, m2, plan, kDwFwd, false, st));
-  // W_out: dgate = g @ W_out, its epilogue the gate's backward (dconv and
-  // the fp32 gate from conv); dW_out = g^T gate
-  RCOT_TRY((product<true, kEpiGate, float, OPS16>(g32, C, vc, wout32, vh, dconv, hid, n, 1, 0,
-                                                  nullptr, st, conv_dh, gate)));
-  RCOT_TRY(pixel_sum<OPS16>(g32, vc, gate, vh, dwout32, sums, C, hid, n, plan[kSumOut], st));
-  // depthwise backward (conv is dead now: its buffer takes dh)
-  RCOT_TRY(dw(dconv, dwk32, conv_dh, B, H, W, m2, plan, kDwRot, true, st));
-  RCOT_TRY(rcot_dwconv::dtaps(h32, dconv, sums, ddw32, B, H, W, m2, plan[kDwTaps],
-                              plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
-  // W_in: dx = dh @ W_in, dW_in = dh^T x
-  RCOT_TRY((product<true, kEpiStore, float, OPS16>(conv_dh, m2, vm, win32, vc, dx32, C, n,
-                                                   SPLIT(kBSplit, kProdDx), sums, st)));
-  RCOT_TRY(pixel_sum<OPS16>(conv_dh, vm, x32, vc, dwin32, sums, m2, C, n, plan[kSumIn], st));
-  Narrow down;
-  down.add(dx32, C, dx, C, n, C);
-  down.add(dwin32, C, dw_in, C, m2, C);
-  down.add(ddw32, 9, ddw, 9, m2, 9);
-  down.add(dwout32, hid, dw_out, hid, C, hid);
-  return down.run(st);
+  RCOT_TRY(rcot_dwconv::conv_bf16(hb, dwk, conv_dh, false, B, H, W, m2, dw16[0], dw16[1],
+                                  dw16[2], dw16[3], st));
+  // W_out: dgate = g @ W_out on bf16 tiles, its epilogue the gate's backward
+  // (dconv and the fp32 gate from conv); dW_out = bf16(g^T gate)
+  RCOT_TRY((product<true, kEpiGate, float, OPS16>(g, C, vg, w_out, vw, dconv, hid, n, 1, 0,
+                                                nullptr, st, conv_dh, gate)));
+  RCOT_TRY(pixel_sum<OPS16>(g, vg, gate, vh, dw_out, sums, C, hid, n, plan[kSumOut], st));
+  // depthwise backward on the bf16 taps and h (conv is dead now: its
+  // buffer takes dh); ddw rounded in its reduce
+  RCOT_TRY(rcot_dwconv::conv_taps16(dconv, dwk, conv_dh, B, H, W, m2, plan[kDwRot],
+                                    plan[kDwRot + 1], plan[kDwRot + 2], plan[kDwRot + 3], true,
+                                    st));
+  RCOT_TRY(rcot_dwconv::dtaps_16(hb, dconv, false, sums, ddw, B, H, W, m2, plan[kDwTaps],
+                                 plan[kDwTaps + 1], plan[kDwTaps + 2], plan[kDwTaps + 3], st));
+  // W_in: dx = bf16(dh @ W_in), dW_in = bf16(dh^T x) on bf16 tiles of W_in and x
+  RCOT_TRY((product<true, kEpiStore, float, OPS16>(conv_dh, m2, vm, w_in, vcb, dx, C, n,
+                                                 SPLIT(kBSplit, kProdDx), sums, st)));
+  return pixel_sum<OPS16>(conv_dh, vm, x, vcb, dw_in, sums, m2, C, n, plan[kSumIn], st);
 }
 
 }  // namespace
@@ -251,21 +238,17 @@ int rcot_gdfn_fused_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const
 
 // Backward of rcot_gdfn_fused_bf16 for the cotangent g (B,H,W,C) bf16.
 // Outputs dx (B,H,W,C), dw_in (2h,C), ddw (2h,3,3), dw_out (C,h), bf16.
-// Workspace: hb (N,2h) bf16; x32 (N,C), g32 (N,C), h32 (N,2h), conv_dh
-// (N,2h), dconv (N,2h), gate (N,h), dx32 (N,C), win32 (2h,C), dwk32 (2h,9),
-// wout32 (C,h), dwin32 (2h,C), ddw32 (2h,9), dwout32 (C,h) fp32; sums
-// (fp32, the plan's); N = B*H*W. plan: kBwdInts ints; vcb: bf16 a copy of
-// x and W_in in the recompute of h.
+// Workspace: hb (N,2h) bf16; conv_dh (N,2h), dconv (N,2h), gate (N,h)
+// fp32; sums (fp32, the plan's); N = B*H*W. plan: kBwdInts ints (kBVecC
+// and kDwFwd unused: the fp32 design's); plan16: kGdfn16Ints ints.
 int rcot_gdfn_fused_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const bf16* w_out,
                              const bf16* g, bf16* dx, bf16* dw_in, bf16* ddw, bf16* dw_out,
-                             bf16* hb, float* x32, float* g32, float* h32, float* conv_dh,
-                             float* dconv, float* gate, float* dx32, float* win32, float* dwk32,
-                             float* wout32, float* dwin32, float* ddw32, float* dwout32,
-                             float* sums, const int* plan, int vcb, int B, int H, int W, int C,
+                             bf16* hb, float* conv_dh, float* dconv, float* gate, float* sums,
+                             const int* plan, const int* plan16, int B, int H, int W, int C,
                              int hid, int ops16, void* stream) {
   return (ops16 ? gdfn_fused_bwd_bf16<true> : gdfn_fused_bwd_bf16<false>)(x, w_in, dwk, w_out, g,
-      dx, dw_in, ddw, dw_out, hb, x32, g32, h32, conv_dh, dconv, gate, dx32, win32, dwk32, wout32,
-      dwin32, ddw32, dwout32, sums, plan, vcb, B, H, W, C, hid, stream);
+      dx, dw_in, ddw, dw_out, hb, conv_dh, dconv, gate, sums, plan, plan16, B, H, W, C, hid,
+      stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 // sums dln_w, dln_b (block_bwd.cu's header says more). t and the residual
 // g_res are of type TT: float, or bf16 (the bf16 tail reads its recomputed
 // bf16 t and its bf16 cotangent as they are, widened in registers, and
-// writes beside the fp32 dt its bf16 rounding dx16 in the same launch).
+// writes beside the fp32 dt its bf16 rounding dx16 in the same launch; the
+// bf16 head reads its bf16 x and writes dx16 alone, dt null).
 
 #pragma once
 
@@ -69,9 +70,22 @@ ln_bwd_kernel(const TT* __restrict__ t, const float* __restrict__ du,
         v = inv * (gw - s1 - (tv[i] - mean) * inv * s2);
       else
         v = inv * gw - inv * inv * inv * (tv[i] - mean) * s2;
-      const float o = v + gv[i];
-      dt[p * C + c] = o;
-      if constexpr (sizeof(TT) == 2) dx16[p * C + c] = from_f<bf16>(o);
+      float o = v + gv[i];
+      if constexpr (L == 1 && sizeof(TT) == 2) {
+        // WithBias spelled out as the fp32 instance compiles it (its SASS):
+        // X = gw - s1 - ((t - mean) inv) s2 in one FFMA, o = inv X + g in
+        // another. Left to itself the bf16 instance at L = 1 rounds
+        // ((t - mean) inv) s2 apart, and then a bf16 dx can sit an ulp off
+        // the fp32 design's.
+        if (with_bias)
+          o = __fmaf_rn(inv, __fmaf_rn(-((tv[i] - mean) * inv), s2, __fsub_rn(gw, s1)), gv[i]);
+      }
+      if constexpr (sizeof(TT) == 2) {
+        if (dt) dt[p * C + c] = o;
+        dx16[p * C + c] = from_f<bf16>(o);
+      } else {
+        dt[p * C + c] = o;
+      }
     }
   }
 #pragma unroll
@@ -139,8 +153,12 @@ ln_bwd_wide_kernel(const TT* __restrict__ t, const float* __restrict__ du,
       const float v = with_bias ? inv * (gw - s1 - (tv - mean) * inv * s2)
                                 : inv * gw - inv * inv * inv * (tv - mean) * s2;
       const float o = v + (g_res ? to_f(g_res[p * C + c]) : 0.f);
-      dt[p * C + c] = o;
-      if constexpr (sizeof(TT) == 2) dx16[p * C + c] = from_f<bf16>(o);
+      if constexpr (sizeof(TT) == 2) {
+        if (dt) dt[p * C + c] = o;
+        dx16[p * C + c] = from_f<bf16>(o);
+      } else {
+        dt[p * C + c] = o;
+      }
       sw[c] += dv * that;
       sb[c] += dv;
     }
@@ -157,7 +175,8 @@ ln_bwd_wide_kernel(const TT* __restrict__ t, const float* __restrict__ du,
 // dt and dln_w, dln_b (null with ln_b) through the workspace ws of
 // ceil(n_pix / per) * 2C floats; above kLnRegChannels the partials take
 // kWarps * 2C floats of shared memory, up to kLnMaxChannels. With a bf16 t
-// (TT = bf16) dt is also written rounded to dx16.
+// (TT = bf16) dt is also written rounded to dx16, and dt may be null (dx16
+// alone written).
 constexpr int kLnMaxChannels = kMaxSmemBytes / (int)sizeof(float) / (2 * kWarps);
 
 template <typename TT>

@@ -92,14 +92,14 @@ SIGNATURES = {
     "rcot_conv1x1_dw_bwd_bf16": [_P] * 10 + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P],
     # inputs 9, outputs 8, workspace 10, plan, bf16 plan; B, H, W, C, hid; ops16; stream
     "rcot_block_tail_bwd_bf16": [_P] * 27 + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P],
-    # inputs 6, outputs 5, workspace 15, plan; bf16 copy width; B, H, W, C, M;
-    # ops16; stream
-    "rcot_block_head_bwd_bf16": [_P] * 26 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P],
+    # inputs 6, outputs 5, workspace 6, plan, bf16 plan; B, H, W, C, M; ops16;
+    # stream
+    "rcot_block_head_bwd_bf16": [_P] * 17 + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P],
     # the GDFN in bf16 (fused_dwconv_bf16.cu): the arguments of rcot_gdfn_fused
     "rcot_gdfn_fused_bf16": [_P] * 8 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # inputs 5, outputs 4, workspace 15, plan; bf16 copy width; B, H, W, C, hid;
-    # ops16; stream
-    "rcot_gdfn_fused_bwd_bf16": [_P] * 24 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P],
+    # inputs 5, outputs 4, workspace 5, plan, bf16 plan; B, H, W, C, hid; ops16;
+    # stream
+    "rcot_gdfn_fused_bwd_bf16": [_P] * 14 + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P],
     # qkv, dG, dnq, dnk, d[q|k], workspace; B, hw, heads, ch, channel block,
     # blocks, tiles per block; copy width; stream (the bf16-operand form:
     # gram_bwd_bf16_b16ops.cu, the same arguments)

@@ -23,9 +23,10 @@ rcot_tpu/models/restormer.py:77-89 passes them) goes to the bf16 kernels of
 csrc/block_fwd_bf16.cu on the card, counted as block_head_bf16 and
 block_tail_bf16, and their backwards (bf16 training: the tail in "tail"
 and "full", the head in "full" and "head") to csrc/block_bwd_bf16.cu,
-counted as block_tail_bwd_bf16 and block_head_bwd_bf16; the tail's runs
+counted as block_tail_bwd_bf16 and block_head_bwd_bf16; both run
 block_bwd.cu's design on the bf16 tensors themselves (block_bwd_plan's plan
-and a second of its bf16 copy widths, tail_bf16_vecs). The plain forward
+and a second of their bf16 pieces: the tail's gated_bwd_bf16_plan with the
+copy widths of gated_bf16_vecs, the head's qkv_bwd_bf16_plan). The plain forward
 twins take any float dtype: their products and stencils
 run in at least fp32 and round to x's dtype where the JAX kernel
 (rcot_tpu/ops/pallas_block.py:111-142) rounds, which in fp32 or float64 is
@@ -674,12 +675,10 @@ def _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops
     vec_h = kdw.dwconv_vec(hid, gate)
     vec_m = kdw.dwconv_vec(m2, conv_dh, dconv)
     plan, n_sums = _card_plan(b, h, w, c, m2, True, dev.index, vec_c, vec_h, vec_m)
-    plan16 = _bf16_tail_plan(b, h, w, c, m2, dev.index,
-                             *tail_bf16_vecs(c, hid, {"a": a.data_ptr(), "u": ub,
-                                                      "w_proj": w_proj.data_ptr(),
-                                                      "w_in": w_in.data_ptr(), "g": g.data_ptr(),
-                                                      "w_out": w_out.data_ptr(), "h": hb,
-                                                      "conv": conv_dh}))
+    c_wide = (a.data_ptr(), ub, w_proj.data_ptr(), w_in.data_ptr())
+    plan16 = _gated_bwd_bf16_card_plan(b, h, w, c, m2, dev.index,
+                                       *gated_bf16_vecs(c, hid, c_wide, g.data_ptr(),
+                                                        w_out.data_ptr(), hb, conv_dh))
     sums = torch.empty(n_sums, device=dev)
     with torch.cuda.device(dev):
         build.call("rcot_block_tail_bwd_bf16",
@@ -694,11 +693,9 @@ def _block_tail_bwd_bf16(x, a, w_proj, ln_w, ln_b, w_in, dwk, w_out, g, bf16_ops
 def head_bwd_bf16_workspace_numel(n: int, c: int, m: int) -> Tuple[int, ...]:
     """Floats of each workspace of the bf16 head backward on n pixels, in
     the order csrc/block_bwd_bf16.cu takes them (bf16 ones two to a float):
-    ub, hb; stats, x32, u32, h32, g32, dh, du, dx32; the widened weights
-    w32, dwk32; their fp32 grads dw32, ddw32."""
-    weights = (m * c, 9 * m)
-    return (_cdiv(n * c, 2), _cdiv(n * m, 2), 2 * n, n * c, n * c, n * m, n * m, n * m,
-            n * c, n * c, *weights, *weights)
+    the recompute's ub, hb; stats, dh, du. No fp32 copy of an operand: its
+    products and stencils read the bf16 tensors as they are."""
+    return _cdiv(n * c, 2), _cdiv(n * m, 2), 2 * n, n * m, n * c
 
 
 def _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops):
@@ -716,43 +713,93 @@ def _block_head_bwd_bf16(x, ln_w, ln_b, w_qkv, dwk, g, bf16_ops):
     dx, dln_w, dw_qkv, ddw = (torch.empty_like(t) for t in (x, ln_w, w_qkv, dwk))
     dln_b = None if ln_b is None else torch.empty_like(ln_b)
     buf, ws = _workspaces(dev, head_bwd_bf16_workspace_numel(n, c, m))
-    ub, x32, u32, h32, g32, dh, du, dx32, w32 = ws[0], *ws[3:11]
-    vec_c = kdw.dwconv_vec(c, x32, u32, du, dx32, w32)
-    vec_m = kdw.dwconv_vec(m, h32, g32, dh)
-    plan, n_sums = _card_plan(b, h, w, c, m, False, dev.index, vec_c, 1, vec_m)
+    ub, hb, _, dh, du = ws
+    # the fp32 design's plan: its copy widths those of the fp32 operands
+    vec_m32 = kdw.dwconv_vec(m, dh)
+    plan, n_sums = _card_plan(b, h, w, c, m, False, dev.index, kdw.dwconv_vec(c, du), 1, vec_m32)
+    plan16 = _qkv_bwd_bf16_card_plan(b, h, w, c, m, dev.index,
+                                     kdw.bf16_vec(c, ub, w_qkv.data_ptr()),
+                                     kdw.bf16_vec(m, hb, g.data_ptr()), vec_m32)
     sums = torch.empty(n_sums, device=dev)
     with torch.cuda.device(dev):
         build.call("rcot_block_head_bwd_bf16",
                    *(t.data_ptr() for t in (x, ln_w)), build.ptr(ln_b),
                    *(t.data_ptr() for t in (w_qkv, dwk, g, dx, dln_w)), build.ptr(dln_b),
-                   dw_qkv.data_ptr(), ddw.data_ptr(), *ws, sums.data_ptr(), plan,
-                   kdw.bf16_vec(c, ub, w_qkv.data_ptr()), b, h, w, c, m, int(bf16_ops),
-                   build.stream())
+                   dw_qkv.data_ptr(), ddw.data_ptr(), *ws, sums.data_ptr(), plan, plan16,
+                   b, h, w, c, m, int(bf16_ops), build.stream())
     build.LAUNCHES[build.counted("block_head_bwd_bf16", bf16_ops)] += 1
     return dx, dln_w, dln_b, dw_qkv, ddw
 
 
-def tail_bf16_vecs(c: int, hid: int, ptrs: dict) -> Tuple[int, int, int, int]:
-    """-> bf16 a copy of the bf16 tail backward's bf16 operands whose
-    operands start at ptrs (name -> address): the C-wide a, u, W_proj and
-    W_in, the cotangent g, W_out's rows (h wide: an odd h copies single
-    bf16) and the recompute's depthwise forward of h into fp32 conv (its
-    width 2h)."""
-    return (kdw.bf16_vec(c, *(ptrs[k] for k in ("a", "u", "w_proj", "w_in"))),
-            kdw.bf16_vec(c, ptrs["g"]), kdw.bf16_vec(hid, ptrs["w_out"]),
-            kdw.bf16_vec(2 * hid, ptrs["h"], f32_ptrs=(ptrs["conv"],)))
+def gated_bf16_vecs(c: int, hid: int, c_wide: Tuple[int, ...], g: int, w_out: int, h: int,
+                    conv: int) -> Tuple[int, int, int, int]:
+    """-> bf16 a copy of the bf16 operands of the bf16 tail's or GDFN's
+    backward, gated_bwd_bf16_plan's first four ints, from their addresses:
+    the C-wide operands of its products (the tail's a, u, W_proj and W_in,
+    the GDFN's x and W_in), the cotangent g (C wide), W_out's rows (h wide:
+    an odd h copies single bf16) and the recompute's depthwise forward of h
+    into fp32 conv (its width 2h)."""
+    return (kdw.bf16_vec(c, *c_wide), kdw.bf16_vec(c, g), kdw.bf16_vec(hid, w_out),
+            kdw.bf16_vec(2 * hid, h, f32_ptrs=(conv,)))
+
+
+# The second plans of the bf16 backward forms on bf16 tiles, beside the fp32
+# design's (block_bwd_plan, ops/fused.py fused_bwd_plan): the gated ones
+# (row 5's tail, row 9's GDFN) and those whose dconv is their cotangent
+# (row 9's qkv, row 5's head).
+GATED16_PLAN_INTS = 7
+BWD16_PLAN_INTS = 9
+
+
+def gated_bwd_bf16_plan(vec_c: int, vec_g: int, vec_h: int,
+                        dw: Tuple[int, int, int, int]) -> Tuple[int, ...]:
+    """The bf16 tail's and the bf16 GDFN backward's second plan,
+    GATED16_PLAN_INTS ints: bf16 a copy of the C-wide operands, of g and of
+    W_out's rows, then the (vec, cv, tc, rows) of the depthwise forward of
+    the bf16 h into fp32 conv. Their rotated depthwise and dtaps read the
+    fp32 dconv, so they take the fp32 plan's tiles as they are."""
+    out = (vec_c, vec_g, vec_h, *dw)
+    assert len(out) == GATED16_PLAN_INTS
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def _bf16_tail_plan(b, h, w, c, width, device_index, vec_c, vec_g, vec_h, vec_m):
-    """-> the bf16 tail backward's second plan as a ctypes array: bf16 a
-    copy of the C-wide operands, of g and of W_out's rows, and the bf16
-    depthwise forward's (vec, cv, tc, rows) into fp32 conv."""
+def _gated_bwd_bf16_card_plan(b, h, w, c, width, device_index, vec_c, vec_g, vec_h, vec_m):
+    """-> gated_bwd_bf16_plan's ints as a ctypes array on this card, the
+    depthwise forward at vec_m bf16 a copy."""
     if vec_m < 2:
         raise ValueError(f"bf16 block kernels: the depthwise width {width} must be even "
                          "(its copies move two bf16 at least)")
     dw = kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False, "bf16_f32")
-    return (ctypes.c_int * 7)(vec_c, vec_g, vec_h, vec_m, *dw)
+    return (ctypes.c_int * GATED16_PLAN_INTS)(*gated_bwd_bf16_plan(vec_c, vec_g, vec_h,
+                                                                   (vec_m, *dw)))
+
+
+def qkv_bwd_bf16_plan(m: int, vec_c: int, vec_m: int, rot: Tuple[int, int, int],
+                      taps: Tuple[int, int, int]) -> Tuple[int, ...]:
+    """The bf16 qkv's and the bf16 head backward's second plan,
+    BWD16_PLAN_INTS ints: vec_c bf16 a copy of the C-wide operands of their
+    1x1 backward (x or u, and W_in or W_qkv); the rotated depthwise of g
+    (bf16 into fp32 dh) at vec_m bf16 a copy, on rot = (cv, tc, rows), its
+    own plan at that width or the fp32 design's; dtaps of the bf16 h and g
+    at vec_m on the columns and band of the fp32 design's taps = (cv, tc,
+    rows), so that its sums keep their order (ops/dwconv.py retile)."""
+    out = (vec_c, *kdw.retile(rot, m, vec_m), *kdw.retile(taps, m, vec_m))
+    assert len(out) == BWD16_PLAN_INTS
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _qkv_bwd_bf16_card_plan(b, h, w, c, m, device_index, vec_c, vec_m, vec_m32):
+    """-> qkv_bwd_bf16_plan's ints as a ctypes array on this card: the
+    rotated depthwise on the bf16 kernel's own plan (on the fp32 design's
+    where g takes single bf16 copies, a width the bf16 plan has no kernel
+    for), dtaps on the fp32 design's (vec_m32 floats a copy)."""
+    taps = kdw.dwconv_plan(b, h, w, m, device_index, vec_m32, True)
+    rot = (kdw.dwconv_plan(b, h, w, m, device_index, vec_m, False, "bf16_f32") if vec_m > 1
+           else kdw.dwconv_plan(b, h, w, m, device_index, vec_m32, False))
+    ints = qkv_bwd_bf16_plan(m, vec_c, vec_m, rot, taps)
+    return (ctypes.c_int * BWD16_PLAN_INTS)(*ints)
 
 
 # --------------------------------------------------------------- autograd

@@ -23,9 +23,12 @@ conv1x1_dw, gdfn_fused and their *_bwd names.
 bf16 (the qkv configuration in bf16 training's "tail" and "off", the GDFN
 in bf16 serving and training's "head" and "off"): a bf16 x with bf16
 weights goes to csrc/fused_dwconv_bf16.cu on the card, counted as
-conv1x1_dw_bf16, gdfn_fused_bf16 and their *_bwd_bf16 names (the qkv
-backward runs fused_dwconv.cu's design on the bf16 tensors themselves, its
-plan fused_bwd_plan's and qkv_bwd_bf16_plan's). The forward twin rounds h, the GDFN's gate and the output to bf16 where the JAX kernel
+conv1x1_dw_bf16, gdfn_fused_bf16 and their *_bwd_bf16 names (both
+backwards run fused_dwconv.cu's design on the bf16 tensors themselves, with
+fused_bwd_plan's plan and a second of their bf16 pieces: ops/block.py
+qkv_bwd_bf16_plan for the qkv's, gated_bwd_bf16_plan with the copy widths
+of gated_bf16_vecs for the GDFN's). The forward twin rounds h, the
+GDFN's gate and the output to bf16 where the JAX kernel
 does (pallas_fused.py:153-183); the backward twin is the JAX backward
 kernel's (:297-412): h recomputed and rounded, then everything in fp32
 (dW_out from the unrounded gate), each grad rounded once (ops/block.py
@@ -49,8 +52,10 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import build
 from . import dwconv as kdw
-from .block import (GATE_FUSED_MAX_C, _mm, _prod, _st, _vjp_plain, _vjp_widened, _wide,
-                    _workspaces, gate_ld, ln_plan, split_plan, sum_plan, sum_workspace_numel)
+from .block import (GATE_FUSED_MAX_C, _gated_bwd_bf16_card_plan, _mm, _prod,
+                    _qkv_bwd_bf16_card_plan, _st, _vjp_plain, _vjp_widened, _wide, _workspaces,
+                    gate_ld, gated_bf16_vecs, ln_plan, split_plan, sum_plan,
+                    sum_workspace_numel)
 from .conv import conv1x1, depthwise3x3  # noqa: F401 (conv1x1: _prod's product, re-exported)
 from .gdfn import gated
 from .gram import sm_count
@@ -113,7 +118,6 @@ def fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g, bf16_ops=False):
 # so only their widths decide their copies.
 FWD_PLAN_INTS = 13
 BWD_PLAN_INTS = 21
-BWD16_PLAN_INTS = 9
 
 
 class FusedFwdPlan(NamedTuple):
@@ -358,37 +362,11 @@ def qkv_bwd_bf16_workspace_numel(n: int, m: int) -> Tuple[int, int]:
     return -(-n * m // 2), n * m
 
 
-def qkv_bwd_bf16_plan(m: int, vec_c: int, vec_m: int, rot: Tuple[int, int, int],
-                      taps: Tuple[int, int, int]) -> Tuple[int, ...]:
-    """The bf16 qkv backward's second plan, BWD16_PLAN_INTS ints: vec_c bf16
-    a copy of x and W_in; the rotated depthwise of g (bf16 into fp32 dh) at
-    vec_m bf16 a copy, on rot = (cv, tc, rows), its own plan at that width or
-    the fp32 design's; dtaps of the bf16 h and g at vec_m on the columns and
-    band of the fp32 design's taps = (cv, tc, rows), so that its sums keep
-    their order (ops/dwconv.py retile)."""
-    out = (vec_c, *kdw.retile(rot, m, vec_m), *kdw.retile(taps, m, vec_m))
-    assert len(out) == BWD16_PLAN_INTS
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _qkv_bwd_bf16_card_plan(b, h, w, c, m, device_index, vec_c, vec_m, vec_m32):
-    """-> qkv_bwd_bf16_plan's ints as a ctypes array on this card: the
-    rotated depthwise on the bf16 kernel's own plan (on the fp32 design's
-    where g takes single bf16 copies, a width the bf16 plan has no kernel
-    for), dtaps on the fp32 design's (vec_m32 floats a copy)."""
-    taps = kdw.dwconv_plan(b, h, w, m, device_index, vec_m32, True)
-    rot = (kdw.dwconv_plan(b, h, w, m, device_index, vec_m, False, "bf16_f32") if vec_m > 1
-           else kdw.dwconv_plan(b, h, w, m, device_index, vec_m32, False))
-    ints = qkv_bwd_bf16_plan(m, vec_c, vec_m, rot, taps)
-    return (ctypes.c_int * BWD16_PLAN_INTS)(*ints)
-
-
 def _conv1x1_dw_bwd_bf16(x, w_in, dwk, g, bf16_ops):
     """The qkv backward on bf16 CUDA tensors -> (dx, dw_in, ddw), bf16:
     csrc/fused_dwconv_bf16.cu, fused_dwconv.cu's design on the bf16 tensors
     themselves, with fused_bwd_plan's plan of that design and a second of
-    its bf16 pieces (qkv_bwd_bf16_plan)."""
+    its bf16 pieces (ops/block.py qkv_bwd_bf16_plan)."""
     b, h, w, c, m = _check(x, w_in, dwk, None, g)
     dev = x.device
     n = b * h * w
@@ -437,35 +415,38 @@ def _gdfn_fused_bf16(x, w_in, dwk, w_out):
 
 def gdfn_bwd_bf16_workspace_numel(n: int, c: int, hid: int) -> Tuple[int, ...]:
     """Floats of each workspace of the bf16 GDFN backward on n pixels, in the
-    order csrc/fused_dwconv_bf16.cu takes them (hb bf16, two to a float):
-    hb; x32, g32, h32, conv_dh, dconv, gate, dx32; the widened weights
-    win32, dwk32, wout32; their fp32 grads dwin32, ddw32, dwout32."""
+    order csrc/fused_dwconv_bf16.cu takes them: the recomputed h (bf16, two
+    to a float); conv (then dh), dconv and the gate (fp32). No fp32 copy of
+    an operand: its products and stencils read the bf16 tensors as they
+    are."""
     m = 2 * hid
-    weights = (m * c, 9 * m, c * hid)
-    return (-(-n * m // 2), n * c, n * c, n * m, n * m, n * m, n * hid, n * c,
-            *weights, *weights)
+    return -(-n * m // 2), n * m, n * m, n * hid
 
 
 def _gdfn_fused_bwd_bf16(x, w_in, dwk, w_out, g, bf16_ops):
     """The GDFN backward on bf16 CUDA tensors -> (dx, dw_in, ddw, dw_out),
-    bf16: csrc/fused_dwconv_bf16.cu, with fused_bwd_plan's plan on its fp32
-    workspaces."""
+    bf16: csrc/fused_dwconv_bf16.cu, fused_dwconv.cu's design on the bf16
+    tensors themselves, with fused_bwd_plan's plan of that design and a
+    second of its bf16 pieces (ops/block.py gated_bwd_bf16_plan)."""
     b, h, w, c, m = _check(x, w_in, dwk, w_out, g)
     hid = m // 2
     dev = x.device
     dx, dw_in, ddw, dw_out = (torch.empty_like(t) for t in (x, w_in, dwk, w_out))
     buf, ws = _workspaces(dev, gdfn_bwd_bf16_workspace_numel(b * h * w, c, hid))
-    x32, g32, h32, conv_dh, dconv, gate, dx32, win32, _, wout32 = ws[1:11]
-    vec_c = kdw.dwconv_vec(c, x32, g32, dx32, win32)
-    vec_h = kdw.dwconv_vec(hid, wout32, gate)
-    vec_m = kdw.dwconv_vec(m, h32, conv_dh, dconv)
-    plan, n_sums = _bwd_card_plan(b, h, w, c, m, True, dev.index, vec_c, vec_h, vec_m)
+    hbuf, conv_dh, dconv, gate = ws
+    # the fp32 design's plan: its copy widths those of the fp32 operands
+    plan, n_sums = _bwd_card_plan(b, h, w, c, m, True, dev.index, kdw.dwconv_vec(c),
+                                  kdw.dwconv_vec(hid, gate), kdw.dwconv_vec(m, conv_dh, dconv))
+    plan16 = _gated_bwd_bf16_card_plan(
+        b, h, w, c, m, dev.index,
+        *gated_bf16_vecs(c, hid, (x.data_ptr(), w_in.data_ptr()), g.data_ptr(),
+                         w_out.data_ptr(), hbuf, conv_dh))
     sums = torch.empty(n_sums, device=dev)
     with torch.cuda.device(dev):
         build.call("rcot_gdfn_fused_bwd_bf16",
                    *(t.data_ptr() for t in (x, w_in, dwk, w_out, g, dx, dw_in, ddw, dw_out)),
-                   *ws, sums.data_ptr(), plan, kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr()),
-                   b, h, w, c, hid, int(bf16_ops), build.stream())
+                   *ws, sums.data_ptr(), plan, plan16, b, h, w, c, hid, int(bf16_ops),
+                   build.stream())
     build.LAUNCHES[build.counted("gdfn_fused_bwd_bf16", bf16_ops)] += 1
     return dx, dw_in, ddw, dw_out
 

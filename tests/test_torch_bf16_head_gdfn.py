@@ -179,18 +179,18 @@ def test_gdfn_bf16_twins_match_pallas(c):
 
 def test_bf16_head_and_gdfn_workspaces():
     """The workspaces of the bf16 head and GDFN backwards (the kernels'
-    order): bf16 ones two to a float, the rest fp32, the weights and their
-    grads at the weights' sizes."""
+    order), which hold no fp32 copy of an operand, a weight or an output:
+    the head's recomputed u and h (bf16, two to a float), then the LN
+    statistics, dh and du (fp32); the GDFN's recomputed h (bf16), then conv
+    (which takes dh), dconv and the gate (fp32)."""
     n, c, hid = 3 * 16 * 16, 48, 127
     m = 3 * c
     head = tblock.head_bwd_bf16_workspace_numel(n, c, m)
-    assert head == (n * c // 2, n * m // 2, 2 * n, n * c, n * c, n * m, n * m, n * m, n * c,
-                    n * c, m * c, 9 * m, m * c, 9 * m)
+    assert head == (n * c // 2, n * m // 2, 2 * n, n * m, n * c)
     gdfn = tfused.gdfn_bwd_bf16_workspace_numel(n, c, hid)
-    weights = (2 * hid * c, 18 * hid, c * hid)
-    assert gdfn == (n * hid, n * c, n * c, *(2 * n * hid,) * 3, n * hid, n * c,
-                    *weights, *weights)
+    assert gdfn == (n * hid, 2 * n * hid, 2 * n * hid, n * hid)
     assert tfused.gdfn_bwd_bf16_workspace_numel(5, 7, 9)[0] == 45  # an odd count rounds up
+    assert tblock.head_bwd_bf16_workspace_numel(5, 7, 21)[:2] == (18, 53)
 
 
 def test_the_bf16_gdfn_forward_plan_takes_its_gate_as_a_pass():

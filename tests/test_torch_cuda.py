@@ -1533,10 +1533,10 @@ def test_the_bf16_apply_backwards_blocks_an_sm_fit_on_the_card(cuda_device, ch):
         assert (nbytes.value, least.value) == (tgram.apply_bwd_bf16_smem(cb), reg_blocks), form
 
 
-# Row 5's tail and row 9's qkv backward in bf16 on bf16 tiles (csrc/
-# block_bwd_bf16.cu, fused_dwconv_bf16.cu on mm.cuh's tf32 path with bf16
-# tiles, dwconv.cu's conv_taps16, conv_bf16_rot and dtaps_16, ln_bwd.cuh on
-# bf16): C = 6 (h = 15), the level-1 shapes at B = 3, odd h (127, 255,
+# Rows 5 and 9's backwards in bf16 on bf16 tiles, both configurations each
+# (csrc/block_bwd_bf16.cu, fused_dwconv_bf16.cu on mm.cuh's tf32 path with
+# bf16 tiles, dwconv.cu's conv_taps16, conv_bf16_rot and dtaps_16,
+# ln_bwd.cuh on bf16): C = 6 (h = 15), the level-1 shapes at B = 3, odd h (127, 255,
 # 1,021), a split latent and C = 576, past the 512 channels the LayerNorm
 # holds in registers
 BF16_TILE_SHAPES = [(1, 20, 19, 6), (3, 128, 128, 48), (3, 128, 128, 96), (2, 12, 13, 192),
@@ -1569,17 +1569,44 @@ def _exact_recompute_inputs(gen, b, h, w, c):
     return _to_bf16(p)
 
 
+def _exact_layernorm_inputs(gen, b, h, w, c):
+    """bf16 block-head inputs on which the bf16 recompute rounds nothing and
+    whose LayerNorm is not trivial: at each pixel half the channels +s and
+    half -s in a random order, s a random power of two from 2^8 to 2^11 (the
+    mean 0 and the variance s^2 exactly, eps below half its last bit, so inv
+    = 1/s), ln_w and ln_b random multiples of 1/8 in [-1, 1] (u = +-ln_w +
+    ln_b, exact in bf16), W_qkv four entries of +-1 a row (h exact too); the
+    taps random. C even."""
+    sign = torch.rand(b, h, w, c, device="cuda", generator=gen).argsort(dim=-1) < c // 2
+    s = 2.0 ** torch.randint(8, 12, (b, h, w, 1), device="cuda", generator=gen).float()
+
+    def eighths():
+        return torch.randint(-8, 9, (c,), device="cuda", generator=gen).float() / 8
+    p = _exact_recompute_inputs(gen, b, h, w, c)
+    return {**p, "x": torch.where(sign, s, -s).bfloat16(), "ln_w": eighths(), "ln_b": eighths()}
+
+
+# form -> (its call on args, the cotangent g and bf16_ops; the block input
+# names of its args)
+BF16_TILE_FORMS = {
+    "block_tail_bwd_bf16": (lambda args, g, o: tblock.block_tail_bwd(*args, g, o),
+                            ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")),
+    "conv1x1_dw_bwd_bf16": (lambda args, g, o: tfused.fused_dwconv_bwd(*args, None, g, o)[:3],
+                            ("x", "w_qkv", "dw_qkv")),
+    "block_head_bwd_bf16": (lambda args, g, o: tblock.block_head_bwd(*args, g, o),
+                            ("x", "ln_w", "ln_b", "w_qkv", "dw_qkv")),
+    "gdfn_fused_bwd_bf16": (lambda args, g, o: tfused.fused_dwconv_bwd(*args, g, o),
+                            ("x", "w_in", "dw_in", "w_out")),
+}
+
+
 def _bf16_tile_call(form, args, g, bf16_ops):
     """A call of the form (or, on fp32 args and g, of its fp32 kernel)."""
-    if form == "block_tail_bwd_bf16":
-        return lambda: tblock.block_tail_bwd(*args, g, bf16_ops)
-    return lambda: tfused.fused_dwconv_bwd(*args, None, g, bf16_ops)[:3]
+    return lambda: BF16_TILE_FORMS[form][0](args, g, bf16_ops)
 
 
 def _bf16_tile_args(form, p):
-    if form == "block_tail_bwd_bf16":
-        return [p[k] for k in ("x", "a", "w_proj", "ln_w", "ln_b", "w_in", "dw_in", "w_out")]
-    return [p["x"], p["w_qkv"], p["dw_qkv"]]
+    return [p[k] for k in BF16_TILE_FORMS[form][1]]
 
 
 def _assert_same_bits_with_g_two_bytes_off(form, args, g, bf16_ops, want):
@@ -1648,5 +1675,70 @@ def test_bf16_tail_and_qkv_backwards_on_bf16_tiles_keep_the_widening_designs_bit
         plain64 = tblock._vjp_plain(rounded, _double(args), g.double())
     else:
         plain, plain64 = tfused.fused_dwconv_bwd_plain(*args, None, g, bf16_ops)[:3], None
+    _check_bf16_outputs(form, got, again, plain, plain64)
+    _assert_same_bits_with_g_two_bytes_off(form, args, g, bf16_ops, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_TILE_SHAPES)
+@pytest.mark.parametrize("form", ["block_head_bwd_bf16", "gdfn_fused_bwd_bf16"])
+@pytest.mark.parametrize("bf16_ops", [False, True], ids=["3xtf32", "ops16"])
+def test_bf16_head_and_gdfn_backwards_on_bf16_tiles_keep_the_widening_designs_bits(
+        cuda_device, shape, form, bf16_ops):
+    """As the tail's and the qkv's above, for row 5's head and row 9's GDFN:
+    on inputs that vary by pixel and whose recompute rounds nothing (the
+    head's with a LayerNorm of random weights and statistics, the GDFN's
+    with random integers), every output equals, bit for bit, the fp32
+    kernel's on the widened inputs with each bf16 output rounded once (RNE),
+    also with the cotangent 2 bytes off; both repeat bitwise; a call counts
+    one launch and puts on the card as many kernels as the fp32 design (10
+    in the head, 11 in the GDFN at the level-1 shapes), none of them a widening or
+    rounding pass, and allocates its outputs, one workspace and the sums. On
+    random inputs, against the plain bf16 twins at the bf16 training gates."""
+    import functools
+    b, h, w, c = shape
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    head = form == "block_head_bwd_bf16"
+    args = _bf16_tile_args(form, (_exact_layernorm_inputs if head else _exact_recompute_inputs)(
+        gen, b, h, w, c))
+    wide_args = [None if t is None else t.float() for t in args]
+    if head:  # the recompute rounds nothing: the bf16 and fp32 forwards agree
+        assert torch.equal(tblock.block_head_fwd(*args),
+                           tblock.block_head_fwd(*wide_args).bfloat16())
+    g = torch.randn(b, h, w, 3 * c if head else c, device="cuda", generator=gen).bfloat16()
+    call = _bf16_tile_call(form, args, g, bf16_ops)
+    wide = _bf16_tile_call(form, wide_args, g.float(), bf16_ops)
+    name = build.counted(form, bf16_ops)
+    n0 = build.LAUNCHES[name]
+    torch.cuda.synchronize()
+    allocs0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = call()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs0
+    again, want = call(), wide()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    for x, y, z in zip(got, again, want):
+        assert x.dtype == (torch.float32 if z.shape == (c,) and head else torch.bfloat16)
+        assert torch.equal(x, y) and torch.equal(x, z.to(x.dtype))
+    records, records32 = _device_records(call), _device_records(wide)
+    assert not any("cast" in r for r in records), records
+    assert len(records) == len(records32), (records, records32)
+    if h == 128:  # the level-1 shapes: no product split
+        assert len(records) == (10 if head else 11), records
+    assert allocs == len(got) + 2, allocs
+    _assert_same_bits_with_g_two_bytes_off(form, args, g, bf16_ops, got)
+
+    args = _bf16_tile_args(form, _to_bf16(_block_inputs(gen, b, h, w, c, True)))
+    g = torch.randn(b, h, w, 3 * c if head else c, device="cuda", generator=gen).bfloat16()
+    call = _bf16_tile_call(form, args, g, bf16_ops)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    if head:
+        plain = tblock.block_head_bwd_plain(*args, g, bf16_ops)
+        rounded = functools.partial(tblock._block_head_rounded, torch.bfloat16,
+                                    bf16_ops=bf16_ops)
+        plain64 = tblock._vjp_plain(rounded, _double(args), g.double())
+    else:
+        plain, plain64 = tfused.fused_dwconv_bwd_plain(*args, g, bf16_ops), None
     _check_bf16_outputs(form, got, again, plain, plain64)
     _assert_same_bits_with_g_two_bytes_off(form, args, g, bf16_ops, got)

@@ -1,12 +1,13 @@
 """Where the time of the bf16 kernels goes, by subtraction, on one CUDA
 card: the Gram forward (row 3), the apply forward (row 4), the Gram
 backward (row 6, both operand policies) and the apply backward (row 7,
-both operand policies), each on a bf16 qkv; and bf16 training's block-tail
-backward (row 5, tail) and qkv backward (row 9, qkv), both operand
-policies, in the design that widens its bf16 operands in a launch of its
-own and rounds its outputs in another (csrc/cast.cuh).
+both operand policies), each on a bf16 qkv; and bf16 training's backward
+forms of rows 5 and 9, both operand policies: row 5's tail (`5`) and head
+(`5h`), row 9's qkv (`9`) and GDFN (`9g`), on bf16 tiles, or, in a tree
+that holds it (`--root`), the design that widened its bf16 operands in a
+launch of its own and rounded its outputs in another (csrc/cast.cuh).
 
-    python tools/port_bf16_ablate.py [--rows 3 4 6 7 5 9] [--variants full nostore ...]
+    python tools/port_bf16_ablate.py [--rows 3 4 6 7 5 5h 9 9g] [--variants full nostore ...]
                                      [--root DIR]
 
 Copies the rcot_torch of DIR (default: this checkout) into
@@ -37,9 +38,9 @@ one part of their kernels in the copy's csrc (or its plan in ops/gram.py):
             (not two), or 128 pixels each, or 256 up to R = 4 and 128
             above (row 3; the same sums);
   nowiden   the launch that widens the bf16 operands into fp32 workspaces
-            (rows 5 and 9);
+            (rows 5 and 9 in the widening design);
   nonarrow  the launch that rounds the fp32 results to the bf16 outputs
-            (rows 5 and 9);
+            (rows 5 and 9 in the widening design);
   noprod    the backward's 1x1 products and pixel sums with their
             fixed-order reduces (rows 5 and 9; the recompute's products
             stay);
@@ -47,17 +48,17 @@ one part of their kernels in the copy's csrc (or its plan in ops/gram.py):
             for one block an SM, so that they take up to 255 registers
             and spill none (rows 5 and 9 on bf16 tiles);
   nob1      the products' single-bf16 copies (W_out's rows at odd h, which
-            the threads load and store themselves) left unread (rows 5
-            and 9 on bf16 tiles),
+            the threads load and store themselves) left unread (row 5's
+            tail and row 9's GDFN on bf16 tiles),
 
 builds the copies at once, then times each in a process of its own, in
 turns (full first and last): device ms a call (chip_smoke.device_ms) and
 each launch's (tools/port_block_bwd_times.py stage_split), row 3 at serve
 L1, serve decoder L1 and train L1, row 4 at serve L1, decoder L1 and L1 at
 batch 8, rows 5-7 and 9 at train L1 and decoder L1 (128^2, B = 3). Rows 5
-and 9's nowiden, nonarrow and noprod cuts are made in the design that
-widens and rounds in launches of its own (`--root` on a checkout that holds
-it); a tree without that design refuses them.
+and 9's nowiden and nonarrow cuts are made in the design that widens and
+rounds in launches of its own (`--root` on a checkout that holds it); a
+tree without that design refuses them.
 A cut
 kernel computes nothing useful; only its time is read. A variant that cuts
 nothing in a row's sources is not timed for it. Each line names its
@@ -81,11 +82,15 @@ ROW_SOURCES = {"3": {"gram_bf16.cu"}, "4": {"gram_bf16.cu"},
                "6": {"gram_bwd_bf16.cu", "gram_bwd_bf16_b16ops.cu"},
                "7": {"apply_bwd_bf16.cu", "apply_bwd_bf16_b16ops.cu"},
                "5": {"block_bwd_bf16.cu", "dwconv.cu"},
-               "9": {"fused_dwconv_bf16.cu", "dwconv.cu"}}
+               "5h": {"block_bwd_bf16.cu", "dwconv.cu"},
+               "9": {"fused_dwconv_bf16.cu", "dwconv.cu"},
+               "9g": {"fused_dwconv_bf16.cu", "dwconv.cu"}}
+BF16_BWD = ("5", "5h", "9", "9g")
 # rows 5 and 9's cuts, the same text in either source
-WIDENING = {"5": "csrc/block_bwd_bf16.cu", "9": "csrc/fused_dwconv_bf16.cu"}
-# variant -> [(rows, file under rcot_torch/, text, replacement)]; each text
-# must be found where the rows it serves are built
+WIDENING = {("5", "5h"): "csrc/block_bwd_bf16.cu", ("9", "9g"): "csrc/fused_dwconv_bf16.cu"}
+# variant -> [(rows, file under rcot_torch/, text, replacement)], rows a
+# string of one-character rows or a tuple of rows; each text must be found
+# where the rows it serves are built
 CUTS = {
     "full": [],
     "nostore": [
@@ -154,16 +159,16 @@ CUTS = {
                  for r, f in WIDENING.items()],
     "noprod": [(r, f, old, "if (n < 0) " + old) for r, f in WIDENING.items()
                for old in ("RCOT_TRY((product<true, ", "RCOT_TRY(pixel_sum<OPS16>(")],
-    "lb1": [("59", "csrc/mm.cuh", "__global__ void __launch_bounds__(kThreads, 2) mm_kernel(",
+    "lb1": [(BF16_BWD, "csrc/mm.cuh", "__global__ void __launch_bounds__(kThreads, 2) mm_kernel(",
              "__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 && (sizeof(EA) == 2 || "
              "sizeof(EB) == 2 || sizeof(EO) == 2) ? 1 : 2) mm_kernel(")],
-    "nob1": [("59", "csrc/mm.cuh", "      *to = in ? *from : from_f<T>(0.f);",
+    "nob1": [(BF16_BWD, "csrc/mm.cuh", "      *to = in ? *from : from_f<T>(0.f);",
               "      *to = from_f<T>(0.f);")],
 }
 
 
 def cuts(variant: str, rows) -> list:
-    return [c for c in CUTS[variant] if any(r in c[0] for r in rows)]
+    return [c for c in CUTS[variant] if set(c[0]) & set(rows)]
 
 
 def make_tree(variant: str, rows, src: Path = HERE) -> Path:
@@ -231,7 +236,7 @@ def time_tree(root: Path, rows) -> dict:
             if "7" in rows:
                 calls[f"attn_apply_bwd_bf16{sfx} {tag}"] = (
                     lambda q=qkv, a=attn, x=gc, o=ops: g.attn_apply_bwd(q, a, x, bf16_ops=o))
-        if not {"5", "9"} & set(rows):
+        if not set(BF16_BWD) & set(rows):
             continue
         p = cs.bf16_block_inputs(cs.block_inputs(gen, b, res, ch, True))
         g_m = r(b, res, res, 3 * ch).to(torch.bfloat16)
@@ -240,10 +245,17 @@ def time_tree(root: Path, rows) -> dict:
             if "5" in rows:
                 calls[f"block_tail_bwd_bf16{sfx} {tag}"] = (
                     lambda p=p, x=gc, o=ops: kb.block_tail_bwd(*cs.tail_args(p), x, bf16_ops=o))
+            if "5h" in rows:
+                calls[f"block_head_bwd_bf16{sfx} {tag}"] = (
+                    lambda p=p, x=g_m, o=ops: kb.block_head_bwd(*cs.head_args(p), x, bf16_ops=o))
             if "9" in rows:
                 calls[f"conv1x1_dw_bwd_bf16{sfx} {tag}"] = (
                     lambda p=p, x=g_m, o=ops: kf.fused_dwconv_bwd(*cs.fused_args(p, False), x,
                                                                   bf16_ops=o))
+            if "9g" in rows:
+                calls[f"gdfn_fused_bwd_bf16{sfx} {tag}"] = (
+                    lambda p=p, x=gc, o=ops: kf.fused_dwconv_bwd(*cs.fused_args(p, True), x,
+                                                                 bf16_ops=o))
     return {key: [cs.device_ms(fn)[0], bwd_times.stage_split(cs, fn).get("by_launch")]
             for key, fn in calls.items()}
 

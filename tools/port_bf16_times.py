@@ -34,11 +34,12 @@ off/mdta/dwconv forward and tail/mdta/dwconv iteration) and the root and
 the card's name and power limit.
 
 With --redesigned it times only the bf16 forms that their latest Hopper
-redesign replaced (REDESIGNED: row 5's tail and row 9's qkv backward,
-block_tail_bwd_bf16 and conv1x1_dw_bwd_bf16, in both operand policies, at
-train L1 and decoder L1, B = 3): device ms, event ms and the kernels one
-call puts on the card, with chip_smoke.bf16_bwd_work's bound (no library
-call computes them), on seeded inputs, one JSON line. chip_smoke.py --root
+redesign replaced (REDESIGNED: row 5's head and row 9's GDFN backward,
+block_head_bwd_bf16 and gdfn_fused_bwd_bf16, in both operand policies, at
+train L1 and decoder L1, B = 3): device ms, event ms, the kernels one
+call puts on the card and the bytes it allocates at its peak, with
+chip_smoke.bf16_bwd_work's bound (no library call computes them), on
+seeded inputs, one JSON line. chip_smoke.py --root
 runs it on the parent and on this tree in turns (parent, this, this,
 parent).
 """
@@ -175,15 +176,16 @@ def opt_in(smoke, gen) -> dict:
 
 
 # the forms the redesign replaced, by the path and the levels they are timed at
-REDESIGNED = {"train": ("block_tail_bwd_bf16", "block_tail_bwd_bf16_b16ops",
-                        "conv1x1_dw_bwd_bf16", "conv1x1_dw_bwd_bf16_b16ops")}
+REDESIGNED = {"train": ("block_head_bwd_bf16", "block_head_bwd_bf16_b16ops",
+                        "gdfn_fused_bwd_bf16", "gdfn_fused_bwd_bf16_b16ops")}
 REDESIGNED_AT = ("L1", "decoder_level1")
 
 
 def redesigned(smoke) -> dict:
     """{"<form> <path> <level>": {device_ms, device_records (kernels a
-    call), ms, bound_ms, bound_by, library_device_ms}} of the bf16 forms of
-    row 5's tail and row 9's qkv backward in both operand policies, on
+    call), ms, peak_bytes (what a call allocates at its peak: outputs,
+    workspaces, sums), bound_ms, bound_by, library_device_ms}} of the bf16 forms of
+    row 5's head and row 9's GDFN backward in both operand policies, on
     inputs seeded alike in every tree; the bound from chip_smoke.bf16_bwd_work
     (the rate each policy's products run at), no library call (None)."""
     torch, kb, kf = smoke.torch, smoke.kblock, smoke.kfused
@@ -199,18 +201,24 @@ def redesigned(smoke) -> dict:
             p = smoke.bf16_block_inputs(smoke.block_inputs(gen, b, res, c, True))
             g_c, g_m = r(b, res, res, c).to(torch.bfloat16), r(b, res, res, 3 * c).to(
                 torch.bfloat16)
-            tail, qkv = smoke.tail_args(p), smoke.fused_args(p, False)
+            head, gdfn = smoke.head_args(p), smoke.fused_args(p, True)
             for name in REDESIGNED[path]:
                 ops16 = name.endswith("_b16ops")
-                fn = ((lambda o=ops16: kb.block_tail_bwd(*tail, g_c, bf16_ops=o))
-                      if name.startswith("block_tail") else
-                      (lambda o=ops16: kf.fused_dwconv_bwd(*qkv, g_m, bf16_ops=o)))
+                fn = ((lambda o=ops16: kb.block_head_bwd(*head, g_m, bf16_ops=o))
+                      if name.startswith("block_head") else
+                      (lambda o=ops16: kf.fused_dwconv_bwd(*gdfn, g_c, bf16_ops=o)))
                 flops, nbytes = smoke.bf16_bwd_work(b, res * res, c, ops16)[
                     name.replace("_b16ops", "")]
                 bound_ms, by = smoke.bound_at(flops, nbytes)
                 dev, records = smoke.device_ms(fn)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
                 out[f"{name} {path} {label}"] = dict(
                     device_ms=dev, device_records=records, ms=smoke.cuda_ms(fn),
+                    peak_bytes=torch.cuda.max_memory_allocated() - base,
                     bound_ms=bound_ms, bound_by=by, library_device_ms=None)
     return out
 

@@ -10,9 +10,9 @@ composition of the fused tier, a full-width T_net from a seed at 128^2
 (`bf16_serving`); and rows 3-4, 6 and 7 on a bf16 qkv at odd widths, a
 ragged pixel count, the main path's heads and two channel blocks, rows 6
 and 7 in both operand policies, and row 7 in both at train L1 and decoder
-L1 (`bf16_mdta_edges`); and rows 5 (tail) and 9 (qkv) in bf16 in both
-operand policies at train L1 and the latent, and at odd shapes with a
-cotangent 2 bytes off (`bf16_tile_edges`).
+L1 (`bf16_mdta_edges`); and rows 5 (tail and head) and 9 (qkv and GDFN)
+in bf16 in both operand policies at train L1 and the latent, and at odd
+shapes with a cotangent 2 bytes off (`bf16_tile_edges`).
 
     python tools/port_fp32_digests.py [--root DIR]
 
@@ -79,24 +79,26 @@ def opt_in_and_bf16(smoke) -> dict:
         calls = {**smoke.bf16_block_calls(p, r), **smoke.bf16_mdta_calls(qkv, heads, r)}
         for name in sorted(calls):
             out[f"{name} train {label}"] = _hash(*(t for t in calls[name][0]() if t is not None))
-        # rows 5 tail and 9 qkv in bf16 with bf16 operands in their products
+        # rows 5 and 9 in bf16 with bf16 operands in their products
         b16 = smoke.b16ops_calls(p, qkv, heads, r)
-        for name in ("block_tail_bwd_bf16_b16ops", "conv1x1_dw_bwd_bf16_b16ops"):
+        for name in ("block_tail_bwd_bf16_b16ops", "conv1x1_dw_bwd_bf16_b16ops",
+                     "block_head_bwd_bf16_b16ops", "gdfn_fused_bwd_bf16_b16ops"):
             out[f"{name} train {label}"] = _hash(*(t for t in b16[name][0]() if t is not None))
     out.update(bf16_mdta_edges(smoke, r))
     out.update(bf16_tile_edges(smoke, gen, r))
     return out
 
 
-# (b, h, w, c): bf16 training's row 5 tail and row 9 qkv backward also at C =
-# 6 (h = 15), odd shapes, the latent's and C = 576 (the LayerNorm's wide
-# path), each with a cotangent 2 bytes off its allocation
+# (b, h, w, c): bf16 training's row 5 and row 9 backwards, both
+# configurations each, also at C = 6 (h = 15), odd shapes, the latent's and
+# C = 576 (the LayerNorm's wide path), each with a cotangent 2 bytes off its
+# allocation
 BF16_TILE_EDGES = [(1, 20, 19, 6), (2, 12, 13, 192), (1, 9, 33, 384), (1, 8, 9, 576)]
 
 
 def bf16_tile_edges(smoke, gen, r) -> dict:
-    """SHA-256 of rows 5 (tail) and 9 (qkv) backward in bf16, both operand
-    policies, at BF16_TILE_EDGES, the cotangent 2 bytes off."""
+    """SHA-256 of rows 5 (tail, head) and 9 (qkv, GDFN) backward in bf16,
+    both operand policies, at BF16_TILE_EDGES, the cotangent 2 bytes off."""
     torch, bf16 = smoke.torch, smoke.torch.bfloat16
     out = {}
 
@@ -111,6 +113,11 @@ def bf16_tile_edges(smoke, gen, r) -> dict:
                    *smoke.kfused.fused_dwconv_bwd(*smoke.fused_args(p, False), g_m,
                                                   bf16_ops=ops)[:3])
             out[f"rows 5 tail, 9 qkv bf16{'_b16ops' if ops else ''} {(b, h, w, c)}"] = _hash(
+                *(t for t in got if t is not None))
+            got = (*smoke.kblock.block_head_bwd(*smoke.head_args(p), g_m, bf16_ops=ops),
+                   *smoke.kfused.fused_dwconv_bwd(*smoke.fused_args(p, True), g_c,
+                                                  bf16_ops=ops))
+            out[f"rows 5 head, 9 GDFN bf16{'_b16ops' if ops else ''} {(b, h, w, c)}"] = _hash(
                 *(t for t in got if t is not None))
     return out
 
