@@ -76,9 +76,12 @@ Phases (any failure exits non-zero; nothing is caught):
      attn_apply_fwd_bf16) against their plain bf16 twins at every block
      shape of a 256x256 forward, B = 1 and 2, and a head of 192 channels,
      each bitwise against a second call (the share of elements not bitwise
-     equal to the twin printed); the full-width T_net at 256^2, batch 1 and
-     8, through restore_batch: 94 launches of each bf16 kernel per forward
-     and none of their fp32 forms, the outputs against the same weights in
+     equal to the twin printed), with the tail's and the GDFN's gated
+     depthwise alone (kdw.conv_gate_bf16) against its twin; the full-width
+     T_net at 256^2, batch 1 and 8, through restore_batch: 94 launches of
+     each bf16 kernel per forward and none of their fp32 forms, one forward
+     profiled (as one "head" forward below: as many gated-depthwise records
+     as tails or GDFNs launched, no gate pass), the outputs against the same weights in
      bf16 on the CPU; bf16 and fp32 img/s at batch 1 and 8 in turns and the
      peak memory at batch 8; rcot_torch.cli.test --dtype bfloat16 against a
      CPU run; one full-width bf16 forward of a 128^2 image in each of
@@ -217,10 +220,11 @@ Phases (any failure exits non-zero; nothing is caught):
      6 and 7 on bf16 at odd widths, a ragged image and two channel blocks
      (rows 6 and 7 in both operand policies), rows 5 (tail, head) and 9
      (qkv, GDFN) in bf16 in both operand policies, also at odd shapes with
-     a cotangent 2 bytes off, bit for bit; then the bf16 forms that their
-     latest Hopper redesign replaced (rows 5's head and 9's GDFN, both
-     policies),
-     device ms and kernels a call, on PARENT and on this checkout in turns
+     a cotangent 2 bytes off, with the bf16 forwards of rows 2 (tail) and 8
+     (GDFN) there, bit for bit; then the bf16 forms that their latest
+     Hopper redesign replaced (the forwards of row 2's tail and row 8's
+     GDFN, which take their gate in their depthwise), device ms, kernels a
+     call and a call's peak bytes, on PARENT and on this checkout in turns
      (tools/port_bf16_times.py --redesigned).
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
@@ -1582,7 +1586,8 @@ def check_bf16_gram(name, gen, qkv, heads, errs) -> None:
 def phase_bf16_kernels(gen) -> dict:
     """Rows 1-4 in bf16 against their plain bf16 twins at every block shape
     of a 256x256 forward, B = 1 and 2, and at a head of 192 channels, each
-    bitwise against a second call."""
+    bitwise against a second call; so too the bf16 tail's and GDFN's gated
+    depthwise alone (kdw.conv_gate_bf16) at the tail's width."""
     errs: dict = {}
     for label, res, c, heads in MAIN_SHAPES:
         for b in (1, 2):
@@ -1599,6 +1604,13 @@ def phase_bf16_kernels(gen) -> dict:
                 check_repeats(f"{name} {tag}", (got,), (again,))
                 if name == "block_head_bf16":
                     qkv = got
+            # the tail's gated depthwise alone, on an h of the tail's width
+            h = torch.randn(b, res, res, p["dw_in"].shape[0], device="cuda",
+                            generator=gen).to(BF16)
+            got, again = kdw.conv_gate_bf16(h, p["dw_in"]), kdw.conv_gate_bf16(h, p["dw_in"])
+            torch.cuda.synchronize()
+            check_bf16_out(f"conv_gate_bf16 {tag}", got, kdw.conv_gate_plain(h, p["dw_in"]), errs)
+            check_repeats(f"conv_gate_bf16 {tag}", (got,), (again,))
             check_bf16_gram(tag, gen, qkv, heads, errs)
     # a head of 192 channels: two channel blocks of 96
     qkv = torch.randn(1, 64, 64, 3 * 192, device="cuda", generator=gen).to(BF16)
@@ -1618,12 +1630,11 @@ def bf16_timings(gen, label, res, c, heads, b) -> dict:
     bmm on bf16 heads (their yardstick: bf16_gram_yardstick)."""
     n = res * res
     p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
-    m, hid, ch = 3 * c, int(c * 2.66), c // heads
+    m, ch = 3 * c, c // heads
     qkv = kblock.block_head(*head_args(p))
     attn = torch.softmax(torch.randn(b, heads, ch, ch, device="cuda", generator=gen), -1)
     yard = bf16_gram_yardstick(qkv, heads, attn=attn)
     w_head = 2 * (m * c + 9 * m) + 4 * 2 * c
-    w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
     rows = {  # kernel, plain, library, flops by rate, bytes
         "block_head_bf16": (lambda: kblock.block_head(*head_args(p)),
                             lambda: kblock.block_head_plain(*head_args(p)), None,
@@ -1631,9 +1642,7 @@ def bf16_timings(gen, label, res, c, heads, b) -> dict:
                             2 * b * n * (c + m) + w_head),
         "block_tail_bf16": (lambda: kblock.block_tail(*tail_args(p)),
                             lambda: kblock.block_tail_plain(*tail_args(p)), None,
-                            {"bf16": b * n * (2 * c * c + 6 * c * hid),
-                             "fp32": b * n * (46 * hid + 10 * c)},
-                            2 * 3 * b * n * c + w_tail),
+                            *bf16_fwd_work(b, n, c)["block_tail_bf16"]),
         "mdta_gram_fwd_bf16": (lambda: kgram.mdta_gram_fwd(qkv, heads),
                                lambda: kgram.mdta_gram_plain(qkv, heads),
                                *yard["mdta_gram_fwd_bf16"]),
@@ -1651,6 +1660,27 @@ def bf16_timings(gen, label, res, c, heads, b) -> dict:
                          bound_ms=bound_ms, bound_by=by,
                          library_ms=cuda_ms(lib) if lib else None,
                          library_device_ms=device_ms(lib)[0] if lib else None)
+    return out
+
+
+def gate_records(fn, form: str) -> dict:
+    """One call of fn (a bf16 serving forward) under torch.profiler, after
+    a warm one: its device records, those of the gated depthwise
+    (dwconv3x3_gate_kernel) and of any gate pass, and the launches of the
+    form that runs the gated depthwise; the two counts must agree and no
+    gate pass may run."""
+    fn()
+    torch.cuda.synchronize()
+    n0 = build.LAUNCHES[form]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = dict(form=form, form_launches=build.LAUNCHES[form] - n0, device_records=len(names),
+               conv_gate_bf16=sum("dwconv3x3_gate_kernel" in k for k in names),
+               gate_pass=sum("gate_pass" in k for k in names))
+    if out["gate_pass"] or not out["conv_gate_bf16"] == out["form_launches"] > 0:
+        raise AssertionError(f"profiled bf16 forward: {out}")
     return out
 
 
@@ -1689,6 +1719,9 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
     for o in out1 + out8:
         if o.shape != (256, 256, 3) or not np.isfinite(o).all():
             raise AssertionError(f"bad bf16 output {o.shape}")
+    # one forward profiled: the tails' gated depthwise, no gate pass
+    gates = {"full": gate_records(lambda: r16.restore_batch(imgs[5:6]), "block_tail_bf16")}
+    log(f"serving bf16 full, one image profiled: {json.dumps(gates['full'])}")
 
     # ---- against the same weights in bf16 on the CPU: image 5 alone and
     # as the sixth of the batch of 8, against one CPU forward
@@ -1747,6 +1780,7 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
 
     part("cli.test")
     compositions = bf16_compositions(gen_np, net, r32, cpu16_net(net), card)
+    gates["head"] = compositions.pop("gate_records")
     part("compositions")
     timings = {label: bf16_timings(gen, label, res, c, heads, 1)
                for label, res, c, heads in MAIN_SHAPES if label in BF16_TIMED_SHAPES}
@@ -1755,7 +1789,7 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
     return dict(errs=errs, launches=launches, n_fwd=n_fwd, vs_cpu=vs_cpu,
                 img_per_s=rate, batch8_max_memory_allocated=peak, cli_psnr_gap_db=psnr_gap,
                 cli_launches=cli_launches, compositions=compositions, timings=timings,
-                seconds=seconds, card=card)
+                gate_records=gates, seconds=seconds, card=card)
 
 
 def cpu16_net(net):
@@ -1772,7 +1806,8 @@ def bf16_compositions(gen_np, net, r32, cpu_net, card) -> dict:
     composition's bf16 forward on the CPU by the rule of the "full" check
     above (mean|card - CPU| <= mean|fp32 - bf16| / 4, the fp32 side the
     card's "full"); then img/s at 256 px, batch 8, in turns (full, head,
-    tail, off, off, tail, head, full)."""
+    tail, off, off, tail, head, full); one "head" forward profiled
+    (gate_records)."""
     cfg = ModelConfig()
     img = gen_np.uniform(0, 1, (128, 128, 3)).astype(np.float32)
     fp32 = r32.restore_batch([img])[0]
@@ -1798,12 +1833,15 @@ def bf16_compositions(gen_np, net, r32, cpu_net, card) -> dict:
                 row["mean_abs_err"] <= row["mean_fp32_bf16_gap"] / 4
                 and row["max_abs_err"] <= BF16_RTOL * max(float(np.abs(ref).max()), 1.0)):
             raise AssertionError(f"serving bf16 {mode} card vs CPU: {row}")
+    # one "head" forward profiled: the GDFN's gated depthwise, no gate pass
+    gates = gate_records(lambda: rs["head"].restore_batch([img]), "gdfn_fused_bf16")
+    log(f"serving bf16 head, one 128^2 image profiled: {json.dumps(gates)}")
     rate = {mode: [] for mode in rs}
     for mode in ("full", "head", "tail", "off", "off", "tail", "head", "full"):
         rate[mode].append(images_per_sec(rs[mode], gen_np, 8, TURN_BATCHES_B8))
     log(f"256px restore_batch bf16 at batch 8 by composition, in turns: {json.dumps(rate)} "
         f"({card})")
-    return dict(vs_cpu_128px=out, batch8_img_per_s=rate)
+    return dict(vs_cpu_128px=out, batch8_img_per_s=rate, gate_records=gates)
 
 
 # ------------------------------------------------------------ bf16 training
@@ -1917,6 +1955,23 @@ def phase_bf16_train_kernels(gen) -> dict:
     return errs
 
 
+def bf16_fwd_work(b, n, c) -> dict:
+    """{name: ({rate: flops}, bytes)} of the bf16 forwards of row 2's tail
+    and row 8's GDFN on b images of n pixels at C channels: their products
+    at the bf16 tensor-core rate, the stencils, the gate and the LayerNorm
+    at the fp32 rate; bf16 activations and weights, fp32 LayerNorm weights,
+    each input read once, each output written once."""
+    hid = int(c * 2.66)
+    w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
+    w_gdfn = 2 * (3 * hid * c + 18 * hid)
+    return {
+        "block_tail_bf16": ({"bf16": b * n * (2 * c * c + 6 * c * hid),
+                             "fp32": b * n * (46 * hid + 10 * c)}, 2 * 3 * b * n * c + w_tail),
+        "gdfn_fused_bf16": ({"bf16": b * n * 6 * hid * c, "fp32": b * n * 46 * hid},
+                            2 * 2 * b * n * c + w_gdfn),
+    }
+
+
 def bf16_bwd_work(b, n, c, ops16=False) -> dict:
     """{name: ({rate: flops}, bytes)} of rows 5 and 9's bf16 backward forms,
     both configurations, on b images of n pixels at C channels (ops16: their
@@ -1969,7 +2024,7 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     the library for rows 6-7 is bmm on bf16 heads."""
     n = res * res
     p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
-    m, hid, ch = 3 * c, int(c * 2.66), c // heads
+    m, ch = 3 * c, c // heads
 
     def r(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
@@ -1980,7 +2035,6 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     dgram = r(b, heads, ch, ch)
     yard = bf16_gram_yardstick(qkv, heads, attn=attn, dgram=dgram, g=g_c)
     w_qkv = 2 * (m * c + 9 * m)
-    w_gdfn = 2 * (3 * hid * c + 18 * hid)
     work = bf16_bwd_work(b, n, c)
     rows = {  # library, flops by rate, bytes
         "conv1x1_dw_bf16": (None, {"bf16": b * n * 2 * c * m, "fp32": b * n * 18 * m},
@@ -1991,8 +2045,7 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
         "attn_apply_bwd_bf16": yard["attn_apply_bwd_bf16"],
         "block_head_bwd_bf16": (None, *work["block_head_bwd_bf16"]),
         # the GDFN forward: both products bf16, the stencil and the gate fp32
-        "gdfn_fused_bf16": (None, {"bf16": b * n * 6 * hid * c, "fp32": b * n * 46 * hid},
-                            2 * 2 * b * n * c + w_gdfn),
+        "gdfn_fused_bf16": (None, *bf16_fwd_work(b, n, c)["gdfn_fused_bf16"]),
         "gdfn_fused_bwd_bf16": (None, *work["gdfn_fused_bwd_bf16"]),
     }
     out = {}
@@ -4231,7 +4284,8 @@ def main(argv=None) -> int:
             library_device_ms=l1["library_device_ms"], at=l1["shape"],
             latent=bf16["timings"]["latent"][name],
             launches_per_train_iteration_bf16=bf16_train["launches"].get(name, 0) // len(
-                bf16_train["metrics"])))
+                bf16_train["metrics"]),
+            **({"stages": bf16["gate_records"]["full"]} if name == "block_tail_bf16" else {})))
     for name, (source, replaces) in BF16_TRAIN_KERNELS.items():
         t = bf16_train_times["L1"][name]
         mode = BF16_LAUNCHES_FROM.get(name, "tail")
@@ -4245,7 +4299,8 @@ def main(argv=None) -> int:
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
             library_device_ms=t["library_device_ms"], at=t["shape"],
             decoder_L1=bf16_train_times["decoder_level1"][name],
-            latent=bf16_train_times["latent"][name]))
+            latent=bf16_train_times["latent"][name],
+            **({"stages": bf16["gate_records"]["head"]} if name == "gdfn_fused_bf16" else {})))
     for name, (source, replaces) in BF16_OPT_IN_KERNELS.items():
         # a form's ms are at its main path's L1 shape: the attend and the
         # forward (at 2h) in serving, dx and dtaps (at 3C) in training

@@ -25,18 +25,20 @@
 // by its bytes at every block shape; the tail reads 4C and writes 2C
 // against about 18 C^2, bound by its bytes up to C = 96 and by its
 // operations above (chip_smoke.py's bound). The design's own launches move
-// the intermediates through device memory in bf16 (u, h, t, the gate) and
-// fp32 (conv, which the gate reads unrounded).
+// the intermediates through device memory in bf16 (u, h, t, the gate); the
+// fp32 conv, which the gate takes unrounded, never leaves the SM.
 //
 // Design: block_fwd.cu's chain of launches on mm.cuh's products, ln_fwd and
 // row 11's depthwise forward, instantiated for bf16 (mm.cuh, dwconv.cu),
 // with the same plan (ops/block.py block_fwd_plan, copy widths in bf16
-// elements); the tail's gate is always a pass of its own (gate_pass) into
-// h's buffer in rows of gate_ld<bf16>(h) = h rounded up to 8, since the
-// product's A tile holds bf16 and the gate is taken from fp32 conv. Split
-// products add their fp32 partials in a fixed order and round after the
-// sum. No atomics and no memsets: two calls on the same inputs give the
-// same bits.
+// elements). The tail's depthwise takes the gate itself (dwconv.cuh
+// conv_gate_bf16: both halves of conv summed as conv_bf16 sums them, the
+// gate taken in registers and rounded once) into a workspace in rows of
+// gate_ld<bf16>(h) = h rounded up to 8, which the W_out product reads:
+// five launches (proj product, LN, W_in product, the gated depthwise, the
+// W_out product), more where a product splits. Split products add their
+// fp32 partials in a fixed order and round after the sum. No atomics and
+// no memsets: two calls on the same inputs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,8 +58,9 @@ enum Plan {
   kVecG,      //   of the gate's padded rows (gate_ld<bf16> apart)
   kSplit,     // (K ranges, depth a range) of the products t, h and out,
               // at kSplit + 2 * kProd*
-  kDw = kSplit + 6,      // (vec, cv, tc, rows) of the depthwise forward
-  kGatePass = kDw + 4,   // 1: the tail's gate as a pass of its own (always, in bf16)
+  kDw = kSplit + 6,      // (vec, cv, tc, rows) of the depthwise forward (the
+                         //   head's conv_bf16, the tail's conv_gate_bf16)
+  kGatePass = kDw + 4,   // 1: a gate pass (the fp32 tail's; 0 in bf16)
   kPlanInts
 };
 enum Prod { kProdT, kProdH, kProdOut };
@@ -94,24 +97,24 @@ int rcot_block_head_bf16(const bf16* x, const float* ln_w, const float* ln_b, co
 // Inputs x, a (B,H,W,C), w_proj (C,C), w_in (2h,C), dwk (2h,3,3), w_out
 // (C,h) bf16, ln_w, ln_b (C, fp32; ln_b null for BiasFree); output y
 // (B,H,W,C) bf16. Workspace: t (N,C) bf16, stats (2N) fp32, u (N,C) bf16,
-// h (N, max(2h, gate_ld<bf16>(h))) bf16 (then the gate), conv (N,2h) fp32,
-// and sums (fp32, the plan's).
+// h (N,2h) bf16, gate (N, gate_ld<bf16>(h)) bf16, and sums (fp32, the
+// plan's). plan: kPlanInts ints, kDw the gated depthwise's, kGatePass 0.
 int rcot_block_tail_bf16(const bf16* x, const bf16* a, const bf16* w_proj, const float* ln_w,
                          const float* ln_b, const bf16* w_in, const bf16* dwk, const bf16* w_out,
-                         bf16* y, bf16* t, float* stats, bf16* u, bf16* h, float* conv,
+                         bf16* y, bf16* t, float* stats, bf16* u, bf16* h, bf16* gate,
                          float* sums, const int* plan, int B, int H, int W, int C, int hid,
                          void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * H * W;
   const int m2 = 2 * hid, vc = plan[kVecC], vh = plan[kVecH], vg = plan[kVecG];
-  if (!plan[kGatePass]) return cudaErrorInvalidValue;
+  if (plan[kGatePass]) return cudaErrorInvalidValue;
   RCOT_TRY((product<false, kEpiAdd>(a, C, vc, w_proj, vc, t, C, n, SPLIT(kProdT), sums, st, x)));
   RCOT_TRY(ln_fwd(t, ln_w, ln_b, u, stats, n, C, plan[kLnBlocks], st));
   RCOT_TRY((product<false, kEpiStore>(u, C, vc, w_in, vc, h, m2, n, SPLIT(kProdH), sums, st)));
-  RCOT_TRY(dw(h, dwk, conv, false, B, H, W, m2, plan, st));
-  // h is dead: its buffer takes the gate
-  RCOT_TRY(gate_pass(conv, h, n, hid, plan[kLnBlocks], st));
-  return product<false, kEpiAdd>(h, hid, vg, w_out, vh, y, C, n, SPLIT(kProdOut), sums, st, t,
+  RCOT_TRY(rcot_dwconv::conv_gate_bf16(h, dwk, gate, B, H, W, hid, gate_ld<bf16>(hid),
+                                       plan[kDw], plan[kDw + 1], plan[kDw + 2], plan[kDw + 3],
+                                       st));
+  return product<false, kEpiAdd>(gate, hid, vg, w_out, vh, y, C, n, SPLIT(kProdOut), sums, st, t,
                                  nullptr, gate_ld<bf16>(hid));
 }
 

@@ -73,6 +73,15 @@
 // its ring and widened as they leave it, and sums in fp32 in the same
 // order into fp32 dtaps (rcot_dwconv::dtaps_w32), as the JAX backward
 // sums its widened cotangent (pallas_dwconv.py:121-134).
+//
+// The gated depthwise of the bf16 tail and GDFN forwards (block_fwd_bf16.cu,
+// fused_dwconv_bf16.cu; rcot_dwconv::conv_gate_bf16) takes the gate
+// gelu(c1) c2 where the TPU kernels take it, from the fp32 conv in fast
+// memory (pallas_block.py:135-138, pallas_fused.py:173-176): both halves of
+// conv summed as the forward sums them, in registers, the gate rounded once
+// to bf16; it reads h (4h bytes a pixel) and writes the gate (2 gate_ld),
+// where a depthwise into fp32 conv and a gate pass moved 4h + 8h + 8h + 2
+// gate_ld. Its copies stay 4 bytes wide at odd h (dwconv3x3_gate_kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -501,6 +510,176 @@ dwconv3x3_dtaps_mixed_kernel(const bf16* __restrict__ x, const float* __restrict
   }
 }
 
+// The gated depthwise of the bf16 forwards (rcot_dwconv::conv_gate_bf16):
+// [c1 | c2] = dw3x3(x) of a bf16 x (B, H, W, 2 hid) on bf16 taps, then
+// gate = bf16(gelu(c1) c2) in rows of ld_gate bf16, zeros past hid. Block
+// (tile, chunk, image x band) as dwconv3x3_kernel's, over ld_gate channels
+// in vectors of kGateVec, its tile 2 tc columns wide: thread (j, v) owns
+// channels c = c0 + v V.. of c1 and hid + c.. of c2 at the two columns
+// x0 + 2j and x0 + 2j + 1, which share the middle two of the four input
+// columns they read and the taps, keeps both halves' 9 V taps and three
+// rows of each column in flight, and stores a gate row when its last
+// input row has passed. Each of c1 and c2 is dwconv3x3_kernel's sum in its
+// order, so the gate's inputs are conv_bf16's fp32 conv bit for bit; conv
+// never leaves the SM. A ring stage holds (2 tc + 2) rows of c1's chunk
+// (cw bf16) and then (2 tc + 2) of c2's (cw + V: at odd hid c2 starts one
+// bf16 past a 4-byte column, and kGateShift stages it from that column
+// with V-wide copies, one piece more a row, and reads it one element on).
+enum GateMode { kGateAligned, kGateShift };
+constexpr int kGateVec = 2;          // bf16 a vector (a copy of c1: 4 bytes)
+constexpr int kGateCols = 2;         // output columns a thread
+constexpr int kGateBlocksPerSm = 2;  // the launch bound (ops/dwconv.py GATE_BLOCKS_PER_SM)
+
+__host__ __device__ constexpr int gate_slot(int cv, int tc) {  // bf16 a ring stage
+  return (kGateCols * tc + 2) * (2 * cv * kGateVec + kGateVec);
+}
+
+// one half's FMAs at one input row, for both columns: a* (output rows y +
+// 1, y, y - 1 of input row y) of the left column from inputs 0-2, b* of the
+// right from 1-3, dwconv3x3_kernel's chains
+template <int V>
+__device__ __forceinline__ void gate_fmas(const float (&w)[9][V], const float (&in)[4][V],
+                                          float (&a0)[V], float (&a1)[V], float (&a2)[V],
+                                          float (&b0)[V], float (&b1)[V], float (&b2)[V]) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    a0[e] = fmaf(w[0][e], in[0][e], fmaf(w[1][e], in[1][e], fmaf(w[2][e], in[2][e], a0[e])));
+    a1[e] = fmaf(w[3][e], in[0][e], fmaf(w[4][e], in[1][e], fmaf(w[5][e], in[2][e], a1[e])));
+    a2[e] = fmaf(w[6][e], in[0][e], fmaf(w[7][e], in[1][e], fmaf(w[8][e], in[2][e], a2[e])));
+    b0[e] = fmaf(w[0][e], in[1][e], fmaf(w[1][e], in[2][e], fmaf(w[2][e], in[3][e], b0[e])));
+    b1[e] = fmaf(w[3][e], in[1][e], fmaf(w[4][e], in[2][e], fmaf(w[5][e], in[3][e], b1[e])));
+    b2[e] = fmaf(w[6][e], in[1][e], fmaf(w[7][e], in[2][e], fmaf(w[8][e], in[3][e], b2[e])));
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kThreads, kGateBlocksPerSm)
+dwconv3x3_gate_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
+                      bf16* __restrict__ gate, int H, int W, int hid, int ld_gate, int cv,
+                      int tc, int rows, int bands) {
+  constexpr int V = kGateVec;
+  extern __shared__ __align__(16) float smem[];
+  const int nt = tc * cv, cw = cv * V, ld2 = cw + V, cols = kGateCols * tc + 2;
+  const int c2_at = cols * cw, slot = gate_slot(cv, tc), d = MODE == kGateShift ? hid % V : 0;
+  const long long pix = 2LL * hid, row = (long long)W * pix;
+  const int x0 = blockIdx.x * kGateCols * tc, c0 = blockIdx.y * cw;
+  const int b = blockIdx.z / bands, y0 = (blockIdx.z - b * bands) * rows;
+  const int n_out = min(rows, H - y0), n_in = n_out + 2;
+  const int j = threadIdx.x / cv, v = threadIdx.x - j * cv;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  // 18 rows of cw floats, tap-major, c1's then c2's, past the ring
+  float* s_taps = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) +
+                                           ring_bytes<bf16>(kStages * slot));
+  const bf16* img = x + (long long)b * H * row;
+
+  // piece i = threadIdx.x + k nt of a staged row (column i / cv, vector i %
+  // cv, as Tile's): c1's at i V, c2's of the same column and vector at
+  // c2_at + column ld2 + vector V; a thread copies at most four of each
+  // ((2 tc + 2) cv pieces for tc cv threads); g < 0: outside
+  int s1[4], s2[4], g[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = threadIdx.x + k * nt, col = i / cv, gx = x0 - 1 + col;
+    const int gc = c0 + (i - col * cv) * V;
+    s1[k] = i < cols * cv ? i * V : -1;
+    s2[k] = c2_at + i * V + col * V;
+    g[k] = gx >= 0 && gx < W && gc < hid ? gx * (int)pix + gc : -1;
+  }
+  auto stage = [&](int r) {
+    bf16* dst = ring + (r % kStages) * slot;
+    const int y = y0 - 1 + r;
+    const bool in_row = y >= 0 && y < H;
+    const bf16* src = img + (in_row ? y * row : 0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (s1[k] < 0) continue;
+      const bool in = in_row && g[k] >= 0;
+      const int at = in ? g[k] : 0;
+      cp_async<V>(dst + s1[k], src + at, in);
+      cp_async<V>(dst + s2[k], src + at + hid - d, in);
+    }
+    if constexpr (MODE == kGateShift) {
+      // c2's last piece of each column, past the chunk: channels c0 + cw - d..
+      for (int col = threadIdx.x; col < cols; col += nt) {
+        const int gx = x0 - 1 + col;
+        const bool in = in_row && gx >= 0 && gx < W && c0 + cw + V <= hid + d;
+        cp_async<V>(dst + c2_at + col * ld2 + cw,
+                    src + (in ? gx * (int)pix + hid - d + c0 + cw : 0), in);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_in) stage(s);
+    cp_commit();
+  }
+  // the chunk's taps of c1 and of c2: 9 * cc contiguous bf16 each, coalesced
+  const int cc = max(0, min(cw, hid - c0));
+  for (int f = threadIdx.x; f < 9 * cc; f += nt) {
+    s_taps[(f % 9) * cw + f / 9] = to_f(taps[9LL * c0 + f]);
+    s_taps[(9 + f % 9) * cw + f / 9] = to_f(taps[9LL * (hid + c0) + f]);
+  }
+  __syncthreads();
+  float w1[9][V], w2[9][V];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    load_vec<V>(w1[k], s_taps + k * cw + v * V);
+    load_vec<V>(w2[k], s_taps + (9 + k) * cw + v * V);
+  }
+
+  const int c = c0 + v * V, xl = x0 + kGateCols * j;
+  const bool on = c < ld_gate, left = on && xl < W, right = on && xl + 1 < W;
+  bf16* dst = gate + ((long long)b * H + y0) * W * ld_gate + (long long)xl * ld_gate + c;
+  // c1's (p) and c2's (q) rows in flight: *a the left column's, *b the right's
+  float pa0[V], pa1[V], pa2[V], pb0[V], pb1[V], pb2[V];
+  float qa0[V], qa1[V], qa2[V], qb0[V], qb1[V], qb2[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    pa0[e] = pa1[e] = pa2[e] = pb0[e] = pb1[e] = pb2[e] = qa0[e] = qa1[e] = qa2[e] = qb0[e] =
+        qb1[e] = qb2[e] = 0.f;
+  for (int r = 0; r < n_in; ++r) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // row r is in; every thread is done with row r - 1's slot
+    if (r + kStages - 1 < n_in) stage(r + kStages - 1);
+    cp_commit();
+    const bf16* s = ring + (r % kStages) * slot;
+    float in[4][V];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) load_vec<V>(in[q], s + ((kGateCols * j + q) * cv + v) * V);
+    gate_fmas<V>(w1, in, pa0, pa1, pa2, pb0, pb1, pb2);
+    const bf16* s2p = s + c2_at + kGateCols * j * ld2 + v * V + d;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (MODE == kGateShift) {  // 2-byte aligned: a bf16 a load
+#pragma unroll
+        for (int e = 0; e < V; ++e) in[q][e] = to_f(s2p[q * ld2 + e]);
+      } else {
+        load_vec<V>(in[q], s2p + q * ld2);
+      }
+    }
+    gate_fmas<V>(w2, in, qa0, qa1, qa2, qb0, qb1, qb2);
+    if (r >= 2) {
+      float ga[V], gb[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        ga[e] = c + e < hid ? gate_fwd(pa2[e], qa2[e]) : 0.f;
+        gb[e] = c + e < hid ? gate_fwd(pb2[e], qb2[e]) : 0.f;
+      }
+      bf16* out = dst + (long long)(r - 2) * W * ld_gate;
+      if (left) store_vec<V>(out, ga);
+      if (right) store_vec<V>(out + ld_gate, gb);
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      pa2[e] = pa1[e], pa1[e] = pa0[e], pa0[e] = 0.f;
+      pb2[e] = pb1[e], pb1[e] = pb0[e], pb0[e] = 0.f;
+      qa2[e] = qa1[e], qa1[e] = qa0[e], qa0[e] = 0.f;
+      qb2[e] = qb1[e], qb1[e] = qb0[e], qb0[e] = 0.f;
+    }
+  }
+}
+
 // out[e] = sum over parts p of ws[p * E + e]: warp w adds parts w, w + W,
 // ... in order, then warp 0 adds the W warps' sums in order; a bf16 out
 // takes the sum rounded once.
@@ -559,6 +738,17 @@ size_t dtaps_mixed_smem(int vec, int cv, int tc) {
                red = sizeof(float) * 9 * tc * cv * vec;
   return ring > red ? ring : red;
 }
+
+// the gated depthwise's ring and, 16-byte aligned after it, its 18 rows of
+// taps (floats); ops/dwconv.py conv_gate_smem
+size_t gate_smem(int cv, int tc) {
+  return ring_bytes<bf16>((long long)kStages * gate_slot(cv, tc)) +
+         sizeof(float) * 18 * cv * kGateVec;
+}
+
+// the gated depthwise's mode at this hid: c2 aligned with c1 where hid is
+// even, else shifted copies
+int gate_mode(int hid) { return hid % kGateVec == 0 ? kGateAligned : kGateShift; }
 
 template <int V, bool ROT, typename TI = float, typename TO = float, typename TW = TI>
 void launch_fwd(const TI* x, const TW* taps, TO* out, int B, int H, int W, int C,
@@ -677,6 +867,28 @@ cudaError_t conv_bf16(const bf16* x, const bf16* taps, void* out, bool out_bf16,
     launch_fwd_bf16<4>(x, taps, out, out_bf16, B, H, W, C, cv, tc, rows, st);
   else
     launch_fwd_bf16<2>(x, taps, out, out_bf16, B, H, W, C, cv, tc, rows, st);
+  return cudaGetLastError();
+}
+
+cudaError_t conv_gate_bf16(const bf16* x, const bf16* taps, bf16* gate, int B, int H, int W,
+                           int hid, int ld_gate, int vec, int cv, int tc, int rows,
+                           cudaStream_t st) {
+  if ((long long)B * H * W * hid == 0) return cudaSuccess;
+  if (vec != kGateVec || ld_gate < hid || ld_gate % 8 != 0 ||
+      bad_plan(ld_gate, vec, cv, tc, rows, true))
+    return cudaErrorInvalidValue;
+  // blocks of kGateCols tc columns
+  const dim3 grid = grid_of(B, H, (W + kGateCols - 1) / kGateCols, ld_gate, vec, cv, tc, rows);
+  const size_t smem = gate_smem(cv, tc);
+  const int bands = (H + rows - 1) / rows;
+#define RCOT_GATE(M)                                                                     \
+  dwconv3x3_gate_kernel<M><<<grid, tc * cv, smem, st>>>(x, taps, gate, H, W, hid, ld_gate, \
+                                                        cv, tc, rows, bands)
+  if (gate_mode(hid) == kGateAligned)
+    RCOT_GATE(kGateAligned);
+  else
+    RCOT_GATE(kGateShift);
+#undef RCOT_GATE
   return cudaGetLastError();
 }
 
@@ -818,6 +1030,29 @@ int rcot_dwconv3x3_blocks_per_sm(int io, int vec, int cv, int tc, int dtaps, int
               : occupancy(blocks, dwconv3x3_kernel<V, false, bf16, bf16, float>, n, smem))
   return vec == 8 ? RCOT_OCC(8) : vec == 4 ? RCOT_OCC(4) : RCOT_OCC(2);
 #undef RCOT_OCC
+}
+
+// bf16 h (B, H, W, 2 hid), bf16 taps (2 hid, 3, 3) -> the bf16 gate (B, H, W,
+// ld_gate) (rcot_dwconv::conv_gate_bf16)
+int rcot_conv_gate_bf16(const bf16* x, const bf16* taps, bf16* gate, int B, int H, int W,
+                        int hid, int ld_gate, int vec, int cv, int tc, int rows, void* stream) {
+  return rcot_dwconv::conv_gate_bf16(x, taps, gate, B, H, W, hid, ld_gate, vec, cv, tc, rows,
+                                     (cudaStream_t)stream);
+}
+
+// The gated depthwise at (cv, tc): the blocks an SM of the current device
+// holds at once (the less of its two modes'), its shared memory and its
+// launch bound, for ops/dwconv.py conv_gate_smem and conv_gate_per_sm.
+int rcot_conv_gate_bf16_blocks_per_sm(int cv, int tc, int* blocks, int* nbytes, int* least) {
+  if (bad_plan(8, kGateVec, cv, tc, 1, true)) return cudaErrorInvalidValue;
+  const size_t smem = gate_smem(cv, tc);
+  int got[2] = {0, 0};
+  cudaError_t e = occupancy(&got[0], dwconv3x3_gate_kernel<kGateAligned>, tc * cv, smem);
+  if (e == cudaSuccess) e = occupancy(&got[1], dwconv3x3_gate_kernel<kGateShift>, tc * cv, smem);
+  *blocks = got[0] < got[1] ? got[0] : got[1];
+  *nbytes = (int)smem;
+  *least = kGateBlocksPerSm;
+  return e;
 }
 
 // bf16 x (B, H, W, C), fp32 taps (C, 3, 3) -> bf16 out (rcot_dwconv::conv_w32)

@@ -1,7 +1,9 @@
 // The depthwise 3x3 kernels of dwconv.cu (row 11), for other kernels'
 // launchers: block_bwd.cu runs its three depthwise stages through them,
-// block_fwd_bf16.cu its bf16 forward, and the bf16 backward forms of
-// block_bwd_bf16.cu and fused_dwconv_bf16.cu theirs on bf16 tiles.
+// block_fwd_bf16.cu and fused_dwconv_bf16.cu their bf16 forwards (the head's
+// and the qkv's conv_bf16, the tail's and the GDFN's gated depthwise,
+// conv_gate_bf16), and the bf16 backward forms of block_bwd_bf16.cu and
+// fused_dwconv_bf16.cu theirs on bf16 tiles.
 // The plan (vec, cv, tc, rows) is ops/dwconv.py's dwconv_plan, made in
 // Python and passed in; both launch on `st` and return the launch's error.
 
@@ -23,6 +25,16 @@ cudaError_t conv(const float* x, const float* taps, float* out, int B, int H, in
 cudaError_t conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* taps, void* out,
                       bool out_bf16, int B, int H, int W, int C, int vec, int cv, int tc,
                       int rows, cudaStream_t st);
+
+// The gated depthwise of the bf16 forwards: [c1 | c2] = conv_bf16 of a bf16
+// x (B, H, W, 2 hid) on bf16 taps (2 hid, 3, 3), each sum in conv_bf16's
+// order, then gate = bf16(gelu(c1) c2) (B, H, W, ld_gate), zeros past hid;
+// the fp32 conv stays in the SM. The plan (vec = 2, cv, tc, rows) is over
+// ld_gate channels (ops/dwconv.py conv_gate_plan); ld_gate a multiple of 8,
+// x 4-byte and gate 16-byte aligned; gate must not alias x.
+cudaError_t conv_gate_bf16(const __nv_bfloat16* x, const __nv_bfloat16* taps,
+                           __nv_bfloat16* gate, int B, int H, int W, int hid, int ld_gate,
+                           int vec, int cv, int tc, int rows, cudaStream_t st);
 
 // conv of an fp32 x on bf16 taps (vec = 4, 2 or 1 floats a copy), into fp32
 // out: the bf16 tail backward's dh (rot).

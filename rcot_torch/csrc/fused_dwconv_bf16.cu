@@ -46,10 +46,11 @@
 // Design. The forwards are block_fwd_bf16.cu's head and tail without their
 // LayerNorm and residuals: mm.cuh's bf16 product (mma.sync m16n8k16, fp32
 // sums, the epilogue rounding h to bf16) into a bf16 workspace, then row
-// 11's depthwise kernel on bf16 (dwconv.cuh conv_bf16), into bf16 for the
-// qkv and into fp32 conv for the GDFN, whose gate is a pass of its own
-// (gate_pass, rounding the fp32 gate once) into h's buffer, read by a bf16
-// W_out product that stores bf16. The backwards recompute h with the same
+// 11's depthwise kernel on bf16 (dwconv.cuh conv_bf16) into bf16 for the
+// qkv; for the GDFN the gated depthwise (conv_gate_bf16: conv summed as
+// conv_bf16 sums it, kept in registers, the gate taken there and rounded
+// once) into a bf16 gate workspace, read by a bf16 W_out product that
+// stores bf16: three launches, no fp32 conv in device memory. The backwards recompute h with the same
 // bf16 product, so that h is rounded where the forward rounds it. The qkv
 // backwards then run fused_dwconv.cu's fp32 backwards on the bf16 tensors
 // themselves, with no fp32 copy of an operand. The qkv's: dh = the rotated
@@ -68,8 +69,9 @@
 // widened operands, rounded once (seven launches in the qkv, eleven in the
 // GDFN at the level-1 shapes). No atomics and no memsets: two calls on the
 // same inputs give the same bits. The plans are ops/fused.py's
-// (fused_fwd_plan with copy widths in bf16 elements and the GDFN's gate
-// always a pass, fused_bwd_plan's fp32 design, and for each backward a
+// (fused_fwd_plan with copy widths in bf16 elements and the GDFN's gated
+// depthwise on ops/dwconv.py conv_gate_plan, fused_bwd_plan's fp32 design,
+// and for each backward a
 // second of its bf16 pieces: ops/block.py qkv_bwd_bf16_plan for the qkv's,
 // gated_bwd_bf16_plan for the GDFN's). The backwards' `ops16`
 // argument takes RCOT_BWD_BF16's "fused" tier, as fused_dwconv.cu's do.
@@ -89,9 +91,9 @@ enum FwdPlan {
   kFVecH,  //   of W_out's rows (h),
   kFVecG,  //   of the gate's padded rows (gate_ld<bf16> apart)
   kFSplit,  // (K ranges, depth a range) of the products h and out
-  kFDw = kFSplit + 4,  // (vec, cv, tc, rows) of the depthwise forward, bf16 into
-                       //   bf16 (qkv) or fp32 (GDFN)
-  kGatePass = kFDw + 4,  // 1: the GDFN's gate as a pass of its own (always, in bf16)
+  kFDw = kFSplit + 4,  // (vec, cv, tc, rows) of the depthwise forward: conv_bf16
+                       //   into bf16 (qkv), conv_gate_bf16 (GDFN)
+  kGatePass = kFDw + 4,  // 1: a gate pass (the fp32 GDFN's; 0 in bf16)
   kFwdInts
 };
 // The backward's plan, ops/fused.py fused_bwd_plan (as fused_dwconv.cu's),
@@ -216,23 +218,22 @@ int rcot_conv1x1_dw_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, c
 
 // y = bf16(gate @ W_out^T), gate = bf16(gelu(c1) c2), [c1 | c2] =
 // dw3x3(bf16(x @ W_in^T)) in fp32. Inputs x (B,H,W,C), w_in (2h,C), dwk
-// (2h,3,3), w_out (C,h), bf16; output y (B,H,W,C) bf16. Workspace: h (N,
-// max(2h, gate_ld<bf16>(h))) bf16 (then the gate), conv (N,2h) fp32, and
-// sums (fp32, the plan's). plan: kFwdInts ints (kGatePass must be 1).
+// (2h,3,3), w_out (C,h), bf16; output y (B,H,W,C) bf16. Workspace: h (N,2h)
+// bf16, gate (N, gate_ld<bf16>(h)) bf16, and sums (fp32, the plan's).
+// plan: kFwdInts ints, kFDw the gated depthwise's, kGatePass 0.
 int rcot_gdfn_fused_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const bf16* w_out,
-                         bf16* y, bf16* h, float* conv, float* sums, const int* plan, int B,
+                         bf16* y, bf16* h, bf16* gate, float* sums, const int* plan, int B,
                          int H, int W, int C, int hid, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * H * W;
   const int m2 = 2 * hid, vc = plan[kFVecC], vh = plan[kFVecH], vg = plan[kFVecG];
-  if (!plan[kGatePass]) return cudaErrorInvalidValue;
+  if (plan[kGatePass]) return cudaErrorInvalidValue;
   RCOT_TRY((product<false, kEpiStore>(x, C, vc, w_in, vc, h, m2, n, SPLIT(kFSplit, kProdH),
                                       sums, st)));
-  RCOT_TRY(rcot_dwconv::conv_bf16(h, dwk, conv, false, B, H, W, m2, plan[kFDw], plan[kFDw + 1],
-                                  plan[kFDw + 2], plan[kFDw + 3], st));
-  // h is dead: its buffer takes the gate
-  RCOT_TRY(gate_pass(conv, h, n, hid, plan[kGateBlocks], st));
-  return product<false, kEpiStore>(h, hid, vg, w_out, vh, y, C, n, SPLIT(kFSplit, kProdOut),
+  RCOT_TRY(rcot_dwconv::conv_gate_bf16(h, dwk, gate, B, H, W, hid, gate_ld<bf16>(hid),
+                                       plan[kFDw], plan[kFDw + 1], plan[kFDw + 2],
+                                       plan[kFDw + 3], st));
+  return product<false, kEpiStore>(gate, hid, vg, w_out, vh, y, C, n, SPLIT(kFSplit, kProdOut),
                                    sums, st, nullptr, nullptr, gate_ld<bf16>(hid));
 }
 

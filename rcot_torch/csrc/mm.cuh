@@ -27,8 +27,9 @@
 // weight's rows are only 2-byte aligned (W_out at odd h), and an epilogue
 // that rounds as the JAX kernel does: out = bf16(extra + bf16(acc)) (a
 // double rounding), with split partials in fp32 and the rounding after
-// sum_parts's fixed-order sum. The LayerNorm and the gate pass take bf16
-// inputs or outputs too, with fp32 arithmetic. T = float keeps its code.
+// sum_parts's fixed-order sum. The LayerNorm takes bf16 inputs or outputs
+// too, with fp32 arithmetic (the bf16 forwards' gate is taken in their
+// depthwise, dwconv.cu). T = float keeps its code.
 //
 // bf16 operands (the backward products under RCOT_BWD_BF16, block_bwd.cu,
 // fused_dwconv.cu and their bf16 forms: OPS16): the tiles stay fp32 in
@@ -152,11 +153,6 @@ enum Epi {
   kEpiGatedAdd   // as kEpiAdd, with A = gelu(c1) c2 of conv = [c1 | c2] (M x 2K):
                  // c1 at a, c2 at a2, both staged and the gate taken in shared memory
 };
-
-// gelu(x1) x2, the exact-erf gelu, as gate_bwd below takes it
-__device__ __forceinline__ float gate_fwd(float x1, float x2) {
-  return x1 * (0.5f * (1.0f + erff(x1 * 0.70710678118654752f))) * x2;
-}
 
 // out (M x N) = sum over k of A(m, k) B(k, n). A(m, k) is a[m * lda + k]
 // (a[k * lda + m] with A_KROW), B(k, n) is b[n * ldb + k] (b[k * ldb + n]
@@ -716,33 +712,32 @@ cudaError_t ln_fwd(const TI* t, const float* ln_w, const float* ln_b, TO* u, flo
 // ------------------------------------------------------------ the gate
 
 // gate = gelu(c1) c2 of conv = [c1 | c2] (n_pix x 2 hid, fp32), in rows of
-// gate_ld<TO>(hid) elements (16 bytes' worth: 4 floats, 8 bf16) whose
-// columns past hid hold 0, so that the product reading it takes 16-byte
-// copies at any hid; one warp a pixel, as the LayerNorm forward. A bf16
-// gate is the fp32 gate rounded once.
+// gate_ld(hid) floats (16 bytes' worth) whose columns past hid hold 0, so
+// that the product reading it takes 16-byte copies at any hid; one warp a
+// pixel, as the LayerNorm forward. The fp32 forwards' pass: the bf16 ones
+// take the gate in their depthwise (dwconv.cuh conv_gate_bf16), into rows
+// of gate_ld<bf16>(hid) (8 bf16 a row's unit).
 template <typename TO = float>
 __host__ __device__ constexpr int gate_ld(int hid) {
   return (hid + 16 / (int)sizeof(TO) - 1) / (16 / (int)sizeof(TO)) * (16 / (int)sizeof(TO));
 }
 
-template <typename TO>
 __global__ void __launch_bounds__(kThreads)
-gate_pass_kernel(const float* __restrict__ conv, TO* __restrict__ gate, long long n_pix,
+gate_pass_kernel(const float* __restrict__ conv, float* __restrict__ gate, long long n_pix,
                  int hid) {
-  const int lane = threadIdx.x % 32, ld = gate_ld<TO>(hid);
+  const int lane = threadIdx.x % 32, ld = gate_ld(hid);
   const long long warps = (long long)gridDim.x * kWarps;
   for (long long m = blockIdx.x * kWarps + threadIdx.x / 32; m < n_pix; m += warps) {
     const float* row = conv + m * 2 * hid;
 #pragma unroll 4
     for (int j = lane; j < ld; j += 32)
-      gate[m * ld + j] = from_f<TO>(j < hid ? gate_fwd(row[j], row[hid + j]) : 0.f);
+      gate[m * ld + j] = j < hid ? gate_fwd(row[j], row[hid + j]) : 0.f;
   }
 }
 
-template <typename TO = float>
-cudaError_t gate_pass(const float* conv, TO* gate, long long n_pix, int hid, int blocks,
+cudaError_t gate_pass(const float* conv, float* gate, long long n_pix, int hid, int blocks,
                       cudaStream_t st) {
-  gate_pass_kernel<TO><<<(unsigned)blocks, kThreads, 0, st>>>(conv, gate, n_pix, hid);
+  gate_pass_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(conv, gate, n_pix, hid);
   return cudaGetLastError();
 }
 

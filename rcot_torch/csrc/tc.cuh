@@ -7,7 +7,8 @@
 // gram_bf16.cu) the conversions, copies of any byte width, ldmatrix and
 // bf16 products on mma.sync m16n8k16 with fp32 accumulation; for the
 // backward products' bf16-operand policy the rounding of an operand into a
-// tf32 fragment and a one-term product (bf16_tf32, mma_1xtf32).
+// tf32 fragment and a one-term product (bf16_tf32, mma_1xtf32); and the
+// GDFN's gate (gate_fwd).
 //
 // 3xTF32: a float x is split into two tf32 values, x = hi + lo + O(2^-22
 // |x|), and a product a b is taken as al bh + ah bl + ah bh (al bl, about
@@ -164,6 +165,12 @@ __device__ __forceinline__ T from_f(float v) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
+}
+
+// The GDFN's gate gelu(x1) x2, the exact-erf gelu (mm.cuh's gate pass and
+// gate_bwd, dwconv.cu's gated depthwise)
+__device__ __forceinline__ float gate_fwd(float x1, float x2) {
+  return x1 * (0.5f * (1.0f + erff(x1 * 0.70710678118654752f))) * x2;
 }
 
 // Fragments of four (x4) or two (x2) 8 x 8 bf16 matrices from shared

@@ -124,6 +124,8 @@ SIGNATURES = {
     "rcot_dwconv3x3_dtaps": [_P] * 4 + [_I] * 8 + [_P],
     # io (ops/dwconv.py DW_IO), vec, cv, tc, dtaps; -> blocks an SM holds
     "rcot_dwconv3x3_blocks_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
+    "rcot_conv_gate_bf16_blocks_per_sm": [_I] * 2 + [ctypes.POINTER(_I)] * 3,
+    "rcot_conv_gate_bf16": [_P] * 3 + [_I] * 9 + [_P],
     # row 11 in bf16 on fp32 taps (io "w32"): the arguments of rcot_dwconv3x3
     # and rcot_dwconv3x3_dtaps (bf16 x, out and g; fp32 taps, workspace, dtaps)
     "rcot_dwconv3x3_w32": [_P] * 3 + [_I] * 9 + [_P],

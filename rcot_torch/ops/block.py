@@ -21,7 +21,8 @@ their launch plans from block_fwd_plan and block_bwd_plan below.
 bf16: a bf16 x with bf16 weights (LN weights fp32, as
 rcot_tpu/models/restormer.py:77-89 passes them) goes to the bf16 kernels of
 csrc/block_fwd_bf16.cu on the card, counted as block_head_bf16 and
-block_tail_bf16, and their backwards (bf16 training: the tail in "tail"
+block_tail_bf16 (the tail's gate taken in its depthwise, ops/dwconv.py
+conv_gate_plan: no gate pass, no fp32 conv), and their backwards (bf16 training: the tail in "tail"
 and "full", the head in "full" and "head") to csrc/block_bwd_bf16.cu,
 counted as block_tail_bwd_bf16 and block_head_bwd_bf16; both run
 block_bwd.cu's design on the bf16 tensors themselves (block_bwd_plan's plan
@@ -259,10 +260,11 @@ def block_tail_fwd(x: torch.Tensor, a: torch.Tensor, w_proj: torch.Tensor,
         build.check_arg(name, t, shape, dev, want or torch.float32)
     _check_channels(c)
     y = torch.empty_like(x)
-    # t, stats, u, h, conv
+    # t, stats, u, h, and conv (fp32) or the gate (bf16)
     buf, ws = _workspaces(dev, fwd_workspace_numel(n, c, 2 * hid, True, bf16))
     ptrs = {"a": a.data_ptr(), "u": ws[2], "w_proj": w_proj.data_ptr(),
-            "w_in": w_in.data_ptr(), "h": ws[3], "conv": ws[4], "w_out": w_out.data_ptr()}
+            "w_in": w_in.data_ptr(), "h": ws[3], ("gate" if bf16 else "conv"): ws[4],
+            "w_out": w_out.data_ptr()}
     plan, n_sums = _fwd_card_plan(b, h, w, c, 2 * hid, True, dev.index,
                                   *fwd_vecs(c, 2 * hid, True, ptrs, bf16), bf16)
     sums = torch.empty(n_sums, device=dev) if n_sums else None
@@ -427,9 +429,10 @@ def _check_channels(c: int) -> None:
 # into h's buffer, read by a plain product (gate_pass). On the card the
 # fused gate was the faster at C = 48 and the pass from C = 96 up (PERF.md).
 # In bf16 (csrc/block_fwd_bf16.cu) the copy widths count bf16 elements
-# (kdw.bf16_vec), the gate is always a pass (its A tile holds bf16, and the
-# gate is taken from fp32 conv) into rows of gate_ld(h, bf16) = h rounded
-# up to 8, and the workspaces hold bf16 but for stats and conv (fp32).
+# (kdw.bf16_vec), the tail's depthwise takes the gate itself (the gated
+# depthwise, kdw.conv_gate_plan: no gate pass, no fp32 conv in device
+# memory) into a workspace of its own in rows of gate_ld(h, bf16) = h
+# rounded up to 8, and the workspaces hold bf16 but for stats (fp32).
 FWD_PLAN_INTS = 15
 GATE_FUSED_MAX_C = MM_TILE_N
 
@@ -442,7 +445,7 @@ class FwdPlan(NamedTuple):
     vec_g: int                           # ... and of the gate's padded rows
     splits: Tuple[Tuple[int, int], ...]  # (K ranges, depth a range) of t, h, out
     dw_conv: Tuple[int, int, int, int]   # (vec, cv, tc, rows) of the depthwise forward
-    gate_pass: int                       # 1: the tail's gate as a pass of its own
+    gate_pass: int                       # 1: the fp32 tail's gate as a pass of its own
     sums_numel: int                      # floats of the split partials' workspace
 
     def ints(self) -> Tuple[int, ...]:
@@ -458,14 +461,16 @@ def block_fwd_plan(b: int, h: int, w: int, c: int, width: int, tail: bool, n_sm:
     """The plan of a forward on (B,H,W,C) with depthwise width `width` (2h
     in the tail, 3C in the head) on a card of n_sm SMs; vecs the copy
     widths of the C class, the h class and the gate's rows, dw_conv row
-    11's (vec, cv, tc, rows) on (B,H,W,width); bf16 the bf16 kernels'."""
+    11's (vec, cv, tc, rows) on (B,H,W,width) (the bf16 tail's the gated
+    depthwise's, kdw.conv_gate_plan); bf16 the bf16 kernels' (no gate
+    pass)."""
     n = b * h * w
     # (n, k) of t, h and out (None: not run)
     prods = ((c, c), (width, c), (c, width // 2)) if tail else (None, (width, c), None)
     splits = tuple((1, 0) if nk is None else split_plan(n, *nk, n_sm) for nk in prods)
     numel = max([0] + [s * n * nk[0] for (s, _), nk in zip(splits, prods) if s > 1])
     return FwdPlan(ln_plan(n, n_sm)[0], *vecs, splits, dw_conv,
-                   int(tail and (bf16 or c > GATE_FUSED_MAX_C)), numel)
+                   int(tail and not bf16 and c > GATE_FUSED_MAX_C), numel)
 
 
 def _workspaces(dev, sizes) -> Tuple[torch.Tensor, list]:
@@ -492,24 +497,31 @@ def fwd_workspace_numel(n: int, c: int, width: int, tail: bool,
     """Floats of each workspace of a forward on n pixels, in the order the
     kernel takes them: the tail's t, stats, u, h, conv (h's buffer takes
     the gate of a gate pass, n rows of gate_ld(h)), the head's u, stats, h;
-    in bf16 all but stats and conv hold bf16, two to a float."""
-    half = (lambda k: _cdiv(k, 2)) if bf16 else (lambda k: k)
+    in bf16 all but stats hold bf16, two to a float, and in place of conv
+    the tail has the gate (n rows of gate_ld(h, bf16)), which its gated
+    depthwise writes: no fp32 conv."""
+    if bf16:
+        if tail:
+            return (_cdiv(n * c, 2), 2 * n, _cdiv(n * c, 2), _cdiv(n * width, 2),
+                    _cdiv(n * gate_ld(width // 2, True), 2))
+        return _cdiv(n * c, 2), 2 * n, _cdiv(n * width, 2)
     if tail:
-        return (half(n * c), 2 * n, half(n * c),
-                half(n * max(width, gate_ld(width // 2, bf16))), n * width)
-    return half(n * c), 2 * n, half(n * width)
+        return n * c, 2 * n, n * c, n * max(width, gate_ld(width // 2)), n * width
+    return n * c, 2 * n, n * width
 
 
 def fwd_vecs(c: int, width: int, tail: bool, ptrs: dict,
              bf16: bool = False) -> Tuple[int, int, int, int]:
     """-> copy widths of the C class, the h class, the gate's rows and the
     depthwise width of a forward whose operands start at ptrs (name ->
-    address): the tail's a, u, w_proj, w_in, h, conv, w_out, the head's u,
-    w_qkv, h, out. The h class takes conv's two halves (at columns 0 and h
-    of its rows) and W_out's rows, the gate's rows lie gate_ld(h) floats
-    apart in h's buffer; the head has neither (1). In bf16 the widths count
-    bf16 (the h class is W_out's rows alone: the gate pass reads conv), and
-    the depthwise copies at least two, so its width must be even."""
+    address): the tail's a, u, w_proj, w_in, h, conv (bf16: gate), w_out,
+    the head's u, w_qkv, h, out. The h class takes conv's two halves (at
+    columns 0 and h of its rows) and W_out's rows, the gate's rows lie
+    gate_ld(h) floats apart in h's buffer; the head has neither (1). In
+    bf16 the widths count bf16 (the h class is W_out's rows alone), the
+    gate's rows lie gate_ld(h, bf16) apart in the gate's workspace, the
+    head's depthwise copies at least two, so its width must be even, and
+    the tail's is the gated depthwise's (kdw.conv_gate_vec)."""
     if bf16:
         return _fwd_vecs_bf16(c, width, tail, ptrs)
     if tail:
@@ -527,8 +539,8 @@ def _fwd_vecs_bf16(c: int, width: int, tail: bool, ptrs: dict) -> Tuple[int, int
         hid = width // 2
         vecs = (kdw.bf16_vec(c, *(ptrs[k] for k in ("a", "u", "w_proj", "w_in"))),
                 kdw.bf16_vec(hid, ptrs["w_out"]),
-                kdw.bf16_vec(gate_ld(hid, True), ptrs["h"]),
-                kdw.bf16_vec(width, ptrs["h"], f32_ptrs=(ptrs["conv"],)))
+                kdw.bf16_vec(gate_ld(hid, True), ptrs["gate"]),
+                kdw.conv_gate_vec(hid, ptrs["h"]))
     else:
         vecs = (kdw.bf16_vec(c, ptrs["u"], ptrs["w_qkv"]), 1, 1,
                 kdw.bf16_vec(width, ptrs["h"], ptrs["out"]))
@@ -541,9 +553,13 @@ def _fwd_vecs_bf16(c: int, width: int, tail: bool, ptrs: dict) -> Tuple[int, int
 @functools.lru_cache(maxsize=None)
 def _fwd_card_plan(b, h, w, c, width, tail, device_index, vec_c, vec_h, vec_g, vec_m,
                    bf16=False):
-    """-> (the forward plan's ints as a ctypes array, floats of sums) on this card."""
-    io = ("bf16_f32" if tail else "bf16") if bf16 else "f32"
-    dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False, io))
+    """-> (the forward plan's ints as a ctypes array, floats of sums) on this
+    card; the bf16 tail's depthwise the gated one."""
+    if bf16 and tail:
+        dw_conv = kdw.conv_gate_plan(b, h, w, width // 2, sm_count(device_index))
+    else:
+        dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False,
+                                           "bf16" if bf16 else "f32"))
     plan = block_fwd_plan(b, h, w, c, width, tail, sm_count(device_index),
                           (vec_c, vec_h, vec_g), dw_conv, bf16)
     return (ctypes.c_int * FWD_PLAN_INTS)(*plan.ints()), plan.sums_numel

@@ -39,7 +39,7 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import build
 from .conv import depthwise3x3
-from .gram import _cdiv, sm_count
+from .gram import SMEM_PER_SM, SMEM_RESERVED, _cdiv, sm_count
 
 # The launch plan of csrc/dwconv.cu's kernels, a pure function of the shape,
 # the vector width and the card: its SM count and the blocks an SM holds
@@ -129,11 +129,12 @@ def dwconv_rows(b: int, h: int, w: int, c: int, vec: int, n_sm: int, per_sm: int
 
 
 # The element types of a launch: "f32" (fp32 in and out), the bf16 forward
-# of serving's bf16 block kernels, into bf16 ("bf16", the head's qkv) or
-# fp32 ("bf16_f32", the tail's conv), or the standalone tier's bf16 forms
-# ("w32": bf16 x and out on fp32 taps, and dtaps on bf16 x and g; C entry
-# points rcot_dwconv3x3_w32 and rcot_dwconv3x3_dtaps_w32); vec counts
-# elements. The index is the C side's io.
+# of serving's bf16 block kernels, into bf16 ("bf16", the head's and the
+# qkv's) or fp32 ("bf16_f32", the bf16 backwards' conv), or the standalone
+# tier's bf16 forms ("w32": bf16 x and out on fp32 taps, and dtaps on bf16 x
+# and g; C entry points rcot_dwconv3x3_w32 and rcot_dwconv3x3_dtaps_w32);
+# vec counts elements. The index is the C side's io. The gated depthwise of
+# the bf16 tail and GDFN forwards is planned apart (conv_gate_plan).
 DW_IO = ("f32", "bf16", "bf16_f32", "w32")
 
 
@@ -157,6 +158,103 @@ def dwconv_plan(b: int, h: int, w: int, c: int, device_index: int, vec: int,
     return cv, tc, dwconv_rows(b, h, w, c, vec, sm_count(device_index),
                                blocks_per_sm(device_index, vec, cv, tc, dtaps, io),
                                DTAPS_MAX_PIXELS if dtaps else 0)
+
+
+# The gated depthwise of the bf16 tail and GDFN forwards (csrc/dwconv.cu
+# dwconv3x3_gate_kernel, rcot_dwconv::conv_gate_bf16): bf16 h (N, 2h) in,
+# the bf16 gate gelu(c1) c2 out, in rows of gate_ld(h) = h rounded up to 8
+# (zeros past h), the fp32 conv kept in registers. A thread owns GATE_COLS
+# neighbouring columns of GATE_VEC channels of both halves, a block tc of
+# those column groups by cv vectors (dwconv_tile over the gate's gate_ld
+# channels and the image's column groups) and walks a band of rows
+# (dwconv_rows), with the blocks an SM that its shared memory
+# (conv_gate_smem: a ring of GATE_STAGES stages, each GATE_COLS tc + 2
+# columns of c1's chunk and of c2's, which holds one vector more, then both
+# halves' 9 taps a channel in fp32) and its launch bound
+# (GATE_BLOCKS_PER_SM, which caps its registers) allow: pure functions of
+# the shape and the card's SM count, held against the C side's by a cuda
+# test. A copy of c1 moves GATE_VEC bf16 (4 bytes: 2h is even, so every
+# row of h is 4-byte aligned); at odd h, c2 starts 2 bytes past a 4-byte
+# column, and the kernel stages it from that column.
+GATE_VEC = 2
+GATE_COLS = 2
+GATE_STAGES = 4
+GATE_BLOCKS_PER_SM = 2
+
+
+def gate_ld(hid: int) -> int:
+    """bf16 between rows of the gate: hid rounded up to 8 (16 bytes)."""
+    return _cdiv(hid, 8) * 8
+
+
+def conv_gate_smem(cv: int, tc: int) -> int:
+    """Bytes of shared memory a block of the gated depthwise takes
+    (csrc/dwconv.cu gate_smem)."""
+    ring = 2 * GATE_STAGES * (GATE_COLS * tc + 2) * (2 * cv * GATE_VEC + GATE_VEC)
+    return _cdiv(ring, 16) * 16 + 4 * 18 * cv * GATE_VEC
+
+
+def conv_gate_per_sm(cv: int, tc: int) -> int:
+    """Blocks of the gated depthwise an SM holds at (cv, tc): what its
+    launch bound and its shared memory both allow."""
+    return min(GATE_BLOCKS_PER_SM, SMEM_PER_SM // (conv_gate_smem(cv, tc) + SMEM_RESERVED))
+
+
+def conv_gate_plan(b: int, h: int, w: int, hid: int, n_sm: int) -> Tuple[int, int, int, int]:
+    """-> (vec, cv, tc, rows) of the gated depthwise on h (B,H,W,2 hid) on a
+    card of n_sm SMs, over the gate's gate_ld(hid) channels and the image's
+    groups of GATE_COLS columns (a block spans GATE_COLS tc columns)."""
+    ld, groups = gate_ld(hid), _cdiv(w, GATE_COLS)
+    cv, tc = dwconv_tile(ld, groups, GATE_VEC)
+    return GATE_VEC, cv, tc, dwconv_rows(b, h, groups, ld, GATE_VEC, n_sm,
+                                         conv_gate_per_sm(cv, tc))
+
+
+def conv_gate_vec(hid: int, h_ptr: int) -> int:
+    """The gated depthwise's copy width of h (B,H,W,2 hid) at h_ptr:
+    GATE_VEC, which needs h 4-byte aligned."""
+    if bf16_vec(2 * hid, h_ptr) < GATE_VEC:
+        raise ValueError("the gated depthwise reads h in copies of 4 bytes: h must be "
+                         "4-byte aligned")
+    return GATE_VEC
+
+
+def conv_gate_plain(h: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The plain twin of the gated depthwise: [c1 | c2] = the depthwise of h
+    (B,H,W,2 hid) on taps (2 hid,3,3) in fp32 (cuDNN's or the CPU's), gate =
+    gelu(c1) c2 (exact erf) rounded once to h's dtype, in rows of
+    gate_ld(hid) with zeros past hid."""
+    hid = h.shape[-1] // 2
+    c1, c2 = depthwise3x3(h.float(), taps.float()).chunk(2, dim=-1)
+    gate = F.gelu(c1) * c2
+    return F.pad(gate, (0, gate_ld(hid) - hid)).to(h.dtype)
+
+
+def conv_gate_bf16(h: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The gated depthwise alone (the stage of the bf16 tail and GDFN
+    forwards, which launch it inside their own calls): bf16 h (B,H,W,2 hid)
+    and taps (2 hid,3,3) -> the bf16 gate (B,H,W,gate_ld(hid)), zeros past
+    hid; a CPU tensor takes conv_gate_plain. Launches counted under
+    conv_gate_bf16. On the card two calls give the same bits."""
+    if not h.is_cuda:
+        return conv_gate_plain(h, taps)
+    b, hh, w, m = h.shape
+    dev = h.device
+    build.check_arg("h", h, (b, hh, w, m), dev, torch.bfloat16)
+    build.check_arg("taps", taps, (m, 3, 3), dev, torch.bfloat16)
+    if m % 2:
+        raise ValueError(f"the gate needs an even width, got {m}")
+    hid = m // 2
+    gate = torch.empty(b, hh, w, gate_ld(hid), device=dev, dtype=torch.bfloat16)
+    if h.numel() == 0:
+        return gate
+    vec, cv, tc, rows = conv_gate_plan(b, hh, w, hid, sm_count(dev.index))
+    conv_gate_vec(hid, h.data_ptr())
+    with torch.cuda.device(dev):
+        build.call("rcot_conv_gate_bf16", h.data_ptr(), taps.data_ptr(), gate.data_ptr(),
+                   b, hh, w, hid, gate_ld(hid), vec, cv, tc, rows, build.stream())
+    build.LAUNCHES["conv_gate_bf16"] += 1
+    return gate
 
 
 def _plan(x: torch.Tensor, dtaps: bool, *ptrs: int) -> Tuple[int, int, int, int]:

@@ -27,7 +27,8 @@ conv1x1_dw_bf16, gdfn_fused_bf16 and their *_bwd_bf16 names (both
 backwards run fused_dwconv.cu's design on the bf16 tensors themselves, with
 fused_bwd_plan's plan and a second of their bf16 pieces: ops/block.py
 qkv_bwd_bf16_plan for the qkv's, gated_bwd_bf16_plan with the copy widths
-of gated_bf16_vecs for the GDFN's). The forward twin rounds h, the
+of gated_bf16_vecs for the GDFN's; the GDFN forward takes its gate in its
+depthwise, with no fp32 conv in device memory). The forward twin rounds h, the
 GDFN's gate and the output to bf16 where the JAX kernel
 does (pallas_fused.py:153-183); the backward twin is the JAX backward
 kernel's (:297-412): h recomputed and rounded, then everything in fp32
@@ -110,7 +111,8 @@ def fused_dwconv_bwd_plain(x, w_in, dwk, w_out, g, bf16_ops=False):
 # (sum_plan: dW_out and dW_in), row 11's (vec, cv, tc, rows) of the
 # depthwise forward (also the rotated one) and of its dtaps, and, in the
 # GDFN forward, the gate taken in the W_out product where C <=
-# GATE_FUSED_MAX_C, else a gate pass of ln_plan's blocks. Each is passed as
+# GATE_FUSED_MAX_C, else a gate pass of ln_plan's blocks (in bf16, in the
+# gated depthwise: kdw.conv_gate_plan's plan). Each is passed as
 # FWD_PLAN_INTS or BWD_PLAN_INTS ints, the order of its fields. Copy widths
 # come in width classes: C (x, W_in, the GDFN's g), h (either half of
 # conv, W_out's rows, the gate) and M (h, dh, dconv, the qkv's g and out);
@@ -168,15 +170,17 @@ def fused_fwd_plan(b: int, h: int, w: int, c: int, width: int, gdfn: bool, n_sm:
     """The plan of a forward on (B,H,W,C) with depthwise width `width` (2h
     in the GDFN, M in the qkv configuration) on a card of n_sm SMs; vecs the
     copy widths of the C class, the h class and a gate pass's rows, dw_conv
-    row 11's (vec, cv, tc, rows) on (B,H,W,width); bf16 the bf16 kernels'
-    (the GDFN's gate always a pass, as ops/block.py's bf16 tail)."""
+    row 11's (vec, cv, tc, rows) on (B,H,W,width) (the bf16 GDFN's the gated
+    depthwise's, kdw.conv_gate_plan); bf16 the bf16 kernels' (the GDFN's
+    gate taken in its depthwise, as ops/block.py's bf16 tail: no gate
+    pass)."""
     n = b * h * w
     # (n, k) of h and out (None: not run)
     prods = ((width, c), (c, width // 2) if gdfn else None)
     splits = _splits(n, prods, n_sm)
     numel = max([0] + [s * n * nk[0] for (s, _), nk in zip(splits, prods) if s > 1])
     return FusedFwdPlan(ln_plan(n, n_sm)[0], *vecs, splits, dw_conv,
-                        int(gdfn and (bf16 or c > GATE_FUSED_MAX_C)), numel)
+                        int(gdfn and not bf16 and c > GATE_FUSED_MAX_C), numel)
 
 
 def fused_bwd_plan(b: int, h: int, w: int, c: int, width: int, gdfn: bool, n_sm: int,
@@ -236,8 +240,12 @@ def fused_vecs(c: int, width: int, gdfn: bool, ptrs: dict) -> Tuple[int, int, in
 def _fwd_card_plan(b, h, w, c, width, gdfn, device_index, vec_c, vec_h, vec_g, vec_m,
                    io="f32"):
     """-> (the forward plan's ints as a ctypes array, floats of sums) on this
-    card; io the depthwise forward's element types (ops/dwconv.py DW_IO)."""
-    dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False, io))
+    card; io the depthwise forward's element types (ops/dwconv.py DW_IO), or
+    "gate" for the bf16 GDFN's gated depthwise (kdw.conv_gate_plan)."""
+    if io == "gate":
+        dw_conv = kdw.conv_gate_plan(b, h, w, width // 2, sm_count(device_index))
+    else:
+        dw_conv = (vec_m, *kdw.dwconv_plan(b, h, w, width, device_index, vec_m, False, io))
     plan = fused_fwd_plan(b, h, w, c, width, gdfn, sm_count(device_index),
                           (vec_c, vec_h, vec_g), dw_conv, io != "f32")
     return (ctypes.c_int * FWD_PLAN_INTS)(*plan.ints()), plan.sums_numel
@@ -388,26 +396,31 @@ def _conv1x1_dw_bwd_bf16(x, w_in, dwk, g, bf16_ops):
     return dx, dw_in, ddw
 
 
+def gdfn_fwd_bf16_workspace_numel(n: int, hid: int) -> Tuple[int, int]:
+    """Floats of each workspace of the bf16 GDFN forward on n pixels, in the
+    order csrc/fused_dwconv_bf16.cu takes them: h (n x 2 hid) and the gate
+    (n rows of gate_ld(hid, bf16)), bf16, two to a float. No fp32 conv: the
+    gated depthwise keeps it in registers."""
+    return -(-n * 2 * hid // 2), -(-n * gate_ld(hid, True) // 2)
+
+
 def _gdfn_fused_bf16(x, w_in, dwk, w_out):
     """The GDFN forward on bf16 CUDA tensors: csrc/fused_dwconv_bf16.cu, with
-    fused_fwd_plan's plan in bf16 copy widths, its gate a pass of its own."""
+    fused_fwd_plan's plan in bf16 copy widths, its gate taken in its
+    depthwise (kdw.conv_gate_plan)."""
     b, h, w, c, m = _check(x, w_in, dwk, w_out)
     hid = m // 2
     dev = x.device
     n = b * h * w
     y = torch.empty_like(x)
-    # h (then the gate, in rows of gate_ld(h, bf16)) bf16; conv fp32
-    buf, (hbuf, conv) = _workspaces(dev, (-(-n * max(m, gate_ld(hid, True)) // 2), n * m))
+    buf, (hbuf, gate) = _workspaces(dev, gdfn_fwd_bf16_workspace_numel(n, hid))
     vecs = (kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr()), kdw.bf16_vec(hid, w_out.data_ptr()),
-            kdw.bf16_vec(gate_ld(hid, True), hbuf), kdw.bf16_vec(m, hbuf, f32_ptrs=(conv,)))
-    if vecs[3] < 2:
-        raise ValueError(f"bf16 gdfn_fused: the width {m} must be even "
-                         "(its depthwise copies move two bf16 at least)")
-    plan, n_sums = _fwd_card_plan(b, h, w, c, m, True, dev.index, *vecs, "bf16_f32")
+            kdw.bf16_vec(gate_ld(hid, True), gate), kdw.conv_gate_vec(hid, hbuf))
+    plan, n_sums = _fwd_card_plan(b, h, w, c, m, True, dev.index, *vecs, "gate")
     sums = torch.empty(n_sums, device=dev) if n_sums else None
     with torch.cuda.device(dev):
         build.call("rcot_gdfn_fused_bf16", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
-                   w_out.data_ptr(), y.data_ptr(), hbuf, conv, build.ptr(sums), plan,
+                   w_out.data_ptr(), y.data_ptr(), hbuf, gate, build.ptr(sums), plan,
                    b, h, w, c, hid, build.stream())
     build.LAUNCHES["gdfn_fused_bf16"] += 1
     return y

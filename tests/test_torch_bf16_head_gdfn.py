@@ -194,16 +194,19 @@ def test_bf16_head_and_gdfn_workspaces():
 
 
 def test_the_bf16_gdfn_forward_plan_takes_its_gate_as_a_pass():
-    """In bf16 the GDFN's gate is always a pass of its own, as the bf16
-    block tail's (the product's A tile holds bf16, the gate comes from
-    fp32 conv); in fp32 it stays in the W_out product up to
-    GATE_FUSED_MAX_C."""
-    dw = (2, 1, 1, 1)
+    """In bf16 the GDFN takes its gate in its depthwise, as the bf16 block
+    tail does (csrc/dwconv.cu's gated depthwise, on kdw.conv_gate_plan's
+    plan): no gate pass, 0 in the plan's gate-pass int; in fp32 the gate
+    stays in the W_out product up to GATE_FUSED_MAX_C and is a pass of its
+    own above it."""
+    from rcot_torch.ops import dwconv as tdw
     for c in (48, 96):
-        fp32 = tfused.fused_fwd_plan(1, 8, 8, c, 254, True, 132, (4, 1, 4), dw)
+        dw = tdw.conv_gate_plan(1, 8, 8, 127, 132)
+        fp32 = tfused.fused_fwd_plan(1, 8, 8, c, 254, True, 132, (4, 1, 4), (2, 1, 1, 1))
         bf16 = tfused.fused_fwd_plan(1, 8, 8, c, 254, True, 132, (8, 1, 8), dw, bf16=True)
-        assert fp32.gate_pass == int(c > tfused.GATE_FUSED_MAX_C) and bf16.gate_pass == 1
-    qkv = tfused.fused_fwd_plan(1, 8, 8, 48, 144, False, 132, (8, 1, 1), dw, bf16=True)
+        assert fp32.gate_pass == int(c > tfused.GATE_FUSED_MAX_C) and bf16.gate_pass == 0
+        assert bf16.ints()[8:13] == (*dw, 0)
+    qkv = tfused.fused_fwd_plan(1, 8, 8, 48, 144, False, 132, (8, 1, 1), (2, 1, 1, 1), bf16=True)
     assert qkv.gate_pass == 0
 
 

@@ -207,16 +207,17 @@ def _bf16_rows_fit(base, ld, start, extent, vec, rows=5, itemsize=2):
 
 
 # (C, pointer offset of a and W_out) -> the bf16 copy widths of the C class,
-# W_out's rows (h), the gate's rows (gate_ld(h, bf16), padded to 8) and the
-# depthwise width 2h: odd h (127, 255, 1,021) leaves W_out's rows 2-byte
-# aligned (one bf16 a load), 2h = 254, 510 or 2,042 4-byte aligned
+# W_out's rows (h), the gate's rows (gate_ld(h, bf16), padded to 8, in a
+# workspace of their own) and h's rows in the gated depthwise (two bf16 a
+# copy at every h): odd h (127, 255, 1,021) leaves W_out's rows 2-byte
+# aligned (one bf16 a load), 2h = 254, 510, 1,020 or 2,042 4-byte aligned
 @pytest.mark.parametrize("c,offset,want", [
-    (48, 0, (8, 1, 8, 2)), (96, 0, (8, 1, 8, 2)), (192, 0, (8, 2, 8, 4)),
+    (48, 0, (8, 1, 8, 2)), (96, 0, (8, 1, 8, 2)), (192, 0, (8, 2, 8, 2)),
     (384, 0, (8, 1, 8, 2)), (48, 4, (2, 1, 8, 2)), (48, 8, (4, 1, 8, 2)),
     (6, 0, (2, 1, 8, 2))])
 def test_the_bf16_tail_copies_fit_every_operand(c, offset, want):
     hid = int(c * 2.66)
-    names = ("a", "u", "w_proj", "w_in", "h", "conv", "w_out")
+    names = ("a", "u", "w_proj", "w_in", "h", "gate", "w_out")
     ptrs = {k: 1024 * i + (offset if k in ("a", "w_out") else 0) for i, k in enumerate(names)}
     vecs = tblock.fwd_vecs(c, 2 * hid, True, ptrs, bf16=True)
     assert vecs == want
@@ -225,12 +226,10 @@ def test_the_bf16_tail_copies_fit_every_operand(c, offset, want):
         assert _bf16_rows_fit(ptrs[k], c, 0, c, vec_c)
     assert _bf16_rows_fit(ptrs["w_out"], hid, 0, hid, vec_h)
     ld = tblock.gate_ld(hid, bf16=True)
-    assert ld % 8 == 0 and 0 <= ld - hid < 8
-    assert _bf16_rows_fit(ptrs["h"], ld, 0, ld, vec_g)
-    assert _bf16_rows_fit(ptrs["h"], 2 * hid, 0, 2 * hid, vec_m)
-    # the depthwise writes fp32 conv from bf16 h
-    assert _bf16_rows_fit(ptrs["conv"], 2 * hid, 0, 2 * hid, vec_m, itemsize=4)
-    assert vec_m >= 2
+    assert ld % 8 == 0 and 0 <= ld - hid < 8 and ld == tdw.gate_ld(hid)
+    assert _bf16_rows_fit(ptrs["gate"], ld, 0, ld, vec_g)
+    # the gated depthwise reads h's rows in copies of two bf16
+    assert vec_m == tdw.GATE_VEC and _bf16_rows_fit(ptrs["h"], 2 * hid, 0, 2 * hid, vec_m)
 
 
 @pytest.mark.parametrize("c,want", [(48, (8, 8)), (96, (8, 8)), (6, (2, 2)), (5, (1, 0))])
@@ -253,20 +252,24 @@ def test_the_bf16_head_copies_and_an_odd_width(c, want):
 @pytest.mark.parametrize("b,h,w,c", SERVE + ODD)
 def test_the_bf16_plan_is_the_fp32_plan_with_its_gate_pass(b, h, w, c, tail):
     """The bf16 kernels take the fp32 plan's splits and LayerNorm blocks
-    (the same products, 32 deep a step) and always a gate pass; their
-    workspaces hold bf16 but for stats and conv."""
+    (the same products, 32 deep a step) and no gate pass: the bf16 tail's
+    depthwise takes the gate (kdw.conv_gate_plan's plan); their workspaces
+    hold bf16 but for stats, and the tail's hold the gate in place of the
+    fp32 conv."""
     pixels, width = b * h * w, _width(c, tail)
+    hid = width // 2
     for n_sm in CARDS:
         fp32 = _plan(b, h, w, c, tail, n_sm)
-        dw_conv = (2, *tdw.dwconv_tile(width, w, 2), tdw.dwconv_rows(b, h, w, width, 2, n_sm, 3))
+        dw_conv = (tdw.conv_gate_plan(b, h, w, hid, n_sm) if tail else
+                   (2, *tdw.dwconv_tile(width, w, 2), tdw.dwconv_rows(b, h, w, width, 2, n_sm, 3)))
         bf16 = tblock.block_fwd_plan(b, h, w, c, width, tail, n_sm, (1, 1, 1), dw_conv, True)
         assert (bf16.ln_blocks, bf16.splits, bf16.sums_numel) == (
             fp32.ln_blocks, fp32.splits, fp32.sums_numel)
-        assert bf16.gate_pass == int(tail)
+        assert bf16.gate_pass == 0 and bf16.ints()[14] == 0
+        assert bf16.ints()[10:14] == dw_conv
     sizes = tblock.fwd_workspace_numel(pixels, c, width, tail, bf16=True)
-    hid = width // 2
-    # bf16 t, u, h (then the gate, rows of gate_ld(h, bf16)), fp32 stats and conv
-    need = ((pixels * c / 2, 2 * pixels, pixels * c / 2,
-             pixels * max(width, tblock.gate_ld(hid, True)) / 2, pixels * width) if tail
+    # bf16 t, u, h, the gate (rows of gate_ld(h, bf16)); fp32 stats
+    need = ((pixels * c / 2, 2 * pixels, pixels * c / 2, pixels * width / 2,
+             pixels * tblock.gate_ld(hid, True) / 2) if tail
             else (pixels * c / 2, 2 * pixels, pixels * width / 2))
     assert len(sizes) == len(need) and all(s >= n for s, n in zip(sizes, need))

@@ -1742,3 +1742,122 @@ def test_bf16_head_and_gdfn_backwards_on_bf16_tiles_keep_the_widening_designs_bi
         plain, plain64 = tfused.fused_dwconv_bwd_plain(*args, g, bf16_ops), None
     _check_bf16_outputs(form, got, again, plain, plain64)
     _assert_same_bits_with_g_two_bytes_off(form, args, g, bf16_ops, got)
+
+
+# The bf16 forwards of row 2's tail and row 8's GDFN take their gate in the
+# gated depthwise (csrc/dwconv.cu dwconv3x3_gate_kernel): h = 15 (C = 6),
+# 127 and 255 (odd: c2 staged from the column before it), 510 (even) and
+# 1,021, ragged tiles and bands
+GATE_SHAPES = [(1, 20, 19, 6), (1, 256, 256, 48), (3, 128, 128, 48), (3, 128, 128, 96),
+               (2, 12, 13, 192), (1, 9, 33, 384), (1, 250, 321, 48)]
+
+
+def _conv_in_kernel_order(x, taps):
+    """conv_bf16's fp32 conv of a bf16 x on bf16 taps, on the card: each
+    tap's product is exact in fp32 (eight bits by eight), and the sums run
+    in the kernel's order (input rows y - 1, y, y + 1; in each the right,
+    middle and left taps), one rounding an add, as its fmaf chain rounds."""
+    b, h, w, _ = x.shape
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    t = taps.float()
+    acc = torch.zeros(x.shape, device=x.device)
+    for i in range(3):
+        for j in (2, 1, 0):
+            acc = acc + xp[:, i:i + h, j:j + w] * t[:, i, j]
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", GATE_SHAPES)
+def test_the_gated_depthwise_takes_the_gate_of_conv_bf16s_conv(cuda_device, b, h, w, c):
+    """conv_gate_bf16 against conv_bf16's fp32 conv (in its order) followed
+    by the gate gelu(c1) c2 in PyTorch's fp32 ops, rounded once: equal on
+    at least 99.9% of entries and within one bf16 ulp everywhere (PyTorch's
+    erf and the card's erff may differ by an fp32 ulp); zeros past h in the
+    gate's padded rows; bitwise on a repeat; one launch a call."""
+    hid = int(c * 2.66)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(b, h, w, 2 * hid, device="cuda", generator=gen).bfloat16()
+    taps = (torch.randn(2 * hid, 3, 3, device="cuda", generator=gen) * 0.3).bfloat16()
+    n0 = build.LAUNCHES["conv_gate_bf16"]
+    got, again = tdw.conv_gate_bf16(x, taps), tdw.conv_gate_bf16(x, taps)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["conv_gate_bf16"] == n0 + 2
+    ld = tdw.gate_ld(hid)
+    assert got.shape == (b, h, w, ld) and torch.equal(got, again)
+    assert not got[..., hid:].any()
+    c1, c2 = _conv_in_kernel_order(x, taps).chunk(2, dim=-1)
+    want = (c1 * (0.5 * (1.0 + torch.erf(c1 * 0.70710678118654752))) * c2).bfloat16()
+    g = got[..., :hid].float()
+    diff = (g - want.float()).abs()
+    ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - 7)
+    assert float((diff == 0).float().mean()) >= 0.999
+    assert bool((diff <= ulp).all()), float((diff / ulp).max())
+    assert _bf16_within(got, tdw.conv_gate_plain(x, taps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", GATE_SHAPES)
+def test_the_bf16_tail_and_gdfn_forwards_take_the_gate_in_their_depthwise(cuda_device, b, h, w,
+                                                                          c):
+    """block_tail_bf16 and gdfn_fused_bf16: each within BF16_RTOL of its
+    plain bf16 twin and bitwise on a second call; a call counts one launch,
+    puts 5 (the tail) and 3 (the GDFN) kernels on the card where no product
+    splits, one of them the gated depthwise and none a gate pass, and
+    allocates its output, one workspace and the sums (where a product
+    splits); the GDFN's output is its W_out product of conv_gate_bf16's gate
+    (the same bits)."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    p = _to_bf16(_block_inputs(gen, b, h, w, c, True))
+    hid = int(c * 2.66)
+    n = b * h * w
+    for name, call, plain, prods in (
+            ("block_tail_bf16",
+             lambda: tblock.block_tail_fwd(p["x"], p["a"], p["w_proj"], p["ln_w"], p["ln_b"],
+                                           p["w_in"], p["dw_in"], p["w_out"]),
+             lambda: tblock.block_tail_plain(p["x"], p["a"], p["w_proj"], p["ln_w"], p["ln_b"],
+                                             p["w_in"], p["dw_in"], p["w_out"]),
+             ((c, c), (2 * hid, c), (c, hid))),
+            ("gdfn_fused_bf16",
+             lambda: tfused.fused_dwconv_fwd(p["x"], p["w_in"], p["dw_in"], p["w_out"]),
+             lambda: tfused.fused_dwconv_plain(p["x"], p["w_in"], p["dw_in"], p["w_out"]),
+             ((2 * hid, c), (c, hid)))):
+        n0 = build.LAUNCHES[name]
+        torch.cuda.synchronize()
+        allocs0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        got = call()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs0
+        again = call()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == n0 + 2
+        assert torch.equal(got, again) and _bf16_within(got, plain())
+        splits = sum(tblock.split_plan(n, nn, k, tgram.sm_count(0))[0] > 1 for nn, k in prods)
+        records = _device_records(call)
+        assert sum("dwconv3x3_gate_kernel" in r for r in records) == 1, records
+        assert not any("gate_pass" in r for r in records), records
+        # a split product adds its fixed-order sum's launch
+        assert len(records) == (5 if name == "block_tail_bf16" else 3) + splits, records
+        assert allocs == (3 if splits else 2), allocs
+    if not any(tblock.split_plan(n, nn, k, tgram.sm_count(0))[0] > 1
+               for nn, k in ((2 * hid, c), (c, hid))):
+        h_ = torch.nn.functional.linear(p["x"], p["w_in"])  # bf16, as the W_in product rounds
+        gate = tdw.conv_gate_bf16(h_.contiguous(), p["dw_in"])
+        y = torch.nn.functional.linear(gate[..., :hid], p["w_out"])
+        assert _bf16_within(got, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", GATE_SHAPES)
+def test_the_gated_depthwises_blocks_an_sm_are_the_plans(cuda_device, b, h, w, c):
+    """The shared memory and the launch bound that ops/dwconv.py mirrors
+    (conv_gate_smem, GATE_BLOCKS_PER_SM) are the kernel's own, and the
+    card's occupancy calculator holds at least the plan's blocks an SM of
+    each of its two modes (even h and odd)."""
+    import ctypes
+    hid = int(c * 2.66)
+    _, cv, tc, _ = tdw.conv_gate_plan(b, h, w, hid, tgram.sm_count(0))
+    got, nbytes, least = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    assert build.library().rcot_conv_gate_bf16_blocks_per_sm(
+        cv, tc, ctypes.byref(got), ctypes.byref(nbytes), ctypes.byref(least)) == 0
+    assert (nbytes.value, least.value) == (tdw.conv_gate_smem(cv, tc), tdw.GATE_BLOCKS_PER_SM)
+    assert got.value >= tdw.conv_gate_per_sm(cv, tc), got.value

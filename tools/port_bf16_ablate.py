@@ -1,14 +1,16 @@
 """Where the time of the bf16 kernels goes, by subtraction, on one CUDA
 card: the Gram forward (row 3), the apply forward (row 4), the Gram
 backward (row 6, both operand policies) and the apply backward (row 7,
-both operand policies), each on a bf16 qkv; and bf16 training's backward
+both operand policies), each on a bf16 qkv; bf16 training's backward
 forms of rows 5 and 9, both operand policies: row 5's tail (`5`) and head
 (`5h`), row 9's qkv (`9`) and GDFN (`9g`), on bf16 tiles, or, in a tree
 that holds it (`--root`), the design that widened its bf16 operands in a
-launch of its own and rounded its outputs in another (csrc/cast.cuh).
+launch of its own and rounded its outputs in another (csrc/cast.cuh); and
+the bf16 forwards of row 2's tail (`2`, block_tail_bf16) and row 8's GDFN
+(`8g`, gdfn_fused_bf16).
 
-    python tools/port_bf16_ablate.py [--rows 3 4 6 7 5 5h 9 9g] [--variants full nostore ...]
-                                     [--root DIR]
+    python tools/port_bf16_ablate.py [--rows 3 4 6 7 5 5h 9 9g 2 8g]
+                                     [--variants full nostore ...] [--root DIR]
 
 Copies the rcot_torch of DIR (default: this checkout) into
 build/ablate_<variant>/ with only the sources the chosen rows need, cuts
@@ -43,19 +45,32 @@ one part of their kernels in the copy's csrc (or its plan in ops/gram.py):
             (rows 5 and 9 in the widening design);
   noprod    the backward's 1x1 products and pixel sums with their
             fixed-order reduces (rows 5 and 9; the recompute's products
-            stay);
+            stay); the forward's 1x1 products (rows 2 and 8g: the tail's
+            three, the GDFN's two);
+  nogate    the forward's gate pass, which reads the fp32 conv and writes
+            the bf16 gate (rows 2 and 8g in the design that has one);
+  nogelu    the gated depthwise's gelu: the gate c1 c2 (rows 2 and 8g);
+  noring    the gated depthwise's copies past its first three rows: the
+            ring keeps what it holds (rows 2 and 8g);
+  c2one     the gated depthwise's c2 half at odd h copied a bf16 at a time,
+            loaded and stored by the threads, in place of its 4-byte copies
+            from the column before it (the same elements to the same
+            places; rows 2 and 8g in the design that takes the gate in its
+            depthwise);
   lb1       the products on bf16 tiles of the tf32 path (mm.cuh) built
             for one block an SM, so that they take up to 255 registers
             and spill none (rows 5 and 9 on bf16 tiles);
   nob1      the products' single-bf16 copies (W_out's rows at odd h, which
             the threads load and store themselves) left unread (row 5's
-            tail and row 9's GDFN on bf16 tiles),
+            tail and row 9's GDFN on bf16 tiles, and the forwards of rows 2
+            and 8g),
 
 builds the copies at once, then times each in a process of its own, in
 turns (full first and last): device ms a call (chip_smoke.device_ms) and
 each launch's (tools/port_block_bwd_times.py stage_split), row 3 at serve
 L1, serve decoder L1 and train L1, row 4 at serve L1, decoder L1 and L1 at
-batch 8, rows 5-7 and 9 at train L1 and decoder L1 (128^2, B = 3). Rows 5
+batch 8, row 2 at serve L1 and serve decoder L1 (256^2, B = 1), rows 5-7,
+8g and 9 at train L1 and decoder L1 (128^2, B = 3). Rows 5
 and 9's nowiden and nonarrow cuts are made in the design that widens and
 rounds in launches of its own (`--root` on a checkout that holds it); a
 tree without that design refuses them.
@@ -84,8 +99,12 @@ ROW_SOURCES = {"3": {"gram_bf16.cu"}, "4": {"gram_bf16.cu"},
                "5": {"block_bwd_bf16.cu", "dwconv.cu"},
                "5h": {"block_bwd_bf16.cu", "dwconv.cu"},
                "9": {"fused_dwconv_bf16.cu", "dwconv.cu"},
-               "9g": {"fused_dwconv_bf16.cu", "dwconv.cu"}}
+               "9g": {"fused_dwconv_bf16.cu", "dwconv.cu"},
+               "2": {"block_fwd_bf16.cu", "dwconv.cu"},
+               "8g": {"fused_dwconv_bf16.cu", "dwconv.cu"}}
 BF16_BWD = ("5", "5h", "9", "9g")
+# the bf16 forwards of row 2's tail and row 8's GDFN, and their sources
+BF16_FWD = {("2",): "csrc/block_fwd_bf16.cu", ("8g",): "csrc/fused_dwconv_bf16.cu"}
 # rows 5 and 9's cuts, the same text in either source
 WIDENING = {("5", "5h"): "csrc/block_bwd_bf16.cu", ("9", "9g"): "csrc/fused_dwconv_bf16.cu"}
 # variant -> [(rows, file under rcot_torch/, text, replacement)], rows a
@@ -158,11 +177,33 @@ CUTS = {
     "nonarrow": [(r, f, "  return down.run(st);", "  (void)down;\n  return cudaSuccess;")
                  for r, f in WIDENING.items()],
     "noprod": [(r, f, old, "if (n < 0) " + old) for r, f in WIDENING.items()
-               for old in ("RCOT_TRY((product<true, ", "RCOT_TRY(pixel_sum<OPS16>(")],
+               for old in ("RCOT_TRY((product<true, ", "RCOT_TRY(pixel_sum<OPS16>(")]
+              + [(r, f, old, new) for r, f in BF16_FWD.items() for old, new in (
+                  ("  RCOT_TRY((product<false, ", "  if (n < 0) RCOT_TRY((product<false, "),
+                  ("  return product<false, ", "  return n >= 0 ? cudaSuccess : product<false, "))],
+    "c2one": [(("2", "8g"), "csrc/dwconv.cu", old, new) for old, new in (
+        ("      cp_async<V>(dst + s2[k], src + at + hid - d, in);",
+         "      for (int e = 0; e < (MODE == kGateShift ? V : 0); ++e)\n"
+         "        cp_async<1>(dst + s2[k] + e, src + at + hid - d + e, in);\n"
+         "      if (MODE != kGateShift) cp_async<V>(dst + s2[k], src + at + hid - d, in);"),
+        ("        cp_async<V>(dst + c2_at + col * ld2 + cw,\n"
+         "                    src + (in ? gx * (int)pix + hid - d + c0 + cw : 0), in);",
+         "        for (int e = 0; e < V; ++e)\n"
+         "          cp_async<1>(dst + c2_at + col * ld2 + cw + e,\n"
+         "                      src + (in ? gx * (int)pix + hid - d + c0 + cw + e : 0), in);"))],
+    "nogelu": [(("2", "8g"), "csrc/dwconv.cu", f"c + e < hid ? gate_fwd(p{k}2[e], q{k}2[e]) : 0.f",
+                f"c + e < hid ? p{k}2[e] * q{k}2[e] : 0.f") for k in "ab"],
+    "noring": [(("2", "8g"), "csrc/dwconv.cu",
+                "    if (r + kStages - 1 < n_in) stage(r + kStages - 1);\n    cp_commit();\n"
+                "    const bf16* s = ring + (r % kStages) * slot;",
+                "    cp_commit();\n    const bf16* s = ring + (r % kStages) * slot;")],
+    "nogate": [(r, f, "  RCOT_TRY(gate_pass(conv, h, n, hid, plan[",
+                "  if (n < 0) RCOT_TRY(gate_pass(conv, h, n, hid, plan[")
+               for r, f in BF16_FWD.items()],
     "lb1": [(BF16_BWD, "csrc/mm.cuh", "__global__ void __launch_bounds__(kThreads, 2) mm_kernel(",
              "__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 && (sizeof(EA) == 2 || "
              "sizeof(EB) == 2 || sizeof(EO) == 2) ? 1 : 2) mm_kernel(")],
-    "nob1": [(BF16_BWD, "csrc/mm.cuh", "      *to = in ? *from : from_f<T>(0.f);",
+    "nob1": [((*BF16_BWD, "2", "8g"), "csrc/mm.cuh", "      *to = in ? *from : from_f<T>(0.f);",
               "      *to = from_f<T>(0.f);")],
 }
 
@@ -224,6 +265,10 @@ def time_tree(root: Path, rows) -> dict:
             qkv = r(b, res, res, 3 * ch).to(torch.bfloat16)
             attn = torch.softmax(r(b, 1, ch, ch), -1)
             calls[f"attn_apply_fwd_bf16 {tag}"] = lambda q=qkv, a=attn: g.attn_apply_fwd(q, a)
+    if "2" in rows:
+        for tag, res, ch in (("serve L1", 256, 48), ("serve decoder L1", 256, 96)):
+            p = cs.bf16_block_inputs(cs.block_inputs(gen, 1, res, ch, True))
+            calls[f"block_tail_bf16 {tag}"] = lambda p=p: kb.block_tail(*cs.tail_args(p))
     for tag, b, res, ch in (("train L1", 3, 128, 48), ("train decoder L1", 3, 128, 96)):
         qkv = r(b, res, res, 3 * ch).to(torch.bfloat16)
         cot = [r(b, 1, ch, ch), r(b, 1, ch), r(b, 1, ch)]
@@ -236,9 +281,12 @@ def time_tree(root: Path, rows) -> dict:
             if "7" in rows:
                 calls[f"attn_apply_bwd_bf16{sfx} {tag}"] = (
                     lambda q=qkv, a=attn, x=gc, o=ops: g.attn_apply_bwd(q, a, x, bf16_ops=o))
-        if not set(BF16_BWD) & set(rows):
+        if not {*BF16_BWD, "8g"} & set(rows):
             continue
         p = cs.bf16_block_inputs(cs.block_inputs(gen, b, res, ch, True))
+        if "8g" in rows:
+            calls[f"gdfn_fused_bf16 {tag}"] = (
+                lambda p=p: kf.fused_dwconv_fwd(*cs.fused_args(p, True)))
         g_m = r(b, res, res, 3 * ch).to(torch.bfloat16)
         for ops in (False, True):
             sfx = "_b16ops" if ops else ""

@@ -34,12 +34,12 @@ off/mdta/dwconv forward and tail/mdta/dwconv iteration) and the root and
 the card's name and power limit.
 
 With --redesigned it times only the bf16 forms that their latest Hopper
-redesign replaced (REDESIGNED: row 5's head and row 9's GDFN backward,
-block_head_bwd_bf16 and gdfn_fused_bwd_bf16, in both operand policies, at
-train L1 and decoder L1, B = 3): device ms, event ms, the kernels one
-call puts on the card and the bytes it allocates at its peak, with
-chip_smoke.bf16_bwd_work's bound (no library call computes them), on
-seeded inputs, one JSON line. chip_smoke.py --root
+redesign replaced (REDESIGNED: row 2's tail forward, block_tail_bf16, at
+serve L1 and serve decoder L1, B = 1, and row 8's GDFN forward,
+gdfn_fused_bf16, at train L1 and decoder L1, B = 3): device ms, event ms,
+the kernels one call puts on the card and the bytes it allocates at its
+peak, with chip_smoke.bf16_fwd_work's bound (no library call computes
+them), on seeded inputs, one JSON line. chip_smoke.py --root
 runs it on the parent and on this tree in turns (parent, this, this,
 parent).
 """
@@ -175,40 +175,34 @@ def opt_in(smoke, gen) -> dict:
     return sums
 
 
-# the forms the redesign replaced, by the path and the levels they are timed at
-REDESIGNED = {"train": ("block_head_bwd_bf16", "block_head_bwd_bf16_b16ops",
-                        "gdfn_fused_bwd_bf16", "gdfn_fused_bwd_bf16_b16ops")}
+# the forms the redesign replaced, by the path and the levels they are timed
+# at: row 2's tail forward in serving (B = 1), row 8's GDFN forward in
+# training (B = 3)
+REDESIGNED = {"serve": ("block_tail_bf16",), "train": ("gdfn_fused_bf16",)}
 REDESIGNED_AT = ("L1", "decoder_level1")
 
 
 def redesigned(smoke) -> dict:
     """{"<form> <path> <level>": {device_ms, device_records (kernels a
-    call), ms, peak_bytes (what a call allocates at its peak: outputs,
-    workspaces, sums), bound_ms, bound_by, library_device_ms}} of the bf16 forms of
-    row 5's head and row 9's GDFN backward in both operand policies, on
-    inputs seeded alike in every tree; the bound from chip_smoke.bf16_bwd_work
-    (the rate each policy's products run at), no library call (None)."""
+    call), ms, peak_bytes (what a call allocates at its peak: the output
+    and the workspaces), bound_ms, bound_by, library_device_ms}} of the
+    bf16 forwards of row 2's tail (serving, 256^2, B = 1) and row 8's GDFN
+    (training, 128^2, B = 3), on inputs seeded alike in every tree; the
+    bound from chip_smoke.bf16_fwd_work, no library call (None)."""
     torch, kb, kf = smoke.torch, smoke.kblock, smoke.kfused
     gen = torch.Generator(device="cuda").manual_seed(19)
-
-    def r(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen)
     out = {}
-    for path, b, shapes in (("train", smoke.TRAIN_B, smoke.TRAIN_SHAPES),):
+    for path, b, shapes in (("serve", 1, smoke.MAIN_SHAPES),
+                            ("train", smoke.TRAIN_B, smoke.TRAIN_SHAPES)):
         for label, res, c, heads in shapes:
             if label not in REDESIGNED_AT:
                 continue
             p = smoke.bf16_block_inputs(smoke.block_inputs(gen, b, res, c, True))
-            g_c, g_m = r(b, res, res, c).to(torch.bfloat16), r(b, res, res, 3 * c).to(
-                torch.bfloat16)
-            head, gdfn = smoke.head_args(p), smoke.fused_args(p, True)
+            tail, gdfn = smoke.tail_args(p), smoke.fused_args(p, True)
             for name in REDESIGNED[path]:
-                ops16 = name.endswith("_b16ops")
-                fn = ((lambda o=ops16: kb.block_head_bwd(*head, g_m, bf16_ops=o))
-                      if name.startswith("block_head") else
-                      (lambda o=ops16: kf.fused_dwconv_bwd(*gdfn, g_c, bf16_ops=o)))
-                flops, nbytes = smoke.bf16_bwd_work(b, res * res, c, ops16)[
-                    name.replace("_b16ops", "")]
+                fn = ((lambda: kb.block_tail(*tail)) if name == "block_tail_bf16" else
+                      (lambda: kf.fused_dwconv_fwd(*gdfn)))
+                flops, nbytes = smoke.bf16_fwd_work(b, res * res, c)[name]
                 bound_ms, by = smoke.bound_at(flops, nbytes)
                 dev, records = smoke.device_ms(fn)
                 torch.cuda.synchronize()

@@ -12,7 +12,8 @@ ragged pixel count, the main path's heads and two channel blocks, rows 6
 and 7 in both operand policies, and row 7 in both at train L1 and decoder
 L1 (`bf16_mdta_edges`); and rows 5 (tail and head) and 9 (qkv and GDFN)
 in bf16 in both operand policies at train L1 and the latent, and at odd
-shapes with a cotangent 2 bytes off (`bf16_tile_edges`).
+shapes with a cotangent 2 bytes off, with the bf16 forwards of rows 2
+(tail) and 8 (GDFN) at those shapes (`bf16_tile_edges`).
 
     python tools/port_fp32_digests.py [--root DIR]
 
@@ -98,7 +99,9 @@ BF16_TILE_EDGES = [(1, 20, 19, 6), (2, 12, 13, 192), (1, 9, 33, 384), (1, 8, 9, 
 
 def bf16_tile_edges(smoke, gen, r) -> dict:
     """SHA-256 of rows 5 (tail, head) and 9 (qkv, GDFN) backward in bf16,
-    both operand policies, at BF16_TILE_EDGES, the cotangent 2 bytes off."""
+    both operand policies, at BF16_TILE_EDGES, the cotangent 2 bytes off,
+    and of the bf16 forwards of rows 2 (tail) and 8 (GDFN) there (h = 15,
+    510, 1,021 and 1,532: odd and even gate widths, ragged tiles)."""
     torch, bf16 = smoke.torch, smoke.torch.bfloat16
     out = {}
 
@@ -119,6 +122,9 @@ def bf16_tile_edges(smoke, gen, r) -> dict:
                                                   bf16_ops=ops))
             out[f"rows 5 head, 9 GDFN bf16{'_b16ops' if ops else ''} {(b, h, w, c)}"] = _hash(
                 *(t for t in got if t is not None))
+        out[f"rows 2 tail, 8 GDFN bf16 forwards {(b, h, w, c)}"] = _hash(
+            smoke.kblock.block_tail(*smoke.tail_args(p)),
+            smoke.kfused.fused_dwconv_fwd(*smoke.fused_args(p, True)))
     return out
 
 
