@@ -77,11 +77,18 @@ Phases (any failure exits non-zero; nothing is caught):
      shape of a 256x256 forward, B = 1 and 2, and a head of 192 channels,
      each bitwise against a second call (the share of elements not bitwise
      equal to the twin printed), with the tail's and the GDFN's gated
-     depthwise alone (kdw.conv_gate_bf16) against its twin; the full-width
+     depthwise alone (kdw.conv_gate_bf16) against its twin, and the qkv
+     form of row 8 in bf16 (conv1x1_dw_bf16, bf16 serving's in "tail" and
+     "off") at the same shapes; the head and the qkv (the product-depthwise,
+     csrc/pw_dw.cu, after the head's LayerNorm) each also bitwise against the
+     product and the depthwise in launches of their own that it replaced;
+     the full-width
      T_net at 256^2, batch 1 and 8, through restore_batch: 94 launches of
      each bf16 kernel per forward and none of their fp32 forms, one forward
-     profiled (as one "head" forward below: as many gated-depthwise records
-     as tails or GDFNs launched, no gate pass), the outputs against the same weights in
+     profiled (as one "head" and one "tail" forward below: as many
+     gated-depthwise records as tails or GDFNs launched and as many
+     product-depthwise records as heads or qkvs, no gate pass and no
+     depthwise of its own), the outputs against the same weights in
      bf16 on the CPU; bf16 and fp32 img/s at batch 1 and 8 in turns and the
      peak memory at batch 8; rcot_torch.cli.test --dtype bfloat16 against a
      CPU run; one full-width bf16 forward of a 128^2 image in each of
@@ -222,10 +229,10 @@ Phases (any failure exits non-zero; nothing is caught):
      (qkv, GDFN) in bf16 in both operand policies, also at odd shapes with
      a cotangent 2 bytes off, with the bf16 forwards of rows 2 (tail) and 8
      (GDFN) there, bit for bit; then the bf16 forms that their latest
-     Hopper redesign replaced (the forwards of row 2's tail and row 8's
-     GDFN, which take their gate in their depthwise), device ms, kernels a
-     call and a call's peak bytes, on PARENT and on this checkout in turns
-     (tools/port_bf16_times.py --redesigned).
+     Hopper redesign replaced (the forwards of row 1's head and row 8's
+     qkv, which take their product in their depthwise's band), device ms,
+     kernels a call and a call's peak bytes, on PARENT and on this checkout
+     in turns (tools/port_bf16_times.py --redesigned).
 
 TF32 is off for every matmul and cuDNN convolution in this script, so the
 plain twins and the CPU reference run in full fp32. Kernel agreement is
@@ -1583,11 +1590,36 @@ def check_bf16_gram(name, gen, qkv, heads, errs) -> None:
     check_repeats(f"attn_apply_fwd_bf16 {name}", (out,), (again,))
 
 
+# the head's and the qkv's bf16 forms in the launches that the
+# product-depthwise replaced (their wrappers' `launches`: the bf16 product
+# and the depthwise, after the head's ln_fwd), which it must equal bit for
+# bit
+LAUNCHED_DESIGN = {
+    "block_head_bf16": lambda x, ln_w, ln_b, w_qkv, dwk: kblock._block_head_bf16(
+        x, ln_w, ln_b, w_qkv, dwk, launches=True),
+    "conv1x1_dw_bf16": lambda x, w_in, dwk, w_out: kfused._conv1x1_dw_bf16(
+        x, w_in, dwk, launches=True)}
+# where the kernels line takes a bf16 training form's stage records: the
+# bf16 serving composition profiled that runs it
+STAGES_FROM = {"gdfn_fused_bf16": "head", "conv1x1_dw_bf16": "tail"}
+
+
+def stage_entry(records: dict, name: str) -> dict:
+    """The kernels line's `stages` of one form from stage_records: the
+    profiled forward's records, its gate passes and depthwise launches of
+    their own (none), and the form's launches and its stage's records."""
+    return {**{k: records[k] for k in ("device_records", "gate_pass", "plain_depthwise")},
+            **records[name]}
+
+
 def phase_bf16_kernels(gen) -> dict:
     """Rows 1-4 in bf16 against their plain bf16 twins at every block shape
     of a 256x256 forward, B = 1 and 2, and at a head of 192 channels, each
     bitwise against a second call; so too the bf16 tail's and GDFN's gated
-    depthwise alone (kdw.conv_gate_bf16) at the tail's width."""
+    depthwise alone (kdw.conv_gate_bf16) at the tail's width and row 8's
+    qkv form (conv1x1_dw_bf16); the head and the qkv, on the
+    product-depthwise, also bitwise against their design of old, the
+    product and the depthwise in launches of their own (LAUNCHED_DESIGN)."""
     errs: dict = {}
     for label, res, c, heads in MAIN_SHAPES:
         for b in (1, 2):
@@ -1597,11 +1629,16 @@ def phase_bf16_kernels(gen) -> dict:
                     ("block_head_bf16", kblock.block_head, kblock.block_head_plain,
                      head_args(p)),
                     ("block_tail_bf16", kblock.block_tail, kblock.block_tail_plain,
-                     tail_args(p))):
+                     tail_args(p)),
+                    ("conv1x1_dw_bf16", kfused.fused_dwconv_fwd, kfused.fused_dwconv_plain,
+                     fused_args(p, False))):
                 got, again = fn(*args), fn(*args)
                 torch.cuda.synchronize()
                 check_bf16_out(f"{name} {tag}", got, plain(*args), errs)
                 check_repeats(f"{name} {tag}", (got,), (again,))
+                if name in LAUNCHED_DESIGN:
+                    check_repeats(f"{name} {tag} against its launches", (got,),
+                                  (LAUNCHED_DESIGN[name](*args),))
                 if name == "block_head_bf16":
                     qkv = got
             # the tail's gated depthwise alone, on an h of the tail's width
@@ -1630,16 +1667,14 @@ def bf16_timings(gen, label, res, c, heads, b) -> dict:
     bmm on bf16 heads (their yardstick: bf16_gram_yardstick)."""
     n = res * res
     p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
-    m, ch = 3 * c, c // heads
+    ch = c // heads
     qkv = kblock.block_head(*head_args(p))
     attn = torch.softmax(torch.randn(b, heads, ch, ch, device="cuda", generator=gen), -1)
     yard = bf16_gram_yardstick(qkv, heads, attn=attn)
-    w_head = 2 * (m * c + 9 * m) + 4 * 2 * c
     rows = {  # kernel, plain, library, flops by rate, bytes
         "block_head_bf16": (lambda: kblock.block_head(*head_args(p)),
                             lambda: kblock.block_head_plain(*head_args(p)), None,
-                            {"bf16": b * n * 2 * c * m, "fp32": b * n * (18 * m + 8 * c)},
-                            2 * b * n * (c + m) + w_head),
+                            *bf16_fwd_work(b, n, c)["block_head_bf16"]),
         "block_tail_bf16": (lambda: kblock.block_tail(*tail_args(p)),
                             lambda: kblock.block_tail_plain(*tail_args(p)), None,
                             *bf16_fwd_work(b, n, c)["block_tail_bf16"]),
@@ -1663,23 +1698,36 @@ def bf16_timings(gen, label, res, c, heads, b) -> dict:
     return out
 
 
-def gate_records(fn, form: str) -> dict:
+# the stage kernel that each redesigned bf16 forward launches once a call:
+# the gated depthwise of the tail and the GDFN, the product-depthwise of the
+# head and the qkv (csrc/pw_dw.cu)
+BF16_STAGES = {"block_tail_bf16": "dwconv3x3_gate_kernel",
+               "gdfn_fused_bf16": "dwconv3x3_gate_kernel",
+               "block_head_bf16": "pw_dw_kernel", "conv1x1_dw_bf16": "pw_dw_kernel"}
+# the depthwise's own kernel, which no bf16 serving forward launches now
+PLAIN_DEPTHWISE = "dwconv3x3_kernel<"
+
+
+def stage_records(fn, forms) -> dict:
     """One call of fn (a bf16 serving forward) under torch.profiler, after
-    a warm one: its device records, those of the gated depthwise
-    (dwconv3x3_gate_kernel) and of any gate pass, and the launches of the
-    form that runs the gated depthwise; the two counts must agree and no
-    gate pass may run."""
+    a warm one: its device records and, for each form in `forms` (each
+    with a stage kernel of its own, BF16_STAGES), its launches and the
+    records of its stage, which must agree; no gate pass and no depthwise
+    of its own (PLAIN_DEPTHWISE) may run."""
     fn()
     torch.cuda.synchronize()
-    n0 = build.LAUNCHES[form]
+    n0 = {form: build.LAUNCHES[form] for form in forms}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = dict(form=form, form_launches=build.LAUNCHES[form] - n0, device_records=len(names),
-               conv_gate_bf16=sum("dwconv3x3_gate_kernel" in k for k in names),
-               gate_pass=sum("gate_pass" in k for k in names))
-    if out["gate_pass"] or not out["conv_gate_bf16"] == out["form_launches"] > 0:
+    out = dict(device_records=len(names), gate_pass=sum("gate_pass" in k for k in names),
+               plain_depthwise=sum(PLAIN_DEPTHWISE in k for k in names))
+    for form in forms:
+        out[form] = dict(launches=build.LAUNCHES[form] - n0[form], stage=BF16_STAGES[form],
+                         stage_records=sum(BF16_STAGES[form] in k for k in names))
+    if out["gate_pass"] or out["plain_depthwise"] or not all(
+            out[f]["stage_records"] == out[f]["launches"] > 0 for f in forms):
         raise AssertionError(f"profiled bf16 forward: {out}")
     return out
 
@@ -1719,8 +1767,9 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
     for o in out1 + out8:
         if o.shape != (256, 256, 3) or not np.isfinite(o).all():
             raise AssertionError(f"bad bf16 output {o.shape}")
-    # one forward profiled: the tails' gated depthwise, no gate pass
-    gates = {"full": gate_records(lambda: r16.restore_batch(imgs[5:6]), "block_tail_bf16")}
+    # one forward profiled: the tails' gated depthwise and the heads'
+    # product-depthwise, no gate pass, no depthwise of its own
+    gates = {"full": stage_records(lambda: r16.restore_batch(imgs[5:6]), BF16_SIDES["full"])}
     log(f"serving bf16 full, one image profiled: {json.dumps(gates['full'])}")
 
     # ---- against the same weights in bf16 on the CPU: image 5 alone and
@@ -1780,7 +1829,7 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
 
     part("cli.test")
     compositions = bf16_compositions(gen_np, net, r32, cpu16_net(net), card)
-    gates["head"] = compositions.pop("gate_records")
+    gates.update(compositions.pop("stage_records"))
     part("compositions")
     timings = {label: bf16_timings(gen, label, res, c, heads, 1)
                for label, res, c, heads in MAIN_SHAPES if label in BF16_TIMED_SHAPES}
@@ -1789,7 +1838,7 @@ def phase_bf16(gen, gen_np, net, card) -> dict:
     return dict(errs=errs, launches=launches, n_fwd=n_fwd, vs_cpu=vs_cpu,
                 img_per_s=rate, batch8_max_memory_allocated=peak, cli_psnr_gap_db=psnr_gap,
                 cli_launches=cli_launches, compositions=compositions, timings=timings,
-                gate_records=gates, seconds=seconds, card=card)
+                stage_records=gates, seconds=seconds, card=card)
 
 
 def cpu16_net(net):
@@ -1806,8 +1855,8 @@ def bf16_compositions(gen_np, net, r32, cpu_net, card) -> dict:
     composition's bf16 forward on the CPU by the rule of the "full" check
     above (mean|card - CPU| <= mean|fp32 - bf16| / 4, the fp32 side the
     card's "full"); then img/s at 256 px, batch 8, in turns (full, head,
-    tail, off, off, tail, head, full); one "head" forward profiled
-    (gate_records)."""
+    tail, off, off, tail, head, full); one "head" and one "tail" forward
+    profiled (stage_records)."""
     cfg = ModelConfig()
     img = gen_np.uniform(0, 1, (128, 128, 3)).astype(np.float32)
     fp32 = r32.restore_batch([img])[0]
@@ -1833,15 +1882,17 @@ def bf16_compositions(gen_np, net, r32, cpu_net, card) -> dict:
                 row["mean_abs_err"] <= row["mean_fp32_bf16_gap"] / 4
                 and row["max_abs_err"] <= BF16_RTOL * max(float(np.abs(ref).max()), 1.0)):
             raise AssertionError(f"serving bf16 {mode} card vs CPU: {row}")
-    # one "head" forward profiled: the GDFN's gated depthwise, no gate pass
-    gates = gate_records(lambda: rs["head"].restore_batch([img]), "gdfn_fused_bf16")
-    log(f"serving bf16 head, one 128^2 image profiled: {json.dumps(gates)}")
+    # one "head" and one "tail" forward profiled: the GDFN's and the tail's
+    # gated depthwise, the head's and the qkv's product-depthwise
+    gates = {mode: stage_records(lambda mode=mode: rs[mode].restore_batch([img]),
+                                 BF16_SIDES[mode]) for mode in ("head", "tail")}
+    log(f"serving bf16 head and tail, one 128^2 image each profiled: {json.dumps(gates)}")
     rate = {mode: [] for mode in rs}
     for mode in ("full", "head", "tail", "off", "off", "tail", "head", "full"):
         rate[mode].append(images_per_sec(rs[mode], gen_np, 8, TURN_BATCHES_B8))
     log(f"256px restore_batch bf16 at batch 8 by composition, in turns: {json.dumps(rate)} "
         f"({card})")
-    return dict(vs_cpu_128px=out, batch8_img_per_s=rate, gate_records=gates)
+    return dict(vs_cpu_128px=out, batch8_img_per_s=rate, stage_records=gates)
 
 
 # ------------------------------------------------------------ bf16 training
@@ -1956,15 +2007,20 @@ def phase_bf16_train_kernels(gen) -> dict:
 
 
 def bf16_fwd_work(b, n, c) -> dict:
-    """{name: ({rate: flops}, bytes)} of the bf16 forwards of row 2's tail
-    and row 8's GDFN on b images of n pixels at C channels: their products
-    at the bf16 tensor-core rate, the stencils, the gate and the LayerNorm
-    at the fp32 rate; bf16 activations and weights, fp32 LayerNorm weights,
-    each input read once, each output written once."""
-    hid = int(c * 2.66)
+    """{name: ({rate: flops}, bytes)} of the bf16 forwards of row 1's head,
+    row 2's tail and row 8's qkv and GDFN on b images of n pixels at C
+    channels: their products at the bf16 tensor-core rate, the stencils, the
+    gate and the LayerNorm at the fp32 rate; bf16 activations and weights,
+    fp32 LayerNorm weights, each input read once, each output written once."""
+    hid, m = int(c * 2.66), 3 * c
+    w_qkv = 2 * (m * c + 9 * m)
     w_tail = 2 * (c * c + 3 * hid * c + 18 * hid) + 4 * 2 * c
     w_gdfn = 2 * (3 * hid * c + 18 * hid)
     return {
+        "block_head_bf16": ({"bf16": b * n * 2 * c * m, "fp32": b * n * (18 * m + 8 * c)},
+                            2 * b * n * (c + m) + w_qkv + 4 * 2 * c),
+        "conv1x1_dw_bf16": ({"bf16": b * n * 2 * c * m, "fp32": b * n * 18 * m},
+                            2 * b * n * (c + m) + w_qkv),
         "block_tail_bf16": ({"bf16": b * n * (2 * c * c + 6 * c * hid),
                              "fp32": b * n * (46 * hid + 10 * c)}, 2 * 3 * b * n * c + w_tail),
         "gdfn_fused_bf16": ({"bf16": b * n * 6 * hid * c, "fp32": b * n * 46 * hid},
@@ -2024,7 +2080,7 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     the library for rows 6-7 is bmm on bf16 heads."""
     n = res * res
     p = bf16_block_inputs(block_inputs(gen, b, res, c, True))
-    m, ch = 3 * c, c // heads
+    ch = c // heads
 
     def r(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
@@ -2034,11 +2090,9 @@ def bf16_train_timings(gen, label, res, c, heads, b) -> dict:
     attn = torch.softmax(r(b, heads, ch, ch), -1)
     dgram = r(b, heads, ch, ch)
     yard = bf16_gram_yardstick(qkv, heads, attn=attn, dgram=dgram, g=g_c)
-    w_qkv = 2 * (m * c + 9 * m)
     work = bf16_bwd_work(b, n, c)
     rows = {  # library, flops by rate, bytes
-        "conv1x1_dw_bf16": (None, {"bf16": b * n * 2 * c * m, "fp32": b * n * 18 * m},
-                            2 * b * n * (c + m) + w_qkv),
+        "conv1x1_dw_bf16": (None, *bf16_fwd_work(b, n, c)["conv1x1_dw_bf16"]),
         "conv1x1_dw_bwd_bf16": (None, *work["conv1x1_dw_bwd_bf16"]),
         "block_tail_bwd_bf16": (None, *work["block_tail_bwd_bf16"]),
         "mdta_gram_bwd_bf16": yard["mdta_gram_bwd_bf16"],
@@ -4285,7 +4339,8 @@ def main(argv=None) -> int:
             latent=bf16["timings"]["latent"][name],
             launches_per_train_iteration_bf16=bf16_train["launches"].get(name, 0) // len(
                 bf16_train["metrics"]),
-            **({"stages": bf16["gate_records"]["full"]} if name == "block_tail_bf16" else {})))
+            **({"stages": dict(composition="full", **stage_entry(
+                bf16["stage_records"]["full"], name))} if name in BF16_STAGES else {})))
     for name, (source, replaces) in BF16_TRAIN_KERNELS.items():
         t = bf16_train_times["L1"][name]
         mode = BF16_LAUNCHES_FROM.get(name, "tail")
@@ -4300,7 +4355,9 @@ def main(argv=None) -> int:
             library_device_ms=t["library_device_ms"], at=t["shape"],
             decoder_L1=bf16_train_times["decoder_level1"][name],
             latent=bf16_train_times["latent"][name],
-            **({"stages": bf16["gate_records"]["head"]} if name == "gdfn_fused_bf16" else {})))
+            **({"stages": dict(composition=STAGES_FROM[name], **stage_entry(
+                bf16["stage_records"][STAGES_FROM[name]], name))} if name in STAGES_FROM
+               else {})))
     for name, (source, replaces) in BF16_OPT_IN_KERNELS.items():
         # a form's ms are at its main path's L1 shape: the attend and the
         # forward (at 2h) in serving, dx and dtaps (at 3C) in training

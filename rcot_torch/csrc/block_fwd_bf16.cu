@@ -28,10 +28,15 @@
 // the intermediates through device memory in bf16 (u, h, t, the gate); the
 // fp32 conv, which the gate takes unrounded, never leaves the SM.
 //
-// Design: block_fwd.cu's chain of launches on mm.cuh's products, ln_fwd and
-// row 11's depthwise forward, instantiated for bf16 (mm.cuh, dwconv.cu),
-// with the same plan (ops/block.py block_fwd_plan, copy widths in bf16
-// elements). The tail's depthwise takes the gate itself (dwconv.cuh
+// Design: the head is ln_fwd into u and one launch of the product-depthwise
+// on it (pw_dw.cuh: the W_qkv product taken inside the depthwise's band, h
+// never in device memory, ops/dwconv.py pw_dw_plan), with the bits of the
+// bf16 product and the depthwise it replaced, which stay for C past its
+// shared memory. The tail is block_fwd.cu's chain
+// of launches on mm.cuh's products, ln_fwd and row 11's depthwise forward,
+// instantiated for bf16 (mm.cuh, dwconv.cu), with the same plan
+// (ops/block.py block_fwd_plan, copy widths in bf16 elements). The tail's
+// depthwise takes the gate itself (dwconv.cuh
 // conv_gate_bf16: both halves of conv summed as conv_bf16 sums them, the
 // gate taken in registers and rounded once) into a workspace in rows of
 // gate_ld<bf16>(h) = h rounded up to 8, which the W_out product reads:
@@ -46,6 +51,7 @@
 
 #include "dwconv.cuh"
 #include "mm.cuh"
+#include "pw_dw.cuh"
 
 namespace {
 
@@ -80,14 +86,19 @@ extern "C" {
 // qkv = bf16(dw3x3(bf16(bf16(LN1(x)) @ W_qkv^T))). Inputs x (B,H,W,C) bf16,
 // ln_w, ln_b (C, fp32; ln_b null for BiasFree), w_qkv (M,C) and dwk (M,3,3)
 // bf16; output out (B,H,W,M) bf16. Workspace: u (N,C) bf16, stats (2N)
-// fp32, h (N,M) bf16, N = B*H*W, and sums (fp32, the plan's).
+// fp32, N = B*H*W. With pw (pw_dw.cuh's plan): ln_fwd, then one launch of
+// the product-depthwise on u. Without (where C's rows pass its shared
+// memory, ops/dwconv.py pw_dw_plan): ln_fwd, the product and the
+// depthwise, through h (N,M) bf16 and sums (fp32, the plan's).
 int rcot_block_head_bf16(const bf16* x, const float* ln_w, const float* ln_b, const bf16* w_qkv,
                          const bf16* dwk, bf16* out, bf16* u, float* stats, bf16* h, float* sums,
-                         const int* plan, int B, int H, int W, int C, int M, void* stream) {
+                         const int* plan, const int* pw, int B, int H, int W, int C, int M,
+                         void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * H * W;
   const int vc = plan[kVecC];
   RCOT_TRY(ln_fwd(x, ln_w, ln_b, u, stats, n, C, plan[kLnBlocks], st));
+  if (pw) return rcot_pwdw::pw_dw_bf16(u, w_qkv, dwk, out, B, H, W, C, M, pw, st);
   RCOT_TRY((product<false, kEpiStore>(u, C, vc, w_qkv, vc, h, M, n, SPLIT(kProdH), sums, st)));
   return dw(h, dwk, out, true, B, H, W, M, plan, st);
 }

@@ -1,7 +1,8 @@
 // The depthwise 3x3 kernels of dwconv.cu (row 11), for other kernels'
 // launchers: block_bwd.cu runs its three depthwise stages through them,
 // block_fwd_bf16.cu and fused_dwconv_bf16.cu their bf16 forwards (the head's
-// and the qkv's conv_bf16, the tail's and the GDFN's gated depthwise,
+// and the qkv's conv_bf16 where C passes the product-depthwise of pw_dw.cuh,
+// the tail's and the GDFN's gated depthwise,
 // conv_gate_bf16), and the bf16 backward forms of block_bwd_bf16.cu and
 // fused_dwconv_bf16.cu theirs on bf16 tiles.
 // The plan (vec, cv, tc, rows) is ops/dwconv.py's dwconv_plan, made in

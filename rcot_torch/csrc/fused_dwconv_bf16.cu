@@ -44,10 +44,14 @@
 // bf16_bwd_work states the bound, each product at its operands' rate).
 //
 // Design. The forwards are block_fwd_bf16.cu's head and tail without their
-// LayerNorm and residuals: mm.cuh's bf16 product (mma.sync m16n8k16, fp32
-// sums, the epilogue rounding h to bf16) into a bf16 workspace, then row
-// 11's depthwise kernel on bf16 (dwconv.cuh conv_bf16) into bf16 for the
-// qkv; for the GDFN the gated depthwise (conv_gate_bf16: conv summed as
+// LayerNorm and residuals: the qkv one launch of the product-depthwise
+// (pw_dw.cuh: the W_in product inside the depthwise's band, h never in
+// device memory), with the bits of the two launches it replaced, mm.cuh's
+// bf16 product (mma.sync m16n8k16, fp32 sums, the epilogue rounding h to
+// bf16) into a bf16 workspace and row 11's depthwise kernel on bf16
+// (dwconv.cuh conv_bf16) into bf16, which stay for C past its shared
+// memory; the GDFN mm.cuh's bf16 product into h, then the gated
+// depthwise (conv_gate_bf16: conv summed as
 // conv_bf16 sums it, kept in registers, the gate taken there and rounded
 // once) into a bf16 gate workspace, read by a bf16 W_out product that
 // stores bf16: three launches, no fp32 conv in device memory. The backwards recompute h with the same
@@ -81,6 +85,7 @@
 
 #include "dwconv.cuh"
 #include "mm.cuh"
+#include "pw_dw.cuh"
 
 namespace {
 
@@ -188,13 +193,17 @@ int gdfn_fused_bwd_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, const 
 extern "C" {
 
 // qkv = bf16(dw3x3(bf16(x @ W_in^T))). Inputs x (B,H,W,C), w_in (M,C), dwk
-// (M,3,3), bf16; output out (B,H,W,M) bf16. Workspace: h (N,M) bf16,
-// N = B*H*W, and sums (fp32, the plan's). plan: kFwdInts ints (kGateBlocks,
+// (M,3,3), bf16; output out (B,H,W,M) bf16. With pw (pw_dw.cuh's plan): one
+// launch of the product-depthwise, no workspace. Without (where C's rows
+// pass its shared memory, ops/dwconv.py pw_dw_plan): two launches, the
+// product and the depthwise, through the workspace h (N,M) bf16, N =
+// B*H*W, and sums (fp32, the plan's); plan: kFwdInts ints (kGateBlocks,
 // kFVecH, kFVecG, out's split and kGatePass unused).
 int rcot_conv1x1_dw_bf16(const bf16* x, const bf16* w_in, const bf16* dwk, bf16* out, bf16* h,
-                         float* sums, const int* plan, int B, int H, int W, int C, int M,
-                         void* stream) {
+                         float* sums, const int* plan, const int* pw, int B, int H, int W, int C,
+                         int M, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (pw) return rcot_pwdw::pw_dw_bf16(x, w_in, dwk, out, B, H, W, C, M, pw, st);
   const long long n = (long long)B * H * W;
   const int vc = plan[kFVecC];
   RCOT_TRY((product<false, kEpiStore>(x, C, vc, w_in, vc, h, M, n, SPLIT(kFSplit, kProdH), sums,

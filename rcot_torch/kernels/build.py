@@ -46,8 +46,10 @@ SIGNATURES = {
     "rcot_block_head": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # inputs 8, output 1, workspace 6, plan; B, H, W, C, hid; stream
     "rcot_block_tail": [_P] * 15 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
-    # the same two in bf16 (block_fwd_bf16.cu): the same arguments
-    "rcot_block_head_bf16": [_P] * 10 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # the same two in bf16 (block_fwd_bf16.cu): the same arguments, the
+    # head's with the product-depthwise's plan (pw_dw.cuh; null: the product
+    # and the depthwise in launches of their own) after its plan
+    "rcot_block_head_bf16": [_P] * 10 + [ctypes.POINTER(_I)] * 2 + [_I] * 5 + [_P],
     "rcot_block_tail_bf16": [_P] * 15 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
     # qkv, G, nq, nk, workspace; B, hw, heads, ch, channel block, splits,
     # pixels per split; stream
@@ -85,8 +87,10 @@ SIGNATURES = {
     # inputs 5, outputs 4, workspace 5, plan; B, H, W, C, hid; ops16; stream
     "rcot_gdfn_fused_bwd": [_P] * 14 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P],
     # bf16 training (fused_dwconv_bf16.cu, block_bwd_bf16.cu, gram_bwd_bf16.cu):
-    # the qkv forward in bf16, the arguments of rcot_conv1x1_dw
-    "rcot_conv1x1_dw_bf16": [_P] * 6 + [ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    # the qkv forward in bf16, the arguments of rcot_conv1x1_dw with the
+    # product-depthwise's plan (null: the product and the depthwise in
+    # launches of their own) after its plan
+    "rcot_conv1x1_dw_bf16": [_P] * 6 + [ctypes.POINTER(_I)] * 2 + [_I] * 5 + [_P],
     # inputs 4, outputs 3, workspace 3, plan, bf16 plan; B, H, W, C, M; ops16;
     # stream
     "rcot_conv1x1_dw_bwd_bf16": [_P] * 10 + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P],
@@ -126,6 +130,9 @@ SIGNATURES = {
     "rcot_dwconv3x3_blocks_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
     "rcot_conv_gate_bf16_blocks_per_sm": [_I] * 2 + [ctypes.POINTER(_I)] * 3,
     "rcot_conv_gate_bf16": [_P] * 3 + [_I] * 9 + [_P],
+    # C, cw, stages -> blocks of the product-depthwise an SM holds, its
+    # shared memory bytes and its launch bound's blocks an SM (pw_dw.cu)
+    "rcot_pw_dw_bf16_blocks_per_sm": [_I] * 3 + [ctypes.POINTER(_I)] * 3,
     # row 11 in bf16 on fp32 taps (io "w32"): the arguments of rcot_dwconv3x3
     # and rcot_dwconv3x3_dtaps (bf16 x, out and g; fp32 taps, workspace, dtaps)
     "rcot_dwconv3x3_w32": [_P] * 3 + [_I] * 9 + [_P],

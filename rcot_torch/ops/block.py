@@ -21,9 +21,12 @@ their launch plans from block_fwd_plan and block_bwd_plan below.
 bf16: a bf16 x with bf16 weights (LN weights fp32, as
 rcot_tpu/models/restormer.py:77-89 passes them) goes to the bf16 kernels of
 csrc/block_fwd_bf16.cu on the card, counted as block_head_bf16 and
-block_tail_bf16 (the tail's gate taken in its depthwise, ops/dwconv.py
-conv_gate_plan: no gate pass, no fp32 conv), and their backwards (bf16 training: the tail in "tail"
-and "full", the head in "full" and "head") to csrc/block_bwd_bf16.cu,
+block_tail_bf16 (the head its LayerNorm and then one launch of the
+product-depthwise, csrc/pw_dw.cu, its plan ops/dwconv.py pw_dw_plan: h never
+reaches device memory; the tail's gate taken in its depthwise, ops/dwconv.py
+conv_gate_plan: no gate pass, no fp32 conv), and their backwards (bf16
+training: the tail in "tail" and "full", the head in "full" and "head") to
+csrc/block_bwd_bf16.cu,
 counted as block_tail_bwd_bf16 and block_head_bwd_bf16; both run
 block_bwd.cu's design on the bf16 tensors themselves (block_bwd_plan's plan
 and a second of their bf16 pieces: the tail's gated_bwd_bf16_plan with the
@@ -221,20 +224,78 @@ def block_head_fwd(x: torch.Tensor, ln_w: torch.Tensor, ln_b: Optional[torch.Ten
                                  ("dwk", dwk, (m, 3, 3), dt)):
         build.check_arg(name, t, shape, dev, want or torch.float32)
     _check_channels(c)
-    out = torch.empty(b, h, w, m, device=dev, dtype=dt)
+    if bf16:
+        return _block_head_bf16(x, ln_w, ln_b, w_qkv, dwk)
+    out = torch.empty(b, h, w, m, device=dev)
     # u, stats, h
-    buf, ws = _workspaces(dev, fwd_workspace_numel(n, c, m, False, bf16))
+    buf, ws = _workspaces(dev, fwd_workspace_numel(n, c, m, False))
     vecs = fwd_vecs(c, m, False, {"u": ws[0], "w_qkv": w_qkv.data_ptr(), "h": ws[2],
-                                  "out": out.data_ptr()}, bf16)
-    plan, n_sums = _fwd_card_plan(b, h, w, c, m, False, dev.index, *vecs, bf16)
+                                  "out": out.data_ptr()})
+    plan, n_sums = _fwd_card_plan(b, h, w, c, m, False, dev.index, *vecs)
     sums = torch.empty(n_sums, device=dev) if n_sums else None
-    kernel = "block_head_bf16" if bf16 else "block_head"
     with torch.cuda.device(dev):
-        build.call("rcot_" + kernel, x.data_ptr(), ln_w.data_ptr(), build.ptr(ln_b),
+        build.call("rcot_block_head", x.data_ptr(), ln_w.data_ptr(), build.ptr(ln_b),
                    w_qkv.data_ptr(), dwk.data_ptr(), out.data_ptr(), *ws, build.ptr(sums),
                    plan, b, h, w, c, m, build.stream())
-    build.LAUNCHES[kernel] += 1
+    build.LAUNCHES["block_head"] += 1
     return out
+
+
+def _block_head_bf16(x, ln_w, ln_b, w_qkv, dwk, launches: bool = False):
+    """block_head_fwd on bf16 CUDA tensors (csrc/block_fwd_bf16.cu): ln_fwd
+    into u, then one launch of the product-depthwise (csrc/pw_dw.cu, its
+    plan pw_card_plan), which keeps h in the SM. With `launches`, or where
+    C passes the product-depthwise's shared memory
+    (kdw.pw_dw_max_channels), the bf16 product and the depthwise in
+    launches of their own through h in device memory (the same bits)."""
+    b, h, w, c = x.shape
+    m = w_qkv.shape[0]
+    n = b * h * w
+    dev = x.device
+    out = torch.empty(b, h, w, m, device=dev, dtype=torch.bfloat16)
+    vec_c = kdw.bf16_vec(c, x.data_ptr(), w_qkv.data_ptr())
+    pw = None if launches else pw_card_plan(b, h, w, c, m, dev.index, vec_c,
+                                            _even_width(m, out.data_ptr()))
+    sizes = fwd_workspace_numel(n, c, m, False, True)  # u, stats
+    buf, ws = _workspaces(dev, sizes if pw else sizes + (_cdiv(n * m, 2),))  # and h
+    vecs = _fwd_vecs_bf16(c, m, False, {"u": ws[0], "w_qkv": w_qkv.data_ptr(),
+                                        "h": ws[2] if pw is None else 0,
+                                        "out": out.data_ptr()})
+    plan, n_sums = _fwd_card_plan(b, h, w, c, m, False, dev.index, *vecs, True)
+    sums = torch.empty(n_sums, device=dev) if n_sums and pw is None else None
+    with torch.cuda.device(dev):
+        build.call("rcot_block_head_bf16", x.data_ptr(), ln_w.data_ptr(), build.ptr(ln_b),
+                   w_qkv.data_ptr(), dwk.data_ptr(), out.data_ptr(), ws[0], ws[1],
+                   ws[2] if pw is None else None, build.ptr(sums), plan, pw, b, h, w, c, m,
+                   build.stream())
+    build.LAUNCHES["block_head_bf16"] += 1
+    return out
+
+
+def _odd_width(m: int) -> ValueError:
+    return ValueError(f"bf16 block kernels: the depthwise width {m} must be even "
+                      "(its copies move two bf16 at least)")
+
+
+def _even_width(m: int, out: int) -> int:
+    """bf16 a store of a bf16 depthwise's output (B,H,W,M) at out; M must be
+    even."""
+    vec = kdw.bf16_vec(m, out)
+    if vec < 2:
+        raise _odd_width(m)
+    return vec
+
+
+@functools.lru_cache(maxsize=None)
+def pw_card_plan(b, h, w, c, m, device_index, vec_c, vec_out):
+    """-> the product-depthwise's plan on this card (kdw.pw_dw_plan, its
+    product's K split that of the design it replaces: split_plan) as a
+    ctypes array, or None where it does not fit (C past
+    kdw.pw_dw_max_channels)."""
+    n_sm = sm_count(device_index)
+    plan = kdw.pw_dw_plan(b, h, w, c, m, n_sm, vec_c, vec_out,
+                          split_plan(b * h * w, m, c, n_sm))
+    return None if plan is None else (ctypes.c_int * kdw.PW_PLAN_INTS)(*plan)
 
 
 def block_tail_fwd(x: torch.Tensor, a: torch.Tensor, w_proj: torch.Tensor,
@@ -497,14 +558,16 @@ def fwd_workspace_numel(n: int, c: int, width: int, tail: bool,
     """Floats of each workspace of a forward on n pixels, in the order the
     kernel takes them: the tail's t, stats, u, h, conv (h's buffer takes
     the gate of a gate pass, n rows of gate_ld(h)), the head's u, stats, h;
-    in bf16 all but stats hold bf16, two to a float, and in place of conv
-    the tail has the gate (n rows of gate_ld(h, bf16)), which its gated
-    depthwise writes: no fp32 conv."""
+    in bf16 all but stats hold bf16, two to a float, in place of conv the
+    tail has the gate (n rows of gate_ld(h, bf16)), which its gated
+    depthwise writes: no fp32 conv; and the head has no h: its
+    product-depthwise keeps h in the SM (the launches that C past its
+    shared memory takes add n x width bf16 of h)."""
     if bf16:
         if tail:
             return (_cdiv(n * c, 2), 2 * n, _cdiv(n * c, 2), _cdiv(n * width, 2),
                     _cdiv(n * gate_ld(width // 2, True), 2))
-        return _cdiv(n * c, 2), 2 * n, _cdiv(n * width, 2)
+        return _cdiv(n * c, 2), 2 * n
     if tail:
         return n * c, 2 * n, n * c, n * max(width, gate_ld(width // 2)), n * width
     return n * c, 2 * n, n * width
@@ -545,8 +608,7 @@ def _fwd_vecs_bf16(c: int, width: int, tail: bool, ptrs: dict) -> Tuple[int, int
         vecs = (kdw.bf16_vec(c, ptrs["u"], ptrs["w_qkv"]), 1, 1,
                 kdw.bf16_vec(width, ptrs["h"], ptrs["out"]))
     if vecs[3] < 2:
-        raise ValueError(f"bf16 block kernels: the depthwise width {width} must be even "
-                         "(its copies move two bf16 at least)")
+        raise _odd_width(width)
     return vecs
 
 

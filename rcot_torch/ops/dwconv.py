@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,7 +113,13 @@ def dwconv_rows(b: int, h: int, w: int, c: int, vec: int, n_sm: int, per_sm: int
     """-> rows a band, on a card of n_sm SMs that holds per_sm blocks an SM
     at once (max_pixels, when not 0, caps tc * rows)."""
     cv, tc = dwconv_tile(c, w, vec)
-    per_band = b * _cdiv(w, tc) * _cdiv(c // vec, cv)
+    return band_rows(h, b * _cdiv(w, tc) * _cdiv(c // vec, cv), tc, n_sm, per_sm, max_pixels)
+
+
+def band_rows(h: int, per_band: int, tc: int, n_sm: int, per_sm: int,
+              max_pixels: int = 0) -> int:
+    """-> rows a band of an image of h rows, for a launch of per_band blocks
+    a band, tc columns each (dwconv_rows' rule)."""
     most_rows = min(h, max(1, max_pixels // tc)) if max_pixels else h
     dense, wave = min(DW_BLOCKS_PER_SM, per_sm) * n_sm, per_sm * n_sm
     runs = {_cdiv(h, bands) for bands in range(_cdiv(h, most_rows),
@@ -255,6 +261,122 @@ def conv_gate_bf16(h: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
                    b, hh, w, hid, gate_ld(hid), vec, cv, tc, rows, build.stream())
     build.LAUNCHES["conv_gate_bf16"] += 1
     return gate
+
+
+# The product-depthwise of the bf16 head and qkv forwards (csrc/pw_dw.cu,
+# rcot_pwdw::pw_dw_bf16): x (B,H,W,C) in (the head's LayerNorm output),
+# qkv (B,H,W,M) out, the 1x1 product taken inside the depthwise's band, so
+# that h never leaves the SM. A block owns PW_COLS output columns
+# (a staged row is PW_PIXELS pixels: one 16-row mma tile) by cw of the M
+# output channels, a multiple of 8 (the product's n tiles) up to
+# PW_MAX_CHUNK (the stencil's threads, PW_VEC channels of one column each,
+# fit DW_THREADS), as few chunks as it takes, then the narrowest; and walks
+# a band of rows (band_rows, dwconv_rows' rule) in steps of pw_dw_group(C)
+# input rows a barrier (more rows a step, fewer steps and more of each
+# step's products in flight at once), with the blocks an SM that its shared
+# memory (pw_dw_smem: a ring of PW_STAGES or two steps of staged rows, the
+# W chunk, two steps' h rows, the taps) and its launch bound
+# (PW_BLOCKS_PER_SM) allow: the chunk and ring that read x the fewest times
+# for each block an SM holds (chunks over blocks an SM), the widest chunk
+# and the deeper ring among equals (pw_dw_fit). Past C = 2,880
+# (pw_dw_max_channels) no chunk fits: the head and the qkv then take their
+# launches of old, through h in device memory. The product's K ranges are
+# ops/block.py split_plan's (the caller's `split`), so that its sums keep
+# mm.cuh's order. Pure functions of the shape and the card's SM count;
+# held against the C side's by a cuda test. The plan's ints are
+# PW_PLAN_INTS, pw_dw.cuh's order.
+PW_COLS = 14
+PW_PIXELS = PW_COLS + 2
+PW_VEC = 4
+PW_MAX_CHUNK = DW_THREADS // PW_COLS * PW_VEC // 8 * 8
+PW_STEP = 32  # the product's K step (csrc/mm.cuh BK)
+PW_STAGES = 3
+PW_BLOCKS_PER_SM = 2
+PW_PLAN_INTS = 8
+# (most C, input rows a step): C decides the step, as the kernel's instances
+PW_GROUPS = ((128, 4), (384, 2))
+
+
+def pw_dw_group(c: int) -> int:
+    """Input rows a step of the band at C channels (csrc/pw_dw.cu pw_group):
+    the first of PW_GROUPS whose C is at least c, else one."""
+    return next((r for most, r in PW_GROUPS if c <= most), 1)
+
+
+def pw_dw_ldk(c: int) -> int:
+    """bf16 between staged rows of x and of the W chunk: C in whole K
+    steps, and 8."""
+    return _cdiv(c, PW_STEP) * PW_STEP + 8
+
+
+def pw_dw_ldh(cw: int) -> int:
+    """bf16 between h's pixels: cw or more, 8 past a multiple of 16."""
+    return cw + (24 - cw % 16) % 16
+
+
+def pw_dw_smem(c: int, cw: int, stages: int) -> int:
+    """Bytes of shared memory a block of the product-depthwise takes
+    (csrc/pw_dw.cu pw_smem)."""
+    r = pw_dw_group(c)
+    return (2 * (stages * r * PW_PIXELS + cw) * pw_dw_ldk(c)
+            + 2 * 2 * r * PW_PIXELS * pw_dw_ldh(cw) + 4 * 9 * cw)
+
+
+def pw_dw_per_sm(c: int, cw: int, stages: int) -> int:
+    """Blocks of the product-depthwise an SM holds: what its launch bound
+    and its shared memory both allow (0: it does not fit)."""
+    return min(PW_BLOCKS_PER_SM, SMEM_PER_SM // (pw_dw_smem(c, cw, stages) + SMEM_RESERVED))
+
+
+def pw_dw_chunk(m: int, most: int = PW_MAX_CHUNK) -> int:
+    """Output channels a block: the fewest chunks of at most `most`, each
+    the narrowest multiple of 8 that holds M in that many."""
+    return _cdiv(_cdiv(m, _cdiv(m, most)), 8) * 8
+
+
+def pw_dw_fit(c: int, m: int) -> Optional[Tuple[int, int]]:
+    """-> (cw, stages) of the product-depthwise at C channels in and M
+    out: of the chunks pw_dw_chunk gives and rings of PW_STAGES or two that
+    fit an SM, the least chunks over blocks an SM, then the widest chunk and
+    the deeper ring; None where none fits."""
+    fits = [(_cdiv(m, cw) / pw_dw_per_sm(c, cw, s), -cw, -s)
+            for cw in {pw_dw_chunk(m, most) for most in range(PW_MAX_CHUNK, 0, -8)}
+            for s in (PW_STAGES, 2) if pw_dw_per_sm(c, cw, s) >= 1]
+    if not fits:
+        return None
+    _, cw, s = min(fits)
+    return -cw, -s
+
+
+def pw_dw_max_channels() -> int:
+    """The most channels C the product-depthwise takes (its narrowest
+    chunk, a ring of two)."""
+    c = PW_STEP
+    while pw_dw_per_sm(c + PW_STEP, 8, 2) >= 1:
+        c += PW_STEP
+    return c
+
+
+def pw_dw_plan(b: int, h: int, w: int, c: int, m: int, n_sm: int, vec_c: int, vec_out: int,
+               split: Tuple[int, int]) -> Optional[Tuple[int, ...]]:
+    """-> the product-depthwise's plan on x (B,H,W,C) into (B,H,W,M) on a
+    card of n_sm SMs, PW_PLAN_INTS ints: vec_c bf16 a copy of x's and W's
+    rows, vec_out bf16 a store of the output (4, or 2 where M or its
+    address holds no four), cw, rows, stages, the input rows a step
+    (pw_dw_group), and the product's split = (K ranges, depth a range)
+    (ops/block.py split_plan); None where it does not fit the card
+    (pw_dw_fit)."""
+    fit = pw_dw_fit(c, m)
+    if fit is None:
+        return None
+    cw, stages = fit
+    per_band = b * _cdiv(w, PW_COLS) * _cdiv(m, cw)
+    rows = band_rows(h, per_band, PW_COLS, n_sm, pw_dw_per_sm(c, cw, stages))
+    parts, k_per = split
+    out = (vec_c, min(vec_out, PW_VEC), cw, rows, stages, pw_dw_group(c), parts,
+           k_per if parts > 1 else c)
+    assert len(out) == PW_PLAN_INTS
+    return out
 
 
 def _plan(x: torch.Tensor, dtaps: bool, *ptrs: int) -> Tuple[int, int, int, int]:

@@ -27,8 +27,10 @@ conv1x1_dw_bf16, gdfn_fused_bf16 and their *_bwd_bf16 names (both
 backwards run fused_dwconv.cu's design on the bf16 tensors themselves, with
 fused_bwd_plan's plan and a second of their bf16 pieces: ops/block.py
 qkv_bwd_bf16_plan for the qkv's, gated_bwd_bf16_plan with the copy widths
-of gated_bf16_vecs for the GDFN's; the GDFN forward takes its gate in its
-depthwise, with no fp32 conv in device memory). The forward twin rounds h, the
+of gated_bf16_vecs for the GDFN's; the qkv forward is one launch of the
+product-depthwise, csrc/pw_dw.cu, with no h in device memory; the GDFN
+forward takes its gate in its depthwise, with no fp32 conv in device
+memory). The forward twin rounds h, the
 GDFN's gate and the output to bf16 where the JAX kernel
 does (pallas_fused.py:153-183); the backward twin is the JAX backward
 kernel's (:297-412): h recomputed and rounded, then everything in fp32
@@ -55,7 +57,7 @@ from ..kernels import build
 from . import dwconv as kdw
 from .block import (GATE_FUSED_MAX_C, _gated_bwd_bf16_card_plan, _mm, _prod,
                     _qkv_bwd_bf16_card_plan, _st, _vjp_plain, _vjp_widened, _wide, _workspaces,
-                    gate_ld, gated_bf16_vecs, ln_plan, split_plan, sum_plan,
+                    gate_ld, gated_bf16_vecs, ln_plan, pw_card_plan, split_plan, sum_plan,
                     sum_workspace_numel)
 from .conv import conv1x1, depthwise3x3  # noqa: F401 (conv1x1: _prod's product, re-exported)
 from .gdfn import gated
@@ -342,23 +344,34 @@ def fused_dwconv_bwd(x: torch.Tensor, w_in: torch.Tensor, dwk: torch.Tensor,
     return dx, dw_in, ddw, dw_out
 
 
-def _conv1x1_dw_bf16(x, w_in, dwk):
-    """The qkv forward on bf16 CUDA tensors: csrc/fused_dwconv_bf16.cu,
-    with fused_fwd_plan's plan in bf16 copy widths."""
+def _conv1x1_dw_bf16(x, w_in, dwk, launches: bool = False):
+    """The qkv forward on bf16 CUDA tensors (csrc/fused_dwconv_bf16.cu): one
+    launch of the product-depthwise (csrc/pw_dw.cu, its plan
+    ops/block.py pw_card_plan), which keeps h in the SM: no workspace. With
+    `launches`, or where C passes the product-depthwise's shared memory, the
+    bf16 product and the depthwise in launches of their own through h in
+    device memory (fused_fwd_plan's plan in bf16 copy widths; the same
+    bits)."""
     b, h, w, c, m = _check(x, w_in, dwk, None)
     dev = x.device
     out = torch.empty(b, h, w, m, device=dev, dtype=torch.bfloat16)
-    buf, (hbuf,) = _workspaces(dev, (-(-b * h * w * m // 2),))
     vec_c = kdw.bf16_vec(c, x.data_ptr(), w_in.data_ptr())
-    vec_m = kdw.bf16_vec(m, hbuf, out.data_ptr())
-    if vec_m < 2:
+    if kdw.bf16_vec(m, out.data_ptr()) < 2:
         raise ValueError(f"bf16 conv1x1_dw: the width {m} must be even "
                          "(its depthwise copies move two bf16 at least)")
-    plan, n_sums = _fwd_card_plan(b, h, w, c, m, False, dev.index, vec_c, 1, 1, vec_m, "bf16")
-    sums = torch.empty(n_sums, device=dev) if n_sums else None
+    pw = None if launches else pw_card_plan(b, h, w, c, m, dev.index, vec_c,
+                                            kdw.bf16_vec(m, out.data_ptr()))
+    hbuf, plan, sums = 0, None, None
+    if pw is None:
+        buf, (hbuf,) = _workspaces(dev, (-(-b * h * w * m // 2),))
+        vec_m = kdw.bf16_vec(m, hbuf, out.data_ptr())
+        plan, n_sums = _fwd_card_plan(b, h, w, c, m, False, dev.index, vec_c, 1, 1, vec_m,
+                                      "bf16")
+        sums = torch.empty(n_sums, device=dev) if n_sums else None
     with torch.cuda.device(dev):
         build.call("rcot_conv1x1_dw_bf16", x.data_ptr(), w_in.data_ptr(), dwk.data_ptr(),
-                   out.data_ptr(), hbuf, build.ptr(sums), plan, b, h, w, c, m, build.stream())
+                   out.data_ptr(), hbuf, build.ptr(sums), plan, pw, b, h, w, c, m,
+                   build.stream())
     build.LAUNCHES["conv1x1_dw_bf16"] += 1
     return out
 

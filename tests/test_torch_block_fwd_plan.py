@@ -268,6 +268,11 @@ def test_the_bf16_plan_is_the_fp32_plan_with_its_gate_pass(b, h, w, c, tail):
         assert bf16.gate_pass == 0 and bf16.ints()[14] == 0
         assert bf16.ints()[10:14] == dw_conv
     sizes = tblock.fwd_workspace_numel(pixels, c, width, tail, bf16=True)
+    if not tail:
+        # the head's product-depthwise keeps h in the SM: u and stats; its
+        # launches of old (C past that kernel's shared memory) add h
+        assert len(sizes) == 2
+        sizes += (-(-pixels * width // 2),)
     # bf16 t, u, h, the gate (rows of gate_ld(h, bf16)); fp32 stats
     need = ((pixels * c / 2, 2 * pixels, pixels * c / 2, pixels * width / 2,
              pixels * tblock.gate_ld(hid, True) / 2) if tail

@@ -6,10 +6,11 @@ forms of rows 5 and 9, both operand policies: row 5's tail (`5`) and head
 (`5h`), row 9's qkv (`9`) and GDFN (`9g`), on bf16 tiles, or, in a tree
 that holds it (`--root`), the design that widened its bf16 operands in a
 launch of its own and rounded its outputs in another (csrc/cast.cuh); and
-the bf16 forwards of row 2's tail (`2`, block_tail_bf16) and row 8's GDFN
-(`8g`, gdfn_fused_bf16).
+the bf16 forwards of row 2's tail (`2`, block_tail_bf16), row 8's GDFN
+(`8g`, gdfn_fused_bf16), row 1's head (`1`, block_head_bf16) and row 8's
+qkv (`8q`, conv1x1_dw_bf16).
 
-    python tools/port_bf16_ablate.py [--rows 3 4 6 7 5 5h 9 9g 2 8g]
+    python tools/port_bf16_ablate.py [--rows 3 4 6 7 5 5h 9 9g 2 8g 1 8q]
                                      [--variants full nostore ...] [--root DIR]
 
 Copies the rcot_torch of DIR (default: this checkout) into
@@ -46,7 +47,14 @@ one part of their kernels in the copy's csrc (or its plan in ops/gram.py):
   noprod    the backward's 1x1 products and pixel sums with their
             fixed-order reduces (rows 5 and 9; the recompute's products
             stay); the forward's 1x1 products (rows 2 and 8g: the tail's
-            three, the GDFN's two);
+            three, the GDFN's two; rows 1 and 8q: the W_qkv or W_in
+            product, in a launch of its own or in the product-depthwise,
+            csrc/pw_dw.cu);
+  noln      the head's LayerNorm launch (row 1);
+  nostencil the product-depthwise's stencil and its stores (rows 1 and 8q
+            in the design that has it);
+  nostage   the product-depthwise's copies of x past its first steps: the
+            ring keeps what it holds (rows 1 and 8q in that design);
   nogate    the forward's gate pass, which reads the fp32 conv and writes
             the bf16 gate (rows 2 and 8g in the design that has one);
   nogelu    the gated depthwise's gelu: the gate c1 c2 (rows 2 and 8g);
@@ -69,8 +77,8 @@ builds the copies at once, then times each in a process of its own, in
 turns (full first and last): device ms a call (chip_smoke.device_ms) and
 each launch's (tools/port_block_bwd_times.py stage_split), row 3 at serve
 L1, serve decoder L1 and train L1, row 4 at serve L1, decoder L1 and L1 at
-batch 8, row 2 at serve L1 and serve decoder L1 (256^2, B = 1), rows 5-7,
-8g and 9 at train L1 and decoder L1 (128^2, B = 3). Rows 5
+batch 8, rows 1 and 2 at serve L1 and serve decoder L1 (256^2, B = 1),
+rows 5-7, 8g, 8q and 9 at train L1 and decoder L1 (128^2, B = 3). Rows 5
 and 9's nowiden and nonarrow cuts are made in the design that widens and
 rounds in launches of its own (`--root` on a checkout that holds it); a
 tree without that design refuses them.
@@ -101,10 +109,14 @@ ROW_SOURCES = {"3": {"gram_bf16.cu"}, "4": {"gram_bf16.cu"},
                "9": {"fused_dwconv_bf16.cu", "dwconv.cu"},
                "9g": {"fused_dwconv_bf16.cu", "dwconv.cu"},
                "2": {"block_fwd_bf16.cu", "dwconv.cu"},
-               "8g": {"fused_dwconv_bf16.cu", "dwconv.cu"}}
+               "8g": {"fused_dwconv_bf16.cu", "dwconv.cu"},
+               "1": {"block_fwd_bf16.cu", "dwconv.cu", "pw_dw.cu"},
+               "8q": {"fused_dwconv_bf16.cu", "dwconv.cu", "pw_dw.cu"}}
 BF16_BWD = ("5", "5h", "9", "9g")
-# the bf16 forwards of row 2's tail and row 8's GDFN, and their sources
-BF16_FWD = {("2",): "csrc/block_fwd_bf16.cu", ("8g",): "csrc/fused_dwconv_bf16.cu"}
+# the bf16 forwards of row 2's tail and row 8's GDFN, row 1's head and row
+# 8's qkv, and their sources; the rows that run the product-depthwise
+BF16_FWD = {("2", "1"): "csrc/block_fwd_bf16.cu", ("8g", "8q"): "csrc/fused_dwconv_bf16.cu"}
+PW_DW = ("1", "8q")
 # rows 5 and 9's cuts, the same text in either source
 WIDENING = {("5", "5h"): "csrc/block_bwd_bf16.cu", ("9", "9g"): "csrc/fused_dwconv_bf16.cu"}
 # variant -> [(rows, file under rcot_torch/, text, replacement)], rows a
@@ -180,7 +192,9 @@ CUTS = {
                for old in ("RCOT_TRY((product<true, ", "RCOT_TRY(pixel_sum<OPS16>(")]
               + [(r, f, old, new) for r, f in BF16_FWD.items() for old, new in (
                   ("  RCOT_TRY((product<false, ", "  if (n < 0) RCOT_TRY((product<false, "),
-                  ("  return product<false, ", "  return n >= 0 ? cudaSuccess : product<false, "))],
+                  ("  return product<false, ", "  return n >= 0 ? cudaSuccess : product<false, "))]
+              + [(PW_DW, "csrc/pw_dw.cu", "    if (rin) row_sums<",
+                  "    if (rin && n_in < 0) row_sums<")],
     "c2one": [(("2", "8g"), "csrc/dwconv.cu", old, new) for old, new in (
         ("      cp_async<V>(dst + s2[k], src + at + hid - d, in);",
          "      for (int e = 0; e < (MODE == kGateShift ? V : 0); ++e)\n"
@@ -197,6 +211,13 @@ CUTS = {
                 "    if (r + kStages - 1 < n_in) stage(r + kStages - 1);\n    cp_commit();\n"
                 "    const bf16* s = ring + (r % kStages) * slot;",
                 "    cp_commit();\n    const bf16* s = ring + (r % kStages) * slot;")],
+    "noln": [("1", "csrc/block_fwd_bf16.cu", "  RCOT_TRY(ln_fwd(x, ln_w, ln_b, u, stats, n, C,",
+              "  if (n < 0) RCOT_TRY(ln_fwd(x, ln_w, ln_b, u, stats, n, C,")],
+    "nostencil": [(PW_DW, "csrc/pw_dw.cu", "if (s >= 1 && st_on) {",
+                   "if (s >= 1 && st_on && n_in < 0) {")],
+    "nostage": [(PW_DW, "csrc/pw_dw.cu",
+                 "if (s + stages - 1 < steps) stage_step(s + stages - 1, next);",
+                 "if (s + stages - 1 < steps && n_in < 0) stage_step(s + stages - 1, next);")],
     "nogate": [(r, f, "  RCOT_TRY(gate_pass(conv, h, n, hid, plan[",
                 "  if (n < 0) RCOT_TRY(gate_pass(conv, h, n, hid, plan[")
                for r, f in BF16_FWD.items()],
@@ -225,6 +246,8 @@ def make_tree(variant: str, rows, src: Path = HERE) -> Path:
             f.unlink()
     for _, name, old, new in cuts(variant, rows):
         f = root / "rcot_torch" / name
+        if not f.exists():  # a design without this source: nothing to cut there
+            continue
         text = f.read_text()
         if old not in text:
             raise SystemExit(f"{variant}: {name} no longer holds {old!r}")
@@ -265,9 +288,13 @@ def time_tree(root: Path, rows) -> dict:
             qkv = r(b, res, res, 3 * ch).to(torch.bfloat16)
             attn = torch.softmax(r(b, 1, ch, ch), -1)
             calls[f"attn_apply_fwd_bf16 {tag}"] = lambda q=qkv, a=attn: g.attn_apply_fwd(q, a)
-    if "2" in rows:
-        for tag, res, ch in (("serve L1", 256, 48), ("serve decoder L1", 256, 96)):
-            p = cs.bf16_block_inputs(cs.block_inputs(gen, 1, res, ch, True))
+    for tag, res, ch in (("serve L1", 256, 48), ("serve decoder L1", 256, 96)):
+        if not {"1", "2"} & set(rows):
+            break
+        p = cs.bf16_block_inputs(cs.block_inputs(gen, 1, res, ch, True))
+        if "1" in rows:
+            calls[f"block_head_bf16 {tag}"] = lambda p=p: kb.block_head(*cs.head_args(p))
+        if "2" in rows:
             calls[f"block_tail_bf16 {tag}"] = lambda p=p: kb.block_tail(*cs.tail_args(p))
     for tag, b, res, ch in (("train L1", 3, 128, 48), ("train decoder L1", 3, 128, 96)):
         qkv = r(b, res, res, 3 * ch).to(torch.bfloat16)
@@ -281,9 +308,12 @@ def time_tree(root: Path, rows) -> dict:
             if "7" in rows:
                 calls[f"attn_apply_bwd_bf16{sfx} {tag}"] = (
                     lambda q=qkv, a=attn, x=gc, o=ops: g.attn_apply_bwd(q, a, x, bf16_ops=o))
-        if not {*BF16_BWD, "8g"} & set(rows):
+        if not {*BF16_BWD, "8g", "8q"} & set(rows):
             continue
         p = cs.bf16_block_inputs(cs.block_inputs(gen, b, res, ch, True))
+        if "8q" in rows:
+            calls[f"conv1x1_dw_bf16 {tag}"] = (
+                lambda p=p: kf.fused_dwconv_fwd(*cs.fused_args(p, False)))
         if "8g" in rows:
             calls[f"gdfn_fused_bf16 {tag}"] = (
                 lambda p=p: kf.fused_dwconv_fwd(*cs.fused_args(p, True)))

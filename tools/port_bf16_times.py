@@ -34,9 +34,9 @@ off/mdta/dwconv forward and tail/mdta/dwconv iteration) and the root and
 the card's name and power limit.
 
 With --redesigned it times only the bf16 forms that their latest Hopper
-redesign replaced (REDESIGNED: row 2's tail forward, block_tail_bf16, at
-serve L1 and serve decoder L1, B = 1, and row 8's GDFN forward,
-gdfn_fused_bf16, at train L1 and decoder L1, B = 3): device ms, event ms,
+redesign replaced (REDESIGNED: row 1's head forward, block_head_bf16, at
+serve L1 and serve decoder L1, B = 1, and row 8's qkv forward,
+conv1x1_dw_bf16, at train L1 and decoder L1, B = 3): device ms, event ms,
 the kernels one call puts on the card and the bytes it allocates at its
 peak, with chip_smoke.bf16_fwd_work's bound (no library call computes
 them), on seeded inputs, one JSON line. chip_smoke.py --root
@@ -176,9 +176,9 @@ def opt_in(smoke, gen) -> dict:
 
 
 # the forms the redesign replaced, by the path and the levels they are timed
-# at: row 2's tail forward in serving (B = 1), row 8's GDFN forward in
+# at: row 1's head forward in serving (B = 1), row 8's qkv forward in
 # training (B = 3)
-REDESIGNED = {"serve": ("block_tail_bf16",), "train": ("gdfn_fused_bf16",)}
+REDESIGNED = {"serve": ("block_head_bf16",), "train": ("conv1x1_dw_bf16",)}
 REDESIGNED_AT = ("L1", "decoder_level1")
 
 
@@ -186,7 +186,7 @@ def redesigned(smoke) -> dict:
     """{"<form> <path> <level>": {device_ms, device_records (kernels a
     call), ms, peak_bytes (what a call allocates at its peak: the output
     and the workspaces), bound_ms, bound_by, library_device_ms}} of the
-    bf16 forwards of row 2's tail (serving, 256^2, B = 1) and row 8's GDFN
+    bf16 forwards of row 1's head (serving, 256^2, B = 1) and row 8's qkv
     (training, 128^2, B = 3), on inputs seeded alike in every tree; the
     bound from chip_smoke.bf16_fwd_work, no library call (None)."""
     torch, kb, kf = smoke.torch, smoke.kblock, smoke.kfused
@@ -198,10 +198,10 @@ def redesigned(smoke) -> dict:
             if label not in REDESIGNED_AT:
                 continue
             p = smoke.bf16_block_inputs(smoke.block_inputs(gen, b, res, c, True))
-            tail, gdfn = smoke.tail_args(p), smoke.fused_args(p, True)
+            head, qkv = smoke.head_args(p), smoke.fused_args(p, False)
             for name in REDESIGNED[path]:
-                fn = ((lambda: kb.block_tail(*tail)) if name == "block_tail_bf16" else
-                      (lambda: kf.fused_dwconv_fwd(*gdfn)))
+                fn = ((lambda: kb.block_head(*head)) if name == "block_head_bf16" else
+                      (lambda: kf.fused_dwconv_fwd(*qkv)))
                 flops, nbytes = smoke.bf16_fwd_work(b, res * res, c)[name]
                 bound_ms, by = smoke.bound_at(flops, nbytes)
                 dev, records = smoke.device_ms(fn)
